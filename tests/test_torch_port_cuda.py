@@ -1,25 +1,31 @@
-"""The port's CUDA kernels K1-K4 against their plain PyTorch versions on the
-card, in bf16, at small shapes with partial tiles and a padded batch
-(chip_smoke.py holds them at the main-path shapes). Every test needs a CUDA
-device and skips without one.
+"""The port's CUDA kernels K1-K7 against their plain PyTorch versions on the
+card, at small shapes with partial tiles and a padded batch (chip_smoke.py
+holds them at the main-path shapes), and the library GEMMs of the deep
+convs against their CPU versions. Every test needs a CUDA device and skips
+without one.
 
 This file imports neither jax nor tests/conftest.py's helpers, so that it
 runs on a machine with the card and no jax:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
-Bound: 2^-6 of max|plain| for the bf16 kernels (both round to bf16 at the
-same points; f32 sums in another order may round to a neighbouring bf16
-value), 1e-4 of max|plain| for the f32 row statistics.
+Bound: 2^-6 of max|plain| for the bf16 kernels K1-K4 (both round to bf16 at
+the same points; f32 sums in another order may round to a neighbouring bf16
+value), 1e-4 of max|plain| for the f32 row statistics, 0 for the row
+abs-max K7. K5/K6 against their plain version run in f32 on the same
+bf16-rounded inputs and weights: 2^-7 of max(|ref|, 1), one bf16 rounding
+of the output (and of the activation the conv's tensor cores take) plus
+f32 order.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from unitspeech_tpu_torch.ops import fused_attention, fused_resnet, row_stats
+from unitspeech_tpu_torch.ops import aa_snake, conv_matmul, fused_attention, fused_resnet, row_stats
 
 BF16_REL = 2.0 ** -6
+AA_REL = 2.0 ** -7
 
 
 @pytest.fixture
@@ -115,3 +121,86 @@ def test_fused_rezero_attention(dev, n, c):
     want = fused_attention.rezero_attention_plain(x, w_qkv, w_out, b_out, g, lens, 4, 32)
     assert not got[1, lens[1]:].any()  # rows past the length come out zero
     _assert_close(got, want, BF16_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,dtype", [(301, 256, torch.bfloat16), (430, 1024, torch.bfloat16),
+                                       (77, 24, torch.float32), (1720, 512, torch.float32)])
+def test_row_absmax(dev, n, c, dtype):
+    """Bit for bit: a max does not depend on the order."""
+    x = _rand(np.random.default_rng(n), dev, 3, n, c).to(dtype)
+    x[1, n // 2, c - 1] = -9.0
+    before = row_stats.row_absmax.launches
+    got = row_stats.row_absmax(x)
+    assert row_stats.row_absmax.launches == before + 1
+    assert torch.equal(got, row_stats.row_absmax_plain(x))
+
+
+def _aa_inputs(rng, dev, c, t, k=None):
+    """bf16 activation and conv weight, f32 snake parameters and bias."""
+    r = lambda *s, scale=1.0: _rand(rng, dev, *s, scale=scale)  # noqa: E731
+    p = dict(x=r(1, c, t, scale=0.7).to(torch.bfloat16), alpha=r(c, scale=0.3),
+             beta=r(c, scale=0.3))
+    if k is not None:
+        p.update(w=r(k, c, c, scale=(k * c) ** -0.5).to(torch.bfloat16), bias=r(c, scale=0.1),
+                 res=r(1, c, t, scale=0.5).to(torch.bfloat16))
+    return p
+
+
+def _f32(p):
+    return {k: v.float() for k, v in p.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,t", [(32, 1001), (256, 333), (64, 5)])
+def test_fused_aa_snake(dev, c, t):
+    """K6 against its plain version in f32 on the same inputs, T not a
+    multiple of the 256-sample tile."""
+    p = _aa_inputs(np.random.default_rng(c + t), dev, c, t)
+    before = aa_snake.fused_aa_snake.launches
+    got = aa_snake.fused_aa_snake(p["x"], p["alpha"], p["beta"])
+    assert aa_snake.fused_aa_snake.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == p["x"].shape
+    q = _f32(p)
+    _assert_close(got, aa_snake.aa_snake_plain(q["x"], q["alpha"], q["beta"]), AA_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,t,k,d,residual", [
+    (32, 1001, 3, 1, True), (32, 777, 11, 5, False), (256, 333, 11, 5, True),
+    (256, 130, 7, 3, False), (128, 64, 3, 3, True), (64, 9, 11, 1, True),
+])
+def test_fused_aa_snake_conv(dev, c, t, k, d, residual):
+    """K5 against its plain version in f32 on the same inputs: C = 32 and
+    256, k = 11 with d = 5, with and without the residual, T not a
+    multiple of the 64-sample tile and shorter than the conv's reach."""
+    p = _aa_inputs(np.random.default_rng(c * k + t), dev, c, t, k)
+    res = p["res"] if residual else None
+    before = aa_snake.fused_aa_snake_conv.launches
+    got = aa_snake.fused_aa_snake_conv(p["x"], p["alpha"], p["beta"], p["w"], p["bias"], d, res)
+    assert aa_snake.fused_aa_snake_conv.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == p["x"].shape
+    q = _f32(p)
+    want = aa_snake.aa_snake_conv_plain(q["x"], q["alpha"], q["beta"], q["w"], q["bias"], d,
+                                        q["res"] if residual else None)
+    _assert_close(got, want, AA_REL)
+
+
+@pytest.mark.cuda
+def test_deep_conv_gemms_match_cpu(dev):
+    """The deep-stage library GEMMs on the card: the bf16 conv keeps its f32
+    accumulator (aten::mm with an f32 output): within 1e-5 of max|CPU| of
+    the CPU's f32 sum of the same 4608 bf16 products (sums in another
+    order; a bf16-rounded output would miss by up to 2^-9 relative); the
+    int8 conv is exact up to the f32 dequantize (1e-6 relative)."""
+    rng = np.random.default_rng(11)
+    x = _rand(rng, dev, 3, 430, 512).to(torch.bfloat16)
+    w = _rand(rng, dev, 3, 3, 512, 256, scale=(9 * 512) ** -0.5)
+    got = conv_matmul.conv3x3_rows(x, w, 10)
+    want = conv_matmul.conv3x3_rows(x.cpu(), w.cpu(), 10)
+    assert got.dtype == torch.float32
+    assert not torch.equal(got, got.to(torch.bfloat16).float())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 * want.abs().max().item())
+    got8 = conv_matmul.conv3x3_int8(x, w, 10)
+    want8 = conv_matmul.conv3x3_int8(x.cpu(), w.cpu(), 10)
+    torch.testing.assert_close(got8.cpu(), want8, rtol=1e-6, atol=1e-6 * want8.abs().max().item())

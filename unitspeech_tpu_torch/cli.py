@@ -38,7 +38,7 @@ def main_make_random_checkpoint(argv=None):
     args = ap.parse_args(argv)
     import torch
 
-    from unitspeech_tpu.config import MainConfig, load_json
+    from unitspeech_tpu_torch.config import MainConfig, load_json
     from unitspeech_tpu_torch.utils.params import random_params
 
     cfg = load_json(args.config) if args.config else MainConfig()
@@ -66,6 +66,12 @@ def main_inference(argv=None) -> dict:
     ap.add_argument("--no-sv56", action="store_true")
     ap.add_argument("--fp32", dest="bf16", action="store_false",
                     help="decoder and vocoder in f32, on the plain path (the kernels take bf16)")
+    ap.add_argument("--no-fast-kernels", dest="fast_kernels", action="store_false",
+                    help="run the plain PyTorch path instead of the estimator and vocoder "
+                         "kernels (default: kernels on in bf16)")
+    ap.add_argument("--no-int8", dest="int8", action="store_false",
+                    help="keep the estimator's deep-stage convs in bf16 (default: int8 "
+                         "whenever the kernels are on, as the JAX serving default)")
     args = ap.parse_args(argv)
     if not args.ipa:
         raise SystemExit("grapheme input is not ported yet: pass IPA text with --ipa")
@@ -80,8 +86,12 @@ def main_inference(argv=None) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda given but no CUDA device is available")
     dtype = torch.bfloat16 if args.bf16 else torch.float32
+    # the JAX serving defaults (unitspeech_tpu/cli.py _load_tts_models):
+    # kernels in bf16, and int8 deep convs whenever the kernels are on
+    fast = args.bf16 and args.fast_kernels
     ckpt = torch.load(args.checkpoint, map_location="cpu", weights_only=True)
-    models = TTSModels.from_checkpoint(ckpt, device=device, dtype=dtype, use_kernels=args.bf16)
+    models = TTSModels.from_checkpoint(ckpt, device=device, dtype=dtype, use_kernels=fast,
+                                       use_int8_deep=fast and args.int8)
     synth = Synthesizer(models)
     token_ids = phonemes_to_sequence(args.text)
     if not token_ids:
@@ -103,7 +113,7 @@ def main_inference(argv=None) -> dict:
     seconds = len(wav) / sr
     stats = {"output": args.output, "tokens": len(token_ids), "frames": len(wav) // hop,
              "seconds": seconds, "wall_s": wall, "rtf": wall / seconds if seconds else None,
-             "device": str(device)}
+             "device": str(device), "kernels": fast, "int8": fast and args.int8}
     print(json.dumps(stats))
     return stats
 

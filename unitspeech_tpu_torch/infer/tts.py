@@ -22,7 +22,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from unitspeech_tpu.config import MainConfig
+from unitspeech_tpu_torch.config import MainConfig
 from unitspeech_tpu_torch.models.diffusion import UnitSpeech, reverse_diffusion
 from unitspeech_tpu_torch.models.duration import DurationPredictor
 from unitspeech_tpu_torch.models.encoder import Encoder
@@ -57,14 +57,16 @@ class TTSModels:
 
     @classmethod
     def from_checkpoint(cls, ckpt: dict, device="cpu", dtype=torch.bfloat16,
-                        use_kernels: bool = True, with_vocoder: bool = True):
+                        use_kernels: bool = True, use_int8_deep: bool = False,
+                        with_vocoder: bool = True):
         """ckpt: the dict utils.params.random_params returns (or one loaded
         from a file that `cli make-random-checkpoint` wrote). The encoder
         and duration predictor run in f32; the decoder and vocoder in
-        `dtype`, with the estimator kernels when `use_kernels`."""
+        `dtype`, with the estimator and vocoder kernels when `use_kernels`,
+        and int8 deep-stage convs when `use_int8_deep`."""
         cfg = config_from_dict(ckpt["config"])
         mods = build_modules(cfg, device=device, dtype=dtype, use_kernels=use_kernels,
-                             with_vocoder=with_vocoder)
+                             use_int8_deep=use_int8_deep, with_vocoder=with_vocoder)
         for name, mod in mods.items():
             mod.load_state_dict(ckpt[name])
             mod.eval().requires_grad_(False)

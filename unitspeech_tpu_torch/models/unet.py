@@ -10,8 +10,10 @@ mults (1, 2, 4, 8) the stages are (F, C) = (80, 128), (40, 256),
 kernels on (use_pallas_resnet and use_pallas_attention, unet.py:316-413,
 525-550, 773-789):
   * ResnetBlock at F % 8 == 0 (F = 80, 40): the fused kernel K1;
-  * ResnetBlocks at the deep stages (F = 20, 10): plain convs with
-    GroupNorm statistics from the row-statistics kernel K3;
+  * ResnetBlocks at the deep stages (F = 20, 10): library GEMM convs with
+    GroupNorm statistics from the row-statistics kernel K3; with
+    `use_int8_deep` (the JAX serving default) int8 GEMMs whose activation
+    scale comes from the row-absmax kernel K7;
   * Rezero attention at T*F >= PALLAS_MIN_TOKENS: the fused kernel K4;
   * the final block + final_conv: the fused kernel K2.
 These gates are the TPU measurements the JAX package chose them from; they
@@ -30,7 +32,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from unitspeech_tpu_torch.models.layers import Affine, Conv2d, ConvTranspose2d, Dense
-from unitspeech_tpu_torch.ops.conv_matmul import choose_conv_impl, conv3x3_rows
+from unitspeech_tpu_torch.ops.conv_matmul import (
+    choose_conv_impl,
+    conv3x3_int8,
+    conv3x3_rows,
+    matmul_f32,
+    quantize_weight,
+)
 from unitspeech_tpu_torch.ops.fused_attention import fused_rezero_attention
 from unitspeech_tpu_torch.ops.fused_resnet import (
     fused_final_block,
@@ -38,7 +46,13 @@ from unitspeech_tpu_torch.ops.fused_resnet import (
     lens_rows_from_mask,
     mish_one_exp,
 )
-from unitspeech_tpu_torch.ops.row_stats import group_mean_inv, row_stats, row_stats_plain
+from unitspeech_tpu_torch.ops.row_stats import (
+    group_mean_inv,
+    row_absmax,
+    row_absmax_plain,
+    row_stats,
+    row_stats_plain,
+)
 
 PALLAS_MIN_TOKENS = 1024  # attention gate (unet.py RezeroAttention)
 
@@ -102,14 +116,24 @@ class ResnetBlock(nn.Module):
         self.block2 = Block(dout, dout, groups)
         self.res_conv = Conv2d(din, dout, 1) if din != dout else None
         self.groups = groups
+        self.flat = choose_conv_impl(din, dout) == "flat"
+        # quantize_weight of conv1 and conv2, set by quantize_int8
+        self.int8_weights = None
 
-    def forward(self, x, mask, t_emb, dtype, use_kernels, pre_masked=False):
+    def quantize_int8(self):
+        """Quantize both conv kernels once for the int8 route: inference
+        weights are frozen, so every call reuses them."""
+        self.int8_weights = tuple(quantize_weight(b.conv.kernel.detach())
+                                  for b in (self.block1, self.block2))
+
+    def forward(self, x, mask, t_emb, dtype, use_kernels, pre_masked=False, use_int8=False):
+        """use_int8: int8 convs on the deep-stage (flat) route only, as the
+        JAX ResnetBlock(use_int8=True) routes them."""
         b, t, f, cin = x.shape
-        dout = self.mlp.kernel.shape[1]
         bias_t = self.mlp(mish(t_emb), dtype=dtype)
         stats = row_stats if use_kernels else row_stats_plain
-        if not (use_kernels and fused_kernel_shape(f)) and choose_conv_impl(cin, dout) == "flat":
-            return self._flat(x, mask, bias_t, dtype, stats, pre_masked)
+        if not (use_kernels and fused_kernel_shape(f)) and self.flat:
+            return self._flat(x, mask, bias_t, dtype, use_kernels, pre_masked, use_int8)
         if use_kernels and fused_kernel_shape(f):
             c1, c2 = self.block1.conv, self.block2.conv
             return fused_resnet_block(
@@ -127,10 +151,14 @@ class ResnetBlock(nn.Module):
             return h + self.res_conv(x_masked, dtype=dtype) * mask
         return h + x_masked
 
-    def _flat(self, x, mask, bias_t, dtype, stats, pre_masked):
+    def _flat(self, x, mask, bias_t, dtype, use_kernels, pre_masked, use_int8):
         """Deep-stage block on flattened rows with f32 GroupNorm glue
-        (unet.py _flat_matmul_block)."""
+        (unet.py _flat_matmul_block). The conv outputs c1/c2 stay f32
+        accumulators; in int8 mode they are rounded to `dtype` after the
+        bias add, where JAX rounds them (unet.py:270-283)."""
         b, t, f, cin = x.shape
+        stats = row_stats if use_kernels else row_stats_plain
+        absmax = row_absmax if use_kernels else row_absmax_plain
         n = t * f
         dout = bias_t.shape[-1]
         mask_rows = mask.expand(b, t, f, 1).reshape(b, n, 1)
@@ -145,19 +173,34 @@ class ResnetBlock(nn.Module):
             h = (acc.to(torch.float32) - mean[:, None, :]) * inv[:, None, :]
             return mish_one_exp(h * scale + shift)
 
-        c1 = conv3x3_rows(xf, self.block1.conv.kernel, f) + self.block1.conv.bias
+        def conv(h, i):
+            c = (self.block1, self.block2)[i].conv
+            if use_int8:
+                wq = None if self.int8_weights is None else self.int8_weights[i]
+                y = conv3x3_int8(h, c.kernel, f, wq=wq, absmax=absmax)
+                return (y + c.bias).to(dtype)
+            return conv3x3_rows(h, c.kernel, f) + c.bias
+
+        c1 = conv(xf, 0)
         h = gn_mish(c1, self.block1.norm) * m32
         h = (h + bias_t[:, None, :].to(torch.float32)).to(dtype)
-        c2 = conv3x3_rows(h * mask_rows.to(dtype), self.block2.conv.kernel, f) \
-            + self.block2.conv.bias
+        c2 = conv(h * mask_rows.to(dtype), 1)
         h2 = gn_mish(c2, self.block2.norm) * m32
         xv = xf * mask_rows.to(dtype)
         if self.res_conv is not None:
-            w = self.res_conv.kernel.reshape(cin, dout).to(dtype)
-            res = ((xv @ w).to(torch.float32) + self.res_conv.bias) * m32
+            res = (matmul_f32(xv, self.res_conv.kernel.reshape(cin, dout))
+                   + self.res_conv.bias) * m32
         else:
             res = xv
         return (h2 + res).to(dtype).reshape(b, t, f, dout)
+
+
+def _quantize_after_load(estimator, _incompatible_keys):
+    """load_state_dict post-hook of an int8 estimator: quantize the flat
+    blocks' conv kernels once the weights are in."""
+    for m in estimator.modules():
+        if isinstance(m, ResnetBlock) and m.flat:
+            m.quantize_int8()
 
 
 class LinearAttention(nn.Module):
@@ -239,10 +282,16 @@ class GradLogPEstimator2d(nn.Module):
     -> score (B, T, F) f32. T must be a multiple of 2**(len(mults)-1)."""
 
     def __init__(self, dim=128, dim_mults=(1, 2, 4, 8), groups=8, pe_scale=1000.0,
-                 spk_emb_dim=256, dtype=torch.float32, use_kernels=False):
+                 spk_emb_dim=256, dtype=torch.float32, use_kernels=False,
+                 use_int8_deep=False):
         super().__init__()
         self.dim, self.groups, self.pe_scale = dim, groups, pe_scale
         self.dtype, self.use_kernels = dtype, use_kernels
+        # int8 deep-stage convs; the early stages (K1) stay in `dtype`, as
+        # the JAX estimator hard-codes (unet.py:394-400)
+        self.use_int8_deep = use_int8_deep
+        if use_int8_deep:
+            self.register_load_state_dict_post_hook(_quantize_after_load)
         t_dim = dim + spk_emb_dim
         self.mlp_0 = Dense(dim, dim * 4)
         self.mlp_1 = Dense(dim * 4, dim)
@@ -269,7 +318,7 @@ class GradLogPEstimator2d(nn.Module):
         self.final_conv = Conv2d(dim, 1, 1)
 
     def forward(self, x, mask, mu, t, spk_emb):
-        dt, uk = self.dtype, self.use_kernels
+        dt, uk, i8 = self.dtype, self.use_kernels, self.use_int8_deep
         t_emb = sinusoidal_pos_emb(t, self.dim, self.pe_scale)
         t_emb = self.mlp_0(t_emb, dtype=dt)
         t_emb = self.mlp_1(mish(t_emb), dtype=dt)
@@ -281,9 +330,9 @@ class GradLogPEstimator2d(nn.Module):
         n_res = len(self.dims)
         for i in range(n_res):
             mk = masks[-1]
-            h = getattr(self, f"down_{i}_res1")(h, mk, t_emb, dt, uk)
+            h = getattr(self, f"down_{i}_res1")(h, mk, t_emb, dt, uk, use_int8=i8)
             # res1's output is masked: res2 skips its input mask
-            h = getattr(self, f"down_{i}_res2")(h, mk, t_emb, dt, uk, pre_masked=True)
+            h = getattr(self, f"down_{i}_res2")(h, mk, t_emb, dt, uk, pre_masked=True, use_int8=i8)
             attn = getattr(self, f"down_{i}_attn")
             h_in = h
             h = attn(h, mk, dt, uk)
@@ -295,15 +344,15 @@ class GradLogPEstimator2d(nn.Module):
 
         masks = masks[:-1]
         mk = masks[-1]
-        h = self.mid_res1(h, mk, t_emb, dt, uk)
+        h = self.mid_res1(h, mk, t_emb, dt, uk, use_int8=i8)
         h = self.mid_attn(h, mk, dt, uk)
-        h = self.mid_res2(h, mk, t_emb, dt, uk)
+        h = self.mid_res2(h, mk, t_emb, dt, uk, use_int8=i8)
 
         for i in reversed(range(n_res - 1)):
             mk = masks.pop()
             h = torch.cat([h, hiddens.pop()], dim=-1)
-            h = getattr(self, f"up_{i}_res1")(h, mk, t_emb, dt, uk)
-            h = getattr(self, f"up_{i}_res2")(h, mk, t_emb, dt, uk, pre_masked=True)
+            h = getattr(self, f"up_{i}_res1")(h, mk, t_emb, dt, uk, use_int8=i8)
+            h = getattr(self, f"up_{i}_res2")(h, mk, t_emb, dt, uk, pre_masked=True, use_int8=i8)
             attn = getattr(self, f"up_{i}_attn")
             h_in = h
             h = attn(h, mk, dt, uk)

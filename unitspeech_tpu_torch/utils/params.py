@@ -16,7 +16,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from unitspeech_tpu.config import MainConfig
+from unitspeech_tpu_torch.config import MainConfig, config_from_dict  # noqa: F401
 
 
 def params_from_jax(tree) -> dict:
@@ -51,8 +51,10 @@ def params_to_jax(state_dict) -> dict:
 
 
 def build_modules(cfg: MainConfig, device="cpu", dtype=torch.float32, use_kernels=True,
-                  with_vocoder=True) -> dict:
-    """The slice's modules at `cfg`'s widths, parameters uninitialized."""
+                  use_int8_deep=False, with_vocoder=True) -> dict:
+    """The slice's modules at `cfg`'s widths, parameters uninitialized.
+    use_kernels routes the estimator and the vocoder through the kernels;
+    use_int8_deep runs the estimator's deep-stage convs in int8."""
     from unitspeech_tpu_torch.models.diffusion import UnitSpeech
     from unitspeech_tpu_torch.models.duration import DurationPredictor
     from unitspeech_tpu_torch.models.encoder import Encoder
@@ -62,10 +64,12 @@ def build_modules(cfg: MainConfig, device="cpu", dtype=torch.float32, use_kernel
         mods = {
             "text_encoder": Encoder.from_config(cfg.text_encoder),
             "duration_predictor": DurationPredictor.from_config(cfg.duration_predictor),
-            "decoder": UnitSpeech.from_config(cfg.decoder, dtype=dtype, use_kernels=use_kernels),
+            "decoder": UnitSpeech.from_config(cfg.decoder, dtype=dtype, use_kernels=use_kernels,
+                                              use_int8_deep=use_int8_deep),
         }
         if with_vocoder:
-            mods["vocoder"] = BigVGAN.from_config(cfg.vocoder, dtype=dtype)
+            mods["vocoder"] = BigVGAN.from_config(cfg.vocoder, dtype=dtype,
+                                                  use_kernels=use_kernels)
     return mods
 
 
@@ -116,19 +120,3 @@ def random_params(cfg: MainConfig, seed: int) -> dict:
     ckpt["mel_max"] = torch.full((cfg.data.n_feats,), 3.0)
     ckpt["config"] = dataclasses.asdict(cfg)
     return ckpt
-
-
-def _tuples(v):
-    return tuple(_tuples(x) for x in v) if isinstance(v, (list, tuple)) else v
-
-
-def config_from_dict(d: dict) -> MainConfig:
-    """MainConfig from dataclasses.asdict output (as stored in checkpoints)."""
-    base = MainConfig()
-    updates = {}
-    for f in dataclasses.fields(MainConfig):
-        if f.name in d:
-            sub = getattr(base, f.name)
-            updates[f.name] = dataclasses.replace(
-                sub, **{k: _tuples(v) for k, v in d[f.name].items()})
-    return dataclasses.replace(base, **updates)
