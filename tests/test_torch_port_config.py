@@ -68,13 +68,17 @@ sys.meta_path.insert(0, Block())
 import chip_smoke  # noqa: F401
 from unitspeech_tpu_torch import cli, measure  # noqa: F401
 from unitspeech_tpu_torch.ops import aa_snake, conv_matmul, fused_attention, fused_resnet
-from unitspeech_tpu_torch.ops import row_stats  # noqa: F401
+from unitspeech_tpu_torch.ops import fused_resnet_deep, resample, row_stats  # noqa: F401
 
 cfg, ckpt, out = sys.argv[1:4]
 cli.main_make_random_checkpoint(["--seed", "1", "--config", cfg, "--output", ckpt])
 stats = cli.main_inference(["--ipa", "--text", "həloʊ", "--checkpoint", ckpt,
                             "--output", out, "--device", "cpu", "--diffusion-steps", "1"])
 assert stats["kernels"] and stats["int8"], stats
+stats = cli.main_inference(["--ipa", "--text", "həloʊ", "--checkpoint", ckpt,
+                            "--output", out, "--device", "cpu", "--diffusion-steps", "1",
+                            "--deep", "--i8pre", "--resample"])
+assert stats["deep"] and stats["i8pre"] and stats["resample"], stats
 print("no JAX imported:", not any(m.split(".")[0] in ("jax", "unitspeech_tpu")
                                   for m in sys.modules))
 """
@@ -82,8 +86,9 @@ print("no JAX imported:", not any(m.split(".")[0] in ("jax", "unitspeech_tpu")
 
 def test_port_and_chip_smoke_import_nothing_of_jax(tmp_path):
     """chip_smoke.py and the port's CLI (make-random-checkpoint, then
-    inference with its defaults on the CPU) run with every import of jax,
-    flax or unitspeech_tpu refused."""
+    inference on the CPU with its defaults and with the fused deep-stage
+    switches) run with every import of jax, flax or unitspeech_tpu
+    refused."""
     cfg = json.loads(json.dumps(TINY))
     cfg["text_encoder"]["n_vocab"] = 180  # the IPA symbol table
     (tmp_path / "tiny.json").write_text(json.dumps(cfg))

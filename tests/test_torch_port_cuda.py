@@ -1,31 +1,47 @@
-"""The port's CUDA kernels K1-K7 against their plain PyTorch versions on the
-card, at small shapes with partial tiles and a padded batch (chip_smoke.py
-holds them at the main-path shapes), and the library GEMMs of the deep
-convs against their CPU versions. Every test needs a CUDA device and skips
-without one.
+"""The port's CUDA kernels K1-K9 and K11 against their plain PyTorch
+versions on the card, at small shapes with partial tiles and a padded batch
+(chip_smoke.py holds them at the main-path shapes), and the library GEMMs
+of the deep convs against their CPU versions. Every test needs a CUDA
+device and skips without one.
 
 This file imports neither jax nor tests/conftest.py's helpers, so that it
 runs on a machine with the card and no jax:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
-Bound: 2^-6 of max|plain| for the bf16 kernels K1-K4 (both round to bf16 at
-the same points; f32 sums in another order may round to a neighbouring bf16
-value), 1e-4 of max|plain| for the f32 row statistics, 0 for the row
-abs-max K7. K5/K6 against their plain version run in f32 on the same
-bf16-rounded inputs and weights: 2^-7 of max(|ref|, 1), one bf16 rounding
-of the output (and of the activation the conv's tensor cores take) plus
-f32 order.
+Bound: 2^-6 of max|plain| for the bf16 kernels K1-K4, K8 and K11 (both
+round to bf16 at the same points; f32 sums in another order may round to a
+neighbouring bf16 value), 1e-4 of max|plain| for the f32 row statistics, 0
+for the row abs-max K7. K9 adds one int8 step at the few values within f32
+round-off of a rounding boundary (I8_REL below). K5/K6 against their plain
+version run in f32 on the same bf16-rounded inputs and weights: 2^-7 of
+max(|ref|, 1), one bf16 rounding of the output (and of the activation the
+conv's tensor cores take) plus f32 order.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from unitspeech_tpu_torch.ops import aa_snake, conv_matmul, fused_attention, fused_resnet, row_stats
+from unitspeech_tpu_torch.ops import (
+    aa_snake,
+    conv_matmul,
+    fused_attention,
+    fused_resnet,
+    fused_resnet_deep,
+    resample,
+    row_stats,
+)
 
 BF16_REL = 2.0 ** -6
 AA_REL = 2.0 ** -7
+# K9: the kernel's GroupNorm statistics are summed in another order than
+# the plain version's, so a glue value within f32 round-off of a .5 int8
+# boundary may round the other way. One such step moves a conv2 output by
+# max|w2| * max|h| / 127, i.e. about max|w2| / (127 * rms(w2) * sqrt(K)) of
+# its normalised value (3e-3 at these widths, a few of them at most), well
+# under 2^-7 of max|plain|; the bound is BF16_REL plus that step.
+I8_REL = 2.0 ** -6 + 2.0 ** -7
 
 
 @pytest.fixture
@@ -204,3 +220,91 @@ def test_deep_conv_gemms_match_cpu(dev):
     got8 = conv_matmul.conv3x3_int8(x, w, 10)
     want8 = conv_matmul.conv3x3_int8(x.cpu(), w.cpu(), 10)
     torch.testing.assert_close(got8.cpu(), want8, rtol=1e-6, atol=1e-6 * want8.abs().max().item())
+
+
+def _block_params(rng, dev, cin, cout):
+    r = lambda *s, scale=1.0: _rand(rng, dev, *s, scale=scale)  # noqa: E731
+    p = dict(t_bias=r(3, cout), w1=r(3, 3, cin, cout, scale=(9 * cin) ** -0.5),
+             b1=r(cout, scale=0.1), gn1_scale=1 + r(cout, scale=0.1), gn1_bias=r(cout, scale=0.1),
+             w2=r(3, 3, cout, cout, scale=(9 * cout) ** -0.5), b2=r(cout, scale=0.1),
+             gn2_scale=1 + r(cout, scale=0.1), gn2_bias=r(cout, scale=0.1))
+    if cin != cout:
+        p.update(wres=r(1, 1, cin, cout, scale=cin ** -0.5), bres=r(cout, scale=0.1))
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,f,cin,cout", [(14, 20, 256, 512), (7, 10, 1024, 1024),
+                                          (7, 10, 2048, 512), (14, 20, 1024, 256)])
+def test_fused_resnet_block_deep(dev, t, f, cin, cout):
+    """K8 at the deep stages' widths: Cin up to 2048 (the up-stage skip
+    concat), Cout 1024 (kernel B's transform table above 48 KB of shared
+    memory), partial row tiles, one padded row."""
+    rng = np.random.default_rng(cin + cout + f)
+    mask = _mask(dev, t, [t, t - 5, t])
+    p = _block_params(rng, dev, cin, cout)
+    x = _rand(rng, dev, 3, t, f, cin).to(torch.bfloat16)
+    before = fused_resnet_deep.fused_resnet_block_deep.launches
+    got = fused_resnet_deep.fused_resnet_block_deep(x, mask, **p, groups=8)
+    assert fused_resnet_deep.fused_resnet_block_deep.launches == before + 1
+    want = fused_resnet_deep.fused_resnet_block_deep(x.cpu(), mask.cpu(),
+                                                     **{k: v.cpu() for k, v in p.items()},
+                                                     groups=8)
+    assert got.dtype == torch.bfloat16 and got.shape == (3, t, f, cout)
+    _assert_close(got.cpu(), want, BF16_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,f,cin,cout", [(14, 20, 256, 512), (7, 10, 512, 512),
+                                          (7, 10, 2048, 512), (14, 20, 1024, 256)])
+def test_fused_resnet_block_deep_i8(dev, t, f, cin, cout):
+    """K9 against its plain version on the card (same int8 operands, the
+    plain int8 GEMM exact): conv1 in int8 for Cin <= Cout, in bf16 for the
+    Cin > Cout hybrids; padding rows come out zero."""
+    rng = np.random.default_rng(cin * 3 + cout + f)
+    mask = _mask(dev, t, [t, t - 5, t])
+    p = _block_params(rng, dev, cin, cout)
+    x = _rand(rng, dev, 3, t, f, cin).to(torch.bfloat16)
+    wq = (fused_resnet_deep.quant_w(p["w1"]), fused_resnet_deep.quant_w(p["w2"]))
+    before = fused_resnet_deep.fused_resnet_block_deep_i8.launches
+    got = fused_resnet_deep.fused_resnet_block_deep_i8(x, mask, **p, groups=8, wq=wq)
+    assert fused_resnet_deep.fused_resnet_block_deep_i8.launches == before + 1
+    args = (x.reshape(3, t * f, cin), fused_resnet.lens_rows_from_mask(mask, f), p["t_bias"],
+            p["w1"].reshape(9 * cin, cout), wq[0], p["b1"], p["gn1_scale"], p["gn1_bias"], wq[1],
+            p["b2"], p["gn2_scale"], p["gn2_bias"],
+            p["wres"].reshape(cin, cout) if "wres" in p else None, p.get("bres"))
+    want = fused_resnet_deep.resnet_block_deep_i8_plain(*args, f=f, groups=8)
+    assert got.dtype == torch.bfloat16
+    assert not got[1, t - 5:].any()
+    _assert_close(got, want, I8_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,f,cin,cout,lens", [(24, 80, 128, 128, [24, 17, 24]),
+                                               (18, 40, 256, 256, [18, 5, 18]),
+                                               (6, 16, 64, 128, [6, 6, 3])])
+def test_fused_downsample_conv(dev, t, f, cin, cout, lens):
+    rng = np.random.default_rng(t * f + cin)
+    mask = _mask(dev, t, lens)
+    x = _rand(rng, dev, 3, t, f, cin).to(torch.bfloat16)
+    w, b = _rand(rng, dev, 3, 3, cin, cout, scale=(9 * cin) ** -0.5), _rand(rng, dev, cout)
+    before = resample.fused_downsample_conv.launches
+    got = resample.fused_downsample_conv(x, mask, w, b)
+    assert resample.fused_downsample_conv.launches == before + 1
+    assert got.shape == (3, t // 2, f // 2, cout) and got.dtype == torch.bfloat16
+    _assert_close(got, resample.downsample_conv_plain(x, mask, w, b), BF16_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,f,cin,cout,lens", [(24, 40, 128, 128, [24, 17, 24]),
+                                               (7, 20, 256, 64, [7, 2, 7])])
+def test_fused_upsample_conv(dev, t, f, cin, cout, lens):
+    rng = np.random.default_rng(t * f + cin + 1)
+    mask = _mask(dev, t, lens)
+    x = _rand(rng, dev, 3, t, f, cin).to(torch.bfloat16)
+    w, b = _rand(rng, dev, 4, 4, cin, cout, scale=(4 * cin) ** -0.5), _rand(rng, dev, cout)
+    before = resample.fused_upsample_conv.launches
+    got = resample.fused_upsample_conv(x, mask, w, b)
+    assert resample.fused_upsample_conv.launches == before + 1
+    assert got.shape == (3, 2 * t, 2 * f, cout) and got.dtype == torch.bfloat16
+    _assert_close(got, resample.upsample_conv_plain(x, mask, w, b), BF16_REL)

@@ -200,7 +200,8 @@ def test_synthesizer_int8_matches_jax():
     jsynth = {True: jtts.Synthesizer(jm), False: jtts.Synthesizer(dataclasses.replace(
         jm, decoder=jdiff.UnitSpeech.from_config(TINY_I8.decoder)))}
     ports = {i8: ttts.Synthesizer(ttts.TTSModels.from_checkpoint(
-        ckpt, dtype=torch.float32, use_kernels=True, use_int8_deep=i8, with_vocoder=False))
+        ckpt, device="cpu", dtype=torch.float32, use_kernels=True, use_int8_deep=i8,
+        with_vocoder=False))
         for i8 in (True, False)}
     est = ports[True].models.decoder.estimator
     assert est.use_int8_deep
@@ -239,8 +240,15 @@ def test_synthesizer_int8_matches_jax():
     assert np.abs(got[True] - want[True]).mean() < d_jax
 
 
+# the stats line's keys and the TTSModels.from_checkpoint switches they report
+ROUTE_KEYS = {"kernels": "use_kernels", "int8": "use_int8_deep", "deep": "use_deep",
+              "i8pre": "use_i8pre_deep", "resample": "use_resample"}
+
+
 def _routes(monkeypatch, argv, tmp_path, ckpt):
-    """Run `cli inference` on the CPU and report the routing it built."""
+    """Run `cli inference` on the CPU and report the routing it built
+    (ROUTE_KEYS' switches, then the dtype); the stats line reports the
+    same."""
     built = {}
     real = ttts.TTSModels.from_checkpoint
 
@@ -252,17 +260,27 @@ def _routes(monkeypatch, argv, tmp_path, ckpt):
     stats = cli.main_inference(["--ipa", "--text", "həloʊ", "--checkpoint", ckpt,
                                 "--output", str(tmp_path / "o.wav"), "--device", "cpu",
                                 "--diffusion-steps", "1", *argv])
-    assert stats["kernels"] == built["use_kernels"] and stats["int8"] == built["use_int8_deep"]
-    return built["use_kernels"], built["use_int8_deep"], built["dtype"]
+    assert {k: stats[k] for k in ROUTE_KEYS} == {k: built[v] for k, v in ROUTE_KEYS.items()}
+    return (*(built[v] for v in ROUTE_KEYS.values()), built["dtype"])
 
 
 def test_cli_kernel_and_int8_switches(monkeypatch, tmp_path):
     """The JAX serving defaults: kernels on in bf16 and int8 with them;
     --no-int8 keeps the kernels in bf16, --no-fast-kernels and --fp32 take
-    the plain path with no int8."""
+    the plain path with no int8. The fused deep-stage switches --deep,
+    --i8pre and --resample are off by default, as in JAX, and on only with
+    the kernels; --i8pre routes only with int8 on."""
     ckpt = _tiny_checkpoint(tmp_path)
-    assert _routes(monkeypatch, [], tmp_path, ckpt) == (True, True, torch.bfloat16)
-    assert _routes(monkeypatch, ["--no-int8"], tmp_path, ckpt) == (True, False, torch.bfloat16)
+    bf16, off = torch.bfloat16, (False, False, False)
+    assert _routes(monkeypatch, [], tmp_path, ckpt) == (True, True, *off, bf16)
+    assert _routes(monkeypatch, ["--no-int8"], tmp_path, ckpt) == (True, False, *off, bf16)
     assert _routes(monkeypatch, ["--no-fast-kernels"], tmp_path, ckpt) == \
-        (False, False, torch.bfloat16)
-    assert _routes(monkeypatch, ["--fp32"], tmp_path, ckpt) == (False, False, torch.float32)
+        (False, False, *off, bf16)
+    assert _routes(monkeypatch, ["--fp32"], tmp_path, ckpt) == \
+        (False, False, *off, torch.float32)
+    deep = ["--deep", "--i8pre", "--resample"]
+    assert _routes(monkeypatch, deep, tmp_path, ckpt) == (True, True, True, True, True, bf16)
+    assert _routes(monkeypatch, [*deep, "--no-int8"], tmp_path, ckpt) == \
+        (True, False, True, False, True, bf16)
+    assert _routes(monkeypatch, [*deep, "--no-fast-kernels"], tmp_path, ckpt) == \
+        (False, False, *off, bf16)

@@ -89,7 +89,7 @@ def slice_pair():
 
 def _port(ckpt, use_kernels=True):
     return ttts.Synthesizer(ttts.TTSModels.from_checkpoint(
-        ckpt, dtype=torch.float32, use_kernels=use_kernels))
+        ckpt, device="cpu", dtype=torch.float32, use_kernels=use_kernels))
 
 
 def _jax_durations(jsynth):
@@ -207,3 +207,18 @@ def test_cli_refuses_cuda_without_a_device(tmp_path):
     with pytest.raises(SystemExit, match="no CUDA device"):
         cli.main_inference(["--ipa", "--text", "həloʊ", "--checkpoint", ckpt,
                             "--output", str(tmp_path / "x.wav"), "--device", "cuda"])
+
+
+def test_default_device_is_the_card(slice_pair, monkeypatch):
+    """TTSModels.from_checkpoint and build_modules put the modules on the card
+    unless the caller asks for the CPU; with no CUDA device they raise, and
+    never fall back to the CPU."""
+    from unitspeech_tpu_torch.utils.params import build_modules, config_from_dict
+
+    _, ckpt = slice_pair
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttts.TTSModels.from_checkpoint(ckpt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_modules(config_from_dict(ckpt["config"]))
+    assert _port(ckpt).models.device.type == "cpu"

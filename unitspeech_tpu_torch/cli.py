@@ -72,6 +72,15 @@ def main_inference(argv=None) -> dict:
     ap.add_argument("--no-int8", dest="int8", action="store_false",
                     help="keep the estimator's deep-stage convs in bf16 (default: int8 "
                          "whenever the kernels are on, as the JAX serving default)")
+    # the JAX package's fused deep-stage configuration (bench.py --deep --i8pre
+    # --resample); off by default, as there, and only with the kernels on
+    ap.add_argument("--deep", action="store_true",
+                    help="whole-layer deep-stage ResnetBlocks (K8, bf16 even with int8 on)")
+    ap.add_argument("--i8pre", action="store_true",
+                    help="deep blocks with Cout <= 512 as int8 convs on pre-quantized "
+                         "activations (K9); routes only with int8 on")
+    ap.add_argument("--resample", action="store_true",
+                    help="fused stride-2 Downsample/Upsample convs (K11) where they apply")
     args = ap.parse_args(argv)
     if not args.ipa:
         raise SystemExit("grapheme input is not ported yet: pass IPA text with --ipa")
@@ -89,9 +98,11 @@ def main_inference(argv=None) -> dict:
     # the JAX serving defaults (unitspeech_tpu/cli.py _load_tts_models):
     # kernels in bf16, and int8 deep convs whenever the kernels are on
     fast = args.bf16 and args.fast_kernels
+    routes = dict(use_kernels=fast, use_int8_deep=fast and args.int8,
+                  use_deep=fast and args.deep, use_resample=fast and args.resample,
+                  use_i8pre_deep=fast and args.int8 and args.i8pre)
     ckpt = torch.load(args.checkpoint, map_location="cpu", weights_only=True)
-    models = TTSModels.from_checkpoint(ckpt, device=device, dtype=dtype, use_kernels=fast,
-                                       use_int8_deep=fast and args.int8)
+    models = TTSModels.from_checkpoint(ckpt, device=device, dtype=dtype, **routes)
     synth = Synthesizer(models)
     token_ids = phonemes_to_sequence(args.text)
     if not token_ids:
@@ -113,7 +124,9 @@ def main_inference(argv=None) -> dict:
     seconds = len(wav) / sr
     stats = {"output": args.output, "tokens": len(token_ids), "frames": len(wav) // hop,
              "seconds": seconds, "wall_s": wall, "rtf": wall / seconds if seconds else None,
-             "device": str(device), "kernels": fast, "int8": fast and args.int8}
+             "device": str(device), "kernels": fast, "int8": routes["use_int8_deep"],
+             "deep": routes["use_deep"], "i8pre": routes["use_i8pre_deep"],
+             "resample": routes["use_resample"]}
     print(json.dumps(stats))
     return stats
 

@@ -1,8 +1,10 @@
-// U-Net ResnetBlock and final block (kernels K1 and K2).
+// U-Net ResnetBlock and final block (kernels K1, K2 and K8).
 //
 // Replaces the Pallas kernels in unitspeech_tpu/ops/pallas_resnet.py:
-// fused_resnet_block (_fused_resnet: _kernel_a, _kernel_b, _kernel_c) and
-// fused_final_block (_fused_final: _kernel_a, _kernel_d).
+// fused_resnet_block (_fused_resnet: _kernel_a, _kernel_b, _kernel_c),
+// fused_final_block (_fused_final: _kernel_a, _kernel_d) and
+// fused_resnet_block_deep (_fused_resnet_deep: _kernel_a_deep,
+// _kernel_b_deep, _kernel_c): us_resnet_block at the deep stages.
 //
 // Layout: rows n = t*F + f of one batch element, channels last, bf16.
 // conv3x3 is an implicit GEMM: M = rows, N = Cout, K = 9*Cin with the
@@ -18,6 +20,19 @@
 // fused into the GEMM's loaders and epilogues: the block reads its input
 // once, writes c1 and c2 once each, and re-reads them once.
 //
+// K8, the deep stages (F = 20/10, C = 512-2048): the TPU kernel holds the
+// whole layer in VMEM, pads rows to 8 and moves conv1 (for cin > cout) and
+// the 1x1 residual out of the kernel, all to suit Mosaic. None of that
+// carries over. On Hopper the same tiled implicit GEMM serves: the
+// activation (< 4 MB) stays in the 50 MB L2 between tiles, the kernel-B
+// transform table sits in dynamic shared memory (5 * Cin floats, 20 KB at
+// C = 1024), and the numbers are K1's: statistics over exactly the T*F rows
+// of the bucket, the residual an f32 sum of bf16 products rounded once with
+// the rest. Each deep conv is 12-24 GFLOP (3 rows at the 344-frame bucket)
+// against weights of 4.7-19 MB, so the tensor cores bound it; with 430 or
+// 1720 rows a batch element the 128 x 64 tiles give 96-336 blocks, about a
+// wave or two on 132 SMs (untuned).
+//
 // No state is carried across blocks: every 128-row tile writes its column
 // sum and sum of squares to a scratch buffer, and gn_finalize reduces the
 // tiles in a fixed order, so the statistics are deterministic. Statistics
@@ -27,11 +42,8 @@
 
 namespace {
 
-constexpr int BM = 128, BN = 64, BK = 32;
-constexpr int AST = BK + 8;  // padded smem row strides: ldmatrix without
-constexpr int BST = BN + 8;  // bank conflicts
-constexpr int NTHREADS = 256;
-constexpr int MAXC = 512;  // widest input a transformed (kernel B) load takes
+constexpr int BM = IG_BM, BN = IG_BN, BK = IG_BK;
+constexpr int NTHREADS = IG_THREADS;
 
 struct ConvArgs {
   const bf16* x;       // (B, N, Cin)
@@ -66,15 +78,16 @@ __device__ __forceinline__ int source_row(int m, int tap, int T, int F) {
 }
 
 // TAPS: 9 (conv3x3) or 1 (1x1 residual). XFORM: GN-apply the input on load
-// (kernel B). EPI: 0 writes bias-added output + tile statistics (kernels A,
-// B); 1 writes the ResnetBlock output with the 1x1 residual (kernel C).
-// VEC: Cin % 8 == 0, 16-byte loads; otherwise element loads (Cin = 2).
+// (kernel B); its per-channel table (mean, inv, scale, shift, film: 5 * Cin
+// floats) lives in dynamic shared memory, so Cin is not capped. EPI: 0
+// writes bias-added output + tile statistics (kernels A, B); 1 writes the
+// ResnetBlock output with the 1x1 residual (kernel C). VEC: Cin % 8 == 0,
+// 16-byte loads; otherwise element loads (Cin = 2).
 template <int TAPS, bool XFORM, int EPI, bool VEC>
 __global__ void __launch_bounds__(NTHREADS) conv_gemm(ConvArgs p) {
-  __shared__ __align__(16) bf16 As[2][BM * AST];
-  __shared__ __align__(16) bf16 Bs[2][BK * BST];
-  __shared__ float xf[XFORM ? 5 * MAXC : 1];
+  __shared__ IgemmTiles tiles;
   __shared__ float red[4][2][BN];
+  extern __shared__ float xf[];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 1, wn = warp & 1;
@@ -90,10 +103,10 @@ __global__ void __launch_bounds__(NTHREADS) conv_gemm(ConvArgs p) {
   if (XFORM) {
     for (int c = tid; c < Cin; c += NTHREADS) {
       xf[c] = p.in_mean[b * Cin + c];
-      xf[MAXC + c] = p.in_inv[b * Cin + c];
-      xf[2 * MAXC + c] = p.in_scale[c];
-      xf[3 * MAXC + c] = p.in_shift[c];
-      xf[4 * MAXC + c] = __bfloat162float(p.film[b * Cin + c]);
+      xf[Cin + c] = p.in_inv[b * Cin + c];
+      xf[2 * Cin + c] = p.in_scale[c];
+      xf[3 * Cin + c] = p.in_shift[c];
+      xf[4 * Cin + c] = __bfloat162float(p.film[b * Cin + c]);
     }
     __syncthreads();
   }
@@ -101,9 +114,9 @@ __global__ void __launch_bounds__(NTHREADS) conv_gemm(ConvArgs p) {
   // kernel B's conv input, one element: the JAX kernel rounds it to bf16
   // after GN-apply, mish, FiLM and the (already applied) row mask
   auto xform = [&](float v, int ci) -> float {
-    float h = (v - xf[ci]) * xf[MAXC + ci];
-    h = h * xf[2 * MAXC + ci] + xf[3 * MAXC + ci];
-    return mish_f32(h) + xf[4 * MAXC + ci];
+    float h = (v - xf[ci]) * xf[Cin + ci];
+    h = h * xf[2 * Cin + ci] + xf[3 * Cin + ci];
+    return mish_f32(h) + xf[4 * Cin + ci];
   };
 
   auto load_a = [&](int kb, uint4 (&reg)[2]) {
@@ -153,84 +166,11 @@ __global__ void __launch_bounds__(NTHREADS) conv_gemm(ConvArgs p) {
   };
 
   float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  uint4 areg[2];
-  uint4 breg;
-  load_a(0, areg);
-  breg = load_b(0);
-  for (int kb = 0; kb < nk; ++kb) {
-    const int buf = kb & 1;
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      int v = tid + s * NTHREADS;
-      *reinterpret_cast<uint4*>(&As[buf][(v >> 2) * AST + (v & 3) * 8]) = areg[s];
-    }
-    *reinterpret_cast<uint4*>(&Bs[buf][(tid >> 3) * BST + (tid & 7) * 8]) = breg;
-    __syncthreads();
-    if (kb + 1 < nk) {  // next tile's global loads overlap this tile's math
-      load_a(kb + 1, areg);
-      breg = load_b(kb + 1);
-    }
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
-      warp_mma_k16<2, 4>(acc, &As[buf][(wm * 32) * AST + kk * 16], AST,
-                         &Bs[buf][(kk * 16) * BST + wn * 32], BST, lane);
-  }
+  igemm_bf16(acc, tiles, nk, load_a, load_b);
 
   if (EPI == 0) {
-    float cs[4][2], css[4][2];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) cs[j][0] = cs[j][1] = css[j][0] = css[j][1] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          int m = m0 + wm * 32 + i * 16 + (lane >> 2) + h * 8;
-          int n = n0 + wn * 32 + j * 8 + (lane & 3) * 2;
-          if (m >= N) continue;
-          float v0 = acc[i][j][2 * h] + p.bias[n];
-          float v1 = acc[i][j][2 * h + 1] + p.bias[n + 1];
-          *reinterpret_cast<__nv_bfloat162*>(p.out + ((size_t)b * N + m) * Cout + n) =
-              __floats2bfloat162_rn(v0, v1);
-          cs[j][0] += v0;
-          cs[j][1] += v1;
-          css[j][0] += v0 * v0;
-          css[j][1] += v1 * v1;
-        }
-    // sum the warp's 32 rows: lanes sharing lane%4 hold the same columns
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {
-          cs[j][h] += __shfl_xor_sync(0xffffffffu, cs[j][h], off);
-          css[j][h] += __shfl_xor_sync(0xffffffffu, css[j][h], off);
-        }
-    if (lane < 4) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          int c = wn * 32 + j * 8 + lane * 2 + h;
-          red[wm][0][c] = cs[j][h];
-          red[wm][1][c] = css[j][h];
-        }
-    }
-    __syncthreads();
-    if (tid < 2 * BN) {
-      int st = tid / BN, c = tid % BN;
-      float s = red[0][st][c] + red[1][st][c] + red[2][st][c] + red[3][st][c];
-      p.part[(((size_t)b * gridDim.x + mt) * 2 + st) * Cout + n0 + c] = s;
-    }
+    auto value = [&](float a, int n) -> float { return a + p.bias[n]; };
+    store_tile_stats(acc, value, p.out, p.part, red, N, Cout, m0, n0, b);
   } else {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -363,9 +303,15 @@ int us_resnet_conv3x3(const void* x, const void* w, const float* bias, const int
   p.part = part;
   dim3 grid(us_ceil_div(N, BM), Cout / BN, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_mean != nullptr)
-    conv_gemm<9, true, 0, true><<<grid, NTHREADS, 0, st>>>(p);
-  else if (Cin % 8 == 0)
+  if (in_mean != nullptr) {
+    // the transform table: above 48 KB of shared memory in all (Cin > 836)
+    // only after an opt-in, which costs nothing to repeat
+    int dyn = 5 * Cin * (int)sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(conv_gemm<9, true, 0, true>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    if (err != cudaSuccess) return (int)err;
+    conv_gemm<9, true, 0, true><<<grid, NTHREADS, dyn, st>>>(p);
+  } else if (Cin % 8 == 0)
     conv_gemm<9, false, 0, true><<<grid, NTHREADS, 0, st>>>(p);
   else
     conv_gemm<9, false, 0, false><<<grid, NTHREADS, 0, st>>>(p);
@@ -417,6 +363,32 @@ int us_final_out(const void* c1, const float* mean, const float* inv, const floa
       static_cast<const bf16*>(c1), mean, inv, scale, shift, static_cast<const bf16*>(wo), bo,
       lens, out, B, N, C);
   return (int)cudaGetLastError();
+}
+
+// One ResnetBlock (K1, and K8 at the deep stages) in one call: kernel A
+// (conv1 + statistics), its GroupNorm, kernel B (GN1 + mish + FiLM + mask
+// on load, conv2 + statistics), its GroupNorm, kernel C (GN2 + mish + mask
+// + residual; identity when wres == NULL). Scratch: c1, c2 (B, N, Cout)
+// bf16; part (B, us_n_row_tiles(N), 2, Cout); mean/inv (B, Cout).
+int us_resnet_block(const void* x, const void* w1, const float* b1, const float* s1,
+                    const float* be1, const void* film, const void* w2, const float* b2,
+                    const float* s2, const float* be2, const void* wres, const float* bres,
+                    const int* lens, void* c1, void* c2, float* part, float* mean1, float* inv1,
+                    float* mean2, float* inv2, void* out, int B, int N, int F, int Cin, int Cout,
+                    int groups, float eps, void* stream) {
+  const int nt = us_n_row_tiles(N);
+  int err = us_resnet_conv3x3(x, w1, b1, lens, nullptr, nullptr, nullptr, nullptr, nullptr, c1,
+                              part, B, N, F, Cin, Cout, stream);
+  if (err) return err;
+  err = us_gn_finalize(part, B, nt, Cout, groups, N, eps, mean1, inv1, stream);
+  if (err) return err;
+  err = us_resnet_conv3x3(c1, w2, b2, lens, mean1, inv1, s1, be1, film, c2, part, B, N, F, Cout,
+                          Cout, stream);
+  if (err) return err;
+  err = us_gn_finalize(part, B, nt, Cout, groups, N, eps, mean2, inv2, stream);
+  if (err) return err;
+  return us_resnet_out(c2, x, mean2, inv2, s2, be2, wres, bres, lens, out, B, N, Cin, Cout,
+                       stream);
 }
 
 }  // extern "C"

@@ -56,17 +56,24 @@ class TTSModels:
         return self.spk_emb.device
 
     @classmethod
-    def from_checkpoint(cls, ckpt: dict, device="cpu", dtype=torch.bfloat16,
+    def from_checkpoint(cls, ckpt: dict, device="cuda", dtype=torch.bfloat16,
                         use_kernels: bool = True, use_int8_deep: bool = False,
-                        with_vocoder: bool = True):
+                        use_deep: bool = False, use_resample: bool = False,
+                        use_i8pre_deep: bool = False, with_vocoder: bool = True):
         """ckpt: the dict utils.params.random_params returns (or one loaded
-        from a file that `cli make-random-checkpoint` wrote). The encoder
-        and duration predictor run in f32; the decoder and vocoder in
-        `dtype`, with the estimator and vocoder kernels when `use_kernels`,
-        and int8 deep-stage convs when `use_int8_deep`."""
+        from a file that `cli make-random-checkpoint` wrote). The modules go
+        to `device`, the card unless the caller asks for the CPU (no CUDA
+        device raises). The encoder and duration predictor run in f32; the
+        decoder and vocoder in `dtype`, with the estimator and vocoder
+        kernels when `use_kernels`, and int8 deep-stage convs when
+        `use_int8_deep`. use_deep, use_resample and use_i8pre_deep are the
+        JAX package's use_pallas_deep, use_pallas_resample and
+        use_i8pre_deep: the fused deep-stage configuration (models/unet.py)."""
         cfg = config_from_dict(ckpt["config"])
         mods = build_modules(cfg, device=device, dtype=dtype, use_kernels=use_kernels,
-                             use_int8_deep=use_int8_deep, with_vocoder=with_vocoder)
+                             use_int8_deep=use_int8_deep, use_deep=use_deep,
+                             use_resample=use_resample, use_i8pre_deep=use_i8pre_deep,
+                             with_vocoder=with_vocoder)
         for name, mod in mods.items():
             mod.load_state_dict(ckpt[name])
             mod.eval().requires_grad_(False)

@@ -5,15 +5,18 @@ behind PERF.md sections 5 and 6. Imports no JAX.
     python3 -m unitspeech_tpu_torch.measure [--reps 3] [--out chiprun_out/measure_port.json]
 
 Phases, all on the forced 344-frame request (50 DDPM steps, dual CFG
-1.0/1.0) in three modes: "int8" (the CLI default: every kernel, int8
-deep-stage convs), "bf16" (`--no-int8`) and "plain" (`--no-fast-kernels`):
+1.0/1.0) in five modes: "int8" (the CLI default: every kernel, int8
+deep-stage convs), "bf16" (`--no-int8`), "deep_i8" (the fused deep-stage
+configuration, `--deep --i8pre --resample`: K8, K9, K11), "deep"
+(`--deep --resample --no-int8`: K8, K11) and "plain" (`--no-fast-kernels`),
+the names chip_smoke.py gives these paths:
 
   build    the kernel library built twice each way, into empty
            directories, in the order single, parallel, parallel, single:
            one `nvcc -shared` over every source, as the first port slice
            built it, against `ops/_cuda.build` (one nvcc per source, all
            started together, then one link); wall seconds;
-  rtf      `cli.main_inference` per mode: one warm-up, then `--reps`
+  rtf      `cli.main_inference` per mode: one warm-up round, then `--reps`
            rounds, the mode order rotating each round; wall s and RTF as
            the CLI reports them (host clock);
   phases   a Synthesizer per mode, one warm-up, then `--reps` requests
@@ -50,8 +53,14 @@ from unitspeech_tpu_torch.text import phonemes_to_sequence
 
 FRAMES, STEPS = 344, 50
 TEXT = "ðɪs ɹɪkwɛst ɪz fɔɹst tə ðə θɹi hʌndɹəd ənd fɔɹti fɔɹ fɹeɪm bʌkɪt."
-MODES = {"int8": [], "bf16": ["--no-int8"], "plain": ["--no-fast-kernels"]}
-ROUTES = {"int8": (True, True), "bf16": (True, False), "plain": (False, False)}
+MODES = {"int8": [], "bf16": ["--no-int8"], "deep_i8": ["--deep", "--i8pre", "--resample"],
+         "deep": ["--deep", "--resample", "--no-int8"], "plain": ["--no-fast-kernels"]}
+# TTSModels.from_checkpoint's routes of each mode, as the CLI sets them
+ROUTES = {"int8": dict(use_int8_deep=True), "bf16": {},
+          "deep_i8": dict(use_int8_deep=True, use_deep=True, use_resample=True,
+                          use_i8pre_deep=True),
+          "deep": dict(use_deep=True, use_resample=True),
+          "plain": dict(use_kernels=False)}
 
 
 def measure_build():
@@ -86,7 +95,7 @@ def measure_rtf(ckpt, tmp, reps):
     out = {m: {"wall_s": [], "rtf": []} for m in MODES}
     order = list(MODES)
     for r in range(reps + 1):
-        for mode in order[r % 3:] + order[:r % 3]:
+        for mode in order[r % len(order):] + order[:r % len(order)]:
             stats = cli.main_inference(
                 ["--ipa", "--text", TEXT, "--checkpoint", ckpt, "--device", "cuda",
                  "--output", os.path.join(tmp, "o.wav"), "--diffusion-steps", str(STEPS),
@@ -101,9 +110,8 @@ def measure_rtf(ckpt, tmp, reps):
 
 
 def _synth(ckpt, mode):
-    kernels, int8 = ROUTES[mode]
     return Synthesizer(TTSModels.from_checkpoint(ckpt, device="cuda", dtype=torch.bfloat16,
-                                                 use_kernels=kernels, use_int8_deep=int8))
+                                                 **ROUTES[mode]))
 
 
 def _request(synth, ids, gen):

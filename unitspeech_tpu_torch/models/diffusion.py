@@ -22,24 +22,28 @@ class UnitSpeech(nn.Module):
 
     def __init__(self, n_feats=80, dim=128, dim_mults=(1, 2, 4, 8), groups=8,
                  beta_min=0.05, beta_max=20.0, pe_scale=1000.0, spk_emb_dim=256,
-                 dtype=torch.float32, use_kernels=False, use_int8_deep=False):
+                 dtype=torch.float32, use_kernels=False, use_int8_deep=False, use_deep=False,
+                 use_resample=False, use_i8pre_deep=False):
         super().__init__()
         self.beta_min, self.beta_max = beta_min, beta_max
         self.text_uncon = nn.Parameter(torch.empty(n_feats))
         self.spk_uncon = nn.Parameter(torch.empty(spk_emb_dim))
         self.estimator = GradLogPEstimator2d(dim, dim_mults, groups, pe_scale, spk_emb_dim,
                                              dtype=dtype, use_kernels=use_kernels,
-                                             use_int8_deep=use_int8_deep)
+                                             use_int8_deep=use_int8_deep, use_deep=use_deep,
+                                             use_resample=use_resample,
+                                             use_i8pre_deep=use_i8pre_deep)
 
     def forward(self, xt, mask, cond, t, spk_emb):
         return self.estimator(xt, mask, cond, t, spk_emb)
 
     @classmethod
-    def from_config(cls, cfg, dtype=torch.float32, use_kernels=False, use_int8_deep=False):
+    def from_config(cls, cfg, dtype=torch.float32, **routes):
+        """routes: use_kernels, use_int8_deep, use_deep, use_resample,
+        use_i8pre_deep (GradLogPEstimator2d's switches)."""
         return cls(n_feats=cfg.n_feats, dim=cfg.dim, dim_mults=tuple(cfg.dim_mults),
                    groups=cfg.groups, beta_min=cfg.beta_min, beta_max=cfg.beta_max,
-                   pe_scale=cfg.pe_scale, spk_emb_dim=cfg.spk_emb_dim, dtype=dtype,
-                   use_kernels=use_kernels, use_int8_deep=use_int8_deep)
+                   pe_scale=cfg.pe_scale, spk_emb_dim=cfg.spk_emb_dim, dtype=dtype, **routes)
 
 
 def build_cfg_rows(model: UnitSpeech, mask, cond, spk_emb,

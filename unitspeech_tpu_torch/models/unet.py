@@ -21,6 +21,16 @@ are kept so that every kernel runs and the kernel path computes what the
 JAX fast path computes. `use_kernels=False` is the plain path (the JAX
 XLA twin: use_pallas_*=False). A kernel wrapper given a CPU tensor runs its
 plain version, so both paths run on the CPU.
+
+The fused deep-stage configuration (JAX use_pallas_deep,
+use_pallas_resample, use_i8pre_deep; unet.py:321-383, 682-771) adds three
+switches, each independent of `use_kernels` as in JAX:
+  * `use_deep`: a deep-stage block whose whole layer fits the 4 MiB gate
+    runs the whole-layer kernel K8 (bf16, even with int8 on);
+  * `use_i8pre_deep` (with `use_int8_deep`): such a block with Cout <= 512
+    runs K9 instead, int8 convs on pre-quantized activations;
+  * `use_resample`: Downsample / Upsample at the sites the JAX gates admit
+    (F = 80/40 down, F = 40 up) run K11 on the unmasked activation.
 """
 
 from __future__ import annotations
@@ -45,6 +55,17 @@ from unitspeech_tpu_torch.ops.fused_resnet import (
     fused_resnet_block,
     lens_rows_from_mask,
     mish_one_exp,
+)
+from unitspeech_tpu_torch.ops.fused_resnet_deep import (
+    deep_route,
+    fused_resnet_block_deep,
+    fused_resnet_block_deep_i8,
+)
+from unitspeech_tpu_torch.ops.resample import (
+    fused_downsample_conv,
+    fused_upsample_conv,
+    supports_downsample,
+    supports_upsample,
 )
 from unitspeech_tpu_torch.ops.row_stats import (
     group_mean_inv,
@@ -117,31 +138,54 @@ class ResnetBlock(nn.Module):
         self.res_conv = Conv2d(din, dout, 1) if din != dout else None
         self.groups = groups
         self.flat = choose_conv_impl(din, dout) == "flat"
-        # quantize_weight of conv1 and conv2, set by quantize_int8
-        self.int8_weights = None
+        # quantize_weight of conv1 and conv2 (the flat int8 route), and
+        # quant_w of them (K9), set by quantize_int8
+        self.int8_weights = self.i8pre_weights = None
 
     def quantize_int8(self):
-        """Quantize both conv kernels once for the int8 route: inference
+        """Quantize both conv kernels once for the int8 routes: inference
         weights are frozen, so every call reuses them."""
         self.int8_weights = tuple(quantize_weight(b.conv.kernel.detach())
                                   for b in (self.block1, self.block2))
+        # quant_w's form: the same int8 weights, reciprocal scales
+        self.i8pre_weights = tuple((w8t, 1.0 / sw) for w8t, sw in self.int8_weights)
 
-    def forward(self, x, mask, t_emb, dtype, use_kernels, pre_masked=False, use_int8=False):
+    def route(self, t, f, use_kernels, use_int8=False, use_deep=False, use_i8pre=False):
+        """The JAX ResnetBlock's routing (unet.py:321-401): "k1" (the fused
+        kernel at F % 8 == 0), "k9" / "k8" (the whole-layer deep kernels),
+        "flat" (deep-stage rows), or "blocks" (plain Blocks)."""
+        if use_kernels and fused_kernel_shape(f):
+            return "k1"
+        if not self.flat:
+            return "blocks"
+        cin, cout = self.block1.conv.kernel.shape[2:]
+        deep = deep_route(t, f, cin, cout, use_int8, use_deep, use_i8pre)
+        return {"i8": "k9", "bf16": "k8", None: "flat"}[deep]
+
+    def forward(self, x, mask, t_emb, dtype, use_kernels, pre_masked=False, use_int8=False,
+                use_deep=False, use_i8pre=False):
         """use_int8: int8 convs on the deep-stage (flat) route only, as the
-        JAX ResnetBlock(use_int8=True) routes them."""
+        JAX ResnetBlock(use_int8=True) routes them; use_deep, use_i8pre: the
+        whole-layer deep kernels K8 / K9 (route())."""
         b, t, f, cin = x.shape
         bias_t = self.mlp(mish(t_emb), dtype=dtype)
         stats = row_stats if use_kernels else row_stats_plain
-        if not (use_kernels and fused_kernel_shape(f)) and self.flat:
+        route = self.route(t, f, use_kernels, use_int8, use_deep, use_i8pre)
+        if route == "flat":
             return self._flat(x, mask, bias_t, dtype, use_kernels, pre_masked, use_int8)
-        if use_kernels and fused_kernel_shape(f):
+        if route in ("k1", "k8", "k9"):
             c1, c2 = self.block1.conv, self.block2.conv
-            return fused_resnet_block(
+            fn, extra = fused_resnet_block, {}
+            if route == "k8":
+                fn = fused_resnet_block_deep
+            elif route == "k9":
+                fn, extra = fused_resnet_block_deep_i8, {"wq": self.i8pre_weights}
+            return fn(
                 x.to(dtype), mask, bias_t, c1.kernel, c1.bias, *self.block1.norm.params(),
                 c2.kernel, c2.bias, *self.block2.norm.params(),
                 wres=None if self.res_conv is None else self.res_conv.kernel,
                 bres=None if self.res_conv is None else self.res_conv.bias,
-                groups=self.groups,
+                groups=self.groups, **extra,
             )
         h = self.block1(x, mask, dtype, stats, pre_masked)
         h = h + bias_t[:, None, None, :]
@@ -197,7 +241,8 @@ class ResnetBlock(nn.Module):
 
 def _quantize_after_load(estimator, _incompatible_keys):
     """load_state_dict post-hook of an int8 estimator: quantize the flat
-    blocks' conv kernels once the weights are in."""
+    blocks' conv kernels (the flat int8 route and K9) once the weights are
+    in."""
     for m in estimator.modules():
         if isinstance(m, ResnetBlock) and m.flat:
             m.quantize_int8()
@@ -283,13 +328,16 @@ class GradLogPEstimator2d(nn.Module):
 
     def __init__(self, dim=128, dim_mults=(1, 2, 4, 8), groups=8, pe_scale=1000.0,
                  spk_emb_dim=256, dtype=torch.float32, use_kernels=False,
-                 use_int8_deep=False):
+                 use_int8_deep=False, use_deep=False, use_resample=False,
+                 use_i8pre_deep=False):
         super().__init__()
         self.dim, self.groups, self.pe_scale = dim, groups, pe_scale
         self.dtype, self.use_kernels = dtype, use_kernels
         # int8 deep-stage convs; the early stages (K1) stay in `dtype`, as
         # the JAX estimator hard-codes (unet.py:394-400)
         self.use_int8_deep = use_int8_deep
+        self.use_deep, self.use_resample, self.use_i8pre_deep = (
+            use_deep, use_resample, use_i8pre_deep)
         if use_int8_deep:
             self.register_load_state_dict_post_hook(_quantize_after_load)
         t_dim = dim + spk_emb_dim
@@ -318,7 +366,9 @@ class GradLogPEstimator2d(nn.Module):
         self.final_conv = Conv2d(dim, 1, 1)
 
     def forward(self, x, mask, mu, t, spk_emb):
-        dt, uk, i8 = self.dtype, self.use_kernels, self.use_int8_deep
+        dt, uk = self.dtype, self.use_kernels
+        flags = dict(use_int8=self.use_int8_deep, use_deep=self.use_deep,
+                     use_i8pre=self.use_i8pre_deep)
         t_emb = sinusoidal_pos_emb(t, self.dim, self.pe_scale)
         t_emb = self.mlp_0(t_emb, dtype=dt)
         t_emb = self.mlp_1(mish(t_emb), dtype=dt)
@@ -330,34 +380,44 @@ class GradLogPEstimator2d(nn.Module):
         n_res = len(self.dims)
         for i in range(n_res):
             mk = masks[-1]
-            h = getattr(self, f"down_{i}_res1")(h, mk, t_emb, dt, uk, use_int8=i8)
+            h = getattr(self, f"down_{i}_res1")(h, mk, t_emb, dt, uk, **flags)
             # res1's output is masked: res2 skips its input mask
-            h = getattr(self, f"down_{i}_res2")(h, mk, t_emb, dt, uk, pre_masked=True, use_int8=i8)
+            h = getattr(self, f"down_{i}_res2")(h, mk, t_emb, dt, uk, pre_masked=True, **flags)
             attn = getattr(self, f"down_{i}_attn")
             h_in = h
             h = attn(h, mk, dt, uk)
             hiddens.append(h)
             if i < n_res - 1:
-                hin = h if attn.uses_kernel(h_in, uk) else h * mk
-                h = getattr(self, f"down_{i}_down")(hin, dt)
+                down = getattr(self, f"down_{i}_down")
+                if self.use_resample and supports_downsample(h.shape[1], h.shape[2],
+                                                             self.dims[i]):
+                    # the kernel masks its input rows: no h * mk pass
+                    h = fused_downsample_conv(h.to(dt), mk, down.conv.kernel, down.conv.bias)
+                else:
+                    hin = h if attn.uses_kernel(h_in, uk) else h * mk
+                    h = down(hin, dt)
             masks.append(mk[:, ::2])
 
         masks = masks[:-1]
         mk = masks[-1]
-        h = self.mid_res1(h, mk, t_emb, dt, uk, use_int8=i8)
+        h = self.mid_res1(h, mk, t_emb, dt, uk, **flags)
         h = self.mid_attn(h, mk, dt, uk)
-        h = self.mid_res2(h, mk, t_emb, dt, uk, use_int8=i8)
+        h = self.mid_res2(h, mk, t_emb, dt, uk, **flags)
 
         for i in reversed(range(n_res - 1)):
             mk = masks.pop()
             h = torch.cat([h, hiddens.pop()], dim=-1)
-            h = getattr(self, f"up_{i}_res1")(h, mk, t_emb, dt, uk, use_int8=i8)
-            h = getattr(self, f"up_{i}_res2")(h, mk, t_emb, dt, uk, pre_masked=True, use_int8=i8)
+            h = getattr(self, f"up_{i}_res1")(h, mk, t_emb, dt, uk, **flags)
+            h = getattr(self, f"up_{i}_res2")(h, mk, t_emb, dt, uk, pre_masked=True, **flags)
             attn = getattr(self, f"up_{i}_attn")
             h_in = h
             h = attn(h, mk, dt, uk)
-            hin = h if attn.uses_kernel(h_in, uk) else h * mk
-            h = getattr(self, f"up_{i}_up")(hin, dt)
+            up = getattr(self, f"up_{i}_up")
+            if self.use_resample and supports_upsample(h.shape[1], h.shape[2], self.dims[i]):
+                h = fused_upsample_conv(h.to(dt), mk, up.conv.kernel, up.conv.bias)
+            else:
+                hin = h if attn.uses_kernel(h_in, uk) else h * mk
+                h = up(hin, dt)
 
         if uk and fused_kernel_shape(h.shape[2]):
             fb, fc = self.final_block, self.final_conv

@@ -46,6 +46,13 @@ _SIGNATURES = {
     "us_aa_offsets": ([_I], _I),
     "us_aa_snake": ([_P] * 5 + [_I] * 3 + [_P], _I),
     "us_aa_snake_conv": ([_P] * 8 + [_I] * 5 + [_P], _I),
+    "us_resnet_block": ([_P] * 21 + [_I] * 6 + [_F, _P], _I),
+    "us_i8_glue_chunks": ([_I], _I),
+    "us_i8_quantize_rows": ([_P] * 3 + [_I] + [_P] * 4 + [_I] * 4 + [_P], _I),
+    "us_resnet_conv3x3_i8": ([_P] * 7 + [_I] * 5 + [_P], _I),
+    "us_i8_glue": ([_P] * 12 + [_I] * 3 + [_P], _I),
+    "us_downsample_conv": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    "us_upsample_conv": ([_P] * 5 + [_I] * 5 + [_P], _I),
 }
 
 _lock = threading.Lock()

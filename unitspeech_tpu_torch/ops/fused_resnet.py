@@ -45,6 +45,16 @@ def lens_rows_from_mask(mask: torch.Tensor, f: int) -> torch.Tensor:
     return (lens.to(torch.int32) * f).to(torch.int32)
 
 
+def block_rows_args(x, mask, t_bias, w1, b1, s1, be1, w2, b2, s2, be2, wres, bres):
+    """A ResnetBlock's arguments (x (B, T, F, Cin), mask (B, T, 1, 1), flax
+    kernels) on rows, as resnet_block_plain and the kernels take them."""
+    bsz, t, f, cin = x.shape
+    cout = w1.shape[-1]
+    return (x.reshape(bsz, t * f, cin), lens_rows_from_mask(mask, f), t_bias,
+            w1.reshape(9 * cin, cout), b1, s1, be1, w2.reshape(9 * cout, cout), b2, s2, be2,
+            None if wres is None else wres.reshape(cin, cout), bres)
+
+
 def _valid(lens_rows: torch.Tensor, n: int) -> torch.Tensor:
     pos = torch.arange(n, device=lens_rows.device)
     return (pos[None, :] < lens_rows[:, None]).to(torch.float32)[..., None]
@@ -107,9 +117,8 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
 
 
-def _conv_stats(lib, x, w, bias, lens, xform, f, groups):
-    """Launch kernel A (xform None) or B (xform = (mean, inv, scale, shift,
-    film)), then reduce its tile statistics. -> (c, mean, inv)."""
+def _conv_stats(lib, x, w, bias, lens, f, groups):
+    """Launch kernel A, then reduce its tile statistics. -> (c, mean, inv)."""
     b, n, cin = x.shape
     cout = w.shape[-1]
     st = _cuda.stream(x)
@@ -118,10 +127,10 @@ def _conv_stats(lib, x, w, bias, lens, xform, f, groups):
     out = torch.empty((b, n, cout), dtype=x.dtype, device=x.device)
     mean = torch.empty((b, cout), dtype=torch.float32, device=x.device)
     inv = torch.empty_like(mean)
-    xf = (None,) * 5 if xform is None else tuple(_cuda.ptr(t) for t in xform)
     _cuda.check(
         lib.us_resnet_conv3x3(x.data_ptr(), w.data_ptr(), bias.data_ptr(), lens.data_ptr(),
-                              *xf, out.data_ptr(), part.data_ptr(), b, n, f, cin, cout, st),
+                              *(None,) * 5, out.data_ptr(), part.data_ptr(), b, n, f, cin, cout,
+                              st),
         "resnet conv3x3",
     )
     _cuda.check(
@@ -133,41 +142,43 @@ def _conv_stats(lib, x, w, bias, lens, xform, f, groups):
 
 
 def _check_shapes(what, x, cout, groups):
+    """Cout: a multiple of the 64-column tile; at most 8192, so that kernel
+    B's transform table (5 * Cout floats) fits the block's 227 KB of shared
+    memory."""
     if x.dtype != torch.bfloat16:
         raise ValueError(f"{what}: the kernel takes bf16 activations, got {x.dtype}")
-    if cout % 64 or cout > 512 or cout % groups:
-        raise ValueError(f"{what}: unsupported Cout={cout} (multiple of 64, <= 512, "
+    if cout % 64 or cout > 8192 or cout % groups:
+        raise ValueError(f"{what}: unsupported Cout={cout} (multiple of 64, <= 8192, "
                          f"divisible by groups={groups})")
 
 
 def _resnet_block_cuda(x, lens, t_bias, w1, b1, s1, be1, w2, b2, s2, be2, wres, bres,
-                       f, groups):
+                       f, groups, what="fused_resnet_block"):
+    """K1 (and K8, ops/fused_resnet_deep.py): the block's five launches in
+    one call of us_resnet_block."""
     b, n, cin = x.shape
     cout = w1.shape[-1]
-    _check_shapes("fused_resnet_block", x, cout, groups)
+    _check_shapes(what, x, cout, groups)
+    if wres is None and cin != cout:
+        raise ValueError(f"{what}: identity residual needs Cin == Cout")
     dt, dev = x.dtype, x.device
     _cuda.require(x, "x", dtype=dt)
     _cuda.require(lens, "lens", dtype=torch.int32, shape=(b,), device=dev)
     w1 = _cuda.require(w1.to(dt).contiguous(), "w1", shape=(9 * cin, cout), device=dev)
     w2 = _cuda.require(w2.to(dt).contiguous(), "w2", shape=(9 * cout, cout), device=dev)
     film = _cuda.require(t_bias.to(dt).contiguous(), "t_bias", shape=(b, cout), device=dev)
-    lib = _cuda.lib()
-    c1, mean1, inv1 = _conv_stats(lib, x, w1, _f32(b1), lens, None, f, groups)
-    c2, mean2, inv2 = _conv_stats(lib, c1, w2, _f32(b2), lens,
-                                  (mean1, inv1, _f32(s1), _f32(be1), film), f, groups)
-    out = torch.empty((b, n, cout), dtype=dt, device=dev)
     if wres is not None:
         wres = _cuda.require(wres.to(dt).contiguous(), "wres", shape=(cin, cout), device=dev)
         bres = _f32(bres)
-    elif cin != cout:
-        raise ValueError("fused_resnet_block: identity residual needs Cin == Cout")
-    _cuda.check(
-        lib.us_resnet_out(c2.data_ptr(), x.data_ptr(), mean2.data_ptr(), inv2.data_ptr(),
-                          _f32(s2).data_ptr(), _f32(be2).data_ptr(), _cuda.ptr(wres),
-                          _cuda.ptr(bres), lens.data_ptr(), out.data_ptr(), b, n, cin, cout,
-                          _cuda.stream(x)),
-        "resnet output",
-    )
+    lib = _cuda.lib()
+    c1, c2, out = (torch.empty((b, n, cout), dtype=dt, device=dev) for _ in range(3))
+    part = torch.empty((b, lib.us_n_row_tiles(n), 2, cout), dtype=torch.float32, device=dev)
+    stats = torch.empty((4, b, cout), dtype=torch.float32, device=dev)  # mean/inv x 2
+    operands = (x, w1, _f32(b1), _f32(s1), _f32(be1), film, w2, _f32(b2), _f32(s2), _f32(be2))
+    _cuda.check(lib.us_resnet_block(
+        *(t.data_ptr() for t in operands), _cuda.ptr(wres), _cuda.ptr(bres), lens.data_ptr(),
+        c1.data_ptr(), c2.data_ptr(), part.data_ptr(), *(t.data_ptr() for t in stats),
+        out.data_ptr(), b, n, f, cin, cout, groups, GN_EPS, _cuda.stream(x)), what)
     return out
 
 
@@ -181,20 +192,15 @@ def fused_resnet_block(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
     kernels (spatial (t, f)); wres/bres the optional 1x1 residual.
     -> (B, T, F, Cout). CUDA tensors launch the kernel, CPU tensors take
     resnet_block_plain."""
-    bsz, t, f, cin = x.shape
-    cout = w1.shape[-1]
-    args = (
-        x.reshape(bsz, t * f, cin), lens_rows_from_mask(mask, f), t_bias,
-        w1.reshape(9 * cin, cout), b1, gn1_scale, gn1_bias,
-        w2.reshape(9 * cout, cout), b2, gn2_scale, gn2_bias,
-        None if wres is None else wres.reshape(cin, cout), bres,
-    )
+    bsz, t, f, _ = x.shape
+    args = block_rows_args(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2, gn2_scale,
+                           gn2_bias, wres, bres)
     if _cuda.route(x, "fused_resnet_block"):
         out = _resnet_block_cuda(*args, f=f, groups=groups)
         fused_resnet_block.launches += 1
     else:
         out = resnet_block_plain(*args, f=f, groups=groups)
-    return out.reshape(bsz, t, f, cout)
+    return out.reshape(bsz, t, f, -1)
 
 
 fused_resnet_block.launches = 0
@@ -210,7 +216,7 @@ def _final_block_cuda(x, lens, w1, b1, s1, be1, wo, bo, f, groups):
     w1 = _cuda.require(w1.to(dt).contiguous(), "w1", shape=(9 * cin, cout), device=dev)
     wo = _cuda.require(wo.to(dt).contiguous(), "w_out", shape=(cout,), device=dev)
     lib = _cuda.lib()
-    c1, mean, inv = _conv_stats(lib, x, w1, _f32(b1), lens, None, f, groups)
+    c1, mean, inv = _conv_stats(lib, x, w1, _f32(b1), lens, f, groups)
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
     _cuda.check(
         lib.us_final_out(c1.data_ptr(), mean.data_ptr(), inv.data_ptr(), _f32(s1).data_ptr(),

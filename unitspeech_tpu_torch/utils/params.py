@@ -50,22 +50,33 @@ def params_to_jax(state_dict) -> dict:
     return {"params": root}
 
 
-def build_modules(cfg: MainConfig, device="cpu", dtype=torch.float32, use_kernels=True,
-                  use_int8_deep=False, with_vocoder=True) -> dict:
-    """The slice's modules at `cfg`'s widths, parameters uninitialized.
-    use_kernels routes the estimator and the vocoder through the kernels;
-    use_int8_deep runs the estimator's deep-stage convs in int8."""
+def build_modules(cfg: MainConfig, device="cuda", dtype=torch.float32, use_kernels=True,
+                  use_int8_deep=False, use_deep=False, use_resample=False,
+                  use_i8pre_deep=False, with_vocoder=True) -> dict:
+    """The slice's modules at `cfg`'s widths on `device` (the card unless the
+    caller asks for the CPU), parameters uninitialized. use_kernels routes
+    the estimator and the vocoder through the kernels; use_int8_deep runs
+    the estimator's deep-stage convs in int8; use_deep, use_resample and
+    use_i8pre_deep switch on the fused deep-stage configuration
+    (models/unet.py)."""
     from unitspeech_tpu_torch.models.diffusion import UnitSpeech
     from unitspeech_tpu_torch.models.duration import DurationPredictor
     from unitspeech_tpu_torch.models.encoder import Encoder
     from unitspeech_tpu_torch.models.vocoder import BigVGAN
 
-    with torch.device(device):
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        # never a quiet fall back to the CPU, where every kernel wrapper
+        # takes its plain version
+        raise RuntimeError(f"device {device} requested but no CUDA device is available; "
+                           "pass device='cpu' to run on the CPU")
+    with device:
         mods = {
             "text_encoder": Encoder.from_config(cfg.text_encoder),
             "duration_predictor": DurationPredictor.from_config(cfg.duration_predictor),
-            "decoder": UnitSpeech.from_config(cfg.decoder, dtype=dtype, use_kernels=use_kernels,
-                                              use_int8_deep=use_int8_deep),
+            "decoder": UnitSpeech.from_config(
+                cfg.decoder, dtype=dtype, use_kernels=use_kernels, use_int8_deep=use_int8_deep,
+                use_deep=use_deep, use_resample=use_resample, use_i8pre_deep=use_i8pre_deep),
         }
         if with_vocoder:
             mods["vocoder"] = BigVGAN.from_config(cfg.vocoder, dtype=dtype,
