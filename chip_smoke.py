@@ -8,6 +8,11 @@ full model width (random weights from a seed): with its serving defaults
 configuration (`--deep --i8pre --resample`: K8, K9, K11). Then check what
 comes out: each kernel path against the plain path, the int8 gates and the
 kernel vocoder, each run with the exact kernel launches its path makes.
+Last, the paths of the kernels that no request runs, the port's four tools
+at full size (unitspeech_tpu_torch/tools): the kernel benchmark with
+--int8 --deep (the in-kernel int8 blocks K10a, K10b), the transcendental
+microbenchmark (P1), the stride probe (P2) and the compile bisection's 14
+shapes (P3: kernel A and kernel C alone); each must launch its kernels.
 
     python3 chip_smoke.py [--out FILE]
 
@@ -21,7 +26,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -39,12 +43,20 @@ FRAMES, PADDED = 344, 301
 PATHS = ("int8", "bf16", "deep", "deep_i8")
 
 
-def counts(int8, bf16=None, deep=None, deep_i8=None):
+# The tools' paths (unitspeech_tpu_torch/tools): the kernel benchmark run
+# with --int8 --deep (K10a, K10b), the transcendental microbenchmark (P1),
+# the stride probe (P2) and the compile bisection's shapes (P3)
+TOOL_PATHS = ("bench", "transcendental", "probe_stride", "bisect")
+
+
+def counts(int8, bf16=None, deep=None, deep_i8=None, **tools):
     """Launches of a kernel site per estimator call at the 344-frame bucket
     on each path (the vocoder kernels: per vocoder call); a path not given
-    launches it as often as the int8 path."""
+    launches it as often as the int8 path. `tools`: launches per call of
+    the site on a tool's path (TOOL_PATHS), 0 where not given."""
     return {"int8": int8, **{k: int8 if v is None else v
-                             for k, v in (("bf16", bf16), ("deep", deep), ("deep_i8", deep_i8))}}
+                             for k, v in (("bf16", bf16), ("deep", deep), ("deep_i8", deep_i8))},
+            **{p: tools.get(p, 0) for p in TOOL_PATHS}}
 
 
 # Every kernel site of one estimator call at the 344-frame bucket
@@ -114,6 +126,10 @@ BF16_REL = 2.0 ** -6
 # of a unit-scale output, under 2^-7 of max|plain| (max|plain| >= 1)
 I8_REL = 2.0 ** -6 + 2.0 ** -7
 F32_REL = 1e-4  # K3: f32 sums in another order
+# P1: the accurate bodies may differ by an ulp where the kernel's sinf /
+# expf / tanhf / rsqrtf and PyTorch's differ; the exp chain amplifies such a
+# difference by up to e^8 / 2 a round until it saturates at e^8
+P1_REL = 2.0 ** -12
 # Kernel path vs plain path mel after 50 steps, both bf16, in units of the
 # plain mel's dynamic range (max - min). With random weights the sampler
 # state grows ~136x (the product of the schedule's c_x) and a rounding
@@ -139,6 +155,11 @@ PEAK = {"bytes": 3.35e12, "bf16": 989e12, "i8": 1979e12, "f32": 67e12}
 # mask of c1 (~14), GroupNorm + affine + mish + mask + residual of c2 (~16);
 # K9 adds its quantize passes (~4)
 EW_BLOCK = 40
+# The kernel benchmark's in-kernel int8 blocks against the plain block (bf16
+# at F = 80/40, the flat int8 route at F = 20/10): each int8 conv is ~1%
+# off its float value (JAX's int8 error band), the two sides quantize with
+# different scales, so their relative difference stays under 10%
+INT8_BENCH_REL = 0.1
 # The kernel vocoder's waveform L1 against the plain f32 vocoder, on the same
 # f32 mel, is held to VOC_RATIO x the plain bf16 vocoder's
 VOC_RATIO = 1.5
@@ -151,19 +172,12 @@ def _lens_mask(torch, t, dev):
 
 
 def _time_ms(torch, fn, reps=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    """Median device milliseconds of one call (tools.median_ms: CUDA events
+    recorded behind a spin of the card, so the host's launch cost is not
+    timed)."""
+    from unitspeech_tpu_torch.tools import median_ms
+
+    return median_ms(fn, torch.device("cuda"), reps, warmup)
 
 
 def bound_ms(work):
@@ -201,9 +215,11 @@ def check_kernels(torch, dev):
         fused_attention,
         fused_resnet,
         fused_resnet_deep,
+        probes,
         resample,
         row_stats,
     )
+    from unitspeech_tpu_torch.tools import bisect_deep_compile, probe_stride
 
     g = torch.Generator(device="cpu").manual_seed(0)
 
@@ -375,6 +391,89 @@ def check_kernels(torch, dev):
                 I8_REL, per_call,
                 block_work(3, t * f, cin, cout, i8_conv1=cin <= cout, i8_conv2=True))
 
+    # K10a / K10b: one launch per block call of the kernel benchmark; the
+    # same int8 bound as K9 (both quantize conv2's input after GroupNorm
+    # statistics summed in another order; the int8 products are exact)
+    src_i8 = "unitspeech_tpu_torch/csrc/resnet_block_i8.cu"
+    for f, cin, cout in K1_SITES:
+        t = FRAMES * f // 80
+        x, mask, lens, p = block_inputs(t, f, cin, cout)
+        wq = (fused_resnet.quant_w(p["w1"]), fused_resnet.quant_w(p["w2"]))
+        a = rows_args(x, lens, p, t, f, cin, cout)
+        fpt = fused_resnet.pick_frames_per_tile(t, f, max(cin, cout))
+        compare("fused_resnet_block_int8", src_i8, "unitspeech_tpu/ops/pallas_resnet.py:1243",
+                f"F={f} T={t} {cin}->{cout} tiles of {fpt} frames",
+                lambda: fused_resnet.fused_resnet_block(x, mask, groups=8, int8=True, wq=wq, **p),
+                lambda: fused_resnet.resnet_block_i8_plain(*a[:4], wq[0], *a[4:7], wq[1], *a[8:],
+                                                           f=f, groups=8, fpt=fpt),
+                I8_REL, counts(0, bench=1),
+                block_work(3, t * f, cin, cout, i8_conv1=True, i8_conv2=True))
+    for f, t, cin, cout, _ in K8_SITES:
+        x, mask, lens, p = block_inputs(t, f, cin, cout)
+        wq = (fused_resnet.quant_w(p["w1"]), fused_resnet.quant_w(p["w2"]))
+        a = rows_args(x, lens, p, t, f, cin, cout)
+        compare("fused_resnet_block_deep_int8", src_i8,
+                "unitspeech_tpu/ops/pallas_resnet.py:643", f"F={f} T={t} {cin}->{cout}",
+                lambda: fused_resnet_deep.fused_resnet_block_deep(x, mask, groups=8, int8=True,
+                                                                  wq=wq, **p),
+                lambda: fused_resnet_deep.resnet_block_deep_int8_plain(
+                    *a[:4], wq[0], *a[4:7], wq[1], *a[8:], f=f, groups=8),
+                I8_REL, counts(0, bench=1),
+                block_work(3, t * f, cin, cout, i8_conv1=cin <= cout, i8_conv2=True))
+
+    # P1: the eight bodies at the microbenchmark's defaults
+    src_pr = "unitspeech_tpu_torch/csrc/probes.cu"
+    xt = rand(4096, 128)
+    for body in probes.BODIES:
+        compare("transcendental_chain", src_pr, "tools/bench_transcendental.py:29",
+                f"body={body} (4096, 128) k=64",
+                lambda: probes.transcendental_chain(xt, 64, body),
+                lambda: probes.transcendental_chain_plain(xt, 64, body), P1_REL,
+                counts(0, transcendental=1),
+                {"bytes": 2 * 4 * xt.numel(), "f32": xt.numel() * 64 * probes.ROUND_OPS[body]})
+    # P2: the six cases of the stride probe, each against its plain version
+    # bit for bit
+    xs = rand(probe_stride.R, probe_stride.C).to(torch.bfloat16)
+    libs = probe_stride.library_calls(xs)
+    for case, kern, k_args, key in probe_stride.FORMS:
+        y = kern(xs, *k_args)
+        work = {"bytes": probe_stride.needed_bytes(key, y)}
+        if kern is probes.selection_matmul:
+            work["bf16"] = 2 * y.shape[0] * xs.shape[0] * xs.shape[1]
+        compare(kern.__name__, src_pr, "tools/probe_stride.py:36", case,
+                lambda: kern(xs, *k_args), lambda: probe_stride.PLAIN[kern](xs, *k_args), 0.0,
+                counts(0, probe_stride=1), work, lib=libs[case])
+    # P3: kernel A alone and kernel C alone at the bisection's 14 shapes
+    for name, (t, f, cin, cout) in bisect_deep_compile.CASES.items():
+        q = bisect_deep_compile.case_inputs(name, dev)
+        n = t * f
+        x_rows = q["x"].reshape(1, n, cin)
+        w1 = q["w1"].reshape(9 * cin, cout)
+        compare("resnet_conv3x3", src_res, "tools/bisect_deep_compile.py:152",
+                f"{name} {cin}->{cout}",
+                lambda: fused_resnet.resnet_conv3x3(x_rows, q["lens"], w1, q["b1"], f)[0],
+                lambda: fused_resnet.resnet_conv3x3_plain(x_rows, q["lens"], w1, q["b1"], f,
+                                                          8)[0],
+                BF16_REL, counts(0, bisect=1),
+                {"bytes": 2 * n * (cin + cout) + 2 * 9 * cin * cout + 4 * 3 * cout,
+                 "bf16": 2 * n * 9 * cin * cout, "f32": 3 * n * cout})
+        for mode in fused_resnet.OUT_MODES:
+            if mode == "identity" and cin != cout:
+                continue
+            wres = (q["wres_c"], q["bres_c"]) if mode == "matmul" else (None, None)
+            c_args = (q["c2"], x_rows, q["mean"], q["inv"], q["s2"], q["be2"], q["lens"], mode,
+                      *wres)
+            out_bytes = 4 if mode == "none" else 2
+            compare("resnet_out", src_res, "tools/bisect_deep_compile.py:179",
+                    f"{name} {cin}->{cout} {mode}",
+                    lambda: fused_resnet.resnet_out(*c_args),
+                    lambda: fused_resnet.resnet_out_plain(*c_args), BF16_REL,
+                    counts(0, bisect=1),
+                    {"bytes": n * cout * (2 + out_bytes) + (0 if mode == "none" else 2 * n * cin)
+                     + (2 * cin * cout if mode == "matmul" else 0) + 4 * 4 * cout,
+                     "bf16": 2 * n * cin * cout if mode == "matmul" else 0,
+                     "f32": 16 * n * cout})
+
     src_rs = "unitspeech_tpu_torch/csrc/resample.cu"
     for (t, f, c), up in [(s, False) for s in K11_DOWN_SITES] + [(s, True) for s in K11_UP_SITES]:
         x = rand(3, t, f, c).to(torch.bfloat16)
@@ -412,12 +511,20 @@ ESTIMATOR_KERNELS = ("fused_resnet_block", "fused_final_block", "row_stats",
                      "fused_resnet_block_deep_i8", "fused_downsample_conv",
                      "fused_upsample_conv")
 VOCODER_KERNELS = ("fused_aa_snake_conv", "fused_aa_snake")
-KERNELS = ESTIMATOR_KERNELS + VOCODER_KERNELS
+# the kernels that no served request runs, by the tool path that runs them
+TOOL_KERNELS = {"fused_resnet_block_int8": "bench", "fused_resnet_block_deep_int8": "bench",
+                "transcendental_chain": "transcendental", "row_select": "probe_stride",
+                "selection_matmul": "probe_stride", "interleave_rows": "probe_stride",
+                "resnet_conv3x3": "bisect", "resnet_out": "bisect"}
+KERNELS = ESTIMATOR_KERNELS + VOCODER_KERNELS + tuple(TOOL_KERNELS)
 # the path whose per-call launches weigh a kernel's times in the kernels
-# line: the serving default, or the fused deep configuration
-HOME = {k: ("deep_i8" if k in ("fused_resnet_block_deep", "fused_resnet_block_deep_i8",
-                               "fused_downsample_conv", "fused_upsample_conv") else "int8")
-        for k in KERNELS}
+# line: the serving default, the fused deep configuration, or a tool's path
+# (one launch per call at each of its sites)
+HOME = {k: TOOL_KERNELS.get(k, "deep_i8" if k in (
+    "fused_resnet_block_deep", "fused_resnet_block_deep_i8", "fused_downsample_conv",
+    "fused_upsample_conv") else "int8") for k in KERNELS}
+# the run whose launch counts stand in the kernels line, by home path
+RUN_OF = {"int8": "default"}
 STEPS = 50  # DDPM steps of every request: one 3-row estimator call each
 # IPA requests of different lengths, then one forced to the 344-frame bucket
 REQUESTS = [
@@ -445,6 +552,7 @@ def _kernel_wrappers():
         fused_attention,
         fused_resnet,
         fused_resnet_deep,
+        probes,
         resample,
         row_stats,
     )
@@ -459,7 +567,13 @@ def _kernel_wrappers():
             "fused_downsample_conv": resample.fused_downsample_conv,
             "fused_upsample_conv": resample.fused_upsample_conv,
             "fused_aa_snake_conv": aa_snake.fused_aa_snake_conv,
-            "fused_aa_snake": aa_snake.fused_aa_snake}
+            "fused_aa_snake": aa_snake.fused_aa_snake,
+            "fused_resnet_block_int8": fused_resnet.fused_resnet_block_int8,
+            "fused_resnet_block_deep_int8": fused_resnet_deep.fused_resnet_block_deep_int8,
+            "transcendental_chain": probes.transcendental_chain,
+            "row_select": probes.row_select, "selection_matmul": probes.selection_matmul,
+            "interleave_rows": probes.interleave_rows,
+            "resnet_conv3x3": fused_resnet.resnet_conv3x3, "resnet_out": fused_resnet.resnet_out}
 
 
 def _counted(what, fn, want):
@@ -665,6 +779,53 @@ def compare_paths(torch, dev, ckpt_path, per_call):
     return {**out, "voc_wave_l1": wl1, "voc_ms": times}
 
 
+def run_tools():
+    """This slice's paths: the port's four tools at full size, each run
+    with every launch counter set to 0 just before it and read just after.
+    Every kernel of a tool's path must launch in its run and no other
+    kernel may (the compile bisection also runs K8, whose kernels it
+    probes). Returns each run's launches and results."""
+    from unitspeech_tpu_torch.tools import (
+        bench_resnet_kernel,
+        bench_transcendental,
+        bisect_deep_compile,
+        probe_stride,
+    )
+
+    runs = {"bench": (lambda: bench_resnet_kernel.main(["--int8", "--deep", "--reps", "5"]),
+                      set()),
+            "transcendental": (lambda: bench_transcendental.main(["--reps", "3"]), set()),
+            "probe_stride": (lambda: probe_stride.main(["--reps", "20"]), set()),
+            "bisect": (lambda: bisect_deep_compile.main(["--reps", "3"]),
+                       {"fused_resnet_block_deep"})}
+    wrappers = _kernel_wrappers()
+    launches, results = {}, {}
+    for path, (fn, also) in runs.items():
+        own = {k for k, p in TOOL_KERNELS.items() if p == path}
+        print(f"the {path} path (python -m unitspeech_tpu_torch.tools): kernels {sorted(own)}",
+              flush=True)
+        for w in wrappers.values():
+            w.launches = 0
+        results[path] = fn()
+        got = {name: w.launches for name, w in wrappers.items()}
+        print(f"  kernel launches in the {path} run: { {k: v for k, v in got.items() if v} }",
+              flush=True)
+        missing = sorted(k for k in own if got[k] == 0)
+        stray = sorted(k for k, v in got.items() if v and k not in own | also)
+        if missing or stray:
+            raise AssertionError(f"{path}: kernels not launched {missing}, stray launches {stray}")
+        launches[path] = got
+    bench = results["bench"]["stages"]
+    if [r["kernel"] for r in bench] != ["K10a", "K10a", "K10b", "K10b"] or not all(
+            np.isfinite(r["relerr"]) and r["relerr"] < INT8_BENCH_REL for r in bench):
+        raise AssertionError(f"bench_resnet_kernel --int8 --deep: {bench}")
+    if not all(r["correct"] for r in results["probe_stride"].values()):
+        raise AssertionError(f"probe_stride: {results['probe_stride']}")
+    if len(results["bisect"]) != 14:
+        raise AssertionError("bisect_deep_compile: not every case ran")
+    return launches, results
+
+
 def kernels_line(records, launches):
     """One entry per kernel: its launches on its home path's served
     requests, and per call on that path (HOME) at the 344-frame bucket the
@@ -683,7 +844,7 @@ def kernels_line(records, launches):
         out.append({
             "name": name, "route": "cuda", "source": sites[0]["source"],
             "replaces": sites[0]["replaces"],
-            "launches": launches["deep_i8" if home == "deep_i8" else "default"][name],
+            "launches": launches[RUN_OF.get(home, home)][name],
             "max_abs_err": max(r["max_abs_err"] for r in sites),
             "ms": per_call("ms"), "plain_ms": per_call("plain_ms"),
             "bound_ms": per_call("bound_ms"),
@@ -712,12 +873,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-
     from unitspeech_tpu_torch.ops import _cuda
+    from unitspeech_tpu_torch.tools import device_line
+
+    smi = device_line(dev)  # nvidia-smi's name and power limit
+    print(smi, flush=True)
 
     t0 = time.perf_counter()
     _cuda.lib()
@@ -731,13 +891,15 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, launches = serve(torch, tmp, per_call)
         paths = compare_paths(torch, dev, ckpt, per_call)
+    tool_launches, tools = run_tools()
+    launches.update(tool_launches)
 
     kernels = kernels_line(records, launches)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": smi, "records": records, "paths": paths, "kernels": kernels,
-                       "launches": launches}, f, indent=1)
+                       "launches": launches, "tools": tools}, f, indent=1)
     print(json.dumps({"paths": paths}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -68,7 +68,10 @@ sys.meta_path.insert(0, Block())
 import chip_smoke  # noqa: F401
 from unitspeech_tpu_torch import cli, measure  # noqa: F401
 from unitspeech_tpu_torch.ops import aa_snake, conv_matmul, fused_attention, fused_resnet
-from unitspeech_tpu_torch.ops import fused_resnet_deep, resample, row_stats  # noqa: F401
+from unitspeech_tpu_torch.ops import fastmath, fused_resnet_deep, probes, resample  # noqa: F401
+from unitspeech_tpu_torch.ops import row_stats  # noqa: F401
+from unitspeech_tpu_torch.tools import bench_resnet_kernel, bench_transcendental
+from unitspeech_tpu_torch.tools import bisect_deep_compile, probe_stride
 
 cfg, ckpt, out = sys.argv[1:4]
 cli.main_make_random_checkpoint(["--seed", "1", "--config", cfg, "--output", ckpt])
@@ -79,16 +82,24 @@ stats = cli.main_inference(["--ipa", "--text", "həloʊ", "--checkpoint", ckpt,
                             "--output", out, "--device", "cpu", "--diffusion-steps", "1",
                             "--deep", "--i8pre", "--resample"])
 assert stats["deep"] and stats["i8pre"] and stats["resample"], stats
+# the four tools, on the CPU at small sizes (their plain versions)
+bench_transcendental.main(["--device", "cpu", "--rows", "8", "--k", "4", "--k0", "2",
+                           "--reps", "1"])
+assert all(r["correct"] for r in probe_stride.main(["--device", "cpu", "--reps", "1"]).values())
+assert len(bisect_deep_compile.main(["--device", "cpu", "--reps", "1", "t8_f10_c1024"])) == 1
+res = bench_resnet_kernel.main(["--device", "cpu", "--frames", "8", "--reps", "1", "--int8",
+                                "--deep", "--stages", "0,2"])
+assert [r["kernel"] for r in res["stages"]] == ["K10a", "K10b"], res
 print("no JAX imported:", not any(m.split(".")[0] in ("jax", "unitspeech_tpu")
                                   for m in sys.modules))
 """
 
 
 def test_port_and_chip_smoke_import_nothing_of_jax(tmp_path):
-    """chip_smoke.py and the port's CLI (make-random-checkpoint, then
+    """chip_smoke.py, the port's CLI (make-random-checkpoint, then
     inference on the CPU with its defaults and with the fused deep-stage
-    switches) run with every import of jax, flax or unitspeech_tpu
-    refused."""
+    switches) and its four tools (on the CPU at small sizes) run with every
+    import of jax, flax or unitspeech_tpu refused."""
     cfg = json.loads(json.dumps(TINY))
     cfg["text_encoder"]["n_vocab"] = 180  # the IPA symbol table
     (tmp_path / "tiny.json").write_text(json.dumps(cfg))

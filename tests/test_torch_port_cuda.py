@@ -1,8 +1,8 @@
-"""The port's CUDA kernels K1-K9 and K11 against their plain PyTorch
-versions on the card, at small shapes with partial tiles and a padded batch
-(chip_smoke.py holds them at the main-path shapes), and the library GEMMs
-of the deep convs against their CPU versions. Every test needs a CUDA
-device and skips without one.
+"""The port's CUDA kernels K1-K11 and the tools' kernels P1-P3 against
+their plain PyTorch versions on the card, at small shapes with partial
+tiles and a padded batch (chip_smoke.py holds them at the main-path
+shapes), and the library GEMMs of the deep convs against their CPU
+versions. Every test needs a CUDA device and skips without one.
 
 This file imports neither jax nor tests/conftest.py's helpers, so that it
 runs on a machine with the card and no jax:
@@ -13,7 +13,11 @@ Bound: 2^-6 of max|plain| for the bf16 kernels K1-K4, K8 and K11 (both
 round to bf16 at the same points; f32 sums in another order may round to a
 neighbouring bf16 value), 1e-4 of max|plain| for the f32 row statistics, 0
 for the row abs-max K7. K9 adds one int8 step at the few values within f32
-round-off of a rounding boundary (I8_REL below). K5/K6 against their plain
+round-off of a rounding boundary (I8_REL below), and so do K10a/K10b: their
+int8 products are exact and their scales equal the plain version's, but
+kernel B's input h rounds to bf16 after GroupNorm statistics summed in
+another order. P1: 2^-12 of max(|plain|, 1) (P1_REL below). P2 is exact.
+K5/K6 against their plain
 version run in f32 on the same bf16-rounded inputs and weights: 2^-7 of
 max(|ref|, 1), one bf16 rounding of the output (and of the activation the
 conv's tensor cores take) plus f32 order.
@@ -29,6 +33,7 @@ from unitspeech_tpu_torch.ops import (
     fused_attention,
     fused_resnet,
     fused_resnet_deep,
+    probes,
     resample,
     row_stats,
 )
@@ -42,6 +47,12 @@ AA_REL = 2.0 ** -7
 # its normalised value (3e-3 at these widths, a few of them at most), well
 # under 2^-7 of max|plain|; the bound is BF16_REL plus that step.
 I8_REL = 2.0 ** -6 + 2.0 ** -7
+# P1: the accurate bodies may differ by an ulp or two where the kernel's
+# sinf / expf / tanhf / rsqrtf and PyTorch's differ; the exp chain amplifies
+# such a difference by up to e^8 / 2 per round until it saturates at e^8
+# (XLA's exp against PyTorch's on the CPU: up to 1e-4 of max|plain| at
+# k = 64, tests/test_torch_port_probes.py)
+P1_REL = 2.0 ** -12
 
 
 @pytest.fixture
@@ -308,3 +319,110 @@ def test_fused_upsample_conv(dev, t, f, cin, cout, lens):
     assert resample.fused_upsample_conv.launches == before + 1
     assert got.shape == (3, 2 * t, 2 * f, cout) and got.dtype == torch.bfloat16
     _assert_close(got, resample.upsample_conv_plain(x, mask, w, b), BF16_REL)
+
+
+def _rows_args(x, mask, p, f):
+    """fused_resnet.block_rows_args of a block's keyword parameters."""
+    return fused_resnet.block_rows_args(x, mask, p["t_bias"], p["w1"], p["b1"], p["gn1_scale"],
+                                        p["gn1_bias"], p["w2"], p["b2"], p["gn2_scale"],
+                                        p["gn2_bias"], p.get("wres"), p.get("bres"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,f,cin,cout,fpt", [(24, 40, 2, 128, 0), (24, 40, 128, 128, 4),
+                                              (24, 40, 512, 128, 6), (12, 80, 128, 256, 3)])
+def test_fused_resnet_block_int8(dev, t, f, cin, cout, fpt):
+    """K10a against its plain version: Cin = 2 (element loads, K padded to
+    16), tiles of 3-6 frames whose halo frames take the tile's scale, a
+    padded row; padding rows come out zero."""
+    rng = np.random.default_rng(cin + cout + fpt)
+    mask = _mask(dev, t, [t, t - 7, t])
+    p = _block_params(rng, dev, cin, cout)
+    x = _rand(rng, dev, 3, t, f, cin).to(torch.bfloat16)
+    before = fused_resnet.fused_resnet_block_int8.launches
+    got = fused_resnet.fused_resnet_block(x, mask, **p, groups=8, int8=True, frames_per_tile=fpt)
+    assert fused_resnet.fused_resnet_block_int8.launches == before + 1
+    a = _rows_args(x, mask, p, f)
+    wq = (fused_resnet.quant_w(p["w1"]), fused_resnet.quant_w(p["w2"]))
+    want = fused_resnet.resnet_block_i8_plain(
+        *a[:4], wq[0], *a[4:7], wq[1], *a[8:], f=f, groups=8,
+        fpt=fpt or fused_resnet.pick_frames_per_tile(t, f, max(cin, cout)))
+    assert got.dtype == torch.bfloat16
+    assert not got[1, t - 7:].any()
+    _assert_close(got, want, I8_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,f,cin,cout", [(14, 20, 256, 512), (7, 10, 1024, 1024),
+                                          (7, 10, 512, 1024), (7, 10, 2048, 512),
+                                          (14, 20, 1024, 256)])
+def test_fused_resnet_block_deep_int8(dev, t, f, cin, cout):
+    """K10b against its plain version: one scale per batch element, Cout
+    1024, conv1 in bf16 for Cin > Cout; padding rows come out zero."""
+    rng = np.random.default_rng(cin + 2 * cout + f)
+    mask = _mask(dev, t, [t, t - 5, t])
+    p = _block_params(rng, dev, cin, cout)
+    x = _rand(rng, dev, 3, t, f, cin).to(torch.bfloat16)
+    before = fused_resnet_deep.fused_resnet_block_deep_int8.launches
+    got = fused_resnet_deep.fused_resnet_block_deep(x, mask, **p, groups=8, int8=True)
+    assert fused_resnet_deep.fused_resnet_block_deep_int8.launches == before + 1
+    a = _rows_args(x, mask, p, f)
+    wq = (fused_resnet.quant_w(p["w1"]), fused_resnet.quant_w(p["w2"]))
+    want = fused_resnet_deep.resnet_block_deep_int8_plain(*a[:4], wq[0], *a[4:7], wq[1], *a[8:],
+                                                          f=f, groups=8)
+    assert got.dtype == torch.bfloat16
+    assert not got[1, t - 5:].any()
+    _assert_close(got, want, I8_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", list(probes.BODIES))
+def test_transcendental_chain(dev, body):
+    x = _rand(np.random.default_rng(5), dev, 300, 128)
+    before = probes.transcendental_chain.launches
+    got = probes.transcendental_chain(x, 64, body)
+    assert probes.transcendental_chain.launches == before + 1
+    _assert_close(got, probes.transcendental_chain_plain(x, 64, body), P1_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["stride2", "frame_block", "selection", "interleave"])
+def test_probe_stride_forms(dev, form):
+    """P2's kernels equal their plain versions bit for bit (copies, a 0/1
+    product with one term per output, one bf16 rounding of x + 1)."""
+    x = _rand(np.random.default_rng(6), dev, 512, 128).to(torch.bfloat16)
+    fn, plain = {
+        "stride2": (lambda: probes.row_select(x, 2, 1), lambda: probes.row_select_plain(x, 2, 1)),
+        "frame_block": (lambda: probes.row_select(x, 32, 16),
+                        lambda: probes.row_select_plain(x, 32, 16)),
+        "selection": (lambda: probes.selection_matmul(x), lambda: probes.selection_matmul_plain(x)),
+        "interleave": (lambda: probes.interleave_rows(x), lambda: probes.interleave_rows_plain(x)),
+    }[form]
+    assert torch.equal(fn(), plain())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,f,cin,cout", [(9, 10, 1024, 1024), (43, 10, 512, 1024)])
+def test_resnet_kernels_alone(dev, t, f, cin, cout):
+    """P3's calls: kernel A alone (conv + GroupNorm statistics) and kernel C
+    alone in its three residual modes, against their plain versions."""
+    rng = np.random.default_rng(t + cin)
+    n = t * f
+    lens = torch.tensor([n, n - 3 * f], dtype=torch.int32, device=dev)
+    x = _rand(rng, dev, 2, n, cin).to(torch.bfloat16)
+    w, bias = _rand(rng, dev, 9 * cin, cout, scale=(9 * cin) ** -0.5), _rand(rng, dev, cout)
+    c, mean, inv = fused_resnet.resnet_conv3x3(x, lens, w, bias, f)
+    c_p, mean_p, inv_p = fused_resnet.resnet_conv3x3_plain(x, lens, w, bias, f, 8)
+    _assert_close(c, c_p, BF16_REL)
+    torch.testing.assert_close(mean, mean_p, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(inv, inv_p, rtol=1e-4, atol=1e-5)
+    s, sh = 1 + _rand(rng, dev, cout, scale=0.1), _rand(rng, dev, cout, scale=0.1)
+    wres, bres = _rand(rng, dev, cin, cout, scale=cin ** -0.5), _rand(rng, dev, cout)
+    for mode in fused_resnet.OUT_MODES:
+        if mode == "identity" and cin != cout:
+            continue
+        w_b = (wres, bres) if mode == "matmul" else (None, None)
+        got = fused_resnet.resnet_out(c_p, x, mean_p, inv_p, s, sh, lens, mode, *w_b)
+        want = fused_resnet.resnet_out_plain(c_p, x, mean_p, inv_p, s, sh, lens, mode, *w_b)
+        assert got.dtype == (torch.float32 if mode == "none" else torch.bfloat16)
+        _assert_close(got, want, BF16_REL)

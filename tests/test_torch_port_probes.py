@@ -1,0 +1,193 @@
+"""The kernels of the port's measurement tools against the JAX package on
+the CPU: the polynomial transcendentals (ops/fastmath.py), the chain of
+tools/bench_transcendental.py (P1), the row-subsample forms of
+tools/probe_stride.py (P2) and the shapes and kernels of
+tools/bisect_deep_compile.py (P3). Tolerances are stated per case."""
+
+from functools import partial
+
+import jax
+import jax.experimental.pallas as pl
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from tools import bisect_deep_compile as jax_bisect
+from unitspeech_tpu.ops import fastmath as jfm
+from unitspeech_tpu.ops import pallas_resnet as jpr
+from unitspeech_tpu_torch.ops import fastmath, probes
+from unitspeech_tpu_torch.ops import fused_resnet as fr
+from unitspeech_tpu_torch.tools import bisect_deep_compile, probe_stride
+
+# tools/bench_transcendental.py:51-60, written in jnp
+JNP_BODIES = {
+    "mul": lambda x: x * jnp.float32(1.1),
+    "jnp_sin": jnp.sin,
+    "fast_sin": jfm.fast_sin,
+    "jnp_exp": lambda x: jnp.exp(jnp.minimum(x, 8.0)),
+    "fast_exp": lambda x: jfm.fast_exp(jnp.minimum(x, 8.0)),
+    "jnp_tanh": jnp.tanh,
+    "div": lambda x: jnp.float32(1.3) / (jnp.abs(x) + jnp.float32(1.0)),
+    "rsqrt": lambda x: jax.lax.rsqrt(jnp.abs(x) + jnp.float32(1.0)),
+}
+# bit for bit where both sides do the same f32 operations; XLA's and
+# PyTorch's sin / tanh / rsqrt differ by an ulp here and there (the chain
+# is contracting, so it stays an ulp), and exp's differences grow by up to
+# e^8 / 2 a round until the chain saturates at e^8 (measured 1e-4 of the
+# largest value at k = 64 on other seeds, 9.3e-6 on this one)
+P1_REL = {"mul": 0.0, "fast_sin": 0.0, "fast_exp": 0.0, "div": 0.0, "jnp_sin": 1e-6,
+          "jnp_tanh": 1e-6, "rsqrt": 1e-6, "jnp_exp": 2.0 ** -12}
+
+
+@pytest.mark.parametrize("name", ["fast_sin", "fast_exp"])
+def test_fastmath_bit_equal_to_jax(name):
+    """Bit for bit against the JAX functions run op by op (eager). Under
+    jit XLA fuses the polynomial and may contract its multiply-adds."""
+    rng = np.random.default_rng(1)
+    x = np.concatenate([(rng.standard_normal(50000) * s).astype(np.float32)
+                        for s in (0.5, 5.0, 50.0)] + [np.float32([-100, -87, 0, 30, 40])])
+    got = getattr(fastmath, name)(torch.from_numpy(x)).numpy()
+    want = np.asarray(getattr(jfm, name)(jnp.asarray(x)))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("body", list(probes.BODIES))
+def test_transcendental_plain_matches_jnp_loop(body):
+    """P1's plain version (the wrapper on a CPU tensor) against the same
+    loop in jnp, k = 64 rounds, within P1_REL of the largest value."""
+    x = np.random.default_rng(0).standard_normal((256, 128)).astype(np.float32)
+    acc = xj = jnp.asarray(x)
+    for _ in range(64):
+        acc = JNP_BODIES[body](acc) * jnp.float32(0.5) + xj
+    want = np.asarray(acc)
+    before = probes.transcendental_chain.launches
+    got = probes.transcendental_chain(torch.from_numpy(x), 64, body).numpy()
+    assert probes.transcendental_chain.launches == before
+    np.testing.assert_allclose(got, want, rtol=0, atol=P1_REL[body] * np.abs(want).max())
+
+
+def test_transcendental_ops_cover_every_body():
+    assert set(probes.ROUND_OPS) == set(probes.BODIES) == set(JNP_BODIES)
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_probe_stride_forms_match_numpy(case):
+    """P2's six cases on probe_stride's (512, 128) array (the wrappers take
+    their plain versions on the CPU) equal its numpy expectations
+    (tools/probe_stride.py:102-121) exactly; the interleave's odd rows
+    after rounding x + 1 to bf16, as the kernel's bf16 add rounds it."""
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((512, 128))
+                         .astype(np.float32)).to(torch.bfloat16)
+    xn = x.float().numpy()
+    name, kernel, args, key = probe_stride.FORMS[case]
+    lib = probe_stride.library_calls(x)[name]
+    want = probe_stride.expectations(xn)[key]
+    got = kernel(x, *args).float().numpy()
+    np.testing.assert_array_equal(got, probe_stride.PLAIN[kernel](x, *args).float().numpy())
+    if key == "inter":
+        np.testing.assert_array_equal(got[0::2], want[0::2])
+        np.testing.assert_array_equal(
+            got[1::2], torch.from_numpy(want[1::2]).to(torch.bfloat16).float().numpy())
+        assert np.abs(got - want).max() <= 2.0 ** -8 * np.abs(want).max()
+    else:
+        np.testing.assert_array_equal(got, want)
+    if lib is not None:
+        np.testing.assert_array_equal(lib().float().numpy(), want)
+    # the bytes bound counts the rows the form reads and writes
+    assert probe_stride.needed_bytes(key, kernel(x, *args)) == (
+        (3 if key == "inter" else 2) * 512 * 128)
+
+
+def test_bisect_cases_match_jax():
+    """P3 runs the JAX tool's 14 shapes."""
+    assert bisect_deep_compile.CASES == jax_bisect.CASES
+    assert len(bisect_deep_compile.CASES) == 14
+
+
+def _specs(n, c):
+    return pl.BlockSpec((1, n, c), lambda bb, cb: (bb, 0, 0), memory_space=pltpu.VMEM)
+
+
+def _lens_spec():
+    return pl.BlockSpec((1, 1, 1), lambda bb, cb: (bb, 0, 0), memory_space=pltpu.SMEM)
+
+
+def _row(c):
+    return pl.BlockSpec((1, c), lambda bb, cb: (0, 0), memory_space=pltpu.VMEM)
+
+
+def _stats_spec(c):
+    return pl.BlockSpec((1, 2, c), lambda bb, cb: (bb, 0, 0), memory_space=pltpu.VMEM)
+
+
+@pytest.mark.parametrize("t,f,cin,cout,length", [(5, 10, 16, 32, 30), (3, 6, 24, 16, 12)])
+def test_kernel_a_alone_matches_pallas(t, f, cin, cout, length):
+    """P3's kernel A alone (resnet_conv3x3's plain version) against JAX's
+    current _kernel_a_deep (with n_true, int8=False and its sw_ref operand,
+    which JAX's run_probe("a") no longer passes), interpret mode, f32:
+    conv output within 1e-5, and its GroupNorm statistics from JAX's
+    (sum, sumsq) within 1e-5 relative. A padded length."""
+    b, n = 2, t * f
+    rng = np.random.default_rng(t + cin)
+    x = rng.standard_normal((b, n, cin)).astype(np.float32)
+    w = (rng.standard_normal((9 * cin, cout)) * (9 * cin) ** -0.5).astype(np.float32)
+    bias = rng.standard_normal(cout).astype(np.float32)
+    lens = np.array([n, length], np.int32)
+    c, stats = pl.pallas_call(
+        partial(jpr._kernel_a_deep, f=f, n=n, n_true=n, out_dtype=jnp.float32, int8=False),
+        grid=(b, 1),
+        in_specs=[_lens_spec(), _specs(n, cin),
+                  pl.BlockSpec((9 * cin, cout), lambda bb, cb: (0, 0), memory_space=pltpu.VMEM),
+                  _row(cout), _row(cout)],
+        out_specs=(_specs(n, cout), _stats_spec(cout)),
+        out_shape=(jax.ShapeDtypeStruct((b, n, cout), jnp.float32),
+                   jax.ShapeDtypeStruct((b, 2, cout), jnp.float32)),
+        interpret=True,
+    )(jnp.asarray(lens.reshape(b, 1, 1)), jnp.asarray(x), jnp.asarray(w),
+      jnp.ones((1, cout), jnp.float32), jnp.asarray(bias[None]))
+    got_c, got_mean, got_inv = fr.resnet_conv3x3(torch.from_numpy(x), torch.from_numpy(lens),
+                                                 torch.from_numpy(w), torch.from_numpy(bias), f)
+    np.testing.assert_allclose(got_c.numpy(), np.asarray(c), atol=1e-5, rtol=1e-5)
+    for bb in range(b):
+        mean, inv = jpr._group_stats(stats[bb, 0], stats[bb, 1], n, 8)
+        np.testing.assert_allclose(got_mean[bb].numpy(), np.asarray(mean)[0], rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got_inv[bb].numpy(), np.asarray(inv)[0], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", fr.OUT_MODES)
+def test_kernel_c_alone_matches_pallas(mode):
+    """P3's kernel C alone (resnet_out's plain version) against JAX's
+    _kernel_c in each res_mode, interpret mode, f32, with a padded length:
+    within 1e-5 (GroupNorm statistics pooled in another order)."""
+    b, n, cin, cout = 2, 60, 32, 32
+    rng = np.random.default_rng(3)
+    c2 = rng.standard_normal((b, n, cout)).astype(np.float32)
+    x = rng.standard_normal((b, n, cin)).astype(np.float32)
+    s, sh = (1 + 0.1 * rng.standard_normal((2, cout))).astype(np.float32)
+    wres = (rng.standard_normal((cin, cout)) * cin ** -0.5).astype(np.float32)
+    bres = rng.standard_normal(cout).astype(np.float32)
+    lens = np.array([n, 40], np.int32)
+    stats = np.stack([c2.sum(1), (c2 * c2).sum(1)], axis=1)
+    matmul = mode == "matmul"
+    w_in, b_in = (wres, bres[None]) if matmul else (np.zeros((1, 1), np.float32),) * 2
+    w_spec = pl.BlockSpec(w_in.shape, lambda bb, cb: (0, 0), memory_space=pltpu.VMEM)
+    b_spec = pl.BlockSpec(b_in.shape, lambda bb, cb: (0, 0), memory_space=pltpu.VMEM)
+    want = pl.pallas_call(
+        partial(jpr._kernel_c, tile=n, n_rows=n, groups=8, res_mode=mode,
+                out_dtype=jnp.float32),
+        grid=(b, 1),
+        in_specs=[_lens_spec(), _specs(n, cout), _specs(n, cin), _stats_spec(cout), _row(cout),
+                  _row(cout), w_spec, b_spec],
+        out_specs=_specs(n, cout),
+        out_shape=jax.ShapeDtypeStruct((b, n, cout), jnp.float32),
+        interpret=True,
+    )(jnp.asarray(lens.reshape(b, 1, 1)), jnp.asarray(c2), jnp.asarray(x), jnp.asarray(stats),
+      jnp.asarray(s[None]), jnp.asarray(sh[None]), jnp.asarray(w_in), jnp.asarray(b_in))
+    mean, inv = fr._group_stats(torch.from_numpy(c2), 8)
+    got = fr.resnet_out(torch.from_numpy(c2), torch.from_numpy(x), mean[:, 0], inv[:, 0],
+                        torch.from_numpy(s), torch.from_numpy(sh), torch.from_numpy(lens), mode,
+                        *((torch.from_numpy(wres), torch.from_numpy(bres)) if matmul else ()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+    assert not got[1, 40:].any()

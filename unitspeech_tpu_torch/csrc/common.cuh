@@ -198,7 +198,7 @@ US_DEV void igemm_s8(int (&acc)[2][4][4], IgemmTilesS8& sm, int nk, LoadA& load_
 }
 
 // Epilogue of a 128 x 64 tile for the kernels A/B of a ResnetBlock: the
-// value v = value(acc, column) of each row < M goes to out (bf16), and its
+// value v = value(acc, row, column) of each row < M goes to out (bf16), and its
 // per-column sum and sum of squares over the tile to
 // part[((b * gridDim.x + blockIdx.x) * 2 + {0, 1}) * Cout + column], for
 // GroupNorm statistics reduced in a fixed order afterwards. `red` is
@@ -220,8 +220,8 @@ US_DEV void store_tile_stats(const Acc (&acc)[2][4][4], Value& value, bf16* out,
         int m = m0 + wm * 32 + i * 16 + (lane >> 2) + h * 8;
         int n = n0 + wn * 32 + j * 8 + (lane & 3) * 2;
         if (m >= M) continue;
-        float v0 = value(acc[i][j][2 * h], n);
-        float v1 = value(acc[i][j][2 * h + 1], n + 1);
+        float v0 = value(acc[i][j][2 * h], m, n);
+        float v1 = value(acc[i][j][2 * h + 1], m, n + 1);
         *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)b * M + m) * Cout + n) =
             __floats2bfloat162_rn(v0, v1);
         cs[j][0] += v0;
@@ -286,6 +286,32 @@ US_DEV void store8(bf16* p, const float (&v)[8]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = u;
+}
+
+// max that propagates a NaN in either operand, as torch.amax and jnp.max do
+US_DEV float max_nan(float a, float b) { return (a != a || a > b) ? a : b; }
+
+// int8 quantize as JAX rounds it: clip(round_half_even(v * s), -127, 127),
+// the product rounded once (no fused multiply-add)
+US_DEV int8_t quant_i8(float v, float s) {
+  float r = rintf(__fmul_rn(v, s));
+  return (int8_t)(int)fminf(fmaxf(r, -127.f), 127.f);
+}
+
+// Max over a block of threads (max_nan); every thread gets the result.
+// `scratch` holds blockDim.x floats.
+US_DEV float block_max(float v, float* scratch) {
+  int tid = threadIdx.x;
+  __syncthreads();
+  scratch[tid] = v;
+  __syncthreads();
+  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+    if (tid < s) scratch[tid] = max_nan(scratch[tid], scratch[tid + s]);
+    __syncthreads();
+  }
+  float r = scratch[0];
+  __syncthreads();
+  return r;
 }
 
 // Sum over a block of `n` threads in a fixed order (deterministic).

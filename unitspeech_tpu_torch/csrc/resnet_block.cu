@@ -4,7 +4,10 @@
 // fused_resnet_block (_fused_resnet: _kernel_a, _kernel_b, _kernel_c),
 // fused_final_block (_fused_final: _kernel_a, _kernel_d) and
 // fused_resnet_block_deep (_fused_resnet_deep: _kernel_a_deep,
-// _kernel_b_deep, _kernel_c): us_resnet_block at the deep stages.
+// _kernel_b_deep, _kernel_c): us_resnet_block at the deep stages. Kernel A
+// (us_resnet_conv3x3) and kernel C (us_resnet_out; us_resnet_out_none for
+// JAX's res_mode "none") also run alone, as tools/bisect_deep_compile.py
+// probes them.
 //
 // Layout: rows n = t*F + f of one batch element, channels last, bf16.
 // conv3x3 is an implicit GEMM: M = rows, N = Cout, K = 9*Cin with the
@@ -169,7 +172,7 @@ __global__ void __launch_bounds__(NTHREADS) conv_gemm(ConvArgs p) {
   igemm_bf16(acc, tiles, nk, load_a, load_b);
 
   if (EPI == 0) {
-    auto value = [&](float a, int n) -> float { return a + p.bias[n]; };
+    auto value = [&](float a, int, int n) -> float { return a + p.bias[n]; };
     store_tile_stats(acc, value, p.out, p.part, red, N, Cout, m0, n0, b);
   } else {
 #pragma unroll
@@ -216,10 +219,13 @@ __global__ void __launch_bounds__(256) gn_finalize(const float* part, int n_tile
   }
 }
 
-// Kernel C with the identity residual: mish(GN(c2))*valid + x*valid.
-__global__ void __launch_bounds__(256) resnet_out_identity(
+// Kernel C without the 1x1 conv: mish(GN(c2))*valid + x*valid in bf16
+// (RES, the identity residual), or mish(GN(c2))*valid alone in f32 (JAX's
+// res_mode "none", which leaves the residual to the caller).
+template <bool RES, typename TOut>
+__global__ void __launch_bounds__(256) resnet_out_elementwise(
     const bf16* c2, const bf16* x, const float* mean, const float* inv,
-    const float* scale, const float* shift, const int* lens, bf16* out, int B,
+    const float* scale, const float* shift, const int* lens, TOut* out, int B,
     int N, int C) {
   size_t nvec = (size_t)B * N * C / 8;
   for (size_t v = blockIdx.x * (size_t)blockDim.x + threadIdx.x; v < nvec;
@@ -231,16 +237,26 @@ __global__ void __launch_bounds__(256) resnet_out_identity(
     float valid = m < lens[b] ? 1.f : 0.f;
     float cv[8], xv[8], o[8];
     load8(c2 + e0, cv);
-    load8(x + e0, xv);
+    if (RES) load8(x + e0, xv);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       int c = c0 + e;
       float h = (cv[e] - mean[b * C + c]) * inv[b * C + c];
       h = mish_f32(h * scale[c] + shift[c]) * valid;
-      o[e] = h + xv[e] * valid;
+      o[e] = RES ? h + xv[e] * valid : h;
     }
-    store8(out + e0, o);
+    if constexpr (RES) {
+      store8(out + e0, o);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) out[e0 + e] = o[e];
+    }
   }
+}
+
+int elementwise_blocks(int B, int N, int C) {
+  size_t blocks = ((size_t)B * N * C / 8 + 255) / 256;
+  return (int)(blocks > 65535 ? 65535 : blocks);
 }
 
 // Kernel D: GN-apply + mish + mask, then the 1-channel 1x1 final_conv, one
@@ -332,10 +348,7 @@ int us_resnet_out(const void* c2, const void* x, const float* mean, const float*
                   int Cout, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wres == nullptr) {
-    size_t nvec = (size_t)B * N * Cout / 8;
-    int blocks = (int)((nvec + 255) / 256);
-    if (blocks > 65535) blocks = 65535;
-    resnet_out_identity<<<blocks, 256, 0, st>>>(
+    resnet_out_elementwise<true, bf16><<<elementwise_blocks(B, N, Cout), 256, 0, st>>>(
         static_cast<const bf16*>(c2), static_cast<const bf16*>(x), mean, inv, scale, shift,
         lens, static_cast<bf16*>(out), B, N, Cout);
     return (int)cudaGetLastError();
@@ -351,6 +364,17 @@ int us_resnet_out(const void* c2, const void* x, const float* mean, const float*
     conv_gemm<1, false, 1, true><<<grid, NTHREADS, 0, st>>>(p);
   else
     conv_gemm<1, false, 1, false><<<grid, NTHREADS, 0, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// Kernel C in JAX's res_mode "none": GN2-apply + mish + mask alone, f32
+// out (B, N, C); the caller adds the residual.
+int us_resnet_out_none(const void* c2, const float* mean, const float* inv, const float* scale,
+                       const float* shift, const int* lens, float* out, int B, int N, int C,
+                       void* stream) {
+  resnet_out_elementwise<false, float>
+      <<<elementwise_blocks(B, N, C), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const bf16*>(c2), nullptr, mean, inv, scale, shift, lens, out, B, N, C);
   return (int)cudaGetLastError();
 }
 

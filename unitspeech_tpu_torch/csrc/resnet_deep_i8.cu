@@ -37,28 +37,6 @@ namespace {
 
 constexpr int GLUE_ROWS = 64;  // rows of one glue block (a chunk)
 
-US_DEV float max_nan(float a, float b) { return (a != a || a > b) ? a : b; }
-
-US_DEV int8_t quant_i8(float v, float s) {
-  float r = rintf(__fmul_rn(v, s));
-  return (int8_t)(int)fminf(fmaxf(r, -127.f), 127.f);
-}
-
-// Max over a block of 256 threads; every thread gets the result.
-US_DEV float block_max(float v, float* scratch) {
-  int tid = threadIdx.x;
-  __syncthreads();
-  scratch[tid] = v;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (tid < s) scratch[tid] = max_nan(scratch[tid], scratch[tid + s]);
-    __syncthreads();
-  }
-  float r = scratch[0];
-  __syncthreads();
-  return r;
-}
-
 // One batch element per block: sx = 127 / max(max(amax[b]), 1e-8) and the
 // effective dequantize scale swe[b, c] = (1 / sx) * rsw[c].
 __global__ void __launch_bounds__(256) i8_scales(const float* amax, int n, const float* rsw,
@@ -149,7 +127,7 @@ __global__ void __launch_bounds__(IG_THREADS) conv3x3_i8(I8ConvArgs p) {
   int acc[2][4][4];
   igemm_s8(acc, tiles, nk, load_a, load_b);
   const float* swe = p.swe + (size_t)b * Cout;
-  auto value = [&](int a, int n) -> float {
+  auto value = [&](int a, int, int n) -> float {
     return __fadd_rn(__fmul_rn(__int2float_rn(a), swe[n]), p.bias[n]);
   };
   store_tile_stats(acc, value, p.out, p.part, red, N, Cout, m0, n0, b);

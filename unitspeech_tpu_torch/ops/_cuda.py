@@ -17,6 +17,8 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -53,11 +55,18 @@ _SIGNATURES = {
     "us_i8_glue": ([_P] * 12 + [_I] * 3 + [_P], _I),
     "us_downsample_conv": ([_P] * 5 + [_I] * 5 + [_P], _I),
     "us_upsample_conv": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    "us_resnet_block_i8": ([_P] * 26 + [_I] * 7 + [_F, _P], _I),
+    "us_resnet_out_none": ([_P] * 7 + [_I] * 3 + [_P], _I),
+    "us_transcendental_chain": ([_P] * 2 + [_I] * 3 + [_P], _I),
+    "us_row_select": ([_P] * 2 + [_I] * 4 + [_P], _I),
+    "us_interleave_rows": ([_P] * 2 + [_I] * 2 + [_P], _I),
+    "us_selection_matmul": ([_P] * 2 + [_I] * 2 + [_P], _I),
 }
 
 _lock = threading.Lock()
 _lib = None
 build_log = ""
+build_seconds: dict = {}  # source file -> wall seconds of its nvcc, from the last build
 
 
 def _sources():
@@ -76,7 +85,7 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the kernels if the library for these sources is missing.
     Returns its path; raises RuntimeError with nvcc's output on failure."""
-    global build_log
+    global build_log, build_seconds
     out = library_path()
     if out.exists():
         return out
@@ -90,16 +99,20 @@ def build() -> Path:
     tag = f"{out.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
     arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
+    def nvcc_one(src, obj):
+        t0 = time.perf_counter()
+        p = subprocess.run([nvcc, *arch, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+                            "-v", "-c", "-o", str(obj), str(src)],
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return src.name, p.stdout, p.returncode, time.perf_counter() - t0
+
     # one nvcc per source, all started together, then one link (about a
     # third of the wall time of one nvcc over every source)
-    procs = [subprocess.Popen(
-        [nvcc, *arch, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c",
-         "-o", str(obj), str(src)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for src, obj in zip(cu, objs)]
-    logs = [(src.name, p.communicate()[0], p.returncode) for src, p in zip(cu, procs)]
-    build_log = "".join(f"== {name}\n{log}" for name, log, _ in logs)
-    failed = [name for name, _, rc in logs if rc != 0]
+    with ThreadPoolExecutor(len(cu)) as pool:
+        logs = list(pool.map(nvcc_one, cu, objs))
+    build_seconds = {name: secs for name, _, _, secs in logs}
+    build_log = "".join(f"== {name} (nvcc {secs:.1f} s)\n{log}" for name, log, _, secs in logs)
+    failed = [name for name, _, rc, _ in logs if rc != 0]
     if not failed:
         tmp = out.with_name(f"{tag}.so.tmp")
         link = subprocess.run([nvcc, *arch, "-shared", "-o", str(tmp), *map(str, objs)],

@@ -12,6 +12,14 @@ and the final block as A followed by D: GN + mish + mask + the 1-channel
 1x1 final_conv, giving an f32 score. CUDA source: csrc/resnet_block.cu,
 which states what bounds the kernels and how they are laid out.
 
+`fused_resnet_block(..., int8=True)` is K10a (JAX's in-kernel int8 mode,
+no model route): both convs quantize their input window per TPU tile of
+`frames_per_tile` frames (pick_frames_per_tile), one scale
+127 / (max|window| + 1e-8) over the tile plus one halo frame on each side,
+and dequantize as acc * ((1/s) * rsw) + bias. CUDA source:
+csrc/resnet_block_i8.cu. `resnet_conv3x3` and `resnet_out` run kernel A and
+kernel C alone (tools/bisect_deep_compile.py).
+
 Numerics contract (the Pallas kernels'): convs accumulate in f32 and round
 once to the activation dtype; the statistics come from the f32
 accumulators and pool over every row of the padded bucket; GN math and
@@ -22,10 +30,37 @@ from __future__ import annotations
 
 import torch
 
+import torch.nn.functional as F
+
 from unitspeech_tpu_torch.ops import _cuda
-from unitspeech_tpu_torch.ops.conv_matmul import conv3x3_rows
+from unitspeech_tpu_torch.ops.conv_matmul import conv3x3_rows, im2col, quantize_weight
 
 GN_EPS = 1e-5
+
+
+def pick_frames_per_tile(t: int, f: int, c_max: int,
+                         budget_bytes: int = 6 * 1024 * 1024) -> int:
+    """pallas_resnet._pick_frames_per_tile: the divisor of T whose tile is
+    closest to 1024 rows within the TPU's VMEM budget (10 bytes per row and
+    channel), the larger on a tie. K10a's activation scales are per tile of
+    this many frames, so the port computes what the TPU computes."""
+    target_rows = 1024
+    best, best_key = 1, None
+    for k in range(1, t + 1):
+        if t % k == 0 and k * f * c_max * 10 <= budget_bytes:
+            key = (abs(k * f - target_rows), -k)
+            if best_key is None or key < best_key:
+                best, best_key = k, key
+    return best
+
+
+def quant_w(w: torch.Tensor):
+    """pallas_resnet._quant_w: a conv kernel (..., Cout) -> (w8t (Cout, K)
+    int8, rsw (Cout,) f32), per-output-channel scales over the (K, Cout)
+    matrix, round half to even, clip to +-127, the scales returned as
+    reciprocals. w8t is stored n-major, as the int8 kernels read it."""
+    w8t, sw = quantize_weight(w)
+    return w8t, 1.0 / sw
 
 
 def mish_one_exp(x: torch.Tensor) -> torch.Tensor:
@@ -77,6 +112,28 @@ def _gn_mish(c: torch.Tensor, mean, inv, scale, shift) -> torch.Tensor:
     return mish_one_exp(h * scale.to(torch.float32) + shift.to(torch.float32))
 
 
+def _kernel_c_plain(c2, x, mean, inv, s2, be2, valid, wres, bres, residual: bool = True):
+    """Kernel C's plain version: mish(GN2(c2)) * valid plus the residual
+    (x * valid, or the 1x1 conv when wres is given), rounded once to x's
+    dtype; without the residual (JAX's res_mode "none") the f32 term."""
+    h2 = _gn_mish(c2, mean, inv, s2, be2) * valid
+    if not residual:
+        return h2
+    dt = x.dtype
+    xv = x.to(torch.float32) * valid
+    if wres is None:
+        res = xv
+    else:
+        res = (xv @ wres.to(dt).to(torch.float32) + bres) * valid
+    return (h2 + res).to(dt)
+
+
+def _film_masked(acc1, mean1, inv1, s1, be1, t_bias, valid, dt):
+    """Kernel B's conv input: mish(GN1(c1)) + FiLM, masked, in dtype dt."""
+    h = _gn_mish(acc1.to(dt), mean1, inv1, s1, be1)
+    return ((h + t_bias.to(dt).to(torch.float32)[:, None, :]) * valid).to(dt)
+
+
 def resnet_block_plain(x, lens_rows, t_bias, w1, b1, s1, be1, w2, b2, s2, be2,
                        wres, bres, f: int, groups: int):
     """The K1 kernel's plain version on rows: x (B, N, Cin) in the
@@ -87,17 +144,71 @@ def resnet_block_plain(x, lens_rows, t_bias, w1, b1, s1, be1, w2, b2, s2, be2,
     valid = _valid(lens_rows, n)
     acc1 = conv3x3_rows(x.to(torch.float32) * valid, w1.to(dt).to(torch.float32), f) + b1
     mean1, inv1 = _group_stats(acc1, groups)
-    h = _gn_mish(acc1.to(dt), mean1, inv1, s1, be1)
-    h = ((h + t_bias.to(dt).to(torch.float32)[:, None, :]) * valid).to(dt)
+    h = _film_masked(acc1, mean1, inv1, s1, be1, t_bias, valid, dt)
     acc2 = conv3x3_rows(h.to(torch.float32), w2.to(dt).to(torch.float32), f) + b2
     mean2, inv2 = _group_stats(acc2, groups)
-    h2 = _gn_mish(acc2.to(dt), mean2, inv2, s2, be2) * valid
+    return _kernel_c_plain(acc2.to(dt), x, mean2, inv2, s2, be2, valid, wres, bres)
+
+
+def _int_mm(col8: torch.Tensor, w8t: torch.Tensor) -> torch.Tensor:
+    """int8 (M, K) x the n-major int8 (Cout, K) -> int32 (M, Cout), exact.
+    On the card torch._int_mm, K padded with zeros to a multiple of 8."""
+    if not col8.is_cuda:
+        return col8.to(torch.int32) @ w8t.t().to(torch.int32)
+    pad = -col8.shape[1] % 8
+    if pad:
+        col8, w8t = F.pad(col8, (0, pad)), F.pad(w8t, (0, pad))
+    return torch._int_mm(col8, w8t.t())
+
+
+def tile_row_scales(v: torch.Tensor, f: int, fpt: int) -> torch.Tensor:
+    """The activation scale of every output row's TPU tile: v (B, T*F, C)
+    the conv input as the kernel sees it (masked; f32 values) -> (B, T*F)
+    f32, 127 / (max|window| + 1e-8) with the window the tile's fpt frames
+    and one frame on each side (zero outside the array)."""
+    b, n, c = v.shape
+    t = n // f
+    frame_max = v.abs().reshape(b, t, f * c).amax(dim=-1)
+    window_max = F.pad(frame_max, (1, 1)).unfold(1, fpt + 2, fpt).amax(dim=-1)
+    # a true division (a Python number over a tensor multiplies by the
+    # reciprocal, which rounds twice)
+    s = torch.full_like(window_max, 127.0) / (window_max + 1e-8)
+    return s.repeat_interleave(fpt * f, dim=1)
+
+
+def conv3x3_i8_tiles(v: torch.Tensor, wq, f: int, fpt: int) -> torch.Tensor:
+    """pallas_resnet._conv3x3_taps_int8 over every tile of (B, T*F, Cin)
+    rows: each output row's window quantized with its tile's scale
+    (tile_row_scales), int8 x int8 -> int32 with wq = quant_w(w), then
+    f32(acc) * ((1/s) * rsw). -> (B, T*F, Cout) f32, before the bias."""
+    b, n, cin = v.shape
+    w8t, rsw = wq
+    s = tile_row_scales(v, f, fpt)[..., None]
+    col8 = torch.clamp(torch.round(im2col(v, f) * s), -127, 127).to(torch.int8)
+    acc = _int_mm(col8.reshape(b * n, 9 * cin), w8t).reshape(b, n, -1)
+    return acc.to(torch.float32) * ((1.0 / s) * rsw)
+
+
+def resnet_block_i8_plain(x, lens_rows, t_bias, w1, wq1, b1, s1, be1, wq2, b2, s2, be2,
+                          wres, bres, f: int, groups: int, fpt: int, conv1_bf16: bool = False):
+    """The K10 kernels' plain version on rows (K10a; K10b with fpt = T):
+    x (B, N, Cin) in the activation dtype, wq1/wq2 = quant_w of the conv
+    kernels; with conv1_bf16 conv1 runs in bf16 from w1 (9*Cin, Cout)
+    (JAX's deep hybrid for Cin > Cout) and wq1 is not read. -> (B, N,
+    Cout)."""
+    dt = x.dtype
+    n = x.shape[1]
+    valid = _valid(lens_rows, n)
     xv = x.to(torch.float32) * valid
-    if wres is None:
-        res = xv
+    if conv1_bf16:
+        acc1 = conv3x3_rows(xv, w1.to(dt).to(torch.float32), f) + b1
     else:
-        res = (xv @ wres.to(dt).to(torch.float32) + bres) * valid
-    return (h2 + res).to(dt)
+        acc1 = conv3x3_i8_tiles(xv, wq1, f, fpt) + b1
+    mean1, inv1 = _group_stats(acc1, groups)
+    h = _film_masked(acc1, mean1, inv1, s1, be1, t_bias, valid, dt)
+    acc2 = conv3x3_i8_tiles(h.to(torch.float32), wq2, f, fpt) + b2
+    mean2, inv2 = _group_stats(acc2, groups)
+    return _kernel_c_plain(acc2.to(dt), x, mean2, inv2, s2, be2, valid, wres, bres)
 
 
 def final_block_plain(x, lens_rows, w1, b1, s1, be1, wo, bo, f: int, groups: int):
@@ -182,16 +293,106 @@ def _resnet_block_cuda(x, lens, t_bias, w1, b1, s1, be1, w2, b2, s2, be2, wres, 
     return out
 
 
+def _padded_w8(w8t: torch.Tensor, cin: int, dev) -> torch.Tensor:
+    """quant_w's (Cout, 9*Cin) int8 weights with zero columns up to a
+    multiple of 16 (the int8 kernel's 16-byte B loads; Cin = 2)."""
+    k = 9 * cin
+    w8t = _cuda.require(w8t.contiguous(), "w8t", dtype=torch.int8, device=dev)
+    if w8t.shape[1] != k:
+        raise ValueError(f"w8t: {w8t.shape[1]} columns, expected {k}")
+    pad = -k % 16
+    return F.pad(w8t, (0, pad)).contiguous() if pad else w8t
+
+
+def _resnet_block_i8_cuda(x, lens, t_bias, w1, wq1, b1, s1, be1, wq2, b2, s2, be2, wres,
+                          bres, f, groups, fpt, conv1_bf16, what):
+    """K10a / K10b: the block's chain in one call of us_resnet_block_i8."""
+    b, n, cin = x.shape
+    cout = b1.shape[-1]
+    _check_shapes(what, x, cout, groups)
+    if wres is None and cin != cout:
+        raise ValueError(f"{what}: identity residual needs Cin == Cout")
+    t = n // f
+    if n != t * f or t % fpt:
+        raise ValueError(f"{what}: {n} rows of F={f} do not split into tiles of {fpt} frames")
+    dt, dev = x.dtype, x.device
+    x = _cuda.require(x.contiguous(), "x", dtype=dt)
+    _cuda.require(lens, "lens", dtype=torch.int32, shape=(b,), device=dev)
+    film = _cuda.require(t_bias.to(dt).contiguous(), "t_bias", shape=(b, cout), device=dev)
+    w1b = w8t1 = rsw1 = None
+    if conv1_bf16:
+        w1b = _cuda.require(w1.to(dt).contiguous(), "w1", shape=(9 * cin, cout), device=dev)
+    else:
+        w8t1 = _padded_w8(wq1[0], cin, dev)
+        rsw1 = _cuda.require(_f32(wq1[1]), "rsw1", shape=(cout,), device=dev)
+    w8t2 = _padded_w8(wq2[0], cout, dev)
+    rsw2 = _cuda.require(_f32(wq2[1]), "rsw2", shape=(cout,), device=dev)
+    if wres is not None:
+        wres = _cuda.require(wres.to(dt).contiguous(), "wres", shape=(cin, cout), device=dev)
+        bres = _f32(bres)
+    lib = _cuda.lib()
+    fmax = torch.empty((b, t), dtype=torch.float32, device=dev)
+    sx = torch.empty((b, t // fpt), dtype=torch.float32, device=dev)
+    c1, c2, out = (torch.empty((b, n, cout), dtype=dt, device=dev) for _ in range(3))
+    part = torch.empty((b, lib.us_n_row_tiles(n), 2, cout), dtype=torch.float32, device=dev)
+    stats = torch.empty((4, b, cout), dtype=torch.float32, device=dev)  # mean/inv x 2
+    vecs = tuple(map(_f32, (b1, s1, be1)))
+    vecs2 = tuple(map(_f32, (b2, s2, be2)))
+    _cuda.check(lib.us_resnet_block_i8(
+        x.data_ptr(), _cuda.ptr(w1b), _cuda.ptr(w8t1), _cuda.ptr(rsw1),
+        *(v.data_ptr() for v in vecs), film.data_ptr(), w8t2.data_ptr(), rsw2.data_ptr(),
+        *(v.data_ptr() for v in vecs2), _cuda.ptr(wres), _cuda.ptr(bres), lens.data_ptr(),
+        fmax.data_ptr(), sx.data_ptr(), c1.data_ptr(), c2.data_ptr(), part.data_ptr(),
+        *(t_.data_ptr() for t_ in stats), out.data_ptr(), b, n, f, cin, cout, fpt, groups,
+        GN_EPS, _cuda.stream(x)), what)
+    return out
+
+
+def fused_resnet_block_int8(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
+                            w2, b2, gn2_scale, gn2_bias, wres=None, bres=None,
+                            groups: int = 8, frames_per_tile: int = 0, wq=None):
+    """K10a: fused_resnet_block with both convs in int8, quantized in
+    kernel per tile of frames_per_tile frames (0: pick_frames_per_tile, as
+    JAX picks it). wq = (quant_w(w1), quant_w(w2)) when computed once, else
+    computed here. -> (B, T, F, Cout). CUDA tensors launch the kernel, CPU
+    tensors take resnet_block_i8_plain."""
+    bsz, t, f, cin = x.shape
+    cout = w1.shape[-1]
+    fpt = frames_per_tile or pick_frames_per_tile(t, f, max(cin, cout))
+    if t % fpt:
+        raise ValueError(f"fused_resnet_block: frames_per_tile={fpt} does not divide T={t}")
+    wq1, wq2 = (quant_w(w1), quant_w(w2)) if wq is None else wq
+    xr, lens, tb, w1r, b1, s1, be1, _, b2, s2, be2, wres, bres = block_rows_args(
+        x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2, gn2_scale, gn2_bias, wres, bres)
+    args = (xr, lens, tb, w1r, wq1, b1, s1, be1, wq2, b2, s2, be2, wres, bres)
+    if _cuda.route(x, "fused_resnet_block(int8=True)"):
+        out = _resnet_block_i8_cuda(*args, f=f, groups=groups, fpt=fpt, conv1_bf16=False,
+                                    what="fused_resnet_block(int8=True)")
+        fused_resnet_block_int8.launches += 1
+    else:
+        out = resnet_block_i8_plain(*args, f=f, groups=groups, fpt=fpt)
+    return out.reshape(bsz, t, f, cout)
+
+
+fused_resnet_block_int8.launches = 0
+
+
 def fused_resnet_block(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
                        w2, b2, gn2_scale, gn2_bias, wres=None, bres=None,
-                       groups: int = 8):
+                       groups: int = 8, int8: bool = False, frames_per_tile: int = 0,
+                       wq=None):
     """One U-Net ResnetBlock (plain twin: models/unet.py ResnetBlock).
 
     x (B, T, F, Cin); mask (B, T, 1, 1) prefix mask; t_bias (B, Cout) the
     FiLM bias Dense(mish(t_emb)); w1/w2 (3, 3, Cin|Cout, Cout) flax conv
     kernels (spatial (t, f)); wres/bres the optional 1x1 residual.
     -> (B, T, F, Cout). CUDA tensors launch the kernel, CPU tensors take
-    resnet_block_plain."""
+    resnet_block_plain. int8=True is K10a (fused_resnet_block_int8, which
+    takes frames_per_tile and wq); in bf16 they change nothing."""
+    if int8:
+        return fused_resnet_block_int8(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2,
+                                       gn2_scale, gn2_bias, wres, bres, groups=groups,
+                                       frames_per_tile=frames_per_tile, wq=wq)
     bsz, t, f, _ = x.shape
     args = block_rows_args(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2, gn2_scale,
                            gn2_bias, wres, bres)
@@ -204,6 +405,97 @@ def fused_resnet_block(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
 
 
 fused_resnet_block.launches = 0
+
+
+def resnet_conv3x3_plain(x, lens_rows, w, bias, f: int, groups: int):
+    """Kernel A's plain version: masked x (B, N, Cin) rows, w (9*Cin, Cout)
+    -> (c in x's dtype, mean, inv), mean/inv (B, Cout) the GroupNorm
+    statistics of the f32 conv output over every row."""
+    valid = _valid(lens_rows, x.shape[1])
+    acc = conv3x3_rows(x.to(torch.float32) * valid, w.to(x.dtype).to(torch.float32), f) + bias
+    mean, inv = _group_stats(acc, groups)
+    return acc.to(x.dtype), mean[:, 0], inv[:, 0]
+
+
+def resnet_conv3x3(x, lens_rows, w, bias, f: int, groups: int = 8):
+    """Kernel A alone (K1/K8's conv1 with its statistics; JAX's
+    _kernel_a_deep, probed alone by tools/bisect_deep_compile.py): x (B, N,
+    Cin) bf16 rows, lens_rows (B,) int32, w (9*Cin, Cout). -> (c bf16,
+    mean, inv (B, Cout) f32). CUDA tensors launch the kernel, CPU tensors
+    take resnet_conv3x3_plain."""
+    if not _cuda.route(x, "resnet_conv3x3"):
+        return resnet_conv3x3_plain(x, lens_rows, w, bias, f, groups)
+    b, n, cin = x.shape
+    cout = w.shape[-1]
+    _check_shapes("resnet_conv3x3", x, cout, groups)
+    _cuda.require(x, "x", dtype=x.dtype)
+    _cuda.require(lens_rows, "lens", dtype=torch.int32, shape=(b,), device=x.device)
+    w = _cuda.require(w.to(x.dtype).contiguous(), "w", shape=(9 * cin, cout), device=x.device)
+    out = _conv_stats(_cuda.lib(), x, w, _f32(bias), lens_rows, f, groups)
+    resnet_conv3x3.launches += 1
+    return out
+
+
+resnet_conv3x3.launches = 0
+
+OUT_MODES = ("identity", "none", "matmul")  # JAX's _kernel_c res_mode
+
+
+def resnet_out_plain(c2, x, mean, inv, scale, shift, lens_rows, mode: str, wres=None,
+                     bres=None):
+    """Kernel C's plain version: c2 (B, N, Cout), x (B, N, Cin), mean/inv
+    (B, Cout); mode "identity" adds x, "matmul" the 1x1 conv (wres (Cin,
+    Cout), bres), "none" returns the f32 GN2 + mish + mask term alone."""
+    valid = _valid(lens_rows, c2.shape[1])
+    return _kernel_c_plain(c2, x, mean[:, None, :], inv[:, None, :], scale, shift, valid,
+                           wres if mode == "matmul" else None, bres, residual=mode != "none")
+
+
+def resnet_out(c2, x, mean, inv, scale, shift, lens_rows, mode: str = "identity", wres=None,
+               bres=None):
+    """Kernel C alone (K1/K8's output kernel; JAX's _kernel_c in res_mode
+    `mode`, probed alone by tools/bisect_deep_compile.py), arguments as
+    resnet_out_plain; bf16 out, f32 in mode "none". CUDA tensors launch the
+    kernel, CPU tensors take resnet_out_plain."""
+    if mode not in OUT_MODES:
+        raise ValueError(f"resnet_out: mode {mode!r}, expected one of {OUT_MODES}")
+    if (mode == "matmul") != (wres is not None):
+        raise ValueError("resnet_out: wres is given in mode 'matmul' and only there")
+    if not _cuda.route(c2, "resnet_out"):
+        return resnet_out_plain(c2, x, mean, inv, scale, shift, lens_rows, mode, wres, bres)
+    b, n, cout = c2.shape
+    cin = x.shape[-1]
+    if mode == "identity" and cin != cout:
+        raise ValueError("resnet_out: identity residual needs Cin == Cout")
+    _check_shapes("resnet_out", c2, cout, 1)
+    dt, dev = c2.dtype, c2.device
+    _cuda.require(c2, "c2", dtype=dt)
+    x = _cuda.require(x, "x", dtype=dt, shape=(b, n, cin), device=dev)
+    _cuda.require(lens_rows, "lens", dtype=torch.int32, shape=(b,), device=dev)
+    mean, inv = (_cuda.require(_f32(v), name, shape=(b, cout), device=dev)
+                 for v, name in ((mean, "mean"), (inv, "inv")))
+    scale, shift = _f32(scale), _f32(shift)
+    lib, st = _cuda.lib(), _cuda.stream(c2)
+    if mode == "none":
+        out = torch.empty((b, n, cout), dtype=torch.float32, device=dev)
+        _cuda.check(lib.us_resnet_out_none(c2.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+                                           scale.data_ptr(), shift.data_ptr(),
+                                           lens_rows.data_ptr(), out.data_ptr(), b, n, cout,
+                                           st), "resnet_out(none)")
+    else:
+        if wres is not None:
+            wres = _cuda.require(wres.to(dt).contiguous(), "wres", shape=(cin, cout), device=dev)
+            bres = _f32(bres)
+        out = torch.empty((b, n, cout), dtype=dt, device=dev)
+        _cuda.check(lib.us_resnet_out(c2.data_ptr(), x.data_ptr(), mean.data_ptr(),
+                                      inv.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                                      _cuda.ptr(wres), _cuda.ptr(bres), lens_rows.data_ptr(),
+                                      out.data_ptr(), b, n, cin, cout, st), f"resnet_out({mode})")
+    resnet_out.launches += 1
+    return out
+
+
+resnet_out.launches = 0
 
 
 def _final_block_cuda(x, lens, w1, b1, s1, be1, wo, bo, f, groups):

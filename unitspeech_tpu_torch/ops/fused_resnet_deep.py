@@ -1,5 +1,5 @@
-"""The deep-stage ResnetBlocks of the fused configuration (kernels K8 and
-K9; counterpart of unitspeech_tpu/ops/pallas_resnet.py
+"""The deep-stage ResnetBlocks of the fused configuration (kernels K8, K9
+and K10b; counterpart of unitspeech_tpu/ops/pallas_resnet.py
 `fused_resnet_block_deep` and `fused_resnet_block_deep_i8`).
 
 K8 is the whole ResnetBlock at the F = 20/10 stages in bf16. Its numbers
@@ -11,11 +11,19 @@ version is K1's, `resnet_block_plain`.
 
 K9 runs the block's convs in int8 on pre-quantized activations:
 activation scales per batch element (127 / max|x| over the masked rows),
-weight scales per output channel (`quant_w`, computed once when the weights
-load), dequantized as acc * ((1/sx) * (1/sw)) + bias, with c1 and c2 in
+weight scales per output channel (`quant_w`, ops/fused_resnet.py, computed
+once when the weights load), dequantized as acc * ((1/sx) * (1/sw)) + bias, with c1 and c2 in
 bf16; for cin > cout conv1 stays bf16, as in JAX. CUDA source:
 csrc/resnet_deep_i8.cu, which states the chain, what bounds it and how it
 is laid out.
+
+K10b is K8's in-kernel int8 mode (`fused_resnet_block_deep(int8=True)`,
+no model route): K9's structure with JAX's in-kernel numbers, which move
+int8 roundings: the activation scale 127 / (max + 1e-8), one per batch
+element over the whole layer; h rounded to the activation dtype before its
+abs-max and quantize; any Cout. It is K10a's chain (ops/fused_resnet.py,
+csrc/resnet_block_i8.cu) with one tile of all T frames, and conv1 in bf16
+for Cin > Cout.
 
 The routing gates (`deep_route`) are the JAX estimator's TPU VMEM gates
 (unet.py:321-383), kept so that the port computes what the JAX path
@@ -27,16 +35,20 @@ from __future__ import annotations
 import torch
 
 from unitspeech_tpu_torch.ops import _cuda
-from unitspeech_tpu_torch.ops.conv_matmul import conv3x3_rows, im2col, quantize_weight
+from unitspeech_tpu_torch.ops.conv_matmul import conv3x3_rows, im2col
 from unitspeech_tpu_torch.ops.fused_resnet import (
     GN_EPS,
     _check_shapes,
     _f32,
     _gn_mish,
     _group_stats,
+    _kernel_c_plain,
     _resnet_block_cuda,
+    _resnet_block_i8_cuda,
     _valid,
     block_rows_args,
+    quant_w,
+    resnet_block_i8_plain,
     resnet_block_plain,
 )
 from unitspeech_tpu_torch.ops.row_stats import row_absmax
@@ -59,13 +71,55 @@ def deep_route(t: int, f: int, cin: int, cout: int, use_int8: bool, use_deep: bo
     return None
 
 
+def resnet_block_deep_int8_plain(x, lens_rows, t_bias, w1, wq1, b1, s1, be1, wq2, b2, s2,
+                                 be2, wres, bres, f: int, groups: int):
+    """The K10b kernel's plain version on rows, with K9's arguments:
+    resnet_block_i8_plain with one scale group per batch element (fpt =
+    T) and conv1 in bf16 for Cin > Cout. -> (B, N, Cout)."""
+    return resnet_block_i8_plain(x, lens_rows, t_bias, w1, wq1, b1, s1, be1, wq2, b2, s2, be2,
+                                 wres, bres, f=f, groups=groups, fpt=x.shape[1] // f,
+                                 conv1_bf16=x.shape[-1] > b1.shape[-1])
+
+
+def fused_resnet_block_deep_int8(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
+                                 w2, b2, gn2_scale, gn2_bias, wres=None, bres=None,
+                                 groups: int = 8, wq=None):
+    """K10b: one deep-stage ResnetBlock with both convs quantized in
+    kernel (conv1 in bf16 for Cin > Cout), with fused_resnet_block_deep_i8's
+    arguments; wq = (quant_w(w1), quant_w(w2)) when computed once (wq[0] is
+    not read for Cin > Cout). -> (B, T, F, Cout). CUDA tensors launch the
+    kernel, CPU tensors take resnet_block_deep_int8_plain."""
+    bsz, t, f, cin = x.shape
+    cout = w1.shape[-1]
+    if wq is None:
+        wq = (None if cin > cout else quant_w(w1), quant_w(w2))
+    xr, lens, tb, w1r, b1, s1, be1, _, b2, s2, be2, wres, bres = block_rows_args(
+        x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2, gn2_scale, gn2_bias, wres, bres)
+    args = (xr, lens, tb, w1r, wq[0], b1, s1, be1, wq[1], b2, s2, be2, wres, bres)
+    if _cuda.route(x, "fused_resnet_block_deep(int8=True)"):
+        out = _resnet_block_i8_cuda(*args, f=f, groups=groups, fpt=t, conv1_bf16=cin > cout,
+                                    what="fused_resnet_block_deep(int8=True)")
+        fused_resnet_block_deep_int8.launches += 1
+    else:
+        out = resnet_block_deep_int8_plain(*args, f=f, groups=groups)
+    return out.reshape(bsz, t, f, cout)
+
+
+fused_resnet_block_deep_int8.launches = 0
+
+
 def fused_resnet_block_deep(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
                             w2, b2, gn2_scale, gn2_bias, wres=None, bres=None,
-                            groups: int = 8):
+                            groups: int = 8, int8: bool = False, wq=None):
     """One deep-stage ResnetBlock in bf16 (K8), with fused_resnet_block's
     arguments: x (B, T, F, Cin); mask (B, T, 1, 1); t_bias (B, Cout); flax
     conv kernels; wres/bres the optional 1x1 residual. -> (B, T, F, Cout).
-    CUDA tensors launch the kernel, CPU tensors take resnet_block_plain."""
+    CUDA tensors launch the kernel, CPU tensors take resnet_block_plain.
+    int8=True is K10b (fused_resnet_block_deep_int8, which takes wq)."""
+    if int8:
+        return fused_resnet_block_deep_int8(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2,
+                                            b2, gn2_scale, gn2_bias, wres, bres, groups=groups,
+                                            wq=wq)
     bsz, t, f, _ = x.shape
     args = block_rows_args(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2, gn2_scale,
                            gn2_bias, wres, bres)
@@ -78,15 +132,6 @@ def fused_resnet_block_deep(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
 
 
 fused_resnet_block_deep.launches = 0
-
-
-def quant_w(w: torch.Tensor):
-    """pallas_resnet._quant_w: a conv kernel (..., Cout) -> (w8t (Cout, K)
-    int8, rsw (Cout,) f32), per-output-channel scales over the (K, Cout)
-    matrix, round half to even, clip to +-127, the scales returned as
-    reciprocals. w8t is stored n-major, as the int8 kernel reads it."""
-    w8t, sw = quantize_weight(w)
-    return w8t, 1.0 / sw
 
 
 def _quantize_plain(x, valid):
@@ -137,13 +182,7 @@ def resnet_block_deep_i8_plain(x, lens_rows, t_bias, w1, wq1, b1, s1, be1, wq2, 
     h8, sx2 = _quantize_plain(h, valid)
     acc2 = _dequant(_conv3x3_i8_plain(h8, wq2, f), sx2, wq2[1], b2)
     mean2, inv2 = _group_stats(acc2, groups)
-    h2 = _gn_mish(acc2.to(dt), mean2, inv2, s2, be2) * valid
-    xv = x.to(torch.float32) * valid
-    if wres is None:
-        res = xv
-    else:
-        res = (xv @ wres.to(dt).to(torch.float32) + bres) * valid
-    return (h2 + res).to(dt)
+    return _kernel_c_plain(acc2.to(dt), x, mean2, inv2, s2, be2, valid, wres, bres)
 
 
 def _deep_i8_cuda(x, lens, t_bias, w1, wq1, b1, s1, be1, wq2, b2, s2, be2, wres, bres, f,
