@@ -480,6 +480,11 @@ def check_kernels(torch, dev):
         mask = _lens_mask(torch, t, dev)
         taps = 4 if up else 3
         w, bias = rand(taps, taps, c, c, scale=(taps * taps * c) ** -0.5), rand(c, scale=0.1)
+        # timed as the estimator calls it: weights packed once at load, the
+        # valid frames counted once per estimator call, so each call is the
+        # one kernel launch
+        packed = (resample.pack_upsample_weight if up else resample.pack_downsample_weight)(w)
+        frames = resample.frames_from_mask(mask)
         xm = (x * mask.to(x.dtype)).permute(0, 3, 1, 2)  # masked, NCHW view for the library
         wb, bb = w.to(torch.bfloat16), bias.to(torch.bfloat16)
         rows_in = 3 * t * f
@@ -487,7 +492,8 @@ def check_kernels(torch, dev):
             wt = conv_transpose_weight(wb).contiguous()
             compare("fused_upsample_conv", src_rs, "unitspeech_tpu/ops/pallas_resample.py:389",
                     f"T={t} F={f} C={c}",
-                    lambda: resample.fused_upsample_conv(x, mask, w, bias),
+                    lambda: resample.fused_upsample_conv(x, mask, w, bias, packed=packed,
+                                                         lens=frames),
                     lambda: resample.upsample_conv_plain(x, mask, w, bias), BF16_REL,
                     counts(0, 0, 1, 1),
                     {"bytes": 2 * rows_in * c * 5 + 2 * 16 * c * c + 4 * c,
@@ -497,12 +503,20 @@ def check_kernels(torch, dev):
             wt = wb.permute(3, 2, 0, 1).contiguous()
             compare("fused_downsample_conv", src_rs, "unitspeech_tpu/ops/pallas_resample.py:209",
                     f"T={t} F={f} C={c}",
-                    lambda: resample.fused_downsample_conv(x, mask, w, bias),
+                    lambda: resample.fused_downsample_conv(x, mask, w, bias, packed=packed,
+                                                           lens=frames),
                     lambda: resample.downsample_conv_plain(x, mask, w, bias), BF16_REL,
                     counts(0, 0, 1, 1),
                     {"bytes": 2 * rows_in * c * 5 // 4 + 2 * 9 * c * c + 4 * c,
                      "bf16": 2 * (rows_in // 4) * 9 * c * c, "f32": rows_in // 4 * c},
                     lib=lambda: F.conv2d(xm, wt, bb, stride=2, padding=1))
+        rec = records[-1]
+        rec["plan"] = resample.resample_plan(up, 3, t, f, c, c)
+        pl = rec["plan"]
+        print(f"    tile {pl['tt']} x {pl['tf']} rows, Cout tile {pl['bn']}, {pl['blocks']} blocks "
+              f"({pl['blocks_per_sm']} an SM), {pl['smem']} B shared; "
+              f"{rec['bound_ms'] / rec['ms']:.1%} of the bound, "
+              f"{rec['ms'] / rec['lib_ms']:.2f}x the library call", flush=True)
     return records
 
 

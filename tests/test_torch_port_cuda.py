@@ -290,10 +290,26 @@ def test_fused_resnet_block_deep_i8(dev, t, f, cin, cout):
     _assert_close(got, want, I8_REL)
 
 
+# K11 cases: the small ones of the old kernels, the three full-width sites
+# (D1, D2, U at the 344-frame bucket), and the new kernels' edges: a frame
+# run that does not divide the 2-D row tile, a length ending mid-tile, a
+# narrow frequency axis (TF of 4, 2, 1), Cout = 64 and 256 and a Cout split
+# into tiles (192, 320), Cin of 8 and 8 mod 16 (a half k16 step), Cin over
+# two chunks with a partial one.
+DOWN_CASES = [(24, 80, 128, 128, [24, 17, 24]), (18, 40, 256, 256, [18, 5, 18]),
+              (6, 16, 64, 128, [6, 6, 3]),
+              (344, 80, 128, 128, [344, 301, 344]), (172, 40, 256, 256, [172, 151, 172]),
+              (30, 80, 128, 128, [30, 13, 1]), (22, 12, 64, 64, [22, 9, 22]),
+              (10, 10, 24, 192, [10, 7, 10]), (14, 4, 8, 320, [14, 3, 14]),
+              (8, 2, 136, 256, [8, 5, 8])]
+UP_CASES = [(24, 40, 128, 128, [24, 17, 24]), (7, 20, 256, 64, [7, 2, 7]),
+            (172, 40, 128, 128, [172, 151, 172]),
+            (15, 40, 128, 128, [15, 4, 1]), (9, 6, 24, 192, [9, 6, 2]),
+            (11, 5, 72, 256, [11, 10, 3]), (5, 8, 8, 64, [5, 5, 5])]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,f,cin,cout,lens", [(24, 80, 128, 128, [24, 17, 24]),
-                                               (18, 40, 256, 256, [18, 5, 18]),
-                                               (6, 16, 64, 128, [6, 6, 3])])
+@pytest.mark.parametrize("t,f,cin,cout,lens", DOWN_CASES)
 def test_fused_downsample_conv(dev, t, f, cin, cout, lens):
     rng = np.random.default_rng(t * f + cin)
     mask = _mask(dev, t, lens)
@@ -307,8 +323,7 @@ def test_fused_downsample_conv(dev, t, f, cin, cout, lens):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,f,cin,cout,lens", [(24, 40, 128, 128, [24, 17, 24]),
-                                               (7, 20, 256, 64, [7, 2, 7])])
+@pytest.mark.parametrize("t,f,cin,cout,lens", UP_CASES)
 def test_fused_upsample_conv(dev, t, f, cin, cout, lens):
     rng = np.random.default_rng(t * f + cin + 1)
     mask = _mask(dev, t, lens)
@@ -319,6 +334,96 @@ def test_fused_upsample_conv(dev, t, f, cin, cout, lens):
     assert resample.fused_upsample_conv.launches == before + 1
     assert got.shape == (3, 2 * t, 2 * f, cout) and got.dtype == torch.bfloat16
     _assert_close(got, resample.upsample_conv_plain(x, mask, w, b), BF16_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("up", [False, True], ids=["down", "up"])
+def test_resample_packed_call_and_plan(dev, up):
+    """The estimator's call (weights packed once, frame counts given) gives
+    the raw-kernel call's output bit for bit, and the card's launch plan
+    takes the packed weights' Cout tile and the row tile the CPU tests
+    replay."""
+    t, f, cin, cout, lens = (40, 40, 128, 128, [40, 23, 40]) if up else (88, 80, 128, 128,
+                                                                         [88, 61, 88])
+    rng = np.random.default_rng(5 + up)
+    taps = 4 if up else 3
+    mask = _mask(dev, t, lens)
+    x = _rand(rng, dev, 3, t, f, cin).to(torch.bfloat16)
+    w, b = _rand(rng, dev, taps, taps, cin, cout, scale=(taps * taps * cin) ** -0.5), _rand(
+        rng, dev, cout)
+    fn = resample.fused_upsample_conv if up else resample.fused_downsample_conv
+    pack = resample.pack_upsample_weight if up else resample.pack_downsample_weight
+    packed, frames = pack(w), torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = fn.launches
+    got = fn(x, mask, w, b, packed=packed, lens=frames)
+    assert fn.launches == before + 1
+    assert torch.equal(got, fn(x, mask, w, b))
+    plan = resample.resample_plan(up, 3, t, f, cin, cout)
+    # the row tile the CPU tests' replay of the tiling takes: TF the largest
+    # of 8, 4, 2, 1 dividing the frequency rows, TT = 64 / TF
+    rows_t, rows_f = (t, f) if up else (t // 2, f // 2)
+    tf = next(v for v in (8, 4, 2, 1) if rows_f % v == 0)
+    bn = packed.shape[-2]  # the launch takes the packer's Cout tile
+    assert (plan["tt"], plan["tf"], plan["bn"]) == (64 // tf, tf, bn)
+    assert plan["blocks"] == -(-rows_t // (64 // tf)) * (rows_f // tf) * (cout // bn) * 3
+    assert plan["blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
+def test_estimator_resample_padded_lengths(dev, monkeypatch):
+    """The full-width bf16 estimator on the kernel path at the 32-frame
+    bucket, with lengths 32, 26 and 27, gives the same score with K11 as
+    without it (the library convs on masked input), and each K11 call gets
+    the valid frames of its own level's mask. At this bucket the level-1
+    attention (16 x 40 = 640 tokens) takes the plain path, whose padded rows
+    carry to_out.bias * g: both are made large in up_0_attn, so that a K11b
+    reading level 1's padded frames as valid (its frame 13 at length 26
+    feeds the valid output frame 25) would move the score. Bound: 2^-5 of
+    max|score|, a few bf16 roundings of the resample outputs carried on
+    through the stages after them."""
+    from unitspeech_tpu_torch.models import unet as tunet
+    from unitspeech_tpu_torch.utils.params import _random_leaf
+
+    full = dict(dim=128, dim_mults=(1, 2, 4, 8), groups=8, spk_emb_dim=256)
+    rng = np.random.default_rng(32)
+    t, lens = 32, [32, 26, 27]
+    x, mu = _rand(rng, dev, 3, t, 80), _rand(rng, dev, 3, t, 80)
+    mask = _mask(dev, t, lens)[:, :, 0, 0]
+    tt, spk = torch.tensor([0.7, 0.4, 0.2], device=dev), _rand(rng, dev, 3, 256, scale=1 / 16)
+    with torch.device("meta"):
+        names = {k: tuple(v.shape) for k, v in tunet.GradLogPEstimator2d(**full).state_dict()
+                 .items()}
+    sd = {k: torch.from_numpy(_random_leaf(rng, k, s).astype(np.float32)) for k, s in
+          names.items()}
+    sd["up_0_attn.g"].fill_(1.0)
+    sd["up_0_attn.fn.to_out.bias"].fill_(8.0)
+    calls = []
+    for name in ("fused_downsample_conv", "fused_upsample_conv"):
+        real = getattr(tunet, name)
+
+        def spy(h, mk, *a, _real=real, lens=None, **kw):
+            calls.append((lens, resample.frames_from_mask(mk)))
+            return _real(h, mk, *a, lens=lens, **kw)
+
+        monkeypatch.setattr(tunet, name, spy)
+    outs = []
+    for on in (True, False):
+        with dev:
+            est = tunet.GradLogPEstimator2d(**full, dtype=torch.bfloat16, use_kernels=True,
+                                            use_resample=on)
+        est.load_state_dict(sd)
+        before = (resample.fused_downsample_conv.launches,
+                  resample.fused_upsample_conv.launches)
+        with torch.no_grad():
+            outs.append(est(x, mask, mu, tt, spk))
+        after = (resample.fused_downsample_conv.launches,
+                 resample.fused_upsample_conv.launches)
+        assert [a - b for a, b in zip(after, before)] == ([2, 1] if on else [0, 0])
+    assert len(calls) == 3
+    for given, want in calls:
+        assert torch.equal(given, want)
+    assert torch.isfinite(outs[0]).all()
+    _assert_close(outs[0], outs[1], 2.0 ** -5)
 
 
 def _rows_args(x, mask, p, f):

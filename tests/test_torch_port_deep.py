@@ -274,3 +274,33 @@ def test_estimator_fused_deep_matches_jax(dim64, monkeypatch, path):
         w8t, rsw = blocks[0].i8pre_weights[1]
         want8, want_rsw = frd.quant_w(blocks[0].block2.conv.kernel)
         assert torch.equal(w8t, want8) and torch.equal(rsw, want_rsw)
+
+
+def test_estimator_resample_frames_per_level(dim64, monkeypatch):
+    """Each K11 call of the estimator gets the valid frames of the mask of
+    its input's level, counted once per call: the F = 80 and F = 40
+    downsamples those of levels 0 and 1, the F = 40 upsample (up stage 0,
+    whose input is one level deeper than down stage 0's) those of level 1.
+    On the card the kernel trusts these counts; the CPU's plain version
+    reads the mask, so only this check sees a wrong count here."""
+    params, inputs = dim64
+    port = load(tunet.GradLogPEstimator2d(**DIM64, **PORT_FLAGS["deep"]), params)
+    calls = []
+    for name in ("fused_downsample_conv", "fused_upsample_conv"):
+        real = getattr(tunet, name)
+
+        def spy(x, mask, *a, _real=real, _name=name, lens=None, **kw):
+            calls.append((_name, x.shape[1], tuple(mask.shape), lens))
+            return _real(x, mask, *a, lens=lens, **kw)
+
+        monkeypatch.setattr(tunet, name, spy)
+    with torch.no_grad():
+        port(*map(_t, inputs))
+    assert [c[:3] for c in calls] == [
+        ("fused_downsample_conv", 16, (2, 16, 1, 1)),
+        ("fused_downsample_conv", 8, (2, 8, 1, 1)),
+        ("fused_upsample_conv", 8, (2, 8, 1, 1))]
+    lens = [c[3].tolist() for c in calls]
+    assert lens == [[16, 11], [8, 6], [8, 6]]  # ceil(11 / 2) = 6 at level 1
+    assert all(c[3].dtype == torch.int32 for c in calls)
+    assert calls[1][3] is calls[2][3]  # level 1's counts, made once

@@ -1,169 +1,500 @@
-// The U-Net's strided resampling convs (kernels K11a and K11b).
+// The U-Net's strided resampling convs (kernels K11a and K11b), written for
+// the H100: TMA copies, mbarrier rings and warpgroup products (wgmma).
 //
 // Replaces the Pallas kernels in unitspeech_tpu/ops/pallas_resample.py:
 // fused_downsample_conv (_fused_downsample: _downsample_kernel), conv3x3
-// stride 2, and fused_upsample_conv (_fused_upsample: _upsample_kernel),
-// ConvTranspose 4x4 stride 2 with flax padding (2, 2). Both zero the input
-// rows at/after the sequence length as they load them (the estimator skips
-// its `h * mask` pass) and add the bias to every output row.
+// stride 2 'SAME', and fused_upsample_conv (_fused_upsample:
+// _upsample_kernel), ConvTranspose 4x4 stride 2 with flax padding (2, 2),
+// unflipped flax kernel. Input frames at/after the sequence length read as
+// zero (the estimator skips its `h * mask` pass); the bias lands on every
+// output row. Products are bf16, the f32 accumulator takes the f32 bias and
+// is rounded once to bf16.
 //
-// Layout: rows n = t*F + f of one batch element, channels last, bf16; the
-// kernel (kh, kw, Cin, Cout) in flax layout read as (taps*Cin, Cout),
-// unflipped.
+// Layout: x (B, T, F, Cin) channels last, bf16. The weights arrive packed
+// once at load (ops/resample.py pack_*_weight): for each Cout tile of BN
+// columns, each 64-channel chunk of Cin and each weight stage, BN x 64
+// K-major tiles in the 128-byte swizzle that wgmma reads, Cin padded to a
+// multiple of 64 with zero rows. The packer chooses BN; the launch takes it
+// from the packed weights and refuses one the kernels are not built for.
 //
-// What bounds them on the H100: at the 344-frame bucket (3 rows) each
-// downsample is 6.1 GFLOP (6.2 us of tensor cores) against 14-27 MB of
-// input and output (4-8 us of memory), the upsample 10.8 GFLOP against
-// 27 MB: tensor cores and memory about equally. So the products go to the
-// tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate) and the
-// strides live in the loaders, with no im2col, no dilated copy and no
-// phase buffer in device memory: each byte is read and written once.
-//   * down: an implicit GEMM over the output rows (to, fo); tap (dt, df)
-//     reads input row (2 to + dt, 2 fo + df), K = 9 * Cin;
-//   * up: the four output phases (a, b) are four implicit GEMMs over the
-//     undilated input rows (m, j), K = 4 * Cin: time tap a = 0 reads
-//     (kt = 0, m - 1) and (kt = 2, m), a = 1 reads (kt = 1, m) and
-//     (kt = 3, m + 1), and the same over (kf, j) for b. Each phase writes
-//     its rows (2 m + a, 2 j + b) of the (2T, 2F) output directly (the TPU
-//     kernel packs phases on lanes because Mosaic cannot interleave rows).
-#include "common.cuh"
+// What bounds them (bf16, batch 3 at the 344-frame bucket; 989 TFLOP/s and
+// 3.35 TB/s): D1 (344, 80, 128) -> (172, 40, 128) is 6.09 GFLOP (6.2 us)
+// against 26.7 MB (8.0 us), bytes; D2 (172, 40, 256) -> (86, 20, 256) is
+// 6.09 GFLOP (6.2 us) against 14.4 MB (4.3 us), operations; U (172, 40, 128)
+// -> (344, 80, 128) is 10.8 GFLOP (10.9 us) against 26.9 MB (8.0 us),
+// operations. Each site is a few microseconds of work, so the design feeds
+// the tensor cores from shared memory and moves each input byte once per
+// tile:
+//   * a block owns a 2-D tile of 64 rows (TT frames x TF frequencies, TF
+//     the largest of 8, 4, 2, 1 dividing the frequency count, TT = 64 / TF)
+//     and the whole Cout up to 256 (a wider Cout splits into tiles of 256,
+//     128 or 64 columns);
+//   * per 64-channel chunk, the input box the tile's taps reach (every
+//     frame and frequency of it) arrives by one 4-D TMA copy in the
+//     128-byte swizzle, shared by all taps and, in the upsample, all four
+//     phases. The copy reads zero outside the tensor (frame or frequency
+//     -1, F, T, channels past Cin); rows at/after the length are real data
+//     that the consumers skip by pointing ldmatrix at a zero row;
+//   * the downsample's stride 2 lives in the ldmatrix row addresses (rows
+//     2 ff + df of frames 2 tt + dt); such rows form no canonical wgmma
+//     layout, so A comes from registers (the ldmatrix fragment is wgmma's
+//     A fragment) and B through a descriptor from a ring of weight tiles,
+//     which one producer warp keeps filled by bulk copies under full/empty
+//     mbarriers;
+//   * products go out two k16 steps to a commit group, the next
+//     group's fragments loaded while one group runs (two register sets);
+//   * taps and chunks are loops with the row bases computed once per tile:
+//     no division in the K loop;
+//   * the epilogue adds the bias, rounds once, stages the tile in shared
+//     memory and writes whole output rows with 16-byte stores.
+// K11a: one consumer warpgroup (64 output rows x BN) and the producer warp,
+// 160 threads; a ring of 3 weight tiles of BN x 64; the box of
+// (2 TT + 1) x (2 TF + 1) input rows in 1 or 2 slots (two when the block
+// holds an SM alone anyway). K11b: two consumer warpgroups, one per time
+// phase a, each computing both frequency phases (a, b) of the tile's 64
+// input positions (two 64 x BN accumulators), and the producer warp, 288
+// threads; a ring of 2 stages of the four phases' BN x 64 tiles; the box of
+// (TT + 2) x (TF + 2) input rows in 2 slots; the epilogue interleaves the
+// phases so that output frames 2 mt and 2 mt + 1 go out as runs of 2 TF
+// whole rows.
+// At the sites (us_resample_plan; chip_smoke.py prints them):
+//   D1: 8 x 8 rows, BN 128, 330 blocks, 88 272 B of shared memory, one box
+//       slot, two blocks an SM;
+//   D2: 16 x 4 rows, BN 256, 90 blocks, 177 360 B, two box slots, one block
+//       an SM (90 of the 132 SMs; clusters of 2 or 4 blocks sharing each
+//       weight stage by multicast measured 2-3x slower, PERF.md);
+//   U:  8 x 8 positions (256 output rows), BN 128, 330 blocks, 158 912 B,
+//       two box slots, one block an SM.
+// nvcc -Xptxas -v (CUDA 12.8, sm_90a, on the H100 machine): downsample_conv
+// BN 64 / 128 / 256 127 / 165 / 222 registers, no spills; upsample_conv
+// BN 64 / 128 133 / 168 registers, the latter with 16 bytes of spill
+// stores and its wgmma serialized for want of registers (C7512): 288
+// threads cap a thread at 168, and two 64 x 128 accumulators take 128.
+#include "hopper.cuh"
 
 namespace {
 
-struct ResampleArgs {
-  const bf16* x;      // (B, T*F, Cin)
-  const bf16* w;      // (taps*Cin, Cout)
+constexpr int KC = 64;  // channels per chunk: one 128-byte row of a tile
+constexpr int DOWN_STAGES = 3, UP_STAGES = 2;  // weight ring depths
+constexpr int DOWN_THREADS = 160, UP_THREADS = 288;
+constexpr int SMEM_MAX = 232448;     // dynamic shared memory a block may ask for
+constexpr int SMEM_PER_SM = 233472;  // the SM's 228 KB
+
+struct RsArgs {
+  const bf16* w;      // packed tiles (see the header)
   const float* bias;  // (Cout)
-  const int* lens;    // (B) valid input rows (frames * F)
-  bf16* out;          // (B, rows out, Cout)
-  int T, F, Cin, Cout;
+  const int* lens;    // (B) valid input frames
+  bf16* out;
+  int T, F, Cout;
+  int tt, tf, lg_tf, tiles_f;  // the row tile
+  int n_chunks, nb, stage_bytes, box_bytes;
 };
 
-// out[b, row(m)] = acc + bias for the tile's rows m < M.
-template <class Row>
-__device__ __forceinline__ void store_bias_rows(const float (&acc)[2][4][4], const ResampleArgs& p,
-                                                int M, int rows_out, int m0, int n0, int b,
-                                                Row& row) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
+US_DEV void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+US_DEV void bar_sync_named(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The dynamic shared memory, 1024-byte aligned (the swizzled tiles' base).
+US_DEV uint8_t* smem_base() {
+  extern __shared__ uint8_t smem_raw[];
+  return smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+}
+
+// Half of one 64-channel chunk at one tap: the A fragments of k16 steps
+// kk0 and kk0 + 1 from box row `row` (128 bytes in the 128-byte swizzle:
+// 16-byte chunk j of row R at j ^ (R % 8); rx = R % 8), this lane's k half
+// `hi`. A lane whose row lies outside the grid or at/after the length reads
+// the zero row (rx = 0). Channels past Cin read as zero (the copy fills
+// them) and meet zero weight rows, so every chunk takes all four steps.
+US_DEV void load_half(uint32_t (&a)[2][4], uint32_t row, uint32_t rx, uint32_t hi, int kk0) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int j = 0; j < 2; ++j) ldsm_x4(a[j], row + ((((2 * (kk0 + j) + hi) ^ rx) & 7) << 4));
+}
+
+// Their two products on the warpgroup's accumulator, committed as a group.
+template <int BN>
+US_DEV void mma_half(float (&acc)[BN / 2], const uint32_t (&a)[2][4], uint64_t desc, int kk0) {
+  wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        int m = m0 + wm * 32 + i * 16 + (lane >> 2) + h * 8;
-        int n = n0 + wn * 32 + j * 8 + (lane & 3) * 2;
-        if (m >= M) continue;
-        float v0 = acc[i][j][2 * h] + p.bias[n];
-        float v1 = acc[i][j][2 * h + 1] + p.bias[n + 1];
-        *reinterpret_cast<__nv_bfloat162*>(p.out + ((size_t)b * rows_out + row(m)) * p.Cout + n) =
-            __floats2bfloat162_rn(v0, v1);
+  for (int j = 0; j < 2; ++j) WgmmaRS<BN>::mma(acc, a[j], desc + 2 * (kk0 + j));
+  wgmma_commit();
+}
+
+// Lane 0 of each consumer warp arrives once the warp is done with a slot.
+US_DEV void release(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+// The producer warp: stream the packed weight stages (n_stages per chunk)
+// and one input box per chunk (one TMA copy of frames ti0 .. ti0 + bt_n - 1,
+// frequencies fi0 .. fi0 + bf_n - 1, the chunk's 64 channels; outside the
+// tensor it reads zero). The box goes out before stage `box_at`, so that the
+// first weight stages of a chunk are in flight while the previous chunk ends.
+US_DEV void produce(const RsArgs& p, const CUtensorMap* xmap, uint8_t* ring, uint8_t* box,
+                    uint64_t* w_full, uint64_t* w_empty, uint64_t* x_full, uint64_t* x_empty,
+                    int n_ring, int n_stages, const bf16* wsrc, int ti0, int fi0, int bt_n,
+                    int bf_n) {
+  const int lane = threadIdx.x & 31;
+  const int box_at = min(n_ring - 1, n_stages - 1);
+  int ws = 0, xs = 0;
+  uint32_t wph = 0, xph = 0;
+  for (int c = 0; c < p.n_chunks; ++c) {
+    for (int s = 0; s < n_stages; ++s) {
+      if (s == box_at) {
+        mbar_wait(&x_empty[xs], xph ^ 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&x_full[xs], bt_n * bf_n * KC * 2);
+          tma_load_4d(box + xs * p.box_bytes, xmap, c * KC, fi0, ti0, blockIdx.z, &x_full[xs]);
+        }
+        __syncwarp();
+        if (++xs == p.nb) xs = 0, xph ^= 1;
       }
-}
-
-__global__ void __launch_bounds__(IG_THREADS) downsample_conv(ResampleArgs p) {
-  __shared__ IgemmTiles tiles;
-  const int tid = threadIdx.x;
-  const int T = p.T, F = p.F, Cin = p.Cin, Cout = p.Cout;
-  const int Fo = F / 2, M = (T / 2) * Fo;
-  const int m0 = blockIdx.x * IG_BM, n0 = blockIdx.y * IG_BN, b = blockIdx.z;
-  const int len = p.lens[b];
-  const int K = 9 * Cin, nk = (K + IG_BK - 1) / IG_BK;
-  const bf16* xb = p.x + (size_t)b * T * F * Cin;
-
-  auto load_a = [&](int kb, uint4 (&reg)[2]) {
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      int v = tid + s * IG_THREADS;
-      int m = m0 + (v >> 2);
-      int k = kb * IG_BK + (v & 3) * 8;
-      reg[s] = make_uint4(0, 0, 0, 0);
-      if (m >= M || k >= K) continue;
-      int tap = k / Cin, ci = k - tap * Cin;
-      int to = m / Fo, fo = m - to * Fo;
-      int ti = 2 * to + tap / 3 - 1, fi = 2 * fo + tap % 3 - 1;
-      if (ti < 0 || ti >= T || fi < 0 || fi >= F) continue;
-      int src = ti * F + fi;
-      if (src >= len) continue;
-      reg[s] = *reinterpret_cast<const uint4*>(xb + (size_t)src * Cin + ci);
+      mbar_wait(&w_empty[ws], wph ^ 1);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&w_full[ws], p.stage_bytes);
+        bulk_g2s(ring + ws * p.stage_bytes,
+                 reinterpret_cast<const uint8_t*>(wsrc) + (size_t)(c * n_stages + s) * p.stage_bytes,
+                 p.stage_bytes, &w_full[ws]);
+      }
+      __syncwarp();
+      if (++ws == n_ring) ws = 0, wph ^= 1;
     }
-  };
-  auto load_b = [&](int kb) -> uint4 {
-    int k = kb * IG_BK + (tid >> 3);
-    if (k >= K) return make_uint4(0, 0, 0, 0);
-    return *reinterpret_cast<const uint4*>(p.w + (size_t)k * Cout + n0 + (tid & 7) * 8);
-  };
-
-  float acc[2][4][4];
-  igemm_bf16(acc, tiles, nk, load_a, load_b);
-  auto row = [](int m) { return m; };
-  store_bias_rows(acc, p, M, M, m0, n0, b, row);
+  }
 }
 
-// blockIdx.z = batch * 4 + phase, phase = a * 2 + b (output row parity in
-// time, in frequency).
-__global__ void __launch_bounds__(IG_THREADS) upsample_conv(ResampleArgs p) {
-  __shared__ IgemmTiles tiles;
-  const int tid = threadIdx.x;
-  const int T = p.T, F = p.F, Cin = p.Cin, Cout = p.Cout;
-  const int M = T * F;
-  const int m0 = blockIdx.x * IG_BM, n0 = blockIdx.y * IG_BN;
-  const int b = blockIdx.z >> 2, pa = (blockIdx.z >> 1) & 1, pb = blockIdx.z & 1;
-  const int len = p.lens[b];
-  const int K = 4 * Cin, nk = (K + IG_BK - 1) / IG_BK;
-  const bf16* xb = p.x + (size_t)b * M * Cin;
-
-  // tap q = it * 2 + jf: time tap it reads input frame m - 1 + it (a = 0)
-  // or m + it (a = 1) with kernel row kt = a + 2 it; the same over (jf, kf)
-  auto load_a = [&](int kb, uint4 (&reg)[2]) {
+// Store a 64 x BN warpgroup accumulator plus bias as bf16 into the staging
+// tile: fragment row i of warp `wl` goes to staging row row_of(i).
+template <int BN, class RowOf>
+US_DEV void stage_acc(const float (&acc)[BN / 2], const float* bias, uint8_t* st, int wl,
+                      RowOf row_of) {
+  const int lane = threadIdx.x & 31;
+  constexpr int LD = BN * 2 + 16;
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      int v = tid + s * IG_THREADS;
-      int m = m0 + (v >> 2);
-      int k = kb * IG_BK + (v & 3) * 8;
-      reg[s] = make_uint4(0, 0, 0, 0);
-      if (m >= M || k >= K) continue;
-      int q = k / Cin, ci = k - q * Cin;
-      int mt = m / F, mf = m - mt * F;
-      int ti = mt + (q >> 1) - 1 + pa, fi = mf + (q & 1) - 1 + pb;
-      if (ti < 0 || ti >= T || fi < 0 || fi >= F) continue;
-      int src = ti * F + fi;
-      if (src >= len) continue;
-      reg[s] = *reinterpret_cast<const uint4*>(xb + (size_t)src * Cin + ci);
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = j * 8 + (lane & 3) * 2;
+    const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row_of(wl * 16 + (lane >> 2) + h * 8);
+      *reinterpret_cast<__nv_bfloat162*>(st + r * LD + col * 2) =
+          __floats2bfloat162_rn(acc[j * 4 + 2 * h] + b0, acc[j * 4 + 2 * h + 1] + b1);
     }
-  };
-  auto load_b = [&](int kb) -> uint4 {
-    int k = kb * IG_BK + (tid >> 3);
-    if (k >= K) return make_uint4(0, 0, 0, 0);
-    int q = k / Cin, ci = k - q * Cin;
-    int kt = pa + 2 * (q >> 1), kf = pb + 2 * (q & 1);
-    size_t wrow = (size_t)(kt * 4 + kf) * Cin + ci;
-    return *reinterpret_cast<const uint4*>(p.w + wrow * Cout + n0 + (tid & 7) * 8);
-  };
-
-  float acc[2][4][4];
-  igemm_bf16(acc, tiles, nk, load_a, load_b);
-  auto row = [&](int m) {
-    int mt = m / F, mf = m - mt * F;
-    return (2 * mt + pa) * (2 * F) + 2 * mf + pb;
-  };
-  store_bias_rows(acc, p, M, 4 * M, m0, n0, b, row);
+  }
 }
 
-ResampleArgs resample_args(const void* x, const void* w, const float* bias, const int* lens,
-                           void* out, int T, int F, int Cin, int Cout) {
-  ResampleArgs p;
-  p.x = static_cast<const bf16*>(x);
-  p.w = static_cast<const bf16*>(w);
-  p.bias = bias;
-  p.lens = lens;
-  p.out = static_cast<bf16*>(out);
-  p.T = T;
-  p.F = F;
-  p.Cin = Cin;
-  p.Cout = Cout;
-  return p;
+// Shared memory of both kernels: the weight ring, the box slots, a zero
+// row, then the barriers.
+struct Smem {
+  uint8_t *ring, *box, *zero;
+  uint64_t *w_full, *w_empty, *x_full, *x_empty;
+  __device__ Smem(const RsArgs& p, int stages) {
+    ring = smem_base();
+    box = ring + stages * p.stage_bytes;
+    zero = box + p.nb * p.box_bytes;
+    w_full = reinterpret_cast<uint64_t*>(zero + 128);
+    w_empty = w_full + stages;
+    x_full = w_empty + stages;
+    x_empty = x_full + 2;
+  }
+  // each consumer warp arrives once on a slot it is done with
+  US_DEV void init(const RsArgs& p, int stages, int consumer_warps) {
+    if (threadIdx.x < 8) reinterpret_cast<uint4*>(zero)[threadIdx.x] = make_uint4(0, 0, 0, 0);
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < stages; ++s)
+        mbar_init(&w_full[s], 1), mbar_init(&w_empty[s], consumer_warps);
+      for (int s = 0; s < p.nb; ++s)
+        mbar_init(&x_full[s], 1), mbar_init(&x_empty[s], consumer_warps);
+      mbar_fence_init();
+    }
+    __syncthreads();
+  }
+};
+
+// K11a. Block (row tile, Cout tile, batch); warps 0-3 consume, warp 4 loads.
+// A row r = (tt, ff) is output row (to0 + tt, fo0 + ff); its tap (dt, df)
+// reads box row (2 tt + dt) * BF + 2 ff + df.
+template <int BN>
+__global__ void __launch_bounds__(DOWN_THREADS, 1)
+    downsample_conv(const __grid_constant__ CUtensorMap xmap, RsArgs p) {
+  constexpr int S = DOWN_STAGES;
+  Smem sm(p, S);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int T = p.T, F = p.F, Cout = p.Cout, To = T / 2, Fo = F / 2;
+  const int TF = p.tf, b = blockIdx.z, n0 = blockIdx.y * BN;
+  const int tile_t = blockIdx.x / p.tiles_f, tile_f = blockIdx.x - tile_t * p.tiles_f;
+  const int to0 = tile_t * p.tt, fo0 = tile_f * TF;
+  const int ti0 = 2 * to0 - 1, fi0 = 2 * fo0 - 1, BF = 2 * TF + 1;
+  sm.init(p, S, 4);
+
+  if (warp == 4) {
+    produce(p, &xmap, sm.ring, sm.box, sm.w_full, sm.w_empty, sm.x_full, sm.x_empty, S, 9,
+            p.w + (size_t)blockIdx.y * p.n_chunks * 9 * BN * KC, ti0, fi0, 2 * p.tt + 1, BF);
+  } else {
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    wgmma_fence_acc(acc);
+    uint32_t afr[2][2][4];  // two sets of two k16 steps' fragments
+    const int tlim = min(T, p.lens[b]);
+    const int r = warp * 16 + (lane & 15);
+    const int tt = r >> p.lg_tf, ff = r & (TF - 1);
+    const uint32_t hi = lane >> 4, zero_addr = smem_u32(sm.zero);
+    int ws = 0, xs = 0, pend = -1;
+    uint32_t wph = 0, xph = 0;
+    for (int c = 0; c < p.n_chunks; ++c) {
+      mbar_wait(&sm.x_full[xs], xph);
+      const uint32_t box_addr = smem_u32(sm.box + xs * p.box_bytes);
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dt = tap / 3, df = tap % 3;  // constants once unrolled
+        const int R = (2 * tt + dt) * BF + 2 * ff + df;
+        const bool ok = (unsigned)(ti0 + 2 * tt + dt) < (unsigned)tlim &&
+                        (unsigned)(fi0 + 2 * ff + df) < (unsigned)F;
+        const uint32_t row = ok ? box_addr + R * 128 : zero_addr, rx = ok ? R & 7 : 0;
+        // each half's fragment set was last read two groups back, which
+        // the previous wait<1> has seen complete
+        load_half(afr[0], row, rx, hi, 0);
+        mbar_wait(&sm.w_full[ws], wph);
+        const uint64_t desc = wgmma_desc_sw128(sm.ring + ws * p.stage_bytes);
+        mma_half<BN>(acc, afr[0], desc, 0);
+        wgmma_wait<1>();  // the previous tap's last group is done: its stage is free
+        if (pend >= 0) release(&sm.w_empty[pend]);
+        load_half(afr[1], row, rx, hi, 2);
+        mma_half<BN>(acc, afr[1], desc, 2);
+        wgmma_wait<1>();
+        pend = ws;
+        if (++ws == S) ws = 0, wph ^= 1;
+      }
+      release(&sm.x_empty[xs]);
+      if (++xs == p.nb) xs = 0, xph ^= 1;
+    }
+    wgmma_wait<0>();
+    wgmma_fence_acc(acc);
+    bar_sync_named(1, 128);  // every product has read the ring: stage the tile there
+    uint8_t* st = sm.ring;
+    stage_acc<BN>(acc, p.bias + n0, st, warp, [](int i) { return i; });
+    bar_sync_named(1, 128);
+    constexpr int CPR = BN / 8;  // 16-byte chunks per row
+    for (int i = tid; i < 64 * CPR; i += 128) {
+      const int rr = i / CPR, ch = i & (CPR - 1);
+      const int to = to0 + (rr >> p.lg_tf), fo = fo0 + (rr & (TF - 1));
+      if (to < To)
+        *reinterpret_cast<uint4*>(p.out + ((size_t)(b * To + to) * Fo + fo) * Cout + n0 +
+                                  ch * 8) =
+            *reinterpret_cast<const uint4*>(st + rr * (BN * 2 + 16) + ch * 16);
+    }
+  }
+}
+
+// K11b. Block (row tile, Cout tile, batch); warpgroup a (warps 4a .. 4a+3)
+// computes phases (a, 0) and (a, 1), warp 8 loads. Phase (a, b) at input
+// position (mt0 + tt, mf0 + ff) and step q = (it, jf) reads box row
+// (tt + it + a) * BF + ff + jf + b with kernel tap (a + 2 it, b + 2 jf) and
+// writes output row (2 (mt0 + tt) + a, 2 (mf0 + ff) + b).
+template <int BN>
+__global__ void __launch_bounds__(UP_THREADS, 1)
+    upsample_conv(const __grid_constant__ CUtensorMap xmap, RsArgs p) {
+  constexpr int S = UP_STAGES;
+  Smem sm(p, S);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int T = p.T, F = p.F, Cout = p.Cout;
+  const int TF = p.tf, b = blockIdx.z, n0 = blockIdx.y * BN;
+  const int tile_t = blockIdx.x / p.tiles_f, tile_f = blockIdx.x - tile_t * p.tiles_f;
+  const int mt0 = tile_t * p.tt, mf0 = tile_f * TF;
+  const int ti0 = mt0 - 1, fi0 = mf0 - 1, BF = TF + 2;
+  sm.init(p, S, 8);
+
+  if (warp == 8) {
+    produce(p, &xmap, sm.ring, sm.box, sm.w_full, sm.w_empty, sm.x_full, sm.x_empty, S, 4,
+            p.w + (size_t)blockIdx.y * p.n_chunks * 16 * BN * KC, ti0, fi0, p.tt + 2, BF);
+  } else {
+    const int pa = warp >> 2, wl = warp & 3;
+    float acc0[BN / 2], acc1[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc0[i] = acc1[i] = 0.f;
+    wgmma_fence_acc(acc0);
+    wgmma_fence_acc(acc1);
+    uint32_t afr[2][2][4];  // two sets of two k16 steps' fragments
+    const int tlim = min(T, p.lens[b]);
+    const int r = wl * 16 + (lane & 15);
+    const int tt = r >> p.lg_tf, ff = r & (TF - 1);
+    const uint32_t hi = lane >> 4, zero_addr = smem_u32(sm.zero);
+    const int tile_bytes = BN * KC * 2;
+    int ws = 0, xs = 0, pend = -1;
+    uint32_t wph = 0, xph = 0;
+    for (int c = 0; c < p.n_chunks; ++c) {
+      mbar_wait(&sm.x_full[xs], xph);
+      const uint32_t box_addr = smem_u32(sm.box + xs * p.box_bytes);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int bt = tt + (q >> 1) + pa, bf = ff + (q & 1);
+        const bool t_ok = (unsigned)(ti0 + bt) < (unsigned)tlim;
+        const int R = bt * BF + bf;  // phase b = 0; b = 1 reads R + 1
+        const bool ok0 = t_ok && (unsigned)(fi0 + bf) < (unsigned)F;
+        const bool ok1 = t_ok && (unsigned)(fi0 + bf + 1) < (unsigned)F;
+        const uint32_t row0 = ok0 ? box_addr + R * 128 : zero_addr, rx0 = ok0 ? R & 7 : 0;
+        const uint32_t row1 = ok1 ? box_addr + (R + 1) * 128 : zero_addr;
+        const uint32_t rx1 = ok1 ? (R + 1) & 7 : 0;
+        load_half(afr[0], row0, rx0, hi, 0);
+        mbar_wait(&sm.w_full[ws], wph);
+        uint8_t* stage = sm.ring + ws * p.stage_bytes + pa * 2 * tile_bytes;
+        const uint64_t desc0 = wgmma_desc_sw128(stage), desc1 = wgmma_desc_sw128(stage + tile_bytes);
+        mma_half<BN>(acc0, afr[0], desc0, 0);
+        wgmma_wait<1>();  // the previous stage's last group is done: it is free
+        if (pend >= 0) release(&sm.w_empty[pend]);
+        load_half(afr[1], row0, rx0, hi, 2);
+        mma_half<BN>(acc0, afr[1], desc0, 2);
+        wgmma_wait<1>();
+        load_half(afr[0], row1, rx1, hi, 0);
+        mma_half<BN>(acc1, afr[0], desc1, 0);
+        wgmma_wait<1>();
+        load_half(afr[1], row1, rx1, hi, 2);
+        mma_half<BN>(acc1, afr[1], desc1, 2);
+        wgmma_wait<1>();
+        pend = ws;
+        if (++ws == S) ws = 0, wph ^= 1;
+      }
+      release(&sm.x_empty[xs]);
+      if (++xs == p.nb) xs = 0, xph ^= 1;
+    }
+    wgmma_wait<0>();
+    wgmma_fence_acc(acc0);
+    wgmma_fence_acc(acc1);
+    bar_sync_named(1, 256);
+    // staging row (2 tt + a) * 2 TF + 2 ff + b: output frames 2 mt0 .. 2 mt0
+    // + 2 TT - 1, each a run of 2 TF whole rows
+    uint8_t* st = sm.ring;
+    const int lg_tf = p.lg_tf;
+    auto row_of = [lg_tf, TF, pa](int i, int pb) {
+      return ((2 * (i >> lg_tf) + pa) << (lg_tf + 1)) + 2 * (i & (TF - 1)) + pb;
+    };
+    stage_acc<BN>(acc0, p.bias + n0, st, wl, [&](int i) { return row_of(i, 0); });
+    stage_acc<BN>(acc1, p.bias + n0, st, wl, [&](int i) { return row_of(i, 1); });
+    bar_sync_named(1, 256);
+    constexpr int CPR = BN / 8;
+    for (int i = tid; i < 256 * CPR; i += 256) {
+      const int rr = i / CPR, ch = i & (CPR - 1);
+      const int ot = 2 * mt0 + (rr >> (lg_tf + 1)), of = 2 * mf0 + (rr & (2 * TF - 1));
+      if (ot < 2 * T)
+        *reinterpret_cast<uint4*>(p.out + ((size_t)(b * 2 * T + ot) * 2 * F + of) * Cout + n0 +
+                                  ch * 8) =
+            *reinterpret_cast<const uint4*>(st + rr * (BN * 2 + 16) + ch * 16);
+    }
+  }
+}
+
+// --- host side -----------------------------------------------------------
+
+struct Plan {
+  RsArgs a;
+  int bn, threads, smem, box_t, box_f;
+  dim3 grid;
+};
+
+int pick_tf(int n) {
+  for (int tf = 8; tf > 1; tf >>= 1)
+    if (n % tf == 0) return tf;
+  return 1;
+}
+
+int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// The Cout tiles the kernels are built for: 64 to 256 columns in the
+// downsample, 64 or 128 in the upsample (two accumulators a thread).
+bool bn_ok(bool up, int bn, int Cout) {
+  return (bn == 64 || bn == 128 || (!up && bn == 256)) && Cout % bn == 0;
+}
+
+// bn: the packed weights' Cout tile (bn_ok holds).
+Plan make_plan(bool up, int B, int T, int F, int Cin, int Cout, int bn) {
+  Plan pl{};
+  RsArgs& a = pl.a;
+  a.T = T, a.F = F, a.Cout = Cout;
+  const int rows_f = up ? F : F / 2, rows_t = up ? T : T / 2;
+  a.tf = pick_tf(rows_f);
+  a.tt = 64 / a.tf;
+  a.lg_tf = __builtin_ctz(a.tf);
+  a.tiles_f = rows_f / a.tf;
+  a.n_chunks = (Cin + KC - 1) / KC;
+  pl.box_t = up ? a.tt + 2 : 2 * a.tt + 1;
+  pl.box_f = up ? a.tf + 2 : 2 * a.tf + 1;
+  a.box_bytes = round_up(pl.box_t * pl.box_f * KC * 2, 1024);
+  pl.bn = bn;
+  a.stage_bytes = (up ? 4 : 1) * pl.bn * KC * 2;
+  pl.threads = up ? UP_THREADS : DOWN_THREADS;
+  const int stages = up ? UP_STAGES : DOWN_STAGES;
+  auto smem_of = [&](int nb) {
+    return 1024 + stages * a.stage_bytes + nb * a.box_bytes + 128 + (2 * stages + 4) * 8;
+  };
+  // two box slots unless one slot lets two blocks share an SM
+  auto per_sm = [](int s) { return SMEM_PER_SM / (s + 1024); };
+  a.nb = (smem_of(2) <= SMEM_MAX && per_sm(smem_of(2)) >= per_sm(smem_of(1))) ? 2 : 1;
+  pl.smem = smem_of(a.nb);
+  pl.grid = dim3(((rows_t + a.tt - 1) / a.tt) * a.tiles_f, Cout / pl.bn, B);
+  return pl;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query (the library links the CUDA runtime alone).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// x (B, T, F, Cin) bf16 as a 4-D tensor map, box (64 channels, box_f
+// frequencies, box_t frames, 1) in the 128-byte swizzle; 0 on success.
+int x_tensor_map(CUtensorMap* map, const void* x, int B, int T, int F, int Cin, const Plan& pl) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)Cin, (cuuint64_t)F, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)Cin * 2, (cuuint64_t)F * Cin * 2,
+                                 (cuuint64_t)T * F * Cin * 2};
+  const cuuint32_t box[4] = {KC, (cuuint32_t)pl.box_f, (cuuint32_t)pl.box_t, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
+                   box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <class K>
+int launch(K kernel, const Plan& pl, const void* x, int B, int Cin, cudaStream_t stream) {
+  if (pl.smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  CUtensorMap xmap;
+  int err = x_tensor_map(&xmap, x, B, pl.a.T, pl.a.F, Cin, pl);
+  if (err) return err;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<pl.grid, pl.threads, pl.smem, stream>>>(xmap, pl.a);
+  return (int)cudaGetLastError();
+}
+
+void fill_io(Plan& pl, const void* w, const float* bias, const int* lens, void* out) {
+  pl.a.w = static_cast<const bf16*>(w);
+  pl.a.bias = bias;
+  pl.a.lens = lens;
+  pl.a.out = static_cast<bf16*>(out);
 }
 
 }  // namespace
@@ -171,23 +502,54 @@ ResampleArgs resample_args(const void* x, const void* w, const float* bias, cons
 extern "C" {
 
 // K11a: x (B, T*F, Cin) -> out (B, (T/2)*(F/2), Cout); T, F even, Cin % 8 == 0,
-// Cout % 64 == 0, w (9*Cin, Cout).
+// w packed by ops/resample.py pack_downsample_weight in Cout tiles of BN,
+// lens (B) valid input frames.
 int us_downsample_conv(const void* x, const void* w, const float* bias, const int* lens,
-                       void* out, int B, int T, int F, int Cin, int Cout, void* stream) {
-  ResampleArgs p = resample_args(x, w, bias, lens, out, T, F, Cin, Cout);
-  dim3 grid(us_ceil_div((T / 2) * (F / 2), IG_BM), Cout / IG_BN, B);
-  downsample_conv<<<grid, IG_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+                       void* out, int B, int T, int F, int Cin, int Cout, int BN, void* stream) {
+  if (!bn_ok(false, BN, Cout)) return (int)cudaErrorInvalidValue;
+  Plan pl = make_plan(false, B, T, F, Cin, Cout, BN);
+  fill_io(pl, w, bias, lens, out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (pl.bn) {
+    case 256: return launch(downsample_conv<256>, pl, x, B, Cin, s);
+    case 128: return launch(downsample_conv<128>, pl, x, B, Cin, s);
+    default: return launch(downsample_conv<64>, pl, x, B, Cin, s);
+  }
 }
 
-// K11b: x (B, T*F, Cin) -> out (B, 2T*2F, Cout); Cin % 8 == 0, Cout % 64 == 0,
-// w (16*Cin, Cout) in flax ConvTranspose tap order (kt, kf).
+// K11b: x (B, T*F, Cin) -> out (B, 2T*2F, Cout); Cin % 8 == 0, w packed by
+// ops/resample.py pack_upsample_weight in Cout tiles of BN, lens (B) valid
+// frames.
 int us_upsample_conv(const void* x, const void* w, const float* bias, const int* lens,
-                     void* out, int B, int T, int F, int Cin, int Cout, void* stream) {
-  ResampleArgs p = resample_args(x, w, bias, lens, out, T, F, Cin, Cout);
-  dim3 grid(us_ceil_div(T * F, IG_BM), Cout / IG_BN, B * 4);
-  upsample_conv<<<grid, IG_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+                     void* out, int B, int T, int F, int Cin, int Cout, int BN, void* stream) {
+  if (!bn_ok(true, BN, Cout)) return (int)cudaErrorInvalidValue;
+  Plan pl = make_plan(true, B, T, F, Cin, Cout, BN);
+  fill_io(pl, w, bias, lens, out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pl.bn == 128) return launch(upsample_conv<128>, pl, x, B, Cin, s);
+  return launch(upsample_conv<64>, pl, x, B, Cin, s);
+}
+
+// The launch plan of a site with Cout tiles of BN: info = {TT, TF, BN,
+// blocks, threads, dynamic shared memory bytes, box slots, blocks an SM
+// holds}.
+int us_resample_plan(int up, int B, int T, int F, int Cin, int Cout, int BN, int* info) {
+  if (!bn_ok(up != 0, BN, Cout)) return (int)cudaErrorInvalidValue;
+  Plan pl = make_plan(up != 0, B, T, F, Cin, Cout, BN);
+  int per_sm = 0;
+  void (*k)(const CUtensorMap, RsArgs);
+  if (up)
+    k = pl.bn == 128 ? upsample_conv<128> : upsample_conv<64>;
+  else
+    k = pl.bn == 256 ? downsample_conv<256>
+                     : pl.bn == 128 ? downsample_conv<128> : downsample_conv<64>;
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, pl.threads, pl.smem);
+  const int v[8] = {pl.a.tt, pl.a.tf, pl.bn, (int)(pl.grid.x * pl.grid.y * pl.grid.z),
+                    pl.threads, pl.smem, pl.a.nb, per_sm};
+  for (int i = 0; i < 8; ++i) info[i] = v[i];
+  return (int)e;
 }
 
 }  // extern "C"

@@ -3,6 +3,7 @@ full `MainConfig()` width with random weights from seed 0: the numbers
 behind PERF.md sections 5 and 6. Imports no JAX.
 
     python3 -m unitspeech_tpu_torch.measure [--reps 3] [--out chiprun_out/measure_port.json]
+        [--modes deep_i8 deep] [--no-build]
 
 Phases, all on the forced 344-frame request (50 DDPM steps, dual CFG
 1.0/1.0) in five modes: "int8" (the CLI default: every kernel, int8
@@ -28,6 +29,11 @@ the names chip_smoke.py gives these paths:
            summed over every CUDA kernel, kernel count, idle share
            (1 - device time / profiled wall; profiler overhead included
            in the wall) and the 30 kernels with the most device time.
+
+--modes keeps the named modes only; --no-build skips the build phase. The
+script measures whatever `unitspeech_tpu_torch` it imports, so run as a
+file from another checkout's root (`python3 /path/to/measure.py`) it times
+that checkout's port with this method.
 
 Writes one JSON object to --out and prints a summary.
 """
@@ -91,9 +97,9 @@ def measure_build():
     return out
 
 
-def measure_rtf(ckpt, tmp, reps):
-    out = {m: {"wall_s": [], "rtf": []} for m in MODES}
-    order = list(MODES)
+def measure_rtf(ckpt, tmp, reps, modes):
+    out = {m: {"wall_s": [], "rtf": []} for m in modes}
+    order = list(modes)
     for r in range(reps + 1):
         for mode in order[r % len(order):] + order[:r % len(order)]:
             stats = cli.main_inference(
@@ -122,9 +128,9 @@ def _request(synth, ids, gen):
     return mel, y_len
 
 
-def measure_phases(ckpt, ids, reps):
+def measure_phases(ckpt, ids, reps, modes):
     out = {}
-    for mode in MODES:
+    for mode in modes:
         synth = _synth(ckpt, mode)
         gen = torch.Generator(device="cuda").manual_seed(0)
         rec = {"mel_s": [], "vocoder_s": []}
@@ -163,12 +169,12 @@ def measure_phases(ckpt, ids, reps):
     return out
 
 
-def measure_profile(ckpt, ids):
+def measure_profile(ckpt, ids, modes):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
-    for mode in MODES:
+    for mode in modes:
         synth = _synth(ckpt, mode)
         gen = torch.Generator(device="cuda").manual_seed(0)
         mel, _ = _request(synth, ids, gen)  # warm-up
@@ -198,6 +204,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser("measure_port")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--out", default="chiprun_out/measure_port.json")
+    ap.add_argument("--modes", nargs="+", choices=list(MODES), default=list(MODES))
+    ap.add_argument("--no-build", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure_port: no CUDA device", file=sys.stderr)
@@ -207,20 +215,21 @@ def main(argv=None) -> int:
                           check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     result = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-              "frames": FRAMES, "steps": STEPS, "reps": args.reps}
-    result["build_s"] = measure_build()
-    print("build s:", json.dumps(result["build_s"]), flush=True)
+              "frames": FRAMES, "steps": STEPS, "reps": args.reps, "modes": args.modes}
+    if not args.no_build:
+        result["build_s"] = measure_build()
+        print("build s:", json.dumps(result["build_s"]), flush=True)
     _cuda.lib()
     ids = phonemes_to_sequence(TEXT)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "ckpt.pt")
         cli.main_make_random_checkpoint(["--seed", "0", "--output", path])
-        result["rtf"] = measure_rtf(path, tmp, args.reps)
+        result["rtf"] = measure_rtf(path, tmp, args.reps, args.modes)
         print("rtf:", json.dumps(result["rtf"]), flush=True)
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    result["phases"] = measure_phases(ckpt, ids, args.reps)
+    result["phases"] = measure_phases(ckpt, ids, args.reps, args.modes)
     print("phases:", json.dumps(result["phases"]), flush=True)
-    result["profile"] = measure_profile(ckpt, ids)
+    result["profile"] = measure_profile(ckpt, ids, args.modes)
     for mode, p in result["profile"].items():
         print(mode, json.dumps({k: v for k, v in p.items() if k != "top"}), flush=True)
         for t in p["top"]:

@@ -61,9 +61,13 @@ from unitspeech_tpu_torch.ops.fused_resnet_deep import (
     fused_resnet_block_deep,
     fused_resnet_block_deep_i8,
 )
+from unitspeech_tpu_torch.ops.masking import frames_from_mask
 from unitspeech_tpu_torch.ops.resample import (
     fused_downsample_conv,
     fused_upsample_conv,
+    kernel_takes,
+    pack_downsample_weight,
+    pack_upsample_weight,
     supports_downsample,
     supports_upsample,
 )
@@ -239,6 +243,16 @@ class ResnetBlock(nn.Module):
         return (h2 + res).to(dtype).reshape(b, t, f, dout)
 
 
+def _pack_resample_after_load(estimator, _incompatible_keys):
+    """load_state_dict post-hook of a use_resample estimator: pack the
+    Downsample / Upsample kernels into K11's layout once the weights are
+    in (where K11 takes their widths), so that no call casts or reshapes
+    them."""
+    for m in estimator.modules():
+        if isinstance(m, (Downsample, Upsample)):
+            m.pack()
+
+
 def _quantize_after_load(estimator, _incompatible_keys):
     """load_state_dict post-hook of an int8 estimator: quantize the flat
     blocks' conv kernels (the flat int8 route and K9) once the weights are
@@ -300,11 +314,17 @@ class RezeroAttention(nn.Module):
 
 
 class Downsample(nn.Module):
-    """conv3x3 stride 2 (reference unitspeech.py:27-33)."""
+    """conv3x3 stride 2 (reference unitspeech.py:27-33). `packed`: the
+    kernel in K11a's layout, made once at load on the use_resample route."""
 
     def __init__(self, c: int):
         super().__init__()
         self.conv = Conv2d(c, c, 3)
+        self.packed = None
+
+    def pack(self):
+        if kernel_takes(*self.conv.kernel.shape[2:]):
+            self.packed = pack_downsample_weight(self.conv.kernel)
 
     def forward(self, x, dtype):
         return self.conv(x, stride=2, dtype=dtype)
@@ -312,11 +332,17 @@ class Downsample(nn.Module):
 
 class Upsample(nn.Module):
     """ConvTranspose 4x4 stride 2, flax padding 2 (reference
-    unitspeech.py:18-24)."""
+    unitspeech.py:18-24). `packed`: the kernel in K11b's layout, made once at
+    load on the use_resample route."""
 
     def __init__(self, c: int):
         super().__init__()
         self.conv = ConvTranspose2d(c, c, 4, 2, 2)
+        self.packed = None
+
+    def pack(self):
+        if kernel_takes(*self.conv.kernel.shape[2:]):
+            self.packed = pack_upsample_weight(self.conv.kernel)
 
     def forward(self, x, dtype):
         return self.conv(x, dtype=dtype)
@@ -340,6 +366,8 @@ class GradLogPEstimator2d(nn.Module):
             use_deep, use_resample, use_i8pre_deep)
         if use_int8_deep:
             self.register_load_state_dict_post_hook(_quantize_after_load)
+        if use_resample:
+            self.register_load_state_dict_post_hook(_pack_resample_after_load)
         t_dim = dim + spk_emb_dim
         self.mlp_0 = Dense(dim, dim * 4)
         self.mlp_1 = Dense(dim * 4, dim)
@@ -377,6 +405,13 @@ class GradLogPEstimator2d(nn.Module):
         h = torch.stack([mu, x], dim=-1).to(dt)
         m = mask[:, :, None, None].to(dt)
         hiddens, masks = [], [m]
+        level_frames = {}  # K11's valid input frames by U-Net level, once per call
+
+        def frames(level, mk):
+            """The valid frames of `mk`, the mask of `level` (masks[level])."""
+            if level not in level_frames:
+                level_frames[level] = frames_from_mask(mk)
+            return level_frames[level]
         n_res = len(self.dims)
         for i in range(n_res):
             mk = masks[-1]
@@ -392,7 +427,8 @@ class GradLogPEstimator2d(nn.Module):
                 if self.use_resample and supports_downsample(h.shape[1], h.shape[2],
                                                              self.dims[i]):
                     # the kernel masks its input rows: no h * mk pass
-                    h = fused_downsample_conv(h.to(dt), mk, down.conv.kernel, down.conv.bias)
+                    h = fused_downsample_conv(h.to(dt), mk, down.conv.kernel, down.conv.bias,
+                                              packed=down.packed, lens=frames(i, mk))
                 else:
                     hin = h if attn.uses_kernel(h_in, uk) else h * mk
                     h = down(hin, dt)
@@ -414,7 +450,10 @@ class GradLogPEstimator2d(nn.Module):
             h = attn(h, mk, dt, uk)
             up = getattr(self, f"up_{i}_up")
             if self.use_resample and supports_upsample(h.shape[1], h.shape[2], self.dims[i]):
-                h = fused_upsample_conv(h.to(dt), mk, up.conv.kernel, up.conv.bias)
+                # up stage i's input is one level deeper than down stage i's:
+                # its mask is that of level i + 1
+                h = fused_upsample_conv(h.to(dt), mk, up.conv.kernel, up.conv.bias,
+                                        packed=up.packed, lens=frames(i + 1, mk))
             else:
                 hin = h if attn.uses_kernel(h_in, uk) else h * mk
                 h = up(hin, dt)

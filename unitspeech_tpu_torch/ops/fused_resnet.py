@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from unitspeech_tpu_torch.ops import _cuda
 from unitspeech_tpu_torch.ops.conv_matmul import conv3x3_rows, im2col, quantize_weight
+from unitspeech_tpu_torch.ops.masking import frames_from_mask
 
 GN_EPS = 1e-5
 
@@ -73,11 +74,8 @@ def mish_one_exp(x: torch.Tensor) -> torch.Tensor:
 
 
 def lens_rows_from_mask(mask: torch.Tensor, f: int) -> torch.Tensor:
-    """(B, T, ...) prefix mask -> (B,) int32 valid row counts len*F. The sum
-    runs in f32: a bf16 sum rounds odd lengths above 256."""
-    b = mask.shape[0]
-    lens = mask.reshape(b, -1).to(torch.float32).sum(dim=1)
-    return (lens.to(torch.int32) * f).to(torch.int32)
+    """(B, T, ...) prefix mask -> (B,) int32 valid row counts len*F."""
+    return frames_from_mask(mask) * f
 
 
 def block_rows_args(x, mask, t_bias, w1, b1, s1, be1, w2, b2, s2, be2, wres, bres):

@@ -16,6 +16,12 @@ def sequence_mask(length: torch.Tensor, max_length: int, dtype=torch.float32):
     return (pos[None, :] < length[:, None]).to(dtype)
 
 
+def frames_from_mask(mask: torch.Tensor) -> torch.Tensor:
+    """(B, T, ...) prefix mask -> (B,) int32 valid frames. The sum runs in
+    f32: a bf16 sum rounds odd lengths above 256."""
+    return mask.reshape(mask.shape[0], -1).to(torch.float32).sum(dim=1).to(torch.int32)
+
+
 def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """(B, Tx) integer-valued durations, (B, Tx, Ty) mask -> (B, Tx, Ty)
     monotonic 0/1 path; row x covers frames [cum(d)_{x-1}, cum(d)_x)."""

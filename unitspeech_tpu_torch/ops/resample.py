@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from unitspeech_tpu_torch.models.layers import conv_transpose_weight
 from unitspeech_tpu_torch.ops import _cuda
-from unitspeech_tpu_torch.ops.fused_resnet import lens_rows_from_mask
+from unitspeech_tpu_torch.ops.masking import frames_from_mask
 
 
 def _pick_fpt_down(t_out: int, f: int, c_max: int, budget_bytes: int = 6 * 1024 * 1024):
@@ -98,33 +98,118 @@ def upsample_conv_plain(x, mask, kernel, bias):
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
-def _resample_cuda(fn, what, x, mask, kernel, bias, taps, rows_out):
+# --- the kernels' weight layout (csrc/resample.cu) --------------------------
+
+KC = 64  # input channels per chunk: one 128-byte row of a weight tile
+
+
+def kernel_takes(cin: int, cout: int) -> bool:
+    """The channel counts the CUDA kernels take (16-byte rows, whole
+    64-column wgmma tiles)."""
+    return cin % 8 == 0 and cout % 64 == 0
+
+
+def tile_cols(up: bool, cout: int) -> int:
+    """The Cout tile (BN) of the packed weights, which the launch takes from
+    them: the whole Cout up to 256 for K11a, up to 128 for K11b (two 64 x BN
+    accumulators a thread allow no more)."""
+    for bn in (128, 64) if up else (256, 128, 64):
+        if cout % bn == 0:
+            return bn
+    raise ValueError(f"Cout={cout} is not a multiple of 64")
+
+
+def up_stage_taps():
+    """K11b's weight stages: stage q = (it, jf) holds the tiles of phases
+    p = (a, b) in order, phase (a, b) taking flax tap (a + 2 it, b + 2 jf);
+    [q][p] -> kt * 4 + kf."""
+    return [[(a + 2 * (q >> 1)) * 4 + b + 2 * (q & 1) for a in (0, 1) for b in (0, 1)]
+            for q in range(4)]
+
+
+def _swizzle128(t):
+    """(..., BN, 64) -> the 128-byte swizzle of a K-major wgmma tile: the
+    16-byte chunk j of row n is stored at chunk j ^ (n % 8)."""
+    *lead, bn, k = t.shape
+    v = t.reshape(*lead, bn // 8, 8, 8, 8)
+    r = torch.arange(8, device=t.device)
+    return v[..., r[:, None], r[:, None] ^ r[None, :], :].reshape(*lead, bn, k)
+
+
+def _pad_chunks(w, cin):
+    """(taps..., Cin, Cout) -> Cin padded with zero rows to whole chunks."""
+    nc = -(-cin // KC)
+    return F.pad(w, (0, 0, 0, nc * KC - cin)), nc
+
+
+def pack_downsample_weight(kernel):
+    """(3, 3, Cin, Cout) flax kernel -> K11a's bf16 tiles, made once at load:
+    (Cout / BN, chunks, 9 taps, BN, 64), each tile K-major in the 128-byte
+    swizzle."""
+    _, _, cin, cout = kernel.shape
+    bn = tile_cols(False, cout)
+    w, nc = _pad_chunks(kernel.detach().to(torch.bfloat16).reshape(9, cin, cout), cin)
+    w = w.reshape(9, nc, KC, cout // bn, bn).permute(3, 1, 0, 4, 2)
+    return _swizzle128(w).contiguous()
+
+
+def pack_upsample_weight(kernel):
+    """(4, 4, Cin, Cout) flax ConvTranspose kernel -> K11b's bf16 tiles, made
+    once at load: (Cout / BN, chunks, 4 steps, 4 phases, BN, 64) in
+    up_stage_taps() order, each tile K-major in the 128-byte swizzle."""
+    _, _, cin, cout = kernel.shape
+    bn = tile_cols(True, cout)
+    taps = torch.tensor(up_stage_taps(), device=kernel.device)
+    w = kernel.detach().to(torch.bfloat16).reshape(16, cin, cout)[taps]
+    w, nc = _pad_chunks(w, cin)
+    w = w.reshape(4, 4, nc, KC, cout // bn, bn).permute(4, 2, 0, 1, 5, 3)
+    return _swizzle128(w).contiguous()
+
+
+def _resample_cuda(fn, what, up, x, bias, packed, lens, rows_out):
     b, t, f, cin = x.shape
-    cout = kernel.shape[-1]
+    cout = bias.shape[0]
     if x.dtype != torch.bfloat16:
         raise ValueError(f"{what}: the kernel takes bf16 activations, got {x.dtype}")
-    if cin % 8 or cout % 64:
+    if not kernel_takes(cin, cout):
         raise ValueError(f"{what}: unsupported Cin={cin}, Cout={cout} (Cin % 8, Cout % 64)")
+    if not up and (t % 2 or f % 2):
+        raise ValueError(f"{what}: T={t} and F={f} must be even")
     dev = x.device
     x = _cuda.require(x.contiguous(), "x", dtype=torch.bfloat16)
-    w = _cuda.require(kernel.to(torch.bfloat16).reshape(taps * cin, cout).contiguous(), "kernel",
-                      device=dev)
-    bias = _cuda.require(bias.to(torch.float32).contiguous(), "bias", shape=(cout,), device=dev)
-    lens = lens_rows_from_mask(mask, f)
+    steps = (4, 4) if up else (9,)
+    bn = packed.shape[-2] if packed.dim() == len(steps) + 4 else 0  # the packer's choice
+    if not bn or cout % bn:
+        raise ValueError(f"{what}: packed kernel {tuple(packed.shape)} for Cout={cout}")
+    _cuda.require(packed, "packed kernel", dtype=torch.bfloat16, device=dev,
+                  shape=(cout // bn, -(-cin // KC), *steps, bn, KC))
+    if bias.dtype != torch.float32 or not bias.is_contiguous() or bias.device != dev:
+        bias = bias.to(device=dev, dtype=torch.float32).contiguous()
+    _cuda.require(bias, "bias", shape=(cout,))
+    if lens.dtype != torch.int32 or tuple(lens.shape) != (b,) or lens.device != dev:
+        raise ValueError(f"{what}: lens must be ({b},) int32 on {dev}")
+    if not lens.is_contiguous():
+        raise ValueError(f"{what}: lens must be contiguous")
     out = torch.empty((b, rows_out, cout), dtype=x.dtype, device=dev)
-    _cuda.check(fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                   b, t, f, cin, cout, _cuda.stream(x)), what)
+    _cuda.check(fn(x.data_ptr(), packed.data_ptr(), bias.data_ptr(), lens.data_ptr(),
+                   out.data_ptr(), b, t, f, cin, cout, bn, _cuda.stream(x)), what)
     return out
 
 
-def fused_downsample_conv(x, mask, kernel, bias):
+def fused_downsample_conv(x, mask, kernel, bias, *, packed=None, lens=None):
     """Masked conv3x3 stride 2: x (B, T, F, Cin), T and F even, mask
-    (B, T, 1, 1), kernel (3, 3, Cin, Cout) -> (B, T/2, F/2, Cout). CUDA
-    tensors launch the kernel, CPU tensors take downsample_conv_plain."""
+    (B, T, 1, 1), kernel (3, 3, Cin, Cout) -> (B, T/2, F/2, Cout). packed:
+    the kernel from pack_downsample_weight, lens: (B,) int32 valid frames of
+    `mask`. The estimator makes both ahead (once at load, once per call);
+    the kernel launch takes them, made here from `kernel` and `mask` when
+    absent. CUDA tensors launch the kernel, CPU tensors take
+    downsample_conv_plain."""
     b, t, f, _ = x.shape
     if _cuda.route(x, "fused_downsample_conv"):
-        out = _resample_cuda(_cuda.lib().us_downsample_conv, "fused_downsample_conv", x, mask,
-                             kernel, bias, 9, (t // 2) * (f // 2))
+        out = _resample_cuda(
+            _cuda.lib().us_downsample_conv, "fused_downsample_conv", False, x, bias,
+            pack_downsample_weight(kernel) if packed is None else packed,
+            frames_from_mask(mask) if lens is None else lens, (t // 2) * (f // 2))
         fused_downsample_conv.launches += 1
         return out.reshape(b, t // 2, f // 2, -1)
     return downsample_conv_plain(x, mask, kernel, bias)
@@ -133,18 +218,34 @@ def fused_downsample_conv(x, mask, kernel, bias):
 fused_downsample_conv.launches = 0
 
 
-def fused_upsample_conv(x, mask, kernel, bias):
+def fused_upsample_conv(x, mask, kernel, bias, *, packed=None, lens=None):
     """Masked ConvTranspose 4x4 stride 2 (flax padding 2): x (B, T, F, Cin),
     mask (B, T, 1, 1), kernel (4, 4, Cin, Cout) unflipped -> (B, 2T, 2F,
-    Cout). CUDA tensors launch the kernel, CPU tensors take
-    upsample_conv_plain."""
+    Cout). packed (pack_upsample_weight) and lens as fused_downsample_conv's.
+    CUDA tensors launch the kernel, CPU tensors take upsample_conv_plain."""
     b, t, f, _ = x.shape
     if _cuda.route(x, "fused_upsample_conv"):
-        out = _resample_cuda(_cuda.lib().us_upsample_conv, "fused_upsample_conv", x, mask,
-                             kernel, bias, 16, 4 * t * f)
+        out = _resample_cuda(
+            _cuda.lib().us_upsample_conv, "fused_upsample_conv", True, x, bias,
+            pack_upsample_weight(kernel) if packed is None else packed,
+            frames_from_mask(mask) if lens is None else lens, 4 * t * f)
         fused_upsample_conv.launches += 1
         return out.reshape(b, 2 * t, 2 * f, -1)
     return upsample_conv_plain(x, mask, kernel, bias)
 
 
 fused_upsample_conv.launches = 0
+
+
+def resample_plan(up: bool, b: int, t: int, f: int, cin: int, cout: int) -> dict:
+    """The kernel's launch plan at a site with the packer's Cout tile, as
+    csrc/resample.cu makes it (the card's us_resample_plan): row tile, Cout
+    tile, blocks, threads, dynamic shared memory, box slots and blocks an SM
+    holds."""
+    import ctypes
+
+    info = (ctypes.c_int * 8)()
+    _cuda.check(_cuda.lib().us_resample_plan(int(up), b, t, f, cin, cout,
+                                             tile_cols(up, cout), info), "us_resample_plan")
+    keys = ("tt", "tf", "bn", "blocks", "threads", "smem", "box_slots", "blocks_per_sm")
+    return dict(zip(keys, info))
