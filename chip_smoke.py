@@ -2,8 +2,11 @@
 kernels, hold each against its plain PyTorch version at the main-path
 shapes (with its time, the least time the card could take for the same
 work, and the time of one library call computing the same function where
-there is one), then serve adaptive-TTS requests through the port's CLI at
-full model width (random weights from a seed): with its serving defaults
+there is one; under each ResnetBlock site kernel A alone at the block's
+conv shapes with its launch plan, beside one F.conv2d in bf16 as the main
+loop's yardstick, which the port never calls), then serve adaptive-TTS
+requests through the port's CLI at full model width (random weights from a
+seed): with its serving defaults
 (every kernel, int8 deep-stage convs), and with the fused deep-stage
 configuration (`--deep --i8pre --resample`: K8, K9, K11). Then check what
 comes out: each kernel path against the plain path, the int8 gates and the
@@ -281,17 +284,62 @@ def check_kernels(torch, dev):
                 p["b2"], p["gn2_scale"], p["gn2_bias"],
                 p["wres"].reshape(cin, cout) if cin != cout else None, p.get("bres"))
 
+    def conv_sites(t, f, cin, cout, p, packed):
+        """Kernel A alone at a block's two conv shapes (conv1 on x, conv2 on
+        a (3, T*F, Cout) input) with the weights packed as at load, beside one
+        F.conv2d of the same shape in bf16, channels-last, TF32 off (the
+        yardstick of the main loop alone; the port never calls it), with
+        each conv's launch plan (csrc/resnet_block.cu conv_plan) and, where
+        the block has one, the 1x1 residual's. Returns the records."""
+        out = []
+        n = t * f
+        lens = fused_resnet.lens_rows_from_mask(_lens_mask(torch, t, dev), f)
+        for name, ci, w, pk in (("conv1", cin, p["w1"], packed[0]),
+                                ("conv2", cout, p["w2"], packed[1])):
+            xin = rand(3, n, ci).to(torch.bfloat16)
+            wr = w.reshape(9 * ci, cout)
+            kern = lambda: fused_resnet.resnet_conv3x3(xin, lens, wr, p["b1"], f, packed=pk)
+            xn = xin.reshape(3, t, f, ci).permute(0, 3, 1, 2)  # NCHW view, channels-last
+            wn = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            b_ms = bound_ms({"bytes": 2 * 3 * n * (ci + cout) + 2 * 9 * ci * cout,
+                             "bf16": 2 * 3 * n * 9 * ci * cout, "f32": 3 * 3 * n * cout})[0]
+            rec = {"conv": name, "cin": ci, "cout": cout, "ms": _time_ms(torch, kern),
+                   "conv2d_ms": _time_ms(torch, lambda: F.conv2d(xn, wn, padding=1)),
+                   "bound_ms": b_ms,
+                   "plan": fused_resnet.conv_plan(9, 3, t, f, ci, cout) if ci % 8 == 0 else None}
+            pl = rec["plan"]
+            how = ("element loads on mma.sync (Cin % 8 != 0)" if pl is None else
+                   f"tile {pl['tt']} x {pl['tf']} rows, Cout tile {pl['bn']}, {pl['blocks']} "
+                   f"blocks ({pl['blocks_per_sm']} an SM), {pl['smem']} B shared")
+            print(f"    kernel A {name} {ci}->{cout}: {rec['ms']:.4f} ms, F.conv2d (bf16, "
+                  f"channels-last) {rec['conv2d_ms']:.4f} ms, least {b_ms:.4f} ms; {how}",
+                  flush=True)
+            out.append(rec)
+        if cin != cout and cin % 8 == 0:
+            pl = fused_resnet.conv_plan(1, 3, t, f, cin, cout)
+            print(f"    kernel C 1x1 {cin}->{cout}: {pl['tt']} rows a tile, Cout tile "
+                  f"{pl['bn']}, {pl['blocks']} blocks, {pl['smem']} B shared", flush=True)
+            out.append({"conv": "res1x1", "cin": cin, "cout": cout, "plan": pl})
+        return out
+
+    def packed_of(p):
+        # packed once, as the estimator packs them when its weights load
+        return fused_resnet.pack_block_weights(p["w1"], p["w2"], p.get("wres"))
+
     src_res = "unitspeech_tpu_torch/csrc/resnet_block.cu"
     for f, cin, cout in K1_SITES:
         t = FRAMES * f // 80
         x, mask, lens, p = block_inputs(t, f, cin, cout)
         args = rows_args(x, lens, p, t, f, cin, cout)
+        packed = packed_of(p)
         compare("fused_resnet_block", src_res,
                 "unitspeech_tpu/ops/pallas_resnet.py:1243",
                 f"F={f} T={t} {cin}->{cout}",
-                lambda: fused_resnet.fused_resnet_block(x, mask, groups=8, **p),
+                lambda: fused_resnet.fused_resnet_block(x, mask, groups=8, packed=packed, **p),
                 lambda: fused_resnet.resnet_block_plain(*args, f=f, groups=8), BF16_REL,
                 counts(1), block_work(3, t * f, cin, cout))
+        records[-1]["convs"] = conv_sites(t, f, cin, cout, p, packed)
 
     t, f, c = FRAMES, 80, 128
     x = rand(3, t, f, c).to(torch.bfloat16)
@@ -301,9 +349,11 @@ def check_kernels(torch, dev):
     s1, be1 = 1 + rand(c, scale=0.1), rand(c, scale=0.1)
     wo, bo = rand(1, 1, c, 1, scale=c ** -0.5), rand(1, scale=0.1)
     n = t * f
+    w1p = fused_resnet.pack_conv_weight(w1)
     compare("fused_final_block", src_res, "unitspeech_tpu/ops/pallas_resnet.py:778",
             f"F={f} T={t} {c}->1",
-            lambda: fused_resnet.fused_final_block(x, mask, w1, b1, s1, be1, wo, bo, groups=8),
+            lambda: fused_resnet.fused_final_block(x, mask, w1, b1, s1, be1, wo, bo, groups=8,
+                                                   packed=w1p),
             lambda: fused_resnet.final_block_plain(x.reshape(3, t * f, c), lens,
                                                    w1.reshape(9 * c, c), b1, s1, be1,
                                                    wo.reshape(c), bo, f=f, groups=8),
@@ -371,22 +421,26 @@ def check_kernels(torch, dev):
     for f, t, cin, cout, per_call in K8_SITES:
         x, mask, lens, p = block_inputs(t, f, cin, cout)
         args = rows_args(x, lens, p, t, f, cin, cout)
+        packed = packed_of(p)
         compare("fused_resnet_block_deep", src_res,
                 "unitspeech_tpu/ops/pallas_resnet.py:643", f"F={f} T={t} {cin}->{cout}",
-                lambda: fused_resnet_deep.fused_resnet_block_deep(x, mask, groups=8, **p),
+                lambda: fused_resnet_deep.fused_resnet_block_deep(x, mask, groups=8,
+                                                                  packed=packed, **p),
                 lambda: fused_resnet.resnet_block_plain(*args, f=f, groups=8), BF16_REL,
                 per_call, block_work(3, t * f, cin, cout))
+        records[-1]["convs"] = conv_sites(t, f, cin, cout, p, packed)
 
     for f, t, cin, cout, per_call in K9_SITES:
         x, mask, lens, p = block_inputs(t, f, cin, cout)
-        # weights quantized once, as the estimator does when they load
+        # weights quantized and packed once, as the estimator does when they load
         wq = (fused_resnet_deep.quant_w(p["w1"]), fused_resnet_deep.quant_w(p["w2"]))
+        packed = packed_of(p)
         a = rows_args(x, lens, p, t, f, cin, cout)
         args = (*a[:4], wq[0], *a[4:7], wq[1], *a[8:])
         compare("fused_resnet_block_deep_i8", "unitspeech_tpu_torch/csrc/resnet_deep_i8.cu",
                 "unitspeech_tpu/ops/pallas_resnet.py:1106", f"F={f} T={t} {cin}->{cout}",
                 lambda: fused_resnet_deep.fused_resnet_block_deep_i8(x, mask, groups=8, wq=wq,
-                                                                     **p),
+                                                                     packed=packed, **p),
                 lambda: fused_resnet_deep.resnet_block_deep_i8_plain(*args, f=f, groups=8),
                 I8_REL, per_call,
                 block_work(3, t * f, cin, cout, i8_conv1=cin <= cout, i8_conv2=True))
@@ -449,9 +503,13 @@ def check_kernels(torch, dev):
         n = t * f
         x_rows = q["x"].reshape(1, n, cin)
         w1 = q["w1"].reshape(9 * cin, cout)
+        # packed once, as the tool packs them
+        w1p = fused_resnet.pack_conv_weight(q["w1"])
+        wrp = fused_resnet.pack_conv_weight(q["wres_c"].reshape(1, 1, cin, cout))
         compare("resnet_conv3x3", src_res, "tools/bisect_deep_compile.py:152",
                 f"{name} {cin}->{cout}",
-                lambda: fused_resnet.resnet_conv3x3(x_rows, q["lens"], w1, q["b1"], f)[0],
+                lambda: fused_resnet.resnet_conv3x3(x_rows, q["lens"], w1, q["b1"], f,
+                                                    packed=w1p)[0],
                 lambda: fused_resnet.resnet_conv3x3_plain(x_rows, q["lens"], w1, q["b1"], f,
                                                           8)[0],
                 BF16_REL, counts(0, bisect=1),
@@ -466,7 +524,8 @@ def check_kernels(torch, dev):
             out_bytes = 4 if mode == "none" else 2
             compare("resnet_out", src_res, "tools/bisect_deep_compile.py:179",
                     f"{name} {cin}->{cout} {mode}",
-                    lambda: fused_resnet.resnet_out(*c_args),
+                    lambda: fused_resnet.resnet_out(*c_args,
+                                                    packed=wrp if mode == "matmul" else None),
                     lambda: fused_resnet.resnet_out_plain(*c_args), BF16_REL,
                     counts(0, bisect=1),
                     {"bytes": n * cout * (2 + out_bytes) + (0 if mode == "none" else 2 * n * cin)

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from unitspeech_tpu_torch.ops import (
+    _cuda,
     aa_snake,
     conv_matmul,
     fused_attention,
@@ -531,3 +532,202 @@ def test_resnet_kernels_alone(dev, t, f, cin, cout):
         want = fused_resnet.resnet_out_plain(c_p, x, mean_p, inv_p, s, sh, lens, mode, *w_b)
         assert got.dtype == (torch.float32 if mode == "none" else torch.bfloat16)
         _assert_close(got, want, BF16_REL)
+
+
+# K1 / K8 on the Hopper loop (csrc/resnet_block.cu conv_tc): T not a
+# multiple of the tile (F = 80: 8 x 16; F = 40: 16 x 8; F = 20: 6 x 20;
+# F = 10: 12 x 10), lengths ending mid-tile and a 2-frame row, Cin = 2 (the
+# element-load conv1 and 1x1 residual), Cout tiles of 64 (64, 192), 128, and
+# 64 read from 128-column packing (F = 10, 2048 -> 512: 48 blocks of 128)
+RAGGED_BLOCKS = [(27, 80, 2, 128, [27, 13, 2]), (27, 80, 128, 64, [27, 14, 27]),
+                 (11, 40, 64, 192, [11, 6, 2]), (9, 20, 1024, 256, [9, 4, 9]),
+                 (43, 10, 512, 1024, [43, 30, 7]), (13, 10, 1024, 1024, [13, 13, 2]),
+                 (43, 10, 2048, 512, [43, 19, 43])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,f,cin,cout,lens", RAGGED_BLOCKS)
+def test_resnet_block_ragged_tiles(dev, t, f, cin, cout, lens):
+    """The whole block (K1 at F % 8 == 0, K8's wrapper at F = 20 / 10) with
+    the weights packed as at load, against its plain version; rows past the
+    length come out zero; the packed call equals the raw-kernel call bit
+    for bit."""
+    rng = np.random.default_rng(t * f + cin + cout)
+    mask = _mask(dev, t, lens)
+    p = _block_params(rng, dev, cin, cout)
+    x = _rand(rng, dev, 3, t, f, cin).to(torch.bfloat16)
+    fn = (fused_resnet.fused_resnet_block if f % 8 == 0
+          else fused_resnet_deep.fused_resnet_block_deep)
+    packed = fused_resnet.pack_block_weights(p["w1"], p["w2"], p.get("wres"))
+    before = fn.launches
+    got = fn(x, mask, **p, groups=8, packed=packed)
+    assert fn.launches == before + 1
+    assert torch.equal(got, fn(x, mask, **p, groups=8))
+    want = fused_resnet.resnet_block_plain(*_rows_args(x, mask, p, f), f=f, groups=8)
+    assert got.dtype == torch.bfloat16
+    for i, n in enumerate(lens):
+        assert not got[i, n:].any()
+    _assert_close(got, want, BF16_REL)
+
+
+# (T, F, Cin, Cout) -> the plan's (TT, TF, Cout tile) on the H100 (132 SMs):
+# the served grids' tiles (as tests/test_torch_port_conv.py replays them),
+# 64 of 128 packed columns at F = 10, 2048 -> 512 (128 would give 48 blocks)
+CONV_PLANS = {(344, 80, 128, 128): (8, 16, 128), (172, 40, 256, 128): (16, 8, 128),
+              (86, 20, 512, 256): (6, 20, 128), (43, 10, 1024, 1024): (12, 10, 128),
+              (43, 10, 2048, 512): (12, 10, 64), (9, 10, 64, 64): (9, 10, 64),
+              (5, 6, 24, 192): (5, 6, 64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,f,cin,cout", list(CONV_PLANS))
+def test_conv_plan_matches_tiling(dev, t, f, cin, cout):
+    """The card's launch plan (us_conv_plan) at the served grids takes the
+    row tile the CPU tests replay and the Cout tile stated above; its tile
+    count is the one us_conv_n_tiles sizes the statistics by, its blocks
+    cover every tile and Cout tile of the batch, one block an SM at least;
+    the 1x1 residual tiles 128 whole rows."""
+    plan = fused_resnet.conv_plan(9, 3, t, f, cin, cout)
+    assert (plan["tt"], plan["tf"], plan["bn"]) == CONV_PLANS[(t, f, cin, cout)]
+    assert plan["tiles"] == _cuda.lib().us_conv_n_tiles(t * f, f, cin)
+    assert plan["blocks"] == plan["tiles"] * (cout // plan["bn"]) * 3
+    assert plan["blocks_per_sm"] >= 1
+    res = fused_resnet.conv_plan(1, 3, t, f, cin, cout)
+    assert (res["tt"], res["tf"], res["tiles"]) == (min(128, t * f), 1, -(-t * f // 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [2, 64, 1024])
+def test_kernel_a_packed_and_statistics(dev, cin):
+    """Kernel A alone with the weights packed once equals the call that packs
+    them, bit for bit; its GroupNorm statistics (tile sums reduced in a
+    fixed order) match the plain version's and repeat exactly."""
+    rng = np.random.default_rng(cin)
+    t, f, cout = 21, 10, 256
+    n = t * f
+    lens = torch.tensor([n, n - 4 * f, 3 * f], dtype=torch.int32, device=dev)
+    x = _rand(rng, dev, 3, n, cin).to(torch.bfloat16)
+    w, bias = _rand(rng, dev, 9 * cin, cout, scale=(9 * cin) ** -0.5), _rand(rng, dev, cout)
+    packed = fused_resnet.pack_conv_weight(w.reshape(3, 3, cin, cout))
+    got = fused_resnet.resnet_conv3x3(x, lens, w, bias, f, packed=packed)
+    again = fused_resnet.resnet_conv3x3(x, lens, w, bias, f)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    c_p, mean_p, inv_p = fused_resnet.resnet_conv3x3_plain(x, lens, w, bias, f, 8)
+    _assert_close(got[0], c_p, BF16_REL)
+    torch.testing.assert_close(got[1], mean_p, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got[2], inv_p, rtol=1e-4, atol=1e-5)
+
+
+DIM64 = dict(dim=64, dim_mults=(1, 2, 4, 8), groups=8, spk_emb_dim=256)
+
+
+def _estimator_sd(tunet, rng, est):
+    from unitspeech_tpu_torch.utils.params import _random_leaf
+
+    sd = {k: torch.from_numpy(_random_leaf(rng, k, tuple(v.shape)).astype(np.float32))
+          for k, v in est.state_dict().items()}
+    for k in sd:
+        if k.endswith(".g"):
+            sd[k] *= 0.1
+    return sd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i8pre", [False, True], ids=["deep", "deep_i8"])
+def test_estimator_dim64_serves(dev, i8pre):
+    """decoder.dim 64 on the card with every kernel switch: the estimator
+    serves (finite scores), routing each site to a kernel only where the
+    kernel takes its widths; the kernels that launched are reported and are
+    those the CPU route test expects (K1 at the 64/128-wide stages, K4 once
+    at C = 128, K11 three times, K2, and the six deep blocks on K8 or K9)."""
+    from unitspeech_tpu_torch.models import unet as tunet
+
+    rng = np.random.default_rng(64)
+    t = 64
+    flags = dict(use_kernels=True, use_int8_deep=True, use_deep=True, use_resample=True,
+                 use_i8pre_deep=i8pre)
+    with dev:
+        est = tunet.GradLogPEstimator2d(**DIM64, dtype=torch.bfloat16, **flags)
+    est.load_state_dict(_estimator_sd(tunet, rng, est))
+    wrappers = {"fused_resnet_block": fused_resnet.fused_resnet_block,
+                "fused_resnet_block_deep": fused_resnet_deep.fused_resnet_block_deep,
+                "fused_resnet_block_deep_i8": fused_resnet_deep.fused_resnet_block_deep_i8,
+                "fused_final_block": fused_resnet.fused_final_block,
+                "fused_rezero_attention": fused_attention.fused_rezero_attention,
+                "fused_downsample_conv": resample.fused_downsample_conv,
+                "fused_upsample_conv": resample.fused_upsample_conv}
+    before = {k: w.launches for k, w in wrappers.items()}
+    x, mu = _rand(rng, dev, 3, t, 80), _rand(rng, dev, 3, t, 80)
+    mask = _mask(dev, t, [t, 41, t])[:, :, 0, 0]
+    spk = _rand(rng, dev, 3, 256, scale=1 / 16)
+    with torch.no_grad():
+        out = est(x, mask, mu, torch.tensor([0.7, 0.4, 0.2], device=dev), spk)
+    torch.cuda.synchronize()
+    launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+    print(f"kernels launched at decoder.dim 64 ({'deep_i8' if i8pre else 'deep'}): {launched}")
+    assert out.shape == (3, t, 80) and torch.isfinite(out).all()
+    deep = 6 if not i8pre else 0
+    assert launched == {"fused_resnet_block": 6, "fused_resnet_block_deep": deep,
+                        "fused_resnet_block_deep_i8": 6 - deep, "fused_final_block": 1,
+                        "fused_rezero_attention": 1, "fused_downsample_conv": 2,
+                        "fused_upsample_conv": 1}
+
+
+@pytest.mark.cuda
+def test_cli_inference_dim64(dev, tmp_path):
+    """`cli inference` with decoder.dim 64 serves on the card, with the
+    serving defaults and with --deep --i8pre --resample (2 DDPM steps)."""
+    import json
+    import wave
+
+    from unitspeech_tpu_torch import cli
+
+    cfg = tmp_path / "dim64.json"
+    cfg.write_text(json.dumps({"decoder": {"dim": 64}}))
+    ckpt = str(tmp_path / "ckpt.pt")
+    assert cli.main(["make-random-checkpoint", "--seed", "1", "--config", str(cfg),
+                     "--output", ckpt]) == 0
+    for flags in ([], ["--deep", "--i8pre", "--resample"]):
+        out = str(tmp_path / "out.wav")
+        stats = cli.main_inference(["--ipa", "--text", "həloʊ wɜːld", "--checkpoint", ckpt,
+                                    "--output", out, "--device", "cuda", "--diffusion-steps",
+                                    "2", *flags])
+        with wave.open(out, "rb") as w:
+            n = w.getnframes()
+            pcm = np.frombuffer(w.readframes(n), np.int16)
+        assert n > 0 and np.any(pcm) and stats["kernels"]
+
+
+@pytest.mark.cuda
+def test_weight_update_repacks_on_load(dev):
+    """The packed K1 / K8 / K11 weights are made by load_state_dict: a
+    weight update loaded again re-packs them, and the estimator then gives
+    what a fresh estimator with the new weights gives, bit for bit."""
+    from unitspeech_tpu_torch.models import unet as tunet
+
+    rng = np.random.default_rng(7)
+    flags = dict(use_kernels=True, use_deep=True, use_resample=True)
+    with dev:
+        est = tunet.GradLogPEstimator2d(**DIM64, dtype=torch.bfloat16, **flags)
+        fresh = tunet.GradLogPEstimator2d(**DIM64, dtype=torch.bfloat16, **flags)
+    sd = _estimator_sd(tunet, rng, est)
+    est.load_state_dict(sd)
+    old = (est.down_1_res1.packed[0].clone(), est.mid_res1.packed[1].clone(),
+           est.down_0_down.packed.clone(), est.final_packed.clone())
+    for k in ("down_1_res1.block1.conv.kernel", "mid_res1.block2.conv.kernel",
+              "down_0_down.conv.kernel", "final_block.conv.kernel"):
+        sd[k] = sd[k] * -1.5
+    est.load_state_dict(sd)
+    fresh.load_state_dict(sd)
+    new = (est.down_1_res1.packed[0], est.mid_res1.packed[1], est.down_0_down.packed,
+           est.final_packed)
+    assert not any(torch.equal(a, b) for a, b in zip(old, new))
+    assert torch.equal(new[0], fused_resnet.pack_conv_weight(
+        est.down_1_res1.block1.conv.kernel))
+    t = 32
+    x, mu = _rand(rng, dev, 2, t, 80), _rand(rng, dev, 2, t, 80)
+    mask = _mask(dev, t, [t, 19])[:, :, 0, 0]
+    args = (x, mask, mu, torch.tensor([0.6, 0.3], device=dev), _rand(rng, dev, 2, 256))
+    with torch.no_grad():
+        assert torch.equal(est(*args), fresh(*args))

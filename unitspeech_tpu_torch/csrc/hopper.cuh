@@ -1,7 +1,18 @@
 // Hopper (sm_90a) building blocks for the port's kernels: mbarriers, bulk
-// copies (cp.async.bulk, the TMA engine's non-tensor form) and warpgroup
-// products (wgmma) with A from registers and B from shared memory through
-// a descriptor.
+// copies (cp.async.bulk, the TMA engine's non-tensor form), 4-D tensor
+// copies (TMA) of channels-last activations, warpgroup products (wgmma)
+// with A from registers and B from shared memory through a descriptor, and
+// the box + weight-ring pipeline that the conv kernels (csrc/resample.cu,
+// csrc/resnet_block.cu) build on:
+//   * per 64-channel chunk, one TMA copy brings the input box that a 2-D
+//     row tile's taps reach, in the 128-byte swizzle (16-byte piece j of
+//     box row R at piece j ^ (R % 8)), zero outside the tensor;
+//   * one producer warp streams the weights, packed once at load into
+//     K-major BN x 64 tiles in the same swizzle, through a ring of stages
+//     under full/empty mbarriers;
+//   * the consumers load A fragments from the box with ldmatrix (the row
+//     addresses carry the tap's shift; a lane whose row has no input reads
+//     a zero row) and run wgmma m64nBNk16 with B by descriptor.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (the type only: the library links the CUDA runtime alone)
@@ -163,3 +174,137 @@ template <> struct WgmmaRS<256> {
   }
 };
 #undef F8
+
+// --- the box + weight-ring pipeline ------------------------------------------
+
+constexpr int KC = 64;               // channels per chunk: one 128-byte row of a tile
+constexpr int SMEM_MAX = 232448;     // dynamic shared memory a block may ask for
+constexpr int SMEM_PER_SM = 233472;  // the SM's 228 KB
+
+US_DEV void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+US_DEV void bar_sync_named(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The dynamic shared memory, 1024-byte aligned (the swizzled tiles' base).
+US_DEV uint8_t* smem_base() {
+  extern __shared__ uint8_t smem_raw[];
+  return smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+}
+
+// Half of one 64-channel chunk at one tap: the A fragments of k16 steps
+// kk0 and kk0 + 1 from box row `row` (128 bytes in the 128-byte swizzle:
+// 16-byte chunk j of row R at j ^ (R % 8); rx = R % 8), this lane's k half
+// `hi`. A lane whose row has no input reads the zero row (rx = 0). Channels
+// past Cin read as zero (the copy fills them) and meet zero weight rows, so
+// every chunk takes all four steps.
+US_DEV void load_half(uint32_t (&a)[2][4], uint32_t row, uint32_t rx, uint32_t hi, int kk0) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) ldsm_x4(a[j], row + ((((2 * (kk0 + j) + hi) ^ rx) & 7) << 4));
+}
+
+// Their two products on the warpgroup's accumulator, committed as a group.
+template <int BN>
+US_DEV void mma_half(float (&acc)[BN / 2], const uint32_t (&a)[2][4], uint64_t desc, int kk0) {
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 2; ++j) WgmmaRS<BN>::mma(acc, a[j], desc + 2 * (kk0 + j));
+  wgmma_commit();
+}
+
+// Lane 0 of each consumer warp arrives once the warp is done with a slot.
+US_DEV void release(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+// The producer warp: for each of n_chunks chunks, n_stages weight stages of
+// stage_bytes (src_stride bytes apart from wsrc on) into a ring of n_ring
+// slots, and one input box (a TMA copy of the chunk's 64 channels at
+// frequencies fi0 .., frames ti0 .., batch element bz; box_tx bytes) into nb
+// slots of box_bytes. With three slots or more the next chunk's box goes out
+// before a chunk's first stage, a whole chunk ahead of its use; with fewer a
+// chunk's box goes out before its stage `box_at`, so that its first weight
+// stages are in flight while the previous chunk ends (PERF.md: the third
+// slot is worth it where it costs no blocks an SM).
+US_DEV void produce_ring(const CUtensorMap* xmap, uint8_t* ring, uint8_t* box, uint64_t* w_full,
+                         uint64_t* w_empty, uint64_t* x_full, uint64_t* x_empty, int n_ring,
+                         int n_stages, int stage_bytes, int src_stride, int nb, int box_bytes,
+                         int box_tx, int n_chunks, const bf16* wsrc, int fi0, int ti0, int bz) {
+  const int lane = threadIdx.x & 31;
+  const int box_at = min(n_ring - 1, n_stages - 1);
+  const bool lead = nb >= 3;
+  int ws = 0, xs = 0;
+  uint32_t wph = 0, xph = 0;
+  auto issue_box = [&](int c) {
+    mbar_wait(&x_empty[xs], xph ^ 1);
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&x_full[xs], box_tx);
+      tma_load_4d(box + xs * box_bytes, xmap, c * KC, fi0, ti0, bz, &x_full[xs]);
+    }
+    __syncwarp();
+    if (++xs == nb) xs = 0, xph ^= 1;
+  };
+  if (lead) issue_box(0);
+  for (int c = 0; c < n_chunks; ++c) {
+    for (int s = 0; s < n_stages; ++s) {
+      if (lead ? s == 0 && c + 1 < n_chunks : s == box_at) issue_box(lead ? c + 1 : c);
+      mbar_wait(&w_empty[ws], wph ^ 1);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&w_full[ws], stage_bytes);
+        bulk_g2s(ring + ws * stage_bytes,
+                 reinterpret_cast<const uint8_t*>(wsrc) + (size_t)(c * n_stages + s) * src_stride,
+                 stage_bytes, &w_full[ws]);
+      }
+      __syncwarp();
+      if (++ws == n_ring) ws = 0, wph ^= 1;
+    }
+  }
+}
+
+// --- tensor maps (host side) ----------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query (the library links the CUDA runtime alone).
+static inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// x (B, T, F, C) bf16, channels last, as a 4-D tensor map with box (64
+// channels, box_f frequencies, box_t frames, 1) in the 128-byte swizzle;
+// C % 8 == 0 (16-byte strides). Returns 0 on success.
+static inline int x_tensor_map(CUtensorMap* map, const void* x, int B, int T, int F, int C,
+                               int box_t, int box_f) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)F, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)F * C * 2,
+                                 (cuuint64_t)T * F * C * 2};
+  const cuuint32_t box[4] = {KC, (cuuint32_t)box_f, (cuuint32_t)box_t, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
+                   box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+static inline int round_up(int v, int m) { return (v + m - 1) / m * m; }

@@ -49,22 +49,23 @@
 //     memory and writes whole output rows with 16-byte stores.
 // K11a: one consumer warpgroup (64 output rows x BN) and the producer warp,
 // 160 threads; a ring of 3 weight tiles of BN x 64; the box of
-// (2 TT + 1) x (2 TF + 1) input rows in 1 or 2 slots (two when the block
-// holds an SM alone anyway). K11b: two consumer warpgroups, one per time
+// (2 TT + 1) x (2 TF + 1) input rows in 1 to 3 slots (the most that keep
+// the blocks an SM of one slot; with three each box goes out a chunk ahead,
+// hopper.cuh produce_ring). K11b: two consumer warpgroups, one per time
 // phase a, each computing both frequency phases (a, b) of the tile's 64
 // input positions (two 64 x BN accumulators), and the producer warp, 288
 // threads; a ring of 2 stages of the four phases' BN x 64 tiles; the box of
-// (TT + 2) x (TF + 2) input rows in 2 slots; the epilogue interleaves the
+// (TT + 2) x (TF + 2) input rows in slots chosen as K11a's; the epilogue interleaves the
 // phases so that output frames 2 mt and 2 mt + 1 go out as runs of 2 TF
 // whole rows.
 // At the sites (us_resample_plan; chip_smoke.py prints them):
-//   D1: 8 x 8 rows, BN 128, 330 blocks, 88 272 B of shared memory, one box
-//       slot, two blocks an SM;
-//   D2: 16 x 4 rows, BN 256, 90 blocks, 177 360 B, two box slots, one block
-//       an SM (90 of the 132 SMs; clusters of 2 or 4 blocks sharing each
-//       weight stage by multicast measured 2-3x slower, PERF.md);
-//   U:  8 x 8 positions (256 output rows), BN 128, 330 blocks, 158 912 B,
-//       two box slots, one block an SM.
+//   D1: 8 x 8 rows, BN 128, 330 blocks, 88 288 B of shared memory, one box
+//       slot, two blocks an SM (three slots, one block an SM: 9% slower);
+//   D2: 16 x 4 rows, BN 256, 90 blocks, 216 288 B, three box slots, one
+//       block an SM (90 of the 132 SMs; clusters of 2 or 4 blocks sharing
+//       each weight stage by multicast measured 2-3x slower, PERF.md);
+//   U:  8 x 8 positions (256 output rows), BN 128, 330 blocks, 172 240 B,
+//       three box slots, one block an SM (two slots: 1-4% slower at D2, U).
 // nvcc -Xptxas -v (CUDA 12.8, sm_90a, on the H100 machine): downsample_conv
 // BN 64 / 128 / 256 127 / 165 / 222 registers, no spills; upsample_conv
 // BN 64 / 128 133 / 168 registers, the latter with 16 bytes of spill
@@ -74,11 +75,8 @@
 
 namespace {
 
-constexpr int KC = 64;  // channels per chunk: one 128-byte row of a tile
 constexpr int DOWN_STAGES = 3, UP_STAGES = 2;  // weight ring depths
 constexpr int DOWN_THREADS = 160, UP_THREADS = 288;
-constexpr int SMEM_MAX = 232448;     // dynamic shared memory a block may ask for
-constexpr int SMEM_PER_SM = 233472;  // the SM's 228 KB
 
 struct RsArgs {
   const bf16* w;      // packed tiles (see the header)
@@ -89,85 +87,6 @@ struct RsArgs {
   int tt, tf, lg_tf, tiles_f;  // the row tile
   int n_chunks, nb, stage_bytes, box_bytes;
 };
-
-US_DEV void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-US_DEV void bar_sync_named(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// The dynamic shared memory, 1024-byte aligned (the swizzled tiles' base).
-US_DEV uint8_t* smem_base() {
-  extern __shared__ uint8_t smem_raw[];
-  return smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-}
-
-// Half of one 64-channel chunk at one tap: the A fragments of k16 steps
-// kk0 and kk0 + 1 from box row `row` (128 bytes in the 128-byte swizzle:
-// 16-byte chunk j of row R at j ^ (R % 8); rx = R % 8), this lane's k half
-// `hi`. A lane whose row lies outside the grid or at/after the length reads
-// the zero row (rx = 0). Channels past Cin read as zero (the copy fills
-// them) and meet zero weight rows, so every chunk takes all four steps.
-US_DEV void load_half(uint32_t (&a)[2][4], uint32_t row, uint32_t rx, uint32_t hi, int kk0) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j) ldsm_x4(a[j], row + ((((2 * (kk0 + j) + hi) ^ rx) & 7) << 4));
-}
-
-// Their two products on the warpgroup's accumulator, committed as a group.
-template <int BN>
-US_DEV void mma_half(float (&acc)[BN / 2], const uint32_t (&a)[2][4], uint64_t desc, int kk0) {
-  wgmma_fence();
-#pragma unroll
-  for (int j = 0; j < 2; ++j) WgmmaRS<BN>::mma(acc, a[j], desc + 2 * (kk0 + j));
-  wgmma_commit();
-}
-
-// Lane 0 of each consumer warp arrives once the warp is done with a slot.
-US_DEV void release(uint64_t* bar) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
-}
-
-// The producer warp: stream the packed weight stages (n_stages per chunk)
-// and one input box per chunk (one TMA copy of frames ti0 .. ti0 + bt_n - 1,
-// frequencies fi0 .. fi0 + bf_n - 1, the chunk's 64 channels; outside the
-// tensor it reads zero). The box goes out before stage `box_at`, so that the
-// first weight stages of a chunk are in flight while the previous chunk ends.
-US_DEV void produce(const RsArgs& p, const CUtensorMap* xmap, uint8_t* ring, uint8_t* box,
-                    uint64_t* w_full, uint64_t* w_empty, uint64_t* x_full, uint64_t* x_empty,
-                    int n_ring, int n_stages, const bf16* wsrc, int ti0, int fi0, int bt_n,
-                    int bf_n) {
-  const int lane = threadIdx.x & 31;
-  const int box_at = min(n_ring - 1, n_stages - 1);
-  int ws = 0, xs = 0;
-  uint32_t wph = 0, xph = 0;
-  for (int c = 0; c < p.n_chunks; ++c) {
-    for (int s = 0; s < n_stages; ++s) {
-      if (s == box_at) {
-        mbar_wait(&x_empty[xs], xph ^ 1);
-        if (lane == 0) {
-          mbar_arrive_expect_tx(&x_full[xs], bt_n * bf_n * KC * 2);
-          tma_load_4d(box + xs * p.box_bytes, xmap, c * KC, fi0, ti0, blockIdx.z, &x_full[xs]);
-        }
-        __syncwarp();
-        if (++xs == p.nb) xs = 0, xph ^= 1;
-      }
-      mbar_wait(&w_empty[ws], wph ^ 1);
-      if (lane == 0) {
-        mbar_arrive_expect_tx(&w_full[ws], p.stage_bytes);
-        bulk_g2s(ring + ws * p.stage_bytes,
-                 reinterpret_cast<const uint8_t*>(wsrc) + (size_t)(c * n_stages + s) * p.stage_bytes,
-                 p.stage_bytes, &w_full[ws]);
-      }
-      __syncwarp();
-      if (++ws == n_ring) ws = 0, wph ^= 1;
-    }
-  }
-}
 
 // Store a 64 x BN warpgroup accumulator plus bias as bf16 into the staging
 // tile: fragment row i of warp `wl` goes to staging row row_of(i).
@@ -201,7 +120,7 @@ struct Smem {
     w_full = reinterpret_cast<uint64_t*>(zero + 128);
     w_empty = w_full + stages;
     x_full = w_empty + stages;
-    x_empty = x_full + 2;
+    x_empty = x_full + 3;
   }
   // each consumer warp arrives once on a slot it is done with
   US_DEV void init(const RsArgs& p, int stages, int consumer_warps) {
@@ -234,8 +153,10 @@ __global__ void __launch_bounds__(DOWN_THREADS, 1)
   sm.init(p, S, 4);
 
   if (warp == 4) {
-    produce(p, &xmap, sm.ring, sm.box, sm.w_full, sm.w_empty, sm.x_full, sm.x_empty, S, 9,
-            p.w + (size_t)blockIdx.y * p.n_chunks * 9 * BN * KC, ti0, fi0, 2 * p.tt + 1, BF);
+    produce_ring(&xmap, sm.ring, sm.box, sm.w_full, sm.w_empty, sm.x_full, sm.x_empty, S, 9,
+                 p.stage_bytes, p.stage_bytes, p.nb, p.box_bytes, (2 * p.tt + 1) * BF * KC * 2,
+                 p.n_chunks, p.w + (size_t)blockIdx.y * p.n_chunks * 9 * BN * KC, fi0, ti0,
+                 blockIdx.z);
   } else {
     float acc[BN / 2];
 #pragma unroll
@@ -312,8 +233,10 @@ __global__ void __launch_bounds__(UP_THREADS, 1)
   sm.init(p, S, 8);
 
   if (warp == 8) {
-    produce(p, &xmap, sm.ring, sm.box, sm.w_full, sm.w_empty, sm.x_full, sm.x_empty, S, 4,
-            p.w + (size_t)blockIdx.y * p.n_chunks * 16 * BN * KC, ti0, fi0, p.tt + 2, BF);
+    produce_ring(&xmap, sm.ring, sm.box, sm.w_full, sm.w_empty, sm.x_full, sm.x_empty, S, 4,
+                 p.stage_bytes, p.stage_bytes, p.nb, p.box_bytes, (p.tt + 2) * BF * KC * 2,
+                 p.n_chunks, p.w + (size_t)blockIdx.y * p.n_chunks * 16 * BN * KC, fi0, ti0,
+                 blockIdx.z);
   } else {
     const int pa = warp >> 2, wl = warp & 3;
     float acc0[BN / 2], acc1[BN / 2];
@@ -404,8 +327,6 @@ int pick_tf(int n) {
   return 1;
 }
 
-int round_up(int v, int m) { return (v + m - 1) / m * m; }
-
 // The Cout tiles the kernels are built for: 64 to 256 columns in the
 // downsample, 64 or 128 in the upsample (two accumulators a thread).
 bool bn_ok(bool up, int bn, int Cout) {
@@ -431,57 +352,23 @@ Plan make_plan(bool up, int B, int T, int F, int Cin, int Cout, int bn) {
   pl.threads = up ? UP_THREADS : DOWN_THREADS;
   const int stages = up ? UP_STAGES : DOWN_STAGES;
   auto smem_of = [&](int nb) {
-    return 1024 + stages * a.stage_bytes + nb * a.box_bytes + 128 + (2 * stages + 4) * 8;
+    return 1024 + stages * a.stage_bytes + nb * a.box_bytes + 128 + (2 * stages + 6) * 8;
   };
-  // two box slots unless one slot lets two blocks share an SM
+  // the most box slots (three at most) that keep the blocks an SM of one
   auto per_sm = [](int s) { return SMEM_PER_SM / (s + 1024); };
-  a.nb = (smem_of(2) <= SMEM_MAX && per_sm(smem_of(2)) >= per_sm(smem_of(1))) ? 2 : 1;
+  a.nb = 1;
+  for (int nb = 3; nb > 1 && a.nb == 1; --nb)
+    if (smem_of(nb) <= SMEM_MAX && per_sm(smem_of(nb)) >= per_sm(smem_of(1))) a.nb = nb;
   pl.smem = smem_of(a.nb);
   pl.grid = dim3(((rows_t + a.tt - 1) / a.tt) * a.tiles_f, Cout / pl.bn, B);
   return pl;
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
-// query (the library links the CUDA runtime alone).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
-}
-
-// x (B, T, F, Cin) bf16 as a 4-D tensor map, box (64 channels, box_f
-// frequencies, box_t frames, 1) in the 128-byte swizzle; 0 on success.
-int x_tensor_map(CUtensorMap* map, const void* x, int B, int T, int F, int Cin, const Plan& pl) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)Cin, (cuuint64_t)F, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)Cin * 2, (cuuint64_t)F * Cin * 2,
-                                 (cuuint64_t)T * F * Cin * 2};
-  const cuuint32_t box[4] = {KC, (cuuint32_t)pl.box_f, (cuuint32_t)pl.box_t, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
-                   box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 template <class K>
 int launch(K kernel, const Plan& pl, const void* x, int B, int Cin, cudaStream_t stream) {
   if (pl.smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   CUtensorMap xmap;
-  int err = x_tensor_map(&xmap, x, B, pl.a.T, pl.a.F, Cin, pl);
+  int err = x_tensor_map(&xmap, x, B, pl.a.T, pl.a.F, Cin, pl.box_t, pl.box_f);
   if (err) return err;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);

@@ -10,55 +10,91 @@
 // probes them.
 //
 // Layout: rows n = t*F + f of one batch element, channels last, bf16.
-// conv3x3 is an implicit GEMM: M = rows, N = Cout, K = 9*Cin with the
-// weight read as w.reshape(9*Cin, Cout) (tap order (dt, df) row-major). A
-// +-1 shift that leaves the (T, F) grid reads zero, so no tap wraps into the
-// neighbouring frame.
+// conv3x3 is an implicit GEMM: M = rows, N = Cout, K = 9*Cin (tap order
+// (dt, df) row-major). A +-1 shift that leaves the (T, F) grid reads zero,
+// so no tap wraps into the neighbouring frame.
 //
-// What bounds it on the H100: at the F=80/40 stages each conv is
-// 12-24 GFLOP per estimator call against 7-21 MB of activations, so the
-// tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate) carry the
-// products and everything around them (bias, GroupNorm statistics,
-// GN-apply + mish + FiLM + mask of the next conv's input, the residual) is
-// fused into the GEMM's loaders and epilogues: the block reads its input
-// once, writes c1 and c2 once each, and re-reads them once.
+// Numbers (JAX's): bf16 products, an f32 accumulator plus the f32 bias,
+// one rounding to bf16; GroupNorm statistics from the f32 values over every
+// row of the padded bucket, rows at/after the length included
+// (pallas_resnet.py:28-32), reduced in a fixed order (deterministic); input
+// rows at/after the length read as zero.
 //
-// K8, the deep stages (F = 20/10, C = 512-2048): the TPU kernel holds the
-// whole layer in VMEM, pads rows to 8 and moves conv1 (for cin > cout) and
-// the 1x1 residual out of the kernel, all to suit Mosaic. None of that
-// carries over. On Hopper the same tiled implicit GEMM serves: the
-// activation (< 4 MB) stays in the 50 MB L2 between tiles, the kernel-B
-// transform table sits in dynamic shared memory (5 * Cin floats, 20 KB at
-// C = 1024), and the numbers are K1's: statistics over exactly the T*F rows
-// of the bucket, the residual an f32 sum of bf16 products rounded once with
-// the rest. Each deep conv is 12-24 GFLOP (3 rows at the 344-frame bucket)
-// against weights of 4.7-19 MB, so the tensor cores bound it; with 430 or
-// 1720 rows a batch element the 128 x 64 tiles give 96-336 blocks, about a
-// wave or two on 132 SMs (untuned).
+// One block is five launches: kernel A (conv1 + bias -> c1 and per-tile
+// column sums and sums of squares), gn_film (GroupNorm-1 statistics, then
+// h = bf16(mish(GN1(c1) * scale + shift) + FiLM) * valid once per element,
+// in place of c1), kernel B (kernel A on h), gn_finalize (GroupNorm-2
+// statistics) and kernel C (mish(GN2(c2)) * valid plus the residual: the
+// 1x1 conv on the same main loop with one tap, or x itself elementwise).
+// JAX rounds h to bf16 once (_kernel_b); the transform used to run in kernel
+// B's loader for each of the 9 taps and again for every Cout tile of the
+// grid (144 mish evaluations per element at 1024 -> 1024): gn_film gives
+// the same bf16 value once. Each gn_film block reduces its group's tile
+// statistics itself, in gn_finalize's order, so the launch count stays.
+// (Kernel B transforming each box in shared memory once it lands gave the
+// same bits and was slower at every stage: PERF.md.)
 //
-// No state is carried across blocks: every 128-row tile writes its column
-// sum and sum of squares to a scratch buffer, and gn_finalize reduces the
-// tiles in a fixed order, so the statistics are deterministic. Statistics
-// pool over every row of the padded bucket, padding rows included
-// (torch GroupNorm semantics, pallas_resnet.py:28-32).
-#include "common.cuh"
+// What bounds the convs on the H100: at 3 rows of the 344-frame bucket each
+// is 1.6-24 GFLOP (1.6-25 us at 989 TFLOP/s) against 2-19 MB of weights and
+// activations (0.6-6 us at 3.35 TB/s): the tensor cores. The main loop
+// (conv_tc) is Hopper's: a block owns a 2-D row tile of TT frames x TF
+// frequencies (at most 128 rows, conv_plan) and BN = 128 (or 64) output
+// columns; two consumer warpgroups of 64 rows each run wgmma m64nBNk16 with
+// A from registers, one producer warp feeds them (csrc/hopper.cuh):
+//   * per 64-channel chunk one 4-D TMA copy brings the (TT+2) x (TF+2) box
+//     the tile's 9 taps reach, in the 128-byte swizzle; its zero fill does
+//     frames and frequencies -1, T, F and channels past Cin; rows at/after
+//     the length go to a zero row through the ldmatrix address. Shifted rows
+//     of a padded box form no canonical wgmma layout, so A comes from
+//     registers (the ldmatrix fragment is wgmma's A fragment). Three box
+//     slots let each box go out a whole chunk ahead of its use (two slots,
+//     the box issued just ahead of its chunk's stages: 11% slower);
+//   * B comes from a ring of 4 weight stages (one BN x 64 tile per tap and
+//     chunk, packed once at load by ops/fused_resnet.py pack_conv_weight,
+//     K-major in the same swizzle) kept full by bulk copies under full/empty
+//     mbarriers; both warpgroups read each stage, so it crosses from L2
+//     once per 128 rows (6 or 8 stages: no faster);
+//   * the epilogue adds the bias, stages the f32 tile in shared memory,
+//     writes whole 16-byte row pieces (one rounding) and the tile's column
+//     sums and sums of squares (kernel C: GN2-apply + mish + mask of c2 plus
+//     the residual, rounded once).
+// The tile (conv_plan; chip_smoke.py prints it per site): TF divides F,
+// TT = min(128 / TF, T), the fewest tiles first, then the smallest box: at
+// F = 80 8 x 16 (a box of 10 x 18 rows), F = 40 16 x 8, F = 20 6 x 20 (8 x
+// 22), F = 10 12 x 10 (14 x 12). The 1x1 residual takes rows 128 at a time
+// (F = 1, no halo). One block an SM (288 threads; 130 registers a thread at
+// BN = 128, no spills): at F = 10 and 430 rows a batch element a 1024-wide
+// conv gives 4 x 8 x 3 = 96 blocks on 132 SMs, each re-reading its 2.4 MB
+// of weight tiles from L2. Where 128-column tiles would leave more than half
+// the SMs idle (the F = 10 convs to 512 channels: 48 blocks) the launch
+// takes 64 columns of the 128-column packing (96 blocks; a stage is a slice
+// of the packed one, as the swizzle repeats every 8 rows). Measured and
+// dropped (PERF.md): 64-column tiles elsewhere, four k16 steps a commit
+// group, a persistent grid, and at F = 10 clusters of 2 blocks that share
+// each weight stage by multicast (half the L2 weight reads; 2.0-2.5x
+// slower).
+//
+// Cin % 8 != 0 (the estimator's first block, Cin = 2: rows of 4 bytes
+// cannot be a TMA tensor) keeps the element-load implicit GEMM on mma.sync
+// (conv_gemm, common.cuh igemm_bf16, 128 x 64 tiles of whole rows) for
+// conv1 and its 1x1 residual, with the raw (taps*Cin, Cout) bf16 weights;
+// so do K10's raw-weight entry points (us_resnet_conv3x3_rows,
+// us_resnet_out_rows). Its GEMM is 0.4 GFLOP a call.
+#include <algorithm>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = IG_BM, BN = IG_BN, BK = IG_BK;
-constexpr int NTHREADS = IG_THREADS;
+// --- element loads on mma.sync (Cin % 8 != 0, and K10) ---------------------
+
+constexpr int EL_BM = IG_BM, EL_BN = IG_BN, EL_BK = IG_BK;
 
 struct ConvArgs {
   const bf16* x;       // (B, N, Cin)
   const bf16* w;       // (taps*Cin, Cout)
   const float* bias;   // (Cout)
   const int* lens;     // (B) valid rows; input rows at/after it read zero
-  // kernel B input transform: h = mish(GN(x) * scale + shift) + film
-  const float* in_mean;   // (B, Cin)
-  const float* in_inv;    // (B, Cin)
-  const float* in_scale;  // (Cin)
-  const float* in_shift;  // (Cin)
-  const bf16* film;       // (B, Cin)
   // kernel C epilogue: out = mish(GN(c2))*valid + (acc + bias)*valid
   const bf16* c2;         // (B, N, Cout)
   const float* o_mean;    // (B, Cout)
@@ -80,54 +116,32 @@ __device__ __forceinline__ int source_row(int m, int tap, int T, int F) {
   return tt * F + ff;
 }
 
-// TAPS: 9 (conv3x3) or 1 (1x1 residual). XFORM: GN-apply the input on load
-// (kernel B); its per-channel table (mean, inv, scale, shift, film: 5 * Cin
-// floats) lives in dynamic shared memory, so Cin is not capped. EPI: 0
-// writes bias-added output + tile statistics (kernels A, B); 1 writes the
-// ResnetBlock output with the 1x1 residual (kernel C). VEC: Cin % 8 == 0,
-// 16-byte loads; otherwise element loads (Cin = 2).
-template <int TAPS, bool XFORM, int EPI, bool VEC>
-__global__ void __launch_bounds__(NTHREADS) conv_gemm(ConvArgs p) {
+// TAPS: 9 (conv3x3) or 1 (1x1 residual). EPI: 0 writes bias-added output +
+// tile statistics (kernel A); 1 writes the ResnetBlock output with the 1x1
+// residual (kernel C). VEC: Cin % 8 == 0, 16-byte loads; otherwise element
+// loads (Cin = 2).
+template <int TAPS, int EPI, bool VEC>
+__global__ void __launch_bounds__(IG_THREADS) conv_gemm(ConvArgs p) {
   __shared__ IgemmTiles tiles;
-  __shared__ float red[4][2][BN];
-  extern __shared__ float xf[];
+  __shared__ float red[4][2][EL_BN];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 1, wn = warp & 1;
-  const int mt = blockIdx.x, n0 = blockIdx.y * BN, b = blockIdx.z;
-  const int m0 = mt * BM;
+  const int mt = blockIdx.x, n0 = blockIdx.y * EL_BN, b = blockIdx.z;
+  const int m0 = mt * EL_BM;
   const int N = p.N, F = p.F, Cin = p.Cin, Cout = p.Cout;
   const int T = N / F;
   const int len = p.lens[b];
   const int K = TAPS * Cin;
-  const int nk = (K + BK - 1) / BK;
+  const int nk = (K + EL_BK - 1) / EL_BK;
   const bf16* xb = p.x + (size_t)b * N * Cin;
-
-  if (XFORM) {
-    for (int c = tid; c < Cin; c += NTHREADS) {
-      xf[c] = p.in_mean[b * Cin + c];
-      xf[Cin + c] = p.in_inv[b * Cin + c];
-      xf[2 * Cin + c] = p.in_scale[c];
-      xf[3 * Cin + c] = p.in_shift[c];
-      xf[4 * Cin + c] = __bfloat162float(p.film[b * Cin + c]);
-    }
-    __syncthreads();
-  }
-
-  // kernel B's conv input, one element: the JAX kernel rounds it to bf16
-  // after GN-apply, mish, FiLM and the (already applied) row mask
-  auto xform = [&](float v, int ci) -> float {
-    float h = (v - xf[ci]) * xf[Cin + ci];
-    h = h * xf[2 * Cin + ci] + xf[3 * Cin + ci];
-    return mish_f32(h) + xf[4 * Cin + ci];
-  };
 
   auto load_a = [&](int kb, uint4 (&reg)[2]) {
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
-      int v = tid + s * NTHREADS;
+      int v = tid + s * IG_THREADS;
       int m = m0 + (v >> 2);
-      int k = kb * BK + (v & 3) * 8;
+      int k = kb * EL_BK + (v & 3) * 8;
       reg[s] = make_uint4(0, 0, 0, 0);
       if (m >= N) continue;
       if (VEC) {
@@ -135,16 +149,7 @@ __global__ void __launch_bounds__(NTHREADS) conv_gemm(ConvArgs p) {
         int tap = k / Cin, ci = k - tap * Cin;
         int src = source_row<TAPS>(m, tap, T, F);
         if (src < 0 || src >= len) continue;
-        const bf16* ptr = xb + (size_t)src * Cin + ci;
-        if (XFORM) {
-          float vals[8];
-          load8(ptr, vals);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) vals[e] = xform(vals[e], ci + e);
-          store8(reinterpret_cast<bf16*>(&reg[s]), vals);
-        } else {
-          reg[s] = *reinterpret_cast<const uint4*>(ptr);
-        }
+        reg[s] = *reinterpret_cast<const uint4*>(xb + (size_t)src * Cin + ci);
       } else {
         bf16* r = reinterpret_cast<bf16*>(&reg[s]);
 #pragma unroll
@@ -154,16 +159,14 @@ __global__ void __launch_bounds__(NTHREADS) conv_gemm(ConvArgs p) {
           int tap = ke / Cin, ci = ke - tap * Cin;
           int src = source_row<TAPS>(m, tap, T, F);
           if (src < 0 || src >= len) continue;
-          bf16 val = xb[(size_t)src * Cin + ci];
-          if (XFORM) val = __float2bfloat16(xform(__bfloat162float(val), ci));
-          r[e] = val;
+          r[e] = xb[(size_t)src * Cin + ci];
         }
       }
     }
   };
 
   auto load_b = [&](int kb) -> uint4 {
-    int k = kb * BK + (tid >> 3);
+    int k = kb * EL_BK + (tid >> 3);
     if (k >= K) return make_uint4(0, 0, 0, 0);
     return *reinterpret_cast<const uint4*>(p.w + (size_t)k * Cout + n0 + (tid & 7) * 8);
   };
@@ -194,13 +197,222 @@ __global__ void __launch_bounds__(NTHREADS) conv_gemm(ConvArgs p) {
   }
 }
 
-// Reduce the per-tile column statistics of one (batch, group) in a fixed
-// order and write the per-channel GroupNorm mean and inverse std.
-__global__ void __launch_bounds__(256) gn_finalize(const float* part, int n_tiles, int C,
-                                                   int groups, int n_rows, float eps,
-                                                   float* mean, float* inv) {
-  __shared__ float scratch[256];
-  const int g = blockIdx.x, b = blockIdx.y, cg = C / groups;
+// --- the Hopper main loop (Cin % 8 == 0) ------------------------------------
+
+// Kernel B's input, one element, as JAX's _kernel_b computes it before its
+// one rounding: mish((c1 - mean) * inv * scale + shift) + film, mish with
+// one exp (mish_f32), every operation rounded on its own so that no
+// contraction into fused multiply-adds depends on where it is inlined.
+US_DEV float gn_mish_film(float v, float mu, float iv, float scale, float shift, float film) {
+  const float h = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mu), iv), scale), shift);
+  const float u = __fadd_rn(1.0f, expf(fminf(h, 30.0f)));
+  const float t = __fmul_rn(u, u);
+  const float m = h > 20.0f ? h : __fmul_rn(h, __fdiv_rn(__fsub_rn(t, 1.0f), __fadd_rn(t, 1.0f)));
+  return __fadd_rn(m, film);
+}
+
+
+constexpr int TC_STAGES = 4;    // weight ring depth
+constexpr int TC_BOXES = 3;     // box slots: each box goes out a chunk ahead
+constexpr int TC_THREADS = 288; // two consumer warpgroups and the producer warp
+constexpr int TC_BM = 128;      // rows of a tile: 64 per consumer warpgroup
+
+struct TcArgs {
+  const bf16* w;        // packed tiles (Cout / BN, chunks, TAPS, BN, 64)
+  const float* bias;    // (Cout)
+  const int* lens;      // (B) valid rows; input rows at/after it read zero
+  bf16* out;            // (B, N, Cout)
+  float* part;          // EPI 0: (B, n_tiles, 2, Cout)
+  // EPI 1 (kernel C): out = mish(GN(c2)) * valid + (acc + bias) * valid
+  const bf16* c2;       // (B, N, Cout)
+  const float *o_mean, *o_inv;    // (B, Cout)
+  const float *o_scale, *o_shift; // (Cout)
+  int T, F, Cin, Cout;            // the (T, F) grid of rows, N = T * F
+  int tt, tf, tiles_f, n_tiles;   // the row tile: TT frames x TF frequencies
+  int n_chunks, stage_bytes, box_bytes, data_bytes;
+  // the packed weights: Cout tiles of `split` x BN columns, w_tile elements
+  // apart, their stages w_stride bytes apart (a BN-column stage is a slice
+  // of the packed one: the swizzle repeats every 8 rows)
+  int split, w_tile, w_stride;
+};
+
+// The conv over one tile: TAPS 9 (conv3x3, the box has a one-row halo) or
+// 1 (the 1x1 residual); BN output columns (64 or 128); EPI 0 (kernels A
+// and B: bias, one rounding, tile statistics) or 1 (kernel C). Block (row
+// tile, Cout tile, batch); warps 0-7 consume (warpgroup g: tile rows
+// 64 g .. 64 g + 63), warp 8 loads. Tile row r = (tt, ff) = (r / TF, r % TF)
+// is grid row (to0 + tt, fo0 + ff) when tt < TT and to0 + tt < T; its tap
+// (dt, df) reads box row (tt + dt) * BF + ff + df, BF = TF + 2.
+template <int TAPS, int BN, int EPI>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    conv_tc(const __grid_constant__ CUtensorMap xmap, TcArgs p) {
+  constexpr int S = TC_STAGES;
+  constexpr int HALO = TAPS == 9 ? 1 : 0;
+  uint8_t* ring = smem_base();
+  uint8_t* box = ring + S * p.stage_bytes;
+  uint8_t* zero = ring + p.data_bytes;
+  uint64_t* w_full = reinterpret_cast<uint64_t*>(zero + 128);
+  uint64_t* w_empty = w_full + S;
+  uint64_t* x_full = w_empty + S;
+  uint64_t* x_empty = x_full + TC_BOXES;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int T = p.T, F = p.F, Cout = p.Cout, N = T * F;
+  const int TT = p.tt, TF = p.tf, BF = TF + 2 * HALO;
+  const int b = blockIdx.z, n0 = blockIdx.y * BN;
+  const int tile_t = blockIdx.x / p.tiles_f, tile_f = blockIdx.x - tile_t * p.tiles_f;
+  const int to0 = tile_t * TT, fo0 = tile_f * TF;
+  const int len = p.lens[b];
+  if (tid < 8) reinterpret_cast<uint4*>(zero)[tid] = make_uint4(0, 0, 0, 0);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(&w_full[s], 1), mbar_init(&w_empty[s], 8);
+    for (int s = 0; s < TC_BOXES; ++s) mbar_init(&x_full[s], 1), mbar_init(&x_empty[s], 8);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    const bf16* wsrc = p.w + (size_t)(blockIdx.y / p.split) * p.w_tile +
+                       (blockIdx.y % p.split) * BN * KC;
+    produce_ring(&xmap, ring, box, w_full, w_empty, x_full, x_empty, S, TAPS, p.stage_bytes,
+                 p.w_stride, TC_BOXES, p.box_bytes, (TT + 2 * HALO) * BF * KC * 2, p.n_chunks,
+                 wsrc, fo0 - HALO, to0 - HALO, b);
+    return;
+  }
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  wgmma_fence_acc(acc);
+  uint32_t afr[2][2][4];  // two sets of two k16 steps' fragments
+  {
+    // this lane's ldmatrix row: which taps have input, and its box row
+    const int r = (warp >> 2) * 64 + (warp & 3) * 16 + (lane & 15);
+    const int tt = r / TF, ff = r - tt * TF;
+    const bool row_ok = tt < TT && to0 + tt < T;
+    uint32_t okm = 0;
+#pragma unroll
+    for (int tap = 0; tap < TAPS; ++tap) {
+      const int ti = to0 + tt + tap / 3 - HALO, fi = fo0 + ff + tap % 3 - HALO;
+      const bool ok = row_ok && (unsigned)ti < (unsigned)T && (unsigned)fi < (unsigned)F &&
+                      ti * F + fi < len;
+      okm |= (uint32_t)ok << tap;
+    }
+    const int R0 = tt * BF + ff;
+    const uint32_t hi = lane >> 4, zero_addr = smem_u32(zero);
+    int ws = 0, xs = 0, pend = -1;
+    uint32_t wph = 0, xph = 0;
+    for (int c = 0; c < p.n_chunks; ++c) {
+      mbar_wait(&x_full[xs], xph);
+      const uint32_t box_addr = smem_u32(box + xs * p.box_bytes);
+#pragma unroll
+      for (int tap = 0; tap < TAPS; ++tap) {
+        const int R = R0 + (tap / 3) * BF + tap % 3;
+        const bool ok = (okm >> tap) & 1;
+        const uint32_t row = ok ? box_addr + R * 128 : zero_addr, rx = ok ? R & 7 : 0;
+        // each half's fragment set was last read two groups back, which
+        // the previous wait<1> has seen complete
+        load_half(afr[0], row, rx, hi, 0);
+        mbar_wait(&w_full[ws], wph);
+        const uint64_t desc = wgmma_desc_sw128(ring + ws * p.stage_bytes);
+        mma_half<BN>(acc, afr[0], desc, 0);
+        wgmma_wait<1>();  // the previous tap's last group is done: its stage is free
+        if (pend >= 0) release(&w_empty[pend]);
+        load_half(afr[1], row, rx, hi, 2);
+        mma_half<BN>(acc, afr[1], desc, 2);
+        wgmma_wait<1>();
+        pend = ws;
+        if (++ws == S) ws = 0, wph ^= 1;
+      }
+      release(&x_empty[xs]);
+      if (++xs == TC_BOXES) xs = 0, xph ^= 1;
+    }
+    wgmma_wait<0>();
+    wgmma_fence_acc(acc);
+  }
+
+  // epilogue: the f32 tile in shared memory (over the ring and the boxes,
+  // which every product has read), then whole 16-byte row pieces
+  constexpr int LDS = BN + 4;                  // staging row stride (floats)
+  constexpr int CPR = BN / 8, RG = 256 / CPR;  // 8-column pieces a row; row groups
+  float* st = reinterpret_cast<float*>(ring);
+  bar_sync_named(1, 256);
+  {
+    const int wl = warp & 3, row0 = (warp >> 2) * 64 + wl * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = j * 8 + (lane & 3) * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(st + (row0 + 8 * h) * LDS + col) =
+            make_float2(acc[j * 4 + 2 * h], acc[j * 4 + 2 * h + 1]);
+    }
+  }
+  bar_sync_named(1, 256);
+  const int ch = tid % CPR, rg = tid / CPR, n = n0 + ch * 8;
+  float bias8[8], s8[8], q8[8], mean8[8], inv8[8], sc8[8], sh8[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    bias8[e] = __ldg(p.bias + n + e);
+    s8[e] = q8[e] = 0.f;
+    if (EPI == 1) {
+      mean8[e] = __ldg(p.o_mean + b * Cout + n + e);
+      inv8[e] = __ldg(p.o_inv + b * Cout + n + e);
+      sc8[e] = __ldg(p.o_scale + n + e);
+      sh8[e] = __ldg(p.o_shift + n + e);
+    }
+  }
+  for (int rr = rg; rr < TC_BM; rr += RG) {
+    const int tt = rr / TF, ff = rr - tt * TF, to = to0 + tt;
+    if (tt >= TT || to >= T) continue;
+    const int m = to * F + fo0 + ff;
+    const float4 a0 = *reinterpret_cast<const float4*>(st + rr * LDS + ch * 8);
+    const float4 a1 = *reinterpret_cast<const float4*>(st + rr * LDS + ch * 8 + 4);
+    float v[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const size_t o = ((size_t)b * N + m) * Cout + n;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] += bias8[e];
+    if (EPI == 0) {
+      store8(p.out + o, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s8[e] += v[e], q8[e] += v[e] * v[e];
+    } else {
+      const float valid = m < len ? 1.f : 0.f;
+      float cv[8];
+      load8(p.c2 + o, cv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        float h = (cv[e] - mean8[e]) * inv8[e];
+        h = mish_f32(h * sc8[e] + sh8[e]) * valid;
+        v[e] = h + v[e] * valid;
+      }
+      store8(p.out + o, v);
+    }
+  }
+  if (EPI == 0) {
+    // the tile's column sums: row groups summed in order (deterministic)
+    float* red = st + TC_BM * LDS;  // [2][RG][BN]
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      red[rg * BN + ch * 8 + e] = s8[e];
+      red[(RG + rg) * BN + ch * 8 + e] = q8[e];
+    }
+    bar_sync_named(1, 256);
+    if (tid < 2 * BN) {
+      const int k = tid / BN, cc = tid % BN;
+      float s = 0.f;
+      for (int g = 0; g < RG; ++g) s += red[(k * RG + g) * BN + cc];
+      p.part[(((size_t)b * p.n_tiles + blockIdx.x) * 2 + k) * Cout + n0 + cc] = s;
+    }
+  }
+}
+
+// --- GroupNorm ----------------------------------------------------------------
+
+// The GroupNorm mean and inverse std of group g of batch element b from the
+// per-tile column sums (part (B, n_tiles, 2, C)), reduced in a fixed order
+// by a block of 256 threads; every thread gets both.
+US_DEV void group_mean_inv(const float* part, int n_tiles, int C, int cg, int g, int b,
+                           int n_rows, float eps, float* scratch, float& mu, float& iv) {
   float s = 0.f, ss = 0.f;
   for (int idx = threadIdx.x; idx < n_tiles * cg; idx += blockDim.x) {
     int j = idx / cg, c = g * cg + idx % cg;
@@ -211,11 +423,60 @@ __global__ void __launch_bounds__(256) gn_finalize(const float* part, int n_tile
   s = block_sum(s, scratch);
   ss = block_sum(ss, scratch);
   float m = (float)n_rows * (float)cg;
-  float mu = s / m;
-  float iv = 1.0f / sqrtf(ss / m - mu * mu + eps);
+  mu = s / m;
+  iv = 1.0f / sqrtf(ss / m - mu * mu + eps);
+}
+
+// Write the per-channel GroupNorm mean and inverse std. Grid (groups, B).
+__global__ void __launch_bounds__(256) gn_finalize(const float* part, int n_tiles, int C,
+                                                   int groups, int n_rows, float eps,
+                                                   float* mean, float* inv) {
+  __shared__ float scratch[256];
+  const int g = blockIdx.x, b = blockIdx.y, cg = C / groups;
+  float mu, iv;
+  group_mean_inv(part, n_tiles, C, cg, g, b, n_rows, eps, scratch, mu, iv);
   for (int c = threadIdx.x; c < cg; c += blockDim.x) {
     mean[b * C + g * cg + c] = mu;
     inv[b * C + g * cg + c] = iv;
+  }
+}
+
+// gn_finalize for GroupNorm 1 fused with kernel B's input transform, once
+// per element: c1 (B, N, C) becomes h = bf16(gn_mish_film(c1)) on rows <
+// lens[b] and 0 after, in place. Grid (row chunks of `rows`, groups, B);
+// each block reduces its group's statistics itself (the same values, the
+// same order), chunk 0 writes mean / inv. (C / groups) % 8 == 0.
+__global__ void __launch_bounds__(256) gn_film(const float* part, int n_tiles, bf16* c1h,
+                                               const int* lens, const float* scale,
+                                               const float* shift, const bf16* film, int groups,
+                                               float eps, float* mean, float* inv, int N, int C,
+                                               int rows) {
+  __shared__ float scratch[256];
+  const int g = blockIdx.y, b = blockIdx.z, cg = C / groups, c_lo = g * cg;
+  float mu, iv;
+  group_mean_inv(part, n_tiles, C, cg, g, b, N, eps, scratch, mu, iv);
+  if (blockIdx.x == 0)
+    for (int c = threadIdx.x; c < cg; c += blockDim.x) {
+      mean[b * C + c_lo + c] = mu;
+      inv[b * C + c_lo + c] = iv;
+    }
+  const int len = lens[b], pieces = cg / 8;
+  const int r0 = blockIdx.x * rows, nr = min(N - r0, rows);
+  for (int idx = threadIdx.x; idx < nr * pieces; idx += blockDim.x) {
+    const int m = r0 + idx / pieces, c0 = c_lo + (idx % pieces) * 8;
+    bf16* ptr = c1h + ((size_t)b * N + m) * C + c0;
+    float v[8];
+    if (m < len) {
+      load8(ptr, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = gn_mish_film(v[e], mu, iv, scale[c0 + e], shift[c0 + e],
+                            __bfloat162float(film[b * C + c0 + e]));
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = 0.f;
+    }
+    store8(ptr, v);
   }
 }
 
@@ -298,40 +559,157 @@ ConvArgs base_args(const void* x, const void* w, const float* bias, const int* l
   return p;
 }
 
+// --- host side of the Hopper main loop ----------------------------------------
+
+struct TcPlan {
+  TcArgs a;
+  int bn, box_t, box_f, smem;
+  dim3 grid;
+};
+
+bool tc_bn_ok(int bn, int Cout) { return (bn == 64 || bn == 128) && Cout % bn == 0; }
+
+// The row tile of a (T, F) grid: TF a divisor of F, TT = min(128 / TF, T);
+// the fewest tiles, then the smallest box of (TT + 2 halo) x (TF + 2 halo).
+void pick_tile(int T, int F, int halo, int& tt, int& tf) {
+  long best_tiles = -1, best_box = 0;
+  for (int d = 1; d <= F && d <= TC_BM; ++d) {
+    if (F % d) continue;
+    const int t = std::min(TC_BM / d, T);
+    const long tiles = (long)((T + t - 1) / t) * (F / d);
+    const long boxr = (long)(t + 2 * halo) * (d + 2 * halo);
+    if (best_tiles < 0 || tiles < best_tiles || (tiles == best_tiles && boxr < best_box)) {
+      best_tiles = tiles, best_box = boxr, tt = t, tf = d;
+    }
+  }
+}
+
+int n_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+// taps 9: conv3x3 over the (T, F) grid; taps 1: the 1x1 conv over T*F rows
+// (F = 1, no halo). pack_bn: the packed weights' Cout tile; the launch takes
+// 64 columns from 128-column packing where 128 would leave more than half
+// the SMs without a block (the F = 10 convs to 512 channels: 48 blocks).
+TcPlan make_tc_plan(int taps, int B, int T, int F, int Cin, int Cout, int pack_bn, int epi) {
+  TcPlan pl{};
+  TcArgs& a = pl.a;
+  if (taps == 1) T *= F, F = 1;
+  const int halo = taps == 9 ? 1 : 0;
+  a.T = T, a.F = F, a.Cin = Cin, a.Cout = Cout;
+  pick_tile(T, F, halo, a.tt, a.tf);
+  a.tiles_f = F / a.tf;
+  a.n_tiles = ((T + a.tt - 1) / a.tt) * a.tiles_f;
+  a.n_chunks = (Cin + KC - 1) / KC;
+  int bn = pack_bn;
+  if (pack_bn == 128 && 2 * a.n_tiles * B * (Cout / 128) <= n_sms()) bn = 64;
+  a.split = pack_bn / bn;
+  a.w_tile = a.n_chunks * taps * pack_bn * KC;
+  a.w_stride = pack_bn * KC * 2;
+  pl.box_t = a.tt + 2 * halo;
+  pl.box_f = a.tf + 2 * halo;
+  a.box_bytes = round_up(pl.box_t * pl.box_f * KC * 2, 1024);
+  a.stage_bytes = bn * KC * 2;
+  // the ring and the boxes; after the products, the staged tile and (EPI 0)
+  // its column sums over them
+  const int pipe = TC_STAGES * a.stage_bytes + TC_BOXES * a.box_bytes;
+  const int epi_bytes = TC_BM * (bn + 4) * 4 + (epi == 0 ? 2 * (256 / (bn / 8)) * bn * 4 : 0);
+  a.data_bytes = round_up(std::max(pipe, epi_bytes), 128);
+  pl.bn = bn;
+  pl.smem = 1024 + a.data_bytes + 128 + (2 * TC_STAGES + 2 * TC_BOXES) * 8;
+  pl.grid = dim3(a.n_tiles, Cout / bn, B);
+  return pl;
+}
+
+typedef void (*TcKernel)(const CUtensorMap, TcArgs);
+
+TcKernel tc_kernel(int taps, int bn) {
+  if (taps == 9) return bn == 128 ? conv_tc<9, 128, 0> : conv_tc<9, 64, 0>;
+  return bn == 128 ? conv_tc<1, 128, 1> : conv_tc<1, 64, 1>;
+}
+
+int tc_launch(int taps, TcPlan& pl, const void* x, int B, int Cin, cudaStream_t stream) {
+  if (pl.smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  CUtensorMap xmap;
+  int err = x_tensor_map(&xmap, x, B, pl.a.T, pl.a.F, Cin, pl.box_t, pl.box_f);
+  if (err) return err;
+  TcKernel k = tc_kernel(taps, pl.bn);
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+  if (e != cudaSuccess) return (int)e;
+  k<<<pl.grid, TC_THREADS, pl.smem, stream>>>(xmap, pl.a);
+  return (int)cudaGetLastError();
+}
+
+bool tc_takes(int Cin) { return Cin % 8 == 0; }
+
+int n_row_tiles(int N) { return us_ceil_div(N, EL_BM); }
+
 }  // namespace
 
 extern "C" {
 
-int us_n_row_tiles(int N) { return us_ceil_div(N, BM); }
+int us_resnet_conv3x3_rows(const void* x, const void* w, const float* bias, const int* lens,
+                           void* out, float* part, int B, int N, int F, int Cin, int Cout,
+                           void* stream);
+int us_resnet_out_rows(const void* c2, const void* x, const float* mean, const float* inv,
+                       const float* scale, const float* shift, const void* wres,
+                       const float* bres, const int* lens, void* out, int B, int N, int Cin,
+                       int Cout, void* stream);
 
-// conv3x3 + bias -> out (bf16) and per-tile statistics (kernels A and B).
-// With in_mean != NULL the input is GN-applied on load (kernel B).
-int us_resnet_conv3x3(const void* x, const void* w, const float* bias, const int* lens,
-                      const float* in_mean, const float* in_inv, const float* in_scale,
-                      const float* in_shift, const void* film, void* out, float* part,
-                      int B, int N, int F, int Cin, int Cout, void* stream) {
-  ConvArgs p = base_args(x, w, bias, lens, out, N, F, Cin, Cout);
-  p.in_mean = in_mean;
-  p.in_inv = in_inv;
-  p.in_scale = in_scale;
-  p.in_shift = in_shift;
-  p.film = static_cast<const bf16*>(film);
-  p.part = part;
-  dim3 grid(us_ceil_div(N, BM), Cout / BN, B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_mean != nullptr) {
-    // the transform table: above 48 KB of shared memory in all (Cin > 836)
-    // only after an opt-in, which costs nothing to repeat
-    int dyn = 5 * Cin * (int)sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(conv_gemm<9, true, 0, true>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
-    if (err != cudaSuccess) return (int)err;
-    conv_gemm<9, true, 0, true><<<grid, NTHREADS, dyn, st>>>(p);
-  } else if (Cin % 8 == 0)
-    conv_gemm<9, false, 0, true><<<grid, NTHREADS, 0, st>>>(p);
-  else
-    conv_gemm<9, false, 0, false><<<grid, NTHREADS, 0, st>>>(p);
-  return (int)cudaGetLastError();
+// The tiles of the element-load kernels (whole rows, 128 at a time): K9's
+// int8 conv, K10, and the Cin % 8 != 0 convs here.
+int us_n_row_tiles(int N) { return n_row_tiles(N); }
+
+// The tiles (part's second dimension) us_resnet_conv3x3 writes for an
+// input of Cin channels on the (N / F, F) grid.
+int us_conv_n_tiles(int N, int F, int Cin) {
+  if (!tc_takes(Cin)) return n_row_tiles(N);
+  return make_tc_plan(9, 1, N / F, F, Cin, 64, 64, 0).a.n_tiles;
+}
+
+// The launch plan of a conv with `taps` (9 or 1) and weights packed in Cout
+// tiles of BN: info = {TT, TF, the launch's Cout tile, blocks, threads,
+// dynamic shared memory bytes, row tiles a batch element, blocks an SM
+// holds}.
+int us_conv_plan(int taps, int B, int T, int F, int Cin, int Cout, int BN, int* info) {
+  if (!tc_bn_ok(BN, Cout) || !tc_takes(Cin) || (taps != 9 && taps != 1))
+    return (int)cudaErrorInvalidValue;
+  TcPlan pl = make_tc_plan(taps, B, T, F, Cin, Cout, BN, taps == 9 ? 0 : 1);
+  TcKernel k = tc_kernel(taps, pl.bn);
+  int per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, TC_THREADS, pl.smem);
+  const int v[8] = {pl.a.tt, pl.a.tf, pl.bn, (int)(pl.grid.x * pl.grid.y * pl.grid.z),
+                    TC_THREADS, pl.smem, pl.a.n_tiles, per_sm};
+  for (int i = 0; i < 8; ++i) info[i] = v[i];
+  return (int)e;
+}
+
+// Kernel A: conv3x3 + bias -> out (bf16) and per-tile statistics into part
+// (B, us_conv_n_tiles(N, F, Cin), 2, Cout). Cin % 8 == 0: w packed by
+// ops/fused_resnet.py pack_conv_weight in Cout tiles of BN (the Hopper
+// loop); otherwise w is the raw (9*Cin, Cout) bf16 kernel (element loads).
+int us_resnet_conv3x3(const void* x, const void* w, int BN, const float* bias, const int* lens,
+                      void* out, float* part, int B, int N, int F, int Cin, int Cout,
+                      void* stream) {
+  if (!tc_takes(Cin))
+    return us_resnet_conv3x3_rows(x, w, bias, lens, out, part, B, N, F, Cin, Cout, stream);
+  if (!tc_bn_ok(BN, Cout)) return (int)cudaErrorInvalidValue;
+  TcPlan pl = make_tc_plan(9, B, N / F, F, Cin, Cout, BN, 0);
+  pl.a.w = static_cast<const bf16*>(w);
+  pl.a.bias = bias;
+  pl.a.lens = lens;
+  pl.a.out = static_cast<bf16*>(out);
+  pl.a.part = part;
+  return tc_launch(9, pl, x, B, Cin, static_cast<cudaStream_t>(stream));
 }
 
 int us_gn_finalize(const float* part, int B, int n_tiles, int C, int groups, int n_rows,
@@ -341,9 +719,27 @@ int us_gn_finalize(const float* part, int B, int n_tiles, int C, int groups, int
   return (int)cudaGetLastError();
 }
 
-// Kernel C: GN2-apply + mish + mask + residual (1x1 conv when wres != NULL).
+// GroupNorm 1 and kernel B's input in one pass: mean/inv (B, C) from part
+// (B, n_tiles, 2, C), and c1 (B, N, C) replaced by h = bf16(mish(GN1(c1) *
+// scale + shift) + film) on rows < lens[b], 0 after. (C / groups) % 8 == 0.
+int us_gn_film(const float* part, int n_tiles, void* c1h, const int* lens, const float* scale,
+               const float* shift, const void* film, float* mean, float* inv, int B, int N,
+               int C, int groups, float eps, void* stream) {
+  const int cg = C / groups;
+  if (C % groups || cg % 8) return (int)cudaErrorInvalidValue;
+  // about 8192 elements a block
+  const int rows = std::max(1, 8192 / cg);
+  gn_film<<<dim3(us_ceil_div(N, rows), groups, B), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      part, n_tiles, static_cast<bf16*>(c1h), lens, scale, shift, static_cast<const bf16*>(film),
+      groups, eps, mean, inv, N, C, rows);
+  return (int)cudaGetLastError();
+}
+
+// Kernel C: GN2-apply + mish + mask + residual: the 1x1 conv when wres !=
+// NULL (packed by pack_conv_weight in Cout tiles of BN for Cin % 8 == 0,
+// else the raw (Cin, Cout) bf16 kernel), else the identity.
 int us_resnet_out(const void* c2, const void* x, const float* mean, const float* inv,
-                  const float* scale, const float* shift, const void* wres,
+                  const float* scale, const float* shift, const void* wres, int BN,
                   const float* bres, const int* lens, void* out, int B, int N, int Cin,
                   int Cout, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -353,18 +749,21 @@ int us_resnet_out(const void* c2, const void* x, const float* mean, const float*
         lens, static_cast<bf16*>(out), B, N, Cout);
     return (int)cudaGetLastError();
   }
-  ConvArgs p = base_args(x, wres, bres, lens, out, N, 1, Cin, Cout);
-  p.c2 = static_cast<const bf16*>(c2);
-  p.o_mean = mean;
-  p.o_inv = inv;
-  p.o_scale = scale;
-  p.o_shift = shift;
-  dim3 grid(us_ceil_div(N, BM), Cout / BN, B);
-  if (Cin % 8 == 0)
-    conv_gemm<1, false, 1, true><<<grid, NTHREADS, 0, st>>>(p);
-  else
-    conv_gemm<1, false, 1, false><<<grid, NTHREADS, 0, st>>>(p);
-  return (int)cudaGetLastError();
+  if (!tc_takes(Cin))
+    return us_resnet_out_rows(c2, x, mean, inv, scale, shift, wres, bres, lens, out, B, N, Cin,
+                              Cout, stream);
+  if (!tc_bn_ok(BN, Cout)) return (int)cudaErrorInvalidValue;
+  TcPlan pl = make_tc_plan(1, B, N, 1, Cin, Cout, BN, 1);
+  pl.a.w = static_cast<const bf16*>(wres);
+  pl.a.bias = bres;
+  pl.a.lens = lens;
+  pl.a.out = static_cast<bf16*>(out);
+  pl.a.c2 = static_cast<const bf16*>(c2);
+  pl.a.o_mean = mean;
+  pl.a.o_inv = inv;
+  pl.a.o_scale = scale;
+  pl.a.o_shift = shift;
+  return tc_launch(1, pl, x, B, Cin, st);
 }
 
 // Kernel C in JAX's res_mode "none": GN2-apply + mish + mask alone, f32
@@ -390,29 +789,72 @@ int us_final_out(const void* c1, const float* mean, const float* inv, const floa
 }
 
 // One ResnetBlock (K1, and K8 at the deep stages) in one call: kernel A
-// (conv1 + statistics), its GroupNorm, kernel B (GN1 + mish + FiLM + mask
-// on load, conv2 + statistics), its GroupNorm, kernel C (GN2 + mish + mask
-// + residual; identity when wres == NULL). Scratch: c1, c2 (B, N, Cout)
-// bf16; part (B, us_n_row_tiles(N), 2, Cout); mean/inv (B, Cout).
+// (conv1 + statistics), gn_film (GroupNorm 1 + mish + FiLM + mask, c1 ->
+// h in place), kernel B (conv2 on h + statistics), its GroupNorm, kernel C
+// (GN2 + mish + mask + residual; identity when wres == NULL). w1, w2, wres
+// as us_resnet_conv3x3 / us_resnet_out take them, BN their Cout tile.
+// Scratch: c1, c2 (B, N, Cout) bf16; part (B, max of us_conv_n_tiles(N, F,
+// Cin) and (N, F, Cout), 2, Cout); mean/inv (B, Cout).
 int us_resnet_block(const void* x, const void* w1, const float* b1, const float* s1,
                     const float* be1, const void* film, const void* w2, const float* b2,
                     const float* s2, const float* be2, const void* wres, const float* bres,
                     const int* lens, void* c1, void* c2, float* part, float* mean1, float* inv1,
                     float* mean2, float* inv2, void* out, int B, int N, int F, int Cin, int Cout,
-                    int groups, float eps, void* stream) {
-  const int nt = us_n_row_tiles(N);
-  int err = us_resnet_conv3x3(x, w1, b1, lens, nullptr, nullptr, nullptr, nullptr, nullptr, c1,
-                              part, B, N, F, Cin, Cout, stream);
+                    int groups, float eps, int BN, void* stream) {
+  int err = us_resnet_conv3x3(x, w1, BN, b1, lens, c1, part, B, N, F, Cin, Cout, stream);
   if (err) return err;
-  err = us_gn_finalize(part, B, nt, Cout, groups, N, eps, mean1, inv1, stream);
+  err = us_gn_film(part, us_conv_n_tiles(N, F, Cin), c1, lens, s1, be1, film, mean1, inv1, B, N,
+                   Cout, groups, eps, stream);
   if (err) return err;
-  err = us_resnet_conv3x3(c1, w2, b2, lens, mean1, inv1, s1, be1, film, c2, part, B, N, F, Cout,
-                          Cout, stream);
+  err = us_resnet_conv3x3(c1, w2, BN, b2, lens, c2, part, B, N, F, Cout, Cout, stream);
   if (err) return err;
-  err = us_gn_finalize(part, B, nt, Cout, groups, N, eps, mean2, inv2, stream);
-  if (err) return err;
-  return us_resnet_out(c2, x, mean2, inv2, s2, be2, wres, bres, lens, out, B, N, Cin, Cout,
+  err = us_gn_finalize(part, B, us_conv_n_tiles(N, F, Cout), Cout, groups, N, eps, mean2, inv2,
                        stream);
+  if (err) return err;
+  return us_resnet_out(c2, x, mean2, inv2, s2, be2, wres, BN, bres, lens, out, B, N, Cin, Cout,
+                       stream);
+}
+
+// The raw-weight kernels A and C (element loads on igemm_bf16; K10's, and
+// the Cin % 8 != 0 convs of us_resnet_conv3x3 / us_resnet_out): w (9*Cin,
+// Cout), wres (Cin, Cout) bf16 or NULL; part (B, us_n_row_tiles(N), 2,
+// Cout).
+int us_resnet_conv3x3_rows(const void* x, const void* w, const float* bias, const int* lens,
+                           void* out, float* part, int B, int N, int F, int Cin, int Cout,
+                           void* stream) {
+  if (Cout % EL_BN) return (int)cudaErrorInvalidValue;
+  ConvArgs p = base_args(x, w, bias, lens, out, N, F, Cin, Cout);
+  p.part = part;
+  dim3 grid(n_row_tiles(N), Cout / EL_BN, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Cin % 8 == 0)
+    conv_gemm<9, 0, true><<<grid, IG_THREADS, 0, st>>>(p);
+  else
+    conv_gemm<9, 0, false><<<grid, IG_THREADS, 0, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+int us_resnet_out_rows(const void* c2, const void* x, const float* mean, const float* inv,
+                       const float* scale, const float* shift, const void* wres,
+                       const float* bres, const int* lens, void* out, int B, int N, int Cin,
+                       int Cout, void* stream) {
+  if (wres == nullptr)
+    return us_resnet_out(c2, x, mean, inv, scale, shift, nullptr, 0, bres, lens, out, B, N, Cin,
+                         Cout, stream);
+  if (Cout % EL_BN) return (int)cudaErrorInvalidValue;
+  ConvArgs p = base_args(x, wres, bres, lens, out, N, 1, Cin, Cout);
+  p.c2 = static_cast<const bf16*>(c2);
+  p.o_mean = mean;
+  p.o_inv = inv;
+  p.o_scale = scale;
+  p.o_shift = shift;
+  dim3 grid(n_row_tiles(N), Cout / EL_BN, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Cin % 8 == 0)
+    conv_gemm<1, 1, true><<<grid, IG_THREADS, 0, st>>>(p);
+  else
+    conv_gemm<1, 1, false><<<grid, IG_THREADS, 0, st>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -2,11 +2,14 @@
 //
 // Replaces the Pallas kernels in unitspeech_tpu/ops/pallas_resnet.py:
 //   K10a  fused_resnet_block(int8=True): _fused_resnet's _kernel_a and
-//         _kernel_b with _conv3x3_taps_int8; kernel C is K1's;
+//         _kernel_b with _conv3x3_taps_int8; kernel C is K1's in its
+//         raw-weight form (us_resnet_out_rows);
 //   K10b  fused_resnet_block_deep(int8=True): _fused_resnet_deep's
 //         _kernel_a_deep and _kernel_b_deep with _conv3x3_taps_int8 (conv1
-//         in bf16 for cin > cout, JAX's hybrid: K8's kernel A); kernel C is
-//         K8's.
+//         in bf16 for cin > cout, JAX's hybrid: K8's kernel A in its
+//         raw-weight form, us_resnet_conv3x3_rows); kernel C likewise.
+// Both keep the element-load main loops of common.cuh (igemm_bf16,
+// igemm_s8); no served path runs them.
 //
 // What the TPU kernels compute: each grid step quantizes its conv input
 // window, the tile's fpt frames plus one halo frame above and below (zero
@@ -43,15 +46,15 @@
 #include "common.cuh"
 
 extern "C" {
-int us_resnet_conv3x3(const void* x, const void* w, const float* bias, const int* lens,
-                      const float* in_mean, const float* in_inv, const float* in_scale,
-                      const float* in_shift, const void* film, void* out, float* part, int B,
-                      int N, int F, int Cin, int Cout, void* stream);
+int us_resnet_conv3x3_rows(const void* x, const void* w, const float* bias, const int* lens,
+                           void* out, float* part, int B, int N, int F, int Cin, int Cout,
+                           void* stream);
 int us_gn_finalize(const float* part, int B, int n_tiles, int C, int groups, int n_rows,
                    float eps, float* mean, float* inv, void* stream);
-int us_resnet_out(const void* c2, const void* x, const float* mean, const float* inv,
-                  const float* scale, const float* shift, const void* wres, const float* bres,
-                  const int* lens, void* out, int B, int N, int Cin, int Cout, void* stream);
+int us_resnet_out_rows(const void* c2, const void* x, const float* mean, const float* inv,
+                       const float* scale, const float* shift, const void* wres,
+                       const float* bres, const int* lens, void* out, int B, int N, int Cin,
+                       int Cout, void* stream);
 int us_n_row_tiles(int N);
 }
 
@@ -275,7 +278,7 @@ extern "C" {
 
 // One ResnetBlock with int8 convs quantized in kernel (K10a with fpt the
 // tile's frames; K10b with fpt = T), in one call: conv1 (int8, or bf16
-// K8's kernel A when w1 != NULL), its GroupNorm, conv2 (int8 on kernel B's
+// K8's raw-weight kernel A when w1 != NULL), its GroupNorm, conv2 (int8 on kernel B's
 // transform), its GroupNorm, kernel C (residual: identity when wres ==
 // NULL). w8t1 (Cout, Kp(Cin)) and w8t2 (Cout, 9*Cout) int8 with reciprocal
 // scales rsw1/rsw2 (Cout). Scratch: fmax (B, T), sx (B, T / fpt), c1, c2
@@ -293,8 +296,7 @@ int us_resnet_block_i8(const void* x, const void* w1, const void* w8t1, const fl
   const Xform none = {};
   int err;
   if (w1 != nullptr)
-    err = us_resnet_conv3x3(x, w1, b1, lens, nullptr, nullptr, nullptr, nullptr, nullptr, c1,
-                            part, B, N, F, Cin, Cout, stream);
+    err = us_resnet_conv3x3_rows(x, w1, b1, lens, c1, part, B, N, F, Cin, Cout, stream);
   else
     err = quantized_conv<false>(x, static_cast<const int8_t*>(w8t1), rsw1, b1, lens, none, fmax,
                                 sx, c1, part, B, N, F, Cin, Cout, fpt, st);
@@ -307,8 +309,8 @@ int us_resnet_block_i8(const void* x, const void* w1, const void* w8t1, const fl
   if (err) return err;
   err = us_gn_finalize(part, B, nt, Cout, groups, N, eps, mean2, inv2, stream);
   if (err) return err;
-  return us_resnet_out(c2, x, mean2, inv2, s2, be2, wres, bres, lens, out, B, N, Cin, Cout,
-                       stream);
+  return us_resnet_out_rows(c2, x, mean2, inv2, s2, be2, wres, bres, lens, out, B, N, Cin,
+                            Cout, stream);
 }
 
 }  // extern "C"

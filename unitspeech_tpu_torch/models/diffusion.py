@@ -32,7 +32,7 @@ class UnitSpeech(nn.Module):
                                              dtype=dtype, use_kernels=use_kernels,
                                              use_int8_deep=use_int8_deep, use_deep=use_deep,
                                              use_resample=use_resample,
-                                             use_i8pre_deep=use_i8pre_deep)
+                                             use_i8pre_deep=use_i8pre_deep, n_feats=n_feats)
 
     def forward(self, xt, mask, cond, t, spk_emb):
         return self.estimator(xt, mask, cond, t, spk_emb)

@@ -18,7 +18,13 @@ kernels on (use_pallas_resnet and use_pallas_attention, unet.py:316-413,
   * the final block + final_conv: the fused kernel K2.
 These gates are the TPU measurements the JAX package chose them from; they
 are kept so that every kernel runs and the kernel path computes what the
-JAX fast path computes. `use_kernels=False` is the plain path (the JAX
+JAX fast path computes. Beside each gate the route tests the kernel's own
+`takes` predicate (the widths its CUDA kernel accepts): a site that fails it
+takes the route JAX's code takes when its gate fails (plain Blocks, the XLA
+attention, the library resample, the flat route), on the CPU as on the
+card, so the route depends on shapes alone. The kernels' weights are packed
+once when the estimator's weights load (`pack`, a load_state_dict
+post-hook). `use_kernels=False` is the plain path (the JAX
 XLA twin: use_pallas_*=False). A kernel wrapper given a CPU tensor runs its
 plain version, so both paths run on the CPU.
 
@@ -42,6 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from unitspeech_tpu_torch.models.layers import Affine, Conv2d, ConvTranspose2d, Dense
+from unitspeech_tpu_torch.ops import fused_attention, fused_resnet
 from unitspeech_tpu_torch.ops.conv_matmul import (
     choose_conv_impl,
     conv3x3_int8,
@@ -55,6 +62,8 @@ from unitspeech_tpu_torch.ops.fused_resnet import (
     fused_resnet_block,
     lens_rows_from_mask,
     mish_one_exp,
+    pack_block_weights,
+    pack_conv_weight,
 )
 from unitspeech_tpu_torch.ops.fused_resnet_deep import (
     deep_route,
@@ -145,6 +154,28 @@ class ResnetBlock(nn.Module):
         # quantize_weight of conv1 and conv2 (the flat int8 route), and
         # quant_w of them (K9), set by quantize_int8
         self.int8_weights = self.i8pre_weights = None
+        # the kernels' packed conv weights (K1 / K8 / K9) and the route they
+        # were packed for, set by pack
+        self.packed = self.packed_for = None
+
+    def pack(self, f, use_kernels, use_int8=False, use_deep=False, use_i8pre=False):
+        """Pack, once, the conv kernels that this block's route at F = f reads
+        (inference weights are frozen, so every call reuses them): all three
+        for K1 and K8, K9's bf16 conv1 (Cin > Cout) and 1x1 residual, none
+        for the flat and Blocks routes. The route is taken at one frame, a
+        length every deep gate passes; a longer input takes the same kernel
+        or the flat route. A call at another F packs what it reads on the
+        spot."""
+        cin, cout = self.block1.conv.kernel.shape[2:]
+        w1, w2 = self.block1.conv.kernel, self.block2.conv.kernel
+        wres = None if self.res_conv is None else self.res_conv.kernel
+        route = self.route(1, f, use_kernels, use_int8, use_deep, use_i8pre)
+        self.packed, self.packed_for = None, route
+        if route in ("k1", "k8"):
+            self.packed = pack_block_weights(w1, w2, wres)
+        elif route == "k9" and (cin > cout or wres is not None):
+            self.packed = (pack_conv_weight(w1) if cin > cout else None, None,
+                           None if wres is None else pack_conv_weight(wres))
 
     def quantize_int8(self):
         """Quantize both conv kernels once for the int8 routes: inference
@@ -156,14 +187,15 @@ class ResnetBlock(nn.Module):
 
     def route(self, t, f, use_kernels, use_int8=False, use_deep=False, use_i8pre=False):
         """The JAX ResnetBlock's routing (unet.py:321-401): "k1" (the fused
-        kernel at F % 8 == 0), "k9" / "k8" (the whole-layer deep kernels),
-        "flat" (deep-stage rows), or "blocks" (plain Blocks)."""
-        if use_kernels and fused_kernel_shape(f):
+        kernel at F % 8 == 0 where it takes the widths), "k9" / "k8" (the
+        whole-layer deep kernels), "flat" (deep-stage rows), or "blocks"
+        (plain Blocks)."""
+        cin, cout = self.block1.conv.kernel.shape[2:]
+        if use_kernels and fused_kernel_shape(f) and fused_resnet.takes(cout, self.groups):
             return "k1"
         if not self.flat:
             return "blocks"
-        cin, cout = self.block1.conv.kernel.shape[2:]
-        deep = deep_route(t, f, cin, cout, use_int8, use_deep, use_i8pre)
+        deep = deep_route(t, f, cin, cout, use_int8, use_deep, use_i8pre, self.groups)
         return {"i8": "k9", "bf16": "k8", None: "flat"}[deep]
 
     def forward(self, x, mask, t_emb, dtype, use_kernels, pre_masked=False, use_int8=False,
@@ -184,12 +216,15 @@ class ResnetBlock(nn.Module):
                 fn = fused_resnet_block_deep
             elif route == "k9":
                 fn, extra = fused_resnet_block_deep_i8, {"wq": self.i8pre_weights}
+            # K9's packing holds only what K9 reads: a call that routes
+            # elsewhere (at another F than packed for) packs on the spot
+            packed = self.packed if self.packed_for in (route, "k1", "k8") else None
             return fn(
                 x.to(dtype), mask, bias_t, c1.kernel, c1.bias, *self.block1.norm.params(),
                 c2.kernel, c2.bias, *self.block2.norm.params(),
                 wres=None if self.res_conv is None else self.res_conv.kernel,
                 bres=None if self.res_conv is None else self.res_conv.bias,
-                groups=self.groups, **extra,
+                groups=self.groups, packed=packed, **extra,
             )
         h = self.block1(x, mask, dtype, stats, pre_masked)
         h = h + bias_t[:, None, None, :]
@@ -243,14 +278,12 @@ class ResnetBlock(nn.Module):
         return (h2 + res).to(dtype).reshape(b, t, f, dout)
 
 
-def _pack_resample_after_load(estimator, _incompatible_keys):
-    """load_state_dict post-hook of a use_resample estimator: pack the
-    Downsample / Upsample kernels into K11's layout once the weights are
-    in (where K11 takes their widths), so that no call casts or reshapes
-    them."""
-    for m in estimator.modules():
-        if isinstance(m, (Downsample, Upsample)):
-            m.pack()
+def _pack_after_load(estimator, _incompatible_keys):
+    """load_state_dict post-hook of an estimator with kernels: pack their
+    weights (K1 / K2 / K8 / K9 convs, K11's resample convs) once the weights
+    are in, so that no call casts or reshapes them. Weights changed in place
+    afterwards need another load_state_dict (or `pack`)."""
+    estimator.pack()
 
 
 def _quantize_after_load(estimator, _incompatible_keys):
@@ -296,7 +329,8 @@ class RezeroAttention(nn.Module):
         self.fn = LinearAttention(c, heads, dim_head)
 
     def uses_kernel(self, x, use_kernels: bool) -> bool:
-        return use_kernels and x.shape[1] * x.shape[2] >= PALLAS_MIN_TOKENS
+        return (use_kernels and x.shape[1] * x.shape[2] >= PALLAS_MIN_TOKENS
+                and fused_attention.takes(x.shape[3], self.fn.heads, self.fn.dim_head))
 
     def forward(self, x, mask, dtype, use_kernels):
         """With the kernel the output rows past the length come out zeroed,
@@ -355,9 +389,10 @@ class GradLogPEstimator2d(nn.Module):
     def __init__(self, dim=128, dim_mults=(1, 2, 4, 8), groups=8, pe_scale=1000.0,
                  spk_emb_dim=256, dtype=torch.float32, use_kernels=False,
                  use_int8_deep=False, use_deep=False, use_resample=False,
-                 use_i8pre_deep=False):
+                 use_i8pre_deep=False, n_feats=80):
         super().__init__()
         self.dim, self.groups, self.pe_scale = dim, groups, pe_scale
+        self.n_feats = n_feats  # F of the input, which `pack` packs the routes of
         self.dtype, self.use_kernels = dtype, use_kernels
         # int8 deep-stage convs; the early stages (K1) stay in `dtype`, as
         # the JAX estimator hard-codes (unet.py:394-400)
@@ -366,8 +401,9 @@ class GradLogPEstimator2d(nn.Module):
             use_deep, use_resample, use_i8pre_deep)
         if use_int8_deep:
             self.register_load_state_dict_post_hook(_quantize_after_load)
-        if use_resample:
-            self.register_load_state_dict_post_hook(_pack_resample_after_load)
+        if use_kernels or use_deep or use_i8pre_deep or use_resample:
+            self.register_load_state_dict_post_hook(_pack_after_load)
+        self.final_packed = None  # the final block's packed conv (K2), set by pack
         t_dim = dim + spk_emb_dim
         self.mlp_0 = Dense(dim, dim * 4)
         self.mlp_1 = Dense(dim * 4, dim)
@@ -392,6 +428,27 @@ class GradLogPEstimator2d(nn.Module):
             self.add_module(f"up_{i}_up", Upsample(d_in))
         self.final_block = Block(dim, dim, groups)
         self.final_conv = Conv2d(dim, 1, 1)
+
+    def pack(self):
+        """Pack the weights of the kernels this estimator routes to at F =
+        n_feats, where they take the widths: the ResnetBlocks' convs that
+        their routes read (ResnetBlock.pack, at the F of their stage), the
+        final block's (K2) with the kernels, the resample convs (K11) with
+        use_resample."""
+        for m in self.modules():
+            if isinstance(m, (Downsample, Upsample)) and self.use_resample:
+                m.pack()
+        n = len(self.dims)
+        stages = [(f"down_{i}_{r}", i) for i in range(n) for r in ("res1", "res2")]
+        stages += [("mid_res1", n - 1), ("mid_res2", n - 1)]
+        # up stage i runs one level deeper than down stage i
+        stages += [(f"up_{i}_{r}", i + 1) for i in range(n - 1) for r in ("res1", "res2")]
+        for name, i in stages:
+            getattr(self, name).pack(-(-self.n_feats // 2 ** i), self.use_kernels,
+                                     self.use_int8_deep, self.use_deep, self.use_i8pre_deep)
+        fb = self.final_block.conv.kernel
+        if self.use_kernels and fused_resnet.takes(fb.shape[-1], self.groups):
+            self.final_packed = pack_conv_weight(fb)
 
     def forward(self, x, mask, mu, t, spk_emb):
         dt, uk = self.dtype, self.use_kernels
@@ -424,8 +481,9 @@ class GradLogPEstimator2d(nn.Module):
             hiddens.append(h)
             if i < n_res - 1:
                 down = getattr(self, f"down_{i}_down")
-                if self.use_resample and supports_downsample(h.shape[1], h.shape[2],
-                                                             self.dims[i]):
+                if (self.use_resample and supports_downsample(h.shape[1], h.shape[2],
+                                                              self.dims[i])
+                        and kernel_takes(self.dims[i], self.dims[i])):
                     # the kernel masks its input rows: no h * mk pass
                     h = fused_downsample_conv(h.to(dt), mk, down.conv.kernel, down.conv.bias,
                                               packed=down.packed, lens=frames(i, mk))
@@ -449,7 +507,8 @@ class GradLogPEstimator2d(nn.Module):
             h_in = h
             h = attn(h, mk, dt, uk)
             up = getattr(self, f"up_{i}_up")
-            if self.use_resample and supports_upsample(h.shape[1], h.shape[2], self.dims[i]):
+            if (self.use_resample and supports_upsample(h.shape[1], h.shape[2], self.dims[i])
+                    and kernel_takes(self.dims[i], self.dims[i])):
                 # up stage i's input is one level deeper than down stage i's:
                 # its mask is that of level i + 1
                 h = fused_upsample_conv(h.to(dt), mk, up.conv.kernel, up.conv.bias,
@@ -458,11 +517,12 @@ class GradLogPEstimator2d(nn.Module):
                 hin = h if attn.uses_kernel(h_in, uk) else h * mk
                 h = up(hin, dt)
 
-        if uk and fused_kernel_shape(h.shape[2]):
-            fb, fc = self.final_block, self.final_conv
+        fb, fc = self.final_block, self.final_conv
+        if (uk and fused_kernel_shape(h.shape[2])
+                and fused_resnet.takes(fb.conv.kernel.shape[-1], self.groups)):
             return fused_final_block(h.to(dt), m, fb.conv.kernel, fb.conv.bias,
                                      *fb.norm.params(), fc.kernel, fc.bias,
-                                     groups=self.groups)
+                                     groups=self.groups, packed=self.final_packed)
         h = self.final_block(h, m, dt, row_stats_plain)
         out = self.final_conv(h * m, dtype=dt)
         return (out * m)[..., 0].to(torch.float32)

@@ -29,6 +29,7 @@ from unitspeech_tpu_torch.ops.aa_snake import (
     fused_aa_snake,
     fused_aa_snake_conv,
 )
+from unitspeech_tpu_torch.ops.aa_snake import takes as aa_snake_takes
 
 
 class Snake(nn.Module):
@@ -65,8 +66,11 @@ class AntiAliasedActivation(nn.Module):
     def forward(self, x, conv, dilation: int, residual=None, use_kernels=False):
         """(B, C, T) -> (B, C, T): the activation, then the SAME dilated
         `conv` (a Conv1d of odd k), then + residual; with `use_kernels` one
-        launch of K5."""
-        fn = fused_aa_snake_conv if use_kernels else aa_snake_conv_plain
+        launch of K5 where it takes the widths, else the plain version (the
+        JAX route's fallback)."""
+        k = conv.kernel.shape[0]
+        kernel = use_kernels and aa_snake_takes(x.shape[1], k)
+        fn = fused_aa_snake_conv if kernel else aa_snake_conv_plain
         return fn(x, *self.act.params_ab(), conv.kernel, conv.bias, dilation, residual,
                   self.act.logscale)
 

@@ -183,11 +183,17 @@ def _aa_snake_cuda(x, alpha, beta, logscale):
     return out
 
 
+def takes(c: int, k: int) -> bool:
+    """The widths K5's CUDA kernel takes: C a multiple of 32 and an odd conv
+    width k (K6 takes any C)."""
+    return c % 32 == 0 and k % 2 == 1
+
+
 def _aa_snake_conv_cuda(x, alpha, beta, w, bias, dilation, residual, logscale):
     _check_x("fused_aa_snake_conv", x)
     b, c, t = x.shape
     k = w.shape[0]
-    if c % 32 or k % 2 == 0 or tuple(w.shape) != (k, c, c):
+    if not takes(c, k) or tuple(w.shape) != (k, c, c):
         raise ValueError(f"fused_aa_snake_conv: needs C % 32 == 0 and an odd (k, C, C) "
                          f"kernel, got C={c}, w {tuple(w.shape)}")
     dev = x.device

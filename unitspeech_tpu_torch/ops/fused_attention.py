@@ -21,6 +21,12 @@ from unitspeech_tpu_torch.ops import _cuda
 HEADS, DIM_HEAD = 4, 32  # the only head layout the CUDA kernel takes
 
 
+def takes(c: int, heads: int = HEADS, dim_head: int = DIM_HEAD) -> bool:
+    """The widths the CUDA kernel takes: C a multiple of 128 and 4 heads of
+    32."""
+    return c % 128 == 0 and (heads, dim_head) == (HEADS, DIM_HEAD)
+
+
 def rezero_attention_plain(x, w_qkv, w_out, b_out, g, lens_rows, heads: int,
                            dim_head: int):
     """The K4 kernel's plain version: x (B, N, C), w_qkv (C, 3*H*d)
@@ -50,7 +56,7 @@ def _rezero_attention_cuda(x, w_qkv, w_out, b_out, g, lens_rows):
     hd = HEADS * DIM_HEAD
     if x.dtype != torch.bfloat16:
         raise ValueError(f"fused_rezero_attention: the kernel takes bf16, got {x.dtype}")
-    if c % 128:
+    if not takes(c):
         raise ValueError(f"fused_rezero_attention: C={c} must be a multiple of 128")
     dev = x.device
     _cuda.require(x, "x")
@@ -88,7 +94,7 @@ def fused_rezero_attention(x, w_qkv, w_out, b_out, g, lens_rows=None,
     enter the softmax). None = no output masking. CUDA tensors launch the
     kernel (4 heads of 32 only), CPU tensors take rezero_attention_plain."""
     if _cuda.route(x, "fused_rezero_attention"):
-        if (heads, dim_head) != (HEADS, DIM_HEAD):
+        if not takes(HEADS * DIM_HEAD, heads, dim_head):
             raise ValueError(f"fused_rezero_attention: the kernel takes {HEADS} heads of "
                              f"{DIM_HEAD}, got {heads} x {dim_head}")
         y = _rezero_attention_cuda(x, w_qkv, w_out, b_out, g, lens_rows)

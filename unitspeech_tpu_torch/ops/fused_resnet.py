@@ -10,7 +10,12 @@ One ResnetBlock runs as three steps over (B, T*F, C) rows:
 
 and the final block as A followed by D: GN + mish + mask + the 1-channel
 1x1 final_conv, giving an f32 score. CUDA source: csrc/resnet_block.cu,
-which states what bounds the kernels and how they are laid out.
+which states what bounds the kernels and how they are laid out: on the card
+kernel B's input transform runs once per element (gn_film) and the convs
+run on a TMA + wgmma main loop whose weights are packed once
+(`pack_conv_weight`; the estimator packs them when its weights load, a
+direct call packs on the spot). `takes` states the widths the kernels take;
+the estimator routes other widths elsewhere.
 
 `fused_resnet_block(..., int8=True)` is K10a (JAX's in-kernel int8 mode,
 no model route): both convs quantize their input window per TPU tile of
@@ -35,8 +40,64 @@ import torch.nn.functional as F
 from unitspeech_tpu_torch.ops import _cuda
 from unitspeech_tpu_torch.ops.conv_matmul import conv3x3_rows, im2col, quantize_weight
 from unitspeech_tpu_torch.ops.masking import frames_from_mask
+from unitspeech_tpu_torch.ops.resample import KC, pad_chunks, swizzle128
 
 GN_EPS = 1e-5
+
+
+def takes(cout: int, groups: int = 8) -> bool:
+    """The widths the CUDA kernels of K1, K2 and K8 take: Cout in whole
+    64-column tiles (the element-load loop's tile, and the Hopper loop's 64
+    or 128) and GroupNorm groups of a multiple of 8 channels (gn_film's
+    16-byte pieces). Any Cin: Cin % 8 != 0 takes element loads."""
+    return cout % 64 == 0 and cout % groups == 0 and (cout // groups) % 8 == 0
+
+
+def tile_cols(cout: int) -> int:
+    """The Cout tile (BN) of the packed weights, which the launch takes from
+    them: 128 where it divides Cout, else 64."""
+    if cout % 64:
+        raise ValueError(f"Cout={cout} is not a multiple of 64")
+    return 128 if cout % 128 == 0 else 64
+
+
+def pack_conv_weight(kernel):
+    """A flax conv kernel (kt, kf, Cin, Cout) -> what the CUDA conv reads,
+    made once at load: for Cin % 8 == 0 the bf16 tiles (Cout / BN, chunks,
+    kt * kf taps, BN, 64), each K-major in the 128-byte swizzle, Cin padded
+    to whole 64-channel chunks with zero rows (BN = tile_cols(Cout)); for
+    other Cin (element loads) the (taps * Cin, Cout) bf16 rows."""
+    *k, cin, cout = kernel.shape
+    taps = k[0] * k[1]
+    w = kernel.detach().to(torch.bfloat16).reshape(taps, cin, cout)
+    if cin % 8:
+        return w.reshape(taps * cin, cout).contiguous()
+    bn = tile_cols(cout)
+    w, nc = pad_chunks(w, cin)
+    w = w.reshape(taps, nc, KC, cout // bn, bn).permute(3, 1, 0, 4, 2)
+    return swizzle128(w).contiguous()
+
+
+def conv_plan(taps: int, b: int, t: int, f: int, cin: int, cout: int) -> dict:
+    """The Hopper loop's launch plan of a conv (taps 9: conv3x3 over the
+    (T, F) grid; 1: the 1x1 residual over its T*F rows) with the packer's
+    Cout tile, as csrc/resnet_block.cu makes it (the card's us_conv_plan):
+    row tile, Cout tile, blocks, threads, dynamic shared memory, tiles a
+    batch element and blocks an SM holds. Cin % 8 == 0."""
+    import ctypes
+
+    info = (ctypes.c_int * 8)()
+    _cuda.check(_cuda.lib().us_conv_plan(taps, b, t, f, cin, cout, tile_cols(cout), info),
+                "us_conv_plan")
+    keys = ("tt", "tf", "bn", "blocks", "threads", "smem", "tiles", "blocks_per_sm")
+    return dict(zip(keys, info))
+
+
+def pack_block_weights(w1, w2, wres=None):
+    """A ResnetBlock's three conv kernels (flax layout) packed for K1 / K8:
+    (conv1, conv2, the 1x1 residual or None)."""
+    return (pack_conv_weight(w1), pack_conv_weight(w2),
+            None if wres is None else pack_conv_weight(wres))
 
 
 def pick_frames_per_tile(t: int, f: int, c_max: int,
@@ -226,20 +287,33 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
 
 
-def _conv_stats(lib, x, w, bias, lens, f, groups):
-    """Launch kernel A, then reduce its tile statistics. -> (c, mean, inv)."""
+def _packed_operand(packed, what, taps, cin, cout, dev):
+    """Check a pack_conv_weight result for a conv of `taps` taps from Cin to
+    Cout. -> (the tensor, its Cout tile BN; 0 for the raw rows)."""
+    if cin % 8:
+        shape, bn = (taps * cin, cout), 0
+    else:
+        bn = packed.shape[-2] if packed.dim() == 5 else 0  # the packer's choice
+        if bn not in (64, 128) or cout % bn:
+            raise ValueError(f"{what}: packed kernel {tuple(packed.shape)} for Cout={cout}")
+        shape = (cout // bn, -(-cin // KC), taps, bn, KC)
+    return _cuda.require(packed, what, dtype=torch.bfloat16, shape=shape, device=dev), bn
+
+
+def _conv_stats(lib, x, w, bn, bias, lens, f, groups):
+    """Launch kernel A (w from pack_conv_weight, BN its Cout tile), then
+    reduce its tile statistics. -> (c, mean, inv)."""
     b, n, cin = x.shape
-    cout = w.shape[-1]
+    cout = bias.shape[-1]
     st = _cuda.stream(x)
-    nt = lib.us_n_row_tiles(n)
+    nt = lib.us_conv_n_tiles(n, f, cin)
     part = torch.empty((b, nt, 2, cout), dtype=torch.float32, device=x.device)
     out = torch.empty((b, n, cout), dtype=x.dtype, device=x.device)
     mean = torch.empty((b, cout), dtype=torch.float32, device=x.device)
     inv = torch.empty_like(mean)
     _cuda.check(
-        lib.us_resnet_conv3x3(x.data_ptr(), w.data_ptr(), bias.data_ptr(), lens.data_ptr(),
-                              *(None,) * 5, out.data_ptr(), part.data_ptr(), b, n, f, cin, cout,
-                              st),
+        lib.us_resnet_conv3x3(x.data_ptr(), w.data_ptr(), bn, bias.data_ptr(), lens.data_ptr(),
+                              out.data_ptr(), part.data_ptr(), b, n, f, cin, cout, st),
         "resnet conv3x3",
     )
     _cuda.check(
@@ -251,43 +325,49 @@ def _conv_stats(lib, x, w, bias, lens, f, groups):
 
 
 def _check_shapes(what, x, cout, groups):
-    """Cout: a multiple of the 64-column tile; at most 8192, so that kernel
-    B's transform table (5 * Cout floats) fits the block's 227 KB of shared
-    memory."""
     if x.dtype != torch.bfloat16:
         raise ValueError(f"{what}: the kernel takes bf16 activations, got {x.dtype}")
-    if cout % 64 or cout > 8192 or cout % groups:
-        raise ValueError(f"{what}: unsupported Cout={cout} (multiple of 64, <= 8192, "
-                         f"divisible by groups={groups})")
+    if not takes(cout, groups):
+        raise ValueError(f"{what}: unsupported Cout={cout} with groups={groups} (a multiple "
+                         f"of 64, groups of a multiple of 8 channels)")
 
 
 def _resnet_block_cuda(x, lens, t_bias, w1, b1, s1, be1, w2, b2, s2, be2, wres, bres,
-                       f, groups, what="fused_resnet_block"):
+                       f, groups, packed=None, what="fused_resnet_block"):
     """K1 (and K8, ops/fused_resnet_deep.py): the block's five launches in
-    one call of us_resnet_block."""
+    one call of us_resnet_block. packed: pack_block_weights of the flax
+    kernels, made here when absent."""
     b, n, cin = x.shape
-    cout = w1.shape[-1]
+    cout = b1.shape[-1]
     _check_shapes(what, x, cout, groups)
     if wres is None and cin != cout:
         raise ValueError(f"{what}: identity residual needs Cin == Cout")
+    if packed is None:
+        packed = pack_block_weights(w1.reshape(3, 3, cin, cout), w2.reshape(3, 3, cout, cout),
+                                    None if wres is None else wres.reshape(1, 1, cin, cout))
     dt, dev = x.dtype, x.device
     _cuda.require(x, "x", dtype=dt)
     _cuda.require(lens, "lens", dtype=torch.int32, shape=(b,), device=dev)
-    w1 = _cuda.require(w1.to(dt).contiguous(), "w1", shape=(9 * cin, cout), device=dev)
-    w2 = _cuda.require(w2.to(dt).contiguous(), "w2", shape=(9 * cout, cout), device=dev)
+    w1, bn = _packed_operand(packed[0], "w1", 9, cin, cout, dev)
+    w2, bn2 = _packed_operand(packed[1], "w2", 9, cout, cout, dev)
+    wr, bnr = (None, bn2) if wres is None else _packed_operand(packed[2], "wres", 1, cin,
+                                                               cout, dev)
+    if len({t for t in (bn, bn2, bnr) if t}) != 1:
+        raise ValueError(f"{what}: the packed kernels' Cout tiles differ")
     film = _cuda.require(t_bias.to(dt).contiguous(), "t_bias", shape=(b, cout), device=dev)
     if wres is not None:
-        wres = _cuda.require(wres.to(dt).contiguous(), "wres", shape=(cin, cout), device=dev)
         bres = _f32(bres)
     lib = _cuda.lib()
     c1, c2, out = (torch.empty((b, n, cout), dtype=dt, device=dev) for _ in range(3))
-    part = torch.empty((b, lib.us_n_row_tiles(n), 2, cout), dtype=torch.float32, device=dev)
+    nt = max(lib.us_conv_n_tiles(n, f, cin), lib.us_conv_n_tiles(n, f, cout))
+    part = torch.empty((b, nt, 2, cout), dtype=torch.float32, device=dev)
     stats = torch.empty((4, b, cout), dtype=torch.float32, device=dev)  # mean/inv x 2
     operands = (x, w1, _f32(b1), _f32(s1), _f32(be1), film, w2, _f32(b2), _f32(s2), _f32(be2))
     _cuda.check(lib.us_resnet_block(
-        *(t.data_ptr() for t in operands), _cuda.ptr(wres), _cuda.ptr(bres), lens.data_ptr(),
+        *(t.data_ptr() for t in operands), _cuda.ptr(wr), _cuda.ptr(bres), lens.data_ptr(),
         c1.data_ptr(), c2.data_ptr(), part.data_ptr(), *(t.data_ptr() for t in stats),
-        out.data_ptr(), b, n, f, cin, cout, groups, GN_EPS, _cuda.stream(x)), what)
+        out.data_ptr(), b, n, f, cin, cout, groups, GN_EPS, bn2, _cuda.stream(x)),
+        what)
     return out
 
 
@@ -378,15 +458,17 @@ fused_resnet_block_int8.launches = 0
 def fused_resnet_block(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
                        w2, b2, gn2_scale, gn2_bias, wres=None, bres=None,
                        groups: int = 8, int8: bool = False, frames_per_tile: int = 0,
-                       wq=None):
+                       wq=None, packed=None):
     """One U-Net ResnetBlock (plain twin: models/unet.py ResnetBlock).
 
     x (B, T, F, Cin); mask (B, T, 1, 1) prefix mask; t_bias (B, Cout) the
     FiLM bias Dense(mish(t_emb)); w1/w2 (3, 3, Cin|Cout, Cout) flax conv
-    kernels (spatial (t, f)); wres/bres the optional 1x1 residual.
-    -> (B, T, F, Cout). CUDA tensors launch the kernel, CPU tensors take
-    resnet_block_plain. int8=True is K10a (fused_resnet_block_int8, which
-    takes frames_per_tile and wq); in bf16 they change nothing."""
+    kernels (spatial (t, f)); wres/bres the optional 1x1 residual; packed:
+    pack_block_weights of the three kernels when made at load (else the
+    launch packs them). -> (B, T, F, Cout). CUDA tensors launch the kernel
+    (widths: `takes`), CPU tensors take resnet_block_plain. int8=True is
+    K10a (fused_resnet_block_int8, which takes frames_per_tile and wq); in
+    bf16 they change nothing."""
     if int8:
         return fused_resnet_block_int8(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2,
                                        gn2_scale, gn2_bias, wres, bres, groups=groups,
@@ -395,7 +477,7 @@ def fused_resnet_block(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
     args = block_rows_args(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2, gn2_scale,
                            gn2_bias, wres, bres)
     if _cuda.route(x, "fused_resnet_block"):
-        out = _resnet_block_cuda(*args, f=f, groups=groups)
+        out = _resnet_block_cuda(*args, f=f, groups=groups, packed=packed)
         fused_resnet_block.launches += 1
     else:
         out = resnet_block_plain(*args, f=f, groups=groups)
@@ -415,12 +497,13 @@ def resnet_conv3x3_plain(x, lens_rows, w, bias, f: int, groups: int):
     return acc.to(x.dtype), mean[:, 0], inv[:, 0]
 
 
-def resnet_conv3x3(x, lens_rows, w, bias, f: int, groups: int = 8):
+def resnet_conv3x3(x, lens_rows, w, bias, f: int, groups: int = 8, packed=None):
     """Kernel A alone (K1/K8's conv1 with its statistics; JAX's
     _kernel_a_deep, probed alone by tools/bisect_deep_compile.py): x (B, N,
-    Cin) bf16 rows, lens_rows (B,) int32, w (9*Cin, Cout). -> (c bf16,
-    mean, inv (B, Cout) f32). CUDA tensors launch the kernel, CPU tensors
-    take resnet_conv3x3_plain."""
+    Cin) bf16 rows, lens_rows (B,) int32, w (9*Cin, Cout); packed:
+    pack_conv_weight of w as a (3, 3, Cin, Cout) kernel, made here when
+    absent. -> (c bf16, mean, inv (B, Cout) f32). CUDA tensors launch the
+    kernel, CPU tensors take resnet_conv3x3_plain."""
     if not _cuda.route(x, "resnet_conv3x3"):
         return resnet_conv3x3_plain(x, lens_rows, w, bias, f, groups)
     b, n, cin = x.shape
@@ -428,8 +511,10 @@ def resnet_conv3x3(x, lens_rows, w, bias, f: int, groups: int = 8):
     _check_shapes("resnet_conv3x3", x, cout, groups)
     _cuda.require(x, "x", dtype=x.dtype)
     _cuda.require(lens_rows, "lens", dtype=torch.int32, shape=(b,), device=x.device)
-    w = _cuda.require(w.to(x.dtype).contiguous(), "w", shape=(9 * cin, cout), device=x.device)
-    out = _conv_stats(_cuda.lib(), x, w, _f32(bias), lens_rows, f, groups)
+    if packed is None:
+        packed = pack_conv_weight(w.reshape(3, 3, cin, cout))
+    wp, bn = _packed_operand(packed, "w", 9, cin, cout, x.device)
+    out = _conv_stats(_cuda.lib(), x, wp, bn, _f32(bias), lens_rows, f, groups)
     resnet_conv3x3.launches += 1
     return out
 
@@ -450,11 +535,12 @@ def resnet_out_plain(c2, x, mean, inv, scale, shift, lens_rows, mode: str, wres=
 
 
 def resnet_out(c2, x, mean, inv, scale, shift, lens_rows, mode: str = "identity", wres=None,
-               bres=None):
+               bres=None, packed=None):
     """Kernel C alone (K1/K8's output kernel; JAX's _kernel_c in res_mode
     `mode`, probed alone by tools/bisect_deep_compile.py), arguments as
-    resnet_out_plain; bf16 out, f32 in mode "none". CUDA tensors launch the
-    kernel, CPU tensors take resnet_out_plain."""
+    resnet_out_plain; packed: pack_conv_weight of wres as a (1, 1, Cin,
+    Cout) kernel, made here when absent. bf16 out, f32 in mode "none". CUDA
+    tensors launch the kernel, CPU tensors take resnet_out_plain."""
     if mode not in OUT_MODES:
         raise ValueError(f"resnet_out: mode {mode!r}, expected one of {OUT_MODES}")
     if (mode == "matmul") != (wres is not None):
@@ -481,13 +567,16 @@ def resnet_out(c2, x, mean, inv, scale, shift, lens_rows, mode: str = "identity"
                                            lens_rows.data_ptr(), out.data_ptr(), b, n, cout,
                                            st), "resnet_out(none)")
     else:
+        wp, bn = None, 0
         if wres is not None:
-            wres = _cuda.require(wres.to(dt).contiguous(), "wres", shape=(cin, cout), device=dev)
+            if packed is None:
+                packed = pack_conv_weight(wres.reshape(1, 1, cin, cout))
+            wp, bn = _packed_operand(packed, "wres", 1, cin, cout, dev)
             bres = _f32(bres)
         out = torch.empty((b, n, cout), dtype=dt, device=dev)
         _cuda.check(lib.us_resnet_out(c2.data_ptr(), x.data_ptr(), mean.data_ptr(),
                                       inv.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                                      _cuda.ptr(wres), _cuda.ptr(bres), lens_rows.data_ptr(),
+                                      _cuda.ptr(wp), bn, _cuda.ptr(bres), lens_rows.data_ptr(),
                                       out.data_ptr(), b, n, cin, cout, st), f"resnet_out({mode})")
     resnet_out.launches += 1
     return out
@@ -496,17 +585,19 @@ def resnet_out(c2, x, mean, inv, scale, shift, lens_rows, mode: str = "identity"
 resnet_out.launches = 0
 
 
-def _final_block_cuda(x, lens, w1, b1, s1, be1, wo, bo, f, groups):
+def _final_block_cuda(x, lens, w1, b1, s1, be1, wo, bo, f, groups, packed=None):
     b, n, cin = x.shape
     cout = w1.shape[-1]
     _check_shapes("fused_final_block", x, cout, groups)
     dt, dev = x.dtype, x.device
     _cuda.require(x, "x", dtype=dt)
     _cuda.require(lens, "lens", dtype=torch.int32, shape=(b,), device=dev)
-    w1 = _cuda.require(w1.to(dt).contiguous(), "w1", shape=(9 * cin, cout), device=dev)
+    if packed is None:
+        packed = pack_conv_weight(w1.reshape(3, 3, cin, cout))
+    w1, bn = _packed_operand(packed, "w1", 9, cin, cout, dev)
     wo = _cuda.require(wo.to(dt).contiguous(), "w_out", shape=(cout,), device=dev)
     lib = _cuda.lib()
-    c1, mean, inv = _conv_stats(lib, x, w1, _f32(b1), lens, f, groups)
+    c1, mean, inv = _conv_stats(lib, x, w1, bn, _f32(b1), lens, f, groups)
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
     _cuda.check(
         lib.us_final_out(c1.data_ptr(), mean.data_ptr(), inv.data_ptr(), _f32(s1).data_ptr(),
@@ -517,10 +608,12 @@ def _final_block_cuda(x, lens, w1, b1, s1, be1, wo, bo, f, groups):
     return out
 
 
-def fused_final_block(x, mask, w1, b1, gn_scale, gn_bias, w_out, b_out, groups: int = 8):
+def fused_final_block(x, mask, w1, b1, gn_scale, gn_bias, w_out, b_out, groups: int = 8,
+                      packed=None):
     """conv3x3 + GN + mish + mask (the estimator's final_block) fused with
-    the 1-channel final_conv: x (B, T, F, C) -> (B, T, F) f32 score. CUDA
-    tensors launch the kernel, CPU tensors take final_block_plain."""
+    the 1-channel final_conv: x (B, T, F, C) -> (B, T, F) f32 score.
+    packed: pack_conv_weight(w1) when made at load. CUDA tensors launch the
+    kernel (widths: `takes`), CPU tensors take final_block_plain."""
     bsz, t, f, cin = x.shape
     cout = w1.shape[-1]
     args = (
@@ -528,7 +621,7 @@ def fused_final_block(x, mask, w1, b1, gn_scale, gn_bias, w_out, b_out, groups: 
         w1.reshape(9 * cin, cout), b1, gn_scale, gn_bias, w_out.reshape(cout), b_out,
     )
     if _cuda.route(x, "fused_final_block"):
-        out = _final_block_cuda(*args, f=f, groups=groups)
+        out = _final_block_cuda(*args, f=f, groups=groups, packed=packed)
         fused_final_block.launches += 1
     else:
         out = final_block_plain(*args, f=f, groups=groups)

@@ -43,30 +43,40 @@ from unitspeech_tpu_torch.ops.fused_resnet import (
     _gn_mish,
     _group_stats,
     _kernel_c_plain,
+    _packed_operand,
     _resnet_block_cuda,
     _resnet_block_i8_cuda,
     _valid,
     block_rows_args,
+    pack_conv_weight,
     quant_w,
     resnet_block_i8_plain,
     resnet_block_plain,
+    takes,
 )
 from unitspeech_tpu_torch.ops.row_stats import row_absmax
 
 DEEP_MAX_BYTES = 4 * 1024 * 1024  # T*F*max(cin, cout)*2, the TPU VMEM gate
 
 
+def takes_i8(cin: int, cout: int, groups: int = 8) -> bool:
+    """The widths K9's CUDA kernels take: K8's (`takes`) and Cin a multiple
+    of 16 (the int8 rows' 16-byte loads)."""
+    return cin % 16 == 0 and takes(cout, groups)
+
+
 def deep_route(t: int, f: int, cin: int, cout: int, use_int8: bool, use_deep: bool,
-               use_i8pre: bool):
+               use_i8pre: bool, groups: int = 8):
     """Which fused kernel a deep-stage ResnetBlock (one that K1 does not take
     and with max(cin, cout) >= 512) runs, as the JAX ResnetBlock routes it:
     "i8" (K9) when i8pre and int8 are on, cout <= 512 and the whole layer
     fits 4 MiB; else "bf16" (K8, also with int8 on) when the deep kernels are
-    on and it fits; else None (the flat route)."""
+    on and it fits; else None (the flat route). A kernel that does not take
+    the block's widths (takes_i8, takes) counts as a failed gate."""
     fits = t * f * max(cin, cout) * 2 <= DEEP_MAX_BYTES
-    if use_i8pre and use_int8 and cout <= 512 and fits:
+    if use_i8pre and use_int8 and cout <= 512 and fits and takes_i8(cin, cout, groups):
         return "i8"
-    if use_deep and fits:
+    if use_deep and fits and takes(cout, groups):
         return "bf16"
     return None
 
@@ -110,12 +120,14 @@ fused_resnet_block_deep_int8.launches = 0
 
 def fused_resnet_block_deep(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
                             w2, b2, gn2_scale, gn2_bias, wres=None, bres=None,
-                            groups: int = 8, int8: bool = False, wq=None):
+                            groups: int = 8, int8: bool = False, wq=None, packed=None):
     """One deep-stage ResnetBlock in bf16 (K8), with fused_resnet_block's
     arguments: x (B, T, F, Cin); mask (B, T, 1, 1); t_bias (B, Cout); flax
-    conv kernels; wres/bres the optional 1x1 residual. -> (B, T, F, Cout).
-    CUDA tensors launch the kernel, CPU tensors take resnet_block_plain.
-    int8=True is K10b (fused_resnet_block_deep_int8, which takes wq)."""
+    conv kernels; wres/bres the optional 1x1 residual; packed: their
+    pack_block_weights when made at load. -> (B, T, F, Cout). CUDA tensors
+    launch the kernel (widths: `takes`), CPU tensors take
+    resnet_block_plain. int8=True is K10b (fused_resnet_block_deep_int8,
+    which takes wq)."""
     if int8:
         return fused_resnet_block_deep_int8(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2,
                                             b2, gn2_scale, gn2_bias, wres, bres, groups=groups,
@@ -124,7 +136,8 @@ def fused_resnet_block_deep(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
     args = block_rows_args(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2, gn2_scale,
                            gn2_bias, wres, bres)
     if _cuda.route(x, "fused_resnet_block_deep"):
-        out = _resnet_block_cuda(*args, f=f, groups=groups, what="fused_resnet_block_deep")
+        out = _resnet_block_cuda(*args, f=f, groups=groups, packed=packed,
+                                 what="fused_resnet_block_deep")
         fused_resnet_block_deep.launches += 1
     else:
         out = resnet_block_plain(*args, f=f, groups=groups)
@@ -186,11 +199,13 @@ def resnet_block_deep_i8_plain(x, lens_rows, t_bias, w1, wq1, b1, s1, be1, wq2, 
 
 
 def _deep_i8_cuda(x, lens, t_bias, w1, wq1, b1, s1, be1, wq2, b2, s2, be2, wres, bres, f,
-                  groups, mask):
+                  groups, mask, packed):
+    """K9's chain; packed: (conv1, -, 1x1 residual) from pack_block_weights
+    (conv1 read for Cin > Cout only), made here when absent."""
     b, n, cin = x.shape
     cout = b1.shape[-1]
     _check_shapes("fused_resnet_block_deep_i8", x, cout, groups)
-    if cin % 16:
+    if not takes_i8(cin, cout, groups):
         raise ValueError(f"fused_resnet_block_deep_i8: Cin={cin} must be a multiple of 16")
     if wres is None and cin != cout:
         raise ValueError("fused_resnet_block_deep_i8: identity residual needs Cin == Cout")
@@ -201,18 +216,21 @@ def _deep_i8_cuda(x, lens, t_bias, w1, wq1, b1, s1, be1, wq2, b2, s2, be2, wres,
     w8t2 = _cuda.require(wq2[0], "w8t2", dtype=torch.int8, shape=(cout, 9 * cout), device=dev)
     rsw2 = _cuda.require(_f32(wq2[1]), "rsw2", shape=(cout,), device=dev)
     lib, st = _cuda.lib(), _cuda.stream(x)
+    # conv1 in bf16 (Cin > Cout) writes the Hopper loop's tiles, the int8
+    # convs whole-row tiles: each GroupNorm reads its producer's count
+    nt1 = lib.us_conv_n_tiles(n, f, cin) if cin > cout else lib.us_n_row_tiles(n)
     nt = lib.us_n_row_tiles(n)
-    part = torch.empty((b, nt, 2, cout), dtype=torch.float32, device=dev)
+    part = torch.empty((b, max(nt1, nt), 2, cout), dtype=torch.float32, device=dev)
     mean1, inv1, mean2, inv2, swe = torch.empty((5, b, cout), dtype=torch.float32, device=dev)
     sx = torch.empty((b,), dtype=torch.float32, device=dev)
     c1, c2, out = (torch.empty((b, n, cout), dtype=dt, device=dev) for _ in range(3))
     b1, s1, be1, b2, s2, be2 = map(_f32, (b1, s1, be1, b2, s2, be2))
     if cin > cout:  # conv1 in bf16 (JAX's hybrid): K8's kernel A
-        w1 = _cuda.require(w1.to(dt).contiguous(), "w1", shape=(9 * cin, cout), device=dev)
-        _cuda.check(lib.us_resnet_conv3x3(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                                          lens.data_ptr(), None, None, None, None, None,
-                                          c1.data_ptr(), part.data_ptr(), b, n, f, cin, cout,
-                                          st), "K9 conv1 (bf16)")
+        w1p = pack_conv_weight(w1.reshape(3, 3, cin, cout)) if packed is None else packed[0]
+        w1p, bn = _packed_operand(w1p, "w1", 9, cin, cout, dev)
+        _cuda.check(lib.us_resnet_conv3x3(x.data_ptr(), w1p.data_ptr(), bn, b1.data_ptr(),
+                                          lens.data_ptr(), c1.data_ptr(), part.data_ptr(), b, n,
+                                          f, cin, cout, st), "K9 conv1 (bf16)")
     else:
         w8t1 = _cuda.require(wq1[0], "w8t1", dtype=torch.int8, shape=(cout, 9 * cin),
                              device=dev)
@@ -228,7 +246,7 @@ def _deep_i8_cuda(x, lens, t_bias, w1, wq1, b1, s1, be1, wq2, b2, s2, be2, wres,
                                              b1.data_ptr(), lens.data_ptr(), c1.data_ptr(),
                                              part.data_ptr(), b, n, f, cin, cout, st),
                     "K9 conv1")
-    _cuda.check(lib.us_gn_finalize(part.data_ptr(), b, nt, cout, groups, n, GN_EPS,
+    _cuda.check(lib.us_gn_finalize(part.data_ptr(), b, nt1, cout, groups, n, GN_EPS,
                                    mean1.data_ptr(), inv1.data_ptr(), st), "K9 GroupNorm 1")
     amax_h = torch.empty((b, lib.us_i8_glue_chunks(n), cout), dtype=torch.float32, device=dev)
     h8 = torch.empty((b, n, cout), dtype=torch.int8, device=dev)
@@ -242,11 +260,14 @@ def _deep_i8_cuda(x, lens, t_bias, w1, wq1, b1, s1, be1, wq2, b2, s2, be2, wres,
                                          part.data_ptr(), b, n, f, cout, cout, st), "K9 conv2")
     _cuda.check(lib.us_gn_finalize(part.data_ptr(), b, nt, cout, groups, n, GN_EPS,
                                    mean2.data_ptr(), inv2.data_ptr(), st), "K9 GroupNorm 2")
+    wrp, bn = None, 0
     if wres is not None:
-        wres = _cuda.require(wres.to(dt).contiguous(), "wres", shape=(cin, cout), device=dev)
+        wrp = (pack_conv_weight(wres.reshape(1, 1, cin, cout)) if packed is None
+               else packed[2])
+        wrp, bn = _packed_operand(wrp, "wres", 1, cin, cout, dev)
         bres = _f32(bres)
     _cuda.check(lib.us_resnet_out(c2.data_ptr(), x.data_ptr(), mean2.data_ptr(), inv2.data_ptr(),
-                                  s2.data_ptr(), be2.data_ptr(), _cuda.ptr(wres),
+                                  s2.data_ptr(), be2.data_ptr(), _cuda.ptr(wrp), bn,
                                   _cuda.ptr(bres), lens.data_ptr(), out.data_ptr(), b, n, cin,
                                   cout, st), "K9 output")
     return out
@@ -254,11 +275,13 @@ def _deep_i8_cuda(x, lens, t_bias, w1, wq1, b1, s1, be1, wq2, b2, s2, be2, wres,
 
 def fused_resnet_block_deep_i8(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
                                w2, b2, gn2_scale, gn2_bias, wres=None, bres=None,
-                               groups: int = 8, wq=None):
+                               groups: int = 8, wq=None, packed=None):
     """One deep-stage ResnetBlock with int8 convs on pre-quantized
     activations (K9), with fused_resnet_block's arguments; wq = (quant_w(w1),
-    quant_w(w2)) when computed at load, else computed here. -> (B, T, F,
-    Cout). CUDA tensors launch the kernel, CPU tensors take
+    quant_w(w2)) when computed at load, else computed here; packed: the
+    kernels' pack_block_weights when made at load (the bf16 conv1 for Cin >
+    Cout and the 1x1 residual read them). -> (B, T, F, Cout). CUDA tensors
+    launch the kernel (widths: takes_i8), CPU tensors take
     resnet_block_deep_i8_plain."""
     bsz, t, f, cin = x.shape
     cout = w1.shape[-1]
@@ -267,7 +290,7 @@ def fused_resnet_block_deep_i8(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
         x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2, gn2_scale, gn2_bias, wres, bres)
     args = (xr, lens, tb, w1r, wq1, b1, s1, be1, wq2, b2, s2, be2, wres, bres)
     if _cuda.route(x, "fused_resnet_block_deep_i8"):
-        out = _deep_i8_cuda(*args, f=f, groups=groups, mask=mask)
+        out = _deep_i8_cuda(*args, f=f, groups=groups, mask=mask, packed=packed)
         fused_resnet_block_deep_i8.launches += 1
     else:
         out = resnet_block_deep_i8_plain(*args, f=f, groups=groups)

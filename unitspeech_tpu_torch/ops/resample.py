@@ -127,7 +127,7 @@ def up_stage_taps():
             for q in range(4)]
 
 
-def _swizzle128(t):
+def swizzle128(t):
     """(..., BN, 64) -> the 128-byte swizzle of a K-major wgmma tile: the
     16-byte chunk j of row n is stored at chunk j ^ (n % 8)."""
     *lead, bn, k = t.shape
@@ -136,7 +136,7 @@ def _swizzle128(t):
     return v[..., r[:, None], r[:, None] ^ r[None, :], :].reshape(*lead, bn, k)
 
 
-def _pad_chunks(w, cin):
+def pad_chunks(w, cin):
     """(taps..., Cin, Cout) -> Cin padded with zero rows to whole chunks."""
     nc = -(-cin // KC)
     return F.pad(w, (0, 0, 0, nc * KC - cin)), nc
@@ -148,9 +148,9 @@ def pack_downsample_weight(kernel):
     swizzle."""
     _, _, cin, cout = kernel.shape
     bn = tile_cols(False, cout)
-    w, nc = _pad_chunks(kernel.detach().to(torch.bfloat16).reshape(9, cin, cout), cin)
+    w, nc = pad_chunks(kernel.detach().to(torch.bfloat16).reshape(9, cin, cout), cin)
     w = w.reshape(9, nc, KC, cout // bn, bn).permute(3, 1, 0, 4, 2)
-    return _swizzle128(w).contiguous()
+    return swizzle128(w).contiguous()
 
 
 def pack_upsample_weight(kernel):
@@ -161,9 +161,9 @@ def pack_upsample_weight(kernel):
     bn = tile_cols(True, cout)
     taps = torch.tensor(up_stage_taps(), device=kernel.device)
     w = kernel.detach().to(torch.bfloat16).reshape(16, cin, cout)[taps]
-    w, nc = _pad_chunks(w, cin)
+    w, nc = pad_chunks(w, cin)
     w = w.reshape(4, 4, nc, KC, cout // bn, bn).permute(4, 2, 0, 1, 5, 3)
-    return _swizzle128(w).contiguous()
+    return swizzle128(w).contiguous()
 
 
 def _resample_cuda(fn, what, up, x, bias, packed, lens, rows_out):

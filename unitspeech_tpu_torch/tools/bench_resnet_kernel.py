@@ -33,7 +33,7 @@ import argparse
 import torch
 
 from unitspeech_tpu_torch.models.unet import ResnetBlock, fused_kernel_shape, mish
-from unitspeech_tpu_torch.ops.fused_resnet import fused_resnet_block, quant_w
+from unitspeech_tpu_torch.ops.fused_resnet import fused_resnet_block, pack_block_weights, quant_w
 from unitspeech_tpu_torch.ops.fused_resnet_deep import (
     fused_resnet_block_deep,
     fused_resnet_block_deep_i8,
@@ -66,18 +66,21 @@ def _fused_fn(block, x, mask, t_emb, dtype, args):
     t_bias = block.mlp(mish(t_emb), dtype=dtype)
     params = (t_bias, c1.kernel, c1.bias, *block.block1.norm.params(), c2.kernel, c2.bias,
               *block.block2.norm.params())
-    wq = (quant_w(c1.kernel), quant_w(c2.kernel))  # once, as at load
+    # quantized and packed once, as at load
+    wq = (quant_w(c1.kernel), quant_w(c2.kernel))
+    packed = pack_block_weights(c1.kernel, c2.kernel)
     if fused_kernel_shape(x.shape[2]):
         name = "K10a" if args.int8 else "K1"
         return name, lambda: fused_resnet_block(x, mask, *params, groups=8, int8=args.int8,
-                                                wq=wq)
+                                                wq=wq, packed=packed)
     if not args.deep:
         return None
     if args.i8pre:
-        return "K9", lambda: fused_resnet_block_deep_i8(x, mask, *params, groups=8, wq=wq)
+        return "K9", lambda: fused_resnet_block_deep_i8(x, mask, *params, groups=8, wq=wq,
+                                                        packed=packed)
     name = "K10b" if args.int8 else "K8"
     return name, lambda: fused_resnet_block_deep(x, mask, *params, groups=8, int8=args.int8,
-                                                 wq=wq)
+                                                 wq=wq, packed=packed)
 
 
 def main(argv=None) -> dict:

@@ -36,6 +36,8 @@ from unitspeech_tpu_torch.ops import _cuda
 from unitspeech_tpu_torch.ops.fused_resnet import (
     OUT_MODES,
     _group_stats,
+    pack_block_weights,
+    pack_conv_weight,
     resnet_conv3x3,
     resnet_out,
 )
@@ -93,22 +95,27 @@ def case_inputs(name: str, dev) -> dict:
 
 def probes(name: str, p: dict) -> dict:
     """The calls of one case: the block, kernel A alone and kernel C alone
-    in each of its modes that the shapes allow."""
+    in each of its modes that the shapes allow, with the weights packed once
+    (as the estimator packs them at load)."""
     t, f, cin, cout = CASES[name]
     x_rows = p["x"].reshape(1, t * f, cin)
+    packed = pack_block_weights(p["w1"], p["w2"], p["wres"])
+    wres_c = pack_conv_weight(p["wres_c"].reshape(1, 1, cin, cout))
     calls = {
         "block": lambda: fused_resnet_block_deep(
             p["x"], p["mask"], p["t_bias"], p["w1"], p["b1"], p["s1"], p["be1"], p["w2"],
-            p["b2"], p["s2"], p["be2"], wres=p["wres"], bres=p["bres"], groups=8),
+            p["b2"], p["s2"], p["be2"], wres=p["wres"], bres=p["bres"], groups=8,
+            packed=packed),
         "a": lambda: resnet_conv3x3(x_rows, p["lens"], p["w1"].reshape(9 * cin, cout), p["b1"],
-                                    f, groups=8),
+                                    f, groups=8, packed=packed[0]),
     }
     for mode in OUT_MODES:
         if mode == "identity" and cin != cout:
             continue
         wres = (p["wres_c"], p["bres_c"]) if mode == "matmul" else (None, None)
         calls[f"c_{mode}"] = (lambda m=mode, w=wres: resnet_out(
-            p["c2"], x_rows, p["mean"], p["inv"], p["s2"], p["be2"], p["lens"], m, *w))
+            p["c2"], x_rows, p["mean"], p["inv"], p["s2"], p["be2"], p["lens"], m, *w,
+            packed=wres_c if m == "matmul" else None))
     return calls
 
 
