@@ -8,7 +8,10 @@ loop's yardstick, which the port never calls), then serve adaptive-TTS
 requests through the port's CLI at full model width (random weights from a
 seed): with its serving defaults
 (every kernel, int8 deep-stage convs), and with the fused deep-stage
-configuration (`--deep --i8pre --resample`: K8, K9, K11). Then check what
+configuration (`--deep --i8pre --resample`: K8, K9, K11). K9's int8 convs
+are also held alone, bit-equal to the plain int8 product and dequantize,
+and the launches inside K4 and K9 are timed one by one
+(tools/kernel_breakdown.py). Then check what
 comes out: each kernel path against the plain path, the int8 gates and the
 kernel vocoder, each run with the exact kernel launches its path makes.
 Last, the paths of the kernels that no request runs, the port's four tools
@@ -79,10 +82,10 @@ K3_SITES = [  # (rows, C, input dtype, launches): GroupNorm statistics of the
     (430, 512, "float32", counts(0, 4, 0, 0)), (1720, 256, "float32", counts(0, 2, 0, 0)),
 ]
 K7_SITES = [  # (rows, C, launches): the int8 activation scale of every flat
-    # deep-stage conv input (nine blocks, two convs each), and of K9's conv1
-    # input where Cin <= Cout (down_2_res1, down_2_res2, up_2_res2)
-    (1720, 256, counts(2, 0, 0, 1)), (1720, 512, counts(3, 0, 0, 1)),
-    (1720, 1024, counts(1, 0, 0, 0)), (430, 512, counts(4, 0, 0, 1)),
+    # deep-stage conv input (nine blocks, two convs each; K9 finds its conv1
+    # input's scale itself)
+    (1720, 256, counts(2, 0, 0, 0)), (1720, 512, counts(3, 0, 0, 0)),
+    (1720, 1024, counts(1, 0, 0, 0)), (430, 512, counts(4, 0, 0, 0)),
     (430, 1024, counts(7, 0, 0, 0)), (430, 2048, counts(1, 0, 0, 0)),
 ]
 # The deep blocks (F, T, Cin, Cout, launches): down_2 res1/res2, down_3
@@ -109,7 +112,7 @@ K5_SITES = [(t, c, k, d, res, 3 if res else 1) for t, c in VOC_STAGES for k in (
 # 344, except that up_1_res1 (1024 -> 256 at F = 20, T = 138) fails K9's
 # 4 MiB gate and runs the flat int8 route (K3 and K7 twice each)
 DEEP_I8_552 = {"fused_resnet_block": 6, "fused_final_block": 1, "row_stats": 4,
-               "fused_rezero_attention": 5, "row_absmax": 5, "fused_resnet_block_deep": 4,
+               "fused_rezero_attention": 5, "row_absmax": 2, "fused_resnet_block_deep": 4,
                "fused_resnet_block_deep_i8": 4, "fused_downsample_conv": 2,
                "fused_upsample_conv": 1}
 K6_SITE = (88064, 32)
@@ -383,10 +386,12 @@ def check_kernels(torch, dev):
         w_qkv, w_out = rand(c, 384, scale=c ** -0.5), rand(128, c, scale=128 ** -0.5)
         b_out, gate = rand(c, scale=0.1), torch.tensor([0.7], device=dev)
         lens = torch.tensor([n, n * PADDED // FRAMES, n], dtype=torch.int32, device=dev)
+        # packed once, as the estimator packs them when its weights load
+        packed = fused_attention.pack_attention_weights(w_qkv, w_out)
         compare("fused_rezero_attention", "unitspeech_tpu_torch/csrc/rezero_attention.cu",
                 "unitspeech_tpu/ops/pallas_attention.py:183", f"N={n} C={c}",
                 lambda: fused_attention.fused_rezero_attention(x, w_qkv, w_out, b_out, gate,
-                                                               lens),
+                                                               lens, packed=packed),
                 lambda: fused_attention.rezero_attention_plain(x, w_qkv, w_out, b_out, gate,
                                                                lens, 4, 32),
                 BF16_REL, counts(1),
@@ -432,18 +437,42 @@ def check_kernels(torch, dev):
 
     for f, t, cin, cout, per_call in K9_SITES:
         x, mask, lens, p = block_inputs(t, f, cin, cout)
+        # the FiLM bias in the activation dtype, as the estimator's MLP gives it
+        p["t_bias"] = p["t_bias"].to(torch.bfloat16)
         # weights quantized and packed once, as the estimator does when they load
         wq = (fused_resnet_deep.quant_w(p["w1"]), fused_resnet_deep.quant_w(p["w2"]))
-        packed = packed_of(p)
+        packed = fused_resnet_deep.pack_block_weights_i8(p["w1"], wq, p.get("wres"))
         a = rows_args(x, lens, p, t, f, cin, cout)
         args = (*a[:4], wq[0], *a[4:7], wq[1], *a[8:])
         compare("fused_resnet_block_deep_i8", "unitspeech_tpu_torch/csrc/resnet_deep_i8.cu",
                 "unitspeech_tpu/ops/pallas_resnet.py:1106", f"F={f} T={t} {cin}->{cout}",
+                # the valid rows counted once, as the estimator counts them a level
                 lambda: fused_resnet_deep.fused_resnet_block_deep_i8(x, mask, groups=8, wq=wq,
-                                                                     packed=packed, **p),
+                                                                     packed=packed,
+                                                                     lens_rows=lens, **p),
                 lambda: fused_resnet_deep.resnet_block_deep_i8_plain(*args, f=f, groups=8),
                 I8_REL, per_call,
                 block_work(3, t * f, cin, cout, i8_conv1=cin <= cout, i8_conv2=True))
+        # K9's int8 convs alone (conv1 where Cin <= Cout, conv2), bit-equal
+        # to the plain int8 product and dequantize on the same int8 inputs
+        for conv, ci, pk, q in (("conv1", cin, packed[0], wq[0]),
+                                ("conv2", cout, packed[1], wq[1])):
+            if ci > cout:
+                continue
+            x8 = torch.randint(-127, 128, (3, t * f, ci), generator=g).to(torch.int8).to(dev)
+            x8[1, int(lens[1]):] = 0
+            sx = (torch.rand(3, generator=g) * 40 + 10).to(dev)
+            n = t * f
+            compare("resnet_conv3x3_i8", "unitspeech_tpu_torch/csrc/resnet_block.cu",
+                    "unitspeech_tpu/ops/pallas_resnet.py:1106", f"F={f} T={t} {conv} {ci}->{cout}",
+                    lambda: fused_resnet_deep.resnet_conv3x3_i8(x8, sx, q, p["b1"], lens, f,
+                                                                packed=pk),
+                    lambda: fused_resnet_deep._dequant(
+                        fused_resnet_deep._conv3x3_i8_plain(x8, q, f), sx, q[1],
+                        p["b1"]).to(torch.bfloat16),
+                    0.0, counts(0),
+                    {"bytes": 3 * n * ci + 9 * ci * cout + 2 * 3 * n * cout + 4 * 3 * cout,
+                     "i8": 2 * 3 * n * 9 * ci * cout, "f32": 3 * 3 * n * cout})
 
     # K10a / K10b: one launch per block call of the kernel benchmark; the
     # same int8 bound as K9 (both quantize conv2's input after GroupNorm
@@ -947,7 +976,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     from unitspeech_tpu_torch.ops import _cuda
-    from unitspeech_tpu_torch.tools import device_line
+    from unitspeech_tpu_torch.tools import device_line, kernel_breakdown
 
     smi = device_line(dev)  # nvidia-smi's name and power limit
     print(smi, flush=True)
@@ -960,6 +989,9 @@ def main(argv=None) -> int:
     print("kernel vs plain (bf16, B=3, lengths 344/301/344 of the bucket):", flush=True)
     records = check_kernels(torch, dev)
     per_call = per_call_counts(records)
+    print("per-launch device time inside K4 and K9 at their sites (torch.profiler; "
+          "python -m unitspeech_tpu_torch.tools.kernel_breakdown):", flush=True)
+    breakdown = kernel_breakdown.breakdown(dev)
 
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, launches = serve(torch, tmp, per_call)
@@ -972,7 +1004,8 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": smi, "records": records, "paths": paths, "kernels": kernels,
-                       "launches": launches, "tools": tools}, f, indent=1)
+                       "launches": launches, "tools": tools, "breakdown": breakdown}, f,
+                      indent=1)
     print(json.dumps({"paths": paths}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}))

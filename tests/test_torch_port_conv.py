@@ -29,6 +29,7 @@ from unitspeech_tpu_torch.models import unet as tunet
 from unitspeech_tpu_torch.models import vocoder as tvoc
 from unitspeech_tpu_torch.ops import _cuda, aa_snake, fused_attention, resample
 from unitspeech_tpu_torch.ops import fused_resnet as fr
+from unitspeech_tpu_torch.ops import fused_resnet_deep as frd
 from unitspeech_tpu_torch.ops.conv_matmul import conv3x3_rows, im2col
 
 KC = fr.KC
@@ -469,8 +470,8 @@ def test_wrappers_refuse_what_takes_refuses(monkeypatch, cout):
 
 # dim 64 at 80 mel bins -> the ResnetBlocks each route reads packed weights
 # for: K1 at F = 80 / 40, K8 or K9 at the 512-wide (flat) F = 20 / 10 blocks;
-# the 256-wide blocks at F = 20 take plain Blocks; K9 reads only conv1 for
-# Cin > Cout and the 1x1 residual
+# the 256-wide blocks at F = 20 take plain Blocks; K9 reads its int8 convs'
+# tiles (conv1's in bf16 for Cin > Cout) and the 1x1 residual
 K1_BLOCKS = {"down_0_res1", "down_0_res2", "down_1_res1", "down_1_res2", "up_0_res1",
              "up_0_res2"}
 DEEP_BLOCKS = {"down_3_res1", "down_3_res2", "mid_res1", "mid_res2", "up_2_res1", "up_1_res1"}
@@ -481,9 +482,10 @@ def test_pack_only_what_routes_read(path):
     """The load hook packs a ResnetBlock's convs only where its route at
     its stage's F reads them: on the serving default (int8) and bf16 paths
     only the K1 blocks carry packed weights (none of the deep-stage flat
-    blocks), on the deep path the K8 blocks too, on deep_i8 K9's conv1
-    (Cin > Cout) and 1x1 residual alone; the plain path packs nothing. Each
-    block's route at F agrees: a packed block is one a kernel takes."""
+    blocks), on the deep path the K8 blocks too, on deep_i8 the K9 blocks'
+    int8 tiles of quant_w's values (conv1 in bf16 for Cin > Cout) and 1x1
+    residual; the plain path packs nothing. Each block's route at F
+    agrees: a packed block is one a kernel takes."""
     from unitspeech_tpu_torch.utils.params import _random_leaf
 
     flags = {"int8": dict(use_kernels=True, use_int8_deep=True),
@@ -501,7 +503,7 @@ def test_pack_only_what_routes_read(path):
     blocks = {n: m for n, m in est.named_modules() if isinstance(m, tunet.ResnetBlock)}
     packed = {n for n, m in blocks.items() if m.packed is not None}
     want = {"plain": set(), "deep": K1_BLOCKS | DEEP_BLOCKS,
-            "deep_i8": K1_BLOCKS | {"down_3_res1", "up_2_res1", "up_1_res1"}}
+            "deep_i8": K1_BLOCKS | DEEP_BLOCKS}
     assert packed == want.get(path, K1_BLOCKS)
     for name in packed:
         m = blocks[name]
@@ -510,7 +512,12 @@ def test_pack_only_what_routes_read(path):
             assert all(p is not None for p in m.packed[:2])
             assert (m.packed[2] is None) == (m.res_conv is None)
         else:  # K9
-            assert (m.packed[0] is None) == (cin <= cout) and m.packed[1] is None
-            assert m.packed[2] is not None
-            assert torch.equal(m.packed[2], fr.pack_conv_weight(m.res_conv.kernel))
+            w1, w2 = m.block1.conv.kernel, m.block2.conv.kernel
+            want1 = (fr.pack_conv_weight(w1) if cin > cout
+                     else frd.pack_conv_weight_i8(fr.quant_w(w1)[0], cin))
+            assert torch.equal(m.packed[0], want1)
+            assert torch.equal(m.packed[1], frd.pack_conv_weight_i8(fr.quant_w(w2)[0], cout))
+            assert (m.packed[2] is None) == (m.res_conv is None)
+            if m.res_conv is not None:
+                assert torch.equal(m.packed[2], fr.pack_conv_weight(m.res_conv.kernel))
     assert (est.final_packed is not None) == bool(flags)

@@ -136,19 +136,96 @@ def test_row_stats(dev, dtype):
     _assert_close(row_stats.row_stats(x), row_stats.row_stats_plain(x), 1e-4)
 
 
+# K4: the five sites of one estimator call, ragged N (a 1-row last tile, a
+# tile count the blocks do not divide), and the weights packed at load or
+# on the spot
+ATTN_CASES = [(27520, 128, True), (6880, 256, True), (6880, 128, True), (1720, 512, True),
+              (1720, 256, True), (1000, 256, False), (4096, 128, False), (129, 128, True),
+              (1337, 512, False)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,c", [(1000, 256), (4096, 128)])
-def test_fused_rezero_attention(dev, n, c):
+@pytest.mark.parametrize("n,c,pack", ATTN_CASES)
+def test_fused_rezero_attention(dev, n, c, pack):
     rng = np.random.default_rng(n)
     r = lambda *s, scale=1.0: _rand(rng, dev, *s, scale=scale)  # noqa: E731
     x = r(3, n, c).to(torch.bfloat16)
     w_qkv, w_out = r(c, 384, scale=c ** -0.5), r(128, c, scale=128 ** -0.5)
     b_out, g = r(c, scale=0.1), torch.tensor([0.7], device=dev)
     lens = torch.tensor([n, n * 7 // 9, n], dtype=torch.int32, device=dev)
-    got = fused_attention.fused_rezero_attention(x, w_qkv, w_out, b_out, g, lens)
+    packed = fused_attention.pack_attention_weights(w_qkv, w_out) if pack else None
+    before = fused_attention.fused_rezero_attention.launches
+    got = fused_attention.fused_rezero_attention(x, w_qkv, w_out, b_out, g, lens, packed=packed)
+    assert fused_attention.fused_rezero_attention.launches == before + 1
     want = fused_attention.rezero_attention_plain(x, w_qkv, w_out, b_out, g, lens, 4, 32)
     assert not got[1, lens[1]:].any()  # rows past the length come out zero
     _assert_close(got, want, BF16_REL)
+    again = fused_attention.fused_rezero_attention(x, w_qkv, w_out, b_out, g, lens,
+                                                   packed=packed)
+    assert torch.equal(got, again)  # fixed order: the same bits every call
+
+
+# (B, N) -> K4's schedule on the H100 (132 SMs): (tiles, P, P2), the plans
+# tests/test_torch_port_attention.py replays
+K4_PLANS = {(3, 27520): (215, 22, 44), (3, 6880): (54, 22, 44), (3, 1720): (14, 14, 14),
+            (3, 1000): (8, 8, 8), (3, 129): (2, 2, 2), (1, 27520): (215, 66, 132),
+            (3, 4096): (32, 22, 32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", list(K4_PLANS))
+def test_attn_plan_matches_replay(dev, b, n):
+    """The card's schedule (us_attn_plan, which the kernel launches by and
+    the wrapper sizes the partials by) is the one the CPU tests replay."""
+    plan = fused_attention.attn_plan(b, n)
+    assert (plan["tiles"], plan["p1"], plan["p2"]) == K4_PLANS[(b, n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [27520, 300])
+def test_fused_rezero_attention_one_row(dev, n):
+    """B = 1 (twice the blocks a batch element) and no output mask."""
+    rng = np.random.default_rng(n + 1)
+    r = lambda *s, scale=1.0: _rand(rng, dev, *s, scale=scale)  # noqa: E731
+    x = r(1, n, 128).to(torch.bfloat16)
+    w_qkv, w_out = r(128, 384, scale=128 ** -0.5), r(128, 128, scale=128 ** -0.5)
+    b_out, g = r(128, scale=0.1), torch.tensor([0.7], device=dev)
+    got = fused_attention.fused_rezero_attention(x, w_qkv, w_out, b_out, g)
+    want = fused_attention.rezero_attention_plain(x, w_qkv, w_out, b_out, g, None, 4, 32)
+    _assert_close(got, want, BF16_REL)
+
+
+# K9's int8 conv alone (F, T, Cin, Cout): its conv sites at the 344-frame
+# bucket, and ragged shapes (a Cin of one partial 128-channel chunk, T that
+# leaves a partial row tile, Cout = 64 tiles)
+I8_CONV_CASES = [(20, 86, 256, 512), (20, 86, 512, 512), (10, 43, 512, 512), (20, 86, 256, 256),
+                 (10, 43, 512, 1024), (10, 7, 48, 128), (20, 13, 1024, 192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,t,cin,cout", I8_CONV_CASES)
+def test_resnet_conv3x3_i8_bit_exact(dev, f, t, cin, cout):
+    """The Hopper int8 conv equals _conv3x3_i8_plain + _dequant bit for bit
+    (integer products are exact; the dequantize rounds the same operations),
+    rows past each length zero in its input; packed once or on the spot."""
+    g = torch.Generator().manual_seed(cin + cout + t)
+    n = t * f
+    lens = torch.tensor([n, (t - 3) * f, 2 * f], dtype=torch.int32, device=dev)
+    x8 = torch.randint(-127, 128, (3, n, cin), generator=g).to(torch.int8).to(dev)
+    for i in range(3):
+        x8[i, int(lens[i]):] = 0
+    w = torch.randn(3, 3, cin, cout, generator=g).to(dev)
+    wq = fused_resnet_deep.quant_w(w)
+    sx = (torch.rand(3, generator=g) * 40 + 10).to(dev)
+    bias = torch.randn(cout, generator=g).to(dev)
+    got = fused_resnet_deep.resnet_conv3x3_i8(x8, sx, wq, bias, lens, f)
+    want = fused_resnet_deep._dequant(fused_resnet_deep._conv3x3_i8_plain(x8, wq, f), sx, wq[1],
+                                      bias).to(torch.bfloat16)
+    packed = fused_resnet_deep.pack_conv_weight_i8(wq[0], cin)
+    again = fused_resnet_deep.resnet_conv3x3_i8(x8, sx, wq, bias, lens, f, packed=packed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(again, want)
 
 
 @pytest.mark.cuda
@@ -697,6 +774,76 @@ def test_cli_inference_dim64(dev, tmp_path):
             n = w.getnframes()
             pcm = np.frombuffer(w.readframes(n), np.int16)
         assert n > 0 and np.any(pcm) and stats["kernels"]
+
+
+@pytest.mark.cuda
+def test_weight_update_requantizes_on_load(dev):
+    """K9's int8 tiles and K4's packed projections are made by
+    load_state_dict: a weight update loaded again re-quantizes and re-packs
+    them, and the estimator then gives what a fresh estimator with the new
+    weights gives, bit for bit."""
+    from unitspeech_tpu_torch.models import unet as tunet
+
+    rng = np.random.default_rng(8)
+    flags = dict(use_kernels=True, use_int8_deep=True, use_deep=True, use_resample=True,
+                 use_i8pre_deep=True)
+    with dev:
+        est = tunet.GradLogPEstimator2d(**DIM64, dtype=torch.bfloat16, **flags)
+        fresh = tunet.GradLogPEstimator2d(**DIM64, dtype=torch.bfloat16, **flags)
+    sd = _estimator_sd(tunet, rng, est)
+    est.load_state_dict(sd)
+    old = (est.mid_res1.packed[0].clone(), est.mid_res1.packed[1].clone(),
+           est.mid_res1.i8pre_weights[1][0].clone(), est.down_1_attn.packed[0].clone())
+    for k in ("mid_res1.block1.conv.kernel", "mid_res1.block2.conv.kernel",
+              "down_1_attn.fn.to_qkv.kernel"):
+        sd[k] = sd[k] * -1.5 + 0.01
+    est.load_state_dict(sd)
+    fresh.load_state_dict(sd)
+    new = (est.mid_res1.packed[0], est.mid_res1.packed[1], est.mid_res1.i8pre_weights[1][0],
+           est.down_1_attn.packed[0])
+    assert est.mid_res1.packed[1].dtype == torch.int8
+    assert not any(torch.equal(a, b) for a, b in zip(old, new))
+    w2 = est.mid_res1.block2.conv.kernel
+    assert torch.equal(new[1], fused_resnet_deep.pack_conv_weight_i8(
+        fused_resnet.quant_w(w2)[0], w2.shape[2]))
+    t = 32
+    x, mu = _rand(rng, dev, 2, t, 80), _rand(rng, dev, 2, t, 80)
+    mask = _mask(dev, t, [t, 19])[:, :, 0, 0]
+    args = (x, mask, mu, torch.tensor([0.6, 0.3], device=dev), _rand(rng, dev, 2, 256))
+    with torch.no_grad():
+        assert torch.equal(est(*args), fresh(*args))
+
+
+@pytest.mark.cuda
+def test_weight_update_in_place_then_pack(dev):
+    """A conv weight of a K9 block changed in place and then
+    `GradLogPEstimator2d.pack()`: the int8 tiles and the scales K9's
+    epilogue reads are made anew together, and the estimator gives what a
+    fresh estimator loaded with the new weights gives, bit for bit."""
+    from unitspeech_tpu_torch.models import unet as tunet
+
+    rng = np.random.default_rng(9)
+    flags = dict(use_kernels=True, use_int8_deep=True, use_deep=True, use_resample=True,
+                 use_i8pre_deep=True)
+    with dev:
+        est = tunet.GradLogPEstimator2d(**DIM64, dtype=torch.bfloat16, **flags)
+        fresh = tunet.GradLogPEstimator2d(**DIM64, dtype=torch.bfloat16, **flags)
+    est.load_state_dict(_estimator_sd(tunet, rng, est))
+    assert est.mid_res1.packed_for == "k9"
+    with torch.no_grad():
+        for b in (est.mid_res1.block1, est.mid_res1.block2):
+            b.conv.kernel.mul_(-1.5).add_(0.01)
+    est.pack()
+    fresh.load_state_dict(est.state_dict())
+    w2 = est.mid_res1.block2.conv.kernel
+    assert torch.equal(est.mid_res1.packed[1], fused_resnet_deep.pack_conv_weight_i8(
+        fused_resnet.quant_w(w2)[0], w2.shape[2]))
+    t = 32
+    x, mu = _rand(rng, dev, 2, t, 80), _rand(rng, dev, 2, t, 80)
+    mask = _mask(dev, t, [t, 19])[:, :, 0, 0]
+    args = (x, mask, mu, torch.tensor([0.6, 0.3], device=dev), _rand(rng, dev, 2, 256))
+    with torch.no_grad():
+        assert torch.equal(est(*args), fresh(*args))
 
 
 @pytest.mark.cuda

@@ -276,6 +276,36 @@ def test_estimator_fused_deep_matches_jax(dim64, monkeypatch, path):
         assert torch.equal(w8t, want8) and torch.equal(rsw, want_rsw)
 
 
+def test_pack_requantizes_in_place_update(dim64):
+    """A weight changed in place and then `pack()`: each K9 block's packed
+    int8 tiles and the scales its epilogue reads come from one quantization
+    of the new weights, and the estimator gives what one freshly loaded
+    with those weights gives, bit for bit."""
+    params, inputs = dim64
+    flags = PORT_FLAGS["deep_i8"]
+    est = load(tunet.GradLogPEstimator2d(**DIM64, **flags), params)
+    blocks = [m for m in est.modules() if isinstance(m, tunet.ResnetBlock)
+              and m.packed_for == "k9"]
+    assert len(blocks) == 6
+    with torch.no_grad():
+        for m in blocks:
+            for b in (m.block1, m.block2):
+                b.conv.kernel.mul_(-1.5).add_(0.01)
+    est.pack()
+    for m in blocks:
+        cin, cout = m.block1.conv.kernel.shape[2:]
+        for i, b in enumerate((m.block1, m.block2)):
+            w8t, rsw = frd.quant_w(b.conv.kernel)
+            assert torch.equal(m.i8pre_weights[i][0], w8t)
+            assert torch.equal(m.i8pre_weights[i][1], rsw)
+            if i or cin <= cout:
+                assert torch.equal(m.packed[i], frd.pack_conv_weight_i8(w8t, w8t.shape[1] // 9))
+    fresh = tunet.GradLogPEstimator2d(**DIM64, **flags)
+    fresh.load_state_dict(est.state_dict())
+    with torch.no_grad():
+        assert torch.equal(est(*map(_t, inputs)), fresh.eval()(*map(_t, inputs)))
+
+
 def test_estimator_resample_frames_per_level(dim64, monkeypatch):
     """Each K11 call of the estimator gets the valid frames of the mask of
     its input's level, counted once per call: the F = 80 and F = 40

@@ -332,3 +332,39 @@ US_DEV float block_sum(float v, float* scratch) {
 }
 
 static inline int us_ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// The current device's SMs (the launch plans size their grids by them).
+static inline int n_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+// Programmatic dependent launch (K4's launches, K9's chain): a kernel
+// launched with launch_pdl may start while the kernel before it in the
+// stream drains, and waits in griddep_wait, before it reads or writes
+// anything, until that kernel has finished and its writes are visible;
+// griddep_launch lets the next such kernel start once every block of this
+// one has started. Launched the usual way, both are no-ops.
+US_DEV void griddep_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+US_DEV void griddep_launch() { asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory"); }
+
+template <typename... KArgs, typename... Args>
+static inline int launch_pdl(void (*kernel)(KArgs...), dim3 grid, dim3 block, size_t smem,
+                             cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+}

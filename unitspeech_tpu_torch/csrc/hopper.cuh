@@ -1,18 +1,20 @@
 // Hopper (sm_90a) building blocks for the port's kernels: mbarriers, bulk
 // copies (cp.async.bulk, the TMA engine's non-tensor form), 4-D tensor
 // copies (TMA) of channels-last activations, warpgroup products (wgmma)
-// with A from registers and B from shared memory through a descriptor, and
-// the box + weight-ring pipeline that the conv kernels (csrc/resample.cu,
-// csrc/resnet_block.cu) build on:
-//   * per 64-channel chunk, one TMA copy brings the input box that a 2-D
-//     row tile's taps reach, in the 128-byte swizzle (16-byte piece j of
-//     box row R at piece j ^ (R % 8)), zero outside the tensor;
+// with A from registers and B from shared memory through a descriptor (bf16,
+// and s8 into s32 for K9's int8 convs), and the box + weight-ring pipeline
+// that the conv kernels (csrc/resample.cu, csrc/resnet_block.cu) build on:
+//   * per chunk of one 128-byte row of channels (64 bf16, 128 int8), one
+//     TMA copy brings the input box that a 2-D row tile's taps reach, in
+//     the 128-byte swizzle (16-byte piece j of box row R at piece j ^ (R %
+//     8)), zero outside the tensor;
 //   * one producer warp streams the weights, packed once at load into
-//     K-major BN x 64 tiles in the same swizzle, through a ring of stages
-//     under full/empty mbarriers;
+//     K-major tiles of BN rows of 128 bytes in the same swizzle, through a
+//     ring of stages under full/empty mbarriers;
 //   * the consumers load A fragments from the box with ldmatrix (the row
 //     addresses carry the tap's shift; a lane whose row has no input reads
-//     a zero row) and run wgmma m64nBNk16 with B by descriptor.
+//     a zero row) and run wgmma m64nBNk16 (bf16) or m64nBNk32 (s8) with B
+//     by descriptor.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (the type only: the library links the CUDA runtime alone)
@@ -175,6 +177,55 @@ template <> struct WgmmaRS<256> {
 };
 #undef F8
 
+// The int8 form (K9's convs): D (64 x N s32) += A (64 x 32 s8 from registers:
+// warp w holds rows 16 w .. 16 w + 15 as mma.sync's m16n8k32 A, which is
+// one ldmatrix.x4 of 16-byte row pieces, as for bf16) * B (32 x N s8,
+// K-major in shared memory: a 128-byte row is 128 k values, so the
+// descriptor moves 32 k values per 2 as it moves 16 bf16 ones). Exact.
+template <int N>
+struct WgmmaRS8;
+
+#define R8(i)                                                                          \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), \
+      "+r"(d[i + 6]), "+r"(d[i + 7])
+
+template <> struct WgmmaRS8<64> {
+  static US_DEV void mma(int (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p;\n}\n"
+        : R8(0), R8(8), R8(16), R8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <> struct WgmmaRS8<128> {
+  static US_DEV void mma(int (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p;\n}\n"
+        : R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+#undef R8
+
+template <int R>
+US_DEV void wgmma_fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // --- the box + weight-ring pipeline ------------------------------------------
 
 constexpr int KC = 64;               // channels per chunk: one 128-byte row of a tile
@@ -217,6 +268,15 @@ US_DEV void mma_half(float (&acc)[BN / 2], const uint32_t (&a)[2][4], uint64_t d
   wgmma_commit();
 }
 
+// The same on int8 operands (two k32 steps of a 128-channel chunk).
+template <int BN>
+US_DEV void mma_half(int (&acc)[BN / 2], const uint32_t (&a)[2][4], uint64_t desc, int kk0) {
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 2; ++j) WgmmaRS8<BN>::mma(acc, a[j], desc + 2 * (kk0 + j));
+  wgmma_commit();
+}
+
 // Lane 0 of each consumer warp arrives once the warp is done with a slot.
 US_DEV void release(uint64_t* bar) {
   __syncwarp();
@@ -225,7 +285,8 @@ US_DEV void release(uint64_t* bar) {
 
 // The producer warp: for each of n_chunks chunks, n_stages weight stages of
 // stage_bytes (src_stride bytes apart from wsrc on) into a ring of n_ring
-// slots, and one input box (a TMA copy of the chunk's 64 channels at
+// slots, and one input box (a TMA copy of the chunk's chunk_ch channels,
+// 128 bytes: 64 bf16 or 128 int8, at
 // frequencies fi0 .., frames ti0 .., batch element bz; box_tx bytes) into nb
 // slots of box_bytes. With three slots or more the next chunk's box goes out
 // before a chunk's first stage, a whole chunk ahead of its use; with fewer a
@@ -235,7 +296,8 @@ US_DEV void release(uint64_t* bar) {
 US_DEV void produce_ring(const CUtensorMap* xmap, uint8_t* ring, uint8_t* box, uint64_t* w_full,
                          uint64_t* w_empty, uint64_t* x_full, uint64_t* x_empty, int n_ring,
                          int n_stages, int stage_bytes, int src_stride, int nb, int box_bytes,
-                         int box_tx, int n_chunks, const bf16* wsrc, int fi0, int ti0, int bz) {
+                         int box_tx, int n_chunks, const void* wsrc, int fi0, int ti0, int bz,
+                         int chunk_ch = KC) {
   const int lane = threadIdx.x & 31;
   const int box_at = min(n_ring - 1, n_stages - 1);
   const bool lead = nb >= 3;
@@ -245,7 +307,7 @@ US_DEV void produce_ring(const CUtensorMap* xmap, uint8_t* ring, uint8_t* box, u
     mbar_wait(&x_empty[xs], xph ^ 1);
     if (lane == 0) {
       mbar_arrive_expect_tx(&x_full[xs], box_tx);
-      tma_load_4d(box + xs * box_bytes, xmap, c * KC, fi0, ti0, bz, &x_full[xs]);
+      tma_load_4d(box + xs * box_bytes, xmap, c * chunk_ch, fi0, ti0, bz, &x_full[xs]);
     }
     __syncwarp();
     if (++xs == nb) xs = 0, xph ^= 1;
@@ -289,19 +351,22 @@ static inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// x (B, T, F, C) bf16, channels last, as a 4-D tensor map with box (64
-// channels, box_f frequencies, box_t frames, 1) in the 128-byte swizzle;
-// C % 8 == 0 (16-byte strides). Returns 0 on success.
+// x (B, T, F, C) bf16 (int8 with i8), channels last, as a 4-D tensor map
+// with box (one 128-byte row of channels: 64 bf16 or 128 int8, box_f
+// frequencies, box_t frames, 1) in the 128-byte swizzle; rows of 16-byte
+// multiples (C % 8 == 0, int8 C % 16 == 0). Returns 0 on success.
 static inline int x_tensor_map(CUtensorMap* map, const void* x, int B, int T, int F, int C,
-                               int box_t, int box_f) {
+                               int box_t, int box_f, bool i8 = false) {
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t es = i8 ? 1 : 2;
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)F, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)F * C * 2,
-                                 (cuuint64_t)T * F * C * 2};
-  const cuuint32_t box[4] = {KC, (cuuint32_t)box_f, (cuuint32_t)box_t, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * es, (cuuint64_t)F * C * es,
+                                 (cuuint64_t)T * F * C * es};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / es), (cuuint32_t)box_f, (cuuint32_t)box_t, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
-  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
+  CUresult r = enc(map, i8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                   const_cast<void*>(x), dims, strides,
                    box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

@@ -1,4 +1,5 @@
-// U-Net ResnetBlock and final block (kernels K1, K2 and K8).
+// U-Net ResnetBlock and final block (kernels K1, K2 and K8), and the main
+// loop of K9's int8 convs (us_resnet_conv3x3_i8; csrc/resnet_deep_i8.cu).
 //
 // Replaces the Pallas kernels in unitspeech_tpu/ops/pallas_resnet.py:
 // fused_resnet_block (_fused_resnet: _kernel_a, _kernel_b, _kernel_c),
@@ -81,6 +82,7 @@
 // so do K10's raw-weight entry points (us_resnet_conv3x3_rows,
 // us_resnet_out_rows). Its GEMM is 0.4 GFLOP a call.
 #include <algorithm>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -218,8 +220,10 @@ constexpr int TC_THREADS = 288; // two consumer warpgroups and the producer warp
 constexpr int TC_BM = 128;      // rows of a tile: 64 per consumer warpgroup
 
 struct TcArgs {
-  const bf16* w;        // packed tiles (Cout / BN, chunks, TAPS, BN, 64)
+  const void* w;        // packed tiles (Cout / BN, chunks, TAPS, BN, 128 bytes)
   const float* bias;    // (Cout)
+  // int8 (K9): the dequantize scale (1 / sx[b]) * rsw[n], sx (B), rsw (Cout)
+  const float *sx, *rsw;
   const int* lens;      // (B) valid rows; input rows at/after it read zero
   bf16* out;            // (B, N, Cout)
   float* part;          // EPI 0: (B, n_tiles, 2, Cout)
@@ -230,22 +234,29 @@ struct TcArgs {
   int T, F, Cin, Cout;            // the (T, F) grid of rows, N = T * F
   int tt, tf, tiles_f, n_tiles;   // the row tile: TT frames x TF frequencies
   int n_chunks, stage_bytes, box_bytes, data_bytes;
-  // the packed weights: Cout tiles of `split` x BN columns, w_tile elements
+  // the packed weights: Cout tiles of `split` x BN columns, w_tile bytes
   // apart, their stages w_stride bytes apart (a BN-column stage is a slice
   // of the packed one: the swizzle repeats every 8 rows)
   int split, w_tile, w_stride;
 };
 
+US_DEV float acc_f32(float v) { return v; }
+US_DEV float acc_f32(int v) { return __int2float_rn(v); }
+
 // The conv over one tile: TAPS 9 (conv3x3, the box has a one-row halo) or
 // 1 (the 1x1 residual); BN output columns (64 or 128); EPI 0 (kernels A
-// and B: bias, one rounding, tile statistics) or 1 (kernel C). Block (row
+// and B: bias, one rounding, tile statistics) or 1 (kernel C); I8: int8
+// input and weights (K9's convs: chunks of 128 channels, one 128-byte row
+// as bf16's 64, s8 wgmma into s32, exact; the epilogue dequantizes as JAX,
+// f32(acc) * ((1 / sx) * rsw) + bias, each operation rounded). Block (row
 // tile, Cout tile, batch); warps 0-7 consume (warpgroup g: tile rows
 // 64 g .. 64 g + 63), warp 8 loads. Tile row r = (tt, ff) = (r / TF, r % TF)
 // is grid row (to0 + tt, fo0 + ff) when tt < TT and to0 + tt < T; its tap
 // (dt, df) reads box row (tt + dt) * BF + ff + df, BF = TF + 2.
-template <int TAPS, int BN, int EPI>
+template <int TAPS, int BN, int EPI, bool I8 = false>
 __global__ void __launch_bounds__(TC_THREADS, 1)
     conv_tc(const __grid_constant__ CUtensorMap xmap, TcArgs p) {
+  using Acc = typename std::conditional<I8, int, float>::type;
   constexpr int S = TC_STAGES;
   constexpr int HALO = TAPS == 9 ? 1 : 0;
   uint8_t* ring = smem_base();
@@ -261,6 +272,9 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   const int b = blockIdx.z, n0 = blockIdx.y * BN;
   const int tile_t = blockIdx.x / p.tiles_f, tile_f = blockIdx.x - tile_t * p.tiles_f;
   const int to0 = tile_t * TT, fo0 = tile_f * TF;
+  // K9's chain launches it with launch_pdl (otherwise both are no-ops)
+  griddep_wait();
+  griddep_launch();
   const int len = p.lens[b];
   if (tid < 8) reinterpret_cast<uint4*>(zero)[tid] = make_uint4(0, 0, 0, 0);
   if (tid == 0) {
@@ -271,17 +285,18 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   __syncthreads();
 
   if (warp == 8) {
-    const bf16* wsrc = p.w + (size_t)(blockIdx.y / p.split) * p.w_tile +
-                       (blockIdx.y % p.split) * BN * KC;
+    const uint8_t* wsrc = static_cast<const uint8_t*>(p.w) +
+                          (size_t)(blockIdx.y / p.split) * p.w_tile +
+                          (blockIdx.y % p.split) * BN * 128;
     produce_ring(&xmap, ring, box, w_full, w_empty, x_full, x_empty, S, TAPS, p.stage_bytes,
-                 p.w_stride, TC_BOXES, p.box_bytes, (TT + 2 * HALO) * BF * KC * 2, p.n_chunks,
-                 wsrc, fo0 - HALO, to0 - HALO, b);
+                 p.w_stride, TC_BOXES, p.box_bytes, (TT + 2 * HALO) * BF * 128, p.n_chunks,
+                 wsrc, fo0 - HALO, to0 - HALO, b, I8 ? 128 : KC);
     return;
   }
 
-  float acc[BN / 2];
+  Acc acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
   wgmma_fence_acc(acc);
   uint32_t afr[2][2][4];  // two sets of two k16 steps' fragments
   {
@@ -344,15 +359,17 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         *reinterpret_cast<float2*>(st + (row0 + 8 * h) * LDS + col) =
-            make_float2(acc[j * 4 + 2 * h], acc[j * 4 + 2 * h + 1]);
+            make_float2(acc_f32(acc[j * 4 + 2 * h]), acc_f32(acc[j * 4 + 2 * h + 1]));
     }
   }
   bar_sync_named(1, 256);
   const int ch = tid % CPR, rg = tid / CPR, n = n0 + ch * 8;
-  float bias8[8], s8[8], q8[8], mean8[8], inv8[8], sc8[8], sh8[8];
+  float bias8[8], s8[8], q8[8], mean8[8], inv8[8], sc8[8], sh8[8], swe8[8];
+  const float rsx = I8 ? 1.f / p.sx[b] : 0.f;
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
     bias8[e] = __ldg(p.bias + n + e);
+    if (I8) swe8[e] = __fmul_rn(rsx, __ldg(p.rsw + n + e));
     s8[e] = q8[e] = 0.f;
     if (EPI == 1) {
       mean8[e] = __ldg(p.o_mean + b * Cout + n + e);
@@ -370,7 +387,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     float v[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
     const size_t o = ((size_t)b * N + m) * Cout + n;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] += bias8[e];
+    for (int e = 0; e < 8; ++e) v[e] = I8 ? __fadd_rn(__fmul_rn(v[e], swe8[e]), bias8[e])
+                                          : v[e] + bias8[e];
     if (EPI == 0) {
       store8(p.out + o, v);
 #pragma unroll
@@ -432,6 +450,8 @@ __global__ void __launch_bounds__(256) gn_finalize(const float* part, int n_tile
                                                    int groups, int n_rows, float eps,
                                                    float* mean, float* inv) {
   __shared__ float scratch[256];
+  griddep_wait();  // no-ops unless launched with launch_pdl (K9's chain)
+  griddep_launch();
   const int g = blockIdx.x, b = blockIdx.y, cg = C / groups;
   float mu, iv;
   group_mean_inv(part, n_tiles, C, cg, g, b, n_rows, eps, scratch, mu, iv);
@@ -488,6 +508,7 @@ __global__ void __launch_bounds__(256) resnet_out_elementwise(
     const bf16* c2, const bf16* x, const float* mean, const float* inv,
     const float* scale, const float* shift, const int* lens, TOut* out, int B,
     int N, int C) {
+  griddep_wait();  // a no-op unless launched with launch_pdl (K9's chain)
   size_t nvec = (size_t)B * N * C / 8;
   for (size_t v = blockIdx.x * (size_t)blockDim.x + threadIdx.x; v < nvec;
        v += (size_t)gridDim.x * blockDim.x) {
@@ -584,21 +605,12 @@ void pick_tile(int T, int F, int halo, int& tt, int& tf) {
   }
 }
 
-int n_sms() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
 // taps 9: conv3x3 over the (T, F) grid; taps 1: the 1x1 conv over T*F rows
 // (F = 1, no halo). pack_bn: the packed weights' Cout tile; the launch takes
 // 64 columns from 128-column packing where 128 would leave more than half
 // the SMs without a block (the F = 10 convs to 512 channels: 48 blocks).
-TcPlan make_tc_plan(int taps, int B, int T, int F, int Cin, int Cout, int pack_bn, int epi) {
+TcPlan make_tc_plan(int taps, int B, int T, int F, int Cin, int Cout, int pack_bn, int epi,
+                    bool i8 = false) {
   TcPlan pl{};
   TcArgs& a = pl.a;
   if (taps == 1) T *= F, F = 1;
@@ -607,12 +619,12 @@ TcPlan make_tc_plan(int taps, int B, int T, int F, int Cin, int Cout, int pack_b
   pick_tile(T, F, halo, a.tt, a.tf);
   a.tiles_f = F / a.tf;
   a.n_tiles = ((T + a.tt - 1) / a.tt) * a.tiles_f;
-  a.n_chunks = (Cin + KC - 1) / KC;
+  a.n_chunks = (Cin + (i8 ? 128 : KC) - 1) / (i8 ? 128 : KC);
   int bn = pack_bn;
   if (pack_bn == 128 && 2 * a.n_tiles * B * (Cout / 128) <= n_sms()) bn = 64;
   a.split = pack_bn / bn;
-  a.w_tile = a.n_chunks * taps * pack_bn * KC;
-  a.w_stride = pack_bn * KC * 2;
+  a.w_tile = a.n_chunks * taps * pack_bn * 128;
+  a.w_stride = pack_bn * 128;
   pl.box_t = a.tt + 2 * halo;
   pl.box_f = a.tf + 2 * halo;
   a.box_bytes = round_up(pl.box_t * pl.box_f * KC * 2, 1024);
@@ -630,19 +642,22 @@ TcPlan make_tc_plan(int taps, int B, int T, int F, int Cin, int Cout, int pack_b
 
 typedef void (*TcKernel)(const CUtensorMap, TcArgs);
 
-TcKernel tc_kernel(int taps, int bn) {
+TcKernel tc_kernel(int taps, int bn, bool i8 = false) {
+  if (i8) return bn == 128 ? conv_tc<9, 128, 0, true> : conv_tc<9, 64, 0, true>;
   if (taps == 9) return bn == 128 ? conv_tc<9, 128, 0> : conv_tc<9, 64, 0>;
   return bn == 128 ? conv_tc<1, 128, 1> : conv_tc<1, 64, 1>;
 }
 
-int tc_launch(int taps, TcPlan& pl, const void* x, int B, int Cin, cudaStream_t stream) {
+int tc_launch(int taps, TcPlan& pl, const void* x, int B, int Cin, cudaStream_t stream,
+              bool i8 = false, bool pdl = false) {
   if (pl.smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   CUtensorMap xmap;
-  int err = x_tensor_map(&xmap, x, B, pl.a.T, pl.a.F, Cin, pl.box_t, pl.box_f);
+  int err = x_tensor_map(&xmap, x, B, pl.a.T, pl.a.F, Cin, pl.box_t, pl.box_f, i8);
   if (err) return err;
-  TcKernel k = tc_kernel(taps, pl.bn);
+  TcKernel k = tc_kernel(taps, pl.bn, i8);
   cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
   if (e != cudaSuccess) return (int)e;
+  if (pdl) return launch_pdl(k, pl.grid, TC_THREADS, pl.smem, stream, xmap, pl.a);
   k<<<pl.grid, TC_THREADS, pl.smem, stream>>>(xmap, pl.a);
   return (int)cudaGetLastError();
 }
@@ -663,8 +678,8 @@ int us_resnet_out_rows(const void* c2, const void* x, const float* mean, const f
                        const float* bres, const int* lens, void* out, int B, int N, int Cin,
                        int Cout, void* stream);
 
-// The tiles of the element-load kernels (whole rows, 128 at a time): K9's
-// int8 conv, K10, and the Cin % 8 != 0 convs here.
+// The tiles of the element-load kernels (whole rows, 128 at a time): K10
+// and the Cin % 8 != 0 convs here.
 int us_n_row_tiles(int N) { return n_row_tiles(N); }
 
 // The tiles (part's second dimension) us_resnet_conv3x3 writes for an
@@ -697,25 +712,51 @@ int us_conv_plan(int taps, int B, int T, int F, int Cin, int Cout, int BN, int* 
 // (B, us_conv_n_tiles(N, F, Cin), 2, Cout). Cin % 8 == 0: w packed by
 // ops/fused_resnet.py pack_conv_weight in Cout tiles of BN (the Hopper
 // loop); otherwise w is the raw (9*Cin, Cout) bf16 kernel (element loads).
+// pdl: launch it with programmatic dependent launch (K9's chain: every
+// kernel of the chain waits for its predecessor before reading).
 int us_resnet_conv3x3(const void* x, const void* w, int BN, const float* bias, const int* lens,
-                      void* out, float* part, int B, int N, int F, int Cin, int Cout,
+                      void* out, float* part, int B, int N, int F, int Cin, int Cout, int pdl,
                       void* stream) {
   if (!tc_takes(Cin))
     return us_resnet_conv3x3_rows(x, w, bias, lens, out, part, B, N, F, Cin, Cout, stream);
   if (!tc_bn_ok(BN, Cout)) return (int)cudaErrorInvalidValue;
   TcPlan pl = make_tc_plan(9, B, N / F, F, Cin, Cout, BN, 0);
-  pl.a.w = static_cast<const bf16*>(w);
+  pl.a.w = w;
   pl.a.bias = bias;
   pl.a.lens = lens;
   pl.a.out = static_cast<bf16*>(out);
   pl.a.part = part;
-  return tc_launch(9, pl, x, B, Cin, static_cast<cudaStream_t>(stream));
+  return tc_launch(9, pl, x, B, Cin, static_cast<cudaStream_t>(stream), false, pdl);
+}
+
+// K9's int8 conv3x3 on the same loop: x8 (B, N, Cin) int8, zero at rows >=
+// lens; w8 packed by ops/fused_resnet_deep.py pack_conv_weight_i8 in Cout
+// tiles of BN (K-major tiles of BN x 128 int8 in the 128-byte swizzle);
+// out = bf16(f32(acc) * ((1 / sx[b]) * rsw) + bias) and the tile statistics
+// of that f32 value into part (B, us_conv_n_tiles(N, F, Cin), 2, Cout).
+// Cin % 16 == 0.
+int us_resnet_conv3x3_i8(const void* x8, const void* w8, int BN, const float* sx,
+                         const float* rsw, const float* bias, const int* lens, void* out,
+                         float* part, int B, int N, int F, int Cin, int Cout, void* stream) {
+  if (!tc_bn_ok(BN, Cout) || Cin % 16) return (int)cudaErrorInvalidValue;
+  TcPlan pl = make_tc_plan(9, B, N / F, F, Cin, Cout, BN, 0, true);
+  pl.a.w = w8;
+  pl.a.sx = sx;
+  pl.a.rsw = rsw;
+  pl.a.bias = bias;
+  pl.a.lens = lens;
+  pl.a.out = static_cast<bf16*>(out);
+  pl.a.part = part;
+  return tc_launch(9, pl, x8, B, Cin, static_cast<cudaStream_t>(stream), true, true);
 }
 
 int us_gn_finalize(const float* part, int B, int n_tiles, int C, int groups, int n_rows,
-                   float eps, float* mean, float* inv, void* stream) {
-  gn_finalize<<<dim3(groups, B), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      part, n_tiles, C, groups, n_rows, eps, mean, inv);
+                   float eps, float* mean, float* inv, int pdl, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pdl)
+    return launch_pdl(gn_finalize, dim3(groups, B), 256, 0, st, part, n_tiles, C, groups,
+                      n_rows, eps, mean, inv);
+  gn_finalize<<<dim3(groups, B), 256, 0, st>>>(part, n_tiles, C, groups, n_rows, eps, mean, inv);
   return (int)cudaGetLastError();
 }
 
@@ -741,9 +782,13 @@ int us_gn_film(const float* part, int n_tiles, void* c1h, const int* lens, const
 int us_resnet_out(const void* c2, const void* x, const float* mean, const float* inv,
                   const float* scale, const float* shift, const void* wres, int BN,
                   const float* bres, const int* lens, void* out, int B, int N, int Cin,
-                  int Cout, void* stream) {
+                  int Cout, int pdl, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wres == nullptr) {
+    if (pdl)
+      return launch_pdl(resnet_out_elementwise<true, bf16>, elementwise_blocks(B, N, Cout), 256,
+                        0, st, static_cast<const bf16*>(c2), static_cast<const bf16*>(x), mean,
+                        inv, scale, shift, lens, static_cast<bf16*>(out), B, N, Cout);
     resnet_out_elementwise<true, bf16><<<elementwise_blocks(B, N, Cout), 256, 0, st>>>(
         static_cast<const bf16*>(c2), static_cast<const bf16*>(x), mean, inv, scale, shift,
         lens, static_cast<bf16*>(out), B, N, Cout);
@@ -754,7 +799,7 @@ int us_resnet_out(const void* c2, const void* x, const float* mean, const float*
                               Cout, stream);
   if (!tc_bn_ok(BN, Cout)) return (int)cudaErrorInvalidValue;
   TcPlan pl = make_tc_plan(1, B, N, 1, Cin, Cout, BN, 1);
-  pl.a.w = static_cast<const bf16*>(wres);
+  pl.a.w = wres;
   pl.a.bias = bres;
   pl.a.lens = lens;
   pl.a.out = static_cast<bf16*>(out);
@@ -763,7 +808,7 @@ int us_resnet_out(const void* c2, const void* x, const float* mean, const float*
   pl.a.o_inv = inv;
   pl.a.o_scale = scale;
   pl.a.o_shift = shift;
-  return tc_launch(1, pl, x, B, Cin, st);
+  return tc_launch(1, pl, x, B, Cin, st, false, pdl);
 }
 
 // Kernel C in JAX's res_mode "none": GN2-apply + mish + mask alone, f32
@@ -801,18 +846,18 @@ int us_resnet_block(const void* x, const void* w1, const float* b1, const float*
                     const int* lens, void* c1, void* c2, float* part, float* mean1, float* inv1,
                     float* mean2, float* inv2, void* out, int B, int N, int F, int Cin, int Cout,
                     int groups, float eps, int BN, void* stream) {
-  int err = us_resnet_conv3x3(x, w1, BN, b1, lens, c1, part, B, N, F, Cin, Cout, stream);
+  int err = us_resnet_conv3x3(x, w1, BN, b1, lens, c1, part, B, N, F, Cin, Cout, 0, stream);
   if (err) return err;
   err = us_gn_film(part, us_conv_n_tiles(N, F, Cin), c1, lens, s1, be1, film, mean1, inv1, B, N,
                    Cout, groups, eps, stream);
   if (err) return err;
-  err = us_resnet_conv3x3(c1, w2, BN, b2, lens, c2, part, B, N, F, Cout, Cout, stream);
+  err = us_resnet_conv3x3(c1, w2, BN, b2, lens, c2, part, B, N, F, Cout, Cout, 0, stream);
   if (err) return err;
   err = us_gn_finalize(part, B, us_conv_n_tiles(N, F, Cout), Cout, groups, N, eps, mean2, inv2,
-                       stream);
+                       0, stream);
   if (err) return err;
   return us_resnet_out(c2, x, mean2, inv2, s2, be2, wres, BN, bres, lens, out, B, N, Cin, Cout,
-                       stream);
+                       0, stream);
 }
 
 // The raw-weight kernels A and C (element loads on igemm_bf16; K10's, and
@@ -840,7 +885,7 @@ int us_resnet_out_rows(const void* c2, const void* x, const float* mean, const f
                        int Cout, void* stream) {
   if (wres == nullptr)
     return us_resnet_out(c2, x, mean, inv, scale, shift, nullptr, 0, bres, lens, out, B, N, Cin,
-                         Cout, stream);
+                         Cout, 0, stream);
   if (Cout % EL_BN) return (int)cudaErrorInvalidValue;
   ConvArgs p = base_args(x, wres, bres, lens, out, N, 1, Cin, Cout);
   p.c2 = static_cast<const bf16*>(c2);

@@ -50,7 +50,7 @@ int us_resnet_conv3x3_rows(const void* x, const void* w, const float* bias, cons
                            void* out, float* part, int B, int N, int F, int Cin, int Cout,
                            void* stream);
 int us_gn_finalize(const float* part, int B, int n_tiles, int C, int groups, int n_rows,
-                   float eps, float* mean, float* inv, void* stream);
+                   float eps, float* mean, float* inv, int pdl, void* stream);
 int us_resnet_out_rows(const void* c2, const void* x, const float* mean, const float* inv,
                        const float* scale, const float* shift, const void* wres,
                        const float* bres, const int* lens, void* out, int B, int N, int Cin,
@@ -301,13 +301,13 @@ int us_resnet_block_i8(const void* x, const void* w1, const void* w8t1, const fl
     err = quantized_conv<false>(x, static_cast<const int8_t*>(w8t1), rsw1, b1, lens, none, fmax,
                                 sx, c1, part, B, N, F, Cin, Cout, fpt, st);
   if (err) return err;
-  err = us_gn_finalize(part, B, nt, Cout, groups, N, eps, mean1, inv1, stream);
+  err = us_gn_finalize(part, B, nt, Cout, groups, N, eps, mean1, inv1, 0, stream);
   if (err) return err;
   const Xform h = {mean1, inv1, s1, be1, static_cast<const bf16*>(film)};
   err = quantized_conv<true>(c1, static_cast<const int8_t*>(w8t2), rsw2, b2, lens, h, fmax, sx,
                              c2, part, B, N, F, Cout, Cout, fpt, st);
   if (err) return err;
-  err = us_gn_finalize(part, B, nt, Cout, groups, N, eps, mean2, inv2, stream);
+  err = us_gn_finalize(part, B, nt, Cout, groups, N, eps, mean2, inv2, 0, stream);
   if (err) return err;
   return us_resnet_out_rows(c2, x, mean2, inv2, s2, be2, wres, bres, lens, out, B, N, Cin,
                             Cout, stream);

@@ -6,291 +6,318 @@
 // from resnet_block.cu). The block runs as
 //
 //   x8 = quantize(x)   per batch element, one scale 127 / max|x| over the
-//                      masked rows (the row abs-max kernel K7, then
-//                      us_i8_quantize_rows); for cin > cout conv1 runs in
-//                      bf16 instead (K8's kernel A), as in JAX
+//                      rows before the length (us_i8_quantize_rows: a
+//                      pass of maxima, then the quantize); for cin > cout
+//                      conv1 runs in bf16 instead (K8's kernel A), as in JAX
 //   c1 = conv3x3_i8(x8) * (1/sx)(1/sw) + b1        -> bf16 + statistics
 //   h8 = quantize(mish(GN1(c1)) + FiLM, masked)    two passes, below
 //   c2 = conv3x3_i8(h8) * (1/sx2)(1/sw2) + b2      -> bf16 + statistics
 //   out = mish(GN2(c2)) * mask + residual          (K8's kernel C)
 //
 // Scales: weights per output channel, computed once when the weights load
-// (ops/fused_resnet_deep.quant_w: reciprocals, as _quant_w); activations per
-// batch element, not per tensor as the flat int8 path has it. The glue's
-// scale needs the abs-max of the whole layer before any value can round, so
-// the glue runs twice: pass 0 writes per-(batch, row chunk, channel) maxima,
-// us_i8_scales reduces them, pass 1 recomputes h and rounds it. A max does
-// not depend on the order of its operands, so the scale is exact.
+// (ops/fused_resnet_deep.quant_w: reciprocals, as _quant_w) and packed
+// with them; activations per batch element, not per tensor as the flat
+// int8 path has it. The glue's scale needs the abs-max of the whole layer
+// before any value can round, so the glue runs twice: pass 0 writes h in
+// f32 and one maximum of |h| a block, pass 1 reduces them (every block the
+// same values, in the same order) and rounds h. A max does not
+// depend on the order of its operands, so the scale is exact. The convs
+// take sx and rsw and form (1 / sx) * rsw themselves, so no launch of its
+// own reduces the maxima.
 //
 // What bounds it on the H100: each int8 conv is 6-24 GOP (3 rows at the
 // 344-frame bucket) against 0.6-2.4 MB of int8 weights; at the int8 rate of
-// 1979 TOP/s that is 3-12 us, so the tensor cores (mma.sync m16n8k32, s8 in,
-// s32 accumulate) bound it as they bound K8, at half K8's operation time.
-// The dequantize, bias and GroupNorm statistics ride in the conv's
-// epilogue; the glue passes are bytes-bound (c1 read twice, h8 written
-// once). Rounding follows JAX: round half to even (rintf), clip to +-127,
-// and the dequantize as one f32 multiply and one f32 add (no fused
-// multiply-add).
+// 1979 TOP/s that is 3-12 us, so the tensor cores bound it, at half K8's
+// operation time. Both int8 convs run on K8's Hopper loop (resnet_block.cu
+// conv_tc with I8: per 128-channel chunk one TMA box shared by the 9 taps,
+// a zero row past the length and the grid, A from ldmatrix registers, the
+// weights packed at load into K-major BN x 128 int8 tiles in the 128-byte
+// swizzle through an mbarrier ring, wgmma m64nNk32 s8 into s32). The
+// dequantize, bias and GroupNorm statistics ride in the conv's epilogue;
+// the glue passes move c1 once, h in f32 twice and h8 once. Every launch of
+// the chain is a programmatic dependent launch (common.cuh launch_pdl).
+// Rounding follows JAX: round half to even (rintf), clip to +-127, and the
+// dequantize as one f32 multiply and one f32 add (no fused multiply-add).
 #include "common.cuh"
 
 namespace {
 
 constexpr int GLUE_ROWS = 64;  // rows of one glue block (a chunk)
+constexpr int Q_ROWS = 8;      // rows of one quantize block (many blocks: a pass is latency-bound)
 
-// One batch element per block: sx = 127 / max(max(amax[b]), 1e-8) and the
-// effective dequantize scale swe[b, c] = (1 / sx) * rsw[c].
-__global__ void __launch_bounds__(256) i8_scales(const float* amax, int n, const float* rsw,
-                                                 int Cout, float* sx, float* swe) {
-  __shared__ float scratch[256];
-  const int b = blockIdx.x;
-  const float* a = amax + (size_t)b * n;
+// 127 / max(m, 1e-8) over a batch element's maxima amax[0, n), each block
+// the same reduction; NaN propagates, as torch.amax and jnp.max do.
+US_DEV float act_scale(const float* amax, int n, float* scratch) {
   float m = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) m = max_nan(m, a[i]);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) m = max_nan(m, amax[i]);
   m = block_max(m, scratch);
-  float s = 127.f / (m != m ? m : fmaxf(m, 1e-8f));
-  if (threadIdx.x == 0) sx[b] = s;
-  float r = 1.f / s;
-  for (int c = threadIdx.x; c < Cout; c += blockDim.x) swe[b * Cout + c] = __fmul_rn(r, rsw[c]);
+  return 127.f / (m != m ? m : fmaxf(m, 1e-8f));
 }
 
-// x8 = clip(rint(x * sx[b]), -127, 127) on rows < lens[b], 0 after; 8
-// channels a thread.
-__global__ void __launch_bounds__(256) i8_quantize(const bf16* x, const int* lens,
-                                                   const float* sx, int8_t* x8, int B, int N,
-                                                   int C) {
-  size_t nvec = (size_t)B * N * C / 8;
-  for (size_t v = blockIdx.x * (size_t)blockDim.x + threadIdx.x; v < nvec;
-       v += (size_t)gridDim.x * blockDim.x) {
-    size_t e0 = v * 8;
-    size_t row = e0 / C;
-    int b = (int)(row / N), m = (int)(row % N);
-    uint2 q = make_uint2(0, 0);
-    if (m < lens[b]) {
-      float vals[8];
-      load8(x + e0, vals);
-      int8_t* qe = reinterpret_cast<int8_t*>(&q);
-      const float s = sx[b];
+// amax[b, chunk] = max |x| over the rows of the chunk before lens[b] (0
+// for a chunk past it). Grid (row chunks of Q_ROWS, B); 8 channels a
+// thread.
+__global__ void __launch_bounds__(256) i8_absmax(const bf16* x, const int* lens, float* amax,
+                                                 int N, int C) {
+  __shared__ float scratch[256];
+  griddep_wait();
+  griddep_launch();
+  const int b = blockIdx.y, r0 = blockIdx.x * Q_ROWS;
+  const int nr = max(0, min(Q_ROWS, min(N, lens[b]) - r0)), pieces = C / 8;
+  float m = 0.f;
+#pragma unroll 8
+  for (int idx = threadIdx.x; idx < nr * pieces; idx += blockDim.x) {
+    float v[8];
+    load8(x + ((size_t)b * N + r0 + idx / pieces) * C + (idx % pieces) * 8, v);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) qe[e] = quant_i8(vals[e], s);
-    }
-    *reinterpret_cast<uint2*>(x8 + e0) = q;
+    for (int e = 0; e < 8; ++e) m = max_nan(m, fabsf(v[e]));
   }
+  m = block_max(m, scratch);
+  if (threadIdx.x == 0) amax[(size_t)b * gridDim.x + blockIdx.x] = m;
 }
 
-struct I8ConvArgs {
-  const int8_t* x;    // (B, N, Cin), zero at rows >= lens
-  const int8_t* w;    // (Cout, 9*Cin): the kernel transposed, n-major
-  const float* swe;   // (B, Cout) effective dequantize scale
-  const float* bias;  // (Cout)
-  const int* lens;    // (B)
-  bf16* out;          // (B, N, Cout)
-  float* part;        // (B, n_mtiles, 2, Cout)
-  int N, F, Cin, Cout;
-};
-
-// conv3x3 on int8 rows: out = bf16(f32(acc) * swe + bias), tile statistics
-// of the f32 value. Cin % 16 == 0, Cout % 64 == 0.
-__global__ void __launch_bounds__(IG_THREADS) conv3x3_i8(I8ConvArgs p) {
-  __shared__ IgemmTilesS8 tiles;
-  __shared__ float red[4][2][IG_BN];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * IG_BM, n0 = blockIdx.y * IG_BN, b = blockIdx.z;
-  const int N = p.N, F = p.F, Cin = p.Cin, Cout = p.Cout;
-  const int T = N / F;
-  const int len = p.lens[b];
-  const int K = 9 * Cin, nk = (K + IG8_BK - 1) / IG8_BK;
-  const int8_t* xb = p.x + (size_t)b * N * Cin;
-
-  auto load_a = [&](int kb, uint4 (&reg)[2]) {
+// x8 = clip(rint(x * sx[b]), -127, 127) on rows < lens[b], 0 after, with sx
+// from the maxima amax (B, n_amax). Grid (row chunks of Q_ROWS, B); block 0
+// of each b writes sx[b]. 8 channels a thread.
+__global__ void __launch_bounds__(256) i8_quantize(const bf16* x, const int* lens,
+                                                   const float* amax, int n_amax, float* sx,
+                                                   int8_t* x8, int N, int C) {
+  __shared__ float scratch[256];
+  griddep_wait();
+  griddep_launch();
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * Q_ROWS, nr = min(Q_ROWS, N - r0), pieces = C / 8;
+  const int len = lens[b], total = nr * pieces;
+  float s = 0.f;
+  for (int base = 0; base < total; base += 8 * blockDim.x) {  // the same trips in every thread
+    // eight pieces loaded before any store (int8 stores may alias them)
+    uint4 raw[8];
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      int v = tid + s * IG_THREADS;
-      int m = m0 + (v >> 2);
-      int k = kb * IG8_BK + (v & 3) * 16;
-      reg[s] = make_uint4(0, 0, 0, 0);
-      if (m >= N || k >= K) continue;
-      int tap = k / Cin, ci = k - tap * Cin;
-      int t = m / F, f = m - t * F;
-      int tt = t + tap / 3 - 1, ff = f + tap % 3 - 1;
-      if (tt < 0 || tt >= T || ff < 0 || ff >= F) continue;
-      int src = tt * F + ff;
-      if (src >= len) continue;
-      reg[s] = *reinterpret_cast<const uint4*>(xb + (size_t)src * Cin + ci);
+    for (int k = 0; k < 8; ++k) {
+      const int idx = base + threadIdx.x + k * blockDim.x, m = r0 + idx / pieces;
+      raw[k] = idx < total && m < len
+                   ? __ldg(reinterpret_cast<const uint4*>(x + ((size_t)b * N + m) * C +
+                                                          (idx % pieces) * 8))
+                   : make_uint4(0, 0, 0, 0);
     }
-  };
-  auto load_b = [&](int kb) -> uint4 {
-    int k = kb * IG8_BK + (tid & 3) * 16;
-    if (k >= K) return make_uint4(0, 0, 0, 0);
-    return *reinterpret_cast<const uint4*>(p.w + (size_t)(n0 + (tid >> 2)) * K + k);
-  };
-
-  int acc[2][4][4];
-  igemm_s8(acc, tiles, nk, load_a, load_b);
-  const float* swe = p.swe + (size_t)b * Cout;
-  auto value = [&](int a, int, int n) -> float {
-    return __fadd_rn(__fmul_rn(__int2float_rn(a), swe[n]), p.bias[n]);
-  };
-  store_tile_stats(acc, value, p.out, p.part, red, N, Cout, m0, n0, b);
+    if (base == 0) {
+      s = act_scale(amax + (size_t)b * n_amax, n_amax, scratch);
+      if (blockIdx.x == 0 && threadIdx.x == 0) sx[b] = s;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int idx = base + threadIdx.x + k * blockDim.x;
+      if (idx >= total) continue;
+      const int m = r0 + idx / pieces;
+      uint2 q = make_uint2(0, 0);
+      if (m < len) {
+        int8_t* qe = reinterpret_cast<int8_t*>(&q);
+        const __nv_bfloat162* hv = reinterpret_cast<const __nv_bfloat162*>(&raw[k]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f2 = __bfloat1622float2(hv[i]);
+          qe[2 * i] = quant_i8(f2.x, s);
+          qe[2 * i + 1] = quant_i8(f2.y, s);
+        }
+      }
+      *reinterpret_cast<uint2*>(x8 + ((size_t)b * N + m) * C + (idx % pieces) * 8) = q;
+    }
+  }
 }
 
 struct GlueArgs {
   const bf16* c;        // (B, N, C) conv1 output
-  const float* mean;    // (B, C) GroupNorm mean, per channel
-  const float* inv;     // (B, C)
+  const float* part;    // (B, n_tiles, 2, C) conv1's tile sums and sums of squares
   const float* scale;   // (C)
   const float* shift;   // (C)
   const bf16* film;     // (B, C)
   const int* lens;      // (B)
-  const float* sx;      // (B) pass 1: the scale
-  float* amax;          // pass 0: (B, n_chunks, C) maxima of |h|
+  float* h;             // (B, N, C) pass 0 writes h, pass 1 reads it
+  float* amax;          // (B, blocks a batch element) maxima of |h|, one a pass-0 block
+  float* sx;            // (B) pass 1 writes the scale
   int8_t* h8;           // pass 1: (B, N, C)
-  int N, C;
+  int N, C, n_tiles, groups;
+  float eps;
 };
 
-// h = mish(GN1(c1) * scale + shift) + film, zero on rows >= lens (the JAX
-// glue's arithmetic in f32, one rounding per operation). Block: 8 row lanes
-// x 32 channel groups of 8; grid (channel blocks of 256, row chunks, B).
-template <bool QUANT>
-__global__ void __launch_bounds__(256) glue_i8(GlueArgs p) {
-  __shared__ float red[8][256];
+// Pass 0: h = mish(GN1(c1) * scale + shift) + film, zero on rows >= lens
+// (the JAX glue's arithmetic in f32, one rounding per operation), written
+// in f32 with one maximum of |h| a block. GroupNorm 1 comes from conv1's
+// tile sums here (each block its groups, a warp a group, in one fixed
+// order, so every block has the same values): no launch of its own. Block:
+// 8 row lanes x 32 channel groups of 8; grid (channel blocks of 256, row
+// chunks of GLUE_ROWS, B).
+__global__ void __launch_bounds__(256) glue_h(GlueArgs p) {
+  __shared__ float red[256], g_mu[32], g_iv[32];
+  griddep_wait();
+  griddep_launch();
   const int tid = threadIdx.x, lane_r = tid >> 5;
   const int c0 = (blockIdx.x * 32 + (tid & 31)) * 8;
   const int chunk = blockIdx.y, b = blockIdx.z;
   const int N = p.N, C = p.C;
   const int len = p.lens[b];
   const bool active = c0 < C;
-  float mx[8];
+  // the thread's rows, loaded first
+  uint4 raw[GLUE_ROWS / 8];
+  const int m_end = min(N, (chunk + 1) * GLUE_ROWS);
 #pragma unroll
-  for (int e = 0; e < 8; ++e) mx[e] = 0.f;
+  for (int k = 0; k < GLUE_ROWS / 8; ++k) {
+    const int m = chunk * GLUE_ROWS + lane_r + 8 * k;
+    raw[k] = active && m < m_end
+                 ? __ldg(reinterpret_cast<const uint4*>(p.c + ((size_t)b * N + m) * C + c0))
+                 : make_uint4(0, 0, 0, 0);
+  }
+  const int cg = C / p.groups, g0 = blockIdx.x * 256 / cg;
+  {
+    const int lane = tid & 31, ng = min(256, C - blockIdx.x * 256) / cg;
+    for (int gi = lane_r; gi < ng; gi += 8) {
+      const int g = g0 + gi;
+      float s1 = 0.f, s2 = 0.f;
+      for (int idx = lane; idx < p.n_tiles * cg; idx += 32) {
+        const float* pt = p.part + ((size_t)b * p.n_tiles + idx / cg) * 2 * C + g * cg + idx % cg;
+        s1 += pt[0];
+        s2 += pt[C];
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+      }
+      const float cnt = (float)N * (float)cg, mu = s1 / cnt;
+      if (lane == 0) g_mu[gi] = mu, g_iv[gi] = 1.0f / sqrtf(s2 / cnt - mu * mu + p.eps);
+    }
+  }
+  __syncthreads();
+  float mx = 0.f;
   if (active) {
-    float mean[8], inv[8], sc[8], sh[8], fi[8];
+    const float mean = g_mu[c0 / cg - g0], inv = g_iv[c0 / cg - g0];
+    float sc[8], sh[8], fi[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      mean[e] = p.mean[b * C + c0 + e];
-      inv[e] = p.inv[b * C + c0 + e];
       sc[e] = p.scale[c0 + e];
       sh[e] = p.shift[c0 + e];
       fi[e] = __bfloat162float(p.film[b * C + c0 + e]);
     }
-    const float s = QUANT ? p.sx[b] : 0.f;
-    const int m_end = min(N, (chunk + 1) * GLUE_ROWS);
-    for (int m = chunk * GLUE_ROWS + lane_r; m < m_end; m += 8) {
-      size_t o = ((size_t)b * N + m) * C + c0;
+#pragma unroll
+    for (int k = 0; k < GLUE_ROWS / 8; ++k) {
+      const int m = chunk * GLUE_ROWS + lane_r + 8 * k;
+      if (m >= m_end) continue;
       float h[8];
-      load8(p.c + o, h);
+      const __nv_bfloat162* hv = reinterpret_cast<const __nv_bfloat162*>(&raw[k]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f2 = __bfloat1622float2(hv[i]);
+        h[2 * i] = f2.x, h[2 * i + 1] = f2.y;
+      }
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        float v = __fmul_rn(__fsub_rn(h[e], mean[e]), inv[e]);
+        float v = __fmul_rn(__fsub_rn(h[e], mean), inv);
         v = __fadd_rn(__fmul_rn(v, sc[e]), sh[e]);
         v = __fadd_rn(mish_f32(v), fi[e]);
         h[e] = m < len ? v : 0.f;
+        mx = max_nan(mx, fabsf(h[e]));
       }
-      if (QUANT) {
-        uint2 q;
-        int8_t* qe = reinterpret_cast<int8_t*>(&q);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) qe[e] = quant_i8(h[e], s);
-        *reinterpret_cast<uint2*>(p.h8 + o) = q;
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) mx[e] = max_nan(mx[e], fabsf(h[e]));
-      }
+      float4* dst = reinterpret_cast<float4*>(p.h + ((size_t)b * N + m) * C + c0);
+      dst[0] = make_float4(h[0], h[1], h[2], h[3]);
+      dst[1] = make_float4(h[4], h[5], h[6], h[7]);
     }
   }
-  if (!QUANT) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) red[lane_r][(tid & 31) * 8 + e] = mx[e];
-    __syncthreads();
-  }
-  if (!QUANT && lane_r == 0 && active) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      float m = red[0][tid * 8 + e];
-      for (int r = 1; r < 8; ++r) m = max_nan(m, red[r][tid * 8 + e]);
-      p.amax[((size_t)b * gridDim.y + chunk) * C + c0 + e] = m;
-    }
-  }
+  mx = block_max(mx, red);
+  if (tid == 0) p.amax[((size_t)b * gridDim.y + chunk) * gridDim.x + blockIdx.x] = mx;
 }
 
-int quantize_launch_blocks(size_t nvec) {
-  size_t blocks = (nvec + 255) / 256;
-  return (int)(blocks > 65535 ? 65535 : blocks);
+// Pass 1: the batch element's scale from pass 0's maxima (every block the
+// same reduction; block 0 writes sx), then h8 = quantize(h). Grid as pass 0.
+__global__ void __launch_bounds__(256) glue_q(GlueArgs p) {
+  __shared__ float red[256];
+  griddep_wait();
+  griddep_launch();
+  const int tid = threadIdx.x, lane_r = tid >> 5;
+  const int c0 = (blockIdx.x * 32 + (tid & 31)) * 8;
+  const int chunk = blockIdx.y, b = blockIdx.z;
+  const int N = p.N, C = p.C, per_b = gridDim.x * gridDim.y;
+  const bool active = c0 < C;
+  const int m_end = min(N, (chunk + 1) * GLUE_ROWS);
+  float4 hv[GLUE_ROWS / 8][2];  // the thread's rows, loaded before the reduction
+#pragma unroll
+  for (int k = 0; k < GLUE_ROWS / 8; ++k) {
+    const int m = chunk * GLUE_ROWS + lane_r + 8 * k;
+    const float4* src = reinterpret_cast<const float4*>(p.h + ((size_t)b * N + m) * C + c0);
+    hv[k][0] = active && m < m_end ? __ldcg(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+    hv[k][1] = active && m < m_end ? __ldcg(src + 1) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const float s = act_scale(p.amax + (size_t)b * per_b, per_b, red);
+  if (blockIdx.x == 0 && chunk == 0 && tid == 0) p.sx[b] = s;
+  if (!active) return;
+#pragma unroll
+  for (int k = 0; k < GLUE_ROWS / 8; ++k) {
+    const int m = chunk * GLUE_ROWS + lane_r + 8 * k;
+    if (m >= m_end) continue;
+    const float h[8] = {hv[k][0].x, hv[k][0].y, hv[k][0].z, hv[k][0].w,
+                        hv[k][1].x, hv[k][1].y, hv[k][1].z, hv[k][1].w};
+    uint2 q;
+    int8_t* qe = reinterpret_cast<int8_t*>(&q);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) qe[e] = quant_i8(h[e], s);
+    *reinterpret_cast<uint2*>(p.h8 + ((size_t)b * N + m) * C + c0) = q;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-int us_i8_glue_chunks(int N) { return us_ceil_div(N, GLUE_ROWS); }
 
-// The conv1 input of K9: from amax (B, n_amax) (the row abs-max of the
-// masked x, K7), sx (B) and swe (B, Cout) = (1/sx) * rsw; then
-// x8 = quantize(x) (B, N, Cin) with rows >= lens zero. Cin % 8 == 0.
-int us_i8_quantize_rows(const void* x, const int* lens, const float* amax, int n_amax,
-                        const float* rsw, void* x8, float* sx, float* swe, int B, int N, int Cin,
-                        int Cout, void* stream) {
+// Maxima the glue's pass 0 writes a batch element (its blocks).
+int us_i8_glue_blocks(int N, int C) { return us_ceil_div(N, GLUE_ROWS) * us_ceil_div(C, 256); }
+
+// The maxima the conv1-input quantize writes a batch element.
+int us_i8_quantize_chunks(int N) { return us_ceil_div(N, Q_ROWS); }
+
+// The conv1 input of K9: amax (B, us_i8_quantize_chunks(N)) the maxima of
+// |x| over the rows before the length, then the scale sx (B) and x8 =
+// quantize(x) (B, N, Cin) with rows >= lens zero. Cin % 8 == 0.
+int us_i8_quantize_rows(const void* x, const int* lens, float* amax, void* x8, float* sx, int B,
+                        int N, int Cin, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  i8_scales<<<B, 256, 0, st>>>(amax, n_amax, rsw, Cout, sx, swe);
-  int err = (int)cudaGetLastError();
+  const dim3 grid(us_ceil_div(N, Q_ROWS), B);
+  int err = launch_pdl(i8_absmax, grid, 256, 0, st, static_cast<const bf16*>(x), lens, amax, N,
+                       Cin);
   if (err) return err;
-  i8_quantize<<<quantize_launch_blocks((size_t)B * N * Cin / 8), 256, 0, st>>>(
-      static_cast<const bf16*>(x), lens, sx, static_cast<int8_t*>(x8), B, N, Cin);
-  return (int)cudaGetLastError();
+  return launch_pdl(i8_quantize, grid, 256, 0, st, static_cast<const bf16*>(x), lens,
+                    static_cast<const float*>(amax), (int)grid.x, sx, static_cast<int8_t*>(x8),
+                    N, Cin);
 }
 
-// int8 conv3x3 + dequantize + bias -> out (bf16) and per-tile statistics
-// (part, as us_resnet_conv3x3 writes them). w8t (Cout, 9*Cin) int8.
-int us_resnet_conv3x3_i8(const void* x8, const void* w8t, const float* swe, const float* bias,
-                         const int* lens, void* out, float* part, int B, int N, int F, int Cin,
-                         int Cout, void* stream) {
-  I8ConvArgs p;
-  p.x = static_cast<const int8_t*>(x8);
-  p.w = static_cast<const int8_t*>(w8t);
-  p.swe = swe;
-  p.bias = bias;
-  p.lens = lens;
-  p.out = static_cast<bf16*>(out);
-  p.part = part;
-  p.N = N;
-  p.F = F;
-  p.Cin = Cin;
-  p.Cout = Cout;
-  dim3 grid(us_ceil_div(N, IG_BM), Cout / IG_BN, B);
-  conv3x3_i8<<<grid, IG_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
-}
-
-// The glue of K9 (_kernel_glue_q_deep): pass 0 writes the maxima of |h| to
-// amax (B, us_i8_glue_chunks(N), C), us_i8_scales turns them into sx (B)
-// and swe (B, C) = (1/sx) * rsw, pass 1 writes h8 = quantize(h). C % 8 == 0.
-int us_i8_glue(const void* c1, const float* mean, const float* inv, const float* scale,
-               const float* shift, const void* film, const int* lens, const float* rsw,
-               float* amax, void* h8, float* sx, float* swe, int B, int N, int C,
-               void* stream) {
+// The glue of K9 (_kernel_glue_q_deep): pass 0 reduces GroupNorm 1 from
+// part (B, n_tiles, 2, C), writes h (B, N, C) f32 and the maxima of |h| to
+// amax (B, us_i8_glue_blocks(N, C)); pass 1 reduces them to sx (B) and
+// writes h8 = quantize(h). (C / groups) % 8 == 0, C / groups >= 8.
+int us_i8_glue(const void* c1, const float* part, int n_tiles, int groups, float eps,
+               const float* scale, const float* shift, const void* film, const int* lens,
+               float* h, float* amax, void* h8, float* sx, int B, int N, int C, void* stream) {
+  if (C % groups || (C / groups) % 8 || 256 / (C / groups) > 32) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   GlueArgs p;
   p.c = static_cast<const bf16*>(c1);
-  p.mean = mean;
-  p.inv = inv;
+  p.part = part;
+  p.n_tiles = n_tiles;
+  p.groups = groups;
+  p.eps = eps;
   p.scale = scale;
   p.shift = shift;
   p.film = static_cast<const bf16*>(film);
   p.lens = lens;
-  p.sx = sx;
+  p.h = h;
   p.amax = amax;
+  p.sx = sx;
   p.h8 = static_cast<int8_t*>(h8);
   p.N = N;
   p.C = C;
-  const int chunks = us_i8_glue_chunks(N);
-  dim3 grid(us_ceil_div(C, 256), chunks, B);
-  glue_i8<false><<<grid, 256, 0, st>>>(p);
-  int err = (int)cudaGetLastError();
+  dim3 grid(us_ceil_div(C, 256), us_ceil_div(N, GLUE_ROWS), B);
+  int err = launch_pdl(glue_h, grid, 256, 0, st, p);
   if (err) return err;
-  i8_scales<<<B, 256, 0, st>>>(amax, chunks * C, rsw, C, sx, swe);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  glue_i8<true><<<grid, 256, 0, st>>>(p);
-  return (int)cudaGetLastError();
+  return launch_pdl(glue_q, grid, 256, 0, st, p);
 }
 
 }  // extern "C"

@@ -7,310 +7,690 @@
 //   y     = mask * (x + g * ((x Wq_h) ctx_h) Wout + b_out)
 // Keys are not length-masked: zero padding rows of the bucket enter the
 // softmax, as in the reference; only the output rows at/after the length
-// are zeroed.
+// are zeroed. Rows past N (the last tile's TMA fill) stay out.
 //
-// What bounds it on the H100: bytes and launch count, not products. The
-// projections are small GEMMs (C <= 512 by 128/256 columns) on the tensor
-// cores (mma.sync bf16, f32 accumulate); the activation is read twice and
-// written once. The TPU kernel carried the online-softmax state
-// (m, den, num) across sequential grid steps; here every 64-token tile
-// writes its own (max, sum of exp, exp^T V) triple, a combine kernel merges
-// the tiles of each batch element in a fixed order with the usual max
-// rescaling, and phase 2 reads the merged context. Heads are handled as
-// four 32 x 32 blocks directly, not as a masked 128 x 128 product.
-#include "common.cuh"
+// What bounds it on the H100: bytes (x read twice, y written once; 0.5-4
+// us a site at 3.35 TB/s) and, at the small sites, the three launches. The
+// TPU kernel carried the online-softmax state (m, den, num) across its
+// sequential grid steps; here each block of phase 1 carries it across the
+// 128-row tiles it walks, so a batch element has P partials (the grid is
+// about one wave: P ~ SMs / B, make_attn_plan), not one a
+// tile. Three launches:
+//   * attn_kv (grid P x 2 head pairs x B): per tile the K|V projection of
+//     two heads (128 columns) on wgmma m64n128k16, x by TMA (one 128-row x
+//     64-channel box per chunk through a ring, zero past N), the weights
+//     packed once at load and staged once per block; the column max across
+//     the tile, the rescale of the running (m, den, num) (exp as ex2.approx
+//     of (k - m) log2 e: 1e-6 relative, far inside the output's bf16), and
+//     exp(K)^T V on
+//     mma.sync: the accumulator's e and V fragments are transposed in
+//     registers (movmatrix) into the A and B fragments, each split into a
+//     bf16 high and low part and multiplied three times (hi hi, hi lo, lo
+//     hi) with f32 accumulation, so the context keeps f32 accuracy. Each
+//     warp keeps the partial num of its rows; the block sums them once.
+//   * attn_merge (grid 4 heads x 4 row groups x B): ctx = sum_p num_p
+//     e^(m_p - M) / sum_p den_p e^(m_p - M), each rescale exp once, a thread
+//     per (row, column) over the P partials. (Merging in the last phase-1
+//     block to finish, behind a counter, was slower: PERF.md.)
+//   * attn_out (grid P2 x B): per tile Q = x Wq on wgmma, attn = Q ctx on
+//     mma.sync in the same three-product split (the accumulator is the A
+//     fragment), attn rounded to bf16 is wgmma's A fragment of the output
+//     projection, then bf16(out) + b_out, x + g * out, the mask. Wq and
+//     Wout are staged once per block (at C = 512 Wout streams through one
+//     slot: both do not fit with the ring).
+// One block runs 2 warpgroups (64 tile rows each); thread 0 also sends
+// the TMA and bulk copies (csrc/hopper.cuh), each into its ring slot once
+// the 8 warps have released it. No producer warp: a block of 288 threads
+// may hold only 168 registers a thread, which serialized the softmax's
+// independent column chains (PERF.md); 256 threads may hold 255. The
+// phases are bound by latency at one block an SM, not by bytes or the
+// tensor cores.
+#include <algorithm>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int TT = 64;  // tokens per tile
 constexpr int NH = 4, DH = 32, HD = NH * DH;
-constexpr int BK = 32;
-constexpr int AST = BK + 8;
-constexpr int NTHREADS = 256;
-constexpr int KVS = 2 * HD + 4;  // f32 row stride of the K|V tile
-constexpr int QS = HD + 4;       // f32 row stride of the Q tile
-constexpr int ATS = HD + 8;      // bf16 row stride of the attn tile
-constexpr int OST = 128 + 8;     // bf16 row stride of a staged Wout slice
+constexpr int TM = 128;            // rows of a tile
+// two warpgroups; thread 0 also sends the copies (no producer warp: a
+// block of 256 threads may hold 255 registers a thread, 288 only 168)
+constexpr int THREADS = 256;
+constexpr int XB = TM * KC * 2;    // one x box: 128 rows x 64 channels, 16 KB
+constexpr int WT = 128 * KC * 2;   // one packed weight tile: 128 columns x 64 k, 16 KB
+constexpr int KVC = 64;            // K columns of a head pair (phase 1)
+constexpr int NB_FLOATS = 2 * DH * DH;  // a warp's partial num of a head pair
+constexpr int CTS = DH + 8;        // bf16 row stride of the staged ctx^T
+constexpr int P_MAX = 128;         // partials a (batch, head pair) at most
 
-// acc = x_tile (rows x C, row stride C) @ w[:, :BN_] (row stride ldw), f32.
-// 8 warps as 2 (rows) x 4 (columns); warp tile 32 x BN_/4.
-template <int BN_>
-__device__ void tile_gemm_xw(float (&acc)[2][BN_ / 32][4], const bf16* xt, int rows, int C,
-                             const bf16* w, int ldw, bf16* As, bf16* Bs) {
-  constexpr int BST = BN_ + 8;
-  constexpr int NT = BN_ / 32;
-  constexpr int VPR = BN_ / 8;                      // 16-byte vectors per W row
-  constexpr int BV = BK * VPR / NTHREADS;           // W vectors per thread
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int nk = C / BK;
-  uint4 areg, breg[BV];
-  auto load = [&](int kb) {
-    int r = tid >> 2, kc = (tid & 3) * 8;
-    areg = r < rows ? *reinterpret_cast<const uint4*>(xt + (size_t)r * C + kb * BK + kc)
-                    : make_uint4(0, 0, 0, 0);
-#pragma unroll
-    for (int s = 0; s < BV; ++s) {
-      int v = tid + s * NTHREADS;
-      breg[s] = *reinterpret_cast<const uint4*>(w + (size_t)(kb * BK + v / VPR) * ldw +
-                                                (v % VPR) * 8);
-    }
-  };
-  load(0);
-  for (int kb = 0; kb < nk; ++kb) {
-    bf16* a = As + (kb & 1) * TT * AST;
-    bf16* bs = Bs + (kb & 1) * BK * BST;
-    *reinterpret_cast<uint4*>(a + (tid >> 2) * AST + (tid & 3) * 8) = areg;
-#pragma unroll
-    for (int s = 0; s < BV; ++s) {
-      int v = tid + s * NTHREADS;
-      *reinterpret_cast<uint4*>(bs + (v / VPR) * BST + (v % VPR) * 8) = breg[s];
-    }
-    __syncthreads();
-    if (kb + 1 < nk) load(kb + 1);
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
-      warp_mma_k16<2, NT>(acc, a + (wm * 32) * AST + kk * 16, AST,
-                          bs + kk * 16 * BST + wn * (BN_ / 4), BST, lane);
-  }
-  __syncthreads();  // the staging buffers may be reused after return
+US_DEV uint32_t movmatrix_t(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
 }
 
-constexpr size_t kPhase1Smem =
-    (size_t)TT * KVS * 4 > (size_t)(2 * TT * AST + 2 * BK * (2 * HD + 8)) * 2
-        ? (size_t)TT * KVS * 4
-        : (size_t)(2 * TT * AST + 2 * BK * (2 * HD + 8)) * 2;
+US_DEV uint32_t bits(__nv_bfloat162 h) { return *reinterpret_cast<uint32_t*>(&h); }
 
-// Per tile: K|V projections, per-column max and exp-sum of K, and the
-// per-head exp(K)^T V partial context.
-__global__ void __launch_bounds__(NTHREADS) attn_phase1(const bf16* x, const bf16* wkv, int ldw,
-                                                        int N, int C, float* part_m,
-                                                        float* part_den, float* part_num) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + 2 * TT * AST;
-  float* kv = reinterpret_cast<float*>(smem);  // reuses the staging area
+US_DEV uint32_t pack_bf16(float a, float b) { return bits(__floats2bfloat162_rn(a, b)); }
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int tile = blockIdx.x, nt = gridDim.x, b = blockIdx.y;
-  const int t0 = tile * TT, rows = min(TT, N - t0);
-
-  float acc[2][8][4];
-  tile_gemm_xw<2 * HD>(acc, x + ((size_t)b * N + t0) * C, rows, C, wkv, ldw, As, Bs);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int r = wm * 32 + i * 16 + (lane >> 2) + (e >> 1) * 8;
-        int c = wn * 64 + j * 8 + (lane & 3) * 2 + (e & 1);
-        kv[r * KVS + c] = acc[i][j][e];
-      }
-  __syncthreads();
-
-  const size_t pt = (size_t)b * nt + tile;
-  if (tid < HD) {
-    float mx = -INFINITY;
-    for (int r = 0; r < rows; ++r) mx = fmaxf(mx, kv[r * KVS + tid]);
-    float den = 0.f;
-    for (int r = 0; r < TT; ++r) {
-      float e = r < rows ? expf(kv[r * KVS + tid] - mx) : 0.f;
-      kv[r * KVS + tid] = e;
-      den += e;
-    }
-    part_m[pt * HD + tid] = mx;
-    part_den[pt * HD + tid] = den;
-  }
-  __syncthreads();
-
-  const int h = tid >> 6, i = (tid >> 1) & 31, j0 = (tid & 1) * 16;
-  float a[16];
-#pragma unroll
-  for (int jj = 0; jj < 16; ++jj) a[jj] = 0.f;
-  for (int r = 0; r < rows; ++r) {
-    float e = kv[r * KVS + h * DH + i];
-    const float* v = kv + r * KVS + HD + h * DH + j0;
-#pragma unroll
-    for (int jj = 0; jj < 16; ++jj) a[jj] += e * v[jj];
-  }
-  float* out = part_num + (pt * NH + h) * DH * DH + i * DH + j0;
-#pragma unroll
-  for (int jj = 0; jj < 16; ++jj) out[jj] = a[jj];
+// v[i] for a lane-dependent i in 0..3, without indexing a register array
+US_DEV uint32_t sel4(const uint32_t (&v)[4], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
 }
 
-// Merge the tiles of one (batch, head): ctx = sum_t num_t e^(m_t - M) /
-// sum_t den_t e^(m_t - M), in tile order.
-__global__ void __launch_bounds__(NTHREADS) attn_combine(const float* part_m,
-                                                         const float* part_den,
-                                                         const float* part_num, int nt,
-                                                         float* ctx) {
-  __shared__ float M[DH], D[DH];
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  if (tid < DH) {
-    const int c = h * DH + tid;
-    float mx = -INFINITY;
-    for (int t = 0; t < nt; ++t) mx = fmaxf(mx, part_m[((size_t)b * nt + t) * HD + c]);
-    float den = 0.f;
-    for (int t = 0; t < nt; ++t) {
-      size_t o = ((size_t)b * nt + t) * HD + c;
-      den += part_den[o] * expf(part_m[o] - mx);
-    }
-    M[tid] = mx;
-    D[tid] = den;
-  }
-  __syncthreads();
-  for (int o = tid; o < DH * DH; o += NTHREADS) {
-    const int i = o / DH;
-    float a = 0.f;
-    for (int t = 0; t < nt; ++t) {
-      size_t pt = (size_t)b * nt + t;
-      a += part_num[(pt * NH + h) * DH * DH + o] * expf(part_m[pt * HD + h * DH + i] - M[i]);
-    }
-    ctx[((size_t)b * NH + h) * DH * DH + o] = a / D[i];
-  }
+// (a, b) = hi + lo, each a bf16 pair: hi the rounded value, lo the rounded
+// remainder (a 16-bit mantissa in all; the products of two such splits
+// leave out lo * lo, below 2^-16 relative).
+US_DEV void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = pack_bf16(a - f.x, b - f.y);
 }
 
-constexpr size_t kPhase2Smem = (size_t)2 * TT * AST * 2 + (size_t)2 * BK * (HD + 8) * 2 +
-                               (size_t)TT * QS * 4 + (size_t)NH * DH * DH * 4 +
-                               (size_t)TT * ATS * 2;
+// c += a_hi b_hi + a_hi b_lo + a_lo b_hi (m16n8k16, f32 accumulate)
+US_DEV void mma3(float (&c)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4], uint32_t bh0,
+                 uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_bf16_16816(c, ah, bh0, bh1);
+  mma_bf16_16816(c, ah, bl0, bl1);
+  mma_bf16_16816(c, al, bh0, bh1);
+}
 
-// Per tile: Q projection, attn = Q ctx (rounded to bf16), then
-// y = mask * (x + g * (attn Wout + b_out)) in bf16 arithmetic.
-__global__ void __launch_bounds__(NTHREADS) attn_phase2(const bf16* x, const bf16* wq, int ldw,
-                                                        const float* ctx, const bf16* wo,
-                                                        const float* bo, const float* g,
-                                                        const int* lens, bf16* y, int N,
-                                                        int C) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + 2 * TT * AST;                                 // [2][BK][HD + 8]
-  float* Qs = reinterpret_cast<float*>(Bs + 2 * BK * (HD + 8));  // [TT][QS]
-  float* Cs = Qs + TT * QS;                                      // [NH][DH][DH]
-  bf16* At = reinterpret_cast<bf16*>(Cs + NH * DH * DH);         // [TT][ATS]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int tile = blockIdx.x, b = blockIdx.y;
-  const int t0 = tile * TT, rows = min(TT, N - t0);
-  const bf16* xt = x + ((size_t)b * N + t0) * C;
-
-  for (int o = tid; o < NH * DH * DH; o += NTHREADS) Cs[o] = ctx[(size_t)b * NH * DH * DH + o];
-
-  float acc[2][4][4];
-  tile_gemm_xw<HD>(acc, xt, rows, C, wq, ldw, As, Bs);
+// The x ring: the producer's side (one box a chunk, zero past N) and the
+// consumers' product of a tile with resident weights, acc (64 x 128 per
+// warpgroup) = x rows 64 g .. 64 g + 63 @ W, W's chunk c the packed tile at
+// w + c * WT.
+struct Ring {
+  uint8_t* buf;
+  uint64_t *full, *empty;
+  int n;
+  // the block's chunks in order: tile k (grid tile t0 + k * dt) chunk c is
+  // chunk k * nc + c of `total`; thread 0 sends them, each into its slot
+  // once the 8 warps have released the slot's previous chunk
+  const CUtensorMap* map;
+  int nc, t0, dt, total, b;
+  int s = 0, g_sent = 0;
+  uint32_t ph = 0;
+  US_DEV void next() {
+    if (++s == n) s = 0, ph ^= 1;
+  }
+  US_DEV void send() {
+    const int g = g_sent++, slot = g % n;
+    if (g >= n) mbar_wait(&empty[slot], ((g / n) & 1) ^ 1);
+    mbar_arrive_expect_tx(&full[slot], XB);
+    tma_load_4d(buf + slot * XB, map, (g % nc) * KC, (t0 + (g / nc) * dt) * TM, 0, b,
+                &full[slot]);
+  }
+  US_DEV void prime() {  // thread 0, at the start: the first n chunks
+    while (g_sent < min(n, total)) send();
+  }
+  US_DEV void refill() {  // after a release: thread 0 sends the next chunk
+    if (threadIdx.x == 0 && g_sent < total) send();
+  }
+  // DB: two fragment sets, the next chunk's loads overlapping this chunk's
+  // products (phase 2); one set keeps phase 1's registers for its state
+  template <bool DB>
+  US_DEV void gemm(float (&acc)[64], const uint8_t* w, int nc) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int R = (warp >> 2) * 64 + (warp & 3) * 16 + (lane & 15);
+    const uint32_t hi = lane >> 4, rx = R & 7;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    wgmma_fence_acc(acc);
+    // two fragment sets: a chunk's products run while the next chunk's
+    // fragments load; a set is reloaded once the group that read it is done
+    uint32_t a0[4][4], a1[4][4];
+    int prev = -1;
+    auto chunk = [&](uint32_t(&f)[4][4], int c) {
+      mbar_wait(&full[s], ph);
+      const uint32_t row = smem_u32(buf + s * XB) + R * 128;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+      for (int kk = 0; kk < 4; ++kk) ldsm_x4(f[kk], row + ((((2 * kk + hi) ^ rx) & 7) << 4));
+      const uint64_t desc = wgmma_desc_sw128(w + c * WT);
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int r = wm * 32 + i * 16 + (lane >> 2) + (e >> 1) * 8;
-        int c = wn * 32 + j * 8 + (lane & 3) * 2 + (e & 1);
-        Qs[r * QS + c] = acc[i][j][e];
+      for (int kk = 0; kk < 4; ++kk) WgmmaRS<128>::mma(acc, f[kk], desc + 2 * kk);
+      wgmma_commit();
+      if (DB) {
+        wgmma_wait<1>();  // the previous chunk's group is done: its slot is free
+        if (prev >= 0) release(&empty[prev]), refill();
+        prev = s;
+      } else {
+        wgmma_wait<0>();
+        release(&empty[s]);
+        refill();
       }
-  __syncthreads();
+      next();
+    };
+    for (int c = 0; c < nc; ++c) {
+      if (DB && (c & 1))
+        chunk(a1, c);
+      else
+        chunk(a0, c);
+    }
+    if (DB) {
+      wgmma_wait<0>();
+      release(&empty[prev]);
+      refill();
+    }
+    wgmma_fence_acc(acc);
+  }
+};
 
-  {
-    const int c = tid & (HD - 1), h = c / DH, jj = c % DH;
-    for (int r = tid / HD; r < TT; r += NTHREADS / HD) {
-      float a = 0.f;
-#pragma unroll 8
-      for (int i = 0; i < DH; ++i) a += Qs[r * QS + h * DH + i] * Cs[(h * DH + i) * DH + jj];
-      At[r * ATS + c] = __float2bfloat16(a);
+// Phase 1. Block (p, hp, b): tiles p, p + P, ... of batch element b, heads
+// 2 hp and 2 hp + 1. Packed columns of the head pair: [K | V] of each head,
+// so accumulator column block j (8 columns) is K of head j / 8 for j % 8 <
+// 4, else V. Writes the block's partial: m and den per K column (64), num
+// (2 heads x 32 x 32).
+__global__ void __launch_bounds__(THREADS, 1)
+    attn_kv(const __grid_constant__ CUtensorMap xmap, const bf16* wkv, int N, int C, int P,
+            float* part_m, float* part_den, float* part_num) {
+  griddep_wait();  // the three launches are programmatic dependent launches
+  griddep_launch();
+  const int nc = C / KC, ntiles = (N + TM - 1) / TM;
+  const int p = blockIdx.x, hp = blockIdx.y, b = blockIdx.z;
+  uint8_t* w = smem_base();
+  uint8_t* xr = w + nc * WT;
+  float* red = reinterpret_cast<float*>(xr + 4 * XB);  // [8 warps][64]
+  float* m_run = red + 8 * KVC;                         // [64]
+  float* m_new = m_run + KVC;
+  float* scl = m_new + KVC;
+  uint64_t* w_full = reinterpret_cast<uint64_t*>(scl + KVC);
+  uint64_t* x_full = w_full + 1;
+  uint64_t* x_empty = x_full + 4;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    mbar_init(w_full, 1);
+    for (int s = 0; s < 4; ++s) mbar_init(&x_full[s], 1), mbar_init(&x_empty[s], 8);
+    mbar_fence_init();
+  }
+  if (tid < KVC) m_run[tid] = -INFINITY;
+  __syncthreads();
+  Ring ring{xr, x_full, x_empty, 4, &xmap, nc, p, P, ((ntiles - p + P - 1) / P) * nc, b};
+  if (tid == 0) {
+    mbar_arrive_expect_tx(w_full, nc * WT);
+    for (int c = 0; c < nc; ++c)
+      bulk_g2s(w + c * WT, reinterpret_cast<const uint8_t*>(wkv) + ((size_t)hp * nc + c) * WT,
+               WT, w_full);
+    ring.prime();
+  }
+
+  const int q4 = lane & 3, rq = lane >> 2;
+  const int row_base = (warp >> 2) * 64 + (warp & 3) * 16 + rq;  // + 8 for the second half
+  // the block's running max of each key column (m_run, in shared memory),
+  // and per thread the exp-sum of its 16 key columns over its rows and num
+  // of its fragment, over the warp's rows
+  float den[2][4][2], num[2][2][4][4];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      den[hh][j][0] = den[hh][j][1] = 0.f;
+#pragma unroll
+      for (int ib = 0; ib < 2; ++ib)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) num[hh][ib][j][e] = 0.f;
+    }
+  mbar_wait(w_full, 0);
+  float acc[64];
+  for (int t = p; t < ntiles; t += P) {
+    ring.gemm<false>(acc, w, nc);
+    const bool ok0 = t * TM + row_base < N, ok1 = t * TM + row_base + 8 < N;
+    // the tile's column maxima: the thread's two rows, its 8-lane column
+    // group, then the 8 warps
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int jb = 0; jb < 4; ++jb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int a = (8 * hh + jb) * 4 + e;
+          float m = fmaxf(ok0 ? acc[a] : -INFINITY, ok1 ? acc[a + 2] : -INFINITY);
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+          if (rq == 0) red[warp * KVC + 32 * hh + 8 * jb + 2 * q4 + e] = m;
+        }
+    bar_sync_named(1, 256);
+    if (tid < KVC) {
+      float m = red[tid];
+      for (int w8 = 1; w8 < 8; ++w8) m = fmaxf(m, red[w8 * KVC + tid]);
+      const float mo = m_run[tid], mn = fmaxf(mo, m);
+      m_new[tid] = mn;
+      scl[tid] = __expf(mo - mn);
+      m_run[tid] = mn;
+    }
+    bar_sync_named(1, 256);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      // rescale the running sums, then e = exp(k - m) (0 past N)
+#pragma unroll
+      for (int jb = 0; jb < 4; ++jb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kc = 32 * hh + 8 * jb + 2 * q4 + e, a = (8 * hh + jb) * 4 + e;
+          const float mn = m_new[kc];
+          acc[a] = ok0 ? __expf(acc[a] - mn) : 0.f;
+          acc[a + 2] = ok1 ? __expf(acc[a + 2] - mn) : 0.f;
+          den[hh][jb][e] = den[hh][jb][e] * scl[kc] + (acc[a] + acc[a + 2]);
+        }
+#pragma unroll
+      for (int ib = 0; ib < 2; ++ib)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const float sc = scl[32 * hh + 16 * ib + 8 * h2 + rq];
+#pragma unroll
+          for (int jv = 0; jv < 4; ++jv)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) num[hh][ib][jv][2 * h2 + e] *= sc;
+        }
+      // e^T (8 x 8 blocks: key column block jb, row half h2) and V^T
+      // (value column block jv, row half h2), transposed in registers
+      uint32_t eh[4][2], el[4][2], vh[4][2], vl[4][2];
+#pragma unroll
+      for (int jb = 0; jb < 4; ++jb)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int a = (8 * hh + jb) * 4 + 2 * h2, v = (8 * hh + 4 + jb) * 4 + 2 * h2;
+          uint32_t hi, lo;
+          split2(acc[a], acc[a + 1], hi, lo);
+          eh[jb][h2] = movmatrix_t(hi), el[jb][h2] = movmatrix_t(lo);
+          split2(acc[v], acc[v + 1], hi, lo);
+          vh[jb][h2] = movmatrix_t(hi), vl[jb][h2] = movmatrix_t(lo);
+        }
+      // num (key rows i, value columns j) += e^T V over the warp's 16 rows
+#pragma unroll
+      for (int ib = 0; ib < 2; ++ib) {
+        const uint32_t ah[4] = {eh[2 * ib][0], eh[2 * ib + 1][0], eh[2 * ib][1], eh[2 * ib + 1][1]};
+        const uint32_t al[4] = {el[2 * ib][0], el[2 * ib + 1][0], el[2 * ib][1], el[2 * ib + 1][1]};
+#pragma unroll
+        for (int jv = 0; jv < 4; ++jv)
+          mma3(num[hh][ib][jv], ah, al, vh[jv][0], vh[jv][1], vl[jv][0], vl[jv][1]);
+      }
     }
   }
-  __syncthreads();
 
-  const float gb = bf16_round(g[0]);
-  const int len = lens[b];
-  for (int n0 = 0; n0 < C; n0 += 128) {
-    float acc2[2][4][4];
+  // the block's partial: den over the rows, num over the 8 warps (in the
+  // weights' and the ring's space, which every product has read)
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+    for (int jb = 0; jb < 4; ++jb)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc2[i][j][e] = 0.f;
-    for (int kb = 0; kb < HD / BK; ++kb) {
+      for (int e = 0; e < 2; ++e) {
+        float d = den[hh][jb][e];
 #pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        int v = tid + s * NTHREADS;
-        int kr = v >> 4, nc = (v & 15) * 8;
-        *reinterpret_cast<uint4*>(Bs + kr * OST + nc) =
-            *reinterpret_cast<const uint4*>(wo + (size_t)(kb * BK + kr) * C + n0 + nc);
+        for (int off = 4; off < 32; off <<= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+        if (rq == 0) red[warp * KVC + 32 * hh + 8 * jb + 2 * q4 + e] = d;
       }
-      __syncthreads();
+  bar_sync_named(1, 256);
+  float* nb = reinterpret_cast<float*>(w);  // [8 warps][2 heads][32][32]
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
-        warp_mma_k16<2, 4>(acc2, At + (wm * 32) * ATS + kb * BK + kk * 16, ATS,
-                           Bs + kk * 16 * OST + wn * 32, OST, lane);
-      __syncthreads();
-    }
+  for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int ib = 0; ib < 2; ++ib)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int jv = 0; jv < 4; ++jv)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          int r = wm * 32 + i * 16 + (lane >> 2) + (e >> 1) * 8;
-          if (r >= rows) continue;
-          int c = n0 + wn * 32 + j * 8 + (lane & 3) * 2 + (e & 1);
-          float o = bf16_round(acc2[i][j][e]);
-          o = bf16_round(o + bf16_round(bo[c]));
-          float xv = __bfloat162float(xt[(size_t)r * C + c]);
-          float yv = bf16_round(xv + bf16_round(gb * o));
-          y[((size_t)b * N + t0 + r) * C + c] = __float2bfloat16(t0 + r < len ? yv : 0.f);
+          const int i = 16 * ib + rq + 8 * (e >> 1), j = 8 * jv + 2 * q4 + (e & 1);
+          nb[warp * NB_FLOATS + hh * DH * DH + i * DH + j] = num[hh][ib][jv][e];
         }
+  bar_sync_named(1, 256);
+  const size_t pb = ((size_t)b * 2 + hp) * P + p;
+  if (tid < KVC) {
+    float d = 0.f;
+    for (int w8 = 0; w8 < 8; ++w8) d += red[w8 * KVC + tid];
+    part_den[pb * KVC + tid] = d;
+    part_m[pb * KVC + tid] = m_run[tid];
   }
+  for (int o = tid; o < NB_FLOATS; o += 256) {
+    float s = 0.f;
+#pragma unroll
+    for (int w8 = 0; w8 < 8; ++w8) s += nb[w8 * NB_FLOATS + o];
+    part_num[pb * NB_FLOATS + o] = s;
+  }
+
+}
+
+// Merge the P partials of (batch b, head h) for 8 key rows: ctx[i][j] =
+// sum_p num_p[i][j] w_p[i] / sum_p den_p[i] w_p[i], w_p[i] = e^(m_p[i] -
+// M[i]), M the largest m_p, in partial order. Grid (4 heads, 4 row
+// groups, B), a thread per (row, column).
+__global__ void __launch_bounds__(256) attn_merge(const float* part_m, const float* part_den,
+                                                  const float* part_num, int P, float* ctx) {
+  __shared__ float wp[P_MAX][8], M[8], D[8];
+  griddep_wait();
+  griddep_launch();
+  const int h = blockIdx.x, hp = h >> 1, hh = h & 1, i0 = blockIdx.y * 8, b = blockIdx.z;
+  const int tid = threadIdx.x, il = tid >> 5, j = tid & 31;
+  const size_t pb = ((size_t)b * 2 + hp) * P;
+  const int col = 32 * hh + i0;  // the rows' K columns in the partials
+  if (tid < 8) {
+    float m = -INFINITY;
+#pragma unroll 8
+    for (int q = 0; q < P; ++q) m = fmaxf(m, part_m[(pb + q) * KVC + col + tid]);
+    M[tid] = m;
+  }
+  __syncthreads();
+  for (int o = tid; o < P * 8; o += 256) {
+    const int q = o >> 3, r = o & 7;
+    wp[q][r] = expf(part_m[(pb + q) * KVC + col + r] - M[r]);
+  }
+  __syncthreads();
+  if (tid < 8) {
+    float d = 0.f;
+#pragma unroll 8
+    for (int q = 0; q < P; ++q) d += part_den[(pb + q) * KVC + col + tid] * wp[q][tid];
+    D[tid] = d;
+  }
+  __syncthreads();
+  const int i = i0 + il;
+  float a = 0.f;
+#pragma unroll 8
+  for (int q = 0; q < P; ++q)
+    a += part_num[(pb + q) * NB_FLOATS + hh * DH * DH + i * DH + j] * wp[q][il];
+  ctx[(((size_t)b * NH + h) * DH + i) * DH + j] = a / D[il];
+}
+
+struct OutArgs {
+  const bf16* x;      // (B, N, C): the residual
+  const bf16* wq;     // packed (C / 64, 128, 64)
+  const bf16* wo;     // packed (C / 128, 2, 128, 64)
+  const float* ctx;   // (B, 4, 32, 32)
+  const float* bo;    // (C)
+  const float* g;     // (1)
+  const int* lens;    // (B)
+  bf16* y;            // (B, N, C)
+  int N, C, P2, n_xs, n_os;  // x ring slots; Wout slots (C / 128: staged once)
+};
+
+// Phase 2. Block (p, b): tiles p, p + P2, ... of batch element b.
+__global__ void __launch_bounds__(THREADS, 1)
+    attn_out(const __grid_constant__ CUtensorMap xmap, OutArgs a) {
+  griddep_wait();
+  const int C = a.C, N = a.N, nc = C / KC, nt_out = C / 128, ntiles = (N + TM - 1) / TM;
+  const bool stream_wo = a.n_os < nt_out;
+  const int p = blockIdx.x, b = blockIdx.y;
+  uint8_t* wq = smem_base();
+  uint8_t* wo = wq + nc * WT;
+  uint8_t* xr = wo + a.n_os * 2 * WT;
+  bf16* cth = reinterpret_cast<bf16*>(xr + a.n_xs * XB);  // [4][32 j][CTS] ctx^T high
+  bf16* ctl = cth + NH * DH * CTS;                         // low
+  uint64_t* w_full = reinterpret_cast<uint64_t*>(ctl + NH * DH * CTS);
+  uint64_t* o_full = w_full + 1;
+  uint64_t* o_empty = o_full + 2;
+  uint64_t* x_full = o_empty + 2;
+  uint64_t* x_empty = x_full + 4;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    mbar_init(w_full, 1);
+    for (int s = 0; s < 2; ++s) mbar_init(&o_full[s], 1), mbar_init(&o_empty[s], 8);
+    for (int s = 0; s < 4; ++s) mbar_init(&x_full[s], 1), mbar_init(&x_empty[s], 8);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int tiles = (ntiles - p + a.P2 - 1) / a.P2;  // the block's tiles
+  Ring ring{xr, x_full, x_empty, a.n_xs, &xmap, nc, p, a.P2, tiles * nc, b};
+  // Wout's 128-column tiles through n_os slots when they do not all fit:
+  // thread 0 sends tile g % nt_out of the block's sequence into slot g %
+  // n_os once its previous tile there is released
+  const uint8_t* wo_src = reinterpret_cast<const uint8_t*>(a.wo);
+  const int total_o = stream_wo ? tiles * nt_out : 0;
+  int go_sent = 0;
+  auto send_wo = [&]() {
+    const int g = go_sent++, slot = g % a.n_os;
+    if (g >= a.n_os) mbar_wait(&o_empty[slot], ((g / a.n_os) & 1) ^ 1);
+    mbar_arrive_expect_tx(&o_full[slot], 2 * WT);
+    bulk_g2s(wo + slot * 2 * WT, wo_src + (size_t)(g % nt_out) * 2 * WT, 2 * WT, &o_full[slot]);
+  };
+  if (tid == 0) {
+    mbar_arrive_expect_tx(w_full, nc * WT + (stream_wo ? 0 : nt_out * 2 * WT));
+    for (int c = 0; c < nc; ++c)
+      bulk_g2s(wq + c * WT, reinterpret_cast<const uint8_t*>(a.wq) + (size_t)c * WT, WT, w_full);
+    if (!stream_wo)
+      for (int n = 0; n < nt_out; ++n)
+        bulk_g2s(wo + n * 2 * WT, wo_src + (size_t)n * 2 * WT, 2 * WT, w_full);
+    ring.prime();
+    while (go_sent < min(a.n_os, total_o)) send_wo();
+  }
+
+  // ctx^T of batch element b, split into bf16 high and low parts
+  float cv[NH * DH * DH / 256];  // loaded before any is stored
+#pragma unroll
+  for (int k = 0; k < NH * DH * DH / 256; ++k)
+    cv[k] = __ldg(a.ctx + (size_t)b * NH * DH * DH + tid + 256 * k);
+#pragma unroll
+  for (int k = 0; k < NH * DH * DH / 256; ++k) {
+    const int o = tid + 256 * k, h = o / (DH * DH), i = (o / DH) % DH, j = o % DH;
+    const float v = cv[k];
+    const bf16 hi = __float2bfloat16(v);
+    cth[(h * DH + j) * CTS + i] = hi;
+    ctl[(h * DH + j) * CTS + i] = __float2bfloat16(v - __bfloat162float(hi));
+  }
+  bar_sync_named(1, 256);
+  const int q4 = lane & 3, rq = lane >> 2;
+  const int row_base = (warp >> 2) * 64 + (warp & 3) * 16 + rq;
+  const __nv_bfloat162 g2 = __float2bfloat162_rn(a.g[0]);
+  const int len = a.lens[b];
+  int os = 0;
+  uint32_t oph = 0;
+  mbar_wait(w_full, 0);
+  float acc[64];
+  for (int t = p; t < ntiles; t += a.P2) {
+    ring.gemm<true>(acc, wq, nc);
+    // attn_h = Q_h ctx_h: Q's accumulator is the A fragment (16 rows x 16
+    // key columns per k16 step), ctx^T rows give B
+    float at[NH][4][4];
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) at[h][jn][e] = 0.f;
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int j0 = (4 * h + 2 * s) * 4, j1 = j0 + 4;
+        uint32_t ah[4], al[4];
+        split2(acc[j0], acc[j0 + 1], ah[0], al[0]);
+        split2(acc[j0 + 2], acc[j0 + 3], ah[1], al[1]);
+        split2(acc[j1], acc[j1 + 1], ah[2], al[2]);
+        split2(acc[j1 + 2], acc[j1 + 3], ah[3], al[3]);
+#pragma unroll
+        for (int jn = 0; jn < 4; ++jn) {
+          const int r = (h * DH + 8 * jn + rq) * CTS + 16 * s + 2 * q4;
+          mma3(at[h][jn], ah, al, *reinterpret_cast<const uint32_t*>(cth + r),
+               *reinterpret_cast<const uint32_t*>(cth + r + 8),
+               *reinterpret_cast<const uint32_t*>(ctl + r),
+               *reinterpret_cast<const uint32_t*>(ctl + r + 8));
+        }
+      }
+    }
+    // attn rounded to bf16: the A fragments of the output projection's 8
+    // k16 steps
+    uint32_t af[8][4];
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const int h = s >> 1, jn = 2 * (s & 1);
+      af[s][0] = pack_bf16(at[h][jn][0], at[h][jn][1]);
+      af[s][1] = pack_bf16(at[h][jn][2], at[h][jn][3]);
+      af[s][2] = pack_bf16(at[h][jn + 1][0], at[h][jn + 1][1]);
+      af[s][3] = pack_bf16(at[h][jn + 1][2], at[h][jn + 1][3]);
+    }
+    const size_t row0 = (size_t)b * N + t * TM;
+    for (int n = 0; n < nt_out; ++n) {
+      const uint8_t* wt = wo + (stream_wo ? os : n) * 2 * WT;
+      // the residual and the bias of the thread's outputs, read (on the
+      // read-only path, before any store) while the products run: in the
+      // store layout, 8 columns 8 (4 k + q4) .. of the thread's two rows
+      uint4 xr[2][4], bb[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = n * 128 + 8 * (4 * k + q4);
+        const float4 b0 = __ldg(reinterpret_cast<const float4*>(a.bo + c));
+        const float4 b1 = __ldg(reinterpret_cast<const float4*>(a.bo + c + 4));
+        bb[k] = make_uint4(pack_bf16(b0.x, b0.y), pack_bf16(b0.z, b0.w), pack_bf16(b1.x, b1.y),
+                           pack_bf16(b1.z, b1.w));
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int r = row_base + 8 * h2;
+          xr[h2][k] = t * TM + r < N
+                          ? __ldg(reinterpret_cast<const uint4*>(a.x + (row0 + r) * C + c))
+                          : make_uint4(0, 0, 0, 0);
+        }
+      }
+      if (stream_wo) mbar_wait(&o_full[os], oph);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      wgmma_fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 8; ++s)
+        WgmmaRS<128>::mma(acc, af[s], wgmma_desc_sw128(wt + (s >> 2) * WT) + 2 * (s & 3));
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_acc(acc);
+      if (stream_wo) {
+        release(&o_empty[os]);
+        if (tid == 0 && go_sent < total_o) send_wo();
+        if (++os == a.n_os) os = 0, oph ^= 1;
+      }
+      // bf16(out) + b_out, x + g * out, each rounded to bf16; 0 past the
+      // length. The quad's four lanes trade their bf16 pairs so that each
+      // holds 8 whole columns, and a warp stores 64 contiguous bytes a row.
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int r = row_base + 8 * h2, m = t * TM + r;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          uint32_t pr[4], rv[4], v[4];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            pr[jj] = pack_bf16(acc[4 * (4 * k + jj) + 2 * h2], acc[4 * (4 * k + jj) + 2 * h2 + 1]);
+          // rv[d]: lane q4 ^ d's pair of column block 4 k + q4
+          rv[0] = sel4(pr, q4);
+#pragma unroll
+          for (int d = 1; d < 4; ++d) rv[d] = __shfl_xor_sync(0xffffffffu, sel4(pr, q4 ^ d), d);
+#pragma unroll
+          for (int qq = 0; qq < 4; ++qq) v[qq] = sel4(rv, q4 ^ qq);
+          if (m >= N) continue;
+          const __nv_bfloat162* ov = reinterpret_cast<const __nv_bfloat162*>(v);
+          const __nv_bfloat162* xv = reinterpret_cast<const __nv_bfloat162*>(&xr[h2][k]);
+          const __nv_bfloat162* bv = reinterpret_cast<const __nv_bfloat162*>(&bb[k]);
+          // bf16 pair arithmetic: each operation rounds its exact result
+          // once, as the plain version's bf16 operations do
+          uint32_t y[4] = {0u, 0u, 0u, 0u};
+          if (m < len)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              y[i] = bits(__hadd2(xv[i], __hmul2(g2, __hadd2(ov[i], bv[i]))));
+          *reinterpret_cast<uint4*>(a.y + (row0 + r) * C + n * 128 + 8 * (4 * k + q4)) =
+              make_uint4(y[0], y[1], y[2], y[3]);
+        }
+      }
+    }
+  }
+}
+
+constexpr int BARS = 128;  // barrier space at the end of the shared memory
+
+// The schedule at B rows of N tokens: 128-row tiles; phase 1 in P blocks a
+// (batch element, head pair), about one wave of one block an SM, each
+// walking tiles p, p + P, ... and writing one partial (2 P a batch element,
+// O(SMs / B), not one a tile); phase 2 in P2 blocks a batch element, also
+// about one wave.
+struct AttnPlan {
+  int tiles, p1, p2;
+};
+
+AttnPlan make_attn_plan(int B, int N) {
+  const int tiles = us_ceil_div(N, TM), sms = n_sms();
+  return {tiles, std::max(1, std::min({tiles, us_ceil_div(sms, 2 * B), P_MAX})),
+          std::max(1, std::min(tiles, us_ceil_div(sms, B)))};
+}
+
+int kv_smem(int C) { return 1024 + (C / KC) * WT + 4 * XB + 11 * KVC * 4 + BARS; }
+
+// Phase 2's slots: Wout staged once when it fits beside Wq and a ring of
+// four x boxes, else one streamed slot and two boxes (C = 512).
+void out_slots(int C, int& n_xs, int& n_os) {
+  n_xs = 4, n_os = C / 128;
+  const int fixed = 1024 + (C / KC) * WT + 2 * NH * DH * CTS * 2 + BARS;
+  if (fixed + n_os * 2 * WT + n_xs * XB > SMEM_MAX) n_xs = 2, n_os = 1;
+}
+
+int out_smem(int C) {
+  int n_xs, n_os;
+  out_slots(C, n_xs, n_os);
+  return 1024 + (C / KC) * WT + n_os * 2 * WT + n_xs * XB + 2 * NH * DH * CTS * 2 + BARS;
 }
 
 }  // namespace
 
 extern "C" {
 
-int us_attn_n_tiles(int N) { return us_ceil_div(N, TT); }
-
-// x (B, N, C) bf16; w_qkv (C, 3*128) bf16 [q|k|v]; w_out (128, C) bf16;
-// b_out (C) f32; g (1) f32 the rezero gate; lens (B) valid rows. Scratch:
-// part_m/part_den (B, nt, 128), part_num (B, nt, 4, 32, 32), ctx
-// (B, 4, 32, 32), all f32. C must be a multiple of 128.
-int us_rezero_attention(const void* x, const void* w_qkv, const void* w_out,
+// x (B, N, C) bf16; wkv (2, C/64, 128, 64), wq (C/64, 128, 64), wo (C/128,
+// 2, 128, 64) bf16, packed by ops/fused_attention.py pack_attention_weights;
+// b_out (C) f32; g (1) f32 the rezero gate; lens (B) valid rows. Scratch,
+// with P from us_attn_plan: part_m / part_den (B, 2, P, 64), part_num (B,
+// 2, P, 2, 32, 32), ctx (B, 4, 32, 32), all f32. C % 64 == 0.
+int us_rezero_attention(const void* x, const void* wkv, const void* wq, const void* wo,
                         const float* b_out, const float* g, const int* lens, void* y,
                         float* part_m, float* part_den, float* part_num, float* ctx, int B,
                         int N, int C, void* stream) {
-  static bool smem_set = false;
-  int err;
-  if (!smem_set) {
-    err = (int)cudaFuncSetAttribute(attn_phase1, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)kPhase1Smem);
-    if (err != 0) return err;
-    err = (int)cudaFuncSetAttribute(attn_phase2, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)kPhase2Smem);
-    if (err != 0) return err;
-    smem_set = true;
-  }
+  if (C % KC || B < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  const AttnPlan plan = make_attn_plan(B, N);
+  const int P = plan.p1;
+  const int s1 = kv_smem(C), s2 = out_smem(C);
+  if (s1 > SMEM_MAX || s2 > SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* w = static_cast<const bf16*>(w_qkv);
-  const int nt = us_ceil_div(N, TT), ldw = 3 * HD;
-  attn_phase1<<<dim3(nt, B), NTHREADS, kPhase1Smem, st>>>(xb, w + HD, ldw, N, C, part_m,
-                                                          part_den, part_num);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
-  attn_combine<<<dim3(NH, B), NTHREADS, 0, st>>>(part_m, part_den, part_num, nt, ctx);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
-  attn_phase2<<<dim3(nt, B), NTHREADS, kPhase2Smem, st>>>(
-      xb, w, ldw, ctx, static_cast<const bf16*>(w_out), b_out, g, lens,
-      static_cast<bf16*>(y), N, C);
-  return (int)cudaGetLastError();
+  CUtensorMap xmap;
+  int err = x_tensor_map(&xmap, x, B, 1, N, C, 1, TM);
+  if (err) return err;
+  // the kernels' shared memory limits, raised once to the largest asked for
+  static int set1 = 0, set2 = 0;
+  if (s1 > set1) {
+    if ((err = (int)cudaFuncSetAttribute(attn_kv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         s1)) != 0)
+      return err;
+    set1 = s1;
+  }
+  if (s2 > set2) {
+    if ((err = (int)cudaFuncSetAttribute(attn_out, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         s2)) != 0)
+      return err;
+    set2 = s2;
+  }
+  // each launch starts as the one before drains (its kernel waits for it
+  // before reading anything)
+  if ((err = launch_pdl(attn_kv, dim3(P, 2, B), THREADS, s1, st, xmap,
+                        static_cast<const bf16*>(wkv), N, C, P, part_m, part_den, part_num)))
+    return err;
+  if ((err = launch_pdl(attn_merge, dim3(NH, DH / 8, B), 256, 0, st,
+                        static_cast<const float*>(part_m), static_cast<const float*>(part_den),
+                        static_cast<const float*>(part_num), P, ctx)))
+    return err;
+  OutArgs a;
+  a.x = static_cast<const bf16*>(x);
+  a.wq = static_cast<const bf16*>(wq);
+  a.wo = static_cast<const bf16*>(wo);
+  a.ctx = ctx;
+  a.bo = b_out;
+  a.g = g;
+  a.lens = lens;
+  a.y = static_cast<bf16*>(y);
+  a.N = N, a.C = C, a.P2 = plan.p2;
+  out_slots(C, a.n_xs, a.n_os);
+  return launch_pdl(attn_out, dim3(plan.p2, B), THREADS, s2, st, xmap, a);
+}
+
+// K4's schedule at B rows of N tokens (make_attn_plan): info = {tiles, P
+// (phase-1 blocks a (batch element, head pair), the partials' third
+// dimension), P2 (phase-2 blocks a batch element)}.
+int us_attn_plan(int B, int N, int* info) {
+  if (B < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  const AttnPlan plan = make_attn_plan(B, N);
+  info[0] = plan.tiles, info[1] = plan.p1, info[2] = plan.p2;
+  return 0;
 }
 
 }  // extern "C"

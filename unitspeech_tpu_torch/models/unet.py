@@ -69,6 +69,7 @@ from unitspeech_tpu_torch.ops.fused_resnet_deep import (
     deep_route,
     fused_resnet_block_deep,
     fused_resnet_block_deep_i8,
+    pack_block_weights_i8,
 )
 from unitspeech_tpu_torch.ops.masking import frames_from_mask
 from unitspeech_tpu_torch.ops.resample import (
@@ -161,21 +162,23 @@ class ResnetBlock(nn.Module):
     def pack(self, f, use_kernels, use_int8=False, use_deep=False, use_i8pre=False):
         """Pack, once, the conv kernels that this block's route at F = f reads
         (inference weights are frozen, so every call reuses them): all three
-        for K1 and K8, K9's bf16 conv1 (Cin > Cout) and 1x1 residual, none
-        for the flat and Blocks routes. The route is taken at one frame, a
-        length every deep gate passes; a longer input takes the same kernel
-        or the flat route. A call at another F packs what it reads on the
-        spot."""
-        cin, cout = self.block1.conv.kernel.shape[2:]
+        for K1 and K8, K9's int8 convs (conv1 in bf16 for Cin > Cout) and 1x1
+        residual, none for the flat and Blocks routes. With use_int8 a flat
+        block first quantizes its convs (quantize_int8): K9's int8 tiles are
+        packed from those weights, whose scales its epilogue reads, so the
+        two always agree. The route is taken at one frame, a length every
+        deep gate passes; a longer input takes the same kernel or the flat
+        route. A call at another F packs what it reads on the spot."""
         w1, w2 = self.block1.conv.kernel, self.block2.conv.kernel
         wres = None if self.res_conv is None else self.res_conv.kernel
+        if use_int8 and self.flat:
+            self.quantize_int8()
         route = self.route(1, f, use_kernels, use_int8, use_deep, use_i8pre)
         self.packed, self.packed_for = None, route
         if route in ("k1", "k8"):
             self.packed = pack_block_weights(w1, w2, wres)
-        elif route == "k9" and (cin > cout or wres is not None):
-            self.packed = (pack_conv_weight(w1) if cin > cout else None, None,
-                           None if wres is None else pack_conv_weight(wres))
+        elif route == "k9":
+            self.packed = pack_block_weights_i8(w1, self.i8pre_weights, wres)
 
     def quantize_int8(self):
         """Quantize both conv kernels once for the int8 routes: inference
@@ -199,10 +202,12 @@ class ResnetBlock(nn.Module):
         return {"i8": "k9", "bf16": "k8", None: "flat"}[deep]
 
     def forward(self, x, mask, t_emb, dtype, use_kernels, pre_masked=False, use_int8=False,
-                use_deep=False, use_i8pre=False):
+                use_deep=False, use_i8pre=False, lens_rows=None):
         """use_int8: int8 convs on the deep-stage (flat) route only, as the
         JAX ResnetBlock(use_int8=True) routes them; use_deep, use_i8pre: the
-        whole-layer deep kernels K8 / K9 (route())."""
+        whole-layer deep kernels K8 / K9 (route()); lens_rows: a callable
+        giving the mask's valid rows (the estimator counts them once a
+        level), which K9 reads."""
         b, t, f, cin = x.shape
         bias_t = self.mlp(mish(t_emb), dtype=dtype)
         stats = row_stats if use_kernels else row_stats_plain
@@ -215,10 +220,13 @@ class ResnetBlock(nn.Module):
             if route == "k8":
                 fn = fused_resnet_block_deep
             elif route == "k9":
-                fn, extra = fused_resnet_block_deep_i8, {"wq": self.i8pre_weights}
-            # K9's packing holds only what K9 reads: a call that routes
+                fn, extra = fused_resnet_block_deep_i8, {
+                    "wq": self.i8pre_weights,
+                    "lens_rows": None if lens_rows is None else lens_rows()}
+            # K1 and K8 read one packing, K9 its own: a call that routes
             # elsewhere (at another F than packed for) packs on the spot
-            packed = self.packed if self.packed_for in (route, "k1", "k8") else None
+            same = ("k9",) if route == "k9" else ("k1", "k8")
+            packed = self.packed if self.packed_for in same else None
             return fn(
                 x.to(dtype), mask, bias_t, c1.kernel, c1.bias, *self.block1.norm.params(),
                 c2.kernel, c2.bias, *self.block2.norm.params(),
@@ -279,20 +287,13 @@ class ResnetBlock(nn.Module):
 
 
 def _pack_after_load(estimator, _incompatible_keys):
-    """load_state_dict post-hook of an estimator with kernels: pack their
-    weights (K1 / K2 / K8 / K9 convs, K11's resample convs) once the weights
-    are in, so that no call casts or reshapes them. Weights changed in place
-    afterwards need another load_state_dict (or `pack`)."""
+    """load_state_dict post-hook of an estimator with kernels or int8 convs:
+    quantize the flat blocks' conv kernels (the flat int8 route and K9) and
+    pack the kernels' weights (K1 / K2 / K8 / K9 convs, K4, K11's resample
+    convs) once the weights are in, so that no call casts or reshapes them.
+    Weights changed in place afterwards need another load_state_dict (or
+    `pack`)."""
     estimator.pack()
-
-
-def _quantize_after_load(estimator, _incompatible_keys):
-    """load_state_dict post-hook of an int8 estimator: quantize the flat
-    blocks' conv kernels (the flat int8 route and K9) once the weights are
-    in."""
-    for m in estimator.modules():
-        if isinstance(m, ResnetBlock) and m.flat:
-            m.quantize_int8()
 
 
 class LinearAttention(nn.Module):
@@ -327,6 +328,16 @@ class RezeroAttention(nn.Module):
         super().__init__()
         self.g = nn.Parameter(torch.empty(1))
         self.fn = LinearAttention(c, heads, dim_head)
+        self.packed = None  # the kernel's packed weights (K4), set by pack
+
+    def pack(self):
+        """Pack the projections once for the kernel, where it takes the
+        widths."""
+        c = self.fn.to_qkv.kernel.shape[0]
+        self.packed = None
+        if fused_attention.takes(c, self.fn.heads, self.fn.dim_head):
+            self.packed = fused_attention.pack_attention_weights(self.fn.to_qkv.kernel,
+                                                                 self.fn.to_out.kernel)
 
     def uses_kernel(self, x, use_kernels: bool) -> bool:
         return (use_kernels and x.shape[1] * x.shape[2] >= PALLAS_MIN_TOKENS
@@ -341,7 +352,7 @@ class RezeroAttention(nn.Module):
                 x.reshape(b, t * f, c).to(dtype), self.fn.to_qkv.kernel,
                 self.fn.to_out.kernel, self.fn.to_out.bias, self.g,
                 lens_rows=lens_rows_from_mask(mask, f),
-                heads=self.fn.heads, dim_head=self.fn.dim_head,
+                heads=self.fn.heads, dim_head=self.fn.dim_head, packed=self.packed,
             )
             return y.reshape(b, t, f, c)
         return x + self.fn(x, dtype) * self.g.to(dtype)
@@ -399,9 +410,7 @@ class GradLogPEstimator2d(nn.Module):
         self.use_int8_deep = use_int8_deep
         self.use_deep, self.use_resample, self.use_i8pre_deep = (
             use_deep, use_resample, use_i8pre_deep)
-        if use_int8_deep:
-            self.register_load_state_dict_post_hook(_quantize_after_load)
-        if use_kernels or use_deep or use_i8pre_deep or use_resample:
+        if use_kernels or use_int8_deep or use_deep or use_i8pre_deep or use_resample:
             self.register_load_state_dict_post_hook(_pack_after_load)
         self.final_packed = None  # the final block's packed conv (K2), set by pack
         t_dim = dim + spk_emb_dim
@@ -430,13 +439,16 @@ class GradLogPEstimator2d(nn.Module):
         self.final_conv = Conv2d(dim, 1, 1)
 
     def pack(self):
-        """Pack the weights of the kernels this estimator routes to at F =
-        n_feats, where they take the widths: the ResnetBlocks' convs that
-        their routes read (ResnetBlock.pack, at the F of their stage), the
-        final block's (K2) with the kernels, the resample convs (K11) with
-        use_resample."""
+        """Quantize the flat blocks' convs with use_int8_deep and pack the
+        weights of the kernels this estimator routes to at F = n_feats,
+        where they take the widths: the ResnetBlocks' convs that their routes
+        read (ResnetBlock.pack, at the F of their stage), the final block's
+        (K2) and the attention projections (K4) with the kernels, the
+        resample convs (K11) with use_resample."""
         for m in self.modules():
             if isinstance(m, (Downsample, Upsample)) and self.use_resample:
+                m.pack()
+            if isinstance(m, RezeroAttention) and self.use_kernels:
                 m.pack()
         n = len(self.dims)
         stages = [(f"down_{i}_{r}", i) for i in range(n) for r in ("res1", "res2")]
@@ -463,18 +475,29 @@ class GradLogPEstimator2d(nn.Module):
         m = mask[:, :, None, None].to(dt)
         hiddens, masks = [], [m]
         level_frames = {}  # K11's valid input frames by U-Net level, once per call
+        level_rows = {}  # K9's valid rows (frames x F) by level, once per call
 
         def frames(level, mk):
             """The valid frames of `mk`, the mask of `level` (masks[level])."""
             if level not in level_frames:
                 level_frames[level] = frames_from_mask(mk)
             return level_frames[level]
+
+        def rows(level, mk, f):
+            """A callable giving the valid rows of `level` at F = f."""
+            def get():
+                if level not in level_rows:
+                    level_rows[level] = frames(level, mk) * f
+                return level_rows[level]
+            return get
         n_res = len(self.dims)
         for i in range(n_res):
             mk = masks[-1]
-            h = getattr(self, f"down_{i}_res1")(h, mk, t_emb, dt, uk, **flags)
+            lr = rows(i, mk, h.shape[2])
+            h = getattr(self, f"down_{i}_res1")(h, mk, t_emb, dt, uk, lens_rows=lr, **flags)
             # res1's output is masked: res2 skips its input mask
-            h = getattr(self, f"down_{i}_res2")(h, mk, t_emb, dt, uk, pre_masked=True, **flags)
+            h = getattr(self, f"down_{i}_res2")(h, mk, t_emb, dt, uk, pre_masked=True,
+                                                lens_rows=lr, **flags)
             attn = getattr(self, f"down_{i}_attn")
             h_in = h
             h = attn(h, mk, dt, uk)
@@ -494,15 +517,18 @@ class GradLogPEstimator2d(nn.Module):
 
         masks = masks[:-1]
         mk = masks[-1]
-        h = self.mid_res1(h, mk, t_emb, dt, uk, **flags)
+        lr = rows(n_res - 1, mk, h.shape[2])
+        h = self.mid_res1(h, mk, t_emb, dt, uk, lens_rows=lr, **flags)
         h = self.mid_attn(h, mk, dt, uk)
-        h = self.mid_res2(h, mk, t_emb, dt, uk, **flags)
+        h = self.mid_res2(h, mk, t_emb, dt, uk, lens_rows=lr, **flags)
 
         for i in reversed(range(n_res - 1)):
             mk = masks.pop()
             h = torch.cat([h, hiddens.pop()], dim=-1)
-            h = getattr(self, f"up_{i}_res1")(h, mk, t_emb, dt, uk, **flags)
-            h = getattr(self, f"up_{i}_res2")(h, mk, t_emb, dt, uk, pre_masked=True, **flags)
+            lr = rows(i + 1, mk, h.shape[2])
+            h = getattr(self, f"up_{i}_res1")(h, mk, t_emb, dt, uk, lens_rows=lr, **flags)
+            h = getattr(self, f"up_{i}_res2")(h, mk, t_emb, dt, uk, pre_masked=True,
+                                              lens_rows=lr, **flags)
             attn = getattr(self, f"up_{i}_attn")
             h_in = h
             h = attn(h, mk, dt, uk)

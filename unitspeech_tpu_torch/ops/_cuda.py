@@ -37,25 +37,26 @@ _SIGNATURES = {
     "us_n_row_tiles": ([_I], _I),
     "us_conv_n_tiles": ([_I] * 3, _I),
     "us_conv_plan": ([_I] * 7 + [_P], _I),
-    "us_resnet_conv3x3": ([_P, _P, _I] + [_P] * 4 + [_I] * 5 + [_P], _I),
-    "us_gn_finalize": ([_P, _I, _I, _I, _I, _I, _F, _P, _P, _P], _I),
+    "us_resnet_conv3x3": ([_P, _P, _I] + [_P] * 4 + [_I] * 6 + [_P], _I),
+    "us_gn_finalize": ([_P, _I, _I, _I, _I, _I, _F, _P, _P, _I, _P], _I),
     "us_gn_film": ([_P, _I] + [_P] * 7 + [_I] * 4 + [_F, _P], _I),
-    "us_resnet_out": ([_P] * 7 + [_I] + [_P] * 3 + [_I] * 4 + [_P], _I),
+    "us_resnet_out": ([_P] * 7 + [_I] + [_P] * 3 + [_I] * 5 + [_P], _I),
     "us_final_out": ([_P] * 9 + [_I] * 3 + [_P], _I),
     "us_row_stats_chunks": ([_I], _I),
     "us_row_stats": ([_P, _I, _P, _P, _I, _I, _I, _P], _I),
     "us_row_absmax_chunks": ([_I], _I),
     "us_row_absmax": ([_P, _I, _P, _P, _I, _I, _I, _P], _I),
-    "us_attn_n_tiles": ([_I], _I),
-    "us_rezero_attention": ([_P] * 11 + [_I] * 3 + [_P], _I),
+    "us_rezero_attention": ([_P] * 12 + [_I] * 3 + [_P], _I),
+    "us_attn_plan": ([_I, _I, _P], _I),
     "us_aa_offsets": ([_I], _I),
     "us_aa_snake": ([_P] * 5 + [_I] * 3 + [_P], _I),
     "us_aa_snake_conv": ([_P] * 8 + [_I] * 5 + [_P], _I),
     "us_resnet_block": ([_P] * 21 + [_I] * 6 + [_F, _I, _P], _I),
-    "us_i8_glue_chunks": ([_I], _I),
-    "us_i8_quantize_rows": ([_P] * 3 + [_I] + [_P] * 4 + [_I] * 4 + [_P], _I),
-    "us_resnet_conv3x3_i8": ([_P] * 7 + [_I] * 5 + [_P], _I),
-    "us_i8_glue": ([_P] * 12 + [_I] * 3 + [_P], _I),
+    "us_i8_glue_blocks": ([_I, _I], _I),
+    "us_i8_quantize_chunks": ([_I], _I),
+    "us_i8_quantize_rows": ([_P] * 5 + [_I] * 3 + [_P], _I),
+    "us_resnet_conv3x3_i8": ([_P, _P, _I] + [_P] * 6 + [_I] * 5 + [_P], _I),
+    "us_i8_glue": ([_P, _P, _I, _I, _F] + [_P] * 8 + [_I] * 3 + [_P], _I),
     "us_downsample_conv": ([_P] * 5 + [_I] * 6 + [_P], _I),
     "us_upsample_conv": ([_P] * 5 + [_I] * 6 + [_P], _I),
     "us_resample_plan": ([_I] * 7 + [_P], _I),

@@ -4,7 +4,9 @@ unitspeech_tpu/ops/pallas_attention.py `fused_rezero_attention`).
 y = mask * (x + g * LinearAttention(x)) over flattened (time x freq)
 tokens, with the key softmax taken over tokens (reference
 unitspeech.py:78-106). CUDA source: csrc/rezero_attention.cu, which states
-what bounds the kernel and how it is laid out.
+what bounds the kernel, how it is laid out and its schedule (`attn_plan`
+asks it); `pack_attention_weights` is its weights' layout (made once at
+load by the estimator).
 
 Rounding points (the Pallas kernel's): projections and the context in
 f32; attn rounded to the activation dtype before the output projection;
@@ -17,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from unitspeech_tpu_torch.ops import _cuda
+from unitspeech_tpu_torch.ops.resample import KC, swizzle128
 
 HEADS, DIM_HEAD = 4, 32  # the only head layout the CUDA kernel takes
 
@@ -51,7 +54,38 @@ def rezero_attention_plain(x, w_qkv, w_out, b_out, g, lens_rows, heads: int,
     return y
 
 
-def _rezero_attention_cuda(x, w_qkv, w_out, b_out, g, lens_rows):
+def attn_plan(b: int, n: int) -> dict:
+    """The CUDA kernel's schedule at B rows of N tokens on this card, as
+    csrc/rezero_attention.cu makes it (us_attn_plan): its 128-row tiles,
+    the phase-1 blocks a (batch element, head pair) (p1, each writing one
+    partial) and the phase-2 blocks a batch element (p2)."""
+    import ctypes
+
+    info = (ctypes.c_int * 3)()
+    _cuda.check(_cuda.lib().us_attn_plan(b, n, info), "us_attn_plan")
+    return dict(zip(("tiles", "p1", "p2"), info))
+
+
+def pack_attention_weights(w_qkv, w_out):
+    """w_qkv (C, 384) [q|k|v] and w_out (128, C) -> what the CUDA kernel
+    reads, made once at load: K-major bf16 tiles of 128 columns x 64 k in
+    the 128-byte swizzle. wkv (2 head pairs, C / 64, 128, 64), each head
+    pair's columns [K_h | V_h | K_h+1 | V_h+1]; wq (C / 64, 128, 64); wo
+    (C / 128, 2, 128, 64)."""
+    c = w_qkv.shape[0]
+    hd = HEADS * DIM_HEAD
+    w = w_qkv.detach().to(torch.bfloat16)
+    heads = [torch.cat([w[:, hd + DIM_HEAD * h:hd + DIM_HEAD * (h + 1)],
+                        w[:, 2 * hd + DIM_HEAD * h:2 * hd + DIM_HEAD * (h + 1)]], dim=1)
+             for h in range(HEADS)]
+    kv = torch.stack([torch.cat(heads[2 * hp:2 * hp + 2], dim=1) for hp in range(2)])
+    wkv = swizzle128(kv.reshape(2, c // KC, KC, 128).transpose(-1, -2)).contiguous()
+    wq = swizzle128(w[:, :hd].reshape(c // KC, KC, 128).transpose(-1, -2)).contiguous()
+    wo = w_out.detach().to(torch.bfloat16).reshape(2, KC, c // 128, 128).permute(2, 0, 3, 1)
+    return wkv, wq, swizzle128(wo).contiguous()
+
+
+def _rezero_attention_cuda(x, w_qkv, w_out, b_out, g, lens_rows, packed):
     b, n, c = x.shape
     hd = HEADS * DIM_HEAD
     if x.dtype != torch.bfloat16:
@@ -60,44 +94,47 @@ def _rezero_attention_cuda(x, w_qkv, w_out, b_out, g, lens_rows):
         raise ValueError(f"fused_rezero_attention: C={c} must be a multiple of 128")
     dev = x.device
     _cuda.require(x, "x")
-    wq = _cuda.require(w_qkv.to(x.dtype).contiguous(), "w_qkv", shape=(c, 3 * hd), device=dev)
-    wo = _cuda.require(w_out.to(x.dtype).contiguous(), "w_out", shape=(hd, c), device=dev)
+    wkv, wq, wo = pack_attention_weights(w_qkv, w_out) if packed is None else packed
+    _cuda.require(wkv, "wkv", dtype=torch.bfloat16, shape=(2, c // KC, 128, KC), device=dev)
+    _cuda.require(wq, "wq", dtype=torch.bfloat16, shape=(c // KC, 128, KC), device=dev)
+    _cuda.require(wo, "wo", dtype=torch.bfloat16, shape=(c // 128, 2, 128, KC), device=dev)
     bo = _cuda.require(b_out.to(torch.float32).contiguous(), "b_out", shape=(c,), device=dev)
     gg = _cuda.require(g.to(torch.float32).reshape(1).contiguous(), "g", device=dev)
     if lens_rows is None:
         lens_rows = torch.full((b,), n, dtype=torch.int32, device=dev)
     lens = _cuda.require(lens_rows.to(torch.int32).contiguous(), "lens", shape=(b,), device=dev)
-    lib = _cuda.lib()
-    nt = lib.us_attn_n_tiles(n)
+    p1 = attn_plan(b, n)["p1"]
     f32 = dict(dtype=torch.float32, device=dev)
-    part_m = torch.empty((b, nt, hd), **f32)
-    part_den = torch.empty((b, nt, hd), **f32)
-    part_num = torch.empty((b, nt, HEADS, DIM_HEAD, DIM_HEAD), **f32)
+    part_m = torch.empty((b, 2, p1, 2 * DIM_HEAD), **f32)
+    part_den = torch.empty((b, 2, p1, 2 * DIM_HEAD), **f32)
+    part_num = torch.empty((b, 2, p1, 2, DIM_HEAD, DIM_HEAD), **f32)
     ctx = torch.empty((b, HEADS, DIM_HEAD, DIM_HEAD), **f32)
     y = torch.empty_like(x)
     _cuda.check(
-        lib.us_rezero_attention(x.data_ptr(), wq.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-                                gg.data_ptr(), lens.data_ptr(), y.data_ptr(),
-                                part_m.data_ptr(), part_den.data_ptr(), part_num.data_ptr(),
-                                ctx.data_ptr(), b, n, c, _cuda.stream(x)),
+        _cuda.lib().us_rezero_attention(
+            x.data_ptr(), wkv.data_ptr(), wq.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+            gg.data_ptr(), lens.data_ptr(), y.data_ptr(), part_m.data_ptr(),
+            part_den.data_ptr(), part_num.data_ptr(), ctx.data_ptr(), b, n, c, _cuda.stream(x)),
         "rezero attention",
     )
     return y
 
 
 def fused_rezero_attention(x, w_qkv, w_out, b_out, g, lens_rows=None,
-                           heads: int = HEADS, dim_head: int = DIM_HEAD):
+                           heads: int = HEADS, dim_head: int = DIM_HEAD, packed=None):
     """x (B, N, C) flattened tokens -> mask * (x + g * LinearAttention(x)).
 
     lens_rows: optional (B,) valid-row counts; the OUTPUT is zeroed at/after
     them (keys keep the reference's no-mask semantics, so zero padding rows
-    enter the softmax). None = no output masking. CUDA tensors launch the
-    kernel (4 heads of 32 only), CPU tensors take rezero_attention_plain."""
+    enter the softmax). None = no output masking. packed: the weights'
+    pack_attention_weights when made at load (else packed here). CUDA
+    tensors launch the kernel (4 heads of 32 only), CPU tensors take
+    rezero_attention_plain."""
     if _cuda.route(x, "fused_rezero_attention"):
         if not takes(HEADS * DIM_HEAD, heads, dim_head):
             raise ValueError(f"fused_rezero_attention: the kernel takes {HEADS} heads of "
                              f"{DIM_HEAD}, got {heads} x {dim_head}")
-        y = _rezero_attention_cuda(x, w_qkv, w_out, b_out, g, lens_rows)
+        y = _rezero_attention_cuda(x, w_qkv, w_out, b_out, g, lens_rows, packed)
         fused_rezero_attention.launches += 1
         return y
     return rezero_attention_plain(x, w_qkv, w_out, b_out, g, lens_rows, heads, dim_head)

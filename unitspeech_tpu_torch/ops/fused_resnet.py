@@ -139,12 +139,15 @@ def lens_rows_from_mask(mask: torch.Tensor, f: int) -> torch.Tensor:
     return frames_from_mask(mask) * f
 
 
-def block_rows_args(x, mask, t_bias, w1, b1, s1, be1, w2, b2, s2, be2, wres, bres):
+def block_rows_args(x, mask, t_bias, w1, b1, s1, be1, w2, b2, s2, be2, wres, bres,
+                    lens_rows=None):
     """A ResnetBlock's arguments (x (B, T, F, Cin), mask (B, T, 1, 1), flax
-    kernels) on rows, as resnet_block_plain and the kernels take them."""
+    kernels) on rows, as resnet_block_plain and the kernels take them;
+    lens_rows: the mask's valid rows when the caller has them."""
     bsz, t, f, cin = x.shape
     cout = w1.shape[-1]
-    return (x.reshape(bsz, t * f, cin), lens_rows_from_mask(mask, f), t_bias,
+    lens = lens_rows_from_mask(mask, f) if lens_rows is None else lens_rows
+    return (x.reshape(bsz, t * f, cin), lens, t_bias,
             w1.reshape(9 * cin, cout), b1, s1, be1, w2.reshape(9 * cout, cout), b2, s2, be2,
             None if wres is None else wres.reshape(cin, cout), bres)
 
@@ -313,12 +316,12 @@ def _conv_stats(lib, x, w, bn, bias, lens, f, groups):
     inv = torch.empty_like(mean)
     _cuda.check(
         lib.us_resnet_conv3x3(x.data_ptr(), w.data_ptr(), bn, bias.data_ptr(), lens.data_ptr(),
-                              out.data_ptr(), part.data_ptr(), b, n, f, cin, cout, st),
+                              out.data_ptr(), part.data_ptr(), b, n, f, cin, cout, 0, st),
         "resnet conv3x3",
     )
     _cuda.check(
         lib.us_gn_finalize(part.data_ptr(), b, nt, cout, groups, n, GN_EPS,
-                           mean.data_ptr(), inv.data_ptr(), st),
+                           mean.data_ptr(), inv.data_ptr(), 0, st),
         "groupnorm statistics",
     )
     return out, mean, inv
@@ -577,7 +580,8 @@ def resnet_out(c2, x, mean, inv, scale, shift, lens_rows, mode: str = "identity"
         _cuda.check(lib.us_resnet_out(c2.data_ptr(), x.data_ptr(), mean.data_ptr(),
                                       inv.data_ptr(), scale.data_ptr(), shift.data_ptr(),
                                       _cuda.ptr(wp), bn, _cuda.ptr(bres), lens_rows.data_ptr(),
-                                      out.data_ptr(), b, n, cin, cout, st), f"resnet_out({mode})")
+                                      out.data_ptr(), b, n, cin, cout, 0, st),
+                    f"resnet_out({mode})")
     resnet_out.launches += 1
     return out
 

@@ -15,7 +15,8 @@ weight scales per output channel (`quant_w`, ops/fused_resnet.py, computed
 once when the weights load), dequantized as acc * ((1/sx) * (1/sw)) + bias, with c1 and c2 in
 bf16; for cin > cout conv1 stays bf16, as in JAX. CUDA source:
 csrc/resnet_deep_i8.cu, which states the chain, what bounds it and how it
-is laid out.
+is laid out; its int8 convs run on K8's Hopper loop with the weights packed
+once at load (`pack_block_weights_i8`).
 
 K10b is K8's in-kernel int8 mode (`fused_resnet_block_deep(int8=True)`,
 no model route): K9's structure with JAX's in-kernel numbers, which move
@@ -53,10 +54,12 @@ from unitspeech_tpu_torch.ops.fused_resnet import (
     resnet_block_i8_plain,
     resnet_block_plain,
     takes,
+    tile_cols,
 )
-from unitspeech_tpu_torch.ops.row_stats import row_absmax
+from unitspeech_tpu_torch.ops.resample import swizzle128
 
 DEEP_MAX_BYTES = 4 * 1024 * 1024  # T*F*max(cin, cout)*2, the TPU VMEM gate
+I8_KC = 128  # int8 input channels per chunk of K9's conv: one 128-byte row
 
 
 def takes_i8(cin: int, cout: int, groups: int = 8) -> bool:
@@ -160,7 +163,7 @@ def _conv3x3_i8_plain(x8, wq, f):
     """int8 conv3x3 over (B, n, Cin) rows with wq = quant_w(w) and the
     per-batch scale folded in by the caller -> int32 (B, n, Cout)."""
     b, n, cin = x8.shape
-    w8t, _ = wq
+    w8t = wq[0]
     col = im2col(x8, f).reshape(b * n, 9 * cin)
     if col.is_cuda:
         y = torch._int_mm(col, w8t.t())
@@ -198,10 +201,48 @@ def resnet_block_deep_i8_plain(x, lens_rows, t_bias, w1, wq1, b1, s1, be1, wq2, 
     return _kernel_c_plain(acc2.to(dt), x, mean2, inv2, s2, be2, valid, wres, bres)
 
 
+def pack_conv_weight_i8(w8t, cin: int):
+    """quant_w's int8 conv weights w8t (Cout, 9 * Cin), n-major, -> what K9's
+    Hopper conv reads, made once at load: (Cout / BN, chunks, 9 taps, BN,
+    128) int8, each BN x 128 tile K-major (128 input channels, one 128-byte
+    row) in the 128-byte swizzle, Cin padded to whole chunks with zeros (BN
+    = tile_cols(Cout))."""
+    cout = w8t.shape[0]
+    bn = tile_cols(cout)
+    nc = -(-cin // I8_KC)
+    w = torch.nn.functional.pad(w8t.reshape(cout, 9, cin), (0, nc * I8_KC - cin))
+    w = w.reshape(cout // bn, bn, 9, nc, I8_KC).permute(0, 3, 2, 1, 4)
+    return swizzle128(w).contiguous()
+
+
+def pack_block_weights_i8(w1, wq, wres=None):
+    """A K9 block's conv kernels packed for its kernels, from w1 (3, 3, Cin,
+    Cout), wq = (quant_w(w1), quant_w(w2)) (the int8 weights whose scales
+    the kernels' epilogue reads) and the 1x1 residual wres (1, 1, Cin, Cout)
+    or None: (conv1: wq[0]'s int8 tiles, or K8's bf16 tiles of w1 for Cin >
+    Cout; conv2: wq[1]'s int8 tiles; the residual's bf16 tiles or None)."""
+    cin, cout = w1.shape[2:]
+    c1 = pack_conv_weight(w1) if cin > cout else pack_conv_weight_i8(wq[0][0], cin)
+    return (c1, pack_conv_weight_i8(wq[1][0], cout),
+            None if wres is None else pack_conv_weight(wres))
+
+
+def _packed_i8(packed, what, cin, cout, dev):
+    """Check a pack_conv_weight_i8 result. -> (the tensor, its Cout tile BN)."""
+    bn = packed.shape[-2] if packed.dim() == 5 else 0
+    if bn not in (64, 128) or cout % bn:
+        raise ValueError(f"{what}: packed kernel {tuple(packed.shape)} for Cout={cout}")
+    shape = (cout // bn, -(-cin // I8_KC), 9, bn, I8_KC)
+    return _cuda.require(packed, what, dtype=torch.int8, shape=shape, device=dev), bn
+
+
 def _deep_i8_cuda(x, lens, t_bias, w1, wq1, b1, s1, be1, wq2, b2, s2, be2, wres, bres, f,
-                  groups, mask, packed):
-    """K9's chain; packed: (conv1, -, 1x1 residual) from pack_block_weights
-    (conv1 read for Cin > Cout only), made here when absent."""
+                  groups, packed):
+    """K9's chain; packed: pack_block_weights_i8's (conv1, conv2, 1x1
+    residual), made here from the weights and wq when absent. Every launch
+    of the chain is a programmatic dependent launch (its kernels wait for
+    their predecessor before reading): each starts as the one before
+    drains."""
     b, n, cin = x.shape
     cout = b1.shape[-1]
     _check_shapes("fused_resnet_block_deep_i8", x, cout, groups)
@@ -213,84 +254,119 @@ def _deep_i8_cuda(x, lens, t_bias, w1, wq1, b1, s1, be1, wq2, b2, s2, be2, wres,
     x = _cuda.require(x.contiguous(), "x", dtype=dt)
     _cuda.require(lens, "lens", dtype=torch.int32, shape=(b,), device=dev)
     film = _cuda.require(t_bias.to(dt).contiguous(), "t_bias", shape=(b, cout), device=dev)
-    w8t2 = _cuda.require(wq2[0], "w8t2", dtype=torch.int8, shape=(cout, 9 * cout), device=dev)
+    if packed is None:
+        packed = pack_block_weights_i8(w1.reshape(3, 3, cin, cout), (wq1, wq2),
+                                       None if wres is None else wres.reshape(1, 1, cin, cout))
+    w2p, bn2 = _packed_i8(packed[1], "w2 (int8)", cout, cout, dev)
     rsw2 = _cuda.require(_f32(wq2[1]), "rsw2", shape=(cout,), device=dev)
     lib, st = _cuda.lib(), _cuda.stream(x)
-    # conv1 in bf16 (Cin > Cout) writes the Hopper loop's tiles, the int8
-    # convs whole-row tiles: each GroupNorm reads its producer's count
-    nt1 = lib.us_conv_n_tiles(n, f, cin) if cin > cout else lib.us_n_row_tiles(n)
-    nt = lib.us_n_row_tiles(n)
+    # every conv on the Hopper loop: each GroupNorm reads its conv's tiles
+    nt1, nt = lib.us_conv_n_tiles(n, f, cin), lib.us_conv_n_tiles(n, f, cout)
     part = torch.empty((b, max(nt1, nt), 2, cout), dtype=torch.float32, device=dev)
-    mean1, inv1, mean2, inv2, swe = torch.empty((5, b, cout), dtype=torch.float32, device=dev)
-    sx = torch.empty((b,), dtype=torch.float32, device=dev)
+    mean2, inv2 = torch.empty((2, b, cout), dtype=torch.float32, device=dev)
+    sx1, sx2 = torch.empty((2, b), dtype=torch.float32, device=dev)
     c1, c2, out = (torch.empty((b, n, cout), dtype=dt, device=dev) for _ in range(3))
     b1, s1, be1, b2, s2, be2 = map(_f32, (b1, s1, be1, b2, s2, be2))
     if cin > cout:  # conv1 in bf16 (JAX's hybrid): K8's kernel A
-        w1p = pack_conv_weight(w1.reshape(3, 3, cin, cout)) if packed is None else packed[0]
-        w1p, bn = _packed_operand(w1p, "w1", 9, cin, cout, dev)
+        w1p, bn = _packed_operand(packed[0], "w1", 9, cin, cout, dev)
         _cuda.check(lib.us_resnet_conv3x3(x.data_ptr(), w1p.data_ptr(), bn, b1.data_ptr(),
                                           lens.data_ptr(), c1.data_ptr(), part.data_ptr(), b, n,
-                                          f, cin, cout, st), "K9 conv1 (bf16)")
+                                          f, cin, cout, 1, st), "K9 conv1 (bf16)")
     else:
-        w8t1 = _cuda.require(wq1[0], "w8t1", dtype=torch.int8, shape=(cout, 9 * cin),
-                             device=dev)
+        w1p, bn = _packed_i8(packed[0], "w1 (int8)", cin, cout, dev)
         rsw1 = _cuda.require(_f32(wq1[1]), "rsw1", shape=(cout,), device=dev)
-        # the scale of the masked input: the row abs-max kernel K7
-        amax = row_absmax((x.reshape(b, -1, f, cin) * mask.to(dt)).reshape(b, n, cin))
+        # the input's scale from its rows before the length, then x8
+        amax = torch.empty((b, lib.us_i8_quantize_chunks(n)), dtype=torch.float32, device=dev)
         x8 = torch.empty((b, n, cin), dtype=torch.int8, device=dev)
-        _cuda.check(lib.us_i8_quantize_rows(x.data_ptr(), lens.data_ptr(), amax.data_ptr(), cin,
-                                            rsw1.data_ptr(), x8.data_ptr(), sx.data_ptr(),
-                                            swe.data_ptr(), b, n, cin, cout, st),
+        _cuda.check(lib.us_i8_quantize_rows(x.data_ptr(), lens.data_ptr(), amax.data_ptr(),
+                                            x8.data_ptr(), sx1.data_ptr(), b, n, cin, st),
                     "K9 input quantize")
-        _cuda.check(lib.us_resnet_conv3x3_i8(x8.data_ptr(), w8t1.data_ptr(), swe.data_ptr(),
-                                             b1.data_ptr(), lens.data_ptr(), c1.data_ptr(),
-                                             part.data_ptr(), b, n, f, cin, cout, st),
-                    "K9 conv1")
-    _cuda.check(lib.us_gn_finalize(part.data_ptr(), b, nt1, cout, groups, n, GN_EPS,
-                                   mean1.data_ptr(), inv1.data_ptr(), st), "K9 GroupNorm 1")
-    amax_h = torch.empty((b, lib.us_i8_glue_chunks(n), cout), dtype=torch.float32, device=dev)
+        _cuda.check(lib.us_resnet_conv3x3_i8(x8.data_ptr(), w1p.data_ptr(), bn, sx1.data_ptr(),
+                                             rsw1.data_ptr(), b1.data_ptr(), lens.data_ptr(),
+                                             c1.data_ptr(), part.data_ptr(), b, n, f, cin, cout,
+                                             st), "K9 conv1")
+    amax_h = torch.empty((b, lib.us_i8_glue_blocks(n, cout)), dtype=torch.float32, device=dev)
+    h = torch.empty((b, n, cout), dtype=torch.float32, device=dev)
     h8 = torch.empty((b, n, cout), dtype=torch.int8, device=dev)
-    _cuda.check(lib.us_i8_glue(c1.data_ptr(), mean1.data_ptr(), inv1.data_ptr(),
-                               s1.data_ptr(), be1.data_ptr(), film.data_ptr(),
-                               lens.data_ptr(), rsw2.data_ptr(), amax_h.data_ptr(),
-                               h8.data_ptr(), sx.data_ptr(), swe.data_ptr(), b, n, cout, st),
-                "K9 glue")
-    _cuda.check(lib.us_resnet_conv3x3_i8(h8.data_ptr(), w8t2.data_ptr(), swe.data_ptr(),
-                                         b2.data_ptr(), lens.data_ptr(), c2.data_ptr(),
-                                         part.data_ptr(), b, n, f, cout, cout, st), "K9 conv2")
+    # GroupNorm 1 reduced inside the glue's first pass
+    _cuda.check(lib.us_i8_glue(c1.data_ptr(), part.data_ptr(), nt1, groups, GN_EPS,
+                               s1.data_ptr(), be1.data_ptr(), film.data_ptr(), lens.data_ptr(),
+                               h.data_ptr(), amax_h.data_ptr(), h8.data_ptr(), sx2.data_ptr(), b,
+                               n, cout, st), "K9 glue")
+    _cuda.check(lib.us_resnet_conv3x3_i8(h8.data_ptr(), w2p.data_ptr(), bn2, sx2.data_ptr(),
+                                         rsw2.data_ptr(), b2.data_ptr(), lens.data_ptr(),
+                                         c2.data_ptr(), part.data_ptr(), b, n, f, cout, cout,
+                                         st), "K9 conv2")
     _cuda.check(lib.us_gn_finalize(part.data_ptr(), b, nt, cout, groups, n, GN_EPS,
-                                   mean2.data_ptr(), inv2.data_ptr(), st), "K9 GroupNorm 2")
+                                   mean2.data_ptr(), inv2.data_ptr(), 1, st), "K9 GroupNorm 2")
     wrp, bn = None, 0
     if wres is not None:
-        wrp = (pack_conv_weight(wres.reshape(1, 1, cin, cout)) if packed is None
-               else packed[2])
-        wrp, bn = _packed_operand(wrp, "wres", 1, cin, cout, dev)
+        wrp, bn = _packed_operand(packed[2], "wres", 1, cin, cout, dev)
         bres = _f32(bres)
     _cuda.check(lib.us_resnet_out(c2.data_ptr(), x.data_ptr(), mean2.data_ptr(), inv2.data_ptr(),
                                   s2.data_ptr(), be2.data_ptr(), _cuda.ptr(wrp), bn,
                                   _cuda.ptr(bres), lens.data_ptr(), out.data_ptr(), b, n, cin,
-                                  cout, st), "K9 output")
+                                  cout, 1, st), "K9 output")
     return out
+
+
+def resnet_conv3x3_i8(x8, sx, wq, bias, lens_rows, f: int, packed=None):
+    """K9's int8 conv alone: x8 (B, N, Cin) int8 rows, zero at/after
+    lens_rows; sx (B,) their scales; wq = quant_w(w) -> bf16(f32(acc) *
+    ((1 / sx) * rsw) + bias) (B, N, Cout). packed: pack_conv_weight_i8(wq[0],
+    Cin), else packed here. CUDA tensors launch the kernel, CPU tensors take
+    _conv3x3_i8_plain + _dequant (the kernel's numbers: integer products are
+    exact, so the two are equal bit for bit)."""
+    if not _cuda.route(x8, "resnet_conv3x3_i8"):
+        return _dequant(_conv3x3_i8_plain(x8, wq, f), sx, wq[1], bias).to(torch.bfloat16)
+    b, n, cin = x8.shape
+    cout = bias.shape[-1]
+    dev = x8.device
+    if cin % 16 or not takes(cout):
+        raise ValueError(f"resnet_conv3x3_i8: Cin={cin}, Cout={cout}")
+    _cuda.require(x8, "x8", dtype=torch.int8)
+    wp, bn = _packed_i8(pack_conv_weight_i8(wq[0], cin) if packed is None else packed, "w8",
+                        cin, cout, dev)
+    sx = _cuda.require(_f32(sx), "sx", shape=(b,), device=dev)
+    rsw = _cuda.require(_f32(wq[1]), "rsw", shape=(cout,), device=dev)
+    bias = _cuda.require(_f32(bias), "bias", shape=(cout,), device=dev)
+    lens = _cuda.require(lens_rows.to(torch.int32).contiguous(), "lens", shape=(b,), device=dev)
+    lib = _cuda.lib()
+    part = torch.empty((b, lib.us_conv_n_tiles(n, f, cin), 2, cout), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((b, n, cout), dtype=torch.bfloat16, device=dev)
+    _cuda.check(lib.us_resnet_conv3x3_i8(x8.data_ptr(), wp.data_ptr(), bn, sx.data_ptr(),
+                                         rsw.data_ptr(), bias.data_ptr(), lens.data_ptr(),
+                                         out.data_ptr(), part.data_ptr(), b, n, f, cin, cout,
+                                         _cuda.stream(x8)), "resnet_conv3x3_i8")
+    resnet_conv3x3_i8.launches += 1
+    return out
+
+
+resnet_conv3x3_i8.launches = 0
 
 
 def fused_resnet_block_deep_i8(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
                                w2, b2, gn2_scale, gn2_bias, wres=None, bres=None,
-                               groups: int = 8, wq=None, packed=None):
+                               groups: int = 8, wq=None, packed=None, lens_rows=None):
     """One deep-stage ResnetBlock with int8 convs on pre-quantized
     activations (K9), with fused_resnet_block's arguments; wq = (quant_w(w1),
     quant_w(w2)) when computed at load, else computed here; packed: the
-    kernels' pack_block_weights when made at load (the bf16 conv1 for Cin >
-    Cout and the 1x1 residual read them). -> (B, T, F, Cout). CUDA tensors
+    kernels' pack_block_weights_i8 when made at load (else packed here);
+    lens_rows: the mask's valid rows (B,) int32 when the caller has them
+    (the estimator, once a U-Net level), else counted here.
+    -> (B, T, F, Cout). CUDA tensors
     launch the kernel (widths: takes_i8), CPU tensors take
     resnet_block_deep_i8_plain."""
     bsz, t, f, cin = x.shape
     cout = w1.shape[-1]
     wq1, wq2 = (quant_w(w1), quant_w(w2)) if wq is None else wq
     xr, lens, tb, w1r, b1, s1, be1, _, b2, s2, be2, wres, bres = block_rows_args(
-        x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2, gn2_scale, gn2_bias, wres, bres)
+        x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2, gn2_scale, gn2_bias, wres, bres,
+        lens_rows)
     args = (xr, lens, tb, w1r, wq1, b1, s1, be1, wq2, b2, s2, be2, wres, bres)
     if _cuda.route(x, "fused_resnet_block_deep_i8"):
-        out = _deep_i8_cuda(*args, f=f, groups=groups, mask=mask, packed=packed)
+        out = _deep_i8_cuda(*args, f=f, groups=groups, packed=packed)
         fused_resnet_block_deep_i8.launches += 1
     else:
         out = resnet_block_deep_i8_plain(*args, f=f, groups=groups)

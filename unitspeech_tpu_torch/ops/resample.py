@@ -128,10 +128,11 @@ def up_stage_taps():
 
 
 def swizzle128(t):
-    """(..., BN, 64) -> the 128-byte swizzle of a K-major wgmma tile: the
-    16-byte chunk j of row n is stored at chunk j ^ (n % 8)."""
+    """(..., BN, 128 bytes: 64 bf16 or 128 int8) -> the 128-byte swizzle of a
+    K-major wgmma tile: the 16-byte chunk j of row n is stored at chunk
+    j ^ (n % 8). Its own inverse."""
     *lead, bn, k = t.shape
-    v = t.reshape(*lead, bn // 8, 8, 8, 8)
+    v = t.reshape(*lead, bn // 8, 8, 8, k // 8)
     r = torch.arange(8, device=t.device)
     return v[..., r[:, None], r[:, None] ^ r[None, :], :].reshape(*lead, bn, k)
 
