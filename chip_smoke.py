@@ -10,8 +10,9 @@ seed): with its serving defaults
 (every kernel, int8 deep-stage convs), and with the fused deep-stage
 configuration (`--deep --i8pre --resample`: K8, K9, K11). K9's int8 convs
 are also held alone, bit-equal to the plain int8 product and dequantize,
-and the launches inside K4 and K9 are timed one by one
-(tools/kernel_breakdown.py). Then check what
+K5 beside one F.conv1d in bf16 on a ready activation (the yardstick of its
+conv part) with its conv's launch plan, and the launches inside K4, K9,
+K7, K5 and K6 are timed one by one (tools/kernel_breakdown.py). Then check what
 comes out: each kernel path against the plain path, the int8 gates and the
 kernel vocoder, each run with the exact kernel launches its path makes.
 Last, the paths of the kernels that no request runs, the port's four tools
@@ -38,6 +39,8 @@ import time
 import wave
 
 import numpy as np
+
+from unitspeech_tpu_torch.tools import kernel_breakdown
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -81,13 +84,10 @@ K3_SITES = [  # (rows, C, input dtype, launches): GroupNorm statistics of the
     (1720, 512, "float32", counts(0, 4, 0, 0)), (430, 1024, "float32", counts(0, 8, 0, 0)),
     (430, 512, "float32", counts(0, 4, 0, 0)), (1720, 256, "float32", counts(0, 2, 0, 0)),
 ]
-K7_SITES = [  # (rows, C, launches): the int8 activation scale of every flat
-    # deep-stage conv input (nine blocks, two convs each; K9 finds its conv1
-    # input's scale itself)
-    (1720, 256, counts(2, 0, 0, 0)), (1720, 512, counts(3, 0, 0, 0)),
-    (1720, 1024, counts(1, 0, 0, 0)), (430, 512, counts(4, 0, 0, 0)),
-    (430, 1024, counts(7, 0, 0, 0)), (430, 2048, counts(1, 0, 0, 0)),
-]
+# (rows, C, launches): the int8 activation scale of every flat deep-stage
+# conv input (nine blocks, two convs each; K9 finds its conv1 input's scale
+# itself), on the int8 path only
+K7_SITES = [(n, c, counts(per_call, 0, 0, 0)) for n, c, per_call in kernel_breakdown.K7_SITES]
 # The deep blocks (F, T, Cin, Cout, launches): down_2 res1/res2, down_3
 # res1, down_3 res2 + mid res1/res2, up_2 res1/res2, up_1 res1. K8 takes all
 # nine on the deep path; with --i8pre K9 takes those with Cout <= 512
@@ -102,12 +102,10 @@ K9_SITES = [(f, t, cin, cout, counts(0, 0, 0, 1)) for f, t, cin, cout, _ in K8_S
 # K11 (T, F, C): the F = 80, 40 downsamples and the F = 40 upsample
 K11_DOWN_SITES = [(344, 80, 128), (172, 40, 256)]
 K11_UP_SITES = [(172, 40, 128)]
-# BigVGAN at the 344-frame bucket: (T, C) after each upsample stage; every
-# AMP block (k = 3, 7, 11) runs K5 for act1 + conv1 at d = 1, 3, 5 and for
-# act2 + conv2 (d = 1, + residual) three times: 72 launches per vocoder call
-VOC_STAGES = [(2752, 256), (22016, 128), (44032, 64), (88064, 32)]
-K5_SITES = [(t, c, k, d, res, 3 if res else 1) for t, c in VOC_STAGES for k in (3, 7, 11)
-            for d, res in ((1, False), (3, False), (5, False), (1, True))]
+# BigVGAN at the 344-frame bucket (tools/kernel_breakdown.py): K5's 24
+# sites (T, C, k, d, residual, launches), 72 launches per vocoder call, and
+# K6's one (T, C)
+K5_SITES, K6_SITE = kernel_breakdown.K5_SITES, kernel_breakdown.K6_SITE
 # The fused deep path at the 552-frame bucket (the 498-frame request): as at
 # 344, except that up_1_res1 (1024 -> 256 at F = 20, T = 138) fails K9's
 # 4 MiB gate and runs the flat int8 route (K3 and K7 twice each)
@@ -115,9 +113,8 @@ DEEP_I8_552 = {"fused_resnet_block": 6, "fused_final_block": 1, "row_stats": 4,
                "fused_rezero_attention": 5, "row_absmax": 2, "fused_resnet_block_deep": 4,
                "fused_resnet_block_deep_i8": 4, "fused_downsample_conv": 2,
                "fused_upsample_conv": 1}
-K6_SITE = (88064, 32)
 AA_REL = 2.0 ** -7  # K5/K6 vs f32: one bf16 rounding of the output plus f32 order
-K4_SITES = [(27520, 128), (6880, 256), (6880, 128), (1720, 512), (1720, 256)]
+K4_SITES = kernel_breakdown.K4_SITES
 # bound on max|kernel - plain| relative to max|plain|: both round to bf16 at
 # the same points, so they differ where f32 sums taken in another order
 # round to neighbouring bf16 values (one bf16 step is 2^-8..2^-7 relative)
@@ -405,20 +402,36 @@ def check_kernels(torch, dev):
         alpha, beta = rand(c, scale=0.3), rand(c, scale=0.3)
         w, bias = rand(k, c, c, scale=(k * c) ** -0.5).to(torch.bfloat16), rand(c, scale=0.1)
         r = rand(1, c, t, scale=0.5).to(torch.bfloat16) if res else None
+        # packed once, as the vocoder packs them when its weights load
+        packed = aa_snake.pack_aa_conv(alpha, beta, w, bias)
+        # the library yardstick of the conv part alone: F.conv1d in bf16 on a
+        # ready activation (the port never calls it)
+        y_aa = aa_snake.aa_snake_plain(x, alpha, beta)
+        w_lib, b_lib = w.permute(2, 1, 0).contiguous(), bias.to(torch.bfloat16)
         compare("fused_aa_snake_conv", src_aa, "unitspeech_tpu/ops/pallas_kernels.py:289",
                 f"T={t} C={c} k={k} d={d}{' +res' if res else ''}",
-                lambda: aa_snake.fused_aa_snake_conv(x, alpha, beta, w, bias, d, r),
+                lambda: aa_snake.fused_aa_snake_conv(x, alpha, beta, w, bias, d, r,
+                                                     packed=packed),
                 lambda: aa_snake.aa_snake_conv_plain(x, alpha, beta, w, bias, d, r),
                 AA_REL, counts(count),
                 {"bytes": 2 * c * t * (3 if res else 2) + 2 * k * c * c + 12 * c,
                  "bf16": 2 * k * c * c * t, "f32": 60 * c * t},
+                lib=lambda: F.conv1d(y_aa, w_lib, b_lib, padding=(k - 1) // 2 * d, dilation=d),
                 ref32=lambda: aa_snake.aa_snake_conv_plain(
                     x.float(), alpha, beta, w.float(), bias, d, None if r is None else r.float()))
+        rec = records[-1]
+        rec["plan"] = pl = aa_snake.conv_plan(1, c, t, k, d)
+        form = "resident weights, persistent" if pl["resident"] else "weight ring"
+        print(f"    conv ({form}): {pl['box_rows']}-row boxes ({pl['boxes']} slots), Cout "
+              f"tile {aa_snake.conv_cols(c)}, {pl['blocks']} blocks ({pl['blocks_per_sm']} an "
+              f"SM), {pl['smem']} B shared; {rec['bound_ms'] / rec['ms']:.1%} of the bound",
+              flush=True)
     t, c = K6_SITE
     x = rand(1, c, t, scale=0.5).to(torch.bfloat16)
     alpha, beta = rand(c, scale=0.3), rand(c, scale=0.3)
+    sp = aa_snake.pack_snake(alpha, beta)  # packed once, as at load
     compare("fused_aa_snake", src_aa, "unitspeech_tpu/ops/pallas_kernels.py:388",
-            f"T={t} C={c}", lambda: aa_snake.fused_aa_snake(x, alpha, beta),
+            f"T={t} C={c}", lambda: aa_snake.fused_aa_snake(x, alpha, beta, packed=sp),
             lambda: aa_snake.aa_snake_plain(x, alpha, beta), AA_REL, counts(1),
             {"bytes": 2 * 2 * c * t + 8 * c, "f32": 60 * c * t},
             ref32=lambda: aa_snake.aa_snake_plain(x.float(), alpha, beta))
@@ -976,7 +989,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     from unitspeech_tpu_torch.ops import _cuda
-    from unitspeech_tpu_torch.tools import device_line, kernel_breakdown
+    from unitspeech_tpu_torch.tools import device_line
 
     smi = device_line(dev)  # nvidia-smi's name and power limit
     print(smi, flush=True)
@@ -989,8 +1002,9 @@ def main(argv=None) -> int:
     print("kernel vs plain (bf16, B=3, lengths 344/301/344 of the bucket):", flush=True)
     records = check_kernels(torch, dev)
     per_call = per_call_counts(records)
-    print("per-launch device time inside K4 and K9 at their sites (torch.profiler; "
-          "python -m unitspeech_tpu_torch.tools.kernel_breakdown):", flush=True)
+    print("per-launch device time inside K4, K9, K7, K5 and K6 at their sites "
+          "(torch.profiler; python -m unitspeech_tpu_torch.tools.kernel_breakdown):",
+          flush=True)
     breakdown = kernel_breakdown.breakdown(dev)
 
     with tempfile.TemporaryDirectory() as tmp:

@@ -11,10 +11,12 @@ send a site to a kernel only where the kernel takes its widths:
   * the packed weights read back through the kernels' tile addressing;
   * the transform-once input of kernel B against the per-tap transform the
     loader used to apply, bit for bit;
-  * the estimator and the vocoder at decoder.dim 32 and 64 driven through
+  * the estimator and the vocoder at decoder.dim 32 and 64 (and a vocoder
+    with a 96-wide stage K5 takes and a 48-wide one it does not) driven through
     stand-ins that run each kernel wrapper's launch branch against a stub
     library before its plain version: no wrapper refuses a site its route
-    sends it, and each route matches the kernel's `takes` predicate.
+    sends it, and each route matches the kernel's `takes` predicate; the
+    K5 wrapper refuses exactly the (C, k, d) its `takes` refuses.
 
 Tolerances: the replay is f64 against the plain f32 conv, 1e-5 of the
 largest value; everything else is exact."""
@@ -414,11 +416,11 @@ def test_estimator_routes_at_narrow_widths(monkeypatch, dim, i8pre):
     assert bool(sites("fused_final_block")) == (dim == 64)
 
 
-@pytest.mark.parametrize("channel", [64, 32])
+@pytest.mark.parametrize("channel", [64, 32, 192, 256])
 def test_vocoder_routes_at_narrow_widths(monkeypatch, channel):
     """BigVGAN with a narrow first stage: K5 runs only on the stages whose
-    width it takes (C % 32), the others take the plain AA-snake conv; K6
-    takes any width."""
+    width it takes (a multiple of 32: 96 too, not 48), the others take the
+    plain AA-snake conv; K6 takes any width."""
     rng = np.random.default_rng(channel)
     voc = tvoc.BigVGAN(num_mels=8, upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4),
                        upsample_initial_channel=channel, resblock_kernel_sizes=(3,),
@@ -466,6 +468,28 @@ def test_wrappers_refuse_what_takes_refuses(monkeypatch, cout):
             else:
                 with pytest.raises(ValueError):
                     call()
+
+
+@pytest.mark.parametrize("c,k,d", [(32, 3, 1), (64, 11, 5), (128, 7, 3), (256, 11, 5),
+                                   (512, 3, 1), (96, 3, 1), (48, 3, 1), (16, 3, 1),
+                                   (32, 4, 1), (64, 11, 13), (32, 3, 64), (32, 3, 65),
+                                   (160, 5, 2), (96, 3, 128), (96, 3, 129), (64, 11, 26)])
+def test_aa_snake_conv_refuses_what_takes_refuses(monkeypatch, c, k, d):
+    """K5's wrapper takes its launch branch exactly where `takes` accepts
+    (C, k, d), packed or not, and raises (no fallback) otherwise."""
+    rng = np.random.default_rng(c + k + d)
+    x = torch.zeros(1, c, 20, dtype=torch.bfloat16)
+    a, b = (torch.from_numpy(rng.standard_normal(c).astype(np.float32)) for _ in range(2))
+    w, bias = torch.randn(k, c, c), torch.zeros(c)
+    with _launch_branch(monkeypatch):
+        if aa_snake.takes(c, k, d):
+            out = aa_snake.fused_aa_snake_conv(x, a, b, w, bias, d)
+            assert out.shape == x.shape
+            aa_snake.fused_aa_snake_conv(x, a, b, w, bias, d,
+                                         packed=aa_snake.pack_aa_conv(a, b, w, bias))
+        else:
+            with pytest.raises(ValueError):
+                aa_snake.fused_aa_snake_conv(x, a, b, w, bias, d)
 
 
 # dim 64 at 80 mel bins -> the ResnetBlocks each route reads packed weights

@@ -230,15 +230,31 @@ def test_resnet_conv3x3_i8_bit_exact(dev, f, t, cin, cout):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,c,dtype", [(301, 256, torch.bfloat16), (430, 1024, torch.bfloat16),
-                                       (77, 24, torch.float32), (1720, 512, torch.float32)])
+                                       (77, 24, torch.float32), (1720, 512, torch.float32),
+                                       (1, 8, torch.bfloat16), (9, 2048, torch.float32)])
 def test_row_absmax(dev, n, c, dtype):
-    """Bit for bit: a max does not depend on the order."""
+    """Bit for bit: a max does not depend on the order; n = 1 and n below
+    the cluster's eight slices leave ranks with no rows. One launch."""
     x = _rand(np.random.default_rng(n), dev, 3, n, c).to(dtype)
     x[1, n // 2, c - 1] = -9.0
     before = row_stats.row_absmax.launches
     got = row_stats.row_absmax(x)
     assert row_stats.row_absmax.launches == before + 1
     assert torch.equal(got, row_stats.row_absmax_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_row_absmax_nan(dev, dtype):
+    """A NaN in a row propagates to its channel, as torch.amax propagates
+    it; the other channels stay bit-equal."""
+    x = _rand(np.random.default_rng(5), dev, 3, 430, 512).to(dtype)
+    x[0, 7, 3] = float("nan")
+    x[2, 429, 511] = float("nan")
+    got, want = row_stats.row_absmax(x), row_stats.row_absmax_plain(x)
+    assert torch.equal(torch.isnan(got), torch.isnan(want)) and int(torch.isnan(got).sum()) == 2
+    ok = ~torch.isnan(want)
+    assert torch.equal(got[ok], want[ok])
 
 
 def _aa_inputs(rng, dev, c, t, k=None):
@@ -257,13 +273,15 @@ def _f32(p):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,t", [(32, 1001), (256, 333), (64, 5)])
+@pytest.mark.parametrize("c,t", [(32, 1001), (256, 333), (64, 5), (24, 130)])
 def test_fused_aa_snake(dev, c, t):
     """K6 against its plain version in f32 on the same inputs, T not a
-    multiple of the 256-sample tile."""
+    multiple of the 64-sample tile, C not a multiple of the 32-channel
+    block."""
     p = _aa_inputs(np.random.default_rng(c + t), dev, c, t)
     before = aa_snake.fused_aa_snake.launches
-    got = aa_snake.fused_aa_snake(p["x"], p["alpha"], p["beta"])
+    got = aa_snake.fused_aa_snake(p["x"], p["alpha"], p["beta"],
+                                  packed=aa_snake.pack_snake(p["alpha"], p["beta"]))
     assert aa_snake.fused_aa_snake.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == p["x"].shape
     q = _f32(p)
@@ -273,22 +291,96 @@ def test_fused_aa_snake(dev, c, t):
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,t,k,d,residual", [
     (32, 1001, 3, 1, True), (32, 777, 11, 5, False), (256, 333, 11, 5, True),
-    (256, 130, 7, 3, False), (128, 64, 3, 3, True), (64, 9, 11, 1, True),
+    (256, 130, 7, 3, False), (128, 64, 3, 3, True), (64, 9, 11, 1, True), (128, 2000, 11, 3, True),
+    (64, 256, 7, 1, False), (512, 40, 3, 1, True), (32, 3, 11, 5, True),
+    (96, 333, 11, 5, True), (160, 200, 3, 3, False), (32, 500, 3, 100, True),
+    (256, 300, 5, 64, False), (96, 70, 3, 128, True), (64, 300, 23, 1, True),
 ])
-def test_fused_aa_snake_conv(dev, c, t, k, d, residual):
-    """K5 against its plain version in f32 on the same inputs: C = 32 and
-    256, k = 11 with d = 5, with and without the residual, T not a
-    multiple of the 64-sample tile and shorter than the conv's reach."""
+@pytest.mark.parametrize("pack", [True, False], ids=["packed", "on_the_spot"])
+def test_fused_aa_snake_conv(dev, c, t, k, d, residual, pack):
+    """K5 against its plain version in f32 on the same inputs: every Cout
+    tile (32, 64, 128, 64 of 256 or 512, 32 of 96 or 160), k = 11 with
+    d = 5, with and without the residual, T not a multiple of the
+    128-sample tiles (or of 8: the epilogue's element stores) and shorter
+    than the conv's reach; reaches over 64 (a box in two pieces, up to
+    MAX_REACH), a narrow stage whose k = 23 weights do not stay resident;
+    the weights packed once as at load or on the spot. One wrapper call."""
     p = _aa_inputs(np.random.default_rng(c * k + t), dev, c, t, k)
     res = p["res"] if residual else None
+    kw = {"packed": aa_snake.pack_aa_conv(p["alpha"], p["beta"], p["w"], p["bias"])} if pack else {}
     before = aa_snake.fused_aa_snake_conv.launches
-    got = aa_snake.fused_aa_snake_conv(p["x"], p["alpha"], p["beta"], p["w"], p["bias"], d, res)
+    got = aa_snake.fused_aa_snake_conv(p["x"], p["alpha"], p["beta"], p["w"], p["bias"], d, res,
+                                       **kw)
     assert aa_snake.fused_aa_snake_conv.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == p["x"].shape
     q = _f32(p)
     want = aa_snake.aa_snake_conv_plain(q["x"], q["alpha"], q["beta"], q["w"], q["bias"], d,
                                         q["res"] if residual else None)
     _assert_close(got, want, AA_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,t,k,d", [(256, 2752, 11, 5), (128, 22016, 3, 1), (64, 44032, 7, 3),
+                                     (32, 88064, 11, 5), (64, 9, 11, 1), (96, 5000, 11, 5),
+                                     (128, 900, 3, 128), (512, 900, 5, 64), (32, 900, 3, 65),
+                                     (64, 900, 11, 25), (64, 300, 23, 1)])
+def test_aa_conv_plan(dev, c, t, k, d):
+    """The card's K5 conv plan at the served stages and at the widths past
+    them K5 takes, up to MAX_REACH: a box of 128 + (k-1) d rows, one TMA
+    copy up to 256 rows, else two pieces of whole 8-row atoms (the CPU
+    replay's); C > 64 (and C <= 64 where k tiles of weights and two boxes
+    do not fit) the ring form, as many box slots as 64-channel chunks up to
+    three, one block per 128 samples and Cout tile (conv_cols); else the
+    resident form, two box slots, a persistent grid of at most one block
+    per tile that fills the SMs it can."""
+    pl = aa_snake.conv_plan(1, c, t, k, d)
+    rows = aa_snake.CONV_BM + (k - 1) * d
+    pieces = 1 if rows <= 256 else 2
+    each = rows if pieces == 1 else -(-rows // 16) * 8  # half the rows, to whole atoms
+    tiles = -(-t // aa_snake.CONV_BM)
+    assert pl["pieces"] == pieces and pl["box_rows"] == pieces * each
+    assert pl["box_bytes"] == -(-pieces * each * 128 // 1024) * 1024
+    assert pl["threads"] == 288 and pl["blocks_per_sm"] >= 1
+    assert pl["resident"] == (c <= 64 and k <= 11)
+    if pl["resident"]:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert pl["boxes"] == 2 and pl["blocks"] == min(tiles, pl["blocks_per_sm"] * sms)
+    else:
+        assert pl["boxes"] == min(3, -(-c // 64))
+        assert pl["blocks"] == tiles * (c // aa_snake.conv_cols(c))
+
+
+@pytest.mark.cuda
+def test_vocoder_repacks_on_load(dev):
+    """The vocoder's snake coefficients, f32 biases and K5 tiles are made
+    by load_state_dict: a weight update loaded again re-packs them, and the
+    kernel vocoder then gives what a fresh one loaded with the new weights
+    gives, bit for bit; an in-place update followed by pack() does too."""
+    from unitspeech_tpu_torch.models import vocoder as tvoc
+
+    rng = np.random.default_rng(11)
+    kw = dict(num_mels=16, upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4),
+              upsample_initial_channel=128, resblock_kernel_sizes=(3, 7),
+              resblock_dilation_sizes=((1, 3), (1, 5)), dtype=torch.bfloat16, use_kernels=True)
+    with dev:
+        voc, fresh = tvoc.BigVGAN(**kw), tvoc.BigVGAN(**kw)
+    sd = {k: _rand(rng, dev, *v.shape, scale=0.1) for k, v in voc.state_dict().items()}
+    voc.load_state_dict(sd)
+    act = voc.resblock_0_0.act1_0
+    old = (act.packed.w.clone(), act.packed.snake.a.clone(), voc.post_packed.ib.clone())
+    for k in ("resblock_0_0.conv1_0.kernel", "resblock_0_0.act1_0.act.alpha", "act_post.beta"):
+        sd[k] = sd[k] * -1.5 + 0.01
+    voc.load_state_dict(sd)
+    fresh.load_state_dict(sd)
+    new = (act.packed.w, act.packed.snake.a, voc.post_packed.ib)
+    assert not any(torch.equal(a, b) for a, b in zip(old, new))
+    mel = _rand(rng, dev, 1, 24, 16)
+    with torch.no_grad():
+        assert torch.equal(voc(mel), fresh(mel))
+        voc.resblock_0_1.conv2_1.kernel.mul_(0.5)
+        voc.pack()
+        fresh.load_state_dict(voc.state_dict())
+        assert torch.equal(voc(mel), fresh(mel))
 
 
 @pytest.mark.cuda

@@ -1,6 +1,8 @@
 """The port's deep-stage convs against the JAX package on the CPU, in f32
 unless a case says otherwise: the row-absmax kernel K7 (plain version vs the
-Pallas kernel in interpret mode), the int8 conv3x3 (identical int8
+Pallas kernel in interpret mode; the card kernel's cluster partition and
+reduction replayed in numpy at its served sites, bit-equal to the plain
+version, every row read once, NaN propagating), the int8 conv3x3 (identical int8
 operands), the bf16 conv3x3 keeping its f32 accumulator, a deep ResnetBlock
 in int8 mode, the tiny Synthesizer with int8 deep convs, and the CLI's
 kernel / int8 switches.
@@ -62,6 +64,100 @@ def test_row_absmax_bf16_input():
     want = np.asarray(_row_absmax_pallas(jnp.asarray(x.float().numpy(), jnp.bfloat16),
                                          interpret=True))
     np.testing.assert_array_equal(row_stats.row_absmax(x).numpy(), want)
+
+
+# K7's served sites (rows, C): every flat deep-stage conv input of one
+# estimator call at the 344-frame bucket (chip_smoke.py K7_SITES)
+K7_SITES = [(1720, 256), (1720, 512), (1720, 1024), (430, 512), (430, 1024), (430, 2048)]
+# K7's partition as csrc/row_stats.cu launches it (AM_CL, AM_CPB, AM_RG,
+# AM_UNROLL there): a cluster of CLUSTER blocks per CHANNELS channels of a
+# batch element, each block one slice of ceil(n / CLUSTER) rows walked by
+# ROW_GROUPS row groups, UNROLL rows at a time while that many remain
+CLUSTER, CHANNELS, ROW_GROUPS, UNROLL = 8, 128, 16, 8
+
+
+def _nan_max(m, v):
+    """csrc/row_stats.cu nan_max: v where v > m or v is NaN, else m."""
+    return np.where((v > m) | np.isnan(v), v, m)
+
+
+def _row_absmax_replay(x):
+    """row_absmax_kernel in numpy on (B, n, C) f32 values: a cluster of
+    CLUSTER blocks per CHANNELS channels of a batch element; rank q reads
+    rows [q rows, (q + 1) rows), rows = ceil(n / cluster), its row group g
+    every 16th row from q rows + g, UNROLL rows at a time while that
+    many remain, then one; 16 lanes of 8 channels. Each block reduces its row groups in
+    order, then rank q reduces the cluster's partials of its 16 channels in
+    rank order. Returns (out (B, C), reads (B, n, C))."""
+    b, n, c = x.shape
+    cl, cpb, rgs, un = CLUSTER, CHANNELS, ROW_GROUPS, UNROLL
+    rows = -(-n // cl)
+    reads = np.zeros(x.shape, np.int64)
+    out = np.full((b, c), -1.0, np.float32)
+    ax = np.abs(x)
+    for bb in range(b):
+        for sl in range(-(-c // cpb)):
+            ch = slice(sl * cpb, min(c, (sl + 1) * cpb))
+            parts = []
+            for q in range(cl):
+                r1 = min(n, (q + 1) * rows)
+                red = np.zeros((rgs, ch.stop - ch.start), np.float32)
+                for g in range(rgs):
+                    r = q * rows + g
+                    visit = []
+                    while r + (un - 1) * rgs < r1:  # un loads in flight
+                        visit += [r + u * rgs for u in range(un)]
+                        r += un * rgs
+                    while r < r1:
+                        visit.append(r)
+                        r += rgs
+                    m = np.zeros(ch.stop - ch.start, np.float32)
+                    for rr in visit:
+                        reads[bb, rr, ch] += 1
+                        m = _nan_max(m, ax[bb, rr, ch])
+                    red[g] = m
+                part = red[0]
+                for g in range(1, rgs):
+                    part = _nan_max(part, red[g])
+                parts.append(part)
+            per = cpb // cl
+            for q in range(cl):  # rank q's channels, the ranks' partials in order
+                lo, hi = q * per, min((q + 1) * per, ch.stop - ch.start)
+                t = np.zeros(max(hi - lo, 0), np.float32)
+                for p in parts:
+                    t = _nan_max(t, p[lo:hi])
+                out[bb, ch.start + lo:ch.start + hi] = t
+    return out, reads
+
+
+@pytest.mark.parametrize("n,c", K7_SITES)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_row_absmax_partition_replay(n, c, b, dtype):
+    """The card kernel's partition at each served site reads every row of
+    every channel exactly once, and its reduction equals row_absmax_plain
+    bit for bit; a NaN in a row propagates to its channel only."""
+    rng = np.random.default_rng(n + c + b)
+    x = torch.from_numpy(_rand(rng, b, n, c)).to(dtype)
+    x[b - 1, n // 3, c // 2] = -11.0
+    x[0, n - 1, c - 1] = float("nan")
+    xf = x.float().numpy()
+    got, reads = _row_absmax_replay(xf)
+    assert (reads == 1).all()
+    want = row_stats.row_absmax_plain(x).numpy()
+    assert np.isnan(got[0, c - 1]) and np.isnan(want[0, c - 1])
+    assert np.isnan(got).sum() == 1
+    np.testing.assert_array_equal(got, want)  # NaN positions equal, the rest bit for bit
+
+
+@pytest.mark.parametrize("n", [1, 5, 9, 129])
+def test_row_absmax_partition_few_rows(n):
+    """Fewer rows than the cluster's slices (ranks with no rows keep 0, the
+    identity of a max of magnitudes) and a C not a multiple of 128."""
+    x = _rand(np.random.default_rng(n), 2, n, 40)
+    got, reads = _row_absmax_replay(x)
+    assert (reads == 1).all()
+    np.testing.assert_array_equal(got, row_stats.row_absmax_plain(torch.from_numpy(x)).numpy())
 
 
 def _jax_int8_operands(xf, w):

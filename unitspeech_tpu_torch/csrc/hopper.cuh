@@ -126,6 +126,19 @@ struct WgmmaRS;
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
 
+template <> struct WgmmaRS<32> {
+  static US_DEV void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : F8(0), F8(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
 template <> struct WgmmaRS<64> {
   static US_DEV void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
     asm volatile(
@@ -292,12 +305,14 @@ US_DEV void release(uint64_t* bar) {
 // before a chunk's first stage, a whole chunk ahead of its use; with fewer a
 // chunk's box goes out before its stage `box_at`, so that its first weight
 // stages are in flight while the previous chunk ends (PERF.md: the third
-// slot is worth it where it costs no blocks an SM).
+// slot is worth it where it costs no blocks an SM). A box of one frequency
+// may come as `pieces` copies of piece_rows frames (128-byte rows), each
+// at most the 256 rows of a TMA box.
 US_DEV void produce_ring(const CUtensorMap* xmap, uint8_t* ring, uint8_t* box, uint64_t* w_full,
                          uint64_t* w_empty, uint64_t* x_full, uint64_t* x_empty, int n_ring,
                          int n_stages, int stage_bytes, int src_stride, int nb, int box_bytes,
                          int box_tx, int n_chunks, const void* wsrc, int fi0, int ti0, int bz,
-                         int chunk_ch = KC) {
+                         int chunk_ch = KC, int pieces = 1, int piece_rows = 0) {
   const int lane = threadIdx.x & 31;
   const int box_at = min(n_ring - 1, n_stages - 1);
   const bool lead = nb >= 3;
@@ -307,7 +322,9 @@ US_DEV void produce_ring(const CUtensorMap* xmap, uint8_t* ring, uint8_t* box, u
     mbar_wait(&x_empty[xs], xph ^ 1);
     if (lane == 0) {
       mbar_arrive_expect_tx(&x_full[xs], box_tx);
-      tma_load_4d(box + xs * box_bytes, xmap, c * chunk_ch, fi0, ti0, bz, &x_full[xs]);
+      for (int i = 0; i < pieces; ++i)
+        tma_load_4d(box + xs * box_bytes + i * piece_rows * 128, xmap, c * chunk_ch, fi0,
+                    ti0 + i * piece_rows, bz, &x_full[xs]);
     }
     __syncwarp();
     if (++xs == nb) xs = 0, xph ^= 1;

@@ -15,6 +15,10 @@ fused with the conv after it (kernel K5; the second one of each pair also
 adds the residual), and the final activation runs alone (kernel K6).
 `use_kernels=False` is the plain path (the JAX XLA twin). A kernel wrapper
 given a CPU tensor runs its plain version, so both paths run on the CPU.
+With the kernels, what they read of the weights (snake coefficients, f32
+biases, the conv kernels in K5's tiles) is packed by a load_state_dict
+post-hook (`BigVGAN.pack`), so no call casts or exponentiates; weights
+changed in place afterwards need another load_state_dict or `pack()`.
 """
 
 from __future__ import annotations
@@ -28,8 +32,16 @@ from unitspeech_tpu_torch.ops.aa_snake import (
     aa_snake_plain,
     fused_aa_snake,
     fused_aa_snake_conv,
+    pack_aa_conv,
+    pack_snake,
 )
 from unitspeech_tpu_torch.ops.aa_snake import takes as aa_snake_takes
+
+
+def _pack_after_load(vocoder, _incompatible_keys):
+    """load_state_dict post-hook of a BigVGAN with the kernels: pack once
+    the weights are in."""
+    vocoder.pack()
 
 
 class Snake(nn.Module):
@@ -62,17 +74,26 @@ class AntiAliasedActivation(nn.Module):
     def __init__(self, channels: int, activation: str = "snakebeta", logscale: bool = True):
         super().__init__()
         self.act = (SnakeBeta if activation == "snakebeta" else Snake)(channels, logscale)
+        self.packed = None  # what K5 reads of it and its conv (pack_aa_conv), set by pack
+
+    def pack(self, conv, dilation: int):
+        """Pack this activation's snake coefficients and the conv after it
+        for K5, where K5 takes the widths."""
+        k, c = conv.kernel.shape[:2]
+        self.packed = (pack_aa_conv(*self.act.params_ab(), conv.kernel, conv.bias,
+                                    self.act.logscale)
+                       if aa_snake_takes(c, k, dilation) else None)
 
     def forward(self, x, conv, dilation: int, residual=None, use_kernels=False):
         """(B, C, T) -> (B, C, T): the activation, then the SAME dilated
         `conv` (a Conv1d of odd k), then + residual; with `use_kernels` one
-        launch of K5 where it takes the widths, else the plain version (the
+        call of K5 where it takes the widths, else the plain version (the
         JAX route's fallback)."""
-        k = conv.kernel.shape[0]
-        kernel = use_kernels and aa_snake_takes(x.shape[1], k)
-        fn = fused_aa_snake_conv if kernel else aa_snake_conv_plain
-        return fn(x, *self.act.params_ab(), conv.kernel, conv.bias, dilation, residual,
-                  self.act.logscale)
+        args = (x, *self.act.params_ab(), conv.kernel, conv.bias, dilation, residual,
+                self.act.logscale)
+        if use_kernels and aa_snake_takes(x.shape[1], conv.kernel.shape[0], dilation):
+            return fused_aa_snake_conv(*args, packed=self.packed)
+        return aa_snake_conv_plain(*args)
 
 
 class AMPBlock1(nn.Module):
@@ -88,6 +109,11 @@ class AMPBlock1(nn.Module):
             self.add_module(f"conv1_{i}", Conv1d(channels, channels, kernel_size))
             self.add_module(f"act2_{i}", AntiAliasedActivation(channels, activation, logscale))
             self.add_module(f"conv2_{i}", Conv1d(channels, channels, kernel_size))
+
+    def pack(self):
+        for i, d in enumerate(self.dilation):
+            getattr(self, f"act1_{i}").pack(getattr(self, f"conv1_{i}"), d)
+            getattr(self, f"act2_{i}").pack(getattr(self, f"conv2_{i}"), 1)
 
     def forward(self, x, use_kernels=False):
         for i, d in enumerate(self.dilation):
@@ -109,6 +135,10 @@ class AMPBlock2(nn.Module):
         for i in range(len(self.dilation)):
             self.add_module(f"act_{i}", AntiAliasedActivation(channels, activation, logscale))
             self.add_module(f"conv_{i}", Conv1d(channels, channels, kernel_size))
+
+    def pack(self):
+        for i, d in enumerate(self.dilation):
+            getattr(self, f"act_{i}").pack(getattr(self, f"conv_{i}"), d)
 
     def forward(self, x, use_kernels=False):
         for i, d in enumerate(self.dilation):
@@ -140,6 +170,19 @@ class BigVGAN(nn.Module):
                                 block_cls(ch, rk, rd, activation, snake_logscale))
         self.act_post = (SnakeBeta if activation == "snakebeta" else Snake)(ch, snake_logscale)
         self.conv_post = Conv1d(ch, 1, 7)
+        self.post_packed = None  # act_post's coefficients for K6, set by pack
+        if use_kernels:
+            self.register_load_state_dict_post_hook(_pack_after_load)
+
+    def pack(self):
+        """Make what the kernels read of the weights, once: each AMP-block
+        activation's snake coefficients, its conv's f32 bias and kernel in
+        K5's tiles (where K5 takes the widths), and the final activation's
+        coefficients for K6. The plain path reads the raw parameters."""
+        for m in self.modules():
+            if isinstance(m, (AMPBlock1, AMPBlock2)):
+                m.pack()
+        self.post_packed = pack_snake(*self.act_post.params_ab(), self.act_post.logscale)
 
     def forward(self, mel):
         uk = self.use_kernels
@@ -152,8 +195,8 @@ class BigVGAN(nn.Module):
                 xs = y if xs is None else xs + y
             x = xs / self.num_kernels
         # the final activation alone: one launch of K6 with the kernels
-        x = (fused_aa_snake if uk else aa_snake_plain)(x, *self.act_post.params_ab(),
-                                                      self.act_post.logscale)
+        post = (x, *self.act_post.params_ab(), self.act_post.logscale)
+        x = fused_aa_snake(*post, packed=self.post_packed) if uk else aa_snake_plain(*post)
         x = self.conv_post.ncw(x, 3)
         return torch.tanh(x)[:, 0, :].to(torch.float32)
 

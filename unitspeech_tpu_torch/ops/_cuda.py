@@ -44,13 +44,13 @@ _SIGNATURES = {
     "us_final_out": ([_P] * 9 + [_I] * 3 + [_P], _I),
     "us_row_stats_chunks": ([_I], _I),
     "us_row_stats": ([_P, _I, _P, _P, _I, _I, _I, _P], _I),
-    "us_row_absmax_chunks": ([_I], _I),
-    "us_row_absmax": ([_P, _I, _P, _P, _I, _I, _I, _P], _I),
+    "us_row_absmax": ([_P, _I, _P, _I, _I, _I, _P], _I),
     "us_rezero_attention": ([_P] * 12 + [_I] * 3 + [_P], _I),
     "us_attn_plan": ([_I, _I, _P], _I),
     "us_aa_offsets": ([_I], _I),
     "us_aa_snake": ([_P] * 5 + [_I] * 3 + [_P], _I),
-    "us_aa_snake_conv": ([_P] * 8 + [_I] * 5 + [_P], _I),
+    "us_aa_snake_conv": ([_P] * 6 + [_I] + [_P] * 3 + [_I] * 5 + [_P], _I),
+    "us_aa_conv_plan": ([_I] * 6 + [_P], _I),
     "us_resnet_block": ([_P] * 21 + [_I] * 6 + [_F, _I, _P], _I),
     "us_i8_glue_blocks": ([_I, _I], _I),
     "us_i8_quantize_chunks": ([_I], _I),

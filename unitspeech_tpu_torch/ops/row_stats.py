@@ -66,13 +66,10 @@ def _row_absmax_cuda(x: torch.Tensor) -> torch.Tensor:
     if c % 8 or n == 0:
         raise ValueError(f"row_absmax: channel count {c} must be a multiple of 8, rows > 0")
     _cuda.require(x, "row_absmax x")
-    lib = _cuda.lib()
-    part = torch.empty((b, lib.us_row_absmax_chunks(n), c), dtype=torch.float32,
-                       device=x.device)
     out = torch.empty((b, c), dtype=torch.float32, device=x.device)
     _cuda.check(
-        lib.us_row_absmax(x.data_ptr(), int(x.dtype == torch.bfloat16), part.data_ptr(),
-                          out.data_ptr(), b, n, c, _cuda.stream(x)),
+        _cuda.lib().us_row_absmax(x.data_ptr(), int(x.dtype == torch.bfloat16), out.data_ptr(),
+                                  b, n, c, _cuda.stream(x)),
         "row_absmax",
     )
     row_absmax.launches += 1

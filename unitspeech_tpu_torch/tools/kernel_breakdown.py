@@ -1,9 +1,13 @@
-"""Per-launch device time inside the rezero attention (K4) and the int8
-deep ResnetBlock (K9) at the sites one estimator call at the 344-frame
-bucket runs them (3 rows, lengths 344/301/344): each wrapper call runs
-several kernels, and this shows which of them takes the time.
+"""Per-launch device time inside the rezero attention (K4), the int8 deep
+ResnetBlock (K9) and the row abs-max (K7) at the sites one estimator call
+at the 344-frame bucket runs them (3 rows, lengths 344/301/344), and
+inside the anti-aliased snake kernels (K5 at its 24 sites of one vocoder
+call at that bucket, K6 at its one): each wrapper call may run several
+kernels (and small PyTorch launches around them), and this shows which of
+them takes the time.
 
     python -m unitspeech_tpu_torch.tools.kernel_breakdown [--reps 20] [--out FILE]
+        [--kernels K4 K9 K7 K5 K6]
 
 Each site's wrapper runs `reps` times under torch.profiler after a warm-up;
 a kernel's time is its device time summed over the window divided by
@@ -33,10 +37,26 @@ K4_SITES = [(27520, 128), (6880, 256), (6880, 128), (1720, 512), (1720, 256)]
 K9_SITES = [(20, 86, 256, 512), (20, 86, 512, 512), (10, 43, 512, 1024),
             (10, 43, 2048, 512), (10, 43, 512, 512), (20, 86, 1024, 256)]
 K9_SITES = [s for s in K9_SITES if s[3] <= 512]
+# (rows, C, launches per estimator call on the serving default): the int8
+# activation scale of every flat deep-stage conv input
+K7_SITES = [(1720, 256, 2), (1720, 512, 3), (1720, 1024, 1), (430, 512, 4), (430, 1024, 7),
+            (430, 2048, 1)]
+# BigVGAN at the 344-frame bucket: (T, C) after each upsample stage; each
+# AMP block (k = 3, 7, 11) runs K5 at d = 1, 3, 5 and three times at d = 1
+# with the residual. (T, C, k, d, residual, launches per vocoder call)
+VOC_STAGES = [(2752, 256), (22016, 128), (44032, 64), (88064, 32)]
+K5_SITES = [(t, c, k, d, res, 3 if res else 1) for t, c in VOC_STAGES for k in (3, 7, 11)
+            for d, res in ((1, False), (3, False), (5, False), (1, True))]
+K6_SITE = (88064, 32)
 
 
 def short_name(name: str) -> str:
-    """A kernel's name without its namespace and parameter list."""
+    """A kernel's name without its namespace and parameter list; PyTorch's
+    elementwise kernels by their functor ("torch exp")."""
+    if name.startswith(("at::native::", "void at::native::")):
+        ops = [g for m in re.findall(r"(\w+?)_kernel_cuda|CUDAFunctorOnSelf_(\w+?)<|"
+                                     r"(\w+?)Functor<float>", name) for g in m if g]
+        return f"torch {ops[-1].lower() if ops else name.split('<')[0]}"
     name = name.replace("(anonymous namespace)::", "")
     name = re.sub(r"^void ", "", name)
     depth, out = 0, []
@@ -137,29 +157,126 @@ def k9_calls(dev, seed=0):
     return out
 
 
-def breakdown(dev, reps: int = 20) -> dict:
-    """{kernel: [{site, ms (the wrapper under CUDA events), launches:
-    [{name, launches, ms}]}]} for K4 and K9; prints one line a launch."""
-    result = {}
-    for kernel, calls in (("K4", k4_calls(dev)), ("K9", k9_calls(dev))):
+def k7_calls(dev, seed=0):
+    """[(site, wrapper call, launches per estimator call)] at K7_SITES, bf16
+    rows from `seed`."""
+    from unitspeech_tpu_torch.ops import row_stats
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    out = []
+    for n, c, per_call in K7_SITES:
+        x = torch.randn(3, n, c, generator=g).to(dev, torch.bfloat16)
+        out.append((f"n={n} C={c}", lambda x=x: row_stats.row_absmax(x), per_call))
+    return out
+
+
+def _snake_params(g, dev, c):
+    return tuple((torch.randn(c, generator=g) * 0.3).to(dev) for _ in range(2))
+
+
+def k5_calls(dev, seed=0):
+    """[(site, wrapper call, launches per vocoder call)] at K5_SITES: bf16
+    activations, weights and the residual, f32 snake parameters and bias
+    from `seed`; the weights packed once, as the vocoder packs them at
+    load."""
+    from unitspeech_tpu_torch.ops import aa_snake
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    out = []
+    for t, c, k, d, res, per_call in K5_SITES:
+        x = (torch.randn(1, c, t, generator=g) * 0.5).to(dev, torch.bfloat16)
+        alpha, beta = _snake_params(g, dev, c)
+        w = (torch.randn(k, c, c, generator=g) * (k * c) ** -0.5).to(dev, torch.bfloat16)
+        bias = (torch.randn(c, generator=g) * 0.1).to(dev)
+        r = (torch.randn(1, c, t, generator=g) * 0.5).to(dev, torch.bfloat16) if res else None
+        packed = aa_snake.pack_aa_conv(alpha, beta, w, bias)
+        out.append((f"T={t} C={c} k={k} d={d}{' +res' if res else ''}",
+                    lambda x=x, alpha=alpha, beta=beta, w=w, bias=bias, d=d, r=r, packed=packed:
+                    aa_snake.fused_aa_snake_conv(x, alpha, beta, w, bias, d, r, packed=packed),
+                    per_call))
+    return out
+
+
+def k6_calls(dev, seed=0):
+    """[(site, wrapper call, launches per vocoder call)] at K6_SITE, the
+    snake coefficients packed once."""
+    from unitspeech_tpu_torch.ops import aa_snake
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    t, c = K6_SITE
+    x = (torch.randn(1, c, t, generator=g) * 0.5).to(dev, torch.bfloat16)
+    alpha, beta = _snake_params(g, dev, c)
+    packed = aa_snake.pack_snake(alpha, beta)
+    return [(f"T={t} C={c}", lambda: aa_snake.fused_aa_snake(x, alpha, beta, packed=packed), 1)]
+
+
+CALLS = {"K4": k4_calls, "K9": k9_calls, "K7": k7_calls, "K5": k5_calls, "K6": k6_calls}
+
+
+def breakdown(dev, reps: int = 20, kernels=tuple(CALLS)) -> dict:
+    """{kernel: [{site, ms (the wrapper under CUDA events), per_call,
+    launches: [{name, launches, ms}]}]} for each of `kernels`; prints one
+    line a site, and for K5, K6 and K7 the sums a call of the estimator
+    (K7) or vocoder (K5, K6) makes, by launch name, weighted by each site's
+    launches per call (K5 also by stage), and `chain_ms`: that call's
+    wrapper calls back to back, each site as often as the call makes it,
+    under one pair of events. `floor_ms`: one empty kernel under the same
+    timing (the least a single timed call can show)."""
+    floor = median_ms(lambda: torch.cuda._sleep(1), dev)
+    print(f"  one empty kernel: {floor:.4f} ms (CUDA events behind the spin)", flush=True)
+    result = {"floor_ms": floor, "chain_ms": {}}
+    for kernel in kernels:
         result[kernel] = []
-        for site, fn in calls:
-            rec = {"site": site, "ms": median_ms(fn, dev), "launches": launch_times(fn, reps)}
+        calls = CALLS[kernel](dev)
+        for site, fn, *per_call in calls:
+            rec = {"site": site, "ms": median_ms(fn, dev), "per_call": per_call[0] if per_call else 1,
+                   "launches": launch_times(fn, reps)}
             print(f"  {kernel} {site}: {rec['ms']:.4f} ms a call (CUDA events); per launch "
                   "(profiler): " + "; ".join(f"{r['name']} x{r['launches']:g} {r['ms']:.4f} ms"
                                               for r in rec["launches"]), flush=True)
             result[kernel].append(rec)
+        if kernel in ("K5", "K6", "K7"):
+            _summary(kernel, result[kernel])
+
+            def chain(calls=calls):
+                for _, fn, n in calls:
+                    for _ in range(n):
+                        fn()
+
+            ms = result["chain_ms"][kernel] = median_ms(chain, dev, reps=10)
+            print(f"  {kernel} a call's {sum(n for *_, n in calls)} wrapper calls back to back: "
+                  f"{ms:.4f} ms (CUDA events)", flush=True)
     return result
+
+
+def _summary(kernel, recs):
+    """Print the per-call sums of one kernel's sites (K5 also per stage)."""
+    groups = {"all": recs}
+    if kernel == "K5":
+        for t, c in VOC_STAGES:
+            groups[f"T={t} C={c}"] = [r for r in recs if r["site"].startswith(f"T={t} ")]
+    for what, rs in groups.items():
+        names: dict = {}
+        for r in rs:
+            for ln in r["launches"]:
+                e = names.setdefault(ln["name"], [0.0, 0.0])
+                e[0] += ln["launches"] * r["per_call"]
+                e[1] += ln["ms"] * r["per_call"]
+        wrapper = sum(r["ms"] * r["per_call"] for r in rs)
+        print(f"  {kernel} {what}, a call: wrapper {wrapper:.4f} ms over "
+              f"{sum(r['per_call'] for r in rs)} calls; launches: " +
+              "; ".join(f"{n} x{v[0]:g} {v[1]:.4f} ms" for n, v in names.items()), flush=True)
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser("kernel_breakdown")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=None, help="also write the result here (JSON)")
+    ap.add_argument("--kernels", nargs="+", choices=tuple(CALLS), default=tuple(CALLS))
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     print(device_line(dev), flush=True)
-    result = {"card": device_line(dev), **breakdown(dev, args.reps)}
+    result = {"card": device_line(dev), **breakdown(dev, args.reps, args.kernels)}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
