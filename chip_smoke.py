@@ -11,8 +11,11 @@ seed): with its serving defaults
 configuration (`--deep --i8pre --resample`: K8, K9, K11). K9's int8 convs
 are also held alone, bit-equal to the plain int8 product and dequantize,
 K5 beside one F.conv1d in bf16 on a ready activation (the yardstick of its
-conv part) with its conv's launch plan, and the launches inside K4, K9,
-K7, K5 and K6 are timed one by one (tools/kernel_breakdown.py). Then check what
+conv part) with its conv's launch plan, K3 in both its forms (the sums and
+the served fold) beside one torch.var_mean over the groups, and the
+launches inside K4, K9, K7, K5, K6, K3 and K2 are timed one by one
+(tools/kernel_breakdown.py; K3's served call must be one kernel launch and
+K2's two). Then check what
 comes out: each kernel path against the plain path, the int8 gates and the
 kernel vocoder, each run with the exact kernel launches its path makes.
 Last, the paths of the kernels that no request runs, the port's four tools
@@ -73,17 +76,11 @@ K1_SITES = [  # (F, Cin, Cout), each once per call on every path
     (80, 2, 128), (80, 128, 128),
     (40, 128, 256), (40, 256, 256), (40, 512, 128), (40, 128, 128),
 ]
-K3_SITES = [  # (rows, C, input dtype, launches): GroupNorm statistics of the
-    # flat deep blocks, on their conv outputs (rounded to bf16 in int8 mode,
-    # the serving default; f32 accumulators with --no-int8) and on the bf16
-    # output of the one deep block that runs as plain Blocks (up_1_res2, on
-    # every path; the fused deep paths have no flat block at this bucket)
-    (1720, 512, "bfloat16", counts(4, 0, 0, 0)),
-    (430, 1024, "bfloat16", counts(8, 0, 0, 0)),
-    (430, 512, "bfloat16", counts(4, 0, 0, 0)), (1720, 256, "bfloat16", counts(4, 2, 2, 2)),
-    (1720, 512, "float32", counts(0, 4, 0, 0)), (430, 1024, "float32", counts(0, 8, 0, 0)),
-    (430, 512, "float32", counts(0, 4, 0, 0)), (1720, 256, "float32", counts(0, 2, 0, 0)),
-]
+# (rows, C, input dtype, launches): GroupNorm statistics of the flat deep
+# blocks and of up_1_res2's plain Blocks (tools/kernel_breakdown.py), each
+# one K3 launch in its fold form (group_mean_inv)
+K3_SITES = [(n, c, dt, counts(i8, bf, deep, deep))
+            for n, c, dt, i8, bf, deep in kernel_breakdown.K3_SITES]
 # (rows, C, launches): the int8 activation scale of every flat deep-stage
 # conv input (nine blocks, two convs each; K9 finds its conv1 input's scale
 # itself), on the int8 path only
@@ -128,7 +125,12 @@ BF16_REL = 2.0 ** -6
 # (max|w| / (rms(w) sqrt(9 C)) < 0.08, max|h| / rms(h) < 8) that is < 0.005
 # of a unit-scale output, under 2^-7 of max|plain| (max|plain| >= 1)
 I8_REL = 2.0 ** -6 + 2.0 ** -7
-F32_REL = 1e-4  # K3: f32 sums in another order
+F32_REL = 1e-4  # K3's sums: f32 sums in another order
+# K3's fold form (mean, inv): var = E[x^2] - mean^2 cancels mean^2, at most a
+# fifth of E[x^2] at these inputs (N(0.5, 1)), so var keeps the sums'
+# relative error within 1.25x and inv (rsqrt) half of that; mean and inv
+# are held to twice F32_REL of max(|ref|, 1)
+FOLD_REL = 2 * F32_REL
 # P1: the accurate bodies may differ by an ulp where the kernel's sinf /
 # expf / tanhf / rsqrtf and PyTorch's differ; the exp chain amplifies such a
 # difference by up to e^8 / 2 a round until it saturates at e^8
@@ -232,13 +234,14 @@ def check_kernels(torch, dev):
     records = []
 
     def compare(name, src, replaces, site, kern, plain, rel, per_call, work, lib=None,
-                ref32=None):
+                ref32=None, timed=None):
         """per_call: launches per call on each path (counts()). work: the
         site's bytes and operations (bound_ms). lib: one PyTorch call that
         computes the same function, timed as a yardstick only. ref32: an
         f32 reference on the same (bf16-rounded) inputs; the error is taken
         against it, and the bf16 plain version's distance to the kernel is
-        printed beside it."""
+        printed beside it. timed: the (kernel, plain) calls to time where
+        kern and plain wrap them for the comparison."""
         got = kern()
         want = plain() if ref32 is None else ref32()
         torch.cuda.synchronize()
@@ -254,7 +257,8 @@ def check_kernels(torch, dev):
         b_ms, b_bytes, b_ops = bound_ms(work)
         rec = dict(name=name, route="cuda", source=src, replaces=replaces, site=site,
                    counts=per_call, max_abs_err=err, tol=tol,
-                   ms=_time_ms(torch, kern), plain_ms=_time_ms(torch, plain),
+                   ms=_time_ms(torch, (timed or (kern, plain))[0]),
+                   plain_ms=_time_ms(torch, (timed or (kern, plain))[1]),
                    bound_ms=b_ms, bytes_ms=b_bytes, ops_ms=b_ops,
                    lib_ms=None if lib is None else _time_ms(torch, lib))
         lib_txt = "" if lib is None else f", library {rec['lib_ms']:.4f} ms"
@@ -361,13 +365,26 @@ def check_kernels(torch, dev):
             {"bytes": 2 * 3 * n * c + 2 * 9 * c * c + 4 * 3 * n, "bf16": 2 * 3 * n * 9 * c * c,
              "f32": 22 * 3 * n * c})
 
+    src_rs3 = "unitspeech_tpu_torch/csrc/row_stats.cu"
     for n, c, dt, per_call in K3_SITES:
         x = (rand(3, n, c) + 0.5).to(getattr(torch, dt))
-        compare("row_stats", "unitspeech_tpu_torch/csrc/row_stats.cu",
-                "unitspeech_tpu/ops/pallas_stats.py:96", f"n={n} C={c} {dt}",
-                lambda: row_stats.row_stats(x), lambda: row_stats.row_stats_plain(x),
-                F32_REL, per_call,
+        groups = kernel_breakdown.K3_GROUPS
+        # the sums form (no served call: the line's row is the fold form)
+        compare("row_stats_sums", src_rs3, "unitspeech_tpu/ops/pallas_stats.py:96",
+                f"n={n} C={c} {dt}", lambda: row_stats.row_stats(x),
+                lambda: row_stats.row_stats_plain(x), F32_REL, counts(0),
                 {"bytes": x.element_size() * 3 * n * c + 4 * 3 * 2 * c, "f32": 3 * 3 * n * c})
+        # the fold form, timed as the estimator calls it, beside one var_mean
+        # over the groups (the library call computing the same statistics)
+        fold = lambda: row_stats.group_mean_inv(x, groups)  # noqa: E731
+        fold_plain = lambda: row_stats.group_mean_inv_plain(  # noqa: E731
+            x, groups, stats=row_stats.row_stats_plain)
+        compare("row_stats", src_rs3, "unitspeech_tpu/ops/pallas_stats.py:96",
+                f"n={n} C={c} {dt} fold", lambda: torch.stack(fold()),
+                lambda: torch.stack(fold_plain()), FOLD_REL, per_call,
+                {"bytes": x.element_size() * 3 * n * c + 4 * 2 * 3 * c, "f32": 3 * 3 * n * c},
+                lib=lambda: torch.var_mean(x.unflatten(2, (groups, c // groups)), dim=(1, 3),
+                                           correction=0), timed=(fold, fold_plain))
 
     for n, c, per_call in K7_SITES:
         x = rand(3, n, c).to(torch.bfloat16)
@@ -705,6 +722,24 @@ def _counted(what, fn, want):
     return out
 
 
+def check_launch_counts(breakdown):
+    """The device launches of one call, from the profiler: K3's served call
+    (group_mean_inv) is its one kernel at every site, with no PyTorch launch
+    beside it; K2 is two kernels, kernel A and the tail (beside the three
+    launches of its wrapper's mask-length sum)."""
+    for rec in breakdown["K3"]:
+        got = [(r["name"], r["launches"]) for r in rec["launches"]]
+        if "group_mean_inv" in rec["site"] and (len(got) != 1 or got[0][1] != 1
+                                                or not got[0][0].startswith("row_stats_kernel")):
+            raise AssertionError(f"K3 {rec['site']}: launches {got}, expected one K3 kernel")
+    (rec,) = breakdown["K2"]
+    kernels = [(r["name"], r["launches"]) for r in rec["launches"]
+               if not r["name"].startswith("torch ")]
+    if [n.split("<")[0] for n, _ in kernels] != ["conv_tc", "final_tail"] or any(
+            k != 1 for _, k in kernels):
+        raise AssertionError(f"K2: kernel launches {kernels}, expected conv_tc and final_tail")
+
+
 def per_call_counts(records):
     """{path: {kernel: launches per estimator (vocoder) call at 344}}."""
     return {path: {name: sum(r["counts"][path] for r in records if r["name"] == name)
@@ -1002,10 +1037,11 @@ def main(argv=None) -> int:
     print("kernel vs plain (bf16, B=3, lengths 344/301/344 of the bucket):", flush=True)
     records = check_kernels(torch, dev)
     per_call = per_call_counts(records)
-    print("per-launch device time inside K4, K9, K7, K5 and K6 at their sites "
+    print("per-launch device time inside K4, K9, K7, K5, K6, K3 and K2 at their sites "
           "(torch.profiler; python -m unitspeech_tpu_torch.tools.kernel_breakdown):",
           flush=True)
     breakdown = kernel_breakdown.breakdown(dev)
+    check_launch_counts(breakdown)
 
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, launches = serve(torch, tmp, per_call)

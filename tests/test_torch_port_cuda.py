@@ -11,8 +11,8 @@ runs on a machine with the card and no jax:
 
 Bound: 2^-6 of max|plain| for the bf16 kernels K1-K4, K8 and K11 (both
 round to bf16 at the same points; f32 sums in another order may round to a
-neighbouring bf16 value), 1e-4 of max|plain| for the f32 row statistics, 0
-for the row abs-max K7. K9 adds one int8 step at the few values within f32
+neighbouring bf16 value), 1e-4 of max|plain| for the f32 row statistics and
+2e-4 for their group fold (FOLD_REL below), 0 for the row abs-max K7. K9 adds one int8 step at the few values within f32
 round-off of a rounding boundary (I8_REL below), and so do K10a/K10b: their
 int8 products are exact and their scales equal the plain version's, but
 kernel B's input h rounds to bf16 after GroupNorm statistics summed in
@@ -128,12 +128,172 @@ def test_fused_final_block(dev):
     _assert_close(got, want, BF16_REL)
 
 
+def _final_inputs(rng, dev, b, t, f, cin, c):
+    r = lambda *s, scale=1.0: _rand(rng, dev, *s, scale=scale)  # noqa: E731
+    x = r(b, t, f, cin).to(torch.bfloat16)
+    w = dict(w1=r(3, 3, cin, c, scale=(9 * cin) ** -0.5), b1=r(c, scale=0.1),
+             gn_scale=1 + r(c, scale=0.1), gn_bias=r(c, scale=0.1),
+             w_out=r(1, 1, c, 1, scale=c ** -0.5), b_out=r(1, scale=0.1))
+    return x, w
+
+
+def _final_plain(x, mask, w, f):
+    b, t, _, cin = x.shape
+    c = w["w1"].shape[-1]
+    return fused_resnet.final_block_plain(
+        x.reshape(b, t * f, cin), fused_resnet.lens_rows_from_mask(mask, f),
+        w["w1"].reshape(9 * cin, c), w["b1"], w["gn_scale"], w["gn_bias"],
+        w["w_out"].reshape(c), w["b_out"], f=f, groups=8).reshape(b, t, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [32, 64, 128])
+def test_fused_final_block_dims(dev, dim):
+    """K2 at decoder.dim 32, 64 and 128 (F = 80, a ragged last row tile,
+    one padded row): two C launches a call, equal bits on a second call;
+    dim 32 (C % 64 != 0) is not a width K2 takes and is refused on the
+    card (the estimator routes it to plain Blocks)."""
+    rng = np.random.default_rng(dim)
+    t, f = 21, 80
+    mask = _mask(dev, t, [21, 8, 21])
+    x, w = _final_inputs(rng, dev, 3, t, f, dim, dim)
+    if not fused_resnet.takes(dim, 8):
+        assert dim == 32
+        with pytest.raises(ValueError):
+            fused_resnet.fused_final_block(x, mask, **w, groups=8)
+        return
+    before = fused_resnet.fused_final_block.launches
+    got = fused_resnet.fused_final_block(x, mask, **w, groups=8)
+    assert fused_resnet.fused_final_block.launches == before + 1
+    assert torch.equal(got, fused_resnet.fused_final_block(x, mask, **w, groups=8))
+    assert not got[1, 8:].any()
+    _assert_close(got, _final_plain(x, mask, w, f), BF16_REL)
+
+
+@pytest.mark.cuda
+def test_fused_final_block_batches(dev):
+    """Calls of batch 1, 3 and 2 in turn (the tail's clusters split the rows
+    of each batch element), and a Cin % 8 != 0 input (kernel A's element
+    loads, whose row tiles the tail reduces the same way), each against the
+    plain version."""
+    rng = np.random.default_rng(7)
+    t, f = 16, 40
+    for b, cin in ((1, 128), (3, 128), (2, 2), (2, 128)):
+        mask = _mask(dev, t, [t, 5, 11][:b])
+        x, w = _final_inputs(rng, dev, b, t, f, cin, 128)
+        got = fused_resnet.fused_final_block(x, mask, **w, groups=8)
+        _assert_close(got, _final_plain(x, mask, w, f), BF16_REL)
+
+
+# sha-256 of the bf16 outputs of K1, K8 and K9 at fixed inputs, taken on an
+# NVIDIA H100 with the kernels as they were before K2's redesign, which
+# reads kernel A's tile sums in its tail and leaves kernel A as it was
+def _k1_k8_k9_outputs(dev):
+    rng = np.random.default_rng(2024)
+    out = {}
+    for name, (t, f, cin, cout) in (("K1", (24, 40, 128, 256)), ("K8", (14, 20, 256, 512)),
+                                    ("K9", (7, 10, 512, 512))):
+        mask = _mask(dev, t, [t, t - 5, t])
+        p = _block_params(rng, dev, cin, cout)
+        x = _rand(rng, dev, 3, t, f, cin).to(torch.bfloat16)
+        if name == "K1":
+            y = fused_resnet.fused_resnet_block(x, mask, **p, groups=8)
+        elif name == "K8":
+            y = fused_resnet_deep.fused_resnet_block_deep(x, mask, **p, groups=8)
+        else:
+            wq = (fused_resnet_deep.quant_w(p["w1"]), fused_resnet_deep.quant_w(p["w2"]))
+            y = fused_resnet_deep.fused_resnet_block_deep_i8(x, mask, **p, groups=8, wq=wq)
+        out[name] = y
+    return out
+
+
+def k1_k8_k9_digests(dev):
+    import hashlib
+
+    return {k: hashlib.sha256(v.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+            for k, v in _k1_k8_k9_outputs(dev).items()}
+
+
+K1_K8_K9_DIGESTS = {
+    "K1": "e39c80ba00ac74847e00a724ae122611ea239c8180ecb27bdb755a7d2fb8907f",
+    "K8": "7b3317e1228934f07c02b2d3deec58fa4b62c7888644814bf130617d415e57b7",
+    "K9": "defa4af16510367bd06f2763019d1ce7a8d24cd52e84a001e44214882950ef50",
+}
+
+
+@pytest.mark.cuda
+def test_k1_k8_k9_bits_unchanged(dev):
+    """K1, K8 and K9 give the bits they gave before K2's redesign."""
+    assert k1_k8_k9_digests(dev) == K1_K8_K9_DIGESTS
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_row_stats(dev, dtype):
     rng = np.random.default_rng(2)
     x = (_rand(rng, dev, 3, 300, 512) + 0.5).to(dtype)
     _assert_close(row_stats.row_stats(x), row_stats.row_stats_plain(x), 1e-4)
+
+
+# K3: its 8 served sites (chip_smoke.py K3_SITES), rows fewer than the
+# cluster's 8 ranks, C not a multiple of 128 or of 8, and the group widths
+# of decoder.dim 32 and 64 (cg 4-16). (n, C, groups)
+K3_CASES = [(1720, 512, 8), (430, 1024, 8), (430, 512, 8), (1720, 256, 8),
+            (1, 64, 8), (3, 512, 8), (7, 256, 8), (37, 320, 10), (45, 200, 25), (29, 54, 27),
+            (344, 32, 8), (172, 128, 8), (860, 64, 8), (86, 512, 8)]
+# the fold form's bound: var = E[x^2] - mean^2 cancels mean^2, here at most
+# a fifth of E[x^2] (inputs N(0.5, 1)), so var keeps the sums' relative
+# error within 1.25x and inv half of that; mean and inv within 2 x 1e-4
+FOLD_REL = 2e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,c,groups", K3_CASES)
+def test_row_stats_both_forms(dev, n, c, groups, dtype):
+    """K3 in both forms, one launch each: the sums against row_stats_plain,
+    the fold (where fold_takes) against the plain fold; two calls give
+    equal bits."""
+    rng = np.random.default_rng(n + c)
+    x = (_rand(rng, dev, 3, n, c) + 0.5).to(dtype)
+    before = row_stats.row_stats.launches
+    st = row_stats.row_stats(x)
+    assert row_stats.row_stats.launches == before + 1
+    assert torch.equal(st, row_stats.row_stats(x))
+    _assert_close(st, row_stats.row_stats_plain(x), 1e-4)
+    assert row_stats.fold_takes(c, groups)
+    before = row_stats.row_stats.launches
+    mean, inv = row_stats.group_mean_inv(x, groups)
+    assert row_stats.row_stats.launches == before + 1
+    again = row_stats.group_mean_inv(x, groups)
+    assert torch.equal(mean, again[0]) and torch.equal(inv, again[1])
+    want = row_stats.group_mean_inv_plain(x, groups, stats=row_stats.row_stats_plain)
+    _assert_close(torch.stack([mean, inv]), torch.stack(want), FOLD_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,groups", [(430, 384, 2), (77, 96, 8), (50, 2048, 8)])
+def test_group_mean_inv_straddling_groups(dev, n, c, groups):
+    """Groups that do not fit one cluster's slice (cg not dividing 128) take
+    K3's sums form, one launch, and the PyTorch fold."""
+    assert not row_stats.fold_takes(c, groups) and row_stats.takes(c, n)
+    x = (_rand(np.random.default_rng(c), dev, 2, n, c) + 0.5).to(torch.bfloat16)
+    before = row_stats.row_stats.launches
+    mean, inv = row_stats.group_mean_inv(x, groups)
+    assert row_stats.row_stats.launches == before + 1
+    want = row_stats.group_mean_inv_plain(x, groups, stats=row_stats.row_stats_plain)
+    _assert_close(torch.stack([mean, inv]), torch.stack(want), FOLD_REL)
+
+
+@pytest.mark.cuda
+def test_row_stats_refuses_what_it_does_not_take(dev):
+    """An odd C or no rows raise on the card (no plain fallback)."""
+    for shape in ((2, 10, 33), (2, 0, 64)):
+        x = torch.zeros(shape, device=dev)
+        with pytest.raises(ValueError):
+            row_stats.row_stats(x)
+        with pytest.raises(ValueError):
+            row_stats.group_mean_inv(x, 1)
 
 
 # K4: the five sites of one estimator call, ragged N (a 1-row last tile, a

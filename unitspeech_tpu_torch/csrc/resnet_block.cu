@@ -75,6 +75,17 @@
 // each weight stage by multicast (half the L2 weight reads; 2.0-2.5x
 // slower).
 //
+// The final block (K2) is two launches, as JAX's: kernel A as K1 runs it
+// (conv + bias -> c1 and per-tile column sums), then final_tail, a
+// programmatic dependent launch of one block an SM that sums the tile sums
+// itself (in a fixed order), folds the group statistics in its prologue
+// (as _kernel_d does), stages the per-channel affine and w_out, and reads
+// c1 (21 MB at the served shape, just written, so mostly from the 50 MB
+// L2) in 16-byte loads. No gn_finalize launch; kernel A is K1's own, so
+// K1, K8 and K9 run the code they ran. (A completion ticket in kernel A's
+// epilogue, its last block of each batch element reducing the tiles, cost
+// kernel A 11-15 us at the served shape: PERF.md.)
+//
 // Cin % 8 != 0 (the estimator's first block, Cin = 2: rows of 4 bytes
 // cannot be a TMA tensor) keeps the element-load implicit GEMM on mma.sync
 // (conv_gemm, common.cuh igemm_bf16, 128 x 64 tiles of whole rows) for
@@ -541,28 +552,170 @@ int elementwise_blocks(int B, int N, int C) {
   return (int)(blocks > 65535 ? 65535 : blocks);
 }
 
-// Kernel D: GN-apply + mish + mask, then the 1-channel 1x1 final_conv, one
-// warp per row; f32 score out.
-__global__ void __launch_bounds__(256) final_out(const bf16* c1, const float* mean,
-                                                 const float* inv, const float* scale,
-                                                 const float* shift, const bf16* wo, const float* bo,
-                                                 const int* lens, float* out, int B, int N,
-                                                 int C) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
-  if (row >= B * N) return;
-  const int b = row / N, m = row % N;
-  const float valid = m < lens[b] ? 1.f : 0.f;
-  const bf16* cr = c1 + (size_t)row * C;
-  float s = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    float h = (__bfloat162float(cr[c]) - mean[b * C + c]) * inv[b * C + c];
-    h = mish_f32(h * scale[c] + shift[c]) * valid;
-    s += bf16_round(h) * __bfloat162float(wo[c]);
-  }
+// --- the final block's tail (K2) ------------------------------------------
+
+// mish with JAX's one exp (_mish_f32 takes fast_exp), without a branch: the
+// exp and the reciprocal as the SFU's approximations (flush to zero), both
+// run for every x (volatile), so that the select for x > 20 stays a select
+// and the elements of a thread interleave (with `x > 20 ? x : ...` over
+// expf and a divide, the compiler put a branch around every element's
+// chain). e^min(x, 20): the factor is 1.0 in f32 from x = 20 on.
+US_DEV float mish_fast(float x) {
+  float e, r;
+  asm volatile("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(fminf(x, 20.0f) * 1.44269504f));
+  const float u = 1.0f + e, t = u * u;
+  asm volatile("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(t + 1.0f));
+  return x > 20.0f ? x : x * ((t - 1.0f) * r);
+}
+
+constexpr int TAIL_THREADS = 1024;  // one block an SM
+constexpr int TAIL_ROWS = 2;        // rows of a team in flight a round
+
+// One batch element's tile sums, part (n_tiles, 2, C), summed into sum
+// (2C) by the block: each (4-column piece, slice of consecutive tiles) in
+// tile order, 8 loads a round in flight (a ragged round adds zeros), then
+// the S = max(1, threads / (C / 2)) slices in order; red holds S * 2C
+// floats. The order depends on n_tiles, C and the block's threads alone.
+US_DEV void sum_tiles(const float* part, int n_tiles, int C, float* sum, float* red) {
+  const int tid = threadIdx.x, threads = blockDim.x, P = C / 2;
+  const int S = max(1, threads / P), per = (n_tiles + S - 1) / S;
+  const float4* src = reinterpret_cast<const float4*>(part);
+  float4* acc = reinterpret_cast<float4*>(red);
+  for (int i = tid; i < S * P; i += threads) {
+    const int pc = i % P, sl = i / P;
+    const int j1 = min(n_tiles, (sl + 1) * per);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = sl * per; j < j1; j += 8) {
+      float4 v[8];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) out[row] = (s + bo[0]) * valid;
+      for (int u = 0; u < 8; ++u)
+        v[u] = j + u < j1 ? src[(size_t)(j + u) * P + pc] : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) a.x += v[u].x, a.y += v[u].y, a.z += v[u].z, a.w += v[u].w;
+    }
+    acc[i] = a;
+  }
+  __syncthreads();
+  for (int pc = tid; pc < P; pc += threads) {
+    float4 t = acc[pc];
+    for (int sl = 1; sl < S; ++sl) {
+      const float4 v = acc[sl * P + pc];
+      t.x += v.x, t.y += v.y, t.z += v.z, t.w += v.w;
+    }
+    reinterpret_cast<float4*>(sum)[pc] = t;
+  }
+}
+
+// K2's tail (JAX's _kernel_d): GroupNorm-apply + mish + mask of c1, then
+// the 1-channel 1x1 final_conv, f32 out (B, N). A programmatic dependent
+// launch after kernel A, one block of TAIL_THREADS an SM: each block stages
+// scale, shift and w_out (rounded to bf16, as JAX casts it) before
+// griddep_wait, then sums batch element b's kernel-A tile sums (part (B,
+// n_tiles, 2, C); every block of b the same values in the same order, 220
+// KB at the served shape, from L2), folds each group's channels in order
+// and stages a = inv * scale and b = shift - mean * a per channel. Grid
+// (blocks, B): a block walks a run of rows of b, `tpr` threads a row (8
+// channels a thread per 16-byte load; tpr in {8, 16, 32} divides 32) and
+// TAIL_ROWS rows a team in flight, h = bf16(mish(c1 * a + b)) (0 at/after
+// the length) summed against w_out in the thread in channel order, then
+// across the row's threads by a butterfly of shuffles (a fixed order). The
+// 10.6 M elements at the served shape make it bound by operations (two SFU
+// operations and a conversion an element): mish_fast, h rounded to bf16
+// two at a time, and ONE (C / 8 == tpr: one 8-channel piece a thread) keeps
+// the thread's channel parameters in registers. (Clusters of 8 blocks that
+// shared the tile sums through distributed shared memory were slower:
+// PERF.md.) Dynamic shared memory: (5 + 2 S) C + 2 groups floats.
+template <bool ONE>
+__global__ void __launch_bounds__(TAIL_THREADS, 1)
+    final_tail(const bf16* c1, const float* part, int n_tiles, const float* scale,
+               const float* shift, const float* wo, const float* bo, const int* lens, float* out,
+               int N, int C, int groups, float eps, int tpr) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float *stats = sm, *s_a = sm + 2 * C, *s_b = sm + 3 * C, *s_wo = sm + 4 * C;
+  float* red = sm + 5 * C;  // sum_tiles' slices, then the groups' mean and inv
+  const int b = blockIdx.y, tid = threadIdx.x;
+  for (int c = tid; c < C; c += blockDim.x) {
+    s_a[c] = scale[c];
+    s_b[c] = shift[c];
+    s_wo[c] = bf16_round(wo[c]);
+  }
+  griddep_wait();  // kernel A has finished: c1 and part are written
+  sum_tiles(part + (size_t)b * n_tiles * 2 * C, n_tiles, C, stats, red);
+  __syncthreads();
+  const int cg = C / groups;
+  float* g_mi = red;  // [2][groups]
+  if (tid < groups) {
+    float s = 0.f, ss = 0.f;
+    for (int i = 0; i < cg; ++i) s += stats[tid * cg + i], ss += stats[C + tid * cg + i];
+    const float m = (float)((long long)N * cg);
+    const float mu = s / m;
+    g_mi[tid] = mu;
+    g_mi[groups + tid] = rsqrtf(ss / m - mu * mu + eps);
+  }
+  __syncthreads();
+  for (int c = tid; c < C; c += blockDim.x) {  // h = c1 * a + b
+    s_a[c] = g_mi[groups + c / cg] * s_a[c];
+    s_b[c] -= g_mi[c / cg] * s_a[c];
+  }
+  __syncthreads();
+  const int len = lens[b], pieces = C / 8, teams = blockDim.x / tpr;
+  const int team = tid / tpr, tl = tid % tpr;
+  const float b_out = bo[0];
+  float r_a[8], r_b[8], r_wo[8];  // ONE: this thread's channels
+  if (ONE) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      r_a[e] = s_a[tl * 8 + e];
+      r_b[e] = s_b[tl * 8 + e];
+      r_wo[e] = s_wo[tl * 8 + e];
+    }
+  }
+  // a block's rows are one run of them; rows at/after the length (h = 0)
+  // are neither read nor computed; whole warps run every round (the
+  // shuffles take every lane)
+  const int round = teams * TAIL_ROWS, chunk = (N + gridDim.x - 1) / gridDim.x;
+  const int m_end = min(N, (blockIdx.x + 1) * chunk);
+  for (int m0 = blockIdx.x * chunk; m0 < m_end; m0 += round) {
+    float y[TAIL_ROWS];
+    uint4 raw[TAIL_ROWS];
+#pragma unroll
+    for (int k = 0; k < TAIL_ROWS; ++k) y[k] = 0.f;
+    for (int pc = tl; pc < pieces; pc += tpr) {
+#pragma unroll
+      for (int k = 0; k < TAIL_ROWS; ++k) {
+        const int m = m0 + k * teams + team;
+        raw[k] = m < m_end && m < len
+                     ? *reinterpret_cast<const uint4*>(c1 + ((size_t)b * N + m) * C + pc * 8)
+                     : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int k = 0; k < TAIL_ROWS; ++k) {
+        if (m0 + k * teams + team >= len) continue;
+        const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&raw[k]);
+#pragma unroll
+        for (int e = 0; e < 8; e += 2) {
+          const float2 v = __bfloat1622float2(x2[e / 2]);
+          float h[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int c = pc * 8 + e + i;
+            h[i] = mish_fast(ONE ? fmaf(i ? v.y : v.x, r_a[e + i], r_b[e + i])
+                                 : fmaf(i ? v.y : v.x, s_a[c], s_b[c]));
+          }
+          const float2 hb = __bfloat1622float2(__floats2bfloat162_rn(h[0], h[1]));
+          y[k] += hb.x * (ONE ? r_wo[e] : s_wo[pc * 8 + e]);
+          y[k] += hb.y * (ONE ? r_wo[e + 1] : s_wo[pc * 8 + e + 1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < TAIL_ROWS; ++k) {
+      for (int off = tpr / 2; off > 0; off >>= 1) y[k] += __shfl_xor_sync(0xffffffffu, y[k], off);
+      const int m = m0 + k * teams + team;
+      if (m < m_end && tl == 0) out[(size_t)b * N + m] = m < len ? y[k] + b_out : 0.f;
+    }
+  }
 }
 
 ConvArgs base_args(const void* x, const void* w, const float* bias, const int* lens,
@@ -750,6 +903,36 @@ int us_resnet_conv3x3_i8(const void* x8, const void* w8, int BN, const float* sx
   return tc_launch(9, pl, x8, B, Cin, static_cast<cudaStream_t>(stream), true, true);
 }
 
+// K2, the final block: kernel A (conv3x3 + bias -> c1 (B, N, C) bf16 and
+// its tile sums into part (B, us_conv_n_tiles(N, F, Cin), 2, C); w as
+// us_resnet_conv3x3 takes it), then final_tail -> out (B, N) f32. Two
+// launches. C % 64 == 0, (C / groups) % 8 == 0 (fused_resnet.takes).
+int us_final_block(const void* x, const void* w, int BN, const float* bias, const int* lens,
+                   void* c1, float* part, const float* scale, const float* shift,
+                   const float* wo, const float* bo, float* out, int B, int N, int F, int Cin,
+                   int C, int groups, float eps, void* stream) {
+  if (C % 64 || C % groups || (C / groups) % 8) return (int)cudaErrorInvalidValue;
+  int err = us_resnet_conv3x3(x, w, BN, bias, lens, c1, part, B, N, F, Cin, C, 0, stream);
+  if (err) return err;
+  // one block an SM, split among the batch elements
+  const int tpr = C / 8 >= 32 ? 32 : C / 8 >= 16 ? 16 : 8;
+  const bool one = C / 8 == tpr;  // one 8-channel piece a thread
+  auto tail = one ? final_tail<true> : final_tail<false>;
+  const int smem = ((5 + 2 * std::max(1, TAIL_THREADS / (C / 2))) * C + 2 * groups) * 4;
+  static int smem_set[2] = {0, 0};  // the largest this process has allowed each
+  if (smem > smem_set[one]) {
+    cudaError_t e = cudaFuncSetAttribute(tail, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set[one] = smem;
+  }
+  const int rows = TAIL_THREADS / tpr * TAIL_ROWS;  // a block's rows a round
+  const int blocks = std::max(1, std::min(n_sms() / B, us_ceil_div(N, rows)));
+  return launch_pdl(tail, dim3(blocks, B), TAIL_THREADS, smem, static_cast<cudaStream_t>(stream),
+                    static_cast<const bf16*>(c1), static_cast<const float*>(part),
+                    us_conv_n_tiles(N, F, Cin), scale, shift, wo, bo, lens, out, N, C, groups,
+                    eps, tpr);
+}
+
 int us_gn_finalize(const float* part, int B, int n_tiles, int C, int groups, int n_rows,
                    float eps, float* mean, float* inv, int pdl, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -819,17 +1002,6 @@ int us_resnet_out_none(const void* c2, const float* mean, const float* inv, cons
   resnet_out_elementwise<false, float>
       <<<elementwise_blocks(B, N, C), 256, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const bf16*>(c2), nullptr, mean, inv, scale, shift, lens, out, B, N, C);
-  return (int)cudaGetLastError();
-}
-
-// Kernel D: final block's GN + mish + mask fused with final_conv.
-int us_final_out(const void* c1, const float* mean, const float* inv, const float* scale,
-                 const float* shift, const void* wo, const float* bo, const int* lens, float* out,
-                 int B, int N, int C, void* stream) {
-  int rows = B * N;
-  final_out<<<us_ceil_div(rows, 8), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(c1), mean, inv, scale, shift, static_cast<const bf16*>(wo), bo,
-      lens, out, B, N, C);
   return (int)cudaGetLastError();
 }
 

@@ -85,7 +85,6 @@ from unitspeech_tpu_torch.ops.row_stats import (
     group_mean_inv,
     row_absmax,
     row_absmax_plain,
-    row_stats,
     row_stats_plain,
 )
 
@@ -113,7 +112,9 @@ def fused_kernel_shape(f: int) -> bool:
 
 def _group_norm_lowmem(x, groups, scale, bias, stats, eps=1e-5):
     """GroupNorm keeping the activation in its dtype; f32 statistics over
-    all rows, padding included (unet.py _group_norm_lowmem)."""
+    all rows, padding included (unet.py _group_norm_lowmem). stats: None for
+    K3 (its fold form on the card), or the row statistics function of the
+    plain fold."""
     b, t, f, c = x.shape
     x2 = x.reshape(b, t * f, c)
     mean_f, inv_f = group_mean_inv(x2, groups, eps, stats=stats)
@@ -210,7 +211,7 @@ class ResnetBlock(nn.Module):
         level), which K9 reads."""
         b, t, f, cin = x.shape
         bias_t = self.mlp(mish(t_emb), dtype=dtype)
-        stats = row_stats if use_kernels else row_stats_plain
+        stats = None if use_kernels else row_stats_plain
         route = self.route(t, f, use_kernels, use_int8, use_deep, use_i8pre)
         if route == "flat":
             return self._flat(x, mask, bias_t, dtype, use_kernels, pre_masked, use_int8)
@@ -248,7 +249,7 @@ class ResnetBlock(nn.Module):
         accumulators; in int8 mode they are rounded to `dtype` after the
         bias add, where JAX rounds them (unet.py:270-283)."""
         b, t, f, cin = x.shape
-        stats = row_stats if use_kernels else row_stats_plain
+        stats = None if use_kernels else row_stats_plain
         absmax = row_absmax if use_kernels else row_absmax_plain
         n = t * f
         dout = bias_t.shape[-1]

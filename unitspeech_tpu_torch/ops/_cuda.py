@@ -41,9 +41,9 @@ _SIGNATURES = {
     "us_gn_finalize": ([_P, _I, _I, _I, _I, _I, _F, _P, _P, _I, _P], _I),
     "us_gn_film": ([_P, _I] + [_P] * 7 + [_I] * 4 + [_F, _P], _I),
     "us_resnet_out": ([_P] * 7 + [_I] + [_P] * 3 + [_I] * 5 + [_P], _I),
-    "us_final_out": ([_P] * 9 + [_I] * 3 + [_P], _I),
-    "us_row_stats_chunks": ([_I], _I),
-    "us_row_stats": ([_P, _I, _P, _P, _I, _I, _I, _P], _I),
+    "us_final_block": ([_P, _P, _I] + [_P] * 9 + [_I] * 6 + [_F, _P], _I),
+    "us_row_stats": ([_P, _I, _P, _I, _I, _I, _P], _I),
+    "us_group_mean_inv": ([_P, _I, _P, _P] + [_I] * 4 + [_F, _P], _I),
     "us_row_absmax": ([_P, _I, _P, _I, _I, _I, _P], _I),
     "us_rezero_attention": ([_P] * 12 + [_I] * 3 + [_P], _I),
     "us_attn_plan": ([_I, _I, _P], _I),

@@ -9,7 +9,9 @@ One ResnetBlock runs as three steps over (B, T*F, C) rows:
   C: GN2-apply + mish + mask + residual (1x1 conv or identity)
 
 and the final block as A followed by D: GN + mish + mask + the 1-channel
-1x1 final_conv, giving an f32 score. CUDA source: csrc/resnet_block.cu,
+1x1 final_conv, giving an f32 score (on the card two launches: D reduces
+A's tile statistics and folds the group statistics in its prologue).
+CUDA source: csrc/resnet_block.cu,
 which states what bounds the kernels and how they are laid out: on the card
 kernel B's input transform runs once per element (gn_film) and the convs
 run on a TMA + wgmma main loop whose weights are packed once
@@ -590,6 +592,10 @@ resnet_out.launches = 0
 
 
 def _final_block_cuda(x, lens, w1, b1, s1, be1, wo, bo, f, groups, packed=None):
+    """K2: two launches (csrc/resnet_block.cu us_final_block): kernel A, then
+    the tail (kernel A's tile sums reduced, the group fold, GroupNorm + mish
+    + mask and the 1-channel final conv) as a programmatic dependent
+    launch."""
     b, n, cin = x.shape
     cout = w1.shape[-1]
     _check_shapes("fused_final_block", x, cout, groups)
@@ -599,15 +605,19 @@ def _final_block_cuda(x, lens, w1, b1, s1, be1, wo, bo, f, groups, packed=None):
     if packed is None:
         packed = pack_conv_weight(w1.reshape(3, 3, cin, cout))
     w1, bn = _packed_operand(packed, "w1", 9, cin, cout, dev)
-    wo = _cuda.require(wo.to(dt).contiguous(), "w_out", shape=(cout,), device=dev)
+    # w_out in f32: the tail rounds it to bf16 as it stages it
+    wo = _cuda.require(_f32(wo), "w_out", shape=(cout,), device=dev)
     lib = _cuda.lib()
-    c1, mean, inv = _conv_stats(lib, x, w1, bn, _f32(b1), lens, f, groups)
+    part = torch.empty((b, lib.us_conv_n_tiles(n, f, cin), 2, cout), dtype=torch.float32,
+                       device=dev)
+    c1 = torch.empty((b, n, cout), dtype=dt, device=dev)
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
     _cuda.check(
-        lib.us_final_out(c1.data_ptr(), mean.data_ptr(), inv.data_ptr(), _f32(s1).data_ptr(),
-                         _f32(be1).data_ptr(), wo.data_ptr(), _f32(bo).data_ptr(),
-                         lens.data_ptr(), out.data_ptr(), b, n, cout, _cuda.stream(x)),
-        "final block output",
+        lib.us_final_block(x.data_ptr(), w1.data_ptr(), bn, _f32(b1).data_ptr(), lens.data_ptr(),
+                           c1.data_ptr(), part.data_ptr(), _f32(s1).data_ptr(),
+                           _f32(be1).data_ptr(), wo.data_ptr(), _f32(bo).data_ptr(),
+                           out.data_ptr(), b, n, f, cin, cout, groups, GN_EPS, _cuda.stream(x)),
+        "fused_final_block",
     )
     return out
 

@@ -3,9 +3,13 @@ counterpart of unitspeech_tpu/ops/pallas_stats.py `row_stats` and
 `group_mean_inv`) and the abs-max for the int8 activation scale (kernel K7;
 counterpart of `row_absmax`).
 
-CUDA source: csrc/row_stats.cu, which also states what bounds the kernels
-and how they are laid out. The custom VJP of the JAX row_stats waits for
-the training slice.
+K3 is one launch in either of two forms: the sums (`row_stats`, (B, 2, C))
+or, for `group_mean_inv` on the card, the group fold in the same launch
+(per-channel mean and inv_std), where each group lies in one cluster's
+slice of channels (`fold_takes`); elsewhere `group_mean_inv` folds the
+sums in PyTorch. CUDA source: csrc/row_stats.cu, which also states what
+bounds the kernels and how they are laid out. The custom VJP of the JAX
+row_stats waits for the training slice.
 """
 
 from __future__ import annotations
@@ -22,29 +26,65 @@ def row_stats_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([xf.sum(dim=1), (xf * xf).sum(dim=1)], dim=1)
 
 
-def _row_stats_cuda(x: torch.Tensor) -> torch.Tensor:
+# The channels of one cluster's slice in K3 (csrc/row_stats.cu RS_CPB): the
+# fold form needs every group inside one slice
+SLICE_CHANNELS = 128
+
+
+def takes(c: int, n: int) -> bool:
+    """The widths K3 takes on the card, in both forms: any even C (C % 8 ==
+    0 in 16-byte loads, other C in channel pairs) and any n >= 1."""
+    return c % 2 == 0 and n >= 1
+
+
+def fold_takes(c: int, groups: int) -> bool:
+    """Where K3's fold form takes a GroupNorm of `groups` groups over C
+    channels: the widths K3 takes, and groups of cg = C / groups channels
+    that never straddle two slices (cg divides SLICE_CHANNELS)."""
+    return (takes(c, 1) and groups >= 1 and c % groups == 0
+            and SLICE_CHANNELS % (c // groups) == 0)
+
+
+def _check(x: torch.Tensor, what: str):
     if x.dim() != 3 or x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"row_stats: expected (B, n, C) bf16/f32, got {x.dtype} {tuple(x.shape)}")
+        raise ValueError(f"{what}: expected (B, n, C) bf16/f32, got {x.dtype} {tuple(x.shape)}")
     b, n, c = x.shape
-    if c % 2:
-        raise ValueError(f"row_stats: channel count {c} must be even")
-    _cuda.require(x, "row_stats x")
-    lib = _cuda.lib()
-    chunks = lib.us_row_stats_chunks(n)
-    part = torch.empty((b, chunks, 2, c), dtype=torch.float32, device=x.device)
+    if not takes(c, n):
+        raise ValueError(f"{what}: C={c} must be even and n={n} at least 1")
+    _cuda.require(x, f"{what} x")
+    return b, n, c
+
+
+def _row_stats_cuda(x: torch.Tensor) -> torch.Tensor:
+    b, n, c = _check(x, "row_stats")
     out = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
     _cuda.check(
-        lib.us_row_stats(x.data_ptr(), int(x.dtype == torch.bfloat16), part.data_ptr(),
-                         out.data_ptr(), b, n, c, _cuda.stream(x)),
+        _cuda.lib().us_row_stats(x.data_ptr(), int(x.dtype == torch.bfloat16), out.data_ptr(),
+                                 b, n, c, _cuda.stream(x)),
         "row_stats",
     )
     row_stats.launches += 1
     return out
 
 
+def _group_mean_inv_cuda(x: torch.Tensor, groups: int, eps: float):
+    """K3's fold form: one launch, (mean, inv) each (B, C) f32. Counted
+    with row_stats: it is the same kernel."""
+    b, n, c = _check(x, "group_mean_inv")
+    out = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    _cuda.check(
+        _cuda.lib().us_group_mean_inv(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                                      out[0].data_ptr(), out[1].data_ptr(), b, n, c, groups,
+                                      eps, _cuda.stream(x)),
+        "group_mean_inv",
+    )
+    row_stats.launches += 1
+    return out[0], out[1]
+
+
 def row_stats(x: torch.Tensor) -> torch.Tensor:
     """Per-channel row statistics, (B, n, C) -> (B, 2, C) f32. CUDA tensors
-    launch the kernel, CPU tensors take row_stats_plain."""
+    launch the kernel (widths: `takes`), CPU tensors take row_stats_plain."""
     if _cuda.route(x, "row_stats"):
         return _row_stats_cuda(x)
     return row_stats_plain(x)
@@ -88,10 +128,12 @@ def row_absmax(x: torch.Tensor) -> torch.Tensor:
 row_absmax.launches = 0
 
 
-def group_mean_inv(x2: torch.Tensor, groups: int, eps: float = 1e-5, stats=row_stats):
-    """GroupNorm statistics of a row-flattened activation x2 (B, n, C):
-    per-channel f32 (mean, inv_std), each (B, C), constant within a group.
-    They pool over ALL rows, padding included (torch GroupNorm)."""
+def group_mean_inv_plain(x2: torch.Tensor, groups: int, eps: float = 1e-5,
+                         stats=row_stats_plain):
+    """The fold's plain version: GroupNorm statistics of a row-flattened
+    activation x2 (B, n, C) from its row statistics `stats(x2)`: per-channel
+    f32 (mean, inv_std), each (B, C), constant within a group. They pool
+    over ALL rows, padding included (torch GroupNorm)."""
     b, n, c = x2.shape
     cg = c // groups
     st = stats(x2)
@@ -100,3 +142,17 @@ def group_mean_inv(x2: torch.Tensor, groups: int, eps: float = 1e-5, stats=row_s
     var_g = st[:, 1].reshape(b, groups, cg).sum(-1) / m - mean_g * mean_g
     inv_g = torch.rsqrt(var_g + eps)
     return mean_g.repeat_interleave(cg, dim=1), inv_g.repeat_interleave(cg, dim=1)
+
+
+def group_mean_inv(x2: torch.Tensor, groups: int, eps: float = 1e-5, stats=None):
+    """GroupNorm statistics of a row-flattened activation x2 (B, n, C):
+    per-channel f32 (mean, inv_std), each (B, C), constant within a group,
+    pooled over ALL rows, padding included (torch GroupNorm). A CUDA tensor
+    with no `stats` given launches K3's fold form where `fold_takes`, else
+    K3's sums and the plain fold; a CPU tensor, or a `stats` function
+    passed in, takes group_mean_inv_plain over `stats` (row_stats when
+    none)."""
+    c = x2.shape[-1]
+    if stats is None and _cuda.route(x2, "group_mean_inv") and fold_takes(c, groups):
+        return _group_mean_inv_cuda(x2, groups, eps)
+    return group_mean_inv_plain(x2, groups, eps, row_stats if stats is None else stats)

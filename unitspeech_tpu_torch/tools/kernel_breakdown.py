@@ -1,13 +1,15 @@
 """Per-launch device time inside the rezero attention (K4), the int8 deep
-ResnetBlock (K9) and the row abs-max (K7) at the sites one estimator call
-at the 344-frame bucket runs them (3 rows, lengths 344/301/344), and
-inside the anti-aliased snake kernels (K5 at its 24 sites of one vocoder
-call at that bucket, K6 at its one): each wrapper call may run several
-kernels (and small PyTorch launches around them), and this shows which of
-them takes the time.
+ResnetBlock (K9), the row abs-max (K7), the GroupNorm row statistics (K3:
+the `row_stats` form and the served `group_mean_inv` call, at its 8 sites
+in bf16 and f32) and the final block (K2: its conv, then its tail) at the
+sites one estimator call at the 344-frame bucket runs them (3 rows,
+lengths 344/301/344), and inside the anti-aliased snake kernels (K5 at its
+24 sites of one vocoder call at that bucket, K6 at its one): each wrapper
+call may run several kernels (and small PyTorch launches around them), and
+this shows which of them takes the time.
 
     python -m unitspeech_tpu_torch.tools.kernel_breakdown [--reps 20] [--out FILE]
-        [--kernels K4 K9 K7 K5 K6]
+        [--kernels K4 K9 K7 K5 K6 K3 K2]
 
 Each site's wrapper runs `reps` times under torch.profiler after a warm-up;
 a kernel's time is its device time summed over the window divided by
@@ -25,12 +27,15 @@ import argparse
 import json
 import os
 import re
+import time
 
 import torch
 
 from unitspeech_tpu_torch.tools import device_line, median_ms, resolve_device
 
 FRAMES, PADDED = 344, 301
+# seconds of idle device between the trace's edges and the profiled calls
+EDGE_S = 0.02
 # (N, C): the five attention sites of one estimator call
 K4_SITES = [(27520, 128), (6880, 256), (6880, 128), (1720, 512), (1720, 256)]
 # (F, T, Cin, Cout): the deep blocks with Cout <= 512 (K9 on --deep --i8pre)
@@ -48,6 +53,20 @@ VOC_STAGES = [(2752, 256), (22016, 128), (44032, 64), (88064, 32)]
 K5_SITES = [(t, c, k, d, res, 3 if res else 1) for t, c in VOC_STAGES for k in (3, 7, 11)
             for d, res in ((1, False), (3, False), (5, False), (1, True))]
 K6_SITE = (88064, 32)
+# (rows, C, input dtype, launches per estimator call on the serving default
+# (int8), with --no-int8 (bf16) and on each fused deep path): the GroupNorm
+# statistics of the flat deep blocks, on their conv outputs (rounded to
+# bf16 in int8 mode; f32 accumulators with --no-int8) and on the bf16
+# output of the one deep block that runs as plain Blocks (up_1_res2, on
+# every path; the fused deep paths have no flat block at this bucket)
+K3_SITES = [(1720, 512, "bfloat16", 4, 0, 0), (430, 1024, "bfloat16", 8, 0, 0),
+            (430, 512, "bfloat16", 4, 0, 0), (1720, 256, "bfloat16", 4, 2, 2),
+            (1720, 512, "float32", 0, 4, 0), (430, 1024, "float32", 0, 8, 0),
+            (430, 512, "float32", 0, 4, 0), (1720, 256, "float32", 0, 2, 0)]
+K3_GROUPS = 8
+# (F, T, C): the estimator's final block, C -> C conv3x3 + GroupNorm + mish
+# and the 1-channel final conv, once per estimator call
+K2_SITE = (80, 344, 128)
 
 
 def short_name(name: str) -> str:
@@ -72,7 +91,10 @@ def short_name(name: str) -> str:
 def launch_times(fn, reps: int) -> list[dict]:
     """[{name, launches, ms}] per call of fn: each kernel's device time
     and launches over `reps` profiled calls, divided by `reps`, in the
-    order the kernels first ran."""
+    order the kernels first ran. The calls run EDGE_S after the trace
+    starts and end EDGE_S before it stops: a kernel right at either edge
+    may be left out of the trace (one call in 20, up to five, on the H100),
+    which would show as a fraction of a launch per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -80,9 +102,11 @@ def launch_times(fn, reps: int) -> list[dict]:
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(EDGE_S)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(EDGE_S)
     rows: dict[str, dict] = {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -210,18 +234,60 @@ def k6_calls(dev, seed=0):
     return [(f"T={t} C={c}", lambda: aa_snake.fused_aa_snake(x, alpha, beta, packed=packed), 1)]
 
 
-CALLS = {"K4": k4_calls, "K9": k9_calls, "K7": k7_calls, "K5": k5_calls, "K6": k6_calls}
+def k3_calls(dev, seed=0):
+    """[(site, wrapper call, {path: launches per estimator call})] at
+    K3_SITES, each site twice: the `row_stats` form (weight 0 on every path)
+    and the served call, `group_mean_inv` over K3_GROUPS groups; rows N(0.5,
+    1) from `seed`."""
+    from unitspeech_tpu_torch.ops import row_stats
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    out = []
+    for n, c, dt, i8, bf, deep in K3_SITES:
+        x = (torch.randn(3, n, c, generator=g) + 0.5).to(dev, getattr(torch, dt))
+        site = f"n={n} C={c} {dt}"
+        out.append((f"{site} row_stats", lambda x=x: row_stats.row_stats(x), {}))
+        out.append((f"{site} group_mean_inv",
+                    lambda x=x: row_stats.group_mean_inv(x, K3_GROUPS),
+                    {"int8": i8, "bf16": bf, "deep": deep}))
+    return out
+
+
+def k2_calls(dev, seed=0):
+    """[(site, wrapper call, 1)] at K2_SITE, the conv weights packed once as
+    at load, inputs from `seed`."""
+    from unitspeech_tpu_torch.ops import fused_resnet
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    f, t, c = K2_SITE
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(dev)  # noqa: E731
+    x = r(3, t, f, c).to(torch.bfloat16)
+    w1, b1 = r(3, 3, c, c, scale=(9 * c) ** -0.5), r(c, scale=0.1)
+    s1, be1 = 1 + r(c, scale=0.1), r(c, scale=0.1)
+    wo, bo = r(1, 1, c, 1, scale=c ** -0.5), r(1, scale=0.1)
+    mask = _lens_mask(t, dev)
+    packed = fused_resnet.pack_conv_weight(w1)
+    return [(f"F={f} T={t} {c}->1",
+             lambda: fused_resnet.fused_final_block(x, mask, w1, b1, s1, be1, wo, bo, groups=8,
+                                                    packed=packed), 1)]
+
+
+CALLS = {"K4": k4_calls, "K9": k9_calls, "K7": k7_calls, "K5": k5_calls, "K6": k6_calls,
+         "K3": k3_calls, "K2": k2_calls}
+# the paths whose estimator call K3's sums are taken on
+K3_PATHS = ("int8", "bf16", "deep")
 
 
 def breakdown(dev, reps: int = 20, kernels=tuple(CALLS)) -> dict:
     """{kernel: [{site, ms (the wrapper under CUDA events), per_call,
     launches: [{name, launches, ms}]}]} for each of `kernels`; prints one
-    line a site, and for K5, K6 and K7 the sums a call of the estimator
-    (K7) or vocoder (K5, K6) makes, by launch name, weighted by each site's
-    launches per call (K5 also by stage), and `chain_ms`: that call's
-    wrapper calls back to back, each site as often as the call makes it,
-    under one pair of events. `floor_ms`: one empty kernel under the same
-    timing (the least a single timed call can show)."""
+    line a site, and for K5, K6, K7 and K3 the sums a call of the estimator
+    (K7; K3 on each of K3_PATHS) or vocoder (K5, K6) makes, by launch name,
+    weighted by each site's launches per call (K5 also by stage), and
+    `chain_ms`: that call's wrapper calls back to back, each site as often
+    as the call makes it, under one pair of events. `floor_ms`: one empty
+    kernel under the same timing (the least a single timed call can
+    show)."""
     floor = median_ms(lambda: torch.cuda._sleep(1), dev)
     print(f"  one empty kernel: {floor:.4f} ms (CUDA events behind the spin)", flush=True)
     result = {"floor_ms": floor, "chain_ms": {}}
@@ -235,44 +301,58 @@ def breakdown(dev, reps: int = 20, kernels=tuple(CALLS)) -> dict:
                   "(profiler): " + "; ".join(f"{r['name']} x{r['launches']:g} {r['ms']:.4f} ms"
                                               for r in rec["launches"]), flush=True)
             result[kernel].append(rec)
-        if kernel in ("K5", "K6", "K7"):
-            _summary(kernel, result[kernel])
+        if kernel in ("K5", "K6", "K7", "K3"):
+            for path in K3_PATHS if kernel == "K3" else (None,):
+                weighted = [(fn, _weight(per_call[0], path)) for _, fn, *per_call in calls]
+                _summary(kernel, result[kernel], path)
 
-            def chain(calls=calls):
-                for _, fn, n in calls:
-                    for _ in range(n):
-                        fn()
+                def chain(weighted=weighted):
+                    for fn, n in weighted:
+                        for _ in range(n):
+                            fn()
 
-            ms = result["chain_ms"][kernel] = median_ms(chain, dev, reps=10)
-            print(f"  {kernel} a call's {sum(n for *_, n in calls)} wrapper calls back to back: "
-                  f"{ms:.4f} ms (CUDA events)", flush=True)
+                ms = median_ms(chain, dev, reps=10)
+                key = kernel if path is None else f"{kernel} {path}"
+                result["chain_ms"][key] = ms
+                print(f"  {key} a call's {sum(n for _, n in weighted)} wrapper calls back to "
+                      f"back: {ms:.4f} ms (CUDA events)", flush=True)
     return result
 
 
-def _summary(kernel, recs):
-    """Print the per-call sums of one kernel's sites (K5 also per stage)."""
-    groups = {"all": recs}
+def _weight(per_call, path):
+    """A site's launches per call: an int, or (K3) {path: launches}."""
+    return per_call.get(path, 0) if isinstance(per_call, dict) else per_call
+
+
+def _summary(kernel, recs, path=None):
+    """Print the per-call sums of one kernel's sites (K5 also per stage; K3
+    on `path`)."""
+    groups = {"all" if path is None else f"{path} path": recs}
     if kernel == "K5":
         for t, c in VOC_STAGES:
             groups[f"T={t} C={c}"] = [r for r in recs if r["site"].startswith(f"T={t} ")]
     for what, rs in groups.items():
         names: dict = {}
         for r in rs:
+            w = _weight(r["per_call"], path)
             for ln in r["launches"]:
                 e = names.setdefault(ln["name"], [0.0, 0.0])
-                e[0] += ln["launches"] * r["per_call"]
-                e[1] += ln["ms"] * r["per_call"]
-        wrapper = sum(r["ms"] * r["per_call"] for r in rs)
+                e[0] += ln["launches"] * w
+                e[1] += ln["ms"] * w
+        wrapper = sum(r["ms"] * _weight(r["per_call"], path) for r in rs)
         print(f"  {kernel} {what}, a call: wrapper {wrapper:.4f} ms over "
-              f"{sum(r['per_call'] for r in rs)} calls; launches: " +
-              "; ".join(f"{n} x{v[0]:g} {v[1]:.4f} ms" for n, v in names.items()), flush=True)
+              f"{sum(_weight(r['per_call'], path) for r in rs)} calls; launches: " +
+              "; ".join(f"{n} x{v[0]:g} {v[1]:.4f} ms" for n, v in names.items() if v[0]),
+              flush=True)
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser("kernel_breakdown")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=None, help="also write the result here (JSON)")
-    ap.add_argument("--kernels", nargs="+", choices=tuple(CALLS), default=tuple(CALLS))
+    ap.add_argument("--kernels", nargs="+", choices=tuple(CALLS), default=tuple(CALLS),
+                    help="the kernels to break down: K4, K9, K7, K5, K6, K3 (both forms), K2 "
+                         "(default: all)")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     print(device_line(dev), flush=True)
