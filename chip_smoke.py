@@ -18,7 +18,12 @@ launches inside K4, K9, K7, K5, K6, K3 and K2 are timed one by one
 K2's two). Then check what
 comes out: each kernel path against the plain path, the int8 gates and the
 kernel vocoder, each run with the exact kernel launches its path makes.
-Last, the paths of the kernels that no request runs, the port's four tools
+Then the adapt path: `cli finetune` at full width on the card (a synthetic
+6 s reference with sidecar units and speaker embedding, no kernel launched:
+the fine-tune trains the plain estimator), the adapted decoder served
+through `cli inference --decoder` on the serving defaults and on the plain
+path, its mels held to the same bounds, and its packed kernel weights equal
+to a fresh pack of the adapted weights. Last, the paths of the kernels that no request runs, the port's four tools
 at full size (unitspeech_tpu_torch/tools): the kernel benchmark with
 --int8 --deep (the in-kernel int8 blocks K10a, K10b), the transcendental
 microbenchmark (P1), the stride probe (P2) and the compile bisection's 14
@@ -835,7 +840,7 @@ def serve(torch, tmp, per_call):
     return ckpt, {"default": default, "deep_i8": deep}
 
 
-def compare_paths(torch, dev, ckpt_path, per_call):
+def compare_paths(torch, dev, ckpt_path, per_call, runs=RUNS, vocoder=True, what=""):
     """The forced 344-frame request on the card with the same injected
     noise, six ways: the bf16 kernel path and the fused deep bf16 path
     (K8, K11) against the plain bf16 path (their mels must agree within
@@ -846,26 +851,30 @@ def compare_paths(torch, dev, ckpt_path, per_call):
     kernels (bf16) vs plain bf16 vs plain f32, the kernels held to
     VOC_RATIO x the plain bf16 vocoder's waveform L1. Each run's kernel
     launches must be exactly what its path makes at this bucket (the
-    per-call counts of the site checks), and none on a plain path. Returns
-    the measured distances."""
+    per-call counts of the site checks), and none on a plain path. `runs`
+    keeps some of RUNS (each comparison runs where both its sides are
+    there), `vocoder` False skips the vocoder's, `what` names the weights
+    in the printout; ckpt_path may be a checkpoint dict. Returns the
+    measured distances."""
     from unitspeech_tpu_torch.infer.tts import Synthesizer, TTSModels, forced_durations
     from unitspeech_tpu_torch.text import phonemes_to_sequence
+    from unitspeech_tpu_torch.utils.artifacts import read
     from unitspeech_tpu_torch.utils.params import build_modules, config_from_dict
 
-    ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    ckpt = read(ckpt_path)
     ids = phonemes_to_sequence(FORCED_TEXT)
     g = torch.Generator(device=dev).manual_seed(1234)
     n_feats = ckpt["mel_min"].numel()
     noise_z = torch.randn((1, FRAMES, n_feats), generator=g, device=dev)
     noises = torch.randn((50, 1, FRAMES, n_feats), generator=g, device=dev)
     mels = {}
-    for name, path, dtype, kernels, routes in RUNS:
+    for name, path, dtype, kernels, routes in runs:
         synth = Synthesizer(TTSModels.from_checkpoint(
             ckpt, device=dev, dtype=getattr(torch, dtype), use_kernels=kernels,
             with_vocoder=False, **routes))
         want = {k: STEPS * per_call[path][k] if kernels and k in ESTIMATOR_KERNELS else 0
                 for k in KERNELS}
-        mel, y_len, _ = _counted(name, lambda: synth.synthesize_mel(
+        mel, y_len, _ = _counted(what + name, lambda: synth.synthesize_mel(
             ids, diffusion_steps=STEPS, text_gradient_scale=1.0, spk_gradient_scale=1.0,
             durations=forced_durations(len(ids), FRAMES), noise_z=noise_z, noises=noises),
             want)
@@ -881,25 +890,27 @@ def compare_paths(torch, dev, ckpt_path, per_call):
         return d.mean().item() / span, d.max().item() / span
 
     out = {}
-    for a in ("kernels", "deep"):
+    for a in [a for a in ("kernels", "deep") if a in mels]:
         l1, mx = dist(a, "plain")
-        print(f"{a} path vs plain path (bf16), forced {FRAMES} frames: mel L1 {l1:.3e}, "
+        print(f"{what}{a} path vs plain path (bf16), forced {FRAMES} frames: mel L1 {l1:.3e}, "
               f"max |diff| {mx:.3e} of the mel's dynamic range {span:.1f} "
               f"(bounds {MEL_L1_BOUND:.0e}, {MEL_MAX_BOUND:.0e})", flush=True)
         if not (l1 <= MEL_L1_BOUND and mx <= MEL_MAX_BOUND):
             raise AssertionError(f"{a} path mel differs from the plain path: L1 {l1}, max {mx}")
         out[f"{a}_mel_l1"], out[f"{a}_mel_max"] = l1, mx
-    for a in ("kernels", "int8", "deep", "deep_i8", "plain"):
+    for a in [a for a in ("kernels", "int8", "deep", "deep_i8", "plain") if a in mels]:
         out[f"{a}_vs_f32_l1"] = dist(a, "plain_f32")[0]
         print(f"  {a} vs plain f32: mel L1 %.3e, max |diff| %.3e" % dist(a, "plain_f32"),
               flush=True)
-    for i8, bf in (("int8", "kernels"), ("deep_i8", "deep")):
+    for i8, bf in [p for p in (("int8", "kernels"), ("deep_i8", "deep")) if p[0] in mels]:
         ratio = out[f"{i8}_vs_f32_l1"] / out[f"{bf}_vs_f32_l1"]
-        print(f"int8 gate: {i8} path / {bf} path mel L1 vs plain f32 = {ratio:.4f} "
+        print(f"{what}int8 gate: {i8} path / {bf} path mel L1 vs plain f32 = {ratio:.4f} "
               f"(bound {INT8_GATE_RATIO})", flush=True)
         if not ratio <= INT8_GATE_RATIO:
             raise AssertionError(f"int8 gate failed ({i8}): ratio {ratio} > {INT8_GATE_RATIO}")
         out[f"{i8}_gate_ratio"] = ratio
+    if not vocoder:
+        return out
 
     cfg = config_from_dict(ckpt["config"])
     mel = mels["plain_f32"]
@@ -927,6 +938,111 @@ def compare_paths(torch, dev, ckpt_path, per_call):
         raise AssertionError(f"kernel vocoder waveform L1 {wl1['kernels']} > {VOC_RATIO} x "
                              f"{wl1['plain']}")
     return {**out, "voc_wave_l1": wl1, "voc_ms": times}
+
+
+# The adapt path (cli finetune, then the adapted decoder served): ADAPT_ITERS
+# fine-tune steps at full width in bf16 on a synthetic 6 s reference, at the
+# reference's learning rate (2e-5; at 1e-3 the random-weight decoder
+# diverged to NaN within 10 steps, rezero gates of 0.001 moving by 0.001 a
+# step), about 140 ms a step on the card
+ADAPT_ITERS, ADAPT_SECONDS = 200, 6.0
+# the served comparisons of the adapted decoder: the bf16 kernel path and
+# the int8 default against the plain paths, as compare_paths holds them
+ADAPT_RUNS = [r for r in RUNS if r[0] in ("kernels", "int8", "plain", "plain_f32")]
+
+
+def adapt(torch, dev, tmp, ckpt_path, per_call, smi):
+    """The adapt path: `cli finetune --device cuda` at full width (bf16,
+    segment 176) from the random checkpoint's decoder and unit encoder on a
+    synthetic 22.05 kHz reference with sidecar units and speaker embedding,
+    which must launch no kernel (the fine-tune trains the plain estimator)
+    and give finite losses; then the adapted decoder served through `cli
+    inference --checkpoint <random> --decoder <adapted>` on one forced
+    344-frame request with the serving defaults (exactly the launches of one
+    estimator call per step and one vocoder call at this bucket) and one
+    with --no-fast-kernels (none); its mels on the kernel paths against the
+    plain paths with compare_paths' bounds; and the served estimator's
+    packed buffers equal to a fresh pack of the adapted weights bit for bit,
+    each different from the base weights' pack. Returns the fine-tune's
+    statistics, the distances and the served launches."""
+    import argparse
+
+    from unitspeech_tpu_torch import cli
+    from unitspeech_tpu_torch.models.diffusion import UnitSpeech
+    from unitspeech_tpu_torch.tools import synthetic_reference
+    from unitspeech_tpu_torch.utils import artifacts
+    from unitspeech_tpu_torch.utils.params import config_from_dict
+
+    ckpt = artifacts.read(ckpt_path)
+    cfg = config_from_dict(ckpt["config"])
+    flags = synthetic_reference(tmp, cfg, ADAPT_SECONDS, seed=10)
+    print(f"adapt: cli finetune --device cuda, {ADAPT_ITERS} iterations, lr "
+          f"{cfg.finetune.learning_rate}, bf16, segment {cfg.out_size} frames, {ADAPT_SECONDS} s "
+          "synthetic reference", flush=True)
+    stats = _counted("adapt fine-tune", lambda: cli.main_finetune(
+        flags + ["--decoder", ckpt_path, "--unit-encoder", ckpt_path, "--output-dir",
+                 os.path.join(tmp, "adapted"), "--n-iters", str(ADAPT_ITERS), "--seed", "0",
+                 "--device", "cuda"]),
+        {k: 0 for k in KERNELS})
+    losses = np.asarray(stats["losses"])
+    print("  losses: " + " ".join(f"{x:.4f}" for x in losses), flush=True)
+    print(f"  {stats['ms_per_step']:.3f} ms per step ({stats['seconds']:.2f} s for "
+          f"{ADAPT_ITERS}), loss {stats['loss_first10']:.4f} -> {stats['loss_last10']:.4f}; "
+          f"{smi}", flush=True)
+    if losses.shape != (ADAPT_ITERS,) or not np.isfinite(losses).all():
+        raise AssertionError(f"fine-tune losses not all finite: {losses}")
+
+    served_launches = {}
+    for name, extra, want in (
+            ("kernels", [], {k: STEPS * per_call["int8"][k] if k in ESTIMATOR_KERNELS
+                             else per_call["int8"][k] if k in VOCODER_KERNELS else 0
+                             for k in KERNELS}),
+            ("plain", ["--no-fast-kernels"], {k: 0 for k in KERNELS})):
+        out = os.path.join(tmp, f"adapted_{name}.wav")
+        res = _counted(f"adapted decoder, {name}", lambda: cli.main_inference(
+            ["--ipa", "--text", FORCED_TEXT, "--checkpoint", ckpt_path, "--decoder",
+             stats["output"], "--output", out, "--device", "cuda", "--seed", "0",
+             "--diffusion-steps", str(STEPS), "--text-gradient-scale", "1.0",
+             "--spk-gradient-scale", "1.0", "--frames", str(FRAMES), *extra]), want)
+        with wave.open(out, "rb") as w:
+            n = w.getnframes()
+            pcm = np.frombuffer(w.readframes(n), np.int16)
+        if n != FRAMES * cfg.data.hop_length or not np.any(pcm):
+            raise AssertionError(f"adapted {name} request: {n} samples")
+        print(f"  adapted decoder served ({name}): wall {res['wall_s']:.3f} s, "
+              f"RTF {res['rtf']:.4f}", flush=True)
+        served_launches[name] = want
+
+    bundle = artifacts.load_decoder_bundle(stats["output"], cfg.decoder)
+    paths = compare_paths(torch, dev, dict(ckpt, decoder=bundle.state_dict,
+                                           spk_emb=bundle.spk_emb),
+                          per_call, runs=ADAPT_RUNS, vocoder=False, what="adapted ")
+
+    # the decoder as `cli inference --checkpoint ... --decoder ...` loads it
+    args = argparse.Namespace(checkpoint=ckpt_path, decoder=stats["output"], text_encoder=None,
+                              duration_predictor=None, vocoder=None, spk_emb=None, config=None)
+    routes = dict(use_kernels=True, use_int8_deep=True, use_deep=False, use_resample=False,
+                  use_i8pre_deep=False)
+    served = cli._load_tts_models(args, dev, torch.bfloat16, routes)
+    with dev:
+        fresh = UnitSpeech.from_config(cfg.decoder, dtype=torch.bfloat16, use_kernels=True,
+                                       use_int8_deep=True)
+    fresh.load_state_dict(ckpt["decoder"])
+    base = {k: v.clone() for k, v in fresh.estimator.packed_tensors().items()}
+    fresh.load_state_dict(bundle.state_dict)
+    got, ref = served.decoder.estimator.packed_tensors(), fresh.estimator.packed_tensors()
+    stale = sorted(k for k in ref if torch.equal(ref[k], base[k]))
+    wrong = sorted(k for k in ref if k not in got or not torch.equal(got[k], ref[k]))
+    print(f"  packed buffers of the served estimator: {len(got)}, equal to a fresh pack of "
+          f"the adapted weights: {len(ref) - len(wrong)}, equal to the base weights' pack: "
+          f"{len(stale)}", flush=True)
+    if len(got) != len(ref) or wrong or stale or len(ref) < 100:
+        raise AssertionError(f"packs: {len(got)} served, {len(ref)} fresh, differing {wrong}, "
+                             f"equal to the base weights' {stale}")
+    del served, fresh
+    torch.cuda.empty_cache()
+    return {"finetune": {k: v for k, v in stats.items() if k != "losses"},
+            "losses": losses.tolist(), "paths": paths, "packs": len(got)}, served_launches
 
 
 def run_tools():
@@ -1046,6 +1162,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, launches = serve(torch, tmp, per_call)
         paths = compare_paths(torch, dev, ckpt, per_call)
+        adapted, adapted_launches = adapt(torch, dev, tmp, ckpt, per_call, smi)
+    launches["adapted"] = adapted_launches["kernels"]
     tool_launches, tools = run_tools()
     launches.update(tool_launches)
 
@@ -1053,10 +1171,12 @@ def main(argv=None) -> int:
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": smi, "records": records, "paths": paths, "kernels": kernels,
+            json.dump({"card": smi, "records": records, "paths": paths, "adapt": adapted,
+                       "kernels": kernels,
                        "launches": launches, "tools": tools, "breakdown": breakdown}, f,
                       indent=1)
     print(json.dumps({"paths": paths}))
+    print(json.dumps({"adapt": {k: v for k, v in adapted.items() if k != "losses"}}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -69,7 +69,9 @@ import chip_smoke  # noqa: F401
 from unitspeech_tpu_torch import cli, measure  # noqa: F401
 from unitspeech_tpu_torch.ops import aa_snake, conv_matmul, fused_attention, fused_resnet
 from unitspeech_tpu_torch.ops import fastmath, fused_resnet_deep, probes, resample  # noqa: F401
-from unitspeech_tpu_torch.ops import row_stats  # noqa: F401
+from unitspeech_tpu_torch.ops import mel, row_stats, schedule, units  # noqa: F401
+from unitspeech_tpu_torch.train import finetune, steps  # noqa: F401
+from unitspeech_tpu_torch.utils import artifacts, audio, convert_cli, torch_convert  # noqa: F401
 from unitspeech_tpu_torch.tools import bench_resnet_kernel, bench_transcendental
 from unitspeech_tpu_torch.tools import bisect_deep_compile, probe_stride
 

@@ -1130,3 +1130,154 @@ def test_weight_update_repacks_on_load(dev):
     args = (x, mask, mu, torch.tensor([0.6, 0.3], device=dev), _rand(rng, dev, 2, 256))
     with torch.no_grad():
         assert torch.equal(est(*args), fresh(*args))
+
+
+def _finetune_inputs(rng, dev, t_y=200, t_x=60, n_feats=80):
+    """One utterance's fine-tune inputs: a cond_x from no encoder (random,
+    as the unit encoder's output), a normalized mel and a monotonic path."""
+    from unitspeech_tpu_torch.ops.masking import generate_path
+
+    cond_x = _rand(rng, dev, 1, t_x, n_feats)
+    y = torch.tanh(_rand(rng, dev, 1, t_y, n_feats))
+    dur = torch.full((1, t_x), float(t_y // t_x), device=dev)
+    dur[0, 0] += t_y - float(dur.sum())
+    attn = generate_path(dur, torch.ones(1, t_x, t_y, device=dev))
+    spk = _rand(rng, dev, 1, 256)
+    return cond_x, y, torch.tensor([t_y], device=dev), attn, spk / spk.norm()
+
+
+def _draws(rng, dev, seg, n_feats=80):
+    return {"u": torch.tensor([0.37], device=dev), "t": torch.tensor([0.61], device=dev),
+            "z": _rand(rng, dev, 1, seg, n_feats)}
+
+
+def _all_launches():
+    from chip_smoke import _kernel_wrappers
+
+    return {k: w.launches for k, w in _kernel_wrappers().items()}
+
+
+@pytest.mark.cuda
+def test_finetune_step_f32_matches_cpu(dev):
+    """One f32 fine-tune step (decoder.dim 64, segment 176) on the card with
+    TF32 off against the same step on the CPU with the same draws: the loss
+    within 1e-4 relative; each gradient within rtol 1e-3, atol 1e-4 of its
+    tensor's largest (convolutions summed in another order); each parameter
+    within 3e-3 * lr plus one f32 rounding where the two gradients agree
+    within 1% and exceed 1e-7, else within 2 * lr: Adam's first step moves
+    an entry by lr * u(g), u(g) = g / (|g| + 1e-8), about lr whatever g's
+    size, so an entry whose gradient is rounding noise may go either way,
+    and a 1% change of g moves u by at most 0.25%. cuDNN runs its
+    deterministic algorithms here, so the step's gradients on the card are
+    the ones recomputed beside it. The step launches no kernel: the
+    fine-tune's estimator is the plain path (K3 has no backward)."""
+    from unitspeech_tpu_torch.config import DecoderConfig
+    from unitspeech_tpu_torch.models import unet as tunet
+
+    rng = np.random.default_rng(21)
+    cfg = DecoderConfig(**DIM64)
+    with torch.device("meta"):
+        est = tunet.GradLogPEstimator2d(**DIM64)
+    sd = {f"estimator.{k}": v for k, v in _estimator_sd(tunet, rng, est).items()}
+    sd["text_uncon"], sd["spk_uncon"] = torch.zeros(80), torch.ones(256)
+    inputs = _finetune_inputs(rng, dev)
+    draws = [_draws(rng, dev, 176)]
+    lr = 1e-3
+    before = _all_launches()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _check_f32_step(dev, cfg, sd, inputs, draws, lr, before)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _check_f32_step(dev, cfg, sd, inputs, draws, lr, before):
+    """test_finetune_step_f32_matches_cpu's comparison."""
+    from unitspeech_tpu_torch.models import diffusion as tdiff
+    from unitspeech_tpu_torch.train.finetune import finetune_decoder
+
+    got, loss = finetune_decoder(cfg, sd, *inputs, dtype=torch.float32, segment_size=176,
+                                 n_iters=1, learning_rate=lr, draws=draws)
+    assert _all_launches() == before
+    cpu = [x.cpu() for x in inputs]
+    cdraws = [{k: v.cpu() for k, v in draws[0].items()}]
+    want, want_loss = finetune_decoder(cfg, sd, *cpu, dtype=torch.float32, segment_size=176,
+                                       n_iters=1, learning_rate=lr, draws=cdraws)
+    np.testing.assert_allclose(loss, want_loss, rtol=1e-4)
+    grads = {}
+    for d, args, dr in ((dev, inputs, draws[0]), (torch.device("cpu"), cpu, cdraws[0])):
+        with d:
+            dec = tdiff.UnitSpeech.from_config(cfg)
+        dec.load_state_dict(sd)
+        tdiff.fine_tune_loss(dec, *args, 176, draws=dr).backward()
+        assert _all_launches() == before
+        grads[d.type] = {n: p.grad.cpu().numpy() for n, p in dec.named_parameters()
+                         if p.grad is not None}
+    for name, w in want.items():
+        g, w = got[name].cpu().numpy(), w.numpy()
+        tol = np.full(g.shape, 3e-3 * lr) + np.spacing(np.abs(w))
+        if name in grads["cpu"]:
+            gc, gd = grads["cuda"][name], grads["cpu"][name]
+            np.testing.assert_allclose(gc, gd, rtol=1e-3, atol=1e-4 * np.abs(gd).max(),
+                                       err_msg=name)
+            noisy = (np.abs(gc - gd) > 1e-2 * np.abs(gd)) | (np.abs(gd) < 1e-7)
+            tol[noisy] = 2 * lr
+        assert np.all(np.abs(g - w) <= tol), (name, np.abs(g - w).max())
+
+
+@pytest.fixture
+def full_width_step(dev):
+    """The full-width decoder (MainConfig) from random_params' draws, its
+    inputs at the 344-frame bucket, and one bf16 and one f32 fine-tune step
+    of lr 1e-3 from it with the same draws."""
+    from unitspeech_tpu_torch.config import MainConfig
+    from unitspeech_tpu_torch.models.diffusion import UnitSpeech
+    from unitspeech_tpu_torch.train.finetune import finetune_decoder
+    from unitspeech_tpu_torch.utils.params import _random_state_dict
+
+    cfg = MainConfig().decoder
+    rng = np.random.default_rng(22)
+    with torch.device("meta"):
+        base = _random_state_dict(rng, UnitSpeech.from_config(cfg))
+    inputs = _finetune_inputs(rng, dev, t_y=300, t_x=90)
+    draws = [_draws(rng, dev, 176)]
+    steps = {dt: finetune_decoder(cfg, base, *inputs, dtype=dt, segment_size=176, n_iters=1,
+                                  learning_rate=1e-3, draws=draws)
+             for dt in (torch.bfloat16, torch.float32)}
+    return cfg, base, steps
+
+
+@pytest.mark.cuda
+def test_finetune_bf16_step_near_f32(dev, full_width_step):
+    """At full width: a bf16 step's loss (f32 parameters, bf16 activations,
+    the default) finite and within 5% of the f32 step's; no kernel
+    launched."""
+    _, _, steps = full_width_step
+    (sd16, l16), (_, l32) = steps[torch.bfloat16], steps[torch.float32]
+    assert np.isfinite(l16).all() and abs(l16[0] - l32[0]) <= 0.05 * abs(l32[0])
+    assert all(v.dtype == torch.float32 for v in sd16.values())
+
+
+@pytest.mark.cuda
+def test_adapted_weights_repack_every_buffer_on_load(dev, full_width_step):
+    """load_state_dict of adapted weights into a kernel-route decoder (the
+    serving default, int8) re-packs every packed buffer: each equals a
+    fresh decoder's pack of the adapted weights bit for bit, and differs
+    from the pack of the base weights it replaced."""
+    from unitspeech_tpu_torch.models.diffusion import UnitSpeech
+
+    cfg, base, steps = full_width_step
+    adapted = steps[torch.bfloat16][0]
+    with dev:
+        served, fresh = (UnitSpeech.from_config(cfg, dtype=torch.bfloat16, use_kernels=True,
+                                                use_int8_deep=True) for _ in range(2))
+    served.load_state_dict(base)
+    old = {k: v.clone() for k, v in served.estimator.packed_tensors().items()}
+    served.load_state_dict(adapted)
+    fresh.load_state_dict(adapted)
+    new, ref = served.estimator.packed_tensors(), fresh.estimator.packed_tensors()
+    assert len(new) == len(ref) == len(old) > 100
+    for k in ref:
+        assert torch.equal(new[k], ref[k]), k
+        assert not torch.equal(new[k], old[k]), k

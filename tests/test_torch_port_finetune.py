@@ -1,0 +1,468 @@
+"""Speaker adaptation in the port against the JAX package on the CPU: the
+mel frontend, reflect_extend, process_unit, the forward-diffusion
+coefficients, the segment crop, fine_tune_loss and its gradients,
+clip_by_global_norm, prepare_finetune_inputs, three iterations of
+finetune_decoder, then `cli finetune` -> `cli inference --decoder` and
+the CLI's refusals.
+
+The JAX PRNG streams cannot be reproduced in torch, so the port is fed
+JAX's draws (the crop's u, then t, then z: unitspeech_tpu/models/
+diffusion.py fine_tune_loss, with the key of each step folded in as
+train/finetune.py does). The decoder is a 2-stage estimator at dim 8, the
+JAX side jit-compiled once in this file (the 3-step fine-tune)."""
+
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests._torch_port import load, randomize, scale_gates
+from unitspeech_tpu.config import DecoderConfig, EncoderConfig
+from unitspeech_tpu.models import diffusion as jdiff
+from unitspeech_tpu.models import encoder as jenc
+from unitspeech_tpu.ops import mel as jmel
+from unitspeech_tpu.ops import schedule as jsched
+from unitspeech_tpu.ops import units as junits
+from unitspeech_tpu.train import finetune as jft
+from unitspeech_tpu.train.steps import clip_by_global_norm as jclip
+from unitspeech_tpu_torch import cli
+from unitspeech_tpu_torch.models import diffusion as tdiff
+from unitspeech_tpu_torch.models import encoder as tenc
+from unitspeech_tpu_torch.ops import mel as tmel
+from unitspeech_tpu_torch.ops import schedule as tsched
+from unitspeech_tpu_torch.ops import units as tunits
+from unitspeech_tpu_torch.train import finetune as tft
+from unitspeech_tpu_torch.train.steps import clip_by_global_norm
+from unitspeech_tpu_torch.utils.params import params_from_jax
+
+DEC = dict(n_feats=16, dim=8, dim_mults=(1, 2), groups=4, spk_emb_dim=8)
+UNIT_ENC = dict(n_vocab=50, n_feats=16, n_channels=16, filter_channels=32, n_layers=1,
+                n_heads=2)
+SEG, TY, TX, LR, ITERS = 16, 40, 12, 1e-3, 3
+
+
+# --- the mel frontend ------------------------------------------------------
+
+
+def _mel_f64(y):
+    """The same log-mel in float64 numpy: what both f32 versions round."""
+    pad = (1024 - 256) // 2
+    yy = np.pad(y.astype(np.float64), ((0, 0), (pad, pad)), mode="reflect")
+    n = 1 + (yy.shape[1] - 1024) // 256
+    frames = yy[:, np.arange(1024)[None] + 256 * np.arange(n)[:, None]]
+    spec = np.fft.rfft(frames * jmel.hann_window(1024).astype(np.float64), axis=-1)
+    mag = np.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
+    return np.log(np.clip(mag @ jmel.mel_filterbank().astype(np.float64).T, 1e-5, None))
+
+
+def test_mel_matches_jax_on_a_random_wav():
+    """Within 1e-4 absolute of JAX's log-mel, equal frame counts."""
+    rng = np.random.default_rng(0)
+    y = (0.5 * rng.standard_normal((2, 22050 + 77))).clip(-1, 1).astype(np.float32)
+    want = np.asarray(jmel.mel_spectrogram(y))
+    got = tmel.mel_spectrogram(torch.from_numpy(y)).numpy()
+    assert got.shape == want.shape == (2, tmel.mel_true_frames(22127), 80)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_mel_matches_jax_on_a_sine():
+    """A 440 Hz sine: equal frame counts, the peak near band 11, and
+    within 1e-4 absolute of JAX's log-mel on the tonal bands (float64
+    log-mel above -6, 1127 of the 6880 entries). The bands the Hann
+    window's sidelobes leave at the f32 FFT's rounding noise (magnitudes
+    ~1e-4 against a peak of ~128) sit just above the 1e-5 floor, where
+    JAX's own f32 mel is 2.1e-3 from the float64 one and the port's
+    2.4e-3: there both are held to that float64 mel within 5e-3, and to
+    each other with the JAX package's own mel bound (tests/test_mel.py:
+    linear mel, rtol 3e-3, atol 1e-5)."""
+    y = (0.5 * np.sin(2 * np.pi * 440 * np.arange(22050) / 22050))[None].astype(np.float32)
+    want = np.asarray(jmel.mel_spectrogram(y))
+    got = tmel.mel_spectrogram(torch.from_numpy(y)).numpy()
+    assert got.shape == want.shape == (1, 86, 80)
+    assert abs(int(got[0, 40].argmax()) - 11) <= 1
+    exact = _mel_f64(y)
+    tonal = exact > -6.0
+    assert tonal.sum() > 1000
+    np.testing.assert_allclose(got[tonal], want[tonal], rtol=0, atol=1e-4)
+    for m in (got, want):
+        np.testing.assert_allclose(m, exact, rtol=0, atol=5e-3)
+    np.testing.assert_allclose(np.exp(got), np.exp(want), rtol=3e-3, atol=1e-5)
+
+
+def test_reflect_extend_keeps_the_exact_mel_prefix():
+    """The first mel_true_frames frames of a reflect_extend-ed wav's mel
+    equal the exact-length mel bit for bit, and the extension equals
+    JAX's."""
+    rng = np.random.default_rng(1)
+    kw = dict(n_fft=512, num_mels=16, sampling_rate=8000, hop_size=128, win_size=512,
+              fmin=0.0, fmax=4000.0)
+    for n in (5000, 7777, 16384):
+        wav = (rng.standard_normal(n) * 0.2).astype(np.float32)
+        t_true = tmel.mel_true_frames(n, 512, 128)
+        exact = tmel.mel_spectrogram(torch.from_numpy(wav)[None], **kw)[0]
+        assert exact.shape[0] == t_true
+        bucket = ((t_true + 63) // 64 + 1) * 64
+        ext = tmel.reflect_extend(wav, bucket * 128)
+        np.testing.assert_array_equal(ext, jmel.reflect_extend(wav, bucket * 128))
+        assert ext.shape[0] == bucket * 128
+        np.testing.assert_array_equal(ext[:n], wav)
+        bucketed = tmel.mel_spectrogram(torch.from_numpy(ext)[None], **kw)[0]
+        assert bucketed.shape[0] == bucket
+        assert torch.equal(bucketed[:t_true], exact)
+    with pytest.raises(ValueError):
+        tmel.reflect_extend(np.zeros(1, np.float32), 10)
+
+
+def test_normalize_mel_round_trip_and_filterbank():
+    rng = np.random.default_rng(2)
+    mel = torch.from_numpy(rng.standard_normal((3, 10, 80)).astype(np.float32))
+    lo, hi = mel.amin(dim=(0, 1)) - 0.1, mel.amax(dim=(0, 1)) + 0.1
+    normed = tmel.normalize_mel(mel, lo, hi)
+    assert normed.abs().max() <= 1.0
+    torch.testing.assert_close(tmel.denormalize_mel(normed, lo, hi), mel, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(tmel.mel_filterbank(), jmel.mel_filterbank())
+    np.testing.assert_array_equal(tmel.hann_window(1024), jmel.hann_window(1024))
+    np.testing.assert_allclose(tmel.hann_window(1024), torch.hann_window(1024).numpy(),
+                               atol=1e-6)
+
+
+# --- units, schedule, crop, clipping -----------------------------------------
+
+
+@pytest.mark.parametrize("sr,hop", [(16000, 256), (200, 4), (16000, 320)])
+def test_process_unit_equals_jax(sr, hop):
+    """Exactly JAX's, ties to the smallest unit (torch.mode), over runs of
+    units at 50 Hz; and dedup_consecutive is torch.unique_consecutive."""
+    rng = np.random.default_rng(sr + hop)
+    units = rng.integers(0, 6, 200)  # a small vocabulary: many ties and repeats
+    durations = rng.integers(1, 4, 200)
+    got = tunits.process_unit(units, durations, sr, hop)
+    want = junits.process_unit(units, durations, sr, hop)
+    for g, w in zip(got, want):
+        assert g.dtype == np.int64
+        np.testing.assert_array_equal(g, w)
+    u, c = torch.unique_consecutive(torch.from_numpy(units), return_counts=True)
+    du, dc = tunits.dedup_consecutive(units)
+    np.testing.assert_array_equal(du, u.numpy())
+    np.testing.assert_array_equal(dc, c.numpy())
+    e = tunits.process_unit(units[:1], durations[:1] * 0, sr, hop)
+    assert e[0].shape == e[1].shape == (0,)
+
+
+def test_forward_diffusion_coefficients_match_jax():
+    t = np.linspace(1e-5, 1 - 1e-5, 33).astype(np.float32)
+    for g, w in zip(tsched.forward_diffusion_coefficients(torch.from_numpy(t), 0.05, 20.0),
+                    jsched.forward_diffusion_coefficients(jnp.asarray(t), 0.05, 20.0)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(tsched.get_noise(t, 0.05, 20.0),
+                               np.asarray(jsched.get_noise(t, 0.05, 20.0)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("t_y,lengths", [(40, [40, 23]), (12, [12, 9])], ids=["crop", "pad"])
+def test_random_segment_crop_matches_jax(t_y, lengths):
+    """The same u gives JAX's crop: offset floor(u * (max_offset + 1))
+    capped at max_offset; utterances shorter than the segment zero-padded."""
+    rng = np.random.default_rng(t_y)
+    y = rng.standard_normal((2, t_y, 16)).astype(np.float32)
+    attn = rng.standard_normal((2, 7, t_y)).astype(np.float32)
+    y_len = np.array(lengths, np.int32)
+    for u in (np.array([0.0, 0.999999], np.float32), rng.uniform(size=2).astype(np.float32)):
+        key = jax.random.PRNGKey(0)
+        # feed JAX this u: its crop draws uniform(key); replace the draw
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jax.random, "uniform", lambda k, shape, *a, **kw: jnp.asarray(u))
+            want = jdiff.random_segment_crop(jnp.asarray(y), jnp.asarray(attn),
+                                             jnp.asarray(y_len), SEG, key)
+        got = tdiff.random_segment_crop(torch.from_numpy(y), torch.from_numpy(attn),
+                                        torch.from_numpy(y_len), SEG, torch.from_numpy(u))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_clip_by_global_norm_matches_jax():
+    rng = np.random.default_rng(3)
+    tree = {"a": rng.standard_normal((4, 5)).astype(np.float32),
+            "b": rng.standard_normal(7).astype(np.float32)}
+    for max_norm in (0.5, 100.0):
+        want, wnorm = jclip(jax.tree_util.tree_map(jnp.asarray, tree), max_norm)
+        grads = [torch.from_numpy(tree["a"].copy()), None, torch.from_numpy(tree["b"].copy())]
+        norm = clip_by_global_norm(grads, max_norm)
+        np.testing.assert_allclose(norm.item(), float(wnorm), rtol=1e-6)
+        np.testing.assert_allclose(grads[0].numpy(), np.asarray(want["a"]), rtol=1e-6)
+        np.testing.assert_allclose(grads[2].numpy(), np.asarray(want["b"]), rtol=1e-6)
+    assert np.allclose(grads[0].numpy(), tree["a"])  # under max_norm: unchanged
+
+
+# --- the fine-tune ---------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """JAX and port twins: the unit encoder, the decoder (2 stages, dim 8,
+    gates scaled down) and one utterance's fine-tune inputs from JAX's
+    prepare_finetune_inputs."""
+    rng = np.random.default_rng(7)
+    jue = jenc.Encoder.from_config(EncoderConfig(**UNIT_ENC))
+    units = rng.integers(0, 50, TX).astype(np.int32)
+    dur = np.full(TX, TY // TX)
+    dur[: TY - dur.sum()] += 1
+    ue_params = randomize(jax.jit(jue.init)(jax.random.PRNGKey(1), units[None],
+                                            np.array([TX])), 8)
+    mel = np.tanh(rng.standard_normal((TY, 16))).astype(np.float32)
+    jdec = jdiff.UnitSpeech(**DEC)
+    z = np.zeros((1, 16, 16), np.float32)
+    init = jax.jit(jdec.init)(jax.random.PRNGKey(2), z, np.ones((1, 16), np.float32), z,
+                              np.zeros((1,), np.float32), np.zeros((1, 8), np.float32))
+    dparams = scale_gates(randomize(init, 9), 0.1)
+    spk = rng.standard_normal((1, 8)).astype(np.float32)
+    spk /= np.linalg.norm(spk)
+    jin = jft.prepare_finetune_inputs(jue, ue_params, units, dur, mel, num_downsamplings=1)
+    tue = load(tenc.Encoder.from_config(EncoderConfig(**UNIT_ENC)), ue_params)
+    return dict(jue=jue, ue_params=ue_params, tue=tue, units=units, dur=dur, mel=mel,
+                jdec=jdec, dparams=jax.device_get(dparams), spk=spk, jin=jin)
+
+
+def _port_inputs(s):
+    return tuple(torch.from_numpy(np.array(x)) for x in s["jin"])
+
+
+@pytest.mark.parametrize("pad_to", [None, 48])
+def test_prepare_finetune_inputs_matches_jax(setup, pad_to):
+    s = setup
+    want = jft.prepare_finetune_inputs(s["jue"], s["ue_params"], s["units"], s["dur"], s["mel"],
+                                       num_downsamplings=1, pad_to=pad_to)
+    got = tft.prepare_finetune_inputs(s["tue"], s["units"], s["dur"], s["mel"],
+                                      num_downsamplings=1, pad_to=pad_to)
+    assert [tuple(g.shape) for g in got] == [tuple(np.shape(w)) for w in want]
+    assert not any(g.requires_grad for g in got)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-4, atol=2e-5)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    with pytest.raises(ValueError, match="pad_to"):
+        tft.prepare_finetune_inputs(s["tue"], s["units"], s["dur"], s["mel"],
+                                    num_downsamplings=1, pad_to=41)
+
+
+def _jax_draws(key, i, y_shape):
+    """The draws of JAX's fine-tune step i (its key folded with i): the crop's
+    u, then the loss's t and z, each from its split key."""
+    k = jax.random.fold_in(key, i)
+    key_seg, key_loss = jax.random.split(k)
+    key_t, key_z = jax.random.split(key_loss)
+    b = y_shape[0]
+    return {"u": torch.from_numpy(np.asarray(jax.random.uniform(key_seg, (b,)))),
+            "t": torch.from_numpy(np.asarray(jax.random.uniform(key_t, (b,)))),
+            "z": torch.from_numpy(np.asarray(jax.random.normal(key_z, (b, SEG, y_shape[2]))))}
+
+
+def _port_decoder(s):
+    dec = tdiff.UnitSpeech(**DEC)
+    dec.load_state_dict(params_from_jax(s["dparams"]))
+    return dec
+
+
+def test_fine_tune_loss_and_gradients_match_jax(setup):
+    """fine_tune_loss in f32 within 1e-5 relative of JAX's with JAX's draws,
+    and every decoder parameter's gradient within rtol 1e-4 of jax.grad's,
+    atol 1e-5 of that parameter's largest gradient (f32 sums in another
+    order through ~20 normalized layers). The unconditional embeddings are
+    unused by the loss: zero in JAX, None in torch."""
+    s = setup
+    key = jax.random.PRNGKey(5)
+    cond_x, y, y_len, attn = s["jin"]
+
+    def loss_fn(p):
+        return jdiff.fine_tune_loss(s["jdec"].apply, p, cond_x, y, y_len, attn,
+                                    jnp.asarray(s["spk"]), SEG, jax.random.fold_in(key, 0))
+
+    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(s["dparams"])
+    dec = _port_decoder(s)
+    c, yy, yl, a = _port_inputs(s)
+    loss = tdiff.fine_tune_loss(dec, c, yy, yl, a, torch.from_numpy(s["spk"]), SEG,
+                                draws=_jax_draws(key, 0, yy.shape))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    want = params_from_jax(jax.device_get(want_grads))
+    for name, p in dec.named_parameters():
+        w = want[name].numpy()
+        if name in ("text_uncon", "spk_uncon"):
+            assert p.grad is None and not np.any(w)
+            continue
+        assert np.abs(w).max() > 0, name
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=1e-4,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def jax_finetune(setup):
+    """JAX's 3-iteration fine-tune (one jit compile)."""
+    s = setup
+    cond_x, y, y_len, attn = s["jin"]
+    params, losses = jft.finetune_decoder(
+        s["jdec"].apply, jax.tree_util.tree_map(jnp.array, s["dparams"]), cond_x, y, y_len,
+        attn, jnp.asarray(s["spk"]), jax.random.PRNGKey(11), segment_size=SEG, n_iters=ITERS,
+        learning_rate=LR, grad_clip=1.0)
+    return params_from_jax(jax.device_get(params)), np.asarray(losses)
+
+
+def test_finetune_decoder_three_iterations_match_jax(setup, jax_finetune):
+    """Three iterations of finetune_decoder (f32) with JAX's draws: the
+    losses within 1e-5 relative of JAX's; each parameter within 2e-3 * lr *
+    steps (one part in 500 of the most Adam can move it) plus one f32
+    rounding of its value. Adam moves an entry by about lr a step whatever
+    its gradient's size, so entries whose first-step gradient is below 1e-3
+    of their tensor's RMS gradient (rounding level) may go either way: they
+    are held to 2 * lr * steps. Clipping is on (grad_clip 1.0 against a
+    global norm well above it)."""
+    s = setup
+    want_params, want_losses = jax_finetune
+    key = jax.random.PRNGKey(11)
+    c, yy, yl, a = _port_inputs(s)
+    draws = [_jax_draws(key, i, yy.shape) for i in range(ITERS)]
+    base = params_from_jax(s["dparams"])
+    got, losses = tft.finetune_decoder(
+        DecoderConfig(**DEC), base, c, yy, yl, a, torch.from_numpy(s["spk"]),
+        dtype=torch.float32, segment_size=SEG, n_iters=ITERS, learning_rate=LR,
+        grad_clip=1.0, draws=draws)
+    assert losses.shape == (ITERS,) and losses.dtype == np.float32
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
+
+    # the first step's gradients, for the rounding-level entries
+    dec = _port_decoder(s)
+    tdiff.fine_tune_loss(dec, c, yy, yl, a, torch.from_numpy(s["spk"]), SEG,
+                         draws=draws[0]).backward()
+    bound = 2e-3 * LR * ITERS
+    moved = 0
+    for name, p in dec.named_parameters():
+        g, w, b0 = got[name].numpy(), want_params[name].numpy(), base[name].numpy()
+        assert g.dtype == np.float32
+        tol = np.full(g.shape, bound) + np.spacing(np.abs(w))
+        if p.grad is not None:
+            gg = p.grad.numpy()
+            tiny = np.abs(gg) < 1e-3 * np.sqrt(np.mean(gg ** 2))
+            tol[tiny] = 2 * LR * ITERS
+            moved += int(np.sum(np.abs(w - b0) > 0.5 * LR))
+        else:  # unused by the loss: Adam leaves it where it was
+            np.testing.assert_array_equal(g, b0)
+        assert np.all(np.abs(g - w) <= tol), (name, np.abs(g - w).max())
+    assert moved > 1000  # the adaptation moved the weights
+
+
+def test_finetune_bf16_loss_near_f32(setup):
+    """The default activations (bf16, f32 parameters) on the CPU: one step's
+    loss within 5% of f32's with the same draws, and the step moves the
+    parameters."""
+    s = setup
+    c, yy, yl, a = _port_inputs(s)
+    draws = [_jax_draws(jax.random.PRNGKey(12), 0, yy.shape)]
+    base = params_from_jax(s["dparams"])
+    out = {dt: tft.finetune_decoder(DecoderConfig(**DEC), base, c, yy, yl, a,
+                                    torch.from_numpy(s["spk"]), dtype=dt, segment_size=SEG,
+                                    n_iters=1, learning_rate=LR, draws=draws)
+           for dt in (torch.bfloat16, torch.float32)}
+    (sd16, l16), (_, l32) = out[torch.bfloat16], out[torch.float32]
+    assert np.isfinite(l16).all() and abs(l16[0] - l32[0]) <= 0.05 * abs(l32[0])
+    assert all(v.dtype == torch.float32 for v in sd16.values())
+    assert not torch.equal(sd16["estimator.final_conv.kernel"],
+                           base["estimator.final_conv.kernel"])
+
+
+# --- the CLI ---------------------------------------------------------------
+
+# a tiny configuration whose mel frontend and segment are small: 1.6 kHz
+# audio, hop 16, 100-frame segments; spk_embedder.sr 1600 counts a 50 Hz
+# unit as 32 samples, two frames
+TINY_FT = dict(
+    data=dict(n_feats=16, n_fft=64, hop_length=16, win_length=64, sampling_rate=1600,
+              mel_fmax=800.0),
+    text_encoder=dict(n_vocab=180, n_feats=16, n_channels=16, filter_channels=32, n_layers=1,
+                      n_heads=2),
+    unit_encoder=dict(UNIT_ENC),
+    duration_predictor=dict(in_channels=16, filter_channels=16, spk_emb_dim=8),
+    decoder=dict(DEC, dim_mults=[1, 2]),
+    vocoder=dict(num_mels=16, upsample_rates=[4, 4], upsample_kernel_sizes=[8, 8],
+                 upsample_initial_channel=16, resblock_kernel_sizes=[3],
+                 resblock_dilation_sizes=[[1, 3]], sampling_rate=1600),
+    train=dict(out_size_second=1),
+    spk_embedder=dict(sr=1600),
+)
+
+
+def _sidecars(tmp_path, seconds=2.5):
+    from unitspeech_tpu_torch.utils.audio import write_wav
+
+    (tmp_path / "tiny.json").write_text(json.dumps(TINY_FT))
+    ckpt = str(tmp_path / "ckpt.pt")
+    assert cli.main(["make-random-checkpoint", "--seed", "4", "--config",
+                     str(tmp_path / "tiny.json"), "--output", ckpt]) == 0
+    rng = np.random.default_rng(5)
+    n = int(seconds * 1600)
+    write_wav(str(tmp_path / "ref.wav"), 0.3 * np.sin(np.arange(n) * 0.3)
+              + 0.05 * rng.standard_normal(n), 1600)
+    n_units = int(seconds * 50)
+    units = rng.integers(0, 50, n_units // 2)
+    durations = np.full(n_units // 2, 2)
+    np.savez(tmp_path / "units.npz", units=units, durations=durations)
+    np.save(tmp_path / "spk.npy", rng.standard_normal(8).astype(np.float32))
+    return ckpt, ["--reference", str(tmp_path / "ref.wav"), "--decoder", ckpt,
+                  "--unit-encoder", ckpt, "--spk-emb", str(tmp_path / "spk.npy"),
+                  "--units", str(tmp_path / "units.npz"), "--output-dir",
+                  str(tmp_path / "adapted")]
+
+
+def test_cli_finetune_then_inference_on_cpu(tmp_path, capsys):
+    """`cli finetune --device cpu` writes a decoder bundle (adapted weights,
+    the speaker embedding given, the base mel min/max, the config) that
+    `cli inference --decoder` serves with the base checkpoint's other
+    modules; its JSON line carries the loss means and the output."""
+    ckpt, args = _sidecars(tmp_path)
+    stats = cli.main_finetune(args + ["--device", "cpu", "--n-iters", "4",
+                                      "--learning-rate", "1e-3", "--frame-buckets", "160,320"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["iterations"] == 4 and line["output"] == stats["output"]
+    assert line["frames"] == tmel.mel_true_frames(4000, 64, 16) == 250
+    assert line["bucket"] == 320 and line["segment"] == 100
+    assert np.isfinite(stats["losses"]).all() and len(stats["losses"]) == 4
+    assert line["loss_first10"] == pytest.approx(float(np.mean(stats["losses"])))
+    out = torch.load(stats["output"], weights_only=True)
+    base = torch.load(ckpt, weights_only=True)
+    assert out["step"] == 4 and out["config"] == base["config"]
+    assert torch.equal(out["mel_min"], base["mel_min"])
+    spk = np.load(tmp_path / "spk.npy")
+    np.testing.assert_allclose(out["spk_emb"].numpy()[0], spk / np.linalg.norm(spk), rtol=1e-6)
+    changed = [k for k in out["decoder"] if not torch.equal(out["decoder"][k], base["decoder"][k])]
+    assert "estimator.final_conv.kernel" in changed and "text_uncon" not in changed
+
+    served = cli.main_inference(["--ipa", "--text", "həloʊ", "--checkpoint", ckpt, "--decoder",
+                                 stats["output"], "--output", str(tmp_path / "a.wav"),
+                                 "--device", "cpu", "--diffusion-steps", "2"])
+    assert served["frames"] > 0 and served["kernels"]
+
+
+def test_cli_finetune_refuses_cuda_without_a_card_and_ssl_flags(tmp_path):
+    """No quiet fall back to the CPU; the SSL frontends' flags name the
+    queue item that ports them."""
+    _, args = _sidecars(tmp_path, seconds=1.0)
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            cli.main_finetune(args + ["--device", "cuda", "--n-iters", "1"])
+    for flag in (["--hubert", "h.pt"], ["--kmeans", "k.npz"], ["--speaker-embedder", "s.pt"],
+                 ["--exact-ssl"]):
+        with pytest.raises(SystemExit, match="Queue 1 item 8"):
+            cli.main_finetune(args + ["--device", "cpu", *flag])
+
+
+def test_out_size_matches_jax():
+    from unitspeech_tpu.config import MainConfig as JMain
+    from unitspeech_tpu_torch.config import MainConfig, config_from_dict
+
+    assert MainConfig().out_size == JMain().out_size == 176
+    tiny = config_from_dict(TINY_FT)
+    assert tiny.out_size == 100
+    assert dataclasses.asdict(tiny.finetune) == {"learning_rate": 2e-5, "n_iters": 500,
+                                                 "grad_clip": 1.0}

@@ -346,13 +346,14 @@ def _routes(monkeypatch, argv, tmp_path, ckpt):
     (ROUTE_KEYS' switches, then the dtype); the stats line reports the
     same."""
     built = {}
-    real = ttts.TTSModels.from_checkpoint
+    real = ttts.TTSModels.from_state_dicts
 
     def spy(*a, **kw):
         built.update(kw)
         return real(*a, **kw)
 
-    monkeypatch.setattr(ttts.TTSModels, "from_checkpoint", spy)
+    # every TTSModels constructor goes through from_state_dicts
+    monkeypatch.setattr(ttts.TTSModels, "from_state_dicts", spy)
     stats = cli.main_inference(["--ipa", "--text", "həloʊ", "--checkpoint", ckpt,
                                 "--output", str(tmp_path / "o.wav"), "--device", "cpu",
                                 "--diffusion-steps", "1", *argv])

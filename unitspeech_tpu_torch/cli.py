@@ -1,33 +1,45 @@
 """Command-line entry points of the port (counterpart of
-unitspeech_tpu/cli.py for the adaptive-TTS slice).
+unitspeech_tpu/cli.py for the adaptive-TTS and speaker-adaptation slices).
 
     python -m unitspeech_tpu_torch.cli make-random-checkpoint --seed 0 --output ckpt.pt
     python -m unitspeech_tpu_torch.cli inference --ipa --text "..." \\
-        --checkpoint ckpt.pt --output out.wav --device cuda
+        --checkpoint ckpt.pt [--decoder adapted/decoder.pt] --output out.wav
+    python -m unitspeech_tpu_torch.cli finetune --reference ref.wav \\
+        --decoder ckpt.pt --unit-encoder ckpt.pt --spk-emb spk.npy --units units.npz \\
+        --output-dir adapted
+    python -m unitspeech_tpu_torch.cli convert decoder pretrained_decoder.pt decoder.pt
 
 A checkpoint is a `torch.save`d dict: one state dict per module in the
-port's layout, the speaker embedding, the mel min/max and the config.
+port's layout, the speaker embedding, the mel min/max and the config
+(utils/artifacts lists the port's formats). Every command runs on the card
+unless `--device cpu` is given; with no CUDA device `--device cuda` exits
+non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
-import wave
 
 import numpy as np
 
+from unitspeech_tpu_torch.utils.audio import load_wav, write_wav
 
-def write_wav(path: str, data: np.ndarray, sr: int):
-    """float [-1, 1] -> 16-bit PCM mono."""
-    pcm = (np.clip(data, -1.0, 1.0) * 32767.0).astype(np.int16)
-    with wave.open(path, "wb") as w:
-        w.setnchannels(1)
-        w.setsampwidth(2)
-        w.setframerate(sr)
-        w.writeframes(pcm.tobytes())
+# Mel-frame bucket ladder of the fine-tune's reference (4/8/12/16/24 s of
+# 22.05 kHz audio at hop 256), as the JAX CLI pads it
+DEFAULT_ADAPT_BUCKETS = "344,688,1032,1376,2064"
+
+
+def _device(name: str):
+    import torch
+
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {name} given but no CUDA device is available")
+    return device
 
 
 def main_make_random_checkpoint(argv=None):
@@ -47,13 +59,72 @@ def main_make_random_checkpoint(argv=None):
     return 0
 
 
+def _load_tts_models(args, device, dtype, routes):
+    """TTSModels from --checkpoint and the per-module flags (each overrides
+    that module of the checkpoint; without a checkpoint all four are
+    required), as the JAX CLI's _load_tts_models reads them."""
+    import torch
+
+    from unitspeech_tpu_torch.config import MainConfig, config_from_dict, load_json
+    from unitspeech_tpu_torch.infer.tts import TTSModels
+    from unitspeech_tpu_torch.utils import artifacts
+
+    flags = {"decoder": args.decoder, "text_encoder": args.text_encoder,
+             "duration_predictor": args.duration_predictor, "vocoder": args.vocoder}
+    if args.checkpoint is None and not all(flags.values()):
+        missing = [f"--{k.replace('_', '-')}" for k, v in flags.items() if not v]
+        raise SystemExit(f"without --checkpoint pass {', '.join(missing)}")
+    ckpt = artifacts.read(args.checkpoint) if args.checkpoint else {}
+    if args.config:
+        cfg = load_json(args.config)
+    else:
+        cfg = config_from_dict(ckpt["config"]) if ckpt else MainConfig()
+    state = {k: ckpt.get(k) for k in flags}
+    spk, mel_min, mel_max = ckpt.get("spk_emb"), ckpt.get("mel_min"), ckpt.get("mel_max")
+    if args.decoder:
+        bundle = artifacts.load_decoder_bundle(args.decoder, cfg.decoder)
+        state["decoder"] = bundle.state_dict
+        spk = spk if bundle.spk_emb is None else bundle.spk_emb
+        mel_min = mel_min if bundle.mel_min is None else bundle.mel_min
+        mel_max = mel_max if bundle.mel_max is None else bundle.mel_max
+    if args.text_encoder:
+        state["text_encoder"] = artifacts.load_encoder_params(args.text_encoder,
+                                                              cfg.text_encoder)
+    if args.duration_predictor:
+        state["duration_predictor"] = artifacts.load_duration_predictor_params(
+            args.duration_predictor)
+    if args.vocoder:
+        state["vocoder"] = artifacts.load_vocoder_params(args.vocoder, cfg.vocoder)
+    if args.spk_emb:
+        spk = torch.from_numpy(np.load(args.spk_emb).astype(np.float32))
+    if spk is None:
+        raise SystemExit("no speaker embedding: pass --spk-emb or a decoder with spk_emb")
+    if mel_min is None or mel_max is None:
+        raise SystemExit("no mel_min / mel_max in the checkpoint or the decoder")
+    return TTSModels.from_state_dicts(cfg, state, spk, mel_min, mel_max, device=device,
+                                      dtype=dtype, **routes)
+
+
 def main_inference(argv=None) -> dict:
     """Synthesize one utterance; returns and prints its statistics."""
     ap = argparse.ArgumentParser("unitspeech-tpu-torch inference")
     ap.add_argument("--text", required=True, help="pre-phonemized IPA text (with --ipa)")
     ap.add_argument("--ipa", action="store_true",
                     help="text is IPA (required: grapheme input comes in a later slice)")
-    ap.add_argument("--checkpoint", required=True)
+    ap.add_argument("--checkpoint", default=None,
+                    help="the port's combined checkpoint (make-random-checkpoint)")
+    ap.add_argument("--decoder", default=None,
+                    help="decoder: a reference .pt, a port bundle (cli finetune / convert) "
+                         "or checkpoint; its spk_emb and mel min/max come with it")
+    ap.add_argument("--text-encoder", default=None, help="text encoder (reference or port)")
+    ap.add_argument("--duration-predictor", default=None,
+                    help="duration predictor (reference or port)")
+    ap.add_argument("--vocoder", default=None, help="BigVGAN generator (reference or port)")
+    ap.add_argument("--spk-emb", default=None,
+                    help=".npy speaker embedding override (unit-normalized at load)")
+    ap.add_argument("--config", default=None,
+                    help="JSON config overlay (default: the checkpoint's config, else "
+                         "the reference's)")
     ap.add_argument("--output", default="generated.wav")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=42)
@@ -87,13 +158,11 @@ def main_inference(argv=None) -> dict:
 
     import torch
 
-    from unitspeech_tpu_torch.infer.tts import Synthesizer, TTSModels
+    from unitspeech_tpu_torch.infer.tts import Synthesizer
     from unitspeech_tpu_torch.ops import sv56
     from unitspeech_tpu_torch.text import phonemes_to_sequence
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda given but no CUDA device is available")
+    device = _device(args.device)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     # the JAX serving defaults (unitspeech_tpu/cli.py _load_tts_models):
     # kernels in bf16, and int8 deep convs whenever the kernels are on
@@ -101,8 +170,7 @@ def main_inference(argv=None) -> dict:
     routes = dict(use_kernels=fast, use_int8_deep=fast and args.int8,
                   use_deep=fast and args.deep, use_resample=fast and args.resample,
                   use_i8pre_deep=fast and args.int8 and args.i8pre)
-    ckpt = torch.load(args.checkpoint, map_location="cpu", weights_only=True)
-    models = TTSModels.from_checkpoint(ckpt, device=device, dtype=dtype, **routes)
+    models = _load_tts_models(args, device, dtype, routes)
     synth = Synthesizer(models)
     token_ids = phonemes_to_sequence(args.text)
     if not token_ids:
@@ -131,9 +199,166 @@ def main_inference(argv=None) -> dict:
     return stats
 
 
+def reference_mel(wav: np.ndarray, cfg, frame_buckets: str, device):
+    """Log-mel (T_true, n_feats) f32 of a reference wav on `device`, and the
+    frame bucket it pads to (None with frame_buckets ''), as the JAX CLI's
+    _reference_mel: the wav is reflect-extended to bucket * hop samples,
+    and the first T_true frames equal the exact-length mel bit for bit."""
+    import torch
+
+    from unitspeech_tpu_torch.ops.masking import choose_bucket, fix_len_compatibility
+    from unitspeech_tpu_torch.ops.mel import mel_spectrogram, mel_true_frames, reflect_extend
+
+    d = cfg.data
+    t_true = mel_true_frames(len(wav), d.n_fft, d.hop_length)
+    pad_to = None
+    if frame_buckets:
+        ladder = tuple(int(x) for x in str(frame_buckets).split(",") if x)
+        pad_to = choose_bucket(fix_len_compatibility(t_true, cfg.decoder.num_downsamplings),
+                               ladder)
+        # above the ladder choose_bucket rounds to multiples of 8: re-round
+        # for this config so that prepare_finetune_inputs takes pad_to
+        pad_to = fix_len_compatibility(pad_to, cfg.decoder.num_downsamplings)
+        wav = reflect_extend(wav, pad_to * d.hop_length)
+    y = torch.from_numpy(np.asarray(wav, np.float32)).to(device)[None]
+    mel = mel_spectrogram(y, n_fft=d.n_fft, num_mels=d.n_feats, sampling_rate=d.sampling_rate,
+                          hop_size=d.hop_length, win_size=d.win_length, fmin=d.mel_fmin,
+                          fmax=d.mel_fmax)
+    return mel[0, :t_true], pad_to
+
+
+def finetune_inputs(cfg, reference: str, units: str, unit_encoder_sd: dict, mel_min, mel_max,
+                    frame_buckets: str, device):
+    """The fine-tune's inputs from a reference wav and its units sidecar
+    (.npz of 50 Hz units and durations), as the JAX CLI prepares them: the
+    reference's mel normalized with the decoder's mel_min / mel_max, the
+    units at the mel frame rate (process_unit, counted at
+    cfg.spk_embedder.sr), the frozen unit encoder's output and the
+    alignment (train/finetune.prepare_finetune_inputs), on `device`."""
+    from unitspeech_tpu_torch.models.encoder import Encoder
+    from unitspeech_tpu_torch.ops.mel import normalize_mel
+    from unitspeech_tpu_torch.ops.units import process_unit
+    from unitspeech_tpu_torch.train.finetune import prepare_finetune_inputs
+
+    wav, sr = load_wav(reference)
+    if sr != cfg.data.sampling_rate:
+        raise SystemExit(f"{reference}: expected {cfg.data.sampling_rate} Hz, got {sr}")
+    mel, pad_to = reference_mel(wav, cfg, frame_buckets, device)
+    mel = normalize_mel(mel, mel_min.to(device), mel_max.to(device))
+    z = np.load(units)
+    units, durations = process_unit(z["units"], z["durations"], cfg.spk_embedder.sr,
+                                    cfg.data.hop_length)
+    with device:
+        unit_encoder = Encoder.from_config(cfg.unit_encoder)
+    unit_encoder.load_state_dict(unit_encoder_sd)
+    return prepare_finetune_inputs(unit_encoder, units, durations, mel,
+                                   num_downsamplings=cfg.decoder.num_downsamplings,
+                                   pad_to=pad_to)
+
+
+def main_finetune(argv=None) -> dict:
+    """Adapt the decoder to the voice of one reference wav (reference
+    finetune.py; JAX cli.py main_finetune); returns and prints its
+    statistics. The speaker embedding and the units come as sidecar files
+    until the SSL frontends are ported."""
+    ap = argparse.ArgumentParser("unitspeech-tpu-torch finetune")
+    ap.add_argument("--reference", required=True, help="reference wav (22.05 kHz)")
+    ap.add_argument("--decoder", required=True,
+                    help="pretrained decoder: a reference .pt, a port bundle or checkpoint")
+    ap.add_argument("--unit-encoder", required=True,
+                    help="unit encoder: a reference .pt or a port file / checkpoint")
+    ap.add_argument("--output-dir", required=True)
+    ap.add_argument("--n-iters", type=int, default=None)
+    ap.add_argument("--learning-rate", type=float, default=None)
+    ap.add_argument("--spk-emb", default=None, help=".npy speaker embedding")
+    ap.add_argument("--units", default=None,
+                    help=".npz with units and their 50 Hz durations")
+    for flag in ("--speaker-embedder", "--hubert", "--kmeans"):
+        ap.add_argument(flag, default=None, help="not ported yet (the SSL frontends)")
+    ap.add_argument("--exact-ssl", action="store_true", help="not ported yet")
+    ap.add_argument("--fp32", dest="bf16", action="store_false",
+                    help="decoder activations in f32 (default bf16; parameters stay f32)")
+    ap.add_argument("--frame-buckets", default=DEFAULT_ADAPT_BUCKETS,
+                    help="comma-separated mel-frame bucket ladder the reference pads to; "
+                         "'' for its exact length")
+    ap.add_argument("--config", default=None,
+                    help="JSON config overlay (default: the decoder file's config, else "
+                         "the reference's)")
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    ssl = [f for f, v in (("--speaker-embedder", args.speaker_embedder),
+                          ("--hubert", args.hubert), ("--kmeans", args.kmeans),
+                          ("--exact-ssl", args.exact_ssl)) if v]
+    if ssl:
+        raise SystemExit(f"{', '.join(ssl)}: the SSL frontends (WavLM + ECAPA, mHuBERT + "
+                         "k-means) are not ported yet (ROADMAP Queue 1 item 8); pass "
+                         "--spk-emb and --units")
+
+    import torch
+
+    from unitspeech_tpu_torch.config import MainConfig, config_from_dict, load_json
+    from unitspeech_tpu_torch.train.finetune import finetune_decoder
+    from unitspeech_tpu_torch.utils import artifacts
+
+    device = _device(args.device)
+    dec_obj = artifacts.read(args.decoder)
+    if args.config:
+        cfg = load_json(args.config)
+    else:
+        cfg = config_from_dict(dec_obj["config"]) if "config" in dec_obj else MainConfig()
+    bundle = artifacts.load_decoder_bundle(dec_obj, cfg.decoder)
+    if bundle.mel_min is None or bundle.mel_max is None:
+        raise SystemExit(f"{args.decoder}: no mel_min / mel_max")
+
+    if args.spk_emb:
+        spk = torch.from_numpy(np.load(args.spk_emb).astype(np.float32)).reshape(1, -1)
+    elif bundle.spk_emb is not None:
+        spk = bundle.spk_emb
+    else:
+        raise SystemExit("need --spk-emb or a decoder checkpoint with spk_emb")
+    spk = (spk / torch.linalg.vector_norm(spk)).to(device)
+    if not args.units:
+        raise SystemExit("need --units (mHuBERT + k-means extraction is not ported yet, "
+                         "ROADMAP Queue 1 item 8)")
+    cond_x, y, y_lengths, attn = finetune_inputs(
+        cfg, args.reference, args.units, artifacts.load_encoder_params(
+            args.unit_encoder, cfg.unit_encoder, "unit_encoder"),
+        bundle.mel_min, bundle.mel_max, args.frame_buckets, device)
+
+    n_iters = args.n_iters or cfg.finetune.n_iters
+    lr = args.learning_rate or cfg.finetune.learning_rate
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    state, losses = finetune_decoder(
+        cfg.decoder, bundle.state_dict, cond_x, y, y_lengths, attn, spk, dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        segment_size=cfg.out_size, n_iters=n_iters, learning_rate=lr,
+        grad_clip=cfg.finetune.grad_clip, generator=gen)
+    seconds = time.perf_counter() - t0  # the losses came back to the host: the device is done
+    os.makedirs(args.output_dir, exist_ok=True)
+    out = artifacts.save_decoder_bundle(
+        os.path.join(args.output_dir, "decoder.pt"),
+        artifacts.DecoderBundle(state_dict=state, spk_emb=spk, mel_min=bundle.mel_min,
+                                mel_max=bundle.mel_max, step=n_iters), cfg)
+    stats = {"iterations": n_iters, "seconds": seconds, "ms_per_step": 1e3 * seconds / n_iters,
+             "loss_first10": float(losses[:10].mean()),
+             "loss_last10": float(losses[-10:].mean()), "output": out,
+             "device": str(device), "bf16": args.bf16, "segment": cfg.out_size,
+             "frames": int(y_lengths[0]), "bucket": int(y.shape[1])}
+    print(json.dumps(stats))
+    return {**stats, "losses": losses}
+
+
+def main_convert(argv=None) -> int:
+    from unitspeech_tpu_torch.utils import convert_cli
+
+    return convert_cli.main(argv)
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    commands = {"inference": main_inference,
+    commands = {"inference": main_inference, "finetune": main_finetune,
+                "convert": main_convert,
                 "make-random-checkpoint": main_make_random_checkpoint}
     if not argv or argv[0] not in commands:
         print(f"usage: python -m unitspeech_tpu_torch.cli {{{','.join(commands)}}} ...",

@@ -1,11 +1,10 @@
 """The port's configuration: the sections of unitspeech_tpu/config.py that
-the adaptive-TTS slice reads, as frozen dataclasses with the same fields,
-the same defaults (the reference's numbers) and the same dict form, so a
-checkpoint's `config` dict and a JSON overlay read the same in both
-packages. Sections the slice does not read (the unit and contentvec
-encoders, training, fine-tuning, the speaker embedder, the unit
-extractor, the device mesh) are left out; a dict that carries them loads
-with them ignored.
+the adaptive-TTS and speaker-adaptation slices read, as frozen dataclasses
+with the same fields, the same defaults (the reference's numbers) and the
+same dict form, so a checkpoint's `config` dict and a JSON overlay read the
+same in both packages. Sections no ported path reads (the contentvec
+encoder, the unit extractor, the device mesh) are left out; a dict that
+carries them loads with them ignored.
 """
 
 from __future__ import annotations
@@ -107,6 +106,40 @@ class VocoderConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """STEP1/STEP2 training defaults (reference conf/hydra_config.py:135-150).
+    The fine-tune reads out_size_second (MainConfig.out_size)."""
+
+    out_size_second: int = 2
+    n_epochs: int = 2000
+    batch_size: int = 32
+    learning_rate: float = 1e-4
+    drop_last: bool = True
+    shuffle: bool = True
+    seed: int = 42
+    save_every: int = 5
+    test_size: int = 4
+    log_dir: str = "logs/unitspeech_tpu"
+    spk_dropout: float = 0.25
+    grad_clip_encoder: float = 5.0
+    grad_clip_duration: float = 5.0
+    grad_clip_decoder: float = 2.0
+    use_bf16: bool = True
+    dp_axis: str = "data"
+    checkpoint_dir: str = "checkpoints/train"
+    keep_checkpoints: int = 3
+
+
+@dataclass(frozen=True)
+class FinetuneConfig:
+    """Speaker-adaptive fine-tune (reference conf/hydra_config.py:24-29)."""
+
+    learning_rate: float = 2e-5
+    n_iters: int = 500
+    grad_clip: float = 1.0
+
+
+@dataclass(frozen=True)
 class InferenceConfig:
     """Reference conf/hydra_config.py:8-20."""
 
@@ -119,13 +152,40 @@ class InferenceConfig:
 
 
 @dataclass(frozen=True)
+class SpeakerEmbedderConfig:
+    """WavLM-Large + ECAPA-TDNN speaker embedder (reference
+    conf/hydra_config.py:166-175). The fine-tune reads `sr`, the rate the
+    units' 50 Hz durations are counted at (ops/units.process_unit)."""
+
+    feat_dim: int = 1024
+    feat_type: str = "wavlm_large"
+    channels: int = 512
+    spk_emb_dim: int = 256
+    sr: int = 16000
+
+
+@dataclass(frozen=True)
 class MainConfig:
     data: DataConfig = DataConfig()
     text_encoder: EncoderConfig = EncoderConfig()
+    unit_encoder: EncoderConfig = EncoderConfig(n_vocab=1000)
     duration_predictor: DurationPredictorConfig = DurationPredictorConfig()
     decoder: DecoderConfig = DecoderConfig()
     vocoder: VocoderConfig = VocoderConfig()
+    train: TrainConfig = TrainConfig()
+    finetune: FinetuneConfig = FinetuneConfig()
     inference: InferenceConfig = InferenceConfig()
+    spk_embedder: SpeakerEmbedderConfig = SpeakerEmbedderConfig()
+
+    @property
+    def out_size(self) -> int:
+        """Fine-tune / training segment length in mel frames: 2 s segments,
+        rounded up for the U-Net (reference train_STEP1.py:66-69): 172 ->
+        176 at the defaults."""
+        from unitspeech_tpu_torch.ops.masking import fix_len_compatibility
+
+        raw = self.train.out_size_second * self.data.sampling_rate // self.data.hop_length
+        return fix_len_compatibility(raw, self.decoder.num_downsamplings)
 
 
 def _tuples(v):

@@ -56,33 +56,46 @@ class TTSModels:
         return self.spk_emb.device
 
     @classmethod
-    def from_checkpoint(cls, ckpt: dict, device="cuda", dtype=torch.bfloat16,
-                        use_kernels: bool = True, use_int8_deep: bool = False,
-                        use_deep: bool = False, use_resample: bool = False,
-                        use_i8pre_deep: bool = False, with_vocoder: bool = True):
-        """ckpt: the dict utils.params.random_params returns (or one loaded
-        from a file that `cli make-random-checkpoint` wrote). The modules go
-        to `device`, the card unless the caller asks for the CPU (no CUDA
-        device raises). The encoder and duration predictor run in f32; the
-        decoder and vocoder in `dtype`, with the estimator and vocoder
-        kernels when `use_kernels`, and int8 deep-stage convs when
-        `use_int8_deep`. use_deep, use_resample and use_i8pre_deep are the
-        JAX package's use_pallas_deep, use_pallas_resample and
-        use_i8pre_deep: the fused deep-stage configuration (models/unet.py)."""
-        cfg = config_from_dict(ckpt["config"])
+    def from_state_dicts(cls, cfg: MainConfig, state_dicts: dict, spk_emb, mel_min, mel_max,
+                         device="cuda", dtype=torch.bfloat16, use_kernels: bool = True,
+                         use_int8_deep: bool = False, use_deep: bool = False,
+                         use_resample: bool = False, use_i8pre_deep: bool = False,
+                         with_vocoder: bool = True):
+        """The modules at `cfg`'s widths with weights from `state_dicts`
+        ({"text_encoder", "duration_predictor", "decoder"[, "vocoder"]}: state
+        dicts in the port's layout, from a checkpoint, utils/artifacts or a
+        fine-tune), on `device`, the card unless the caller asks for the CPU
+        (no CUDA device raises). Each loads with load_state_dict, whose hooks
+        pack the weights for the kernel routes. The encoder and duration
+        predictor run in f32; the decoder and vocoder in `dtype`, with the
+        estimator and vocoder kernels when `use_kernels`, and int8 deep-stage
+        convs when `use_int8_deep`. use_deep, use_resample and use_i8pre_deep
+        are the JAX package's use_pallas_deep, use_pallas_resample and
+        use_i8pre_deep: the fused deep-stage configuration (models/unet.py).
+        spk_emb is unit-normalized here."""
         mods = build_modules(cfg, device=device, dtype=dtype, use_kernels=use_kernels,
                              use_int8_deep=use_int8_deep, use_deep=use_deep,
                              use_resample=use_resample, use_i8pre_deep=use_i8pre_deep,
                              with_vocoder=with_vocoder)
         for name, mod in mods.items():
-            mod.load_state_dict(ckpt[name])
+            mod.load_state_dict(state_dicts[name])
             mod.eval().requires_grad_(False)
-        spk = ckpt["spk_emb"].to(device, torch.float32).reshape(1, -1)
+        spk = torch.as_tensor(spk_emb).to(device, torch.float32).reshape(1, -1)
         return cls(cfg=cfg, text_encoder=mods["text_encoder"],
                    duration_predictor=mods["duration_predictor"], decoder=mods["decoder"],
                    vocoder=mods.get("vocoder"), spk_emb=spk / torch.linalg.vector_norm(spk),
-                   mel_min=ckpt["mel_min"].to(device, torch.float32),
-                   mel_max=ckpt["mel_max"].to(device, torch.float32))
+                   mel_min=torch.as_tensor(mel_min).to(device, torch.float32).reshape(-1),
+                   mel_max=torch.as_tensor(mel_max).to(device, torch.float32).reshape(-1))
+
+    @classmethod
+    def from_checkpoint(cls, ckpt: dict, device="cuda", dtype=torch.bfloat16, **kwargs):
+        """ckpt: the dict utils.params.random_params returns (or one loaded
+        from a file that `cli make-random-checkpoint` wrote); its
+        "unit_encoder" entry, which only the fine-tune reads, is not loaded.
+        kwargs: the routes of from_state_dicts."""
+        return cls.from_state_dicts(config_from_dict(ckpt["config"]), ckpt, ckpt["spk_emb"],
+                                    ckpt["mel_min"], ckpt["mel_max"], device=device,
+                                    dtype=dtype, **kwargs)
 
 
 def forced_durations(n_tok: int, frames: int) -> np.ndarray:

@@ -3,7 +3,7 @@ full `MainConfig()` width with random weights from seed 0: the numbers
 behind PERF.md sections 5 and 6. Imports no JAX.
 
     python3 -m unitspeech_tpu_torch.measure [--reps 3] [--out chiprun_out/measure_port.json]
-        [--modes deep_i8 deep] [--no-build]
+        [--modes deep_i8 deep] [--no-build] [--parts finetune]
 
 Phases, all on the forced 344-frame request (50 DDPM steps, dual CFG
 1.0/1.0) in five modes: "int8" (the CLI default: every kernel, int8
@@ -28,9 +28,19 @@ the names chip_smoke.py gives these paths:
   profile  one warm request per mode under `torch.profiler`: device time
            summed over every CUDA kernel, kernel count, idle share
            (1 - device time / profiled wall; profiler overhead included
-           in the wall) and the 30 kernels with the most device time.
+           in the wall) and the 30 kernels with the most device time;
+  finetune speaker adaptation at full width in bf16 on a synthetic 6 s
+           reference (tools.synthetic_reference), segment out_size = 176
+           frames: `cli.main_finetune` for FT_ITERS iterations (its wall s
+           end to end and its loop's); then train.finetune_decoder for
+           FT_ITERS iterations with a CUDA event after each step's update
+           (the median ms per step: the device timeline between updates,
+           the host's gaps included); then one step (the 11th of 12) under
+           `torch.profiler` between two syncs: device time, kernel count,
+           idle share and the 30 kernels with the most device time.
 
---modes keeps the named modes only; --no-build skips the build phase. The
+--modes keeps the named modes only (serving phases); --parts keeps the
+named phases only; --no-build skips the build phase. The
 script measures whatever `unitspeech_tpu_torch` it imports, so run as a
 file from another checkout's root (`python3 /path/to/measure.py`) it times
 that checkout's port with this method.
@@ -50,6 +60,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from unitspeech_tpu_torch import cli
@@ -170,7 +181,6 @@ def measure_phases(ckpt, ids, reps, modes):
 
 
 def measure_profile(ckpt, ids, modes):
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
@@ -186,17 +196,87 @@ def measure_profile(ckpt, ids, modes):
             synth.vocode(mel)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        dev_us = [e.self_device_time_total if hasattr(e, "self_device_time_total")
-                  else e.self_cuda_time_total for e in kern]
-        device_us = float(sum(dev_us))
-        top = sorted(zip(dev_us, kern), key=lambda p: -p[0])[:30]
-        out[mode] = {"wall_s": wall, "device_us": device_us,
-                     "idle_share": 1.0 - device_us / (wall * 1e6),
-                     "n_kernels": int(sum(e.count for e in kern)),
-                     "top": [{"us": us, "count": e.count, "name": e.key} for us, e in top]}
+        out[mode] = _profile_summary(prof, wall)
         del synth
         torch.cuda.empty_cache()
+    return out
+
+
+FT_ITERS, FT_SECONDS = 500, 6.0
+PARTS = ("build", "rtf", "phases", "profile", "finetune")
+
+
+def _profile_summary(prof, wall):
+    """Device time, kernel count, idle share and the top kernels of a trace.
+    A host-side range (the optimizer's `Optimizer.step#Adam.step`) also
+    appears as a device entry spanning the kernels it launched: entries
+    named like a host event are left out, so no kernel counts twice."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    host = {e.key for e in events if e.device_type == DeviceType.CPU}
+    kern = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in host]
+    dev_us = [e.self_device_time_total if hasattr(e, "self_device_time_total")
+              else e.self_cuda_time_total for e in kern]
+    device_us = float(sum(dev_us))
+    top = sorted(zip(dev_us, kern), key=lambda p: -p[0])[:30]
+    return {"wall_s": wall, "device_us": device_us, "idle_share": 1.0 - device_us / (wall * 1e6),
+            "n_kernels": int(sum(e.count for e in kern)),
+            "top": [{"us": us, "count": e.count, "name": e.key} for us, e in top]}
+
+
+def measure_finetune(ckpt_path, tmp):
+    """The fine-tune phase (see the module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from unitspeech_tpu_torch.config import config_from_dict
+    from unitspeech_tpu_torch.tools import synthetic_reference
+    from unitspeech_tpu_torch.train.finetune import finetune_decoder
+
+    ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    cfg = config_from_dict(ckpt["config"])
+    flags = synthetic_reference(tmp, cfg, FT_SECONDS, seed=0)
+    t0 = time.perf_counter()
+    stats = cli.main_finetune(flags + ["--decoder", ckpt_path, "--unit-encoder", ckpt_path,
+                                       "--output-dir", os.path.join(tmp, "adapted"),
+                                       "--n-iters", str(FT_ITERS), "--device", "cuda"])
+    out = {"iterations": FT_ITERS, "segment": cfg.out_size, "cli_wall_s": time.perf_counter() - t0,
+           "cli_loop_s": stats["seconds"], "cli_ms_per_step": stats["ms_per_step"],
+           "frames": stats["frames"], "bucket": stats["bucket"],
+           "loss_first10": stats["loss_first10"], "loss_last10": stats["loss_last10"]}
+    print("finetune cli:", json.dumps(out), flush=True)
+
+    # the same inputs as the CLI's, for the library loop
+    dev = torch.device("cuda")
+    inputs = cli.finetune_inputs(cfg, flags[1], flags[3], ckpt["unit_encoder"], ckpt["mel_min"],
+                                 ckpt["mel_max"], cli.DEFAULT_ADAPT_BUCKETS, dev)
+    spk = torch.from_numpy(np.load(flags[5])).reshape(1, -1).to(dev)
+    spk = spk / spk.norm()
+    kw = dict(dtype=torch.bfloat16, segment_size=cfg.out_size,
+              learning_rate=cfg.finetune.learning_rate, grad_clip=cfg.finetune.grad_clip)
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(FT_ITERS)]
+    t0 = time.perf_counter()
+    _, losses = finetune_decoder(cfg.decoder, ckpt["decoder"], *inputs, spk, n_iters=FT_ITERS,
+                                 generator=torch.Generator(device=dev).manual_seed(0),
+                                 step_hook=lambda i: events[i].record(), **kw)
+    out["loop_wall_s"] = time.perf_counter() - t0
+    step_ms = [events[i - 1].elapsed_time(events[i]) for i in range(1, FT_ITERS)]
+    out["median_ms_per_step"] = statistics.median(step_ms)
+    out["losses_finite"] = bool(np.isfinite(losses).all())
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    span = {}
+
+    def hook(i):
+        if i in (10, 11):
+            torch.cuda.synchronize()
+            span[i] = time.perf_counter()
+            prof.start() if i == 10 else prof.stop()
+
+    finetune_decoder(cfg.decoder, ckpt["decoder"], *inputs, spk, n_iters=12,
+                     generator=torch.Generator(device=dev).manual_seed(1), step_hook=hook, **kw)
+    out["profile_step"] = _profile_summary(prof, span[11] - span[10])
     return out
 
 
@@ -206,6 +286,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="chiprun_out/measure_port.json")
     ap.add_argument("--modes", nargs="+", choices=list(MODES), default=list(MODES))
     ap.add_argument("--no-build", action="store_true")
+    ap.add_argument("--parts", nargs="+", default=list(PARTS), choices=list(PARTS))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure_port: no CUDA device", file=sys.stderr)
@@ -216,7 +297,8 @@ def main(argv=None) -> int:
     print(card, flush=True)
     result = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "frames": FRAMES, "steps": STEPS, "reps": args.reps, "modes": args.modes}
-    if not args.no_build:
+    parts = set(args.parts) - ({"build"} if args.no_build else set())
+    if "build" in parts:
         result["build_s"] = measure_build()
         print("build s:", json.dumps(result["build_s"]), flush=True)
     _cuda.lib()
@@ -224,16 +306,28 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "ckpt.pt")
         cli.main_make_random_checkpoint(["--seed", "0", "--output", path])
-        result["rtf"] = measure_rtf(path, tmp, args.reps, args.modes)
-        print("rtf:", json.dumps(result["rtf"]), flush=True)
+        if "rtf" in parts:
+            result["rtf"] = measure_rtf(path, tmp, args.reps, args.modes)
+            print("rtf:", json.dumps(result["rtf"]), flush=True)
+        if "finetune" in parts:
+            result["finetune"] = measure_finetune(path, tmp)
+            ft = result["finetune"]
+            print("finetune:", json.dumps({k: v for k, v in ft.items() if k != "profile_step"}),
+                  flush=True)
+            print("finetune step", json.dumps({k: v for k, v in ft["profile_step"].items()
+                                               if k != "top"}), flush=True)
+            for t in ft["profile_step"]["top"]:
+                print(f"  {t['us'] / 1e3:9.2f} ms {t['count']:7d}  {t['name'][:110]}")
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    result["phases"] = measure_phases(ckpt, ids, args.reps, args.modes)
-    print("phases:", json.dumps(result["phases"]), flush=True)
-    result["profile"] = measure_profile(ckpt, ids, args.modes)
-    for mode, p in result["profile"].items():
-        print(mode, json.dumps({k: v for k, v in p.items() if k != "top"}), flush=True)
-        for t in p["top"]:
-            print(f"  {t['us'] / 1e3:9.2f} ms {t['count']:7d}  {t['name'][:110]}")
+    if "phases" in parts:
+        result["phases"] = measure_phases(ckpt, ids, args.reps, args.modes)
+        print("phases:", json.dumps(result["phases"]), flush=True)
+    if "profile" in parts:
+        result["profile"] = measure_profile(ckpt, ids, args.modes)
+        for mode, p in result["profile"].items():
+            print(mode, json.dumps({k: v for k, v in p.items() if k != "top"}), flush=True)
+            for t in p["top"]:
+                print(f"  {t['us'] / 1e3:9.2f} ms {t['count']:7d}  {t['name'][:110]}")
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)

@@ -1,11 +1,16 @@
 """Score-based diffusion decoder (counterpart of
-unitspeech_tpu/models/diffusion.py; reference unitspeech.py:220-374).
+unitspeech_tpu/models/diffusion.py; reference unitspeech.py:220-492).
 
 Dual classifier-free guidance runs as ONE 3-row estimator call per step
 (rows: text-unconditional, speaker-unconditional, conditional), combined
 with the reference's algebra. The JAX `lax.scan` is a Python loop here.
+The training losses (forward diffusion, the score-matching loss, the
+fine-tune's random segment crop) run under autograd.
+
 Randomness comes from an explicit torch.Generator, or is injected
-(`noise_z` / `noises`) so a run can be compared with the JAX package.
+(`noise_z` / `noises` for the sampler, `draws` for the losses) so a run
+can be compared with the JAX package, whose PRNG streams torch cannot
+reproduce.
 """
 
 from __future__ import annotations
@@ -14,7 +19,11 @@ import torch
 from torch import nn
 
 from unitspeech_tpu_torch.models.unet import GradLogPEstimator2d
-from unitspeech_tpu_torch.ops.schedule import make_reverse_schedule
+from unitspeech_tpu_torch.ops.masking import sequence_mask
+from unitspeech_tpu_torch.ops.schedule import (
+    forward_diffusion_coefficients,
+    make_reverse_schedule,
+)
 
 
 class UnitSpeech(nn.Module):
@@ -117,3 +126,82 @@ def reverse_diffusion(model: UnitSpeech, z, mask, cond, spk_emb, n_timesteps: in
         xt = (float(sched.c_x[i]) * xt + float(sched.c_score[i]) * score
               + float(sched.c_noise[i]) * noise) * mask3
     return xt * mask3
+
+
+def forward_diffusion(x0, mask, t, z, beta_min: float = 0.05, beta_max: float = 20.0):
+    """q(x_t | x_0) sample from the standard-normal draw z (reference
+    unitspeech.py:376-384). x0, z: (B, T, F); mask: (B, T); t: (B,).
+    Returns (xt, z), both masked."""
+    mean_coef, std = forward_diffusion_coefficients(t[:, None, None], beta_min, beta_max)
+    mask3 = mask[:, :, None]
+    return (x0 * mean_coef + z * std) * mask3, z * mask3
+
+
+def diffusion_loss_t(model: UnitSpeech, x0, mask, cond, t, spk_emb, z,
+                     beta_min: float = 0.05, beta_max: float = 20.0):
+    """Weighted score-matching MSE at the given t (reference loss_t,
+    unitspeech.py:393-405). Returns (loss, xt)."""
+    n_feats = x0.shape[-1]
+    mask3 = mask[:, :, None]
+    xt, z = forward_diffusion(x0, mask, t, z, beta_min, beta_max)
+    _, std = forward_diffusion_coefficients(t[:, None, None], beta_min, beta_max)
+    noise_estimation = model(xt, mask, cond * mask3, t, spk_emb) * std
+    loss = torch.sum((noise_estimation + z) ** 2) / (torch.sum(mask) * n_feats)
+    return loss, xt
+
+
+def diffusion_loss(model: UnitSpeech, x0, mask, cond, spk_emb, generator=None, draws=None,
+                   beta_min: float = 0.05, beta_max: float = 20.0, offset: float = 1e-5):
+    """Random-t diffusion loss (reference compute_loss, unitspeech.py:407-411):
+    t uniform, clipped to [offset, 1 - offset], then z standard normal, both
+    from `generator` on x0's device. draws: {"t": (B,), "z": x0's shape}
+    in place of them."""
+    if draws is None:
+        t = torch.rand((x0.shape[0],), generator=generator, device=x0.device)
+        z = torch.randn(x0.shape, generator=generator, device=x0.device)
+    else:
+        t, z = draws["t"], draws["z"]
+    t = torch.clamp(t, offset, 1.0 - offset)
+    return diffusion_loss_t(model, x0, mask, cond, t, spk_emb, z, beta_min, beta_max)
+
+
+def random_segment_crop(y, attn, y_lengths, segment_size: int, u):
+    """Fixed-size time crop of (mel, alignment) at a random offset
+    (reference unitspeech.py:452-481): offset = floor(u * (max_offset + 1))
+    capped at max_offset = max(len - segment, 0), for u uniform in [0, 1);
+    utterances shorter than the segment are zero-padded.
+
+    y: (B, Ty, F); attn: (B, Tx, Ty); y_lengths: (B,) int; u: (B,).
+    Returns (y_cut (B, seg, F), attn_cut (B, Tx, seg), y_cut_mask (B, seg))."""
+    b, t_y, n_feats = y.shape
+    if t_y < segment_size:
+        pad = segment_size - t_y
+        y = torch.nn.functional.pad(y, (0, 0, 0, pad))
+        attn = torch.nn.functional.pad(attn, (0, pad))
+    max_offset = torch.clamp(y_lengths.to(torch.int64) - segment_size, min=0)
+    offset = (u * (max_offset + 1).to(torch.float32)).to(torch.int64)
+    offset = torch.minimum(offset, max_offset)
+    idx = offset[:, None] + torch.arange(segment_size, device=y.device)  # (B, seg)
+    y_cut = torch.gather(y, 1, idx[:, :, None].expand(b, segment_size, n_feats))
+    attn_cut = torch.gather(attn, 2, idx[:, None, :].expand(b, attn.shape[1], segment_size))
+    y_cut_mask = sequence_mask(torch.clamp(y_lengths, max=segment_size), segment_size,
+                               dtype=y.dtype)
+    return y_cut * y_cut_mask[:, :, None], attn_cut * y_cut_mask[:, None, :], y_cut_mask
+
+
+def fine_tune_loss(model: UnitSpeech, cond_x, y, y_lengths, attn, spk_emb, segment_size: int,
+                   generator=None, draws=None, beta_min: float = 0.05, beta_max: float = 20.0):
+    """Speaker-adaptation loss on a random segment (reference fine_tune,
+    unitspeech.py:452-492). cond_x: (B, Tx, F) frozen unit-encoder output;
+    y: (B, Ty, F) normalized mel; attn: (B, Tx, Ty). The draws, in order:
+    the crop's u (B,), then diffusion_loss's t and z, from `generator`;
+    draws: {"u", "t", "z"} in place of them."""
+    if draws is None:
+        u = torch.rand((y.shape[0],), generator=generator, device=y.device)
+    else:
+        u = draws["u"]
+    y_cut, attn_cut, y_cut_mask = random_segment_crop(y, attn, y_lengths, segment_size, u)
+    cond_y = torch.einsum("bxy,bxf->byf", attn_cut, cond_x) * y_cut_mask[:, :, None]
+    loss, _ = diffusion_loss(model, y_cut, y_cut_mask, cond_y, spk_emb, generator, draws,
+                             beta_min, beta_max)
+    return loss

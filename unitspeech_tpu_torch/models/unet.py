@@ -463,6 +463,26 @@ class GradLogPEstimator2d(nn.Module):
         if self.use_kernels and fused_resnet.takes(fb.shape[-1], self.groups):
             self.final_packed = pack_conv_weight(fb)
 
+    def packed_tensors(self) -> dict:
+        """Every tensor that `pack` made (the kernels' packed weights, the
+        int8 weights and scales), by module and position, beside the
+        parameters they were made from: what goes stale when a weight
+        changes in place."""
+        out = {}
+
+        def walk(name, v):
+            if isinstance(v, torch.Tensor):
+                out[name] = v
+            elif isinstance(v, (tuple, list)):
+                for i, x in enumerate(v):
+                    walk(f"{name}.{i}", x)
+
+        for name, m in self.named_modules():
+            for attr in ("packed", "int8_weights", "i8pre_weights"):
+                walk(f"{name}.{attr}", getattr(m, attr, None))
+        walk("final_packed", self.final_packed)
+        return out
+
     def forward(self, x, mask, mu, t, spk_emb):
         dt, uk = self.dtype, self.use_kernels
         flags = dict(use_int8=self.use_int8_deep, use_deep=self.use_deep,

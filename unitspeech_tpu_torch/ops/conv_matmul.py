@@ -40,13 +40,40 @@ def im2col(xf: torch.Tensor, f: int) -> torch.Tensor:
     return torch.cat(cols, dim=-1).reshape(b, n, 9 * cin)
 
 
+class _MatmulF32(torch.autograd.Function):
+    """The card's bf16 GEMM with an f32 output under autograd (torch.mm with
+    out_dtype has no derivative). The backward products run in f32 on the
+    bf16 operands and the f32 cotangent, then round to the operands'
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, a2, w):
+        ctx.save_for_backward(a2, w)
+        return torch.mm(a2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a2, w = ctx.saved_tensors
+        ga = gw = None
+        if ctx.needs_input_grad[0]:
+            ga = (g @ w.to(torch.float32).t()).to(a2.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = (a2.to(torch.float32).t() @ g).to(w.dtype)
+        return ga, gw
+
+
 def matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(..., K) @ (K, N) -> (..., N) f32: the f32 accumulator of products in
     a's dtype (w is rounded to it first), as JAX's einsum with
-    preferred_element_type=jnp.float32 keeps it."""
+    preferred_element_type=jnp.float32 keeps it. Differentiable (the
+    fine-tune's plain estimator runs it under autograd)."""
     w = w.to(a.dtype)
     if a.is_cuda and a.dtype == torch.bfloat16:
-        y = torch.mm(a.reshape(-1, a.shape[-1]), w, out_dtype=torch.float32)
+        a2 = a.reshape(-1, a.shape[-1])
+        if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
+            y = _MatmulF32.apply(a2, w)
+        else:
+            y = torch.mm(a2, w, out_dtype=torch.float32)
         return y.reshape(*a.shape[:-1], -1)
     return a.to(torch.float32) @ w.to(torch.float32)
 

@@ -1,8 +1,10 @@
-"""Reverse-DDPM schedule, closed form (counterpart of
-unitspeech_tpu/ops/schedule.py `make_reverse_schedule`; reference
-unitspeech.py:235-296, 360-370).
+"""Diffusion noise schedule, closed form (counterpart of
+unitspeech_tpu/ops/schedule.py; reference unitspeech.py:204-209, 235-296,
+360-384).
 
-Host-side numpy float64, folded into three per-step scalars:
+The forward process q(x_t | x_0) for the fine-tune's loss
+(`forward_diffusion_coefficients`, on tensors), and the reverse-DDPM
+schedule, host-side numpy float64 folded into three per-step scalars:
 
     x_{i+1} = (c_x[i] * x_i + c_score[i] * score_i + c_noise[i] * eps) * mask
 """
@@ -13,6 +15,23 @@ from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
+import torch
+
+
+def get_noise(t, beta_min: float, beta_max: float, cumulative: bool = False):
+    """beta(t), or Lambda(t) = int_0^t beta(s) ds with cumulative, for the
+    linear schedule (reference unitspeech.py:204-209)."""
+    if cumulative:
+        return beta_min * t + 0.5 * (beta_max - beta_min) * (t ** 2)
+    return beta_min + (beta_max - beta_min) * t
+
+
+def forward_diffusion_coefficients(t: torch.Tensor, beta_min: float, beta_max: float):
+    """(mean_coef, std) of q(x_t | x_0), each shaped like t: mean = x0 *
+    exp(-Lambda(t) / 2), var = 1 - exp(-Lambda(t)) (reference
+    unitspeech.py:376-384)."""
+    cum = get_noise(t, beta_min, beta_max, cumulative=True)
+    return torch.exp(-0.5 * cum), torch.sqrt(1.0 - torch.exp(-cum))
 
 
 @dataclass(frozen=True)

@@ -13,10 +13,12 @@ smoke run only (its times are not the card's).
 
 from __future__ import annotations
 
+import os
 import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 
@@ -66,3 +68,31 @@ def resolve_device(name: str) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"{name}: no CUDA device (pass --device cpu for a smoke run)")
     return dev
+
+
+def synthetic_reference(directory: str, cfg, seconds: float = 6.0, seed: int = 0) -> list:
+    """A fine-tune's inputs made from a seed, in `directory`: ref.wav (a
+    voiced sound at cfg.data.sampling_rate, its pitch and loudness
+    wandering, plus a little noise), units.npz (random units in runs of 1-4
+    frames at 50 Hz covering the wav) and spk.npy (a speaker embedding).
+    Returns `cli finetune`'s flags for them."""
+    from unitspeech_tpu_torch.utils.audio import write_wav
+
+    rng = np.random.default_rng(seed)
+    sr = cfg.data.sampling_rate
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    phase = 2 * np.pi * np.cumsum(120.0 + 40.0 * np.sin(2 * np.pi * 0.7 * t)) / sr
+    wav = sum(np.sin(k * phase) / k for k in range(1, 6))
+    wav = wav * (0.6 + 0.4 * np.sin(2 * np.pi * 3.0 * t)) ** 2 + 0.01 * rng.standard_normal(n)
+    paths = {k: os.path.join(directory, k) for k in ("ref.wav", "units.npz", "spk.npy")}
+    write_wav(paths["ref.wav"], 0.9 * wav / np.abs(wav).max(), sr)
+    n50 = int(seconds * 50)
+    runs = rng.integers(1, 5, n50)
+    runs = runs[: int(np.searchsorted(np.cumsum(runs), n50)) + 1]
+    runs[-1] -= runs.sum() - n50
+    np.savez(paths["units.npz"], units=rng.integers(0, cfg.unit_encoder.n_vocab, len(runs)),
+             durations=runs)
+    np.save(paths["spk.npy"], rng.standard_normal(cfg.decoder.spk_emb_dim).astype(np.float32))
+    return ["--reference", paths["ref.wav"], "--units", paths["units.npz"],
+            "--spk-emb", paths["spk.npy"]]

@@ -1,11 +1,12 @@
-"""Parameter bridge between the JAX package and the port, and random
+"""Parameter bridge between flax-layout trees and the port, and random
 full-width parameters.
 
 The port keeps flax's tensor layout (Dense (in, out), conv (*k, in, out),
 unflipped ConvTranspose) and names each parameter by its flax path joined
 with '.', so a JAX parameter tree maps to a state dict with no transposes.
-Reference `.pt` checkpoints go through unitspeech_tpu/utils/torch_convert
-first, then params_from_jax.
+Reference `.pt` checkpoints go through the port's own converter
+(utils/torch_convert, numpy only) into such a tree first, then
+params_from_jax; utils/artifacts does both when it loads one.
 """
 
 from __future__ import annotations
@@ -113,20 +114,28 @@ def _random_leaf(rng, name: str, shape) -> np.ndarray:
     return 0.05 * rng.standard_normal(shape)  # biases, shifts, snake alpha/beta
 
 
+def _random_state_dict(rng, mod) -> dict:
+    return {k: torch.from_numpy(_random_leaf(rng, k, tuple(v.shape)).astype(np.float32))
+            for k, v in mod.state_dict().items()}
+
+
 def random_params(cfg: MainConfig, seed: int) -> dict:
     """A checkpoint dict at `cfg`'s full widths drawn from
-    numpy.random.default_rng(seed): one state dict per module, a unit-norm
-    speaker embedding, the mel min/max and the config. The learned
-    unconditional embeddings are non-zero so dual CFG does real work."""
+    numpy.random.default_rng(seed): one state dict per module (the unit
+    encoder, which only the fine-tune reads, drawn last so that the other
+    modules' weights do not depend on it), a unit-norm speaker embedding,
+    the mel min/max and the config. The learned unconditional embeddings
+    are non-zero so dual CFG does real work."""
+    from unitspeech_tpu_torch.models.encoder import Encoder
+
     rng = np.random.default_rng(seed)
     ckpt = {}
     for name, mod in build_modules(cfg, device="meta").items():
-        ckpt[name] = {
-            k: torch.from_numpy(_random_leaf(rng, k, tuple(v.shape)).astype(np.float32))
-            for k, v in mod.state_dict().items()
-        }
+        ckpt[name] = _random_state_dict(rng, mod)
     spk = rng.standard_normal((1, cfg.decoder.spk_emb_dim))
     ckpt["spk_emb"] = torch.from_numpy((spk / np.linalg.norm(spk)).astype(np.float32))
+    with torch.device("meta"):
+        ckpt["unit_encoder"] = _random_state_dict(rng, Encoder.from_config(cfg.unit_encoder))
     ckpt["mel_min"] = torch.full((cfg.data.n_feats,), -12.0)
     ckpt["mel_max"] = torch.full((cfg.data.n_feats,), 3.0)
     ckpt["config"] = dataclasses.asdict(cfg)
