@@ -23,7 +23,14 @@ Then the adapt path: `cli finetune` at full width on the card (a synthetic
 the fine-tune trains the plain estimator), the adapted decoder served
 through `cli inference --decoder` on the serving defaults and on the plain
 path, its mels held to the same bounds, and its packed kernel weights equal
-to a fresh pack of the adapted weights. Last, the paths of the kernels that no request runs, the port's four tools
+to a fresh pack of the adapted weights. Then the frontends: random
+full-width SSL checkpoints in the reference's formats (WavLM-Large + ECAPA,
+mHuBERT-base, 1000 k-means centroids) through `cli convert`, `cli finetune`
+from the reference wav alone (no sidecar; no kernel launched), the card's
+speaker embedding, HuBERT features and units against the same modules on
+the CPU in f32, and a grapheme request (`--text ... --split-sentences`,
+espeak or the rule G2P) served with that adapted decoder on the kernels.
+Last, the paths of the kernels that no request runs, the port's four tools
 at full size (unitspeech_tpu_torch/tools): the kernel benchmark with
 --int8 --deep (the in-kernel int8 blocks K10a, K10b), the transcendental
 microbenchmark (P1), the stride probe (P2) and the compile bisection's 14
@@ -39,6 +46,7 @@ per-site records and the path comparisons to FILE as JSON.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -1045,6 +1053,200 @@ def adapt(torch, dev, tmp, ckpt_path, per_call, smi):
             "losses": losses.tolist(), "paths": paths, "packs": len(got)}, served_launches
 
 
+# The frontends phase (after adapt): full-width random SSL checkpoints in
+# the reference's formats (WavLM-Large + ECAPA, mHuBERT-base, 1000 x 768
+# centroids), converted by `cli convert`; `cli finetune` from the synthetic
+# reference wav alone for FRONTEND_ITERS steps; the card's frontends held
+# to the same modules on the CPU in f32 on the same 16 kHz wav; then a
+# grapheme request served with the wav-adapted decoder.
+FRONTEND_ITERS, FRONTEND_SECONDS = 20, 6.0  # 6 s at 16 kHz: the 96 000-sample bucket
+# card vs CPU, both f32 with TF32 off (utils/precision.strict_f32): the
+# unit-normalized speaker embeddings' cosine and largest difference, and
+# the relative L2 of HuBERT's layer-6 features (f32 sums in another order
+# through 24 / 6 layers)
+EMB_COS, EMB_MAX, HUBERT_REL_L2 = 0.99999, 1e-3, 1e-4
+# k-means units: equal at every frame whose CPU nearest-vs-second distance
+# margin exceeds UNIT_MARGIN of the nearest distance (a closer call may
+# flip on f32 order), and at most UNIT_DIFF_FRAC of all frames different
+UNIT_MARGIN, UNIT_DIFF_FRAC = 1e-4, 0.01
+# cycles the card spins before each queued frontend call (about 100 ms at
+# 2 GHz): longer than the host takes to enqueue WavLM-Large's ~1 300 launches
+QUEUE_LEAD_CYCLES = 200_000_000
+GRAPHEME_TEXT = ("The 2 quick brown foxes jumped over 13 lazy dogs. "
+                 "Then all 15 of them ran 40 miles home!")
+
+
+def _frontend_outputs(torch, cli, spk_path, hub_path, km_path, cfg, wav16, dev):
+    """The three frontends on `dev` on a 16 kHz wav, under the CLI's f32
+    policy: the unit-normalized speaker embedding (96 000-sample bucket),
+    HuBERT's layer-6 features, the k-means distances and units; on the
+    card, each one's time (_frontend_times)."""
+    from unitspeech_tpu_torch.models.ssl.kmeans import kmeans_distances
+    from unitspeech_tpu_torch.utils.precision import strict_f32
+
+    sr = cfg.spk_embedder.sr
+    embedder = cli.load_speaker_embedder(spk_path, cfg, dev)
+    emb = cli.embed_speaker(embedder, wav16, sr, cfg)[0]
+    enc = cli.build_unit_extractor(hub_path, km_path, cfg, dev)
+    cent = torch.from_numpy(enc.quantizer.centroids).to(dev)
+    with strict_f32(), torch.no_grad():
+        feats = enc.dense_model.features(wav16)
+        dist = kmeans_distances(feats, cent)
+        out = {"emb": emb / np.linalg.norm(emb), "feats": feats.cpu().numpy(),
+               "dist": dist.cpu().numpy(), "units": enc.quantizer(feats),
+               "dedup": enc(wav16)}
+        if dev.type == "cuda":
+            x = torch.from_numpy(np.asarray(wav16, np.float32))[None].to(dev)
+            out["ms"] = _frontend_times(torch, dev, {
+                "speaker_embedder": lambda: embedder(x),
+                "hubert": lambda: enc.dense_model.features(wav16),
+                "kmeans": lambda: kmeans_distances(feats, cent).argmin(1)})
+    del embedder, enc
+    return out
+
+
+def _frontend_times(torch, dev, calls):
+    """{name: {busy_ms, sum_ms, launches, queued_ms, event_ms}} for each call.
+    From torch.profiler over 5 calls (kernel_breakdown.device_activity),
+    per call: the time some device activity (kernel or copy) ran, their
+    summed durations and their count. From CUDA events (tools.median_ms,
+    5 calls): queued_ms behind QUEUE_LEAD_CYCLES of spinning, long enough
+    for the host to enqueue the whole call, so the device runs it back to
+    back; event_ms behind the usual 1 ms spin, which a call of hundreds of
+    launches outruns: the host's pace."""
+    from unitspeech_tpu_torch.tools import median_ms
+
+    out = {}
+    for name, fn in calls.items():
+        out[name] = dict(kernel_breakdown.device_activity(fn, 5),
+                         queued_ms=median_ms(fn, dev, 5, 1, QUEUE_LEAD_CYCLES),
+                         event_ms=median_ms(fn, dev, 5, 1))
+    return out
+
+
+def frontends(torch, dev, tmp, ckpt_path, per_call, smi):
+    """The SSL frontends and the grapheme frontend on the card: random
+    full-width SSL checkpoints (tools/ssl_reference) through `cli convert`;
+    `cli finetune --device cuda --speaker-embedder --hubert --kmeans` on the
+    synthetic reference with no sidecar, its TF32 left on by the caller
+    (the CLI turns it off and gives it back), finite losses and no kernel
+    launched; the card's frontends against the CPU's (EMB_COS, EMB_MAX,
+    HUBERT_REL_L2, UNIT_MARGIN, UNIT_DIFF_FRAC, equal duration sums); then
+    `cli inference --text ... --language en-us --split-sentences` with the
+    wav-adapted decoder on the serving defaults, each chunk forced to the
+    344-frame bucket: exactly one estimator call per step and one vocoder
+    call per chunk. Returns the measurements."""
+    import shutil
+
+    from unitspeech_tpu_torch import cli
+    from unitspeech_tpu_torch.text import get_phonemizer, split_sentences
+    from unitspeech_tpu_torch.tools import synthetic_reference
+    from unitspeech_tpu_torch.tools.ssl_reference import random_ssl_reference
+    from unitspeech_tpu_torch.utils import artifacts
+    from unitspeech_tpu_torch.utils.audio import load_wav
+    from unitspeech_tpu_torch.utils.params import config_from_dict
+
+    cfg = config_from_dict(artifacts.read(ckpt_path)["config"])
+    d = os.path.join(tmp, "frontends")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    ref = random_ssl_reference(d, cfg, seed=20)
+    conv = {k: os.path.join(d, f"port_{k}.pt") for k in ("speaker-embedder", "hubert")}
+    conv["kmeans"] = os.path.join(d, "port_kmeans.npz")
+    cfg_json = os.path.join(d, "config.json")
+    with open(cfg_json, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f)
+    for kind, dest in conv.items():
+        if cli.main(["convert", kind, ref[kind], dest, "--config", cfg_json]) != 0:
+            raise AssertionError(f"cli convert {kind} failed")
+    print(f"frontends: random full-width SSL checkpoints written and converted in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    wav_path = synthetic_reference(d, cfg, FRONTEND_SECONDS, seed=11)[1]
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        stats = _counted("frontends fine-tune", lambda: cli.main_finetune(
+            ["--reference", wav_path, "--decoder", ckpt_path, "--unit-encoder", ckpt_path,
+             "--speaker-embedder", conv["speaker-embedder"], "--hubert", conv["hubert"],
+             "--kmeans", conv["kmeans"], "--output-dir", os.path.join(d, "adapted"),
+             "--n-iters", str(FRONTEND_ITERS), "--seed", "0", "--device", "cuda"]),
+            {k: 0 for k in KERNELS})
+        if not (torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32):
+            raise AssertionError("cli finetune did not give the caller's TF32 settings back")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    losses = np.asarray(stats["losses"])
+    print(f"  cli finetune from the wav alone: {stats['units']} units, losses "
+          + " ".join(f"{x:.4f}" for x in losses) + f"; embedder {stats['speaker_embedder_s']:.2f}"
+          f" s, unit extractor {stats['unit_extractor_s']:.2f} s (loading included); {smi}",
+          flush=True)
+    if losses.shape != (FRONTEND_ITERS,) or not np.isfinite(losses).all():
+        raise AssertionError(f"frontends fine-tune losses not all finite: {losses}")
+
+    wav, sr = load_wav(wav_path)
+    wav16 = cli.resample_to(wav, sr, cfg.spk_embedder.sr)
+    card = _frontend_outputs(torch, cli, conv["speaker-embedder"], conv["hubert"],
+                             conv["kmeans"], cfg, wav16, dev)
+    cpu = _frontend_outputs(torch, cli, conv["speaker-embedder"], conv["hubert"],
+                            conv["kmeans"], cfg, wav16, torch.device("cpu"))
+    cos = float(card["emb"] @ cpu["emb"])
+    emb_max = float(np.abs(card["emb"] - cpu["emb"]).max())
+    rel_l2 = float(np.linalg.norm(card["feats"] - cpu["feats"]) / np.linalg.norm(cpu["feats"]))
+    full = np.sort(cpu["dist"] + (cpu["feats"] ** 2).sum(1, keepdims=True), axis=1)
+    sure = full[:, 1] - full[:, 0] > UNIT_MARGIN * full[:, 0]
+    differ = card["units"] != cpu["units"]
+    sums = [int(o["dedup"]["durations"].sum()) for o in (card, cpu)]
+    res = {"embedding_cos": cos, "embedding_max_abs": emb_max, "hubert_rel_l2": rel_l2,
+           "frames": int(len(differ)), "units_differ": int(differ.sum()),
+           "units_differ_where_sure": int((differ & sure).sum()), "sure_frames": int(sure.sum()),
+           "duration_sums": sums, "ms": card["ms"], "card": smi,
+           "finetune": {k: v for k, v in stats.items() if k != "losses"},
+           "losses": losses.tolist()}
+    print(f"  card vs CPU (f32): embedding cosine {cos:.8f} (>= {EMB_COS}), max |diff| "
+          f"{emb_max:.3e} (<= {EMB_MAX}); HuBERT layer-{cfg.unit_extractor.hubert_layer} "
+          f"relative L2 {rel_l2:.3e} (<= {HUBERT_REL_L2}); units differ at "
+          f"{res['units_differ']} of {len(differ)} frames, {res['units_differ_where_sure']} "
+          f"where the margin exceeds {UNIT_MARGIN} ({res['sure_frames']} frames); duration "
+          f"sums {sums}", flush=True)
+    print(f"  frontends on the card ({len(wav16)} samples at 16 kHz), ms of one call: profiler "
+          f"busy / sum / launches; events queued behind a long spin / behind 1 ms (host "
+          f"pace): " + ", ".join(
+              f"{k} {v['busy_ms']:.3f} / {v['sum_ms']:.3f} / {v['launches']:.0f}; "
+              f"{v['queued_ms']:.3f} / {v['event_ms']:.3f}" for k, v in card["ms"].items())
+          + f"; {smi}", flush=True)
+    if not (cos >= EMB_COS and emb_max <= EMB_MAX and rel_l2 <= HUBERT_REL_L2
+            and res["units_differ_where_sure"] == 0
+            and res["units_differ"] <= UNIT_DIFF_FRAC * len(differ) and sums[0] == sums[1]):
+        raise AssertionError(f"frontends: card vs CPU {res}")
+
+    espeak = shutil.which("espeak-ng") or shutil.which("espeak")
+    ph = get_phonemizer("en-us", fallback=True)
+    chunks = len(split_sentences(GRAPHEME_TEXT))
+    print(f"  grapheme request through {'espeak (' + espeak + ')' if espeak else 'the rule G2P'}"
+          f" ({type(ph).__name__}), {chunks} sentence chunks, each at {FRAMES} frames",
+          flush=True)
+    want = {k: chunks * (STEPS * per_call["int8"][k] if k in ESTIMATOR_KERNELS
+                         else per_call["int8"][k] if k in VOCODER_KERNELS else 0)
+            for k in KERNELS}
+    out = os.path.join(d, "grapheme.wav")
+    served = _counted("grapheme request", lambda: cli.main_inference(
+        ["--text", GRAPHEME_TEXT, "--language", "en-us", "--split-sentences", "--checkpoint",
+         ckpt_path, "--decoder", stats["output"], "--output", out, "--device", "cuda",
+         "--seed", "0", "--diffusion-steps", str(STEPS), "--text-gradient-scale", "1.0",
+         "--spk-gradient-scale", "1.0", "--frames", str(FRAMES)]), want)
+    with wave.open(out, "rb") as w:
+        n = w.getnframes()
+        pcm = np.frombuffer(w.readframes(n), np.int16)
+    if served["chunks"] != chunks or n != chunks * FRAMES * cfg.data.hop_length or not np.any(
+            pcm):
+        raise AssertionError(f"grapheme request: {served}, {n} samples")
+    print(f"  grapheme request served: {served['tokens']} tokens, wall {served['wall_s']:.3f} s,"
+          f" RTF {served['rtf']:.4f}", flush=True)
+    torch.cuda.empty_cache()
+    return {**res, "grapheme": {**served, "g2p": "espeak" if espeak else type(ph).__name__}}, want
+
+
 def run_tools():
     """This slice's paths: the port's four tools at full size, each run
     with every launch counter set to 0 just before it and read just after.
@@ -1163,6 +1365,7 @@ def main(argv=None) -> int:
         ckpt, launches = serve(torch, tmp, per_call)
         paths = compare_paths(torch, dev, ckpt, per_call)
         adapted, adapted_launches = adapt(torch, dev, tmp, ckpt, per_call, smi)
+        front, launches["grapheme"] = frontends(torch, dev, tmp, ckpt, per_call, smi)
     launches["adapted"] = adapted_launches["kernels"]
     tool_launches, tools = run_tools()
     launches.update(tool_launches)
@@ -1172,11 +1375,12 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": smi, "records": records, "paths": paths, "adapt": adapted,
-                       "kernels": kernels,
+                       "frontends": front, "kernels": kernels,
                        "launches": launches, "tools": tools, "breakdown": breakdown}, f,
                       indent=1)
     print(json.dumps({"paths": paths}))
     print(json.dumps({"adapt": {k: v for k, v in adapted.items() if k != "losses"}}))
+    print(json.dumps({"frontends": {k: v for k, v in front.items() if k != "losses"}}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -73,13 +73,29 @@ from unitspeech_tpu_torch.ops import mel, row_stats, schedule, units  # noqa: F4
 from unitspeech_tpu_torch.train import finetune, steps  # noqa: F401
 from unitspeech_tpu_torch.utils import artifacts, audio, convert_cli, torch_convert  # noqa: F401
 from unitspeech_tpu_torch.tools import bench_resnet_kernel, bench_transcendental
-from unitspeech_tpu_torch.tools import bisect_deep_compile, probe_stride
+from unitspeech_tpu_torch.tools import bisect_deep_compile, probe_stride, ssl_reference
+from unitspeech_tpu_torch.text import g2p, g2p_ro  # noqa: F401
+from unitspeech_tpu_torch.models import speaker  # noqa: F401
+from unitspeech_tpu_torch.models.ssl import feature_extractor, hubert, kmeans  # noqa: F401
+from unitspeech_tpu_torch.models.ssl import speech_encoder, transformer, wavlm  # noqa: F401
+from unitspeech_tpu_torch.utils import precision, torch_convert_ssl  # noqa: F401
 
 cfg, ckpt, out = sys.argv[1:4]
 cli.main_make_random_checkpoint(["--seed", "1", "--config", cfg, "--output", ckpt])
 stats = cli.main_inference(["--ipa", "--text", "həloʊ", "--checkpoint", ckpt,
                             "--output", out, "--device", "cpu", "--diffusion-steps", "1"])
 assert stats["kernels"] and stats["int8"], stats
+# graphemes through the rule G2P (or espeak), in two sentence chunks
+stats = cli.main_inference(["--text", "Hello there, 42 cats. Bye!", "--split-sentences",
+                            "--checkpoint", ckpt, "--output", out, "--device", "cpu",
+                            "--diffusion-steps", "1"])
+assert stats["chunks"] == 2, stats
+# the SSL checkpoints in the reference's formats, converted (test widths)
+from unitspeech_tpu_torch.config import load_json
+import os
+ssl = ssl_reference.random_ssl_reference(os.path.dirname(ckpt), load_json(cfg), seed=3)
+for kind in ("speaker-embedder", "hubert"):
+    assert cli.main(["convert", kind, ssl[kind], ckpt + kind, "--config", cfg]) == 0
 stats = cli.main_inference(["--ipa", "--text", "həloʊ", "--checkpoint", ckpt,
                             "--output", out, "--device", "cpu", "--diffusion-steps", "1",
                             "--deep", "--i8pre", "--resample"])
@@ -98,12 +114,16 @@ print("no JAX imported:", not any(m.split(".")[0] in ("jax", "unitspeech_tpu")
 
 
 def test_port_and_chip_smoke_import_nothing_of_jax(tmp_path):
-    """chip_smoke.py, the port's CLI (make-random-checkpoint, then
-    inference on the CPU with its defaults and with the fused deep-stage
-    switches) and its four tools (on the CPU at small sizes) run with every
+    """chip_smoke.py, the port's modules (the text frontend and the SSL
+    frontends included), its CLI (make-random-checkpoint, then inference on
+    the CPU with its defaults, with the fused deep-stage switches and from
+    graphemes; convert of the SSL checkpoints that tools/ssl_reference
+    writes) and its four tools (on the CPU at small sizes) run with every
     import of jax, flax or unitspeech_tpu refused."""
     cfg = json.loads(json.dumps(TINY))
     cfg["text_encoder"]["n_vocab"] = 180  # the IPA symbol table
+    cfg["spk_embedder"] = {"feat_type": "wavlm_test", "channels": 16, "spk_emb_dim": 8}
+    cfg["unit_extractor"] = {"dense_model_name": "hubert-test", "vocab_size": 40}
     (tmp_path / "tiny.json").write_text(json.dumps(cfg))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(

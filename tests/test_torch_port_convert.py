@@ -1,10 +1,11 @@
-"""Reference checkpoints in the port: its own converter (utils/torch_convert)
-against the JAX package's on reference-shaped state dicts with random
-values, for the text and unit encoders, the duration predictor, the
-diffusion decoder and BigVGAN with weight norm (both namings); the port
+"""Reference checkpoints in the port: its own converters (utils/torch_convert,
+utils/torch_convert_ssl) against the JAX package's on reference-shaped
+state dicts with random values, for the text and unit encoders, the
+duration predictor, the diffusion decoder, BigVGAN with weight norm (both
+namings), HuBERT, WavLM and the speaker encoder (WavLM + ECAPA); the port
 modules with converted weights against their JAX twins; the `.pt` loaders
-of utils/artifacts; `cli convert`; and `cli inference` with the per-module
-flags at tiny widths on the CPU.
+of utils/artifacts; `cli convert` (k-means included); and `cli inference`
+with the per-module flags at tiny widths on the CPU.
 
 The converted state dicts must equal params_from_jax of the JAX
 converter's trees bit for bit (keys, shapes, values). The modules are held
@@ -439,11 +440,198 @@ def test_cli_convert_writes_the_port_format(tmp_path, kind):
     assert all(torch.equal(out[family][k], want[k]) for k in want)
 
 
-@pytest.mark.parametrize("kind", ["hubert", "wavlm", "speaker-embedder", "kmeans",
-                                  "contentvec-encoder"])
+@pytest.mark.parametrize("kind", ["contentvec-encoder"])
 def test_cli_convert_refuses_unported_kinds(tmp_path, kind):
-    with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(SystemExit, match="not ported yet .ROADMAP Queue 1 item 7"):
         cli.main(["convert", kind, str(tmp_path / "x.pt"), str(tmp_path / "y.pt")])
+
+
+# --- the SSL checkpoints -----------------------------------------------------
+
+# seven conv layers (the converters' default count) at small widths
+SEVEN_CONVS = ((8, 10, 5),) + ((8, 3, 2),) * 4 + ((8, 2, 2),) * 2
+SSL_SMALL = dict(conv_layers=SEVEN_CONVS, embed_dim=16, num_layers=2, num_heads=2, ffn_dim=32,
+                 conv_pos=8, conv_pos_groups=2)
+# the test configurations `cli convert` reads the widths from
+SSL_CFG = {"spk_embedder": dict(feat_type="wavlm_test", channels=16, spk_emb_dim=8),
+           "unit_extractor": dict(dense_model_name="hubert-test", vocab_size=40)}
+
+
+def _ssl_ref(kind, seed):
+    """A reference-shaped state dict (tools/ssl_reference) with seven conv
+    layers and the JAX converter of that kind, at its default conv count."""
+    from unitspeech_tpu.models.ssl.hubert import HubertConfig
+    from unitspeech_tpu.models.ssl.wavlm import WavLMConfig
+    from unitspeech_tpu_torch.tools import ssl_reference
+
+    d = ssl_reference.Draw(seed)
+    if kind == "hubert":
+        ssl_reference.ssl_encoder_sd(d, HubertConfig(**SSL_SMALL))
+        return d.sd, lambda m, sd: m.convert_hubert(sd, 2)
+    w = WavLMConfig(**SSL_SMALL, num_buckets=16, max_distance=64)
+    if kind == "wavlm":
+        ssl_reference.ssl_encoder_sd(d, w, relpos=True, gru_rel_pos=True)
+        return d.sd, lambda m, sd: m.convert_wavlm(sd, 2)
+    ssl_reference.ssl_encoder_sd(d, w, "feature_extract.model.", relpos=True, gru_rel_pos=True)
+    ssl_reference.ecapa_sd(d, 16, 16, 8, 3)
+    return d.sd, lambda m, sd: m.convert_speaker_embedder(sd, 2)
+
+
+@pytest.mark.parametrize("kind", ["hubert", "wavlm", "speaker-embedder"])
+def test_ssl_converter_matches_jax_bit_for_bit(kind):
+    """The port's SSL converters (utils/torch_convert_ssl) against the JAX
+    package's on reference-shaped state dicts with random values: the same
+    tree (params, and the ECAPA BatchNorm statistics), bit for bit, and the
+    same state dict through params_from_jax; the tree matches what the JAX
+    module initializes (names and shapes)."""
+    from unitspeech_tpu.models.speaker import SpeakerEmbedder
+    from unitspeech_tpu.models.ssl.hubert import HubertConfig, HubertModel
+    from unitspeech_tpu.models.ssl.wavlm import WavLMConfig, WavLMModel
+    from unitspeech_tpu.utils import torch_convert_ssl as jssl
+    from unitspeech_tpu_torch.utils import torch_convert_ssl as tssl
+
+    sd, convert = _ssl_ref(kind, 30)
+    npsd = {k: v.numpy() for k, v in sd.items()}
+    want, got = convert(jssl, npsd), convert(tssl, npsd)
+    same = params_from_jax(want), params_from_jax(got)
+    assert list(same[1]) == list(same[0])
+    assert all(torch.equal(same[1][k], same[0][k]) for k in same[0])
+    w = WavLMConfig(**SSL_SMALL, num_buckets=16, max_distance=64)
+    model = {"hubert": HubertModel(HubertConfig(**SSL_SMALL)), "wavlm": WavLMModel(w),
+             "speaker-embedder": SpeakerEmbedder(w, channels=16, emb_dim=8)}[kind]
+    import jax
+
+    target = jax.eval_shape(model.init, jax.random.PRNGKey(0), np.zeros((1, 4000), np.float32))
+    for col in target:
+        jconv.assert_tree_match(got[col], jax.tree_util.tree_map(
+            lambda x: np.zeros(x.shape, x.dtype), target[col]))
+
+
+@pytest.mark.parametrize("naming", ["weight_g", "parametrizations", "folded"])
+def test_pos_conv_weight_norm_namings_match_jax(naming):
+    """The positional conv's weight norm (dim 2) in the legacy and the
+    parametrize names, or already folded: the port's conversion equal to
+    JAX's."""
+    from unitspeech_tpu.utils import torch_convert_ssl as jssl
+    from unitspeech_tpu_torch.utils import torch_convert_ssl as tssl
+
+    sd, _ = _ssl_ref("hubert", 31)
+    sd = {k: v.numpy() for k, v in sd.items()}
+    g, v = sd.pop("encoder.pos_conv.0.weight_g"), sd.pop("encoder.pos_conv.0.weight_v")
+    if naming == "weight_g":
+        sd.update({"encoder.pos_conv.0.weight_g": g, "encoder.pos_conv.0.weight_v": v})
+    elif naming == "parametrizations":
+        sd.update({"encoder.pos_conv.0.parametrizations.weight.original0": g,
+                   "encoder.pos_conv.0.parametrizations.weight.original1": v})
+    else:
+        sd["encoder.pos_conv.0.weight"] = jssl.fold_weight_norm_dim(g, v, dim=2)
+    want, got = jssl.convert_hubert(sd, 2), tssl.convert_hubert(sd, 2)
+    np.testing.assert_array_equal(got["params"]["encoder"]["pos_conv"]["kernel"],
+                                  want["params"]["encoder"]["pos_conv"]["kernel"])
+
+
+@pytest.mark.parametrize("kind", ["hubert", "wavlm", "speaker-embedder"])
+def test_cli_convert_ssl_kinds(tmp_path, kind):
+    """`cli convert hubert / wavlm / speaker-embedder` on the reference's
+    files at the test configurations (hubert-test, wavlm_test): the port's
+    module file, equal to params_from_jax of the JAX converter's tree."""
+    from unitspeech_tpu.utils import torch_convert_ssl as jssl
+    from unitspeech_tpu_torch.tools import ssl_reference
+
+    cfg = config_from_dict(SSL_CFG)
+    if kind == "hubert":
+        sd = ssl_reference.hubert_sd(cfg, 32)
+        tree = lambda s: jssl.convert_ssl_encoder(s, 3, "group_norm", 3)  # noqa: E731
+    else:
+        sd = ssl_reference.speaker_encoder_sd(cfg, 33)
+        if kind == "wavlm":
+            sd = {k.removeprefix("feature_extract.model."): v for k, v in sd.items()
+                  if k.startswith("feature_extract.model.")}
+
+        def tree(s):
+            enc = jssl.convert_ssl_encoder(s, 2, "layer_norm", 3, gru_rel_pos=True,
+                                           relative_position_embedding=True,
+                                           prefix="" if kind == "wavlm"
+                                           else "feature_extract.model.")
+            if kind == "wavlm":
+                return enc
+            ecapa = jssl.convert_ecapa(s)
+            return {"params": {"wavlm": enc["params"], "ecapa": ecapa["params"]},
+                    "batch_stats": {"ecapa": ecapa["batch_stats"]}}
+
+    (tmp_path / "cfg.json").write_text(json.dumps(SSL_CFG))
+    torch.save({"model": sd}, tmp_path / "src.pt")
+    assert cli.main(["convert", kind, str(tmp_path / "src.pt"), str(tmp_path / "out.pt"),
+                     "--config", str(tmp_path / "cfg.json")]) == 0
+    out = torch.load(tmp_path / "out.pt", weights_only=True)
+    assert out["config"]["unit_extractor"]["dense_model_name"] == "hubert-test"
+    got = out[kind.replace("-", "_")]
+    want = params_from_jax(tree({k: v.numpy() for k, v in sd.items()}))
+    assert list(got) == list(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+@pytest.mark.parametrize("kind", ["hubert", "wavlm"])
+def test_ssl_loaders_unpickle_only_reference_files(tmp_path, monkeypatch, kind):
+    """load_hubert_params / load_wavlm_params read the port's module file
+    tensors-only; a reference file whose "args" entry is a Python object
+    (as fairseq and s3prl save it) is unpickled in full after the safe load
+    refuses it, and gives the same parameters."""
+    import argparse
+
+    from unitspeech_tpu_torch.models.ssl.hubert import hubert_test_config
+    from unitspeech_tpu_torch.models.ssl.wavlm import wavlm_test_config
+    from unitspeech_tpu_torch.tools import ssl_reference
+    from unitspeech_tpu_torch.utils import artifacts
+
+    cfg = config_from_dict(SSL_CFG)
+    if kind == "hubert":
+        sd, mcfg, load = (ssl_reference.hubert_sd(cfg, 34), hubert_test_config(),
+                          artifacts.load_hubert_params)
+    else:
+        sd = {k.removeprefix("feature_extract.model."): v
+              for k, v in ssl_reference.speaker_encoder_sd(cfg, 35).items()
+              if k.startswith("feature_extract.model.")}
+        mcfg, load = wavlm_test_config(), artifacts.load_wavlm_params
+    torch.save({"args": argparse.Namespace(layers=3), "model": sd}, tmp_path / "ref.pt")
+    (tmp_path / "cfg.json").write_text(json.dumps(SSL_CFG))
+    assert cli.main(["convert", kind, str(tmp_path / "ref.pt"), str(tmp_path / "port.pt"),
+                     "--config", str(tmp_path / "cfg.json")]) == 0
+    calls, real = [], torch.load
+
+    def spy(*a, **kw):
+        calls.append(kw.get("weights_only"))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(torch, "load", spy)
+    port = load(str(tmp_path / "port.pt"), mcfg)
+    assert calls == [True]
+    ref = load(str(tmp_path / "ref.pt"), mcfg)
+    assert calls == [True, True, False]
+    assert list(port) == list(ref) and all(torch.equal(port[k], ref[k]) for k in ref)
+
+
+def test_cli_convert_kmeans(tmp_path, monkeypatch):
+    """`cli convert kmeans` reads sklearn's joblib file (any object with
+    cluster_centers_) into a centroids .npz, as JAX's converter; without
+    joblib / sklearn it exits naming the .npz route."""
+    import sys
+    import types
+
+    import joblib
+
+    from unitspeech_tpu.utils import torch_convert_ssl as jssl
+
+    cent = np.random.default_rng(34).standard_normal((40, 16))
+    joblib.dump(types.SimpleNamespace(cluster_centers_=cent), tmp_path / "km.bin")
+    assert cli.main(["convert", "kmeans", str(tmp_path / "km.bin"), str(tmp_path / "km.npz")]) == 0
+    with np.load(tmp_path / "km.npz") as z:
+        got = z["centroids"]
+    want = jssl.convert_sklearn_kmeans(str(tmp_path / "km.bin"))
+    assert got.dtype == np.float32 and np.array_equal(got, want)
+    monkeypatch.setitem(sys.modules, "sklearn", None)
+    with pytest.raises(SystemExit, match=r"centroids \.npz"):
+        cli.main(["convert", "kmeans", str(tmp_path / "km.bin"), str(tmp_path / "k2.npz")])
 
 
 def _tiny_reference_files(tmp_path):

@@ -1,8 +1,12 @@
 """The port's CUDA kernels K1-K11 and the tools' kernels P1-P3 against
 their plain PyTorch versions on the card, at small shapes with partial
 tiles and a padded batch (chip_smoke.py holds them at the main-path
-shapes), and the library GEMMs of the deep convs against their CPU
-versions. Every test needs a CUDA device and skips without one.
+shapes), the library GEMMs of the deep convs against their CPU
+versions, the fine-tune step against the CPU's, `cli inference --fp32`
+against the CPU with the caller's TF32 left on (the CLI's f32 policy), and
+twelve full-width fine-tune steps at lr 1e-3 in f32 and bf16 (the record
+of which goes non-finite). Every test needs a CUDA device and skips
+without one.
 
 This file imports neither jax nor tests/conftest.py's helpers, so that it
 runs on a machine with the card and no jax:
@@ -1281,3 +1285,88 @@ def test_adapted_weights_repack_every_buffer_on_load(dev, full_width_step):
     for k in ref:
         assert torch.equal(new[k], ref[k]), k
         assert not torch.equal(new[k], old[k]), k
+
+
+@pytest.mark.cuda
+def test_cli_inference_fp32_matches_cpu_with_tf32_left_on(dev, tmp_path, monkeypatch):
+    """The CLI's f32 policy on the card: `cli inference --fp32` (decoder
+    .dim 64, forced 64 frames, 2 DDPM steps, noise injected from one numpy
+    seed so that both devices draw the same) with the caller's TF32 left
+    on, against the same command on the CPU: inside the command TF32 is off
+    for matmuls and cuDNN convs, the caller's settings are back after it,
+    and the mels agree within F32_REL of the CPU mel's largest magnitude
+    (f32 sums in another order)."""
+    import json
+
+    from unitspeech_tpu_torch import cli
+    from unitspeech_tpu_torch.infer import tts
+
+    cfg = tmp_path / "dim64.json"
+    cfg.write_text(json.dumps({"decoder": {"dim": 64}}))
+    ckpt = str(tmp_path / "ckpt.pt")
+    assert cli.main(["make-random-checkpoint", "--seed", "2", "--config", str(cfg),
+                     "--output", ckpt]) == 0
+    real, seen, mels = tts.Synthesizer.synthesize_mel, [], {}
+
+    def injected(self, ids, generator=None, **kw):
+        rng = np.random.default_rng(5)
+        d = self.models.device
+        kw["noise_z"] = torch.from_numpy(rng.standard_normal((1, 64, 80), np.float32)).to(d)
+        kw["noises"] = torch.from_numpy(rng.standard_normal((2, 1, 64, 80), np.float32)).to(d)
+        seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+        out = real(self, ids, generator, **kw)
+        mels[d.type] = out[0].float().cpu()
+        return out
+
+    monkeypatch.setattr(tts.Synthesizer, "synthesize_mel", injected)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    for device in ("cuda", "cpu"):
+        cli.main_inference(["--ipa", "--text", "həloʊ wɜːld", "--checkpoint", ckpt, "--fp32",
+                            "--frames", "64", "--diffusion-steps", "2", "--no-sv56",
+                            "--device", device, "--output", str(tmp_path / f"{device}.wav")])
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    assert seen == [(False, False)] * 2
+    err = (mels["cuda"] - mels["cpu"]).abs().max().item()
+    assert err <= F32_REL * mels["cpu"].abs().max().item(), err
+
+
+# f32 on the card against f32 on the CPU, relative to the largest magnitude
+F32_REL = 1e-4
+
+
+@pytest.mark.cuda
+def test_finetune_lr1e3_full_width_which_goes_non_finite(dev, tmp_path):
+    """Twelve fine-tune steps at lr 1e-3 (fifty times the reference's) at
+    full width on chip_smoke.py's adapt inputs (the seed-0 random
+    checkpoint, the seed-10 synthetic 6 s reference and its sidecars, the
+    688-frame bucket), in f32 (TF32 off) and in bf16 activations, each
+    with the draws of a generator seeded 0: prints each run's losses and
+    its first non-finite step, the record behind PERF.md's lr 1e-3
+    finding. Both start finite, and once a run's loss is non-finite it
+    stays so."""
+    from unitspeech_tpu_torch import cli
+    from unitspeech_tpu_torch.config import MainConfig
+    from unitspeech_tpu_torch.tools import synthetic_reference
+    from unitspeech_tpu_torch.train.finetune import finetune_decoder
+    from unitspeech_tpu_torch.utils.audio import load_wav
+    from unitspeech_tpu_torch.utils.params import random_params
+
+    cfg = MainConfig()
+    ckpt = random_params(cfg, 0)
+    flags = synthetic_reference(str(tmp_path), cfg, 6.0, seed=10)
+    with np.load(flags[3]) as z:
+        units, durations = z["units"], z["durations"]
+    inputs = cli.finetune_inputs(cfg, load_wav(flags[1])[0], units, durations,
+                                 ckpt["unit_encoder"], ckpt["mel_min"], ckpt["mel_max"],
+                                 cli.DEFAULT_ADAPT_BUCKETS, dev)
+    spk = torch.from_numpy(np.load(flags[5])).reshape(1, -1).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        _, losses = finetune_decoder(cfg.decoder, ckpt["decoder"], *inputs, spk / spk.norm(),
+                                     dtype=dt, segment_size=cfg.out_size, n_iters=12,
+                                     learning_rate=1e-3,
+                                     generator=torch.Generator(device=dev).manual_seed(0))
+        fin = np.isfinite(losses)
+        first = int(np.argmin(fin)) if not fin.all() else None
+        print(f"lr 1e-3 full width {dt}: losses {losses.tolist()}; first non-finite step "
+              f"{first}")
+        assert fin[0] and not np.any(fin[1:] & ~fin[:-1]), losses

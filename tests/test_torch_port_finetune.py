@@ -2,7 +2,9 @@
 mel frontend, reflect_extend, process_unit, the forward-diffusion
 coefficients, the segment crop, fine_tune_loss and its gradients,
 clip_by_global_norm, prepare_finetune_inputs, three iterations of
-finetune_decoder, then `cli finetune` -> `cli inference --decoder` and
+finetune_decoder (and 20 steps at lr 1e-3, where both packages are
+compared for divergence), then `cli finetune` -> `cli inference
+--decoder`, `cli finetune` from a wav alone through the SSL frontends, and
 the CLI's refusals.
 
 The JAX PRNG streams cannot be reproduced in torch, so the port is fed
@@ -372,6 +374,57 @@ def test_finetune_bf16_loss_near_f32(setup):
                            base["estimator.final_conv.kernel"])
 
 
+# lr 1e-3 (fifty times the reference's 2e-5) for 20 steps in bf16
+# activations, as the fine-tune that went non-finite on the card ran; and
+# lr 5e-2, where JAX's own run goes non-finite at this width. LONG_REL:
+# where both runs are finite their losses agree within 1e-2 relative (the
+# two bf16 runs round at different points, XLA fusing its casts, PyTorch
+# rounding each op's output, and Adam moves every parameter by about lr a
+# step whatever its gradient, so the trajectories drift apart; 3.3e-3 at
+# most was seen at lr 1e-3)
+LONG_REL = 1e-2
+
+
+@pytest.mark.parametrize("dtype,lr,iters", [("bfloat16", 1e-3, 20), ("bfloat16", 5e-2, 20),
+                                            ("float32", 5e-2, 8)])
+def test_finetune_high_lr_finite_when_jax_is(setup, dtype, lr, iters):
+    """`iters` steps of finetune_decoder at learning rate `lr` in both
+    packages from one params_from_jax tree with JAX's draws (activations
+    in `dtype`, parameters f32): where both losses are finite they agree
+    within LONG_REL; once a run's loss is non-finite it stays so (the NaN
+    reaches every parameter); the port's last loss is finite exactly when
+    JAX's is, and at lr 1e-3 every step is finite exactly when JAX's is
+    (all of them, at this width). At lr 5e-2 JAX's run goes non-finite
+    too: a divergence at a high learning rate is the algorithm's (Adam on
+    random weights), not the port's."""
+    s = setup
+    key = jax.random.PRNGKey(13)
+    cond_x, y, y_len, attn = s["jin"]
+    jdec = jdiff.UnitSpeech(**DEC, dtype=getattr(jnp, dtype))
+    _, want = jft.finetune_decoder(
+        jdec.apply, jax.tree_util.tree_map(jnp.array, s["dparams"]), cond_x, y, y_len, attn,
+        jnp.asarray(s["spk"]), key, segment_size=SEG, n_iters=iters, learning_rate=lr,
+        grad_clip=1.0)
+    want = np.asarray(want)
+    c, yy, yl, a = _port_inputs(s)
+    _, got = tft.finetune_decoder(
+        DecoderConfig(**DEC), params_from_jax(s["dparams"]), c, yy, yl, a,
+        torch.from_numpy(s["spk"]), dtype=getattr(torch, dtype), segment_size=SEG,
+        n_iters=iters, learning_rate=lr, grad_clip=1.0,
+        draws=[_jax_draws(key, i, yy.shape) for i in range(iters)])
+    fin_got, fin_want = np.isfinite(got), np.isfinite(want)
+    for fin in (fin_got, fin_want):  # finite steps form a prefix
+        assert not np.any(fin[1:] & ~fin[:-1]), fin
+    both = fin_got & fin_want
+    assert both[0]
+    np.testing.assert_allclose(got[both], want[both], rtol=LONG_REL)
+    assert fin_got[-1] == fin_want[-1]
+    if lr == 1e-3:
+        np.testing.assert_array_equal(fin_got, fin_want)
+    else:
+        assert not fin_want[-1]  # JAX diverges at this learning rate
+
+
 # --- the CLI ---------------------------------------------------------------
 
 # a tiny configuration whose mel frontend and segment are small: 1.6 kHz
@@ -445,16 +498,86 @@ def test_cli_finetune_then_inference_on_cpu(tmp_path, capsys):
 
 
 def test_cli_finetune_refuses_cuda_without_a_card_and_ssl_flags(tmp_path):
-    """No quiet fall back to the CPU; the SSL frontends' flags name the
-    queue item that ports them."""
+    """No quiet fall back to the CPU; without --units the unit extractor
+    needs both --hubert and --kmeans."""
     _, args = _sidecars(tmp_path, seconds=1.0)
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             cli.main_finetune(args + ["--device", "cuda", "--n-iters", "1"])
-    for flag in (["--hubert", "h.pt"], ["--kmeans", "k.npz"], ["--speaker-embedder", "s.pt"],
-                 ["--exact-ssl"]):
-        with pytest.raises(SystemExit, match="Queue 1 item 8"):
-            cli.main_finetune(args + ["--device", "cpu", *flag])
+    i = args.index("--units")
+    no_units = args[:i] + args[i + 2:]
+    for flag in ([], ["--hubert", "h.pt"], ["--kmeans", "k.npz"]):
+        with pytest.raises(SystemExit, match=r"need --units or \(--hubert and --kmeans\)"):
+            cli.main_finetune(no_units + ["--device", "cpu", *flag])
+
+
+# TINY_FT with the SSL frontends at their test configurations: the test
+# WavLM + a 16-channel ECAPA, the test HuBERT read at its layer 2, 50
+# centroids; both read the 1.6 kHz reference as it is
+SSL_FT = dict(TINY_FT, spk_embedder=dict(sr=1600, feat_type="wavlm_test", channels=16,
+                                         spk_emb_dim=8),
+              unit_extractor=dict(dense_model_name="hubert-test", sr=1600, vocab_size=50,
+                                  hubert_layer=2))
+
+
+def test_cli_finetune_from_a_wav_alone_matches_jax_sidecars(tmp_path):
+    """`cli finetune --speaker-embedder S --hubert H --kmeans K` (no sidecar
+    files; S and H port files of the same weights as JAX's orbax files)
+    gives the losses of `cli finetune --spk-emb --units` with sidecars
+    written from JAX's extract_speaker_embedding (on the sample-bucket
+    ladder) and extract_units on the same reference: units equal, the
+    stored speaker embedding within 1e-5 of JAX's, the f32 losses within
+    1e-5 relative."""
+    from unitspeech_tpu import cli as jcli
+    from unitspeech_tpu.config import load_json as jload_json
+    from unitspeech_tpu.data.dataset import load_wav as jload_wav
+    from unitspeech_tpu.models import speaker as jsp
+    from unitspeech_tpu.models.ssl import hubert as jh
+    from unitspeech_tpu.utils.checkpoint import save_checkpoint
+    from unitspeech_tpu_torch.config import config_from_dict
+    from unitspeech_tpu_torch.utils import artifacts
+
+    ckpt, args = _sidecars(tmp_path)
+    ref = args[args.index("--reference") + 1]
+    (tmp_path / "ssl.json").write_text(json.dumps(SSL_FT))
+    jcfg, tcfg = jload_json(str(tmp_path / "ssl.json")), config_from_dict(SSL_FT)
+
+    def variables(model, seed):
+        v = randomize(jax.jit(model.init)(jax.random.PRNGKey(0), jnp.zeros((1, 2000))), seed)
+        return jax.device_get(jax.tree_util.tree_map_with_path(
+            lambda p, x: jnp.abs(x) + 0.5 if str(getattr(p[-1], "key", "")) == "var" else x, v))
+
+    spk_v = variables(jsp.SpeakerEmbedder.from_config(jcfg.spk_embedder), 40)
+    hub_v = variables(jh.HubertModel(jh.hubert_test_config()), 41)
+    files = {"--speaker-embedder": artifacts.save_module(
+                 str(tmp_path / "spk.pt"), "speaker_embedder", params_from_jax(spk_v), tcfg),
+             "--hubert": artifacts.save_module(str(tmp_path / "hubert.pt"), "hubert",
+                                               params_from_jax(hub_v), tcfg),
+             "--kmeans": str(tmp_path / "km.npz")}
+    np.savez(files["--kmeans"], centroids=np.random.default_rng(42).standard_normal(
+        (50, 16)).astype(np.float32))
+    wav, sr = jload_wav(ref)
+    jspk = jcli.extract_speaker_embedding(save_checkpoint(str(tmp_path / "jspk"), 0, spk_v),
+                                          wav, sr, jcfg)
+    units, durations = jcli.extract_units(save_checkpoint(str(tmp_path / "jhub"), 0, hub_v),
+                                          files["--kmeans"], wav, sr, jcfg)
+    np.save(tmp_path / "jspk.npy", jspk)
+    np.savez(tmp_path / "junits.npz", units=units, durations=durations)
+
+    common = ["--reference", ref, "--decoder", ckpt, "--unit-encoder", ckpt, "--config",
+              str(tmp_path / "ssl.json"), "--device", "cpu", "--n-iters", "3", "--fp32",
+              "--frame-buckets", "160,320"]
+    side = cli.main_finetune(common + ["--spk-emb", str(tmp_path / "jspk.npy"), "--units",
+                                       str(tmp_path / "junits.npz"), "--output-dir",
+                                       str(tmp_path / "side")])
+    alone = cli.main_finetune(common + [x for kv in files.items() for x in kv]
+                              + ["--output-dir", str(tmp_path / "alone")])
+    assert alone["units"] == side["units"] == len(units) > 10
+    assert "unit_extractor_s" in alone and "speaker_embedder_s" in alone
+    got = torch.load(alone["output"], weights_only=True)["spk_emb"].numpy()
+    np.testing.assert_allclose(got, jspk / np.linalg.norm(jspk), atol=1e-5)
+    np.testing.assert_allclose(alone["losses"], side["losses"], rtol=1e-5)
+    assert np.isfinite(alone["losses"]).all()
 
 
 def test_out_size_matches_jax():

@@ -164,11 +164,13 @@ def test_call_matches_jax(slice_pair, forced):
     want, sr = jsynth(TOKENS, jax.random.PRNGKey(0), diffusion_steps=STEPS,
                       _noise_z=jnp.asarray(noise_z), _noises=jnp.asarray(noises), **jkw,
                       **GUIDANCE)
-    got, got_sr = _port(ckpt)(TOKENS, forced_total_frames=forced, diffusion_steps=STEPS,
-                              noise_z=torch.from_numpy(noise_z),
-                              noises=torch.from_numpy(noises), **GUIDANCE)
+    got, got_sr, got_mel = _port(ckpt)(TOKENS, forced_total_frames=forced,
+                                       diffusion_steps=STEPS,
+                                       noise_z=torch.from_numpy(noise_z),
+                                       noises=torch.from_numpy(noises), **GUIDANCE)
     hop = ckpt["config"]["data"]["hop_length"]
     assert got_sr == sr and got.shape == (frames * hop,) == np.asarray(want).shape
+    assert got_mel.shape == (frames, ckpt["config"]["data"]["n_feats"])
     np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=5e-3)
 
 

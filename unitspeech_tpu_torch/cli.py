@@ -1,19 +1,22 @@
 """Command-line entry points of the port (counterpart of
-unitspeech_tpu/cli.py for the adaptive-TTS and speaker-adaptation slices).
+unitspeech_tpu/cli.py for the adaptive-TTS and speaker-adaptation slices
+and the SSL frontends).
 
     python -m unitspeech_tpu_torch.cli make-random-checkpoint --seed 0 --output ckpt.pt
-    python -m unitspeech_tpu_torch.cli inference --ipa --text "..." \\
+    python -m unitspeech_tpu_torch.cli inference --text "Hello." [--language en-us] \\
         --checkpoint ckpt.pt [--decoder adapted/decoder.pt] --output out.wav
     python -m unitspeech_tpu_torch.cli finetune --reference ref.wav \\
-        --decoder ckpt.pt --unit-encoder ckpt.pt --spk-emb spk.npy --units units.npz \\
-        --output-dir adapted
+        --decoder ckpt.pt --unit-encoder ckpt.pt --speaker-embedder spk.pt \\
+        --hubert hubert.pt --kmeans kmeans.npz --output-dir adapted
     python -m unitspeech_tpu_torch.cli convert decoder pretrained_decoder.pt decoder.pt
 
 A checkpoint is a `torch.save`d dict: one state dict per module in the
 port's layout, the speaker embedding, the mel min/max and the config
 (utils/artifacts lists the port's formats). Every command runs on the card
 unless `--device cpu` is given; with no CUDA device `--device cuda` exits
-non-zero.
+non-zero. f32 means f32: `inference` and `finetune` run with TF32 off for
+f32 matmuls and cuDNN convs (utils/precision.strict_f32), and give the
+caller's settings back when they return.
 """
 
 from __future__ import annotations
@@ -27,10 +30,16 @@ import time
 import numpy as np
 
 from unitspeech_tpu_torch.utils.audio import load_wav, write_wav
+from unitspeech_tpu_torch.utils.precision import strict_f32
 
 # Mel-frame bucket ladder of the fine-tune's reference (4/8/12/16/24 s of
 # 22.05 kHz audio at hop 256), as the JAX CLI pads it
 DEFAULT_ADAPT_BUCKETS = "344,688,1032,1376,2064"
+# Sample-bucket ladder of the speaker embedder's input (6 s / 12 s at
+# 16 kHz), as the JAX CLI pads it: the wav is reflect-extended to the first
+# bucket that holds it (the same speaker's audio, so the pooled embedding
+# stays on-speaker); longer wavs and --exact-ssl keep their exact length
+DEFAULT_SPK_SAMPLE_BUCKETS = (96000, 192000)
 
 
 def _device(name: str):
@@ -105,12 +114,67 @@ def _load_tts_models(args, device, dtype, routes):
                                       dtype=dtype, **routes)
 
 
+def token_lists(args, cfg):
+    """The request's token-ID lists: the IPA text, or the graphemes through
+    espeak (the rule G2P without it) in one chunk or, with
+    --split-sentences, one per sentence chunk; empty chunks are dropped."""
+    from unitspeech_tpu_torch import text as text_frontend
+
+    if args.ipa:
+        lists = [text_frontend.phonemes_to_sequence(args.text)]
+    else:
+        lang = args.language or cfg.inference.language
+        ph = text_frontend.get_phonemizer(lang, fallback=True)
+        if ph is None:
+            raise SystemExit(f"espeak-ng not installed and no G2P fallback for {lang!r}: "
+                             "pass pre-phonemized IPA via --ipa")
+        chunks = text_frontend.split_sentences(args.text) if args.split_sentences else [args.text]
+        lists = [ids for c in chunks if (ids := text_frontend.text_to_sequence(c, ph))]
+    if not lists or not lists[0]:
+        raise SystemExit("text produced no tokens")
+    return lists
+
+
+def save_mel_plot(mel: np.ndarray, path: str):
+    """The mel spectrogram (T, F) as a PNG (reference save_plot,
+    util.py:110-121)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(12, 3))
+    im = ax.imshow(mel.T, aspect="auto", origin="lower", interpolation="none")
+    plt.colorbar(im, ax=ax)
+    plt.tight_layout()
+    fig.savefig(path)
+    plt.close(fig)
+
+
+def chunk_seed(seed: int, i: int) -> int:
+    """The generator seed of sentence chunk i of a --split-sentences request
+    with more than one chunk: drawn from numpy's SeedSequence((seed, i))."""
+    return int(np.random.SeedSequence((seed, i)).generate_state(1, np.uint64)[0] >> 1)
+
+
+@strict_f32()
 def main_inference(argv=None) -> dict:
-    """Synthesize one utterance; returns and prints its statistics."""
+    """Synthesize one request; returns and prints its statistics."""
     ap = argparse.ArgumentParser("unitspeech-tpu-torch inference")
-    ap.add_argument("--text", required=True, help="pre-phonemized IPA text (with --ipa)")
-    ap.add_argument("--ipa", action="store_true",
-                    help="text is IPA (required: grapheme input comes in a later slice)")
+    ap.add_argument("--text", required=True, help="input text (IPA with --ipa)")
+    ap.add_argument("--ipa", action="store_true", help="the text is pre-phonemized IPA")
+    ap.add_argument("--language", default=None,
+                    help="espeak language, en-us or ro (default: the config's "
+                         "inference.language); without espeak-ng the built-in rule G2P "
+                         "of the language phonemizes")
+    ap.add_argument("--split-sentences", action="store_true",
+                    help="long-text mode: one synthesis per sentence chunk, concatenated, "
+                         "then sv56. With more than one chunk, chunk i draws from a "
+                         "generator seeded from (--seed, i) (numpy SeedSequence); the JAX "
+                         "CLI's fold_in stream is not reproduced")
+    ap.add_argument("--save-plot", default=None,
+                    help="write the generated mel spectrogram (all chunks) as a PNG; needs "
+                         "matplotlib")
     ap.add_argument("--checkpoint", default=None,
                     help="the port's combined checkpoint (make-random-checkpoint)")
     ap.add_argument("--decoder", default=None,
@@ -133,10 +197,13 @@ def main_inference(argv=None) -> dict:
     ap.add_argument("--text-gradient-scale", type=float, default=None)
     ap.add_argument("--spk-gradient-scale", type=float, default=None)
     ap.add_argument("--frames", type=int, default=None,
-                    help="force the durations to sum to this many mel frames")
+                    help="force each chunk's durations to sum to this many mel frames")
     ap.add_argument("--no-sv56", action="store_true")
     ap.add_argument("--fp32", dest="bf16", action="store_false",
-                    help="decoder and vocoder in f32, on the plain path (the kernels take bf16)")
+                    help="decoder and vocoder in f32, on the plain path (the kernels take "
+                         "bf16). f32 is full f32 on the card: TF32 is off for every f32 "
+                         "matmul and cuDNN conv of the command (the text encoder and "
+                         "duration predictor always run f32)")
     ap.add_argument("--no-fast-kernels", dest="fast_kernels", action="store_false",
                     help="run the plain PyTorch path instead of the estimator and vocoder "
                          "kernels (default: kernels on in bf16)")
@@ -153,14 +220,16 @@ def main_inference(argv=None) -> dict:
     ap.add_argument("--resample", action="store_true",
                     help="fused stride-2 Downsample/Upsample convs (K11) where they apply")
     args = ap.parse_args(argv)
-    if not args.ipa:
-        raise SystemExit("grapheme input is not ported yet: pass IPA text with --ipa")
+    if args.save_plot:
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as e:
+            raise SystemExit(f"--save-plot needs matplotlib ({e})") from e
 
     import torch
 
     from unitspeech_tpu_torch.infer.tts import Synthesizer
     from unitspeech_tpu_torch.ops import sv56
-    from unitspeech_tpu_torch.text import phonemes_to_sequence
 
     device = _device(args.device)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
@@ -171,27 +240,37 @@ def main_inference(argv=None) -> dict:
                   use_deep=fast and args.deep, use_resample=fast and args.resample,
                   use_i8pre_deep=fast and args.int8 and args.i8pre)
     models = _load_tts_models(args, device, dtype, routes)
+    cfg = models.cfg
+    lists = token_lists(args, cfg)
     synth = Synthesizer(models)
-    token_ids = phonemes_to_sequence(args.text)
-    if not token_ids:
-        raise SystemExit("text produced no tokens")
+    hop = cfg.data.hop_length
 
-    gen = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()
-    wav, sr = synth(token_ids, gen, forced_total_frames=args.frames,
-                    diffusion_steps=args.diffusion_steps, length_scale=args.length_scale,
-                    text_gradient_scale=args.text_gradient_scale,
-                    spk_gradient_scale=args.spk_gradient_scale)
-    wall = time.perf_counter() - t0  # synth returns host data: the device is done
-    if wav.size == 0 or not np.isfinite(wav).all():
-        raise RuntimeError("synthesis produced an empty or non-finite waveform")
-    if not args.no_sv56 and models.cfg.inference.with_sv56_normalization:
+    wavs, mels = [], []
+    for i, ids in enumerate(lists):
+        seed = args.seed if len(lists) == 1 else chunk_seed(args.seed, i)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        wav, sr, mel = synth(ids, gen, forced_total_frames=args.frames,
+                             diffusion_steps=args.diffusion_steps,
+                             length_scale=args.length_scale,
+                             text_gradient_scale=args.text_gradient_scale,
+                             spk_gradient_scale=args.spk_gradient_scale)
+        if wav.size == 0 or not np.isfinite(wav).all():
+            raise RuntimeError(f"chunk {i}: synthesis produced an empty or non-finite waveform")
+        wavs.append(wav)
+        if args.save_plot:
+            mels.append(mel.float().cpu().numpy())
+    wall = time.perf_counter() - t0  # the waveforms are on the host: the device is done
+    wav = np.concatenate(wavs)
+    if not args.no_sv56 and cfg.inference.with_sv56_normalization:
         wav = sv56.normalize(wav, sr)
     write_wav(args.output, wav, sr)
-    hop = models.cfg.data.hop_length
+    if args.save_plot:
+        save_mel_plot(np.concatenate(mels), args.save_plot)
     seconds = len(wav) / sr
-    stats = {"output": args.output, "tokens": len(token_ids), "frames": len(wav) // hop,
-             "seconds": seconds, "wall_s": wall, "rtf": wall / seconds if seconds else None,
+    stats = {"output": args.output, "tokens": sum(len(ids) for ids in lists),
+             "chunks": len(lists), "frames": len(wav) // hop, "seconds": seconds,
+             "wall_s": wall, "rtf": wall / seconds if seconds else None,
              "device": str(device), "kernels": fast, "int8": routes["use_int8_deep"],
              "deep": routes["use_deep"], "i8pre": routes["use_i8pre_deep"],
              "resample": routes["use_resample"]}
@@ -227,10 +306,10 @@ def reference_mel(wav: np.ndarray, cfg, frame_buckets: str, device):
     return mel[0, :t_true], pad_to
 
 
-def finetune_inputs(cfg, reference: str, units: str, unit_encoder_sd: dict, mel_min, mel_max,
-                    frame_buckets: str, device):
-    """The fine-tune's inputs from a reference wav and its units sidecar
-    (.npz of 50 Hz units and durations), as the JAX CLI prepares them: the
+def finetune_inputs(cfg, wav: np.ndarray, units, durations, unit_encoder_sd: dict, mel_min,
+                    mel_max, frame_buckets: str, device):
+    """The fine-tune's inputs from a reference wav (at cfg.data.sampling_rate)
+    and its 50 Hz units and durations, as the JAX CLI prepares them: the
     reference's mel normalized with the decoder's mel_min / mel_max, the
     units at the mel frame rate (process_unit, counted at
     cfg.spk_embedder.sr), the frozen unit encoder's output and the
@@ -240,14 +319,9 @@ def finetune_inputs(cfg, reference: str, units: str, unit_encoder_sd: dict, mel_
     from unitspeech_tpu_torch.ops.units import process_unit
     from unitspeech_tpu_torch.train.finetune import prepare_finetune_inputs
 
-    wav, sr = load_wav(reference)
-    if sr != cfg.data.sampling_rate:
-        raise SystemExit(f"{reference}: expected {cfg.data.sampling_rate} Hz, got {sr}")
     mel, pad_to = reference_mel(wav, cfg, frame_buckets, device)
     mel = normalize_mel(mel, mel_min.to(device), mel_max.to(device))
-    z = np.load(units)
-    units, durations = process_unit(z["units"], z["durations"], cfg.spk_embedder.sr,
-                                    cfg.data.hop_length)
+    units, durations = process_unit(units, durations, cfg.spk_embedder.sr, cfg.data.hop_length)
     with device:
         unit_encoder = Encoder.from_config(cfg.unit_encoder)
     unit_encoder.load_state_dict(unit_encoder_sd)
@@ -256,11 +330,100 @@ def finetune_inputs(cfg, reference: str, units: str, unit_encoder_sd: dict, mel_
                                    pad_to=pad_to)
 
 
+def resample_to(wav: np.ndarray, sr: int, target: int) -> np.ndarray:
+    """wav at sr -> f32 at target (scipy resample_poly on the host, in
+    float64, as the JAX CLI)."""
+    if sr == target:
+        return np.asarray(wav, np.float32)
+    from scipy.signal import resample_poly
+
+    return resample_poly(np.asarray(wav, np.float64), target, sr).astype(np.float32)
+
+
+def load_speaker_embedder(path: str, cfg, device):
+    """The WavLM + ECAPA speaker embedder (cfg: the MainConfig) from a
+    reference speaker_encoder.pt or a port file, on `device` in eval mode.
+    Load it once and reuse it: WavLM-Large is about 1.26 GB in f32."""
+    import torch
+
+    from unitspeech_tpu_torch.models.speaker import SpeakerEmbedder
+    from unitspeech_tpu_torch.utils import artifacts
+
+    with torch.device("meta"):
+        model = SpeakerEmbedder.from_config(cfg.spk_embedder)
+    sd = artifacts.load_speaker_embedder_params(path, model.wavlm.config)
+    model.load_state_dict(sd, assign=True)
+    return model.to(device).eval().requires_grad_(False)
+
+
+@strict_f32()
+def embed_speaker(model, wav: np.ndarray, sr: int, cfg,
+                  sample_buckets=DEFAULT_SPK_SAMPLE_BUCKETS) -> np.ndarray:
+    """wav -> (1, emb) speaker embedding, not normalized: resampled to
+    cfg.spk_embedder.sr on the host and reflect-extended to the first
+    sample bucket that holds it (sample_buckets None or empty: the exact
+    length, the reference's behavior); f32 on the model's device."""
+    import torch
+
+    from unitspeech_tpu_torch.ops.mel import reflect_extend
+
+    wav = resample_to(wav, sr, cfg.spk_embedder.sr)
+    for b in sample_buckets or ():
+        if b >= len(wav):
+            wav = reflect_extend(wav, b)
+            break
+    device = next(model.parameters()).device
+    with torch.no_grad():
+        emb = model(torch.from_numpy(np.ascontiguousarray(wav, np.float32))[None].to(device))
+    return emb.cpu().numpy()
+
+
+def extract_speaker_embedding(path: str, wav, sr: int, cfg, device,
+                              sample_buckets=DEFAULT_SPK_SAMPLE_BUCKETS) -> np.ndarray:
+    """load_speaker_embedder, then embed_speaker."""
+    return embed_speaker(load_speaker_embedder(path, cfg, device), wav, sr, cfg, sample_buckets)
+
+
+def build_unit_extractor(hubert_path: str, kmeans_path: str, cfg, device):
+    """The mHuBERT + k-means SpeechEncoder (wav at 16 kHz -> units,
+    durations), its models on `device`; load it once and reuse it."""
+    import torch
+
+    from unitspeech_tpu_torch.models.ssl.hubert import (
+        HubertFeatureReader,
+        HubertModel,
+        hubert_config_by_name,
+    )
+    from unitspeech_tpu_torch.models.ssl.speech_encoder import SpeechEncoder
+    from unitspeech_tpu_torch.utils import artifacts
+
+    ucfg = cfg.unit_extractor
+    if ucfg.dense_model_name.startswith("cpc"):
+        raise SystemExit(f"{ucfg.dense_model_name}: the CPC dense models are not ported yet "
+                         "(ROADMAP Queue 1 item 12)")
+    with torch.device("meta"):
+        model = HubertModel(hubert_config_by_name(ucfg.dense_model_name))
+    model.load_state_dict(artifacts.load_hubert_params(hubert_path, model.config), assign=True)
+    model = model.to(device).eval().requires_grad_(False)
+    return SpeechEncoder(HubertFeatureReader(model, layer=ucfg.hubert_layer),
+                         artifacts.load_kmeans(kmeans_path), deduplicate=ucfg.deduplicate)
+
+
+@strict_f32()
+def extract_units(encoder, wav, sr: int, cfg):
+    """wav -> (units, durations) at 50 Hz through a build_unit_extractor
+    SpeechEncoder, the wav resampled to cfg.unit_extractor.sr on the host."""
+    out = encoder(resample_to(wav, sr, cfg.unit_extractor.sr))
+    return out["units"], out["durations"]
+
+
+@strict_f32()
 def main_finetune(argv=None) -> dict:
     """Adapt the decoder to the voice of one reference wav (reference
     finetune.py; JAX cli.py main_finetune); returns and prints its
-    statistics. The speaker embedding and the units come as sidecar files
-    until the SSL frontends are ported."""
+    statistics. The speaker embedding comes from --spk-emb, else the
+    WavLM + ECAPA embedder (--speaker-embedder), else the decoder file; the
+    units from --units, else mHuBERT + k-means (--hubert, --kmeans)."""
     ap = argparse.ArgumentParser("unitspeech-tpu-torch finetune")
     ap.add_argument("--reference", required=True, help="reference wav (22.05 kHz)")
     ap.add_argument("--decoder", required=True,
@@ -270,14 +433,25 @@ def main_finetune(argv=None) -> dict:
     ap.add_argument("--output-dir", required=True)
     ap.add_argument("--n-iters", type=int, default=None)
     ap.add_argument("--learning-rate", type=float, default=None)
-    ap.add_argument("--spk-emb", default=None, help=".npy speaker embedding")
+    ap.add_argument("--spk-emb", default=None,
+                    help=".npy speaker embedding (skips the WavLM + ECAPA pass)")
     ap.add_argument("--units", default=None,
-                    help=".npz with units and their 50 Hz durations")
-    for flag in ("--speaker-embedder", "--hubert", "--kmeans"):
-        ap.add_argument(flag, default=None, help="not ported yet (the SSL frontends)")
-    ap.add_argument("--exact-ssl", action="store_true", help="not ported yet")
+                    help=".npz with units and their 50 Hz durations (skips the mHuBERT pass)")
+    ap.add_argument("--speaker-embedder", default=None,
+                    help="WavLM + ECAPA: the reference's speaker_encoder.pt or a port file "
+                         "(cli convert speaker-embedder)")
+    ap.add_argument("--hubert", default=None,
+                    help="mHuBERT: a fairseq checkpoint or a port file (cli convert hubert)")
+    ap.add_argument("--kmeans", default=None,
+                    help="k-means centroids: .npz, or sklearn's joblib file (needs sklearn)")
+    ap.add_argument("--exact-ssl", action="store_true",
+                    help="give the speaker embedder the exact-length wav (the reference's "
+                         "behavior) instead of the sample-bucket ladder "
+                         f"{DEFAULT_SPK_SAMPLE_BUCKETS}")
     ap.add_argument("--fp32", dest="bf16", action="store_false",
-                    help="decoder activations in f32 (default bf16; parameters stay f32)")
+                    help="decoder activations in f32 (default bf16; parameters stay f32). "
+                         "f32 is full f32 on the card: TF32 is off for every f32 matmul and "
+                         "cuDNN conv of the command, the SSL frontends included")
     ap.add_argument("--frame-buckets", default=DEFAULT_ADAPT_BUCKETS,
                     help="comma-separated mel-frame bucket ladder the reference pads to; "
                          "'' for its exact length")
@@ -287,13 +461,6 @@ def main_finetune(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    ssl = [f for f, v in (("--speaker-embedder", args.speaker_embedder),
-                          ("--hubert", args.hubert), ("--kmeans", args.kmeans),
-                          ("--exact-ssl", args.exact_ssl)) if v]
-    if ssl:
-        raise SystemExit(f"{', '.join(ssl)}: the SSL frontends (WavLM + ECAPA, mHuBERT + "
-                         "k-means) are not ported yet (ROADMAP Queue 1 item 8); pass "
-                         "--spk-emb and --units")
 
     import torch
 
@@ -310,19 +477,37 @@ def main_finetune(argv=None) -> dict:
     bundle = artifacts.load_decoder_bundle(dec_obj, cfg.decoder)
     if bundle.mel_min is None or bundle.mel_max is None:
         raise SystemExit(f"{args.decoder}: no mel_min / mel_max")
+    if not args.units and not (args.hubert and args.kmeans):
+        raise SystemExit("need --units or (--hubert and --kmeans)")
+    wav, sr = load_wav(args.reference)
+    if sr != cfg.data.sampling_rate:
+        raise SystemExit(f"{args.reference}: expected {cfg.data.sampling_rate} Hz, got {sr}")
 
+    frontends = {}
+    t0 = time.perf_counter()
     if args.spk_emb:
-        spk = torch.from_numpy(np.load(args.spk_emb).astype(np.float32)).reshape(1, -1)
+        spk = np.load(args.spk_emb).astype(np.float32).reshape(1, -1)
+    elif args.speaker_embedder:
+        spk = extract_speaker_embedding(
+            args.speaker_embedder, wav, sr, cfg, device,
+            sample_buckets=None if args.exact_ssl else DEFAULT_SPK_SAMPLE_BUCKETS)
+        frontends["speaker_embedder_s"] = time.perf_counter() - t0
     elif bundle.spk_emb is not None:
-        spk = bundle.spk_emb
+        spk = bundle.spk_emb.numpy()
     else:
-        raise SystemExit("need --spk-emb or a decoder checkpoint with spk_emb")
-    spk = (spk / torch.linalg.vector_norm(spk)).to(device)
-    if not args.units:
-        raise SystemExit("need --units (mHuBERT + k-means extraction is not ported yet, "
-                         "ROADMAP Queue 1 item 8)")
+        raise SystemExit("need --spk-emb, --speaker-embedder or a decoder file with spk_emb")
+    spk = torch.from_numpy(spk / np.linalg.norm(spk)).to(device)
+
+    t0 = time.perf_counter()
+    if args.units:
+        with np.load(args.units) as z:
+            units, durations = z["units"], z["durations"]
+    else:
+        units, durations = extract_units(build_unit_extractor(args.hubert, args.kmeans, cfg,
+                                                              device), wav, sr, cfg)
+        frontends["unit_extractor_s"] = time.perf_counter() - t0
     cond_x, y, y_lengths, attn = finetune_inputs(
-        cfg, args.reference, args.units, artifacts.load_encoder_params(
+        cfg, wav, units, durations, artifacts.load_encoder_params(
             args.unit_encoder, cfg.unit_encoder, "unit_encoder"),
         bundle.mel_min, bundle.mel_max, args.frame_buckets, device)
 
@@ -331,9 +516,9 @@ def main_finetune(argv=None) -> dict:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()
     state, losses = finetune_decoder(
-        cfg.decoder, bundle.state_dict, cond_x, y, y_lengths, attn, spk, dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        segment_size=cfg.out_size, n_iters=n_iters, learning_rate=lr,
-        grad_clip=cfg.finetune.grad_clip, generator=gen)
+        cfg.decoder, bundle.state_dict, cond_x, y, y_lengths, attn, spk,
+        dtype=torch.bfloat16 if args.bf16 else torch.float32, segment_size=cfg.out_size,
+        n_iters=n_iters, learning_rate=lr, grad_clip=cfg.finetune.grad_clip, generator=gen)
     seconds = time.perf_counter() - t0  # the losses came back to the host: the device is done
     os.makedirs(args.output_dir, exist_ok=True)
     out = artifacts.save_decoder_bundle(
@@ -344,7 +529,8 @@ def main_finetune(argv=None) -> dict:
              "loss_first10": float(losses[:10].mean()),
              "loss_last10": float(losses[-10:].mean()), "output": out,
              "device": str(device), "bf16": args.bf16, "segment": cfg.out_size,
-             "frames": int(y_lengths[0]), "bucket": int(y.shape[1])}
+             "frames": int(y_lengths[0]), "bucket": int(y.shape[1]), "units": len(units),
+             **frontends}
     print(json.dumps(stats))
     return {**stats, "losses": losses}
 

@@ -1,10 +1,10 @@
 """The port's configuration: the sections of unitspeech_tpu/config.py that
-the adaptive-TTS and speaker-adaptation slices read, as frozen dataclasses
-with the same fields, the same defaults (the reference's numbers) and the
-same dict form, so a checkpoint's `config` dict and a JSON overlay read the
-same in both packages. Sections no ported path reads (the contentvec
-encoder, the unit extractor, the device mesh) are left out; a dict that
-carries them loads with them ignored.
+the adaptive-TTS and speaker-adaptation slices and the SSL frontends read,
+as frozen dataclasses with the same fields, the same defaults (the
+reference's numbers) and the same dict form, so a checkpoint's `config`
+dict and a JSON overlay read the same in both packages. Sections no ported
+path reads (the contentvec encoder, the device mesh) are left out; a dict
+that carries them loads with them ignored.
 """
 
 from __future__ import annotations
@@ -154,13 +154,27 @@ class InferenceConfig:
 @dataclass(frozen=True)
 class SpeakerEmbedderConfig:
     """WavLM-Large + ECAPA-TDNN speaker embedder (reference
-    conf/hydra_config.py:166-175). The fine-tune reads `sr`, the rate the
-    units' 50 Hz durations are counted at (ops/units.process_unit)."""
+    conf/hydra_config.py:166-175). `sr` is the rate the speaker embedder
+    reads and the rate the units' 50 Hz durations are counted at
+    (ops/units.process_unit)."""
 
     feat_dim: int = 1024
     feat_type: str = "wavlm_large"
     channels: int = 512
     spk_emb_dim: int = 256
+    sr: int = 16000
+
+
+@dataclass(frozen=True)
+class UnitExtractorConfig:
+    """mHuBERT + k-means unit extractor (reference conf/hydra_config.py:179-184)."""
+
+    dense_model_name: str = "mhubert-base-vp_en_es_fr"
+    quantizer_name: str = "kmeans"
+    vocab_size: int = 1000
+    deduplicate: bool = True
+    hubert_layer: int = 6
+    hop: int = 320  # 50 Hz at 16 kHz
     sr: int = 16000
 
 
@@ -176,6 +190,7 @@ class MainConfig:
     finetune: FinetuneConfig = FinetuneConfig()
     inference: InferenceConfig = InferenceConfig()
     spk_embedder: SpeakerEmbedderConfig = SpeakerEmbedderConfig()
+    unit_extractor: UnitExtractorConfig = UnitExtractorConfig()
 
     @property
     def out_size(self) -> int:

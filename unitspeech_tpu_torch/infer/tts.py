@@ -178,7 +178,9 @@ class Synthesizer:
 
     def __call__(self, token_ids: Sequence[int], generator=None, forced_total_frames=None,
                  **kwargs):
-        """Token IDs -> (waveform np.ndarray (n_samples,), sample_rate).
+        """Token IDs -> (waveform np.ndarray (n_samples,), sample_rate, mel):
+        mel is the denormalized log-mel (y_length, F) the waveform was
+        vocoded from, trimmed to its true frames, on the models' device.
 
         forced_total_frames: durations forced to sum to this many frames
         (the forced-duration mode); otherwise predicted (the exact mode).
@@ -190,4 +192,4 @@ class Synthesizer:
         mel, y_length, _ = self.synthesize_mel(token_ids, generator, **kwargs)
         hop = self.models.cfg.data.hop_length
         wav = self.vocode(mel)[0, : y_length * hop]
-        return wav.cpu().numpy(), self.models.cfg.data.sampling_rate
+        return wav.cpu().numpy(), self.models.cfg.data.sampling_rate, mel[0, :y_length]

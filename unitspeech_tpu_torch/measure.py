@@ -67,6 +67,7 @@ from unitspeech_tpu_torch import cli
 from unitspeech_tpu_torch.infer.tts import Synthesizer, TTSModels, forced_durations
 from unitspeech_tpu_torch.ops import _cuda
 from unitspeech_tpu_torch.text import phonemes_to_sequence
+from unitspeech_tpu_torch.utils.audio import load_wav
 
 FRAMES, STEPS = 344, 50
 TEXT = "ðɪs ɹɪkwɛst ɪz fɔɹst tə ðə θɹi hʌndɹəd ənd fɔɹti fɔɹ fɹeɪm bʌkɪt."
@@ -248,8 +249,11 @@ def measure_finetune(ckpt_path, tmp):
 
     # the same inputs as the CLI's, for the library loop
     dev = torch.device("cuda")
-    inputs = cli.finetune_inputs(cfg, flags[1], flags[3], ckpt["unit_encoder"], ckpt["mel_min"],
-                                 ckpt["mel_max"], cli.DEFAULT_ADAPT_BUCKETS, dev)
+    with np.load(flags[3]) as z:
+        units, durations = z["units"], z["durations"]
+    inputs = cli.finetune_inputs(cfg, load_wav(flags[1])[0], units, durations,
+                                 ckpt["unit_encoder"], ckpt["mel_min"], ckpt["mel_max"],
+                                 cli.DEFAULT_ADAPT_BUCKETS, dev)
     spk = torch.from_numpy(np.load(flags[5])).reshape(1, -1).to(dev)
     spk = spk / spk.norm()
     kw = dict(dtype=torch.bfloat16, segment_size=cfg.out_size,

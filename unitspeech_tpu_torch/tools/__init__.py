@@ -28,10 +28,12 @@ import torch
 LEAD_CYCLES = 2_000_000
 
 
-def median_ms(fn, device, reps: int = 20, warmup: int = 3) -> float:
+def median_ms(fn, device, reps: int = 20, warmup: int = 3,
+              lead_cycles: int = LEAD_CYCLES) -> float:
     """Median milliseconds of one call of fn: on the card its device time
-    under CUDA events, the events recorded behind LEAD_CYCLES of spinning;
-    on the CPU the host clock."""
+    under CUDA events, the events recorded behind `lead_cycles` of spinning
+    (a call whose launches take the host longer than the spin is timed at
+    the host's pace); on the CPU the host clock."""
     for _ in range(warmup):
         fn()
     times = []
@@ -39,7 +41,7 @@ def median_ms(fn, device, reps: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize(device)
         for _ in range(reps):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(LEAD_CYCLES)
+            torch.cuda._sleep(lead_cycles)
             a.record()
             fn()
             b.record()

@@ -88,10 +88,9 @@ def short_name(name: str) -> str:
     return "".join(out)
 
 
-def launch_times(fn, reps: int) -> list[dict]:
-    """[{name, launches, ms}] per call of fn: each kernel's device time
-    and launches over `reps` profiled calls, divided by `reps`, in the
-    order the kernels first ran. The calls run EDGE_S after the trace
+def _device_events(fn, reps: int) -> list:
+    """The device activities (kernels and copies) of `reps` profiled calls
+    of fn, after 3 unprofiled ones. The calls run EDGE_S after the trace
     starts and end EDGE_S before it stops: a kernel right at either edge
     may be left out of the trace (one call in 20, up to five, on the H100),
     which would show as a fraction of a launch per call."""
@@ -107,15 +106,23 @@ def launch_times(fn, reps: int) -> list[dict]:
             fn()
         torch.cuda.synchronize()
         time.sleep(EDGE_S)
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _device_us(e) -> float:
+    return e.device_time if hasattr(e, "device_time") else e.cuda_time
+
+
+def launch_times(fn, reps: int) -> list[dict]:
+    """[{name, launches, ms}] per call of fn: each kernel's device time
+    and launches over `reps` profiled calls (_device_events), divided by
+    `reps`, in the order the kernels first ran."""
     rows: dict[str, dict] = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = e.device_time if hasattr(e, "device_time") else e.cuda_time
+    for e in _device_events(fn, reps):
         r = rows.setdefault(short_name(e.name), {"name": short_name(e.name), "launches": 0,
                                                  "ms": 0.0, "start": e.time_range.start})
         r["launches"] += 1
-        r["ms"] += us / 1e3
+        r["ms"] += _device_us(e) / 1e3
         r["start"] = min(r["start"], e.time_range.start)
     out = sorted(rows.values(), key=lambda r: r["start"])
     for r in out:
@@ -123,6 +130,21 @@ def launch_times(fn, reps: int) -> list[dict]:
         r["ms"] /= reps
         r["launches"] /= reps
     return out
+
+
+def device_activity(fn, reps: int) -> dict:
+    """{sum_ms, busy_ms, launches} per call of fn over `reps` profiled calls
+    (_device_events): the summed durations of its device activities, the
+    time at least one of them ran (the union of their intervals, which is
+    below the sum where activities overlap), and their count."""
+    events = sorted(_device_events(fn, reps), key=lambda e: e.time_range.start)
+    busy_us, end = 0.0, float("-inf")
+    for e in events:
+        a, b = e.time_range.start, e.time_range.start + _device_us(e)
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return {"sum_ms": sum(_device_us(e) for e in events) / 1e3 / reps,
+            "busy_ms": busy_us / 1e3 / reps, "launches": len(events) / reps}
 
 
 def _lens_mask(t, dev):

@@ -12,7 +12,8 @@ config beside them:
   * a decoder bundle (save_decoder_bundle, what `cli finetune` writes):
     {"decoder", "spk_emb", "mel_min", "mel_max", "step", "config"};
   * a module file (save_module, what `cli convert` writes for the other
-    families): {<module name>: state dict, "config"}.
+    families, the SSL models included): {<module name>: state dict,
+    "config"}; k-means centroids are a `.npz` ({"centroids": (K, D)}).
 
 A reference file holds its state dict under "model" (the decoder, and
 often the encoders and the duration predictor), under "generator"
@@ -23,13 +24,14 @@ read here.
 from __future__ import annotations
 
 import dataclasses
+import pickle
 from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
-from unitspeech_tpu_torch.utils import torch_convert
+from unitspeech_tpu_torch.utils import torch_convert, torch_convert_ssl
 from unitspeech_tpu_torch.utils.params import params_from_jax
 
 
@@ -42,12 +44,12 @@ class DecoderBundle:
     step: int = 0
 
 
-def read(src):
+def read(src, weights_only: bool = True):
     """A checkpoint dict: `src` itself when it is one, else the file at that
-    path (loaded to the CPU, tensors only)."""
+    path (loaded to the CPU, tensors only unless weights_only is False)."""
     if isinstance(src, Mapping):
         return src
-    return torch.load(src, map_location="cpu", weights_only=True)
+    return torch.load(src, map_location="cpu", weights_only=weights_only)
 
 
 def _numpy(sd) -> dict:
@@ -141,3 +143,67 @@ def load_vocoder_params(src, cfg) -> dict:
         _numpy(obj.get("generator", obj)), num_upsamples=len(cfg.upsample_rates),
         num_kernels=len(cfg.resblock_kernel_sizes),
         convs_per_block=len(cfg.resblock_dilation_sizes[0])))
+
+
+def _ssl_numpy(obj) -> dict:
+    """The tensors of a reference SSL checkpoint's state dict (under "model"
+    or at the top level) as numpy arrays; other entries are skipped."""
+    sd = obj.get("model", obj)
+    return {k: v.detach().cpu().numpy() for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def _read_ssl(src):
+    """An SSL checkpoint dict, read tensors-only first. Only a file that the
+    safe load refuses, such as a fairseq or s3prl checkpoint whose "cfg" /
+    "args" entries are Python objects, is unpickled in full, as the
+    reference and the JAX package read it; the port's module files never
+    are."""
+    try:
+        return read(src)
+    except pickle.UnpicklingError:
+        return read(src, weights_only=False)
+
+
+def load_hubert_params(src, cfg) -> dict:
+    """The unit extractor's HuBERT (cfg: its HubertConfig). Reference
+    format: a fairseq checkpoint (read by _read_ssl); the port's: a module
+    file."""
+    obj = _read_ssl(src)
+    sd = _port_entry(obj, "hubert", src)
+    if sd is not None:
+        return sd
+    return params_from_jax(torch_convert_ssl.convert_hubert(
+        _ssl_numpy(obj), cfg.num_layers, len(cfg.conv_layers)))
+
+
+def load_wavlm_params(src, cfg) -> dict:
+    """A WavLM alone (cfg: its WavLMConfig), as s3prl's WavLM checkpoints
+    hold it (read by _read_ssl)."""
+    obj = _read_ssl(src)
+    sd = _port_entry(obj, "wavlm", src)
+    if sd is not None:
+        return sd
+    return params_from_jax(torch_convert_ssl.convert_wavlm(
+        _ssl_numpy(obj), cfg.num_layers, len(cfg.conv_layers)))
+
+
+def load_speaker_embedder_params(src, cfg) -> dict:
+    """WavLM + ECAPA (cfg: the WavLMConfig of its backbone). Reference
+    format: speaker_encoder.pt, its state dict under "model" with the
+    WavLM under feature_extract.model.*; the port's: a module file."""
+    obj = read(src)
+    sd = _port_entry(obj, "speaker_embedder", src)
+    if sd is not None:
+        return sd
+    return params_from_jax(torch_convert_ssl.convert_speaker_embedder(
+        _ssl_numpy(obj), cfg.num_layers, len(cfg.conv_layers)))
+
+
+def load_kmeans(src):
+    """A KMeansQuantizer from a centroids `.npz`, or from a sklearn joblib
+    checkpoint (needs joblib and sklearn)."""
+    from unitspeech_tpu_torch.models.ssl.kmeans import KMeansQuantizer
+
+    if str(src).endswith(".npz"):
+        return KMeansQuantizer.load(src)
+    return KMeansQuantizer(torch_convert_ssl.convert_sklearn_kmeans(src))

@@ -6,11 +6,18 @@
     python -m unitspeech_tpu_torch.cli convert unit-encoder unit_encoder.pt ue.pt
     python -m unitspeech_tpu_torch.cli convert duration-predictor duration_predictor.pt dp.pt
     python -m unitspeech_tpu_torch.cli convert vocoder bigvgan_generator.pt voc.pt
+    python -m unitspeech_tpu_torch.cli convert hubert mhubert_base.pt hubert.pt
+    python -m unitspeech_tpu_torch.cli convert wavlm WavLM-Large.pt wavlm.pt
+    python -m unitspeech_tpu_torch.cli convert speaker-embedder speaker_encoder.pt spk.pt
+    python -m unitspeech_tpu_torch.cli convert kmeans kmeans.bin kmeans.npz
 
 A decoder becomes a decoder bundle (utils/artifacts.save_decoder_bundle),
-every other family a module file (save_module); `cli inference` and `cli
-finetune` read both, and the reference files directly too. --config gives
-the widths (default: the reference's); it is stored in the output.
+k-means centroids a `.npz` (sklearn's joblib file needs joblib and sklearn
+installed), every other family a module file (save_module); `cli
+inference` and `cli finetune` read both, and the reference files directly
+too. --config gives the widths (default: the reference's; the HuBERT's
+from unit_extractor.dense_model_name, the WavLM's from
+spk_embedder.feat_type); it is stored in the output.
 """
 
 from __future__ import annotations
@@ -18,14 +25,12 @@ from __future__ import annotations
 import argparse
 import sys
 
-KINDS = ("decoder", "text-encoder", "unit-encoder", "duration-predictor", "vocoder")
+KINDS = ("decoder", "text-encoder", "unit-encoder", "duration-predictor", "vocoder", "hubert",
+         "wavlm", "speaker-embedder", "kmeans")
 # the JAX CLI's other kinds, whose modules the port does not have yet
 NOT_PORTED = {
-    "contentvec-encoder": "the contentvec encoder (voice conversion) is not ported yet",
-    "hubert": "the SSL frontends are not ported yet (ROADMAP Queue 1 item 8)",
-    "wavlm": "the SSL frontends are not ported yet (ROADMAP Queue 1 item 8)",
-    "speaker-embedder": "the SSL frontends are not ported yet (ROADMAP Queue 1 item 8)",
-    "kmeans": "the SSL frontends are not ported yet (ROADMAP Queue 1 item 8)",
+    "contentvec-encoder": "the contentvec encoder (voice conversion) is not ported yet "
+                          "(ROADMAP Queue 1 item 7)",
 }
 
 
@@ -40,10 +45,24 @@ def main(argv=None) -> int:
         raise SystemExit(f"convert {args.kind}: {NOT_PORTED[args.kind]}")
 
     from unitspeech_tpu_torch.config import MainConfig, load_json
+    from unitspeech_tpu_torch.models.speaker import WAVLM_CONFIGS
+    from unitspeech_tpu_torch.models.ssl.hubert import hubert_config_by_name
     from unitspeech_tpu_torch.utils import artifacts
 
     cfg = load_json(args.config) if args.config else MainConfig()
-    if args.kind == "decoder":
+    if args.kind == "kmeans":
+        artifacts.load_kmeans(args.src).save(args.dest)
+        out = args.dest
+    elif args.kind == "hubert":
+        out = artifacts.save_module(args.dest, "hubert", artifacts.load_hubert_params(
+            args.src, hubert_config_by_name(cfg.unit_extractor.dense_model_name)), cfg)
+    elif args.kind in ("wavlm", "speaker-embedder"):
+        wcfg = WAVLM_CONFIGS[cfg.spk_embedder.feat_type]()
+        load = (artifacts.load_wavlm_params if args.kind == "wavlm"
+                else artifacts.load_speaker_embedder_params)
+        out = artifacts.save_module(args.dest, args.kind.replace("-", "_"),
+                                    load(args.src, wcfg), cfg)
+    elif args.kind == "decoder":
         out = artifacts.save_decoder_bundle(
             args.dest, artifacts.load_decoder_bundle(args.src, cfg.decoder), cfg)
     elif args.kind in ("text-encoder", "unit-encoder"):

@@ -20,11 +20,22 @@ import torch
 from unitspeech_tpu_torch.config import MainConfig, config_from_dict  # noqa: F401
 
 
+# flax's variable collections that the port's state dicts hold: the
+# parameters, and the BatchNorm running statistics (leaves `mean` / `var`,
+# buffers in the port) of the speaker embedder
+COLLECTIONS = ("params", "batch_stats")
+STAT_LEAVES = ("mean", "var")
+
+
 def params_from_jax(tree) -> dict:
-    """flax parameter tree ({"params": {...}} or the inner dict) of numpy
-    (or array-like) leaves -> state dict of f32/int torch tensors."""
-    if isinstance(tree, Mapping) and set(tree) == {"params"}:
-        tree = tree["params"]
+    """flax variable tree ({"params": {...}}, {"params", "batch_stats"} or
+    the inner dict) of numpy (or array-like) leaves -> state dict of
+    f32/int torch tensors, one key per leaf: its flax path joined with '.'
+    (the collections merged)."""
+    if isinstance(tree, Mapping) and tree and set(tree) <= set(COLLECTIONS) and "params" in tree:
+        trees = [tree[c] for c in COLLECTIONS if c in tree]
+    else:
+        trees = [tree]
     out = {}
 
     def walk(node, prefix):
@@ -32,23 +43,27 @@ def params_from_jax(tree) -> dict:
             key = f"{prefix}.{k}" if prefix else str(k)
             if isinstance(v, Mapping):
                 walk(v, key)
+            elif key in out:
+                raise ValueError(f"{key}: in more than one collection")
             else:
                 out[key] = torch.from_numpy(np.array(v, copy=True))
 
-    walk(tree, "")
+    for t in trees:
+        walk(t, "")
     return out
 
 
 def params_to_jax(state_dict) -> dict:
-    """Inverse of params_from_jax: {"params": nested dict of numpy arrays}."""
-    root: dict = {}
+    """Inverse of params_from_jax: {"params": nested dict of numpy arrays},
+    plus "batch_stats" with the BatchNorm statistics when there are any."""
+    roots: dict = {}
     for key, v in state_dict.items():
         *path, leaf = key.split(".")
-        node = root
+        node = roots.setdefault("batch_stats" if leaf in STAT_LEAVES else "params", {})
         for p in path:
             node = node.setdefault(p, {})
         node[leaf] = v.detach().cpu().numpy()
-    return {"params": root}
+    return {"params": roots.get("params", {}), **{k: v for k, v in roots.items() if k != "params"}}
 
 
 def build_modules(cfg: MainConfig, device="cuda", dtype=torch.float32, use_kernels=True,
