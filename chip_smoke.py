@@ -30,6 +30,14 @@ from the reference wav alone (no sidecar; no kernel launched), the card's
 speaker embedding, HuBERT features and units against the same modules on
 the CPU in f32, and a grapheme request (`--text ... --split-sentences`,
 espeak or the rule G2P) served with that adapted decoder on the kernels.
+Then voice conversion and the sampler specs: random full-width checkpoints
+in the reference's formats (a contentvec encoder through `cli convert
+contentvec-encoder`, an HF-named contentvec HuBERT-base), `cli
+voice-conversion` with the adapted decoder with ddpm, dpm2 and dpm2:cs2 on
+the kernels beside the plain path (the guidance stride's cheap steps are
+the estimator's first one-row calls), forced 344-frame requests with
+ddpm:cs2 and dpm2:cs2, each with exact launches and its mel within the TTS
+bounds, and one seed of the sampler gate (tools/sampler_gate.py).
 Last, the paths of the kernels that no request runs, the port's four tools
 at full size (unitspeech_tpu_torch/tools): the kernel benchmark with
 --int8 --deep (the in-kernel int8 blocks K10a, K10b), the transcendental
@@ -46,6 +54,7 @@ per-site records and the path comparisons to FILE as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -1247,6 +1256,228 @@ def frontends(torch, dev, tmp, ckpt_path, per_call, smi):
     return {**res, "grapheme": {**served, "g2p": "espeak" if espeak else type(ph).__name__}}, want
 
 
+# The voice-conversion and sampler phase (after the frontends): full-width
+# random reference-format VC checkpoints (a contentvec encoder, converted by
+# `cli convert contentvec-encoder`, and an HF-named contentvec HuBERT-base,
+# read by --contentvec); `cli voice-conversion` with the adapted decoder on
+# the serving defaults for each of VC_SAMPLERS beside the plain bf16 path on
+# the same seed; a forced 344-frame Synthesizer request with each of
+# TTS_STRIDED; one seed of tools/sampler_gate.py. A 5 s source is 430 mel
+# frames, the 432-frame bucket, none of the TTS requests' buckets.
+VC_SECONDS = 5.0
+VC_BUCKET = 432
+VC_SAMPLERS = [("ddpm", 50), ("dpm2", 25), ("dpm2:cs2", 25)]
+TTS_STRIDED = [("ddpm:cs2", 50), ("dpm2:cs2", 25)]
+
+
+@contextlib.contextmanager
+def _estimator_rows(torch):
+    """Inside: every GradLogPEstimator2d call's batch rows appended to the
+    list it yields (a global forward pre-hook, which costs the host a little
+    on every module call: the walls it runs under are not the request's)."""
+    from unitspeech_tpu_torch.models.unet import GradLogPEstimator2d
+
+    rows = []
+
+    def hook(mod, args):
+        if isinstance(mod, GradLogPEstimator2d):
+            rows.append(int(args[0].shape[0]))
+
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+    try:
+        yield rows
+    finally:
+        handle.remove()
+
+
+def _spec_rows(sampler, steps):
+    """{rows: calls} of one request of `steps` steps with dual CFG: a 3-row
+    guidance call on each group's first step and the trailing steps % k,
+    1-row calls between (models/diffusion._guided_score)."""
+    from unitspeech_tpu_torch.models.diffusion import parse_sampler_spec
+
+    k = min(parse_sampler_spec(sampler)[1], steps)
+    full = steps // k + steps % k
+    return {3: full, 1: steps - full} if steps > full else {3: full}
+
+
+def _served_want(per_call, calls):
+    """Launches of a served request on the serving default: `calls`
+    estimator calls (any rows) and one vocoder call."""
+    return {k: calls * per_call["int8"][k] if k in ESTIMATOR_KERNELS
+            else per_call["int8"][k] if k in VOCODER_KERNELS else 0 for k in KERNELS}
+
+
+def _mel_bounds(what, got, ref):
+    """got vs ref (frames, F) in units of ref's dynamic range, held to the
+    TTS paths' bounds (MEL_L1_BOUND, MEL_MAX_BOUND)."""
+    span = float(ref.max() - ref.min())
+    d = np.abs(got - ref)
+    l1, mx = float(d.mean()) / span, float(d.max()) / span
+    print(f"  {what}: kernels vs plain (bf16), mel L1 {l1:.3e}, max |diff| {mx:.3e} of the "
+          f"mel's dynamic range {span:.1f} (bounds {MEL_L1_BOUND:.0e}, {MEL_MAX_BOUND:.0e})",
+          flush=True)
+    if not (np.isfinite(got).all() and np.isfinite(ref).all() and l1 <= MEL_L1_BOUND
+            and mx <= MEL_MAX_BOUND):
+        raise AssertionError(f"{what}: mel L1 {l1}, max {mx}")
+    return {"mel_l1": l1, "mel_max": mx}
+
+
+def voice_and_samplers(torch, dev, tmp, ckpt_path, adapted_path, per_call, smi):
+    """Voice conversion and the sampler specs on the card: random full-width
+    VC checkpoints in the reference's formats (tools/vc_reference), the
+    encoder through `cli convert contentvec-encoder`; the contentvec
+    features of a 5 s source on the card (the HF-named HuBERT-base); `cli
+    voice-conversion` with the adapted decoder for each of VC_SAMPLERS (the
+    first from --contentvec, the others from the features) on the serving
+    defaults and with --no-fast-kernels on the same seed: exact launches
+    (one estimator call a step, whatever its rows, and one vocoder call;
+    none on the plain path), the estimator's calls by rows, the mels within
+    the TTS bounds; each sampler's device time on the kernels; then a
+    forced 344-frame Synthesizer request with each of TTS_STRIDED, held the
+    same way; last, one seed of tools/sampler_gate.py, which must pass.
+    Returns the measurements."""
+    from unitspeech_tpu_torch import cli
+    from unitspeech_tpu_torch.infer import vc
+    from unitspeech_tpu_torch.infer.tts import Synthesizer, TTSModels
+    from unitspeech_tpu_torch.text import phonemes_to_sequence
+    from unitspeech_tpu_torch.tools import sampler_gate, vc_reference
+    from unitspeech_tpu_torch.utils import artifacts
+    from unitspeech_tpu_torch.utils.audio import load_wav
+    from unitspeech_tpu_torch.utils.params import config_from_dict
+
+    ckpt = artifacts.read(ckpt_path)
+    cfg = config_from_dict(ckpt["config"])
+    d = os.path.join(tmp, "vc")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    ref = vc_reference.random_vc_reference(d, cfg, seed=30)
+    cfg_json = os.path.join(d, "config.json")
+    with open(cfg_json, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f)
+    enc_path = os.path.join(d, "port_contentvec_encoder.pt")
+    if cli.main(["convert", "contentvec-encoder", ref["contentvec-encoder"], enc_path,
+                 "--config", cfg_json]) != 0:
+        raise AssertionError("cli convert contentvec-encoder failed")
+    src = vc_reference.random_source(os.path.join(d, "src.wav"), cfg, VC_SECONDS, seed=31)
+    wav, sr = load_wav(src)
+    mel_len = len(wav) // cfg.data.hop_length
+    bucket = vc.vc_frames(mel_len, cfg.decoder.num_downsamplings)
+    if bucket != VC_BUCKET:
+        raise AssertionError(f"the {VC_SECONDS} s source ({mel_len} frames) is at bucket {bucket}")
+    t1 = time.perf_counter()
+    feats = cli.extract_contentvec(ref["contentvec"], wav, sr, cfg, dev)
+    t_cv = time.perf_counter() - t1
+    feats_path = os.path.join(d, "feats.npy")
+    np.save(feats_path, feats)
+    print(f"voice conversion: random full-width VC checkpoints written and converted, contentvec "
+          f"features {feats.shape} of a {VC_SECONDS} s source ({mel_len} frames, bucket "
+          f"{bucket}) in {time.perf_counter() - t0:.1f} s (the extraction {t_cv:.2f} s, loading "
+          "included)", flush=True)
+    if feats.shape[1] != 768 or not np.isfinite(feats).all():
+        raise AssertionError(f"contentvec features {feats.shape}")
+
+    res = {"frames": mel_len, "bucket": bucket, "contentvec_frames": int(len(feats)),
+           "card": smi, "vc": {}, "tts": {}}
+    for i, (sampler, steps) in enumerate(VC_SAMPLERS):
+        content = (["--contentvec", ref["contentvec"]] if i == 0
+                   else ["--content-features", feats_path])
+        base = ["--source", src, "--decoder", adapted_path, "--content-encoder", enc_path,
+                "--vocoder", ckpt_path, "--sampler", sampler, "--diffusion-steps", str(steps),
+                "--seed", "0", "--device", "cuda", *content]
+        runs = {}
+        for name, extra, want in (("kernels", [], _served_want(per_call, steps)),
+                                  ("plain", ["--no-fast-kernels"], {k: 0 for k in KERNELS})):
+            with _estimator_rows(torch) as rows:
+                runs[name] = _counted(f"voice conversion {sampler} {name}",
+                                      lambda: cli.main_voice_conversion(
+                                          base + extra + ["--output", os.path.join(
+                                              d, f"{sampler}_{name}.wav")]), want)
+            got_rows = {r: rows.count(r) for r in sorted(set(rows), reverse=True)}
+            if got_rows != _spec_rows(sampler, steps):
+                raise AssertionError(f"{sampler} {name}: estimator calls by rows {got_rows}")
+        st = runs["kernels"]
+        if st["frames"] != mel_len or st["bucket"] != bucket or st["content_frames"] != len(feats):
+            raise AssertionError(f"voice conversion {sampler}: {st}")
+        print(f"  {sampler}@{steps}: estimator calls by rows {_spec_rows(sampler, steps)}; wall "
+              f"{st['wall_s']:.3f} s (plain {runs['plain']['wall_s']:.3f}; the rows hook on)"
+              + (f", contentvec {st['contentvec_s']:.2f} s" if "contentvec_s" in st else ""),
+              flush=True)
+        res["vc"][sampler] = {"steps": steps, "rows": _spec_rows(sampler, steps),
+                              **_mel_bounds(f"voice conversion {sampler}", st["mel"],
+                                            runs["plain"]["mel"])}
+
+    # each sampler's time on the kernels, the conversion and the vocoder with
+    # the modules loaded as the CLI loads them: device busy time
+    # (torch.profiler), CUDA events at the host's pace, and the host's wall
+    bundle = artifacts.load_decoder_bundle(adapted_path, cfg.decoder)
+    routes = dict(use_kernels=True, use_int8_deep=True, use_deep=False, use_resample=False,
+                  use_i8pre_deep=False)
+    enc, dec, voc = cli.load_vc_modules(cfg, bundle.state_dict, enc_path, ckpt_path, dev,
+                                        torch.bfloat16, routes)
+    content = torch.from_numpy(feats)[None].to(dev)
+    spk = bundle.spk_emb.to(dev) / bundle.spk_emb.norm()
+    for sampler, steps in VC_SAMPLERS:
+        def convert(sampler=sampler, steps=steps):
+            with torch.no_grad():
+                mel = vc.voice_conversion(
+                    enc, dec, content, mel_len, spk, bundle.mel_min.to(dev),
+                    bundle.mel_max.to(dev), n_timesteps=steps, sampler=sampler,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+                return voc(mel)
+
+        act = kernel_breakdown.device_activity(convert, 1)
+        ev = _time_ms(torch, convert, reps=3, warmup=1)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        convert()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t1
+        res["vc"][sampler].update(device_ms=act["busy_ms"], device_sum_ms=act["sum_ms"],
+                                  device_launches=act["launches"], event_ms=ev, wall_s=wall,
+                                  rtf=wall / VC_SECONDS)
+        print(f"  {sampler}@{steps} on the kernels: device busy {act['busy_ms']:.3f} ms, "
+              f"{act['launches']:.0f} launches (profiler); {ev:.3f} ms under CUDA events, "
+              f"wall {wall:.3f} s, RTF {wall / VC_SECONDS:.4f} (the host's pace); {smi}",
+              flush=True)
+    del enc, dec, voc
+
+    ids = phonemes_to_sequence(FORCED_TEXT)
+    synths = {name: Synthesizer(TTSModels.from_checkpoint(
+        ckpt, device=dev, use_kernels=kernels, use_int8_deep=kernels))
+        for name, kernels in (("kernels", True), ("plain", False))}
+    for sampler, steps in TTS_STRIDED:
+        mels = {}
+        for name, synth in synths.items():
+            want = _served_want(per_call, steps) if name == "kernels" else {k: 0 for k in KERNELS}
+            with _estimator_rows(torch) as rows:
+                wav_out, _, mel = _counted(
+                    f"forced {FRAMES}-frame request {sampler} {name}", lambda synth=synth: synth(
+                        ids, torch.Generator(device=dev).manual_seed(0),
+                        forced_total_frames=FRAMES, diffusion_steps=steps,
+                        text_gradient_scale=1.0, spk_gradient_scale=1.0, sampler=sampler), want)
+            got_rows = {r: rows.count(r) for r in sorted(set(rows), reverse=True)}
+            if got_rows != _spec_rows(sampler, steps) or len(wav_out) != FRAMES * \
+                    cfg.data.hop_length:
+                raise AssertionError(f"{sampler} {name}: rows {got_rows}, {len(wav_out)} samples")
+            mels[name] = mel.float().cpu().numpy()
+        res["tts"][sampler] = {"steps": steps, "rows": _spec_rows(sampler, steps),
+                               **_mel_bounds(f"forced {FRAMES}-frame {sampler}@{steps}",
+                                             mels["kernels"], mels["plain"])}
+    del synths
+    torch.cuda.empty_cache()
+
+    print("one seed of python -m unitspeech_tpu_torch.tools.sampler_gate (full width, "
+          f"{FRAMES} frames):", flush=True)
+    gate = sampler_gate.main(["--seeds", "0", "--noise-keys", "0", "--device", "cuda"])
+    res["sampler_gate"] = {k: gate[k] for k in ("max_frac", "gate", "pass")}
+    res["sampler_gate"]["ms"] = gate["runs"][0]["ms"]
+    if not gate["pass"]:
+        raise AssertionError(f"sampler gate failed: {gate['max_frac']}")
+    torch.cuda.empty_cache()
+    return res
+
+
 def run_tools():
     """This slice's paths: the port's four tools at full size, each run
     with every launch counter set to 0 just before it and read just after.
@@ -1366,6 +1597,8 @@ def main(argv=None) -> int:
         paths = compare_paths(torch, dev, ckpt, per_call)
         adapted, adapted_launches = adapt(torch, dev, tmp, ckpt, per_call, smi)
         front, launches["grapheme"] = frontends(torch, dev, tmp, ckpt, per_call, smi)
+        voice = voice_and_samplers(torch, dev, tmp, ckpt, adapted["finetune"]["output"],
+                                   per_call, smi)
     launches["adapted"] = adapted_launches["kernels"]
     tool_launches, tools = run_tools()
     launches.update(tool_launches)
@@ -1375,12 +1608,13 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": smi, "records": records, "paths": paths, "adapt": adapted,
-                       "frontends": front, "kernels": kernels,
+                       "frontends": front, "voice": voice, "kernels": kernels,
                        "launches": launches, "tools": tools, "breakdown": breakdown}, f,
                       indent=1)
     print(json.dumps({"paths": paths}))
     print(json.dumps({"adapt": {k: v for k, v in adapted.items() if k != "losses"}}))
     print(json.dumps({"frontends": {k: v for k, v in front.items() if k != "losses"}}))
+    print(json.dumps({"voice": voice}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -96,6 +96,26 @@ import os
 ssl = ssl_reference.random_ssl_reference(os.path.dirname(ckpt), load_json(cfg), seed=3)
 for kind in ("speaker-embedder", "hubert"):
     assert cli.main(["convert", kind, ssl[kind], ckpt + kind, "--config", cfg]) == 0
+# voice conversion from a contentvec HuBERT in HF names (test widths), the
+# encoder converted, with a strided sampler spec; the sampler gate, tiny
+from unitspeech_tpu_torch.infer import vc  # noqa: F401
+from unitspeech_tpu_torch.models.ssl import contentvec  # noqa: F401
+from unitspeech_tpu_torch.tools import sampler_gate, vc_reference
+import torch
+vcf = vc_reference.random_vc_reference(os.path.dirname(ckpt), load_json(cfg), seed=4)
+assert cli.main(["convert", "contentvec-encoder", vcf["contentvec-encoder"], ckpt + "ce",
+                 "--config", cfg]) == 0
+src = vc_reference.random_source(ckpt + ".src.wav", load_json(cfg), 0.02, seed=5)
+stats = cli.main_voice_conversion(["--source", src, "--decoder", ckpt, "--content-encoder",
+                                   ckpt + "ce", "--contentvec", vcf["contentvec"], "--vocoder",
+                                   ckpt, "--output", out, "--device", "cpu", "--diffusion-steps",
+                                   "2", "--sampler", "dpm2:cs2"])
+assert stats["kernels"] and stats["sampler"] == "dpm2:cs2", stats
+rep = sampler_gate.gate(load_json(cfg), [0], [0], torch.device("cpu"), frames=16, n_tok=4,
+                        disc_steps=(2,), ref_steps=4, stride_configs=(("ddpm", 2),),
+                        strides=(2,))
+assert set(rep["max_frac"]) == {"bf16_band_frac", "disc_frac_@2", "bf16_ddpm@2_cs2",
+                                "int8_ddpm@2_cs2"}, rep
 stats = cli.main_inference(["--ipa", "--text", "həloʊ", "--checkpoint", ckpt,
                             "--output", out, "--device", "cpu", "--diffusion-steps", "1",
                             "--deep", "--i8pre", "--resample"])
@@ -114,16 +134,21 @@ print("no JAX imported:", not any(m.split(".")[0] in ("jax", "unitspeech_tpu")
 
 
 def test_port_and_chip_smoke_import_nothing_of_jax(tmp_path):
-    """chip_smoke.py, the port's modules (the text frontend and the SSL
-    frontends included), its CLI (make-random-checkpoint, then inference on
-    the CPU with its defaults, with the fused deep-stage switches and from
-    graphemes; convert of the SSL checkpoints that tools/ssl_reference
-    writes) and its four tools (on the CPU at small sizes) run with every
-    import of jax, flax or unitspeech_tpu refused."""
+    """chip_smoke.py, the port's modules (the text frontend, the SSL
+    frontends and voice conversion included), its CLI (make-random-
+    checkpoint, then inference on the CPU with its defaults, with the fused
+    deep-stage switches and from graphemes; convert of the SSL and
+    contentvec-encoder checkpoints that tools/ssl_reference and
+    tools/vc_reference write; voice-conversion from a contentvec HuBERT with
+    a strided sampler spec), its four kernel tools and the sampler gate (on
+    the CPU at small sizes) run with every import of jax, flax or
+    unitspeech_tpu refused."""
     cfg = json.loads(json.dumps(TINY))
     cfg["text_encoder"]["n_vocab"] = 180  # the IPA symbol table
     cfg["spk_embedder"] = {"feat_type": "wavlm_test", "channels": 16, "spk_emb_dim": 8}
     cfg["unit_extractor"] = {"dense_model_name": "hubert-test", "vocab_size": 40}
+    cfg["contentvec_encoder"] = {"n_contentvec": 16, "n_feats": 16, "n_channels": 16,
+                                 "filter_channels": 32, "n_layers": 1, "n_heads": 2}
     (tmp_path / "tiny.json").write_text(json.dumps(cfg))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(

@@ -3,9 +3,11 @@ their plain PyTorch versions on the card, at small shapes with partial
 tiles and a padded batch (chip_smoke.py holds them at the main-path
 shapes), the library GEMMs of the deep convs against their CPU
 versions, the fine-tune step against the CPU's, `cli inference --fp32`
-against the CPU with the caller's TF32 left on (the CLI's f32 policy), and
+against the CPU with the caller's TF32 left on (the CLI's f32 policy),
 twelve full-width fine-tune steps at lr 1e-3 in f32 and bf16 (the record
-of which goes non-finite). Every test needs a CUDA device and skips
+of which goes non-finite), the full-width estimator on the kernels at one
+row (the `:cs<k>` samplers' cheap steps) and `cli voice-conversion --fp32`
+against the CPU. Every test needs a CUDA device and skips
 without one.
 
 This file imports neither jax nor tests/conftest.py's helpers, so that it
@@ -1370,3 +1372,124 @@ def test_finetune_lr1e3_full_width_which_goes_non_finite(dev, tmp_path):
         print(f"lr 1e-3 full width {dt}: losses {losses.tolist()}; first non-finite step "
               f"{first}")
         assert fin[0] and not np.any(fin[1:] & ~fin[:-1]), losses
+
+
+# one estimator call at B = 1 against a reference, relative to the
+# reference's largest magnitude. Against the plain path a whole call rounds
+# to bf16 at ~100 points on each side, at different points (the kernels fuse
+# GroupNorm, mish, the FiLM and the residual), int8 activations may round
+# the other way at a .5 boundary, and on deep_i8 some convs are int8 on one
+# side only (~1% each, JAX's int8 band); against the 3-row call, the conv
+# tiles and sums may run in another order: looser than a single kernel's
+# 2^-6, far below the O(1) error of a wrong row or scale
+EST_REL = 2.0 ** -4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deep", [False, True], ids=["int8", "deep_i8"])
+def test_estimator_one_row_matches_plain(dev, deep):
+    """The full-width estimator on the kernels at B = 1 (the `:cs<k>`
+    samplers' cheap steps) on the int8 serving default, where K7's per-tensor
+    scale then pools over one row, and with --deep --i8pre --resample:
+    finite, every kernel launching as often as in a 3-row call, and within
+    EST_REL of the plain path with int8 deep convs (no kernel; on deep_i8
+    its int8 and bf16 convs are not all the same ones) and, on deep_i8,
+    whose scales are per batch element at this bucket (K9), of the kernel
+    path's own 3-row call's first row (the same inputs)."""
+    from unitspeech_tpu_torch.config import MainConfig
+    from unitspeech_tpu_torch.models.diffusion import UnitSpeech
+    from unitspeech_tpu_torch.utils.params import random_params
+
+    cfg = MainConfig()
+    sd = random_params(cfg, 0)["decoder"]
+
+    def build(kernels, **routes):
+        with dev:
+            mod = UnitSpeech.from_config(cfg.decoder, dtype=torch.bfloat16, use_kernels=kernels,
+                                         use_int8_deep=True, **routes)
+        mod.load_state_dict(sd)
+        return mod.eval()
+
+    deep_routes = dict(use_deep=True, use_resample=True, use_i8pre_deep=True) if deep else {}
+    kern = build(True, **deep_routes)
+    wrappers = {"fused_resnet_block": fused_resnet.fused_resnet_block,
+                "fused_final_block": fused_resnet.fused_final_block,
+                "row_stats": row_stats.row_stats, "row_absmax": row_stats.row_absmax,
+                "fused_rezero_attention": fused_attention.fused_rezero_attention,
+                "fused_resnet_block_deep": fused_resnet_deep.fused_resnet_block_deep,
+                "fused_resnet_block_deep_i8": fused_resnet_deep.fused_resnet_block_deep_i8,
+                "fused_downsample_conv": resample.fused_downsample_conv,
+                "fused_upsample_conv": resample.fused_upsample_conv}
+    rng = np.random.default_rng(12)
+    t = 344
+    x, mu = _rand(rng, dev, 3, t, 80), _rand(rng, dev, 3, t, 80)
+    mask = _mask(dev, t, [301, t, t])[:, :, 0, 0]
+    spk = _rand(rng, dev, 3, 256, scale=1 / 16)
+    tt = torch.tensor([0.7, 0.4, 0.2], device=dev)
+    out, launched = {}, {}
+    with torch.no_grad():
+        for b in (3, 1):
+            before = {k: w.launches for k, w in wrappers.items()}
+            out[b] = kern(x[:b], mask[:b], mu[:b], tt[:b], spk[:b])
+            torch.cuda.synchronize()
+            launched[b] = {k: w.launches - before[k] for k, w in wrappers.items()}
+        refs = {"the plain int8 path": build(False)(x[:1], mask[:1], mu[:1], tt[:1], spk[:1])}
+    if deep:
+        refs["its 3-row call"] = out[3][:1]
+    assert out[1].shape == (1, t, 80) and torch.isfinite(out[1]).all()
+    for what, want in refs.items():
+        err = (out[1] - want).abs().max().item() / want.abs().max().item()
+        print(f"estimator {'deep_i8' if deep else 'int8'} at B=1 against {what}: max |diff| "
+              f"{err:.3e} of the largest; launches {launched[1]}")
+        assert err <= EST_REL, (what, err)
+    assert launched[1] == launched[3] and launched[1]["fused_resnet_block"] == 6
+
+
+@pytest.mark.cuda
+def test_cli_voice_conversion_fp32_matches_cpu(dev, tmp_path, monkeypatch):
+    """`cli voice-conversion --fp32` on the card against the same command on
+    the CPU (decoder.dim 64, contentvec features from one numpy seed, a
+    0.3 s source, 2 dpm2:cs2 steps, the prior injected from one numpy seed so
+    that both devices draw the same), the caller's TF32 left on: the mels
+    agree within F32_REL of the CPU mel's largest magnitude, and the
+    caller's TF32 settings are back after each command."""
+    import json
+
+    from unitspeech_tpu_torch import cli
+    from unitspeech_tpu_torch.config import config_from_dict
+    from unitspeech_tpu_torch.infer import vc
+    from unitspeech_tpu_torch.tools import vc_reference
+
+    cfg_d = {"decoder": {"dim": 64}}
+    (tmp_path / "dim64.json").write_text(json.dumps(cfg_d))
+    cfg = config_from_dict(cfg_d)
+    ckpt = str(tmp_path / "ckpt.pt")
+    assert cli.main(["make-random-checkpoint", "--seed", "2", "--config",
+                     str(tmp_path / "dim64.json"), "--output", ckpt]) == 0
+    files = vc_reference.random_vc_reference(str(tmp_path), cfg, seed=3)
+    src = vc_reference.random_source(str(tmp_path / "src.wav"), cfg, 0.3, seed=4)
+    np.save(tmp_path / "feats.npy",
+            np.random.default_rng(5).standard_normal((15, 768)).astype(np.float32))
+    real, mels = vc.voice_conversion, {}
+
+    def injected(encoder, decoder, content, mel_len, *a, **kw):
+        pad = vc.vc_frames(mel_len, cfg.decoder.num_downsamplings)
+        kw["noise_z"] = torch.from_numpy(np.random.default_rng(6).standard_normal(
+            (1, pad, 80), np.float32)).to(content.device)
+        out = real(encoder, decoder, content, mel_len, *a, **kw)
+        mels[content.device.type] = out.float().cpu()
+        return out
+
+    monkeypatch.setattr(vc, "voice_conversion", injected)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    for device in ("cuda", "cpu"):
+        stats = cli.main_voice_conversion([
+            "--source", src, "--decoder", ckpt, "--content-encoder",
+            files["contentvec-encoder"], "--content-features", str(tmp_path / "feats.npy"),
+            "--vocoder", ckpt, "--fp32", "--sampler", "dpm2:cs2", "--diffusion-steps", "2",
+            "--no-sv56", "--device", device, "--config", str(tmp_path / "dim64.json"),
+            "--output", str(tmp_path / f"{device}.wav")])
+        assert stats["frames"] == int(0.3 * 22050) // 256 and not stats["kernels"]
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    err = (mels["cuda"] - mels["cpu"]).abs().max().item()
+    assert err <= F32_REL * mels["cpu"].abs().max().item(), err

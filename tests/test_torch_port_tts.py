@@ -224,3 +224,53 @@ def test_default_device_is_the_card(slice_pair, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_modules(config_from_dict(ckpt["config"]))
     assert _port(ckpt).models.device.type == "cpu"
+
+
+def _jax_exact_mel(jsynth, key, sampler, noise_z):
+    """JAX's exact path with a sampler spec (Synthesizer.__call__'s
+    _encode_and_duration, then _align_and_sample at the resolved bucket),
+    its prior injected; the DDPM draws its own noise from the key."""
+    m = jsynth.models
+    n_tok = len(TOKENS)
+    packed = np.zeros((1, choose_bucket(n_tok, jsynth.token_buckets) + 1), np.int32)
+    packed[0, :n_tok] = TOKENS
+    packed[0, -1] = n_tok
+    mu_x, x_mask, w_ceil = jtts._encode_and_duration(
+        m.text_encoder, m.text_encoder_params, m.duration_predictor,
+        m.duration_predictor_params, jnp.asarray(packed), m.spk_emb)
+    y_pad = noise_z.shape[1]
+    mel, _ = jtts._align_and_sample(
+        m.decoder.apply, m.decoder_params, mu_x, x_mask, w_ceil, None, m.spk_emb, key,
+        m.mel_min, m.mel_max, n_timesteps=STEPS, text_gradient_scale=1.0,
+        spk_gradient_scale=1.0, beta_min=m.cfg.decoder.beta_min,
+        beta_max=m.cfg.decoder.beta_max, y_pad=y_pad, sampler=sampler,
+        noise_z=jnp.asarray(noise_z))
+    return np.asarray(mel)
+
+
+@pytest.mark.parametrize("sampler", ["ddpm:cs2", "dpm2:cs3"])
+def test_synthesize_mel_sampler_spec_matches_jax(slice_pair, sampler):
+    """Synthesizer.synthesize_mel(sampler=spec) on the kernel path against
+    JAX's exact path with the same spec: the same prior, and for the DDPM
+    JAX's draws, fold_in(fold_in(key, 1), i) at step i (JAX refuses injected
+    noise at a stride above 1). The mel within _mel_tol; a malformed spec
+    raises before any work."""
+    jsynth, ckpt = slice_pair
+    frames = int(np.ceil(_jax_durations(jsynth)).sum())
+    y_pad = _y_pad(frames, jsynth)
+    noise_z, _ = _noise(y_pad, 2)
+    key = jax.random.PRNGKey(4)
+    want = _jax_exact_mel(jsynth, key, sampler, noise_z)
+    k1 = jax.random.fold_in(key, 1)
+    noises = np.stack([np.asarray(jax.random.normal(jax.random.fold_in(k1, i), (1, y_pad, 16)))
+                       for i in range(STEPS)])
+    synth = _port(ckpt)
+    got, got_len, _ = synth.synthesize_mel(TOKENS, diffusion_steps=STEPS,
+                                           noise_z=torch.from_numpy(noise_z),
+                                           noises=torch.from_numpy(noises), sampler=sampler,
+                                           **GUIDANCE)
+    assert got_len == frames and got.shape == want.shape
+    assert np.isfinite(want).all() and np.ptp(want) > 1.0
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=_mel_tol(ckpt))
+    with pytest.raises(ValueError, match="bad sampler option"):
+        synth.synthesize_mel(TOKENS, sampler="ddpm:x2")

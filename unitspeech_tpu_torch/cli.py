@@ -1,6 +1,6 @@
 """Command-line entry points of the port (counterpart of
-unitspeech_tpu/cli.py for the adaptive-TTS and speaker-adaptation slices
-and the SSL frontends).
+unitspeech_tpu/cli.py for the adaptive-TTS, speaker-adaptation and
+voice-conversion slices and the SSL frontends).
 
     python -m unitspeech_tpu_torch.cli make-random-checkpoint --seed 0 --output ckpt.pt
     python -m unitspeech_tpu_torch.cli inference --text "Hello." [--language en-us] \\
@@ -8,15 +8,19 @@ and the SSL frontends).
     python -m unitspeech_tpu_torch.cli finetune --reference ref.wav \\
         --decoder ckpt.pt --unit-encoder ckpt.pt --speaker-embedder spk.pt \\
         --hubert hubert.pt --kmeans kmeans.npz --output-dir adapted
+    python -m unitspeech_tpu_torch.cli voice-conversion --source src.wav \
+        --decoder adapted/decoder.pt --content-encoder ce.pt --contentvec cv.pt \
+        --vocoder voc.pt [--sampler dpm2:cs2] --output converted.wav
     python -m unitspeech_tpu_torch.cli convert decoder pretrained_decoder.pt decoder.pt
 
 A checkpoint is a `torch.save`d dict: one state dict per module in the
 port's layout, the speaker embedding, the mel min/max and the config
 (utils/artifacts lists the port's formats). Every command runs on the card
 unless `--device cpu` is given; with no CUDA device `--device cuda` exits
-non-zero. f32 means f32: `inference` and `finetune` run with TF32 off for
-f32 matmuls and cuDNN convs (utils/precision.strict_f32), and give the
-caller's settings back when they return.
+non-zero. f32 means f32: `inference`, `finetune` and `voice-conversion`
+run with TF32 off for f32 matmuls and cuDNN convs
+(utils/precision.strict_f32), and give the caller's settings back when
+they return.
 """
 
 from __future__ import annotations
@@ -66,6 +70,47 @@ def main_make_random_checkpoint(argv=None):
     torch.save(random_params(cfg, args.seed), args.output)
     print(f"wrote {args.output} (random parameters, seed {args.seed})")
     return 0
+
+
+def add_route_flags(ap, f32_note: str):
+    """The decoder's and the vocoder's precision and kernel routes, as
+    `inference` and `voice-conversion` take them."""
+    ap.add_argument("--fp32", dest="bf16", action="store_false",
+                    help="decoder and vocoder in f32, on the plain path (the kernels take "
+                         "bf16). f32 is full f32 on the card: TF32 is off for every f32 "
+                         f"matmul and cuDNN conv of the command ({f32_note})")
+    ap.add_argument("--no-fast-kernels", dest="fast_kernels", action="store_false",
+                    help="run the plain PyTorch path instead of the estimator and vocoder "
+                         "kernels (default: kernels on in bf16)")
+    ap.add_argument("--no-int8", dest="int8", action="store_false",
+                    help="keep the estimator's deep-stage convs in bf16 (default: int8 "
+                         "whenever the kernels are on, as the JAX serving default)")
+    # the JAX package's fused deep-stage configuration (bench.py --deep --i8pre
+    # --resample); off by default, as there, and only with the kernels on
+    ap.add_argument("--deep", action="store_true",
+                    help="whole-layer deep-stage ResnetBlocks (K8, bf16 even with int8 on)")
+    ap.add_argument("--i8pre", action="store_true",
+                    help="deep blocks with Cout <= 512 as int8 convs on pre-quantized "
+                         "activations (K9); routes only with int8 on")
+    ap.add_argument("--resample", action="store_true",
+                    help="fused stride-2 Downsample/Upsample convs (K11) where they apply")
+
+
+def route_switches(args) -> dict:
+    """The estimator's and vocoder's switches from add_route_flags' flags,
+    the JAX serving defaults (unitspeech_tpu/cli.py _load_tts_models):
+    kernels in bf16, and int8 deep convs whenever the kernels are on."""
+    fast = args.bf16 and args.fast_kernels
+    return dict(use_kernels=fast, use_int8_deep=fast and args.int8,
+                use_deep=fast and args.deep, use_resample=fast and args.resample,
+                use_i8pre_deep=fast and args.int8 and args.i8pre)
+
+
+def route_stats(routes: dict) -> dict:
+    """The routes as a command's statistics line reports them."""
+    return {"kernels": routes["use_kernels"], "int8": routes["use_int8_deep"],
+            "deep": routes["use_deep"], "i8pre": routes["use_i8pre_deep"],
+            "resample": routes["use_resample"]}
 
 
 def _load_tts_models(args, device, dtype, routes):
@@ -199,26 +244,7 @@ def main_inference(argv=None) -> dict:
     ap.add_argument("--frames", type=int, default=None,
                     help="force each chunk's durations to sum to this many mel frames")
     ap.add_argument("--no-sv56", action="store_true")
-    ap.add_argument("--fp32", dest="bf16", action="store_false",
-                    help="decoder and vocoder in f32, on the plain path (the kernels take "
-                         "bf16). f32 is full f32 on the card: TF32 is off for every f32 "
-                         "matmul and cuDNN conv of the command (the text encoder and "
-                         "duration predictor always run f32)")
-    ap.add_argument("--no-fast-kernels", dest="fast_kernels", action="store_false",
-                    help="run the plain PyTorch path instead of the estimator and vocoder "
-                         "kernels (default: kernels on in bf16)")
-    ap.add_argument("--no-int8", dest="int8", action="store_false",
-                    help="keep the estimator's deep-stage convs in bf16 (default: int8 "
-                         "whenever the kernels are on, as the JAX serving default)")
-    # the JAX package's fused deep-stage configuration (bench.py --deep --i8pre
-    # --resample); off by default, as there, and only with the kernels on
-    ap.add_argument("--deep", action="store_true",
-                    help="whole-layer deep-stage ResnetBlocks (K8, bf16 even with int8 on)")
-    ap.add_argument("--i8pre", action="store_true",
-                    help="deep blocks with Cout <= 512 as int8 convs on pre-quantized "
-                         "activations (K9); routes only with int8 on")
-    ap.add_argument("--resample", action="store_true",
-                    help="fused stride-2 Downsample/Upsample convs (K11) where they apply")
+    add_route_flags(ap, "the text encoder and duration predictor always run f32")
     args = ap.parse_args(argv)
     if args.save_plot:
         try:
@@ -233,12 +259,7 @@ def main_inference(argv=None) -> dict:
 
     device = _device(args.device)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    # the JAX serving defaults (unitspeech_tpu/cli.py _load_tts_models):
-    # kernels in bf16, and int8 deep convs whenever the kernels are on
-    fast = args.bf16 and args.fast_kernels
-    routes = dict(use_kernels=fast, use_int8_deep=fast and args.int8,
-                  use_deep=fast and args.deep, use_resample=fast and args.resample,
-                  use_i8pre_deep=fast and args.int8 and args.i8pre)
+    routes = route_switches(args)
     models = _load_tts_models(args, device, dtype, routes)
     cfg = models.cfg
     lists = token_lists(args, cfg)
@@ -271,9 +292,7 @@ def main_inference(argv=None) -> dict:
     stats = {"output": args.output, "tokens": sum(len(ids) for ids in lists),
              "chunks": len(lists), "frames": len(wav) // hop, "seconds": seconds,
              "wall_s": wall, "rtf": wall / seconds if seconds else None,
-             "device": str(device), "kernels": fast, "int8": routes["use_int8_deep"],
-             "deep": routes["use_deep"], "i8pre": routes["use_i8pre_deep"],
-             "resample": routes["use_resample"]}
+             "device": str(device), **route_stats(routes)}
     print(json.dumps(stats))
     return stats
 
@@ -535,6 +554,158 @@ def main_finetune(argv=None) -> dict:
     return {**stats, "losses": losses}
 
 
+@strict_f32()
+def extract_contentvec(ckpt_path: str, wav, sr: int, cfg, device) -> np.ndarray:
+    """Speaker-invariant content features (T, 768) of a wav through the
+    contentvec HuBERT (reference scripts/voice_conversion.py:46-68; an
+    HF-named checkpoint, models/ssl/contentvec.py) at the width the
+    contentvec encoder reads, the wav resampled to cfg.unit_extractor.sr
+    (16 kHz) on the host, f32 on `device`."""
+    from unitspeech_tpu_torch.models.ssl.contentvec import (
+        ContentvecExtractor,
+        contentvec_config_for,
+    )
+
+    extractor = ContentvecExtractor.from_torch(
+        ckpt_path, device, contentvec_config_for(cfg.contentvec_encoder.n_contentvec))
+    return extractor(resample_to(wav, sr, cfg.unit_extractor.sr))
+
+
+def load_vc_modules(cfg, decoder_state: dict, content_encoder, vocoder, device, dtype, routes):
+    """(contentvec encoder, decoder, vocoder) of voice conversion on `device`
+    in eval mode: the encoder f32 (reference .pt or port file), the decoder
+    (a state dict in the port's layout) and the vocoder (reference or port)
+    in `dtype` on `routes` (route_switches), whose load hooks pack the
+    kernels' weights."""
+    from unitspeech_tpu_torch.models.diffusion import UnitSpeech
+    from unitspeech_tpu_torch.models.encoder import Encoder
+    from unitspeech_tpu_torch.models.vocoder import BigVGAN
+    from unitspeech_tpu_torch.utils import artifacts
+
+    with device:
+        mods = (Encoder.from_config(cfg.contentvec_encoder),
+                UnitSpeech.from_config(cfg.decoder, dtype=dtype, **routes),
+                BigVGAN.from_config(cfg.vocoder, dtype=dtype, use_kernels=routes["use_kernels"]))
+    sds = (artifacts.load_encoder_params(content_encoder, cfg.contentvec_encoder,
+                                         "contentvec_encoder"),
+           decoder_state, artifacts.load_vocoder_params(vocoder, cfg.vocoder))
+    for mod, sd in zip(mods, sds):
+        mod.load_state_dict(sd)
+        mod.eval().requires_grad_(False)
+    return mods
+
+
+@strict_f32()
+def main_voice_conversion(argv=None) -> dict:
+    """Convert a source wav to the voice of an adapted decoder (reference
+    scripts/voice_conversion.py; JAX cli.py main_voice_conversion); prints
+    its statistics and returns them with the denormalized mel (frames, F)
+    the waveform was vocoded from. The content comes from
+    --content-features, else the contentvec HuBERT (--contentvec)."""
+    ap = argparse.ArgumentParser("unitspeech-tpu-torch voice-conversion")
+    ap.add_argument("--source", required=True, help="source wav (22.05 kHz)")
+    ap.add_argument("--decoder", required=True,
+                    help="fine-tuned decoder: a reference .pt, a port bundle or checkpoint; "
+                         "its spk_emb and mel min/max come with it")
+    ap.add_argument("--content-encoder", required=True,
+                    help="contentvec encoder: a reference .pt or a port file "
+                         "(cli convert contentvec-encoder)")
+    ap.add_argument("--content-features", default=None,
+                    help=".npy (T, 768) contentvec features (skips the extraction)")
+    ap.add_argument("--contentvec", default=None,
+                    help="contentvec HuBERT checkpoint in HF transformers names "
+                         "(lengyue233/content-vec-best)")
+    ap.add_argument("--vocoder", required=True, help="BigVGAN generator (reference or port)")
+    ap.add_argument("--spk-emb", default=None,
+                    help=".npy speaker embedding override (unit-normalized at load)")
+    ap.add_argument("--output", default="converted.wav")
+    ap.add_argument("--diffusion-steps", type=int, default=50)
+    ap.add_argument("--sampler", default="ddpm",
+                    help="sampler spec: 'ddpm' / 'dpm2', optionally ':cs<k>', the guidance "
+                         "stride (e.g. 'dpm2:cs2': the unconditional rows every 2nd step, "
+                         "their delta cached between)")
+    ap.add_argument("--text-gradient-scale", type=float, default=1.0)
+    ap.add_argument("--spk-gradient-scale", type=float, default=1.0)
+    ap.add_argument("--no-sv56", action="store_true")
+    ap.add_argument("--config", default=None,
+                    help="JSON config overlay (default: the decoder file's config, else "
+                         "the reference's)")
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--device", default="cuda")
+    add_route_flags(ap, "the contentvec HuBERT and encoder always run f32")
+    args = ap.parse_args(argv)
+    if not args.content_features and not args.contentvec:
+        raise SystemExit("need --content-features or --contentvec")
+
+    import torch
+
+    from unitspeech_tpu_torch.config import MainConfig, config_from_dict, load_json
+    from unitspeech_tpu_torch.infer import vc
+    from unitspeech_tpu_torch.models.diffusion import parse_sampler_spec
+    from unitspeech_tpu_torch.ops import sv56
+    from unitspeech_tpu_torch.utils import artifacts
+
+    try:
+        parse_sampler_spec(args.sampler)
+    except ValueError as e:
+        raise SystemExit(f"--sampler: {e}") from e
+    device = _device(args.device)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    routes = route_switches(args)
+    dec_obj = artifacts.read(args.decoder)
+    if args.config:
+        cfg = load_json(args.config)
+    else:
+        cfg = config_from_dict(dec_obj["config"]) if "config" in dec_obj else MainConfig()
+    bundle = artifacts.load_decoder_bundle(dec_obj, cfg.decoder)
+    if bundle.mel_min is None or bundle.mel_max is None:
+        raise SystemExit(f"{args.decoder}: no mel_min / mel_max")
+    if args.spk_emb:
+        spk = np.load(args.spk_emb).astype(np.float32).reshape(1, -1)
+    elif bundle.spk_emb is not None:
+        spk = bundle.spk_emb.numpy()
+    else:
+        raise SystemExit("no speaker embedding: pass --spk-emb or a decoder with spk_emb")
+    spk = torch.from_numpy(spk / np.linalg.norm(spk)).to(device)
+
+    wav, sr = load_wav(args.source)
+    mel_len = len(wav) // cfg.data.hop_length
+    stats = {}
+    t0 = time.perf_counter()
+    if args.content_features:
+        content = np.load(args.content_features).astype(np.float32)
+    else:
+        content = extract_contentvec(args.contentvec, wav, sr, cfg, device)
+        stats["contentvec_s"] = time.perf_counter() - t0
+
+    encoder, decoder, vocoder = load_vc_modules(cfg, bundle.state_dict, args.content_encoder,
+                                                args.vocoder, device, dtype, routes)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    mel = vc.voice_conversion(
+        encoder, decoder, torch.from_numpy(content)[None].to(device), mel_len, spk,
+        bundle.mel_min.to(device), bundle.mel_max.to(device), n_timesteps=args.diffusion_steps,
+        text_gradient_scale=args.text_gradient_scale,
+        spk_gradient_scale=args.spk_gradient_scale,
+        num_downsamplings=cfg.decoder.num_downsamplings, sampler=args.sampler, generator=gen)
+    with torch.no_grad():
+        out = vocoder(mel)[0, : mel_len * cfg.data.hop_length].float().cpu().numpy()
+    wall = time.perf_counter() - t0  # the waveform is on the host: the device is done
+    if out.size == 0 or not np.isfinite(out).all():
+        raise RuntimeError("voice conversion produced an empty or non-finite waveform")
+    if not args.no_sv56:
+        out = sv56.normalize(out, cfg.data.sampling_rate)
+    write_wav(args.output, out, cfg.data.sampling_rate)
+    seconds = len(out) / cfg.data.sampling_rate
+    stats = {"output": args.output, "content_frames": len(content), "frames": mel_len,
+             "bucket": vc.vc_frames(mel_len, cfg.decoder.num_downsamplings),
+             "seconds": seconds, "wall_s": wall, "rtf": wall / seconds if seconds else None,
+             "sampler": args.sampler, "steps": args.diffusion_steps, "device": str(device),
+             "bf16": args.bf16, **route_stats(routes), **stats}
+    print(json.dumps(stats))
+    return {**stats, "mel": mel[0, :mel_len].float().cpu().numpy()}
+
+
 def main_convert(argv=None) -> int:
     from unitspeech_tpu_torch.utils import convert_cli
 
@@ -544,7 +715,7 @@ def main_convert(argv=None) -> int:
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     commands = {"inference": main_inference, "finetune": main_finetune,
-                "convert": main_convert,
+                "voice-conversion": main_voice_conversion, "convert": main_convert,
                 "make-random-checkpoint": main_make_random_checkpoint}
     if not argv or argv[0] not in commands:
         print(f"usage: python -m unitspeech_tpu_torch.cli {{{','.join(commands)}}} ...",

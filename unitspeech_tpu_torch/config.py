@@ -1,10 +1,10 @@
 """The port's configuration: the sections of unitspeech_tpu/config.py that
-the adaptive-TTS and speaker-adaptation slices and the SSL frontends read,
-as frozen dataclasses with the same fields, the same defaults (the
-reference's numbers) and the same dict form, so a checkpoint's `config`
-dict and a JSON overlay read the same in both packages. Sections no ported
-path reads (the contentvec encoder, the device mesh) are left out; a dict
-that carries them loads with them ignored.
+the adaptive-TTS, speaker-adaptation and voice-conversion slices and the
+SSL frontends read, as frozen dataclasses with the same fields, the same
+defaults (the reference's numbers) and the same dict form, so a
+checkpoint's `config` dict and a JSON overlay read the same in both
+packages. The device mesh, which no ported path reads, is left out; a dict
+that carries it loads with it ignored.
 """
 
 from __future__ import annotations
@@ -183,6 +183,7 @@ class MainConfig:
     data: DataConfig = DataConfig()
     text_encoder: EncoderConfig = EncoderConfig()
     unit_encoder: EncoderConfig = EncoderConfig(n_vocab=1000)
+    contentvec_encoder: EncoderConfig = EncoderConfig(n_contentvec=768)
     duration_predictor: DurationPredictorConfig = DurationPredictorConfig()
     decoder: DecoderConfig = DecoderConfig()
     vocoder: VocoderConfig = VocoderConfig()

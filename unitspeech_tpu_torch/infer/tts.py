@@ -3,8 +3,9 @@ unitspeech_tpu/infer/tts.py `TTSModels` and `Synthesizer`; reference
 unitspeech.py:413-450 driven by inference.py:34-160):
 
   phoneme IDs -> text encoder -> duration predictor -> generate_path ->
-  aligned conditioning -> 50-step reverse DDPM with dual CFG ->
-  denormalize -> BigVGAN -> waveform
+  aligned conditioning -> 50-step reverse DDPM with dual CFG (or the
+  sampler a spec names: ddpm / dpm2, optionally :cs<k>) -> denormalize ->
+  BigVGAN -> waveform
 
 The mel-frame axis is padded to a bucket of the same ladder as the JAX
 Synthesizer (tts.py:516-518). PyTorch needs no static shapes, but the
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from unitspeech_tpu_torch.config import MainConfig
-from unitspeech_tpu_torch.models.diffusion import UnitSpeech, reverse_diffusion
+from unitspeech_tpu_torch.models.diffusion import UnitSpeech, parse_sampler_spec, sample
 from unitspeech_tpu_torch.models.duration import DurationPredictor
 from unitspeech_tpu_torch.models.encoder import Encoder
 from unitspeech_tpu_torch.models.vocoder import BigVGAN
@@ -133,7 +134,7 @@ class Synthesizer:
 
     @torch.no_grad()
     def _align_and_sample(self, mu_x, x_mask, w_ceil, y_pad, steps, tg, sg, generator,
-                          noise_z, noises):
+                          noise_z, noises, sampler):
         m = self.models
         y_lengths = torch.clamp(w_ceil.sum(dim=1), min=1.0)
         y_mask = sequence_mask(torch.clamp(y_lengths, max=y_pad).to(torch.int32), y_pad)
@@ -141,22 +142,28 @@ class Synthesizer:
         cond_y = torch.einsum("bxy,bxf->byf", attn, mu_x)
         z = noise_z if noise_z is not None else torch.randn(
             cond_y.shape, generator=generator, device=cond_y.device)
-        mel = reverse_diffusion(m.decoder, z, y_mask, cond_y, m.spk_emb, n_timesteps=steps,
-                                text_gradient_scale=tg, spk_gradient_scale=sg,
-                                generator=generator, noises=noises)
+        # `sampler` is a spec ("ddpm" / "dpm2", optionally ":cs<k>"), parsed
+        # here, the one sampler dispatch point, as in the JAX package
+        mel = sample(m.decoder, sampler, z, y_mask, cond_y, m.spk_emb, steps,
+                     text_gradient_scale=tg, spk_gradient_scale=sg, generator=generator,
+                     noises=noises)
         return denormalize_mel(mel, m.mel_min, m.mel_max), attn
 
     def synthesize_mel(self, token_ids: Sequence[int], generator=None, diffusion_steps=None,
                        length_scale=None, text_gradient_scale=None, spk_gradient_scale=None,
-                       noise_z=None, noises=None, durations=None):
+                       noise_z=None, noises=None, durations=None, sampler: str = "ddpm"):
         """Token IDs -> (denormalized log-mel (1, Ty_pad, F), y_length, attn).
 
+        sampler: a spec (models/diffusion.parse_sampler_spec), "ddpm" (the
+        reference's), "dpm2", either with ":cs<k>"; a malformed one raises
+        before any work.
         durations: optional (1, n_tok) forced per-token durations. noise_z
         (1, Ty_pad, F) / noises (steps, 1, Ty_pad, F): injected prior and
         per-step noise (shapes at the frame bucket the call resolves);
         otherwise drawn from `generator`."""
         steps, lscale, tg, sg = self._scales(diffusion_steps, length_scale,
                                              text_gradient_scale, spk_gradient_scale)
+        parse_sampler_spec(sampler)
         mu_x, x_mask, w_ceil = self.encode(token_ids)
         w_ceil = w_ceil * lscale
         if durations is not None:
@@ -167,7 +174,7 @@ class Synthesizer:
         num_down = self.models.cfg.decoder.num_downsamplings
         y_pad = choose_bucket(fix_len_compatibility(y_length, num_down), self.frame_buckets)
         mel, attn = self._align_and_sample(mu_x, x_mask, w_ceil, y_pad, steps, tg, sg,
-                                           generator, noise_z, noises)
+                                           generator, noise_z, noises, sampler)
         return mel, y_length, attn
 
     @torch.no_grad()
@@ -184,7 +191,8 @@ class Synthesizer:
 
         forced_total_frames: durations forced to sum to this many frames
         (the forced-duration mode); otherwise predicted (the exact mode).
-        Other keyword arguments go to synthesize_mel."""
+        Other keyword arguments (the sampler spec among them) go to
+        synthesize_mel."""
         if self.models.vocoder is None:
             raise ValueError("Synthesizer built without a vocoder.")
         if forced_total_frames is not None:

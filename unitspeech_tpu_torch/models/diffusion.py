@@ -4,8 +4,12 @@ unitspeech_tpu/models/diffusion.py; reference unitspeech.py:220-492).
 Dual classifier-free guidance runs as ONE 3-row estimator call per step
 (rows: text-unconditional, speaker-unconditional, conditional), combined
 with the reference's algebra. The JAX `lax.scan` is a Python loop here.
-The training losses (forward diffusion, the score-matching loss, the
-fine-tune's random segment crop) run under autograd.
+Two samplers, named by a spec (`parse_sampler_spec`, dispatched by
+`sample`): the reference's stochastic DDPM and the JAX package's
+DPM-Solver++(2M) `dpm2`, each with an optional guidance stride `:cs<k>`
+(CFG delta caching: the 3-row call on every k-th step, 1-row calls
+between). The training losses (forward diffusion, the score-matching
+loss, the fine-tune's random segment crop) run under autograd.
 
 Randomness comes from an explicit torch.Generator, or is injected
 (`noise_z` / `noises` for the sampler, `draws` for the losses) so a run
@@ -22,6 +26,7 @@ from unitspeech_tpu_torch.models.unet import GradLogPEstimator2d
 from unitspeech_tpu_torch.ops.masking import sequence_mask
 from unitspeech_tpu_torch.ops.schedule import (
     forward_diffusion_coefficients,
+    make_ode_schedule,
     make_reverse_schedule,
 )
 
@@ -102,30 +107,130 @@ def cfg_score(model: UnitSpeech, xt, mask, cond, t, spk_emb,
     return combine(model(xt_c, mask_c, cond_c, t_c, spk_c))
 
 
+SAMPLERS = ("ddpm", "dpm2")
+
+
+def parse_sampler_spec(spec: str):
+    """A sampler spec: "ddpm" or "dpm2", optionally with a guidance stride
+    ":cs<k>" (e.g. "dpm2:cs2"): the two unconditional guidance rows run
+    only every k-th step, their delta cached in between (see
+    reverse_diffusion's cfg_stride). Returns (name, cfg_stride); a
+    malformed spec raises ValueError, with the JAX package's messages."""
+    name, _, opt = str(spec).partition(":")
+    stride = 1
+    if opt:
+        if not (opt.startswith("cs") and opt[2:].isdigit() and int(opt[2:]) >= 1):
+            raise ValueError(f"bad sampler option {opt!r} in {spec!r} (expected 'cs<k>')")
+        stride = int(opt[2:])
+    if name not in SAMPLERS:
+        raise ValueError(f"unknown sampler {name!r} (expected 'ddpm' or 'dpm2')")
+    return name, stride
+
+
+def _guided_score(model: UnitSpeech, mask, cond, spk_emb, text_gradient_scale: float,
+                  spk_gradient_scale: float, n_timesteps: int, cfg_stride: int, std_of):
+    """score(xt, t, i): the guided score of sampler step i at time t.
+
+    With cfg_stride k > 1 and guidance on (CFG delta caching, the JAX
+    package's `_reverse_diffusion_strided`): the steps run in groups of k
+    (k clamped to n_timesteps); a group's first step makes the full
+    guidance call and caches its delta in eps space, delta * std_t; the
+    group's other steps run the estimator on the conditional rows alone
+    (B rows, not 3B) and add the cached delta back as delta / std_t. The
+    trailing n % k steps run full. std_of(i) is step i's std_t. The
+    estimator returns f32 on every route, so the combine and the cached
+    delta are f32, as the sampler state is."""
+    cond_c, spk_c, mask_c, n_rows, combine = build_cfg_rows(
+        model, mask, cond, spk_emb, text_gradient_scale, spk_gradient_scale)
+    b = mask.shape[0]
+    stride = min(cfg_stride, n_timesteps) if n_rows > 1 else 1
+    n_grouped = (n_timesteps // stride) * stride
+    cache = {}
+
+    def score(xt, t: float, i: int):
+        if stride > 1 and i < n_grouped and i % stride:
+            s = model(xt, mask, cond, torch.full((b,), t, device=xt.device), spk_emb)
+            return s + cache["delta_eps"] / std_of(i)
+        xt_c = torch.cat([xt] * n_rows) if n_rows > 1 else xt
+        s_all = model(xt_c, mask_c, cond_c, torch.full((xt_c.shape[0],), t, device=xt.device),
+                      spk_c)
+        guided = combine(s_all)
+        if stride > 1:
+            cache["delta_eps"] = (guided - s_all[-b:]) * std_of(i)
+        return guided
+
+    return score
+
+
 @torch.no_grad()
 def reverse_diffusion(model: UnitSpeech, z, mask, cond, spk_emb, n_timesteps: int = 50,
                       text_gradient_scale: float = 0.0, spk_gradient_scale: float = 0.0,
-                      generator: torch.Generator | None = None, noises=None):
-    """Reverse DDPM sampling (reference unitspeech.py:333-374), guidance
-    stride 1. z/cond (B, T, F); mask (B, T); spk_emb (B, S). `noises`
-    (n_timesteps, B, T, F) replaces the per-step draws. Returns mel
-    (B, T, F) f32."""
+                      generator: torch.Generator | None = None, noises=None,
+                      cfg_stride: int = 1):
+    """Reverse DDPM sampling (reference unitspeech.py:333-374). z/cond
+    (B, T, F); mask (B, T); spk_emb (B, S). `noises` (n_timesteps, B, T, F)
+    replaces the per-step draws (also with cfg_stride > 1, which the JAX
+    package refuses: a test hook for its fold_in draws). cfg_stride > 1:
+    CFG delta caching (_guided_score); stride 1 is the reference's algebra.
+    Returns mel (B, T, F) f32."""
     sched = make_reverse_schedule(n_timesteps, model.beta_min, model.beta_max)
+    stds = forward_diffusion_coefficients(torch.from_numpy(sched.t_cont), model.beta_min,
+                                          model.beta_max)[1].tolist()
     mask3 = mask[:, :, None]
     xt = z * mask3
-    cond_c, spk_c, mask_c, n_rows, combine = build_cfg_rows(
-        model, mask, cond, spk_emb, text_gradient_scale, spk_gradient_scale)
+    score_fn = _guided_score(model, mask, cond, spk_emb, text_gradient_scale,
+                             spk_gradient_scale, n_timesteps, cfg_stride, stds.__getitem__)
     for i in range(n_timesteps):
         if noises is None:
             noise = torch.randn(xt.shape, generator=generator, device=xt.device)
         else:
             noise = noises[i]
-        xt_c = torch.cat([xt] * n_rows) if n_rows > 1 else xt
-        t_c = torch.full((xt_c.shape[0],), float(sched.t_cont[i]), device=xt.device)
-        score = combine(model(xt_c, mask_c, cond_c, t_c, spk_c))
+        score = score_fn(xt, float(sched.t_cont[i]), i)
         xt = (float(sched.c_x[i]) * xt + float(sched.c_score[i]) * score
               + float(sched.c_noise[i]) * noise) * mask3
     return xt * mask3
+
+
+@torch.no_grad()
+def reverse_diffusion_ode(model: UnitSpeech, z, mask, cond, spk_emb, n_timesteps: int = 25,
+                          text_gradient_scale: float = 0.0, spk_gradient_scale: float = 0.0,
+                          t_end: float = 0.01, cfg_stride: int = 1):
+    """Deterministic probability-flow sampling with DPM-Solver++(2M)
+    (ops/schedule.make_ode_schedule; the JAX package's `dpm2` sampler, which
+    the reference does not have): x0 = (x + sigma^2 * score) / alpha, then
+    x <- a * x + b * (c1 * x0 + c2 * x0_prev). cfg_stride as in
+    reverse_diffusion, with std_t = sqrt(sigma^2); the 2M history x0_prev
+    runs through full and cheap steps alike. Returns mel (B, T, F) f32."""
+    co = make_ode_schedule(n_timesteps, model.beta_min, model.beta_max,
+                           t_end=float(t_end)).stacked()
+    stds = torch.sqrt(torch.from_numpy(co[:, 6])).tolist()
+    mask3 = mask[:, :, None]
+    xt = z * mask3
+    x0_prev = torch.zeros_like(xt)  # the first step's c2 is 0
+    score_fn = _guided_score(model, mask, cond, spk_emb, text_gradient_scale,
+                             spk_gradient_scale, n_timesteps, cfg_stride, stds.__getitem__)
+    for i in range(n_timesteps):
+        t_eval, a, b, c1, c2, inv_alpha, sigma2 = (float(v) for v in co[i])
+        x0 = (xt + sigma2 * score_fn(xt, t_eval, i)) * inv_alpha
+        xt = (a * xt + b * (c1 * x0 + c2 * x0_prev)) * mask3
+        x0_prev = x0
+    return xt * mask3
+
+
+def sample(model: UnitSpeech, sampler: str, z, mask, cond, spk_emb, n_timesteps: int,
+           text_gradient_scale: float = 0.0, spk_gradient_scale: float = 0.0,
+           generator: torch.Generator | None = None, noises=None):
+    """The sampler a spec names (parse_sampler_spec), the one dispatch
+    point of the TTS and voice-conversion paths: "ddpm[:cs<k>]" is
+    reverse_diffusion, "dpm2[:cs<k>]" reverse_diffusion_ode (deterministic:
+    it draws nothing and ignores noises)."""
+    name, stride = parse_sampler_spec(sampler)
+    if name == "dpm2":
+        return reverse_diffusion_ode(model, z, mask, cond, spk_emb, n_timesteps,
+                                     text_gradient_scale, spk_gradient_scale, cfg_stride=stride)
+    return reverse_diffusion(model, z, mask, cond, spk_emb, n_timesteps, text_gradient_scale,
+                             spk_gradient_scale, generator=generator, noises=noises,
+                             cfg_stride=stride)
 
 
 def forward_diffusion(x0, mask, t, z, beta_min: float = 0.05, beta_max: float = 20.0):

@@ -1,7 +1,8 @@
-"""Text / unit encoder (counterpart of unitspeech_tpu/models/encoder.py;
-reference encoder.py:253-309): embedding -> conv prenet with residual ->
-post-LN transformer with window-limited relative-position attention ->
-projection to mel channels. Layout (B, T, C); runs in f32.
+"""Text / unit / contentvec encoder (counterpart of
+unitspeech_tpu/models/encoder.py; reference encoder.py:253-309):
+embedding (a table, or a linear map of contentvec features) -> conv
+prenet with residual -> post-LN transformer with window-limited
+relative-position attention -> projection to mel channels. Layout (B, T, C); runs in f32.
 
 Numerics: channel LayerNorm eps 1e-4 (reference encoder.py:13); masked
 attention logits filled with -1e4 (encoder.py:134).
@@ -131,23 +132,31 @@ class TransformerEncoder(nn.Module):
 
 
 class Encoder(nn.Module):
-    """(tokens (B, T) int, lengths (B,)) -> (mu_x (B, T, n_feats),
-    hidden (B, T, C), mask (B, T, 1)). The contentvec input variant belongs
-    to the voice-conversion slice."""
+    """One class, three uses (text / unit / contentvec), as the reference's
+    Encoder (encoder.py:253-309): (tokens (B, T) int, or contentvec
+    features (B, T, n_contentvec) float when n_contentvec > 0; lengths
+    (B,)) -> (mu_x (B, T, n_feats), hidden (B, T, C), mask (B, T, 1)).
+    The contentvec input is a bias-free Dense `emb.kernel` (n_contentvec,
+    C), flax's (in, out) layout; the token input an embedding table
+    `emb.embedding` (n_vocab, C)."""
 
     def __init__(self, n_vocab, n_feats, n_channels, filter_channels, n_heads, n_layers,
-                 kernel_size, window_size=4):
+                 kernel_size, window_size=4, n_contentvec: int = 0):
         super().__init__()
-        self.n_channels = n_channels
-        self.emb = nn.Module()
-        self.emb.embedding = nn.Parameter(torch.empty(n_vocab, n_channels))
+        self.n_channels, self.n_contentvec = n_channels, n_contentvec
+        if n_contentvec > 0:
+            self.emb = Dense(n_contentvec, n_channels, bias=False)
+        else:
+            self.emb = nn.Module()
+            self.emb.embedding = nn.Parameter(torch.empty(n_vocab, n_channels))
         self.prenet = ConvReluNorm(n_channels)
         self.encoder = TransformerEncoder(n_channels, filter_channels, n_heads, n_layers,
                                           kernel_size, window_size)
         self.proj_m = Dense(n_channels, n_feats)
 
     def forward(self, x, x_lengths):
-        hidden = self.emb.embedding[x] * math.sqrt(self.n_channels)
+        emb = self.emb(x) if self.n_contentvec > 0 else self.emb.embedding[x]
+        hidden = emb * math.sqrt(self.n_channels)
         x_mask = sequence_mask(x_lengths, hidden.shape[1], dtype=hidden.dtype)[:, :, None]
         hidden = self.prenet(hidden, x_mask)
         hidden = self.encoder(hidden, x_mask)
@@ -156,7 +165,6 @@ class Encoder(nn.Module):
 
     @classmethod
     def from_config(cls, cfg):
-        if cfg.n_contentvec:
-            raise NotImplementedError("contentvec encoder input is not ported yet")
         return cls(cfg.n_vocab, cfg.n_feats, cfg.n_channels, cfg.filter_channels,
-                   cfg.n_heads, cfg.n_layers, cfg.kernel_size, cfg.window_size)
+                   cfg.n_heads, cfg.n_layers, cfg.kernel_size, cfg.window_size,
+                   n_contentvec=cfg.n_contentvec)

@@ -1,4 +1,4 @@
-"""Diffusion noise schedule, closed form (counterpart of
+"""Diffusion noise schedules, closed form (counterpart of
 unitspeech_tpu/ops/schedule.py; reference unitspeech.py:204-209, 235-296,
 360-384).
 
@@ -7,6 +7,9 @@ The forward process q(x_t | x_0) for the fine-tune's loss
 schedule, host-side numpy float64 folded into three per-step scalars:
 
     x_{i+1} = (c_x[i] * x_i + c_score[i] * score_i + c_noise[i] * eps) * mask
+
+and the DPM-Solver++(2M) probability-flow schedule of the `dpm2` sampler
+(`make_ode_schedule`), seven per-step scalars on a uniform log-SNR grid.
 """
 
 from __future__ import annotations
@@ -76,3 +79,75 @@ def make_reverse_schedule(
         c_score=c_score[rev].astype(np.float32).copy(),
         c_noise=c_noise[rev].astype(np.float32).copy(),
     )
+
+
+@dataclass(frozen=True)
+class OdeSchedule:
+    """Per-step coefficients of the DPM-Solver++(2M) probability-flow
+    sampler (deterministic, no noise), each (n_timesteps,) float32; step i
+    advances t_{i-1} -> t_i:
+
+      t_eval:  the time the estimator is evaluated at (t_{i-1})
+      a:       sigma_i / sigma_{i-1}
+      b:       alpha_i * (1 - exp(-h_i))
+      c1, c2:  D_i = c1 * x0(x_{i-1}) + c2 * x0_prev (the first step's
+               c1 = 1, c2 = 0: a DDIM step)
+      inv_alpha, sigma2: of t_{i-1}, for x0 = (x + sigma^2 * score) / alpha
+    """
+
+    n_timesteps: int
+    t_eval: np.ndarray
+    a: np.ndarray
+    b: np.ndarray
+    c1: np.ndarray
+    c2: np.ndarray
+    inv_alpha: np.ndarray
+    sigma2: np.ndarray
+
+    def stacked(self) -> np.ndarray:
+        """(N, 7) float32: t_eval, a, b, c1, c2, inv_alpha, sigma2."""
+        return np.stack([self.t_eval, self.a, self.b, self.c1, self.c2, self.inv_alpha,
+                         self.sigma2], axis=1)
+
+
+def _lambda_of_t(t, beta_min, beta_max):
+    """Half the log-SNR, log(alpha_t / sigma_t), of the linear schedule."""
+    lam_cum = beta_min * t + 0.5 * (beta_max - beta_min) * t ** 2
+    alpha2 = np.exp(-lam_cum)
+    return 0.5 * (np.log(alpha2) - np.log(1.0 - alpha2))
+
+
+@lru_cache(maxsize=64)
+def make_ode_schedule(n_timesteps: int, beta_min: float = 0.05, beta_max: float = 20.0,
+                      t_start: float = 1.0, t_end: float = 0.01) -> OdeSchedule:
+    """DPM-Solver++(2M) coefficients on a uniform log-SNR grid from t_start
+    down to t_end (0.01: the 50-step DDPM grid's finest midpoint), host-side
+    float64; t(lambda) is a bisection on the monotone lambda(t)."""
+    n = n_timesteps
+    lams = np.linspace(_lambda_of_t(np.float64(t_start), beta_min, beta_max),
+                       _lambda_of_t(np.float64(t_end), beta_min, beta_max), n + 1)
+
+    def t_of_lambda(lam):
+        lo, hi = t_end * 1e-3, 1.0
+        for _ in range(200):
+            mid = 0.5 * (lo + hi)
+            if _lambda_of_t(mid, beta_min, beta_max) > lam:
+                lo = mid
+            else:
+                hi = mid
+        return 0.5 * (lo + hi)
+
+    ts = np.array([t_start] + [t_of_lambda(v) for v in lams[1:-1]] + [t_end])
+    lam_cum = beta_min * ts + 0.5 * (beta_max - beta_min) * ts ** 2
+    alpha = np.exp(-0.5 * lam_cum)
+    sigma = np.sqrt(1.0 - alpha ** 2)
+    h = lams[1:] - lams[:-1]
+    c1, c2 = np.ones(n), np.zeros(n)
+    if n > 1:
+        r = h[:-1] / h[1:]
+        c1[1:] = 1.0 + 1.0 / (2.0 * r)
+        c2[1:] = -1.0 / (2.0 * r)
+    f32 = lambda v: np.asarray(v, np.float64).astype(np.float32)  # noqa: E731
+    return OdeSchedule(n_timesteps=n, t_eval=f32(ts[:-1]), a=f32(sigma[1:] / sigma[:-1]),
+                       b=f32(alpha[1:] * (1.0 - np.exp(-h))), c1=f32(c1), c2=f32(c2),
+                       inv_alpha=f32(1.0 / alpha[:-1]), sigma2=f32(sigma[:-1] ** 2))

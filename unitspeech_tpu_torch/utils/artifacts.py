@@ -112,15 +112,17 @@ def save_module(path: str, name: str, state_dict: dict, cfg) -> str:
 
 
 def load_encoder_params(src, cfg, name: str = "text_encoder") -> dict:
-    """A text or unit encoder (cfg: its EncoderConfig; name: "text_encoder"
-    or "unit_encoder", the entry of a port checkpoint)."""
+    """A text, unit or contentvec encoder (cfg: its EncoderConfig, whose
+    n_contentvec > 0 reads the reference's contentvec layout, `emb.weight`
+    a (C, n_contentvec) linear map; name: "text_encoder", "unit_encoder" or
+    "contentvec_encoder", the entry of a port checkpoint)."""
     obj = read(src)
     sd = _port_entry(obj, name, src)
     if sd is not None:
         return sd
     return params_from_jax(torch_convert.convert_encoder(
         _numpy(obj.get("model", obj)), n_layers=cfg.n_layers,
-        prenet_layers=cfg.prenet_layers))
+        prenet_layers=cfg.prenet_layers, contentvec=cfg.n_contentvec > 0))
 
 
 def load_duration_predictor_params(src) -> dict:

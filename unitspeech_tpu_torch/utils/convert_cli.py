@@ -4,6 +4,7 @@
     python -m unitspeech_tpu_torch.cli convert decoder pretrained_decoder.pt decoder.pt
     python -m unitspeech_tpu_torch.cli convert text-encoder text_encoder.pt te.pt
     python -m unitspeech_tpu_torch.cli convert unit-encoder unit_encoder.pt ue.pt
+    python -m unitspeech_tpu_torch.cli convert contentvec-encoder contentvec_encoder.pt ce.pt
     python -m unitspeech_tpu_torch.cli convert duration-predictor duration_predictor.pt dp.pt
     python -m unitspeech_tpu_torch.cli convert vocoder bigvgan_generator.pt voc.pt
     python -m unitspeech_tpu_torch.cli convert hubert mhubert_base.pt hubert.pt
@@ -25,24 +26,17 @@ from __future__ import annotations
 import argparse
 import sys
 
-KINDS = ("decoder", "text-encoder", "unit-encoder", "duration-predictor", "vocoder", "hubert",
-         "wavlm", "speaker-embedder", "kmeans")
-# the JAX CLI's other kinds, whose modules the port does not have yet
-NOT_PORTED = {
-    "contentvec-encoder": "the contentvec encoder (voice conversion) is not ported yet "
-                          "(ROADMAP Queue 1 item 7)",
-}
+KINDS = ("decoder", "text-encoder", "unit-encoder", "contentvec-encoder", "duration-predictor",
+         "vocoder", "hubert", "wavlm", "speaker-embedder", "kmeans")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser("unitspeech-tpu-torch convert")
-    ap.add_argument("kind", choices=KINDS + tuple(NOT_PORTED))
+    ap.add_argument("kind", choices=KINDS)
     ap.add_argument("src", help="reference torch .pt checkpoint")
     ap.add_argument("dest", help="output file (the port's format)")
     ap.add_argument("--config", default=None, help="JSON config overlay")
     args = ap.parse_args(argv)
-    if args.kind in NOT_PORTED:
-        raise SystemExit(f"convert {args.kind}: {NOT_PORTED[args.kind]}")
 
     from unitspeech_tpu_torch.config import MainConfig, load_json
     from unitspeech_tpu_torch.models.speaker import WAVLM_CONFIGS
@@ -65,7 +59,7 @@ def main(argv=None) -> int:
     elif args.kind == "decoder":
         out = artifacts.save_decoder_bundle(
             args.dest, artifacts.load_decoder_bundle(args.src, cfg.decoder), cfg)
-    elif args.kind in ("text-encoder", "unit-encoder"):
+    elif args.kind in ("text-encoder", "unit-encoder", "contentvec-encoder"):
         name = args.kind.replace("-", "_")
         out = artifacts.save_module(
             args.dest, name,
