@@ -17,7 +17,10 @@ launches inside K4, K9, K7, K5, K6, K3 and K2 are timed one by one
 (tools/kernel_breakdown.py; K3's served call must be one kernel launch and
 K2's two). Then check what
 comes out: each kernel path against the plain path, the int8 gates and the
-kernel vocoder, each run with the exact kernel launches its path makes.
+kernel vocoder, each run with the exact kernel launches its path makes;
+then K4 at C = 1024 (its weights streamed through the ring) alone and in a
+forced 880-frame request, the first bucket whose F = 10 stage passes the
+attention gate, against the plain path with exact K4 launches.
 Then the adapt path: `cli finetune` at full width on the card (a synthetic
 6 s reference with sidecar units and speaker embedding, no kernel launched:
 the fine-tune trains the plain estimator), the adapted decoder served
@@ -38,6 +41,15 @@ the kernels beside the plain path (the guidance stride's cheap steps are
 the estimator's first one-row calls), forced 344-frame requests with
 ddpm:cs2 and dpm2:cs2, each with exact launches and its mel within the TTS
 bounds, and one seed of the sampler gate (tools/sampler_gate.py).
+Then the serving path (`cli serve`'s): build_batcher on the full-width
+checkpoint (the int8 default, the cost window from the card's measured
+curves, the batch ladder 1/2/4/8 x every window bucket warmed), its HTTP front end on
+127.0.0.1:0, a burst of 8 concurrent POST /synthesize of mixed lengths
+batched on the kernels (every waveform its length, exact estimator calls
+by rows), one overflow and one streamed request; a B = 8 batch of mixed
+lengths on the kernels against the plain paths row by row, with exact
+launches; and the device time, launches and wall a request of a forced
+344-frame batch at B = 1, 2, 4 and 8.
 Last, the paths of the kernels that no request runs, the port's four tools
 at full size (unitspeech_tpu_torch/tools): the kernel benchmark with
 --int8 --deep (the in-kernel int8 blocks K10a, K10b), the transcendental
@@ -957,6 +969,103 @@ def compare_paths(torch, dev, ckpt_path, per_call, runs=RUNS, vocoder=True, what
     return {**out, "voc_wave_l1": wl1, "voc_ms": times}
 
 
+# A forced request at the 880-frame bucket, the ladder's first whose F = 10
+# stage (110 x 10 tokens) passes the attention gate (a request of 785
+# frames or more): down_3, mid and up_2 run K4 (the first two at C = 1024,
+# whose weights stream through the ring) beside the five sites of the 344
+# bucket
+LONG_FRAMES = 880
+
+
+def _k4_per_call(cfg, bucket):
+    """K4 launches of one estimator call at a frame bucket: the attention
+    sites (down_i at level i, mid at the last level, up_i at level i + 1)
+    whose T * F passes the gate (models/unet.py PALLAS_MIN_TOKENS)."""
+    from unitspeech_tpu_torch.models.unet import PALLAS_MIN_TOKENS
+
+    n = len(cfg.decoder.dim_mults)
+    tokens = [(bucket >> i) * (cfg.data.n_feats >> i) for i in range(n)]
+    sites = tokens + [tokens[-1]] + tokens[1:]
+    return sum(t >= PALLAS_MIN_TOKENS for t in sites)
+
+
+def long_bucket(torch, dev, ckpt_path, per_call):
+    """K4 at C = 1024 on the served path: its wrapper at the F = 10 site of
+    the LONG_FRAMES bucket (B = 3, lengths full, 7/9 and full) against its
+    plain version, then a forced LONG_FRAMES-frame request with the same
+    injected noise on the bf16 kernels against the plain bf16 path (TTS
+    bounds), the kernel run's K4 launches exactly STEPS x _k4_per_call
+    and every other estimator kernel of the bf16 path launched. Returns the
+    measurements."""
+    from unitspeech_tpu_torch.infer.tts import Synthesizer, TTSModels, forced_durations
+    from unitspeech_tpu_torch.ops import fused_attention
+    from unitspeech_tpu_torch.text import phonemes_to_sequence
+    from unitspeech_tpu_torch.utils.artifacts import read
+    from unitspeech_tpu_torch.utils.params import config_from_dict
+
+    t0 = time.perf_counter()
+    ckpt = read(ckpt_path)
+    cfg = config_from_dict(ckpt["config"])
+    g = torch.Generator(device=dev).manual_seed(LONG_FRAMES)
+    n, c = (LONG_FRAMES >> 3) * (cfg.data.n_feats >> 3), cfg.decoder.dim * cfg.decoder.dim_mults[-1]
+    x = torch.randn((3, n, c), generator=g, device=dev).to(torch.bfloat16)
+    w_qkv = torch.randn((c, 384), generator=g, device=dev) * c ** -0.5
+    w_out = torch.randn((128, c), generator=g, device=dev) * 128 ** -0.5
+    b_out, gate = torch.randn((c,), generator=g, device=dev) * 0.1, torch.tensor([0.7], device=dev)
+    lens = torch.tensor([n, n * 7 // 9, n], dtype=torch.int32, device=dev)
+    got = fused_attention.fused_rezero_attention(x, w_qkv, w_out, b_out, gate, lens)
+    want = fused_attention.rezero_attention_plain(x, w_qkv, w_out, b_out, gate, lens, 4, 32)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = BF16_REL * max(want.float().abs().max().item(), 1.0)
+    print(f"long bucket: K4 at N={n} C={c} (B = 3): max_abs_err {err:.3e} (bound {tol:.3e})",
+          flush=True)
+    if not (np.isfinite(err) and err <= tol):
+        raise AssertionError(f"K4 at C = {c}: {err} exceeds {tol}")
+
+    ids = phonemes_to_sequence(FORCED_TEXT)
+    noise_z = torch.randn((1, LONG_FRAMES, cfg.data.n_feats), generator=g, device=dev)
+    noises = torch.randn((STEPS, 1, LONG_FRAMES, cfg.data.n_feats), generator=g, device=dev)
+    k4 = STEPS * _k4_per_call(cfg, LONG_FRAMES)
+    mels, launches = {}, {}
+    for name, path, dtype, kernels, routes in [r for r in RUNS if r[0] in ("kernels", "plain")]:
+        synth = Synthesizer(TTSModels.from_checkpoint(
+            ckpt, device=dev, dtype=getattr(torch, dtype), use_kernels=kernels,
+            with_vocoder=False, **routes))
+        wrappers = _kernel_wrappers()
+        for w in wrappers.values():
+            w.launches = 0
+        mel, y_len, _ = synth.synthesize_mel(
+            ids, diffusion_steps=STEPS, text_gradient_scale=1.0, spk_gradient_scale=1.0,
+            durations=forced_durations(len(ids), LONG_FRAMES), noise_z=noise_z, noises=noises)
+        launches[name] = {k: w.launches for k, w in wrappers.items()}
+        print(f"  kernel launches in the forced {LONG_FRAMES}-frame {name} run: "
+              f"{launches[name]}", flush=True)
+        if y_len != LONG_FRAMES or mel.shape[1] != LONG_FRAMES:
+            raise AssertionError(f"long bucket {name}: length {y_len}, bucket {mel.shape[1]}")
+        mels[name] = mel[:, :y_len].float()
+        del synth
+    lk = launches["kernels"]
+    off = [k for k in ESTIMATOR_KERNELS if per_call["bf16"][k] and not lk[k]]
+    if lk["fused_rezero_attention"] != k4 or off or any(launches["plain"].values()):
+        raise AssertionError(f"long bucket launches: K4 {lk['fused_rezero_attention']}, "
+                             f"expected {k4}; not launched {off}; plain {launches['plain']}")
+    ref = mels["plain"]
+    span = (ref.max() - ref.min()).item()
+    d = (mels["kernels"] - ref).abs()
+    l1, mx = d.mean().item() / span, d.max().item() / span
+    res = {"frames": LONG_FRAMES, "k4_site": {"n": n, "c": c, "max_abs_err": err, "tol": tol},
+           "k4_launches": lk["fused_rezero_attention"], "mel_l1": l1, "mel_max": mx,
+           "seconds": time.perf_counter() - t0}
+    print(f"  forced {LONG_FRAMES} frames: kernels vs plain (bf16), mel L1 {l1:.3e}, max |diff| "
+          f"{mx:.3e} of the mel's dynamic range {span:.1f} (bounds {MEL_L1_BOUND:.0e}, "
+          f"{MEL_MAX_BOUND:.0e}); K4 launched {lk['fused_rezero_attention']} times "
+          f"({res['seconds']:.1f} s)", flush=True)
+    if not (bool(torch.isfinite(mels["kernels"]).all()) and l1 <= MEL_L1_BOUND
+            and mx <= MEL_MAX_BOUND):
+        raise AssertionError(f"long bucket mel: L1 {l1}, max {mx}")
+    return res
+
+
 # The adapt path (cli finetune, then the adapted decoder served): ADAPT_ITERS
 # fine-tune steps at full width in bf16 on a synthetic 6 s reference, at the
 # reference's learning rate (2e-5; at 1e-3 the random-weight decoder
@@ -1478,6 +1587,301 @@ def voice_and_samplers(torch, dev, tmp, ckpt_path, adapted_path, per_call, smi):
     return res
 
 
+# The serving phase (after the VC-and-sampler phase), `cli serve`'s path:
+# build_batcher on the full-width random checkpoint (the int8 default, the
+# cost policy on infer/cost_anchors_h100.json, max_batch 8) calibrated from
+# SERVE_CAL seeded IPA sentences, its HTTP front end on 127.0.0.1:0, a
+# burst of SERVE_REQUESTS concurrent POST /synthesize (one client thread
+# each, all released at once), one overflow, one streamed request; then a
+# B = 8 batch forced to the mixed lengths SERVE_FRAMES (bucket 344) on the
+# kernels against the plain paths, and the device time a request of a
+# forced 344-frame batch at B = 1, 2, 4, 8.
+SERVE_WORDS = ("ðə", "kwɪk", "bɹaʊn", "fɑks", "dʒʌmpt", "oʊvɚ", "leɪzi", "dɑɡ", "wʌns",
+               "əpɑn", "taɪm", "smɔl", "vɪlɪdʒ", "si", "oʊld", "fɪʃɚmən", "spɛnt", "hɪz",
+               "deɪz", "mɛndɪŋ", "nɛts", "ənd", "tɛlɪŋ", "stɔɹiz", "tʃɪldɹən", "ɪn", "bʌt")
+SERVE_SEED, SERVE_CAL, SERVE_REQUESTS = 40, 24, 8
+SERVE_FRAMES = (344, 301, 280, 256, 230, 200, 150, 120)
+SERVE_LADDER = (1, 2, 4, 8)
+
+
+def _ipa_sentences(rng, n, lo, hi):
+    """n sentences of lo..hi-1 IPA words drawn from SERVE_WORDS."""
+    return [" ".join(rng.choice(SERVE_WORDS, int(rng.integers(lo, hi)))) + "."
+            for _ in range(n)]
+
+
+def _http(url, payload=None, stream=False):
+    """One request with its own time limit: (status, headers, body)."""
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.status, dict(r.headers), r.read()
+
+
+# kernels that one wrapper call launches once each (K4's three phases, K3
+# and K7 one kernel a call): a profiled batch's trace must hold as many
+# records of each as the wrapper's counter counted in that call
+TRACE_CHECK = {"attn_kv": "fused_rezero_attention", "attn_merge": "fused_rezero_attention",
+               "attn_out": "fused_rezero_attention", "row_stats_kernel": "row_stats",
+               "row_absmax_kernel": "row_absmax"}
+
+
+def _batch_ms(fn, tries=3):
+    """(median wall ms of the 3 unprofiled calls before torch.profiler's;
+    the profiled call's device busy ms and launches; the traces discarded).
+    The trace is held to the launch counters of the same call: each kernel
+    of TRACE_CHECK must have as many records as its wrapper counted. A
+    trace that lost records is discarded and the profiled call run again,
+    `tries` times in all; then the phase fails. Each call ends with its
+    waveforms on the host."""
+    walls = []
+    wrappers = _kernel_wrappers()
+
+    def timed():
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    lost = []
+    for _ in range(tries):
+        act = kernel_breakdown.device_activity(timed, 1, names=True)
+        got = dict.fromkeys(TRACE_CHECK, 0)
+        for name, k in act["by_name"].items():
+            if name.split("<")[0] in got:
+                got[name.split("<")[0]] += k
+        want = {k: wrappers[w].launches for k, w in TRACE_CHECK.items()}
+        if got == want:
+            return float(np.median(walls[:3])), act, lost
+        lost.append({"records": got, "counters": want, "launches": act["launches"]})
+        print(f"  trace lost records: {got} against the counters {want} "
+              f"({act['launches']:.0f} records); discarded, profiled again", flush=True)
+    raise AssertionError(f"serving: every trace lost records: {lost}")
+
+
+def serving(torch, dev, tmp, ckpt_path, per_call, smi):
+    """The serving path on the card: build_batcher (calibrate, the cost
+    window, the batch ladder x token bucket x window bucket warm-up) and
+    make_http_server;
+    SERVE_REQUESTS concurrent POST /synthesize of mixed lengths: every
+    waveform y_length * hop samples, /stats a dispatch of n >= 2, the
+    estimator's calls exactly STEPS a dispatch at 3 b rows (b the ladder
+    size the dispatch pads to; a forward pre-hook), K1-K4, K7 and K5/K6
+    launched; one overflow (a one-bucket window below the request) at its
+    true length; one streamed two-sentence request, its PCM the chunks'
+    lengths; a B = 8 batch forced to SERVE_FRAMES with injected noise on
+    the bf16 kernels and the int8 default against the plain bf16 and f32
+    paths, row by row (TTS bounds; int8 gate), exact launches; then each B
+    of SERVE_LADDER at a forced 344-frame batch: wall, device busy time and
+    launches, per request. Returns the measurements."""
+    import threading
+
+    from unitspeech_tpu_torch.infer.tts import Synthesizer, TTSModels, forced_durations
+    from unitspeech_tpu_torch.serve import DynamicBatcher, build_batcher, make_http_server
+    from unitspeech_tpu_torch.text import phonemes_to_sequence, split_sentences
+    from unitspeech_tpu_torch.utils import artifacts
+
+    t_phase = time.perf_counter()
+    ckpt = artifacts.read(ckpt_path)
+    synth = Synthesizer(TTSModels.from_checkpoint(ckpt, device=dev, use_kernels=True,
+                                                  use_int8_deep=True))
+    hop = synth.models.cfg.data.hop_length
+    rng = np.random.default_rng(SERVE_SEED)
+    cal = [phonemes_to_sequence(t) for t in _ipa_sentences(rng, SERVE_CAL, 3, 14)]
+    texts = _ipa_sentences(rng, SERVE_REQUESTS, 2, 12)
+    ids = [phonemes_to_sequence(t) for t in texts]
+    frames = [max(int(synth.encode(i)[2].sum().item()), 1) for i in ids]
+    guidance = dict(default_steps=STEPS, text_gradient_scale=1.0, spk_gradient_scale=1.0)
+    t0 = time.perf_counter()
+    batcher = build_batcher(synth, calibration_texts=cal, max_batch=8, max_wait_ms=500.0,
+                            warmup_token_lengths=(max(len(i) for i in ids),), **guidance)
+    warm_s = time.perf_counter() - t0
+    res = {"card": smi, "load_s": t0 - t_phase, "window": list(batcher.synth.switch_buckets),
+           "ladder": batcher.batch_ladder, "warmup_s": warm_s, "tokens": [len(i) for i in ids],
+           "frames": frames}
+    print(f"serving: build_batcher (calibrated on {SERVE_CAL} IPA sentences, cost window "
+          f"{res['window']}, ladder {res['ladder']}, warm-up {warm_s:.1f} s, load "
+          f"{res['load_s']:.1f} s); {SERVE_REQUESTS} "
+          f"requests of {res['tokens']} tokens, {frames} frames", flush=True)
+    if tuple(batcher.batch_ladder) != SERVE_LADDER:
+        raise AssertionError(f"batch ladder {batcher.batch_ladder}")
+    t_http = time.perf_counter()
+    dispatched = []
+    real_run = batcher._run
+    batcher._run = lambda s, batch: (dispatched.append(len(batch)), real_run(s, batch))[1]
+    srv = make_http_server(batcher, "127.0.0.1", 0, text_to_ids=phonemes_to_sequence)
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    wrappers = _kernel_wrappers()
+    try:
+        outs, errors = [None] * SERVE_REQUESTS, []
+        go = threading.Barrier(SERVE_REQUESTS)
+
+        def client(i):
+            try:
+                go.wait(60)
+                t1 = time.perf_counter()
+                out = json.loads(_http(url + "/synthesize", {"text": texts[i],
+                                                             "format": "json"})[2])
+                outs[i] = (out, time.perf_counter() - t1)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+        for w in wrappers.values():
+            w.launches = 0
+        with _estimator_rows(torch) as rows:
+            t0 = time.perf_counter()
+            clients = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_REQUESTS)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(600)
+            burst = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        if errors or any(c.is_alive() for c in clients):
+            raise AssertionError(f"serving burst: {errors}")
+        stats = json.loads(_http(url + "/stats")[2])
+        sizes = [next(b for b in SERVE_LADDER if b >= n) for n in dispatched]
+        want_rows = [3 * b for b in sizes for _ in range(STEPS)]
+        lat = [o[1] for o in outs]
+        res["burst"] = {"wall_s": burst, "latency_s": lat, "dispatches": list(dispatched),
+                        "rows": sizes, "launches": launches,
+                        "stats": {k: stats[k] for k in ("batches", "batch_sizes",
+                                                        "mean_dispatch_s", "padding_waste")}}
+        print(f"  burst of {SERVE_REQUESTS} concurrent POST /synthesize: wall {burst:.3f} s, "
+              f"latency {min(lat):.3f}-{max(lat):.3f} s; dispatches of {dispatched} requests "
+              f"(padded to {sizes}); /stats batch_sizes {stats['batch_sizes']}, mean dispatch "
+              f"{stats['mean_dispatch_s']:.3f} s; launches {launches}", flush=True)
+        got = [o[0]["n_samples"] for o in outs]
+        if got != [f * hop for f in frames] or not all(o[0]["sr"] == 22050 for o in outs):
+            raise AssertionError(f"serving: samples {got}, expected {[f * hop for f in frames]}")
+        if max(int(k) for k in stats["batch_sizes"]) < 2:
+            raise AssertionError(f"serving: no dispatch of 2 or more: {stats['batch_sizes']}")
+        if rows != want_rows:
+            raise AssertionError(f"serving: estimator rows {rows[:8]}... ({len(rows)} calls), "
+                                 f"expected {STEPS} calls at {[3 * b for b in sizes]}")
+        off = [k for k in ESTIMATOR_KERNELS[:5] + VOCODER_KERNELS if launches[k] == 0]
+        stray = [k for k, v in launches.items() if v and k not in ESTIMATOR_KERNELS[:5]
+                 + VOCODER_KERNELS]
+        if off or stray:
+            raise AssertionError(f"serving: not launched {off}, stray {stray}")
+
+        # one overflow: a one-bucket window below the longest request
+        i = int(np.argmax(frames))
+        small = [b for b in synth.frame_buckets if b < frames[i]][-1]
+        ov = DynamicBatcher(dataclasses.replace(batcher.synth, switch_buckets=(small,)),
+                            max_batch=8, max_wait_ms=1.0, **guidance)
+        try:
+            wav, _ = ov.submit(ids[i]).result(timeout=300)
+            if len(wav) != frames[i] * hop or ov.stats.overflows != 1:
+                raise AssertionError(f"overflow: {len(wav)} samples, {ov.stats.overflows}")
+        finally:
+            ov.shutdown(60)
+        print(f"  overflow of window ({small},) by a {frames[i]}-frame request: fell back to its "
+              f"length ({len(wav)} samples)", flush=True)
+
+        # one streamed request of two sentences: the first chunk solo
+        text = texts[0] + " " + texts[1]
+        chunks = [phonemes_to_sequence(c) for c in split_sentences(text)]
+        want = sum(max(int(synth.encode(c)[2].sum().item()), 1) for c in chunks) * hop
+        t0 = time.perf_counter()
+        code, headers, body = _http(url + "/synthesize", {"text": text, "stream": True})
+        res["stream"] = {"wall_s": time.perf_counter() - t0, "chunks": len(chunks),
+                         "samples": (len(body) - 44) // 2}
+        if (code != 200 or headers.get("Transfer-Encoding") != "chunked" or body[:4] != b"RIFF"
+                or len(body) != 44 + 2 * want):
+            raise AssertionError(f"stream: {code} {headers} {len(body)} bytes, want {want} "
+                                 "samples")
+        print(f"  streamed request ({len(chunks)} chunks): {want} samples in "
+              f"{res['stream']['wall_s']:.3f} s (the HTTP part {time.perf_counter() - t_http:.1f}"
+              " s)", flush=True)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        server.join(60)
+        batcher.shutdown(60)
+    del batcher, srv
+    res["http_s"] = time.perf_counter() - t_http
+
+    # B = 8 forced to SERVE_FRAMES on the kernels against the plain paths
+    dur = [forced_durations(len(i), f)[0] for i, f in zip(ids, SERVE_FRAMES)]
+    g = torch.Generator(device=dev).manual_seed(4321)
+    n_feats = synth.models.cfg.data.n_feats
+    noise_z = torch.randn((8, FRAMES, n_feats), generator=g, device=dev)
+    noises = torch.randn((STEPS, 8, FRAMES, n_feats), generator=g, device=dev)
+    mels = {}
+    t0 = time.perf_counter()
+    for name, path, dtype, kernels, routes in [r for r in RUNS if r[0] in (
+            "kernels", "int8", "plain", "plain_f32")]:
+        # the served synthesizer is the int8 default's
+        s = synth if name == "int8" else Synthesizer(TTSModels.from_checkpoint(
+            ckpt, device=dev, dtype=getattr(torch, dtype), use_kernels=kernels,
+            with_vocoder=False, **routes))
+        want = {k: (STEPS * per_call[path][k] if kernels and k in ESTIMATOR_KERNELS else 0)
+                for k in KERNELS}
+        mel, y_len = _counted(f"B = 8 batch {name}", lambda s=s: s.synthesize_mel_batch(
+            ids, durations=dur, diffusion_steps=STEPS, text_gradient_scale=1.0,
+            spk_gradient_scale=1.0, noise_z=noise_z, noises=noises), want)
+        if list(y_len) != list(SERVE_FRAMES) or mel.shape[1] != FRAMES:
+            raise AssertionError(f"B = 8 batch {name}: lengths {y_len}, bucket {mel.shape[1]}")
+        mels[name] = [mel[i, :f].float().cpu().numpy() for i, f in enumerate(SERVE_FRAMES)]
+        del s
+    rows_out = []
+    for i, f in enumerate(SERVE_FRAMES):
+        ref, f32 = mels["plain"][i], mels["plain_f32"][i]
+        span = float(ref.max() - ref.min())
+        d = np.abs(mels["kernels"][i] - ref)
+        l1_k, l1_i = (float(np.abs(mels[k][i] - f32).mean()) for k in ("kernels", "int8"))
+        row = {"frames": f, "mel_l1": float(d.mean()) / span, "mel_max": float(d.max()) / span,
+               "int8_gate_ratio": l1_i / l1_k}
+        rows_out.append(row)
+        if not (np.isfinite(mels["kernels"][i]).all() and row["mel_l1"] <= MEL_L1_BOUND
+                and row["mel_max"] <= MEL_MAX_BOUND and row["int8_gate_ratio"] <= INT8_GATE_RATIO):
+            raise AssertionError(f"B = 8 batch row {i}: {row}")
+    res["batch8"] = rows_out
+    res["batch8_s"] = time.perf_counter() - t0
+    print("  B = 8 batch forced to " + "/".join(map(str, SERVE_FRAMES)) + " frames (bucket "
+          f"{FRAMES}), row by row: bf16 kernels vs plain bf16 mel L1 "
+          + ", ".join(f"{r['mel_l1']:.2e}" for r in rows_out) + "; max "
+          + ", ".join(f"{r['mel_max']:.2e}" for r in rows_out) + "; int8 gate "
+          + ", ".join(f"{r['int8_gate_ratio']:.3f}" for r in rows_out)
+          + f" (bounds {MEL_L1_BOUND:.0e}, {MEL_MAX_BOUND:.0e}, {INT8_GATE_RATIO}; "
+          f"{res['batch8_s']:.1f} s)", flush=True)
+    del mels
+
+    # per request at B = 1, 2, 4, 8: a forced 344-frame batch, vocoded
+    res["per_b"] = {}
+    for b in SERVE_LADDER:
+        def batch(b=b):
+            return synth.synthesize_batch(
+                ids[:b], torch.Generator(device=dev).manual_seed(b),
+                durations=[forced_durations(len(i), FRAMES)[0] for i in ids[:b]],
+                diffusion_steps=STEPS, text_gradient_scale=1.0, spk_gradient_scale=1.0)
+
+        t0 = time.perf_counter()
+        wall, act, lost = _batch_ms(batch)
+        r = {"wall_ms": wall, "device_ms": act["busy_ms"], "launches": act["launches"],
+             "traces_discarded": lost,
+             "wall_ms_per_request": wall / b, "device_ms_per_request": act["busy_ms"] / b,
+             "launches_per_request": act["launches"] / b,
+             "idle_share": 1.0 - act["busy_ms"] / wall, "measure_s": time.perf_counter() - t0}
+        res["per_b"][b] = r
+        print(f"  forced {FRAMES}-frame batch at B = {b}: per request wall "
+              f"{r['wall_ms_per_request']:.1f} ms, device busy {r['device_ms_per_request']:.1f} "
+              f"ms, {r['launches_per_request']:.0f} launches; idle share {r['idle_share']:.3f} "
+              f"(trace held to the counters; {len(lost)} discarded; {r['measure_s']:.1f} s); "
+              f"{smi}", flush=True)
+    del synth
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"serving phase: {res['phase_s']:.1f} s", flush=True)
+    return res
+
+
 def run_tools():
     """This slice's paths: the port's four tools at full size, each run
     with every launch counter set to 0 just before it and read just after.
@@ -1595,10 +1999,12 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, launches = serve(torch, tmp, per_call)
         paths = compare_paths(torch, dev, ckpt, per_call)
+        paths["long_bucket"] = long_bucket(torch, dev, ckpt, per_call)
         adapted, adapted_launches = adapt(torch, dev, tmp, ckpt, per_call, smi)
         front, launches["grapheme"] = frontends(torch, dev, tmp, ckpt, per_call, smi)
         voice = voice_and_samplers(torch, dev, tmp, ckpt, adapted["finetune"]["output"],
                                    per_call, smi)
+        served = serving(torch, dev, tmp, ckpt, per_call, smi)
     launches["adapted"] = adapted_launches["kernels"]
     tool_launches, tools = run_tools()
     launches.update(tool_launches)
@@ -1608,13 +2014,15 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": smi, "records": records, "paths": paths, "adapt": adapted,
-                       "frontends": front, "voice": voice, "kernels": kernels,
+                       "frontends": front, "voice": voice, "serving": served,
+                       "kernels": kernels,
                        "launches": launches, "tools": tools, "breakdown": breakdown}, f,
                       indent=1)
     print(json.dumps({"paths": paths}))
     print(json.dumps({"adapt": {k: v for k, v in adapted.items() if k != "losses"}}))
     print(json.dumps({"frontends": {k: v for k, v in front.items() if k != "losses"}}))
     print(json.dumps({"voice": voice}))
+    print(json.dumps({"serving": served}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

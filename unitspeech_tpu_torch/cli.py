@@ -1,6 +1,6 @@
 """Command-line entry points of the port (counterpart of
-unitspeech_tpu/cli.py for the adaptive-TTS, speaker-adaptation and
-voice-conversion slices and the SSL frontends).
+unitspeech_tpu/cli.py for the adaptive-TTS, speaker-adaptation,
+voice-conversion and serving slices and the SSL frontends).
 
     python -m unitspeech_tpu_torch.cli make-random-checkpoint --seed 0 --output ckpt.pt
     python -m unitspeech_tpu_torch.cli inference --text "Hello." [--language en-us] \\
@@ -11,14 +11,16 @@ voice-conversion slices and the SSL frontends).
     python -m unitspeech_tpu_torch.cli voice-conversion --source src.wav \
         --decoder adapted/decoder.pt --content-encoder ce.pt --contentvec cv.pt \
         --vocoder voc.pt [--sampler dpm2:cs2] --output converted.wav
+    python -m unitspeech_tpu_torch.cli serve --checkpoint ckpt.pt \
+        --calibration-file corpus.txt [--voices voices/] [--port 8777]
     python -m unitspeech_tpu_torch.cli convert decoder pretrained_decoder.pt decoder.pt
 
 A checkpoint is a `torch.save`d dict: one state dict per module in the
 port's layout, the speaker embedding, the mel min/max and the config
 (utils/artifacts lists the port's formats). Every command runs on the card
 unless `--device cpu` is given; with no CUDA device `--device cuda` exits
-non-zero. f32 means f32: `inference`, `finetune` and `voice-conversion`
-run with TF32 off for f32 matmuls and cuDNN convs
+non-zero. f32 means f32: `inference`, `serve`, `finetune` and
+`voice-conversion` run with TF32 off for f32 matmuls and cuDNN convs
 (utils/precision.strict_f32), and give the caller's settings back when
 they return.
 """
@@ -706,6 +708,176 @@ def main_voice_conversion(argv=None) -> dict:
     return {**stats, "mel": mel[0, :mel_len].float().cpu().numpy()}
 
 
+@strict_f32()
+def main_serve(argv=None) -> dict:
+    """The TTS serving daemon (JAX cli.py main_serve; unitspeech_tpu_torch/
+    serve.py): dynamic batching over the bucket-switch Synthesizer and an
+    HTTP front end, on the card unless --device cpu. Startup calibrates the
+    window (or takes --switch-buckets) and runs the whole (batch ladder x
+    token bucket) grid once before the port opens, so a kernel that fails
+    to build or launch fails startup. f32 means f32 for the server's whole
+    lifetime (strict_f32). Returns the serving configuration (--dry-run
+    returns after the warm-up; otherwise when the server stops)."""
+    ap = argparse.ArgumentParser("unitspeech-tpu-torch serve")
+    ap.add_argument("--checkpoint", default=None,
+                    help="the port's combined checkpoint (make-random-checkpoint)")
+    ap.add_argument("--decoder", default=None,
+                    help="decoder: a reference .pt, a port bundle or checkpoint")
+    ap.add_argument("--text-encoder", default=None, help="text encoder (reference or port)")
+    ap.add_argument("--duration-predictor", default=None,
+                    help="duration predictor (reference or port)")
+    ap.add_argument("--vocoder", default=None, help="BigVGAN generator (reference or port)")
+    ap.add_argument("--spk-emb", default=None, help=".npy speaker embedding override")
+    ap.add_argument("--config", default=None,
+                    help="JSON config overlay (default: the checkpoint's config, else "
+                         "the reference's)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8777)
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--max-wait-ms", type=float, default=20.0,
+                    help="dynamic-batching wait window (latency traded for throughput)")
+    ap.add_argument("--max-queue", type=int, default=256,
+                    help="pending-request cap: submissions beyond it get 503 "
+                         "(backpressure) instead of unbounded queueing; 0 = unbounded")
+    ap.add_argument("--strict-grid", action="store_true",
+                    help="refuse requests outside the warmed grid (non-default "
+                         "steps/sampler, over-long tokens, frame-window overflows) "
+                         "instead of serving them cold on the dispatcher thread")
+    ap.add_argument("--diffusion-steps", type=int, default=None)
+    ap.add_argument("--sampler", default="ddpm",
+                    help="default sampler spec: 'ddpm' or 'dpm2', optionally with a "
+                         "':cs<k>' guidance stride, e.g. 'dpm2:cs2'")
+    ap.add_argument("--length-scale", type=float, default=None)
+    ap.add_argument("--text-gradient-scale", type=float, default=None)
+    ap.add_argument("--spk-gradient-scale", type=float, default=None)
+    ap.add_argument("--language", default=None,
+                    help="espeak language for text payloads (the rule G2P without "
+                         "espeak-ng; token_ids payloads always work)")
+    ap.add_argument("--calibration-file", default=None,
+                    help="one utterance per line; phonemized (or read as IPA with "
+                         "--ipa-calibration) at startup to derive the bucket-switch "
+                         "window from the corpus' length distribution")
+    ap.add_argument("--ipa-calibration", action="store_true",
+                    help="calibration file lines are pre-phonemized IPA")
+    ap.add_argument("--switch-buckets", default=None,
+                    help="comma-separated frame buckets (skips calibration; e.g. "
+                         "344,384,432)")
+    ap.add_argument("--bucket-policy", default="cost", choices=("cost", "quantile"),
+                    help="frame-window derivation from the calibrated lengths: 'cost' "
+                         "(minimize expected per-request cost under the card's measured "
+                         "cost model, infer/cost_anchors_h100.json) or the 'quantile' "
+                         "P5..max heuristic")
+    ap.add_argument("--warmup-token-lengths", default="64",
+                    help="comma-separated token lengths whose buckets are warmed across "
+                         "the batch ladder")
+    ap.add_argument("--voices", default=None,
+                    help="voice bank for multi-voice serving: a directory of <name>.npy "
+                         "speaker embeddings or one .npz keyed by name; requests select "
+                         "with {\"speaker\": \"<name>\"}")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="build + calibrate + warm up, print the serving config JSON, and "
+                         "exit without opening the port")
+    add_route_flags(ap, "the text encoder and duration predictor always run f32")
+    args = ap.parse_args(argv)
+
+    import dataclasses as dc
+
+    import torch
+
+    from unitspeech_tpu_torch import text as text_frontend
+    from unitspeech_tpu_torch.infer.tts import Synthesizer
+    from unitspeech_tpu_torch.models.diffusion import parse_sampler_spec
+    from unitspeech_tpu_torch.serve import build_batcher, make_http_server
+
+    try:
+        parse_sampler_spec(args.sampler)  # fail a typo'd spec at startup
+    except ValueError as e:
+        raise SystemExit(f"--sampler: {e}") from e
+    device = _device(args.device)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    routes = route_switches(args)
+    models = _load_tts_models(args, device, dtype, routes)
+    cfg = models.cfg
+    synth = Synthesizer(models)
+    if args.switch_buckets:
+        window = tuple(sorted(int(b) for b in args.switch_buckets.split(",")))
+        synth = dc.replace(synth, switch_buckets=window)
+        calibration_texts = None
+    elif args.calibration_file:
+        lang = args.language or cfg.inference.language
+        ph = None if args.ipa_calibration else text_frontend.get_phonemizer(lang, fallback=True)
+        if ph is None and not args.ipa_calibration:
+            raise SystemExit(f"espeak-ng not installed and no G2P fallback for {lang!r}: use "
+                             "--ipa-calibration or --switch-buckets")
+        with open(args.calibration_file, encoding="utf-8") as f:
+            lines = [ln.strip() for ln in f if ln.strip()]
+        calibration_texts = [text_frontend.phonemes_to_sequence(ln) if args.ipa_calibration
+                             else text_frontend.text_to_sequence(ln, ph) for ln in lines]
+    else:
+        raise SystemExit("pass --calibration-file or --switch-buckets")
+
+    kw = {}
+    if args.diffusion_steps is not None:
+        kw["default_steps"] = args.diffusion_steps
+    if args.length_scale is not None:
+        kw["length_scale"] = args.length_scale
+    if args.text_gradient_scale is not None:
+        kw["text_gradient_scale"] = args.text_gradient_scale
+    if args.spk_gradient_scale is not None:
+        kw["spk_gradient_scale"] = args.spk_gradient_scale
+    if args.voices:
+        from unitspeech_tpu_torch.utils.artifacts import load_speaker_embs
+
+        kw["voices"] = load_speaker_embs(args.voices, int_keys=False)
+    t0 = time.perf_counter()
+    batcher = build_batcher(
+        synth, calibration_texts=calibration_texts, max_batch=args.max_batch,
+        max_wait_ms=args.max_wait_ms,
+        warmup_token_lengths=tuple(int(t) for t in args.warmup_token_lengths.split(",")),
+        default_sampler=args.sampler, strict_grid=args.strict_grid,
+        max_queue=args.max_queue or None, bucket_policy=args.bucket_policy, **kw)
+    serving_cfg = {
+        "switch_buckets": list(batcher.synth.switch_buckets),
+        "batch_ladder": batcher.batch_ladder,
+        "default_steps": batcher.default_steps,
+        "default_sampler": batcher.default_sampler,
+        "length_scale": batcher.length_scale,
+        "cfg_scales": [batcher.tg, batcher.sg],
+        "max_wait_ms": args.max_wait_ms,
+        "voices": sorted(batcher.voices),
+        "warmup_s": time.perf_counter() - t0,
+        "device": str(device), **route_stats(routes),
+    }
+    if args.dry_run:
+        batcher.shutdown()
+        print(json.dumps({"serving_config": serving_cfg, "warmed": True}))
+        return serving_cfg
+
+    lang = args.language or cfg.inference.language
+    ph = text_frontend.get_phonemizer(lang, fallback=True)
+    text_to_ids = None if ph is None else (lambda s: text_frontend.text_to_sequence(s, ph))
+    srv = make_http_server(batcher, host=args.host, port=args.port, text_to_ids=text_to_ids)
+    print(json.dumps({"serving_config": serving_cfg,
+                      "listening": f"http://{args.host}:{srv.server_address[1]}"}), flush=True)
+    import signal
+
+    def _sigterm(*_a):
+        # raise into serve_forever so the finally below drains the batcher
+        # (resolving queued futures) before the process exits
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _sigterm)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.server_close()
+        batcher.shutdown()
+    return serving_cfg
+
+
 def main_convert(argv=None) -> int:
     from unitspeech_tpu_torch.utils import convert_cli
 
@@ -714,7 +886,7 @@ def main_convert(argv=None) -> int:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    commands = {"inference": main_inference, "finetune": main_finetune,
+    commands = {"inference": main_inference, "serve": main_serve, "finetune": main_finetune,
                 "voice-conversion": main_voice_conversion, "convert": main_convert,
                 "make-random-checkpoint": main_make_random_checkpoint}
     if not argv or argv[0] not in commands:

@@ -19,7 +19,9 @@
 //   * attn_kv (grid P x 2 head pairs x B): per tile the K|V projection of
 //     two heads (128 columns) on wgmma m64n128k16, x by TMA (one 128-row x
 //     64-channel box per chunk through a ring, zero past N), the weights
-//     packed once at load and staged once per block; the column max across
+//     packed once at load and staged once per block (above C = 512 they do
+//     not fit beside the ring: each chunk's weight tile then rides in its x
+//     box's ring slot, read again per tile from L2); the column max across
 //     the tile, the rescale of the running (m, den, num) (exp as ex2.approx
 //     of (k - m) log2 e: 1e-6 relative, far inside the output's bf16), and
 //     exp(K)^T V on
@@ -37,7 +39,8 @@
 //     fragment), attn rounded to bf16 is wgmma's A fragment of the output
 //     projection, then bf16(out) + b_out, x + g * out, the mask. Wq and
 //     Wout are staged once per block (at C = 512 Wout streams through one
-//     slot: both do not fit with the ring).
+//     slot: both do not fit with the ring; above, Wq's tiles ride the x
+//     ring as in phase 1 and Wout streams through two slots).
 // One block runs 2 warpgroups (64 tile rows each); thread 0 also sends
 // the TMA and bulk copies (csrc/hopper.cuh), each into its ring slot once
 // the 8 warps have released it. No producer warp: a block of 288 threads
@@ -97,9 +100,10 @@ US_DEV void mma3(float (&c)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4]
 }
 
 // The x ring: the producer's side (one box a chunk, zero past N) and the
-// consumers' product of a tile with resident weights, acc (64 x 128 per
+// consumers' product of a tile with the weights, acc (64 x 128 per
 // warpgroup) = x rows 64 g .. 64 g + 63 @ W, W's chunk c the packed tile at
-// w + c * WT.
+// w + c * WT (resident), or, with `wsrc`, the tile wsrc + c * WT that the
+// producer sends into the chunk's slot behind its x box (streamed).
 struct Ring {
   uint8_t* buf;
   uint64_t *full, *empty;
@@ -109,17 +113,20 @@ struct Ring {
   // once the 8 warps have released the slot's previous chunk
   const CUtensorMap* map;
   int nc, t0, dt, total, b;
+  const uint8_t* wsrc = nullptr;  // the streamed weights; null: resident
   int s = 0, g_sent = 0;
   uint32_t ph = 0;
   US_DEV void next() {
     if (++s == n) s = 0, ph ^= 1;
   }
+  US_DEV int slot_bytes() const { return wsrc ? XB + WT : XB; }
   US_DEV void send() {
     const int g = g_sent++, slot = g % n;
+    uint8_t* dst = buf + slot * slot_bytes();
     if (g >= n) mbar_wait(&empty[slot], ((g / n) & 1) ^ 1);
-    mbar_arrive_expect_tx(&full[slot], XB);
-    tma_load_4d(buf + slot * XB, map, (g % nc) * KC, (t0 + (g / nc) * dt) * TM, 0, b,
-                &full[slot]);
+    mbar_arrive_expect_tx(&full[slot], slot_bytes());
+    tma_load_4d(dst, map, (g % nc) * KC, (t0 + (g / nc) * dt) * TM, 0, b, &full[slot]);
+    if (wsrc) bulk_g2s(dst + XB, wsrc + (size_t)(g % nc) * WT, WT, &full[slot]);
   }
   US_DEV void prime() {  // thread 0, at the start: the first n chunks
     while (g_sent < min(n, total)) send();
@@ -143,10 +150,11 @@ struct Ring {
     int prev = -1;
     auto chunk = [&](uint32_t(&f)[4][4], int c) {
       mbar_wait(&full[s], ph);
-      const uint32_t row = smem_u32(buf + s * XB) + R * 128;
+      const uint8_t* sb = buf + s * slot_bytes();
+      const uint32_t row = smem_u32(sb) + R * 128;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) ldsm_x4(f[kk], row + ((((2 * kk + hi) ^ rx) & 7) << 4));
-      const uint64_t desc = wgmma_desc_sw128(w + c * WT);
+      const uint64_t desc = wgmma_desc_sw128(wsrc ? sb + XB : w + c * WT);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) WgmmaRS<128>::mma(acc, f[kk], desc + 2 * kk);
@@ -181,17 +189,19 @@ struct Ring {
 // 2 hp and 2 hp + 1. Packed columns of the head pair: [K | V] of each head,
 // so accumulator column block j (8 columns) is K of head j / 8 for j % 8 <
 // 4, else V. Writes the block's partial: m and den per K column (64), num
-// (2 heads x 32 x 32).
+// (2 heads x 32 x 32). ws: the head pair's weight tiles ride the ring
+// (kv_stream) instead of being staged.
 __global__ void __launch_bounds__(THREADS, 1)
     attn_kv(const __grid_constant__ CUtensorMap xmap, const bf16* wkv, int N, int C, int P,
-            float* part_m, float* part_den, float* part_num) {
+            int ws, float* part_m, float* part_den, float* part_num) {
   griddep_wait();  // the three launches are programmatic dependent launches
   griddep_launch();
   const int nc = C / KC, ntiles = (N + TM - 1) / TM;
   const int p = blockIdx.x, hp = blockIdx.y, b = blockIdx.z;
+  const uint8_t* wsrc = reinterpret_cast<const uint8_t*>(wkv) + (size_t)hp * nc * WT;
   uint8_t* w = smem_base();
-  uint8_t* xr = w + nc * WT;
-  float* red = reinterpret_cast<float*>(xr + 4 * XB);  // [8 warps][64]
+  uint8_t* xr = ws ? w : w + nc * WT;
+  float* red = reinterpret_cast<float*>(xr + 4 * (ws ? XB + WT : XB));  // [8 warps][64]
   float* m_run = red + 8 * KVC;                         // [64]
   float* m_new = m_run + KVC;
   float* scl = m_new + KVC;
@@ -206,12 +216,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   if (tid < KVC) m_run[tid] = -INFINITY;
   __syncthreads();
-  Ring ring{xr, x_full, x_empty, 4, &xmap, nc, p, P, ((ntiles - p + P - 1) / P) * nc, b};
+  Ring ring{xr, x_full, x_empty, 4, &xmap, nc, p, P, ((ntiles - p + P - 1) / P) * nc, b,
+            ws ? wsrc : nullptr};
   if (tid == 0) {
-    mbar_arrive_expect_tx(w_full, nc * WT);
-    for (int c = 0; c < nc; ++c)
-      bulk_g2s(w + c * WT, reinterpret_cast<const uint8_t*>(wkv) + ((size_t)hp * nc + c) * WT,
-               WT, w_full);
+    if (!ws) {
+      mbar_arrive_expect_tx(w_full, nc * WT);
+      for (int c = 0; c < nc; ++c) bulk_g2s(w + c * WT, wsrc + (size_t)c * WT, WT, w_full);
+    }
     ring.prime();
   }
 
@@ -231,7 +242,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e) num[hh][ib][j][e] = 0.f;
     }
-  mbar_wait(w_full, 0);
+  if (!ws) mbar_wait(w_full, 0);
   float acc[64];
   for (int t = p; t < ntiles; t += P) {
     ring.gemm<false>(acc, w, nc);
@@ -310,7 +321,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 
   // the block's partial: den over the rows, num over the 8 warps (in the
-  // weights' and the ring's space, which every product has read)
+  // weights' and the ring's space, which every product has read: 64 KB, the
+  // ring alone holds 128 KB when the weights stream)
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
@@ -402,6 +414,7 @@ struct OutArgs {
   const int* lens;    // (B)
   bf16* y;            // (B, N, C)
   int N, C, P2, n_xs, n_os;  // x ring slots; Wout slots (C / 128: staged once)
+  int wq_ring;               // Wq's tiles ride the x ring (out_slots)
 };
 
 // Phase 2. Block (p, b): tiles p, p + P2, ... of batch element b.
@@ -409,12 +422,13 @@ __global__ void __launch_bounds__(THREADS, 1)
     attn_out(const __grid_constant__ CUtensorMap xmap, OutArgs a) {
   griddep_wait();
   const int C = a.C, N = a.N, nc = C / KC, nt_out = C / 128, ntiles = (N + TM - 1) / TM;
-  const bool stream_wo = a.n_os < nt_out;
+  const bool stream_wo = a.n_os < nt_out, staged = !a.wq_ring || !stream_wo;
   const int p = blockIdx.x, b = blockIdx.y;
   uint8_t* wq = smem_base();
-  uint8_t* wo = wq + nc * WT;
+  uint8_t* wo = wq + (a.wq_ring ? 0 : nc * WT);
   uint8_t* xr = wo + a.n_os * 2 * WT;
-  bf16* cth = reinterpret_cast<bf16*>(xr + a.n_xs * XB);  // [4][32 j][CTS] ctx^T high
+  // [4][32 j][CTS] ctx^T high
+  bf16* cth = reinterpret_cast<bf16*>(xr + a.n_xs * (a.wq_ring ? XB + WT : XB));
   bf16* ctl = cth + NH * DH * CTS;                         // low
   uint64_t* w_full = reinterpret_cast<uint64_t*>(ctl + NH * DH * CTS);
   uint64_t* o_full = w_full + 1;
@@ -430,7 +444,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   __syncthreads();
   const int tiles = (ntiles - p + a.P2 - 1) / a.P2;  // the block's tiles
-  Ring ring{xr, x_full, x_empty, a.n_xs, &xmap, nc, p, a.P2, tiles * nc, b};
+  Ring ring{xr, x_full, x_empty, a.n_xs, &xmap, nc, p, a.P2, tiles * nc, b,
+            a.wq_ring ? reinterpret_cast<const uint8_t*>(a.wq) : nullptr};
   // Wout's 128-column tiles through n_os slots when they do not all fit:
   // thread 0 sends tile g % nt_out of the block's sequence into slot g %
   // n_os once its previous tile there is released
@@ -444,9 +459,13 @@ __global__ void __launch_bounds__(THREADS, 1)
     bulk_g2s(wo + slot * 2 * WT, wo_src + (size_t)(g % nt_out) * 2 * WT, 2 * WT, &o_full[slot]);
   };
   if (tid == 0) {
-    mbar_arrive_expect_tx(w_full, nc * WT + (stream_wo ? 0 : nt_out * 2 * WT));
-    for (int c = 0; c < nc; ++c)
-      bulk_g2s(wq + c * WT, reinterpret_cast<const uint8_t*>(a.wq) + (size_t)c * WT, WT, w_full);
+    if (staged)
+      mbar_arrive_expect_tx(w_full,
+                            (a.wq_ring ? 0 : nc * WT) + (stream_wo ? 0 : nt_out * 2 * WT));
+    if (!a.wq_ring)
+      for (int c = 0; c < nc; ++c)
+        bulk_g2s(wq + c * WT, reinterpret_cast<const uint8_t*>(a.wq) + (size_t)c * WT, WT,
+                 w_full);
     if (!stream_wo)
       for (int n = 0; n < nt_out; ++n)
         bulk_g2s(wo + n * 2 * WT, wo_src + (size_t)n * 2 * WT, 2 * WT, w_full);
@@ -474,7 +493,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int len = a.lens[b];
   int os = 0;
   uint32_t oph = 0;
-  mbar_wait(w_full, 0);
+  if (staged) mbar_wait(w_full, 0);
   float acc[64];
   for (int t = p; t < ntiles; t += a.P2) {
     ring.gemm<true>(acc, wq, nc);
@@ -608,20 +627,38 @@ AttnPlan make_attn_plan(int B, int N) {
           std::max(1, std::min(tiles, us_ceil_div(sms, B)))};
 }
 
-int kv_smem(int C) { return 1024 + (C / KC) * WT + 4 * XB + 11 * KVC * 4 + BARS; }
+// Phase 1's shared memory: the C / 64 K|V tiles staged beside a ring of
+// four x boxes, or, when they do not fit (C > 512: 324 KB at C = 1024),
+// four ring slots of an x box and its chunk's weight tile.
+int kv_smem_of(int C, bool ws) {
+  return 1024 + (ws ? 4 * (XB + WT) : (C / KC) * WT + 4 * XB) + 11 * KVC * 4 + BARS;
+}
 
-// Phase 2's slots: Wout staged once when it fits beside Wq and a ring of
-// four x boxes, else one streamed slot and two boxes (C = 512).
-void out_slots(int C, int& n_xs, int& n_os) {
-  n_xs = 4, n_os = C / 128;
-  const int fixed = 1024 + (C / KC) * WT + 2 * NH * DH * CTS * 2 + BARS;
-  if (fixed + n_os * 2 * WT + n_xs * XB > SMEM_MAX) n_xs = 2, n_os = 1;
+bool kv_stream(int C) { return kv_smem_of(C, false) > SMEM_MAX; }
+
+int kv_smem(int C) { return kv_smem_of(C, kv_stream(C)); }
+
+int out_smem_of(int C, int n_xs, int n_os, int wq_ring) {
+  return 1024 + (wq_ring ? 0 : (C / KC) * WT) + n_os * 2 * WT +
+         n_xs * (wq_ring ? XB + WT : XB) + 2 * NH * DH * CTS * 2 + BARS;
+}
+
+// Phase 2's slots: Wq and Wout staged once beside a ring of four x boxes
+// when they fit; else Wout through one streamed slot and two boxes (C =
+// 512); else Wq's tiles ride a ring of four slots, each an x box and its
+// chunk's tile, and Wout streams through two slots (C = 1024).
+void out_slots(int C, int& n_xs, int& n_os, int& wq_ring) {
+  wq_ring = 0, n_xs = 4, n_os = C / 128;
+  if (out_smem_of(C, n_xs, n_os, wq_ring) <= SMEM_MAX) return;
+  n_xs = 2, n_os = 1;
+  if (out_smem_of(C, n_xs, n_os, wq_ring) <= SMEM_MAX) return;
+  wq_ring = 1, n_xs = 4, n_os = std::min(2, C / 128);
 }
 
 int out_smem(int C) {
-  int n_xs, n_os;
-  out_slots(C, n_xs, n_os);
-  return 1024 + (C / KC) * WT + n_os * 2 * WT + n_xs * XB + 2 * NH * DH * CTS * 2 + BARS;
+  int n_xs, n_os, wq_ring;
+  out_slots(C, n_xs, n_os, wq_ring);
+  return out_smem_of(C, n_xs, n_os, wq_ring);
 }
 
 }  // namespace
@@ -663,7 +700,8 @@ int us_rezero_attention(const void* x, const void* wkv, const void* wq, const vo
   // each launch starts as the one before drains (its kernel waits for it
   // before reading anything)
   if ((err = launch_pdl(attn_kv, dim3(P, 2, B), THREADS, s1, st, xmap,
-                        static_cast<const bf16*>(wkv), N, C, P, part_m, part_den, part_num)))
+                        static_cast<const bf16*>(wkv), N, C, P, (int)kv_stream(C), part_m,
+                        part_den, part_num)))
     return err;
   if ((err = launch_pdl(attn_merge, dim3(NH, DH / 8, B), 256, 0, st,
                         static_cast<const float*>(part_m), static_cast<const float*>(part_den),
@@ -679,7 +717,7 @@ int us_rezero_attention(const void* x, const void* wkv, const void* wq, const vo
   a.lens = lens;
   a.y = static_cast<bf16*>(y);
   a.N = N, a.C = C, a.P2 = plan.p2;
-  out_slots(C, a.n_xs, a.n_os);
+  out_slots(C, a.n_xs, a.n_os, a.wq_ring);
   return launch_pdl(attn_out, dim3(plan.p2, B), THREADS, s2, st, xmap, a);
 }
 

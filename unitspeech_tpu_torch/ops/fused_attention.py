@@ -25,8 +25,9 @@ HEADS, DIM_HEAD = 4, 32  # the only head layout the CUDA kernel takes
 
 
 def takes(c: int, heads: int = HEADS, dim_head: int = DIM_HEAD) -> bool:
-    """The widths the CUDA kernel takes: C a multiple of 128 and 4 heads of
-    32."""
+    """The widths the CUDA kernel takes: C a multiple of 128 (above 512 its
+    weight tiles stream through the ring: kv_smem / out_slots in
+    csrc/rezero_attention.cu) and 4 heads of 32."""
     return c % 128 == 0 and (heads, dim_head) == (HEADS, DIM_HEAD)
 
 

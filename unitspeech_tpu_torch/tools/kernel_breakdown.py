@@ -93,7 +93,12 @@ def _device_events(fn, reps: int) -> list:
     of fn, after 3 unprofiled ones. The calls run EDGE_S after the trace
     starts and end EDGE_S before it stops: a kernel right at either edge
     may be left out of the trace (one call in 20, up to five, on the H100),
-    which would show as a fraction of a launch per call."""
+    which would show as a fraction of a launch per call. Each is read
+    from the trace's raw records (name, time_range.start and device_time
+    in us, as the profiler's events have them): building the profiler's
+    event tree takes seconds for a call of 60 000 launches."""
+    from types import SimpleNamespace
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -106,7 +111,9 @@ def _device_events(fn, reps: int) -> list:
             fn()
         torch.cuda.synchronize()
         time.sleep(EDGE_S)
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [SimpleNamespace(name=e.name(), time_range=SimpleNamespace(start=e.start_ns() / 1e3),
+                            device_time=e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
 
 
 def _device_us(e) -> float:
@@ -132,19 +139,29 @@ def launch_times(fn, reps: int) -> list[dict]:
     return out
 
 
-def device_activity(fn, reps: int) -> dict:
+def device_activity(fn, reps: int, names: bool = False) -> dict:
     """{sum_ms, busy_ms, launches} per call of fn over `reps` profiled calls
     (_device_events): the summed durations of its device activities, the
     time at least one of them ran (the union of their intervals, which is
-    below the sum where activities overlap), and their count."""
+    below the sum where activities overlap), and their count; with `names`
+    also by_name, their count per call by short_name."""
     events = sorted(_device_events(fn, reps), key=lambda e: e.time_range.start)
     busy_us, end = 0.0, float("-inf")
     for e in events:
         a, b = e.time_range.start, e.time_range.start + _device_us(e)
         busy_us += max(0.0, b - max(a, end))
         end = max(end, b)
-    return {"sum_ms": sum(_device_us(e) for e in events) / 1e3 / reps,
-            "busy_ms": busy_us / 1e3 / reps, "launches": len(events) / reps}
+    out = {"sum_ms": sum(_device_us(e) for e in events) / 1e3 / reps,
+           "busy_ms": busy_us / 1e3 / reps, "launches": len(events) / reps}
+    if names:
+        raw: dict[str, int] = {}
+        for e in events:
+            raw[e.name] = raw.get(e.name, 0) + 1
+        out["by_name"] = {}
+        for name, k in raw.items():  # a few hundred names for 60 000 records
+            short = short_name(name)
+            out["by_name"][short] = out["by_name"].get(short, 0) + k / reps
+    return out
 
 
 def _lens_mask(t, dev):

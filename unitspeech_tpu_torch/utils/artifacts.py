@@ -13,7 +13,9 @@ config beside them:
     {"decoder", "spk_emb", "mel_min", "mel_max", "step", "config"};
   * a module file (save_module, what `cli convert` writes for the other
     families, the SSL models included): {<module name>: state dict,
-    "config"}; k-means centroids are a `.npz` ({"centroids": (K, D)}).
+    "config"}; k-means centroids are a `.npz` ({"centroids": (K, D)});
+  * a voice bank (load_speaker_embs, `cli serve --voices`): a `.npz` of
+    speaker embeddings keyed by name, or a directory of <name>.npy.
 
 A reference file holds its state dict under "model" (the decoder, and
 often the encoders and the duration predictor), under "generator"
@@ -24,6 +26,7 @@ read here.
 from __future__ import annotations
 
 import dataclasses
+import os
 import pickle
 from collections.abc import Mapping
 from dataclasses import dataclass
@@ -209,3 +212,24 @@ def load_kmeans(src):
     if str(src).endswith(".npz"):
         return KMeansQuantizer.load(src)
     return KMeansQuantizer(torch_convert_ssl.convert_sklearn_kmeans(src))
+
+
+def load_speaker_embs(path: str, normalize: bool = True, int_keys: bool = True) -> dict:
+    """Per-speaker embeddings as numpy arrays: one .npz with arrays named by
+    speaker, or a directory of <name>.npy files (the reference keeps a
+    directory of .pt files, util.py:201-222). int_keys=False keeps the
+    names as strings (the serving daemon's voice bank, `cli serve
+    --voices`); normalize makes each a unit-norm (spk_emb_dim,) f32 vector."""
+    import numpy as np
+
+    key = int if int_keys else str
+    if os.path.isdir(path):
+        embs = {key(name[:-4]): np.load(os.path.join(path, name))
+                for name in sorted(os.listdir(path)) if name.endswith(".npy")}
+    else:
+        with np.load(path) as z:
+            embs = {key(k): z[k] for k in z.files}
+    if normalize:
+        embs = {k: (v / max(np.linalg.norm(v), 1e-12)).astype(np.float32).reshape(-1)
+                for k, v in embs.items()}
+    return embs
