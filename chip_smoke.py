@@ -50,6 +50,21 @@ by rows), one overflow and one streamed request; a B = 8 batch of mixed
 lengths on the kernels against the plain paths row by row, with exact
 launches; and the device time, launches and wall a request of a forced
 344-frame batch at B = 1, 2, 4 and 8.
+Then STEP1 training (`cli train-step1`'s path): a 32-utterance corpus made
+from a seed at 22.05 kHz (4 speakers, 1.5-4 s, IPA texts that the audio
+follows), `cli preprocess-mel-stats` and `preprocess-uncond`, `cli
+train-step1` at full width (batch 16, 2 s segments) for 2 epochs saving
+each, then `--resume` for a third (it must start at epoch 2, step 4, its
+restored parameters and Adam moments equal to the saved ones), every loss
+finite and kernel M1 (csrc/mas.cu, the alignment search; the port's only
+kernel with no Pallas counterpart) launched once a step; M1 bit for bit
+against its plain version at the run's batch shapes (forced ties, ragged
+lengths), with its time and bound; a small f32 step on the card against
+the CPU's (tools/step_check.py); one step's device time, launches and idle
+share under torch.profiler and the peak memory; and the trained
+checkpoint served by `cli inference --checkpoint --spk-emb` on the serving
+defaults and on the plain path (exact launches), its mels on the kernel
+paths held to the plain paths' as the adapt phase holds them.
 Last, the paths of the kernels that no request runs, the port's four tools
 at full size (unitspeech_tpu_torch/tools): the kernel benchmark with
 --int8 --deep (the in-kernel int8 blocks K10a, K10b), the transcendental
@@ -682,11 +697,13 @@ TOOL_KERNELS = {"fused_resnet_block_int8": "bench", "fused_resnet_block_deep_int
                 "transcendental_chain": "transcendental", "row_select": "probe_stride",
                 "selection_matmul": "probe_stride", "interleave_rows": "probe_stride",
                 "resnet_conv3x3": "bisect", "resnet_out": "bisect"}
-KERNELS = ESTIMATOR_KERNELS + VOCODER_KERNELS + tuple(TOOL_KERNELS)
+# the training path's kernel (M1, the alignment search of a STEP1 step)
+TRAIN_KERNELS = ("maximum_path",)
+KERNELS = ESTIMATOR_KERNELS + VOCODER_KERNELS + tuple(TOOL_KERNELS) + TRAIN_KERNELS
 # the path whose per-call launches weigh a kernel's times in the kernels
 # line: the serving default, the fused deep configuration, or a tool's path
 # (one launch per call at each of its sites)
-HOME = {k: TOOL_KERNELS.get(k, "deep_i8" if k in (
+HOME = {k: "train" if k in TRAIN_KERNELS else TOOL_KERNELS.get(k, "deep_i8" if k in (
     "fused_resnet_block_deep", "fused_resnet_block_deep_i8", "fused_downsample_conv",
     "fused_upsample_conv") else "int8") for k in KERNELS}
 # the run whose launch counts stand in the kernels line, by home path
@@ -718,6 +735,7 @@ def _kernel_wrappers():
         fused_attention,
         fused_resnet,
         fused_resnet_deep,
+        mas,
         probes,
         resample,
         row_stats,
@@ -739,7 +757,8 @@ def _kernel_wrappers():
             "transcendental_chain": probes.transcendental_chain,
             "row_select": probes.row_select, "selection_matmul": probes.selection_matmul,
             "interleave_rows": probes.interleave_rows,
-            "resnet_conv3x3": fused_resnet.resnet_conv3x3, "resnet_out": fused_resnet.resnet_out}
+            "resnet_conv3x3": fused_resnet.resnet_conv3x3, "resnet_out": fused_resnet.resnet_out,
+            "maximum_path": mas.maximum_path}
 
 
 def _counted(what, fn, want):
@@ -1021,6 +1040,28 @@ def long_bucket(torch, dev, ckpt_path, per_call):
           flush=True)
     if not (np.isfinite(err) and err <= tol):
         raise AssertionError(f"K4 at C = {c}: {err} exceeds {tol}")
+    # its time at the C = 1024 sites of the 880- and 1256-frame buckets
+    # (inputs from their own generator: the request below keeps its noise)
+    gt = torch.Generator(device=dev).manual_seed(1256)
+    packed = fused_attention.pack_attention_weights(w_qkv, w_out)
+    k4_times = {}
+    for bucket in (LONG_FRAMES, 1256):
+        nb = (bucket >> 3) * (cfg.data.n_feats >> 3)
+        xb = torch.randn((3, nb, c), generator=gt, device=dev).to(torch.bfloat16)
+        lb = torch.tensor([nb, nb * 7 // 9, nb], dtype=torch.int32, device=dev)
+        b_ms, by_ms, op_ms = bound_ms(
+            {"bytes": 2 * 2 * 3 * nb * c + 2 * 512 * c,
+             "bf16": 3 * (2 * nb * c * 384 + 4 * nb * 4 * 32 * 32 + 2 * nb * 128 * c),
+             "f32": 3 * (4 * nb * 128 + 2 * nb * c)})
+        k4_times[bucket] = {
+            "n": nb, "ms": _time_ms(torch, lambda: fused_attention.fused_rezero_attention(
+                xb, w_qkv, w_out, b_out, gate, lb, packed=packed)),
+            "plain_ms": _time_ms(torch, lambda: fused_attention.rezero_attention_plain(
+                xb, w_qkv, w_out, b_out, gate, lb, 4, 32), reps=5, warmup=1),
+            "bound_ms": b_ms, "bound_by": "bytes" if by_ms >= op_ms else "operations"}
+        print(f"  K4 at the {bucket}-frame bucket's F = 10 site (B = 3, N = {nb}, C = {c}, "
+              f"packed): {k4_times[bucket]['ms']:.4f} ms, plain {k4_times[bucket]['plain_ms']:.3f}"
+              f" ms, least {b_ms:.4f} ms ({k4_times[bucket]['bound_by']})", flush=True)
 
     ids = phonemes_to_sequence(FORCED_TEXT)
     noise_z = torch.randn((1, LONG_FRAMES, cfg.data.n_feats), generator=g, device=dev)
@@ -1054,6 +1095,7 @@ def long_bucket(torch, dev, ckpt_path, per_call):
     d = (mels["kernels"] - ref).abs()
     l1, mx = d.mean().item() / span, d.max().item() / span
     res = {"frames": LONG_FRAMES, "k4_site": {"n": n, "c": c, "max_abs_err": err, "tol": tol},
+           "k4_c1024_ms": k4_times,
            "k4_launches": lk["fused_rezero_attention"], "mel_l1": l1, "mel_max": mx,
            "seconds": time.perf_counter() - t0}
     print(f"  forced {LONG_FRAMES} frames: kernels vs plain (bf16), mel L1 {l1:.3e}, max |diff| "
@@ -1882,6 +1924,229 @@ def serving(torch, dev, tmp, ckpt_path, per_call, smi):
     return res
 
 
+# The STEP1 training phase: TRAIN_UTTS utterances of TRAIN_SECONDS at the
+# reference's rate from TRAIN_SPEAKERS speakers, batches of TRAIN_BATCH (2
+# steps an epoch), 2 epochs saving each, then a third resumed
+TRAIN_UTTS, TRAIN_SPEAKERS, TRAIN_SECONDS, TRAIN_BATCH, TRAIN_SEED = 32, 4, (1.5, 4.0), 16, 50
+PROFILED_STEPS = 3  # whole loop steps under torch.profiler
+M1_REPLACES = "unitspeech_tpu/ops/mas.py::maximum_path (lax.scan, no Pallas)"
+
+
+def _m1_case(torch, kind, b, t_x, t_y, dev, seed):
+    """(log_prior, mask) on dev at a batch shape: integer log-priors (ties
+    at every cell) with every length full, or random ones with ragged
+    lengths (a one-token row, a row with fewer frames than tokens)."""
+    rng = np.random.default_rng(seed)
+    xl, yl = np.full(b, t_x), np.full(b, t_y)
+    if kind == "ties":
+        lp = rng.integers(-2, 1, (b, t_x, t_y)).astype(np.float32)
+    else:
+        lp = (rng.standard_normal((b, t_x, t_y)) * 3).astype(np.float32)
+        xl = rng.integers(1, t_x + 1, b)
+        yl = np.clip(xl + rng.integers(-3, t_y, b), 1, t_y)
+        xl[0], yl[-1] = 1, max(1, min(t_y, int(xl[-1]) - 1))
+    mask = ((np.arange(t_x)[None, :, None] < xl[:, None, None])
+            & (np.arange(t_y)[None, None, :] < yl[:, None, None])).astype(np.float32)
+    return torch.from_numpy(lp).to(dev), torch.from_numpy(mask).to(dev)
+
+
+def train(torch, dev, tmp, ckpt_path, per_call, smi):
+    """STEP1 training on the card through the CLIs at full width (the module
+    docstring says what is checked). Returns the measurements, M1's
+    records (one a batch shape of the run), the served request's launches
+    and the training runs' launches."""
+    import shutil
+
+    from unitspeech_tpu_torch import cli
+    from unitspeech_tpu_torch.config import MainConfig
+    from unitspeech_tpu_torch.data.dataset import iterate_batches
+    from unitspeech_tpu_torch.ops import mas
+    from unitspeech_tpu_torch.tools import step_check, synthetic_corpus
+    from unitspeech_tpu_torch.utils import artifacts, checkpoint
+    from unitspeech_tpu_torch.utils.precision import strict_f32
+
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "train")
+    base = MainConfig()
+    cfg = dataclasses.replace(base, train=dataclasses.replace(base.train, save_every=1))
+    os.makedirs(d, exist_ok=True)
+    cfg_path = os.path.join(d, "train.json")
+    with open(cfg_path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f)
+    texts = _ipa_sentences(np.random.default_rng(TRAIN_SEED), TRAIN_UTTS, 4, 10)
+    corp = synthetic_corpus(d, cfg, texts, TRAIN_SPEAKERS, TRAIN_SECONDS, seed=TRAIN_SEED)
+    ms, un = os.path.join(d, "mel_stats.npz"), os.path.join(d, "uncond_stats.npz")
+    dev_flags = ["--config", cfg_path, "--device", "cuda"]
+    t0 = time.perf_counter()
+    cli.main(["preprocess-mel-stats", "--filelist", corp["filelist"], "--out", ms, *dev_flags])
+    cli.main(["preprocess-uncond", "--filelist", corp["filelist"], "--mel-stats", ms,
+              "--spk-embs", corp["spk_embs"], "--out", un, *dev_flags])
+    prep_s = time.perf_counter() - t0
+    ck = os.path.join(d, "ckpt")
+    flags = ["--filelist", corp["filelist"], "--spk-embs", corp["spk_embs"], "--mel-stats", ms,
+             "--uncond-stats", un, "--checkpoint-dir", ck, "--log-dir", os.path.join(d, "log"),
+             "--batch-size", str(TRAIN_BATCH), *dev_flags]
+    per_epoch = TRAIN_UTTS // TRAIN_BATCH
+    print(f"train: cli train-step1 --device cuda, full width, batch {TRAIN_BATCH}, "
+          f"{TRAIN_UTTS} utterances of {TRAIN_SECONDS[0]}-{TRAIN_SECONDS[1]} s, segments of "
+          f"{cfg.out_size} frames (preprocessing {prep_s:.1f} s)", flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = {}
+    for name, extra, epochs in (("train", [], 2), ("train_resume", ["--resume"], 3)):
+        if extra:  # the saved epoch-2 state, for the restore check below
+            os.makedirs(os.path.join(d, "restore"))
+            shutil.copy(os.path.join(ck, "step_2"), os.path.join(d, "restore", "step_2"))
+        steps = per_epoch * (1 if extra else epochs)
+        res = _counted(f"cli train-step1{' --resume' if extra else ''}",
+                       lambda: cli.main_train_step1(flags + ["--n-epochs", str(epochs), *extra]),
+                       {k: steps if k == "maximum_path" else 0 for k in KERNELS})
+        losses = np.array([[m[k] for k in ("dur_loss", "prior_loss", "diff_loss")]
+                           for m in res["metrics"]])
+        print(f"  {name}: epochs {res['start_epoch']}..{epochs - 1} from step "
+              f"{res['first_step']}, {res['steps']} steps, {res['ms_per_step']:.1f} ms a step "
+              "after the first (host clock, each step's metrics on the host); dur / prior / "
+              "diff losses " + " ".join("/".join(f"{x:.4f}" for x in r) for r in losses)
+              + f"; {smi}", flush=True)
+        if not np.isfinite(losses).all() or len(losses) != steps:
+            raise AssertionError(f"{name}: losses {losses}")
+        runs[name] = {k: v for k, v in res.items() if k != "metrics"}
+        runs[name]["losses"] = losses.tolist()
+    peak = torch.cuda.max_memory_allocated(dev)
+    resumed = runs["train_resume"]
+    if (resumed["start_epoch"], resumed["first_step"], resumed["steps"]) != (
+            2, 2 * per_epoch, 3 * per_epoch) or not resumed["checkpoint"].endswith("step_3"):
+        raise AssertionError(f"resume: epoch {resumed['start_epoch']}, step "
+                             f"{resumed['first_step']} -> {resumed['steps']}, "
+                             f"{resumed['checkpoint']}")
+
+    # the restore: a loop built as the CLI builds it, resumed from the copy
+    args = cli.step1_parser().parse_args(flags + ["--checkpoint-dir",
+                                                  os.path.join(d, "restore")])
+    _, loop = cli.build_step1(args)
+    saved = checkpoint.load_checkpoint(os.path.join(d, "restore", "step_2"))
+    epoch = loop.resume()
+    differ = [f"{m}.{k}" for m in ("text_encoder", "duration_predictor", "decoder")
+              for k, v in loop.modules[m].state_dict().items()
+              if not torch.equal(v.cpu(), saved[m][k])]
+    opt = loop.optimizer.state_dict()["state"]
+    moments = [(i, k) for i, st in saved["opt_state"]["state"].items()
+               for k in ("exp_avg", "exp_avg_sq", "step")
+               if not torch.equal(opt[i][k].cpu(), st[k])]
+    print(f"  restored from step_2: epoch {epoch}, step {loop.step}; "
+          f"{len(saved['opt_state']['state'])} Adam entries; parameters differing "
+          f"{len(differ)}, moments differing {len(moments)}", flush=True)
+    if epoch != 2 or loop.step != 2 * per_epoch or differ or moments or len(opt) < 100:
+        raise AssertionError(f"restore: epoch {epoch}, step {loop.step}, {differ[:5]}, "
+                             f"{moments[:5]}")
+
+    # the run's batch shapes (its epochs 0 and 1; the resumed run replays
+    # epoch 0's order), then whole loop steps (the batch to the card and its
+    # mel frontend, train_step, the metrics to the host) under
+    # torch.profiler from the restored state on the first batch, each timed
+    # on the host clock in the same profiled call
+    rng = np.random.default_rng(cfg.train.seed)
+    epochs = [[(TRAIN_BATCH, b["tokens"].shape[1], b["wav"].shape[1] // cfg.data.hop_length)
+               for b in iterate_batches(loop.dataset, loop.collator, TRAIN_BATCH, key=rng)]
+              for _ in range(2)]
+    shapes = epochs[0] + epochs[1] + epochs[0]
+    raw = next(iterate_batches(loop.dataset, loop.collator, TRAIN_BATCH,
+                               key=np.random.default_rng(cfg.train.seed)))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    walls = []
+
+    def one_step():
+        t = time.perf_counter()
+        loop.step_once(raw, gen)
+        walls.append(time.perf_counter() - t)
+
+    with strict_f32():
+        act = kernel_breakdown.device_activity(one_step, PROFILED_STEPS)
+    wall_ms = float(np.mean(walls[-PROFILED_STEPS:])) * 1e3
+    ms_step = float(np.median(runs["train"]["step_seconds"][1:]
+                              + resumed["step_seconds"][1:])) * 1e3
+    prof = {"ms_per_step": ms_step, "profiled_wall_ms": wall_ms, "device_ms": act["busy_ms"],
+            "launches": act["launches"], "idle_share": 1.0 - act["busy_ms"] / wall_ms,
+            "peak_bytes": peak}
+    print(f"  STEP1 step at full width (batch {TRAIN_BATCH}): {ms_step:.1f} ms a step (median "
+          f"after each run's first, host clock); under torch.profiler, a whole loop step "
+          f"(mean of {PROFILED_STEPS}: batch to the card and mel frontend, train_step, metrics "
+          f"to the host) {wall_ms:.1f} ms on the host clock, device busy "
+          f"{act['busy_ms']:.2f} ms in {act['launches']:.0f} launches, idle share "
+          f"{prof['idle_share']:.3f}; peak memory {peak / 2 ** 30:.2f} GiB "
+          f"(max_memory_allocated over the two runs); {smi}", flush=True)
+    del loop, raw
+
+    # M1 at the run's batch shapes, against its plain version; one record a
+    # shape, weighted in the kernels line by its share of the run's steps
+    m1 = []
+    for shape in sorted(set(shapes)):
+        errs = []
+        for kind in ("ties", "lengths"):
+            lp, mask = _m1_case(torch, kind, *shape, dev, seed=sum(shape))
+            got = mas.maximum_path(lp, mask)
+            want = mas.maximum_path_plain(lp, mask)
+            cpu = mas.maximum_path_plain(lp.cpu(), mask.cpu())
+            if not (torch.equal(got, want) and torch.equal(got.cpu(), cpu)):
+                raise AssertionError(f"M1 at {shape} ({kind}) differs from its plain version")
+            errs.append((got - want).abs().max().item())
+        b_ms, by_ms, op_ms = bound_ms(mas.work(*shape))
+        rec = dict(name="maximum_path", route="cuda", source="unitspeech_tpu_torch/csrc/mas.cu",
+                   replaces=M1_REPLACES, site=f"(B, Tx, Ty) = {shape}",
+                   counts=dict(counts(0), train=shapes.count(shape) / len(shapes)),
+                   max_abs_err=max(errs), tol=0.0,
+                   ms=_time_ms(torch, lambda: mas.maximum_path(lp, mask)),
+                   plain_ms=_time_ms(torch, lambda: mas.maximum_path_plain(lp, mask),
+                                     reps=5, warmup=1),
+                   bound_ms=b_ms, bytes_ms=by_ms, ops_ms=op_ms, lib_ms=None)
+        m1.append(rec)
+        print(f"  M1 at (B, Tx, Ty) = {shape} ({shapes.count(shape)} of the run's steps): "
+              f"bit-equal to maximum_path_plain (ties; ragged lengths); "
+              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.2f} ms, least "
+              f"{b_ms:.5f} ms ({'bytes' if by_ms >= op_ms else 'operations'}); {smi}", flush=True)
+    train_launches = {k: len(shapes) if k in TRAIN_KERNELS else 0 for k in KERNELS}
+
+    # a small f32 step on the card against the CPU, the same draws
+    check = step_check.card_vs_cpu(dev)
+    print(f"  small f32 STEP1 step, card vs CPU (strict f32, cuDNN deterministic, the same "
+          f"draws): largest relative difference of the losses and gradient norms "
+          f"{check['max_rel']:.3e} (bound {check['bound']:.0e})", flush=True)
+
+    # the trained checkpoint served: the serving defaults and the plain path
+    spk = os.path.join(d, "spk.npy")
+    with np.load(corp["spk_embs"]) as z:
+        np.save(spk, z["0"])
+    step3 = resumed["checkpoint"]
+    served = {}
+    for name, extra, want in (
+            ("kernels", [], {k: STEPS * per_call["int8"][k] if k in ESTIMATOR_KERNELS
+                             else per_call["int8"][k] if k in VOCODER_KERNELS else 0
+                             for k in KERNELS}),
+            ("plain", ["--no-fast-kernels"], {k: 0 for k in KERNELS})):
+        out = os.path.join(d, f"trained_{name}.wav")
+        res = _counted(f"trained checkpoint, {name}", lambda: cli.main_inference(
+            ["--ipa", "--text", FORCED_TEXT, "--checkpoint", step3, "--vocoder", ckpt_path,
+             "--spk-emb", spk, "--output", out, "--device", "cuda", "--seed", "0",
+             "--diffusion-steps", str(STEPS), "--text-gradient-scale", "1.0",
+             "--spk-gradient-scale", "1.0", "--frames", str(FRAMES), *extra]), want)
+        with wave.open(out, "rb") as w:
+            n = w.getnframes()
+            pcm = np.frombuffer(w.readframes(n), np.int16)
+        if n != FRAMES * cfg.data.hop_length or not np.any(pcm):
+            raise AssertionError(f"trained {name} request: {n} samples")
+        print(f"  trained checkpoint served ({name}): wall {res['wall_s']:.3f} s", flush=True)
+        served[name] = want
+    trained = artifacts.read(step3)
+    paths = compare_paths(torch, dev, dict(artifacts.read(ckpt_path), **{
+        k: trained[k] for k in ("text_encoder", "duration_predictor", "decoder", "mel_min",
+                                "mel_max")}, spk_emb=torch.from_numpy(np.load(spk))[None]),
+        per_call, runs=ADAPT_RUNS, vocoder=False, what="trained ")
+    torch.cuda.empty_cache()
+    res = {"runs": runs, "profile": prof, "step_check": check, "paths": paths,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"train phase: {res['phase_s']:.1f} s", flush=True)
+    return res, m1, served["kernels"], train_launches
+
+
 def run_tools():
     """This slice's paths: the port's four tools at full size, each run
     with every launch counter set to 0 just before it and read just after.
@@ -1930,8 +2195,9 @@ def run_tools():
 
 
 def kernels_line(records, launches):
-    """One entry per kernel: its launches on its home path's served
-    requests, and per call on that path (HOME) at the 344-frame bucket the
+    """One entry per kernel: its launches on its home path's run (served
+    requests, a tool, or the STEP1 steps), and per call on that path (HOME;
+    at the 344-frame bucket, or a STEP1 step at the run's shapes) the
     sums over its sites of time x launches per call: kernel, plain, least
     (bound_ms) and library (library_ms, null without one PyTorch call that
     computes the same function); the same sums for every path in by_path."""
@@ -2005,6 +2271,9 @@ def main(argv=None) -> int:
         voice = voice_and_samplers(torch, dev, tmp, ckpt, adapted["finetune"]["output"],
                                    per_call, smi)
         served = serving(torch, dev, tmp, ckpt, per_call, smi)
+        trained, m1, launches["trained"], launches["train"] = train(torch, dev, tmp, ckpt,
+                                                                   per_call, smi)
+    records += m1
     launches["adapted"] = adapted_launches["kernels"]
     tool_launches, tools = run_tools()
     launches.update(tool_launches)
@@ -2015,6 +2284,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "records": records, "paths": paths, "adapt": adapted,
                        "frontends": front, "voice": voice, "serving": served,
+                       "train": trained,
                        "kernels": kernels,
                        "launches": launches, "tools": tools, "breakdown": breakdown}, f,
                       indent=1)
@@ -2023,6 +2293,7 @@ def main(argv=None) -> int:
     print(json.dumps({"frontends": {k: v for k, v in front.items() if k != "losses"}}))
     print(json.dumps({"voice": voice}))
     print(json.dumps({"serving": served}))
+    print(json.dumps({"train": {k: v for k, v in trained.items() if k != "runs"}}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

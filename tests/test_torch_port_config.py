@@ -79,6 +79,12 @@ from unitspeech_tpu_torch.models import speaker  # noqa: F401
 from unitspeech_tpu_torch.models.ssl import feature_extractor, hubert, kmeans  # noqa: F401
 from unitspeech_tpu_torch.models.ssl import speech_encoder, transformer, wavlm  # noqa: F401
 from unitspeech_tpu_torch.utils import precision, torch_convert_ssl  # noqa: F401
+from unitspeech_tpu_torch.ops import mas  # noqa: F401
+from unitspeech_tpu_torch.data import dataset  # noqa: F401
+from unitspeech_tpu_torch.preprocess import stats  # noqa: F401
+from unitspeech_tpu_torch.train import loop  # noqa: F401
+from unitspeech_tpu_torch.utils import checkpoint, logging  # noqa: F401
+from unitspeech_tpu_torch.tools import step_check, synthetic_corpus  # noqa: F401
 
 cfg, ckpt, out = sys.argv[1:4]
 cli.main_make_random_checkpoint(["--seed", "1", "--config", cfg, "--output", ckpt])
@@ -128,6 +134,29 @@ assert len(bisect_deep_compile.main(["--device", "cpu", "--reps", "1", "t8_f10_c
 res = bench_resnet_kernel.main(["--device", "cpu", "--frames", "8", "--reps", "1", "--int8",
                                 "--deep", "--stages", "0,2"])
 assert [r["kernel"] for r in res["stages"]] == ["K10a", "K10b"], res
+# STEP1 from wavs: the two preprocessors, one epoch of train-step1, its
+# checkpoint served with a voice and the random checkpoint's vocoder
+d = os.path.dirname(ckpt)
+corp = synthetic_corpus(os.path.join(d, "corpus"), load_json(cfg), ["həloʊ.", "ðə dɑɡ."] * 2,
+                        n_speakers=2, seconds=(0.03, 0.05), seed=6)
+ms, un = os.path.join(d, "ms.npz"), os.path.join(d, "un.npz")
+assert cli.main(["preprocess-mel-stats", "--filelist", corp["filelist"], "--out", ms,
+                 "--config", cfg, "--device", "cpu"]) == 0
+assert cli.main(["preprocess-uncond", "--filelist", corp["filelist"], "--mel-stats", ms,
+                 "--spk-embs", corp["spk_embs"], "--out", un, "--config", cfg,
+                 "--device", "cpu"]) == 0
+res = cli.main_train_step1(["--filelist", corp["filelist"], "--spk-embs", corp["spk_embs"],
+                            "--mel-stats", ms, "--uncond-stats", un, "--config", cfg,
+                            "--device", "cpu", "--n-epochs", "1", "--batch-size", "2",
+                            "--checkpoint-dir", os.path.join(d, "ck"),
+                            "--log-dir", os.path.join(d, "log")])
+assert res["steps"] == 2 and res["checkpoint"].endswith("step_1"), res
+import numpy as np
+np.save(os.path.join(d, "spk.npy"), np.load(corp["spk_embs"])["0"])
+stats = cli.main_inference(["--ipa", "--text", "həloʊ", "--checkpoint", res["checkpoint"],
+                            "--vocoder", ckpt, "--spk-emb", os.path.join(d, "spk.npy"),
+                            "--output", out, "--device", "cpu", "--diffusion-steps", "1"])
+assert stats["frames"] > 0, stats
 print("no JAX imported:", not any(m.split(".")[0] in ("jax", "unitspeech_tpu")
                                   for m in sys.modules))
 """
@@ -140,15 +169,17 @@ def test_port_and_chip_smoke_import_nothing_of_jax(tmp_path):
     deep-stage switches and from graphemes; convert of the SSL and
     contentvec-encoder checkpoints that tools/ssl_reference and
     tools/vc_reference write; voice-conversion from a contentvec HuBERT with
-    a strided sampler spec), its four kernel tools and the sampler gate (on
-    the CPU at small sizes) run with every import of jax, flax or
-    unitspeech_tpu refused."""
+    a strided sampler spec; STEP1 training from wavs through the two
+    preprocessors to a checkpoint that inference serves), its four kernel
+    tools and the sampler gate (on the CPU at small sizes) run with every
+    import of jax, flax or unitspeech_tpu refused."""
     cfg = json.loads(json.dumps(TINY))
     cfg["text_encoder"]["n_vocab"] = 180  # the IPA symbol table
     cfg["spk_embedder"] = {"feat_type": "wavlm_test", "channels": 16, "spk_emb_dim": 8}
     cfg["unit_extractor"] = {"dense_model_name": "hubert-test", "vocab_size": 40}
     cfg["contentvec_encoder"] = {"n_contentvec": 16, "n_feats": 16, "n_channels": 16,
                                  "filter_channels": 32, "n_layers": 1, "n_heads": 2}
+    cfg["train"] = {"save_every": 1}
     (tmp_path / "tiny.json").write_text(json.dumps(cfg))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(

@@ -14,13 +14,18 @@ voice-conversion and serving slices and the SSL frontends).
     python -m unitspeech_tpu_torch.cli serve --checkpoint ckpt.pt \
         --calibration-file corpus.txt [--voices voices/] [--port 8777]
     python -m unitspeech_tpu_torch.cli convert decoder pretrained_decoder.pt decoder.pt
+    python -m unitspeech_tpu_torch.cli preprocess-mel-stats --filelist train.txt --out mel_stats.npz
+    python -m unitspeech_tpu_torch.cli preprocess-uncond --filelist train.txt \
+        --mel-stats mel_stats.npz --spk-embs spk_embs.npz --out uncond_stats.npz
+    python -m unitspeech_tpu_torch.cli train-step1 --filelist train.txt --spk-embs spk_embs.npz \
+        --mel-stats mel_stats.npz --uncond-stats uncond_stats.npz --checkpoint-dir ckpts [--resume]
 
 A checkpoint is a `torch.save`d dict: one state dict per module in the
 port's layout, the speaker embedding, the mel min/max and the config
 (utils/artifacts lists the port's formats). Every command runs on the card
 unless `--device cpu` is given; with no CUDA device `--device cuda` exits
 non-zero. f32 means f32: `inference`, `serve`, `finetune` and
-`voice-conversion` run with TF32 off for f32 matmuls and cuDNN convs
+`voice-conversion` (and `train-step1`) run with TF32 off for f32 matmuls and cuDNN convs
 (utils/precision.strict_f32), and give the caller's settings back when
 they return.
 """
@@ -153,8 +158,13 @@ def _load_tts_models(args, device, dtype, routes):
         state["vocoder"] = artifacts.load_vocoder_params(args.vocoder, cfg.vocoder)
     if args.spk_emb:
         spk = torch.from_numpy(np.load(args.spk_emb).astype(np.float32))
-    if spk is None:
-        raise SystemExit("no speaker embedding: pass --spk-emb or a decoder with spk_emb")
+    missing = [k for k, v in state.items() if v is None]
+    if missing:  # a STEP1 checkpoint holds no vocoder
+        raise SystemExit(f"{args.checkpoint} has no {', '.join(missing)}: pass "
+                         + ", ".join(f"--{k.replace('_', '-')}" for k in missing))
+    if spk is None:  # a STEP1 checkpoint holds no voice
+        raise SystemExit(f"no speaker embedding: {args.checkpoint or args.decoder} has no "
+                         "spk_emb; pass --spk-emb")
     if mel_min is None or mel_max is None:
         raise SystemExit("no mel_min / mel_max in the checkpoint or the decoder")
     return TTSModels.from_state_dicts(cfg, state, spk, mel_min, mel_max, device=device,
@@ -878,6 +888,189 @@ def main_serve(argv=None) -> dict:
     return serving_cfg
 
 
+def _filelist_flags(ap):
+    ap.add_argument("--filelist", action="append", required=True,
+                    help="path|text|spk filelist (repeatable, e.g. train+test)")
+    ap.add_argument("--max-files", type=int, default=None)
+    ap.add_argument("--config", default=None, help="JSON config overlay")
+    ap.add_argument("--device", default="cuda",
+                    help="where the mels are computed (the card unless cpu)")
+
+
+def main_preprocess_mel_stats(argv=None) -> dict:
+    """Global per-channel log-mel min / max over filelists (JAX cli.py
+    main_preprocess_mel_stats; reference process_mel_normalization.py)."""
+    from unitspeech_tpu_torch.config import MainConfig, load_json
+    from unitspeech_tpu_torch.preprocess.stats import compute_mel_stats
+
+    ap = argparse.ArgumentParser("unitspeech-tpu-torch preprocess-mel-stats")
+    _filelist_flags(ap)
+    ap.add_argument("--out", required=True, help="output mel_stats.npz")
+    args = ap.parse_args(argv)
+    device = _device(args.device)
+    cfg = load_json(args.config) if args.config else MainConfig()
+    stats = compute_mel_stats(args.filelist, cfg.data, args.out, device, args.max_files)
+    print(f"mel stats over {len(args.filelist)} filelist(s) -> {args.out} "
+          f"(min {stats['mel_min'].min():.3f}, max {stats['mel_max'].max():.3f})")
+    return stats
+
+
+def main_preprocess_uncond(argv=None) -> dict:
+    """The unconditional CFG embeddings: the mean normalized mel frame
+    (text_uncond) and the mean of the speaker means (spk_uncond) (JAX
+    cli.py main_preprocess_uncond; reference process_uncond_mel.py,
+    process_uncond_spk.py)."""
+    from unitspeech_tpu_torch.config import MainConfig, load_json
+    from unitspeech_tpu_torch.preprocess.stats import compute_uncond_mel, compute_uncond_spk
+
+    ap = argparse.ArgumentParser("unitspeech-tpu-torch preprocess-uncond")
+    _filelist_flags(ap)
+    ap.add_argument("--mel-stats", required=True, help="mel_stats.npz")
+    ap.add_argument("--spk-embs", required=True, help="spk_embs.npz")
+    ap.add_argument("--out", required=True, help="output uncond_stats.npz")
+    args = ap.parse_args(argv)
+    device = _device(args.device)
+    cfg = load_json(args.config) if args.config else MainConfig()
+    stats = np.load(args.mel_stats)
+    text_uncond = compute_uncond_mel(args.filelist, cfg.data, stats["mel_min"].reshape(-1),
+                                     stats["mel_max"].reshape(-1), device=device,
+                                     max_files=args.max_files)
+    with np.load(args.spk_embs) as embs:
+        spk_uncond = compute_uncond_spk({k: embs[k] for k in embs.files})
+    np.savez(args.out, text_uncond=text_uncond, spk_uncond=spk_uncond)
+    print(f"uncond stats ({text_uncond.shape[0]}-d mel, {spk_uncond.shape[-1]}-d spk) "
+          f"-> {args.out}")
+    return {"text_uncond": text_uncond, "spk_uncond": spk_uncond}
+
+
+def step1_parser() -> argparse.ArgumentParser:
+    """`train-step1`'s flags: the JAX CLI's, with --device and --config."""
+    ap = argparse.ArgumentParser("unitspeech-tpu-torch train-step1")
+    ap.add_argument("--filelist", required=True)
+    ap.add_argument("--spk-embs", required=True, help=".npz of per-speaker embeddings")
+    ap.add_argument("--mel-stats", required=True, help=".npz with mel_min/mel_max")
+    ap.add_argument("--uncond-stats", default=None,
+                    help=".npz with text_uncond/spk_uncond (CFG training)")
+    ap.add_argument("--log-dir", default=None)
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--n-epochs", type=int, default=None)
+    ap.add_argument("--batch-size", type=int, default=None)
+    ap.add_argument("--language", default="en-us",
+                    help="espeak language of the filelist's text; without espeak-ng the "
+                         "text must be pre-phonemized IPA, as in the JAX CLI")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--config", default=None, help="JSON config overlay")
+    ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def build_step1(args):
+    """(config, TrainLoop) of `train-step1` from its parsed flags: the text
+    encoder, duration predictor and decoder from flax's initializers
+    (utils/params.init_params, seeded by the config's train.seed; the
+    decoder's unconditional embeddings from --uncond-stats), Adam at
+    train.learning_rate with per-module clipping, the decoder's activations
+    in bf16 when train.use_bf16 (parameters f32), on --device."""
+    import dataclasses
+
+    import torch
+
+    from unitspeech_tpu_torch import text as text_frontend
+    from unitspeech_tpu_torch.config import MainConfig, load_json
+    from unitspeech_tpu_torch.data.dataset import (
+        BucketCollator,
+        TextMelSpeakerDataset,
+        parse_filelist,
+    )
+    from unitspeech_tpu_torch.models.diffusion import UnitSpeech
+    from unitspeech_tpu_torch.models.duration import DurationPredictor
+    from unitspeech_tpu_torch.models.encoder import Encoder
+    from unitspeech_tpu_torch.train.loop import TrainLoop
+    from unitspeech_tpu_torch.train.steps import make_step1_train_step
+    from unitspeech_tpu_torch.utils.artifacts import load_speaker_embs
+    from unitspeech_tpu_torch.utils.params import init_params
+
+    device = _device(args.device)
+    cfg = load_json(args.config) if args.config else MainConfig()
+    if args.batch_size:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                                 batch_size=args.batch_size))
+    tcfg = cfg.train
+    ph = text_frontend.get_phonemizer(args.language)
+
+    def text_to_ids(t):
+        if ph is None:  # pre-phonemized filelists
+            return text_frontend.phonemes_to_sequence(t, add_blank=cfg.data.add_blank)
+        return text_frontend.text_to_sequence(t, ph, add_blank=cfg.data.add_blank)
+
+    dataset = TextMelSpeakerDataset(parse_filelist(args.filelist), text_to_ids,
+                                    hop_length=cfg.data.hop_length,
+                                    sampling_rate=cfg.data.sampling_rate)
+    spk_embs = load_speaker_embs(args.spk_embs)
+    stats = np.load(args.mel_stats)
+    mel_min = torch.from_numpy(stats["mel_min"].reshape(-1)).to(device)
+    mel_max = torch.from_numpy(stats["mel_max"].reshape(-1)).to(device)
+
+    params = init_params(cfg, torch.Generator().manual_seed(tcfg.seed))
+    spk_uncond = None
+    if args.uncond_stats:
+        uz = np.load(args.uncond_stats)
+        spk_uncond = torch.from_numpy(uz["spk_uncond"].reshape(-1)).to(device)
+        params["decoder"]["text_uncon"] = torch.from_numpy(uz["text_uncond"].reshape(-1))
+        params["decoder"]["spk_uncon"] = torch.from_numpy(uz["spk_uncond"].reshape(-1))
+    with device:
+        modules = {"text_encoder": Encoder.from_config(cfg.text_encoder),
+                   "duration_predictor": DurationPredictor.from_config(cfg.duration_predictor),
+                   "decoder": UnitSpeech.from_config(
+                       cfg.decoder, dtype=torch.bfloat16 if tcfg.use_bf16 else torch.float32)}
+    for name, mod in modules.items():
+        mod.load_state_dict(params[name])
+        mod.train().requires_grad_(True)
+    optimizer = torch.optim.Adam([p for m in modules.values() for p in m.parameters()],
+                                 lr=tcfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    train_step = make_step1_train_step(
+        *modules.values(), optimizer, out_size=cfg.out_size, spk_uncond=spk_uncond,
+        spk_dropout=tcfg.spk_dropout,
+        clip_norms=(tcfg.grad_clip_encoder, tcfg.grad_clip_duration, tcfg.grad_clip_decoder),
+        beta_min=cfg.decoder.beta_min, beta_max=cfg.decoder.beta_max)
+    loop = TrainLoop(cfg=cfg, train_step=train_step, modules=modules, optimizer=optimizer,
+                     dataset=dataset,
+                     collator=BucketCollator(hop_length=cfg.data.hop_length,
+                                             num_downsamplings=cfg.decoder.num_downsamplings),
+                     mel_min=mel_min, mel_max=mel_max, spk_embs=spk_embs,
+                     log_dir=args.log_dir or tcfg.log_dir,
+                     checkpoint_dir=args.checkpoint_dir or tcfg.checkpoint_dir,
+                     save_every=tcfg.save_every, seed=tcfg.seed, device=device)
+    return cfg, loop
+
+
+@strict_f32()
+def main_train_step1(argv=None) -> dict:
+    """STEP1 training (JAX cli.py main_train_step1; reference
+    train_STEP1.py; see build_step1), MAS on the card (M1), resumable.
+    Returns its statistics: the newest checkpoint, the epoch and step it
+    started from, the steps, each step's metrics and seconds, and the
+    median ms a step after the first."""
+    args = step1_parser().parse_args(argv)
+    cfg, loop = build_step1(args)
+    metrics = []
+    loop.step_hook = lambda step, m: metrics.append(m)
+    start = loop.resume() if args.resume else 0
+    first_step = loop.step
+    t0 = time.perf_counter()
+    loop.run(args.n_epochs or cfg.train.n_epochs, start)
+    wall = time.perf_counter() - t0
+    from unitspeech_tpu_torch.utils.checkpoint import latest_checkpoint
+
+    secs = loop.step_seconds
+    res = {"checkpoint": latest_checkpoint(loop.checkpoint_dir), "start_epoch": start,
+           "first_step": first_step, "steps": loop.step, "seconds": wall,
+           "ms_per_step": float(np.median(secs[1:]) * 1e3) if len(secs) > 1 else None,
+           "step_seconds": secs, "metrics": metrics, "device": str(loop.device)}
+    print(json.dumps({k: v for k, v in res.items() if k not in ("metrics", "step_seconds")}))
+    return res
+
+
 def main_convert(argv=None) -> int:
     from unitspeech_tpu_torch.utils import convert_cli
 
@@ -888,7 +1081,9 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     commands = {"inference": main_inference, "serve": main_serve, "finetune": main_finetune,
                 "voice-conversion": main_voice_conversion, "convert": main_convert,
-                "make-random-checkpoint": main_make_random_checkpoint}
+                "make-random-checkpoint": main_make_random_checkpoint,
+                "preprocess-mel-stats": main_preprocess_mel_stats,
+                "preprocess-uncond": main_preprocess_uncond, "train-step1": main_train_step1}
     if not argv or argv[0] not in commands:
         print(f"usage: python -m unitspeech_tpu_torch.cli {{{','.join(commands)}}} ...",
               file=sys.stderr)

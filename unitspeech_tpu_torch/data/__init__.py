@@ -1,0 +1,1 @@
+"""Training data (counterpart of unitspeech_tpu/data): filelists, the text-mel dataset and the bucketed collator."""

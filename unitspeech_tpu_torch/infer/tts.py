@@ -107,7 +107,12 @@ class TTSModels:
         """ckpt: the dict utils.params.random_params returns (or one loaded
         from a file that `cli make-random-checkpoint` wrote); its
         "unit_encoder" entry, which only the fine-tune reads, is not loaded.
-        kwargs: the routes of from_state_dicts."""
+        kwargs: the routes of from_state_dicts. A checkpoint without a
+        speaker embedding (a STEP1 checkpoint) raises: pass its modules to
+        from_state_dicts with a voice, as `cli inference --spk-emb` does."""
+        if ckpt.get("spk_emb") is None:
+            raise ValueError("the checkpoint has no spk_emb (a STEP1 checkpoint holds no "
+                             "voice): give one, as cli inference --spk-emb does")
         return cls.from_state_dicts(config_from_dict(ckpt["config"]), ckpt, ckpt["spk_emb"],
                                     ckpt["mel_min"], ckpt["mel_max"], device=device,
                                     dtype=dtype, **kwargs)

@@ -127,3 +127,37 @@ class Affine(nn.Module):
 
     def params(self):
         return tuple(getattr(self, n) for n in self.names)
+
+
+class Dropout:
+    """Training-mode dropout with explicit randomness, flax nn.Dropout's
+    arithmetic: kept elements divided by 1 - p, the others zero. Each call
+    with p > 0 takes the next mask: from `masks`, a sequence of bool
+    tensors in call order (injected draws, e.g. another framework's), or
+    drawn from `generator` on the input's device (and kept in `drawn`, so
+    that a run can be replayed elsewhere). p = 0 returns x and takes no
+    mask, as flax does. Modules take one as their `dropout=` argument; None
+    (the default, every inference path) means no dropout."""
+
+    def __init__(self, generator=None, masks=None):
+        self.generator = generator
+        self.masks = None if masks is None else list(masks)
+        self.calls = 0
+        self.drawn = []
+
+    def __call__(self, x, p: float):
+        if p == 0.0:
+            return x
+        keep = 1.0 - p
+        if self.masks is not None:
+            mask = self.masks[self.calls].to(x.device)
+        else:
+            mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+            self.drawn.append(mask)
+        self.calls += 1
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def dropout(drop, x, p: float):
+    """x through `drop` (a Dropout) at rate p; x itself when drop is None."""
+    return x if drop is None else drop(x, p)

@@ -66,6 +66,7 @@ _SIGNATURES = {
     "us_row_select": ([_P] * 2 + [_I] * 4 + [_P], _I),
     "us_interleave_rows": ([_P] * 2 + [_I] * 2 + [_P], _I),
     "us_selection_matmul": ([_P] * 2 + [_I] * 2 + [_P], _I),
+    "us_maximum_path": ([_P] * 4 + [_I] * 3 + [_P], _I),
 }
 
 _lock = threading.Lock()

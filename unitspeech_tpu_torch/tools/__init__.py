@@ -98,3 +98,42 @@ def synthetic_reference(directory: str, cfg, seconds: float = 6.0, seed: int = 0
     np.save(paths["spk.npy"], rng.standard_normal(cfg.decoder.spk_emb_dim).astype(np.float32))
     return ["--reference", paths["ref.wav"], "--units", paths["units.npz"],
             "--spk-emb", paths["spk.npy"]]
+
+
+def synthetic_corpus(directory: str, cfg, texts, n_speakers: int = 4,
+                     seconds=(1.5, 4.0), seed: int = 0) -> dict:
+    """A STEP1 corpus made from a seed, in `directory`: one PCM wav at
+    cfg.data.sampling_rate per (pre-phonemized IPA) text, of a length drawn
+    from `seconds` (lo, hi), speaker i % n_speakers; each character of the
+    text sounds in turn for an equal share of the wav as a tone whose pitch
+    the character picks (between 2.5% and 22.5% of the rate), brightened by
+    the speaker's own harmonics, with a little noise, so that text and
+    audio align. Writes filelist.txt (`path|text|speaker`) and
+    spk_embs.npz (a random unit vector per speaker); returns their paths
+    and the texts."""
+    from unitspeech_tpu_torch.utils.audio import write_wav
+
+    rng = np.random.default_rng(seed)
+    sr = cfg.data.sampling_rate
+    os.makedirs(directory, exist_ok=True)
+    lines = []
+    for i, text in enumerate(texts):
+        spk = i % n_speakers
+        n = int(rng.uniform(*seconds) * sr)
+        chars = np.array([ord(c) for c in text])
+        pitch = sr * (0.025 + 0.2 * ((chars * 7919) % 97) / 96.0)
+        f = pitch[np.minimum(np.arange(n) * len(chars) // n, len(chars) - 1)]
+        phase = 2 * np.pi * np.cumsum(f) / sr
+        wav = sum(np.sin(k * phase) * (0.5 + 0.5 * np.cos(spk + k)) / k for k in (1, 2, 3))
+        wav = wav + 0.02 * rng.standard_normal(n)
+        path = os.path.join(directory, f"utt{i:03d}.wav")
+        write_wav(path, 0.8 * wav / np.abs(wav).max(), sr)
+        lines.append(f"{path}|{text}|{spk}")
+    filelist = os.path.join(directory, "filelist.txt")
+    with open(filelist, "w", encoding="utf-8") as fh:
+        fh.write("\n".join(lines) + "\n")
+    embs = rng.standard_normal((n_speakers, cfg.decoder.spk_emb_dim))
+    embs /= np.linalg.norm(embs, axis=1, keepdims=True)
+    spk_path = os.path.join(directory, "spk_embs.npz")
+    np.savez(spk_path, **{str(i): e.astype(np.float32) for i, e in enumerate(embs)})
+    return {"filelist": filelist, "spk_embs": spk_path, "texts": list(texts)}

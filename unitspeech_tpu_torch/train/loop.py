@@ -1,0 +1,173 @@
+"""The epoch loop of STEP1 training (counterpart of
+unitspeech_tpu/train/loop.py `TrainLoop`; reference train_STEP1.py:45-304)
+on one device (the JAX package's mesh and per-host sharding are not
+ported):
+
+  * `_prepare_batch` moves a collated batch to the device and computes the
+    normalized log-mel there (ops/mel.py), attaching the speaker
+    embeddings by speaker id;
+  * `run` keeps the JAX loop's seeding: a numpy default_rng(seed) shuffles
+    the epochs and a torch.Generator seeded from `seed` on the device makes
+    every draw of the steps, both restarted by each run (a resumed run
+    replays the first epochs' order, as JAX's does). Its one host sync a
+    step is the metrics' (the JAX loop's `float(v)`), made as one copy;
+    it writes TensorBoard scalars and an epoch summary to train.log, saves
+    every `save_every` epochs, and on SIGTERM saves at the next step
+    boundary and returns;
+  * checkpoints (utils/checkpoint.py, `step_<epoch>` files) hold the three
+    modules' state dicts, the optimizer's state, the step and the epoch,
+    with the config and the mel min / max beside them: the port's combined
+    checkpoint layout, which `cli inference --checkpoint` serves (with
+    `--spk-emb`); `resume` restores parameters, Adam moments and step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import signal
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from unitspeech_tpu_torch.config import MainConfig
+from unitspeech_tpu_torch.data.dataset import BucketCollator, iterate_batches
+from unitspeech_tpu_torch.ops.mel import mel_spectrogram, normalize_mel
+from unitspeech_tpu_torch.utils import checkpoint as ckpt
+from unitspeech_tpu_torch.utils.logging import MetricsWriter, StepTimer, get_logger
+
+logger = get_logger()
+
+
+@dataclass
+class TrainLoop:
+    """STEP1's epoch loop. `modules` ({text_encoder, duration_predictor,
+    decoder}) and `optimizer` are the training state, on `device`;
+    train_step(batch, generator) -> metrics (train/steps.py
+    make_step1_train_step). step_hook(step, metrics), when given, is called
+    after each step with its metrics on the host."""
+
+    cfg: MainConfig
+    train_step: Callable
+    modules: Dict[str, torch.nn.Module]
+    optimizer: torch.optim.Optimizer
+    dataset: Any
+    collator: BucketCollator
+    mel_min: torch.Tensor  # (n_feats,) on device
+    mel_max: torch.Tensor
+    spk_embs: Optional[Dict[int, np.ndarray]] = None  # id -> (S,)
+    log_dir: str = "logs/unitspeech_tpu"
+    checkpoint_dir: str = "checkpoints/train"
+    save_every: int = 5
+    seed: int = 42
+    device: Any = "cuda"
+    step: int = 0
+    step_hook: Optional[Callable[[int, dict], None]] = None
+    step_seconds: List[float] = field(default_factory=list)
+
+    def __post_init__(self):
+        self.device = torch.device(self.device)
+        self.writer = MetricsWriter(self.log_dir)
+        self.timer = StepTimer()
+
+    def _prepare_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """Host batch -> device batch: tokens and lengths as int64, the
+        normalized mel (B, Ty, F) from the padded wavs, spk_emb (B, S)."""
+        d, dev = self.cfg.data, self.device
+        out = {"tokens": torch.from_numpy(batch["tokens"]).long().to(dev),
+               "token_lengths": torch.from_numpy(batch["token_lengths"]).long().to(dev),
+               "mel_lengths": torch.from_numpy(batch["mel_lengths"]).long().to(dev)}
+        if self.spk_embs is not None:
+            spk = np.stack([self.spk_embs[int(i)] for i in batch["spk_id"]]).astype(np.float32)
+            out["spk_emb"] = torch.from_numpy(spk).to(dev)
+        wav = torch.from_numpy(batch["wav"]).to(dev)
+        mel = mel_spectrogram(wav, n_fft=d.n_fft, num_mels=d.n_feats,
+                              sampling_rate=d.sampling_rate, hop_size=d.hop_length,
+                              win_size=d.win_length, fmin=d.mel_fmin, fmax=d.mel_fmax)
+        out["mel"] = normalize_mel(mel, self.mel_min, self.mel_max)
+        return out
+
+    def state_tree(self, epoch: int) -> dict:
+        """What a checkpoint holds (the port's combined checkpoint layout)."""
+        return {**{k: m.state_dict() for k, m in self.modules.items()},
+                "opt_state": self.optimizer.state_dict(), "step": self.step, "epoch": epoch,
+                "config": dataclasses.asdict(self.cfg), "mel_min": self.mel_min,
+                "mel_max": self.mel_max}
+
+    def resume(self) -> int:
+        """Restore the newest checkpoint of checkpoint_dir (parameters, Adam
+        state, step); returns its epoch, 0 when there is none."""
+        latest = ckpt.latest_checkpoint(self.checkpoint_dir)
+        if latest is None:
+            return 0
+        tree = ckpt.load_checkpoint(latest)
+        for k, m in self.modules.items():
+            m.load_state_dict(tree[k])
+        self.optimizer.load_state_dict(tree["opt_state"])
+        self.step = int(tree["step"])
+        epoch = ckpt.checkpoint_step(latest)
+        logger.info("resumed from %s (epoch %d, step %d)", latest, epoch, self.step)
+        return epoch
+
+    def _save(self, tag: int) -> str:
+        return ckpt.save_checkpoint(self.checkpoint_dir, tag, self.state_tree(tag),
+                                    keep=self.cfg.train.keep_checkpoints)
+
+    def step_once(self, batch: Dict[str, np.ndarray], gen: torch.Generator) -> Dict[str, float]:
+        """One step of the loop: the collated batch to the device
+        (_prepare_batch), train_step, and its metrics to the host in one
+        copy. Returns the metrics."""
+        metrics = self.train_step(self._prepare_batch(batch), gen)
+        values = torch.stack([v.float() for v in metrics.values()]).tolist()
+        self.step += 1
+        return dict(zip(metrics, values))
+
+    def run(self, n_epochs: int, start_epoch: int = 0):
+        """Epochs start_epoch .. n_epochs - 1. Returns the step count."""
+        preempted = {"flag": False}
+
+        def _on_term(signum, frame):
+            preempted["flag"] = True
+
+        try:
+            prev_handler = signal.signal(signal.SIGTERM, _on_term)
+        except ValueError:  # not the main thread: no preemption handling
+            prev_handler = None
+        try:
+            return self._epochs(n_epochs, start_epoch, preempted)
+        finally:
+            if prev_handler is not None:
+                signal.signal(signal.SIGTERM, prev_handler)
+
+    def _epochs(self, n_epochs: int, start_epoch: int, preempted: dict) -> int:
+        tcfg = self.cfg.train
+        rng = np.random.default_rng(self.seed)
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        for epoch in range(start_epoch, n_epochs):
+            sums: Dict[str, float] = {}
+            count = 0
+            for batch in iterate_batches(self.dataset, self.collator, tcfg.batch_size, key=rng,
+                                         shuffle=tcfg.shuffle, drop_last=tcfg.drop_last):
+                t0 = time.perf_counter()
+                host = self.step_once(batch, gen)
+                self.step_seconds.append(time.perf_counter() - t0)
+                self.writer.scalars(host, self.step)
+                ema = self.timer.tick()
+                if ema is not None:
+                    self.writer.scalars({"sec_per_step": ema}, self.step, prefix="perf")
+                for k, v in host.items():
+                    sums[k] = sums.get(k, 0.0) + v
+                count += 1
+                if self.step_hook is not None:
+                    self.step_hook(self.step, host)
+                if preempted["flag"]:
+                    logger.info("SIGTERM: checkpointing at epoch %d and exiting", epoch)
+                    self._save(epoch + 1)
+                    return self.step
+            if count:
+                self.writer.epoch_summary(epoch, {k: v / count for k, v in sums.items()})
+            if (epoch + 1) % self.save_every == 0:
+                self._save(epoch + 1)
+        return self.step

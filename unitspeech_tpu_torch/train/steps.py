@@ -1,9 +1,29 @@
-"""Optimizer plumbing of the port's training loops (counterpart of
-unitspeech_tpu/train/steps.py)."""
+"""Training losses and the STEP1 train step of the port (counterpart of
+unitspeech_tpu/train/steps.py; reference train_STEP1.py:307-387): text
+encoder + duration predictor + diffusion decoder, the alignment by
+monotonic alignment search (ops/mas.py, kernel M1 on the card, so the step
+never waits on the host), the duration, prior and diffusion losses, the
+speaker embedding replaced by the unconditional one in exactly
+floor(B * 0.25) rows, and per-module gradient clipping (5 / 5 / 2).
+
+The JAX package jits the step over a mesh; here it is one eager step under
+autograd on one device. Every draw (the replaced rows, the dropout masks,
+the crop's u, the diffusion t and z) comes from an explicit
+torch.Generator, or is injected (`draws`) so that a step can be compared
+with the JAX package's, whose PRNG streams torch cannot reproduce.
+"""
 
 from __future__ import annotations
 
+import math
+from typing import Callable, Optional, Sequence
+
 import torch
+
+from unitspeech_tpu_torch.models.diffusion import diffusion_loss, random_segment_crop
+from unitspeech_tpu_torch.models.layers import Dropout
+from unitspeech_tpu_torch.ops.mas import maximum_path
+from unitspeech_tpu_torch.ops.masking import sequence_mask
 
 
 def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
@@ -17,3 +37,130 @@ def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
     for g in grads:
         g.mul_(scale.to(g.dtype))
     return gnorm
+
+
+def random_replace_rows(x, replacement, rate: float, generator=None, perm=None):
+    """Replace exactly floor(B * rate) random rows of x (B, ...) with
+    `replacement` (x's trailing shape): the rows perm[:n] of a random
+    permutation of the batch (drawn from `generator` on x's device, or
+    `perm` injected). Exact-count semantics of the reference's
+    random_replace_tensor (util.py:224-231)."""
+    b = x.shape[0]
+    n = int(b * rate)
+    if n == 0:
+        return x
+    if perm is None:
+        perm = torch.randperm(b, generator=generator, device=x.device)
+    replace = torch.zeros((b,), dtype=torch.bool, device=x.device)
+    replace[perm[:n].to(x.device)] = True
+    rep = replacement.to(x.dtype).expand(x.shape)
+    return torch.where(replace.reshape((b,) + (1,) * (x.dim() - 1)), rep, x)
+
+
+def gaussian_log_prior(mu_x, y):
+    """log N(y_frame; mu_token, I) for every (token, frame) pair (reference
+    train_STEP1.py:336-342). mu_x: (B, Tx, F); y: (B, Ty, F) -> (B, Tx, Ty)."""
+    n_feats = mu_x.shape[-1]
+    const = -0.5 * math.log(2 * math.pi) * n_feats
+    y_sq = -0.5 * torch.sum(y ** 2, dim=-1)[:, None, :]
+    cross = torch.einsum("bxf,byf->bxy", mu_x, y)
+    mu_sq = -0.5 * torch.sum(mu_x ** 2, dim=-1)[:, :, None]
+    return y_sq + cross + mu_sq + const
+
+
+def duration_loss(logw, logw_, lengths):
+    """Reference util.py:105-107."""
+    return torch.sum((logw - logw_) ** 2) / torch.sum(lengths).to(logw.dtype)
+
+
+def prior_loss_fn(y, mu_y, y_mask, n_feats: int):
+    """Reference train_STEP1.py:384-385."""
+    mask3 = y_mask[:, :, None]
+    loss = torch.sum(0.5 * ((y - mu_y) ** 2 + math.log(2 * math.pi)) * mask3)
+    return loss / (torch.sum(mask3) * n_feats)
+
+
+def step1_loss(text_encoder, duration_predictor, decoder, batch: dict, out_size: Optional[int],
+               spk_uncond=None, spk_dropout: float = 0.25, beta_min: float = 0.05,
+               beta_max: float = 20.0, generator=None, draws: Optional[dict] = None):
+    """The joint STEP1 loss. batch: tokens (B, Tx) int, token_lengths (B,),
+    mel (B, Ty, F) normalized to [-1, 1], mel_lengths (B,), spk_emb (B, S),
+    on the modules' device. The draws, in JAX's key order, from `generator`:
+    the replaced rows' permutation, the text encoder's dropout masks, the
+    duration predictor's, the crop's u (only when out_size < Ty), then the
+    diffusion t and z; draws: {"perm", "te", "dp", "u", "t", "z"} in place
+    of them ("te" / "dp": mask lists in call order). Returns (total,
+    {dur_loss, prior_loss, diff_loss}, the alignment (B, Tx, Ty) before
+    the crop)."""
+    d = draws or {}
+    tokens, token_lengths = batch["tokens"], batch["token_lengths"]
+    y, y_lengths, spk_emb = batch["mel"], batch["mel_lengths"], batch["spk_emb"]
+    n_feats = y.shape[-1]
+
+    if spk_uncond is not None and spk_dropout > 0:
+        spk_emb = random_replace_rows(spk_emb, spk_uncond, spk_dropout, generator,
+                                      d.get("perm"))
+    mu_x, hidden, x_mask = text_encoder(tokens, token_lengths,
+                                        dropout=Dropout(generator, d.get("te")))
+    logw = duration_predictor(hidden, x_mask, spk_emb, dropout=Dropout(generator, d.get("dp")))
+
+    t_y = y.shape[1]
+    y_mask = sequence_mask(y_lengths, t_y, dtype=x_mask.dtype)
+    attn_mask = x_mask * y_mask[:, None, :]  # (B, Tx, Ty)
+    with torch.no_grad():
+        attn = maximum_path(gaussian_log_prior(mu_x, y), attn_mask)
+
+    logw_ = torch.log(1e-8 + attn.sum(dim=-1)) * x_mask[..., 0]
+    dur_loss = duration_loss(logw, logw_, token_lengths)
+
+    attn_full = attn
+    if out_size is not None and out_size < t_y:
+        u = d.get("u")
+        if u is None:
+            u = torch.rand((y.shape[0],), generator=generator, device=y.device)
+        y, attn, y_mask = random_segment_crop(y, attn, y_lengths, out_size, u)
+
+    mu_y = torch.einsum("bxy,bxf->byf", attn, mu_x)
+    diff_loss, _ = diffusion_loss(decoder, y, y_mask, mu_y, spk_emb, generator,
+                                  {"t": d["t"], "z": d["z"]} if "t" in d else None,
+                                  beta_min, beta_max)
+    prior_loss = prior_loss_fn(y, mu_y, y_mask, n_feats)
+    total = dur_loss + prior_loss + diff_loss
+    return total, {"dur_loss": dur_loss, "prior_loss": prior_loss,
+                   "diff_loss": diff_loss}, attn_full
+
+
+STEP1_MODULES = ("text_encoder", "duration_predictor", "decoder")
+
+
+def make_step1_train_step(text_encoder, duration_predictor, decoder, optimizer,
+                          out_size: Optional[int], spk_uncond=None, spk_dropout: float = 0.25,
+                          clip_norms: Sequence[float] = (5.0, 5.0, 2.0), beta_min: float = 0.05,
+                          beta_max: float = 20.0) -> Callable:
+    """Returns step(batch, generator=None, draws=None) -> metrics: step1_loss
+    -> backward -> each module's gradients clipped to its global norm
+    (clip_norms: encoder, duration, decoder) -> optimizer.step(). The
+    optimizer holds every parameter of the three modules:
+    torch.optim.Adam(lr, betas (0.9, 0.999), eps 1e-8) is optax's adam
+    (m_hat / (sqrt(v_hat) + eps)); a parameter the loss never reaches (the
+    decoder's unconditional embeddings) gets no gradient and does not
+    move, as under optax with its zero gradient. Metrics: the three
+    losses, total_loss and the three pre-clip gradient norms, 0-d tensors
+    on the device (nothing syncs the host)."""
+    groups = [[p for p in m.parameters() if p.requires_grad]
+              for m in (text_encoder, duration_predictor, decoder)]
+
+    def train_step(batch, generator=None, draws=None):
+        optimizer.zero_grad(set_to_none=True)
+        total, parts, _ = step1_loss(text_encoder, duration_predictor, decoder, batch, out_size,
+                                     spk_uncond, spk_dropout, beta_min, beta_max, generator,
+                                     draws)
+        total.backward()
+        norms = [clip_by_global_norm([p.grad for p in ps], c)
+                 for ps, c in zip(groups, clip_norms)]
+        optimizer.step()
+        return {**{k: v.detach() for k, v in parts.items()}, "total_loss": total.detach(),
+                "grad_norm_encoder": norms[0], "grad_norm_duration": norms[1],
+                "grad_norm_decoder": norms[2]}
+
+    return train_step

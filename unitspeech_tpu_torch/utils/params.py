@@ -134,6 +134,53 @@ def _random_state_dict(rng, mod) -> dict:
             for k, v in mod.state_dict().items()}
 
 
+# flax's truncated normal (lecun_normal) divides the standard deviation by
+# the std of a standard normal truncated to [-2, 2], so the draws keep it
+_TRUNC_STD = 0.87962566103423978
+
+
+def _flax_init_(t: torch.Tensor, name: str, generator: torch.Generator) -> torch.Tensor:
+    """Fill t in place from the distribution of the flax initializer that
+    the JAX modules name for parameter `name` (its state-dict key):
+    lecun_normal kernels (a normal truncated to 2 std, std sqrt(1 / fan_in),
+    fan_in the product of all but the last dimension), xavier_uniform for
+    the encoder's conv_q / conv_k / conv_v, zeros for the prenet's residual
+    projection, normal(C ** -0.5) for the token embedding and a contentvec
+    encoder's input map, normal(d ** -0.5) for the relative-position tables,
+    ones for the norm scales, zeros for the biases, the rezero gates and
+    the unconditional embeddings."""
+    leaf = name.rsplit(".", 1)[-1]
+    if name.endswith("prenet.proj.kernel"):
+        return t.zero_()
+    if leaf == "kernel" and name.rsplit(".", 2)[-2] in ("conv_q", "conv_k", "conv_v"):
+        limit = float(np.sqrt(3.0 / ((t.shape[0] + t.shape[1]) / 2)))
+        return torch.nn.init.uniform_(t, -limit, limit, generator=generator)
+    if name == "emb.kernel" or leaf in ("embedding", "emb_rel_k", "emb_rel_v"):
+        return torch.nn.init.normal_(t, 0.0, t.shape[-1] ** -0.5, generator=generator)
+    if leaf == "kernel":
+        std = float(np.sqrt(1.0 / np.prod(t.shape[:-1]))) / _TRUNC_STD
+        return torch.nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
+    if leaf in ("scale", "gamma"):
+        return t.fill_(1.0)
+    if leaf in ("bias", "beta", "g", "text_uncon", "spk_uncon"):
+        return t.zero_()
+    raise ValueError(f"no flax initializer known for {name}")
+
+
+def init_params(cfg: MainConfig, generator: torch.Generator) -> dict:
+    """STEP1's starting point, as the JAX package's `init` makes it: a state
+    dict for each of text_encoder, duration_predictor and decoder at
+    `cfg`'s widths, every parameter drawn (on the CPU, from `generator`, in
+    that order) from its flax initializer's distribution (_flax_init_):
+    the same distributions as JAX's trees, not the same draws. Unlike
+    random_params, whose test weights are drawn alike and keep non-zero
+    gates and unconditional embeddings, this is what training starts from."""
+    mods = build_modules(cfg, device="meta", with_vocoder=False)
+    return {name: {k: _flax_init_(torch.empty(v.shape), k, generator)
+                   for k, v in mod.state_dict().items()}
+            for name, mod in mods.items()}
+
+
 def random_params(cfg: MainConfig, seed: int) -> dict:
     """A checkpoint dict at `cfg`'s full widths drawn from
     numpy.random.default_rng(seed): one state dict per module (the unit
