@@ -65,6 +65,22 @@ share under torch.profiler and the peak memory; and the trained
 checkpoint served by `cli inference --checkpoint --spk-emb` on the serving
 defaults and on the plain path (exact launches), its mels on the kernel
 paths held to the plain paths' as the adapt phase holds them.
+Then STEP2 (`cli train-step2`'s path): a second 32-utterance corpus tree
+(texts beside the wavs) through `cli make-filelist --corpus generic`,
+`preprocess-mel-stats`, `preprocess-spk-embs` and `preprocess-units
+--device cuda` with the frontends phase's full-width SSL models, `cli
+train-step2` against the trained STEP1 decoder for 2 epochs and a resumed
+third (no kernel launched), whole steps under torch.profiler, the decoder
+bit-unchanged and outside the optimizer, a small f32 STEP2 step on the card
+against the CPU's, and the trained unit encoder served through `cli
+finetune --unit-encoder` and the adapted decoder through `cli inference`
+(exact launches, the adapt phase's bounds). Then BigVGAN's GAN training:
+`cli train-vocoder` at the published 22 kHz widths with the full MPD and
+MRD (batch 16 x 8192 samples), 4 steps and 2 more after --resume (no
+kernel launched), whole steps under torch.profiler, a small f32 GAN step
+on the card against the CPU's, and the trained generator served by `cli
+inference --vocoder` on K5 / K6 (exact launches) and held to the plain
+vocoder within compare_paths' vocoder bound.
 Last, the paths of the kernels that no request runs, the port's four tools
 at full size (unitspeech_tpu_torch/tools): the kernel benchmark with
 --int8 --deep (the in-kernel int8 blocks K10a, K10b), the transcendental
@@ -1160,26 +1176,9 @@ def adapt(torch, dev, tmp, ckpt_path, per_call, smi):
     if losses.shape != (ADAPT_ITERS,) or not np.isfinite(losses).all():
         raise AssertionError(f"fine-tune losses not all finite: {losses}")
 
-    served_launches = {}
-    for name, extra, want in (
-            ("kernels", [], {k: STEPS * per_call["int8"][k] if k in ESTIMATOR_KERNELS
-                             else per_call["int8"][k] if k in VOCODER_KERNELS else 0
-                             for k in KERNELS}),
-            ("plain", ["--no-fast-kernels"], {k: 0 for k in KERNELS})):
-        out = os.path.join(tmp, f"adapted_{name}.wav")
-        res = _counted(f"adapted decoder, {name}", lambda: cli.main_inference(
-            ["--ipa", "--text", FORCED_TEXT, "--checkpoint", ckpt_path, "--decoder",
-             stats["output"], "--output", out, "--device", "cuda", "--seed", "0",
-             "--diffusion-steps", str(STEPS), "--text-gradient-scale", "1.0",
-             "--spk-gradient-scale", "1.0", "--frames", str(FRAMES), *extra]), want)
-        with wave.open(out, "rb") as w:
-            n = w.getnframes()
-            pcm = np.frombuffer(w.readframes(n), np.int16)
-        if n != FRAMES * cfg.data.hop_length or not np.any(pcm):
-            raise AssertionError(f"adapted {name} request: {n} samples")
-        print(f"  adapted decoder served ({name}): wall {res['wall_s']:.3f} s, "
-              f"RTF {res['rtf']:.4f}", flush=True)
-        served_launches[name] = want
+    served_launches = _served_request(torch, cli, "adapted decoder served",
+                                      ["--checkpoint", ckpt_path, "--decoder", stats["output"]],
+                                      per_call, os.path.join(tmp, "adapted"), cfg.data.hop_length)
 
     bundle = artifacts.load_decoder_bundle(stats["output"], cfg.decoder)
     paths = compare_paths(torch, dev, dict(ckpt, decoder=bundle.state_dict,
@@ -1963,7 +1962,6 @@ def train(torch, dev, tmp, ckpt_path, per_call, smi):
     from unitspeech_tpu_torch.ops import mas
     from unitspeech_tpu_torch.tools import step_check, synthetic_corpus
     from unitspeech_tpu_torch.utils import artifacts, checkpoint
-    from unitspeech_tpu_torch.utils.precision import strict_f32
 
     t_phase = time.perf_counter()
     d = os.path.join(tmp, "train")
@@ -2052,28 +2050,12 @@ def train(torch, dev, tmp, ckpt_path, per_call, smi):
     raw = next(iterate_batches(loop.dataset, loop.collator, TRAIN_BATCH,
                                key=np.random.default_rng(cfg.train.seed)))
     gen = torch.Generator(device=dev).manual_seed(0)
-    walls = []
-
-    def one_step():
-        t = time.perf_counter()
-        loop.step_once(raw, gen)
-        walls.append(time.perf_counter() - t)
-
-    with strict_f32():
-        act = kernel_breakdown.device_activity(one_step, PROFILED_STEPS)
-    wall_ms = float(np.mean(walls[-PROFILED_STEPS:])) * 1e3
-    ms_step = float(np.median(runs["train"]["step_seconds"][1:]
-                              + resumed["step_seconds"][1:])) * 1e3
-    prof = {"ms_per_step": ms_step, "profiled_wall_ms": wall_ms, "device_ms": act["busy_ms"],
-            "launches": act["launches"], "idle_share": 1.0 - act["busy_ms"] / wall_ms,
-            "peak_bytes": peak}
-    print(f"  STEP1 step at full width (batch {TRAIN_BATCH}): {ms_step:.1f} ms a step (median "
-          f"after each run's first, host clock); under torch.profiler, a whole loop step "
-          f"(mean of {PROFILED_STEPS}: batch to the card and mel frontend, train_step, metrics "
-          f"to the host) {wall_ms:.1f} ms on the host clock, device busy "
-          f"{act['busy_ms']:.2f} ms in {act['launches']:.0f} launches, idle share "
-          f"{prof['idle_share']:.3f}; peak memory {peak / 2 ** 30:.2f} GiB "
-          f"(max_memory_allocated over the two runs); {smi}", flush=True)
+    prof = _profiled_steps(torch, lambda: loop.step_once(raw, gen), peak,
+                           f"STEP1 step at full width (batch {TRAIN_BATCH})", smi)
+    prof["ms_per_step"] = float(np.median(runs["train"]["step_seconds"][1:]
+                                          + resumed["step_seconds"][1:])) * 1e3
+    print(f"  {prof['ms_per_step']:.1f} ms a STEP1 step (median after each run's first, host "
+          f"clock); {smi}", flush=True)
     del loop, raw
 
     # M1 at the run's batch shapes, against its plain version; one record a
@@ -2116,25 +2098,9 @@ def train(torch, dev, tmp, ckpt_path, per_call, smi):
     with np.load(corp["spk_embs"]) as z:
         np.save(spk, z["0"])
     step3 = resumed["checkpoint"]
-    served = {}
-    for name, extra, want in (
-            ("kernels", [], {k: STEPS * per_call["int8"][k] if k in ESTIMATOR_KERNELS
-                             else per_call["int8"][k] if k in VOCODER_KERNELS else 0
-                             for k in KERNELS}),
-            ("plain", ["--no-fast-kernels"], {k: 0 for k in KERNELS})):
-        out = os.path.join(d, f"trained_{name}.wav")
-        res = _counted(f"trained checkpoint, {name}", lambda: cli.main_inference(
-            ["--ipa", "--text", FORCED_TEXT, "--checkpoint", step3, "--vocoder", ckpt_path,
-             "--spk-emb", spk, "--output", out, "--device", "cuda", "--seed", "0",
-             "--diffusion-steps", str(STEPS), "--text-gradient-scale", "1.0",
-             "--spk-gradient-scale", "1.0", "--frames", str(FRAMES), *extra]), want)
-        with wave.open(out, "rb") as w:
-            n = w.getnframes()
-            pcm = np.frombuffer(w.readframes(n), np.int16)
-        if n != FRAMES * cfg.data.hop_length or not np.any(pcm):
-            raise AssertionError(f"trained {name} request: {n} samples")
-        print(f"  trained checkpoint served ({name}): wall {res['wall_s']:.3f} s", flush=True)
-        served[name] = want
+    served = _served_request(torch, cli, "trained checkpoint served",
+                             ["--checkpoint", step3, "--vocoder", ckpt_path, "--spk-emb", spk],
+                             per_call, os.path.join(d, "trained"), cfg.data.hop_length)
     trained = artifacts.read(step3)
     paths = compare_paths(torch, dev, dict(artifacts.read(ckpt_path), **{
         k: trained[k] for k in ("text_encoder", "duration_predictor", "decoder", "mel_min",
@@ -2144,7 +2110,320 @@ def train(torch, dev, tmp, ckpt_path, per_call, smi):
     res = {"runs": runs, "profile": prof, "step_check": check, "paths": paths,
            "phase_s": time.perf_counter() - t_phase}
     print(f"train phase: {res['phase_s']:.1f} s", flush=True)
-    return res, m1, served["kernels"], train_launches
+    return res, m1, served, train_launches
+
+
+# The STEP2 phase (after train): a corpus tree made from a seed at 22.05 kHz
+# (TRAIN_UTTS utterances, TRAIN_SPEAKERS speakers, texts beside the wavs),
+# its filelist by `cli make-filelist --corpus generic`, the speaker
+# embeddings and units by the SSL models the frontends phase wrote, then
+# `cli train-step2` against the train phase's STEP1 decoder, 2 epochs and 1
+# resumed, and the trained unit encoder served through `cli finetune`
+TRAIN2_SEED, TRAIN2_FT_ITERS = 60, 20
+
+
+def _served_request(torch, cli, what, args, per_call, out, hop):
+    """One forced 344-frame request through `cli inference` on the serving
+    defaults and one with --no-fast-kernels, each with exactly the launches
+    of its path (one estimator call a step and one vocoder call, or none).
+    Returns the defaults' launches."""
+    served = {}
+    for name, extra, want in (
+            ("kernels", [], {k: STEPS * per_call["int8"][k] if k in ESTIMATOR_KERNELS
+                             else per_call["int8"][k] if k in VOCODER_KERNELS else 0
+                             for k in KERNELS}),
+            ("plain", ["--no-fast-kernels"], {k: 0 for k in KERNELS})):
+        path = f"{out}_{name}.wav"
+        res = _counted(f"{what}, {name}", lambda: cli.main_inference(
+            ["--ipa", "--text", FORCED_TEXT, *args, "--output", path, "--device", "cuda",
+             "--seed", "0", "--diffusion-steps", str(STEPS), "--text-gradient-scale", "1.0",
+             "--spk-gradient-scale", "1.0", "--frames", str(FRAMES), *extra]), want)
+        with wave.open(path, "rb") as w:
+            n = w.getnframes()
+            pcm = np.frombuffer(w.readframes(n), np.int16)
+        if n != FRAMES * hop or not np.any(pcm):
+            raise AssertionError(f"{what} ({name}): {n} samples")
+        print(f"  {what} ({name}): wall {res['wall_s']:.3f} s", flush=True)
+        served[name] = want
+    return served["kernels"]
+
+
+def _profiled_steps(torch, step, peak, what, smi):
+    """Whole loop steps `step()` (each ending on the host) under
+    torch.profiler: the host-clock wall of the same profiled calls, the
+    device's busy time and launches a step, the idle share, with the
+    peak memory of the run before."""
+    from unitspeech_tpu_torch.utils.precision import strict_f32
+
+    walls = []
+
+    def one_step():
+        t = time.perf_counter()
+        step()
+        walls.append(time.perf_counter() - t)
+
+    with strict_f32():
+        act = kernel_breakdown.device_activity(one_step, PROFILED_STEPS)
+    wall_ms = float(np.mean(walls[-PROFILED_STEPS:])) * 1e3
+    prof = {"profiled_wall_ms": wall_ms, "device_ms": act["busy_ms"],
+            "launches": act["launches"], "idle_share": 1.0 - act["busy_ms"] / wall_ms,
+            "peak_bytes": peak}
+    print(f"  {what}: under torch.profiler, a whole loop step (mean of {PROFILED_STEPS}) "
+          f"{wall_ms:.1f} ms on the host clock, device busy {act['busy_ms']:.2f} ms in "
+          f"{act['launches']:.0f} launches, idle share {prof['idle_share']:.3f}; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated over the training runs); {smi}",
+          flush=True)
+    return prof
+
+
+def train2(torch, dev, tmp, ckpt_path, step1_ckpt, per_call, smi):
+    """STEP2 and the unit-side preprocessors on the card through the CLIs at
+    full width: `cli make-filelist`, `preprocess-mel-stats`,
+    `preprocess-spk-embs` and `preprocess-units --device cuda` (WavLM-Large
+    + ECAPA, mHuBERT-base and the 1000 centroids the frontends phase
+    converted), `cli train-step2` for 2 epochs and `--resume` for a third
+    against the STEP1 checkpoint's decoder (batch TRAIN_BATCH, no kernel
+    launched: the plain decoder, frozen), every loss finite; whole loop
+    steps under torch.profiler from the resumed state, after which every
+    decoder parameter equals the STEP1 checkpoint's bit for bit and the
+    optimizer holds none of them; then the trained unit encoder served:
+    `cli finetune --unit-encoder <STEP2 checkpoint>` on a corpus wav with its
+    sidecar units, the adapted decoder through `cli inference` on the
+    serving defaults and on the plain path (exact launches), and its mels
+    held to the plain paths' as the adapt phase holds them. Returns the
+    measurements, the corpus filelist and the served request's launches."""
+    from unitspeech_tpu_torch import cli
+    from unitspeech_tpu_torch.config import MainConfig
+    from unitspeech_tpu_torch.data.dataset import iterate_batches, parse_filelist
+    from unitspeech_tpu_torch.tools import step_check, synthetic_corpus
+    from unitspeech_tpu_torch.utils import artifacts, checkpoint
+
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "train2")
+    base = MainConfig()
+    cfg = dataclasses.replace(base, train=dataclasses.replace(base.train, save_every=1))
+    os.makedirs(d)
+    cfg_path = os.path.join(d, "train2.json")
+    with open(cfg_path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f)
+    texts = _ipa_sentences(np.random.default_rng(TRAIN2_SEED), TRAIN_UTTS, 4, 10)
+    root = os.path.join(d, "corpus")
+    synthetic_corpus(root, cfg, texts, TRAIN_SPEAKERS, TRAIN_SECONDS, seed=TRAIN2_SEED)
+    dev_flags = ["--config", cfg_path, "--device", "cuda"]
+    none = {k: 0 for k in KERNELS}
+    t0 = time.perf_counter()
+    _counted("cli make-filelist", lambda: cli.main(
+        ["make-filelist", "--corpus", "generic", "--root", root, "--out-dir",
+         os.path.join(d, "lists"), "--valid", "0", "--test", "0"]), none)
+    fl = os.path.join(d, "lists", "train.txt")
+    rows = parse_filelist(fl)
+    ms, spk = os.path.join(d, "mel_stats.npz"), os.path.join(d, "spk_embs.npz")
+    cli.main(["preprocess-mel-stats", "--filelist", fl, "--out", ms, *dev_flags])
+    fe = os.path.join(tmp, "frontends")
+    embs = _counted("cli preprocess-spk-embs", lambda: cli.main_preprocess_spk_embs(
+        ["--filelist", fl, "--speaker-embedder", os.path.join(fe, "port_speaker-embedder.pt"),
+         "--out", spk, *dev_flags]), none)
+    n_units = _counted("cli preprocess-units", lambda: cli.main_preprocess_units(
+        ["--filelist", fl, "--hubert", os.path.join(fe, "port_hubert.pt"), "--kmeans",
+         os.path.join(fe, "port_kmeans.npz"), *dev_flags]), none)
+    prep_s = time.perf_counter() - t0
+    units = [np.load(r[0].rsplit(".", 1)[0] + ".units.npz")["units"] for r in rows]
+    if (len(rows) != TRAIN_UTTS or sorted(embs) != list(range(TRAIN_SPEAKERS))
+            or n_units != TRAIN_UTTS or not all(np.isfinite(v).all() for v in embs.values())
+            or min(len(u) for u in units) < 10):
+        raise AssertionError(f"train2 preprocessing: {len(rows)} rows, speakers {sorted(embs)},"
+                             f" {n_units} unit sidecars")
+    print(f"train2: make-filelist, mel stats, {len(embs)} speaker embeddings (WavLM-Large + "
+          f"ECAPA, exact lengths) and {n_units} unit sidecars (mHuBERT-base + k-means, "
+          f"{min(len(u) for u in units)}-{max(len(u) for u in units)} units) in {prep_s:.1f} s",
+          flush=True)
+
+    ck = os.path.join(d, "ckpt")
+    flags = ["--filelist", fl, "--spk-embs", spk, "--mel-stats", ms, "--decoder", step1_ckpt,
+             "--checkpoint-dir", ck, "--log-dir", os.path.join(d, "log"), "--batch-size",
+             str(TRAIN_BATCH), *dev_flags]
+    per_epoch = TRAIN_UTTS // TRAIN_BATCH
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = {}
+    for name, extra, epochs in (("train2", [], 2), ("train2_resume", ["--resume"], 3)):
+        res = _counted(f"cli train-step2{' --resume' if extra else ''}",
+                       lambda: cli.main_train_step2(flags + ["--n-epochs", str(epochs), *extra]),
+                       none)
+        losses = np.array([[m[k] for k in ("prior_loss", "diff_loss")] for m in res["metrics"]])
+        steps = per_epoch * (1 if extra else epochs)
+        print(f"  {name}: epochs {res['start_epoch']}..{epochs - 1} from step "
+              f"{res['first_step']}, {res['steps']} steps, {res['ms_per_step']:.1f} ms a step "
+              "after the first (host clock, each step's metrics on the host); prior / diff "
+              "losses " + " ".join("/".join(f"{x:.4f}" for x in r) for r in losses)
+              + f"; {smi}", flush=True)
+        if not np.isfinite(losses).all() or len(losses) != steps:
+            raise AssertionError(f"{name}: losses {losses}")
+        runs[name] = {k: v for k, v in res.items() if k != "metrics"}
+        runs[name]["losses"] = losses.tolist()
+    peak = torch.cuda.max_memory_allocated(dev)
+    resumed = runs["train2_resume"]
+    tree = checkpoint.load_checkpoint(resumed["checkpoint"])
+    if (resumed["start_epoch"], resumed["first_step"], resumed["steps"]) != (
+            2, 2 * per_epoch, 3 * per_epoch) or not resumed["checkpoint"].endswith("step_3") \
+            or "decoder" in tree or "unit_encoder" not in tree:
+        raise AssertionError(f"train2 resume: {resumed}, checkpoint keys {sorted(tree)}")
+
+    # whole loop steps from the resumed state; the frozen decoder after them
+    args = cli.step2_parser().parse_args(flags)
+    _, loop, decoder = cli.build_step2(args)
+    loop.resume()
+    raw = next(iterate_batches(loop.dataset, loop.collator, TRAIN_BATCH,
+                               key=np.random.default_rng(cfg.train.seed)))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    prof = _profiled_steps(torch, lambda: loop.step_once(raw, gen), peak,
+                           f"STEP2 step at full width (batch {TRAIN_BATCH})", smi)
+    prof["ms_per_step"] = float(np.median(runs["train2"]["step_seconds"][1:]
+                                          + resumed["step_seconds"][1:])) * 1e3
+    step1 = artifacts.load_decoder_bundle(step1_ckpt, cfg.decoder).state_dict
+    moved = [k for k, v in decoder.state_dict().items() if not torch.equal(v.cpu(), step1[k])]
+    held = {id(p) for g in loop.optimizer.param_groups for p in g["params"]}
+    in_opt = sum(id(p) in held for p in decoder.parameters())
+    grads = sum(p.grad is not None or p.requires_grad for p in decoder.parameters())
+    print(f"  {prof['ms_per_step']:.1f} ms a STEP2 step (median after each run's first, host "
+          f"clock); frozen decoder after {loop.step} steps: {len(moved)} of "
+          f"{len(step1)} parameters moved, {in_opt} in the optimizer, {grads} with a gradient "
+          f"or requiring one; {smi}", flush=True)
+    if moved or in_opt or grads:
+        raise AssertionError(f"frozen decoder: moved {moved[:5]}, {in_opt} in the optimizer, "
+                             f"{grads} gradients")
+    del loop, decoder, raw
+    check = step_check.card_vs_cpu_step2(dev)
+    print(f"  small f32 STEP2 step, card vs CPU (strict f32, cuDNN deterministic, the same "
+          f"draws): largest relative difference of the losses and the gradient norm "
+          f"{check['max_rel']:.3e} (bound {check['bound']:.0e})", flush=True)
+
+    # the STEP2 unit encoder through `cli finetune`, the adapted decoder served
+    wav, _, spk_id = rows[0]
+    spk_npy = os.path.join(d, "spk.npy")
+    np.save(spk_npy, embs[int(spk_id)])
+    ft = _counted("cli finetune --unit-encoder <STEP2 checkpoint>", lambda: cli.main_finetune(
+        ["--reference", wav, "--decoder", step1_ckpt, "--unit-encoder", resumed["checkpoint"],
+         "--units", wav.rsplit(".", 1)[0] + ".units.npz", "--spk-emb", spk_npy, "--output-dir",
+         os.path.join(d, "adapted"), "--n-iters", str(TRAIN2_FT_ITERS), "--seed", "0",
+         "--device", "cuda"]), none)
+    losses = np.asarray(ft["losses"])
+    print(f"  cli finetune with the STEP2 unit encoder: {ft['units']} units, losses "
+          + " ".join(f"{x:.4f}" for x in losses), flush=True)
+    if losses.shape != (TRAIN2_FT_ITERS,) or not np.isfinite(losses).all():
+        raise AssertionError(f"STEP2 fine-tune losses: {losses}")
+    served = _served_request(torch, cli, "STEP2-adapted decoder served",
+                             ["--checkpoint", ckpt_path, "--decoder", ft["output"]], per_call,
+                             os.path.join(d, "adapted"), cfg.data.hop_length)
+    bundle = artifacts.load_decoder_bundle(ft["output"], cfg.decoder)
+    paths = compare_paths(torch, dev, dict(artifacts.read(ckpt_path), decoder=bundle.state_dict,
+                                           spk_emb=bundle.spk_emb),
+                          per_call, runs=ADAPT_RUNS, vocoder=False, what="STEP2-adapted ")
+    torch.cuda.empty_cache()
+    res = {"runs": runs, "profile": prof, "step_check": check, "paths": paths,
+           "preprocess_s": prep_s,
+           "finetune": {k: v for k, v in ft.items() if k != "losses"}, "card": smi,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"train2 phase: {res['phase_s']:.1f} s", flush=True)
+    return res, fl, served
+
+
+# The GAN phase (after train2): `cli train-vocoder` at the published BigVGAN
+# 22 kHz widths with the full MPD and MRD on the train2 corpus, GAN_STEPS
+# steps and GAN_RESUMED more after --resume, at JAX's segment and batch
+GAN_STEPS, GAN_RESUMED, GAN_SEGMENT, GAN_BATCH = 6, 2, 8192, 16
+
+
+def vocoder_gan(torch, dev, tmp, ckpt_path, filelist, per_call, smi):
+    """BigVGAN's GAN training on the card through `cli train-vocoder`
+    (GAN_STEPS steps saving at the last, then --resume to GAN_STEPS +
+    GAN_RESUMED; no kernel launched: the generator trains on its plain
+    path), every metric finite; whole steps under torch.profiler from the
+    saved state; then the trained generator served by `cli inference
+    --vocoder` on the serving defaults (K5 / K6, exact launches) and on the
+    plain path, and held to the plain vocoder as compare_paths holds the
+    kernel vocoder (VOC_RATIO). Returns the measurements and the served
+    request's launches."""
+    from unitspeech_tpu_torch import cli
+    from unitspeech_tpu_torch.config import MainConfig
+    from unitspeech_tpu_torch.data.dataset import parse_filelist
+    from unitspeech_tpu_torch.tools import step_check
+    from unitspeech_tpu_torch.train.vocoder_loop import (
+        GanTrainer,
+        SegmentSampler,
+        VocoderTrainConfig,
+    )
+    from unitspeech_tpu_torch.utils import artifacts, checkpoint
+    from unitspeech_tpu_torch.utils.audio import load_wav
+
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "vocoder_gan")
+    os.makedirs(d)
+    cfg = MainConfig()
+    ck = os.path.join(d, "ckpt")
+    flags = ["--filelist", filelist, "--batch-size", str(GAN_BATCH), "--segment-size",
+             str(GAN_SEGMENT), "--checkpoint-dir", ck, "--save-every", str(GAN_STEPS),
+             "--device", "cuda"]
+    none = {k: 0 for k in KERNELS}
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = {}
+    for name, extra, steps in (("gan", [], GAN_STEPS),
+                               ("gan_resume", ["--resume"], GAN_STEPS + GAN_RESUMED)):
+        res = _counted(f"cli train-vocoder{' --resume' if extra else ''}",
+                       lambda: cli.main_train_vocoder(flags + ["--steps", str(steps), *extra]),
+                       none)
+        m = res["final_metrics"]
+        print(f"  {name}: to step {res['steps']} in {res['seconds']:.1f} s (modules built and "
+              "initialized, or restored, included); last step: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in m.items()) + f"; {smi}", flush=True)
+        if res["steps"] != steps or set(m) == {"already_complete", "restored_step"} or not all(
+                np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{name}: {res}")
+        runs[name] = res
+    peak = torch.cuda.max_memory_allocated(dev)
+    saved = checkpoint.latest_checkpoint(ck)
+    if not saved.endswith(f"step_{GAN_STEPS + GAN_RESUMED}") or sorted(os.listdir(ck)) != sorted(
+            [f"step_{GAN_STEPS}", f"step_{GAN_STEPS + GAN_RESUMED}"]):
+        raise AssertionError(f"GAN checkpoints: {os.listdir(ck)}")
+
+    tcfg = VocoderTrainConfig(segment_size=GAN_SEGMENT, batch_size=GAN_BATCH)
+    wavs = [load_wav(r[0])[0] for r in parse_filelist(filelist)]
+    trainer = GanTrainer(cfg, tcfg, len(wavs), dev, checkpoint.load_checkpoint(saved))
+    sampler = SegmentSampler(wavs, GAN_SEGMENT, GAN_BATCH, tcfg.seed)
+
+    def step():
+        metrics = trainer.train_step(torch.from_numpy(sampler.next()).to(dev))
+        torch.stack(list(metrics.values())).tolist()
+
+    prof = _profiled_steps(torch, step, peak, f"GAN step at the published widths (batch "
+                           f"{GAN_BATCH} x {GAN_SEGMENT} samples, full MPD and MRD)", smi)
+    # the host clock between the CLI runs' step ends, unprofiled (the
+    # profiled wall above is for the idle share alone)
+    prof["ms_per_step"] = float(np.median(runs["gan"]["step_seconds"]
+                                          + runs["gan_resume"]["step_seconds"])) * 1e3
+    print(f"  {prof['ms_per_step']:.1f} ms a GAN step (median of the intervals between step "
+          f"ends in the two CLI runs, each run's first step excluded, host clock); {smi}",
+          flush=True)
+    del trainer
+    check = step_check.card_vs_cpu_gan(dev)
+    print(f"  small f32 GAN step, card vs CPU (strict f32, cuDNN deterministic): largest "
+          f"relative difference of the losses and the discriminator's gradient norm "
+          f"{check['max_rel']:.3e} (bound {check['bound']:.0e}), the generator's gradient "
+          f"norm {check['rel']['gen_grad_norm']:.3e} (bound "
+          f"{check['bounds']['gen_grad_norm']:.0e})", flush=True)
+
+    served = _served_request(torch, cli, "trained generator served",
+                             ["--checkpoint", ckpt_path, "--vocoder", saved], per_call,
+                             os.path.join(d, "trained"), cfg.data.hop_length)
+    plain = [r for r in RUNS if r[0] in ("plain", "plain_f32")]
+    paths = compare_paths(torch, dev, dict(artifacts.read(ckpt_path),
+                                           vocoder=artifacts.load_vocoder_params(saved,
+                                                                                 cfg.vocoder)),
+                          per_call, runs=plain, what="trained generator: ")
+    torch.cuda.empty_cache()
+    res = {"runs": runs, "profile": prof, "step_check": check, "paths": paths, "card": smi,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"vocoder_gan phase: {res['phase_s']:.1f} s", flush=True)
+    return res, served
 
 
 def run_tools():
@@ -2273,8 +2552,12 @@ def main(argv=None) -> int:
         served = serving(torch, dev, tmp, ckpt, per_call, smi)
         trained, m1, launches["trained"], launches["train"] = train(torch, dev, tmp, ckpt,
                                                                    per_call, smi)
+        step1_ckpt = trained["runs"]["train_resume"]["checkpoint"]
+        trained2, corpus, launches["step2_adapted"] = train2(torch, dev, tmp, ckpt, step1_ckpt,
+                                                             per_call, smi)
+        gan, launches["gan_served"] = vocoder_gan(torch, dev, tmp, ckpt, corpus, per_call, smi)
     records += m1
-    launches["adapted"] = adapted_launches["kernels"]
+    launches["adapted"] = adapted_launches
     tool_launches, tools = run_tools()
     launches.update(tool_launches)
 
@@ -2284,7 +2567,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "records": records, "paths": paths, "adapt": adapted,
                        "frontends": front, "voice": voice, "serving": served,
-                       "train": trained,
+                       "train": trained, "train2": trained2, "vocoder_gan": gan,
                        "kernels": kernels,
                        "launches": launches, "tools": tools, "breakdown": breakdown}, f,
                       indent=1)
@@ -2294,6 +2577,8 @@ def main(argv=None) -> int:
     print(json.dumps({"voice": voice}))
     print(json.dumps({"serving": served}))
     print(json.dumps({"train": {k: v for k, v in trained.items() if k != "runs"}}))
+    print(json.dumps({"train2": {k: v for k, v in trained2.items() if k != "runs"}}))
+    print(json.dumps({"vocoder_gan": {k: v for k, v in gan.items() if k != "runs"}}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -31,6 +31,10 @@ import torch
 from unitspeech_tpu_torch.models import vocoder as tvoc
 from unitspeech_tpu_torch.ops import aa_snake
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 ATOL, RTOL = 2e-5, 1e-4
 KC = 64
 AA_TT, AA_CB = 64, 32  # aa_kernel's block: samples x channels

@@ -21,6 +21,10 @@ from unitspeech_tpu.ops.pallas_attention import fused_rezero_attention as j_atte
 from unitspeech_tpu_torch.ops import fused_attention
 from unitspeech_tpu_torch.ops.resample import swizzle128
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 SMS = 132  # the H100's SMs
 H, D = 4, 32
 TILE, P_MAX = 128, 128  # the kernel's token rows a tile, partials a head pair at most

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
+import torch
 
 from unitspeech_tpu.infer import bucket_cost as jbc
 from unitspeech_tpu.infer.calibration import DurationCalibrator as JaxCalibrator
@@ -20,6 +21,10 @@ from unitspeech_tpu_torch.infer import bucket_cost as tbc
 from unitspeech_tpu_torch.infer.calibration import DurationCalibrator
 from unitspeech_tpu_torch.ops.masking import default_frame_buckets
 from unitspeech_tpu_torch.tools import cost_anchors
+
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LADDER = default_frame_buckets(4096)

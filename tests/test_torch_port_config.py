@@ -10,10 +10,15 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from tests.test_torch_port_tts import TINY
 from unitspeech_tpu import config as jcfg
 from unitspeech_tpu_torch import config as tcfg
+
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SECTIONS = [f.name for f in dataclasses.fields(tcfg.MainConfig)]
@@ -65,6 +70,8 @@ class Block(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Block())
+import torch
+torch.set_num_threads(1)
 import chip_smoke  # noqa: F401
 from unitspeech_tpu_torch import cli, measure  # noqa: F401
 from unitspeech_tpu_torch.ops import aa_snake, conv_matmul, fused_attention, fused_resnet
@@ -182,9 +189,88 @@ def test_port_and_chip_smoke_import_nothing_of_jax(tmp_path):
     cfg["train"] = {"save_every": 1}
     (tmp_path / "tiny.json").write_text(json.dumps(cfg))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.run(
         [sys.executable, "-c", BLOCKED_RUN, str(tmp_path / "tiny.json"),
          str(tmp_path / "ckpt.pt"), str(tmp_path / "o.wav")],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "no JAX imported: True" in proc.stdout
+
+
+BLOCKED_TRAIN = r"""
+import importlib.abc, os, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "unitspeech_tpu"):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import torch
+torch.set_num_threads(1)
+from unitspeech_tpu_torch import cli
+from unitspeech_tpu_torch.config import load_json
+from unitspeech_tpu_torch.models import discriminators  # noqa: F401
+from unitspeech_tpu_torch.tools import ssl_reference, synthetic_corpus
+from unitspeech_tpu_torch.train import vocoder_gan, vocoder_loop  # noqa: F401
+
+cfg, d = sys.argv[1:3]
+corp = synthetic_corpus(os.path.join(d, "corpus"), load_json(cfg),
+                        ["həloʊ.", "ðə dɑɡ.", "ðə kwɪk.", "bɹaʊn fɑks."], n_speakers=2,
+                        seconds=(0.6, 0.9), seed=6)
+c = ["--config", cfg, "--device", "cpu"]
+cli.main(["make-filelist", "--corpus", "generic", "--root", os.path.join(d, "corpus"),
+          "--out-dir", os.path.join(d, "lists"), "--valid", "0", "--test", "0"])
+fl = os.path.join(d, "lists", "train.txt")
+assert len(open(fl).read().splitlines()) == 4
+ms, spk = os.path.join(d, "ms.npz"), os.path.join(d, "spk.npz")
+cli.main(["preprocess-mel-stats", "--filelist", fl, "--out", ms, *c])
+ssl = ssl_reference.random_ssl_reference(d, load_json(cfg), seed=3)
+assert len(cli.main_preprocess_spk_embs(["--filelist", fl, "--speaker-embedder",
+                                         ssl["speaker-embedder"], "--out", spk, *c])) == 2
+assert cli.main_preprocess_units(["--filelist", fl, "--hubert", ssl["hubert"], "--kmeans",
+                                  ssl["kmeans"], *c]) == 4
+rand = os.path.join(d, "rand.pt")
+cli.main_make_random_checkpoint(["--config", cfg, "--output", rand])
+res = cli.main_train_step2(["--filelist", fl, "--spk-embs", spk, "--mel-stats", ms,
+                            "--decoder", rand, "--n-epochs", "1", "--batch-size", "2",
+                            "--checkpoint-dir", os.path.join(d, "ck"), "--log-dir",
+                            os.path.join(d, "log"), *c])
+assert res["steps"] == 2, res
+res = cli.main_train_vocoder(["--filelist", fl, "--steps", "1", "--batch-size", "1",
+                              "--segment-size", "2048", *c])
+assert res["steps"] == 1, res
+print("no JAX imported:", not any(m.split(".")[0] in ("jax", "unitspeech_tpu")
+                                  for m in sys.modules))
+"""
+
+
+def test_training_commands_import_nothing_of_jax(tmp_path):
+    """The port's five training-side commands (make-filelist,
+    preprocess-spk-embs, preprocess-units, train-step2, train-vocoder) and
+    their modules, on the CPU at the test widths (the SSL models in the
+    reference's formats from tools/ssl_reference; train-vocoder one step of
+    the full MPD and MRD), with every import of jax, flax or unitspeech_tpu
+    refused; in a process of its own, on one thread."""
+    cfg = json.loads(json.dumps(TINY))
+    cfg["data"] = {"n_feats": 16, "n_fft": 64, "hop_length": 16, "win_length": 64,
+                   "sampling_rate": 1600, "mel_fmax": 800.0}
+    cfg["vocoder"].update(upsample_rates=[4, 4], upsample_kernel_sizes=[8, 8],
+                          sampling_rate=1600)
+    cfg["unit_encoder"] = {"n_vocab": 40, "n_feats": 16, "n_channels": 16,
+                           "filter_channels": 32, "n_layers": 1, "n_heads": 2}
+    cfg["spk_embedder"] = {"sr": 3200, "feat_type": "wavlm_test", "channels": 16,
+                           "spk_emb_dim": 8}
+    cfg["unit_extractor"] = {"sr": 3200, "dense_model_name": "hubert-test", "vocab_size": 40,
+                             "hubert_layer": 2}
+    cfg["train"] = {"save_every": 1, "out_size_second": 1}
+    (tmp_path / "tiny.json").write_text(json.dumps(cfg))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.run([sys.executable, "-c", BLOCKED_TRAIN, str(tmp_path / "tiny.json"),
+                           str(tmp_path)], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=150)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "no JAX imported: True" in proc.stdout

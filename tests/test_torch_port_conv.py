@@ -34,6 +34,10 @@ from unitspeech_tpu_torch.ops import fused_resnet as fr
 from unitspeech_tpu_torch.ops import fused_resnet_deep as frd
 from unitspeech_tpu_torch.ops.conv_matmul import conv3x3_rows, im2col
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 KC = fr.KC
 TILE_ROWS = 128  # rows of the Hopper loop's tile (two warpgroups of 64)
 # the row tile (TT, TF) the card's plan takes at the served grids (T, F),

@@ -37,6 +37,10 @@ from unitspeech_tpu_torch.utils import artifacts
 from unitspeech_tpu_torch.utils import torch_convert as tconv
 from unitspeech_tpu_torch.utils.params import params_from_jax
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 ATOL, RTOL = 2e-5, 1e-4
 
 ENC = dict(n_vocab=40, n_feats=16, n_channels=16, filter_channels=32, n_layers=2, n_heads=2)

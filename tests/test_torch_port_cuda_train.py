@@ -1,8 +1,9 @@
-"""STEP1 training on the card (CUDA only; every test skips without a CUDA
+"""Training on the card (CUDA only; every test skips without a CUDA
 device): kernel M1 (csrc/mas.cu, monotonic alignment search) bit for bit
-against maximum_path_plain, and one f32 STEP1 step on the card against
-the same step on the CPU (tools/step_check.py). Run on a CUDA machine
-beside the other card tests:
+against maximum_path_plain, and one f32 STEP1 step, one STEP2 step and
+one BigVGAN GAN step on the card against the same step on the CPU
+(tools/step_check.py; the STEP2 and GAN steps launch no kernel). Run on a
+CUDA machine beside the other card tests:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py \\
         tests/test_torch_port_cuda_serving.py tests/test_torch_port_cuda_train.py
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from unitspeech_tpu_torch.ops import mas
+from unitspeech_tpu_torch.ops import aa_snake, mas
 from unitspeech_tpu_torch.tools import step_check
 
 
@@ -68,3 +69,35 @@ def test_step1_step_matches_cpu(dev):
     before = mas.maximum_path.launches
     out = step_check.card_vs_cpu(dev)
     assert out["max_rel"] <= step_check.REL and mas.maximum_path.launches == before + 1
+
+
+def _no_kernel(fn):
+    """fn() with no launch of M1, K5 or K6 in it; returns its result."""
+    wrappers = (mas.maximum_path, aa_snake.fused_aa_snake_conv, aa_snake.fused_aa_snake)
+    before = [w.launches for w in wrappers]
+    out = fn()
+    assert [w.launches for w in wrappers] == before
+    return out
+
+
+@pytest.mark.cuda
+def test_step2_step_matches_cpu(dev):
+    """One f32 STEP2 step (the unit encoder against the frozen decoder;
+    strict f32, cuDNN's deterministic algorithms, the same injected
+    draws): the two losses, the total and the gradient norm within 1e-5
+    relative of the CPU's."""
+    out = _no_kernel(lambda: step_check.card_vs_cpu_step2(dev))
+    assert out["max_rel"] <= step_check.REL2 == 1e-5
+
+
+@pytest.mark.cuda
+def test_gan_step_matches_cpu(dev):
+    """One fused f32 GAN step (a narrow generator on its plain path, the
+    full MPD and MRD, 4096-sample segments, AdamW at 1e-4): the seven
+    losses, the generator's read after the discriminators' update, and the
+    discriminator's gradient norm within 1e-5 relative of the CPU's, the
+    generator's gradient norm within 1e-4 (the CPU's own spread between 1
+    and 8 threads is 1.1e-4: tools/step_check.py)."""
+    out = _no_kernel(lambda: step_check.card_vs_cpu_gan(dev))
+    assert out["max_rel"] <= step_check.REL2 == 1e-5
+    assert out["rel"]["gen_grad_norm"] <= step_check.REL == 1e-4

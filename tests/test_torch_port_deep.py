@@ -23,6 +23,10 @@ from unitspeech_tpu_torch.models import unet as tunet
 from unitspeech_tpu_torch.ops import fused_resnet_deep as frd
 from unitspeech_tpu_torch.utils.params import params_from_jax
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 ATOL, RTOL = 2e-5, 1e-4
 
 

@@ -42,6 +42,10 @@ from unitspeech_tpu_torch.train import finetune as tft
 from unitspeech_tpu_torch.train.steps import clip_by_global_norm
 from unitspeech_tpu_torch.utils.params import params_from_jax
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 DEC = dict(n_feats=16, dim=8, dim_mults=(1, 2), groups=4, spk_emb_dim=8)
 UNIT_ENC = dict(n_vocab=50, n_feats=16, n_channels=16, filter_channels=32, n_layers=1,
                 n_heads=2)

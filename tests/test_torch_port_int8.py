@@ -41,6 +41,10 @@ from unitspeech_tpu_torch.models import unet as tunet
 from unitspeech_tpu_torch.ops import conv_matmul, row_stats
 from unitspeech_tpu_torch.utils.params import params_from_jax
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 
 def _rand(rng, *shape, scale=1.0):
     return (rng.standard_normal(shape) * scale).astype(np.float32)

@@ -18,6 +18,10 @@ import torch
 from test_torch_port_conv import pick_tile
 from unitspeech_tpu_torch.ops import fused_resnet_deep as frd
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 KC8 = frd.I8_KC  # int8 channels a chunk: one 128-byte row
 TILE_ROWS = 128
 # (F, T, Cin, Cout): the K9 int8 convs at the 344-frame bucket (conv1 where

@@ -19,6 +19,10 @@ from unitspeech_tpu.ops import pallas_resnet as jpr
 from unitspeech_tpu_torch.ops import fused_resnet as fr
 from unitspeech_tpu_torch.ops import fused_resnet_deep as frd
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.array(a, np.float32))

@@ -19,6 +19,10 @@ from unitspeech_tpu.ops.pallas_stats import _row_stats_pallas
 from unitspeech_tpu.ops.pallas_stats import group_mean_inv as j_group_mean_inv
 from unitspeech_tpu_torch.ops import fused_attention, fused_resnet, row_stats
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 ATOL, RTOL = 2e-5, 1e-4
 
 

@@ -28,6 +28,10 @@ from unitspeech_tpu_torch.models import encoder as tenc
 from unitspeech_tpu_torch.models import unet as tunet
 from unitspeech_tpu_torch.models import vocoder as tvoc
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 ATOL, RTOL = 2e-5, 1e-4
 
 

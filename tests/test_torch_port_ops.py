@@ -23,6 +23,10 @@ from unitspeech_tpu_torch.ops import schedule as tsched
 from unitspeech_tpu_torch.ops import sv56 as tsv56
 from unitspeech_tpu_torch.utils.params import params_from_jax, params_to_jax
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -109,6 +113,8 @@ def test_port_never_imports_jax():
     """Every module of the port imports without pulling jax in."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
         "import unitspeech_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
@@ -117,7 +123,7 @@ def test_port_never_imports_jax():
         "assert not bad, bad\n"
         "print('ok', len(mods))\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

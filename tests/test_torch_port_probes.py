@@ -21,6 +21,10 @@ from unitspeech_tpu_torch.ops import fastmath, probes
 from unitspeech_tpu_torch.ops import fused_resnet as fr
 from unitspeech_tpu_torch.tools import bisect_deep_compile, probe_stride
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 # tools/bench_transcendental.py:51-60, written in jnp
 JNP_BODIES = {
     "mul": lambda x: x * jnp.float32(1.1),

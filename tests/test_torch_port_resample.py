@@ -19,6 +19,10 @@ from unitspeech_tpu.models.unet import Downsample, Upsample
 from unitspeech_tpu.ops import pallas_resample as jrs
 from unitspeech_tpu_torch.ops import resample
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 ATOL, RTOL = 2e-5, 1e-4
 
 

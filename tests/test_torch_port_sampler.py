@@ -26,6 +26,10 @@ from unitspeech_tpu_torch.models import diffusion as tdiff
 from unitspeech_tpu_torch.ops import schedule as tsched
 from unitspeech_tpu_torch.utils.params import params_from_jax
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 DEC = dict(n_feats=16, dim=8, dim_mults=(1, 2), groups=4, spk_emb_dim=8)
 ATOL, RTOL = 1e-5, 1e-4
 GUIDANCE = [(1.0, 1.0), (1.3, 0.0), (0.0, 0.7)]

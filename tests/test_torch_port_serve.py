@@ -55,6 +55,10 @@ from unitspeech_tpu_torch.serve import (
 )
 from unitspeech_tpu_torch.utils.params import random_params
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 WAIT = 60  # seconds: the limit of every single wait
 SEQS = [TOKENS, TOKENS[:7], TOKENS[3:7]]  # 91 / 42 / 47 frames with _voices(3)
 WAV_TOL = 5e-3
@@ -799,6 +803,8 @@ class Block(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Block())
+import torch
+torch.set_num_threads(1)
 from unitspeech_tpu_torch import cli, serve  # noqa: F401
 from unitspeech_tpu_torch.infer import bucket_cost, calibration, tts  # noqa: F401
 from unitspeech_tpu_torch.tools import cost_anchors  # noqa: F401
@@ -834,6 +840,7 @@ def test_cli_serve_dry_run_on_cpu(tmp_path):
             str(tmp_path / "voices.npz"), "--dry-run"]
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.run([sys.executable, "-c", BLOCKED_SERVE, str(tmp_path / "tiny.json"), ckpt,
                            *args, "--device", "cpu"], cwd=root, env=env, capture_output=True,
                           text=True, timeout=WAIT * 3)

@@ -44,6 +44,10 @@ from unitspeech_tpu_torch.models.ssl import transformer as tt
 from unitspeech_tpu_torch.models.ssl import wavlm as tw
 from unitspeech_tpu_torch.utils.params import params_from_jax, params_to_jax
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 ATOL, RTOL = 1e-5, 1e-4
 HUBERT_ATOL = 2e-5
 CONVS = ((8, 10, 5), (8, 3, 2), (8, 2, 2))

@@ -35,6 +35,10 @@ from unitspeech_tpu.ops.pallas_stats import group_mean_inv as j_group_mean_inv
 from unitspeech_tpu_torch.ops import _cuda, fused_resnet, row_stats
 from unitspeech_tpu_torch.ops.conv_matmul import conv3x3_rows
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 F32 = np.float32
 SUMS_REL, FOLD_REL, BF16_REL = 1e-4, 2e-4, 2.0 ** -6
 EPS = 1e-5

@@ -13,6 +13,7 @@ import wave
 
 import numpy as np
 import pytest
+import torch
 
 from tests.test_torch_port_tts import TINY
 from unitspeech_tpu import text as jtext
@@ -23,6 +24,10 @@ from unitspeech_tpu_torch import text as ttext
 from unitspeech_tpu_torch.config import config_from_dict
 from unitspeech_tpu_torch.text import g2p as tg2p
 from unitspeech_tpu_torch.text import g2p_ro as tg2p_ro
+
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
 
 EN = [
     "Hello world, this is a test.",

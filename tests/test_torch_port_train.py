@@ -56,6 +56,10 @@ from unitspeech_tpu_torch.train.loop import TrainLoop
 from unitspeech_tpu_torch.utils import checkpoint as tckpt
 from unitspeech_tpu_torch.utils.params import init_params, params_from_jax
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 N_FEATS, SPK, B, TX, TY, SEG, LR = 16, 8, 4, 8, 24, 16, 1e-3
 TE = dict(n_vocab=40, n_feats=N_FEATS, n_channels=16, filter_channels=32, n_heads=2,
           n_layers=1, kernel_size=3, p_dropout=0.1, window_size=4)

@@ -38,6 +38,10 @@ from unitspeech_tpu_torch.infer import tts as ttts
 from unitspeech_tpu_torch.models.unet import PALLAS_MIN_TOKENS
 from unitspeech_tpu_torch.utils.params import params_from_jax
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 TINY = dict(
     data=dict(n_feats=16, hop_length=4),
     text_encoder=dict(n_vocab=40, n_feats=16, n_channels=16, filter_channels=32, n_layers=1,

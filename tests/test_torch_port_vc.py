@@ -42,6 +42,10 @@ from unitspeech_tpu_torch.utils import artifacts
 from unitspeech_tpu_torch.utils.audio import load_wav
 from unitspeech_tpu_torch.utils.params import params_from_jax
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 ATOL, RTOL = 1e-5, 1e-4
 HUBERT_ATOL = 2e-5
 CV_ENC = dict(n_vocab=40, n_feats=16, n_channels=16, filter_channels=32, n_layers=2, n_heads=2,

@@ -31,6 +31,10 @@ from unitspeech_tpu.ops.pallas_kernels import fused_aa_snake_conv as j_aa_snake_
 from unitspeech_tpu_torch.models import vocoder as tvoc
 from unitspeech_tpu_torch.ops import aa_snake
 
+# one intra-op thread: the suite's pytest workers share the CPU's cores, and
+# torch's default of one thread a core oversubscribes them
+torch.set_num_threads(1)
+
 ATOL, RTOL = 2e-5, 1e-4
 
 

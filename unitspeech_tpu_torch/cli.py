@@ -1,6 +1,6 @@
 """Command-line entry points of the port (counterpart of
 unitspeech_tpu/cli.py for the adaptive-TTS, speaker-adaptation,
-voice-conversion and serving slices and the SSL frontends).
+voice-conversion, serving and training slices and the SSL frontends).
 
     python -m unitspeech_tpu_torch.cli make-random-checkpoint --seed 0 --output ckpt.pt
     python -m unitspeech_tpu_torch.cli inference --text "Hello." [--language en-us] \\
@@ -19,13 +19,23 @@ voice-conversion and serving slices and the SSL frontends).
         --mel-stats mel_stats.npz --spk-embs spk_embs.npz --out uncond_stats.npz
     python -m unitspeech_tpu_torch.cli train-step1 --filelist train.txt --spk-embs spk_embs.npz \
         --mel-stats mel_stats.npz --uncond-stats uncond_stats.npz --checkpoint-dir ckpts [--resume]
+    python -m unitspeech_tpu_torch.cli make-filelist --corpus generic --root corpus/ --out-dir lists
+    python -m unitspeech_tpu_torch.cli preprocess-spk-embs --filelist train.txt \
+        --speaker-embedder spk.pt --out spk_embs.npz
+    python -m unitspeech_tpu_torch.cli preprocess-units --filelist train.txt --hubert hubert.pt \
+        --kmeans kmeans.npz
+    python -m unitspeech_tpu_torch.cli train-step2 --filelist train.txt --spk-embs spk_embs.npz \
+        --mel-stats mel_stats.npz --decoder ckpts/step_100 --checkpoint-dir ckpts2 [--resume]
+    python -m unitspeech_tpu_torch.cli train-vocoder --filelist train.txt --checkpoint-dir voc \
+        [--steps 1000] [--resume]
 
 A checkpoint is a `torch.save`d dict: one state dict per module in the
 port's layout, the speaker embedding, the mel min/max and the config
 (utils/artifacts lists the port's formats). Every command runs on the card
 unless `--device cpu` is given; with no CUDA device `--device cuda` exits
-non-zero. f32 means f32: `inference`, `serve`, `finetune` and
-`voice-conversion` (and `train-step1`) run with TF32 off for f32 matmuls and cuDNN convs
+non-zero (`make-filelist` runs on the host). f32 means f32: `inference`,
+`serve`, `finetune`, `voice-conversion`, the SSL preprocessors and the
+three training commands run with TF32 off for f32 matmuls and cuDNN convs
 (utils/precision.strict_f32), and give the caller's settings back when
 they return.
 """
@@ -894,7 +904,7 @@ def _filelist_flags(ap):
     ap.add_argument("--max-files", type=int, default=None)
     ap.add_argument("--config", default=None, help="JSON config overlay")
     ap.add_argument("--device", default="cuda",
-                    help="where the mels are computed (the card unless cpu)")
+                    help="where the mels or the SSL models run (the card unless cpu)")
 
 
 def main_preprocess_mel_stats(argv=None) -> dict:
@@ -943,25 +953,84 @@ def main_preprocess_uncond(argv=None) -> dict:
     return {"text_uncond": text_uncond, "spk_uncond": spk_uncond}
 
 
-def step1_parser() -> argparse.ArgumentParser:
-    """`train-step1`'s flags: the JAX CLI's, with --device and --config."""
-    ap = argparse.ArgumentParser("unitspeech-tpu-torch train-step1")
+def _train_parser(name: str, extra) -> argparse.ArgumentParser:
+    """A training command's flags: the JAX CLI's (`extra` adds the step's
+    own), with --config and --device."""
+    ap = argparse.ArgumentParser(f"unitspeech-tpu-torch {name}")
     ap.add_argument("--filelist", required=True)
     ap.add_argument("--spk-embs", required=True, help=".npz of per-speaker embeddings")
     ap.add_argument("--mel-stats", required=True, help=".npz with mel_min/mel_max")
-    ap.add_argument("--uncond-stats", default=None,
-                    help=".npz with text_uncond/spk_uncond (CFG training)")
+    extra(ap)
     ap.add_argument("--log-dir", default=None)
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--n-epochs", type=int, default=None)
     ap.add_argument("--batch-size", type=int, default=None)
-    ap.add_argument("--language", default="en-us",
-                    help="espeak language of the filelist's text; without espeak-ng the "
-                         "text must be pre-phonemized IPA, as in the JAX CLI")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--config", default=None, help="JSON config overlay")
     ap.add_argument("--device", default="cuda")
     return ap
+
+
+def step1_parser() -> argparse.ArgumentParser:
+    """`train-step1`'s flags: the JAX CLI's, with --device and --config."""
+
+    def extra(ap):
+        ap.add_argument("--uncond-stats", default=None,
+                        help=".npz with text_uncond/spk_uncond (CFG training)")
+        ap.add_argument("--language", default="en-us",
+                        help="espeak language of the filelist's text; without espeak-ng the "
+                             "text must be pre-phonemized IPA, as in the JAX CLI")
+
+    return _train_parser("train-step1", extra)
+
+
+def step2_parser() -> argparse.ArgumentParser:
+    """`train-step2`'s flags: the JAX CLI's, with --device and --config."""
+
+    def extra(ap):
+        ap.add_argument("--decoder", required=True,
+                        help="the frozen pretrained decoder: a STEP1 checkpoint, a decoder "
+                             "bundle or a reference .pt")
+
+    return _train_parser("train-step2", extra)
+
+
+def _train_inputs(args):
+    """(device, config, speaker embeddings, mel_min, mel_max) of a training
+    command: the config overlay with --batch-size applied, the mel
+    statistics on the device."""
+    import dataclasses
+
+    import torch
+
+    from unitspeech_tpu_torch.config import MainConfig, load_json
+    from unitspeech_tpu_torch.utils.artifacts import load_speaker_embs
+
+    device = _device(args.device)
+    cfg = load_json(args.config) if args.config else MainConfig()
+    if args.batch_size:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                                 batch_size=args.batch_size))
+    stats = np.load(args.mel_stats)
+    mel_min = torch.from_numpy(stats["mel_min"].reshape(-1)).to(device)
+    mel_max = torch.from_numpy(stats["mel_max"].reshape(-1)).to(device)
+    return device, cfg, load_speaker_embs(args.spk_embs), mel_min, mel_max
+
+
+def _train_loop(args, cfg, device, train_step, modules, optimizer, dataset, spk_embs, mel_min,
+                mel_max):
+    from unitspeech_tpu_torch.data.dataset import BucketCollator
+    from unitspeech_tpu_torch.train.loop import TrainLoop
+
+    tcfg = cfg.train
+    return TrainLoop(cfg=cfg, train_step=train_step, modules=modules, optimizer=optimizer,
+                     dataset=dataset,
+                     collator=BucketCollator(hop_length=cfg.data.hop_length,
+                                             num_downsamplings=cfg.decoder.num_downsamplings),
+                     mel_min=mel_min, mel_max=mel_max, spk_embs=spk_embs,
+                     log_dir=args.log_dir or tcfg.log_dir,
+                     checkpoint_dir=args.checkpoint_dir or tcfg.checkpoint_dir,
+                     save_every=tcfg.save_every, seed=tcfg.seed, device=device)
 
 
 def build_step1(args):
@@ -971,30 +1040,17 @@ def build_step1(args):
     decoder's unconditional embeddings from --uncond-stats), Adam at
     train.learning_rate with per-module clipping, the decoder's activations
     in bf16 when train.use_bf16 (parameters f32), on --device."""
-    import dataclasses
-
     import torch
 
     from unitspeech_tpu_torch import text as text_frontend
-    from unitspeech_tpu_torch.config import MainConfig, load_json
-    from unitspeech_tpu_torch.data.dataset import (
-        BucketCollator,
-        TextMelSpeakerDataset,
-        parse_filelist,
-    )
+    from unitspeech_tpu_torch.data.dataset import TextMelSpeakerDataset, parse_filelist
     from unitspeech_tpu_torch.models.diffusion import UnitSpeech
     from unitspeech_tpu_torch.models.duration import DurationPredictor
     from unitspeech_tpu_torch.models.encoder import Encoder
-    from unitspeech_tpu_torch.train.loop import TrainLoop
     from unitspeech_tpu_torch.train.steps import make_step1_train_step
-    from unitspeech_tpu_torch.utils.artifacts import load_speaker_embs
     from unitspeech_tpu_torch.utils.params import init_params
 
-    device = _device(args.device)
-    cfg = load_json(args.config) if args.config else MainConfig()
-    if args.batch_size:
-        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
-                                                                 batch_size=args.batch_size))
+    device, cfg, spk_embs, mel_min, mel_max = _train_inputs(args)
     tcfg = cfg.train
     ph = text_frontend.get_phonemizer(args.language)
 
@@ -1006,11 +1062,6 @@ def build_step1(args):
     dataset = TextMelSpeakerDataset(parse_filelist(args.filelist), text_to_ids,
                                     hop_length=cfg.data.hop_length,
                                     sampling_rate=cfg.data.sampling_rate)
-    spk_embs = load_speaker_embs(args.spk_embs)
-    stats = np.load(args.mel_stats)
-    mel_min = torch.from_numpy(stats["mel_min"].reshape(-1)).to(device)
-    mel_max = torch.from_numpy(stats["mel_max"].reshape(-1)).to(device)
-
     params = init_params(cfg, torch.Generator().manual_seed(tcfg.seed))
     spk_uncond = None
     if args.uncond_stats:
@@ -1033,26 +1084,57 @@ def build_step1(args):
         spk_dropout=tcfg.spk_dropout,
         clip_norms=(tcfg.grad_clip_encoder, tcfg.grad_clip_duration, tcfg.grad_clip_decoder),
         beta_min=cfg.decoder.beta_min, beta_max=cfg.decoder.beta_max)
-    loop = TrainLoop(cfg=cfg, train_step=train_step, modules=modules, optimizer=optimizer,
-                     dataset=dataset,
-                     collator=BucketCollator(hop_length=cfg.data.hop_length,
-                                             num_downsamplings=cfg.decoder.num_downsamplings),
-                     mel_min=mel_min, mel_max=mel_max, spk_embs=spk_embs,
-                     log_dir=args.log_dir or tcfg.log_dir,
-                     checkpoint_dir=args.checkpoint_dir or tcfg.checkpoint_dir,
-                     save_every=tcfg.save_every, seed=tcfg.seed, device=device)
-    return cfg, loop
+    return cfg, _train_loop(args, cfg, device, train_step, modules, optimizer, dataset, spk_embs,
+                            mel_min, mel_max)
 
 
-@strict_f32()
-def main_train_step1(argv=None) -> dict:
-    """STEP1 training (JAX cli.py main_train_step1; reference
-    train_STEP1.py; see build_step1), MAS on the card (M1), resumable.
-    Returns its statistics: the newest checkpoint, the epoch and step it
-    started from, the steps, each step's metrics and seconds, and the
-    median ms a step after the first."""
-    args = step1_parser().parse_args(argv)
-    cfg, loop = build_step1(args)
+def build_step2(args):
+    """(config, TrainLoop) of `train-step2` from its parsed flags: the unit
+    encoder from flax's initializers (seeded by train.seed), the only
+    trained module, with Adam at train.learning_rate and one clip of 5;
+    the decoder of --decoder frozen in the step (its activations in bf16
+    when train.use_bf16, parameters f32, no kernel: the plain estimator,
+    as JAX builds it), on --device. A checkpoint holds the unit encoder
+    and its Adam state."""
+    import torch
+
+    from unitspeech_tpu_torch.data.dataset import UnitMelSpeakerDataset, parse_filelist
+    from unitspeech_tpu_torch.models.diffusion import UnitSpeech
+    from unitspeech_tpu_torch.models.encoder import Encoder
+    from unitspeech_tpu_torch.train.steps import make_step2_train_step
+    from unitspeech_tpu_torch.utils.artifacts import load_decoder_bundle
+    from unitspeech_tpu_torch.utils.params import init_params
+
+    device, cfg, spk_embs, mel_min, mel_max = _train_inputs(args)
+    tcfg = cfg.train
+    dataset = UnitMelSpeakerDataset(parse_filelist(args.filelist),
+                                    hop_length=cfg.data.hop_length,
+                                    sampling_rate=cfg.data.sampling_rate)
+    params = init_params(cfg, torch.Generator().manual_seed(tcfg.seed), ("unit_encoder",))
+    with device:
+        unit_encoder = Encoder.from_config(cfg.unit_encoder)
+        decoder = UnitSpeech.from_config(
+            cfg.decoder, dtype=torch.bfloat16 if tcfg.use_bf16 else torch.float32)
+    unit_encoder.load_state_dict(params["unit_encoder"])
+    unit_encoder.train()
+    decoder.load_state_dict(load_decoder_bundle(args.decoder, cfg.decoder).state_dict)
+    optimizer = torch.optim.Adam(unit_encoder.parameters(), lr=tcfg.learning_rate,
+                                 betas=(0.9, 0.999), eps=1e-8)
+    train_step = make_step2_train_step(unit_encoder, decoder, optimizer, out_size=cfg.out_size,
+                                       beta_min=cfg.decoder.beta_min,
+                                       beta_max=cfg.decoder.beta_max)
+    loop = _train_loop(args, cfg, device, train_step, {"unit_encoder": unit_encoder}, optimizer,
+                       dataset, spk_embs, mel_min, mel_max)
+    return cfg, loop, decoder
+
+
+def _run_training(args, cfg, loop) -> dict:
+    """Run a TrainLoop (resumed with --resume) for --n-epochs (else the
+    config's); returns and prints its statistics: the newest checkpoint,
+    the epoch and step it started from, the steps, each step's metrics and
+    seconds, and the median ms a step after the first."""
+    from unitspeech_tpu_torch.utils.checkpoint import latest_checkpoint
+
     metrics = []
     loop.step_hook = lambda step, m: metrics.append(m)
     start = loop.resume() if args.resume else 0
@@ -1060,8 +1142,6 @@ def main_train_step1(argv=None) -> dict:
     t0 = time.perf_counter()
     loop.run(args.n_epochs or cfg.train.n_epochs, start)
     wall = time.perf_counter() - t0
-    from unitspeech_tpu_torch.utils.checkpoint import latest_checkpoint
-
     secs = loop.step_seconds
     res = {"checkpoint": latest_checkpoint(loop.checkpoint_dir), "start_epoch": start,
            "first_step": first_step, "steps": loop.step, "seconds": wall,
@@ -1069,6 +1149,226 @@ def main_train_step1(argv=None) -> dict:
            "step_seconds": secs, "metrics": metrics, "device": str(loop.device)}
     print(json.dumps({k: v for k, v in res.items() if k not in ("metrics", "step_seconds")}))
     return res
+
+
+@strict_f32()
+def main_train_step1(argv=None) -> dict:
+    """STEP1 training (JAX cli.py main_train_step1; reference
+    train_STEP1.py; see build_step1), MAS on the card (M1), resumable.
+    Returns its statistics (_run_training)."""
+    args = step1_parser().parse_args(argv)
+    cfg, loop = build_step1(args)
+    return _run_training(args, cfg, loop)
+
+
+@strict_f32()
+def main_train_step2(argv=None) -> dict:
+    """STEP2 training (JAX cli.py main_train_step2; reference
+    train_STEP2.py; see build_step2): the unit encoder against the frozen
+    decoder, resumable. Its checkpoints serve `cli finetune
+    --unit-encoder`. Returns its statistics (_run_training)."""
+    args = step2_parser().parse_args(argv)
+    cfg, loop, _ = build_step2(args)
+    return _run_training(args, cfg, loop)
+
+
+def main_make_filelist(argv=None) -> dict:
+    """`path|text|speaker` train / valid / test filelists from a corpus tree,
+    on the host (JAX cli.py main_make_filelist; the reference ships fixed
+    filelists, resources/filelists): a split seeded by --seed, the files
+    byte-identical to the JAX CLI's.
+
+    Layouts:
+      ljspeech: ROOT/metadata.csv (`id|raw|normalized`), wavs at
+                ROOT/wavs/<id>.wav, one speaker, 0.
+      libritts: ROOT/**/<utt>.wav with <utt>.normalized.txt (or .txt);
+                the speaker is the first path component under ROOT.
+      generic:  ROOT/**/<utt>.wav with <utt>.txt or .lab; the speaker is
+                the parent directory's name.
+    Returns {split: rows}."""
+    import random
+
+    ap = argparse.ArgumentParser("unitspeech-tpu-torch make-filelist")
+    ap.add_argument("--corpus", choices=("ljspeech", "libritts", "generic"), required=True)
+    ap.add_argument("--root", required=True, help="corpus root directory")
+    ap.add_argument("--out-dir", required=True)
+    ap.add_argument("--valid", type=int, default=100,
+                    help="held-out validation utterances (the reference's ljspeech valid.txt "
+                         "has 94)")
+    ap.add_argument("--test", type=int, default=500,
+                    help="held-out test utterances (the reference's test.txt: 487)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--speaker-ids", action="store_true",
+                    help="map speaker names to dense integer ids (multi-speaker training "
+                         "wants int ids; by default generic corpora keep the names)")
+    args = ap.parse_args(argv)
+
+    entries = []  # (path, text, speaker)
+    if args.corpus == "ljspeech":
+        with open(os.path.join(args.root, "metadata.csv"), encoding="utf-8") as fh:
+            for line in fh:
+                parts = line.rstrip("\n").split("|")
+                if len(parts) < 2:
+                    continue
+                entries.append((os.path.join(args.root, "wavs", parts[0] + ".wav"), parts[-1],
+                                "0"))
+    else:
+        for dirpath, _dirnames, filenames in sorted(os.walk(args.root)):
+            for fn in sorted(filenames):
+                if not fn.endswith(".wav"):
+                    continue
+                stem = os.path.join(dirpath, fn[:-4])
+                text = None
+                for ext in (".normalized.txt", ".txt", ".lab"):
+                    if os.path.exists(stem + ext):
+                        with open(stem + ext, encoding="utf-8") as fh:
+                            text = fh.read().strip().replace("|", " ")
+                        break
+                if text is None:
+                    continue
+                if args.corpus == "libritts":
+                    spk = os.path.relpath(dirpath, args.root).split(os.sep)[0]
+                else:
+                    spk = os.path.basename(dirpath)
+                entries.append((stem + ".wav", text, spk))
+    if not entries:
+        raise SystemExit("no utterances found")
+    if args.speaker_ids:
+        ids = {s: i for i, s in enumerate(sorted({e[2] for e in entries}))}
+        entries = [(p, t, str(ids[s])) for p, t, s in entries]
+
+    order = list(range(len(entries)))
+    random.Random(args.seed).shuffle(order)
+    n_valid = min(args.valid, max(0, len(entries) - 1))
+    n_test = min(args.test, max(0, len(entries) - n_valid - 1))
+    splits = {"valid": [entries[i] for i in order[:n_valid]],
+              "test": [entries[i] for i in order[n_valid:n_valid + n_test]],
+              "train": [entries[i] for i in order[n_valid + n_test:]]}
+    os.makedirs(args.out_dir, exist_ok=True)
+    for name, rows in splits.items():
+        out = os.path.join(args.out_dir, f"{name}.txt")
+        with open(out, "w", encoding="utf-8") as fh:
+            for p, t, spk in sorted(rows):
+                fh.write(f"{p}|{t}|{spk}\n")
+        print(f"{out}: {len(rows)} utterances")
+    return splits
+
+
+def main_preprocess_spk_embs(argv=None) -> dict:
+    """Each speaker's mean WavLM + ECAPA embedding over filelists (JAX
+    cli.py main_preprocess_spk_embs; reference process_spkr_embs.py), the
+    checkpoint loaded once. Each wav is embedded at its exact length (the
+    reference's behavior, so that the corpus artifact matches it) unless
+    --bucket-ssl. Returns {speaker id: (S,)}."""
+    from unitspeech_tpu_torch.config import MainConfig, load_json
+    from unitspeech_tpu_torch.preprocess.stats import compute_speaker_embs
+
+    ap = argparse.ArgumentParser("unitspeech-tpu-torch preprocess-spk-embs")
+    _filelist_flags(ap)
+    ap.add_argument("--speaker-embedder", required=True,
+                    help="WavLM + ECAPA: the reference's speaker_encoder.pt or a port file")
+    ap.add_argument("--out", required=True, help="output spk_embs.npz")
+    ap.add_argument("--bucket-ssl", action="store_true",
+                    help="reflect-extend the wavs to the sample-bucket ladder "
+                         f"{DEFAULT_SPK_SAMPLE_BUCKETS} (the fine-tune's); by default each "
+                         "wav is embedded at its exact length, as the reference does")
+    args = ap.parse_args(argv)
+    device = _device(args.device)
+    cfg = load_json(args.config) if args.config else MainConfig()
+    model = load_speaker_embedder(args.speaker_embedder, cfg, device)
+    buckets = DEFAULT_SPK_SAMPLE_BUCKETS if args.bucket_ssl else None
+    means = compute_speaker_embs(
+        args.filelist, lambda wav, sr: embed_speaker(model, wav, sr, cfg, buckets), args.out,
+        args.max_files)
+    print(f"{len(means)} speaker embedding(s) -> {args.out}")
+    return means
+
+
+def main_preprocess_units(argv=None) -> int:
+    """`<stem>.units.npz` {units, durations} beside every wav of filelists
+    through mHuBERT + k-means, each wav resampled to
+    cfg.unit_extractor.sr (JAX cli.py main_preprocess_units; reference
+    process_units.py), the models loaded once. Returns the wav count."""
+    from unitspeech_tpu_torch.config import MainConfig, load_json
+    from unitspeech_tpu_torch.preprocess.stats import extract_units as extract_all
+
+    ap = argparse.ArgumentParser("unitspeech-tpu-torch preprocess-units")
+    _filelist_flags(ap)
+    ap.add_argument("--hubert", required=True,
+                    help="mHuBERT: a fairseq checkpoint or a port file")
+    ap.add_argument("--kmeans", required=True,
+                    help="k-means centroids: .npz, or sklearn's joblib file (needs sklearn)")
+    args = ap.parse_args(argv)
+    device = _device(args.device)
+    cfg = load_json(args.config) if args.config else MainConfig()
+    encoder = build_unit_extractor(args.hubert, args.kmeans, cfg, device)
+    count = extract_all(args.filelist, lambda wav, sr: extract_units(encoder, wav, sr, cfg),
+                        args.max_files)
+    print(f"unit sidecars for {count} wav(s)")
+    return count
+
+
+@strict_f32()
+def main_train_vocoder(argv=None) -> dict:
+    """BigVGAN's GAN training against the full MPD and MRD (JAX cli.py
+    main_train_vocoder; train/vocoder_loop.py), the generator on its plain
+    path; its checkpoints serve `cli inference --vocoder` on K5 / K6.
+    Filelists longer than --preload-limit load each wav per draw. Prints
+    {"final_metrics"}; returns it with the steps run, their wall, each
+    step's seconds (train_vocoder) and their median in ms."""
+    from functools import partial
+
+    from unitspeech_tpu_torch.config import MainConfig, load_json
+    from unitspeech_tpu_torch.data.dataset import parse_filelist
+    from unitspeech_tpu_torch.train.vocoder_loop import VocoderTrainConfig, train_vocoder
+
+    ap = argparse.ArgumentParser("unitspeech-tpu-torch train-vocoder")
+    ap.add_argument("--filelist", required=True, help="wav filelist (path or path|text|spk lines)")
+    ap.add_argument("--steps", type=int, default=1000)
+    ap.add_argument("--batch-size", type=int, default=16)
+    ap.add_argument("--segment-size", type=int, default=8192)
+    ap.add_argument("--lr", type=float, default=2e-4)
+    ap.add_argument("--log-dir", default=None)
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--save-every", type=int, default=500)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--preload-limit", type=int, default=256,
+                    help="filelists longer than this load each wav per draw instead of "
+                         "holding the corpus in host memory")
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--config", default=None, help="JSON config overlay")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    device = _device(args.device)
+    cfg = load_json(args.config) if args.config else MainConfig()
+    rows = parse_filelist(args.filelist)
+
+    def checked_load(path):
+        wav, sr = load_wav(path)
+        if sr != cfg.data.sampling_rate:
+            raise ValueError(f"{path}: {sr} != {cfg.data.sampling_rate}")
+        return wav
+
+    try:
+        if len(rows) > args.preload_limit:
+            # per draw; each file's rate is checked when it is first read
+            wavs = [partial(checked_load, row[0]) for row in rows]
+            checked_load(rows[0][0])  # fail fast on a corpus at the wrong rate
+        else:
+            wavs = [checked_load(row[0]) for row in rows]
+    except ValueError as e:
+        raise SystemExit(str(e))
+    tcfg = VocoderTrainConfig(segment_size=args.segment_size, batch_size=args.batch_size,
+                              learning_rate=args.lr, steps=args.steps, seed=args.seed,
+                              save_every=args.save_every)
+    t0 = time.perf_counter()
+    trainer, metrics, secs = train_vocoder(cfg, wavs, tcfg, log_dir=args.log_dir,
+                                           checkpoint_dir=args.checkpoint_dir,
+                                           resume=args.resume, device=device)
+    print(json.dumps({"final_metrics": metrics}))
+    return {"final_metrics": metrics, "steps": trainer.step, "seconds": time.perf_counter() - t0,
+            "step_seconds": secs, "ms_per_step": float(np.median(secs) * 1e3) if secs else None,
+            "device": str(device)}
 
 
 def main_convert(argv=None) -> int:
@@ -1083,7 +1383,10 @@ def main(argv=None) -> int:
                 "voice-conversion": main_voice_conversion, "convert": main_convert,
                 "make-random-checkpoint": main_make_random_checkpoint,
                 "preprocess-mel-stats": main_preprocess_mel_stats,
-                "preprocess-uncond": main_preprocess_uncond, "train-step1": main_train_step1}
+                "preprocess-uncond": main_preprocess_uncond, "train-step1": main_train_step1,
+                "train-step2": main_train_step2, "make-filelist": main_make_filelist,
+                "preprocess-spk-embs": main_preprocess_spk_embs,
+                "preprocess-units": main_preprocess_units, "train-vocoder": main_train_vocoder}
     if not argv or argv[0] not in commands:
         print(f"usage: python -m unitspeech_tpu_torch.cli {{{','.join(commands)}}} ...",
               file=sys.stderr)

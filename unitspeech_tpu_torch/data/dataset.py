@@ -1,20 +1,25 @@
-"""STEP1's data pipeline (counterpart of unitspeech_tpu/data/dataset.py;
-reference data.py:21-140), numpy on the host:
+"""The training data pipeline (counterpart of unitspeech_tpu/data/dataset.py;
+reference data.py:21-236), numpy on the host:
 
   * `parse_filelist`: `path|text|speaker_id` lines;
-  * `TextMelSpeakerDataset`: items {tokens, wav, spk_id}, the text turned
-    into token IDs once per utterance (cached), the wav read as PCM
+  * `TextMelSpeakerDataset` (STEP1): items {tokens, wav, spk_id}, the text
+    turned into token IDs once per utterance (cached), the wav read as PCM
     (utils/audio.load_wav); the mel is computed on the device by the train
     loop (train/loop.py), not here;
-  * `BucketCollator`: pads a batch to a (token bucket, frame bucket)
-    shape, the frame bucket rounded for the U-Net, the wavs to bucket x hop
-    samples, as the JAX collator does, so that batches take few shapes;
+  * `UnitMelSpeakerDataset` (STEP2): items {units, durations, wav, spk_id},
+    the units and their durations from the `<stem>.units.npz`
+    sidecar that `cli preprocess-units` writes;
+  * `BucketCollator`: pads a batch of either kind to a (token bucket, frame
+    bucket) shape, the frame bucket rounded for the U-Net, the wavs to
+    bucket x hop samples, as the JAX collator does, so that batches take
+    few shapes;
   * `iterate_batches`: one process's epoch iterator (the JAX package's
     per-host sharding is not ported: one device).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -60,6 +65,34 @@ class TextMelSpeakerDataset:
 
 
 @dataclass
+class UnitMelSpeakerDataset:
+    """Filelist-backed dataset for STEP2 (reference data.py:143-236): each
+    wav's units and their durations come from its sidecar
+    `<stem>.units.npz`, whose two arrays must have one length. A wav at
+    another rate than `sampling_rate` raises."""
+
+    filelist: List[List[str]]
+    hop_length: int = 256
+    sampling_rate: int = 22050
+
+    def __len__(self):
+        return len(self.filelist)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        path, _text, spk = (self.filelist[idx] + ["0"])[:3]
+        side = os.path.splitext(path)[0] + ".units.npz"
+        with np.load(side) as z:
+            units, durations = z["units"], z["durations"]
+        if len(units) != len(durations):
+            raise ValueError(f"{side}: {len(units)} units but {len(durations)} durations")
+        wav, sr = load_wav(path)
+        if sr != self.sampling_rate:
+            raise ValueError(f"{path}: {sr} != {self.sampling_rate}")
+        return {"units": units.astype(np.int32), "durations": durations.astype(np.float32),
+                "wav": wav, "spk_id": np.int32(int(spk))}
+
+
+@dataclass
 class BucketCollator:
     """Pads a list of items to a static (token bucket, frame bucket) shape
     (the JAX collator's buckets): the longest token count to the first
@@ -68,7 +101,9 @@ class BucketCollator:
     U-Net (reference data.py:128-140); each wav zero-padded (cut to its
     whole frames) to frames x hop samples, so the mel frontend yields the
     bucket's frames. Returns {tokens, token_lengths, wav, mel_lengths,
-    spk_id}."""
+    spk_id} for text items; for unit items (UnitMelSpeakerDataset) units
+    and unit_lengths in place of the tokens, and the durations zero-padded
+    to the token bucket (f32)."""
 
     hop_length: int = 256
     num_downsamplings: int = 3
@@ -79,7 +114,9 @@ class BucketCollator:
 
     def __call__(self, items: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
         b = len(items)
-        tok_lens = np.array([len(it["tokens"]) for it in items], np.int32)
+        key, lengths = ("tokens", "token_lengths") if "tokens" in items[0] else (
+            "units", "unit_lengths")
+        tok_lens = np.array([len(it[key]) for it in items], np.int32)
         frame_lens = np.array([len(it["wav"]) // self.hop_length for it in items], np.int32)
         t_x = choose_bucket(int(tok_lens.max()), self.token_buckets)
         t_y = fix_len_compatibility(choose_bucket(int(frame_lens.max()), self.frame_buckets),
@@ -87,13 +124,19 @@ class BucketCollator:
         tokens = np.zeros((b, t_x), np.int32)
         wavs = np.zeros((b, t_y * self.hop_length), np.float32)
         spk_ids = np.zeros((b,), np.int32)
+        durations = np.zeros((b, t_x), np.float32) if "durations" in items[0] else None
         for i, it in enumerate(items):
-            tokens[i, :tok_lens[i]] = it["tokens"]
+            tokens[i, :tok_lens[i]] = it[key]
             n = frame_lens[i] * self.hop_length
             wavs[i, :n] = it["wav"][:n]
+            if durations is not None:
+                durations[i, :tok_lens[i]] = it["durations"]
             spk_ids[i] = it["spk_id"]
-        return {"tokens": tokens, "token_lengths": tok_lens, "wav": wavs,
-                "mel_lengths": frame_lens, "spk_id": spk_ids}
+        batch = {key: tokens, lengths: tok_lens, "wav": wavs, "mel_lengths": frame_lens,
+                 "spk_id": spk_ids}
+        if durations is not None:
+            batch["durations"] = durations
+        return batch
 
 
 def iterate_batches(dataset, collator: BucketCollator, batch_size: int,

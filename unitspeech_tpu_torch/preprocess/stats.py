@@ -1,19 +1,28 @@
-"""Dataset-level preprocessing for STEP1 (counterpart of
+"""Dataset-level preprocessing for STEP1 and STEP2 (counterpart of
 unitspeech_tpu/preprocess/stats.py; reference preprocessing/*.py), .npz
 artifacts:
 
-  compute_mel_stats   -> mel_stats.npz {mel_min, mel_max}   (process_mel_normalization.py)
-  compute_uncond_mel  -> text_uncond, the mean normalized mel frame (process_uncond_mel.py)
-  compute_uncond_spk  -> spk_uncond, the mean of the speaker means (process_uncond_spk.py)
+  compute_mel_stats    -> mel_stats.npz {mel_min, mel_max}   (process_mel_normalization.py)
+  compute_uncond_mel   -> text_uncond, the mean normalized mel frame (process_uncond_mel.py)
+  compute_uncond_spk   -> spk_uncond, the mean of the speaker means (process_uncond_spk.py)
+  compute_speaker_embs -> spk_embs.npz {<id>: (S,)}, each speaker's mean (process_spkr_embs.py)
+  extract_units        -> <stem>.units.npz {units, durations} (process_units.py)
 
 Each wav's log-mel is computed on `device` (ops/mel.py) and reduced on the
-host in the JAX package's order and precision. The per-speaker embeddings
-(`preprocess-spk-embs`) and the units wait for a later slice.
+host in the JAX package's order and precision. The speaker embeddings and
+the units come from the caller's embed / encode function (the CLI's SSL
+frontends, on their device).
+
+`max_files` follows the JAX entry points: the mel statistics stop after
+max_files wavs in all; the speaker embeddings and the units stop the
+filelist they are in once the running count reaches max_files, and each
+later filelist then adds one more wav before it stops too (JAX's `break`
+leaves only the inner loop).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,3 +85,50 @@ def compute_uncond_spk(spk_embs: Dict[int, np.ndarray]) -> np.ndarray:
     """The mean of the speaker means, the spk_uncond CFG embedding
     (reference process_uncond_spk.py:34-44)."""
     return np.mean(np.stack(list(spk_embs.values())), axis=0).astype(np.float32)
+
+
+def compute_speaker_embs(filelists: List[str], embed_fn: Callable[[np.ndarray, int], np.ndarray],
+                         out_path: str, max_files: Optional[int] = None) -> Dict[int, np.ndarray]:
+    """Each speaker's mean embedding over its wavs, written to out_path
+    keyed by speaker id (reference process_spkr_embs.py:63-100, which
+    assumed speaker-contiguous filelists; this does not): embed_fn(wav, sr)
+    -> the embedding, summed in float64, the means f32."""
+    sums: Dict[int, np.ndarray] = {}
+    counts: Dict[int, int] = {}
+    for fl in filelists:
+        for entry in parse_filelist(fl):
+            path, _text, spk = (entry + ["0"])[:3]
+            wav, sr = load_wav(path)
+            emb = np.asarray(embed_fn(wav, sr)).reshape(-1)
+            spk_id = int(spk)
+            if spk_id not in sums:
+                sums[spk_id] = np.zeros_like(emb, np.float64)
+                counts[spk_id] = 0
+            sums[spk_id] += emb
+            counts[spk_id] += 1
+            if max_files and sum(counts.values()) >= max_files:
+                break
+    means = {k: (sums[k] / counts[k]).astype(np.float32) for k in sums}
+    np.savez(out_path, **{str(k): v for k, v in means.items()})
+    return means
+
+
+def extract_units(filelists: List[str],
+                  encode_fn: Callable[[np.ndarray, int], Tuple[np.ndarray, np.ndarray]],
+                  max_files: Optional[int] = None) -> int:
+    """Write `<stem>.units.npz` {units, durations} beside every wav of the
+    filelists (reference process_units.py:31-51 writes _unit.pt /
+    _duration.pt): encode_fn(wav, sr) -> (units, durations), resampling
+    the wav to its model's rate itself (cli.extract_units). Returns the
+    number of wavs written."""
+    count = 0
+    for fl in filelists:
+        for entry in parse_filelist(fl):
+            path = entry[0]
+            wav, sr = load_wav(path)
+            units, durations = encode_fn(wav, sr)
+            np.savez(path.rsplit(".", 1)[0] + ".units.npz", units=units, durations=durations)
+            count += 1
+            if max_files and count >= max_files:
+                break
+    return count

@@ -108,9 +108,10 @@ def synthetic_corpus(directory: str, cfg, texts, n_speakers: int = 4,
     text sounds in turn for an equal share of the wav as a tone whose pitch
     the character picks (between 2.5% and 22.5% of the rate), brightened by
     the speaker's own harmonics, with a little noise, so that text and
-    audio align. Writes filelist.txt (`path|text|speaker`) and
-    spk_embs.npz (a random unit vector per speaker); returns their paths
-    and the texts."""
+    audio align. Each wav is <speaker>/utt<i>.wav with its text beside it
+    in <speaker>/utt<i>.txt (the generic layout of `cli make-filelist`).
+    Writes filelist.txt (`path|text|speaker`) and spk_embs.npz (a random
+    unit vector per speaker); returns their paths and the texts."""
     from unitspeech_tpu_torch.utils.audio import write_wav
 
     rng = np.random.default_rng(seed)
@@ -126,8 +127,12 @@ def synthetic_corpus(directory: str, cfg, texts, n_speakers: int = 4,
         phase = 2 * np.pi * np.cumsum(f) / sr
         wav = sum(np.sin(k * phase) * (0.5 + 0.5 * np.cos(spk + k)) / k for k in (1, 2, 3))
         wav = wav + 0.02 * rng.standard_normal(n)
-        path = os.path.join(directory, f"utt{i:03d}.wav")
+        stem = os.path.join(directory, str(spk), f"utt{i:03d}")
+        os.makedirs(os.path.dirname(stem), exist_ok=True)
+        path = stem + ".wav"
         write_wav(path, 0.8 * wav / np.abs(wav).max(), sr)
+        with open(stem + ".txt", "w", encoding="utf-8") as fh:
+            fh.write(text + "\n")
         lines.append(f"{path}|{text}|{spk}")
     filelist = os.path.join(directory, "filelist.txt")
     with open(filelist, "w", encoding="utf-8") as fh:

@@ -1,11 +1,11 @@
-"""The epoch loop of STEP1 training (counterpart of
-unitspeech_tpu/train/loop.py `TrainLoop`; reference train_STEP1.py:45-304)
-on one device (the JAX package's mesh and per-host sharding are not
-ported):
+"""The epoch loop of STEP1 and STEP2 training (counterpart of
+unitspeech_tpu/train/loop.py `TrainLoop`; reference train_STEP1.py:45-304,
+train_STEP2.py) on one device (the JAX package's mesh and per-host
+sharding are not ported):
 
-  * `_prepare_batch` moves a collated batch to the device and computes the
-    normalized log-mel there (ops/mel.py), attaching the speaker
-    embeddings by speaker id;
+  * `_prepare_batch` moves a collated batch of either form (tokens, or
+    units and durations) to the device and computes the normalized log-mel
+    there (ops/mel.py), attaching the speaker embeddings by speaker id;
   * `run` keeps the JAX loop's seeding: a numpy default_rng(seed) shuffles
     the epochs and a torch.Generator seeded from `seed` on the device makes
     every draw of the steps, both restarted by each run (a resumed run
@@ -14,11 +14,13 @@ ported):
     it writes TensorBoard scalars and an epoch summary to train.log, saves
     every `save_every` epochs, and on SIGTERM saves at the next step
     boundary and returns;
-  * checkpoints (utils/checkpoint.py, `step_<epoch>` files) hold the three
-    modules' state dicts, the optimizer's state, the step and the epoch,
-    with the config and the mel min / max beside them: the port's combined
-    checkpoint layout, which `cli inference --checkpoint` serves (with
-    `--spk-emb`); `resume` restores parameters, Adam moments and step.
+  * checkpoints (utils/checkpoint.py, `step_<epoch>` files) hold the
+    trained modules' state dicts (STEP1's three; STEP2's unit encoder
+    alone, its frozen decoder living in the step), the optimizer's state,
+    the step and the epoch, with the config and the mel min / max beside
+    them: the port's combined checkpoint layout, which `cli inference
+    --checkpoint` (with `--spk-emb`) and `cli finetune --unit-encoder`
+    read; `resume` restores parameters, Adam moments and step.
 """
 
 from __future__ import annotations
@@ -40,14 +42,18 @@ from unitspeech_tpu_torch.utils.logging import MetricsWriter, StepTimer, get_log
 
 logger = get_logger()
 
+# the integer arrays of a collated batch, text form and units form
+_INT_KEYS = ("tokens", "token_lengths", "units", "unit_lengths", "mel_lengths")
+
 
 @dataclass
 class TrainLoop:
-    """STEP1's epoch loop. `modules` ({text_encoder, duration_predictor,
-    decoder}) and `optimizer` are the training state, on `device`;
-    train_step(batch, generator) -> metrics (train/steps.py
-    make_step1_train_step). step_hook(step, metrics), when given, is called
-    after each step with its metrics on the host."""
+    """The epoch loop of either step. `modules` (STEP1: {text_encoder,
+    duration_predictor, decoder}; STEP2: {unit_encoder}) and `optimizer`
+    are the training state, on `device`; train_step(batch, generator) ->
+    metrics (train/steps.py make_step1_train_step / make_step2_train_step).
+    step_hook(step, metrics), when given, is called after each step with
+    its metrics on the host."""
 
     cfg: MainConfig
     train_step: Callable
@@ -73,12 +79,13 @@ class TrainLoop:
         self.timer = StepTimer()
 
     def _prepare_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """Host batch -> device batch: tokens and lengths as int64, the
-        normalized mel (B, Ty, F) from the padded wavs, spk_emb (B, S)."""
+        """Host batch -> device batch: the tokens (or units) and lengths as
+        int64, the durations of a units batch (f32), the normalized mel
+        (B, Ty, F) from the padded wavs, spk_emb (B, S)."""
         d, dev = self.cfg.data, self.device
-        out = {"tokens": torch.from_numpy(batch["tokens"]).long().to(dev),
-               "token_lengths": torch.from_numpy(batch["token_lengths"]).long().to(dev),
-               "mel_lengths": torch.from_numpy(batch["mel_lengths"]).long().to(dev)}
+        out = {k: torch.from_numpy(batch[k]).long().to(dev) for k in _INT_KEYS if k in batch}
+        if "durations" in batch:
+            out["durations"] = torch.from_numpy(batch["durations"]).to(dev)
         if self.spk_embs is not None:
             spk = np.stack([self.spk_embs[int(i)] for i in batch["spk_id"]]).astype(np.float32)
             out["spk_emb"] = torch.from_numpy(spk).to(dev)

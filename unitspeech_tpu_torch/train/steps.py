@@ -1,10 +1,20 @@
-"""Training losses and the STEP1 train step of the port (counterpart of
-unitspeech_tpu/train/steps.py; reference train_STEP1.py:307-387): text
+"""Training losses and the STEP1 and STEP2 train steps of the port
+(counterpart of unitspeech_tpu/train/steps.py).
+
+STEP1 (reference train_STEP1.py:307-387): text
 encoder + duration predictor + diffusion decoder, the alignment by
 monotonic alignment search (ops/mas.py, kernel M1 on the card, so the step
 never waits on the host), the duration, prior and diffusion losses, the
 speaker embedding replaced by the unconditional one in exactly
 floor(B * 0.25) rows, and per-module gradient clipping (5 / 5 / 2).
+
+STEP2 (reference train_STEP2.py:124-157): the unit encoder alone trains,
+against a frozen decoder. The alignment is the units' own durations
+(generate_path); the loss is the prior loss plus the diffusion loss, whose
+gradient reaches the unit encoder only through the decoder's conditioning
+on mu_y, so the decoder runs under autograd with its parameters frozen
+(requires_grad False, outside the optimizer), as JAX's stop_gradient of
+the decoder's parameters freezes them. One global clip of 5.
 
 The JAX package jits the step over a mesh; here it is one eager step under
 autograd on one device. Every draw (the replaced rows, the dropout masks,
@@ -23,7 +33,7 @@ import torch
 from unitspeech_tpu_torch.models.diffusion import diffusion_loss, random_segment_crop
 from unitspeech_tpu_torch.models.layers import Dropout
 from unitspeech_tpu_torch.ops.mas import maximum_path
-from unitspeech_tpu_torch.ops.masking import sequence_mask
+from unitspeech_tpu_torch.ops.masking import generate_path, sequence_mask
 
 
 def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
@@ -130,9 +140,6 @@ def step1_loss(text_encoder, duration_predictor, decoder, batch: dict, out_size:
                    "diff_loss": diff_loss}, attn_full
 
 
-STEP1_MODULES = ("text_encoder", "duration_predictor", "decoder")
-
-
 def make_step1_train_step(text_encoder, duration_predictor, decoder, optimizer,
                           out_size: Optional[int], spk_uncond=None, spk_dropout: float = 0.25,
                           clip_norms: Sequence[float] = (5.0, 5.0, 2.0), beta_min: float = 0.05,
@@ -162,5 +169,65 @@ def make_step1_train_step(text_encoder, duration_predictor, decoder, optimizer,
         return {**{k: v.detach() for k, v in parts.items()}, "total_loss": total.detach(),
                 "grad_norm_encoder": norms[0], "grad_norm_duration": norms[1],
                 "grad_norm_decoder": norms[2]}
+
+    return train_step
+
+
+STEP2_CLIP = 5.0  # the unit encoder's one global norm
+
+
+def step2_loss(unit_encoder, decoder, batch: dict, out_size: Optional[int],
+               beta_min: float = 0.05, beta_max: float = 20.0, generator=None,
+               draws: Optional[dict] = None):
+    """The STEP2 loss. batch: units (B, Tx) int, unit_lengths (B,),
+    durations (B, Tx) f32 (frames a unit), mel (B, Ty, F) normalized,
+    mel_lengths (B,), spk_emb (B, S), on the modules' device. The draws,
+    in JAX's key order, from `generator`: the unit encoder's dropout masks,
+    the crop's u (only when out_size < Ty), then the diffusion t and z;
+    draws: {"ue", "u", "t", "z"} in place of them ("ue": the mask list in
+    call order). Returns (total, {prior_loss, diff_loss})."""
+    d = draws or {}
+    y, y_lengths = batch["mel"], batch["mel_lengths"]
+    n_feats = y.shape[-1]
+    cond_x, _, x_mask = unit_encoder(batch["units"], batch["unit_lengths"],
+                                     dropout=Dropout(generator, d.get("ue")))
+    t_y = y.shape[1]
+    y_mask = sequence_mask(y_lengths, t_y, dtype=x_mask.dtype)
+    attn = generate_path(batch["durations"], x_mask * y_mask[:, None, :])
+    if out_size is not None and out_size < t_y:
+        u = d.get("u")
+        if u is None:
+            u = torch.rand((y.shape[0],), generator=generator, device=y.device)
+        y, attn, y_mask = random_segment_crop(y, attn, y_lengths, out_size, u)
+    mu_y = torch.einsum("bxy,bxf->byf", attn, cond_x)
+    diff_loss, _ = diffusion_loss(decoder, y, y_mask, mu_y, batch["spk_emb"], generator,
+                                  {"t": d["t"], "z": d["z"]} if "t" in d else None,
+                                  beta_min, beta_max)
+    prior_loss = prior_loss_fn(y, mu_y, y_mask, n_feats)
+    return prior_loss + diff_loss, {"prior_loss": prior_loss, "diff_loss": diff_loss}
+
+
+def make_step2_train_step(unit_encoder, decoder, optimizer, out_size: Optional[int],
+                          beta_min: float = 0.05, beta_max: float = 20.0) -> Callable:
+    """Returns step(batch, generator=None, draws=None) -> metrics: step2_loss
+    -> backward -> the unit encoder's gradients clipped to one global norm
+    of STEP2_CLIP -> optimizer.step(). The decoder is frozen here: its
+    parameters stop requiring gradients (the optimizer must hold only the
+    unit encoder's), while its forward stays under autograd, so that the
+    diffusion loss reaches the unit encoder through mu_y. Metrics: prior_loss,
+    diff_loss, total_loss and the pre-clip grad_norm, 0-d tensors on the
+    device."""
+    decoder.requires_grad_(False)
+    params = [p for p in unit_encoder.parameters() if p.requires_grad]
+
+    def train_step(batch, generator=None, draws=None):
+        optimizer.zero_grad(set_to_none=True)
+        total, parts = step2_loss(unit_encoder, decoder, batch, out_size, beta_min, beta_max,
+                                  generator, draws)
+        total.backward()
+        gnorm = clip_by_global_norm([p.grad for p in params], STEP2_CLIP)
+        optimizer.step()
+        return {**{k: v.detach() for k, v in parts.items()}, "total_loss": total.detach(),
+                "grad_norm": gnorm}
 
     return train_step

@@ -8,7 +8,7 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 
 class MetricsWriter:
@@ -44,17 +44,19 @@ class MetricsWriter:
 
 class StepTimer:
     """Seconds a step, an exponential moving average of the intervals
-    between ticks."""
+    between ticks; `seconds` keeps every interval."""
 
     def __init__(self, alpha: float = 0.05):
         self._last: Optional[float] = None
         self._ema: Optional[float] = None
         self.alpha = alpha
+        self.seconds: List[float] = []
 
     def tick(self) -> Optional[float]:
         now = time.perf_counter()
         if self._last is not None:
             dt = now - self._last
+            self.seconds.append(dt)
             self._ema = dt if self._ema is None else self.alpha * dt + (1 - self.alpha) * self._ema
         self._last = now
         return self._ema

@@ -139,20 +139,27 @@ def _random_state_dict(rng, mod) -> dict:
 _TRUNC_STD = 0.87962566103423978
 
 
-def _flax_init_(t: torch.Tensor, name: str, generator: torch.Generator) -> torch.Tensor:
+def _flax_init_(t: torch.Tensor, name: str, generator: torch.Generator,
+                snake_logscale: bool = True) -> torch.Tensor:
     """Fill t in place from the distribution of the flax initializer that
     the JAX modules name for parameter `name` (its state-dict key):
     lecun_normal kernels (a normal truncated to 2 std, std sqrt(1 / fan_in),
-    fan_in the product of all but the last dimension), xavier_uniform for
-    the encoder's conv_q / conv_k / conv_v, zeros for the prenet's residual
-    projection, normal(C ** -0.5) for the token embedding and a contentvec
-    encoder's input map, normal(d ** -0.5) for the relative-position tables,
-    ones for the norm scales, zeros for the biases, the rezero gates and
-    the unconditional embeddings."""
+    fan_in the product of all but the last dimension; convs, transposed
+    convs and Dense alike), xavier_uniform for the encoder's conv_q /
+    conv_k / conv_v, zeros for the prenet's residual projection,
+    normal(C ** -0.5) for the token embedding and a contentvec encoder's
+    input map, normal(d ** -0.5) for the relative-position tables, ones for
+    the norm scales, zeros for the biases, the LayerNorm shifts, the rezero
+    gates and the unconditional embeddings; a BigVGAN snake's alpha and
+    beta (under `act` / `act_post`) zeros when snake_logscale, else ones
+    (JAX models/vocoder.py Snake, SnakeBeta). Unknown names raise."""
     leaf = name.rsplit(".", 1)[-1]
+    parent = name.rsplit(".", 2)[-2] if "." in name else ""
+    if leaf in ("alpha", "beta") and parent in ("act", "act_post"):
+        return t.zero_() if snake_logscale else t.fill_(1.0)
     if name.endswith("prenet.proj.kernel"):
         return t.zero_()
-    if leaf == "kernel" and name.rsplit(".", 2)[-2] in ("conv_q", "conv_k", "conv_v"):
+    if leaf == "kernel" and parent in ("conv_q", "conv_k", "conv_v"):
         limit = float(np.sqrt(3.0 / ((t.shape[0] + t.shape[1]) / 2)))
         return torch.nn.init.uniform_(t, -limit, limit, generator=generator)
     if name == "emb.kernel" or leaf in ("embedding", "emb_rel_k", "emb_rel_v"):
@@ -167,18 +174,40 @@ def _flax_init_(t: torch.Tensor, name: str, generator: torch.Generator) -> torch
     raise ValueError(f"no flax initializer known for {name}")
 
 
-def init_params(cfg: MainConfig, generator: torch.Generator) -> dict:
-    """STEP1's starting point, as the JAX package's `init` makes it: a state
-    dict for each of text_encoder, duration_predictor and decoder at
-    `cfg`'s widths, every parameter drawn (on the CPU, from `generator`, in
-    that order) from its flax initializer's distribution (_flax_init_):
-    the same distributions as JAX's trees, not the same draws. Unlike
+def init_module(module: torch.nn.Module, generator: torch.Generator,
+                snake_logscale: bool = True) -> dict:
+    """A state dict for `module` (on any device, "meta" included), every
+    parameter drawn on the CPU from `generator` in state-dict order from
+    its flax initializer (_flax_init_)."""
+    return {k: _flax_init_(torch.empty(v.shape), k, generator, snake_logscale)
+            for k, v in module.state_dict().items()}
+
+
+STEP1_MODULES = ("text_encoder", "duration_predictor", "decoder")
+
+
+def init_params(cfg: MainConfig, generator: torch.Generator,
+                names=STEP1_MODULES) -> dict:
+    """Training's starting point, as the JAX package's `init` makes it: a
+    state dict for each module of `names` (STEP1's three, the default;
+    ("unit_encoder",) for STEP2) at `cfg`'s widths, every parameter drawn
+    (on the CPU, from `generator`, module by module in that order) from
+    its flax initializer's distribution (init_module): the same
+    distributions as JAX's trees, not the same draws. Unlike
     random_params, whose test weights are drawn alike and keep non-zero
-    gates and unconditional embeddings, this is what training starts from."""
-    mods = build_modules(cfg, device="meta", with_vocoder=False)
-    return {name: {k: _flax_init_(torch.empty(v.shape), k, generator)
-                   for k, v in mod.state_dict().items()}
-            for name, mod in mods.items()}
+    gates and unconditional embeddings, this is what training starts
+    from. (The GAN's modules go through init_module where they are built.)"""
+    from unitspeech_tpu_torch.models.diffusion import UnitSpeech
+    from unitspeech_tpu_torch.models.duration import DurationPredictor
+    from unitspeech_tpu_torch.models.encoder import Encoder
+
+    build = {"text_encoder": lambda: Encoder.from_config(cfg.text_encoder),
+             "duration_predictor": lambda: DurationPredictor.from_config(cfg.duration_predictor),
+             "decoder": lambda: UnitSpeech.from_config(cfg.decoder),
+             "unit_encoder": lambda: Encoder.from_config(cfg.unit_encoder)}
+    with torch.device("meta"):
+        mods = {name: build[name]() for name in names}
+    return {name: init_module(m, generator) for name, m in mods.items()}
 
 
 def random_params(cfg: MainConfig, seed: int) -> dict:
