@@ -81,6 +81,19 @@ kernel launched), whole steps under torch.profiler, a small f32 GAN step
 on the card against the CPU's, and the trained generator served by `cli
 inference --vocoder` on K5 / K6 (exact launches) and held to the plain
 vocoder within compare_paths' vocoder bound.
+Then evaluation (`eval.generate_samples`, `cli evaluate`): per speaker on
+two speakers of that corpus tree (`cli finetune` from each speaker's wav
+with the frontends' SSL files, then three of its texts on the serving
+defaults) and flat on the base checkpoint (four sentences), every request
+with exactly its bucket's launches and its waveform y_length x hop long,
+the timings agreeing with the samples, one sample of each mode within the
+TTS bounds of the plain path on the same seed; `cli evaluate --device
+cuda` with stub ASR / MOS hooks, the port's speaker embedder as the
+speaker hook and mHuBERT + k-means (a full row; each sample against itself
+UER 0; two samples' unit streams against the CPU's);
+finetune_decoder_batched at full width equal to single fine-tunes on the
+same draws; the demo and speaker-probing examples; and one request's
+device time, launches and idle share.
 Last, the paths of the kernels that no request runs, the port's four tools
 at full size (unitspeech_tpu_torch/tools): the kernel benchmark with
 --int8 --deep (the in-kernel int8 blocks K10a, K10b), the transcendental
@@ -1128,8 +1141,9 @@ def long_bucket(torch, dev, ckpt_path, per_call):
 # fine-tune steps at full width in bf16 on a synthetic 6 s reference, at the
 # reference's learning rate (2e-5; at 1e-3 the random-weight decoder
 # diverged to NaN within 10 steps, rezero gates of 0.001 moving by 0.001 a
-# step), about 140 ms a step on the card
-ADAPT_ITERS, ADAPT_SECONDS = 200, 6.0
+# step), about 140 ms a step on the card; 100 steps (200 until the eval
+# phase joined the script, to keep its time)
+ADAPT_ITERS, ADAPT_SECONDS = 100, 6.0
 # the served comparisons of the adapted decoder: the bf16 kernel path and
 # the int8 default against the plain paths, as compare_paths holds them
 ADAPT_RUNS = [r for r in RUNS if r[0] in ("kernels", "int8", "plain", "plain_f32")]
@@ -2426,6 +2440,397 @@ def vocoder_gan(torch, dev, tmp, ckpt_path, filelist, per_call, smi):
     return res, served
 
 
+# The evaluation phase (after vocoder_gan), on the train2 corpus (texts
+# beside the wavs): eval.generate_samples per speaker on EVAL_SPEAKERS
+# speakers, EVAL_SENTENCES sentences each after an EVAL_FT_ITERS-step `cli
+# finetune` from the wav (the frontends phase's SSL files), the flat mode on
+# the base checkpoint with EVAL_FLAT sentences, `cli evaluate` on the card,
+# finetune_decoder_batched at S = BATCHED_S for BATCHED_ITERS steps, and the
+# two examples
+EVAL_SPEAKERS, EVAL_SENTENCES, EVAL_FT_ITERS, EVAL_FLAT, EVAL_SEED = 2, 3, 20, 4, 70
+BATCHED_S, BATCHED_ITERS = 2, 10
+# the `module:function` hooks `cli evaluate` loads (stand-ins for Whisper and
+# the MOS predictor, which need downloads; the speaker hook is the port's
+# WavLM + ECAPA embedder)
+EVAL_HOOKS = """import numpy as np
+import torch
+
+from unitspeech_tpu_torch import cli
+from unitspeech_tpu_torch.config import MainConfig
+
+SPEAKER_EMBEDDER = {path!r}
+_embedder = []
+
+
+def transcribe(wav, sr):
+    return "hello world" if len(wav) % 2 == 0 else "hello word"
+
+
+def predict_mos(wav, sr):
+    return 3.0 + min(len(wav) / (10.0 * sr), 1.0)
+
+
+def embed(wav, sr):
+    if not _embedder:
+        _embedder.append(cli.load_speaker_embedder(SPEAKER_EMBEDDER, MainConfig(),
+                                                   torch.device({device!r})))
+    return cli.embed_speaker(_embedder[0], wav, sr, MainConfig())[0]
+"""
+
+
+def _sample_want(per_call, cfg, bucket):
+    """Launches of one served request on the serving default at a frame
+    bucket: STEPS estimator calls (K4 at the bucket's attention sites) and
+    one vocoder call."""
+    want = _served_want(per_call, STEPS)
+    want["fused_rezero_attention"] = STEPS * _k4_per_call(cfg, bucket)
+    return want
+
+
+def _units_card_vs_cpu(torch, cli, ssl, cfg, wavs, dev):
+    """The unit streams of `wavs` [(wav, sr)] through the evaluate hook's
+    extractor on the card and on the CPU in f32; per wav, whether the
+    deduplicated streams are equal, the frames whose unit differs and the
+    largest relative k-means margin among them (UNIT_MARGIN: a near-tie)."""
+    from unitspeech_tpu_torch.models.ssl.kmeans import kmeans_distances
+    from unitspeech_tpu_torch.utils.precision import strict_f32
+
+    encs = {k: cli.build_unit_extractor(ssl["hubert"], ssl["kmeans"], cfg, device)
+            for k, device in (("card", dev), ("cpu", torch.device("cpu")))}
+    out = []
+    with strict_f32(), torch.no_grad():
+        for wav, sr in wavs:
+            wav16 = encs["cpu"].maybe_resample(wav, sr)
+            feats = {k: e.dense_model.features(wav16) for k, e in encs.items()}
+            units = {k: e.quantizer(feats[k]) for k, e in encs.items()}
+            cpu = feats["cpu"]
+            dist = kmeans_distances(cpu, torch.from_numpy(encs["cpu"].quantizer.centroids))
+            full = np.sort(dist.numpy() + (cpu.numpy() ** 2).sum(1, keepdims=True), axis=1)
+            margin = (full[:, 1] - full[:, 0]) / full[:, 0]
+            differ = units["card"] != units["cpu"]
+            streams = [e(wav16)["units"] for e in encs.values()]
+            out.append({"frames": int(differ.size), "units_differ": int(differ.sum()),
+                        "stream_equal": bool(np.array_equal(*streams)),
+                        "stream_len": int(len(streams[1])),
+                        "max_margin_where_differ": float(margin[differ].max()) if differ.any()
+                        else None})
+    del encs
+    return out
+
+
+def evaluation(torch, dev, tmp, ckpt_path, filelist, per_call, smi):
+    """Evaluation on the card through the port's entry points: eval/
+    generate_samples per speaker (each speaker's first corpus wav adapts
+    the base decoder through `cli finetune` from the wav alone, then its
+    next EVAL_SENTENCES texts are synthesized on the serving defaults) and
+    flat (the base checkpoint, EVAL_FLAT sentences); every request, warm-up
+    included, with exactly its bucket's launches and its wav y_length x hop
+    long, the .npy timings and the summaries agreeing with the samples; one
+    sample of each mode again on the plain path from the same seed, within
+    the TTS bounds; `cli evaluate --device cuda` on the first speaker's
+    samples (ASR / MOS stubs, the port's WavLM + ECAPA as the speaker hook,
+    mHuBERT + k-means) with a full row, then each sample against itself
+    (UER 0), and two samples' unit streams against the CPU's;
+    finetune_decoder_batched at full width (BATCHED_S speakers,
+    BATCHED_ITERS steps) equal to single finetune_decoder runs on the same
+    draws under deterministic algorithms; the demo and the speaker probe on
+    the card; one flat request's device time, launches and idle share
+    under torch.profiler. Returns the measurements and the phase's
+    launches (every served eval request)."""
+    import types
+
+    from unitspeech_tpu_torch import cli
+    from unitspeech_tpu_torch.config import MainConfig
+    from unitspeech_tpu_torch.data.dataset import parse_filelist
+    from unitspeech_tpu_torch.eval import generate_samples, harness
+    from unitspeech_tpu_torch.examples import demo, speaker_probing
+    from unitspeech_tpu_torch.infer.tts import Synthesizer
+    from unitspeech_tpu_torch.ops.masking import choose_bucket, fix_len_compatibility
+    from unitspeech_tpu_torch.text import phonemes_to_sequence
+    from unitspeech_tpu_torch.train.finetune import finetune_decoder, finetune_decoder_batched
+    from unitspeech_tpu_torch.utils import artifacts
+    from unitspeech_tpu_torch.utils.audio import load_wav
+
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "eval")
+    os.makedirs(d)
+    cfg = MainConfig()
+    hop, num_down = cfg.data.hop_length, cfg.decoder.num_downsamplings
+    fe = os.path.join(tmp, "frontends")
+    ssl = {"speaker-embedder": os.path.join(fe, "port_speaker-embedder.pt"),
+           "hubert": os.path.join(fe, "port_hubert.pt"),
+           "kmeans": os.path.join(fe, "port_kmeans.npz")}
+    by_spk = {}
+    for row in parse_filelist(filelist):
+        by_spk.setdefault(row[2], []).append(row)
+    speakers = sorted(by_spk)[:EVAL_SPEAKERS]
+    lists = {"refs": [by_spk[s][0] for s in speakers],
+             "evals": [r for s in speakers for r in by_spk[s][1:1 + EVAL_SENTENCES]]}
+    for name, rows in lists.items():
+        with open(os.path.join(d, f"{name}.txt"), "w", encoding="utf-8") as f:
+            f.write("".join("|".join(r) + "\n" for r in rows))
+    flat_texts = _ipa_sentences(np.random.default_rng(EVAL_SEED), EVAL_FLAT, 4, 10)
+    with open(os.path.join(d, "sentences.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(flat_texts) + "\n")
+
+    # every request the phase serves, with its launches (Synthesizer.__call__
+    # wrapped: the counters set to 0 just before it and read just after)
+    served, finetunes = [], []
+    call, finetune = Synthesizer.__call__, cli.main_finetune
+    wrappers = _kernel_wrappers()
+
+    def counted_call(self, token_ids, generator=None, forced_total_frames=None, **kw):
+        for w in wrappers.values():
+            w.launches = 0
+        wav, sr, mel = call(self, token_ids, generator, forced_total_frames, **kw)
+        # the waveform is on the host: nothing the call launched may be left
+        queued = dev.type == "cuda" and not torch.cuda.current_stream(dev).query()
+        frames = int(mel.shape[0])
+        served.append({"tokens": len(token_ids), "frames": frames, "samples": len(wav),
+                       "bucket": choose_bucket(fix_len_compatibility(frames, num_down),
+                                               self.frame_buckets),
+                       "kernels": bool(self.models.decoder.estimator.use_kernels),
+                       "launches": {k: w.launches for k, w in wrappers.items()},
+                       "queued_after": queued, "mel": mel.float().cpu().numpy()})
+        return wav, sr, mel
+
+    def counted_finetune(argv):
+        stats = _counted("eval cli finetune", lambda: finetune(argv), {k: 0 for k in KERNELS})
+        finetunes.append({k: v for k, v in stats.items() if k != "losses"})
+        return stats
+
+    common = ["--text-encoder", ckpt_path, "--duration-predictor", ckpt_path, "--vocoder",
+              ckpt_path, "--ipa", "--seed", str(EVAL_SEED), "--device", dev.type]
+    Synthesizer.__call__, cli.main_finetune = counted_call, counted_finetune
+    try:
+        t0 = time.perf_counter()
+        per_dir = os.path.join(d, "per_speaker")
+        per = generate_samples.main(
+            ["--reference-filelist", os.path.join(d, "refs.txt"), "--eval-filelist",
+             os.path.join(d, "evals.txt"), "--decoder", ckpt_path, "--unit-encoder", ckpt_path,
+             "--speaker-embedder", ssl["speaker-embedder"], "--hubert", ssl["hubert"],
+             "--kmeans", ssl["kmeans"], "--finetune-iters", str(EVAL_FT_ITERS), "--out-dir",
+             per_dir, *common])
+        per_s = time.perf_counter() - t0
+        n_per = len(served)
+        t0 = time.perf_counter()
+        flat_dir = os.path.join(d, "flat")
+        flat = generate_samples.main(["--sentences", os.path.join(d, "sentences.txt"),
+                                      "--decoder", ckpt_path, "--out-dir", flat_dir, *common])
+        flat_s = time.perf_counter() - t0
+    finally:
+        Synthesizer.__call__, cli.main_finetune = call, finetune
+
+    # the served requests: a warm-up and the samples of each set
+    sets = [(os.path.join(per_dir, f"speaker_{s}"), [r[1] for r in lists["evals"] if r[2] == s])
+            for s in speakers] + [(flat_dir, flat_texts)]
+    records, i = [], 0
+    for out_dir, texts in sets:
+        warm, samples = served[i], served[i + 1:i + 1 + len(texts)]
+        i += 1 + len(texts)
+        for k, (rec, text) in enumerate(zip([warm] + samples, texts[:1] + texts)):
+            want = _sample_want(per_call, cfg, rec["bucket"])
+            if (rec["launches"] != want or not rec["kernels"]
+                    or rec["tokens"] != len(phonemes_to_sequence(text))
+                    or rec["samples"] != rec["frames"] * hop):
+                raise AssertionError(f"eval request {out_dir} #{k}: {rec} (launches expected "
+                                     f"{want})")
+        for k, rec in enumerate(samples):
+            wav, sr = load_wav(os.path.join(out_dir, f"sample_{k:04d}.wav"))
+            if len(wav) != rec["frames"] * hop or sr != cfg.data.sampling_rate or not np.any(wav):
+                raise AssertionError(f"{out_dir} sample {k}: {len(wav)} samples at {sr} Hz")
+        timings = harness.EvalTimings.load(os.path.join(out_dir, "timings.npz"))
+        if not np.array_equal(timings.speech_duration,
+                              [r["samples"] / cfg.data.sampling_rate for r in samples]):
+            raise AssertionError(f"{out_dir}: timings {timings.speech_duration}")
+        records.append({"dir": out_dir, "samples": samples, "warmup": warm, "timings": timings})
+    if i != len(served) or n_per != sum(1 + len(t) for _, t in sets[:-1]):
+        raise AssertionError(f"eval: {len(served)} requests served, {i} expected")
+    proc = np.concatenate([r["timings"].processing_time for r in records[:-1]])
+    speech = np.concatenate([r["timings"].speech_duration for r in records[:-1]])
+    if not (np.array_equal(np.load(os.path.join(per_dir, "processing_time.npy")), proc)
+            and np.array_equal(np.load(os.path.join(per_dir, "speech_duration.npy")), speech)
+            and per["n"] == len(proc) == EVAL_SPEAKERS * EVAL_SENTENCES
+            and list(per["per_speaker"]) == speakers and flat["n"] == EVAL_FLAT
+            and len(finetunes) == EVAL_SPEAKERS and np.all(proc > 0)):
+        raise AssertionError(f"eval summaries: {per}, {flat}, {len(finetunes)} fine-tunes")
+    launches = {k: sum(r["launches"][k] for r in served) for k in KERNELS}
+    queued = sum(r["queued_after"] for r in served)
+    print(f"eval: {len(served)} requests served on the serving defaults (warm-ups included), "
+          f"each with its bucket's launches (buckets "
+          f"{sorted({r['bucket'] for r in served})}); {queued} left work queued on the card "
+          f"when its waveform reached the host; per-speaker RTF {per['rtf']:.4f} "
+          f"({per_s:.1f} s with {EVAL_SPEAKERS} fine-tunes of {EVAL_FT_ITERS} steps: "
+          + ", ".join(f"{f['seconds']:.2f} s loop, {f['ms_per_step']:.1f} ms a step"
+                      for f in finetunes)
+          + f"), flat RTF {flat['rtf']:.4f} ({flat_s:.1f} s); {smi}", flush=True)
+
+    # one sample of each mode again on the plain path, from the same seed
+    plain_routes = dict(use_kernels=False, use_int8_deep=False, use_deep=False,
+                        use_resample=False, use_i8pre_deep=False)
+    plain = {}
+    for mode, rec, decoder, text in (
+            ("per_speaker", records[0], finetunes[0]["output"], sets[0][1][0]),
+            ("flat", records[-1], ckpt_path, flat_texts[0])):
+        ns = types.SimpleNamespace(checkpoint=None, config=None, decoder=decoder,
+                                   text_encoder=ckpt_path, duration_predictor=ckpt_path,
+                                   vocoder=ckpt_path, spk_emb=None)
+        synth = Synthesizer(cli._load_tts_models(ns, dev, torch.bfloat16, plain_routes))
+        gen = torch.Generator(device=dev).manual_seed(cli.chunk_seed(EVAL_SEED, 0))
+        mel = _counted(f"eval {mode} sample 0, plain", lambda: synth(
+            phonemes_to_sequence(text), gen, diffusion_steps=STEPS, text_gradient_scale=1.0,
+            spk_gradient_scale=1.0)[2],
+            {k: 0 for k in KERNELS}).float().cpu().numpy()
+        ref = rec["samples"][0]["mel"]
+        if mel.shape != ref.shape:
+            raise AssertionError(f"eval {mode}: plain mel {mel.shape}, kernels {ref.shape}")
+        plain[mode] = _mel_bounds(f"eval {mode} sample 0 ({mel.shape[0]} frames)", ref, mel)
+        del synth
+
+    # cli evaluate on the card: the first speaker's samples
+    hooks = os.path.join(d, "eval_stub_hooks.py")
+    with open(hooks, "w") as f:
+        f.write(EVAL_HOOKS.format(path=ssl["speaker-embedder"], device=str(dev)))
+    sys.path.insert(0, d)
+    spk0 = speakers[0]
+    with open(os.path.join(d, "evals0.txt"), "w", encoding="utf-8") as f:
+        f.write("".join("|".join(r) + "\n" for r in lists["evals"] if r[2] == spk0))
+    unit_flags = ["--hubert", ssl["hubert"], "--kmeans", ssl["kmeans"], "--device", dev.type]
+    t0 = time.perf_counter()
+    row = _counted("cli evaluate", lambda: cli.main_evaluate(
+        ["--samples-dir", records[0]["dir"], "--filelist", os.path.join(d, "evals0.txt"),
+         "--reference-wav", lists["refs"][0][0], "--asr-hook", "eval_stub_hooks:transcribe",
+         "--mos-hook", "eval_stub_hooks:predict_mos", "--spk-hook", "eval_stub_hooks:embed",
+         *unit_flags]), {k: 0 for k in KERNELS})
+    evaluate_s = time.perf_counter() - t0
+    own = cli.main_evaluate(["--samples-dir", records[0]["dir"], "--uer-ref-dir",
+                             records[0]["dir"], "--out", os.path.join(d, "self.csv"),
+                             *unit_flags])
+    sys.path.remove(d)
+    keys = {"rtf", "rtf_mean_of_ratios", "wer", "cer", "mos_mean", "mos_min", "mos_max",
+            "uer_mean", "uer_median", "uer_max", "spk_cosine_mean", "spk_cosine_min",
+            "n_samples"}
+    if set(row) != keys | {"mean_processing_s", "mean_speech_s", "n"} or not all(
+            np.isfinite(v) for v in row.values()) or row["n_samples"] != EVAL_SENTENCES:
+        raise AssertionError(f"cli evaluate row: {row}")
+    if own["uer_max"] != 0.0:
+        raise AssertionError(f"cli evaluate, each sample against itself: {own}")
+    units = _units_card_vs_cpu(torch, cli, ssl, cfg, [
+        load_wav(os.path.join(r["dir"], "sample_0000.wav")) for r in records[:2]], dev)
+    if not all(u["stream_equal"] or u["max_margin_where_differ"] <= UNIT_MARGIN for u in units):
+        raise AssertionError(f"eval unit streams, card vs CPU: {units}")
+    print(f"  cli evaluate --device cuda ({evaluate_s:.1f} s): " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in row.items())
+          + f"; each sample against itself: UER {own['uer_max']}; unit streams, card vs CPU "
+          f"(f32): {units}", flush=True)
+
+    # finetune_decoder_batched at full width against single runs, the same
+    # draws, under deterministic algorithms
+    ckpt = artifacts.read(ckpt_path)
+    inputs, spks = [], []
+    for s, ft in zip(speakers, finetunes):
+        path = min((r[0] for r in by_spk[s]), key=lambda p: os.path.getsize(p))
+        wav, sr = load_wav(path)
+        with np.load(path.rsplit(".", 1)[0] + ".units.npz") as z:
+            u, dur = z["units"], z["durations"]
+        inputs.append(cli.finetune_inputs(cfg, wav, u, dur, ckpt["unit_encoder"],
+                                          ckpt["mel_min"], ckpt["mel_max"],
+                                          cli.DEFAULT_ADAPT_BUCKETS, dev))
+        spks.append(torch.load(ft["output"], map_location=dev, weights_only=True)["spk_emb"])
+    if len({tuple(x[1].shape) for x in inputs}) != 1:
+        raise AssertionError(f"batched inputs at buckets {[x[1].shape for x in inputs]}")
+    base = ckpt["decoder"]
+    kw = dict(dtype=torch.bfloat16, segment_size=cfg.out_size, n_iters=BATCHED_ITERS,
+              learning_rate=cfg.finetune.learning_rate, grad_clip=cfg.finetune.grad_clip)
+    flags = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        t0 = time.perf_counter()
+        stack, losses = _counted("finetune_decoder_batched", lambda: finetune_decoder_batched(
+            cfg.decoder, {k: torch.stack([v] * BATCHED_S).to(dev) for k, v in base.items()},
+            *(torch.stack(xs) for xs in zip(*inputs)), torch.stack(spks),
+            generators=[torch.Generator(device=dev).manual_seed(EVAL_SEED + k)
+                        for k in range(BATCHED_S)], **kw), {k: 0 for k in KERNELS})
+        batched_s = time.perf_counter() - t0
+        equal = []
+        for k in range(BATCHED_S):
+            state, single = finetune_decoder(
+                cfg.decoder, base, *inputs[k], spks[k],
+                generator=torch.Generator(device=dev).manual_seed(EVAL_SEED + k), **kw)
+            equal.append(bool(np.array_equal(single, losses[k])) and all(
+                torch.equal(stack[n][k], v) for n, v in state.items()))
+    finally:
+        torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags[2:]
+    moved = float(max((stack[n][0] - base[n].to(dev)).abs().max() for n in base))
+    batched = {"speakers": BATCHED_S, "iters": BATCHED_ITERS, "seconds": batched_s,
+               "ms_per_step": 1e3 * batched_s / (BATCHED_S * BATCHED_ITERS),
+               "losses": losses.tolist(), "equal_to_single": equal, "max_moved": moved,
+               "bucket": int(inputs[0][1].shape[1])}
+    print(f"  finetune_decoder_batched (S = {BATCHED_S}, {BATCHED_ITERS} steps, bf16, bucket "
+          f"{batched['bucket']}, deterministic algorithms): {batched_s:.2f} s, "
+          f"{batched['ms_per_step']:.1f} ms a step; each row equal to a single run: {equal}; "
+          f"largest move {moved:.3e}; {smi}", flush=True)
+    if not all(equal) or not np.isfinite(losses).all() or moved == 0.0:
+        raise AssertionError(f"finetune_decoder_batched: {batched}")
+    del stack, inputs
+
+    # the examples on the card
+    t0 = time.perf_counter()
+    ex_demo = demo.main(["--output", os.path.join(d, "demo.wav")])
+    baseline, disc, cont = speaker_probing.main([])
+    examples = {"demo_seconds": ex_demo["seconds"], "demo_units": ex_demo["units"],
+                "probe": {"baseline": baseline, "discrete": disc, "continuous": cont},
+                "seconds": time.perf_counter() - t0}
+    print(f"  examples on the card: demo {ex_demo['seconds']:.2f} s of audio, "
+          f"{ex_demo['units']} units; speaker probe accuracies: discrete units {disc:.3f}, "
+          f"continuous features {cont:.3f} (constant baseline {baseline:.3f}); "
+          f"{examples['seconds']:.1f} s", flush=True)
+    if not (os.path.getsize(os.path.join(d, "demo.wav")) > 44 and 0 <= disc <= 1
+            and 0 <= cont <= 1):
+        raise AssertionError(f"examples: {examples}")
+
+    # one flat request under torch.profiler: device time, launches, idle share
+    ns = types.SimpleNamespace(checkpoint=None, config=None, decoder=ckpt_path,
+                               text_encoder=ckpt_path, duration_predictor=ckpt_path,
+                               vocoder=ckpt_path, spk_emb=None)
+    synth = Synthesizer(cli._load_tts_models(ns, dev, torch.bfloat16, cli.route_switches(
+        types.SimpleNamespace(bf16=True, fast_kernels=True, int8=True, deep=False,
+                              i8pre=False, resample=False))))
+    ids = phonemes_to_sequence(flat_texts[0])
+    walls = []
+
+    def request():
+        t = time.perf_counter()
+        synth(ids, torch.Generator(device=dev).manual_seed(0), diffusion_steps=STEPS)
+        walls.append(time.perf_counter() - t)
+
+    request()
+    act = kernel_breakdown.device_activity(request, PROFILED_STEPS)
+    wall_ms = float(np.mean(walls[-PROFILED_STEPS:])) * 1e3
+    profile = {"frames": records[-1]["samples"][0]["frames"],
+               "bucket": records[-1]["samples"][0]["bucket"], "profiled_wall_ms": wall_ms,
+               "device_ms": act["busy_ms"], "launches": act["launches"],
+               "idle_share": 1.0 - act["busy_ms"] / wall_ms}
+    print(f"  one flat request ({profile['frames']} frames, bucket {profile['bucket']}) under "
+          f"torch.profiler (mean of {PROFILED_STEPS}): wall {wall_ms:.1f} ms, device busy "
+          f"{act['busy_ms']:.2f} ms in {act['launches']:.0f} launches, idle share "
+          f"{profile['idle_share']:.3f}; {smi}", flush=True)
+    del synth
+    torch.cuda.empty_cache()
+    res = {"per_speaker": per, "flat": flat, "per_speaker_s": per_s, "flat_s": flat_s,
+           "finetunes": finetunes, "buckets": [r["bucket"] for r in served],
+           "queued_after": queued, "plain": plain, "evaluate": row, "evaluate_s": evaluate_s,
+           "self_uer": own["uer_max"], "units_card_vs_cpu": units, "batched": batched,
+           "examples": examples, "profile": profile, "card": smi,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"eval phase: {res['phase_s']:.1f} s", flush=True)
+    return res, launches
+
+
 def run_tools():
     """This slice's paths: the port's four tools at full size, each run
     with every launch counter set to 0 just before it and read just after.
@@ -2556,6 +2961,7 @@ def main(argv=None) -> int:
         trained2, corpus, launches["step2_adapted"] = train2(torch, dev, tmp, ckpt, step1_ckpt,
                                                              per_call, smi)
         gan, launches["gan_served"] = vocoder_gan(torch, dev, tmp, ckpt, corpus, per_call, smi)
+        evaluated, launches["eval"] = evaluation(torch, dev, tmp, ckpt, corpus, per_call, smi)
     records += m1
     launches["adapted"] = adapted_launches
     tool_launches, tools = run_tools()
@@ -2568,7 +2974,7 @@ def main(argv=None) -> int:
             json.dump({"card": smi, "records": records, "paths": paths, "adapt": adapted,
                        "frontends": front, "voice": voice, "serving": served,
                        "train": trained, "train2": trained2, "vocoder_gan": gan,
-                       "kernels": kernels,
+                       "eval": evaluated, "kernels": kernels,
                        "launches": launches, "tools": tools, "breakdown": breakdown}, f,
                       indent=1)
     print(json.dumps({"paths": paths}))
@@ -2579,6 +2985,12 @@ def main(argv=None) -> int:
     print(json.dumps({"train": {k: v for k, v in trained.items() if k != "runs"}}))
     print(json.dumps({"train2": {k: v for k, v in trained2.items() if k != "runs"}}))
     print(json.dumps({"vocoder_gan": {k: v for k, v in gan.items() if k != "runs"}}))
+    print(json.dumps({"eval": {
+        "rtf": {"per_speaker": evaluated["per_speaker"]["rtf"],
+                "flat": evaluated["flat"]["rtf"]},
+        "finetune_s": [f["seconds"] for f in evaluated["finetunes"]],
+        "uer": {k: evaluated["evaluate"][k] for k in ("uer_mean", "uer_median", "uer_max")},
+        "sample": evaluated["profile"], "phase_s": evaluated["phase_s"], "card": smi}}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

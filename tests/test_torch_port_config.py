@@ -274,3 +274,85 @@ def test_training_commands_import_nothing_of_jax(tmp_path):
                           timeout=150)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "no JAX imported: True" in proc.stdout
+
+
+BLOCKED_EVAL = r"""
+import importlib.abc, os, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "unitspeech_tpu"):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from unitspeech_tpu_torch import cli
+from unitspeech_tpu_torch.config import load_json
+from unitspeech_tpu_torch.eval import generate_samples
+from unitspeech_tpu_torch.examples import demo, speaker_probing
+from unitspeech_tpu_torch.tools import ssl_reference, uer_synth_study
+from unitspeech_tpu_torch.utils.audio import write_wav
+
+cfg, d = sys.argv[1:3]
+ckpt = os.path.join(d, "ckpt.pt")
+cli.main_make_random_checkpoint(["--seed", "2", "--config", cfg, "--output", ckpt])
+rng = np.random.default_rng(0)
+write_wav(os.path.join(d, "ref.wav"), 0.3 * np.sin(np.arange(1600) * 0.3), 1600)
+np.savez(os.path.join(d, "units.npz"), units=rng.integers(0, 50, 25), durations=np.full(25, 2))
+np.save(os.path.join(d, "spk.npy"), rng.standard_normal(8).astype(np.float32))
+with open(os.path.join(d, "refs.txt"), "w") as f:
+    f.write(os.path.join(d, "ref.wav") + "|ref|0\n")
+with open(os.path.join(d, "eval.txt"), "w") as f:
+    f.write(os.path.join(d, "ref.wav") + "|həloʊ|0\n")
+with open(os.path.join(d, "s.txt"), "w") as f:
+    f.write("həloʊ\n")
+mods = ["--ipa", "--config", cfg, "--decoder", ckpt, "--text-encoder", ckpt,
+        "--duration-predictor", ckpt, "--vocoder", ckpt, "--diffusion-steps", "1",
+        "--device", "cpu"]
+flat = generate_samples.main(mods + ["--sentences", os.path.join(d, "s.txt"), "--out-dir",
+                                     os.path.join(d, "flat")])
+per = generate_samples.main(mods + ["--reference-filelist", os.path.join(d, "refs.txt"),
+                                    "--eval-filelist", os.path.join(d, "eval.txt"),
+                                    "--unit-encoder", ckpt, "--units",
+                                    os.path.join(d, "units.npz"), "--spk-emb",
+                                    os.path.join(d, "spk.npy"), "--finetune-iters", "1",
+                                    "--out-dir", os.path.join(d, "per")])
+assert flat["n"] == 1 and list(per["per_speaker"]) == ["0"], (flat, per)
+ssl = ssl_reference.random_ssl_reference(d, load_json(cfg), seed=3)
+row = cli.main(["evaluate", "--samples-dir", os.path.join(d, "per", "speaker_0"), "--filelist",
+                os.path.join(d, "eval.txt"), "--hubert", ssl["hubert"], "--kmeans",
+                ssl["kmeans"], "--config", cfg, "--device", "cpu"])
+assert row == 0 and os.path.exists(os.path.join(d, "per", "speaker_0", "summary.csv"))
+uer_synth_study.main(["--n-utts", "2", "--seconds", "0.5", "--k", "8", "--device", "cpu"])
+demo.main(["--device", "cpu", "--output", os.path.join(d, "demo.wav")])
+speaker_probing.main(["--device", "cpu", "--steps", "2", "--n-per-speaker", "2"])
+print("no JAX imported:", not any(m.split(".")[0] in ("jax", "unitspeech_tpu")
+                                  for m in sys.modules))
+"""
+
+
+def test_evaluation_commands_import_nothing_of_jax(tmp_path):
+    """The evaluation slice's entry points with every import of jax, flax or
+    unitspeech_tpu refused, on the CPU at test widths in a process of its
+    own on one thread: eval.generate_samples flat and per-speaker (one
+    fine-tune iteration, sidecar units), `cli evaluate --hubert --kmeans`
+    (tools/ssl_reference's files), the UER study, the demo and the speaker
+    probe."""
+    from tests.test_torch_port_finetune import TINY_FT
+
+    cfg = dict(TINY_FT, unit_extractor={"dense_model_name": "hubert-test", "vocab_size": 40,
+                                        "hubert_layer": 2},
+               spk_embedder={"sr": 1600, "feat_type": "wavlm_test", "channels": 16,
+                             "spk_emb_dim": 8})
+    (tmp_path / "tiny.json").write_text(json.dumps(cfg))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.run([sys.executable, "-c", BLOCKED_EVAL, str(tmp_path / "tiny.json"),
+                           str(tmp_path)], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=200)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "no JAX imported: True" in proc.stdout
+

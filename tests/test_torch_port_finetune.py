@@ -3,9 +3,9 @@ mel frontend, reflect_extend, process_unit, the forward-diffusion
 coefficients, the segment crop, fine_tune_loss and its gradients,
 clip_by_global_norm, prepare_finetune_inputs, three iterations of
 finetune_decoder (and 20 steps at lr 1e-3, where both packages are
-compared for divergence), then `cli finetune` -> `cli inference
---decoder`, `cli finetune` from a wav alone through the SSL frontends, and
-the CLI's refusals; last, marked slow, twelve steps at lr 1e-3 at full
+compared for divergence), finetune_decoder_batched at two speakers, then
+`cli finetune` -> `cli inference --decoder`, `cli finetune` from a wav
+alone through the SSL frontends, and the CLI's refusals; last, marked slow, twelve steps at lr 1e-3 at full
 width, the port's loss held to JAX's at the same parameters.
 
 The JAX PRNG streams cannot be reproduced in torch, so the port is fed
@@ -338,11 +338,17 @@ def test_finetune_decoder_three_iterations_match_jax(setup, jax_finetune):
         grad_clip=1.0, draws=draws)
     assert losses.shape == (ITERS,) and losses.dtype == np.float32
     np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
+    _assert_adapted_like_jax(s, got, want_params, base, (c, yy, yl, a),
+                             torch.from_numpy(s["spk"]), draws[0])
 
-    # the first step's gradients, for the rounding-level entries
+
+def _assert_adapted_like_jax(s, got, want_params, base, inputs, spk, draws0):
+    """Each adapted parameter within 2e-3 * lr * steps of JAX's plus one f32
+    rounding of its value; the entries whose first-step gradient (from
+    draws0) is at rounding level within 2 * lr * steps; the parameters the
+    loss does not use unmoved; and the adaptation moved the weights."""
     dec = _port_decoder(s)
-    tdiff.fine_tune_loss(dec, c, yy, yl, a, torch.from_numpy(s["spk"]), SEG,
-                         draws=draws[0]).backward()
+    tdiff.fine_tune_loss(dec, *inputs, spk, SEG, draws=draws0).backward()
     bound = 2e-3 * LR * ITERS
     moved = 0
     for name, p in dec.named_parameters():
@@ -358,6 +364,53 @@ def test_finetune_decoder_three_iterations_match_jax(setup, jax_finetune):
             np.testing.assert_array_equal(g, b0)
         assert np.all(np.abs(g - w) <= tol), (name, np.abs(g - w).max())
     assert moved > 1000  # the adaptation moved the weights
+
+
+def test_finetune_decoder_batched_matches_jax(setup):
+    """finetune_decoder_batched at S = 2 (the second speaker another mel and
+    voice), 3 iterations, f32, each speaker with its own JAX draws, against
+    JAX's finetune_decoder_batched(mesh=None): the losses within 1e-5
+    relative, each speaker's parameters at the single fine-tune test's
+    tolerance; and each row bit-equal to a single finetune_decoder run."""
+    s = setup
+    rng = np.random.default_rng(17)
+    mel2 = np.tanh(rng.standard_normal((TY, 16))).astype(np.float32)
+    spk2 = rng.standard_normal((1, 8)).astype(np.float32)
+    spk2 /= np.linalg.norm(spk2)
+    jin2 = jft.prepare_finetune_inputs(s["jue"], s["ue_params"], s["units"], s["dur"], mel2,
+                                       num_downsamplings=1)
+    per = [tuple(np.asarray(x) for x in s["jin"]), tuple(np.asarray(x) for x in jin2)]
+    spks = [s["spk"], spk2]
+    stacked = [np.stack(xs) for xs in zip(*per)]
+    keys = jax.random.split(jax.random.PRNGKey(21), 2)
+    jparams = jax.tree_util.tree_map(lambda x: jnp.stack([x, x]), s["dparams"])
+    want_params, want_losses = jft.finetune_decoder_batched(
+        s["jdec"].apply, jparams, *stacked, jnp.asarray(np.stack(spks)), keys, mesh=None,
+        segment_size=SEG, n_iters=ITERS, learning_rate=LR, grad_clip=1.0)
+    want_params = params_from_jax(jax.device_get(want_params))
+
+    base = params_from_jax(s["dparams"])
+    inputs = [tuple(torch.from_numpy(x) for x in p) for p in per]
+    draws = [[_jax_draws(keys[k], i, inputs[k][1].shape) for i in range(ITERS)]
+             for k in range(2)]
+    got, losses = tft.finetune_decoder_batched(
+        DecoderConfig(**DEC), {k: torch.stack([v, v]) for k, v in base.items()},
+        *(torch.stack(xs) for xs in zip(*inputs)), torch.from_numpy(np.stack(spks)),
+        dtype=torch.float32, segment_size=SEG, n_iters=ITERS, learning_rate=LR, grad_clip=1.0,
+        draws=draws)
+    assert losses.shape == (2, ITERS) and set(got) == set(base)
+    np.testing.assert_allclose(losses, np.asarray(want_losses), rtol=1e-5)
+    assert not np.allclose(losses[0], losses[1])
+    for k in range(2):
+        row = {n: v[k] for n, v in got.items()}
+        _assert_adapted_like_jax(s, row, {n: v[k] for n, v in want_params.items()}, base,
+                                 inputs[k], torch.from_numpy(spks[k]), draws[k][0])
+        single, single_losses = tft.finetune_decoder(
+            DecoderConfig(**DEC), base, *inputs[k], torch.from_numpy(spks[k]),
+            dtype=torch.float32, segment_size=SEG, n_iters=ITERS, learning_rate=LR,
+            grad_clip=1.0, draws=draws[k])
+        assert np.array_equal(single_losses, losses[k])
+        assert all(torch.equal(single[n], row[n]) for n in single)
 
 
 def test_finetune_bf16_loss_near_f32(setup):

@@ -1,6 +1,7 @@
 """Command-line entry points of the port (counterpart of
 unitspeech_tpu/cli.py for the adaptive-TTS, speaker-adaptation,
-voice-conversion, serving and training slices and the SSL frontends).
+voice-conversion, serving, training and evaluation slices and the SSL
+frontends; JAX's `warmup-adapt` is not ported).
 
     python -m unitspeech_tpu_torch.cli make-random-checkpoint --seed 0 --output ckpt.pt
     python -m unitspeech_tpu_torch.cli inference --text "Hello." [--language en-us] \\
@@ -28,14 +29,16 @@ voice-conversion, serving and training slices and the SSL frontends).
         --mel-stats mel_stats.npz --decoder ckpts/step_100 --checkpoint-dir ckpts2 [--resume]
     python -m unitspeech_tpu_torch.cli train-vocoder --filelist train.txt --checkpoint-dir voc \
         [--steps 1000] [--resume]
+    python -m unitspeech_tpu_torch.cli evaluate --samples-dir samples --filelist eval.txt \
+        --hubert hubert.pt --kmeans kmeans.npz [--asr-hook m:f --mos-hook m:f --spk-hook m:f]
 
 A checkpoint is a `torch.save`d dict: one state dict per module in the
 port's layout, the speaker embedding, the mel min/max and the config
 (utils/artifacts lists the port's formats). Every command runs on the card
 unless `--device cpu` is given; with no CUDA device `--device cuda` exits
 non-zero (`make-filelist` runs on the host). f32 means f32: `inference`,
-`serve`, `finetune`, `voice-conversion`, the SSL preprocessors and the
-three training commands run with TF32 off for f32 matmuls and cuDNN convs
+`serve`, `finetune`, `voice-conversion`, `evaluate`, the SSL
+preprocessors and the three training commands run with TF32 off for f32 matmuls and cuDNN convs
 (utils/precision.strict_f32), and give the caller's settings back when
 they return.
 """
@@ -50,7 +53,7 @@ import time
 
 import numpy as np
 
-from unitspeech_tpu_torch.utils.audio import load_wav, write_wav
+from unitspeech_tpu_torch.utils.audio import load_wav, resample_to, write_wav
 from unitspeech_tpu_torch.utils.precision import strict_f32
 
 # Mel-frame bucket ladder of the fine-tune's reference (4/8/12/16/24 s of
@@ -369,16 +372,6 @@ def finetune_inputs(cfg, wav: np.ndarray, units, durations, unit_encoder_sd: dic
     return prepare_finetune_inputs(unit_encoder, units, durations, mel,
                                    num_downsamplings=cfg.decoder.num_downsamplings,
                                    pad_to=pad_to)
-
-
-def resample_to(wav: np.ndarray, sr: int, target: int) -> np.ndarray:
-    """wav at sr -> f32 at target (scipy resample_poly on the host, in
-    float64, as the JAX CLI)."""
-    if sr == target:
-        return np.asarray(wav, np.float32)
-    from scipy.signal import resample_poly
-
-    return resample_poly(np.asarray(wav, np.float64), target, sr).astype(np.float32)
 
 
 def load_speaker_embedder(path: str, cfg, device):
@@ -1371,6 +1364,117 @@ def main_train_vocoder(argv=None) -> dict:
             "device": str(device)}
 
 
+@strict_f32()
+def main_evaluate(argv=None) -> dict:
+    """The metric summary of a generated-samples directory as one CSV row
+    (JAX cli.py main_evaluate; the reference's evaluation-metrics
+    notebook): the RTF statistics of timings.npz, WER / CER through an ASR
+    hook, predicted MOS through a MOS hook, speaker cosine through an
+    embedding hook, and the unit round trip (uer_*) through a unit hook or
+    the port's mHuBERT + k-means on --device. External models are
+    'module:function' hooks:
+        --asr-hook  m:f   f(wav, sr) -> str
+        --mos-hook  m:f   f(wav, sr) -> float
+        --spk-hook  m:f   f(wav, sr) -> np.ndarray embedding
+        --unit-hook m:f   f(wav, sr) -> unit-id array
+    Writes the row to --out (default <samples-dir>/summary.csv), prints it
+    as JSON and returns it."""
+    ap = argparse.ArgumentParser("unitspeech-tpu-torch evaluate")
+    ap.add_argument("--samples-dir", required=True,
+                    help="directory from eval/generate_samples.py (sample_*.wav + timings.npz)")
+    ap.add_argument("--filelist", default=None,
+                    help="path|text|spk filelist giving the reference text for sample i on "
+                         "line i (enables WER/CER)")
+    ap.add_argument("--reference-wav", default=None,
+                    help="target-speaker reference wav (enables speaker cosine with "
+                         "--spk-hook)")
+    ap.add_argument("--asr-hook", default=None)
+    ap.add_argument("--mos-hook", default=None)
+    ap.add_argument("--spk-hook", default=None)
+    ap.add_argument("--unit-hook", default=None,
+                    help="'module:function' f(wav, sr) -> unit-id array for the unit round "
+                         "trip (uer_*); alternatively --hubert and --kmeans")
+    ap.add_argument("--hubert", default=None,
+                    help="mHuBERT for the unit extractor: a fairseq checkpoint or a port file")
+    ap.add_argument("--kmeans", default=None,
+                    help="k-means centroids for the unit extractor (.npz, or sklearn's joblib)")
+    ap.add_argument("--uer-ref-dir", default=None,
+                    help="directory of ground-truth wavs for sample i (sorted); default: the "
+                         "wav paths in --filelist")
+    ap.add_argument("--out", default=None,
+                    help="summary CSV path (default <samples-dir>/summary.csv)")
+    ap.add_argument("--config", default=None,
+                    help="JSON config overlay: the unit extractor's dense model and layer "
+                         "(default: the reference's)")
+    ap.add_argument("--device", default="cuda", help="the unit extractor's device")
+    args = ap.parse_args(argv)
+
+    import glob
+
+    from unitspeech_tpu_torch.config import MainConfig, load_json
+    from unitspeech_tpu_torch.data.dataset import parse_filelist
+    from unitspeech_tpu_torch.eval import harness
+
+    device = _device(args.device)
+    wav_paths = sorted(glob.glob(os.path.join(args.samples_dir, "sample_*.wav")))
+    if not wav_paths:
+        raise SystemExit(f"no sample_*.wav under {args.samples_dir}")
+    wavs = [load_wav(p) for p in wav_paths]
+
+    timings = None
+    tpath = os.path.join(args.samples_dir, "timings.npz")
+    if os.path.exists(tpath):
+        timings = harness.EvalTimings.load(tpath)
+
+    transcription_pairs = transcribe = None
+    if args.asr_hook and args.filelist:
+        texts = [e[1] for e in parse_filelist(args.filelist)]
+        transcription_pairs = [(w, sr, t) for (w, sr), t in zip(wavs, texts)]
+        transcribe = harness.load_hook(args.asr_hook)
+
+    predict_mos = harness.load_hook(args.mos_hook) if args.mos_hook else None
+
+    embedding_pairs = None
+    if args.spk_hook and args.reference_wav:
+        embed = harness.load_hook(args.spk_hook)
+        ref_emb = np.asarray(embed(*load_wav(args.reference_wav)))
+        embedding_pairs = [(ref_emb, np.asarray(embed(w, sr))) for w, sr in wavs]
+
+    # the unit round trip: units of each sample and of its ground-truth wav
+    # (--uer-ref-dir, sorted, else the --filelist paths)
+    unit_pairs = extract = None
+    if args.unit_hook or (args.hubert and args.kmeans):
+        if args.unit_hook:
+            extract = harness.load_hook(args.unit_hook)
+        else:
+            cfg = load_json(args.config) if args.config else MainConfig()
+            extract = harness.speech_encoder_unit_hook(
+                build_unit_extractor(args.hubert, args.kmeans, cfg, device))
+        if args.uer_ref_dir:
+            ref_paths = sorted(glob.glob(os.path.join(args.uer_ref_dir, "*.wav")))
+        elif args.filelist:
+            ref_paths = [e[0] for e in parse_filelist(args.filelist)]
+        else:
+            ref_paths = []
+        if not ref_paths:
+            print("uer: no ground-truth wavs (--uer-ref-dir / --filelist); skipping",
+                  file=sys.stderr)
+            extract = None
+        else:
+            unit_pairs = [(w, sr, *load_wav(p)) for (w, sr), p in zip(wavs, ref_paths)]
+
+    row = harness.evaluation_summary(
+        timings=timings, transcription_pairs=transcription_pairs, transcribe=transcribe,
+        mos_wavs=wavs if predict_mos else None, predict_mos=predict_mos,
+        embedding_pairs=embedding_pairs, unit_pairs=unit_pairs, extract_units=extract)
+    row["n_samples"] = len(wavs)
+    out = args.out or os.path.join(args.samples_dir, "summary.csv")
+    harness.write_summary_csv(out, row)
+    print(json.dumps(row))
+    print(f"summary -> {out}")
+    return row
+
+
 def main_convert(argv=None) -> int:
     from unitspeech_tpu_torch.utils import convert_cli
 
@@ -1386,7 +1490,8 @@ def main(argv=None) -> int:
                 "preprocess-uncond": main_preprocess_uncond, "train-step1": main_train_step1,
                 "train-step2": main_train_step2, "make-filelist": main_make_filelist,
                 "preprocess-spk-embs": main_preprocess_spk_embs,
-                "preprocess-units": main_preprocess_units, "train-vocoder": main_train_vocoder}
+                "preprocess-units": main_preprocess_units, "train-vocoder": main_train_vocoder,
+                "evaluate": main_evaluate}
     if not argv or argv[0] not in commands:
         print(f"usage: python -m unitspeech_tpu_torch.cli {{{','.join(commands)}}} ...",
               file=sys.stderr)

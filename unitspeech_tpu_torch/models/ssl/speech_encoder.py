@@ -1,8 +1,8 @@
 """SpeechEncoder: waveform -> {units, durations, dense} (counterpart of
 unitspeech_tpu/models/ssl/speech_encoder.py; textlesslib SpeechEncoder):
 a dense model (mHuBERT) -> k-means -> optional run-length deduplication
-and bos/eos wrapping, on a 16 kHz wav (the CLI resamples on the host).
-The dense model and the k-means product run on the dense model's device;
+and bos/eos wrapping, on a 16 kHz wav (maybe_resample, or the CLI,
+resamples on the host). The dense model and the k-means product run on the dense model's device;
 deduplication is on the host. The aligned F0 stream
 (need_f0) needs ops/f0.py, which the port does not have yet (ROADMAP
 Queue 1 item 12); no served path asks for it.
@@ -16,6 +16,7 @@ from typing import Any, Dict
 import numpy as np
 
 from unitspeech_tpu_torch.models.ssl.kmeans import KMeansQuantizer, dedup_consecutive
+from unitspeech_tpu_torch.utils.audio import resample_to
 
 
 @dataclass
@@ -42,6 +43,22 @@ class SpeechEncoder:
     @property
     def eos(self) -> int:
         return self.vocab_size + 1
+
+    @property
+    def code_hop_size(self) -> int:
+        return self.dense_model.hop
+
+    @property
+    def expected_sample_rate(self) -> int:
+        return 16000
+
+    def maybe_resample(self, wav: np.ndarray, sr: int) -> np.ndarray:
+        """wav at sr -> the dense model's rate: unchanged at that rate, else
+        resample_poly in float64 to f32 (JAX speech_encoder.py
+        maybe_resample)."""
+        if sr == self.expected_sample_rate:
+            return wav
+        return resample_to(wav, sr, self.expected_sample_rate)
 
     def __call__(self, wav: np.ndarray) -> Dict[str, np.ndarray]:
         """wav (samples,) at 16 kHz -> {"units", "durations", "dense"};

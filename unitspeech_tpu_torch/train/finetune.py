@@ -13,7 +13,8 @@ flags: its activations run in `dtype` (bf16 by default) and its
 parameters stay f32, cast at use, so that a step of 2e-5 is not lost to
 bf16 rounding. Serve the result through the kernels by loading its state
 dict into a kernel-route decoder, whose load hook packs the adapted
-weights.
+weights. finetune_decoder_batched adapts several speakers, one trajectory
+each.
 """
 
 from __future__ import annotations
@@ -103,3 +104,31 @@ def finetune_decoder(decoder_cfg, state_dict, cond_x, y, y_lengths, attn, spk_em
             step_hook(i)
     return ({k: v.detach().clone() for k, v in model.state_dict().items()},
             losses.cpu().numpy())
+
+
+def finetune_decoder_batched(decoder_cfg, stacked_state: dict, cond_x, y, y_lengths, attn,
+                             spk_emb, dtype=torch.bfloat16, segment_size: int = 176,
+                             n_iters: int = 500, learning_rate: float = 2e-5,
+                             grad_clip: float = 1.0, generators=None, draws=None):
+    """Adapt S speakers, one finetune_decoder trajectory each (JAX
+    finetune_decoder_batched with mesh=None: lax.map runs the speakers one
+    after another on one device; its mesh form is not ported, as
+    parallel/ is not). Every input carries a leading speaker axis:
+    stacked_state maps each decoder parameter to (S, ...), cond_x
+    (S, 1, Tx, F), y (S, 1, Ty, F), y_lengths (S, 1), attn (S, 1, Tx, Ty),
+    spk_emb (S, 1, E). Speaker s draws from generators[s], or takes
+    draws[s] (one {"u", "t", "z"} per step). Returns (the adapted stack,
+    each parameter (S, ...) f32 on y's device; losses (S, n_iters) float32
+    numpy)."""
+    n = y.shape[0]
+    states, losses = [], []
+    for s in range(n):
+        state, loss = finetune_decoder(
+            decoder_cfg, {k: v[s] for k, v in stacked_state.items()}, cond_x[s], y[s],
+            y_lengths[s], attn[s], spk_emb[s], dtype=dtype, segment_size=segment_size,
+            n_iters=n_iters, learning_rate=learning_rate, grad_clip=grad_clip,
+            generator=None if generators is None else generators[s],
+            draws=None if draws is None else draws[s])
+        states.append(state)
+        losses.append(loss)
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}, np.stack(losses)

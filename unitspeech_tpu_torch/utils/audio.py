@@ -1,5 +1,6 @@
 """PCM wav reading and writing without soundfile or librosa (counterpart
-of unitspeech_tpu/data/dataset.py load_wav / write_wav)."""
+of unitspeech_tpu/data/dataset.py load_wav / write_wav), and the host
+resampling every SSL frontend's input goes through."""
 
 from __future__ import annotations
 
@@ -32,3 +33,13 @@ def write_wav(path: str, data: np.ndarray, sr: int):
         w.setsampwidth(2)
         w.setframerate(sr)
         w.writeframes(pcm.tobytes())
+
+
+def resample_to(wav: np.ndarray, sr: int, target: int) -> np.ndarray:
+    """wav at sr -> f32 at target (scipy resample_poly on the host, in
+    float64, as the JAX CLI)."""
+    if sr == target:
+        return np.asarray(wav, np.float32)
+    from scipy.signal import resample_poly
+
+    return resample_poly(np.asarray(wav, np.float64), target, sr).astype(np.float32)
