@@ -94,6 +94,15 @@ UER 0; two samples' unit streams against the CPU's);
 finetune_decoder_batched at full width equal to single fine-tunes on the
 same draws; the demo and speaker-probing examples; and one request's
 device time, launches and idle share.
+Then the textlesslib extras (no kernel may launch): random full-width
+checkpoints in the reference's formats (tools/extras_reference: Tacotron2,
+WaveGlow with weight norm, CPC), `examples.resynthesis` with the checkpoint
+stack (the frontends' mHuBERT-base, 100 centroids) and the CPC stack
+(`build_unit_extractor`, cpc-big-ll6k at depth 2) on a 4 s wav, the CPC
+depth error at the default config, the Tacotron2 decoder for 1 000 steps
+(ms and launches a step) and WaveGlow's ms a second of audio, Tacotron2,
+WaveGlow, the denoiser, CPC features and the F0 track against the CPU in
+strict f32, a quantized filelist with the F0 stream, and `examples.gslm`.
 Last, the paths of the kernels that no request runs, the port's four tools
 at full size (unitspeech_tpu_torch/tools): the kernel benchmark with
 --int8 --deep (the in-kernel int8 blocks K10a, K10b), the transcendental
@@ -2830,6 +2839,305 @@ def evaluation(torch, dev, tmp, ckpt_path, filelist, per_call, smi):
     print(f"eval phase: {res['phase_s']:.1f} s", flush=True)
     return res, launches
 
+# The extras phase (after eval): the textlesslib extras at full width from
+# random checkpoints in the reference's formats (tools/extras_reference:
+# Tacotron2Config(), WaveGlowConfig() with weight norm, cpc_base_config(),
+# 100 codes), the frontends phase's full-width mHuBERT-base; 100 centroids
+# for each stack from a 4 s synthetic 16 kHz wav's features
+EXTRAS_SEED, EXTRAS_SECONDS, EXTRAS_CODES = 80, 4.0, 100
+EXTRAS_DECODER_STEPS = 1000  # the decoder at length (the gate never fires)
+EXTRAS_PROFILED_STEPS = 100  # decoder steps under torch.profiler
+EXTRAS_CMP_STEPS = 200  # card vs CPU: Tacotron2 steps, WaveGlow on their mel
+EXTRAS_F0_UTTS = 4
+# card vs CPU in strict f32: relative L2 bounds (the F0 track: voicing equal,
+# f0 within EXTRAS_BOUNDS["f0"] relative)
+EXTRAS_BOUNDS = {"tacotron2": 1e-4, "waveglow": 1e-4, "denoiser": 1e-4, "denoiser_bias": 1e-4,
+                 "cpc": 1e-5, "f0": 1e-4}
+
+
+def _rel_l2(got, want) -> float:
+    got, want = (np.asarray(x, np.float64) for x in (got, want))
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+
+
+def _voiced_glide(seconds, seed):
+    """The F0 oracle's harmonic glide (tests/test_f0_oracle.py synth_voiced:
+    12 harmonics at 1/k, 120 -> 180 Hz, 20 dB SNR)."""
+    t = np.arange(int(16000 * seconds)) / 16000
+    f0 = 120 + 60 * t / t[-1]
+    phase = 2 * np.pi * np.cumsum(f0) / 16000
+    sig = sum((1.0 / k) * np.sin(k * phase) for k in range(1, 13))
+    sig /= np.abs(sig).max()
+    noise = np.random.default_rng(seed).standard_normal(t.size)
+    noise *= np.sqrt((sig ** 2).mean() / 100.0 / (noise ** 2).mean())
+    return (sig + noise).astype(np.float32)
+
+
+def extras(torch, dev, tmp, smi):
+    """The textlesslib extras on the card at full width: examples.resynthesis
+    with the checkpoint stack (the frontends phase's mHuBERT-base as
+    hubert-base-ls960 and 100 centroids, evenly spaced frames of its layer-6
+    features of the wav; Tacotron2 + WaveGlow from_torch) on a 4 s wav, which must
+    write n_steps x 256 samples; the CPC stack (build_unit_extractor,
+    cpc-big-ll6k at depth 2) on the same wav and a vocoder; the default
+    config's depth 6 must stop with the CPC depth ValueError; the decoder
+    for EXTRAS_DECODER_STEPS steps (ms and launches a step); Tacotron2 with
+    injected prenet masks, WaveGlow with injected noise, the denoiser, CPC
+    features and the F0 track on the card against the CPU in strict f32;
+    QuantizedFilelist with need_f0 over 4 utterances (the mHuBERT encoder:
+    one F0 value a unit, the collater's 1-tuple; the CPC encoder raises the
+    JAX package's tolerance error at these lengths); the GSLM example.
+    No kernel of the port may launch. Returns the measurements and the
+    phase's launches."""
+    import dataclasses
+
+    from unitspeech_tpu_torch import cli
+    from unitspeech_tpu_torch.config import MainConfig
+    from unitspeech_tpu_torch.data.quantize import QuantizedFilelist
+    from unitspeech_tpu_torch.examples import gslm, resynthesis
+    from unitspeech_tpu_torch.infer.unit_vocoder import TacotronVocoder, token_bucket
+    from unitspeech_tpu_torch.models.ssl.cpc import CpcFeatureReader
+    from unitspeech_tpu_torch.models.ssl.kmeans import KMeansQuantizer
+    from unitspeech_tpu_torch.models.ssl.speech_encoder import SpeechEncoder
+    from unitspeech_tpu_torch.models.tacotron2 import tacotron2_infer
+    from unitspeech_tpu_torch.models.waveglow import noise_shapes, upsample_mel, waveglow_infer
+    from unitspeech_tpu_torch.ops.f0 import extract_f0
+    from unitspeech_tpu_torch.tools import extras_reference
+    from unitspeech_tpu_torch.utils.audio import load_wav, write_wav
+    from unitspeech_tpu_torch.utils.precision import strict_f32
+
+    t_phase = time.perf_counter()
+    wrappers = _kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    d = os.path.join(tmp, "extras")
+    t0 = time.perf_counter()
+    files = extras_reference.write_extras(d, seed=EXTRAS_SEED, n_codes=EXTRAS_CODES)
+    fe = os.path.join(tmp, "frontends")
+    files["hubert"] = os.path.join(fe, "port_hubert.pt")
+    wav = resynthesis.default_wav(EXTRAS_SECONDS)
+    files["wav"] = os.path.join(d, "in.wav")
+    write_wav(files["wav"], wav, 16000)
+    wav = load_wav(files["wav"])[0]
+    cpc_reader = CpcFeatureReader.from_torch(files["cpc"], layer=2, device=dev)
+    hub_reader = cli.build_unit_extractor(files["hubert"], os.path.join(fe, "port_kmeans.npz"),
+                                          MainConfig(), dev).dense_model
+    with strict_f32():
+        feats, hub_feats = cpc_reader(wav), hub_reader(wav)
+    # each stack's 100 centroids: evenly spaced frames of the wav's own
+    # features (layer 6 of mHuBERT; the CPC LSTM's output), so the units vary
+    for name, f in (("kmeans", hub_feats), ("kmeans_cpc", feats)):
+        files[name] = os.path.join(d, f"{name}_100.npz")
+        idx = np.linspace(0, len(f) - 1, EXTRAS_CODES).astype(int)
+        KMeansQuantizer(np.ascontiguousarray(f[idx])).save(files[name])
+    setup_s = time.perf_counter() - t0
+    print(f"extras: random full-width checkpoints in the reference's formats (Tacotron2, "
+          f"WaveGlow 12 flows x 8 layers x 256, CPC 512 / 256 x 2) written in {setup_s:.1f} s",
+          flush=True)
+    ckpt = ["--tacotron", files["tacotron"], "--waveglow", files["waveglow"], "--code-dict",
+            files["code_dict"]]
+
+    # resynthesis: the HuBERT stack through the example
+    out_wav = os.path.join(d, "resynth.wav")
+    t0 = time.perf_counter()
+    hub = resynthesis.main(["--input", files["wav"], "--output", out_wav, "--hubert",
+                            files["hubert"], "--kmeans", files["kmeans"], *ckpt])
+    hub_wall = time.perf_counter() - t0
+    out, sr = load_wav(out_wav)
+    if not (sr == 22050 and len(out) == hub["samples"] and hub["samples"] % 256 == 0
+            and 0 < hub["samples"] // 256 <= 2000 and np.isfinite(out).all()
+            and hub["units"].size > 0):
+        raise AssertionError(f"resynthesis (HuBERT): {len(out)} samples at {sr} Hz, {hub}")
+    res = {"hubert": {"units": int(hub["units"].size), "uniform_bps": hub["uniform_bps"],
+                      "unigram_bps": hub["unigram_bps"], "n_steps": hub["samples"] // 256,
+                      "wall_s": hub_wall, "synth_s": hub["wall_s"],
+                      "rtf": hub["wall_s"] / (hub["samples"] / 22050)}}
+    print(f"  resynthesis, HuBERT stack (python -m unitspeech_tpu_torch.examples.resynthesis): "
+          f"{hub['units'].size} units, {hub['uniform_bps']:.1f} / {hub['unigram_bps']:.1f} bps "
+          f"(uniform / unigram), {res['hubert']['n_steps']} decoder steps -> {len(out)} samples; "
+          f"{hub_wall:.2f} s with loading, {hub['wall_s']:.2f} s to encode and vocode (RTF "
+          f"{res['hubert']['rtf']:.4f} of the output's duration)", flush=True)
+
+    # the CPC stack on the same wav, and the default config's depth
+    ucfg = MainConfig().unit_extractor
+    cfg = dataclasses.replace(MainConfig(), unit_extractor=dataclasses.replace(
+        ucfg, dense_model_name="cpc-big-ll6k", hubert_layer=2))
+    with strict_f32():
+        voc = TacotronVocoder.from_torch(files["tacotron"], files["code_dict"], files["waveglow"],
+                                         device=dev)
+        enc_cpc = cli.build_unit_extractor(files["cpc"], files["kmeans_cpc"], cfg, dev)
+        t0 = time.perf_counter()
+        units_cpc = enc_cpc(wav)["units"]
+        out_cpc = voc(units_cpc)
+        torch.cuda.synchronize()
+        cpc_wall = time.perf_counter() - t0
+    uni, unig = resynthesis.bitrates("cpc-big-ll6k", units_cpc.size, EXTRAS_CODES,
+                                     EXTRAS_SECONDS)
+    res["cpc"] = {"units": int(units_cpc.size), "uniform_bps": uni, "unigram_bps": unig,
+                  "n_steps": len(out_cpc) // 256, "synth_s": cpc_wall,
+                  "rtf": cpc_wall / (len(out_cpc) / 22050)}
+    if not (units_cpc.size > 0 and len(out_cpc) % 256 == 0 and np.isfinite(out_cpc).all()):
+        raise AssertionError(f"resynthesis (CPC): {res['cpc']}")
+    print(f"  resynthesis, CPC stack (cpc-big-ll6k, depth 2): {units_cpc.size} units, "
+          f"{uni:.1f} / {unig:.1f} bps, {len(out_cpc)} samples, {cpc_wall:.2f} s (RTF "
+          f"{res['cpc']['rtf']:.4f})", flush=True)
+    try:
+        resynthesis.main(["--input", files["wav"], "--output", out_wav, "--dense-model",
+                          "cpc-big-ll6k", "--hubert", files["cpc"], "--kmeans",
+                          files["kmeans_cpc"], *ckpt])
+    except ValueError as e:
+        res["cpc_default_depth"] = str(e)
+    else:
+        raise AssertionError("resynthesis --dense-model cpc-big-ll6k at the default depth 6 ran")
+    print(f"  --dense-model cpc-big-ll6k at the default config's depth: "
+          f"{res['cpc_default_depth']}", flush=True)
+
+    # the decoder at length, and WaveGlow over a whole decoder buffer
+    ids = voc.tts_input.get_ids(" ".join(map(str, hub["units"])))
+    tokens = torch.zeros((1, token_bucket(len(ids))), dtype=torch.long)
+    tokens[0, :len(ids)] = torch.from_numpy(ids.astype(np.int64))
+    tokens, lengths = tokens.to(dev), torch.tensor([len(ids)], device=dev)
+    long_cfg = dataclasses.replace(voc.tacotron.cfg, gate_threshold=1.1,
+                                   max_decoder_steps=EXTRAS_DECODER_STEPS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with strict_f32():
+        tacotron2_infer(voc.tacotron, tokens, lengths, generator=gen,
+                        cfg=dataclasses.replace(long_cfg, max_decoder_steps=8))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        long = tacotron2_infer(voc.tacotron, tokens, lengths, generator=gen, cfg=long_cfg)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / EXTRAS_DECODER_STEPS
+        act = kernel_breakdown.device_activity(lambda: tacotron2_infer(
+            voc.tacotron, tokens, lengths, generator=gen,
+            cfg=dataclasses.replace(long_cfg, max_decoder_steps=EXTRAS_PROFILED_STEPS)), 1)
+        mel = long[1]
+        waveglow_infer(voc.waveglow, mel[:, :8], sigma=0.666, generator=gen)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            audio = waveglow_infer(voc.waveglow, mel, sigma=0.666, generator=gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    audio_s = audio.shape[1] / 22050
+    res["decoder"] = {"steps": int(long[4][0]), "ms_per_step": decode_ms,
+                      "launches_per_step": act["launches"] / EXTRAS_PROFILED_STEPS,
+                      "device_ms_per_step": act["busy_ms"] / EXTRAS_PROFILED_STEPS}
+    res["waveglow"] = {"frames": int(mel.shape[1]), "audio_s": audio_s,
+                       "ms_per_audio_s": float(np.median(times)) * 1e3 / audio_s}
+    if not (int(long[4][0]) == EXTRAS_DECODER_STEPS and torch.isfinite(mel).all()
+            and torch.isfinite(audio).all()):
+        raise AssertionError(f"the decoder at length: {res['decoder']}")
+    print(f"  Tacotron2 decoder, {EXTRAS_DECODER_STEPS} steps at full width (f32, the gate "
+          f"never fires): {decode_ms:.3f} ms a step (host clock), "
+          f"{res['decoder']['launches_per_step']:.1f} launches and "
+          f"{res['decoder']['device_ms_per_step']:.3f} ms of device time a step "
+          f"(torch.profiler, {EXTRAS_PROFILED_STEPS} steps); WaveGlow over the "
+          f"{mel.shape[1]}-frame buffer ({audio_s:.2f} s of audio): "
+          f"{res['waveglow']['ms_per_audio_s']:.2f} ms a second of audio (median of 3); {smi}",
+          flush=True)
+
+    # card vs CPU in strict f32
+    cpu = torch.device("cpu")
+    cmp_cfg = dataclasses.replace(voc.tacotron.cfg, max_decoder_steps=EXTRAS_CMP_STEPS)
+    masks = torch.rand((EXTRAS_CMP_STEPS, 2, 1, cmp_cfg.prenet_dim),
+                       generator=torch.Generator().manual_seed(1)) < 0.5
+    errs = {}
+    with strict_f32():
+        voc_cpu = TacotronVocoder.from_torch(files["tacotron"], files["code_dict"],
+                                             files["waveglow"], device=cpu)
+        card = tacotron2_infer(voc.tacotron, tokens, lengths, prenet_masks=masks.to(dev),
+                               cfg=cmp_cfg)
+        ref = tacotron2_infer(voc_cpu.tacotron, tokens.cpu(), lengths.cpu(), prenet_masks=masks,
+                              cfg=cmp_cfg)
+        errs["tacotron2"] = _rel_l2(card[1].cpu(), ref[1])
+        mel_cpu = ref[1]
+        t_g = upsample_mel(voc_cpu.waveglow, mel_cpu).shape[2]
+        rng = np.random.default_rng(2)
+        noise = [rng.standard_normal(s).astype(np.float32)
+                 for s in noise_shapes(voc.waveglow.cfg, 1, t_g)]
+        wg_card = waveglow_infer(voc.waveglow, mel_cpu.to(dev), sigma=0.666, noise=noise)
+        wg_cpu = waveglow_infer(voc_cpu.waveglow, mel_cpu, sigma=0.666, noise=noise)
+        errs["waveglow"] = _rel_l2(wg_card.cpu(), wg_cpu)
+        den_card = voc.denoiser(wg_cpu.to(dev), 0.1)
+        den_cpu = voc_cpu.denoiser(wg_cpu, 0.1)
+        errs["denoiser_bias"] = _rel_l2(voc.denoiser.bias_spec.cpu(), voc_cpu.denoiser.bias_spec)
+        errs["denoiser"] = _rel_l2(den_card.cpu(), den_cpu)
+        cpc_cpu = CpcFeatureReader.from_torch(files["cpc"], layer=2, device=cpu)
+        errs["cpc"] = _rel_l2(feats, cpc_cpu(wav))
+        glide = _voiced_glide(1.0, 0)
+        f0_card = extract_f0(torch.from_numpy(glide).to(dev))
+        f0_cpu = extract_f0(torch.from_numpy(glide))
+    voiced = f0_cpu > 0
+    f0_rel = float((np.abs(f0_card - f0_cpu)[voiced] / f0_cpu[voiced]).max())
+    errs["f0"] = f0_rel
+    f0_voicing_equal = bool(np.array_equal(f0_card > 0, voiced))
+    res["card_vs_cpu"] = {"errors": errs, "bounds": EXTRAS_BOUNDS,
+                          "f0_voicing_equal": f0_voicing_equal, "f0_voiced": int(voiced.sum())}
+    print("  card vs CPU (strict f32), relative L2 (F0: largest relative error) beside its "
+          "bound: " + ", ".join(f"{k} {v:.3e} (<= {EXTRAS_BOUNDS[k]:.0e})" for k, v in
+                                errs.items()) + f"; F0 voicing equal: {f0_voicing_equal} "
+          f"({int(voiced.sum())} of {voiced.size} frames voiced)", flush=True)
+    if not (f0_voicing_equal and all(errs[k] <= EXTRAS_BOUNDS[k] for k in EXTRAS_BOUNDS)):
+        raise AssertionError(f"extras card vs CPU: {res['card_vs_cpu']}")
+    del voc_cpu, cpc_cpu
+
+    # the F0 stream over a quantized filelist
+    rows = []
+    for i in range(EXTRAS_F0_UTTS):
+        p = os.path.join(d, f"f0_{i}.wav")
+        write_wav(p, _voiced_glide(1.5 + 0.25 * i, 10 + i), 16000)
+        rows.append(f"{p}|utterance {i}|spk{i % 2}")
+    with open(os.path.join(d, "f0_list.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    enc_hub = cli.build_unit_extractor(files["hubert"], files["kmeans"], MainConfig(), dev)
+    with strict_f32():
+        ds = QuantizedFilelist(SpeechEncoder(enc_hub.dense_model, enc_hub.quantizer,
+                                             need_f0=True), os.path.join(d, "f0_list.txt"))
+        items = [ds[i] for i in range(len(ds))]
+        batch = ds.collater(items)
+        try:
+            QuantizedFilelist(SpeechEncoder(enc_cpc.dense_model, enc_cpc.quantizer,
+                                            need_f0=True), os.path.join(d, "f0_list.txt"))[0]
+        except ValueError as e:
+            cpc_f0 = str(e)
+        else:
+            raise AssertionError("the CPC encoder's F0 stream ran within JAX's tolerance")
+    per_unit = all(it["f0"].shape == it["units"].shape for it in items)
+    if not (per_unit and isinstance(batch["f0"], tuple) and len(batch["f0"]) == 1
+            and batch["f0"][0].shape == batch["units"].shape
+            and all((it["f0"] > 0).any() for it in items)):
+        raise AssertionError("the F0 stream: one value a unit and the collater's 1-tuple")
+    res["f0_stream"] = {"units": [int(it["units"].size) for it in items],
+                        "voiced_units": [int((it["f0"] > 0).sum()) for it in items],
+                        "batch": list(batch["units"].shape), "cpc_need_f0": cpc_f0}
+    print(f"  F0 stream: QuantizedFilelist over {len(items)} utterances, mHuBERT + 100 centroids "
+          f"with need_f0: units {res['f0_stream']['units']}, voiced units "
+          f"{res['f0_stream']['voiced_units']}, collated f0 a 1-tuple of "
+          f"{tuple(batch['f0'][0].shape)}; the CPC encoder with need_f0: {cpc_f0}", flush=True)
+
+    # the GSLM example
+    t0 = time.perf_counter()
+    loss, prompt, cont = gslm.main(["--output", os.path.join(d, "gslm.wav")])
+    res["gslm"] = {"final_ce": loss, "prompt_units": int(prompt.size), "sampled": int(cont.size),
+                   "seconds": time.perf_counter() - t0}
+    print(f"  GSLM (python -m unitspeech_tpu_torch.examples.gslm): final next-unit CE "
+          f"{loss:.3f}, {prompt.size} prompt units + {cont.size} sampled, "
+          f"{res['gslm']['seconds']:.1f} s", flush=True)
+    if not (np.isfinite(loss) and cont.size > 0):
+        raise AssertionError(f"gslm: {res['gslm']}")
+
+    launches = {name: w.launches for name, w in wrappers.items()}
+    if any(launches.values()):
+        raise AssertionError(f"extras: kernel launches {launches}, expected none")
+    del voc, enc_cpc, enc_hub, cpc_reader, hub_reader
+    torch.cuda.empty_cache()
+    res["card"] = smi
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"extras phase: {res['phase_s']:.1f} s", flush=True)
+    return res, launches
+
 
 def run_tools():
     """This slice's paths: the port's four tools at full size, each run
@@ -2962,6 +3270,7 @@ def main(argv=None) -> int:
                                                              per_call, smi)
         gan, launches["gan_served"] = vocoder_gan(torch, dev, tmp, ckpt, corpus, per_call, smi)
         evaluated, launches["eval"] = evaluation(torch, dev, tmp, ckpt, corpus, per_call, smi)
+        extra, launches["extras"] = extras(torch, dev, tmp, smi)
     records += m1
     launches["adapted"] = adapted_launches
     tool_launches, tools = run_tools()
@@ -2974,7 +3283,7 @@ def main(argv=None) -> int:
             json.dump({"card": smi, "records": records, "paths": paths, "adapt": adapted,
                        "frontends": front, "voice": voice, "serving": served,
                        "train": trained, "train2": trained2, "vocoder_gan": gan,
-                       "eval": evaluated, "kernels": kernels,
+                       "eval": evaluated, "extras": extra, "kernels": kernels,
                        "launches": launches, "tools": tools, "breakdown": breakdown}, f,
                       indent=1)
     print(json.dumps({"paths": paths}))
@@ -2991,6 +3300,15 @@ def main(argv=None) -> int:
         "finetune_s": [f["seconds"] for f in evaluated["finetunes"]],
         "uer": {k: evaluated["evaluate"][k] for k in ("uer_mean", "uer_median", "uer_max")},
         "sample": evaluated["profile"], "phase_s": evaluated["phase_s"], "card": smi}}))
+    print(json.dumps({"extras": {
+        "resynthesis": {k: {m: extra[k][m] for m in ("units", "uniform_bps", "unigram_bps",
+                                                     "synth_s", "rtf")}
+                        for k in ("hubert", "cpc")},
+        "hubert_wall_s": extra["hubert"]["wall_s"], "decoder": extra["decoder"],
+        "waveglow_ms_per_audio_s": extra["waveglow"]["ms_per_audio_s"],
+        "errors": extra["card_vs_cpu"]["errors"], "bounds": EXTRAS_BOUNDS,
+        "gslm_final_ce": extra["gslm"]["final_ce"], "phase_s": extra["phase_s"],
+        "card": smi}}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

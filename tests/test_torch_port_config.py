@@ -9,6 +9,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -356,3 +357,127 @@ def test_evaluation_commands_import_nothing_of_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "no JAX imported: True" in proc.stdout
 
+
+
+def _unit_lm_tree():
+    """The root GSLM example's UnitLM parameters from flax's init."""
+    import importlib.util
+
+    import jax
+    import jax.numpy as jnp
+
+    spec = importlib.util.spec_from_file_location("gslm_example_config",
+                                                  os.path.join(ROOT, "examples", "gslm.py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # flax's dataclasses look their module up
+    spec.loader.exec_module(mod)
+    lm = mod.UnitLM(vocab_size=6, d_model=16)
+    return jax.device_get(jax.jit(lm.init)(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32)))
+
+
+def _extras_tree(name):
+    from unitspeech_tpu.models import tacotron2, waveglow
+    from unitspeech_tpu.models.ssl import cpc
+    from unitspeech_tpu_torch.tools import extras_reference
+
+    if name == "tacotron2":
+        return tacotron2.random_tacotron2_params(tacotron2.tacotron2_test_config(obs_dim=2), 1)
+    if name == "waveglow":
+        return waveglow.random_waveglow_params(waveglow.waveglow_test_config(), 2)
+    if name == "cpc":
+        sd = extras_reference.random_cpc_state_dict(cpc.cpc_test_config(), 3)
+        return cpc.convert_cpc({k: v.numpy() for k, v in sd.items()}, cpc.cpc_test_config())
+    return _unit_lm_tree()
+
+
+@pytest.mark.parametrize("name", ["tacotron2", "waveglow", "cpc", "unit_lm"])
+def test_extras_parameter_round_trip_is_exact(name):
+    """params_to_jax(params_from_jax(tree)) gives the JAX tree back bit for
+    bit (structure, dtypes, values) for the extras' trees: Tacotron2 and
+    WaveGlow (plain dicts, which come back under "params"), CPC and the
+    GSLM unit LM (flax variable trees)."""
+    import jax
+
+    from unitspeech_tpu_torch.utils.params import params_from_jax, params_to_jax
+
+    tree = _extras_tree(name)
+    back = params_to_jax(params_from_jax(tree))
+    if "params" not in tree:
+        assert set(back) == {"params"}
+        back = back["params"]
+    assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(tree)
+    for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(tree)):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+
+
+BLOCKED_EXTRAS = r"""
+import importlib.abc, os, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "unitspeech_tpu"):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import dataclasses
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from unitspeech_tpu_torch import cli
+from unitspeech_tpu_torch.config import MainConfig
+from unitspeech_tpu_torch.data import quantize
+from unitspeech_tpu_torch.examples import flax_layers, gslm, resynthesis  # noqa: F401
+from unitspeech_tpu_torch.infer import unit_vocoder
+from unitspeech_tpu_torch.models import tacotron2, waveglow
+from unitspeech_tpu_torch.models.ssl import cpc
+from unitspeech_tpu_torch.ops import f0
+from unitspeech_tpu_torch.tools import extras_reference
+from unitspeech_tpu_torch.utils.audio import write_wav
+
+d = sys.argv[1]
+resynthesis.main(["--device", "cpu", "--output", os.path.join(d, "r.wav")])
+gslm.main(["--device", "cpu", "--train-steps", "2", "--output", os.path.join(d, "g.wav")])
+paths = extras_reference.write_extras(
+    d, tacotron2.tacotron2_test_config(n_symbols=14, gate_threshold=1.1),
+    waveglow.waveglow_test_config(n_mel_channels=8, n_flows=3, n_channels=8,
+                                  upsample_kernel=1024, upsample_stride=256),
+    cpc.cpc_test_config(), n_codes=10)
+np.savez(os.path.join(d, "k.npz"), centroids=np.random.default_rng(0).standard_normal(
+    (10, 6)).astype(np.float32) * 0.1)
+cfg = MainConfig()
+cfg = dataclasses.replace(cfg, unit_extractor=dataclasses.replace(
+    cfg.unit_extractor, dense_model_name="cpc-big-ll6k", hubert_layer=2))
+enc = cli.build_unit_extractor(paths["cpc"], os.path.join(d, "k.npz"), cfg, torch.device("cpu"))
+t = np.arange(8000) / 16000.0
+for i in range(2):
+    write_wav(os.path.join(d, f"u{i}.wav"), 0.3 * np.sin(2 * np.pi * (120 + 40 * i) * t), 16000)
+with open(os.path.join(d, "list.txt"), "w") as f:
+    f.write("".join(f"{os.path.join(d, f'u{i}.wav')}|x|s{i}\n" for i in range(2)))
+ds = quantize.QuantizedFilelist(enc, os.path.join(d, "list.txt"))
+batch = ds.collater([ds[0], ds[1]])
+assert batch["units"].shape[0] == 2 and "f0" not in batch
+assert f0.extract_f0(np.sin(np.arange(4000) * 0.06).astype(np.float32)).shape == (38,)
+voc = unit_vocoder.TacotronVocoder.from_torch(paths["tacotron"], paths["code_dict"],
+                                              paths["waveglow"], max_decoder_steps=4,
+                                              device="cpu")
+assert voc(batch["units"][0][batch["units"][0] < 10]).shape == (4 * 256,)
+print("no JAX imported:", not any(m.split(".")[0] in ("jax", "flax", "optax", "unitspeech_tpu")
+                                  for m in sys.modules))
+"""
+
+
+def test_extras_import_nothing_of_jax(tmp_path):
+    """The textlesslib extras with every import of jax, flax, optax or
+    unitspeech_tpu refused, on the CPU at test widths in a process of its
+    own on one thread: the resynthesis and GSLM examples, the reference-
+    format checkpoints of tools/extras_reference, the CLI's CPC unit
+    extractor over a quantized filelist, the F0 tracker and the unit
+    vocoder read from its files."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.run([sys.executable, "-c", BLOCKED_EXTRAS, str(tmp_path)], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=150)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "no JAX imported: True" in proc.stdout

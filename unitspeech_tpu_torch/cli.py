@@ -419,8 +419,11 @@ def extract_speaker_embedding(path: str, wav, sr: int, cfg, device,
 
 
 def build_unit_extractor(hubert_path: str, kmeans_path: str, cfg, device):
-    """The mHuBERT + k-means SpeechEncoder (wav at 16 kHz -> units,
-    durations), its models on `device`; load it once and reuse it."""
+    """The dense model + k-means SpeechEncoder (wav at 16 kHz -> units,
+    durations), its models on `device`; load it once and reuse it. The
+    dense model is mHuBERT, or for names starting with "cpc" the CPC
+    checkpoint at `hubert_path` ({'weights', 'config'}) read to
+    cfg.unit_extractor.hubert_layer LSTM levels (JAX cli.py:516-529)."""
     import torch
 
     from unitspeech_tpu_torch.models.ssl.hubert import (
@@ -433,8 +436,13 @@ def build_unit_extractor(hubert_path: str, kmeans_path: str, cfg, device):
 
     ucfg = cfg.unit_extractor
     if ucfg.dense_model_name.startswith("cpc"):
-        raise SystemExit(f"{ucfg.dense_model_name}: the CPC dense models are not ported yet "
-                         "(ROADMAP Queue 1 item 12)")
+        # the CPC family (reference textless/__init__.py DENSE_MODELS:
+        # "cpc-big-ll6k" -> CpcFeatureReader)
+        from unitspeech_tpu_torch.models.ssl.cpc import CpcFeatureReader
+
+        reader = CpcFeatureReader.from_torch(hubert_path, layer=ucfg.hubert_layer, device=device)
+        return SpeechEncoder(reader, artifacts.load_kmeans(kmeans_path),
+                             deduplicate=ucfg.deduplicate)
     with torch.device("meta"):
         model = HubertModel(hubert_config_by_name(ucfg.dense_model_name))
     model.load_state_dict(artifacts.load_hubert_params(hubert_path, model.config), assign=True)

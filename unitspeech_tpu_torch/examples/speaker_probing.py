@@ -26,69 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-_TRUNC_STD = 0.87962566103423978  # std of a standard normal truncated to [-2, 2]
-
-
-def _lecun_(t: torch.Tensor, fan_in: int, generator) -> torch.Tensor:
-    """flax's lecun_normal: a normal truncated to 2 std, std sqrt(1 / fan_in)."""
-    with torch.no_grad():
-        x = torch.randn(t.shape, generator=generator)
-        while bool((bad := x.abs() > 2).any()):
-            x[bad] = torch.randn(int(bad.sum()), generator=generator)
-        return t.copy_(x * (math.sqrt(1.0 / fan_in) / _TRUNC_STD))
-
-
-class _Dense(nn.Module):
-    """flax Dense / DenseGeneral: kernel (*in, *out), bias (*out)."""
-
-    def __init__(self, in_shape, out_shape):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.zeros(*in_shape, *out_shape))
-        self.bias = nn.Parameter(torch.zeros(*out_shape))
-        self.n_in = len(in_shape)
-
-    def reset(self, generator):
-        _lecun_(self.kernel, math.prod(self.kernel.shape[:self.n_in]), generator)
-        nn.init.zeros_(self.bias)
-
-    def forward(self, x):
-        return torch.tensordot(x, self.kernel, dims=self.n_in) + self.bias
-
-
-class _LayerNorm(nn.Module):
-    def __init__(self, d):
-        super().__init__()
-        self.scale = nn.Parameter(torch.ones(d))
-        self.bias = nn.Parameter(torch.zeros(d))
-
-    def reset(self, generator):
-        nn.init.ones_(self.scale)
-        nn.init.zeros_(self.bias)
-
-    def forward(self, x):
-        return nn.functional.layer_norm(x, x.shape[-1:], self.scale, self.bias, eps=1e-6)
-
-
-class _SelfAttention(nn.Module):
-    """flax SelfAttention (MultiHeadDotProductAttention): per-head q / k /
-    v projections, softmax(q k^T / sqrt(head_dim)) with masked scores at
-    the dtype's minimum, the heads merged by `out`."""
-
-    def __init__(self, d, heads):
-        super().__init__()
-        hd = d // heads
-        self.query, self.key, self.value = (_Dense((d,), (heads, hd)) for _ in range(3))
-        self.out = _Dense((heads, hd), (d,))
-
-    def reset(self, generator):
-        for m in (self.query, self.key, self.value, self.out):
-            m.reset(generator)
-
-    def forward(self, x, mask):
-        q, k, v = self.query(x), self.key(x), self.value(x)  # (B, T, H, hd)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q / math.sqrt(q.shape[-1]), k)
-        scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
-        return self.out(torch.einsum("bhqk,bkhd->bqhd", scores.softmax(-1), v))
+from unitspeech_tpu_torch.examples.flax_layers import Dense, LayerNorm, SelfAttention
 
 
 class Probe(nn.Module):
@@ -107,7 +45,7 @@ class Probe(nn.Module):
         def dense(din, dout) -> str:
             nonlocal n_dense
             name = f"Dense_{n_dense}"
-            self.add_module(name, _Dense((din,), (dout,)))
+            self.add_module(name, Dense((din,), (dout,)))
             n_dense += 1
             return name
 
@@ -121,9 +59,9 @@ class Probe(nn.Module):
         # LayerNorm, Dense up, Dense down)
         self.layer_names = []
         for i in range(n_layers):
-            self.add_module(f"LayerNorm_{2 * i}", _LayerNorm(d_model))
-            self.add_module(f"SelfAttention_{i}", _SelfAttention(d_model, n_heads))
-            self.add_module(f"LayerNorm_{2 * i + 1}", _LayerNorm(d_model))
+            self.add_module(f"LayerNorm_{2 * i}", LayerNorm(d_model))
+            self.add_module(f"SelfAttention_{i}", SelfAttention(d_model, n_heads))
+            self.add_module(f"LayerNorm_{2 * i + 1}", LayerNorm(d_model))
             self.layer_names.append((f"LayerNorm_{2 * i}", f"SelfAttention_{i}",
                                      f"LayerNorm_{2 * i + 1}", dense(d_model, ffn),
                                      dense(ffn, d_model)))
@@ -135,7 +73,7 @@ class Probe(nn.Module):
         column normal(0.02)."""
         with torch.no_grad():
             for m in self.modules():
-                if isinstance(m, (_Dense, _LayerNorm, _SelfAttention)):
+                if isinstance(m, (Dense, LayerNorm, SelfAttention)):
                     m.reset(generator)
             if self.vocab_size:
                 e = self.Embed_0.embedding

@@ -42,8 +42,12 @@ def hubert_test_config() -> HubertConfig:
 
 
 def hubert_config_by_name(name: str) -> HubertConfig:
-    """The dense-model registry (reference textless/__init__.py:12-34)."""
-    table = {"mhubert-base-vp_en_es_fr": mhubert_base_config, "hubert-test": hubert_test_config}
+    """The dense-model registry (reference textless/__init__.py:12-34).
+    hubert-base-ls960 (the resynthesis example's default) has HuBERT Base's
+    shapes, as mHuBERT-base does; the JAX registry lacks it, so that its
+    example's checkpoint mode stops with a KeyError."""
+    table = {"mhubert-base-vp_en_es_fr": mhubert_base_config,
+             "hubert-base-ls960": mhubert_base_config, "hubert-test": hubert_test_config}
     if name not in table:
         raise KeyError(f"unknown dense model {name!r}; known: {sorted(table)}")
     return table[name]()
