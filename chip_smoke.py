@@ -608,14 +608,17 @@ def check_kernels(torch, dev):
                                                            f=f, groups=8, fpt=fpt),
                 I8_REL, counts(0, bench=1),
                 block_work(3, t * f, cin, cout, i8_conv1=True, i8_conv2=True))
+    # K10b runs K9's chain with its own roundings, at every K8 site
     for f, t, cin, cout, _ in K8_SITES:
         x, mask, lens, p = block_inputs(t, f, cin, cout)
+        # quantized and packed once, as the benchmark does before it times
         wq = (fused_resnet.quant_w(p["w1"]), fused_resnet.quant_w(p["w2"]))
+        packed = fused_resnet_deep.pack_block_weights_i8(p["w1"], wq, p.get("wres"))
         a = rows_args(x, lens, p, t, f, cin, cout)
-        compare("fused_resnet_block_deep_int8", src_i8,
+        compare("fused_resnet_block_deep_int8", "unitspeech_tpu_torch/csrc/resnet_deep_i8.cu",
                 "unitspeech_tpu/ops/pallas_resnet.py:643", f"F={f} T={t} {cin}->{cout}",
                 lambda: fused_resnet_deep.fused_resnet_block_deep(x, mask, groups=8, int8=True,
-                                                                  wq=wq, **p),
+                                                                  wq=wq, packed=packed, **p),
                 lambda: fused_resnet_deep.resnet_block_deep_int8_plain(
                     *a[:4], wq[0], *a[4:7], wq[1], *a[8:], f=f, groups=8),
                 I8_REL, counts(0, bench=1),
@@ -643,6 +646,21 @@ def check_kernels(torch, dev):
         compare(kern.__name__, src_pr, "tools/probe_stride.py:36", case,
                 lambda: kern(xs, *k_args), lambda: probe_stride.PLAIN[kern](xs, *k_args), 0.0,
                 counts(0, probe_stride=1), work, lib=libs[case])
+    # P2's band product keeps the full product's non-finite rule: an inf or
+    # NaN in a row the band skips makes its column NaN (0 * inf), bit for bit
+    # with the plain product elsewhere
+    xs_bad = xs.clone()
+    xs_bad[3, 5], xs_bad[301, 70], xs_bad[130, 8] = float("inf"), float("nan"), float("-inf")
+    got, want = probes.selection_matmul(xs_bad), probes.selection_matmul_plain(xs_bad)
+    torch.cuda.synchronize()
+    same_nan = torch.equal(got.isnan(), want.isnan())
+    if not (same_nan and torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
+            and int(want.isnan().any(0).sum()) == 3):
+        raise AssertionError("selection_matmul with non-finite rows differs from its plain "
+                             "version")
+    print(f"  selection_matmul non-finite rows 3, 130, 301: NaN in columns "
+          f"{got.isnan().any(0).nonzero().flatten().tolist()}, bit-equal to the plain version",
+          flush=True)
     # P3: kernel A alone and kernel C alone at the bisection's 14 shapes
     for name, (t, f, cin, cout) in bisect_deep_compile.CASES.items():
         q = bisect_deep_compile.case_inputs(name, dev)

@@ -796,10 +796,13 @@ def test_fused_resnet_block_int8(dev, t, f, cin, cout, fpt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,f,cin,cout", [(14, 20, 256, 512), (7, 10, 1024, 1024),
                                           (7, 10, 512, 1024), (7, 10, 2048, 512),
-                                          (14, 20, 1024, 256)])
+                                          (14, 20, 1024, 256), (14, 20, 512, 512),
+                                          (7, 10, 512, 512)])
 def test_fused_resnet_block_deep_int8(dev, t, f, cin, cout):
-    """K10b against its plain version: one scale per batch element, Cout
-    1024, conv1 in bf16 for Cin > Cout; padding rows come out zero."""
+    """K10b (K9's chain with K10b's roundings) against its plain version at
+    every width of chip_smoke.py's K8_SITES: one scale per batch element,
+    Cout 1024, conv1 in bf16 for Cin > Cout (Cin 2048); padding rows come
+    out zero."""
     rng = np.random.default_rng(cin + 2 * cout + f)
     mask = _mask(dev, t, [t, t - 5, t])
     p = _block_params(rng, dev, cin, cout)
@@ -840,6 +843,26 @@ def test_probe_stride_forms(dev, form):
         "interleave": (lambda: probes.interleave_rows(x), lambda: probes.interleave_rows_plain(x)),
     }[form]
     assert torch.equal(fn(), plain())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [[(3, 5, "inf")], [(301, 70, "nan")],
+                                 [(3, 5, "inf"), (301, 70, "nan"), (130, 8, "-inf")],
+                                 [(0, 0, "nan"), (511, 127, "inf"), (256, 64, "inf")]])
+def test_selection_matmul_non_finite(dev, bad):
+    """P2's band product with an inf or NaN in rows it skips (odd rows, and
+    even rows of other outputs): the full product's NaN columns (0 * inf),
+    the selected -inf / inf kept, the rest bit-equal to the plain version."""
+    x = _rand(np.random.default_rng(7), dev, 512, 128).to(torch.bfloat16)
+    for r, c, v in bad:
+        x[r, c] = float(v)
+    before = probes.selection_matmul.launches
+    got = probes.selection_matmul(x)
+    assert probes.selection_matmul.launches == before + 1
+    want = probes.selection_matmul_plain(x)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
+    assert int(want.isnan().any(0).sum()) == len(bad)
 
 
 @pytest.mark.cuda

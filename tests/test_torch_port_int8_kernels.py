@@ -1,20 +1,27 @@
 """The in-kernel int8 ResnetBlocks of the port against the JAX package on
 the CPU: K10a (`fused_resnet_block(int8=True)`, per-tile activation
 scales) and K10b (`fused_resnet_block_deep(int8=True)`, one scale per
-batch element), their tile choice and window quantize, in f32.
+batch element), their tile choice and window quantize, in f32; and the
+decomposition K10b's card chain computes (K9's launches with K10b's
+roundings) against JAX's whole-layer kernels bit for bit.
 
 Tolerances are stated per case."""
 
+from functools import partial
+
 import jax
+import jax.experimental.pallas as pl
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from tests._torch_port import mask as _mask
 from tests._torch_port import randomize
 from tests.test_torch_port_deep import BLOCK_CASES, _block_case, _port_args
 from unitspeech_tpu.models import unet as junet
+from unitspeech_tpu.ops import conv_matmul as jcm
 from unitspeech_tpu.ops import pallas_resnet as jpr
 from unitspeech_tpu_torch.ops import fused_resnet as fr
 from unitspeech_tpu_torch.ops import fused_resnet_deep as frd
@@ -190,3 +197,138 @@ def test_deep_int8_differs_from_i8pre_where_jax_does():
     a = frd.fused_resnet_block_deep(*pa, groups=4, int8=True).float()
     b = frd.fused_resnet_block_deep_i8(*pa, groups=4).float()
     assert 0 < (a - b).abs().max() < 0.1 * b.abs().max()
+
+
+def _bf16(a):
+    """f32 values rounded to bf16 (the card's activation dtype), as f32."""
+    return torch.from_numpy(np.array(a, np.float32)).to(torch.bfloat16).float()
+
+
+def _k10b_quantize(v, valid):
+    """K10b's quantize as the card runs it (us_i8_quantize_rows and the
+    glue's pass 1 with k10b): the masked layer of each batch element once,
+    s = 127 / (max + 1e-8) (one f32 add, one f32 division), x8 =
+    clip(round_half_even(v * s), -127, 127)."""
+    vm = v * valid
+    m = vm.abs().amax(dim=(1, 2))
+    s = torch.full_like(m, 127.0) / (m + 1e-8)
+    return torch.clamp(torch.round(vm * s[:, None, None]), -127, 127).to(torch.int8), s
+
+
+def _as_written(fn, *args):
+    """fn(*args) compiled without XLA's algebraic simplifier, which on the
+    CPU folds JAX's dequantize factor 1.0 / (127 / (m + 1e-8)) into
+    (m + 1e-8) / 127 (one rounding fewer), a rewrite the TPU's Mosaic
+    lowering of the kernel does not make."""
+    comp = jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_disable_hlo_passes": "algsimp"})
+    return comp(*args)
+
+
+def _jax_deep_kernel(kernel, n, cin, cout, operands, out_dtype, **kw):
+    """One of JAX's whole-layer kernels (_kernel_a_deep / _kernel_b_deep)
+    with int8=True in interpret mode over the batch, one Cout block,
+    _as_written: its (c, stats (B, 2, Cout))."""
+    b = operands[1].shape[0]
+    full = lambda c: pl.BlockSpec((1, n, c), lambda bb, cb: (bb, 0, 0),  # noqa: E731
+                                  memory_space=pltpu.VMEM)
+    row = lambda c: pl.BlockSpec((1, c), lambda bb, cb: (0, 0),  # noqa: E731
+                                 memory_space=pltpu.VMEM)
+    lens = pl.BlockSpec((1, 1, 1), lambda bb, cb: (bb, 0, 0), memory_space=pltpu.SMEM)
+    stats = pl.BlockSpec((1, 2, cout), lambda bb, cb: (bb, 0, 0), memory_space=pltpu.VMEM)
+    w = pl.BlockSpec((9 * cin, cout), lambda bb, cb: (0, 0), memory_space=pltpu.VMEM)
+    if kernel is jpr._kernel_a_deep:
+        specs = [lens, full(cin), w, row(cout), row(cout)]
+    else:
+        film = pl.BlockSpec((1, 1, cout), lambda bb, cb: (bb, 0, 0), memory_space=pltpu.VMEM)
+        specs = [lens, full(cout), stats, row(cout), row(cout), film, w, row(cout), row(cout)]
+    call = pl.pallas_call(
+        partial(kernel, f=operands[-1], n=n, n_true=n, out_dtype=out_dtype, int8=True, **kw),
+        grid=(b, 1), in_specs=specs, out_specs=(full(cout), stats),
+        out_shape=(jax.ShapeDtypeStruct((b, n, cout), out_dtype),
+                   jax.ShapeDtypeStruct((b, 2, cout), jnp.float32)),
+        interpret=True,
+    )
+    c, st = _as_written(call, *operands[:-1])
+    return np.array(c, np.float32), np.array(st)
+
+
+K10B_CASES = [  # (cin, cout, lens, max|x|): Cin < Cout, ==, >, and a small layer
+    (8, 16, [15, 9], None), (16, 16, [15, 15], None), (16, 8, [15, 9], None),
+    (16, 16, [15, 9], 1e-3)]
+
+
+@pytest.mark.parametrize("cin,cout,lens,amax", K10B_CASES)
+def test_k10b_card_decomposition_matches_pallas_exactly(cin, cout, lens, amax):
+    """K10b's chain on the card, modelled in plain PyTorch, against JAX's
+    K10b kernels (_kernel_a_deep, _kernel_b_deep with int8=True) in
+    interpret mode, bit for bit, on bf16 values: x quantized once per batch
+    element over its masked layer with 127 / (max + 1e-8) (the TPU window's
+    zero halo frames add nothing to the maximum), the int8 taps, the
+    dequantize f32(acc) * ((1/s) * rsw) + b1 -> c1; the glue h = mish(GN1(c1)
+    * scale + shift) + FiLM, masked and rounded to bf16, then quantized the
+    same way -> conv2 -> c2. Both sides take the same int8 weights and
+    reciprocal scales, and the glue takes JAX's GroupNorm 1 statistics (the
+    card sums them in its own order; a separate tolerance covers that).
+    XLA on the CPU contracts a multiply and the add after it into one fused
+    multiply-add (acc * f + bias, h * scale + shift), which rounds once
+    where JAX's text, and the card, round twice: the conv biases and
+    GroupNorm 1's shift, the terms those adds bring in, are zero here, so
+    both sides round alike (the non-zero terms are held to the plain
+    version by test_deep_int8_plain_matches_pallas and on the card). For
+    Cin > Cout conv1 is JAX's XLA hybrid in float, whose sums XLA orders its
+    own way: there c1 is K8's conv within 1e-5, and c2 is bit-equal from
+    JAX's c1. At max|x| = 1e-3 the two scale forms differ (K9's 127 /
+    max(m, 1e-8) is another f32 value): the card must take K10b's."""
+    x, _, t_bias, args, _, _ = _block_case(cin, cout, lens, 11 * cin + cout)
+    bsz, t, f = x.shape[:3]
+    n = t * f
+    if amax is not None:
+        x = x * (amax / np.abs(x).max())
+    x = _bf16(x.reshape(bsz, n, cin))  # the card's bf16 activations
+    film = _bf16(t_bias)
+    w1, _, s1, _, w2 = map(_t, args[:5])
+    b1, be1, b2 = torch.zeros((3, cout))  # the adds XLA would contract (see above)
+    wq1, wq2 = fr.quant_w(w1), fr.quant_w(w2)
+    lens_rows = torch.tensor(lens, dtype=torch.int32) * f
+    valid = fr._valid(lens_rows, n)
+    jlens = jnp.asarray(lens_rows.numpy().reshape(bsz, 1, 1))
+    row = lambda v: jnp.asarray(v.numpy()[None])  # noqa: E731
+
+    if cin <= cout:
+        x8, sx = _k10b_quantize(x, valid)
+        c1 = frd._dequant(frd._conv3x3_i8_plain(x8, wq1, f), sx, wq1[1], b1)
+        jc1, jstats1 = _jax_deep_kernel(
+            jpr._kernel_a_deep, n, cin, cout,
+            (jlens, jnp.asarray(x.numpy()), jnp.asarray(wq1[0].t().contiguous().numpy()),
+             row(wq1[1]), row(b1), f), jnp.float32)
+        np.testing.assert_array_equal(c1.numpy(), jc1)
+        if amax is not None:
+            k9 = frd._quantize_plain(x, valid)[1]
+            assert not torch.equal(sx, k9)  # the forms differ here
+    else:
+        xm = jnp.asarray((x * valid).numpy())
+        conv = jcm.conv3x3_im2col if jcm.choose_conv_impl(cin, cout) == "im2col" else \
+            jcm.conv3x3_taps
+        jacc = conv(xm, jnp.asarray(w1.numpy()), f) + jnp.asarray(b1.numpy())
+        jc1 = np.asarray(jacc, np.float32)
+        jstats1 = np.stack([jc1.sum(1), (jc1 * jc1).sum(1)], axis=1)
+        c1 = fr.conv3x3_rows(x * valid, w1.reshape(9 * cin, cout), f) + b1
+        np.testing.assert_allclose(c1.numpy(), jc1, atol=1e-5, rtol=1e-5)
+
+    # the glue from JAX's c1 and GroupNorm 1 statistics, rounded to bf16
+    c1b = _bf16(jc1)
+    stats = partial(jpr._group_stats, n_rows=n, groups=4)
+    mean, inv = zip(*(_as_written(stats, jnp.asarray(jstats1[i, 0]), jnp.asarray(jstats1[i, 1]))
+                      for i in range(bsz)))
+    mean, inv = (torch.from_numpy(np.stack([np.asarray(m) for m in v])) for v in (mean, inv))
+    h = fr._gn_mish(c1b, mean, inv, s1, be1) + film[:, None, :]
+    h = (h * valid).to(torch.bfloat16).float()
+    h8, sx2 = _k10b_quantize(h, valid)
+    c2 = frd._dequant(frd._conv3x3_i8_plain(h8, wq2, f), sx2, wq2[1], b2)
+    jc2, _ = _jax_deep_kernel(
+        jpr._kernel_b_deep, n, cout, cout,
+        (jlens, jnp.asarray(jc1, jnp.bfloat16), jnp.asarray(jstats1), row(s1), row(be1),
+         jnp.asarray(film.numpy()[:, None, :]), jnp.asarray(wq2[0].t().contiguous().numpy()),
+         row(wq2[1]), row(b2), f), jnp.float32, groups=4)
+    np.testing.assert_array_equal(c2.numpy(), jc2)

@@ -104,6 +104,69 @@ def test_probe_stride_forms_match_numpy(case):
         (3 if key == "inter" else 2) * 512 * 128)
 
 
+def _k_selmat(x_ref, o_ref):
+    """tools/probe_stride.py's k_selmat (defined inside its main)."""
+    v = x_ref[...]
+    rr = v.shape[0]
+    row = jax.lax.broadcasted_iota(jnp.int32, (rr // 2, rr), 0)
+    col = jax.lax.broadcasted_iota(jnp.int32, (rr // 2, rr), 1)
+    s = (col == 2 * row).astype(v.dtype)
+    o_ref[...] = jnp.dot(s, v, preferred_element_type=jnp.float32).astype(v.dtype)
+
+
+def _band_product(x: torch.Tensor, bm: int = 64) -> torch.Tensor:
+    """P2's band form as the card runs it (csrc/probes.cu selection_band),
+    in plain PyTorch: output rows [m0, m0 + bm) are S's (bm, 2 bm) band
+    block times x rows [2 m0, 2 m0 + 2 bm), in f32 from zero; an output is
+    NaN where its column has a non-finite value in a row other than its own
+    x[2i] (the block holds the column's every row and counts them once);
+    rounded to x's dtype."""
+    r, c = x.shape
+    xf = x.float()
+    s = probes.selection_matrix(2 * bm, torch.float32)
+    out = torch.cat([s @ xf[2 * bm * blk:2 * bm * (blk + 1)] for blk in range(r // (2 * bm))])
+    bad = ~torch.isfinite(xf)
+    out[bad.sum(0)[None, :] > bad[0::2].int()] = float("nan")
+    return out.to(x.dtype)
+
+
+def _same(a: torch.Tensor, b: np.ndarray) -> None:
+    """Equal bit for bit up to the NaN payload: NaN in the same places,
+    every other value equal (infinities included)."""
+    a = a.float().numpy()
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+    np.testing.assert_array_equal(np.nan_to_num(a, nan=0.0, posinf=np.inf, neginf=-np.inf),
+                                  np.nan_to_num(b, nan=0.0, posinf=np.inf, neginf=-np.inf))
+
+
+@pytest.mark.parametrize("bad", [[], [(3, 5, "inf")], [(301, 70, "nan")],
+                                 [(3, 5, "inf"), (301, 70, "nan"), (130, 8, "-inf")]])
+def test_selection_band_form_matches_pallas(bad):
+    """P2's band product on the card skips the rows of x outside each
+    block's band; with the non-finite rule (a column with an inf or NaN in
+    a skipped row is NaN, as 0 * inf makes the full product's) it equals
+    selection_matmul_plain (the wrapper on the CPU) and JAX's k_selmat in
+    interpret mode bit for bit, on finite input and with an inf and a NaN in
+    odd rows (which every output skips) and a -inf in an even row (kept by
+    its own output, NaN in the others), at probe_stride's (512, 128)."""
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((512, 128))
+                         .astype(np.float32)).to(torch.bfloat16)
+    for r, c, v in bad:
+        x[r, c] = float(v)
+    xj = jnp.asarray(x.float().numpy(), jnp.bfloat16)
+    want = np.asarray(pl.pallas_call(
+        _k_selmat,
+        in_specs=[pl.BlockSpec((512, 128), lambda: (0, 0), memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec((256, 128), lambda: (0, 0), memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((256, 128), jnp.bfloat16), interpret=True,
+    )(xj), np.float32)
+    assert int(np.isnan(want).any(0).sum()) == len(bad)
+    band = _band_product(x)
+    _same(band, want)
+    _same(probes.selection_matmul(x), want)
+    _same(band, probes.selection_matmul_plain(x).float().numpy())
+
+
 def test_bisect_cases_match_jax():
     """P3 runs the JAX tool's 14 shapes."""
     assert bisect_deep_compile.CASES == jax_bisect.CASES

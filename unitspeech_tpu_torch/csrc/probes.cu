@@ -19,14 +19,40 @@
 //                   strided getitem, lax.slice and sublane-reshape forms
 //                   (period 2, keep 1) and the frame-block select (period
 //                   2F, keep F) are all this one gather;
-//   selection_mm    S @ x with S[i, 2i] = 1 of shape (R/2, R), a 0/1 product
-//                   on the tensor cores (mma.sync, f32 accumulate: exact),
-//                   S made in the A-operand loader;
+//   selection_band  S @ x with S[i, 2i] = 1 of shape (R/2, R) (k_selmat), a
+//                   0/1 product on the tensor cores, below;
 //   interleave_rows out row 2i = x row i, row 2i + 1 = bf16(x row i + 1).
-// Rows are bf16 and C % 8 == 0 (16-byte loads; the product needs C % 64).
+// Rows are bf16 and C % 8 == 0 (16-byte pieces).
 // What bounds them: bytes (each reads x once and writes its rows once; the
-// product's 2 * R/2 * R * C operations sit far under the tensor-core rate).
-#include "common.cuh"
+// product's 2 * R/2 * R * C operations sit far under the tensor-core rate),
+// and at the tool's (512, 128) the launch: the product's 192 KB take 0.06 us
+// at 3.35 TB/s, and an empty kernel takes about 5 us. row_select and
+// interleave_rows are one grid-stride pass of 16-byte copies at that floor.
+//
+// The selection product, band form: output rows [m0, m0 + 64) have their
+// ones in x rows [2 m0, 2 m0 + 128), so a warpgroup takes only that band.
+// A block owns a column strip of 8 (one 16-byte piece a row) and all R
+// rows, one thread a row: each loads its row's piece and stores it to
+// shared memory (R x 16 bytes; each 8 rows a contiguous 128-byte core
+// matrix, no swizzle; a proxy fence makes the stores visible to wgmma),
+// and warpgroup g runs eight wgmma m64n8k16 over band g, with S made in
+// registers as the A fragment (lane l of warp w holds row 16 w + l / 4
+// (+ 8) and columns 2 (l % 4) (+ 8) of each k16 step: a one where column
+// == 2 row) and the band as an MN-major B (its rows are k, 8 contiguous n
+// each). The sum is
+// f32 from zero, so each output is x[2i] exactly (1 * x + 0s), and the
+// band's other rows reach it as 0 * x: an inf or NaN there gives NaN, as
+// the full product does. Rows outside the band are skipped, so the
+// non-finite rule is kept by a count: the block holds every row of its
+// columns, counts each column's non-finite values once (from each thread's
+// piece), and an output is NaN where its column has one in a row other than
+// its own x[2i]. x is read once; no block needs another's rows. Grid C / 8
+// blocks of R threads (R / 128 warpgroups). Measured and dropped (PERF.md):
+// a cluster of four 64-column blocks a strip that added the others' counts
+// through distributed shared memory, and a TMA copy of each band (an
+// mbarrier and one issuing thread ahead of the products: slower at this
+// size than the threads' own loads).
+#include "hopper.cuh"
 
 namespace {
 
@@ -114,46 +140,88 @@ __global__ void __launch_bounds__(256) interleave_rows(const bf16* x, bf16* out,
   }
 }
 
-// (R/2, R) selection matrix times x (R, C): the shared 128 x 64 implicit
-// GEMM loop of common.cuh with S generated in the A loader.
-__global__ void __launch_bounds__(IG_THREADS) selection_mm(const bf16* x, bf16* out, int R,
-                                                           int C) {
-  __shared__ IgemmTiles tiles;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.x * IG_BM, n0 = blockIdx.y * IG_BN;
-  const int M = R / 2;
-  const bf16 one = __float2bfloat16(1.f), zero = __float2bfloat16(0.f);
-  auto load_a = [&](int kb, uint4 (&reg)[2]) {
+constexpr int SEL_COLS = 8;          // columns of a block: one 16-byte piece a row
+constexpr int SEL_BM = 64;           // output rows of a warpgroup: wgmma's M
+constexpr int SEL_BAND = 2 * SEL_BM; // the x rows they reach
+constexpr int SEL_MAX_ROWS = 1024;   // R threads a block
+
+// D (64 x 8 f32) += A (64 x 16 bf16, registers, as hopper.cuh WgmmaRS) * B
+// (16 x 8 bf16 in shared memory, MN-major: 16 rows of 8 n values, two
+// 128-byte core matrices, no swizzle). The last immediate transposes B.
+US_DEV void wgmma_n8_mn(float (&d)[4], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// Descriptor of that B: no swizzle, core matrices (8 rows of 16 bytes,
+// 128 bytes) one after another along k; both byte offsets 128, so the k
+// step between them is 128 bytes whichever field the MN-major form reads
+// (the n direction has one core matrix). 16 rows on is 16 added.
+US_DEV uint64_t wgmma_desc_mn8(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (8ull << 16) | (8ull << 32);
+}
+
+// The non-finite bf16 values of a 32-bit pair (exponent all ones), low and high.
+US_DEV int bad_lo(uint32_t w) { return (w & 0x7F80u) == 0x7F80u; }
+US_DEV int bad_hi(uint32_t w) { return (w & 0x7F800000u) == 0x7F800000u; }
+
+// out (R/2, C) = S x for the block's 8 columns; see the header. R threads.
+__global__ void __launch_bounds__(SEL_MAX_ROWS) selection_band(const bf16* x, bf16* out,
+                                                               int C) {
+  __shared__ __align__(128) uint8_t strip[SEL_MAX_ROWS * 16];  // row r at 16 r
+  __shared__ int bad[SEL_COLS];  // the strip's non-finite values per column
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int c0 = blockIdx.x * SEL_COLS;
+  const uint4 mine = __ldg(reinterpret_cast<const uint4*>(x + (size_t)tid * C + c0));
+  *reinterpret_cast<uint4*>(strip + tid * 16) = mine;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma's reads
+  if (tid < SEL_COLS) bad[tid] = 0;
+  // S's fragments: k16 step j, register i
+  uint32_t a[SEL_BAND / 16][4];
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      int v = tid + s * IG_THREADS;
-      int m = m0 + (v >> 2);
-      int k = kb * IG_BK + (v & 3) * 8;
-      bf16* r = reinterpret_cast<bf16*>(&reg[s]);
+  for (int j = 0; j < SEL_BAND / 16; ++j)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) r[e] = (m < M && k + e == 2 * m) ? one : zero;
+    for (int i = 0; i < 4; ++i) {
+      const int row = 16 * warp + (lane >> 2) + 8 * (i & 1);
+      const int col = 16 * j + 2 * (lane & 3) + 8 * (i >> 1);
+      a[j][i] = col == 2 * row ? 0x3F80u : 0u;  // bf16 1.0 in the low (even) column
     }
-  };
-  auto load_b = [&](int kb) -> uint4 {
-    int k = kb * IG_BK + (tid >> 3);
-    if (k >= R) return make_uint4(0, 0, 0, 0);
-    return *reinterpret_cast<const uint4*>(x + (size_t)k * C + n0 + (tid & 7) * 8);
-  };
-  float acc[2][4][4];
-  igemm_bf16(acc, tiles, (R + IG_BK - 1) / IG_BK, load_a, load_b);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  __syncthreads();
+  wgmma_fence_acc(acc);
+  wgmma_fence();
+  const uint64_t desc = wgmma_desc_mn8(strip + wg * SEL_BAND * 16);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int j = 0; j < SEL_BAND / 16; ++j) wgmma_n8_mn(acc, a[j], desc + 16 * j);
+  wgmma_commit();
+  {  // the count while the products run: thread t holds row t
+    const uint32_t w[4] = {mine.x, mine.y, mine.z, mine.w};
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int q = 0; q < 4; ++q) {
+      if (bad_lo(w[q])) atomicAdd(&bad[2 * q], 1);
+      if (bad_hi(w[q])) atomicAdd(&bad[2 * q + 1], 1);
+    }
+  }
+  wgmma_wait<0>();
+  wgmma_fence_acc(acc);
+  __syncthreads();
+  const int col = 2 * (lane & 3);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        int m = m0 + wm * 32 + i * 16 + (lane >> 2) + h * 8;
-        int n = n0 + wn * 32 + j * 8 + (lane & 3) * 2;
-        if (m >= M) continue;
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * C + n) =
-            __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-      }
+  for (int h = 0; h < 2; ++h) {
+    const int m = wg * SEL_BM + 16 * warp + (lane >> 2) + 8 * h;
+    // NaN where the column has a non-finite value besides x[2m]'s own
+    const uint32_t own = *reinterpret_cast<const uint32_t*>(strip + 2 * m * 16 + col * 2);
+    const float qnan = __int_as_float(0x7FC00000);
+    *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * C + c0 + col) =
+        __floats2bfloat162_rn(bad[col] > bad_lo(own) ? qnan : acc[2 * h],
+                              bad[col + 1] > bad_hi(own) ? qnan : acc[2 * h + 1]);
+  }
 }
 
 int grid_for(size_t items) {
@@ -201,11 +269,13 @@ int us_interleave_rows(const void* x, void* out, int R, int C, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// P2: out (R/2, C) = S @ x, S[i, 2i] = 1, on the tensor cores. C % 64 == 0.
+// P2: out (R/2, C) = S @ x, S[i, 2i] = 1, the band form on the tensor
+// cores. C % 8 == 0, R % 128 == 0, R <= 1024.
 int us_selection_matmul(const void* x, void* out, int R, int C, void* stream) {
-  selection_mm<<<dim3(us_ceil_div(R / 2, IG_BM), C / IG_BN), IG_THREADS, 0,
-                 static_cast<cudaStream_t>(stream)>>>(static_cast<const bf16*>(x),
-                                                      static_cast<bf16*>(out), R, C);
+  if (C % SEL_COLS || R % SEL_BAND || R > SEL_MAX_ROWS || R <= 0)
+    return (int)cudaErrorInvalidValue;
+  selection_band<<<C / SEL_COLS, R, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<bf16*>(out), C);
   return (int)cudaGetLastError();
 }
 

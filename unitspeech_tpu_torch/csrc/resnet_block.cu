@@ -1,5 +1,6 @@
 // U-Net ResnetBlock and final block (kernels K1, K2 and K8), and the main
-// loop of K9's int8 convs (us_resnet_conv3x3_i8; csrc/resnet_deep_i8.cu).
+// loop of K9's and K10b's int8 convs (us_resnet_conv3x3_i8;
+// csrc/resnet_deep_i8.cu).
 //
 // Replaces the Pallas kernels in unitspeech_tpu/ops/pallas_resnet.py:
 // fused_resnet_block (_fused_resnet: _kernel_a, _kernel_b, _kernel_c),
@@ -90,8 +91,8 @@
 // cannot be a TMA tensor) keeps the element-load implicit GEMM on mma.sync
 // (conv_gemm, common.cuh igemm_bf16, 128 x 64 tiles of whole rows) for
 // conv1 and its 1x1 residual, with the raw (taps*Cin, Cout) bf16 weights;
-// so do K10's raw-weight entry points (us_resnet_conv3x3_rows,
-// us_resnet_out_rows). Its GEMM is 0.4 GFLOP a call.
+// so does K10a's kernel C (us_resnet_out_rows, the raw-weight entry
+// point). Its GEMM is 0.4 GFLOP a call.
 #include <algorithm>
 #include <type_traits>
 

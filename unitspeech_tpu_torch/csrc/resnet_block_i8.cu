@@ -1,15 +1,11 @@
-// ResnetBlock with both convs quantized in kernel (kernels K10a and K10b).
+// ResnetBlock with both convs quantized in kernel per TPU tile (kernel K10a).
 //
 // Replaces the Pallas kernels in unitspeech_tpu/ops/pallas_resnet.py:
-//   K10a  fused_resnet_block(int8=True): _fused_resnet's _kernel_a and
-//         _kernel_b with _conv3x3_taps_int8; kernel C is K1's in its
-//         raw-weight form (us_resnet_out_rows);
-//   K10b  fused_resnet_block_deep(int8=True): _fused_resnet_deep's
-//         _kernel_a_deep and _kernel_b_deep with _conv3x3_taps_int8 (conv1
-//         in bf16 for cin > cout, JAX's hybrid: K8's kernel A in its
-//         raw-weight form, us_resnet_conv3x3_rows); kernel C likewise.
-// Both keep the element-load main loops of common.cuh (igemm_bf16,
-// igemm_s8); no served path runs them.
+// fused_resnet_block(int8=True): _fused_resnet's _kernel_a and _kernel_b
+// with _conv3x3_taps_int8; kernel C is K1's in its raw-weight form
+// (us_resnet_out_rows). It keeps the element-load main loops of common.cuh
+// (igemm_s8); no served path runs it. (K10b, the deep blocks' in-kernel
+// int8 mode, runs on K9's chain: csrc/resnet_deep_i8.cu.)
 //
 // What the TPU kernels compute: each grid step quantizes its conv input
 // window, the tile's fpt frames plus one halo frame above and below (zero
@@ -18,9 +14,8 @@
 // dequantized as f32(acc) * ((1/s) * rsw[c]) + bias, with rsw the
 // per-output-channel reciprocal weight scales (_quant_w). Kernel B
 // quantizes h = mish(GN1(c1) * scale + shift) + FiLM, masked and rounded to
-// the activation dtype first. K10a's tiles are fpt = _pick_frames_per_tile
-// frames; K10b's one "tile" is the whole layer of a batch element, so both
-// run here as one chain with fpt = T for K10b.
+// the activation dtype first. The tiles are fpt = _pick_frames_per_tile
+// frames.
 //
 // Layout: rows n = t*F + f of one batch element, channels last. The scale
 // groups belong to the TPU's tiles, which the 128-row GEMM tile does not
@@ -46,9 +41,6 @@
 #include "common.cuh"
 
 extern "C" {
-int us_resnet_conv3x3_rows(const void* x, const void* w, const float* bias, const int* lens,
-                           void* out, float* part, int B, int N, int F, int Cin, int Cout,
-                           void* stream);
 int us_gn_finalize(const float* part, int B, int n_tiles, int C, int groups, int n_rows,
                    float eps, float* mean, float* inv, int pdl, void* stream);
 int us_resnet_out_rows(const void* c2, const void* x, const float* mean, const float* inv,
@@ -276,30 +268,25 @@ int quantized_conv(const void* x, const int8_t* w8t, const float* rsw, const flo
 
 extern "C" {
 
-// One ResnetBlock with int8 convs quantized in kernel (K10a with fpt the
-// tile's frames; K10b with fpt = T), in one call: conv1 (int8, or bf16
-// K8's raw-weight kernel A when w1 != NULL), its GroupNorm, conv2 (int8 on kernel B's
-// transform), its GroupNorm, kernel C (residual: identity when wres ==
-// NULL). w8t1 (Cout, Kp(Cin)) and w8t2 (Cout, 9*Cout) int8 with reciprocal
-// scales rsw1/rsw2 (Cout). Scratch: fmax (B, T), sx (B, T / fpt), c1, c2
-// (B, N, Cout) bf16, part (B, us_n_row_tiles(N), 2, Cout), mean/inv (B,
-// Cout). N = T*F, T % fpt == 0, Cout % 64 == 0.
-int us_resnet_block_i8(const void* x, const void* w1, const void* w8t1, const float* rsw1,
-                       const float* b1, const float* s1, const float* be1, const void* film,
-                       const void* w8t2, const float* rsw2, const float* b2, const float* s2,
-                       const float* be2, const void* wres, const float* bres, const int* lens,
-                       float* fmax, float* sx, void* c1, void* c2, float* part, float* mean1,
-                       float* inv1, float* mean2, float* inv2, void* out, int B, int N, int F,
-                       int Cin, int Cout, int fpt, int groups, float eps, void* stream) {
+// One ResnetBlock with int8 convs quantized in kernel per tile of fpt
+// frames (K10a), in one call: conv1 (int8), its GroupNorm, conv2 (int8 on
+// kernel B's transform), its GroupNorm, kernel C (residual: identity when
+// wres == NULL). w8t1 (Cout, Kp(Cin)) and w8t2 (Cout, 9*Cout) int8 with
+// reciprocal scales rsw1/rsw2 (Cout). Scratch: fmax (B, T), sx (B, T / fpt),
+// c1, c2 (B, N, Cout) bf16, part (B, us_n_row_tiles(N), 2, Cout), mean/inv
+// (B, Cout). N = T*F, T % fpt == 0, Cout % 64 == 0.
+int us_resnet_block_i8(const void* x, const void* w8t1, const float* rsw1, const float* b1,
+                       const float* s1, const float* be1, const void* film, const void* w8t2,
+                       const float* rsw2, const float* b2, const float* s2, const float* be2,
+                       const void* wres, const float* bres, const int* lens, float* fmax,
+                       float* sx, void* c1, void* c2, float* part, float* mean1, float* inv1,
+                       float* mean2, float* inv2, void* out, int B, int N, int F, int Cin,
+                       int Cout, int fpt, int groups, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nt = us_n_row_tiles(N);
   const Xform none = {};
-  int err;
-  if (w1 != nullptr)
-    err = us_resnet_conv3x3_rows(x, w1, b1, lens, c1, part, B, N, F, Cin, Cout, stream);
-  else
-    err = quantized_conv<false>(x, static_cast<const int8_t*>(w8t1), rsw1, b1, lens, none, fmax,
-                                sx, c1, part, B, N, F, Cin, Cout, fpt, st);
+  int err = quantized_conv<false>(x, static_cast<const int8_t*>(w8t1), rsw1, b1, lens, none,
+                                  fmax, sx, c1, part, B, N, F, Cin, Cout, fpt, st);
   if (err) return err;
   err = us_gn_finalize(part, B, nt, Cout, groups, N, eps, mean1, inv1, 0, stream);
   if (err) return err;

@@ -1,43 +1,61 @@
-// Deep ResnetBlock with int8 convs on pre-quantized activations (kernel K9).
+// Deep ResnetBlock with int8 convs: K9 (pre-quantized activations) and
+// K10b (JAX's in-kernel int8 mode), one chain with two sets of roundings.
 //
 // Replaces the Pallas kernels in unitspeech_tpu/ops/pallas_resnet.py:
-// fused_resnet_block_deep_i8 (_fused_resnet_deep_i8pre: _kernel_a_deep_i8
-// with _conv3x3_taps_i8pre, _kernel_glue_q_deep; kernel C is K8's, shared
-// from resnet_block.cu). The block runs as
+//   K9   fused_resnet_block_deep_i8 (_fused_resnet_deep_i8pre:
+//        _kernel_a_deep_i8 with _conv3x3_taps_i8pre, _kernel_glue_q_deep);
+//   K10b fused_resnet_block_deep(int8=True) (_fused_resnet_deep with int8:
+//        _kernel_a_deep and _kernel_b_deep with _conv3x3_taps_int8).
+// Kernel C is K8's, shared from resnet_block.cu. The block runs as
 //
-//   x8 = quantize(x)   per batch element, one scale 127 / max|x| over the
-//                      rows before the length (us_i8_quantize_rows: a
-//                      pass of maxima, then the quantize); for cin > cout
-//                      conv1 runs in bf16 instead (K8's kernel A), as in JAX
+//   x8 = quantize(x)   per batch element, one scale over the rows before
+//                      the length (us_i8_quantize_rows: a pass of maxima,
+//                      then the quantize); for cin > cout conv1 runs in
+//                      bf16 instead (K8's kernel A), as in JAX
 //   c1 = conv3x3_i8(x8) * (1/sx)(1/sw) + b1        -> bf16 + statistics
 //   h8 = quantize(mish(GN1(c1)) + FiLM, masked)    two passes, below
 //   c2 = conv3x3_i8(h8) * (1/sx2)(1/sw2) + b2      -> bf16 + statistics
 //   out = mish(GN2(c2)) * mask + residual          (K8's kernel C)
+//
+// The two kernels differ only in their roundings (the `k10b` argument of
+// the quantize and the glue): K9's scale is 127 / max(m, 1e-8) and its glue
+// quantizes h in f32; K10b's is 127 / (m + 1e-8) (pallas_resnet.py:240) and
+// its glue rounds h to bf16 before the maximum and the quantize
+// (pallas_resnet.py:420). K10b's TPU kernel quantizes a window, the masked
+// layer plus one zero frame above and below; K10b's "tile" is the whole
+// layer of a batch element, so every row, halo frames included, takes the
+// one scale of its batch element and the input quantizes once ahead of the
+// conv, as K9's does. (K10a's halo rows take the scale of the tile they
+// feed, which is why it keeps its own chain, csrc/resnet_block_i8.cu.)
 //
 // Scales: weights per output channel, computed once when the weights load
 // (ops/fused_resnet_deep.quant_w: reciprocals, as _quant_w) and packed
 // with them; activations per batch element, not per tensor as the flat
 // int8 path has it. The glue's scale needs the abs-max of the whole layer
 // before any value can round, so the glue runs twice: pass 0 writes h in
-// f32 and one maximum of |h| a block, pass 1 reduces them (every block the
-// same values, in the same order) and rounds h. A max does not
-// depend on the order of its operands, so the scale is exact. The convs
-// take sx and rsw and form (1 / sx) * rsw themselves, so no launch of its
-// own reduces the maxima.
+// f32 (K10b: its bf16 value) and one maximum of |h| a block, pass 1 reduces
+// them (every block the same values, in the same order) and rounds h. A max
+// does not depend on the order of its operands, so the scale is exact. The
+// convs take sx and rsw and form (1 / sx) * rsw themselves, so no launch of
+// its own reduces the maxima.
 //
 // What bounds it on the H100: each int8 conv is 6-24 GOP (3 rows at the
-// 344-frame bucket) against 0.6-2.4 MB of int8 weights; at the int8 rate of
+// 344-frame bucket) against 0.6-9.4 MB of int8 weights; at the int8 rate of
 // 1979 TOP/s that is 3-12 us, so the tensor cores bound it, at half K8's
 // operation time. Both int8 convs run on K8's Hopper loop (resnet_block.cu
 // conv_tc with I8: per 128-channel chunk one TMA box shared by the 9 taps,
 // a zero row past the length and the grid, A from ldmatrix registers, the
 // weights packed at load into K-major BN x 128 int8 tiles in the 128-byte
-// swizzle through an mbarrier ring, wgmma m64nNk32 s8 into s32). The
-// dequantize, bias and GroupNorm statistics ride in the conv's epilogue;
-// the glue passes move c1 once, h in f32 twice and h8 once. Every launch of
-// the chain is a programmatic dependent launch (common.cuh launch_pdl).
-// Rounding follows JAX: round half to even (rintf), clip to +-127, and the
-// dequantize as one f32 multiply and one f32 add (no fused multiply-add).
+// swizzle through an mbarrier ring, wgmma m64nNk32 s8 into s32). The loop's
+// shared memory does not depend on Cout (a Cout tile of BN columns a
+// block), so K10b's Cout = 1024 takes it as K8 does; its int8 convs have
+// Cin <= 1024 (8 chunks), since Cin > Cout (2048 -> 512, 1024 -> 256) puts
+// conv1 in bf16. The dequantize, bias and GroupNorm statistics ride in the
+// conv's epilogue; the glue passes move c1 once, h in f32 twice and h8
+// once. Every launch of the chain is a programmatic dependent launch
+// (common.cuh launch_pdl). Rounding follows JAX: round half to even
+// (rintf), clip to +-127, and the dequantize as one f32 multiply and one f32
+// add (no fused multiply-add).
 #include "common.cuh"
 
 namespace {
@@ -45,12 +63,14 @@ namespace {
 constexpr int GLUE_ROWS = 64;  // rows of one glue block (a chunk)
 constexpr int Q_ROWS = 8;      // rows of one quantize block (many blocks: a pass is latency-bound)
 
-// 127 / max(m, 1e-8) over a batch element's maxima amax[0, n), each block
-// the same reduction; NaN propagates, as torch.amax and jnp.max do.
-US_DEV float act_scale(const float* amax, int n, float* scratch) {
+// The scale of a batch element from its maxima amax[0, n), each block the
+// same reduction: K9's 127 / max(m, 1e-8), or K10b's 127 / (m + 1e-8) (one
+// f32 add, one f32 division); NaN propagates, as torch.amax and jnp.max do.
+US_DEV float act_scale(const float* amax, int n, float* scratch, int k10b) {
   float m = 0.f;
   for (int i = threadIdx.x; i < n; i += blockDim.x) m = max_nan(m, amax[i]);
   m = block_max(m, scratch);
+  if (k10b) return __fdiv_rn(127.f, __fadd_rn(m, 1e-8f));
   return 127.f / (m != m ? m : fmaxf(m, 1e-8f));
 }
 
@@ -77,11 +97,11 @@ __global__ void __launch_bounds__(256) i8_absmax(const bf16* x, const int* lens,
 }
 
 // x8 = clip(rint(x * sx[b]), -127, 127) on rows < lens[b], 0 after, with sx
-// from the maxima amax (B, n_amax). Grid (row chunks of Q_ROWS, B); block 0
-// of each b writes sx[b]. 8 channels a thread.
+// from the maxima amax (B, n_amax) in K9's or K10b's form. Grid (row chunks
+// of Q_ROWS, B); block 0 of each b writes sx[b]. 8 channels a thread.
 __global__ void __launch_bounds__(256) i8_quantize(const bf16* x, const int* lens,
                                                    const float* amax, int n_amax, float* sx,
-                                                   int8_t* x8, int N, int C) {
+                                                   int8_t* x8, int N, int C, int k10b) {
   __shared__ float scratch[256];
   griddep_wait();
   griddep_launch();
@@ -101,7 +121,7 @@ __global__ void __launch_bounds__(256) i8_quantize(const bf16* x, const int* len
                    : make_uint4(0, 0, 0, 0);
     }
     if (base == 0) {
-      s = act_scale(amax + (size_t)b * n_amax, n_amax, scratch);
+      s = act_scale(amax + (size_t)b * n_amax, n_amax, scratch, k10b);
       if (blockIdx.x == 0 && threadIdx.x == 0) sx[b] = s;
     }
 #pragma unroll
@@ -138,15 +158,16 @@ struct GlueArgs {
   int8_t* h8;           // pass 1: (B, N, C)
   int N, C, n_tiles, groups;
   float eps;
+  int k10b;             // K10b's roundings: h to bf16, the scale 127 / (max + 1e-8)
 };
 
 // Pass 0: h = mish(GN1(c1) * scale + shift) + film, zero on rows >= lens
-// (the JAX glue's arithmetic in f32, one rounding per operation), written
-// in f32 with one maximum of |h| a block. GroupNorm 1 comes from conv1's
-// tile sums here (each block its groups, a warp a group, in one fixed
-// order, so every block has the same values): no launch of its own. Block:
-// 8 row lanes x 32 channel groups of 8; grid (channel blocks of 256, row
-// chunks of GLUE_ROWS, B).
+// (the JAX glue's arithmetic in f32, one rounding per operation; K10b then
+// rounds it to bf16), written in f32 with one maximum of |h| a block.
+// GroupNorm 1 comes from conv1's tile sums here (each block its groups, a
+// warp a group, in one fixed order, so every block has the same values):
+// no launch of its own. Block: 8 row lanes x 32 channel groups of 8; grid
+// (channel blocks of 256, row chunks of GLUE_ROWS, B).
 __global__ void __launch_bounds__(256) glue_h(GlueArgs p) {
   __shared__ float red[256], g_mu[32], g_iv[32];
   griddep_wait();
@@ -214,7 +235,7 @@ __global__ void __launch_bounds__(256) glue_h(GlueArgs p) {
         float v = __fmul_rn(__fsub_rn(h[e], mean), inv);
         v = __fadd_rn(__fmul_rn(v, sc[e]), sh[e]);
         v = __fadd_rn(mish_f32(v), fi[e]);
-        h[e] = m < len ? v : 0.f;
+        h[e] = m < len ? (p.k10b ? bf16_round(v) : v) : 0.f;
         mx = max_nan(mx, fabsf(h[e]));
       }
       float4* dst = reinterpret_cast<float4*>(p.h + ((size_t)b * N + m) * C + c0);
@@ -246,7 +267,7 @@ __global__ void __launch_bounds__(256) glue_q(GlueArgs p) {
     hv[k][0] = active && m < m_end ? __ldcg(src) : make_float4(0.f, 0.f, 0.f, 0.f);
     hv[k][1] = active && m < m_end ? __ldcg(src + 1) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  const float s = act_scale(p.amax + (size_t)b * per_b, per_b, red);
+  const float s = act_scale(p.amax + (size_t)b * per_b, per_b, red, p.k10b);
   if (blockIdx.x == 0 && chunk == 0 && tid == 0) p.sx[b] = s;
   if (!active) return;
 #pragma unroll
@@ -274,11 +295,12 @@ int us_i8_glue_blocks(int N, int C) { return us_ceil_div(N, GLUE_ROWS) * us_ceil
 // The maxima the conv1-input quantize writes a batch element.
 int us_i8_quantize_chunks(int N) { return us_ceil_div(N, Q_ROWS); }
 
-// The conv1 input of K9: amax (B, us_i8_quantize_chunks(N)) the maxima of
-// |x| over the rows before the length, then the scale sx (B) and x8 =
-// quantize(x) (B, N, Cin) with rows >= lens zero. Cin % 8 == 0.
+// The conv1 input of K9 / K10b: amax (B, us_i8_quantize_chunks(N)) the
+// maxima of |x| over the rows before the length, then the scale sx (B; K9's
+// form, or K10b's with k10b) and x8 = quantize(x) (B, N, Cin) with rows >=
+// lens zero. Cin % 8 == 0.
 int us_i8_quantize_rows(const void* x, const int* lens, float* amax, void* x8, float* sx, int B,
-                        int N, int Cin, void* stream) {
+                        int N, int Cin, int k10b, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(us_ceil_div(N, Q_ROWS), B);
   int err = launch_pdl(i8_absmax, grid, 256, 0, st, static_cast<const bf16*>(x), lens, amax, N,
@@ -286,16 +308,18 @@ int us_i8_quantize_rows(const void* x, const int* lens, float* amax, void* x8, f
   if (err) return err;
   return launch_pdl(i8_quantize, grid, 256, 0, st, static_cast<const bf16*>(x), lens,
                     static_cast<const float*>(amax), (int)grid.x, sx, static_cast<int8_t*>(x8),
-                    N, Cin);
+                    N, Cin, k10b);
 }
 
-// The glue of K9 (_kernel_glue_q_deep): pass 0 reduces GroupNorm 1 from
-// part (B, n_tiles, 2, C), writes h (B, N, C) f32 and the maxima of |h| to
-// amax (B, us_i8_glue_blocks(N, C)); pass 1 reduces them to sx (B) and
-// writes h8 = quantize(h). (C / groups) % 8 == 0, C / groups >= 8.
+// The glue of K9 (_kernel_glue_q_deep) and, with k10b, K10b (the head of
+// _kernel_b_deep): pass 0 reduces GroupNorm 1 from part (B, n_tiles, 2, C),
+// writes h (B, N, C) f32 and the maxima of |h| to amax (B,
+// us_i8_glue_blocks(N, C)); pass 1 reduces them to sx (B) and writes h8 =
+// quantize(h). (C / groups) % 8 == 0, C / groups >= 8.
 int us_i8_glue(const void* c1, const float* part, int n_tiles, int groups, float eps,
                const float* scale, const float* shift, const void* film, const int* lens,
-               float* h, float* amax, void* h8, float* sx, int B, int N, int C, void* stream) {
+               float* h, float* amax, void* h8, float* sx, int B, int N, int C, int k10b,
+               void* stream) {
   if (C % groups || (C / groups) % 8 || 256 / (C / groups) > 32) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   GlueArgs p;
@@ -314,6 +338,7 @@ int us_i8_glue(const void* c1, const float* part, int n_tiles, int groups, float
   p.h8 = static_cast<int8_t*>(h8);
   p.N = N;
   p.C = C;
+  p.k10b = k10b;
   dim3 grid(us_ceil_div(C, 256), us_ceil_div(N, GLUE_ROWS), B);
   int err = launch_pdl(glue_h, grid, 256, 0, st, p);
   if (err) return err;

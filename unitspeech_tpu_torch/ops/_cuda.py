@@ -54,13 +54,13 @@ _SIGNATURES = {
     "us_resnet_block": ([_P] * 21 + [_I] * 6 + [_F, _I, _P], _I),
     "us_i8_glue_blocks": ([_I, _I], _I),
     "us_i8_quantize_chunks": ([_I], _I),
-    "us_i8_quantize_rows": ([_P] * 5 + [_I] * 3 + [_P], _I),
+    "us_i8_quantize_rows": ([_P] * 5 + [_I] * 4 + [_P], _I),
     "us_resnet_conv3x3_i8": ([_P, _P, _I] + [_P] * 6 + [_I] * 5 + [_P], _I),
-    "us_i8_glue": ([_P, _P, _I, _I, _F] + [_P] * 8 + [_I] * 3 + [_P], _I),
+    "us_i8_glue": ([_P, _P, _I, _I, _F] + [_P] * 8 + [_I] * 4 + [_P], _I),
     "us_downsample_conv": ([_P] * 5 + [_I] * 6 + [_P], _I),
     "us_upsample_conv": ([_P] * 5 + [_I] * 6 + [_P], _I),
     "us_resample_plan": ([_I] * 7 + [_P], _I),
-    "us_resnet_block_i8": ([_P] * 26 + [_I] * 7 + [_F, _P], _I),
+    "us_resnet_block_i8": ([_P] * 25 + [_I] * 7 + [_F, _P], _I),
     "us_resnet_out_none": ([_P] * 7 + [_I] * 3 + [_P], _I),
     "us_transcendental_chain": ([_P] * 2 + [_I] * 3 + [_P], _I),
     "us_row_select": ([_P] * 2 + [_I] * 4 + [_P], _I),

@@ -387,9 +387,9 @@ def _padded_w8(w8t: torch.Tensor, cin: int, dev) -> torch.Tensor:
     return F.pad(w8t, (0, pad)).contiguous() if pad else w8t
 
 
-def _resnet_block_i8_cuda(x, lens, t_bias, w1, wq1, b1, s1, be1, wq2, b2, s2, be2, wres,
-                          bres, f, groups, fpt, conv1_bf16, what):
-    """K10a / K10b: the block's chain in one call of us_resnet_block_i8."""
+def _resnet_block_i8_cuda(x, lens, t_bias, wq1, b1, s1, be1, wq2, b2, s2, be2, wres, bres, f,
+                          groups, fpt, what):
+    """K10a: the block's chain in one call of us_resnet_block_i8."""
     b, n, cin = x.shape
     cout = b1.shape[-1]
     _check_shapes(what, x, cout, groups)
@@ -402,12 +402,8 @@ def _resnet_block_i8_cuda(x, lens, t_bias, w1, wq1, b1, s1, be1, wq2, b2, s2, be
     x = _cuda.require(x.contiguous(), "x", dtype=dt)
     _cuda.require(lens, "lens", dtype=torch.int32, shape=(b,), device=dev)
     film = _cuda.require(t_bias.to(dt).contiguous(), "t_bias", shape=(b, cout), device=dev)
-    w1b = w8t1 = rsw1 = None
-    if conv1_bf16:
-        w1b = _cuda.require(w1.to(dt).contiguous(), "w1", shape=(9 * cin, cout), device=dev)
-    else:
-        w8t1 = _padded_w8(wq1[0], cin, dev)
-        rsw1 = _cuda.require(_f32(wq1[1]), "rsw1", shape=(cout,), device=dev)
+    w8t1 = _padded_w8(wq1[0], cin, dev)
+    rsw1 = _cuda.require(_f32(wq1[1]), "rsw1", shape=(cout,), device=dev)
     w8t2 = _padded_w8(wq2[0], cout, dev)
     rsw2 = _cuda.require(_f32(wq2[1]), "rsw2", shape=(cout,), device=dev)
     if wres is not None:
@@ -422,12 +418,11 @@ def _resnet_block_i8_cuda(x, lens, t_bias, w1, wq1, b1, s1, be1, wq2, b2, s2, be
     vecs = tuple(map(_f32, (b1, s1, be1)))
     vecs2 = tuple(map(_f32, (b2, s2, be2)))
     _cuda.check(lib.us_resnet_block_i8(
-        x.data_ptr(), _cuda.ptr(w1b), _cuda.ptr(w8t1), _cuda.ptr(rsw1),
-        *(v.data_ptr() for v in vecs), film.data_ptr(), w8t2.data_ptr(), rsw2.data_ptr(),
-        *(v.data_ptr() for v in vecs2), _cuda.ptr(wres), _cuda.ptr(bres), lens.data_ptr(),
-        fmax.data_ptr(), sx.data_ptr(), c1.data_ptr(), c2.data_ptr(), part.data_ptr(),
-        *(t_.data_ptr() for t_ in stats), out.data_ptr(), b, n, f, cin, cout, fpt, groups,
-        GN_EPS, _cuda.stream(x)), what)
+        x.data_ptr(), w8t1.data_ptr(), rsw1.data_ptr(), *(v.data_ptr() for v in vecs),
+        film.data_ptr(), w8t2.data_ptr(), rsw2.data_ptr(), *(v.data_ptr() for v in vecs2),
+        _cuda.ptr(wres), _cuda.ptr(bres), lens.data_ptr(), fmax.data_ptr(), sx.data_ptr(),
+        c1.data_ptr(), c2.data_ptr(), part.data_ptr(), *(t_.data_ptr() for t_ in stats),
+        out.data_ptr(), b, n, f, cin, cout, fpt, groups, GN_EPS, _cuda.stream(x)), what)
     return out
 
 
@@ -449,7 +444,8 @@ def fused_resnet_block_int8(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
         x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2, gn2_scale, gn2_bias, wres, bres)
     args = (xr, lens, tb, w1r, wq1, b1, s1, be1, wq2, b2, s2, be2, wres, bres)
     if _cuda.route(x, "fused_resnet_block(int8=True)"):
-        out = _resnet_block_i8_cuda(*args, f=f, groups=groups, fpt=fpt, conv1_bf16=False,
+        out = _resnet_block_i8_cuda(xr, lens, tb, wq1, b1, s1, be1, wq2, b2, s2, be2, wres, bres,
+                                    f=f, groups=groups, fpt=fpt,
                                     what="fused_resnet_block(int8=True)")
         fused_resnet_block_int8.launches += 1
     else:

@@ -22,9 +22,12 @@ K10b is K8's in-kernel int8 mode (`fused_resnet_block_deep(int8=True)`,
 no model route): K9's structure with JAX's in-kernel numbers, which move
 int8 roundings: the activation scale 127 / (max + 1e-8), one per batch
 element over the whole layer; h rounded to the activation dtype before its
-abs-max and quantize; any Cout. It is K10a's chain (ops/fused_resnet.py,
-csrc/resnet_block_i8.cu) with one tile of all T frames, and conv1 in bf16
-for Cin > Cout.
+abs-max and quantize; any Cout (K8's widths). Its one scale a batch
+element covers every row of the TPU kernel's window, halo frames included,
+so the input quantizes once ahead of each conv and the block runs K9's
+chain with K10b's roundings (`_deep_i8_cuda(..., k10b=True)`; conv1 in
+bf16 for Cin > Cout, as in K9). Its plain version stays K10a's plain chain
+with one tile of all T frames (`resnet_block_deep_int8_plain`).
 
 The routing gates (`deep_route`) are the JAX estimator's TPU VMEM gates
 (unet.py:321-383), kept so that the port computes what the JAX path
@@ -46,7 +49,6 @@ from unitspeech_tpu_torch.ops.fused_resnet import (
     _kernel_c_plain,
     _packed_operand,
     _resnet_block_cuda,
-    _resnet_block_i8_cuda,
     _valid,
     block_rows_args,
     pack_conv_weight,
@@ -96,12 +98,14 @@ def resnet_block_deep_int8_plain(x, lens_rows, t_bias, w1, wq1, b1, s1, be1, wq2
 
 def fused_resnet_block_deep_int8(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
                                  w2, b2, gn2_scale, gn2_bias, wres=None, bres=None,
-                                 groups: int = 8, wq=None):
+                                 groups: int = 8, wq=None, packed=None):
     """K10b: one deep-stage ResnetBlock with both convs quantized in
     kernel (conv1 in bf16 for Cin > Cout), with fused_resnet_block_deep_i8's
     arguments; wq = (quant_w(w1), quant_w(w2)) when computed once (wq[0] is
-    not read for Cin > Cout). -> (B, T, F, Cout). CUDA tensors launch the
-    kernel, CPU tensors take resnet_block_deep_int8_plain."""
+    not read for Cin > Cout); packed: pack_block_weights_i8 of the kernels
+    when made at load, else packed here. -> (B, T, F, Cout). CUDA tensors
+    launch K9's chain with K10b's roundings (widths: takes_i8), CPU tensors
+    take resnet_block_deep_int8_plain."""
     bsz, t, f, cin = x.shape
     cout = w1.shape[-1]
     if wq is None:
@@ -110,8 +114,7 @@ def fused_resnet_block_deep_int8(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
         x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2, gn2_scale, gn2_bias, wres, bres)
     args = (xr, lens, tb, w1r, wq[0], b1, s1, be1, wq[1], b2, s2, be2, wres, bres)
     if _cuda.route(x, "fused_resnet_block_deep(int8=True)"):
-        out = _resnet_block_i8_cuda(*args, f=f, groups=groups, fpt=t, conv1_bf16=cin > cout,
-                                    what="fused_resnet_block_deep(int8=True)")
+        out = _deep_i8_cuda(*args, f=f, groups=groups, packed=packed, k10b=True)
         fused_resnet_block_deep_int8.launches += 1
     else:
         out = resnet_block_deep_int8_plain(*args, f=f, groups=groups)
@@ -130,11 +133,11 @@ def fused_resnet_block_deep(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
     pack_block_weights when made at load. -> (B, T, F, Cout). CUDA tensors
     launch the kernel (widths: `takes`), CPU tensors take
     resnet_block_plain. int8=True is K10b (fused_resnet_block_deep_int8,
-    which takes wq)."""
+    which takes wq, and packed from pack_block_weights_i8)."""
     if int8:
         return fused_resnet_block_deep_int8(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2,
                                             b2, gn2_scale, gn2_bias, wres, bres, groups=groups,
-                                            wq=wq)
+                                            wq=wq, packed=packed)
     bsz, t, f, _ = x.shape
     args = block_rows_args(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2, gn2_scale,
                            gn2_bias, wres, bres)
@@ -237,19 +240,22 @@ def _packed_i8(packed, what, cin, cout, dev):
 
 
 def _deep_i8_cuda(x, lens, t_bias, w1, wq1, b1, s1, be1, wq2, b2, s2, be2, wres, bres, f,
-                  groups, packed):
-    """K9's chain; packed: pack_block_weights_i8's (conv1, conv2, 1x1
-    residual), made here from the weights and wq when absent. Every launch
-    of the chain is a programmatic dependent launch (its kernels wait for
-    their predecessor before reading): each starts as the one before
-    drains."""
+                  groups, packed, k10b=False):
+    """K9's chain, or with k10b K10b's (the same launches with K10b's
+    roundings: the activation scales 127 / (max + 1e-8), h rounded to the
+    activation dtype before its maximum); packed: pack_block_weights_i8's
+    (conv1, conv2, 1x1 residual), made here from the weights and wq when
+    absent. Every launch of the chain is a programmatic dependent launch
+    (its kernels wait for their predecessor before reading): each starts as
+    the one before drains."""
     b, n, cin = x.shape
     cout = b1.shape[-1]
-    _check_shapes("fused_resnet_block_deep_i8", x, cout, groups)
+    what = "fused_resnet_block_deep(int8=True)" if k10b else "fused_resnet_block_deep_i8"
+    _check_shapes(what, x, cout, groups)
     if not takes_i8(cin, cout, groups):
-        raise ValueError(f"fused_resnet_block_deep_i8: Cin={cin} must be a multiple of 16")
+        raise ValueError(f"{what}: Cin={cin} must be a multiple of 16")
     if wres is None and cin != cout:
-        raise ValueError("fused_resnet_block_deep_i8: identity residual needs Cin == Cout")
+        raise ValueError(f"{what}: identity residual needs Cin == Cout")
     dt, dev = x.dtype, x.device
     x = _cuda.require(x.contiguous(), "x", dtype=dt)
     _cuda.require(lens, "lens", dtype=torch.int32, shape=(b,), device=dev)
@@ -279,7 +285,7 @@ def _deep_i8_cuda(x, lens, t_bias, w1, wq1, b1, s1, be1, wq2, b2, s2, be2, wres,
         amax = torch.empty((b, lib.us_i8_quantize_chunks(n)), dtype=torch.float32, device=dev)
         x8 = torch.empty((b, n, cin), dtype=torch.int8, device=dev)
         _cuda.check(lib.us_i8_quantize_rows(x.data_ptr(), lens.data_ptr(), amax.data_ptr(),
-                                            x8.data_ptr(), sx1.data_ptr(), b, n, cin, st),
+                                            x8.data_ptr(), sx1.data_ptr(), b, n, cin, k10b, st),
                     "K9 input quantize")
         _cuda.check(lib.us_resnet_conv3x3_i8(x8.data_ptr(), w1p.data_ptr(), bn, sx1.data_ptr(),
                                              rsw1.data_ptr(), b1.data_ptr(), lens.data_ptr(),
@@ -292,7 +298,7 @@ def _deep_i8_cuda(x, lens, t_bias, w1, wq1, b1, s1, be1, wq2, b2, s2, be2, wres,
     _cuda.check(lib.us_i8_glue(c1.data_ptr(), part.data_ptr(), nt1, groups, GN_EPS,
                                s1.data_ptr(), be1.data_ptr(), film.data_ptr(), lens.data_ptr(),
                                h.data_ptr(), amax_h.data_ptr(), h8.data_ptr(), sx2.data_ptr(), b,
-                               n, cout, st), "K9 glue")
+                               n, cout, k10b, st), "K9 glue")
     _cuda.check(lib.us_resnet_conv3x3_i8(h8.data_ptr(), w2p.data_ptr(), bn2, sx2.data_ptr(),
                                          rsw2.data_ptr(), b2.data_ptr(), lens.data_ptr(),
                                          c2.data_ptr(), part.data_ptr(), b, n, f, cout, cout,

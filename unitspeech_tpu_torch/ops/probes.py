@@ -113,16 +113,26 @@ def selection_matmul_plain(x: torch.Tensor) -> torch.Tensor:
     return (s @ x.to(torch.float32)).to(x.dtype)
 
 
+SEL_BAND = 128  # x rows a warpgroup of the band product reads: its 64 outputs' ones
+SEL_MAX_ROWS = 1024  # one thread a row, in one block a column strip
+
+
 def selection_matmul(x: torch.Tensor) -> torch.Tensor:
-    """P2's selection product on the tensor cores: x (R, C) bf16, C % 64
-    == 0 -> (R/2, C). CUDA tensors launch the kernel, CPU tensors take
+    """P2's selection product on the tensor cores, the band form (each 64
+    output rows take only the 128 rows of x their ones reach; a column with
+    an inf or NaN in a skipped row comes out NaN, as the full product's
+    0 * inf gives): x (R, C) bf16, C % 8 == 0 -> (R/2, C). CUDA tensors
+    launch the kernel (R % 128 == 0, R <= 1024), CPU tensors take
     selection_matmul_plain."""
     if x.shape[0] % 2:
         raise ValueError(f"selection_matmul: {x.shape[0]} rows, expected an even count")
     if not _cuda.route(x, "selection_matmul"):
         return selection_matmul_plain(x)
-    _rows(x, "selection_matmul", 64)
+    _rows(x, "selection_matmul")
     r, c = x.shape
+    if r % SEL_BAND or r > SEL_MAX_ROWS:
+        raise ValueError(f"selection_matmul: {r} rows, the kernel takes a multiple of "
+                         f"{SEL_BAND} up to {SEL_MAX_ROWS}")
     out = torch.empty((r // 2, c), dtype=x.dtype, device=x.device)
     _cuda.check(_cuda.lib().us_selection_matmul(x.data_ptr(), out.data_ptr(), r, c,
                                                 _cuda.stream(x)), "selection_matmul")

@@ -37,6 +37,7 @@ from unitspeech_tpu_torch.ops.fused_resnet import fused_resnet_block, pack_block
 from unitspeech_tpu_torch.ops.fused_resnet_deep import (
     fused_resnet_block_deep,
     fused_resnet_block_deep_i8,
+    pack_block_weights_i8,
 )
 from unitspeech_tpu_torch.tools import device_line, median_ms, resolve_device
 
@@ -66,7 +67,8 @@ def _fused_fn(block, x, mask, t_emb, dtype, args):
     t_bias = block.mlp(mish(t_emb), dtype=dtype)
     params = (t_bias, c1.kernel, c1.bias, *block.block1.norm.params(), c2.kernel, c2.bias,
               *block.block2.norm.params())
-    # quantized and packed once, as at load
+    # quantized and packed once, as at load (the int8 deep blocks K9 and K10b
+    # read their int8 packing)
     wq = (quant_w(c1.kernel), quant_w(c2.kernel))
     packed = pack_block_weights(c1.kernel, c2.kernel)
     if fused_kernel_shape(x.shape[2]):
@@ -75,12 +77,13 @@ def _fused_fn(block, x, mask, t_emb, dtype, args):
                                                 wq=wq, packed=packed)
     if not args.deep:
         return None
+    packed_i8 = pack_block_weights_i8(c1.kernel, wq)
     if args.i8pre:
         return "K9", lambda: fused_resnet_block_deep_i8(x, mask, *params, groups=8, wq=wq,
-                                                        packed=packed)
-    name = "K10b" if args.int8 else "K8"
+                                                        packed=packed_i8)
+    name, pk = ("K10b", packed_i8) if args.int8 else ("K8", packed)
     return name, lambda: fused_resnet_block_deep(x, mask, *params, groups=8, int8=args.int8,
-                                                 wq=wq, packed=packed)
+                                                 wq=wq, packed=pk)
 
 
 def main(argv=None) -> dict:
