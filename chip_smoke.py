@@ -12,10 +12,12 @@ configuration (`--deep --i8pre --resample`: K8, K9, K11). K9's int8 convs
 are also held alone, bit-equal to the plain int8 product and dequantize,
 K5 beside one F.conv1d in bf16 on a ready activation (the yardstick of its
 conv part) with its conv's launch plan, K3 in both its forms (the sums and
-the served fold) beside one torch.var_mean over the groups, and the
-launches inside K4, K9, K7, K5, K6, K3 and K2 are timed one by one
-(tools/kernel_breakdown.py; K3's served call must be one kernel launch and
-K2's two). Then check what
+the served fold) beside one torch.var_mean over the groups, K10a's
+per-tile copy and its int8 conv over the copy alone (bit-equal to their
+plain versions, with the conv's launch plan and its rows' useful share),
+and the launches inside K4, K9, K10a, K7, K5, K6, K3 and K2 are timed one
+by one (tools/kernel_breakdown.py; K3's served call must be one kernel
+launch, K2's two, K10a's nine with no element-load conv). Then check what
 comes out: each kernel path against the plain path, the int8 gates and the
 kernel vocoder, each run with the exact kernel launches its path makes;
 then K4 at C = 1024 (its weights streamed through the ring) alone and in a
@@ -106,8 +108,10 @@ strict f32, a quantized filelist with the F0 stream, and `examples.gslm`.
 Last, the paths of the kernels that no request runs, the port's four tools
 at full size (unitspeech_tpu_torch/tools): the kernel benchmark with
 --int8 --deep (the in-kernel int8 blocks K10a, K10b), the transcendental
-microbenchmark (P1), the stride probe (P2) and the compile bisection's 14
-shapes (P3: kernel A and kernel C alone); each must launch its kernels.
+microbenchmark (P1, with each body's instructions a round counted in the
+built kernels' SASS and its issue-slot least time), the stride probe (P2)
+and the compile bisection's 14 shapes (P3: kernel A and kernel C alone);
+each must launch its kernels.
 
     python3 chip_smoke.py [--out FILE]
 
@@ -598,16 +602,45 @@ def check_kernels(torch, dev):
     for f, cin, cout in K1_SITES:
         t = FRAMES * f // 80
         x, mask, lens, p = block_inputs(t, f, cin, cout)
+        # quantized and packed once, as the benchmark does before it times
         wq = (fused_resnet.quant_w(p["w1"]), fused_resnet.quant_w(p["w2"]))
+        packed = fused_resnet.pack_block_weights_int8(wq, p.get("wres"))
         a = rows_args(x, lens, p, t, f, cin, cout)
         fpt = fused_resnet.pick_frames_per_tile(t, f, max(cin, cout))
         compare("fused_resnet_block_int8", src_i8, "unitspeech_tpu/ops/pallas_resnet.py:1243",
                 f"F={f} T={t} {cin}->{cout} tiles of {fpt} frames",
-                lambda: fused_resnet.fused_resnet_block(x, mask, groups=8, int8=True, wq=wq, **p),
+                lambda: fused_resnet.fused_resnet_block(x, mask, groups=8, int8=True, wq=wq,
+                                                        packed=packed, **p),
                 lambda: fused_resnet.resnet_block_i8_plain(*a[:4], wq[0], *a[4:7], wq[1], *a[8:],
                                                            f=f, groups=8, fpt=fpt),
                 I8_REL, counts(0, bench=1),
                 block_work(3, t * f, cin, cout, i8_conv1=True, i8_conv2=True))
+        # its first two launches (the per-tile copy of x) and conv1 over the
+        # copy alone, each bit-equal to its plain version
+        n, nt, cp = t * f, t // fpt, -(-cin // 16) * 16
+        x_rows = a[0]
+        compare("quantize_tiles", src_i8, "unitspeech_tpu/ops/pallas_resnet.py:228",
+                f"F={f} T={t} C={cin} tiles of {fpt} frames",
+                lambda: fused_resnet.quantize_tiles(x_rows, lens, f, fpt)[0],
+                lambda: fused_resnet.tile_copy_plain(
+                    x_rows.float() * fused_resnet._valid(lens, n), f, fpt)[0], 0.0, counts(0),
+                {"bytes": 2 * 3 * n * cin + 3 * nt * (fpt + 2) * f * cp + 4 * 3 * nt,
+                 "f32": 3 * 3 * n * cin})
+        x8t, sx = fused_resnet.quantize_tiles(x_rows, lens, f, fpt)
+        plan = fused_resnet.conv_plan_i8_tiles(3, t, f, cp, cout, fpt)
+        compare("resnet_conv3x3_i8_tiles", "unitspeech_tpu_torch/csrc/resnet_block.cu",
+                "unitspeech_tpu/ops/pallas_resnet.py:228", f"F={f} T={t} conv1 {cin}->{cout}",
+                lambda: fused_resnet.resnet_conv3x3_i8_tiles(x8t, sx, wq[0], p["b1"],
+                                                             packed=packed[0]),
+                lambda: (fused_resnet.conv3x3_i8_copy(x8t, wq[0], sx)
+                         + p["b1"]).to(torch.bfloat16), 0.0, counts(0),
+                {"bytes": x8t.numel() + 9 * cin * cout + 2 * 3 * n * cout + 4 * 3 * cout,
+                 "i8": 2 * 3 * n * 9 * cin * cout, "f32": 3 * 3 * n * cout})
+        records[-1]["plan"] = plan
+        print(f"    conv plan: tile {plan['tt']} x {plan['tf']} rows ({plan['sub']} a TPU tile "
+              f"of {fpt} frames; {fpt * f / (plan['sub'] * (f // plan['tf']) * 128):.1%} of "
+              f"the rows useful), Cout tile {plan['bn']}, {plan['blocks']} blocks "
+              f"({plan['blocks_per_sm']} an SM), {plan['smem']} B shared", flush=True)
     # K10b runs K9's chain with its own roundings, at every K8 site
     for f, t, cin, cout, _ in K8_SITES:
         x, mask, lens, p = block_inputs(t, f, cin, cout)
@@ -835,12 +868,23 @@ def check_launch_counts(breakdown):
     """The device launches of one call, from the profiler: K3's served call
     (group_mean_inv) is its one kernel at every site, with no PyTorch launch
     beside it; K2 is two kernels, kernel A and the tail (beside the three
-    launches of its wrapper's mask-length sum)."""
+    launches of its wrapper's mask-length sum); K10a is its chain's nine
+    (two frame maxima, two per-tile copies, the two int8 convs on conv_tc,
+    two GroupNorms and kernel C)."""
     for rec in breakdown["K3"]:
         got = [(r["name"], r["launches"]) for r in rec["launches"]]
         if "group_mean_inv" in rec["site"] and (len(got) != 1 or got[0][1] != 1
                                                 or not got[0][0].startswith("row_stats_kernel")):
             raise AssertionError(f"K3 {rec['site']}: launches {got}, expected one K3 kernel")
+    for rec in breakdown["K10a"]:
+        kernels = [(r["name"].split("<")[0], r["launches"]) for r in rec["launches"]
+                   if not r["name"].startswith("torch ")]
+        names = [n for n, k in kernels for _ in range(round(k))]
+        if (len(names) != 9 or any(names.count(k) != 2 for k in ("frame_absmax", "tile_copy",
+                                                                  "gn_finalize"))
+                or names.count("conv_tc") < 2 or "conv3x3_i8q" in names):
+            raise AssertionError(f"K10a {rec['site']}: kernel launches {kernels}, expected the "
+                                 "nine of its chain")
     (rec,) = breakdown["K2"]
     kernels = [(r["name"], r["launches"]) for r in rec["launches"]
                if not r["name"].startswith("torch ")]
@@ -3266,7 +3310,7 @@ def main(argv=None) -> int:
     print("kernel vs plain (bf16, B=3, lengths 344/301/344 of the bucket):", flush=True)
     records = check_kernels(torch, dev)
     per_call = per_call_counts(records)
-    print("per-launch device time inside K4, K9, K7, K5, K6, K3 and K2 at their sites "
+    print("per-launch device time inside K4, K9, K10a, K7, K5, K6, K3 and K2 at their sites "
           "(torch.profiler; python -m unitspeech_tpu_torch.tools.kernel_breakdown):",
           flush=True)
     breakdown = kernel_breakdown.breakdown(dev)

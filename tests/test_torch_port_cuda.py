@@ -22,7 +22,9 @@ neighbouring bf16 value), 1e-4 of max|plain| for the f32 row statistics and
 round-off of a rounding boundary (I8_REL below), and so do K10a/K10b: their
 int8 products are exact and their scales equal the plain version's, but
 kernel B's input h rounds to bf16 after GroupNorm statistics summed in
-another order. P1: 2^-12 of max(|plain|, 1) (P1_REL below). P2 is exact.
+another order; K10a's per-tile copy and its int8 conv over the copy alone
+are exact (the same f32 roundings, exact integer sums). P1: 2^-12 of
+max(|plain|, 1) (P1_REL below). P2 is exact.
 K5/K6 against their plain
 version run in f32 on the same bf16-rounded inputs and weights: 2^-7 of
 max(|ref|, 1), one bf16 rounding of the output (and of the activation the
@@ -773,9 +775,9 @@ def _rows_args(x, mask, p, f):
 @pytest.mark.parametrize("t,f,cin,cout,fpt", [(24, 40, 2, 128, 0), (24, 40, 128, 128, 4),
                                               (24, 40, 512, 128, 6), (12, 80, 128, 256, 3)])
 def test_fused_resnet_block_int8(dev, t, f, cin, cout, fpt):
-    """K10a against its plain version: Cin = 2 (element loads, K padded to
-    16), tiles of 3-6 frames whose halo frames take the tile's scale, a
-    padded row; padding rows come out zero."""
+    """K10a against its plain version: Cin = 2 (a per-tile copy of 16
+    channels), tiles of 3-6 frames whose halo frames take the tile's scale,
+    a padded row; padding rows come out zero."""
     rng = np.random.default_rng(cin + cout + fpt)
     mask = _mask(dev, t, [t, t - 7, t])
     p = _block_params(rng, dev, cin, cout)
@@ -791,6 +793,118 @@ def test_fused_resnet_block_int8(dev, t, f, cin, cout, fpt):
     assert got.dtype == torch.bfloat16
     assert not got[1, t - 7:].any()
     _assert_close(got, want, I8_REL)
+
+
+# chip_smoke.py's K1_SITES (F, Cin, Cout): K10a's sites at the 344-frame
+# bucket (F = 40: tiles of 43 frames, 4 at 512 -> 128)
+K1_SITES = [(80, 2, 128), (80, 128, 128), (40, 128, 256), (40, 256, 256), (40, 512, 128),
+            (40, 128, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,cin,cout", K1_SITES)
+def test_fused_resnet_block_int8_sites(dev, f, cin, cout):
+    """K10a at its six sites, B = 3 with lengths 344 / 301 / 200 frames of
+    the bucket (halved at F = 40), JAX's tiles, the int8 weights packed once
+    and packed on the spot: within I8_REL of the plain version, padding rows
+    zero, the two packings the same bits."""
+    rng = np.random.default_rng(f + cin + 3 * cout)
+    t = 344 * f // 80
+    lens = [t, -(-301 * t // 344), 200 * t // 344]
+    mask = _mask(dev, t, lens)
+    p = _block_params(rng, dev, cin, cout)
+    x = _rand(rng, dev, 3, t, f, cin).to(torch.bfloat16)
+    wq = (fused_resnet.quant_w(p["w1"]), fused_resnet.quant_w(p["w2"]))
+    packed = fused_resnet.pack_block_weights_int8(wq, p.get("wres"))
+    before = fused_resnet.fused_resnet_block_int8.launches
+    got = fused_resnet.fused_resnet_block(x, mask, **p, groups=8, int8=True, wq=wq,
+                                          packed=packed)
+    again = fused_resnet.fused_resnet_block(x, mask, **p, groups=8, int8=True, wq=wq)
+    assert fused_resnet.fused_resnet_block_int8.launches == before + 2
+    a = _rows_args(x, mask, p, f)
+    fpt = fused_resnet.pick_frames_per_tile(t, f, max(cin, cout))
+    want = fused_resnet.resnet_block_i8_plain(*a[:4], wq[0], *a[4:7], wq[1], *a[8:], f=f,
+                                              groups=8, fpt=fpt)
+    for i, n in enumerate(lens):
+        assert not got[i, n:].any()
+    _assert_close(got, want, I8_REL)
+    assert torch.equal(got, again)
+
+
+# per-tile copies (t, f, c, fpt, lens): K10a's conv inputs at the bucket
+# (x at both F, h at Cout 128 / 256) and ragged ones (C % 16 == 8, C = 2,
+# one tile, lengths inside a tile)
+TILE_COPY_CASES = [(344, 80, 2, 8, [344, 301, 200]), (344, 80, 128, 8, [344, 301, 200]),
+                   (172, 40, 256, 43, [172, 151, 100]), (172, 40, 512, 4, [172, 151, 100]),
+                   (15, 8, 24, 5, [15, 7, 12]), (10, 16, 40, 10, [10, 3, 10])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,f,c,fpt,lens", TILE_COPY_CASES)
+def test_quantize_tiles_bit_exact(dev, t, f, c, fpt, lens):
+    """K10a's per-tile copy (frame maxima, then the copy with its tile
+    scales) equals tile_copy_plain of the masked rows on the CPU bit for bit:
+    the scales are one f32 add and one division of the same maximum, each
+    element one f32 multiply and a round half to even; the rows past each
+    length are garbage in the input and zero in the copy."""
+    rng = np.random.default_rng(t + c + fpt)
+    x = _rand(rng, dev, 3, t * f, c, scale=3.0).to(torch.bfloat16)
+    lens_rows = torch.tensor(lens, dtype=torch.int32, device=dev) * f
+    before = fused_resnet.quantize_tiles.launches
+    x8t, sx = fused_resnet.quantize_tiles(x, lens_rows, f, fpt)
+    assert fused_resnet.quantize_tiles.launches == before + 1
+    w8t, wsx = fused_resnet.quantize_tiles(x.cpu(), lens_rows.cpu(), f, fpt)
+    torch.cuda.synchronize()
+    assert torch.equal(sx.cpu(), wsx)
+    assert torch.equal(x8t.cpu(), w8t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,f,c,fpt,lens", TILE_COPY_CASES)
+def test_resnet_conv3x3_i8_tiles_bit_exact(dev, t, f, c, fpt, lens):
+    """K10a's int8 conv over a per-tile copy (conv1's c1, conv2's c2) equals
+    conv3x3_i8_copy + bias rounded to bf16 bit for bit (the int32 sums are
+    exact, the dequantize the same two f32 multiplies and one add), on the
+    copy the card made, with the weights packed once or on the spot; Cout
+    128 and 64-column tiles (Cout 192)."""
+    rng = np.random.default_rng(2 * t + c + fpt)
+    x = _rand(rng, dev, 3, t * f, c, scale=3.0).to(torch.bfloat16)
+    lens_rows = torch.tensor(lens, dtype=torch.int32, device=dev) * f
+    x8t, sx = fused_resnet.quantize_tiles(x, lens_rows, f, fpt)
+    for cout in (128, 192):
+        w = _rand(rng, dev, 3, 3, c, cout, scale=(9 * c) ** -0.5)
+        wq = fused_resnet.quant_w(w)
+        bias = _rand(rng, dev, cout, scale=0.1)
+        before = fused_resnet.resnet_conv3x3_i8_tiles.launches
+        got = fused_resnet.resnet_conv3x3_i8_tiles(x8t, sx, wq, bias)
+        again = fused_resnet.resnet_conv3x3_i8_tiles(
+            x8t, sx, wq, bias, packed=fused_resnet.pack_conv_weight_i8(wq[0], c))
+        assert fused_resnet.resnet_conv3x3_i8_tiles.launches == before + 2
+        want = (fused_resnet.conv3x3_i8_copy(x8t, wq, sx) + bias).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(again, want)
+
+
+# (T, F, fpt) -> (TT, TF): the row tiles tests/test_torch_port_int8_kernels.py
+# replays (its K10A_PLANS) at K10a's sites at the 344- and 880-frame buckets
+K10A_PLANS = {(344, 80, 8): (8, 16), (172, 40, 43): (16, 8), (172, 40, 4): (4, 20),
+              (880, 80, 11): (11, 10), (440, 40, 22): (22, 5)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,f,fpt", list(K10A_PLANS))
+def test_conv_plan_i8_tiles_matches_replay(dev, t, f, fpt):
+    """The card's K10a conv plan (us_conv_plan_i8_tiles, which the conv
+    launches by and the wrapper sizes its statistics by) is the one the CPU
+    tests replay: the row tile, its count a TPU tile, the tiles a batch
+    element."""
+    tt, tf = K10A_PLANS[(t, f, fpt)]
+    plan = fused_resnet.conv_plan_i8_tiles(3, t, f, 128, 128, fpt)
+    sub = -(-fpt // tt)
+    assert (plan["tt"], plan["tf"], plan["sub"]) == (tt, tf, sub)
+    assert plan["tiles"] == t // fpt * sub * (f // tf)
+    assert plan["tiles"] == _cuda.lib().us_conv_i8_tiles_n_tiles(t * f, f, fpt)
 
 
 @pytest.mark.cuda
@@ -827,6 +941,18 @@ def test_transcendental_chain(dev, body):
     got = probes.transcendental_chain(x, 64, body)
     assert probes.transcendental_chain.launches == before + 1
     _assert_close(got, probes.transcendental_chain_plain(x, 64, body), P1_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", [((4096, 128), 64), ((333, 7), 7), ((3,), 5)])
+@pytest.mark.parametrize("body", list(probes.BODIES))
+def test_transcendental_chain_shapes(dev, body, shape, k):
+    """P1 at the tool's shape, and at element counts that are not a multiple
+    of 4 (the float4 loop's tail; three elements: no float4 at all) with a
+    round count that is not a multiple of the loop's unroll."""
+    x = _rand(np.random.default_rng(8), dev, *shape)
+    got = probes.transcendental_chain(x, k, body)
+    _assert_close(got, probes.transcendental_chain_plain(x, k, body), P1_REL)
 
 
 @pytest.mark.cuda

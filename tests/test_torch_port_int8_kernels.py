@@ -1,9 +1,10 @@
 """The in-kernel int8 ResnetBlocks of the port against the JAX package on
 the CPU: K10a (`fused_resnet_block(int8=True)`, per-tile activation
 scales) and K10b (`fused_resnet_block_deep(int8=True)`, one scale per
-batch element), their tile choice and window quantize, in f32; and the
-decomposition K10b's card chain computes (K9's launches with K10b's
-roundings) against JAX's whole-layer kernels bit for bit.
+batch element), their tile choice and window quantize, in f32; the
+decompositions their card chains compute (K10b: K9's launches with K10b's
+roundings; K10a: per-tile quantized copies and the int8 conv over them)
+against JAX's kernels bit for bit; and K10a's tiled conv plan replayed.
 
 Tolerances are stated per case."""
 
@@ -332,3 +333,197 @@ def test_k10b_card_decomposition_matches_pallas_exactly(cin, cout, lens, amax):
          jnp.asarray(film.numpy()[:, None, :]), jnp.asarray(wq2[0].t().contiguous().numpy()),
          row(wq2[1]), row(b2), f), jnp.float32, groups=4)
     np.testing.assert_array_equal(c2.numpy(), jc2)
+
+
+# --- K10a's card chain: per-tile quantized copies on the int8 Hopper loop ----
+
+
+def _jax_tile_kernel(kernel, t, f, fpt, cin, cout, operands, groups=4):
+    """One of JAX's tiled kernels (_kernel_a / _kernel_b) with int8=True in
+    interpret mode, over the batch and the tiles as _fused_resnet grids
+    them (the halo blocks of _halo_specs), f32 out, _as_written: its (c (B,
+    N, Cout), stats (B, 2, Cout))."""
+    b, n = operands[1].shape[:2]
+    tile, n_tiles = fpt * f, t // fpt
+    lens = pl.BlockSpec((1, 1, 1), lambda bb, j: (bb, 0, 0), memory_space=pltpu.SMEM)
+    row = lambda c: pl.BlockSpec((1, c), lambda bb, j: (0, 0),  # noqa: E731
+                                 memory_space=pltpu.VMEM)
+    w = pl.BlockSpec((9 * cin, cout), lambda bb, j: (0, 0), memory_space=pltpu.VMEM)
+    out = pl.BlockSpec((1, tile, cout), lambda bb, j: (bb, j, 0), memory_space=pltpu.VMEM)
+    stats = pl.BlockSpec((1, 2, cout), lambda bb, j: (bb, 0, 0), memory_space=pltpu.VMEM)
+    halo = list(jpr._halo_specs(t, f, cin, n_tiles, fpt))
+    kw = dict(f=f, tile=tile, n_tiles=n_tiles, out_dtype=jnp.float32, tap_mode="taps",
+              int8=True)
+    if kernel is jpr._kernel_a:
+        specs = [lens, *halo, w, row(cout), row(cout)]
+    else:
+        film = pl.BlockSpec((1, 1, cout), lambda bb, j: (bb, 0, 0), memory_space=pltpu.VMEM)
+        specs = [lens, *halo, stats, row(cout), row(cout), film, w, row(cout), row(cout)]
+        kw.update(n_rows=n, groups=groups)
+    call = pl.pallas_call(
+        partial(kernel, **kw), grid=(b, n_tiles), in_specs=specs, out_specs=(out, stats),
+        out_shape=(jax.ShapeDtypeStruct((b, n, cout), jnp.float32),
+                   jax.ShapeDtypeStruct((b, 2, cout), jnp.float32)),
+        interpret=True,
+    )
+    c, st = _as_written(call, *operands)
+    return np.array(c, np.float32), np.array(st)
+
+
+def _assert_copy_layout(x8t, sx, v, f, fpt):
+    """The per-tile copy's layout, element by element: copy frame c of tile j
+    is frame j fpt - 1 + c of v rounded with tile j's scale (the halo frames
+    duplicate the neighbouring tiles' edge frames with this tile's scale),
+    zero outside the array and at channels past C; sx the tile scales."""
+    b, n, c = v.shape
+    t = n // f
+    assert x8t.shape == (b, t // fpt, fpt + 2, f, -(-c // 16) * 16)
+    assert torch.equal(sx, fr.tile_scales(v, f, fpt))
+    frames = v.reshape(b, t, f, c)
+    for j in range(t // fpt):
+        for cc in range(fpt + 2):
+            src = j * fpt - 1 + cc
+            want = torch.zeros((b, f, c), dtype=torch.int8)
+            if 0 <= src < t:
+                want = torch.clamp(torch.round(frames[:, src] * sx[:, j, None, None]), -127,
+                                   127).to(torch.int8)
+            assert torch.equal(x8t[:, j, cc, :, :c], want), (j, cc)
+    assert not x8t[..., c:].any()
+
+
+K10A_CASES = [  # (cin, cout, t, lens, frames_per_tile, max|x|)
+    (2, 32, 10, [10, 7], 5, None),    # Cin = 2, a prime fpt, a length inside tile 1
+    (16, 32, 8, [8, 5], 2, None),     # Cin < Cout
+    (32, 32, 12, [12, 9], 4, None),   # Cin == Cout
+    (32, 16, 9, [9, 4], 3, None),     # Cin > Cout
+    (16, 16, 10, [10, 6], 10, None),  # fpt = T: one tile
+    (16, 32, 10, [10, 8], 5, 1e-3),   # a small layer
+]
+
+
+@pytest.mark.parametrize("cin,cout,t,lens,fpt,amax", K10A_CASES)
+def test_k10a_card_decomposition_matches_pallas_exactly(cin, cout, t, lens, fpt, amax):
+    """K10a's chain on the card, modelled in plain PyTorch (the per-tile copy
+    tile_copy_plain, the conv over it conv3x3_i8_copy), against JAX's K10a
+    kernels (_kernel_a, _kernel_b with int8=True) in interpret mode, bit for
+    bit, on bf16 values: the tile scales 127 / (max|window| + 1e-8), each
+    tile's copy with its halo frames duplicated from the neighbouring tiles
+    and rounded with the tile's own scale, zero channels up to a multiple
+    of 16, the int8 taps over the copy, the dequantize with each tile's
+    scale -> c1; kernel B's h = mish(GN1(c1) * scale + shift) + FiLM, masked
+    and rounded to bf16, its copy -> c2. Both sides take the same int8
+    weights and reciprocal scales, and h takes JAX's GroupNorm 1 statistics
+    (the card sums them in its own order; the card tests bound that). The
+    conv biases and GroupNorm 1's shift are zero and the JAX side is
+    compiled without `algsimp`, as test_k10b_card_decomposition_matches_
+    pallas_exactly explains (XLA on the CPU contracts or folds what JAX's
+    text and the card round twice)."""
+    x, _, t_bias, args, _, _ = _early_case(cin, cout, t, lens, 13 * cin + cout + fpt)
+    bsz, _, f = x.shape[:3]
+    n = t * f
+    if amax is not None:
+        x = x * (amax / np.abs(x).max())
+    x = _bf16(x.reshape(bsz, n, cin))
+    film = _bf16(t_bias)
+    w1, _, s1, _, w2 = map(_t, args[:5])
+    b1, be1, b2 = torch.zeros((3, cout))  # the adds XLA would contract
+    wq1, wq2 = fr.quant_w(w1), fr.quant_w(w2)
+    lens_rows = torch.tensor(lens, dtype=torch.int32) * f
+    valid = fr._valid(lens_rows, n)
+    jlens = jnp.asarray(lens_rows.numpy().reshape(bsz, 1, 1))
+    row = lambda v: jnp.asarray(v.numpy()[None])  # noqa: E731
+    jw = lambda wq: jnp.asarray(wq[0].t().contiguous().numpy())  # noqa: E731
+
+    x8t, sx1 = fr.tile_copy_plain(x * valid, f, fpt)
+    _assert_copy_layout(x8t, sx1, x * valid, f, fpt)
+    c1 = fr.conv3x3_i8_copy(x8t, wq1, sx1) + b1
+    jx = jnp.asarray(x.numpy(), jnp.bfloat16)
+    jc1, jstats1 = _jax_tile_kernel(jpr._kernel_a, t, f, fpt, cin, cout,
+                                    (jlens, jx, jx, jx, jw(wq1), row(wq1[1]), row(b1)))
+    np.testing.assert_array_equal(c1.numpy(), jc1)
+    # the card's wrapper of the copy on CPU tensors is the same plain copy
+    assert all(torch.equal(a, b_) for a, b_ in zip(fr.quantize_tiles(x, lens_rows, f, fpt),
+                                                  (x8t, sx1)))
+
+    c1b = _bf16(jc1)
+    stats = partial(jpr._group_stats, n_rows=n, groups=4)
+    mean, inv = zip(*(_as_written(stats, jnp.asarray(jstats1[i, 0]), jnp.asarray(jstats1[i, 1]))
+                      for i in range(bsz)))
+    mean, inv = (torch.from_numpy(np.stack([np.asarray(m) for m in v])) for v in (mean, inv))
+    h = fr._gn_mish(c1b, mean, inv, s1, be1) + film[:, None, :]
+    h = (h * valid).to(torch.bfloat16).float()
+    h8t, sx2 = fr.tile_copy_plain(h, f, fpt)
+    _assert_copy_layout(h8t, sx2, h, f, fpt)
+    c2 = fr.conv3x3_i8_copy(h8t, wq2, sx2) + b2
+    jc1b = jnp.asarray(jc1, jnp.bfloat16)
+    jc2, _ = _jax_tile_kernel(
+        jpr._kernel_b, t, f, fpt, cout, cout,
+        (jlens, jc1b, jc1b, jc1b, jnp.asarray(jstats1), row(s1), row(be1),
+         jnp.asarray(film.numpy()[:, None, :]), jw(wq2), row(wq2[1]), row(b2)))
+    np.testing.assert_array_equal(c2.numpy(), jc2)
+    # the conv wrapper on CPU tensors: the same values, rounded once to bf16
+    assert torch.equal(fr.resnet_conv3x3_i8_tiles(h8t, sx2, wq2, b2), c2.to(torch.bfloat16))
+
+
+# chip_smoke.py's K1_SITES (F, Cin, Cout): K10a's six sites at every bucket
+K1_SITES = [(80, 2, 128), (80, 128, 128), (40, 128, 256), (40, 256, 256), (40, 512, 128),
+            (40, 128, 128)]
+# (T, F, fpt) -> (TT, TF): K10a's conv row tile on the card at those sites at
+# the 344- and 880-frame buckets (us_conv_plan_i8_tiles; tests/
+# test_torch_port_cuda.py holds the card's plan to this table)
+K10A_PLANS = {(344, 80, 8): (8, 16), (172, 40, 43): (16, 8), (172, 40, 4): (4, 20),
+              (880, 80, 11): (11, 10), (440, 40, 22): (22, 5)}
+
+
+def _row_tile_rule(fpt, f, rows=128):
+    """conv_tc's tile choice for a TPU tile of fpt frames (resnet_block.cu
+    pick_tile with T = fpt): TF a divisor of F, TT = min(rows / TF, fpt), the
+    fewest row tiles, then the smallest box of (TT + 2) x (TF + 2) rows."""
+    best = None
+    for d in range(1, min(f, rows) + 1):
+        if f % d == 0:
+            tt = min(rows // d, fpt)
+            key = (-(-fpt // tt) * (f // d), (tt + 2) * (d + 2))
+            if best is None or key < best[0]:
+                best = (key, (tt, d))
+    return best[1]
+
+
+@pytest.mark.parametrize("frames", [344, 880])
+@pytest.mark.parametrize("f,cin,cout", K1_SITES)
+def test_k10a_tiled_plan_replay(frames, f, cin, cout):
+    """K10a's conv grid replayed block by block at each site and bucket:
+    block x is row tile s of TPU tile j (x / tiles_f = j * sub + s); its rows
+    (tt, ff) < (TT, TF) with to0 + tt < fpt are output frames inside tile j,
+    every output row is written exactly once, every row's taps read copy
+    frames 0 .. fpt + 1 of tile j's copy, and the share of each block's 128
+    rows that is useful is fpt F / (sub tiles_f 128): 1 at F = 80, 43/48 at
+    fpt = 43 and 5/8 at fpt = 4 (the 344-frame bucket)."""
+    t = frames * f // 80
+    fpt = fr.pick_frames_per_tile(t, f, max(cin, cout))
+    tt, tf = K10A_PLANS[(t, f, fpt)]
+    assert (tt, tf) == _row_tile_rule(fpt, f)
+    sub, tiles_f = -(-fpt // tt), f // tf
+    assert tt <= fpt and tt * tf <= 128 and tt + 2 <= 256 and tf + 2 <= 256
+    written = np.zeros(t * f, np.int64)
+    useful = []
+    for blk in range(t // fpt * sub * tiles_f):
+        tile_t, tile_f = divmod(blk, tiles_f)
+        j, s = divmod(tile_t, sub)
+        to0, fo0 = s * tt, tile_f * tf
+        rows = 0
+        for r in range(128):
+            a, ff = divmod(r, tf)
+            if a >= tt or to0 + a >= fpt:
+                continue
+            frame = j * fpt + to0 + a
+            assert j * fpt <= frame < (j + 1) * fpt  # no row tile crosses a TPU tile
+            assert 0 <= to0 + a and to0 + a + 2 <= fpt + 1  # taps inside the copy
+            written[frame * f + fo0 + ff] += 1
+            rows += 1
+        useful.append(rows / 128)
+    assert (written == 1).all()
+    share = float(np.mean(useful))
+    assert share == pytest.approx(fpt * f / (sub * tiles_f * 128), abs=1e-12)
+    if frames == 344:
+        assert share == pytest.approx({8: 1.0, 43: 43 / 48, 4: 5 / 8}[fpt], abs=1e-12)

@@ -19,7 +19,7 @@ from unitspeech_tpu.ops import fastmath as jfm
 from unitspeech_tpu.ops import pallas_resnet as jpr
 from unitspeech_tpu_torch.ops import fastmath, probes
 from unitspeech_tpu_torch.ops import fused_resnet as fr
-from unitspeech_tpu_torch.tools import bisect_deep_compile, probe_stride
+from unitspeech_tpu_torch.tools import bench_transcendental, bisect_deep_compile, probe_stride
 
 # one intra-op thread: the suite's pytest workers share the CPU's cores, and
 # torch's default of one thread a core oversubscribes them
@@ -74,6 +74,60 @@ def test_transcendental_plain_matches_jnp_loop(body):
 
 def test_transcendental_ops_cover_every_body():
     assert set(probes.ROUND_OPS) == set(probes.BODIES) == set(JNP_BODIES)
+
+
+# cuobjdump -sass of a chain kernel, cut down: an early exit over everything,
+# the grid-stride loop, and the round loop (two rounds: a multiply by 0.5
+# and one folded into FMUL.D2) with a slow path holding a loop of its own
+# that a branch jumps over; the second function branches to labels
+SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_15chainILi3EEEvPKfPfii
+        /*0000*/                   S2R R0, SR_TID.X ;            /* 0x0000000000007919 */
+        /*0010*/               @P0 BRA 0x200 ;                   /* 0x0000000800d80947 */
+        /*0020*/                   LDG.E R4, desc[UR4][R2.64] ;
+        /*0030*/                   FMUL R5, R4, 1.1000000238418579102 ;
+        /*0040*/              @!P1 BRA 0x90 ;
+        /*0050*/                   IADD3 R7, R7, 0x1, RZ ;
+        /*0060*/                   IMAD R8, R7, R7, RZ ;
+        /*0070*/               @P2 BRA 0x50 ;
+        /*0080*/                   MUFU.RCP R5, R5 ;
+        /*0090*/                   FMUL R5, R5, 0.5 ;
+        /*00a0*/                   FADD R4, R4, R5 ;
+        /*00b0*/                   MUFU.EX2 R6, R4 ;
+        /*00c0*/                   FMUL.D2 R6, R6, R9 ;
+        /*00d0*/                   FADD R4, R4, R6 ;
+        /*00e0*/                   IADD3 R10, R10, 0x2, RZ ;
+        /*00f0*/              @!P3 BRA 0x30 ;
+        /*0100*/                   STG.E desc[UR4][R2.64], R4 ;
+        /*0110*/              @!P4 BRA 0x20 ;
+        /*0200*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_15chainILi0EEEvPKfPfii
+.L_x_1:
+        /*0000*/                   FMUL R5, R4, 1.1000000238418579102 ;
+        /*0010*/                   FMUL R5, R5, 0.5 ;
+        /*0020*/                   FADD R4, R4, R5 ;
+        /*0030*/              @!P0 BRA `(.L_x_1) ;
+        /*0040*/                   EXIT ;
+"""
+
+
+def test_sass_round_counts():
+    """bench_transcendental reads one round's instructions from a
+    chain kernel's SASS: the innermost loop with the most rounds (multiplies
+    by 0.5, FMUL.D2 included), by class over its rounds, leaving out a slow
+    path a branch jumps over when it holds a loop; branch targets as
+    addresses or labels."""
+    funcs = bench_transcendental.parse_sass(SASS)
+    counts = {name.split("ILi")[1][0]: bench_transcendental.round_counts(ins)
+              for name, ins in funcs.items()}
+    # 0x30 FMUL, 0x40 BRA, 0x90 FMUL (0.5), 0xa0 FADD, 0xb0 MUFU, 0xc0
+    # FMUL.D2, 0xd0 FADD, 0xe0 IADD3, 0xf0 BRA: two rounds
+    assert counts["3"] == {"rounds_in_loop": 2, "fp32": 2.5, "mufu_conv": 0.5, "other": 1.5}
+    assert counts["0"] == {"rounds_in_loop": 1, "fp32": 3.0, "mufu_conv": 0.0, "other": 1.0}
+    # the issue-slot least time: the wide pipes' (FP32 and the rest) over 128
+    # lanes against MUFU and conversions over 16, at 132 SMs and 2 GHz
+    t = bench_transcendental.issue_ms(counts["3"], 132 * 2e9, 132, 2e9)
+    assert t == pytest.approx(max(4.0 / 128, 0.5 / 16) * 1e3)
 
 
 @pytest.mark.parametrize("case", range(6))

@@ -64,67 +64,23 @@ US_DEV void warp_mma_k16(float (&acc)[MT][NT][4], const bf16* a, int lda,
   }
 }
 
-// int8 products: D (16x8 s32) += A (16x32 s8, row) * B (32x8 s8, col).
-US_DEV void mma_s8_16832(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One k32 step of an int8 warp tile of MT*16 rows by NT*8 columns (NT even).
-// `a` points at the warp's first row at the current k32 byte column of a
-// row-major [rows][lda] int8 tile; `b` at the warp's first output column at
-// the current k32 byte column of an n-major [n][ldb] int8 tile (ldmatrix
-// moves 16-bit pairs, so int8 B cannot be transposed on load and is kept
-// n-major). An 8x8 b16 matrix is 8 rows of 16 int8, which is exactly the
-// m16n8k32 fragment layout. Accumulators sit as in warp_mma_k16.
-template <int MT, int NT>
-US_DEV void warp_mma_k32_s8(int (&acc)[MT][NT][4], const int8_t* a, int lda, const int8_t* b,
-                            int ldb, int lane) {
-  uint32_t af[MT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-    ldmatrix_x4(af[i], a + (i * 16 + (lane & 15)) * lda + (lane >> 4) * 16);
-#pragma unroll
-  for (int j = 0; j < NT / 2; ++j) {
-    uint32_t bf[4];
-    ldmatrix_x4(bf, b + (j * 16 + ((lane >> 4) << 3) + (lane & 7)) * ldb + ((lane >> 3) & 1) * 16);
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      mma_s8_16832(acc[i][2 * j], af[i], bf[0], bf[1]);
-      mma_s8_16832(acc[i][2 * j + 1], af[i], bf[2], bf[3]);
-    }
-  }
-}
-
 // The implicit-GEMM main loop of the conv kernels: a 128 x 64 output tile
 // per block of 256 threads (8 warps of 32 x 32), two shared-memory stages,
 // the next k-block's global loads issued before this one's tensor-core
 // math. The caller's functors gather the operands:
 //   load_a(kb, uint4 (&)[2]): this thread's two 16-byte chunks of the A
-//     tile at k-block kb; chunk s is tile row v / 4, 16-byte column v % 4
-//     (bf16: k = (v % 4) * 8 .. +7; int8: k = (v % 4) * 16 .. +15), with
-//     v = threadIdx.x + s * 256;
-//   load_b(kb) -> uint4: bf16 B is k-major, row threadIdx.x / 8, columns
-//     (threadIdx.x % 8) * 8 .. +7; int8 B is n-major, output column
-//     threadIdx.x / 4, k = (threadIdx.x % 4) * 16 .. +15.
+//     tile at k-block kb; chunk s is tile row v / 4, k = (v % 4) * 8 .. +7,
+//     with v = threadIdx.x + s * 256;
+//   load_b(kb) -> uint4: B is k-major, row threadIdx.x / 8, columns
+//     (threadIdx.x % 8) * 8 .. +7.
 constexpr int IG_BM = 128, IG_BN = 64, IG_THREADS = 256;
 constexpr int IG_BK = 32;              // bf16 k-block
 constexpr int IG_AST = IG_BK + 8;      // padded smem row strides (elements):
 constexpr int IG_BST = IG_BN + 8;      // ldmatrix without bank conflicts
-constexpr int IG8_BK = 64;             // int8 k-block (bytes)
-constexpr int IG8_ST = IG8_BK + 16;    // int8 smem row stride (bytes)
 
 struct __align__(16) IgemmTiles {
   bf16 a[2][IG_BM * IG_AST];
   bf16 b[2][IG_BK * IG_BST];
-};
-
-struct __align__(16) IgemmTilesS8 {
-  int8_t a[2][IG_BM * IG8_ST];
-  int8_t b[2][IG_BN * IG8_ST];
 };
 
 template <class LoadA, class LoadB>
@@ -159,41 +115,6 @@ US_DEV void igemm_bf16(float (&acc)[2][4][4], IgemmTiles& sm, int nk, LoadA& loa
     for (int kk = 0; kk < 2; ++kk)
       warp_mma_k16<2, 4>(acc, &sm.a[buf][(wm * 32) * IG_AST + kk * 16], IG_AST,
                          &sm.b[buf][(kk * 16) * IG_BST + wn * 32], IG_BST, lane);
-  }
-}
-
-template <class LoadA, class LoadB>
-US_DEV void igemm_s8(int (&acc)[2][4][4], IgemmTilesS8& sm, int nk, LoadA& load_a,
-                     LoadB& load_b) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-  uint4 areg[2];
-  uint4 breg;
-  load_a(0, areg);
-  breg = load_b(0);
-  for (int kb = 0; kb < nk; ++kb) {
-    const int buf = kb & 1;
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      int v = tid + s * IG_THREADS;
-      *reinterpret_cast<uint4*>(&sm.a[buf][(v >> 2) * IG8_ST + (v & 3) * 16]) = areg[s];
-    }
-    *reinterpret_cast<uint4*>(&sm.b[buf][(tid >> 2) * IG8_ST + (tid & 3) * 16]) = breg;
-    __syncthreads();
-    if (kb + 1 < nk) {
-      load_a(kb + 1, areg);
-      breg = load_b(kb + 1);
-    }
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
-      warp_mma_k32_s8<2, 4>(acc, &sm.a[buf][(wm * 32) * IG8_ST + kk * 32], IG8_ST,
-                            &sm.b[buf][(wn * 32) * IG8_ST + kk * 32], IG8_ST, lane);
   }
 }
 

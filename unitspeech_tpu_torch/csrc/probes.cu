@@ -10,8 +10,19 @@
 // add rounds on its own (__fmul_rn, __fadd_rn): nvcc would otherwise
 // contract body * 0.5 + x into one fused multiply-add, which PyTorch does
 // not. What bounds it: the operations (k rounds of the body per element
-// read and written once; 4 MB of f32 at the tool's defaults); one thread
-// per element, a grid-stride loop.
+// read and written once; 4 MB of f32 at the tool's defaults), and within
+// them the issue slots: a multiply and an add that must not contract take
+// two where one FMA would do both, and the accurate bodies are sequences of
+// a few tens of instructions (tools/bench_transcendental.py counts them in
+// the SASS). Each round depends on the last, so a thread carries four
+// independent elements (one float4 load and store), their chains
+// interleaved in the round loop (unrolled by P1_UNROLL) so that one
+// element's latency can hide behind another's; the grid is one full wave
+// (the SMs times the blocks an SM holds, no tail wave), grid-striding over
+// float4s, and the n % 4 elements past the last float4 take one thread each
+// in block 0. (Measured: one element a thread in two waves was already
+// issue-bound, at 74-100% of the SASS's issue-slot least time, so this form
+// gains 2%: PERF.md.)
 //
 // P2 replaces the Pallas kernels of tools/probe_stride.py (run_case,
 // pallas_call :42), which asked which row-subsample forms Mosaic lowers:
@@ -52,6 +63,8 @@
 // through distributed shared memory, and a TMA copy of each band (an
 // mbarrier and one issuing thread ahead of the products: slower at this
 // size than the threads' own loads).
+#include <algorithm>
+
 #include "hopper.cuh"
 
 namespace {
@@ -97,14 +110,59 @@ US_DEV float body(float x) {
   }
 }
 
+constexpr int P1_UNROLL = 4;  // rounds a trip of the round loop
+
+template <int BODY>
+US_DEV float chain_round(float acc, float x) {
+  return __fadd_rn(__fmul_rn(body<BODY>(acc), 0.5f), x);
+}
+
 template <int BODY>
 __global__ void __launch_bounds__(256) chain(const float* x, float* out, int n, int k) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+  const int n4 = n / 4;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n4; i += gridDim.x * blockDim.x) {
+    const float4 xv = __ldg(reinterpret_cast<const float4*>(x) + i);
+    float a0 = xv.x, a1 = xv.y, a2 = xv.z, a3 = xv.w;
+    int r = 0;
+#pragma unroll 1
+    for (; r + P1_UNROLL <= k; r += P1_UNROLL) {
+#pragma unroll
+      for (int u = 0; u < P1_UNROLL; ++u) {
+        a0 = chain_round<BODY>(a0, xv.x);
+        a1 = chain_round<BODY>(a1, xv.y);
+        a2 = chain_round<BODY>(a2, xv.z);
+        a3 = chain_round<BODY>(a3, xv.w);
+      }
+    }
+    for (; r < k; ++r) {
+      a0 = chain_round<BODY>(a0, xv.x);
+      a1 = chain_round<BODY>(a1, xv.y);
+      a2 = chain_round<BODY>(a2, xv.z);
+      a3 = chain_round<BODY>(a3, xv.w);
+    }
+    reinterpret_cast<float4*>(out)[i] = make_float4(a0, a1, a2, a3);
+  }
+  const int i = n4 * 4 + threadIdx.x;  // the tail
+  if (blockIdx.x == 0 && i < n) {
     const float xv = x[i];
     float acc = xv;
-    for (int r = 0; r < k; ++r) acc = __fadd_rn(__fmul_rn(body<BODY>(acc), 0.5f), xv);
+    for (int r = 0; r < k; ++r) acc = chain_round<BODY>(acc, xv);
     out[i] = acc;
   }
+}
+
+// One full wave of chain<BODY> blocks of 256 threads for n elements (n / 4
+// float4s), at least one block.
+template <int BODY>
+int launch_chain(const float* x, float* out, int n, int k, cudaStream_t st) {
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain<BODY>, 256, 0);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = std::max(1, std::min(n_sms() * per_sm, us_ceil_div(n / 4, 256)));
+  chain<BODY><<<blocks, 256, 0, st>>>(x, out, n, k);
+  return (int)cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(256) row_select(const bf16* x, bf16* out, int rows_out, int C,
@@ -233,25 +291,23 @@ int grid_for(size_t items) {
 
 extern "C" {
 
-// P1: out = k rounds of acc = body(acc) * 0.5 + x over n f32 elements;
-// body in Body's order (mul, jnp_sin, fast_sin, jnp_exp, fast_exp,
-// jnp_tanh, div, rsqrt).
+// P1: out = k rounds of acc = body(acc) * 0.5 + x over n f32 elements (x
+// and out 16-byte aligned); body in Body's order (mul, jnp_sin, fast_sin,
+// jnp_exp, fast_exp, jnp_tanh, div, rsqrt).
 int us_transcendental_chain(const float* x, float* out, int n, int k, int body_id,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int g = grid_for(n);
   switch (body_id) {
-    case MUL: chain<MUL><<<g, 256, 0, st>>>(x, out, n, k); break;
-    case JNP_SIN: chain<JNP_SIN><<<g, 256, 0, st>>>(x, out, n, k); break;
-    case FAST_SIN: chain<FAST_SIN><<<g, 256, 0, st>>>(x, out, n, k); break;
-    case JNP_EXP: chain<JNP_EXP><<<g, 256, 0, st>>>(x, out, n, k); break;
-    case FAST_EXP: chain<FAST_EXP><<<g, 256, 0, st>>>(x, out, n, k); break;
-    case JNP_TANH: chain<JNP_TANH><<<g, 256, 0, st>>>(x, out, n, k); break;
-    case DIV: chain<DIV><<<g, 256, 0, st>>>(x, out, n, k); break;
-    case RSQRT: chain<RSQRT><<<g, 256, 0, st>>>(x, out, n, k); break;
+    case MUL: return launch_chain<MUL>(x, out, n, k, st);
+    case JNP_SIN: return launch_chain<JNP_SIN>(x, out, n, k, st);
+    case FAST_SIN: return launch_chain<FAST_SIN>(x, out, n, k, st);
+    case JNP_EXP: return launch_chain<JNP_EXP>(x, out, n, k, st);
+    case FAST_EXP: return launch_chain<FAST_EXP>(x, out, n, k, st);
+    case JNP_TANH: return launch_chain<JNP_TANH>(x, out, n, k, st);
+    case DIV: return launch_chain<DIV>(x, out, n, k, st);
+    case RSQRT: return launch_chain<RSQRT>(x, out, n, k, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // P2: out (rows_out, C) = the first `keep` rows of every `period` rows of x.

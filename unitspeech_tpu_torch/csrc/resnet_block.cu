@@ -90,9 +90,16 @@
 // Cin % 8 != 0 (the estimator's first block, Cin = 2: rows of 4 bytes
 // cannot be a TMA tensor) keeps the element-load implicit GEMM on mma.sync
 // (conv_gemm, common.cuh igemm_bf16, 128 x 64 tiles of whole rows) for
-// conv1 and its 1x1 residual, with the raw (taps*Cin, Cout) bf16 weights;
-// so does K10a's kernel C (us_resnet_out_rows, the raw-weight entry
-// point). Its GEMM is 0.4 GFLOP a call.
+// conv1 and its 1x1 residual, with the raw (taps*Cin, Cout) bf16 weights.
+// Its GEMM is 0.4 GFLOP a call.
+//
+// K10a's int8 convs (us_resnet_conv3x3_i8_tiles; csrc/resnet_block_i8.cu)
+// run conv_tc with I8 in its tiled-input mode: the input is a per-TPU-tile
+// quantized copy (B, n_tiles, fpt + 2, F, Cp) int8 that holds each tile's
+// fpt frames and its two halo frames, so a row tile's box starts at copy
+// frame to0 (the halo is in the copy), row tiles never cross a TPU tile
+// (the tile is picked for fpt frames, TT <= fpt) and the epilogue
+// dequantizes with the tile's own scale.
 #include <algorithm>
 #include <type_traits>
 
@@ -100,7 +107,7 @@
 
 namespace {
 
-// --- element loads on mma.sync (Cin % 8 != 0, and K10) ---------------------
+// --- element loads on mma.sync (Cin % 8 != 0) --------------------------------
 
 constexpr int EL_BM = IG_BM, EL_BN = IG_BN, EL_BK = IG_BK;
 
@@ -245,6 +252,9 @@ struct TcArgs {
   const float *o_scale, *o_shift; // (Cout)
   int T, F, Cin, Cout;            // the (T, F) grid of rows, N = T * F
   int tt, tf, tiles_f, n_tiles;   // the row tile: TT frames x TF frequencies
+  // tiled input (K10a): 0, or the TPU tile's frames; the row tiles of a TPU
+  // tile (sub of them, each TT <= fpt frames) read its copy (fpt + 2 frames)
+  int fpt, sub;
   int n_chunks, stage_bytes, box_bytes, data_bytes;
   // the packed weights: Cout tiles of `split` x BN columns, w_tile bytes
   // apart, their stages w_stride bytes apart (a BN-column stage is a slice
@@ -264,7 +274,12 @@ US_DEV float acc_f32(int v) { return __int2float_rn(v); }
 // tile, Cout tile, batch); warps 0-7 consume (warpgroup g: tile rows
 // 64 g .. 64 g + 63), warp 8 loads. Tile row r = (tt, ff) = (r / TF, r % TF)
 // is grid row (to0 + tt, fo0 + ff) when tt < TT and to0 + tt < T; its tap
-// (dt, df) reads box row (tt + dt) * BF + ff + df, BF = TF + 2.
+// (dt, df) reads box row (tt + dt) * BF + ff + df, BF = TF + 2. Tiled input
+// (p.fpt > 0, I8): block x's row tile is sub-tile s of TPU tile j; its rows
+// are frames j fpt + to0 + tt < (j + 1) fpt, and its box comes from tile j's
+// copy from copy frame to0 on (the copy's frame 0 is the halo frame above),
+// which holds zeros wherever the TPU's window does; the dequantize takes
+// sx[b, j].
 template <int TAPS, int BN, int EPI, bool I8 = false>
 __global__ void __launch_bounds__(TC_THREADS, 1)
     conv_tc(const __grid_constant__ CUtensorMap xmap, TcArgs p) {
@@ -283,11 +298,15 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   const int TT = p.tt, TF = p.tf, BF = TF + 2 * HALO;
   const int b = blockIdx.z, n0 = blockIdx.y * BN;
   const int tile_t = blockIdx.x / p.tiles_f, tile_f = blockIdx.x - tile_t * p.tiles_f;
-  const int to0 = tile_t * TT, fo0 = tile_f * TF;
-  // K9's chain launches it with launch_pdl (otherwise both are no-ops)
+  const bool tiled = I8 && p.fpt > 0;
+  const int tj = tiled ? tile_t / p.sub : 0;  // the TPU tile (tiled input)
+  const int to0 = (tiled ? tile_t - tj * p.sub : tile_t) * TT, fo0 = tile_f * TF;
+  const int t_end = tiled ? p.fpt : T;        // the frames of the row tile's grid
+  const int frame0 = tj * p.fpt;              // its first frame (tiled input)
+  // K9's and K10a's chains launch it with launch_pdl (otherwise both are no-ops)
   griddep_wait();
   griddep_launch();
-  const int len = p.lens[b];
+  const int len = tiled ? 0 : p.lens[b];  // a tiled input's copy is masked
   if (tid < 8) reinterpret_cast<uint4*>(zero)[tid] = make_uint4(0, 0, 0, 0);
   if (tid == 0) {
     for (int s = 0; s < S; ++s) mbar_init(&w_full[s], 1), mbar_init(&w_empty[s], 8);
@@ -302,7 +321,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
                           (blockIdx.y % p.split) * BN * 128;
     produce_ring(&xmap, ring, box, w_full, w_empty, x_full, x_empty, S, TAPS, p.stage_bytes,
                  p.w_stride, TC_BOXES, p.box_bytes, (TT + 2 * HALO) * BF * 128, p.n_chunks,
-                 wsrc, fo0 - HALO, to0 - HALO, b, I8 ? 128 : KC);
+                 wsrc, fo0 - HALO, tiled ? to0 : to0 - HALO,
+                 tiled ? b * (T / p.fpt) + tj : b, I8 ? 128 : KC);
     return;
   }
 
@@ -315,13 +335,14 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     // this lane's ldmatrix row: which taps have input, and its box row
     const int r = (warp >> 2) * 64 + (warp & 3) * 16 + (lane & 15);
     const int tt = r / TF, ff = r - tt * TF;
-    const bool row_ok = tt < TT && to0 + tt < T;
+    const bool row_ok = tt < TT && to0 + tt < t_end;
     uint32_t okm = 0;
 #pragma unroll
     for (int tap = 0; tap < TAPS; ++tap) {
       const int ti = to0 + tt + tap / 3 - HALO, fi = fo0 + ff + tap % 3 - HALO;
-      const bool ok = row_ok && (unsigned)ti < (unsigned)T && (unsigned)fi < (unsigned)F &&
-                      ti * F + fi < len;
+      // the copy of a tiled input holds its frames' zeros itself
+      const bool ok = row_ok && (unsigned)fi < (unsigned)F &&
+                      (tiled || ((unsigned)ti < (unsigned)T && ti * F + fi < len));
       okm |= (uint32_t)ok << tap;
     }
     const int R0 = tt * BF + ff;
@@ -377,7 +398,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   bar_sync_named(1, 256);
   const int ch = tid % CPR, rg = tid / CPR, n = n0 + ch * 8;
   float bias8[8], s8[8], q8[8], mean8[8], inv8[8], sc8[8], sh8[8], swe8[8];
-  const float rsx = I8 ? 1.f / p.sx[b] : 0.f;
+  const float rsx = I8 ? 1.f / p.sx[tiled ? b * (T / p.fpt) + tj : b] : 0.f;
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
     bias8[e] = __ldg(p.bias + n + e);
@@ -392,8 +413,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   }
   for (int rr = rg; rr < TC_BM; rr += RG) {
     const int tt = rr / TF, ff = rr - tt * TF, to = to0 + tt;
-    if (tt >= TT || to >= T) continue;
-    const int m = to * F + fo0 + ff;
+    if (tt >= TT || to >= t_end) continue;
+    const int m = (frame0 + to) * F + fo0 + ff;
     const float4 a0 = *reinterpret_cast<const float4*>(st + rr * LDS + ch * 8);
     const float4 a1 = *reinterpret_cast<const float4*>(st + rr * LDS + ch * 8 + 4);
     float v[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
@@ -763,16 +784,21 @@ void pick_tile(int T, int F, int halo, int& tt, int& tf) {
 // (F = 1, no halo). pack_bn: the packed weights' Cout tile; the launch takes
 // 64 columns from 128-column packing where 128 would leave more than half
 // the SMs without a block (the F = 10 convs to 512 channels: 48 blocks).
+// fpt > 0 (int8, K10a's tiled input): the row tile is picked for the fpt
+// frames of a TPU tile, and each of the T / fpt TPU tiles takes sub =
+// ceil(fpt / TT) row tiles of every frequency tile.
 TcPlan make_tc_plan(int taps, int B, int T, int F, int Cin, int Cout, int pack_bn, int epi,
-                    bool i8 = false) {
+                    bool i8 = false, int fpt = 0) {
   TcPlan pl{};
   TcArgs& a = pl.a;
   if (taps == 1) T *= F, F = 1;
   const int halo = taps == 9 ? 1 : 0;
   a.T = T, a.F = F, a.Cin = Cin, a.Cout = Cout;
-  pick_tile(T, F, halo, a.tt, a.tf);
+  pick_tile(fpt ? fpt : T, F, halo, a.tt, a.tf);
   a.tiles_f = F / a.tf;
-  a.n_tiles = ((T + a.tt - 1) / a.tt) * a.tiles_f;
+  a.fpt = fpt;
+  a.sub = fpt ? (fpt + a.tt - 1) / a.tt : 0;
+  a.n_tiles = (fpt ? (T / fpt) * a.sub : (T + a.tt - 1) / a.tt) * a.tiles_f;
   a.n_chunks = (Cin + (i8 ? 128 : KC) - 1) / (i8 ? 128 : KC);
   int bn = pack_bn;
   if (pack_bn == 128 && 2 * a.n_tiles * B * (Cout / 128) <= n_sms()) bn = 64;
@@ -806,7 +832,10 @@ int tc_launch(int taps, TcPlan& pl, const void* x, int B, int Cin, cudaStream_t 
               bool i8 = false, bool pdl = false) {
   if (pl.smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   CUtensorMap xmap;
-  int err = x_tensor_map(&xmap, x, B, pl.a.T, pl.a.F, Cin, pl.box_t, pl.box_f, i8);
+  // a tiled input is (B * n_tiles, fpt + 2, F, Cin): one tile's copy a batch row
+  const int fpt = pl.a.fpt;
+  int err = x_tensor_map(&xmap, x, fpt ? B * (pl.a.T / fpt) : B, fpt ? fpt + 2 : pl.a.T, pl.a.F,
+                         Cin, pl.box_t, pl.box_f, i8);
   if (err) return err;
   TcKernel k = tc_kernel(taps, pl.bn, i8);
   cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
@@ -831,10 +860,6 @@ int us_resnet_out_rows(const void* c2, const void* x, const float* mean, const f
                        const float* scale, const float* shift, const void* wres,
                        const float* bres, const int* lens, void* out, int B, int N, int Cin,
                        int Cout, void* stream);
-
-// The tiles of the element-load kernels (whole rows, 128 at a time): K10
-// and the Cin % 8 != 0 convs here.
-int us_n_row_tiles(int N) { return n_row_tiles(N); }
 
 // The tiles (part's second dimension) us_resnet_conv3x3 writes for an
 // input of Cin channels on the (N / F, F) grid.
@@ -902,6 +927,51 @@ int us_resnet_conv3x3_i8(const void* x8, const void* w8, int BN, const float* sx
   pl.a.out = static_cast<bf16*>(out);
   pl.a.part = part;
   return tc_launch(9, pl, x8, B, Cin, static_cast<cudaStream_t>(stream), true, true);
+}
+
+// K10a's int8 conv3x3 over a per-TPU-tile copy: x8t (B, N / (F fpt), fpt +
+// 2, F, Cp) int8 (csrc/resnet_block_i8.cu tile_copy; Cp % 16 == 0, zero
+// channels past the input's), w8 packed by pack_conv_weight_i8 for Cp input
+// channels in Cout tiles of BN; out = bf16(f32(acc) * ((1 / sx[b, j]) * rsw)
+// + bias) with j each row's TPU tile, and the tile statistics of that f32
+// value into part (B, us_conv_i8_tiles_n_tiles(N, F, fpt), 2, Cout). A
+// programmatic dependent launch.
+int us_resnet_conv3x3_i8_tiles(const void* x8t, const void* w8, int BN, const float* sx,
+                               const float* rsw, const float* bias, void* out, float* part, int B,
+                               int N, int F, int Cp, int Cout, int fpt, void* stream) {
+  if (!tc_bn_ok(BN, Cout) || Cp % 16 || fpt <= 0 || N % (F * fpt))
+    return (int)cudaErrorInvalidValue;
+  TcPlan pl = make_tc_plan(9, B, N / F, F, Cp, Cout, BN, 0, true, fpt);
+  pl.a.w = w8;
+  pl.a.sx = sx;
+  pl.a.rsw = rsw;
+  pl.a.bias = bias;
+  pl.a.out = static_cast<bf16*>(out);
+  pl.a.part = part;
+  return tc_launch(9, pl, x8t, B, Cp, static_cast<cudaStream_t>(stream), true, true);
+}
+
+// The row tiles (part's second dimension) us_resnet_conv3x3_i8_tiles
+// writes a batch element.
+int us_conv_i8_tiles_n_tiles(int N, int F, int fpt) {
+  return make_tc_plan(9, 1, N / F, F, 16, 64, 64, 0, true, fpt).a.n_tiles;
+}
+
+// Its launch plan: info = {TT, TF, the launch's Cout tile, blocks, threads,
+// dynamic shared memory bytes, row tiles a batch element, blocks an SM
+// holds, row tiles a TPU tile}.
+int us_conv_plan_i8_tiles(int B, int T, int F, int Cp, int Cout, int BN, int fpt, int* info) {
+  if (!tc_bn_ok(BN, Cout) || Cp % 16 || fpt <= 0 || T % fpt) return (int)cudaErrorInvalidValue;
+  TcPlan pl = make_tc_plan(9, B, T, F, Cp, Cout, BN, 0, true, fpt);
+  TcKernel k = tc_kernel(9, pl.bn, true);
+  int per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, TC_THREADS, pl.smem);
+  const int v[9] = {pl.a.tt, pl.a.tf, pl.bn, (int)(pl.grid.x * pl.grid.y * pl.grid.z),
+                    TC_THREADS, pl.smem, pl.a.n_tiles, per_sm, pl.a.sub};
+  for (int i = 0; i < 9; ++i) info[i] = v[i];
+  return (int)e;
 }
 
 // K2, the final block: kernel A (conv3x3 + bias -> c1 (B, N, C) bf16 and
@@ -1033,10 +1103,9 @@ int us_resnet_block(const void* x, const void* w1, const float* b1, const float*
                        0, stream);
 }
 
-// The raw-weight kernels A and C (element loads on igemm_bf16; K10's, and
-// the Cin % 8 != 0 convs of us_resnet_conv3x3 / us_resnet_out): w (9*Cin,
-// Cout), wres (Cin, Cout) bf16 or NULL; part (B, us_n_row_tiles(N), 2,
-// Cout).
+// The raw-weight kernels A and C (element loads on igemm_bf16: the Cin % 8
+// != 0 convs of us_resnet_conv3x3 / us_resnet_out): w (9*Cin, Cout), wres
+// (Cin, Cout) bf16 or NULL; part (B, ceil(N / 128), 2, Cout).
 int us_resnet_conv3x3_rows(const void* x, const void* w, const float* bias, const int* lens,
                            void* out, float* part, int B, int N, int F, int Cin, int Cout,
                            void* stream) {

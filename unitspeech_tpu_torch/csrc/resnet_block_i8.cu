@@ -2,10 +2,7 @@
 //
 // Replaces the Pallas kernels in unitspeech_tpu/ops/pallas_resnet.py:
 // fused_resnet_block(int8=True): _fused_resnet's _kernel_a and _kernel_b
-// with _conv3x3_taps_int8; kernel C is K1's in its raw-weight form
-// (us_resnet_out_rows). It keeps the element-load main loops of common.cuh
-// (igemm_s8); no served path runs it. (K10b, the deep blocks' in-kernel
-// int8 mode, runs on K9's chain: csrc/resnet_deep_i8.cu.)
+// with _conv3x3_taps_int8; kernel C is K1's (us_resnet_out).
 //
 // What the TPU kernels compute: each grid step quantizes its conv input
 // window, the tile's fpt frames plus one halo frame above and below (zero
@@ -17,37 +14,51 @@
 // the activation dtype first. The tiles are fpt = _pick_frames_per_tile
 // frames.
 //
-// Layout: rows n = t*F + f of one batch element, channels last. The scale
-// groups belong to the TPU's tiles, which the 128-row GEMM tile does not
-// line up with, so the scale is a property of the OUTPUT row's tile: a halo
-// input row is quantized with the scale of the tile it feeds, not its own,
-// and the input cannot be quantized once ahead of the conv (as K9 does).
-// So the conv quantizes on load: the A-operand loader reads bf16, applies
-// kernel B's transform where there is one, and rounds with the scale of
-// the output row's tile. The scales come from two small passes first: the
-// abs-max of every (batch, frame) (the halo is one frame and the row mask
-// is frame-granular) and a reduction of those maxima over each tile's
-// frames plus its halo frames.
+// A halo row takes the scale of the tile it feeds, not its own: each row at
+// a tile edge is quantized twice, with two scales. So the input is not
+// quantized once in place (as K9's is) but into a per-tile copy x8t (B,
+// n_tiles, fpt + 2, F, Cp) int8: tile j's window, its halo frames
+// duplicated from the neighbouring tiles, every element rounded with sx[b,
+// j]; zero outside the array, at frames >= len and at channels past the
+// input's (Cp is C rounded up to 16: the first block's Cin = 2 gives TMA a
+// 16-byte row, and the packed weights have zero rows there). Both convs run
+// on K9's Hopper loop (csrc/resnet_block.cu conv_tc with I8) in its tiled
+// mode: TMA boxes of one tile's copy, s8 wgmma into s32, the dequantize with
+// the tile's scale in the epilogue. One block is nine launches, each a
+// programmatic dependent launch (common.cuh launch_pdl):
 //
-// What bounds it on the H100: the convs' products. At the early stages
-// (F = 80/40) each conv is 12-24 GOP per call against 7-21 MB of
-// activations; int8 on mma.sync m16n8k32 (s8 in, s32 accumulate) runs at
-// twice the bf16 rate. The quantize costs a convert, a multiply, a round
-// and a clip per loaded element, and kernel B's transform (with its exp)
-// is recomputed per tap as in K1's kernel B: both ride in the loader. The
-// weights are n-major (Cout, Kp) int8, Kp = 9*Cin rounded up to 16 (zero
-// columns), so Cin = 2 takes the same 16-byte B loads. Rounding follows
-// JAX operation by operation (__fmul_rn, __fadd_rn, rintf), as K9 does.
+//   fmax       = frame maxima of |x| (0 at frames >= len)       frame_absmax
+//   sx1, x8t   = tile scales from fmax, x's per-tile copy          tile_copy
+//   c1 + stats = conv3x3(x8t) * (1/sx1[tile]) rsw1 + b1            conv_tc
+//   mean1, inv1 = GroupNorm 1                                       gn_finalize
+//   h, fmax    = bf16(mish(GN1(c1) scale + shift) + FiLM) in place
+//                of c1, once per element, and its frame maxima     frame_absmax
+//   sx2, h8t   = h's per-tile copy                                 tile_copy
+//   c2 + stats = conv3x3(h8t) * (1/sx2[tile]) rsw2 + b2            conv_tc
+//   mean2, inv2 = GroupNorm 2                                       gn_finalize
+//   out        = mish(GN2(c2)) mask + residual                     K1's kernel C
+//
+// What bounds it on the H100: the convs' products. At the early stages each
+// conv is 12-24 GOP a call (3 rows of the 344-frame bucket), 6-12 us at the
+// int8 rate; the passes around them move the activations a few times (the
+// copy is (fpt + 2) / fpt of the input's int8 bytes: 1.25x at F = 80, 1.5x
+// at the fpt = 4 site). A conv row tile never crosses a TPU tile (TT <=
+// fpt), so where fpt is not a multiple of the row tile part of a tile's
+// rows is idle (PERF.md). Rounding follows JAX operation by operation
+// (__fmul_rn, __fadd_rn, rintf), as K9 does.
 #include "common.cuh"
 
 extern "C" {
 int us_gn_finalize(const float* part, int B, int n_tiles, int C, int groups, int n_rows,
                    float eps, float* mean, float* inv, int pdl, void* stream);
-int us_resnet_out_rows(const void* c2, const void* x, const float* mean, const float* inv,
-                       const float* scale, const float* shift, const void* wres,
-                       const float* bres, const int* lens, void* out, int B, int N, int Cin,
-                       int Cout, void* stream);
-int us_n_row_tiles(int N);
+int us_resnet_out(const void* c2, const void* x, const float* mean, const float* inv,
+                  const float* scale, const float* shift, const void* wres, int BN,
+                  const float* bres, const int* lens, void* out, int B, int N, int Cin,
+                  int Cout, int pdl, void* stream);
+int us_resnet_conv3x3_i8_tiles(const void* x8t, const void* w8, int BN, const float* sx,
+                               const float* rsw, const float* bias, void* out, float* part, int B,
+                               int N, int F, int Cp, int Cout, int fpt, void* stream);
+int us_conv_i8_tiles_n_tiles(int N, int F, int fpt);
 }
 
 namespace {
@@ -80,224 +91,218 @@ US_DEV void load_table(float* t, const Xform& x, int b, int C) {
   __syncthreads();
 }
 
-// fmax[b, t] = max |v| over frame t of batch element b, v the conv input
-// (XFORM: kernel B's transformed h), 0 on rows >= lens[b]. Grid (T, B).
-// VEC: C % 8 == 0 (16-byte loads).
-template <bool XFORM, bool VEC>
-__global__ void __launch_bounds__(256) frame_absmax(const bf16* x, const int* lens, Xform xf,
-                                                    float* fmax, int N, int F, int C) {
-  extern __shared__ float table[];
-  __shared__ float scratch[256];
-  const int t = blockIdx.x, b = blockIdx.y, T = gridDim.x;
-  const int len = lens[b];
-  if (XFORM) load_table(table, xf, b, C);
-  const int row0 = t * F;
-  const bf16* xb = x + ((size_t)b * N + row0) * C;
-  float m = 0.f;
-  if (VEC) {
-    for (int v = threadIdx.x; v < F * C / 8; v += blockDim.x) {
-      int e0 = v * 8, c0 = e0 % C;
-      if (row0 + e0 / C >= len) continue;
-      float vals[8];
-      load8(xb + e0, vals);
+// max_nan over the 32 lanes of a warp (every lane gets it)
+US_DEV float warp_max(float v) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        m = max_nan(m, fabsf(XFORM ? xform_i8(vals[e], c0 + e, table, C) : vals[e]));
-    }
-  } else {
-    for (int e = threadIdx.x; e < F * C; e += blockDim.x) {
-      if (row0 + e / C >= len) continue;
-      float v = __bfloat162float(xb[e]);
-      m = max_nan(m, fabsf(XFORM ? xform_i8(v, e % C, table, C) : v));
-    }
+  for (int off = 16; off > 0; off >>= 1) v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// Eight 16-byte pieces of bf16 as floats.
+US_DEV void unpack8(const uint4& raw, float (&v)[8]) {
+  const __nv_bfloat162* hv = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f2 = __bfloat1622float2(hv[i]);
+    v[2 * i] = f2.x, v[2 * i + 1] = f2.y;
   }
-  m = block_max(m, scratch);
-  if (threadIdx.x == 0) fmax[b * T + t] = m;
 }
 
-// sx[b, j] = 127 / (m + 1e-8), m the max of fmax over tile j's fpt frames
-// and the one halo frame on each side that exists.
-__global__ void __launch_bounds__(256) tile_scales(const float* fmax, int T, int fpt,
-                                                   int n_tiles, int total, float* sx) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int b = i / n_tiles, j = i % n_tiles;
-  const int lo = max(j * fpt - 1, 0), hi = min((j + 1) * fpt, T - 1);
-  float m = 0.f;
-  for (int t = lo; t <= hi; ++t) m = max_nan(m, fmax[b * T + t]);
-  sx[i] = __fdiv_rn(127.f, __fadd_rn(m, 1e-8f));
-}
-
-struct I8QArgs {
-  const bf16* x;      // (B, N, Cin) the conv input, bf16
-  const int8_t* w;    // (Cout, Kp) int8, n-major, zero past 9*Cin
-  const float* rsw;   // (Cout) reciprocal weight scales
-  const float* bias;  // (Cout)
-  const int* lens;    // (B) valid rows
-  const float* sx;    // (B, n_tiles) activation scale of each tile
-  Xform xf;           // kernel B's transform (XFORM)
-  bf16* out;          // (B, N, Cout)
-  float* part;        // (B, n_mtiles, 2, Cout) tile statistics
-  int N, F, Cin, Cout, Kp, tile;
-};
-
-// conv3x3 + dequantize + bias -> out (bf16) + tile statistics of the f32
-// value, quantizing the A operand on load with the scale of the output
-// row's tile. VEC: Cin % 16 == 0 (one tap and 16 channels per chunk);
-// otherwise element loads (Cin = 2).
+// fmax[b, t] = max |v| over frame t of batch element b, 0 at frames >=
+// lens[b] (rows, a multiple of F). XFORM: v is kernel B's h of x (c1),
+// written back in place (h = x allowed; the frames at/after the length are
+// not written: the copy never reads them). A thread's pieces are loaded
+// eight at a time before any is transformed or stored, and the block's
+// maximum is taken by warp shuffles. Grid (T, B) of 256 threads. VEC: C %
+// 8 == 0 (16-byte loads).
 template <bool XFORM, bool VEC>
-__global__ void __launch_bounds__(IG_THREADS) conv3x3_i8q(I8QArgs p) {
-  __shared__ IgemmTilesS8 tiles;
-  __shared__ float red[4][2][IG_BN];
+__global__ void __launch_bounds__(256) frame_absmax(const bf16* x, bf16* h, const int* lens,
+                                                    Xform xf, float* fmax, int N, int F, int C) {
   extern __shared__ float table[];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * IG_BM, n0 = blockIdx.y * IG_BN, b = blockIdx.z;
-  const int N = p.N, F = p.F, Cin = p.Cin, Cout = p.Cout, Kp = p.Kp, tile = p.tile;
-  const int T = N / F, n_tiles = N / tile;
-  const int len = p.lens[b];
-  const int K = 9 * Cin, nk = (Kp + IG8_BK - 1) / IG8_BK;
-  const bf16* xb = p.x + (size_t)b * N * Cin;
-  const float* sxb = p.sx + (size_t)b * n_tiles;
-  if (XFORM) load_table(table, p.xf, b, Cin);
-
-  // the source row of output row m at tap (dt, df), or -1 off the grid or
-  // at/after the length (both read zero)
-  auto source = [&](int m, int tap) -> int {
-    int t = m / F, f = m - t * F;
-    int tt = t + tap / 3 - 1, ff = f + tap % 3 - 1;
-    if (tt < 0 || tt >= T || ff < 0 || ff >= F) return -1;
-    int src = tt * F + ff;
-    return src < len ? src : -1;
-  };
-  auto value_in = [&](float v, int ci) -> float {
-    return XFORM ? xform_i8(v, ci, table, Cin) : v;
-  };
-
-  auto load_a = [&](int kb, uint4 (&reg)[2]) {
+  __shared__ float wmax[8];
+  griddep_wait();
+  griddep_launch();
+  const int t = blockIdx.x, b = blockIdx.y, T = gridDim.x;
+  const int row0 = t * F;
+  float m = 0.f;
+  if (row0 < lens[b]) {  // a whole frame is valid or not
+    if (XFORM) load_table(table, xf, b, C);
+    const size_t base = ((size_t)b * N + row0) * C;
+    if (VEC) {
+      const int pieces = F * C / 8;
+      const uint4* src = reinterpret_cast<const uint4*>(x + base);
+      for (int p0 = 0; p0 < pieces; p0 += 8 * blockDim.x) {
+        uint4 raw[8];
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      int v = tid + s * IG_THREADS;
-      int m = m0 + (v >> 2);
-      int k = kb * IG8_BK + (v & 3) * 16;
-      reg[s] = make_uint4(0, 0, 0, 0);
-      if (m >= N || k >= K) continue;
-      const float sc = sxb[m / tile];
-      int8_t* q = reinterpret_cast<int8_t*>(&reg[s]);
-      if (VEC) {
-        int tap = k / Cin, ci = k - tap * Cin;
-        int src = source(m, tap);
-        if (src < 0) continue;
-        const bf16* ptr = xb + (size_t)src * Cin + ci;
-        float lo[8], hi[8];
-        load8(ptr, lo);
-        load8(ptr + 8, hi);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          q[e] = quant_i8(value_in(lo[e], ci + e), sc);
-          q[8 + e] = quant_i8(value_in(hi[e], ci + 8 + e), sc);
+        for (int k = 0; k < 8; ++k) {
+          const int idx = p0 + threadIdx.x + k * blockDim.x;
+          raw[k] = idx < pieces ? __ldg(src + idx) : make_uint4(0, 0, 0, 0);
         }
-      } else {
 #pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          int ke = k + e;
-          if (ke >= K) break;
-          int tap = ke / Cin, ci = ke - tap * Cin;
-          int src = source(m, tap);
-          if (src < 0) continue;
-          q[e] = quant_i8(value_in(__bfloat162float(xb[(size_t)src * Cin + ci]), ci), sc);
+        for (int k = 0; k < 8; ++k) {
+          const int idx = p0 + threadIdx.x + k * blockDim.x;
+          if (idx >= pieces) continue;
+          float v[8];
+          unpack8(raw[k], v);
+          if (XFORM) {
+            const int c0 = idx * 8 % C;
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[e] = xform_i8(v[e], c0 + e, table, C);
+            store8(h + base + (size_t)idx * 8, v);
+          }
+#pragma unroll
+          for (int e = 0; e < 8; ++e) m = max_nan(m, fabsf(v[e]));
         }
       }
+    } else {
+      for (int e = threadIdx.x; e < F * C; e += blockDim.x)
+        m = max_nan(m, fabsf(__bfloat162float(x[base + e])));
     }
-  };
-  auto load_b = [&](int kb) -> uint4 {
-    int k = kb * IG8_BK + (tid & 3) * 16;
-    if (k >= Kp) return make_uint4(0, 0, 0, 0);
-    return *reinterpret_cast<const uint4*>(p.w + (size_t)(n0 + (tid >> 2)) * Kp + k);
-  };
-
-  int acc[2][4][4];
-  igemm_s8(acc, tiles, nk, load_a, load_b);
-  auto value = [&](int a, int m, int n) -> float {
-    float swe = __fmul_rn(__fdiv_rn(1.f, sxb[m / tile]), p.rsw[n]);
-    return __fadd_rn(__fmul_rn(__int2float_rn(a), swe), p.bias[n]);
-  };
-  store_tile_stats(acc, value, p.out, p.part, red, N, Cout, m0, n0, b);
+  }
+  m = warp_max(m);
+  if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < (int)blockDim.x / 32; ++w) m = max_nan(m, wmax[w]);
+    fmax[b * T + t] = m;
+  }
 }
 
-// The activation scales of one conv (the two passes) and the conv itself.
+// The per-tile copy: x8t[b, j, c, f, :] = clip(rint(v[b, (j fpt - 1 + c) F +
+// f, :] * sx[b, j]), -127, 127) for the copy frames c = 0 .. fpt + 1 of
+// tile j: its window, the halo frames duplicated from the neighbouring
+// tiles and rounded with this tile's scale; zero at frames outside [0, T)
+// and at/after the length, and at channels C .. Cp. sx[b, j] = 127 / (m +
+// 1e-8), m the max of fmax over the window's frames: each warp reduces
+// them itself while its first loads are in flight (no block barrier), and
+// copy frame 0's block writes it. Grid (fpt + 2, n_tiles, B); 8 channels a
+// thread (VEC: C % 8 == 0, else element loads).
+template <bool VEC>
+__global__ void __launch_bounds__(256) tile_copy(const bf16* x, const int* lens,
+                                                 const float* fmax, float* sx, int8_t* x8t,
+                                                 int T, int F, int C, int Cp, int fpt) {
+  griddep_wait();
+  griddep_launch();
+  const int c = blockIdx.x, j = blockIdx.y, b = blockIdx.z, nt = gridDim.y;
+  const int t = j * fpt - 1 + c;  // the copy frame's frame of x
+  const bool live = t >= 0 && t < T && t * F < lens[b];
+  const int cpp = Cp / 8, pieces = F * cpp;
+  const bf16* src = x + ((size_t)b * T + (live ? t : 0)) * F * C;
+  int8_t* dst = x8t + (((size_t)b * nt + j) * (fpt + 2) + c) * F * Cp;
+  float s = 0.f;
+  for (int base = 0; base < pieces; base += 8 * blockDim.x) {  // the same trips in every thread
+    uint4 raw[8];  // eight pieces loaded before the scale and the stores
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int idx = base + threadIdx.x + k * blockDim.x, c0 = (idx % cpp) * 8;
+      raw[k] = make_uint4(0, 0, 0, 0);
+      if (!live || idx >= pieces || c0 >= C) continue;
+      const bf16* p = src + (size_t)(idx / cpp) * C + c0;
+      if (VEC) {
+        raw[k] = __ldg(reinterpret_cast<const uint4*>(p));
+      } else {
+        bf16* r = reinterpret_cast<bf16*>(&raw[k]);
+        for (int e = 0; e < 8 && c0 + e < C; ++e) r[e] = p[e];
+      }
+    }
+    if (base == 0) {
+      const int lo = max(j * fpt - 1, 0), hi = min((j + 1) * fpt, T - 1);
+      float m = 0.f;
+      for (int i = lo + (threadIdx.x & 31); i <= hi; i += 32) m = max_nan(m, fmax[b * T + i]);
+      m = warp_max(m);
+      s = __fdiv_rn(127.f, __fadd_rn(m, 1e-8f));
+      if (c == 0 && threadIdx.x == 0) sx[b * nt + j] = s;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int idx = base + threadIdx.x + k * blockDim.x;
+      if (idx >= pieces) continue;
+      float v[8];
+      unpack8(raw[k], v);
+      uint2 q;
+      int8_t* qe = reinterpret_cast<int8_t*>(&q);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) qe[e] = quant_i8(v[e], s);
+      *reinterpret_cast<uint2*>(dst + (size_t)(idx / cpp) * Cp + (idx % cpp) * 8) = q;
+    }
+  }
+}
+
+int round16(int c) { return (c + 15) / 16 * 16; }
+
+// The frame maxima of v (XFORM: h of x, written in place) and v's per-tile
+// copy with its scales: two launches.
 template <bool XFORM>
-int quantized_conv(const void* x, const int8_t* w8t, const float* rsw, const float* bias,
-                   const int* lens, Xform xf, float* fmax, float* sx, void* out, float* part,
-                   int B, int N, int F, int Cin, int Cout, int fpt, cudaStream_t st) {
-  const int T = N / F, n_tiles = T / fpt;
-  const int dyn = XFORM ? 5 * Cin * (int)sizeof(float) : 0;
-  const bf16* xin = static_cast<const bf16*>(x);
-  auto fm = Cin % 8 == 0 ? frame_absmax<XFORM, true> : frame_absmax<XFORM, false>;
-  auto conv = Cin % 16 == 0 ? conv3x3_i8q<XFORM, true> : conv3x3_i8q<XFORM, false>;
-  // above 48 KB of shared memory in all only after an opt-in
-  cudaError_t err = cudaFuncSetAttribute(fm, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(conv, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
-  if (err != cudaSuccess) return (int)err;
-  fm<<<dim3(T, B), 256, dyn, st>>>(xin, lens, xf, fmax, N, F, Cin);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int total = B * n_tiles;
-  tile_scales<<<us_ceil_div(total, 256), 256, 0, st>>>(fmax, T, fpt, n_tiles, total, sx);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  I8QArgs p;
-  p.x = xin;
-  p.w = w8t;
-  p.rsw = rsw;
-  p.bias = bias;
-  p.lens = lens;
-  p.sx = sx;
-  p.xf = xf;
-  p.out = static_cast<bf16*>(out);
-  p.part = part;
-  p.N = N;
-  p.F = F;
-  p.Cin = Cin;
-  p.Cout = Cout;
-  p.Kp = us_ceil_div(9 * Cin, 16) * 16;
-  p.tile = fpt * F;
-  conv<<<dim3(us_ceil_div(N, IG_BM), Cout / IG_BN, B), IG_THREADS, dyn, st>>>(p);
-  return (int)cudaGetLastError();
+int quantize_tiles(const void* x, void* h, const int* lens, Xform xf, float* fmax, float* sx,
+                   void* x8t, int B, int N, int F, int C, int fpt, cudaStream_t st) {
+  const int T = N / F;
+  const int dyn = XFORM ? 5 * C * (int)sizeof(float) : 0;
+  auto fm = XFORM ? frame_absmax<true, true>
+                  : C % 8 == 0 ? frame_absmax<false, true> : frame_absmax<false, false>;
+  cudaError_t e = cudaFuncSetAttribute(fm, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (e != cudaSuccess) return (int)e;
+  int err = launch_pdl(fm, dim3(T, B), 256, dyn, st, static_cast<const bf16*>(x),
+                       static_cast<bf16*>(h), lens, xf, fmax, N, F, C);
+  if (err) return err;
+  const bf16* v = static_cast<const bf16*>(XFORM ? h : x);
+  return launch_pdl(C % 8 == 0 ? tile_copy<true> : tile_copy<false>, dim3(fpt + 2, T / fpt, B),
+                    256, 0, st, v, lens, static_cast<const float*>(fmax), sx,
+                    static_cast<int8_t*>(x8t), T, F, C, round16(C), fpt);
 }
 
 }  // namespace
 
 extern "C" {
 
+// x's per-tile copy alone (the chain's first two launches): fmax (B, N / F)
+// scratch, sx (B, n_tiles) and x8t (B, n_tiles, fpt + 2, F, round16(C))
+// int8, n_tiles = N / (F fpt).
+int us_i8_tile_copy(const void* x, const int* lens, float* fmax, float* sx, void* x8t, int B,
+                    int N, int F, int C, int fpt, void* stream) {
+  if (fpt <= 0 || N % (F * fpt)) return (int)cudaErrorInvalidValue;
+  return quantize_tiles<false>(x, nullptr, lens, Xform{}, fmax, sx, x8t, B, N, F, C, fpt,
+                               static_cast<cudaStream_t>(stream));
+}
+
 // One ResnetBlock with int8 convs quantized in kernel per tile of fpt
-// frames (K10a), in one call: conv1 (int8), its GroupNorm, conv2 (int8 on
-// kernel B's transform), its GroupNorm, kernel C (residual: identity when
-// wres == NULL). w8t1 (Cout, Kp(Cin)) and w8t2 (Cout, 9*Cout) int8 with
-// reciprocal scales rsw1/rsw2 (Cout). Scratch: fmax (B, T), sx (B, T / fpt),
-// c1, c2 (B, N, Cout) bf16, part (B, us_n_row_tiles(N), 2, Cout), mean/inv
-// (B, Cout). N = T*F, T % fpt == 0, Cout % 64 == 0.
-int us_resnet_block_i8(const void* x, const void* w8t1, const float* rsw1, const float* b1,
-                       const float* s1, const float* be1, const void* film, const void* w8t2,
+// frames (K10a), in one call of nine launches. w8p1 / w8p2 packed by
+// pack_conv_weight_i8 (conv1 for round16(Cin) input channels) in Cout
+// tiles of BN, with reciprocal scales rsw1 / rsw2 (Cout); wres the 1x1
+// residual as us_resnet_out takes it (packed in Cout tiles of BN, or the
+// raw (Cin, Cout) rows for Cin % 8 != 0), NULL for the identity. Scratch:
+// fmax (B, T), sx1, sx2 (B, T / fpt), x8t (B, T / fpt, fpt + 2, F,
+// round16(Cin)), h8t (the same with Cout) int8, c1, c2 (B, N, Cout) bf16
+// (c1 becomes h), part (B, us_conv_i8_tiles_n_tiles(N, F, fpt), 2, Cout),
+// mean/inv (B, Cout). N = T * F, T % fpt == 0, Cout % 64 == 0.
+int us_resnet_block_i8(const void* x, const void* w8p1, const float* rsw1, const float* b1,
+                       const float* s1, const float* be1, const void* film, const void* w8p2,
                        const float* rsw2, const float* b2, const float* s2, const float* be2,
                        const void* wres, const float* bres, const int* lens, float* fmax,
-                       float* sx, void* c1, void* c2, float* part, float* mean1, float* inv1,
-                       float* mean2, float* inv2, void* out, int B, int N, int F, int Cin,
-                       int Cout, int fpt, int groups, float eps, void* stream) {
+                       float* sx1, float* sx2, void* x8t, void* h8t, void* c1, void* c2,
+                       float* part, float* mean1, float* inv1, float* mean2, float* inv2,
+                       void* out, int B, int N, int F, int Cin, int Cout, int fpt, int groups,
+                       float eps, int BN, void* stream) {
+  if (fpt <= 0 || N % (F * fpt) || Cout % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nt = us_n_row_tiles(N);
-  const Xform none = {};
-  int err = quantized_conv<false>(x, static_cast<const int8_t*>(w8t1), rsw1, b1, lens, none,
-                                  fmax, sx, c1, part, B, N, F, Cin, Cout, fpt, st);
+  const int nt = us_conv_i8_tiles_n_tiles(N, F, fpt);
+  int err = quantize_tiles<false>(x, nullptr, lens, Xform{}, fmax, sx1, x8t, B, N, F, Cin, fpt,
+                                  st);
   if (err) return err;
-  err = us_gn_finalize(part, B, nt, Cout, groups, N, eps, mean1, inv1, 0, stream);
+  err = us_resnet_conv3x3_i8_tiles(x8t, w8p1, BN, sx1, rsw1, b1, c1, part, B, N, F, round16(Cin),
+                                   Cout, fpt, stream);
+  if (err) return err;
+  err = us_gn_finalize(part, B, nt, Cout, groups, N, eps, mean1, inv1, 1, stream);
   if (err) return err;
   const Xform h = {mean1, inv1, s1, be1, static_cast<const bf16*>(film)};
-  err = quantized_conv<true>(c1, static_cast<const int8_t*>(w8t2), rsw2, b2, lens, h, fmax, sx,
-                             c2, part, B, N, F, Cout, Cout, fpt, st);
+  err = quantize_tiles<true>(c1, c1, lens, h, fmax, sx2, h8t, B, N, F, Cout, fpt, st);
   if (err) return err;
-  err = us_gn_finalize(part, B, nt, Cout, groups, N, eps, mean2, inv2, 0, stream);
+  err = us_resnet_conv3x3_i8_tiles(h8t, w8p2, BN, sx2, rsw2, b2, c2, part, B, N, F, Cout, Cout,
+                                   fpt, stream);
   if (err) return err;
-  return us_resnet_out_rows(c2, x, mean2, inv2, s2, be2, wres, bres, lens, out, B, N, Cin,
-                            Cout, stream);
+  err = us_gn_finalize(part, B, nt, Cout, groups, N, eps, mean2, inv2, 1, stream);
+  if (err) return err;
+  return us_resnet_out(c2, x, mean2, inv2, s2, be2, wres, BN, bres, lens, out, B, N, Cin, Cout, 1,
+                       stream);
 }
 
 }  // extern "C"

@@ -34,7 +34,6 @@ _F = ctypes.c_float
 # argtypes of every exported function; pointers and the stream are void*
 _SIGNATURES = {
     "us_error_string": ([_I], ctypes.c_char_p),
-    "us_n_row_tiles": ([_I], _I),
     "us_conv_n_tiles": ([_I] * 3, _I),
     "us_conv_plan": ([_I] * 7 + [_P], _I),
     "us_resnet_conv3x3": ([_P, _P, _I] + [_P] * 4 + [_I] * 6 + [_P], _I),
@@ -60,7 +59,11 @@ _SIGNATURES = {
     "us_downsample_conv": ([_P] * 5 + [_I] * 6 + [_P], _I),
     "us_upsample_conv": ([_P] * 5 + [_I] * 6 + [_P], _I),
     "us_resample_plan": ([_I] * 7 + [_P], _I),
-    "us_resnet_block_i8": ([_P] * 25 + [_I] * 7 + [_F, _P], _I),
+    "us_resnet_block_i8": ([_P] * 28 + [_I] * 7 + [_F, _I, _P], _I),
+    "us_i8_tile_copy": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    "us_resnet_conv3x3_i8_tiles": ([_P, _P, _I] + [_P] * 5 + [_I] * 6 + [_P], _I),
+    "us_conv_i8_tiles_n_tiles": ([_I] * 3, _I),
+    "us_conv_plan_i8_tiles": ([_I] * 7 + [_P], _I),
     "us_resnet_out_none": ([_P] * 7 + [_I] * 3 + [_P], _I),
     "us_transcendental_chain": ([_P] * 2 + [_I] * 3 + [_P], _I),
     "us_row_select": ([_P] * 2 + [_I] * 4 + [_P], _I),

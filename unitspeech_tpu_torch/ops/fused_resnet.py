@@ -23,7 +23,11 @@ the estimator routes other widths elsewhere.
 no model route): both convs quantize their input window per TPU tile of
 `frames_per_tile` frames (pick_frames_per_tile), one scale
 127 / (max|window| + 1e-8) over the tile plus one halo frame on each side,
-and dequantize as acc * ((1/s) * rsw) + bias. CUDA source:
+and dequantize as acc * ((1/s) * rsw) + bias. On the card each conv input
+is first written as a per-tile quantized copy (`quantize_tiles`: every
+tile's window, its halo frames duplicated and rounded with the tile's own
+scale), which the int8 Hopper loop reads by TMA (`resnet_conv3x3_i8_tiles`),
+with the weights packed once (`pack_block_weights_int8`). CUDA source:
 csrc/resnet_block_i8.cu. `resnet_conv3x3` and `resnet_out` run kernel A and
 kernel C alone (tools/bisect_deep_compile.py).
 
@@ -45,6 +49,7 @@ from unitspeech_tpu_torch.ops.masking import frames_from_mask
 from unitspeech_tpu_torch.ops.resample import KC, pad_chunks, swizzle128
 
 GN_EPS = 1e-5
+I8_KC = 128  # input channels per chunk of the int8 Hopper conv: one 128-byte row
 
 
 def takes(cout: int, groups: int = 8) -> bool:
@@ -100,6 +105,39 @@ def pack_block_weights(w1, w2, wres=None):
     (conv1, conv2, the 1x1 residual or None)."""
     return (pack_conv_weight(w1), pack_conv_weight(w2),
             None if wres is None else pack_conv_weight(wres))
+
+
+def pack_conv_weight_i8(w8t, cin: int):
+    """quant_w's int8 conv weights w8t (Cout, 9 * Cin), n-major, -> what the
+    int8 Hopper conv (K9, K10a) reads, made once at load: (Cout / BN, chunks,
+    9 taps, BN, 128) int8, each BN x 128 tile K-major (128 input channels,
+    one 128-byte row) in the 128-byte swizzle, Cin padded to whole chunks
+    with zeros (BN = tile_cols(Cout))."""
+    cout = w8t.shape[0]
+    bn = tile_cols(cout)
+    nc = -(-cin // I8_KC)
+    w = F.pad(w8t.reshape(cout, 9, cin), (0, nc * I8_KC - cin))
+    w = w.reshape(cout // bn, bn, 9, nc, I8_KC).permute(0, 3, 2, 1, 4)
+    return swizzle128(w).contiguous()
+
+
+def pack_block_weights_int8(wq, wres=None):
+    """K10a's conv kernels packed for its chain, from wq = (quant_w(w1),
+    quant_w(w2)) and the 1x1 residual wres (1, 1, Cin, Cout) or None:
+    (conv1's int8 tiles, conv2's int8 tiles, the residual as K1's kernel C
+    reads it, or None). Both convs are int8 at every width."""
+    cout, k1 = wq[0][0].shape
+    return (pack_conv_weight_i8(wq[0][0], k1 // 9), pack_conv_weight_i8(wq[1][0], cout),
+            None if wres is None else pack_conv_weight(wres))
+
+
+def _packed_i8(packed, what, cin, cout, dev):
+    """Check a pack_conv_weight_i8 result. -> (the tensor, its Cout tile BN)."""
+    bn = packed.shape[-2] if packed.dim() == 5 else 0
+    if bn not in (64, 128) or cout % bn:
+        raise ValueError(f"{what}: packed kernel {tuple(packed.shape)} for Cout={cout}")
+    shape = (cout // bn, -(-cin // I8_KC), 9, bn, I8_KC)
+    return _cuda.require(packed, what, dtype=torch.int8, shape=shape, device=dev), bn
 
 
 def pick_frames_per_tile(t: int, f: int, c_max: int,
@@ -225,19 +263,59 @@ def _int_mm(col8: torch.Tensor, w8t: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(col8, w8t.t())
 
 
-def tile_row_scales(v: torch.Tensor, f: int, fpt: int) -> torch.Tensor:
-    """The activation scale of every output row's TPU tile: v (B, T*F, C)
-    the conv input as the kernel sees it (masked; f32 values) -> (B, T*F)
-    f32, 127 / (max|window| + 1e-8) with the window the tile's fpt frames
-    and one frame on each side (zero outside the array)."""
+def tile_scales(v: torch.Tensor, f: int, fpt: int) -> torch.Tensor:
+    """The activation scale of every TPU tile: v (B, T*F, C) the conv input
+    as the kernel sees it (masked; f32 values) -> (B, T / fpt) f32,
+    127 / (max|window| + 1e-8) with the window the tile's fpt frames and one
+    frame on each side (zero outside the array)."""
     b, n, c = v.shape
     t = n // f
     frame_max = v.abs().reshape(b, t, f * c).amax(dim=-1)
     window_max = F.pad(frame_max, (1, 1)).unfold(1, fpt + 2, fpt).amax(dim=-1)
     # a true division (a Python number over a tensor multiplies by the
     # reciprocal, which rounds twice)
-    s = torch.full_like(window_max, 127.0) / (window_max + 1e-8)
-    return s.repeat_interleave(fpt * f, dim=1)
+    return torch.full_like(window_max, 127.0) / (window_max + 1e-8)
+
+
+def tile_row_scales(v: torch.Tensor, f: int, fpt: int) -> torch.Tensor:
+    """tile_scales repeated for every row of its tile: (B, T*F) f32."""
+    return tile_scales(v, f, fpt).repeat_interleave(fpt * f, dim=1)
+
+
+def tile_copy_plain(v: torch.Tensor, f: int, fpt: int):
+    """K10a's per-tile copy (csrc/resnet_block_i8.cu tile_copy) of v (B,
+    T*F, C), the conv input as the kernel sees it (masked; f32 values) ->
+    (x8t (B, T / fpt, fpt + 2, F, Cp) int8, sx = tile_scales (B, T / fpt)),
+    Cp = C rounded up to 16: copy frame c of tile j is frame j fpt - 1 + c
+    (the tile's window: its halo frames duplicated from the neighbouring
+    tiles), clip(round_half_even(v * sx[b, j]), -127, 127), zero outside the
+    array and at channels past C."""
+    b, n, c = v.shape
+    t = n // f
+    sx = tile_scales(v, f, fpt)
+    frames = F.pad(v.reshape(b, t, f, c), (0, -c % 16, 0, 0, 1, 1))
+    win = frames.unfold(1, fpt + 2, fpt).permute(0, 1, 4, 2, 3)  # (B, tiles, fpt+2, F, Cp)
+    q = torch.clamp(torch.round(win * sx[:, :, None, None, None]), -127, 127)
+    return q.to(torch.int8).contiguous(), sx
+
+
+def conv3x3_i8_copy(x8t: torch.Tensor, wq, sx: torch.Tensor) -> torch.Tensor:
+    """K10a's int8 conv over a per-tile copy as the card runs it
+    (us_resnet_conv3x3_i8_tiles): x8t (B, tiles, fpt + 2, F, Cp) int8, wq =
+    quant_w(w) for Cin <= Cp input channels, sx (B, tiles) -> (B, tiles *
+    fpt * F, Cout) f32 before the bias: output frame u of tile j takes taps
+    from copy frames u .. u + 2 (zero past the frequency edges), int8 x int8
+    -> int32, then f32(acc) * ((1 / sx[b, j]) * rsw)."""
+    b, nt, fp2, f, _ = x8t.shape
+    fpt = fp2 - 2
+    w8t, rsw = wq
+    cin = w8t.shape[1] // 9
+    xp = F.pad(x8t[..., :cin], (0, 0, 1, 1))
+    col = torch.stack([xp[:, :, dt:dt + fpt, df:df + f] for dt in range(3) for df in range(3)],
+                      dim=4)  # (B, tiles, fpt, F, 9 taps, Cin)
+    acc = _int_mm(col.reshape(-1, 9 * cin), w8t).reshape(b, nt * fpt * f, -1)
+    s = sx.repeat_interleave(fpt * f, dim=1)[..., None]
+    return acc.to(torch.float32) * ((1.0 / s) * rsw)
 
 
 def conv3x3_i8_tiles(v: torch.Tensor, wq, f: int, fpt: int) -> torch.Tensor:
@@ -376,64 +454,147 @@ def _resnet_block_cuda(x, lens, t_bias, w1, b1, s1, be1, w2, b2, s2, be2, wres, 
     return out
 
 
-def _padded_w8(w8t: torch.Tensor, cin: int, dev) -> torch.Tensor:
-    """quant_w's (Cout, 9*Cin) int8 weights with zero columns up to a
-    multiple of 16 (the int8 kernel's 16-byte B loads; Cin = 2)."""
-    k = 9 * cin
-    w8t = _cuda.require(w8t.contiguous(), "w8t", dtype=torch.int8, device=dev)
-    if w8t.shape[1] != k:
-        raise ValueError(f"w8t: {w8t.shape[1]} columns, expected {k}")
-    pad = -k % 16
-    return F.pad(w8t, (0, pad)).contiguous() if pad else w8t
+def _i8_tiles_shape(what, n, f, fpt):
+    t = n // f
+    if n != t * f or fpt <= 0 or t % fpt:
+        raise ValueError(f"{what}: {n} rows of F={f} do not split into tiles of {fpt} frames")
+    return t
+
+
+def conv_plan_i8_tiles(b: int, t: int, f: int, cp: int, cout: int, fpt: int) -> dict:
+    """K10a's conv launch plan (the card's us_conv_plan_i8_tiles) over a
+    per-tile copy of Cp channels with the packer's Cout tile: conv_plan's
+    keys and `sub`, the row tiles of one TPU tile of fpt frames."""
+    import ctypes
+
+    info = (ctypes.c_int * 9)()
+    _cuda.check(_cuda.lib().us_conv_plan_i8_tiles(b, t, f, cp, cout, tile_cols(cout), fpt, info),
+                "us_conv_plan_i8_tiles")
+    keys = ("tt", "tf", "bn", "blocks", "threads", "smem", "tiles", "blocks_per_sm", "sub")
+    return dict(zip(keys, info))
+
+
+def quantize_tiles(x, lens_rows, f: int, fpt: int):
+    """K10a's per-tile copy of a conv input alone: x (B, T*F, C) bf16 rows,
+    lens_rows (B,) -> (x8t (B, T / fpt, fpt + 2, F, Cp) int8, sx (B, T / fpt)
+    f32) as tile_copy_plain gives them for the masked rows. CUDA tensors
+    launch the chain's first two kernels (frame maxima, then the copy with
+    the tile scales), CPU tensors take tile_copy_plain."""
+    b, n, c = x.shape
+    if not _cuda.route(x, "quantize_tiles"):
+        return tile_copy_plain(x.to(torch.float32) * _valid(lens_rows, n), f, fpt)
+    t = _i8_tiles_shape("quantize_tiles", n, f, fpt)
+    dev = x.device
+    _cuda.require(x, "x", dtype=torch.bfloat16)
+    lens = _cuda.require(lens_rows.to(torch.int32).contiguous(), "lens", shape=(b,), device=dev)
+    fmax = torch.empty((b, t), dtype=torch.float32, device=dev)
+    sx = torch.empty((b, t // fpt), dtype=torch.float32, device=dev)
+    x8t = torch.empty((b, t // fpt, fpt + 2, f, -(-c // 16) * 16), dtype=torch.int8, device=dev)
+    _cuda.check(_cuda.lib().us_i8_tile_copy(x.data_ptr(), lens.data_ptr(), fmax.data_ptr(),
+                                            sx.data_ptr(), x8t.data_ptr(), b, n, f, c, fpt,
+                                            _cuda.stream(x)), "quantize_tiles")
+    quantize_tiles.launches += 1
+    return x8t, sx
+
+
+quantize_tiles.launches = 0
+
+
+def resnet_conv3x3_i8_tiles(x8t, sx, wq, bias, packed=None):
+    """K10a's int8 conv alone over a per-tile copy (quantize_tiles): x8t (B,
+    tiles, fpt + 2, F, Cp) int8, sx (B, tiles), wq = quant_w(w) ->
+    bf16(conv3x3_i8_copy + bias) (B, tiles * fpt * F, Cout). packed:
+    pack_conv_weight_i8(wq[0], Cin), else packed here. CUDA tensors launch
+    the kernel, CPU tensors take conv3x3_i8_copy (integer products are
+    exact: the two are equal bit for bit)."""
+    if not _cuda.route(x8t, "resnet_conv3x3_i8_tiles"):
+        return (conv3x3_i8_copy(x8t, wq, sx) + bias).to(torch.bfloat16)
+    b, nt, fp2, f, cp = x8t.shape
+    cout, k = wq[0].shape
+    cin, fpt, n = k // 9, fp2 - 2, nt * (fp2 - 2) * f
+    if not takes(cout) or cp % 16 or cin > cp:
+        raise ValueError(f"resnet_conv3x3_i8_tiles: Cin={cin} (copy {cp}), Cout={cout}")
+    dev = x8t.device
+    _cuda.require(x8t, "x8t", dtype=torch.int8)
+    wp, bn = _packed_i8(pack_conv_weight_i8(wq[0], cin) if packed is None else packed, "w8",
+                        cin, cout, dev)
+    sx = _cuda.require(_f32(sx), "sx", shape=(b, nt), device=dev)
+    rsw = _cuda.require(_f32(wq[1]), "rsw", shape=(cout,), device=dev)
+    bias = _cuda.require(_f32(bias), "bias", shape=(cout,), device=dev)
+    lib = _cuda.lib()
+    part = torch.empty((b, lib.us_conv_i8_tiles_n_tiles(n, f, fpt), 2, cout),
+                       dtype=torch.float32, device=dev)
+    out = torch.empty((b, n, cout), dtype=torch.bfloat16, device=dev)
+    _cuda.check(lib.us_resnet_conv3x3_i8_tiles(x8t.data_ptr(), wp.data_ptr(), bn, sx.data_ptr(),
+                                               rsw.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                                               part.data_ptr(), b, n, f, cp, cout, fpt,
+                                               _cuda.stream(x8t)), "resnet_conv3x3_i8_tiles")
+    resnet_conv3x3_i8_tiles.launches += 1
+    return out
+
+
+resnet_conv3x3_i8_tiles.launches = 0
 
 
 def _resnet_block_i8_cuda(x, lens, t_bias, wq1, b1, s1, be1, wq2, b2, s2, be2, wres, bres, f,
-                          groups, fpt, what):
-    """K10a: the block's chain in one call of us_resnet_block_i8."""
+                          groups, fpt, packed, what):
+    """K10a: the block's nine launches in one call of us_resnet_block_i8
+    (csrc/resnet_block_i8.cu); packed: pack_block_weights_int8's (conv1,
+    conv2, the 1x1 residual), made here from wq and wres when absent."""
     b, n, cin = x.shape
     cout = b1.shape[-1]
     _check_shapes(what, x, cout, groups)
     if wres is None and cin != cout:
         raise ValueError(f"{what}: identity residual needs Cin == Cout")
-    t = n // f
-    if n != t * f or t % fpt:
-        raise ValueError(f"{what}: {n} rows of F={f} do not split into tiles of {fpt} frames")
+    t = _i8_tiles_shape(what, n, f, fpt)
     dt, dev = x.dtype, x.device
     x = _cuda.require(x.contiguous(), "x", dtype=dt)
     _cuda.require(lens, "lens", dtype=torch.int32, shape=(b,), device=dev)
     film = _cuda.require(t_bias.to(dt).contiguous(), "t_bias", shape=(b, cout), device=dev)
-    w8t1 = _padded_w8(wq1[0], cin, dev)
-    rsw1 = _cuda.require(_f32(wq1[1]), "rsw1", shape=(cout,), device=dev)
-    w8t2 = _padded_w8(wq2[0], cout, dev)
-    rsw2 = _cuda.require(_f32(wq2[1]), "rsw2", shape=(cout,), device=dev)
+    if packed is None:
+        packed = pack_block_weights_int8((wq1, wq2),
+                                         None if wres is None else wres.reshape(1, 1, cin, cout))
+    w1p, bn = _packed_i8(packed[0], "w1 (int8)", cin, cout, dev)
+    w2p, bn2 = _packed_i8(packed[1], "w2 (int8)", cout, cout, dev)
+    wrp, bnr = None, bn
     if wres is not None:
-        wres = _cuda.require(wres.to(dt).contiguous(), "wres", shape=(cin, cout), device=dev)
+        wrp, bnr = _packed_operand(packed[2], "wres", 1, cin, cout, dev)
         bres = _f32(bres)
+    if bn != bn2 or bnr not in (0, bn):
+        raise ValueError(f"{what}: the packed kernels' Cout tiles differ")
+    rsw1 = _cuda.require(_f32(wq1[1]), "rsw1", shape=(cout,), device=dev)
+    rsw2 = _cuda.require(_f32(wq2[1]), "rsw2", shape=(cout,), device=dev)
     lib = _cuda.lib()
+    nt = t // fpt
     fmax = torch.empty((b, t), dtype=torch.float32, device=dev)
-    sx = torch.empty((b, t // fpt), dtype=torch.float32, device=dev)
+    sx = torch.empty((2, b, nt), dtype=torch.float32, device=dev)
+    x8t = torch.empty((b, nt, fpt + 2, f, -(-cin // 16) * 16), dtype=torch.int8, device=dev)
+    h8t = torch.empty((b, nt, fpt + 2, f, cout), dtype=torch.int8, device=dev)
     c1, c2, out = (torch.empty((b, n, cout), dtype=dt, device=dev) for _ in range(3))
-    part = torch.empty((b, lib.us_n_row_tiles(n), 2, cout), dtype=torch.float32, device=dev)
+    part = torch.empty((b, lib.us_conv_i8_tiles_n_tiles(n, f, fpt), 2, cout),
+                       dtype=torch.float32, device=dev)
     stats = torch.empty((4, b, cout), dtype=torch.float32, device=dev)  # mean/inv x 2
     vecs = tuple(map(_f32, (b1, s1, be1)))
     vecs2 = tuple(map(_f32, (b2, s2, be2)))
     _cuda.check(lib.us_resnet_block_i8(
-        x.data_ptr(), w8t1.data_ptr(), rsw1.data_ptr(), *(v.data_ptr() for v in vecs),
-        film.data_ptr(), w8t2.data_ptr(), rsw2.data_ptr(), *(v.data_ptr() for v in vecs2),
-        _cuda.ptr(wres), _cuda.ptr(bres), lens.data_ptr(), fmax.data_ptr(), sx.data_ptr(),
-        c1.data_ptr(), c2.data_ptr(), part.data_ptr(), *(t_.data_ptr() for t_ in stats),
-        out.data_ptr(), b, n, f, cin, cout, fpt, groups, GN_EPS, _cuda.stream(x)), what)
+        x.data_ptr(), w1p.data_ptr(), rsw1.data_ptr(), *(v.data_ptr() for v in vecs),
+        film.data_ptr(), w2p.data_ptr(), rsw2.data_ptr(), *(v.data_ptr() for v in vecs2),
+        _cuda.ptr(wrp), _cuda.ptr(bres), lens.data_ptr(), fmax.data_ptr(), sx[0].data_ptr(),
+        sx[1].data_ptr(), x8t.data_ptr(), h8t.data_ptr(), c1.data_ptr(), c2.data_ptr(),
+        part.data_ptr(), *(t_.data_ptr() for t_ in stats), out.data_ptr(), b, n, f, cin, cout,
+        fpt, groups, GN_EPS, bn, _cuda.stream(x)), what)
     return out
 
 
 def fused_resnet_block_int8(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
                             w2, b2, gn2_scale, gn2_bias, wres=None, bres=None,
-                            groups: int = 8, frames_per_tile: int = 0, wq=None):
+                            groups: int = 8, frames_per_tile: int = 0, wq=None, packed=None):
     """K10a: fused_resnet_block with both convs in int8, quantized in
     kernel per tile of frames_per_tile frames (0: pick_frames_per_tile, as
     JAX picks it). wq = (quant_w(w1), quant_w(w2)) when computed once, else
-    computed here. -> (B, T, F, Cout). CUDA tensors launch the kernel, CPU
-    tensors take resnet_block_i8_plain."""
+    computed here; packed: pack_block_weights_int8 of wq and wres when made
+    once, else packed here. -> (B, T, F, Cout). CUDA tensors launch the
+    kernel, CPU tensors take resnet_block_i8_plain."""
     bsz, t, f, cin = x.shape
     cout = w1.shape[-1]
     fpt = frames_per_tile or pick_frames_per_tile(t, f, max(cin, cout))
@@ -445,7 +606,7 @@ def fused_resnet_block_int8(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
     args = (xr, lens, tb, w1r, wq1, b1, s1, be1, wq2, b2, s2, be2, wres, bres)
     if _cuda.route(x, "fused_resnet_block(int8=True)"):
         out = _resnet_block_i8_cuda(xr, lens, tb, wq1, b1, s1, be1, wq2, b2, s2, be2, wres, bres,
-                                    f=f, groups=groups, fpt=fpt,
+                                    f=f, groups=groups, fpt=fpt, packed=packed,
                                     what="fused_resnet_block(int8=True)")
         fused_resnet_block_int8.launches += 1
     else:
@@ -468,12 +629,12 @@ def fused_resnet_block(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
     pack_block_weights of the three kernels when made at load (else the
     launch packs them). -> (B, T, F, Cout). CUDA tensors launch the kernel
     (widths: `takes`), CPU tensors take resnet_block_plain. int8=True is
-    K10a (fused_resnet_block_int8, which takes frames_per_tile and wq); in
-    bf16 they change nothing."""
+    K10a (fused_resnet_block_int8, which takes frames_per_tile, wq, and
+    packed from pack_block_weights_int8); in bf16 they change nothing."""
     if int8:
         return fused_resnet_block_int8(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2,
                                        gn2_scale, gn2_bias, wres, bres, groups=groups,
-                                       frames_per_tile=frames_per_tile, wq=wq)
+                                       frames_per_tile=frames_per_tile, wq=wq, packed=packed)
     bsz, t, f, _ = x.shape
     args = block_rows_args(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2, gn2_scale,
                            gn2_bias, wres, bres)

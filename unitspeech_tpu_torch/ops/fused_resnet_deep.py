@@ -40,28 +40,28 @@ import torch
 
 from unitspeech_tpu_torch.ops import _cuda
 from unitspeech_tpu_torch.ops.conv_matmul import conv3x3_rows, im2col
-from unitspeech_tpu_torch.ops.fused_resnet import (
+from unitspeech_tpu_torch.ops.fused_resnet import (  # noqa: F401 (I8_KC: re-exported)
     GN_EPS,
+    I8_KC,
     _check_shapes,
     _f32,
     _gn_mish,
     _group_stats,
     _kernel_c_plain,
+    _packed_i8,
     _packed_operand,
     _resnet_block_cuda,
     _valid,
     block_rows_args,
     pack_conv_weight,
+    pack_conv_weight_i8,
     quant_w,
     resnet_block_i8_plain,
     resnet_block_plain,
     takes,
-    tile_cols,
 )
-from unitspeech_tpu_torch.ops.resample import swizzle128
 
 DEEP_MAX_BYTES = 4 * 1024 * 1024  # T*F*max(cin, cout)*2, the TPU VMEM gate
-I8_KC = 128  # int8 input channels per chunk of K9's conv: one 128-byte row
 
 
 def takes_i8(cin: int, cout: int, groups: int = 8) -> bool:
@@ -204,20 +204,6 @@ def resnet_block_deep_i8_plain(x, lens_rows, t_bias, w1, wq1, b1, s1, be1, wq2, 
     return _kernel_c_plain(acc2.to(dt), x, mean2, inv2, s2, be2, valid, wres, bres)
 
 
-def pack_conv_weight_i8(w8t, cin: int):
-    """quant_w's int8 conv weights w8t (Cout, 9 * Cin), n-major, -> what K9's
-    Hopper conv reads, made once at load: (Cout / BN, chunks, 9 taps, BN,
-    128) int8, each BN x 128 tile K-major (128 input channels, one 128-byte
-    row) in the 128-byte swizzle, Cin padded to whole chunks with zeros (BN
-    = tile_cols(Cout))."""
-    cout = w8t.shape[0]
-    bn = tile_cols(cout)
-    nc = -(-cin // I8_KC)
-    w = torch.nn.functional.pad(w8t.reshape(cout, 9, cin), (0, nc * I8_KC - cin))
-    w = w.reshape(cout // bn, bn, 9, nc, I8_KC).permute(0, 3, 2, 1, 4)
-    return swizzle128(w).contiguous()
-
-
 def pack_block_weights_i8(w1, wq, wres=None):
     """A K9 block's conv kernels packed for its kernels, from w1 (3, 3, Cin,
     Cout), wq = (quant_w(w1), quant_w(w2)) (the int8 weights whose scales
@@ -228,15 +214,6 @@ def pack_block_weights_i8(w1, wq, wres=None):
     c1 = pack_conv_weight(w1) if cin > cout else pack_conv_weight_i8(wq[0][0], cin)
     return (c1, pack_conv_weight_i8(wq[1][0], cout),
             None if wres is None else pack_conv_weight(wres))
-
-
-def _packed_i8(packed, what, cin, cout, dev):
-    """Check a pack_conv_weight_i8 result. -> (the tensor, its Cout tile BN)."""
-    bn = packed.shape[-2] if packed.dim() == 5 else 0
-    if bn not in (64, 128) or cout % bn:
-        raise ValueError(f"{what}: packed kernel {tuple(packed.shape)} for Cout={cout}")
-    shape = (cout // bn, -(-cin // I8_KC), 9, bn, I8_KC)
-    return _cuda.require(packed, what, dtype=torch.int8, shape=shape, device=dev), bn
 
 
 def _deep_i8_cuda(x, lens, t_bias, w1, wq1, b1, s1, be1, wq2, b2, s2, be2, wres, bres, f,

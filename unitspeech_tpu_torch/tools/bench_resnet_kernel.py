@@ -13,12 +13,13 @@ against the fused kernel: K1 at F % 8 == 0; at F = 20/10 with --deep the
 whole-layer K8, or K9 with --i8pre; otherwise the stage is skipped and
 counts as the plain time on both sides. --int8 puts int8 convs on both
 sides: the plain block takes the flat int8 route at the deep stages, and
-the fused side runs the in-kernel int8 modes, K10a at F % 8 == 0 and K10b
-with --deep. (JAX's tool left its early stages in bf16 under --int8; K10a
-has no other caller.) Each prints both times (CUDA events, median of
---reps), their ratio and the relative error max|fused - plain| / max|plain|;
-the WEIGHTED line sums the stages by their blocks per estimator call
-{0: 3, 1: 5, 2: 5, 3: 6}.
+the fused side runs the in-kernel int8 modes, K10a at F % 8 == 0 (per-tile
+quantized copies read by the int8 Hopper conv) and K10b with --deep (K9's
+chain), each with its int8 weights packed once. (JAX's tool left its early
+stages in bf16 under --int8; K10a has no other caller.) Each prints both
+times (CUDA events, median of --reps), their ratio and the relative error
+max|fused - plain| / max|plain|; the WEIGHTED line sums the stages by their
+blocks per estimator call {0: 3, 1: 5, 2: 5, 3: 6}.
 
 JAX's --tap-mode (Mosaic's matmul structure) and --mish-mode (TPU
 diagnostics) have no counterpart here. JAX timed K chained blocks and took
@@ -33,7 +34,12 @@ import argparse
 import torch
 
 from unitspeech_tpu_torch.models.unet import ResnetBlock, fused_kernel_shape, mish
-from unitspeech_tpu_torch.ops.fused_resnet import fused_resnet_block, pack_block_weights, quant_w
+from unitspeech_tpu_torch.ops.fused_resnet import (
+    fused_resnet_block,
+    pack_block_weights,
+    pack_block_weights_int8,
+    quant_w,
+)
 from unitspeech_tpu_torch.ops.fused_resnet_deep import (
     fused_resnet_block_deep,
     fused_resnet_block_deep_i8,
@@ -67,14 +73,16 @@ def _fused_fn(block, x, mask, t_emb, dtype, args):
     t_bias = block.mlp(mish(t_emb), dtype=dtype)
     params = (t_bias, c1.kernel, c1.bias, *block.block1.norm.params(), c2.kernel, c2.bias,
               *block.block2.norm.params())
-    # quantized and packed once, as at load (the int8 deep blocks K9 and K10b
-    # read their int8 packing)
+    # quantized and packed once, as at load (the int8 blocks K9, K10a and
+    # K10b read their int8 packing)
     wq = (quant_w(c1.kernel), quant_w(c2.kernel))
     packed = pack_block_weights(c1.kernel, c2.kernel)
     if fused_kernel_shape(x.shape[2]):
-        name = "K10a" if args.int8 else "K1"
-        return name, lambda: fused_resnet_block(x, mask, *params, groups=8, int8=args.int8,
-                                                wq=wq, packed=packed)
+        if args.int8:
+            packed_a = pack_block_weights_int8(wq)
+            return "K10a", lambda: fused_resnet_block(x, mask, *params, groups=8, int8=True,
+                                                      wq=wq, packed=packed_a)
+        return "K1", lambda: fused_resnet_block(x, mask, *params, groups=8, packed=packed)
     if not args.deep:
         return None
     packed_i8 = pack_block_weights_i8(c1.kernel, wq)

@@ -1,6 +1,8 @@
 """Per-launch device time inside the rezero attention (K4), the int8 deep
-ResnetBlock (K9), the row abs-max (K7), the GroupNorm row statistics (K3:
-the `row_stats` form and the served `group_mean_inv` call, at its 8 sites
+ResnetBlock (K9), the in-kernel int8 ResnetBlock of the early stages (K10a,
+at the six sites of the kernel benchmark's path), the row abs-max (K7),
+the GroupNorm row statistics (K3: the `row_stats` form and the served
+`group_mean_inv` call, at its 8 sites
 in bf16 and f32) and the final block (K2: its conv, then its tail) at the
 sites one estimator call at the 344-frame bucket runs them (3 rows,
 lengths 344/301/344), and inside the anti-aliased snake kernels (K5 at its
@@ -9,14 +11,14 @@ call may run several kernels (and small PyTorch launches around them), and
 this shows which of them takes the time.
 
     python -m unitspeech_tpu_torch.tools.kernel_breakdown [--reps 20] [--out FILE]
-        [--kernels K4 K9 K7 K5 K6 K3 K2]
+        [--kernels K4 K9 K10a K7 K5 K6 K3 K2]
 
 Each site's wrapper runs `reps` times under torch.profiler after a warm-up;
 a kernel's time is its device time summed over the window divided by
 `reps` (CUPTI's per-kernel device durations), beside the wrapper's own
 time under CUDA events (tools.median_ms). Needs the card: a C entry point
 launches several kernels, and only the profiler sees them apart. Where a
-kernel is a programmatic dependent launch (K4's, K9's chain) it may start
+kernel is a programmatic dependent launch (K4's, K9's and K10a's chains) it may start
 before its predecessor ends and wait for it, so its device time includes
 that wait and a call's launches sum to more than the wrapper's time.
 """
@@ -42,6 +44,10 @@ K4_SITES = [(27520, 128), (6880, 256), (6880, 128), (1720, 512), (1720, 256)]
 K9_SITES = [(20, 86, 256, 512), (20, 86, 512, 512), (10, 43, 512, 1024),
             (10, 43, 2048, 512), (10, 43, 512, 512), (20, 86, 1024, 256)]
 K9_SITES = [s for s in K9_SITES if s[3] <= 512]
+# (F, Cin, Cout): K10a's sites, the early-stage blocks of one estimator call
+# (chip_smoke.py K1_SITES), T = 344 F / 80, JAX's tiles
+K10A_SITES = [(80, 2, 128), (80, 128, 128), (40, 128, 256), (40, 256, 256), (40, 512, 128),
+              (40, 128, 128)]
 # (rows, C, launches per estimator call on the serving default): the int8
 # activation scale of every flat deep-stage conv input
 K7_SITES = [(1720, 256, 2), (1720, 512, 3), (1720, 1024, 1), (430, 512, 4), (430, 1024, 7),
@@ -220,6 +226,36 @@ def k9_calls(dev, seed=0):
     return out
 
 
+def k10a_calls(dev, seed=0):
+    """[(site, wrapper call)] at K10A_SITES, the int8 weights quantized and
+    packed once (pack_block_weights_int8), inputs from `seed`."""
+    from unitspeech_tpu_torch.ops import fused_resnet
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    out = []
+    for f, cin, cout in K10A_SITES:
+        t = FRAMES * f // 80
+        r = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(dev)  # noqa: E731
+        x = r(3, t, f, cin).to(torch.bfloat16)
+        p = dict(t_bias=r(3, cout).to(torch.bfloat16),
+                 w1=r(3, 3, cin, cout, scale=(9 * cin) ** -0.5),
+                 b1=r(cout, scale=0.1), gn1_scale=1 + r(cout, scale=0.1),
+                 gn1_bias=r(cout, scale=0.1), w2=r(3, 3, cout, cout, scale=(9 * cout) ** -0.5),
+                 b2=r(cout, scale=0.1), gn2_scale=1 + r(cout, scale=0.1),
+                 gn2_bias=r(cout, scale=0.1))
+        if cin != cout:
+            p.update(wres=r(1, 1, cin, cout, scale=cin ** -0.5), bres=r(cout, scale=0.1))
+        wq = (fused_resnet.quant_w(p["w1"]), fused_resnet.quant_w(p["w2"]))
+        packed = fused_resnet.pack_block_weights_int8(wq, p.get("wres"))
+        mask = _lens_mask(t, dev)
+        fpt = fused_resnet.pick_frames_per_tile(t, f, max(cin, cout))
+        out.append((f"F={f} T={t} {cin}->{cout} tiles of {fpt} frames",
+                    lambda x=x, mask=mask, p=p, wq=wq, packed=packed:
+                    fused_resnet.fused_resnet_block(x, mask, groups=8, int8=True, wq=wq,
+                                                    packed=packed, **p)))
+    return out
+
+
 def k7_calls(dev, seed=0):
     """[(site, wrapper call, launches per estimator call)] at K7_SITES, bf16
     rows from `seed`."""
@@ -311,8 +347,8 @@ def k2_calls(dev, seed=0):
                                                     packed=packed), 1)]
 
 
-CALLS = {"K4": k4_calls, "K9": k9_calls, "K7": k7_calls, "K5": k5_calls, "K6": k6_calls,
-         "K3": k3_calls, "K2": k2_calls}
+CALLS = {"K4": k4_calls, "K9": k9_calls, "K10a": k10a_calls, "K7": k7_calls, "K5": k5_calls,
+         "K6": k6_calls, "K3": k3_calls, "K2": k2_calls}
 # the paths whose estimator call K3's sums are taken on
 K3_PATHS = ("int8", "bf16", "deep")
 
@@ -390,7 +426,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=None, help="also write the result here (JSON)")
     ap.add_argument("--kernels", nargs="+", choices=tuple(CALLS), default=tuple(CALLS),
-                    help="the kernels to break down: K4, K9, K7, K5, K6, K3 (both forms), K2 "
+                    help="the kernels to break down: K4, K9, K10a, K7, K5, K6, K3 (both forms), K2 "
                          "(default: all)")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
