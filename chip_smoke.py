@@ -105,6 +105,19 @@ depth error at the default config, the Tacotron2 decoder for 1 000 steps
 (ms and launches a step) and WaveGlow's ms a second of audio, Tacotron2,
 WaveGlow, the denoiser, CPC features and the F0 track against the CPU in
 strict f32, a quantized filelist with the F0 stream, and `examples.gslm`.
+Then the operator tools (unitspeech_tpu_torch/tools, each main called in
+this process): bench_server (8 closed-loop clients in a child process, 32
+~344-frame requests, ddpm@50, --max-batch 8, the TTFA probe), bench_serving
+(the exact and speculative paths), refresh_under_load (a stale window
+refreshed live under 16 + 16 requests), bucket_policy_ab (the quantile and
+cost windows on 27 short and 3 long requests, dpm2:cs2@16), bench_train
+(STEP1 at batch 32, 72 tokens, 688 frames), bench_ssl (WavLM-Large + ECAPA,
+mHuBERT + k-means, adapting a voice end to end, cold and warm, and the
+adapted voice served), then capacity_plan and analyze_buckets on
+bench_server's /stats snapshot; each path with exactly its kernels
+launched, every request answered, the refresh swapped, the losses and the
+adapted mel finite; the plan's ms a request beside the measured one and the
+measured throughput over the plan's bound (the plan's default utilization).
 Last, the paths of the kernels that no request runs, the port's four tools
 at full size (unitspeech_tpu_torch/tools): the kernel benchmark with
 --int8 --deep (the in-kernel int8 blocks K10a, K10b), the transcendental
@@ -3201,6 +3214,160 @@ def extras(torch, dev, tmp, smi):
     return res, launches
 
 
+# The operator tools' phase (unitspeech_tpu_torch/tools): closed-loop load,
+# the exact / speculative paths, a live refresh, the window A/B, STEP1 at
+# the config's batch, the SSL frontends and adapting a voice, then the two
+# host tools on the load's /stats snapshot
+OPS_CLIENTS, OPS_REQUESTS, OPS_MAX_BATCH = 8, 32, 8
+OPS_REFRESH_REQUESTS = 16  # before and after the refresh each
+OPS_FT_ITERS = 50
+# the kernels a served request launches on the serving default (K1-K4, K7,
+# K5 / K6), and the one a STEP1 step launches (M1)
+SERVED = frozenset(ESTIMATOR_KERNELS[:5] + VOCODER_KERNELS)
+OPS_PATHS = {"bench_server": SERVED, "bench_serving": SERVED, "refresh_under_load": SERVED,
+             "bucket_policy_ab": SERVED, "bench_train": frozenset(TRAIN_KERNELS),
+             "bench_ssl": SERVED, "capacity_plan": frozenset(), "analyze_buckets": frozenset()}
+
+
+def operator_tools(torch, dev, tmp, ckpt_path, smi, argv=None):
+    """The operator tools' paths on the card, each tool's main called in
+    this process with every launch counter set to 0 just before it and read
+    just after: each path's kernels (OPS_PATHS) must launch and no other.
+    bench_server: OPS_CLIENTS closed-loop clients (a child process),
+    OPS_REQUESTS requests of ~344 frames, ddpm@50, --max-batch
+    OPS_MAX_BATCH, the TTFA probe of 2 sentences; every request answered
+    (the tool holds the replies' samples to the served lengths x hop) and a
+    dispatch of 2 or more. bench_serving; refresh_under_load (16 + 16
+    requests): the window swapped away from the stale one, no request
+    failed. bucket_policy_ab: both windows served every request, a long one
+    at >= LONG_FRAMES (K4's C = 1024 stage). bench_train: STEP1 at batch 32
+    (k1 1, k2 3), its loss finite. bench_ssl (the frontends phase's SSL
+    files, OPS_FT_ITERS iterations): the adapted request's mel finite. Then
+    capacity_plan (utilization 1, at bench_server's most common dispatch
+    size) and analyze_buckets on bench_server's /stats snapshot: the plan's
+    ms a request beside the measured dispatch ms a request, and the measured
+    throughput over the plan's bound, the port's default utilization.
+    argv: {tool: argv} in place of the full-size ones of the six device
+    tools (a CPU rehearsal).
+    Returns the results and each path's launches."""
+    import importlib
+    import math
+
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "operator_tools")
+    os.makedirs(d)
+    fe = os.path.join(tmp, "frontends")
+    stats_path = os.path.join(d, "stats.json")
+    common = ["--device", dev.type, "--checkpoint", ckpt_path]
+
+    def out(name):
+        return ["--out", os.path.join(d, f"{name}.json")]
+
+    def host_argv(batch):
+        return {"capacity_plan": ["--stats", stats_path, "--preset", "ddpm50", "--batch",
+                                  str(batch), "--utilization", "1.0", "--json"],
+                "analyze_buckets": ["--stats", stats_path, "--preset", "ddpm50", "--json"]}
+
+    full = {
+        "bench_server": [*common, "--clients", str(OPS_CLIENTS), "--requests", str(OPS_REQUESTS),
+                         "--max-batch", str(OPS_MAX_BATCH), "--ttfa-sentences", "2",
+                         "--stats-out", stats_path, *out("bench_server")],
+        "bench_serving": [*common, "--reps", "3", *out("bench_serving")],
+        "refresh_under_load": [*common, "--warmup-requests", str(OPS_REFRESH_REQUESTS),
+                               "--tail-requests", str(OPS_REFRESH_REQUESTS),
+                               *out("refresh_under_load")],
+        "bucket_policy_ab": [*common, *out("bucket_policy_ab")],
+        "bench_train": ["--device", dev.type, "--batch", "32", "--k1", "1", "--k2", "3",
+                        *out("bench_train")],
+        "bench_ssl": [*common, "--n-iters", str(OPS_FT_ITERS), "--speaker-embedder",
+                      os.path.join(fe, "port_speaker-embedder.pt"), "--hubert",
+                      os.path.join(fe, "port_hubert.pt"), "--kmeans",
+                      os.path.join(fe, "port_kmeans.npz"), *out("bench_ssl")],
+    }
+    argv = argv or full
+    wrappers = _kernel_wrappers()
+    res, launches, walls = {}, {}, {}
+    for name, own in OPS_PATHS.items():
+        if name == "capacity_plan":
+            with open(stats_path) as f:
+                stats = json.load(f)
+            sizes = {int(k): v for k, v in stats["batch_sizes"].items()}
+            batch = max(sizes, key=lambda k: (sizes[k], k))
+            argv = {**argv, **host_argv(batch)}
+        print(f"operator_tools: python -m unitspeech_tpu_torch.tools.{name} "
+              f"{' '.join(argv[name])}", flush=True)
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        res[name] = importlib.import_module(f"unitspeech_tpu_torch.tools.{name}").main(
+            argv[name])
+        walls[name] = time.perf_counter() - t0
+        got = {k: w.launches for k, w in wrappers.items()}
+        missing = sorted(k for k in own if got[k] == 0)
+        stray = sorted(k for k, v in got.items() if v and k not in own)
+        print(f"  {walls[name]:.1f} s; kernel launches {({k: v for k, v in got.items() if v})}",
+              flush=True)
+        if missing or stray:
+            raise AssertionError(f"{name}: kernels not launched {missing}, stray {stray}")
+        launches[name] = got
+
+    srv = res["bench_server"]
+    if srv["requests"] != stats["requests"] or stats["errors"]:
+        raise AssertionError(f"bench_server: {srv['requests']} answered, /stats "
+                             f"{stats['requests']} ({stats['errors']} errors)")
+    if max(sizes) < 2:
+        raise AssertionError(f"bench_server: no dispatch of 2 or more: {sizes}")
+    ref = res["refresh_under_load"]
+    if not ref["decision"]["refreshed"] or ref["decision"]["window"] == ref["stale_window"]:
+        raise AssertionError(f"refresh_under_load: no swap: {ref['decision']}")
+    ab = res["bucket_policy_ab"]
+    if not all(ab[k]["measured_mean_ms"] > 0 for k in ("cost", "quantile")) or (
+            not ab["smoke"] and ab["frames_max"] < LONG_FRAMES):
+        raise AssertionError(f"bucket_policy_ab: {ab}")
+    tr = res["bench_train"]
+    if not math.isfinite(tr["loss"]) or (tr["device"] == "cuda" and tr["batch"] != 32):
+        raise AssertionError(f"bench_train: {tr}")
+    ad = res["bench_ssl"]["adapted_request"]
+    if not ad["finite"] or ad["frames"] < 1:
+        raise AssertionError(f"bench_ssl: the adapted request {ad}")
+
+    cap = res["capacity_plan"]
+    measured_ms = stats["mean_dispatch_s"] * stats["batches"] * 1e3 / stats["requests"]
+    ratio = srv["value"] / cap["streams_per_chip"]
+    best = res["analyze_buckets"]["best"]["window"]
+    summary = {
+        "card": smi, "walls_s": walls,
+        "server": {k: srv[k] for k in ("value", "p50_latency_s", "p95_latency_s", "wall_s",
+                                       "speech_s", "batch_sizes", "switch_buckets",
+                                       "stream_ttfa_s", "stream_total_s")},
+        "plan_ms_per_request": cap["mean_proc_ms_batched"], "plan_batch": batch,
+        "measured_dispatch_ms_per_request": measured_ms,
+        "plan_bound_streams": cap["streams_per_chip"], "utilization_measured": ratio,
+        "analyze_best_window": best,
+        "serving": {m: res["bench_serving"][m] for m in ("exact", "speculative")},
+        "refresh": {k: ref[k] for k in ("stale_window", "refresh_s", "n_before", "n_during",
+                                        "n_after", "p50_before_s", "p95_before_s",
+                                        "p50_during_s", "p95_during_s", "p50_after_s",
+                                        "p95_after_s")},
+        "refresh_window": ref["decision"]["window"],
+        "ab": {k: ab[k] for k in ("cost", "quantile", "frames_p50", "frames_max",
+                                  "measured_speedup", "predicted_speedup")},
+        "train": {k: tr.get(k) for k in ("value", "batch", "t_x", "t_y", "out_size", "peak_gib",
+                                         "loss", "m1_ms", "m1_share", "compile_s")},
+        "ssl": {k: res["bench_ssl"][k] for k in ("spk_embedder", "unit_extractor",
+                                                 "adapt_voice", "adapted_request")},
+    }
+    print(f"  bench_server: {srv['value']}x realtime, p50 {srv['p50_latency_s']} s, p95 "
+          f"{srv['p95_latency_s']} s, dispatches {srv['batch_sizes']}; capacity_plan at batch "
+          f"{batch}: {cap['mean_proc_ms_batched']} ms a request predicted, {measured_ms:.1f} ms "
+          f"measured (dispatch time a request); throughput over the plan's bound at utilization "
+          f"1 ({cap['streams_per_chip']} streams): {ratio:.4f}; analyze_buckets' best window "
+          f"{best} (served {srv['switch_buckets']}); {smi}", flush=True)
+    res["phase_s"] = summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"operator_tools phase: {res['phase_s']:.1f} s", flush=True)
+    return summary, res, launches
+
+
 def run_tools():
     """This slice's paths: the port's four tools at full size, each run
     with every launch counter set to 0 just before it and read just after.
@@ -3333,6 +3500,8 @@ def main(argv=None) -> int:
         gan, launches["gan_served"] = vocoder_gan(torch, dev, tmp, ckpt, corpus, per_call, smi)
         evaluated, launches["eval"] = evaluation(torch, dev, tmp, ckpt, corpus, per_call, smi)
         extra, launches["extras"] = extras(torch, dev, tmp, smi)
+        ops, ops_res, ops_launches = operator_tools(torch, dev, tmp, ckpt, smi)
+    launches.update(ops_launches)
     records += m1
     launches["adapted"] = adapted_launches
     tool_launches, tools = run_tools()
@@ -3345,7 +3514,9 @@ def main(argv=None) -> int:
             json.dump({"card": smi, "records": records, "paths": paths, "adapt": adapted,
                        "frontends": front, "voice": voice, "serving": served,
                        "train": trained, "train2": trained2, "vocoder_gan": gan,
-                       "eval": evaluated, "extras": extra, "kernels": kernels,
+                       "eval": evaluated, "extras": extra,
+                       "operator_tools": {"summary": ops, "results": ops_res},
+                       "kernels": kernels,
                        "launches": launches, "tools": tools, "breakdown": breakdown}, f,
                       indent=1)
     print(json.dumps({"paths": paths}))
@@ -3371,6 +3542,7 @@ def main(argv=None) -> int:
         "errors": extra["card_vs_cpu"]["errors"], "bounds": EXTRAS_BOUNDS,
         "gslm_final_ce": extra["gslm"]["final_ce"], "phase_s": extra["phase_s"],
         "card": smi}}))
+    print(json.dumps({"operator_tools": ops}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -93,6 +93,11 @@ from unitspeech_tpu_torch.preprocess import stats  # noqa: F401
 from unitspeech_tpu_torch.train import loop  # noqa: F401
 from unitspeech_tpu_torch.utils import checkpoint, logging  # noqa: F401
 from unitspeech_tpu_torch.tools import step_check, synthetic_corpus  # noqa: F401
+# the operator tools: the serving load tools, STEP1 and SSL timers, the host tools
+from unitspeech_tpu_torch.tools import analyze_buckets, bench_server, bench_serving  # noqa: F401
+from unitspeech_tpu_torch.tools import bench_ssl, bench_train, bucket_policy_ab  # noqa: F401
+from unitspeech_tpu_torch.tools import capacity_plan, refresh_under_load, sv56  # noqa: F401
+from unitspeech_tpu_torch.tools import validate_dataloader  # noqa: F401
 
 cfg, ckpt, out = sys.argv[1:4]
 cli.main_make_random_checkpoint(["--seed", "1", "--config", cfg, "--output", ckpt])
@@ -161,6 +166,11 @@ res = cli.main_train_step1(["--filelist", corp["filelist"], "--spk-embs", corp["
 assert res["steps"] == 2 and res["checkpoint"].endswith("step_1"), res
 import numpy as np
 np.save(os.path.join(d, "spk.npy"), np.load(corp["spk_embs"])["0"])
+# the two host tools on the card's cost model
+np.savetxt(os.path.join(d, "frames.txt"), np.random.default_rng(0).uniform(100, 700, 50))
+assert analyze_buckets.main(["--lengths", os.path.join(d, "frames.txt"), "--json"])["best"]
+assert capacity_plan.main(["--lengths", os.path.join(d, "frames.txt"), "--chips", "2",
+                           "--json"])["sustainable_qps"] > 0
 stats = cli.main_inference(["--ipa", "--text", "həloʊ", "--checkpoint", res["checkpoint"],
                             "--vocoder", ckpt, "--spk-emb", os.path.join(d, "spk.npy"),
                             "--output", out, "--device", "cpu", "--diffusion-steps", "1"])
@@ -179,7 +189,8 @@ def test_port_and_chip_smoke_import_nothing_of_jax(tmp_path):
     tools/vc_reference write; voice-conversion from a contentvec HuBERT with
     a strided sampler spec; STEP1 training from wavs through the two
     preprocessors to a checkpoint that inference serves), its four kernel
-    tools and the sampler gate (on the CPU at small sizes) run with every
+    tools and the sampler gate (on the CPU at small sizes), the operator
+    tools (imported; analyze_buckets and capacity_plan run) run with every
     import of jax, flax or unitspeech_tpu refused."""
     cfg = json.loads(json.dumps(TINY))
     cfg["text_encoder"]["n_vocab"] = 180  # the IPA symbol table

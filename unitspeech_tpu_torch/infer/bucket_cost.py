@@ -21,7 +21,8 @@ c0 + c1*b + c2*b^2; the U-Net's attention is O(frames^2)) or the legacy
 linear model FIXED + per_frame * b (any scalar passed where a curve is
 accepted). The window functions (quantile_window, window_cost,
 enumerate_windows, optimal_window) are the JAX module's, with that one
-change to the overflow's price.
+change to the overflow's price; candidate_windows, which optimal_window and
+tools/analyze_buckets.py rank, follows from it.
 
 The constants are the card's own: `cost_anchors_h100.json` beside this
 module, which `python -m unitspeech_tpu_torch.tools.cost_anchors` measures
@@ -277,6 +278,26 @@ def enumerate_windows(
     return out
 
 
+def candidate_windows(
+    lengths: np.ndarray,
+    ladder: Sequence[int],
+    max_branches: int,
+    num_down: int = 3,
+    top_pass_ms=None,
+) -> List[Tuple[int, ...]]:
+    """The windows a cost policy chooses among: enumerate_windows, and with
+    the port's price of an overflow (top_pass_ms None) only those that hold
+    every observed length, where the ladder has such a bucket. At that
+    price an overflow costs no more than its exact bucket, which would make
+    leaving traffic outside the window look free; but an overflow runs a
+    bucket the warm-up did not (cold, and refused under strict_grid)."""
+    cands = enumerate_windows(lengths, ladder, max_branches, num_down)
+    if top_pass_ms is None:
+        cover = int(_needs(lengths, num_down).max())
+        cands = [w for w in cands if w[-1] >= cover] or cands
+    return cands
+
+
 def optimal_window(
     lengths: Sequence[float],
     ladder: Sequence[int],
@@ -301,19 +322,12 @@ def optimal_window(
     in-window padding). Branch count may thus reach max_branches +
     headroom.
 
-    top_pass_ms: the overflow's price, as in window_cost. With the port's
-    (None) an overflow costs no more than its exact bucket, which would
-    make leaving traffic outside the window look free; but an overflow
-    runs a bucket the warm-up did not (cold, and refused under
-    strict_grid), so only windows that hold every observed length are
-    candidates, where the ladder has such a bucket."""
+    top_pass_ms: the overflow's price, as in window_cost; the candidates
+    are candidate_windows'."""
     lengths = np.asarray(lengths, np.float64)
     if lengths.size == 0:
         raise ValueError("optimal_window needs at least one observed length")
-    cands = enumerate_windows(lengths, ladder, max_branches, num_down)
-    if top_pass_ms is None:
-        cover = int(_needs(lengths, num_down).max())
-        cands = [w for w in cands if w[-1] >= cover] or cands
+    cands = candidate_windows(lengths, ladder, max_branches, num_down, top_pass_ms)
     best_w: Tuple[int, ...] | None = None
     best_row: Dict[str, object] | None = None
     for w in cands:

@@ -9,6 +9,15 @@
 Each runs on the card (`--device cuda`, the default) and times with CUDA
 events; `--device cpu` runs the plain versions with the host's clock, as a
 smoke run only (its times are not the card's).
+
+The operator tools, counterparts of the JAX package's serving and timing
+tools (`_serving.py` holds what the load tools share; `--small --device
+cpu` is their smoke run):
+
+  python -m unitspeech_tpu_torch.tools.bench_server / bench_serving / refresh_under_load
+  python -m unitspeech_tpu_torch.tools.bucket_policy_ab / bench_train / bench_ssl
+  python -m unitspeech_tpu_torch.tools.analyze_buckets / capacity_plan   # host, cost model
+  python -m unitspeech_tpu_torch.tools.sv56 / validate_dataloader        # data
 """
 
 from __future__ import annotations
