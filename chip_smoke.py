@@ -118,6 +118,21 @@ bench_server's /stats snapshot; each path with exactly its kernels
 launched, every request answered, the refresh swapped, the losses and the
 adapted mel finite; the plan's ms a request beside the measured one and the
 measured throughput over the plan's bound (the plan's default utilization).
+Then the multi-device paths (unitspeech_tpu_torch/parallel), in spawned
+ranks that import only the port and load the kernels built above: one rank
+over NCCL (a real process group, every collective through it), then two
+ranks, one a card over NCCL where there are two cards or more, else both on
+card 0 over gloo (NCCL refuses two ranks on one card). Each group takes one
+data-parallel STEP1 step at full width on its rows of a global batch of 32
+whose shards' lengths differ (strict f32; world 2 held to world 1's losses
+and parameters), samples a data-sharded batch of 4 forced 344-frame
+requests on the serving default with injected noise (each request's mel
+within the TTS bounds of the single-rank batch's, each rank's launches
+those of one request), adapts 2 speakers one a rank (bit-equal to the
+sequential run under deterministic algorithms) and transcribes 4 wavs with
+the frontends' mHuBERT + k-means (the merged file equal to one rank's);
+the phase prints its seconds, the DP step's ms a rank, the all-reduce's
+share of a profiled step and the batch's wall.
 Last, the paths of the kernels that no request runs, the port's four tools
 at full size (unitspeech_tpu_torch/tools): the kernel benchmark with
 --int8 --deep (the in-kernel int8 blocks K10a, K10b), the transcendental
@@ -3368,6 +3383,337 @@ def operator_tools(torch, dev, tmp, ckpt_path, smi, argv=None):
     return summary, res, launches
 
 
+# The parallel phase (after the operator tools): the port's multi-device
+# paths in spawned ranks that import only the port and load the kernels the
+# parent built. World 1 over NCCL on card 0 gives the single-rank results;
+# then two ranks: over NCCL one a card where the machine has two cards or
+# more, else both on card 0 over gloo (NCCL refuses two ranks on one card;
+# gloo's all_reduce and broadcast, the port's only collectives, take CUDA
+# tensors). Each rank runs one data-parallel STEP1 step at full width on
+# its rows of a global batch of PAR_BATCH (strict f32, then one timed step
+# and one under torch.profiler), the data-sharded batch of PAR_REQUESTS
+# forced-FRAMES requests (serving default, STEPS steps, injected noise),
+# speaker-per-rank adaptation at S = PAR_FT_S for PAR_FT_ITERS steps
+# (deterministic algorithms) and the transcription of PAR_WAVS wavs.
+PAR_BATCH, PAR_TX, PAR_TY = 32, 72, 344
+PAR_REQUESTS, PAR_FT_S, PAR_FT_ITERS, PAR_WAVS, PAR_SEED = 4, 2, 3, 4, 90
+PAR_TIMEOUT = 300.0  # seconds a group may take, start to join
+# the DP step at world 2 against world 1 (strict f32: the shards' sums run
+# in another order): the losses and the pre-clip norms within PAR_REL; each
+# parameter moves lr * sign(g) in Adam's first step, so the two worlds
+# differ only where a gradient's sign is a rounding coin toss: at most
+# PAR_MOVED of the entries by more than 2e-3 * lr
+PAR_REL, PAR_MOVED = 1e-4, 1e-3
+
+
+def _parallel_rank(rank, world, d, backend, tag):
+    """One rank of the parallel phase (spawned; imports only the port), on
+    the checkpoint's weights. Writes <tag>_rank<r>.json (records); world 1
+    also w1_params.pt, the parameters after its DP step, which rank 0 of
+    world 2 compares with its own; every failure raises, so the process
+    exits non-zero."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from unitspeech_tpu_torch.config import MainConfig
+    from unitspeech_tpu_torch.infer.tts import Synthesizer, TTSModels, forced_durations
+    from unitspeech_tpu_torch.models.diffusion import UnitSpeech
+    from unitspeech_tpu_torch.models.duration import DurationPredictor
+    from unitspeech_tpu_torch.models.encoder import Encoder
+    from unitspeech_tpu_torch.ops import _cuda
+    from unitspeech_tpu_torch.ops.masking import generate_path, sequence_mask
+    from unitspeech_tpu_torch.parallel import (
+        DataShard,
+        make_mesh,
+        maybe_initialize_distributed,
+        shard_batch,
+    )
+    from unitspeech_tpu_torch.text import phonemes_to_sequence
+    from unitspeech_tpu_torch.tools import bench_train, distributed_transcribe
+    from unitspeech_tpu_torch.train.finetune import finetune_decoder_batched
+    from unitspeech_tpu_torch.train.steps import make_step1_train_step
+    from unitspeech_tpu_torch.utils.precision import strict_f32
+
+    with open(os.path.join(d, "phase.json")) as f:
+        job = json.load(f)
+    if not _cuda.library_path().exists():
+        raise RuntimeError("the kernel library is not built: the parent builds it first")
+    _cuda.lib()
+    t_start = time.perf_counter()
+    maybe_initialize_distributed(f"file://{d}/{tag}.init", world, rank, backend=backend)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh()
+    shard = DataShard.of(mesh)
+    rec = {"rank": rank, "world": world, "backend": dist.get_backend(), "device": str(dev),
+           "init_s": time.perf_counter() - t_start}
+    cfg = MainConfig()
+    ckpt = torch.load(job["ckpt"], map_location="cpu", weights_only=True)
+
+    # one data-parallel STEP1 step on this rank's rows of the global batch
+    with dev:
+        mods = {"text_encoder": Encoder.from_config(cfg.text_encoder),
+                "duration_predictor": DurationPredictor.from_config(cfg.duration_predictor),
+                "decoder": UnitSpeech.from_config(cfg.decoder)}
+    for k, m in mods.items():
+        m.load_state_dict(ckpt[k])
+        m.train().requires_grad_(True)
+    opt = torch.optim.Adam([p for m in mods.values() for p in m.parameters()],
+                           lr=cfg.train.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    step = make_step1_train_step(*mods.values(), opt, out_size=cfg.out_size,
+                                 spk_uncond=torch.zeros(cfg.decoder.spk_emb_dim, device=dev),
+                                 spk_dropout=cfg.train.spk_dropout, shard=shard)
+    batch = shard_batch(bench_train._batch(cfg, PAR_BATCH, PAR_TX, PAR_TY, dev, False), shard)
+    rec["rows"] = {"token_lengths": batch["token_lengths"].tolist(),
+                   "mel_lengths": batch["mel_lengths"].tolist()}
+    gen = torch.Generator(device=dev).manual_seed(PAR_SEED)
+    with strict_f32():
+        rec["dp_metrics"] = {k: v.item() for k, v in step(batch, gen).items()}
+        flat = torch.cat([p.detach().reshape(-1) for m in mods.values() for p in m.parameters()])
+        rec["params_sha256"] = hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+        ref = os.path.join(d, "w1_params.pt")
+        if world == 1:
+            torch.save(flat.cpu(), ref)
+        elif rank == 0:  # against world 1's step: entries beyond 2e-3 * lr, the largest
+            diff = (flat - torch.load(ref, weights_only=True).to(dev)).abs()
+            rec["dp_params"] = {"n": flat.numel(), "max": float(diff.max()), "far": int(
+                (diff > 2e-3 * cfg.train.learning_rate).sum())}
+        del flat
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        step(batch, gen)["total_loss"].item()
+        rec["dp_step_ms"] = (time.perf_counter() - t0) * 1e3
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(batch, gen)["total_loss"].item()
+            wall = (time.perf_counter() - t0) * 1e3
+    ev = prof.key_averages()
+    # the host's time in the all-reduces (the op and its backend's span nest:
+    # the larger of them) and the NCCL kernels' device time
+    reduce_cpu = max((e.cpu_time_total for e in ev if e.key in (
+        "c10d::allreduce_", "gloo:all_reduce", "nccl:all_reduce")), default=0.0) / 1e3
+    reduce_dev = sum(getattr(e, "device_time_total", 0.0) for e in ev
+                     if e.key.startswith(("ncclDevKernel", "ncclKernel"))) / 1e3
+    rec["dp_profile"] = {"wall_ms": wall, "allreduce_host_ms": reduce_cpu,
+                         "allreduce_device_ms": reduce_dev,
+                         "share": max(reduce_cpu, reduce_dev) / wall}
+    del mods, opt, step, batch
+    torch.cuda.empty_cache()
+
+    # the data-sharded batch on the serving default (kernels, int8 deep convs)
+    from unitspeech_tpu_torch.ops import (
+        aa_snake,
+        fused_attention,
+        fused_resnet,
+        row_stats,
+    )
+
+    wrappers = {"fused_resnet_block": fused_resnet.fused_resnet_block,
+                "fused_final_block": fused_resnet.fused_final_block,
+                "row_stats": row_stats.row_stats,
+                "fused_rezero_attention": fused_attention.fused_rezero_attention,
+                "row_absmax": row_stats.row_absmax,
+                "fused_aa_snake_conv": aa_snake.fused_aa_snake_conv,
+                "fused_aa_snake": aa_snake.fused_aa_snake}
+    models = TTSModels.from_checkpoint(ckpt, device=dev, use_int8_deep=True)
+    synth = Synthesizer(models, mesh=mesh, sample_spec=("data", None, None))
+    words = FORCED_TEXT.split()
+    seqs = [phonemes_to_sequence(" ".join(words[i:i + 6])) for i in range(PAR_REQUESTS)]
+    rng = np.random.default_rng(PAR_SEED)
+    n_feats = cfg.data.n_feats
+    kw = dict(diffusion_steps=STEPS, text_gradient_scale=1.0, spk_gradient_scale=1.0,
+              durations=[forced_durations(len(q), FRAMES)[0] for q in seqs],
+              noise_z=torch.from_numpy(rng.standard_normal(
+                  (PAR_REQUESTS, FRAMES, n_feats)).astype(np.float32)).to(dev),
+              noises=torch.from_numpy(rng.standard_normal(
+                  (STEPS, PAR_REQUESTS, FRAMES, n_feats)).astype(np.float32)).to(dev))
+    with torch.inference_mode():
+        mel, y_lengths = synth.synthesize_mel_batch(seqs, **kw)
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        wavs = synth.synthesize_batch(seqs, **kw)
+        rec["batch_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["batch_launches"] = {k: w.launches for k, w in wrappers.items()}
+    if rank == 0:
+        np.save(os.path.join(d, f"{tag}_mel.npy"), mel.float().cpu().numpy())
+    rec["y_lengths"] = [int(y) for y in y_lengths]
+    rec["wav_samples"] = [int(len(w)) for w, _ in wavs]
+    rec["wav_finite"] = bool(all(np.isfinite(w).all() and np.any(w) for w, _ in wavs))
+    del models, synth, mel, wavs
+    torch.cuda.empty_cache()
+
+    # speaker-per-rank adaptation (world 1: the speakers one after another)
+    t_y, t_x = FRAMES, FRAMES // 4
+    frng = np.random.default_rng(PAR_SEED + 1)
+    cond_x = torch.from_numpy((0.1 * frng.standard_normal(
+        (PAR_FT_S, 1, t_x, n_feats))).astype(np.float32)).to(dev)
+    y = torch.from_numpy(np.tanh(frng.standard_normal(
+        (PAR_FT_S, 1, t_y, n_feats))).astype(np.float32)).to(dev)
+    y_len = torch.full((PAR_FT_S, 1), t_y - 20, device=dev)
+    spk = frng.standard_normal((PAR_FT_S, 1, cfg.decoder.spk_emb_dim)).astype(np.float32)
+    spk = torch.from_numpy(spk / np.linalg.norm(spk, axis=-1, keepdims=True)).to(dev)
+    dur = torch.full((1, t_x), 4.0, device=dev)
+    attn = torch.stack([generate_path(dur, sequence_mask(
+        torch.tensor([t_x], device=dev), t_x)[:, :, None] * sequence_mask(
+            y_len[s], t_y)[:, None, :]) for s in range(PAR_FT_S)])
+    base = ckpt["decoder"]
+    flags = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    t0 = time.perf_counter()
+    stack, losses = finetune_decoder_batched(
+        cfg.decoder, {k: torch.stack([v] * PAR_FT_S).to(dev) for k, v in base.items()},
+        cond_x, y, y_len, attn, spk, segment_size=cfg.out_size, n_iters=PAR_FT_ITERS,
+        learning_rate=cfg.finetune.learning_rate, grad_clip=cfg.finetune.grad_clip,
+        generators=[torch.Generator(device=dev).manual_seed(PAR_SEED + s)
+                    for s in range(PAR_FT_S)], mesh=mesh if world > 1 else None)
+    rec["finetune_s"] = time.perf_counter() - t0
+    torch.use_deterministic_algorithms(flags[0])
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags[1:]
+    rec["finetune_losses"] = losses.tolist()
+    rec["finetune_sha256"] = [hashlib.sha256(torch.cat(
+        [v[s].reshape(-1).float() for v in stack.values()]).cpu().numpy().tobytes()).hexdigest()
+        for s in range(PAR_FT_S)]
+    rec["finetune_moved"] = float(max((stack[k][0] - base[k].to(dev)).abs().max()
+                                      for k in base))
+    del stack
+    torch.cuda.empty_cache()
+
+    # distributed transcription (each rank its strided share, rank 0 merges)
+    t0 = time.perf_counter()
+    rc = distributed_transcribe.main(["--manifest", job["manifest"], "--output",
+                                      os.path.join(d, f"{tag}_units.txt"), "--hubert",
+                                      job["hubert"], "--kmeans", job["kmeans"]])
+    rec["transcribe"] = {"rc": rc, "seconds": time.perf_counter() - t0}
+    rec["seconds"] = time.perf_counter() - t_start
+    rec["jax_free"] = not any(m.split(".")[0] in ("jax", "jaxlib", "flax", "unitspeech_tpu")
+                              for m in sys.modules)
+    with open(os.path.join(d, f"{tag}_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def parallel(torch, dev, tmp, ckpt_path, per_call, smi):
+    """The multi-device paths on the card (_parallel_rank), world 1 over
+    NCCL, then two ranks; each group must end within PAR_TIMEOUT with every
+    rank's exit code 0. Checks: the DP step at world 2 equal to world 1's
+    (PAR_REL, PAR_MOVED; the ranks' parameters bit-equal); each request's
+    mel of the sharded batch within the TTS bounds of the single-rank
+    batch's, and each rank's launches those of one request of its rows (a
+    call's launches do not depend on its rows: STEPS estimator calls and
+    one vocoder call); the speaker-per-rank adaptation bit-equal to the
+    sequential one (deterministic algorithms); the two-rank transcription
+    equal to the one-rank one. Returns the phase's summary."""
+    from unitspeech_tpu_torch.config import MainConfig
+    from unitspeech_tpu_torch.parallel import run_group
+    from unitspeech_tpu_torch.utils.audio import write_wav
+
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "parallel")
+    os.makedirs(d, exist_ok=True)
+    fe = os.path.join(tmp, "frontends")
+    rng = np.random.default_rng(PAR_SEED)
+    wavs = []
+    for i in range(PAR_WAVS):
+        p = os.path.join(d, f"w{i}.wav")
+        t = np.arange(int(16000 * (1.0 + 0.25 * i))) / 16000
+        write_wav(p, 0.4 * np.sin(2 * np.pi * (140 + 30 * i) * t * (1 + 0.1 * np.sin(3 * t)))
+                  + 0.02 * rng.standard_normal(t.size), 16000)
+        wavs.append(p)
+    with open(os.path.join(d, "manifest.txt"), "w") as f:
+        f.write("\n".join(wavs) + "\n")
+    with open(os.path.join(d, "phase.json"), "w") as f:
+        json.dump({"ckpt": ckpt_path, "manifest": os.path.join(d, "manifest.txt"),
+                   "hubert": os.path.join(fe, "port_hubert.pt"),
+                   "kmeans": os.path.join(fe, "port_kmeans.npz")}, f)
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    groups = [("w1", 1, "nccl"), ("w2", 2, "nccl" if cards >= 2 else "gloo")]
+    recs, walls = {}, {}
+    for tag, world, backend in groups:
+        print(f"parallel: {world} rank(s) over {backend} "
+              f"({'one a card' if backend == 'nccl' else 'both on card 0'})", flush=True)
+        t0 = time.perf_counter()
+        run_group(_parallel_rank, world, (d, backend, tag), timeout=PAR_TIMEOUT)
+        walls[tag] = time.perf_counter() - t0
+        recs[tag] = []
+        for r in range(world):
+            with open(os.path.join(d, f"{tag}_rank{r}.json")) as f:
+                recs[tag].append(json.load(f))
+    one, two = recs["w1"][0], recs["w2"]
+    if not all(r["jax_free"] for rs in recs.values() for r in rs):
+        raise AssertionError("a parallel rank imported jax or unitspeech_tpu")
+
+    # the DP step
+    lr = MainConfig().train.learning_rate
+    rel = {k: max(abs(r["dp_metrics"][k] - v) / max(abs(v), 1e-12) for r in two)
+           for k, v in one["dp_metrics"].items()}
+    n_all, far, most = (two[0]["dp_params"][k] for k in ("n", "far", "max"))
+    lens = [(sum(r["rows"]["token_lengths"]), sum(r["rows"]["mel_lengths"])) for r in two]
+    print(f"  DP STEP1 step, global batch {PAR_BATCH} ({PAR_BATCH // 2} a rank; the ranks' "
+          f"token / frame length sums {lens}), strict f32: world 2 vs world 1, largest "
+          f"relative difference of each metric { {k: f'{v:.2e}' for k, v in rel.items()} } "
+          f"(bound {PAR_REL:.0e}); parameters: {far} of {n_all} entries beyond 2e-3 * lr, "
+          f"largest {most:.3e} (lr {lr:.0e}); ranks' parameters equal: "
+          f"{two[0]['params_sha256'] == two[1]['params_sha256']}", flush=True)
+    if (max(rel.values()) > PAR_REL or far > PAR_MOVED * n_all or most > 2 * lr
+            or two[0]["params_sha256"] != two[1]["params_sha256"] or lens[0] == lens[1]):
+        raise AssertionError(f"parallel DP step: {rel}, {far} / {n_all}, {most}, {lens}")
+
+    # the data-sharded batch
+    mel1, mel2 = (np.load(os.path.join(d, f"{t}_mel.npy")) for t in ("w1", "w2"))
+    bounds = [_mel_bounds(f"sharded batch request {i}, world 2 vs world 1", mel2[i], mel1[i])
+              for i in range(PAR_REQUESTS)]
+    cfg = MainConfig()
+    want = _sample_want(per_call, cfg, FRAMES)
+    for r in [one] + two:
+        got = r["batch_launches"]
+        exp = {k: want[k] for k in got}
+        if got != exp or r["y_lengths"] != [FRAMES] * PAR_REQUESTS or not r["wav_finite"] or \
+                r["wav_samples"] != [FRAMES * cfg.data.hop_length] * PAR_REQUESTS:
+            raise AssertionError(f"parallel batch, world {r['world']} rank {r['rank']}: "
+                                 f"launches {got} (expected {exp}), lengths {r['y_lengths']}")
+    print(f"  data-sharded batch ({PAR_REQUESTS} forced {FRAMES}-frame requests, int8 default, "
+          f"{STEPS} steps): each rank's launches {two[0]['batch_launches']} (those of one "
+          f"request of its rows); wall {one['batch_wall_ms']:.1f} ms at world 1, "
+          f"{[round(r['batch_wall_ms'], 1) for r in two]} ms a rank at world 2", flush=True)
+
+    # speaker-per-rank adaptation and transcription
+    ft_equal = all(r["finetune_losses"] == one["finetune_losses"]
+                   and r["finetune_sha256"] == one["finetune_sha256"] for r in two)
+    with open(os.path.join(d, "w1_units.txt")) as f1, open(os.path.join(d, "w2_units.txt")) as f2:
+        u1, u2 = f1.read(), f2.read()
+    print(f"  speaker-per-rank adaptation (S = {PAR_FT_S}, {PAR_FT_ITERS} steps, bf16, "
+          f"deterministic): equal to the sequential run {ft_equal}, largest move "
+          f"{one['finetune_moved']:.3e}; transcription of {PAR_WAVS} wavs, 2 ranks vs 1: equal "
+          f"{u1 == u2} ({len(u1.splitlines())} lines)", flush=True)
+    if not ft_equal or one["finetune_moved"] == 0.0 or u1 != u2 or \
+            len(u1.splitlines()) != PAR_WAVS or any(r["transcribe"]["rc"] for r in [one] + two):
+        raise AssertionError(f"parallel finetune / transcription: {ft_equal}, {u1!r}, {u2!r}")
+
+    res = {"groups": {t: {"world": len(rs), "backend": rs[0]["backend"],
+                          "wall_s": walls[t], "rank_s": [r["seconds"] for r in rs]}
+                      for t, rs in recs.items()},
+           "dp_step_ms": {t: [r["dp_step_ms"] for r in rs] for t, rs in recs.items()},
+           "dp_profile": {t: [r["dp_profile"] for r in rs] for t, rs in recs.items()},
+           "batch_wall_ms": {t: [r["batch_wall_ms"] for r in rs] for t, rs in recs.items()},
+           "finetune_s": {t: [r["finetune_s"] for r in rs] for t, rs in recs.items()},
+           "dp_rel": rel, "dp_params_far": far, "dp_params_max": most, "mel": bounds,
+           "launches_rank0": two[0]["batch_launches"], "card": smi,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"  DP step ms a rank: {res['dp_step_ms']}; all-reduce share of a profiled step: "
+          f"{ {t: [round(p['share'], 4) for p in ps] for t, ps in res['dp_profile'].items()} }; "
+          f"batch wall ms: {res['batch_wall_ms']}; {smi}", flush=True)
+    print(f"parallel phase: {res['phase_s']:.1f} s (groups {walls}); {smi}", flush=True)
+    return res
+
+
 def run_tools():
     """This slice's paths: the port's four tools at full size, each run
     with every launch counter set to 0 just before it and read just after.
@@ -3501,7 +3847,9 @@ def main(argv=None) -> int:
         evaluated, launches["eval"] = evaluation(torch, dev, tmp, ckpt, corpus, per_call, smi)
         extra, launches["extras"] = extras(torch, dev, tmp, smi)
         ops, ops_res, ops_launches = operator_tools(torch, dev, tmp, ckpt, smi)
+        par = parallel(torch, dev, tmp, ckpt, per_call, smi)
     launches.update(ops_launches)
+    launches["parallel_rank0"] = {k: par["launches_rank0"].get(k, 0) for k in KERNELS}
     records += m1
     launches["adapted"] = adapted_launches
     tool_launches, tools = run_tools()
@@ -3516,6 +3864,7 @@ def main(argv=None) -> int:
                        "train": trained, "train2": trained2, "vocoder_gan": gan,
                        "eval": evaluated, "extras": extra,
                        "operator_tools": {"summary": ops, "results": ops_res},
+                       "parallel": par,
                        "kernels": kernels,
                        "launches": launches, "tools": tools, "breakdown": breakdown}, f,
                       indent=1)
@@ -3543,6 +3892,7 @@ def main(argv=None) -> int:
         "gslm_final_ce": extra["gslm"]["final_ce"], "phase_s": extra["phase_s"],
         "card": smi}}))
     print(json.dumps({"operator_tools": ops}))
+    print(json.dumps({"parallel": {k: v for k, v in par.items() if k != "launches_rank0"}}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -98,6 +98,9 @@ from unitspeech_tpu_torch.tools import analyze_buckets, bench_server, bench_serv
 from unitspeech_tpu_torch.tools import bench_ssl, bench_train, bucket_policy_ab  # noqa: F401
 from unitspeech_tpu_torch.tools import capacity_plan, refresh_under_load, sv56  # noqa: F401
 from unitspeech_tpu_torch.tools import validate_dataloader  # noqa: F401
+# the multi-device paths: the launcher, the mesh and its collectives, the transcriber
+from unitspeech_tpu_torch.parallel import launch, mesh  # noqa: F401
+from unitspeech_tpu_torch.tools import distributed_transcribe  # noqa: F401
 
 cfg, ckpt, out = sys.argv[1:4]
 cli.main_make_random_checkpoint(["--seed", "1", "--config", cfg, "--output", ckpt])
@@ -190,7 +193,8 @@ def test_port_and_chip_smoke_import_nothing_of_jax(tmp_path):
     a strided sampler spec; STEP1 training from wavs through the two
     preprocessors to a checkpoint that inference serves), its four kernel
     tools and the sampler gate (on the CPU at small sizes), the operator
-    tools (imported; analyze_buckets and capacity_plan run) run with every
+    tools (imported; analyze_buckets and capacity_plan run), the parallel
+    subpackage and the distributed transcriber (imported) run with every
     import of jax, flax or unitspeech_tpu refused."""
     cfg = json.loads(json.dumps(TINY))
     cfg["text_encoder"]["n_vocab"] = 180  # the IPA symbol table

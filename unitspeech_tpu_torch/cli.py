@@ -36,7 +36,13 @@ A checkpoint is a `torch.save`d dict: one state dict per module in the
 port's layout, the speaker embedding, the mel min/max and the config
 (utils/artifacts lists the port's formats). Every command runs on the card
 unless `--device cpu` is given; with no CUDA device `--device cuda` exits
-non-zero (`make-filelist` runs on the host). f32 means f32: `inference`,
+non-zero (`make-filelist` runs on the host). The commands that take the
+JAX CLI's launch flags also take `--cpu` (as `--device cpu`) and
+`--distributed` (join a process group, one rank a card:
+parallel.maybe_initialize_distributed); `train-step1` and `train-step2`
+then split each batch over the ranks:
+
+    torchrun --nproc_per_node 4 -m unitspeech_tpu_torch.cli train-step1 --distributed ... f32 means f32: `inference`,
 `serve`, `finetune`, `voice-conversion`, `evaluate`, the SSL
 preprocessors and the three training commands run with TF32 off for f32 matmuls and cuDNN convs
 (utils/precision.strict_f32), and give the caller's settings back when
@@ -73,6 +79,33 @@ def _device(name: str):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {name} given but no CUDA device is available")
     return device
+
+
+def add_launch_flags(ap):
+    """--cpu and --distributed, the JAX CLI's launch flags (its `_common`)."""
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU (as --device cpu)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join a torch.distributed process group (torchrun's variables, or "
+                         "UNITSPEECH_COORDINATOR / UNITSPEECH_NUM_PROCESSES / "
+                         "UNITSPEECH_PROCESS_ID), one rank a card over nccl, or over gloo "
+                         "with --cpu; train-step1 and train-step2 split each batch over the "
+                         "ranks, the other commands run whole on every rank, as in JAX")
+
+
+def _launch_device(args):
+    """The device of a command with the launch flags: --device, or the CPU
+    with --cpu; with --distributed this process joins the process group
+    first (parallel.maybe_initialize_distributed: nccl on the card, which
+    must exist, gloo with --cpu) and runs on its rank's card."""
+    import torch
+
+    cpu = args.cpu or torch.device(args.device).type == "cpu"
+    if args.distributed:
+        from unitspeech_tpu_torch.parallel import local_device, maybe_initialize_distributed
+
+        maybe_initialize_distributed(cpu=cpu)
+        return local_device(cpu)
+    return _device("cpu" if cpu else args.device)
 
 
 def main_make_random_checkpoint(argv=None):
@@ -261,6 +294,7 @@ def main_inference(argv=None) -> dict:
                          "the reference's)")
     ap.add_argument("--output", default="generated.wav")
     ap.add_argument("--device", default="cuda")
+    add_launch_flags(ap)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--diffusion-steps", type=int, default=None)
     ap.add_argument("--length-scale", type=float, default=None)
@@ -282,7 +316,7 @@ def main_inference(argv=None) -> dict:
     from unitspeech_tpu_torch.infer.tts import Synthesizer
     from unitspeech_tpu_torch.ops import sv56
 
-    device = _device(args.device)
+    device = _launch_device(args)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     routes = route_switches(args)
     models = _load_tts_models(args, device, dtype, routes)
@@ -502,6 +536,7 @@ def main_finetune(argv=None) -> dict:
                          "the reference's)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--device", default="cuda")
+    add_launch_flags(ap)
     args = ap.parse_args(argv)
 
     import torch
@@ -510,7 +545,7 @@ def main_finetune(argv=None) -> dict:
     from unitspeech_tpu_torch.train.finetune import finetune_decoder
     from unitspeech_tpu_torch.utils import artifacts
 
-    device = _device(args.device)
+    device = _launch_device(args)
     dec_obj = artifacts.read(args.decoder)
     if args.config:
         cfg = load_json(args.config)
@@ -655,6 +690,7 @@ def main_voice_conversion(argv=None) -> dict:
                          "the reference's)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--device", default="cuda")
+    add_launch_flags(ap)
     add_route_flags(ap, "the contentvec HuBERT and encoder always run f32")
     args = ap.parse_args(argv)
     if not args.content_features and not args.contentvec:
@@ -672,7 +708,7 @@ def main_voice_conversion(argv=None) -> dict:
         parse_sampler_spec(args.sampler)
     except ValueError as e:
         raise SystemExit(f"--sampler: {e}") from e
-    device = _device(args.device)
+    device = _launch_device(args)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     routes = route_switches(args)
     dec_obj = artifacts.read(args.decoder)
@@ -753,6 +789,7 @@ def main_serve(argv=None) -> dict:
                     help="JSON config overlay (default: the checkpoint's config, else "
                          "the reference's)")
     ap.add_argument("--device", default="cuda")
+    add_launch_flags(ap)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8777)
     ap.add_argument("--max-batch", type=int, default=8)
@@ -815,7 +852,7 @@ def main_serve(argv=None) -> dict:
         parse_sampler_spec(args.sampler)  # fail a typo'd spec at startup
     except ValueError as e:
         raise SystemExit(f"--sampler: {e}") from e
-    device = _device(args.device)
+    device = _launch_device(args)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     routes = route_switches(args)
     models = _load_tts_models(args, device, dtype, routes)
@@ -906,6 +943,7 @@ def _filelist_flags(ap):
     ap.add_argument("--config", default=None, help="JSON config overlay")
     ap.add_argument("--device", default="cuda",
                     help="where the mels or the SSL models run (the card unless cpu)")
+    add_launch_flags(ap)
 
 
 def main_preprocess_mel_stats(argv=None) -> dict:
@@ -918,7 +956,7 @@ def main_preprocess_mel_stats(argv=None) -> dict:
     _filelist_flags(ap)
     ap.add_argument("--out", required=True, help="output mel_stats.npz")
     args = ap.parse_args(argv)
-    device = _device(args.device)
+    device = _launch_device(args)
     cfg = load_json(args.config) if args.config else MainConfig()
     stats = compute_mel_stats(args.filelist, cfg.data, args.out, device, args.max_files)
     print(f"mel stats over {len(args.filelist)} filelist(s) -> {args.out} "
@@ -940,7 +978,7 @@ def main_preprocess_uncond(argv=None) -> dict:
     ap.add_argument("--spk-embs", required=True, help="spk_embs.npz")
     ap.add_argument("--out", required=True, help="output uncond_stats.npz")
     args = ap.parse_args(argv)
-    device = _device(args.device)
+    device = _launch_device(args)
     cfg = load_json(args.config) if args.config else MainConfig()
     stats = np.load(args.mel_stats)
     text_uncond = compute_uncond_mel(args.filelist, cfg.data, stats["mel_min"].reshape(-1),
@@ -969,6 +1007,7 @@ def _train_parser(name: str, extra) -> argparse.ArgumentParser:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--config", default=None, help="JSON config overlay")
     ap.add_argument("--device", default="cuda")
+    add_launch_flags(ap)
     return ap
 
 
@@ -1007,7 +1046,7 @@ def _train_inputs(args):
     from unitspeech_tpu_torch.config import MainConfig, load_json
     from unitspeech_tpu_torch.utils.artifacts import load_speaker_embs
 
-    device = _device(args.device)
+    device = _launch_device(args)
     cfg = load_json(args.config) if args.config else MainConfig()
     if args.batch_size:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
@@ -1019,7 +1058,7 @@ def _train_inputs(args):
 
 
 def _train_loop(args, cfg, device, train_step, modules, optimizer, dataset, spk_embs, mel_min,
-                mel_max):
+                mel_max, shard):
     from unitspeech_tpu_torch.data.dataset import BucketCollator
     from unitspeech_tpu_torch.train.loop import TrainLoop
 
@@ -1031,7 +1070,7 @@ def _train_loop(args, cfg, device, train_step, modules, optimizer, dataset, spk_
                      mel_min=mel_min, mel_max=mel_max, spk_embs=spk_embs,
                      log_dir=args.log_dir or tcfg.log_dir,
                      checkpoint_dir=args.checkpoint_dir or tcfg.checkpoint_dir,
-                     save_every=tcfg.save_every, seed=tcfg.seed, device=device)
+                     save_every=tcfg.save_every, seed=tcfg.seed, device=device, shard=shard)
 
 
 def build_step1(args):
@@ -1048,6 +1087,7 @@ def build_step1(args):
     from unitspeech_tpu_torch.models.diffusion import UnitSpeech
     from unitspeech_tpu_torch.models.duration import DurationPredictor
     from unitspeech_tpu_torch.models.encoder import Encoder
+    from unitspeech_tpu_torch.parallel import train_shard
     from unitspeech_tpu_torch.train.steps import make_step1_train_step
     from unitspeech_tpu_torch.utils.params import init_params
 
@@ -1080,13 +1120,15 @@ def build_step1(args):
         mod.train().requires_grad_(True)
     optimizer = torch.optim.Adam([p for m in modules.values() for p in m.parameters()],
                                  lr=tcfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    shard = train_shard(tcfg.batch_size)
     train_step = make_step1_train_step(
         *modules.values(), optimizer, out_size=cfg.out_size, spk_uncond=spk_uncond,
         spk_dropout=tcfg.spk_dropout,
         clip_norms=(tcfg.grad_clip_encoder, tcfg.grad_clip_duration, tcfg.grad_clip_decoder),
-        beta_min=cfg.decoder.beta_min, beta_max=cfg.decoder.beta_max)
+        beta_min=cfg.decoder.beta_min, beta_max=cfg.decoder.beta_max,
+        shard=None if shard.group is None else shard)
     return cfg, _train_loop(args, cfg, device, train_step, modules, optimizer, dataset, spk_embs,
-                            mel_min, mel_max)
+                            mel_min, mel_max, shard)
 
 
 def build_step2(args):
@@ -1102,6 +1144,7 @@ def build_step2(args):
     from unitspeech_tpu_torch.data.dataset import UnitMelSpeakerDataset, parse_filelist
     from unitspeech_tpu_torch.models.diffusion import UnitSpeech
     from unitspeech_tpu_torch.models.encoder import Encoder
+    from unitspeech_tpu_torch.parallel import train_shard
     from unitspeech_tpu_torch.train.steps import make_step2_train_step
     from unitspeech_tpu_torch.utils.artifacts import load_decoder_bundle
     from unitspeech_tpu_torch.utils.params import init_params
@@ -1121,11 +1164,13 @@ def build_step2(args):
     decoder.load_state_dict(load_decoder_bundle(args.decoder, cfg.decoder).state_dict)
     optimizer = torch.optim.Adam(unit_encoder.parameters(), lr=tcfg.learning_rate,
                                  betas=(0.9, 0.999), eps=1e-8)
+    shard = train_shard(tcfg.batch_size)
     train_step = make_step2_train_step(unit_encoder, decoder, optimizer, out_size=cfg.out_size,
                                        beta_min=cfg.decoder.beta_min,
-                                       beta_max=cfg.decoder.beta_max)
+                                       beta_max=cfg.decoder.beta_max,
+                                       shard=None if shard.group is None else shard)
     loop = _train_loop(args, cfg, device, train_step, {"unit_encoder": unit_encoder}, optimizer,
-                       dataset, spk_embs, mel_min, mel_max)
+                       dataset, spk_embs, mel_min, mel_max, shard)
     return cfg, loop, decoder
 
 
@@ -1274,7 +1319,7 @@ def main_preprocess_spk_embs(argv=None) -> dict:
                          f"{DEFAULT_SPK_SAMPLE_BUCKETS} (the fine-tune's); by default each "
                          "wav is embedded at its exact length, as the reference does")
     args = ap.parse_args(argv)
-    device = _device(args.device)
+    device = _launch_device(args)
     cfg = load_json(args.config) if args.config else MainConfig()
     model = load_speaker_embedder(args.speaker_embedder, cfg, device)
     buckets = DEFAULT_SPK_SAMPLE_BUCKETS if args.bucket_ssl else None
@@ -1300,7 +1345,7 @@ def main_preprocess_units(argv=None) -> int:
     ap.add_argument("--kmeans", required=True,
                     help="k-means centroids: .npz, or sklearn's joblib file (needs sklearn)")
     args = ap.parse_args(argv)
-    device = _device(args.device)
+    device = _launch_device(args)
     cfg = load_json(args.config) if args.config else MainConfig()
     encoder = build_unit_extractor(args.hubert, args.kmeans, cfg, device)
     count = extract_all(args.filelist, lambda wav, sr: extract_units(encoder, wav, sr, cfg),
@@ -1339,8 +1384,9 @@ def main_train_vocoder(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--config", default=None, help="JSON config overlay")
     ap.add_argument("--device", default="cuda")
+    add_launch_flags(ap)
     args = ap.parse_args(argv)
-    device = _device(args.device)
+    device = _launch_device(args)
     cfg = load_json(args.config) if args.config else MainConfig()
     rows = parse_filelist(args.filelist)
 

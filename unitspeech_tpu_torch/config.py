@@ -3,8 +3,9 @@ the adaptive-TTS, speaker-adaptation and voice-conversion slices and the
 SSL frontends read, as frozen dataclasses with the same fields, the same
 defaults (the reference's numbers) and the same dict form, so a
 checkpoint's `config` dict and a JSON overlay read the same in both
-packages. The device mesh, which no ported path reads, is left out; a dict
-that carries it loads with it ignored.
+packages. The device mesh section (MeshConfig) is JAX's too; the port's
+mesh is built from the process group (parallel/mesh.py), with the same
+axis names.
 """
 
 from __future__ import annotations
@@ -179,6 +180,18 @@ class UnitExtractorConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh's layout (JAX config.py MeshConfig; the reference is
+    single-GPU): data (data parallelism over the batch), seq (sharding over
+    the mel frames, not ported yet: parallel/mesh.py QUEUED)."""
+
+    data: int = 1
+    seq: int = 1
+    data_axis: str = "data"
+    seq_axis: str = "seq"
+
+
+@dataclass(frozen=True)
 class MainConfig:
     data: DataConfig = DataConfig()
     text_encoder: EncoderConfig = EncoderConfig()
@@ -192,6 +205,7 @@ class MainConfig:
     inference: InferenceConfig = InferenceConfig()
     spk_embedder: SpeakerEmbedderConfig = SpeakerEmbedderConfig()
     unit_extractor: UnitExtractorConfig = UnitExtractorConfig()
+    mesh: MeshConfig = MeshConfig()
 
     @property
     def out_size(self) -> int:

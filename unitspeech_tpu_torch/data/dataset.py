@@ -13,8 +13,8 @@ reference data.py:21-236), numpy on the host:
     bucket) shape, the frame bucket rounded for the U-Net, the wavs to
     bucket x hop samples, as the JAX collator does, so that batches take
     few shapes;
-  * `iterate_batches`: one process's epoch iterator (the JAX package's
-    per-host sharding is not ported: one device).
+  * `iterate_batches`: one rank's epoch iterator, its strided slice of one
+    shuffled order (the JAX package's per-host sharding).
 """
 
 from __future__ import annotations
@@ -141,14 +141,25 @@ class BucketCollator:
 
 def iterate_batches(dataset, collator: BucketCollator, batch_size: int,
                     key: Optional[np.random.Generator] = None, shuffle: bool = True,
-                    drop_last: bool = True):
-    """One epoch of collated batches: the indices shuffled in place by `key`
-    (a numpy Generator; default_rng(0) when none), then taken batch_size at
-    a time, a short last batch dropped when drop_last (the JAX iterator at
-    one process)."""
+                    drop_last: bool = True, process_index: int = 0, process_count: int = 1):
+    """One epoch of collated batches of `batch_size` (this process's): the
+    indices shuffled in place by `key` (a numpy Generator; default_rng(0)
+    when none; every process must seed it alike), this process's strided
+    slice idx[process_index::process_count] taken (the JAX iterator's
+    per-host sharding: the slices are disjoint and cover the epoch), then
+    batch_size at a time, a short last batch dropped when drop_last. With
+    several processes and drop_last, each yields the batches of the
+    smallest slice, len(dataset) // process_count, so that all step in
+    lock-step."""
     idx = np.arange(len(dataset))
     if shuffle:
         (key or np.random.default_rng(0)).shuffle(idx)
-    end = len(idx) - (len(idx) % batch_size) if drop_last else len(idx)
+    idx = idx[process_index::process_count]
+    if drop_last and process_count > 1:
+        end = (len(dataset) // process_count // batch_size) * batch_size
+    elif drop_last:
+        end = len(idx) - (len(idx) % batch_size)
+    else:
+        end = len(idx)
     for s in range(0, end, batch_size):
         yield collator([dataset[int(i)] for i in idx[s:s + batch_size]])

@@ -24,7 +24,15 @@ the host and runs one align -> sample -> vocode at JAX's bucket; the
 guessed modes run without that sync and check `fits` after. Every overflow
 falls back at the exact bucket, reusing the encoder outputs.
 `synthesize_batch` runs B requests as one 3B-row sampler at the bucket of
-the longest.
+the longest. With JAX's `mesh` and a `sample_spec` that puts 'data' on the
+batch axis, synthesize_mel_batch and synthesize_batch split the B
+requests over the ranks of the mesh's data axis (rows rank, rank + size,
+...): each rank runs its rows through the padded batched encode, the
+aligner, the sampler (the global batch's noise, its rows kept) and the
+vocoder, at the bucket of the longest row of all, and the outputs are
+gathered in request order on every rank. The single-request paths
+(`__call__`, `synthesize_mel`) and the serving dispatches run whole on
+each rank. A spec naming 'seq' or 'model' raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from unitspeech_tpu_torch.ops.masking import (
     sequence_mask,
 )
 from unitspeech_tpu_torch.ops.mel import denormalize_mel
+from unitspeech_tpu_torch.parallel.mesh import SINGLE, sample_shard
 from unitspeech_tpu_torch.utils.params import build_modules, config_from_dict
 
 
@@ -177,6 +186,13 @@ class Synthesizer:
     # runs at the first bucket that holds its longest row (make_switch_buckets
     # picks the window from the calibrator's observed lengths)
     switch_buckets: Any = None
+    # data-sharded batched synthesis (JAX's fields): a parallel.make_mesh
+    # mesh and a (B, T, F) spec, e.g. ("data", None, None)
+    mesh: Any = None
+    sample_spec: Any = None
+
+    def __post_init__(self):
+        self._shard = sample_shard(self.mesh, self.sample_spec)
 
     def _scales(self, diffusion_steps, length_scale, text_gradient_scale, spk_gradient_scale):
         icfg = self.models.cfg.inference
@@ -239,20 +255,22 @@ class Synthesizer:
 
     @torch.no_grad()
     def _align_and_sample(self, mu_x, x_mask, w_ceil, y_pad, steps, tg, sg, generator,
-                          noise_z, noises, sampler, spk=None):
+                          noise_z, noises, sampler, spk=None, shard=None):
+        """shard: the rows are this rank's of a data-sharded batch, whose
+        noise is drawn for the global batch (the rank keeps its rows)."""
         m = self.models
         spk = self._spk_rows(mu_x.shape[0]) if spk is None else spk
         y_lengths = torch.clamp(w_ceil.sum(dim=1), min=1.0)
         y_mask = sequence_mask(torch.clamp(y_lengths, max=y_pad).to(torch.int32), y_pad)
         attn = generate_path(w_ceil, x_mask * y_mask[:, None, :])
         cond_y = torch.einsum("bxy,bxf->byf", attn, mu_x)
-        z = noise_z if noise_z is not None else torch.randn(
-            cond_y.shape, generator=generator, device=cond_y.device)
+        z = noise_z if noise_z is not None else (shard or SINGLE).randn(
+            cond_y.shape, generator, cond_y.device)
         # `sampler` is a spec ("ddpm" / "dpm2", optionally ":cs<k>"), parsed
         # here, the one sampler dispatch point, as in the JAX package
         mel = sample(m.decoder, sampler, z, y_mask, cond_y, spk, steps,
                      text_gradient_scale=tg, spk_gradient_scale=sg, generator=generator,
-                     noises=noises)
+                     noises=noises, shard=shard)
         return denormalize_mel(mel, m.mel_min, m.mel_max), attn
 
     def _align_sample_vocode(self, mu_x, x_mask, w_ceil, y_pad, steps, tg, sg, generator,
@@ -299,18 +317,33 @@ class Synthesizer:
         spk: optional (B, spk_emb_dim) rows; durations: optional forced
         per-token durations, one sequence per request; noise_z (B, Ty_pad,
         F) / noises (steps, B, Ty_pad, F) injected as in synthesize_mel.
+        Data-sharded with the Synthesizer's mesh (the module docstring).
         Returns (mel (B, Ty_pad, F), y_lengths (B,) int on the host)."""
+        mel, y_lengths = self._rows(token_sequences, generator, diffusion_steps, length_scale,
+                                    text_gradient_scale, spk_gradient_scale, spk, noise_z,
+                                    noises, durations, sampler)
+        if self._shard is not None:
+            mel = self._shard.gather(mel, len(token_sequences))
+        return mel, y_lengths
+
+    def _rows(self, token_sequences, generator=None, diffusion_steps=None, length_scale=None,
+              text_gradient_scale=None, spk_gradient_scale=None, spk=None, noise_z=None,
+              noises=None, durations=None, sampler: str = "ddpm"):
+        """synthesize_mel_batch's mel of this rank's rows (every row without
+        a data-sharding mesh) and the y_lengths of all."""
         scales = self._scales(diffusion_steps, length_scale, text_gradient_scale,
                               spk_gradient_scale)
         mel, y_lengths, _, _ = self._mel_batch(token_sequences, generator, scales, spk, noise_z,
-                                               noises, durations, sampler)
+                                               noises, durations, sampler, self._shard)
         return mel, y_lengths
 
     def _mel_batch(self, token_sequences, generator, scales, spk, noise_z, noises, durations,
-                   sampler):
+                   sampler, shard=None):
         """synthesize_mel_batch's work, the scales resolved: (mel, y_lengths
         (B,) int, attn (B, tok_bucket, Ty_pad), w_host (B, tok_bucket): the
-        length-scaled or forced durations on the host)."""
+        length-scaled or forced durations on the host). With `shard` the
+        mel, attn and w_host are this rank's rows (the inputs are the whole
+        batch's); y_lengths and the bucket are the whole batch's."""
         steps, lscale, tg, sg = scales
         parse_sampler_spec(sampler)
         tokens, lengths = self._pack(token_sequences)
@@ -319,24 +352,41 @@ class Synthesizer:
             w = np.zeros(tokens.shape, np.float32)
             for i, d in enumerate(durations):
                 w[i, :len(d)] = np.asarray(d, np.float32).reshape(-1)
+        b = len(tokens)
+        if shard is not None:
+            if b % shard.size:
+                raise ValueError(f"{b} requests do not divide over the data axis "
+                                 f"({shard.size})")
+            tokens, lengths = shard.take(tokens), shard.take(lengths)
+            w = None if w is None else shard.take(w)
+            spk = None if spk is None else shard.take(np.asarray(spk, np.float32).reshape(b, -1))
+            noise_z = None if noise_z is None else shard.take(noise_z)
+            noises = None if noises is None else shard.take(noises, 1)
         mu_x, x_mask, w_ceil, spk = self._encode_batch(tokens, lengths, lscale, spk, w)
         # the one host sync for the data-dependent lengths (reference
         # unitspeech.py:427-429); the whole rows cost what their sums do and
         # give the calibrator per-token observations
         w_host = w_ceil.cpu().numpy()
         y_lengths = np.maximum(w_host.sum(axis=1).astype(np.int64), 1)
+        if shard is not None:  # the bucket of the longest row of all
+            y_lengths = shard.gather(torch.from_numpy(y_lengths).to(w_ceil.device), b)
+            y_lengths = y_lengths.cpu().numpy()
         num_down = self.models.cfg.decoder.num_downsamplings
         y_pad = choose_bucket(fix_len_compatibility(int(y_lengths.max()), num_down),
                               self.frame_buckets)
         mel, attn = self._align_and_sample(mu_x, x_mask, w_ceil, y_pad, steps, tg, sg, generator,
-                                           noise_z, noises, sampler, spk)
+                                           noise_z, noises, sampler, spk, shard)
         return mel, y_lengths, attn, w_host
 
     def synthesize_batch(self, token_sequences, generator=None, **kwargs):
         """Batched synthesis (JAX synthesize_batch): synthesize_mel_batch,
-        then one vocoder call. Returns a list of (wav np.ndarray, sr)."""
-        mel, y_lengths = self.synthesize_mel_batch(token_sequences, generator, **kwargs)
-        wavs = self.vocode(mel).cpu().numpy()
+        then one vocoder call (on each rank's rows, the waveforms gathered,
+        with a data-sharding mesh). Returns a list of (wav np.ndarray, sr)."""
+        mel, y_lengths = self._rows(token_sequences, generator, **kwargs)
+        wavs = self.vocode(mel)
+        if self._shard is not None:
+            wavs = self._shard.gather(wavs, len(token_sequences))
+        wavs = wavs.float().cpu().numpy()
         hop, sr = self.models.cfg.data.hop_length, self.models.cfg.data.sampling_rate
         return [(wavs[i, :int(y) * hop], sr) for i, y in enumerate(y_lengths)]
 

@@ -15,6 +15,11 @@ Randomness comes from an explicit torch.Generator, or is injected
 (`noise_z` / `noises` for the sampler, `draws` for the losses) so a run
 can be compared with the JAX package, whose PRNG streams torch cannot
 reproduce.
+
+The samplers take JAX's `mesh` and `sample_spec`: a spec putting 'data' on
+the batch axis splits the rows over the ranks of the mesh's data axis
+(parallel/mesh.py), each rank drawing the global batch's noise and keeping
+its rows; 'seq' and 'model' raise NotImplementedError (not ported yet).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from unitspeech_tpu_torch.ops.schedule import (
     make_ode_schedule,
     make_reverse_schedule,
 )
+from unitspeech_tpu_torch.parallel.mesh import SINGLE, sample_shard
 
 
 class UnitSpeech(nn.Module):
@@ -162,17 +168,42 @@ def _guided_score(model: UnitSpeech, mask, cond, spk_emb, text_gradient_scale: f
     return score
 
 
+def data_sharded(run, mesh, sample_spec, z, mask, cond, spk_emb, noises=None):
+    """run(z, mask, cond, spk_emb, noises, shard) on this rank's rows of the
+    global batch when the spec shards 'data' (sample_shard), its result
+    gathered in row order on every rank; else run on the whole batch with
+    shard None. noises: (steps, B, T, F) or None."""
+    shard = sample_shard(mesh, sample_spec)
+    if shard is None:
+        return run(z, mask, cond, spk_emb, noises, None)
+    b = z.shape[0]
+    if b % shard.size:
+        raise ValueError(f"{b} rows do not divide over the data axis ({shard.size})")
+    out = run(*(shard.take(a) for a in (z, mask, cond, spk_emb)),
+              None if noises is None else shard.take(noises, 1), shard)
+    return shard.gather(out, b)
+
+
 @torch.no_grad()
 def reverse_diffusion(model: UnitSpeech, z, mask, cond, spk_emb, n_timesteps: int = 50,
                       text_gradient_scale: float = 0.0, spk_gradient_scale: float = 0.0,
                       generator: torch.Generator | None = None, noises=None,
-                      cfg_stride: int = 1):
+                      cfg_stride: int = 1, mesh=None, sample_spec=None, shard=None):
     """Reverse DDPM sampling (reference unitspeech.py:333-374). z/cond
     (B, T, F); mask (B, T); spk_emb (B, S). `noises` (n_timesteps, B, T, F)
     replaces the per-step draws (also with cfg_stride > 1, which the JAX
     package refuses: a test hook for its fold_in draws). cfg_stride > 1:
     CFG delta caching (_guided_score); stride 1 is the reference's algebra.
+    mesh, sample_spec: data-sharded sampling (data_sharded); shard: the
+    inputs are already this rank's rows of a data-sharded batch, and each
+    step's noise is drawn for the global batch, the rank keeping its rows.
     Returns mel (B, T, F) f32."""
+    if mesh is not None:
+        return data_sharded(
+            lambda *a: reverse_diffusion(model, *a[:4], n_timesteps, text_gradient_scale,
+                                         spk_gradient_scale, generator, a[4], cfg_stride,
+                                         shard=a[5]),
+            mesh, sample_spec, z, mask, cond, spk_emb, noises)
     sched = make_reverse_schedule(n_timesteps, model.beta_min, model.beta_max)
     stds = forward_diffusion_coefficients(torch.from_numpy(sched.t_cont), model.beta_min,
                                           model.beta_max)[1].tolist()
@@ -182,7 +213,7 @@ def reverse_diffusion(model: UnitSpeech, z, mask, cond, spk_emb, n_timesteps: in
                              spk_gradient_scale, n_timesteps, cfg_stride, stds.__getitem__)
     for i in range(n_timesteps):
         if noises is None:
-            noise = torch.randn(xt.shape, generator=generator, device=xt.device)
+            noise = (shard or SINGLE).randn(xt.shape, generator, xt.device)
         else:
             noise = noises[i]
         score = score_fn(xt, float(sched.t_cont[i]), i)
@@ -194,13 +225,20 @@ def reverse_diffusion(model: UnitSpeech, z, mask, cond, spk_emb, n_timesteps: in
 @torch.no_grad()
 def reverse_diffusion_ode(model: UnitSpeech, z, mask, cond, spk_emb, n_timesteps: int = 25,
                           text_gradient_scale: float = 0.0, spk_gradient_scale: float = 0.0,
-                          t_end: float = 0.01, cfg_stride: int = 1):
+                          t_end: float = 0.01, cfg_stride: int = 1, mesh=None,
+                          sample_spec=None):
     """Deterministic probability-flow sampling with DPM-Solver++(2M)
     (ops/schedule.make_ode_schedule; the JAX package's `dpm2` sampler, which
     the reference does not have): x0 = (x + sigma^2 * score) / alpha, then
     x <- a * x + b * (c1 * x0 + c2 * x0_prev). cfg_stride as in
     reverse_diffusion, with std_t = sqrt(sigma^2); the 2M history x0_prev
-    runs through full and cheap steps alike. Returns mel (B, T, F) f32."""
+    runs through full and cheap steps alike. mesh, sample_spec: as
+    reverse_diffusion's (it draws nothing). Returns mel (B, T, F) f32."""
+    if mesh is not None:
+        return data_sharded(
+            lambda *a: reverse_diffusion_ode(model, *a[:4], n_timesteps, text_gradient_scale,
+                                             spk_gradient_scale, t_end, cfg_stride),
+            mesh, sample_spec, z, mask, cond, spk_emb)
     co = make_ode_schedule(n_timesteps, model.beta_min, model.beta_max,
                            t_end=float(t_end)).stacked()
     stds = torch.sqrt(torch.from_numpy(co[:, 6])).tolist()
@@ -219,18 +257,18 @@ def reverse_diffusion_ode(model: UnitSpeech, z, mask, cond, spk_emb, n_timesteps
 
 def sample(model: UnitSpeech, sampler: str, z, mask, cond, spk_emb, n_timesteps: int,
            text_gradient_scale: float = 0.0, spk_gradient_scale: float = 0.0,
-           generator: torch.Generator | None = None, noises=None):
+           generator: torch.Generator | None = None, noises=None, shard=None):
     """The sampler a spec names (parse_sampler_spec), the one dispatch
     point of the TTS and voice-conversion paths: "ddpm[:cs<k>]" is
     reverse_diffusion, "dpm2[:cs<k>]" reverse_diffusion_ode (deterministic:
-    it draws nothing and ignores noises)."""
+    it draws nothing and ignores noises). shard: reverse_diffusion's."""
     name, stride = parse_sampler_spec(sampler)
     if name == "dpm2":
         return reverse_diffusion_ode(model, z, mask, cond, spk_emb, n_timesteps,
                                      text_gradient_scale, spk_gradient_scale, cfg_stride=stride)
     return reverse_diffusion(model, z, mask, cond, spk_emb, n_timesteps, text_gradient_scale,
                              spk_gradient_scale, generator=generator, noises=noises,
-                             cfg_stride=stride)
+                             cfg_stride=stride, shard=shard)
 
 
 def forward_diffusion(x0, mask, t, z, beta_min: float = 0.05, beta_max: float = 20.0):
@@ -243,31 +281,38 @@ def forward_diffusion(x0, mask, t, z, beta_min: float = 0.05, beta_max: float = 
 
 
 def diffusion_loss_t(model: UnitSpeech, x0, mask, cond, t, spk_emb, z,
-                     beta_min: float = 0.05, beta_max: float = 20.0):
+                     beta_min: float = 0.05, beta_max: float = 20.0, norm=None):
     """Weighted score-matching MSE at the given t (reference loss_t,
-    unitspeech.py:393-405). Returns (loss, xt)."""
+    unitspeech.py:393-405): the sum over the masked frames over `norm`,
+    sum(mask) * n_feats of this batch unless given (a data-parallel step
+    gives the global batch's). Returns (loss, xt)."""
     n_feats = x0.shape[-1]
     mask3 = mask[:, :, None]
     xt, z = forward_diffusion(x0, mask, t, z, beta_min, beta_max)
     _, std = forward_diffusion_coefficients(t[:, None, None], beta_min, beta_max)
     noise_estimation = model(xt, mask, cond * mask3, t, spk_emb) * std
-    loss = torch.sum((noise_estimation + z) ** 2) / (torch.sum(mask) * n_feats)
-    return loss, xt
+    if norm is None:
+        norm = torch.sum(mask) * n_feats
+    return torch.sum((noise_estimation + z) ** 2) / norm, xt
 
 
 def diffusion_loss(model: UnitSpeech, x0, mask, cond, spk_emb, generator=None, draws=None,
-                   beta_min: float = 0.05, beta_max: float = 20.0, offset: float = 1e-5):
+                   beta_min: float = 0.05, beta_max: float = 20.0, offset: float = 1e-5,
+                   shard=None, norm=None):
     """Random-t diffusion loss (reference compute_loss, unitspeech.py:407-411):
     t uniform, clipped to [offset, 1 - offset], then z standard normal, both
     from `generator` on x0's device. draws: {"t": (B,), "z": x0's shape}
-    in place of them."""
+    in place of them. With `shard` (x0 its rows of a data-parallel batch)
+    t and z are the global batch's, drawn or injected, its rows kept; norm:
+    diffusion_loss_t's."""
+    shard = shard or SINGLE
     if draws is None:
-        t = torch.rand((x0.shape[0],), generator=generator, device=x0.device)
-        z = torch.randn(x0.shape, generator=generator, device=x0.device)
+        t = shard.rand((x0.shape[0],), generator, x0.device)
+        z = shard.randn(x0.shape, generator, x0.device)
     else:
-        t, z = draws["t"], draws["z"]
+        t, z = shard.take(draws["t"]), shard.take(draws["z"])
     t = torch.clamp(t, offset, 1.0 - offset)
-    return diffusion_loss_t(model, x0, mask, cond, t, spk_emb, z, beta_min, beta_max)
+    return diffusion_loss_t(model, x0, mask, cond, t, spk_emb, z, beta_min, beta_max, norm)
 
 
 def random_segment_crop(y, attn, y_lengths, segment_size: int, u):

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from unitspeech_tpu_torch.parallel.mesh import SINGLE
+
 
 def _param(*shape):
     return nn.Parameter(torch.empty(*shape))
@@ -137,11 +139,14 @@ class Dropout:
     drawn from `generator` on the input's device (and kept in `drawn`, so
     that a run can be replayed elsewhere). p = 0 returns x and takes no
     mask, as flax does. Modules take one as their `dropout=` argument; None
-    (the default, every inference path) means no dropout."""
+    (the default, every inference path) means no dropout. With `shard` (a
+    parallel.DataShard: x holds its rows of a data-parallel batch) each mask
+    is the global batch's, drawn or injected, and the rank keeps its rows."""
 
-    def __init__(self, generator=None, masks=None):
+    def __init__(self, generator=None, masks=None, shard=None):
         self.generator = generator
         self.masks = None if masks is None else list(masks)
+        self.shard = shard or SINGLE
         self.calls = 0
         self.drawn = []
 
@@ -150,9 +155,9 @@ class Dropout:
             return x
         keep = 1.0 - p
         if self.masks is not None:
-            mask = self.masks[self.calls].to(x.device)
+            mask = self.shard.take(self.masks[self.calls].to(x.device))
         else:
-            mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+            mask = self.shard.rand(x.shape, self.generator, x.device) < keep
             self.drawn.append(mask)
         self.calls += 1
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

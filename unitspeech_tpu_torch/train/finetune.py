@@ -14,7 +14,7 @@ parameters stay f32, cast at use, so that a step of 2e-5 is not lost to
 bf16 rounding. Serve the result through the kernels by loading its state
 dict into a kernel-route decoder, whose load hook packs the adapted
 weights. finetune_decoder_batched adapts several speakers, one trajectory
-each.
+each, and with a mesh splits them over the ranks of its data axis.
 """
 
 from __future__ import annotations
@@ -109,18 +109,36 @@ def finetune_decoder(decoder_cfg, state_dict, cond_x, y, y_lengths, attn, spk_em
 def finetune_decoder_batched(decoder_cfg, stacked_state: dict, cond_x, y, y_lengths, attn,
                              spk_emb, dtype=torch.bfloat16, segment_size: int = 176,
                              n_iters: int = 500, learning_rate: float = 2e-5,
-                             grad_clip: float = 1.0, generators=None, draws=None):
+                             grad_clip: float = 1.0, generators=None, draws=None, mesh=None):
     """Adapt S speakers, one finetune_decoder trajectory each (JAX
-    finetune_decoder_batched with mesh=None: lax.map runs the speakers one
-    after another on one device; its mesh form is not ported, as
-    parallel/ is not). Every input carries a leading speaker axis:
+    finetune_decoder_batched: lax.map runs the speakers one after another
+    on a device). Every input carries a leading speaker axis:
     stacked_state maps each decoder parameter to (S, ...), cond_x
     (S, 1, Tx, F), y (S, 1, Ty, F), y_lengths (S, 1), attn (S, 1, Tx, Ty),
     spk_emb (S, 1, E). Speaker s draws from generators[s], or takes
-    draws[s] (one {"u", "t", "z"} per step). Returns (the adapted stack,
-    each parameter (S, ...) f32 on y's device; losses (S, n_iters) float32
-    numpy)."""
+    draws[s] (one {"u", "t", "z"} per step). With `mesh` (JAX's mesh form,
+    speaker-per-chip) the speakers split over its 'data' axis, S / size on
+    each rank (ValueError when S does not divide), each rank running its
+    speakers on its own card with no collective in the loop; the adapted
+    stack and the losses are gathered at the end, on every rank. Returns
+    (the adapted stack, each parameter (S, ...) f32 on y's device; losses
+    (S, n_iters) float32 numpy)."""
     n = y.shape[0]
+    if mesh is not None:
+        from unitspeech_tpu_torch.parallel.mesh import DataShard
+
+        shard = DataShard.of(mesh)
+        if n % shard.size:
+            raise ValueError(f"speaker count {n} must divide by the mesh data axis "
+                             f"({shard.size}) for speaker-per-chip fine-tuning")
+        mine = list(range(shard.rank, n, shard.size))
+        state, loss = finetune_decoder_batched(
+            decoder_cfg, {k: v[mine] for k, v in stacked_state.items()}, cond_x[mine], y[mine],
+            y_lengths[mine], attn[mine], spk_emb[mine], dtype, segment_size, n_iters,
+            learning_rate, grad_clip, None if generators is None else [generators[i] for i in mine],
+            None if draws is None else [draws[i] for i in mine])
+        loss = shard.gather(torch.from_numpy(loss).to(y.device), n)
+        return ({k: shard.gather(v, n) for k, v in state.items()}, loss.cpu().numpy())
     states, losses = [], []
     for s in range(n):
         state, loss = finetune_decoder(
