@@ -106,7 +106,7 @@ depth error at the default config, the Tacotron2 decoder for 1 000 steps
 WaveGlow, the denoiser, CPC features and the F0 track against the CPU in
 strict f32, a quantized filelist with the F0 stream, and `examples.gslm`.
 Then the operator tools (unitspeech_tpu_torch/tools, each main called in
-this process): bench_server (8 closed-loop clients in a child process, 32
+this process): bench_server (8 closed-loop clients in a child process, 16
 ~344-frame requests, ddpm@50, --max-batch 8, the TTFA probe), bench_serving
 (the exact and speculative paths), refresh_under_load (a stale window
 refreshed live under 16 + 16 requests), bucket_policy_ab (the quantile and
@@ -131,8 +131,17 @@ within the TTS bounds of the single-rank batch's, each rank's launches
 those of one request), adapts 2 speakers one a rank (bit-equal to the
 sequential run under deterministic algorithms) and transcribes 4 wavs with
 the frontends' mHuBERT + k-means (the merged file equal to one rank's);
+then the sequence-sharded sampler: a forced 344-frame request through the
+Synthesizer on a (data 1, seq = world) mesh, its frames split 176 + 168
+at world 2, on the serving default and the bf16 kernel path, ddpm with
+injected noise and dpm2:cs2 at SEQ_STEPS steps (world 1: equal bit for bit
+to the unsharded request; world 2: within the bounds against world 1, the
+launches a request those of the unsharded request, the seq axis's
+collectives exactly the per-site formula's), and at world 2 the halo'd
+kernel A, K1's and K2's sharded chains and the split K4 each held to its
+plain version on the slices of the 344-frame sites;
 the phase prints its seconds, the DP step's ms a rank, the all-reduce's
-share of a profiled step and the batch's wall.
+share of a profiled step, the batch's wall and each seq request's wall.
 Last, the paths of the kernels that no request runs, the port's four tools
 at full size (unitspeech_tpu_torch/tools): the kernel benchmark with
 --int8 --deep (the in-kernel int8 blocks K10a, K10b), the transcendental
@@ -3233,9 +3242,9 @@ def extras(torch, dev, tmp, smi):
 # the exact / speculative paths, a live refresh, the window A/B, STEP1 at
 # the config's batch, the SSL frontends and adapting a voice, then the two
 # host tools on the load's /stats snapshot
-OPS_CLIENTS, OPS_REQUESTS, OPS_MAX_BATCH = 8, 32, 8
+OPS_CLIENTS, OPS_REQUESTS, OPS_MAX_BATCH = 8, 16, 8
 OPS_REFRESH_REQUESTS = 16  # before and after the refresh each
-OPS_FT_ITERS = 50
+OPS_FT_ITERS = 20
 # the kernels a served request launches on the serving default (K1-K4, K7,
 # K5 / K6), and the one a STEP1 step launches (M1)
 SERVED = frozenset(ESTIMATOR_KERNELS[:5] + VOCODER_KERNELS)
@@ -3398,12 +3407,216 @@ def operator_tools(torch, dev, tmp, ckpt_path, smi, argv=None):
 PAR_BATCH, PAR_TX, PAR_TY = 32, 72, 344
 PAR_REQUESTS, PAR_FT_S, PAR_FT_ITERS, PAR_WAVS, PAR_SEED = 4, 2, 3, 4, 90
 PAR_TIMEOUT = 300.0  # seconds a group may take, start to join
+# The sequence-sharded sampler in the parallel phase: one forced FRAMES-frame
+# request (176 + 168 frames at world 2) on each mode and sampler spec,
+# SEQ_STEPS steps, noise injected (ddpm) from PAR_SEED
+SEQ_STEPS, SEQ_SAMPLERS = 4, ("ddpm", "dpm2:cs2")
+SEQ_MODES = {"int8": {"use_int8_deep": True}, "bf16": {}}
+# the seq-sharded kernels' launches a request, held to the unsharded path's;
+# each mode's mel at world 2 is held to world 1's within the TTS bounds
+# (MEL_L1_BOUND, MEL_MAX_BOUND; PERF.md §6)
+SEQ_KERNELS = ("fused_resnet_block", "fused_final_block", "row_stats", "fused_rezero_attention",
+               "row_absmax")
 # the DP step at world 2 against world 1 (strict f32: the shards' sums run
 # in another order): the losses and the pre-clip norms within PAR_REL; each
 # parameter moves lr * sign(g) in Adam's first step, so the two worlds
 # differ only where a gradient's sign is a rounding coin toss: at most
 # PAR_MOVED of the entries by more than 2e-3 * lr
 PAR_REL, PAR_MOVED = 1e-4, 1e-3
+
+
+def seq_collectives_per_call(est, t) -> int:
+    """The seq axis's collectives in one estimator call over T global frames
+    (models/unet.py's sharded forms, each site's route taken at the global
+    frames): 4 a K1 block (halos of x and h, two tile-sum gathers), 4 a
+    plain-Blocks block (two halos, two statistics sums), 4 a flat block
+    (two halos, two statistics sums) and 2 more with int8 (K7's maxima of
+    its two convs), 1 a K4 attention (its partials), 2 a plain attention
+    (the key maxima, then the sums with the context), 1 a Downsample or
+    Upsample (its halo), 2 the final block (a halo and the tile sums)."""
+    from unitspeech_tpu_torch.models.unet import PALLAS_MIN_TOKENS
+    from unitspeech_tpu_torch.ops import fused_attention
+
+    n = len(est.dims)
+    stages = [(f"down_{i}_{r}", i) for i in range(n) for r in ("res1", "res2")]
+    stages += [("mid_res1", n - 1), ("mid_res2", n - 1)]
+    stages += [(f"up_{i}_{r}", i + 1) for i in range(n - 1) for r in ("res1", "res2")]
+    per_route = {"k1": 4, "blocks": 4, "flat": 6 if est.use_int8_deep else 4}
+    total = 0
+    for name, level in stages:
+        f = -(-est.n_feats // 2 ** level)
+        total += per_route[getattr(est, name).route(t >> level, f, est.use_kernels,
+                                                     est.use_int8_deep)]
+    attn = [i for i in range(n)] + [n - 1] + [i + 1 for i in range(n - 1)]
+    for level, c in zip(attn, est.dims + [est.dims[-1]] + est.dims[:-1]):
+        tokens = (t >> level) * -(-est.n_feats // 2 ** level)
+        total += 1 if (est.use_kernels and tokens >= PALLAS_MIN_TOKENS
+                       and fused_attention.takes(c)) else 2
+    return total + 2 * (n - 1) + 2
+
+
+def _seq_kernel_checks(torch, dev, shard):
+    """At world 2, on this rank's slice of the 344-frame sites: the halo'd
+    kernel A (us_resnet_conv3x3_halo) against its plain twin on the same
+    halo'd input, K1's and K2's sharded chains and the split K4 against the
+    unsharded plain versions on the whole input (every rank draws the same
+    global tensors), this rank's frames kept. The bf16 outputs within
+    BF16_REL of max(|ref|, 1), the tile sums within F32_REL. Returns the
+    errors by site."""
+    from unitspeech_tpu_torch.ops import conv_matmul, fused_attention, fused_resnet
+    from unitspeech_tpu_torch.utils.precision import strict_f32
+
+    gen = torch.Generator(device=dev).manual_seed(PAR_SEED + 3)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def held(what, got, want, rel):
+        err = (got.float() - want.float()).abs().max().item()
+        tol = rel * max(want.float().abs().max().item(), 1.0)
+        if not (np.isfinite(err) and err <= tol):
+            raise AssertionError(f"seq {what}: {err} exceeds {tol}")
+        out[what] = err
+
+    out = {}
+    top = shard.at(FRAMES)
+    bf16 = torch.bfloat16
+    with strict_f32():  # the plain versions' f32 convs and products without TF32
+        for level, f, cin, cout in ((0, 80, 2, 128), (0, 80, 128, 128), (1, 40, 128, 256)):
+            sl = top.down() if level else top
+            t = sl.t
+            mask = _lens_mask(torch, t, dev)
+            lens = fused_resnet.lens_rows_from_mask(mask, f)
+            x = rand(3, t, f, cin).to(bf16)
+            p = dict(t_bias=rand(3, cout), w1=rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5),
+                     b1=rand(cout, scale=0.1), gn1_scale=1 + rand(cout, scale=0.1),
+                     gn1_bias=rand(cout, scale=0.1),
+                     w2=rand(3, 3, cout, cout, scale=(9 * cout) ** -0.5),
+                     b2=rand(cout, scale=0.1), gn2_scale=1 + rand(cout, scale=0.1),
+                     gn2_bias=rand(cout, scale=0.1))
+            if cin != cout:
+                p.update(wres=rand(1, 1, cin, cout, scale=cin ** -0.5),
+                         bres=rand(cout, scale=0.1))
+            packed = fused_resnet.pack_block_weights(p["w1"], p["w2"], p.get("wres"))
+            site = f"F={f} T={t} {cin}->{cout}"  # the global site; each rank its slice
+            args = fused_resnet.block_rows_args(
+                x, mask, p["t_bias"], p["w1"], p["b1"], p["gn1_scale"], p["gn1_bias"], p["w2"],
+                p["b2"], p["gn2_scale"], p["gn2_bias"], p.get("wres"), p.get("bres"))
+            want = fused_resnet.resnet_block_plain(*args, f=f, groups=8).reshape(3, t, f, cout)
+            got = fused_resnet.fused_resnet_block(sl.take(x), sl.take(mask), groups=8,
+                                                  packed=packed, seq=sl, **p)
+            held(f"K1 chain {site}", got, sl.take(want), BF16_REL)
+            xl = sl.take(x).reshape(3, sl.length * f, cin)
+            ll = fused_resnet.lens_rows_from_mask(sl.take(mask), f)
+            xh = conv_matmul.halo_rows(xl, f, sl, ll)
+            w1r = p["w1"].reshape(9 * cin, cout)
+            c, part = fused_resnet.resnet_conv3x3_halo(xh, ll, w1r, p["b1"], f, packed[0])
+            c_ref, part_ref = fused_resnet.resnet_conv3x3_halo_plain(xh, ll, w1r, p["b1"], f)
+            held(f"kernel A (halo) {site}", c, c_ref, BF16_REL)
+            held(f"kernel A (halo) sums {site}", part.sum(dim=1), part_ref.sum(dim=1), F32_REL)
+        t, f, c = FRAMES, 80, 128
+        x = rand(3, t, f, c).to(bf16)
+        mask = _lens_mask(torch, t, dev)
+        w1, b1 = rand(3, 3, c, c, scale=(9 * c) ** -0.5), rand(c, scale=0.1)
+        s1, be1 = 1 + rand(c, scale=0.1), rand(c, scale=0.1)
+        wo, bo = rand(1, 1, c, 1, scale=c ** -0.5), rand(1, scale=0.1)
+        want = fused_resnet.final_block_plain(
+            x.reshape(3, t * f, c), fused_resnet.lens_rows_from_mask(mask, f),
+            w1.reshape(9 * c, c), b1, s1, be1, wo.reshape(c), bo, f=f, groups=8)
+        got = fused_resnet.fused_final_block(top.take(x), top.take(mask), w1, b1, s1, be1, wo,
+                                             bo, groups=8, seq=top,
+                                             packed=fused_resnet.pack_conv_weight(w1))
+        held(f"K2 chain F={f} T={t} {c}->1", got,
+             top.take(want.reshape(3, t, f)), BF16_REL)
+        for level, f, c in ((0, 80, 128), (2, 20, 512)):
+            sl = top.down().down() if level else top
+            t = sl.t
+            x = rand(3, t, f, c).to(bf16)
+            w_qkv, w_out = rand(c, 384, scale=c ** -0.5), rand(128, c, scale=128 ** -0.5)
+            b_out, gate = rand(c, scale=0.1), torch.tensor([0.7], device=dev)
+            lens = fused_resnet.lens_rows_from_mask(_lens_mask(torch, t, dev), f)
+            want = fused_attention.rezero_attention_plain(x.reshape(3, t * f, c), w_qkv, w_out,
+                                                          b_out, gate, lens, 4, 32)
+            ll = torch.clamp(lens - sl.start * f, 0, sl.length * f).to(torch.int32)
+            got = fused_attention.fused_rezero_attention(
+                sl.take(x).reshape(3, sl.length * f, c), w_qkv, w_out, b_out, gate, ll,
+                packed=fused_attention.pack_attention_weights(w_qkv, w_out), seq=sl)
+            held(f"K4 split N={t * f} C={c}", got,
+                 sl.take(want.reshape(3, t, f, c)).reshape(3, sl.length * f, c), BF16_REL)
+    return out
+
+
+def _seq_rank(torch, dev, ckpt, world, rank, d, tag):
+    """The seq-sharded requests of one rank: a forced FRAMES-frame request on
+    each of SEQ_MODES x SEQ_SAMPLERS through a Synthesizer on a (data 1, seq
+    = world) mesh with sample_spec (None, "seq", None), once to warm up,
+    then counted (the estimator kernels' launches and the seq axis's
+    collectives, every counter set to 0 just before) and timed; at world 1
+    also the same request without a mesh (must be equal bit for bit). Rank
+    0 writes each mel to <tag>_seq_<mode>_<sampler>.npy. At world 2 first
+    the kernel checks (_seq_kernel_checks)."""
+    from unitspeech_tpu_torch.config import MainConfig
+    from unitspeech_tpu_torch.infer.tts import Synthesizer, TTSModels, forced_durations
+    from unitspeech_tpu_torch.ops import fused_attention, fused_resnet, row_stats
+    from unitspeech_tpu_torch.parallel import SeqShard, make_mesh
+    from unitspeech_tpu_torch.text import phonemes_to_sequence
+
+    wrappers = {"fused_resnet_block": fused_resnet.fused_resnet_block,
+                "fused_final_block": fused_resnet.fused_final_block,
+                "row_stats": row_stats.row_stats,
+                "fused_rezero_attention": fused_attention.fused_rezero_attention,
+                "row_absmax": row_stats.row_absmax}
+    mesh = make_mesh(data=1, seq=world)
+    rec = {"split": [list(b) for b in SeqShard.of(mesh).split(FRAMES)] if world > 1 else None}
+    if world > 1:
+        rec["kernels"] = _seq_kernel_checks(torch, dev, SeqShard.of(mesh))
+    cfg = MainConfig()
+    q = phonemes_to_sequence(FORCED_TEXT)
+    rng = np.random.default_rng(PAR_SEED + 2)
+    shape = (1, FRAMES, cfg.data.n_feats)
+    noise = {"noise_z": torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev),
+             "noises": torch.from_numpy(rng.standard_normal(
+                 (SEQ_STEPS,) + shape).astype(np.float32)).to(dev)}
+    runs = {}
+    for mode, routes in SEQ_MODES.items():
+        models = TTSModels.from_checkpoint(ckpt, device=dev, **routes)
+        synth = Synthesizer(models, mesh=mesh, sample_spec=(None, "seq", None))
+        want = seq_collectives_per_call(models.decoder.estimator, FRAMES)
+        for sampler in SEQ_SAMPLERS:
+            kw = dict(diffusion_steps=SEQ_STEPS, text_gradient_scale=1.0, spk_gradient_scale=1.0,
+                      durations=forced_durations(len(q), FRAMES), sampler=sampler, **noise)
+            with torch.inference_mode():
+                synth.synthesize_mel(q, **kw)
+                for w in wrappers.values():
+                    w.launches = 0
+                SeqShard.collectives = 0
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                mel, y_len, _ = synth.synthesize_mel(q, **kw)
+                torch.cuda.synchronize(dev)
+                wall = (time.perf_counter() - t0) * 1e3
+                run = {"wall_ms": wall, "y_length": y_len,
+                       "launches": {k: w.launches for k, w in wrappers.items()},
+                       "collectives": SeqShard.collectives,
+                       "collectives_want": (SEQ_STEPS * want + 1) if world > 1 else 0,
+                       "finite": bool(torch.isfinite(mel).all())}
+                if world == 1:
+                    alone = Synthesizer(models).synthesize_mel(q, **kw)[0]
+                    run["equal_unsharded"] = bool(torch.equal(alone, mel))
+                    if rank == 0 and mode == "bf16" and sampler == "ddpm":
+                        # the request's sensitivity: its prior draw moved by
+                        # at most one f32 ulp
+                        nudged = dict(kw, noise_z=noise["noise_z"] * (1 + 2.0 ** -23))
+                        np.save(os.path.join(d, f"{tag}_seq_nudged.npy"),
+                                synth.synthesize_mel(q, **nudged)[0][0].float().cpu().numpy())
+            if rank == 0:
+                np.save(os.path.join(d, f"{tag}_seq_{mode}_{sampler.replace(':', '_')}.npy"),
+                        mel[0].float().cpu().numpy())
+            runs[f"{mode} {sampler}"] = run
+        del models, synth
+        torch.cuda.empty_cache()
+    rec["runs"] = runs
+    return rec
 
 
 def _parallel_rank(rank, world, d, backend, tag):
@@ -3546,6 +3759,11 @@ def _parallel_rank(rank, world, d, backend, tag):
     rec["wav_finite"] = bool(all(np.isfinite(w).all() and np.any(w) for w, _ in wavs))
     del models, synth, mel, wavs
     torch.cuda.empty_cache()
+
+    # the sequence-sharded sampler (every rank on the seq axis)
+    t0 = time.perf_counter()
+    rec["seq"] = _seq_rank(torch, dev, ckpt, world, rank, d, tag)
+    rec["seq"]["seconds"] = time.perf_counter() - t0
 
     # speaker-per-rank adaptation (world 1: the speakers one after another)
     t_y, t_x = FRAMES, FRAMES // 4
@@ -3697,6 +3915,45 @@ def parallel(torch, dev, tmp, ckpt_path, per_call, smi):
             len(u1.splitlines()) != PAR_WAVS or any(r["transcribe"]["rc"] for r in [one] + two):
         raise AssertionError(f"parallel finetune / transcription: {ft_equal}, {u1!r}, {u2!r}")
 
+    # the sequence-sharded sampler
+    seq1, seq2 = one["seq"], [r["seq"] for r in two]
+    for name in seq2[0]["kernels"]:
+        print(f"  seq-sharded {name} vs its plain version: max_abs_err "
+              f"{max(s['kernels'][name] for s in seq2):.3e} (the larger of the ranks'); "
+              f"{smi}", flush=True)
+    seq_bounds = {}
+    for key, r1 in seq1["runs"].items():
+        mode = key.split()[0]
+        want = {k: SEQ_STEPS * per_call[mode][k] for k in SEQ_KERNELS}
+        want["fused_rezero_attention"] = SEQ_STEPS * _k4_per_call(cfg, FRAMES)
+        for r in [r1] + [s["runs"][key] for s in seq2]:
+            got = {k: r["launches"][k] for k in SEQ_KERNELS}
+            if got != want or r["collectives"] != r["collectives_want"] or \
+                    r["y_length"] != FRAMES or not r["finite"]:
+                raise AssertionError(f"seq {key}: launches {got} (expected {want}), collectives "
+                                     f"{r['collectives']} (expected {r['collectives_want']})")
+        if not r1["equal_unsharded"]:
+            raise AssertionError(f"seq {key}: the seq = 1 mesh's mel differs from the "
+                                 f"unsharded request's")
+        tag_k = key.replace(" ", "_").replace(":", "_")
+        m1, m2 = (np.load(os.path.join(d, f"{t}_seq_{tag_k}.npy")) for t in ("w1", "w2"))
+        if key == "bf16 ddpm":
+            nudged = np.load(os.path.join(d, "w1_seq_nudged.npy"))
+            span = float(m1.max() - m1.min())
+            diff = np.abs(nudged - m1)
+            seq_bounds["bf16 ddpm, world 1, prior nudged one f32 ulp"] = {
+                "mel_l1": float(diff.mean()) / span, "mel_max": float(diff.max()) / span}
+            print(f"  seq {key}: world 1 with its prior draw moved by one f32 ulp: mel L1 "
+                  f"{float(diff.mean()) / span:.3e}, max |diff| {float(diff.max()) / span:.3e} "
+                  f"of the range (the request's own sensitivity)", flush=True)
+        seq_bounds[key] = _mel_bounds(f"seq {key}, world 2 ({seq2[0]['split']}) vs world 1",
+                                      m2, m1)
+        print(f"  seq {key}: {SEQ_STEPS} steps, launches a request {want} on every rank; "
+              f"collectives a request {seq2[0]['runs'][key]['collectives']} (= {SEQ_STEPS} x "
+              f"the per-call formula + 1 gather); wall {r1['wall_ms']:.1f} ms at world 1, "
+              f"{[round(s['runs'][key]['wall_ms'], 1) for s in seq2]} ms a rank at world 2; "
+              f"{smi}", flush=True)
+
     res = {"groups": {t: {"world": len(rs), "backend": rs[0]["backend"],
                           "wall_s": walls[t], "rank_s": [r["seconds"] for r in rs]}
                       for t, rs in recs.items()},
@@ -3705,6 +3962,15 @@ def parallel(torch, dev, tmp, ckpt_path, per_call, smi):
            "batch_wall_ms": {t: [r["batch_wall_ms"] for r in rs] for t, rs in recs.items()},
            "finetune_s": {t: [r["finetune_s"] for r in rs] for t, rs in recs.items()},
            "dp_rel": rel, "dp_params_far": far, "dp_params_max": most, "mel": bounds,
+           "seq": {"split": seq2[0]["split"], "mel": seq_bounds,
+                   "kernels": {k: max(s["kernels"][k] for s in seq2)
+                               for k in seq2[0]["kernels"]},
+                   "wall_ms": {t: {k: [s["runs"][k]["wall_ms"] for s in ss]
+                                   for k in seq1["runs"]}
+                               for t, ss in (("w1", [seq1]), ("w2", seq2))},
+                   "collectives": {k: seq2[0]["runs"][k]["collectives"] for k in seq1["runs"]},
+                   "seconds": {t: [s["seconds"] for s in ss]
+                               for t, ss in (("w1", [seq1]), ("w2", seq2))}},
            "launches_rank0": two[0]["batch_launches"], "card": smi,
            "phase_s": time.perf_counter() - t_phase}
     print(f"  DP step ms a rank: {res['dp_step_ms']}; all-reduce share of a profiled step: "
@@ -3829,14 +4095,25 @@ def main(argv=None) -> int:
     breakdown = kernel_breakdown.breakdown(dev)
     check_launch_counts(breakdown)
 
+    stamps = {}
+
+    def stamp(name):
+        """The script's elapsed seconds after each phase (its time limit)."""
+        stamps[name] = time.perf_counter() - t0
+        print(f"[{name} done at {stamps[name]:.1f} s]", flush=True)
+
+    stamp("kernel checks")
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, launches = serve(torch, tmp, per_call)
         paths = compare_paths(torch, dev, ckpt, per_call)
         paths["long_bucket"] = long_bucket(torch, dev, ckpt, per_call)
+        stamp("serve and paths")
         adapted, adapted_launches = adapt(torch, dev, tmp, ckpt, per_call, smi)
         front, launches["grapheme"] = frontends(torch, dev, tmp, ckpt, per_call, smi)
+        stamp("adapt and frontends")
         voice = voice_and_samplers(torch, dev, tmp, ckpt, adapted["finetune"]["output"],
                                    per_call, smi)
+        stamp("voice and samplers")
         served = serving(torch, dev, tmp, ckpt, per_call, smi)
         trained, m1, launches["trained"], launches["train"] = train(torch, dev, tmp, ckpt,
                                                                    per_call, smi)
@@ -3846,14 +4123,18 @@ def main(argv=None) -> int:
         gan, launches["gan_served"] = vocoder_gan(torch, dev, tmp, ckpt, corpus, per_call, smi)
         evaluated, launches["eval"] = evaluation(torch, dev, tmp, ckpt, corpus, per_call, smi)
         extra, launches["extras"] = extras(torch, dev, tmp, smi)
+        stamp("serving to extras")
         ops, ops_res, ops_launches = operator_tools(torch, dev, tmp, ckpt, smi)
+        stamp("operator tools")
         par = parallel(torch, dev, tmp, ckpt, per_call, smi)
+        stamp("parallel")
     launches.update(ops_launches)
     launches["parallel_rank0"] = {k: par["launches_rank0"].get(k, 0) for k in KERNELS}
     records += m1
     launches["adapted"] = adapted_launches
     tool_launches, tools = run_tools()
     launches.update(tool_launches)
+    stamp("tools")
 
     kernels = kernels_line(records, launches)
     if args.out:
@@ -3862,7 +4143,7 @@ def main(argv=None) -> int:
             json.dump({"card": smi, "records": records, "paths": paths, "adapt": adapted,
                        "frontends": front, "voice": voice, "serving": served,
                        "train": trained, "train2": trained2, "vocoder_gan": gan,
-                       "eval": evaluated, "extras": extra,
+                       "eval": evaluated, "extras": extra, "elapsed_s": stamps,
                        "operator_tools": {"summary": ops, "results": ops_res},
                        "parallel": par,
                        "kernels": kernels,

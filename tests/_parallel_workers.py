@@ -1,4 +1,5 @@
-"""The ranks of tests/test_torch_port_parallel.py's multi-rank cases. Each
+"""The ranks of tests/test_torch_port_parallel.py's and
+tests/test_torch_port_seq.py's multi-rank cases. Each
 function runs in a spawned process (parallel.run_group) as one rank of a
 gloo process group on the CPU, joined through a file under the case's
 directory (no port to fight over between test workers), on one torch
@@ -13,12 +14,14 @@ import sys
 import torch
 
 
-def _join(rank, world, d):
+def _join(rank, world, d, data=None):
+    """This process as rank `rank`; the mesh: every rank on data, or `data`
+    ranks on data and the rest of the world on seq."""
     torch.set_num_threads(1)
     from unitspeech_tpu_torch.parallel import make_mesh, maybe_initialize_distributed
 
     assert maybe_initialize_distributed(f"file://{d}/init", world, rank, cpu=True)
-    return make_mesh()
+    return make_mesh() if data is None else make_mesh(data=data, seq=world // data)
 
 
 def _done(rank, d, out):
@@ -134,7 +137,7 @@ def finetune(rank, world, d):
 
 def sampling(rank, world, d):
     """reverse_diffusion and the Synthesizer's batch paths, data-sharded
-    over the mesh; a spec naming 'seq' must raise."""
+    over the mesh; a spec naming 'model' must raise."""
     from unitspeech_tpu_torch.infer.tts import Synthesizer, TTSModels
     from unitspeech_tpu_torch.models.diffusion import UnitSpeech, reverse_diffusion
 
@@ -150,9 +153,9 @@ def sampling(rank, world, d):
     batch_mel, y_lengths = synth.synthesize_mel_batch(x["seqs"], **x["synth_kw"])
     wavs = synth.synthesize_batch(x["seqs"], **x["synth_kw"])
     refused = []
-    for call in (lambda: Synthesizer(synth.models, mesh=mesh, sample_spec=(None, "seq", None)),
+    for call in (lambda: Synthesizer(synth.models, mesh=mesh, sample_spec=(None, "model", None)),
                  lambda: reverse_diffusion(dec, *x["sampler_args"], mesh=mesh,
-                                           sample_spec=("data", "seq", None), **x["sampler_kw"])):
+                                           sample_spec=("data", "model", None), **x["sampler_kw"])):
         try:
             call()
             refused.append(None)
@@ -160,6 +163,231 @@ def sampling(rank, world, d):
             refused.append(str(e))
     _done(rank, d, {"mel": mel, "batch_mel": batch_mel, "y_lengths": y_lengths,
                     "wavs": [w for w, _ in wavs], "refused": refused})
+
+
+def seq_primitives(rank, world, d):
+    """The seq axis's pieces on this rank's frames of the case's global
+    tensors (every rank on seq): the split, halos (with and without a mask,
+    one or both sides), the gather, an uneven cat and the draws; at world 2
+    also the sharded plain forms (group_mean_inv, the flat bf16 and int8
+    convs and the int8 scale, K4's merged partials, K1's and K2's chains),
+    each beside the unsharded function on the whole tensor. Saves (got,
+    want) pairs by name."""
+    from unitspeech_tpu_torch.ops import conv_matmul, fused_attention, fused_resnet, row_stats
+    from unitspeech_tpu_torch.parallel import SeqShard
+
+    mesh = _join(rank, world, d, data=1)
+    x = _inputs(d)
+    shard = SeqShard.of(mesh)
+    t = x["T"]
+    fs = shard.at(t)
+    z = x["z"]  # (B, T, F, C)
+    b, _, f, c = z.shape
+    m = x["mask"]  # (B, T)
+    pad = torch.nn.functional.pad
+    pairs = {"split": (torch.tensor(fs.bounds), torch.tensor(x["bounds"]))}
+    for before, after in ((1, 1), (1, 0), (2, 1)):
+        full = pad(z, (0, 0, 0, 0, before, after))
+        pairs[f"halo {before} {after}"] = (
+            fs.halo(fs.take(z), before, after),
+            full[:, fs.start:fs.start + fs.length + before + after])
+    zm = z * m[:, :, None, None]
+    full = pad(zm, (0, 0, 0, 0, 1, 1))
+    got = fs.halo(fs.take(z), mask=fs.take(m))
+    pairs["halo masked edges"] = (got[:, [0, -1]],
+                                  full[:, [fs.start, fs.start + fs.length + 1]])
+    pairs["gather"] = (fs.gather(fs.take(z)), z)
+    sizes = [r + 1 for r in range(world)]
+    part = torch.full((2, sizes[rank], 3), float(rank + 1))
+    pairs["cat"] = (fs.cat(part, sizes), torch.cat([torch.full((2, n, 3), float(r + 1))
+                                                   for r, n in enumerate(sizes)], dim=1))
+    g0, g1 = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
+    pairs["randn"] = (fs.randn((b, fs.length, f), g0), fs.take(torch.randn((b, t, f),
+                                                                           generator=g1)))
+    pairs["down"] = (torch.tensor([fs.down().t, fs.down().start, fs.down().length]),
+                     torch.tensor([t // 2, fs.start // 2, fs.length // 2]))
+    if world == 2:
+        rows = z.reshape(b, t * f, c)
+        loc = fs.take(z).reshape(b, fs.length * f, c)
+        pairs["group_mean_inv"] = (torch.stack(row_stats.group_mean_inv(loc, 4, seq=fs)),
+                                   torch.stack(row_stats.group_mean_inv(rows, 4)))
+        w = x["w"]
+        want = conv_matmul.conv3x3_rows(rows.to(torch.bfloat16), w, f)
+        pairs["conv3x3_rows bf16"] = (conv_matmul.conv3x3_rows(loc.to(torch.bfloat16), w, f,
+                                                               seq=fs),
+                                      fs.take(want.reshape(b, t, f, -1)).reshape(want.shape[0],
+                                                                                -1, w.shape[-1]))
+        want = conv_matmul.conv3x3_int8(rows, w, f)
+        pairs["conv3x3_int8"] = (conv_matmul.conv3x3_int8(loc, w, f, seq=fs),
+                                 fs.take(want.reshape(b, t, f, -1)).reshape(b, -1, w.shape[-1]))
+        pairs["int8 scale"] = (conv_matmul.quantize_activation(loc, seq=fs)[1],
+                               conv_matmul.quantize_activation(rows)[1])
+        lens = x["lens"] * f  # valid rows of the whole sequence
+        ll = torch.clamp(lens - fs.start * f, 0, fs.length * f).to(torch.int32)
+        a = x["attn"]
+        want = fused_attention.rezero_attention_plain(rows, *a, lens, 4, 32)
+        pairs["K4 merged partials"] = (
+            fused_attention.fused_rezero_attention(loc, *a, ll, seq=fs),
+            fs.take(want.reshape(b, t, f, c)).reshape(b, -1, c))
+        for name, p in x["blocks"].items():
+            cin = p["w1"].shape[2]
+            xin = z[..., :cin].reshape(b, t * f, cin)
+            xl = fs.take(z[..., :cin]).reshape(b, fs.length * f, cin)
+            args = (p["t_bias"], p["w1"].reshape(9 * cin, -1), p["b1"], p["s1"], p["be1"],
+                    p["w2"].reshape(-1, p["w2"].shape[-1]), p["b2"], p["s2"], p["be2"],
+                    p["wres"], p["bres"])
+            want = fused_resnet.resnet_block_plain(xin, lens, *args, f=f, groups=4)
+            got = fused_resnet.resnet_block_seq(xl, ll, *args, f=f, groups=4, seq=fs)
+            pairs[f"K1 chain {name}"] = (got, fs.take(want.reshape(b, t, f, -1)).reshape(
+                got.shape))
+        p = x["final"]
+        want = fused_resnet.final_block_plain(rows, lens, p["w1"].reshape(9 * c, -1), p["b1"],
+                                              p["s1"], p["be1"], p["wo"], p["bo"], f=f, groups=4)
+        got = fused_resnet.final_block_seq(loc, ll, p["w1"].reshape(9 * c, -1), p["b1"],
+                                           p["s1"], p["be1"], p["wo"], p["bo"], f=f, groups=4,
+                                           seq=fs)
+        pairs["K2 chain"] = (got, fs.take(want.reshape(b, t, f)).reshape(got.shape))
+    pairs["collectives"] = (torch.tensor(SeqShard.collectives), torch.tensor(-1))
+    _done(rank, d, {"pairs": pairs})
+
+
+class _StubLib:
+    """The CUDA library's stand-in: every launch returns 0 (success); the
+    tile and chunk counts the wrappers allocate by are 1."""
+
+    def __getattr__(self, name):
+        return lambda *a: 1 if name.endswith(("_chunks", "_tiles")) else 0
+
+
+def _route_stand_ins(calls):
+    """Each kernel wrapper, the K3 statistics and the int8 conv the
+    estimator calls run their CUDA branch first against the stub library
+    (their argument checks raise on what the kernels do not take; the seq
+    collectives run as on the card), then their plain version, whose result
+    they return; calls logs (name, input width, whether it was given a
+    frame slice). Returns the undo function."""
+    from unitspeech_tpu_torch.models import unet
+    from unitspeech_tpu_torch.ops import _cuda
+
+    saved = []
+
+    def patch(mod, name, value):
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, value)
+
+    def launch_branch():
+        def require(t, what, dtype=None, shape=None, device=None):
+            if dtype is not None and t.dtype != dtype:
+                raise ValueError(f"{what}: dtype {t.dtype}, expected {dtype}")
+            if shape is not None and tuple(t.shape) != tuple(shape):
+                raise ValueError(f"{what}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+            return t
+
+        old = {k: getattr(_cuda, k) for k in ("route", "lib", "require", "stream")}
+        _cuda.route, _cuda.lib = (lambda x, what: True), (lambda: _StubLib())
+        _cuda.require, _cuda.stream = require, (lambda x: None)
+        return lambda: [setattr(_cuda, k, v) for k, v in old.items()]
+
+    for name in ("fused_resnet_block", "fused_final_block", "fused_rezero_attention",
+                 "group_mean_inv", "conv3x3_int8"):
+        real = getattr(unet, name)
+
+        def stand_in(x, *a, _real=real, _name=name, **kw):
+            if _name in ("fused_resnet_block", "fused_final_block", "fused_rezero_attention",
+                         "group_mean_inv"):
+                undo = launch_branch()
+                try:
+                    _real(x, *a, **kw)
+                finally:
+                    undo()
+            calls.append((_name, x.shape[-1], kw.get("seq") is not None))
+            return _real(x, *a, **kw)
+
+        patch(unet, name, stand_in)
+    return lambda: [setattr(m, n, v) for m, n, v in reversed(saved)]
+
+
+def seq_sampling(rank, world, d):
+    """Every rank on seq: reverse_diffusion (dual guidance, injected noise;
+    and at the guidance stride with JAX's fold_in draws) and
+    reverse_diffusion_ode (with and without the stride) through the mesh
+    with sample_spec (None, "seq", None); then one call of the case's
+    route estimator (every kernel switch that takes a seq slice, int8 on)
+    on this rank's frames under the route stand-ins, rank 0 also without a
+    slice; the rezero attention's gate at the global tokens; the spec naming
+    'model' and a seq slice on the fused deep configuration must raise."""
+    from unitspeech_tpu_torch.models.diffusion import (
+        UnitSpeech,
+        reverse_diffusion,
+        reverse_diffusion_ode,
+    )
+    from unitspeech_tpu_torch.models.unet import GradLogPEstimator2d
+    from unitspeech_tpu_torch.parallel import SeqShard
+
+    mesh = _join(rank, world, d, data=1)
+    x = _inputs(d)
+    dec = UnitSpeech(**x["DEC"], use_kernels=True)
+    dec.load_state_dict(x["dec_state"])
+    dec.eval()
+    args, kw = x["sampler_args"], x["sampler_kw"]
+    spec = (None, "seq", None)
+    mels = {
+        "ddpm": reverse_diffusion(dec, *args, noises=x["noises"], mesh=mesh, sample_spec=spec,
+                                  **kw),
+        "ddpm:cs2": reverse_diffusion(dec, *args, noises=x["fold_in_noises"], cfg_stride=2,
+                                      mesh=mesh, sample_spec=spec, **kw),
+        "dpm2": reverse_diffusion_ode(dec, *args, mesh=mesh, sample_spec=spec, **kw),
+        "dpm2:cs2": reverse_diffusion_ode(dec, *args, cfg_stride=2, mesh=mesh,
+                                          sample_spec=spec, **kw)}
+    est = GradLogPEstimator2d(**x["ROUTE_EST"], use_kernels=True, use_int8_deep=True)
+    est.load_state_dict(x["route_state"])
+    xs, mask, mu, t, spk = x["route_args"]
+    fs = SeqShard.of(mesh).at(xs.shape[1])
+    calls = []
+    undo = _route_stand_ins(calls)
+    try:
+        with torch.no_grad():
+            SeqShard.collectives = 0
+            local = est(fs.take(xs), fs.take(mask), fs.take(mu), t, spk, seq=fs)
+            n_coll = SeqShard.collectives
+            score = fs.gather(local)
+    finally:
+        undo()
+    whole = None
+    if rank == 0:
+        with torch.no_grad():
+            whole = est(xs, mask, mu, t, spk)
+    attn = est.down_0_attn
+    h = xs.new_zeros((1, fs.length, xs.shape[2], est.dims[0]))
+    gate = {"global": attn.uses_kernel(h, True, fs), "local": attn.uses_kernel(h, True),
+            "local_tokens": h.shape[1] * h.shape[2]}
+    refused = []
+    deep = GradLogPEstimator2d(**x["ROUTE_EST"], use_kernels=True, use_deep=True)
+    for call in (lambda: reverse_diffusion(dec, *args, mesh=mesh, sample_spec=(None, "model",
+                                                                               None), **kw),
+                 lambda: deep(fs.take(xs), fs.take(mask), fs.take(mu), t, spk, seq=fs)):
+        try:
+            call()
+            refused.append(None)
+        except NotImplementedError as e:
+            refused.append(str(e))
+    _done(rank, d, {"mels": mels, "calls": calls, "score": score, "whole": whole,
+                    "collectives": n_coll, "gate": gate, "refused": refused})
+
+
+def seq_synthesis(rank, world, d):
+    """A (data 2, seq world / 2) mesh: the Synthesizer's batch paths with
+    sample_spec ("data", "seq", None)."""
+    from unitspeech_tpu_torch.infer.tts import Synthesizer, TTSModels
+
+    mesh = _join(rank, world, d, data=2)
+    x = _inputs(d)
+    synth = Synthesizer(TTSModels.from_checkpoint(x["ckpt"], device="cpu", dtype=torch.float32,
+                                                  use_kernels=True), mesh=mesh,
+                        sample_spec=("data", "seq", None))
+    mel, y_lengths = synth.synthesize_mel_batch(x["seqs"], **x["synth_kw"])
+    wavs = synth.synthesize_batch(x["seqs"], **x["synth_kw"])
+    _done(rank, d, {"mel": mel, "y_lengths": y_lengths, "wavs": [w for w, _ in wavs]})
 
 
 def transcribe(rank, world, d, argv):

@@ -617,7 +617,8 @@ def test_data_sharded_sampling_and_synthesize_batch_match_jax(slice_pair, tmp_pa
     encode + _align_and_sample on the data = 2 mesh + vocoder (JAX's
     synthesize_batch takes no noise): the lengths equal, the mel within
     the mel tolerance and each waveform within 5e-3; the port at world 1
-    gives the same rows. A spec naming 'seq' raises NotImplementedError."""
+    gives the same rows. A spec naming 'model' raises NotImplementedError
+    (the seq axis has its own cases: tests/test_torch_port_seq.py)."""
     jsynth, ckpt = slice_pair
     rng = np.random.default_rng(3)
     b, t, f = 4, 16, N_FEATS

@@ -183,7 +183,8 @@ class UnitExtractorConfig:
 class MeshConfig:
     """The device mesh's layout (JAX config.py MeshConfig; the reference is
     single-GPU): data (data parallelism over the batch), seq (sharding over
-    the mel frames, not ported yet: parallel/mesh.py QUEUED)."""
+    the mel frames: parallel/mesh.py SeqShard, slices of whole 8-frame
+    pieces with halos at every 3x3 conv)."""
 
     data: int = 1
     seq: int = 1

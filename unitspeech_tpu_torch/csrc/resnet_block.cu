@@ -93,6 +93,16 @@
 // conv1 and its 1x1 residual, with the raw (taps*Cin, Cout) bf16 weights.
 // Its GEMM is 0.4 GFLOP a call.
 //
+// On a frame slice of the seq axis (ops/fused_resnet.py, the sharded
+// chain) kernels A and B read a halo'd input (us_resnet_conv3x3_halo): T + 2
+// frames a batch element, the neighbours' edge frames around the slice's T
+// (zeros at the global ends, masked by the sender). The tile plan is the
+// interior T's, the box starts one frame later (the halo frame stands
+// where the zero fill was), `lens` masks the interior rows only, and the
+// epilogue writes and sums the T interior frames: the statistics count
+// each global frame once. gn_film and the final tail take the global row
+// count (n_rows) of the tile sums the host gathered from every rank.
+//
 // K10a's int8 convs (us_resnet_conv3x3_i8_tiles; csrc/resnet_block_i8.cu)
 // run conv_tc with I8 in its tiled-input mode: the input is a per-TPU-tile
 // quantized copy (B, n_tiles, fpt + 2, F, Cp) int8 that holds each tile's
@@ -125,16 +135,21 @@ struct ConvArgs {
   bf16* out;    // (B, N, Cout)
   float* part;  // (B, n_mtiles, 2, Cout)
   int N, F, Cin, Cout;
+  int hin;      // 1: x holds a halo frame on each side ((N / F + 2) * F rows)
 };
 
+// The input row that output row m's tap reads, or -1 for a zero: outside
+// the (T, F) grid (the halo frames -1 and T count as inside with hin) or an
+// interior row at/after the length.
 template <int TAPS>
-__device__ __forceinline__ int source_row(int m, int tap, int T, int F) {
-  if (TAPS == 1) return m;
+__device__ __forceinline__ int source_row(int m, int tap, int T, int F, int len, int hin) {
+  if (TAPS == 1) return m < len ? m : -1;
   int dt = tap / 3 - 1, df = tap % 3 - 1;
   int t = m / F, f = m - t * F;
   int tt = t + dt, ff = f + df;
-  if (tt < 0 || tt >= T || ff < 0 || ff >= F) return -1;
-  return tt * F + ff;
+  if (tt < -hin || tt >= T + hin || ff < 0 || ff >= F) return -1;
+  if (tt >= 0 && tt < T && tt * F + ff >= len) return -1;
+  return (tt + hin) * F + ff;
 }
 
 // TAPS: 9 (conv3x3) or 1 (1x1 residual). EPI: 0 writes bias-added output +
@@ -155,7 +170,7 @@ __global__ void __launch_bounds__(IG_THREADS) conv_gemm(ConvArgs p) {
   const int len = p.lens[b];
   const int K = TAPS * Cin;
   const int nk = (K + EL_BK - 1) / EL_BK;
-  const bf16* xb = p.x + (size_t)b * N * Cin;
+  const bf16* xb = p.x + (size_t)b * (N + 2 * F * p.hin) * Cin;
 
   auto load_a = [&](int kb, uint4 (&reg)[2]) {
 #pragma unroll
@@ -168,8 +183,8 @@ __global__ void __launch_bounds__(IG_THREADS) conv_gemm(ConvArgs p) {
       if (VEC) {
         if (k >= K) continue;
         int tap = k / Cin, ci = k - tap * Cin;
-        int src = source_row<TAPS>(m, tap, T, F);
-        if (src < 0 || src >= len) continue;
+        int src = source_row<TAPS>(m, tap, T, F, len, p.hin);
+        if (src < 0) continue;
         reg[s] = *reinterpret_cast<const uint4*>(xb + (size_t)src * Cin + ci);
       } else {
         bf16* r = reinterpret_cast<bf16*>(&reg[s]);
@@ -178,8 +193,8 @@ __global__ void __launch_bounds__(IG_THREADS) conv_gemm(ConvArgs p) {
           int ke = k + e;
           if (ke >= K) break;
           int tap = ke / Cin, ci = ke - tap * Cin;
-          int src = source_row<TAPS>(m, tap, T, F);
-          if (src < 0 || src >= len) continue;
+          int src = source_row<TAPS>(m, tap, T, F, len, p.hin);
+          if (src < 0) continue;
           r[e] = xb[(size_t)src * Cin + ci];
         }
       }
@@ -260,6 +275,9 @@ struct TcArgs {
   // apart, their stages w_stride bytes apart (a BN-column stage is a slice
   // of the packed one: the swizzle repeats every 8 rows)
   int split, w_tile, w_stride;
+  // 1: a halo'd input, T + 2 frames (the box starts one frame later; the
+  // halo frames are read as they are, lens masks the interior rows)
+  int hin;
 };
 
 US_DEV float acc_f32(float v) { return v; }
@@ -321,7 +339,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
                           (blockIdx.y % p.split) * BN * 128;
     produce_ring(&xmap, ring, box, w_full, w_empty, x_full, x_empty, S, TAPS, p.stage_bytes,
                  p.w_stride, TC_BOXES, p.box_bytes, (TT + 2 * HALO) * BF * 128, p.n_chunks,
-                 wsrc, fo0 - HALO, tiled ? to0 : to0 - HALO,
+                 wsrc, fo0 - HALO, tiled ? to0 : to0 - HALO + p.hin,
                  tiled ? b * (T / p.fpt) + tj : b, I8 ? 128 : KC);
     return;
   }
@@ -340,9 +358,11 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 #pragma unroll
     for (int tap = 0; tap < TAPS; ++tap) {
       const int ti = to0 + tt + tap / 3 - HALO, fi = fo0 + ff + tap % 3 - HALO;
-      // the copy of a tiled input holds its frames' zeros itself
+      // the copy of a tiled input holds its frames' zeros itself; a halo'd
+      // input its halo frames (masked by the sender)
       const bool ok = row_ok && (unsigned)fi < (unsigned)F &&
-                      (tiled || ((unsigned)ti < (unsigned)T && ti * F + fi < len));
+                      (tiled || ((unsigned)(ti + p.hin) < (unsigned)(T + 2 * p.hin) &&
+                                 (ti < 0 || ti >= T || ti * F + fi < len)));
       okm |= (uint32_t)ok << tap;
     }
     const int R0 = tt * BF + ff;
@@ -496,18 +516,19 @@ __global__ void __launch_bounds__(256) gn_finalize(const float* part, int n_tile
 
 // gn_finalize for GroupNorm 1 fused with kernel B's input transform, once
 // per element: c1 (B, N, C) becomes h = bf16(gn_mish_film(c1)) on rows <
-// lens[b] and 0 after, in place. Grid (row chunks of `rows`, groups, B);
+// lens[b] and 0 after, in place; the statistics are over n_rows rows (N,
+// or a frame slice's global rows). Grid (row chunks of `rows`, groups, B);
 // each block reduces its group's statistics itself (the same values, the
 // same order), chunk 0 writes mean / inv. (C / groups) % 8 == 0.
 __global__ void __launch_bounds__(256) gn_film(const float* part, int n_tiles, bf16* c1h,
                                                const int* lens, const float* scale,
                                                const float* shift, const bf16* film, int groups,
                                                float eps, float* mean, float* inv, int N, int C,
-                                               int rows) {
+                                               int rows, int n_rows) {
   __shared__ float scratch[256];
   const int g = blockIdx.y, b = blockIdx.z, cg = C / groups, c_lo = g * cg;
   float mu, iv;
-  group_mean_inv(part, n_tiles, C, cg, g, b, N, eps, scratch, mu, iv);
+  group_mean_inv(part, n_tiles, C, cg, g, b, n_rows, eps, scratch, mu, iv);
   if (blockIdx.x == 0)
     for (int c = threadIdx.x; c < cg; c += blockDim.x) {
       mean[b * C + c_lo + c] = mu;
@@ -629,7 +650,8 @@ US_DEV void sum_tiles(const float* part, int n_tiles, int C, float* sum, float* 
 }
 
 // K2's tail (JAX's _kernel_d): GroupNorm-apply + mish + mask of c1, then
-// the 1-channel 1x1 final_conv, f32 out (B, N). A programmatic dependent
+// the 1-channel 1x1 final_conv, f32 out (B, N); the statistics are over
+// n_rows rows (N, or a frame slice's global rows). A programmatic dependent
 // launch after kernel A, one block of TAIL_THREADS an SM: each block stages
 // scale, shift and w_out (rounded to bf16, as JAX casts it) before
 // griddep_wait, then sums batch element b's kernel-A tile sums (part (B,
@@ -651,7 +673,7 @@ template <bool ONE>
 __global__ void __launch_bounds__(TAIL_THREADS, 1)
     final_tail(const bf16* c1, const float* part, int n_tiles, const float* scale,
                const float* shift, const float* wo, const float* bo, const int* lens, float* out,
-               int N, int C, int groups, float eps, int tpr) {
+               int N, int n_rows, int C, int groups, float eps, int tpr) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   float *stats = sm, *s_a = sm + 2 * C, *s_b = sm + 3 * C, *s_wo = sm + 4 * C;
@@ -670,7 +692,7 @@ __global__ void __launch_bounds__(TAIL_THREADS, 1)
   if (tid < groups) {
     float s = 0.f, ss = 0.f;
     for (int i = 0; i < cg; ++i) s += stats[tid * cg + i], ss += stats[C + tid * cg + i];
-    const float m = (float)((long long)N * cg);
+    const float m = (float)((long long)n_rows * cg);
     const float mu = s / m;
     g_mi[tid] = mu;
     g_mi[groups + tid] = rsqrtf(ss / m - mu * mu + eps);
@@ -834,8 +856,9 @@ int tc_launch(int taps, TcPlan& pl, const void* x, int B, int Cin, cudaStream_t 
   CUtensorMap xmap;
   // a tiled input is (B * n_tiles, fpt + 2, F, Cin): one tile's copy a batch row
   const int fpt = pl.a.fpt;
-  int err = x_tensor_map(&xmap, x, fpt ? B * (pl.a.T / fpt) : B, fpt ? fpt + 2 : pl.a.T, pl.a.F,
-                         Cin, pl.box_t, pl.box_f, i8);
+  int err = x_tensor_map(&xmap, x, fpt ? B * (pl.a.T / fpt) : B,
+                         fpt ? fpt + 2 : pl.a.T + 2 * pl.a.hin, pl.a.F, Cin, pl.box_t, pl.box_f,
+                         i8);
   if (err) return err;
   TcKernel k = tc_kernel(taps, pl.bn, i8);
   cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
@@ -849,6 +872,30 @@ bool tc_takes(int Cin) { return Cin % 8 == 0; }
 
 int n_row_tiles(int N) { return us_ceil_div(N, EL_BM); }
 
+// Kernel A (conv3x3 + bias -> out, tile statistics -> part) on the Hopper
+// loop for Cin % 8 == 0, else on element loads; hin: a halo'd input.
+int conv3x3_launch(const void* x, const void* w, int BN, const float* bias, const int* lens,
+                   void* out, float* part, int B, int N, int F, int Cin, int Cout, int hin,
+                   int pdl, cudaStream_t st) {
+  if (!tc_takes(Cin)) {
+    if (Cout % EL_BN) return (int)cudaErrorInvalidValue;
+    ConvArgs p = base_args(x, w, bias, lens, out, N, F, Cin, Cout);
+    p.part = part;
+    p.hin = hin;
+    conv_gemm<9, 0, false><<<dim3(n_row_tiles(N), Cout / EL_BN, B), IG_THREADS, 0, st>>>(p);
+    return (int)cudaGetLastError();
+  }
+  if (!tc_bn_ok(BN, Cout)) return (int)cudaErrorInvalidValue;
+  TcPlan pl = make_tc_plan(9, B, N / F, F, Cin, Cout, BN, 0);
+  pl.a.w = w;
+  pl.a.bias = bias;
+  pl.a.lens = lens;
+  pl.a.out = static_cast<bf16*>(out);
+  pl.a.part = part;
+  pl.a.hin = hin;
+  return tc_launch(9, pl, x, B, Cin, st, false, pdl);
+}
+
 }  // namespace
 
 extern "C" {
@@ -856,6 +903,14 @@ extern "C" {
 int us_resnet_conv3x3_rows(const void* x, const void* w, const float* bias, const int* lens,
                            void* out, float* part, int B, int N, int F, int Cin, int Cout,
                            void* stream);
+int us_final_tail(const void* c1, const float* part, int n_tiles, const float* scale,
+                  const float* shift, const float* wo, const float* bo, const int* lens,
+                  float* out, int B, int N, int n_rows, int C, int groups, float eps,
+                  void* stream);
+int us_gn_film_rows(const float* part, int n_tiles, void* c1h, const int* lens,
+                    const float* scale, const float* shift, const void* film, float* mean,
+                    float* inv, int B, int N, int C, int groups, int n_rows, float eps,
+                    void* stream);
 int us_resnet_out_rows(const void* c2, const void* x, const float* mean, const float* inv,
                        const float* scale, const float* shift, const void* wres,
                        const float* bres, const int* lens, void* out, int B, int N, int Cin,
@@ -896,16 +951,20 @@ int us_conv_plan(int taps, int B, int T, int F, int Cin, int Cout, int BN, int* 
 int us_resnet_conv3x3(const void* x, const void* w, int BN, const float* bias, const int* lens,
                       void* out, float* part, int B, int N, int F, int Cin, int Cout, int pdl,
                       void* stream) {
-  if (!tc_takes(Cin))
-    return us_resnet_conv3x3_rows(x, w, bias, lens, out, part, B, N, F, Cin, Cout, stream);
-  if (!tc_bn_ok(BN, Cout)) return (int)cudaErrorInvalidValue;
-  TcPlan pl = make_tc_plan(9, B, N / F, F, Cin, Cout, BN, 0);
-  pl.a.w = w;
-  pl.a.bias = bias;
-  pl.a.lens = lens;
-  pl.a.out = static_cast<bf16*>(out);
-  pl.a.part = part;
-  return tc_launch(9, pl, x, B, Cin, static_cast<cudaStream_t>(stream), false, pdl);
+  return conv3x3_launch(x, w, BN, bias, lens, out, part, B, N, F, Cin, Cout, 0, pdl,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// Kernel A on a halo'd input (a frame slice of the seq axis): x (B, N / F +
+// 2, F, Cin), the slice's N rows with the neighbours' edge frame on each
+// side (zeros at the global ends; masked by the sender); lens masks the
+// interior rows; out, part and the launch plan are the N interior rows' (w
+// and BN as us_resnet_conv3x3 takes them).
+int us_resnet_conv3x3_halo(const void* x, const void* w, int BN, const float* bias,
+                           const int* lens, void* out, float* part, int B, int N, int F, int Cin,
+                           int Cout, void* stream) {
+  return conv3x3_launch(x, w, BN, bias, lens, out, part, B, N, F, Cin, Cout, 1, 0,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // K9's int8 conv3x3 on the same loop: x8 (B, N, Cin) int8, zero at rows >=
@@ -985,6 +1044,19 @@ int us_final_block(const void* x, const void* w, int BN, const float* bias, cons
   if (C % 64 || C % groups || (C / groups) % 8) return (int)cudaErrorInvalidValue;
   int err = us_resnet_conv3x3(x, w, BN, bias, lens, c1, part, B, N, F, Cin, C, 0, stream);
   if (err) return err;
+  return us_final_tail(c1, part, us_conv_n_tiles(N, F, Cin), scale, shift, wo, bo, lens, out, B,
+                       N, N, C, groups, eps, stream);
+}
+
+// K2's tail alone: c1 (B, N, C) bf16 and the n_tiles tile sums part (B,
+// n_tiles, 2, C) of n_rows rows (N, or on a frame slice of the seq axis
+// every rank's tiles, gathered, and the global rows) -> out (B, N) f32. A
+// programmatic dependent launch (it waits for the kernel before it).
+int us_final_tail(const void* c1, const float* part, int n_tiles, const float* scale,
+                  const float* shift, const float* wo, const float* bo, const int* lens,
+                  float* out, int B, int N, int n_rows, int C, int groups, float eps,
+                  void* stream) {
+  if (C % 64 || C % groups || (C / groups) % 8) return (int)cudaErrorInvalidValue;
   // one block an SM, split among the batch elements
   const int tpr = C / 8 >= 32 ? 32 : C / 8 >= 16 ? 16 : 8;
   const bool one = C / 8 == tpr;  // one 8-channel piece a thread
@@ -999,9 +1071,8 @@ int us_final_block(const void* x, const void* w, int BN, const float* bias, cons
   const int rows = TAIL_THREADS / tpr * TAIL_ROWS;  // a block's rows a round
   const int blocks = std::max(1, std::min(n_sms() / B, us_ceil_div(N, rows)));
   return launch_pdl(tail, dim3(blocks, B), TAIL_THREADS, smem, static_cast<cudaStream_t>(stream),
-                    static_cast<const bf16*>(c1), static_cast<const float*>(part),
-                    us_conv_n_tiles(N, F, Cin), scale, shift, wo, bo, lens, out, N, C, groups,
-                    eps, tpr);
+                    static_cast<const bf16*>(c1), part, n_tiles, scale, shift, wo, bo, lens, out,
+                    N, n_rows, C, groups, eps, tpr);
 }
 
 int us_gn_finalize(const float* part, int B, int n_tiles, int C, int groups, int n_rows,
@@ -1020,13 +1091,24 @@ int us_gn_finalize(const float* part, int B, int n_tiles, int C, int groups, int
 int us_gn_film(const float* part, int n_tiles, void* c1h, const int* lens, const float* scale,
                const float* shift, const void* film, float* mean, float* inv, int B, int N,
                int C, int groups, float eps, void* stream) {
+  return us_gn_film_rows(part, n_tiles, c1h, lens, scale, shift, film, mean, inv, B, N, C,
+                         groups, N, eps, stream);
+}
+
+// us_gn_film with the statistics over n_rows rows: on a frame slice of the
+// seq axis, part holds every rank's tiles (gathered) and n_rows is the
+// global row count; N, c1h and lens are the slice's.
+int us_gn_film_rows(const float* part, int n_tiles, void* c1h, const int* lens,
+                    const float* scale, const float* shift, const void* film, float* mean,
+                    float* inv, int B, int N, int C, int groups, int n_rows, float eps,
+                    void* stream) {
   const int cg = C / groups;
   if (C % groups || cg % 8) return (int)cudaErrorInvalidValue;
   // about 8192 elements a block
   const int rows = std::max(1, 8192 / cg);
   gn_film<<<dim3(us_ceil_div(N, rows), groups, B), 256, 0, static_cast<cudaStream_t>(stream)>>>(
       part, n_tiles, static_cast<bf16*>(c1h), lens, scale, shift, static_cast<const bf16*>(film),
-      groups, eps, mean, inv, N, C, rows);
+      groups, eps, mean, inv, N, C, rows, n_rows);
   return (int)cudaGetLastError();
 }
 

@@ -41,6 +41,12 @@
 //     Wout are staged once per block (at C = 512 Wout streams through one
 //     slot: both do not fit with the ring; above, Wq's tiles ride the x
 //     ring as in phase 1 and Wout streams through two slots).
+// On a frame slice of the seq axis (ops/fused_attention.py) the three
+// launches split in two calls: us_attn_kv writes the slice's P partials;
+// the host gathers every rank's partials into one (B, 2, P_total, ...)
+// buffer (attn_merge rescales each by its own maxima, so partials of any
+// tokens merge); us_attn_merge_out merges them into the whole sequence's
+// context and runs attn_out on the slice's rows.
 // One block runs 2 warpgroups (64 tile rows each); thread 0 also sends
 // the TMA and bulk copies (csrc/hopper.cuh), each into its ring slot once
 // the 8 warps have released it. No producer warp: a block of 288 threads
@@ -65,6 +71,7 @@ constexpr int KVC = 64;            // K columns of a head pair (phase 1)
 constexpr int NB_FLOATS = 2 * DH * DH;  // a warp's partial num of a head pair
 constexpr int CTS = DH + 8;        // bf16 row stride of the staged ctx^T
 constexpr int P_MAX = 128;         // partials a (batch, head pair) at most
+constexpr int P_MERGE = 1024;      // partials attn_merge takes: every seq rank's
 
 US_DEV uint32_t movmatrix_t(uint32_t a) {
   uint32_t d;
@@ -370,7 +377,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 // groups, B), a thread per (row, column).
 __global__ void __launch_bounds__(256) attn_merge(const float* part_m, const float* part_den,
                                                   const float* part_num, int P, float* ctx) {
-  __shared__ float wp[P_MAX][8], M[8], D[8];
+  __shared__ float wp[P_MERGE][8], M[8], D[8];
   griddep_wait();
   griddep_launch();
   const int h = blockIdx.x, hp = h >> 1, hh = h & 1, i0 = blockIdx.y * 8, b = blockIdx.z;
@@ -661,30 +668,12 @@ int out_smem(int C) {
   return out_smem_of(C, n_xs, n_os, wq_ring);
 }
 
-}  // namespace
-
-extern "C" {
-
-// x (B, N, C) bf16; wkv (2, C/64, 128, 64), wq (C/64, 128, 64), wo (C/128,
-// 2, 128, 64) bf16, packed by ops/fused_attention.py pack_attention_weights;
-// b_out (C) f32; g (1) f32 the rezero gate; lens (B) valid rows. Scratch,
-// with P from us_attn_plan: part_m / part_den (B, 2, P, 64), part_num (B,
-// 2, P, 2, 32, 32), ctx (B, 4, 32, 32), all f32. C % 64 == 0.
-int us_rezero_attention(const void* x, const void* wkv, const void* wq, const void* wo,
-                        const float* b_out, const float* g, const int* lens, void* y,
-                        float* part_m, float* part_den, float* part_num, float* ctx, int B,
-                        int N, int C, void* stream) {
-  if (C % KC || B < 1 || N < 1) return (int)cudaErrorInvalidValue;
-  const AttnPlan plan = make_attn_plan(B, N);
-  const int P = plan.p1;
-  const int s1 = kv_smem(C), s2 = out_smem(C);
+// Raise the phases' shared memory limits once to the largest asked for.
+int attn_smem(int C, int& s1, int& s2) {
+  s1 = kv_smem(C), s2 = out_smem(C);
   if (s1 > SMEM_MAX || s2 > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  CUtensorMap xmap;
-  int err = x_tensor_map(&xmap, x, B, 1, N, C, 1, TM);
-  if (err) return err;
-  // the kernels' shared memory limits, raised once to the largest asked for
   static int set1 = 0, set2 = 0;
+  int err;
   if (s1 > set1) {
     if ((err = (int)cudaFuncSetAttribute(attn_kv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          s1)) != 0)
@@ -697,15 +686,46 @@ int us_rezero_attention(const void* x, const void* wkv, const void* wq, const vo
       return err;
     set2 = s2;
   }
-  // each launch starts as the one before drains (its kernel waits for it
-  // before reading anything)
-  if ((err = launch_pdl(attn_kv, dim3(P, 2, B), THREADS, s1, st, xmap,
-                        static_cast<const bf16*>(wkv), N, C, P, (int)kv_stream(C), part_m,
-                        part_den, part_num)))
-    return err;
-  if ((err = launch_pdl(attn_merge, dim3(NH, DH / 8, B), 256, 0, st,
-                        static_cast<const float*>(part_m), static_cast<const float*>(part_den),
-                        static_cast<const float*>(part_num), P, ctx)))
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Phase 1 alone: x (B, N, C) bf16, wkv as us_rezero_attention takes it ->
+// the P = us_attn_plan(B, N).p1 partials part_m / part_den (B, 2, P, 64),
+// part_num (B, 2, P, 2, 32, 32) f32. A programmatic dependent launch.
+int us_attn_kv(const void* x, const void* wkv, float* part_m, float* part_den, float* part_num,
+               int B, int N, int C, void* stream) {
+  if (C % KC || B < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  int s1, s2, err = attn_smem(C, s1, s2);
+  if (err) return err;
+  const int P = make_attn_plan(B, N).p1;
+  CUtensorMap xmap;
+  if ((err = x_tensor_map(&xmap, x, B, 1, N, C, 1, TM))) return err;
+  return launch_pdl(attn_kv, dim3(P, 2, B), THREADS, s1, static_cast<cudaStream_t>(stream), xmap,
+                    static_cast<const bf16*>(wkv), N, C, P, (int)kv_stream(C), part_m, part_den,
+                    part_num);
+}
+
+// The merge of P partials (any tokens' partials: a frame slice's P_total,
+// every seq rank's gathered in the layout us_attn_kv writes, P_total <=
+// 1024) into ctx (B, 4, 32, 32) f32, then phase 2 on x (B, N, C): y = mask *
+// (x + g * (attn Wout + b_out)). Weights as us_rezero_attention takes them.
+// Two programmatic dependent launches.
+int us_attn_merge_out(const void* x, const void* wq, const void* wo, const float* b_out,
+                      const float* g, const int* lens, void* y, const float* part_m,
+                      const float* part_den, const float* part_num, int P, float* ctx, int B,
+                      int N, int C, void* stream) {
+  if (C % KC || B < 1 || N < 1 || P < 1 || P > P_MERGE) return (int)cudaErrorInvalidValue;
+  int s1, s2, err = attn_smem(C, s1, s2);
+  if (err) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  CUtensorMap xmap;
+  if ((err = x_tensor_map(&xmap, x, B, 1, N, C, 1, TM))) return err;
+  if ((err = launch_pdl(attn_merge, dim3(NH, DH / 8, B), 256, 0, st, part_m, part_den, part_num,
+                        P, ctx)))
     return err;
   OutArgs a;
   a.x = static_cast<const bf16*>(x);
@@ -716,9 +736,27 @@ int us_rezero_attention(const void* x, const void* wkv, const void* wq, const vo
   a.g = g;
   a.lens = lens;
   a.y = static_cast<bf16*>(y);
-  a.N = N, a.C = C, a.P2 = plan.p2;
+  a.N = N, a.C = C, a.P2 = make_attn_plan(B, N).p2;
   out_slots(C, a.n_xs, a.n_os, a.wq_ring);
-  return launch_pdl(attn_out, dim3(plan.p2, B), THREADS, s2, st, xmap, a);
+  return launch_pdl(attn_out, dim3(a.P2, B), THREADS, s2, st, xmap, a);
+}
+
+// x (B, N, C) bf16; wkv (2, C/64, 128, 64), wq (C/64, 128, 64), wo (C/128,
+// 2, 128, 64) bf16, packed by ops/fused_attention.py pack_attention_weights;
+// b_out (C) f32; g (1) f32 the rezero gate; lens (B) valid rows. Scratch,
+// with P from us_attn_plan: part_m / part_den (B, 2, P, 64), part_num (B,
+// 2, P, 2, 32, 32), ctx (B, 4, 32, 32), all f32. C % 64 == 0. Three
+// launches: us_attn_kv, then us_attn_merge_out over its P partials; each
+// launch starts as the one before drains (its kernel waits for it before
+// reading anything).
+int us_rezero_attention(const void* x, const void* wkv, const void* wq, const void* wo,
+                        const float* b_out, const float* g, const int* lens, void* y,
+                        float* part_m, float* part_den, float* part_num, float* ctx, int B,
+                        int N, int C, void* stream) {
+  int err = us_attn_kv(x, wkv, part_m, part_den, part_num, B, N, C, stream);
+  if (err) return err;
+  return us_attn_merge_out(x, wq, wo, b_out, g, lens, y, part_m, part_den, part_num,
+                           make_attn_plan(B, N).p1, ctx, B, N, C, stream);
 }
 
 // K4's schedule at B rows of N tokens (make_attn_plan): info = {tiles, P

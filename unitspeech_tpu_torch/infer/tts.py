@@ -32,7 +32,14 @@ aligner, the sampler (the global batch's noise, its rows kept) and the
 vocoder, at the bucket of the longest row of all, and the outputs are
 gathered in request order on every rank. The single-request paths
 (`__call__`, `synthesize_mel`) and the serving dispatches run whole on
-each rank. A spec naming 'seq' or 'model' raises NotImplementedError.
+each rank of the data axis. A spec that puts 'seq' on the frame axis
+(JAX's P(None, "seq", None), or P("data", "seq", None) with the data
+axis) splits every sampler call's frames over the mesh's seq axis, in
+every mode (parallel/mesh.py SeqShard; models/diffusion.py seq_sharded):
+the encoder, the duration predictor and the vocoder run whole on every
+rank, as JAX constrains only the sampler's state. A spec naming 'model',
+or 'seq' with the fused deep-stage configuration, raises
+NotImplementedError (the next slice).
 """
 
 from __future__ import annotations
@@ -58,7 +65,7 @@ from unitspeech_tpu_torch.ops.masking import (
     sequence_mask,
 )
 from unitspeech_tpu_torch.ops.mel import denormalize_mel
-from unitspeech_tpu_torch.parallel.mesh import SINGLE, sample_shard
+from unitspeech_tpu_torch.parallel.mesh import QUEUED_DEEP, SINGLE, sample_shard
 from unitspeech_tpu_torch.utils.params import build_modules, config_from_dict
 
 
@@ -186,13 +193,17 @@ class Synthesizer:
     # runs at the first bucket that holds its longest row (make_switch_buckets
     # picks the window from the calibrator's observed lengths)
     switch_buckets: Any = None
-    # data-sharded batched synthesis (JAX's fields): a parallel.make_mesh
-    # mesh and a (B, T, F) spec, e.g. ("data", None, None)
+    # data- and sequence-sharded synthesis (JAX's fields): a
+    # parallel.make_mesh mesh and a (B, T, F) spec, e.g. ("data", None,
+    # None), (None, "seq", None) or ("data", "seq", None)
     mesh: Any = None
     sample_spec: Any = None
 
     def __post_init__(self):
-        self._shard = sample_shard(self.mesh, self.sample_spec)
+        self._shard, self._seq = sample_shard(self.mesh, self.sample_spec)
+        est = self.models.decoder.estimator
+        if self._seq is not None and (est.use_deep or est.use_i8pre_deep or est.use_resample):
+            raise NotImplementedError(f"sample_spec {tuple(self.sample_spec)}: {QUEUED_DEEP}")
 
     def _scales(self, diffusion_steps, length_scale, text_gradient_scale, spk_gradient_scale):
         icfg = self.models.cfg.inference
@@ -257,7 +268,9 @@ class Synthesizer:
     def _align_and_sample(self, mu_x, x_mask, w_ceil, y_pad, steps, tg, sg, generator,
                           noise_z, noises, sampler, spk=None, shard=None):
         """shard: the rows are this rank's of a data-sharded batch, whose
-        noise is drawn for the global batch (the rank keeps its rows)."""
+        noise is drawn for the global batch (the rank keeps its rows); with
+        a seq-sharding mesh the sampler splits the frames (sample's
+        seq_shard) and returns every frame."""
         m = self.models
         spk = self._spk_rows(mu_x.shape[0]) if spk is None else spk
         y_lengths = torch.clamp(w_ceil.sum(dim=1), min=1.0)
@@ -270,7 +283,7 @@ class Synthesizer:
         # here, the one sampler dispatch point, as in the JAX package
         mel = sample(m.decoder, sampler, z, y_mask, cond_y, spk, steps,
                      text_gradient_scale=tg, spk_gradient_scale=sg, generator=generator,
-                     noises=noises, shard=shard)
+                     noises=noises, shard=shard, seq_shard=self._seq)
         return denormalize_mel(mel, m.mel_min, m.mel_max), attn
 
     def _align_sample_vocode(self, mu_x, x_mask, w_ceil, y_pad, steps, tg, sg, generator,

@@ -18,8 +18,12 @@ reproduce.
 
 The samplers take JAX's `mesh` and `sample_spec`: a spec putting 'data' on
 the batch axis splits the rows over the ranks of the mesh's data axis
-(parallel/mesh.py), each rank drawing the global batch's noise and keeping
-its rows; 'seq' and 'model' raise NotImplementedError (not ported yet).
+(parallel/mesh.py), 'seq' on the frame axis splits the frames over the
+ranks of its seq axis (slices of whole 8-frame pieces; the estimator runs
+every site's sharded form on them, models/unet.py), or both, as JAX's
+P("data", "seq", None); each rank draws the global sample's noise and
+keeps its rows and frames, and the result is gathered on every rank.
+'model' raises NotImplementedError (the next slice).
 """
 
 from __future__ import annotations
@@ -54,8 +58,9 @@ class UnitSpeech(nn.Module):
                                              use_resample=use_resample,
                                              use_i8pre_deep=use_i8pre_deep, n_feats=n_feats)
 
-    def forward(self, xt, mask, cond, t, spk_emb):
-        return self.estimator(xt, mask, cond, t, spk_emb)
+    def forward(self, xt, mask, cond, t, spk_emb, seq=None):
+        """seq: a parallel.FrameSlice (xt, mask and cond hold its frames)."""
+        return self.estimator(xt, mask, cond, t, spk_emb, seq=seq)
 
     @classmethod
     def from_config(cls, cfg, dtype=torch.float32, **routes):
@@ -134,7 +139,8 @@ def parse_sampler_spec(spec: str):
 
 
 def _guided_score(model: UnitSpeech, mask, cond, spk_emb, text_gradient_scale: float,
-                  spk_gradient_scale: float, n_timesteps: int, cfg_stride: int, std_of):
+                  spk_gradient_scale: float, n_timesteps: int, cfg_stride: int, std_of,
+                  seq=None):
     """score(xt, t, i): the guided score of sampler step i at time t.
 
     With cfg_stride k > 1 and guidance on (CFG delta caching, the JAX
@@ -145,21 +151,23 @@ def _guided_score(model: UnitSpeech, mask, cond, spk_emb, text_gradient_scale: f
     (B rows, not 3B) and add the cached delta back as delta / std_t. The
     trailing n % k steps run full. std_of(i) is step i's std_t. The
     estimator returns f32 on every route, so the combine and the cached
-    delta are f32, as the sampler state is."""
+    delta are f32, as the sampler state is. seq: the estimator's frame
+    slice (the rows are this rank's frames)."""
     cond_c, spk_c, mask_c, n_rows, combine = build_cfg_rows(
         model, mask, cond, spk_emb, text_gradient_scale, spk_gradient_scale)
     b = mask.shape[0]
     stride = min(cfg_stride, n_timesteps) if n_rows > 1 else 1
     n_grouped = (n_timesteps // stride) * stride
     cache = {}
+    sliced = {} if seq is None else {"seq": seq}  # a model called unsharded as before
 
     def score(xt, t: float, i: int):
         if stride > 1 and i < n_grouped and i % stride:
-            s = model(xt, mask, cond, torch.full((b,), t, device=xt.device), spk_emb)
+            s = model(xt, mask, cond, torch.full((b,), t, device=xt.device), spk_emb, **sliced)
             return s + cache["delta_eps"] / std_of(i)
         xt_c = torch.cat([xt] * n_rows) if n_rows > 1 else xt
         s_all = model(xt_c, mask_c, cond_c, torch.full((xt_c.shape[0],), t, device=xt.device),
-                      spk_c)
+                      spk_c, **sliced)
         guided = combine(s_all)
         if stride > 1:
             cache["delta_eps"] = (guided - s_all[-b:]) * std_of(i)
@@ -168,41 +176,56 @@ def _guided_score(model: UnitSpeech, mask, cond, spk_emb, text_gradient_scale: f
     return score
 
 
-def data_sharded(run, mesh, sample_spec, z, mask, cond, spk_emb, noises=None):
-    """run(z, mask, cond, spk_emb, noises, shard) on this rank's rows of the
-    global batch when the spec shards 'data' (sample_shard), its result
-    gathered in row order on every rank; else run on the whole batch with
-    shard None. noises: (steps, B, T, F) or None."""
-    shard = sample_shard(mesh, sample_spec)
-    if shard is None:
+def seq_sharded(run, seq_shard, z, mask, cond, spk_emb, noises=None):
+    """run(z, mask, cond, spk_emb, noises, seq) on this rank's frames of the
+    sample when seq_shard (a parallel.SeqShard) splits them, seq their
+    FrameSlice, the result gathered along frames on every rank; else run on
+    every frame with seq None. noises: (steps, B, T, F) or None."""
+    if seq_shard is None:
         return run(z, mask, cond, spk_emb, noises, None)
+    seq = seq_shard.at(z.shape[1])
+    out = run(seq.take(z), seq.take(mask), seq.take(cond), spk_emb,
+              None if noises is None else seq.take(noises, 2), seq)
+    return seq.gather(out)
+
+
+def sharded(run, mesh, sample_spec, z, mask, cond, spk_emb, noises=None):
+    """run(z, mask, cond, spk_emb, noises, shard, seq) on this rank's part
+    of the sample the spec shards (sample_shard): its rows of the global
+    batch on 'data' (shard its DataShard, else None), its frames on 'seq'
+    (seq_sharded), the result gathered on every rank."""
+    shard, seq_shard = sample_shard(mesh, sample_spec)
     b = z.shape[0]
-    if b % shard.size:
-        raise ValueError(f"{b} rows do not divide over the data axis ({shard.size})")
-    out = run(*(shard.take(a) for a in (z, mask, cond, spk_emb)),
-              None if noises is None else shard.take(noises, 1), shard)
-    return shard.gather(out, b)
+    if shard is not None:
+        if b % shard.size:
+            raise ValueError(f"{b} rows do not divide over the data axis ({shard.size})")
+        z, mask, cond, spk_emb = (shard.take(a) for a in (z, mask, cond, spk_emb))
+        noises = None if noises is None else shard.take(noises, 1)
+    out = seq_sharded(lambda *a: run(*a[:5], shard, a[5]), seq_shard, z, mask, cond, spk_emb,
+                      noises)
+    return out if shard is None else shard.gather(out, b)
 
 
 @torch.no_grad()
 def reverse_diffusion(model: UnitSpeech, z, mask, cond, spk_emb, n_timesteps: int = 50,
                       text_gradient_scale: float = 0.0, spk_gradient_scale: float = 0.0,
                       generator: torch.Generator | None = None, noises=None,
-                      cfg_stride: int = 1, mesh=None, sample_spec=None, shard=None):
+                      cfg_stride: int = 1, mesh=None, sample_spec=None, shard=None, seq=None):
     """Reverse DDPM sampling (reference unitspeech.py:333-374). z/cond
     (B, T, F); mask (B, T); spk_emb (B, S). `noises` (n_timesteps, B, T, F)
     replaces the per-step draws (also with cfg_stride > 1, which the JAX
     package refuses: a test hook for its fold_in draws). cfg_stride > 1:
     CFG delta caching (_guided_score); stride 1 is the reference's algebra.
-    mesh, sample_spec: data-sharded sampling (data_sharded); shard: the
-    inputs are already this rank's rows of a data-sharded batch, and each
-    step's noise is drawn for the global batch, the rank keeping its rows.
-    Returns mel (B, T, F) f32."""
+    mesh, sample_spec: data- and sequence-sharded sampling (sharded);
+    shard: the inputs are already this rank's rows of a data-sharded
+    batch; seq: a parallel.FrameSlice, the inputs are its frames (each
+    step's noise is drawn for the global sample, the rank keeping its rows
+    and frames). Returns mel (B, T, F) f32."""
     if mesh is not None:
-        return data_sharded(
+        return sharded(
             lambda *a: reverse_diffusion(model, *a[:4], n_timesteps, text_gradient_scale,
                                          spk_gradient_scale, generator, a[4], cfg_stride,
-                                         shard=a[5]),
+                                         shard=a[5], seq=a[6]),
             mesh, sample_spec, z, mask, cond, spk_emb, noises)
     sched = make_reverse_schedule(n_timesteps, model.beta_min, model.beta_max)
     stds = forward_diffusion_coefficients(torch.from_numpy(sched.t_cont), model.beta_min,
@@ -210,10 +233,11 @@ def reverse_diffusion(model: UnitSpeech, z, mask, cond, spk_emb, n_timesteps: in
     mask3 = mask[:, :, None]
     xt = z * mask3
     score_fn = _guided_score(model, mask, cond, spk_emb, text_gradient_scale,
-                             spk_gradient_scale, n_timesteps, cfg_stride, stds.__getitem__)
+                             spk_gradient_scale, n_timesteps, cfg_stride, stds.__getitem__, seq)
     for i in range(n_timesteps):
         if noises is None:
-            noise = (shard or SINGLE).randn(xt.shape, generator, xt.device)
+            noise = ((shard or SINGLE).randn(xt.shape, generator, xt.device) if seq is None
+                     else seq.randn(xt.shape, generator, xt.device, shard))
         else:
             noise = noises[i]
         score = score_fn(xt, float(sched.t_cont[i]), i)
@@ -226,18 +250,18 @@ def reverse_diffusion(model: UnitSpeech, z, mask, cond, spk_emb, n_timesteps: in
 def reverse_diffusion_ode(model: UnitSpeech, z, mask, cond, spk_emb, n_timesteps: int = 25,
                           text_gradient_scale: float = 0.0, spk_gradient_scale: float = 0.0,
                           t_end: float = 0.01, cfg_stride: int = 1, mesh=None,
-                          sample_spec=None):
+                          sample_spec=None, seq=None):
     """Deterministic probability-flow sampling with DPM-Solver++(2M)
     (ops/schedule.make_ode_schedule; the JAX package's `dpm2` sampler, which
     the reference does not have): x0 = (x + sigma^2 * score) / alpha, then
     x <- a * x + b * (c1 * x0 + c2 * x0_prev). cfg_stride as in
     reverse_diffusion, with std_t = sqrt(sigma^2); the 2M history x0_prev
-    runs through full and cheap steps alike. mesh, sample_spec: as
+    runs through full and cheap steps alike. mesh, sample_spec, seq: as
     reverse_diffusion's (it draws nothing). Returns mel (B, T, F) f32."""
     if mesh is not None:
-        return data_sharded(
+        return sharded(
             lambda *a: reverse_diffusion_ode(model, *a[:4], n_timesteps, text_gradient_scale,
-                                             spk_gradient_scale, t_end, cfg_stride),
+                                             spk_gradient_scale, t_end, cfg_stride, seq=a[6]),
             mesh, sample_spec, z, mask, cond, spk_emb)
     co = make_ode_schedule(n_timesteps, model.beta_min, model.beta_max,
                            t_end=float(t_end)).stacked()
@@ -246,7 +270,7 @@ def reverse_diffusion_ode(model: UnitSpeech, z, mask, cond, spk_emb, n_timesteps
     xt = z * mask3
     x0_prev = torch.zeros_like(xt)  # the first step's c2 is 0
     score_fn = _guided_score(model, mask, cond, spk_emb, text_gradient_scale,
-                             spk_gradient_scale, n_timesteps, cfg_stride, stds.__getitem__)
+                             spk_gradient_scale, n_timesteps, cfg_stride, stds.__getitem__, seq)
     for i in range(n_timesteps):
         t_eval, a, b, c1, c2, inv_alpha, sigma2 = (float(v) for v in co[i])
         x0 = (xt + sigma2 * score_fn(xt, t_eval, i)) * inv_alpha
@@ -257,18 +281,26 @@ def reverse_diffusion_ode(model: UnitSpeech, z, mask, cond, spk_emb, n_timesteps
 
 def sample(model: UnitSpeech, sampler: str, z, mask, cond, spk_emb, n_timesteps: int,
            text_gradient_scale: float = 0.0, spk_gradient_scale: float = 0.0,
-           generator: torch.Generator | None = None, noises=None, shard=None):
+           generator: torch.Generator | None = None, noises=None, shard=None,
+           seq_shard=None):
     """The sampler a spec names (parse_sampler_spec), the one dispatch
     point of the TTS and voice-conversion paths: "ddpm[:cs<k>]" is
     reverse_diffusion, "dpm2[:cs<k>]" reverse_diffusion_ode (deterministic:
-    it draws nothing and ignores noises). shard: reverse_diffusion's."""
+    it draws nothing and ignores noises). shard: reverse_diffusion's;
+    seq_shard: a parallel.SeqShard splitting the frames (seq_sharded: the
+    inputs are every frame, so is the result)."""
     name, stride = parse_sampler_spec(sampler)
-    if name == "dpm2":
-        return reverse_diffusion_ode(model, z, mask, cond, spk_emb, n_timesteps,
-                                     text_gradient_scale, spk_gradient_scale, cfg_stride=stride)
-    return reverse_diffusion(model, z, mask, cond, spk_emb, n_timesteps, text_gradient_scale,
-                             spk_gradient_scale, generator=generator, noises=noises,
-                             cfg_stride=stride, shard=shard)
+
+    def run(z, mask, cond, spk_emb, noises, seq):
+        if name == "dpm2":
+            return reverse_diffusion_ode(model, z, mask, cond, spk_emb, n_timesteps,
+                                         text_gradient_scale, spk_gradient_scale,
+                                         cfg_stride=stride, seq=seq)
+        return reverse_diffusion(model, z, mask, cond, spk_emb, n_timesteps, text_gradient_scale,
+                                 spk_gradient_scale, generator=generator, noises=noises,
+                                 cfg_stride=stride, shard=shard, seq=seq)
+
+    return seq_sharded(run, seq_shard, z, mask, cond, spk_emb, noises)
 
 
 def forward_diffusion(x0, mask, t, z, beta_min: float = 0.05, beta_max: float = 20.0):

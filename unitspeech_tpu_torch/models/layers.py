@@ -65,12 +65,14 @@ class Conv2d(nn.Module):
         self.kernel = _param(k, k, din, dout)
         self.bias = _param(dout) if bias else None
 
-    def forward(self, x, stride: int = 1, dtype=None):
+    def forward(self, x, stride: int = 1, dtype=None, padding=None):
+        """padding: torch's (H, W) padding, SAME's k // 2 on both when None
+        (a halo'd input of the seq axis pads W alone)."""
         dt = dtype or x.dtype
         k = self.kernel.shape[0]
         b = None if self.bias is None else self.bias.to(dt)
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.kernel.to(dt).permute(3, 2, 0, 1), b,
-                     stride=stride, padding=k // 2)
+                     stride=stride, padding=k // 2 if padding is None else padding)
         return y.permute(0, 2, 3, 1)
 
 

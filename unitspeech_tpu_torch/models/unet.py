@@ -37,6 +37,21 @@ switches, each independent of `use_kernels` as in JAX:
     runs K9 instead, int8 convs on pre-quantized activations;
   * `use_resample`: Downsample / Upsample at the sites the JAX gates admit
     (F = 80/40 down, F = 40 up) run K11 on the unmasked activation.
+
+Sequence sharding (`forward(..., seq=)`, a parallel.FrameSlice: this
+rank's frames of the sample on the mesh's seq axis, boundaries on whole
+8-frame pieces, so each level's slice is the one above halved): every
+site takes its sharded form. A 3x3 conv reads the neighbours' edge frame
+on each side (K1's and K2's halo'd kernels, the flat convs, the plain
+Blocks), the stride-2 Downsample the one frame before its slice and the
+4x4 Upsample one a side; GroupNorm statistics are summed over the axis
+(K3's sums form, K1's and K2's gathered tile sums) and folded with the
+global row count; K7's maxima and the attention's partials (K4's, or the
+plain one's max, sums and context) are reduced over it. Every route gate
+reads the global frames (`seq.t`), so all ranks and the unsharded
+program take the same routes; the masks and valid-row counts are the
+slice's. The fused deep-stage configuration refuses a seq slice
+(parallel.mesh.QUEUED_DEEP: the next slice).
 """
 
 from __future__ import annotations
@@ -87,6 +102,7 @@ from unitspeech_tpu_torch.ops.row_stats import (
     row_absmax_plain,
     row_stats_plain,
 )
+from unitspeech_tpu_torch.parallel.mesh import QUEUED_DEEP
 
 PALLAS_MIN_TOKENS = 1024  # attention gate (unet.py RezeroAttention)
 
@@ -110,14 +126,15 @@ def fused_kernel_shape(f: int) -> bool:
     return f % 8 == 0
 
 
-def _group_norm_lowmem(x, groups, scale, bias, stats, eps=1e-5):
+def _group_norm_lowmem(x, groups, scale, bias, stats, eps=1e-5, seq=None):
     """GroupNorm keeping the activation in its dtype; f32 statistics over
     all rows, padding included (unet.py _group_norm_lowmem). stats: None for
     K3 (its fold form on the card), or the row statistics function of the
-    plain fold."""
+    plain fold; seq: x is a frame slice, the statistics the whole
+    sequence's (group_mean_inv)."""
     b, t, f, c = x.shape
     x2 = x.reshape(b, t * f, c)
-    mean_f, inv_f = group_mean_inv(x2, groups, eps, stats=stats)
+    mean_f, inv_f = group_mean_inv(x2, groups, eps, stats=stats, seq=seq)
     y = (x2 - mean_f.to(x.dtype)[:, None, :]) * inv_f.to(x.dtype)[:, None, :]
     return y.reshape(b, t, f, c) * scale.to(x.dtype) + bias.to(x.dtype)
 
@@ -132,11 +149,17 @@ class Block(nn.Module):
         self.norm = Affine(dout)
         self.groups = groups
 
-    def forward(self, x, mask, dtype, stats, pre_masked=False):
+    def forward(self, x, mask, dtype, stats, pre_masked=False, seq=None):
+        """seq: x is a frame slice; the conv reads the neighbours' edge
+        frames (their masked input) and the statistics are the whole
+        sequence's."""
         if not pre_masked:
             x = x * mask
-        x = self.conv(x, dtype=dtype)
-        x = _group_norm_lowmem(x, self.groups, *self.norm.params(), stats)
+        if seq is None:
+            x = self.conv(x, dtype=dtype)
+        else:
+            x = self.conv(seq.halo(x), dtype=dtype, padding=(0, 1))
+        x = _group_norm_lowmem(x, self.groups, *self.norm.params(), stats, seq=seq)
         return mish(x) * mask
 
 
@@ -203,23 +226,28 @@ class ResnetBlock(nn.Module):
         return {"i8": "k9", "bf16": "k8", None: "flat"}[deep]
 
     def forward(self, x, mask, t_emb, dtype, use_kernels, pre_masked=False, use_int8=False,
-                use_deep=False, use_i8pre=False, lens_rows=None):
+                use_deep=False, use_i8pre=False, lens_rows=None, seq=None):
         """use_int8: int8 convs on the deep-stage (flat) route only, as the
         JAX ResnetBlock(use_int8=True) routes them; use_deep, use_i8pre: the
         whole-layer deep kernels K8 / K9 (route()); lens_rows: a callable
         giving the mask's valid rows (the estimator counts them once a
-        level), which K9 reads."""
+        level), which K9 reads; seq: x is a frame slice (the route taken at
+        the global frames, each route's sharded form)."""
         b, t, f, cin = x.shape
         bias_t = self.mlp(mish(t_emb), dtype=dtype)
         stats = None if use_kernels else row_stats_plain
-        route = self.route(t, f, use_kernels, use_int8, use_deep, use_i8pre)
+        route = self.route(t if seq is None else seq.t, f, use_kernels, use_int8, use_deep,
+                           use_i8pre)
         if route == "flat":
-            return self._flat(x, mask, bias_t, dtype, use_kernels, pre_masked, use_int8)
+            return self._flat(x, mask, bias_t, dtype, use_kernels, pre_masked, use_int8, seq)
+        if seq is not None and route not in ("k1", "blocks"):
+            raise NotImplementedError(f"ResnetBlock route {route!r} on a seq slice: "
+                                      f"{QUEUED_DEEP}")
         if route in ("k1", "k8", "k9"):
             c1, c2 = self.block1.conv, self.block2.conv
-            fn, extra = fused_resnet_block, {}
+            fn, extra = fused_resnet_block, {"seq": seq}
             if route == "k8":
-                fn = fused_resnet_block_deep
+                fn, extra = fused_resnet_block_deep, {}
             elif route == "k9":
                 fn, extra = fused_resnet_block_deep_i8, {
                     "wq": self.i8pre_weights,
@@ -235,19 +263,21 @@ class ResnetBlock(nn.Module):
                 bres=None if self.res_conv is None else self.res_conv.bias,
                 groups=self.groups, packed=packed, **extra,
             )
-        h = self.block1(x, mask, dtype, stats, pre_masked)
+        h = self.block1(x, mask, dtype, stats, pre_masked, seq)
         h = h + bias_t[:, None, None, :]
-        h = self.block2(h, mask, dtype, stats)
+        h = self.block2(h, mask, dtype, stats, seq=seq)
         x_masked = x if pre_masked else x * mask
         if self.res_conv is not None:
             return h + self.res_conv(x_masked, dtype=dtype) * mask
         return h + x_masked
 
-    def _flat(self, x, mask, bias_t, dtype, use_kernels, pre_masked, use_int8):
+    def _flat(self, x, mask, bias_t, dtype, use_kernels, pre_masked, use_int8, seq=None):
         """Deep-stage block on flattened rows with f32 GroupNorm glue
         (unet.py _flat_matmul_block). The conv outputs c1/c2 stay f32
         accumulators; in int8 mode they are rounded to `dtype` after the
-        bias add, where JAX rounds them (unet.py:270-283)."""
+        bias add, where JAX rounds them (unet.py:270-283). seq: x is a
+        frame slice (halo'd convs, the int8 scale and the statistics over
+        the axis)."""
         b, t, f, cin = x.shape
         stats = None if use_kernels else row_stats_plain
         absmax = row_absmax if use_kernels else row_absmax_plain
@@ -261,7 +291,7 @@ class ResnetBlock(nn.Module):
 
         def gn_mish(acc, norm):
             scale, shift = norm.params()
-            mean, inv = group_mean_inv(acc, self.groups, stats=stats)
+            mean, inv = group_mean_inv(acc, self.groups, stats=stats, seq=seq)
             h = (acc.to(torch.float32) - mean[:, None, :]) * inv[:, None, :]
             return mish_one_exp(h * scale + shift)
 
@@ -269,9 +299,9 @@ class ResnetBlock(nn.Module):
             c = (self.block1, self.block2)[i].conv
             if use_int8:
                 wq = None if self.int8_weights is None else self.int8_weights[i]
-                y = conv3x3_int8(h, c.kernel, f, wq=wq, absmax=absmax)
+                y = conv3x3_int8(h, c.kernel, f, wq=wq, absmax=absmax, seq=seq)
                 return (y + c.bias).to(dtype)
-            return conv3x3_rows(h, c.kernel, f) + c.bias
+            return conv3x3_rows(h, c.kernel, f, seq) + c.bias
 
         c1 = conv(xf, 0)
         h = gn_mish(c1, self.block1.norm) * m32
@@ -308,14 +338,23 @@ class LinearAttention(nn.Module):
         self.to_qkv = Dense(c, 3 * hidden, bias=False)
         self.to_out = Dense(hidden, c)
 
-    def forward(self, x, dtype):
+    def forward(self, x, dtype, seq=None):
+        """seq: x is a frame slice; the key maxima, the softmax sums and the
+        context are reduced over the axis (two collectives), so every rank
+        gets the whole sequence's context."""
         b, t, f, c = x.shape
         n, h, d = t * f, self.heads, self.dim_head
         qkv = x.reshape(b, n, c).to(dtype) @ self.to_qkv.kernel.to(dtype)
         q, k, v = (z.reshape(b, n, h, d) for z in qkv.chunk(3, dim=-1))
-        k_exp = torch.exp(k - k.amax(dim=1, keepdim=True))
+        k_max = k.amax(dim=1, keepdim=True)
+        if seq is not None:
+            k_max = seq.all_max(k_max)
+        k_exp = torch.exp(k - k_max)
         k_sum = k_exp.sum(dim=1, dtype=torch.float32)
         context = torch.einsum("bnhd,bnhe->bhde", k_exp, v)
+        if seq is not None:
+            both = seq.all_sum(torch.cat([k_sum[..., None], context.to(torch.float32)], -1))
+            k_sum, context = both[..., 0], both[..., 1:].to(context.dtype)
         context = context / k_sum[..., None].to(context.dtype)
         out = torch.einsum("bnhd,bhde->bnhe", q, context).reshape(b, t, f, h * d)
         return self.to_out(out, dtype=dtype)
@@ -340,23 +379,27 @@ class RezeroAttention(nn.Module):
             self.packed = fused_attention.pack_attention_weights(self.fn.to_qkv.kernel,
                                                                  self.fn.to_out.kernel)
 
-    def uses_kernel(self, x, use_kernels: bool) -> bool:
-        return (use_kernels and x.shape[1] * x.shape[2] >= PALLAS_MIN_TOKENS
+    def uses_kernel(self, x, use_kernels: bool, seq=None) -> bool:
+        """The kernel's gate at the global tokens (seq: x is a frame slice,
+        whose global frames are seq.t)."""
+        t = x.shape[1] if seq is None else seq.t
+        return (use_kernels and t * x.shape[2] >= PALLAS_MIN_TOKENS
                 and fused_attention.takes(x.shape[3], self.fn.heads, self.fn.dim_head))
 
-    def forward(self, x, mask, dtype, use_kernels):
+    def forward(self, x, mask, dtype, use_kernels, seq=None):
         """With the kernel the output rows past the length come out zeroed,
-        so the caller can skip its own mask multiply."""
-        if self.uses_kernel(x, use_kernels):
+        so the caller can skip its own mask multiply. seq: x is a frame
+        slice (the context over the whole sequence)."""
+        if self.uses_kernel(x, use_kernels, seq):
             b, t, f, c = x.shape
             y = fused_rezero_attention(
                 x.reshape(b, t * f, c).to(dtype), self.fn.to_qkv.kernel,
                 self.fn.to_out.kernel, self.fn.to_out.bias, self.g,
                 lens_rows=lens_rows_from_mask(mask, f),
-                heads=self.fn.heads, dim_head=self.fn.dim_head, packed=self.packed,
+                heads=self.fn.heads, dim_head=self.fn.dim_head, packed=self.packed, seq=seq,
             )
             return y.reshape(b, t, f, c)
-        return x + self.fn(x, dtype) * self.g.to(dtype)
+        return x + self.fn(x, dtype, seq) * self.g.to(dtype)
 
 
 class Downsample(nn.Module):
@@ -372,8 +415,13 @@ class Downsample(nn.Module):
         if kernel_takes(*self.conv.kernel.shape[2:]):
             self.packed = pack_downsample_weight(self.conv.kernel)
 
-    def forward(self, x, dtype):
-        return self.conv(x, stride=2, dtype=dtype)
+    def forward(self, x, dtype, seq=None):
+        """seq: x (masked) is a frame slice starting at an even frame: output
+        frame j reads input frames 2 j - 1 .. 2 j + 1, so the slice reads the
+        one frame before it and no padding on the frame axis."""
+        if seq is None:
+            return self.conv(x, stride=2, dtype=dtype)
+        return self.conv(seq.halo(x, 1, 0), stride=2, dtype=dtype, padding=(0, 1))
 
 
 class Upsample(nn.Module):
@@ -390,8 +438,15 @@ class Upsample(nn.Module):
         if kernel_takes(*self.conv.kernel.shape[2:]):
             self.packed = pack_upsample_weight(self.conv.kernel)
 
-    def forward(self, x, dtype):
-        return self.conv(x, dtype=dtype)
+    def forward(self, x, dtype, seq=None):
+        """seq: x (masked) is a frame slice of t frames: output frame o reads
+        input frames (o - 2) / 2 .. (o + 1) / 2, so the slice's 2 t output
+        frames read one frame a side; the transposed conv over the halo'd
+        t + 2 frames gives 2 t + 4, of which the middle 2 t are the slice's."""
+        if seq is None:
+            return self.conv(x, dtype=dtype)
+        t = x.shape[1]
+        return self.conv(seq.halo(x), dtype=dtype)[:, 2:2 + 2 * t]
 
 
 class GradLogPEstimator2d(nn.Module):
@@ -483,8 +538,15 @@ class GradLogPEstimator2d(nn.Module):
         walk("final_packed", self.final_packed)
         return out
 
-    def forward(self, x, mask, mu, t, spk_emb):
+    def forward(self, x, mask, mu, t, spk_emb, seq=None):
+        """seq: a parallel.FrameSlice; x, mask and mu hold this rank's frames
+        of the sample (the module docstring), the score too."""
+        if seq is not None and (self.use_deep or self.use_i8pre_deep or self.use_resample):
+            raise NotImplementedError(f"the estimator on a seq slice: {QUEUED_DEEP}")
         dt, uk = self.dtype, self.use_kernels
+        seqs = [seq]  # the frame slice of every level
+        for _ in self.dims[1:]:
+            seqs.append(None if seq is None else seqs[-1].down())
         flags = dict(use_int8=self.use_int8_deep, use_deep=self.use_deep,
                      use_i8pre=self.use_i8pre_deep)
         t_emb = sinusoidal_pos_emb(t, self.dim, self.pe_scale)
@@ -515,13 +577,15 @@ class GradLogPEstimator2d(nn.Module):
         for i in range(n_res):
             mk = masks[-1]
             lr = rows(i, mk, h.shape[2])
-            h = getattr(self, f"down_{i}_res1")(h, mk, t_emb, dt, uk, lens_rows=lr, **flags)
+            sq = seqs[i]
+            h = getattr(self, f"down_{i}_res1")(h, mk, t_emb, dt, uk, lens_rows=lr, seq=sq,
+                                                **flags)
             # res1's output is masked: res2 skips its input mask
             h = getattr(self, f"down_{i}_res2")(h, mk, t_emb, dt, uk, pre_masked=True,
-                                                lens_rows=lr, **flags)
+                                                lens_rows=lr, seq=sq, **flags)
             attn = getattr(self, f"down_{i}_attn")
             h_in = h
-            h = attn(h, mk, dt, uk)
+            h = attn(h, mk, dt, uk, sq)
             hiddens.append(h)
             if i < n_res - 1:
                 down = getattr(self, f"down_{i}_down")
@@ -532,27 +596,30 @@ class GradLogPEstimator2d(nn.Module):
                     h = fused_downsample_conv(h.to(dt), mk, down.conv.kernel, down.conv.bias,
                                               packed=down.packed, lens=frames(i, mk))
                 else:
-                    hin = h if attn.uses_kernel(h_in, uk) else h * mk
-                    h = down(hin, dt)
+                    hin = h if attn.uses_kernel(h_in, uk, sq) else h * mk
+                    h = down(hin, dt, sq)
             masks.append(mk[:, ::2])
 
         masks = masks[:-1]
         mk = masks[-1]
         lr = rows(n_res - 1, mk, h.shape[2])
-        h = self.mid_res1(h, mk, t_emb, dt, uk, lens_rows=lr, **flags)
-        h = self.mid_attn(h, mk, dt, uk)
-        h = self.mid_res2(h, mk, t_emb, dt, uk, lens_rows=lr, **flags)
+        sq = seqs[-1]
+        h = self.mid_res1(h, mk, t_emb, dt, uk, lens_rows=lr, seq=sq, **flags)
+        h = self.mid_attn(h, mk, dt, uk, sq)
+        h = self.mid_res2(h, mk, t_emb, dt, uk, lens_rows=lr, seq=sq, **flags)
 
         for i in reversed(range(n_res - 1)):
             mk = masks.pop()
             h = torch.cat([h, hiddens.pop()], dim=-1)
             lr = rows(i + 1, mk, h.shape[2])
-            h = getattr(self, f"up_{i}_res1")(h, mk, t_emb, dt, uk, lens_rows=lr, **flags)
+            sq = seqs[i + 1]  # up stage i runs at level i + 1
+            h = getattr(self, f"up_{i}_res1")(h, mk, t_emb, dt, uk, lens_rows=lr, seq=sq,
+                                              **flags)
             h = getattr(self, f"up_{i}_res2")(h, mk, t_emb, dt, uk, pre_masked=True,
-                                              lens_rows=lr, **flags)
+                                              lens_rows=lr, seq=sq, **flags)
             attn = getattr(self, f"up_{i}_attn")
             h_in = h
-            h = attn(h, mk, dt, uk)
+            h = attn(h, mk, dt, uk, sq)
             up = getattr(self, f"up_{i}_up")
             if (self.use_resample and supports_upsample(h.shape[1], h.shape[2], self.dims[i])
                     and kernel_takes(self.dims[i], self.dims[i])):
@@ -561,15 +628,15 @@ class GradLogPEstimator2d(nn.Module):
                 h = fused_upsample_conv(h.to(dt), mk, up.conv.kernel, up.conv.bias,
                                         packed=up.packed, lens=frames(i + 1, mk))
             else:
-                hin = h if attn.uses_kernel(h_in, uk) else h * mk
-                h = up(hin, dt)
+                hin = h if attn.uses_kernel(h_in, uk, sq) else h * mk
+                h = up(hin, dt, sq)
 
         fb, fc = self.final_block, self.final_conv
         if (uk and fused_kernel_shape(h.shape[2])
                 and fused_resnet.takes(fb.conv.kernel.shape[-1], self.groups)):
             return fused_final_block(h.to(dt), m, fb.conv.kernel, fb.conv.bias,
                                      *fb.norm.params(), fc.kernel, fc.bias,
-                                     groups=self.groups, packed=self.final_packed)
-        h = self.final_block(h, m, dt, row_stats_plain)
+                                     groups=self.groups, packed=self.final_packed, seq=seq)
+        h = self.final_block(h, m, dt, row_stats_plain, seq=seq)
         out = self.final_conv(h * m, dtype=dt)
         return (out * m)[..., 0].to(torch.float32)

@@ -65,6 +65,11 @@ _SIGNATURES = {
     "us_conv_i8_tiles_n_tiles": ([_I] * 3, _I),
     "us_conv_plan_i8_tiles": ([_I] * 7 + [_P], _I),
     "us_resnet_out_none": ([_P] * 7 + [_I] * 3 + [_P], _I),
+    "us_resnet_conv3x3_halo": ([_P, _P, _I] + [_P] * 4 + [_I] * 5 + [_P], _I),
+    "us_gn_film_rows": ([_P, _I] + [_P] * 7 + [_I] * 5 + [_F, _P], _I),
+    "us_final_tail": ([_P, _P, _I] + [_P] * 6 + [_I] * 5 + [_F, _P], _I),
+    "us_attn_kv": ([_P] * 5 + [_I] * 3 + [_P], _I),
+    "us_attn_merge_out": ([_P] * 10 + [_I, _P] + [_I] * 3 + [_P], _I),
     "us_transcendental_chain": ([_P] * 2 + [_I] * 3 + [_P], _I),
     "us_row_select": ([_P] * 2 + [_I] * 4 + [_P], _I),
     "us_interleave_rows": ([_P] * 2 + [_I] * 2 + [_P], _I),

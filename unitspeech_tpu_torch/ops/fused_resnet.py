@@ -35,6 +35,17 @@ Numerics contract (the Pallas kernels'): convs accumulate in f32 and round
 once to the activation dtype; the statistics come from the f32
 accumulators and pool over every row of the padded bucket; GN math and
 mish run in f32.
+
+On a frame slice of the seq axis (`seq=`, a parallel.FrameSlice) K1 and K2
+run the same kernels one launch at a time with collectives between them
+(`resnet_block_seq`, `final_block_seq`): each conv reads a halo'd input
+(the neighbours' edge frame on each side, masked by the sender, zeros at
+the global ends; us_resnet_conv3x3_halo) and writes and sums the slice's
+rows only, so every global frame enters the statistics once; the tile
+sums of every rank are gathered (parallel.FrameSlice.cat) and folded
+with the global row count (us_gn_film_rows, us_gn_finalize, us_final_tail).
+Each step has its plain twin, which a CPU tensor takes: the chain is the
+same code on both.
 """
 
 from __future__ import annotations
@@ -44,9 +55,16 @@ import torch
 import torch.nn.functional as F
 
 from unitspeech_tpu_torch.ops import _cuda
-from unitspeech_tpu_torch.ops.conv_matmul import conv3x3_rows, im2col, quantize_weight
+from unitspeech_tpu_torch.ops.conv_matmul import (
+    conv3x3_halo_rows,
+    conv3x3_rows,
+    halo_rows,
+    im2col,
+    quantize_weight,
+)
 from unitspeech_tpu_torch.ops.masking import frames_from_mask
 from unitspeech_tpu_torch.ops.resample import KC, pad_chunks, swizzle128
+from unitspeech_tpu_torch.ops.row_stats import fold_stats, row_stats_plain
 
 GN_EPS = 1e-5
 I8_KC = 128  # input channels per chunk of the int8 Hopper conv: one 128-byte row
@@ -620,7 +638,7 @@ fused_resnet_block_int8.launches = 0
 def fused_resnet_block(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
                        w2, b2, gn2_scale, gn2_bias, wres=None, bres=None,
                        groups: int = 8, int8: bool = False, frames_per_tile: int = 0,
-                       wq=None, packed=None):
+                       wq=None, packed=None, seq=None):
     """One U-Net ResnetBlock (plain twin: models/unet.py ResnetBlock).
 
     x (B, T, F, Cin); mask (B, T, 1, 1) prefix mask; t_bias (B, Cout) the
@@ -630,7 +648,13 @@ def fused_resnet_block(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
     launch packs them). -> (B, T, F, Cout). CUDA tensors launch the kernel
     (widths: `takes`), CPU tensors take resnet_block_plain. int8=True is
     K10a (fused_resnet_block_int8, which takes frames_per_tile, wq, and
-    packed from pack_block_weights_int8); in bf16 they change nothing."""
+    packed from pack_block_weights_int8); in bf16 they change nothing.
+    seq: x is a frame slice of the seq axis (parallel.FrameSlice): the
+    sharded chain (resnet_block_seq), kernels on CUDA tensors, their plain
+    twins on CPU tensors."""
+    if seq is not None and int8:
+        raise NotImplementedError("fused_resnet_block(int8=True) on a frame slice: K10a has no "
+                                  "model route and no sharded form")
     if int8:
         return fused_resnet_block_int8(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2,
                                        gn2_scale, gn2_bias, wres, bres, groups=groups,
@@ -638,7 +662,11 @@ def fused_resnet_block(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
     bsz, t, f, _ = x.shape
     args = block_rows_args(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2, gn2_scale,
                            gn2_bias, wres, bres)
-    if _cuda.route(x, "fused_resnet_block"):
+    if seq is not None:
+        out = resnet_block_seq(*args, f=f, groups=groups, seq=seq, packed=packed)
+        if x.is_cuda:
+            fused_resnet_block.launches += 1
+    elif _cuda.route(x, "fused_resnet_block"):
         out = _resnet_block_cuda(*args, f=f, groups=groups, packed=packed)
         fused_resnet_block.launches += 1
     else:
@@ -780,18 +808,23 @@ def _final_block_cuda(x, lens, w1, b1, s1, be1, wo, bo, f, groups, packed=None):
 
 
 def fused_final_block(x, mask, w1, b1, gn_scale, gn_bias, w_out, b_out, groups: int = 8,
-                      packed=None):
+                      packed=None, seq=None):
     """conv3x3 + GN + mish + mask (the estimator's final_block) fused with
     the 1-channel final_conv: x (B, T, F, C) -> (B, T, F) f32 score.
     packed: pack_conv_weight(w1) when made at load. CUDA tensors launch the
-    kernel (widths: `takes`), CPU tensors take final_block_plain."""
+    kernel (widths: `takes`), CPU tensors take final_block_plain. seq: x
+    is a frame slice of the seq axis: the sharded chain (final_block_seq)."""
     bsz, t, f, cin = x.shape
     cout = w1.shape[-1]
     args = (
         x.reshape(bsz, t * f, cin), lens_rows_from_mask(mask, f),
         w1.reshape(9 * cin, cout), b1, gn_scale, gn_bias, w_out.reshape(cout), b_out,
     )
-    if _cuda.route(x, "fused_final_block"):
+    if seq is not None:
+        out = final_block_seq(*args, f=f, groups=groups, seq=seq, packed=packed)
+        if x.is_cuda:
+            fused_final_block.launches += 1
+    elif _cuda.route(x, "fused_final_block"):
         out = _final_block_cuda(*args, f=f, groups=groups, packed=packed)
         fused_final_block.launches += 1
     else:
@@ -800,3 +833,155 @@ def fused_final_block(x, mask, w1, b1, gn_scale, gn_bias, w_out, b_out, groups: 
 
 
 fused_final_block.launches = 0
+
+
+# --- the sharded chain on a frame slice of the seq axis -----------------------
+
+
+def _tiles_each(seq, f, cin, cuda):
+    """Every rank's kernel-A tile count at this level (the tile sums' second
+    dimension): the card's plan of each rank's rows; one on the CPU (the
+    plain twin's one sum)."""
+    if not cuda:
+        return [1] * len(seq.bounds)
+    lib = _cuda.lib()
+    return [lib.us_conv_n_tiles(n * f, f, cin) for _, n in seq.bounds]
+
+
+def resnet_conv3x3_halo_plain(xh, lens_rows, w, bias, f: int):
+    """Kernel A on a halo'd input, plain: xh (B, (T + 2) * F, Cin), its
+    halo frames read as they are, the interior rows at/after lens_rows
+    zero; w (9*Cin, Cout) -> (c (B, T*F, Cout) in xh's dtype, the sums (B,
+    1, 2, Cout) f32 of the f32 accumulator: one tile)."""
+    dt = xh.dtype
+    b, nh = xh.shape[:2]
+    n = nh - 2 * f
+    one = torch.ones((b, f, 1), dtype=torch.float32, device=xh.device)
+    v = torch.cat([one, _valid(lens_rows, n), one], dim=1)
+    acc = conv3x3_halo_rows(xh.to(torch.float32) * v, w.to(dt).to(torch.float32), f) + bias
+    return acc.to(dt), row_stats_plain(acc)[:, None]
+
+
+def resnet_conv3x3_halo(xh, lens_rows, w, bias, f: int, packed=None):
+    """Kernel A on a halo'd input (us_resnet_conv3x3_halo; uncounted, a step
+    of the sharded chains): arguments as resnet_conv3x3_halo_plain, packed
+    the conv's pack_conv_weight -> (c, tile sums (B, tiles, 2, Cout)). CUDA
+    tensors launch the kernel, CPU tensors take the plain twin."""
+    if not _cuda.route(xh, "resnet_conv3x3_halo"):
+        return resnet_conv3x3_halo_plain(xh, lens_rows, w, bias, f)
+    b, nh, cin = xh.shape
+    n, cout = nh - 2 * f, bias.shape[-1]
+    if packed is None:
+        packed = pack_conv_weight(w.reshape(3, 3, cin, cout))
+    wp, bn = _packed_operand(packed, "w", 9, cin, cout, xh.device)
+    _cuda.require(xh, "x (halo)", dtype=torch.bfloat16)
+    _cuda.require(lens_rows, "lens", dtype=torch.int32, shape=(b,), device=xh.device)
+    lib = _cuda.lib()
+    part = torch.empty((b, lib.us_conv_n_tiles(n, f, cin), 2, cout), dtype=torch.float32,
+                       device=xh.device)
+    out = torch.empty((b, n, cout), dtype=xh.dtype, device=xh.device)
+    _cuda.check(lib.us_resnet_conv3x3_halo(xh.data_ptr(), wp.data_ptr(), bn,
+                                           _f32(bias).data_ptr(), lens_rows.data_ptr(),
+                                           out.data_ptr(), part.data_ptr(), b, n, f, cin, cout,
+                                           _cuda.stream(xh)), "resnet conv3x3 (halo)")
+    return out, part
+
+
+def _mean_inv(part, groups, n_rows):
+    """Gathered tile sums (B, tiles, 2, C) of n_rows rows -> per-channel
+    (mean, inv), each (B, C)."""
+    return fold_stats(part.sum(dim=1), groups, n_rows, GN_EPS)
+
+
+def resnet_block_seq(x, lens, t_bias, w1, b1, s1, be1, w2, b2, s2, be2, wres, bres, f: int,
+                     groups: int, seq, packed=None):
+    """K1 on a frame slice of the seq axis, in the card's launch order: x
+    (B, N, Cin) this rank's rows, lens its valid rows, the rest as
+    resnet_block_plain. 1 halo of x; 2 kernel A over the interior; 3 every
+    rank's tile sums gathered; 4 gn_film with the global row count; 5 halo
+    of h; 6 kernel B; 7 the sums gathered; 8 gn_finalize with the global
+    count; 9 kernel C on the slice's rows. Four collectives. CUDA tensors
+    launch the kernels (one launch each, as us_resnet_block makes them),
+    CPU tensors run each step's plain twin."""
+    b, n, cin = x.shape
+    cout = b1.shape[-1]
+    dt, dev = x.dtype, x.device
+    cuda = _cuda.route(x, "fused_resnet_block")
+    n_glob = seq.rows(n)
+    p1 = p2 = pr = None
+    if cuda:
+        _check_shapes("fused_resnet_block", x, cout, groups)
+        if wres is None and cin != cout:
+            raise ValueError("fused_resnet_block: identity residual needs Cin == Cout")
+        if packed is None:
+            packed = pack_block_weights(w1.reshape(3, 3, cin, cout),
+                                        w2.reshape(3, 3, cout, cout),
+                                        None if wres is None else wres.reshape(1, 1, cin, cout))
+        p1, p2, pr = packed
+        _cuda.require(lens, "lens", dtype=torch.int32, shape=(b,), device=dev)
+    c1, part = resnet_conv3x3_halo(halo_rows(x, f, seq, lens), lens, w1, b1, f, p1)
+    part = seq.cat(part, _tiles_each(seq, f, cin, cuda))
+    if cuda:
+        lib, st = _cuda.lib(), _cuda.stream(x)
+        film = _cuda.require(t_bias.to(dt).contiguous(), "t_bias", shape=(b, cout), device=dev)
+        stats = torch.empty((4, b, cout), dtype=torch.float32, device=dev)
+        _cuda.check(lib.us_gn_film_rows(part.data_ptr(), part.shape[1], c1.data_ptr(),
+                                        lens.data_ptr(), _f32(s1).data_ptr(),
+                                        _f32(be1).data_ptr(), film.data_ptr(),
+                                        stats[0].data_ptr(), stats[1].data_ptr(), b, n, cout,
+                                        groups, n_glob, GN_EPS, st), "gn_film (rows)")
+        h = c1
+    else:
+        mean1, inv1 = _mean_inv(part, groups, n_glob)
+        h = _film_masked(c1, mean1[:, None], inv1[:, None], s1, be1, t_bias, _valid(lens, n), dt)
+    c2, part = resnet_conv3x3_halo(halo_rows(h, f, seq), lens, w2, b2, f, p2)
+    part = seq.cat(part, _tiles_each(seq, f, cout, cuda))
+    if not cuda:
+        mean2, inv2 = _mean_inv(part, groups, n_glob)
+        return _kernel_c_plain(c2, x, mean2[:, None], inv2[:, None], s2, be2, _valid(lens, n),
+                               wres, bres)
+    _cuda.check(lib.us_gn_finalize(part.data_ptr(), b, part.shape[1], cout, groups, n_glob,
+                                   GN_EPS, stats[2].data_ptr(), stats[3].data_ptr(), 0, st),
+                "groupnorm statistics")
+    wr, bn = None, 0
+    if wres is not None:
+        wr, bn = _packed_operand(pr, "wres", 1, cin, cout, dev)
+        bres = _f32(bres)
+    out = torch.empty((b, n, cout), dtype=dt, device=dev)
+    _cuda.check(lib.us_resnet_out(c2.data_ptr(), x.data_ptr(), stats[2].data_ptr(),
+                                  stats[3].data_ptr(), _f32(s2).data_ptr(), _f32(be2).data_ptr(),
+                                  _cuda.ptr(wr), bn, _cuda.ptr(bres), lens.data_ptr(),
+                                  out.data_ptr(), b, n, cin, cout, 0, st), "resnet_out")
+    return out
+
+
+def final_block_seq(x, lens, w1, b1, s1, be1, wo, bo, f: int, groups: int, seq, packed=None):
+    """K2 on a frame slice of the seq axis, in the card's launch order: a
+    halo of x, kernel A over the interior, every rank's tile sums gathered,
+    then the tail with the global row count (us_final_tail) on the slice's
+    rows. Arguments as final_block_plain. Two collectives. CUDA tensors
+    launch the kernels, CPU tensors run each step's plain twin."""
+    b, n, cin = x.shape
+    cout = w1.shape[-1]
+    dt, dev = x.dtype, x.device
+    cuda = _cuda.route(x, "fused_final_block")
+    n_glob = seq.rows(n)
+    if cuda:
+        _check_shapes("fused_final_block", x, cout, groups)
+        _cuda.require(lens, "lens", dtype=torch.int32, shape=(b,), device=dev)
+    c1, part = resnet_conv3x3_halo(halo_rows(x, f, seq, lens), lens, w1, b1, f, packed)
+    part = seq.cat(part, _tiles_each(seq, f, cin, cuda))
+    valid = _valid(lens, n)
+    if not cuda:
+        mean, inv = _mean_inv(part, groups, n_glob)
+        h = (_gn_mish(c1, mean[:, None], inv[:, None], s1, be1) * valid).to(dt)
+        y = h.to(torch.float32) @ wo.to(dt).to(torch.float32) + bo
+        return y * valid[..., 0]
+    wo = _cuda.require(_f32(wo), "w_out", shape=(cout,), device=dev)
+    out = torch.empty((b, n), dtype=torch.float32, device=dev)
+    _cuda.check(_cuda.lib().us_final_tail(c1.data_ptr(), part.data_ptr(), part.shape[1],
+                                          _f32(s1).data_ptr(), _f32(be1).data_ptr(),
+                                          wo.data_ptr(), _f32(bo).data_ptr(), lens.data_ptr(),
+                                          out.data_ptr(), b, n, n_glob, cout, groups, GN_EPS,
+                                          _cuda.stream(x)), "final tail")
+    return out

@@ -7,7 +7,10 @@ K3 is one launch in either of two forms: the sums (`row_stats`, (B, 2, C))
 or, for `group_mean_inv` on the card, the group fold in the same launch
 (per-channel mean and inv_std), where each group lies in one cluster's
 slice of channels (`fold_takes`); elsewhere `group_mean_inv` folds the
-sums in PyTorch. CUDA source: csrc/row_stats.cu, which also states what
+sums in PyTorch. On a frame slice of the seq axis (`seq`, a
+parallel.FrameSlice) `group_mean_inv` runs the sums form, sums them over
+the axis and folds them with the global row count. CUDA source:
+csrc/row_stats.cu, which also states what
 bounds the kernels and how they are laid out. The custom VJP of the JAX
 row_stats waits for the training slice.
 """
@@ -128,15 +131,11 @@ def row_absmax(x: torch.Tensor) -> torch.Tensor:
 row_absmax.launches = 0
 
 
-def group_mean_inv_plain(x2: torch.Tensor, groups: int, eps: float = 1e-5,
-                         stats=row_stats_plain):
-    """The fold's plain version: GroupNorm statistics of a row-flattened
-    activation x2 (B, n, C) from its row statistics `stats(x2)`: per-channel
-    f32 (mean, inv_std), each (B, C), constant within a group. They pool
-    over ALL rows, padding included (torch GroupNorm)."""
-    b, n, c = x2.shape
+def fold_stats(st: torch.Tensor, groups: int, n: int, eps: float = 1e-5):
+    """Row statistics st (B, 2, C) of n rows -> per-channel f32 (mean,
+    inv_std), each (B, C), constant within a group."""
+    b, _, c = st.shape
     cg = c // groups
-    st = stats(x2)
     m = float(n * cg)
     mean_g = st[:, 0].reshape(b, groups, cg).sum(-1) / m
     var_g = st[:, 1].reshape(b, groups, cg).sum(-1) / m - mean_g * mean_g
@@ -144,15 +143,30 @@ def group_mean_inv_plain(x2: torch.Tensor, groups: int, eps: float = 1e-5,
     return mean_g.repeat_interleave(cg, dim=1), inv_g.repeat_interleave(cg, dim=1)
 
 
-def group_mean_inv(x2: torch.Tensor, groups: int, eps: float = 1e-5, stats=None):
+def group_mean_inv_plain(x2: torch.Tensor, groups: int, eps: float = 1e-5,
+                         stats=row_stats_plain):
+    """The fold's plain version: GroupNorm statistics of a row-flattened
+    activation x2 (B, n, C) from its row statistics `stats(x2)`: per-channel
+    f32 (mean, inv_std), each (B, C), constant within a group. They pool
+    over ALL rows, padding included (torch GroupNorm)."""
+    return fold_stats(stats(x2), groups, x2.shape[1], eps)
+
+
+def group_mean_inv(x2: torch.Tensor, groups: int, eps: float = 1e-5, stats=None, seq=None):
     """GroupNorm statistics of a row-flattened activation x2 (B, n, C):
     per-channel f32 (mean, inv_std), each (B, C), constant within a group,
     pooled over ALL rows, padding included (torch GroupNorm). A CUDA tensor
     with no `stats` given launches K3's fold form where `fold_takes`, else
     K3's sums and the plain fold; a CPU tensor, or a `stats` function
     passed in, takes group_mean_inv_plain over `stats` (row_stats when
-    none)."""
+    none). seq: x2's rows are one frame slice of the seq axis (a
+    parallel.FrameSlice): the sums (K3's sums form, or `stats`) are summed
+    over the axis and folded with the global row count, so every rank gets
+    the unsharded statistics."""
     c = x2.shape[-1]
+    if seq is not None:
+        st = seq.all_sum((row_stats if stats is None else stats)(x2))
+        return fold_stats(st, groups, seq.rows(x2.shape[1]), eps)
     if stats is None and _cuda.route(x2, "group_mean_inv") and fold_takes(c, groups):
         return _group_mean_inv_cuda(x2, groups, eps)
     return group_mean_inv_plain(x2, groups, eps, row_stats if stats is None else stats)

@@ -2,9 +2,9 @@
 the process-group launch (launch.py) and the device mesh with every
 collective the port makes (mesh.py). Data-parallel STEP1 / STEP2
 (train/steps.py, train/loop.py), speaker-per-rank fine-tuning
-(train/finetune.py), data-sharded batched synthesis (models/diffusion.py,
-infer/tts.py) and distributed transcription (tools/distributed_transcribe.py)
-run on them."""
+(train/finetune.py), data- and sequence-sharded sampling and batched
+synthesis (models/diffusion.py, models/unet.py, infer/tts.py) and
+distributed transcription (tools/distributed_transcribe.py) run on them."""
 
 from unitspeech_tpu_torch.parallel.launch import (  # noqa: F401
     Group,
@@ -14,7 +14,10 @@ from unitspeech_tpu_torch.parallel.launch import (  # noqa: F401
     run_group,
 )
 from unitspeech_tpu_torch.parallel.mesh import (  # noqa: F401
+    SEQ_UNIT,
     DataShard,
+    FrameSlice,
+    SeqShard,
     make_mesh,
     replicate_tree,
     sample_shard,

@@ -2,18 +2,31 @@
 unitspeech_tpu/parallel/mesh.py).
 
 A mesh is a `torch.distributed.device_mesh.DeviceMesh` with the JAX
-package's axes (data, seq, model), one rank a card. The port shards on
-`data` alone: a `DataShard` is one rank's place on that axis. It owns the
-rows of a batch (rank, rank + size, ...), draws what a global batch draws
-and keeps its own rows, and sums, takes maxima, gathers and broadcasts
-over the axis's process group; with no group (a single process) each of
-these is the identity. The collectives are `all_reduce` and `broadcast`
-only, the two that gloo also runs on CUDA tensors, so the gather is the
-sum of zero-filled buffers.
+package's axes (data, seq, model), one rank a card. A `DataShard` is one
+rank's place on `data`: it owns the rows of a batch (rank, rank + size,
+...), draws what a global batch draws and keeps its own rows, and sums,
+takes maxima, gathers and broadcasts over the axis's process group; with
+no group (a single process) each of these is the identity.
 
-The `seq` and `model` axes exist so that specs naming them resolve, but no
-path shards on them yet: the sequence-sharded sampler and tensor
-parallelism are the next module slice (ROADMAP), and a spec naming them
+A `SeqShard` is one rank's place on `seq`, the sampler's frame axis: it
+splits T into contiguous slices whose boundaries fall on multiples of
+SEQ_UNIT = 8 frames (2 ** (len(dim_mults) - 1): every U-Net level's slice
+is then whole and the stride-2 halves line up), uneven where T asks for
+it (344 frames: 176 + 168 over two ranks), never padded (GroupNorm pools
+over every row, padding included: extra frames would change the
+statistics). `SeqShard.at(T)` is one call's `FrameSlice`, which the
+estimator carries down its levels: the global frames, this rank's first
+frame and its length, and the collectives a sharded site needs (the
+neighbours' edge frames as a halo, sums, maxima, the slices gathered).
+
+The collectives are `all_reduce` and `broadcast` only, the two that gloo
+also runs on CUDA tensors (two ranks on one card run over gloo), so a
+gather or a halo is the sum of zero-filled buffers (exact: each element
+has one non-zero term). Every collective of the seq axis adds one to
+`SeqShard.collectives`, as a kernel wrapper counts its launches.
+
+The `model` axis exists so that specs naming it resolve; tensor
+parallelism is the next module slice (ROADMAP), and a spec naming it
 raises NotImplementedError.
 """
 
@@ -27,10 +40,13 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "seq", "model")
-QUEUED = ("sharding over 'seq' (the frame axis: halos for the 3x3 convs, 8-frame shard "
-          "boundaries for the stride-2 resamples, K3's and K4's partial reductions) and "
-          "'model' (tensor parallelism) are the next module slice of the port (ROADMAP), not "
-          "ported yet")
+SEQ_UNIT = 8  # frames: the seq slices' boundaries, 2 ** (len(dim_mults) - 1)
+QUEUED = ("sharding over 'model' (tensor parallelism: Cout split over the axis, an "
+          "all-gather at each layer boundary) is the next module slice of the port (ROADMAP), "
+          "not ported yet")
+QUEUED_DEEP = ("the fused deep-stage configuration under 'seq' (use_deep / use_i8pre_deep: "
+               "K8's and K9's chains; use_resample: K11's halos at 8-frame boundaries) is the "
+               "next module slice of the port (ROADMAP), not ported yet")
 
 
 def make_mesh(data: Optional[int] = None, seq: int = 1, model: int = 1):
@@ -150,6 +166,145 @@ class DataShard:
             dist.broadcast(t, src=self.src, group=self.group)
 
 
+@dataclass(frozen=True)
+class SeqShard:
+    """Rank `rank` of `size` on the seq axis, over `group` (None: this
+    process alone). Frames split into contiguous slices of whole
+    SEQ_UNIT-frame pieces (`split`); `at(T)` is one call's FrameSlice."""
+
+    rank: int = 0
+    size: int = 1
+    group: Any = None
+
+    # every collective over the axis (all_reduce / broadcast calls), as the
+    # kernel wrappers count their launches; set it to 0 before a run
+    collectives = 0
+
+    @classmethod
+    def of(cls, mesh) -> "SeqShard":
+        sub = mesh["seq"]
+        return cls(sub.get_local_rank(), sub.size(), sub.get_group())
+
+    def split(self, t: int):
+        """Every rank's (first frame, frames) of T frames: whole units, the
+        first T / SEQ_UNIT % size ranks one unit more. T must be a multiple
+        of the unit and hold at least one unit a rank (ValueError)."""
+        if t % SEQ_UNIT or t < SEQ_UNIT * self.size:
+            raise ValueError(f"{t} frames do not split over the seq axis ({self.size} ranks) in "
+                             f"whole slices of {SEQ_UNIT} frames: at least {SEQ_UNIT} a rank")
+        base, extra = divmod(t // SEQ_UNIT, self.size)
+        sizes = [(base + (r < extra)) * SEQ_UNIT for r in range(self.size)]
+        starts = [sum(sizes[:r]) for r in range(self.size)]
+        return tuple(zip(starts, sizes))
+
+    def at(self, t: int) -> "FrameSlice":
+        """The FrameSlice of a call over T global frames (level 0)."""
+        bounds = self.split(t)
+        return FrameSlice(self, t, *bounds[self.rank], bounds)
+
+    def all_reduce(self, t: torch.Tensor, op=None) -> torch.Tensor:
+        """t reduced over the axis (SUM unless op), in a new tensor outside
+        autograd; counted."""
+        if self.group is None:
+            return t
+        out = t.detach().clone()
+        dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=self.group)
+        SeqShard.collectives += 1
+        return out
+
+
+@dataclass(frozen=True)
+class FrameSlice:
+    """One call's frames on the seq axis at one U-Net level: T global
+    frames `t`, this rank's `start` and `length`, every rank's (start,
+    length) in `bounds`. Arrays hold frames on dim 1 ((B, T, ...)) unless
+    a dim is given."""
+
+    shard: SeqShard
+    t: int
+    start: int
+    length: int
+    bounds: tuple
+
+    def down(self) -> "FrameSlice":
+        """The next level's slice: every frame count halved (the slices'
+        boundaries are whole units, so every level's are whole)."""
+        return FrameSlice(self.shard, self.t // 2, self.start // 2, self.length // 2,
+                          tuple((s // 2, n // 2) for s, n in self.bounds))
+
+    def rows(self, n: int) -> int:
+        """The global rows of a local (length x F) row count n."""
+        return n // self.length * self.t
+
+    def take(self, x, dim: int = 1):
+        """This rank's frames of x along `dim`, contiguous."""
+        return x.narrow(dim, self.start, self.length).contiguous()
+
+    def all_sum(self, t: torch.Tensor) -> torch.Tensor:
+        return self.shard.all_reduce(t)
+
+    def all_max(self, t: torch.Tensor) -> torch.Tensor:
+        return self.shard.all_reduce(t, dist.ReduceOp.MAX)
+
+    def cat(self, local: torch.Tensor, sizes, dim: int = 1) -> torch.Tensor:
+        """Every rank's `local` concatenated along `dim` in rank order, on
+        every rank; sizes[r] is rank r's extent along dim (each rank writes
+        its part into zeros, the buffers are summed: floats in f32, exact
+        next to zeros, then cast back). One collective."""
+        if self.shard.group is None:
+            return local
+        dtype = torch.float32 if local.is_floating_point() else torch.int64
+        shape = list(local.shape)
+        shape[dim] = sum(sizes)
+        buf = torch.zeros(shape, dtype=dtype, device=local.device)
+        buf.narrow(dim, sum(sizes[:self.shard.rank]), sizes[self.shard.rank]).copy_(local)
+        return self.all_sum(buf).to(local.dtype)
+
+    def gather(self, local: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The global frames along `dim` from every rank's slice."""
+        return self.cat(local, [n for _, n in self.bounds], dim)
+
+    def halo(self, x: torch.Tensor, before: int = 1, after: int = 1, mask=None):
+        """x (B, length, ...) with the neighbours' edge frames around it: the
+        `before` frames ahead of this slice and the `after` frames past it
+        -> (B, before + length + after, ...), zeros beyond the global ends
+        (exactly SAME zero padding). mask (B, length) or broadcastable to
+        x's frames: the frames sent are masked (the receiver sees the
+        padding as the unsharded program does). One collective."""
+        b, n = x.shape[:2]
+        rest = tuple(x.shape[2:])
+        if before > n or after > n:
+            raise ValueError(f"a halo of {before} / {after} frames over a slice of {n}")
+
+        def edge(frames):
+            e = x[:, frames]
+            if mask is not None:
+                m = mask[:, frames]
+                e = e * m.reshape(m.shape + (1,) * (e.dim() - m.dim())).to(e.dtype)
+            return e.to(torch.float32)
+
+        size, rank = self.shard.size, self.shard.rank
+        buf = torch.zeros((size, b, before + after) + rest, dtype=torch.float32,
+                          device=x.device)
+        if before:
+            buf[rank, :, :before] = edge(slice(n - before, n))
+        if after:
+            buf[rank, :, before:] = edge(slice(0, after))
+        if self.shard.group is not None:
+            buf = self.all_sum(buf)
+        lo = buf[rank - 1, :, :before] if rank > 0 else buf.new_zeros((b, before) + rest)
+        hi = buf[rank + 1, :, before:] if rank < size - 1 else buf.new_zeros((b, after) + rest)
+        return torch.cat([lo.to(x.dtype), x, hi.to(x.dtype)], dim=1)
+
+    def randn(self, shape, generator=None, device=None, rows=None):
+        """torch.randn of the global frames (shape[1] this slice's), this
+        slice's frames kept: the draw does not depend on the world size.
+        rows: the batch's DataShard (its global rows drawn, this rank's
+        kept), when the rows are sharded too."""
+        full = (shape[0], self.t) + tuple(shape[2:])
+        return self.take((rows or SINGLE).randn(full, generator=generator, device=device))
+
+
 # a single process: every row, draws as drawn, every collective the identity
 SINGLE = DataShard()
 
@@ -200,23 +355,31 @@ def replicate_tree(tree, shard: DataShard, device=None):
     return out
 
 
-def sample_shard(mesh, sample_spec) -> Optional[DataShard]:
-    """The DataShard a sampler's (B, T, F) spec asks for: None without a
-    mesh or a spec, or when the spec names no axis; this rank's place on
-    'data' when the spec puts 'data' on the batch axis alone. A spec naming
-    'seq' or 'model' raises NotImplementedError (QUEUED): it never runs
-    unsharded without saying so."""
+def sample_shard(mesh, sample_spec):
+    """The shards a sampler's (B, T, F) spec asks for: (data, seq), each
+    None where the spec does not name its axis (both None without a mesh
+    or a spec). 'data' may shard the batch axis: this rank's DataShard;
+    'seq' the frame axis: its SeqShard, None where the mesh's seq axis has
+    one rank (the unsharded program). A spec naming 'model' raises
+    NotImplementedError (QUEUED): it never runs unsharded without saying
+    so; an axis anywhere else raises ValueError."""
     if mesh is None or sample_spec is None:
-        return None
-    named = [a for entry in sample_spec if entry is not None
-             for a in (entry if isinstance(entry, (tuple, list)) else (entry,))]
-    if any(a != "data" for a in named):
+        return None, None
+    spec = list(sample_spec) + [None] * (3 - len(sample_spec))
+
+    def names(entry):
+        return [] if entry is None else list(entry) if isinstance(entry, (tuple, list)) else [entry]
+
+    named = [a for entry in spec for a in names(entry)]
+    if "model" in named:
         raise NotImplementedError(f"sample_spec {tuple(sample_spec)}: {QUEUED}")
-    if not named:
-        return None
-    if list(sample_spec)[0] != "data" or len(named) != 1:
-        raise ValueError(f"sample_spec {tuple(sample_spec)}: 'data' shards the batch axis only")
-    return DataShard.of(mesh)
+    if len(spec) != 3 or names(spec[0]) not in ([], ["data"]) or \
+            names(spec[1]) not in ([], ["seq"]) or names(spec[2]):
+        raise ValueError(f"sample_spec {tuple(sample_spec)}: 'data' shards the batch axis and "
+                         f"'seq' the frame axis only")
+    data = DataShard.of(mesh) if spec[0] is not None else None
+    seq = SeqShard.of(mesh) if spec[1] is not None and mesh["seq"].size() > 1 else None
+    return data, seq
 
 
 def train_shard(batch_size: int) -> DataShard:
