@@ -85,8 +85,8 @@ inference --vocoder` on K5 / K6 (exact launches) and held to the plain
 vocoder within compare_paths' vocoder bound.
 Then evaluation (`eval.generate_samples`, `cli evaluate`): per speaker on
 two speakers of that corpus tree (`cli finetune` from each speaker's wav
-with the frontends' SSL files, then three of its texts on the serving
-defaults) and flat on the base checkpoint (four sentences), every request
+with the frontends' SSL files, then two of its texts on the serving
+defaults) and flat on the base checkpoint (two sentences), every request
 with exactly its bucket's launches and its waveform y_length x hop long,
 the timings agreeing with the samples, one sample of each mode within the
 TTS bounds of the plain path on the same seed; `cli evaluate --device
@@ -139,7 +139,19 @@ to the unsharded request; world 2: within the bounds against world 1, the
 launches a request those of the unsharded request, the seq axis's
 collectives exactly the per-site formula's), and at world 2 the halo'd
 kernel A, K1's and K2's sharded chains and the split K4 each held to its
-plain version on the slices of the 344-frame sites;
+plain version on the slices of the 344-frame sites; then tensor
+parallelism (parallel/tp.py, the decoder sharded over 'model'): at world
+2 on a (1, 1, 2) mesh the kernels' model forms (K1's and K2's chains on a
+Cout slice, K3 on the slice's groups, the flat bf16 and int8 convs with
+K7's scale over the whole input, K4 whole from its gathered weights) each
+held to its plain version, and the same request and draws on the int8
+default with ddpm and on the bf16 kernels with dpm2:cs2; a third group of four ranks (one a card where there are
+four, else all on card 0 over gloo) on JAX's full-size (1, 2, 2) layout,
+the serving default with ddpm, then one strict-f32 DP x TP STEP1 step on
+(2, 1, 2) at a global batch of 4 against world 1's (the DP step's
+bounds); every TP mel within the TTS bounds of world 1's, its launches a
+request world 1's, the model and seq axes' collectives exactly the
+per-call formulas';
 the phase prints its seconds, the DP step's ms a rank, the all-reduce's
 share of a profiled step, the batch's wall and each seq request's wall.
 Last, the paths of the kernels that no request runs, the port's four tools
@@ -1249,9 +1261,10 @@ def long_bucket(torch, dev, ckpt_path, per_call):
 # fine-tune steps at full width in bf16 on a synthetic 6 s reference, at the
 # reference's learning rate (2e-5; at 1e-3 the random-weight decoder
 # diverged to NaN within 10 steps, rezero gates of 0.001 moving by 0.001 a
-# step), about 140 ms a step on the card; 100 steps (200 until the eval
-# phase joined the script, to keep its time)
-ADAPT_ITERS, ADAPT_SECONDS = 100, 6.0
+# step), about 140 ms a step on the card; 50 steps (200 until the eval
+# phase joined the script, 100 until the tensor-parallel groups did, to
+# keep its time)
+ADAPT_ITERS, ADAPT_SECONDS = 50, 6.0
 # the served comparisons of the adapted decoder: the bf16 kernel path and
 # the int8 default against the plain paths, as compare_paths holds them
 ADAPT_RUNS = [r for r in RUNS if r[0] in ("kernels", "int8", "plain", "plain_f32")]
@@ -1340,7 +1353,7 @@ def adapt(torch, dev, tmp, ckpt_path, per_call, smi):
 # reference wav alone for FRONTEND_ITERS steps; the card's frontends held
 # to the same modules on the CPU in f32 on the same 16 kHz wav; then a
 # grapheme request served with the wav-adapted decoder.
-FRONTEND_ITERS, FRONTEND_SECONDS = 20, 6.0  # 6 s at 16 kHz: the 96 000-sample bucket
+FRONTEND_ITERS, FRONTEND_SECONDS = 10, 6.0  # 6 s at 16 kHz: the 96 000-sample bucket
 # card vs CPU, both f32 with TF32 off (utils/precision.strict_f32): the
 # unit-normalized speaker embeddings' cosine and largest difference, and
 # the relative L2 of HuBERT's layer-6 features (f32 sums in another order
@@ -1538,7 +1551,7 @@ def frontends(torch, dev, tmp, ckpt_path, per_call, smi):
 # frames, the 432-frame bucket, none of the TTS requests' buckets.
 VC_SECONDS = 5.0
 VC_BUCKET = 432
-VC_SAMPLERS = [("ddpm", 50), ("dpm2", 25), ("dpm2:cs2", 25)]
+VC_SAMPLERS = [("ddpm", 25), ("dpm2", 25), ("dpm2:cs2", 25)]
 TTS_STRIDED = [("ddpm:cs2", 50), ("dpm2:cs2", 25)]
 
 
@@ -2555,7 +2568,7 @@ def vocoder_gan(torch, dev, tmp, ckpt_path, filelist, per_call, smi):
 # the base checkpoint with EVAL_FLAT sentences, `cli evaluate` on the card,
 # finetune_decoder_batched at S = BATCHED_S for BATCHED_ITERS steps, and the
 # two examples
-EVAL_SPEAKERS, EVAL_SENTENCES, EVAL_FT_ITERS, EVAL_FLAT, EVAL_SEED = 2, 3, 20, 4, 70
+EVAL_SPEAKERS, EVAL_SENTENCES, EVAL_FT_ITERS, EVAL_FLAT, EVAL_SEED = 2, 2, 10, 2, 70
 BATCHED_S, BATCHED_ITERS = 2, 10
 # the `module:function` hooks `cli evaluate` loads (stand-ins for Whisper and
 # the MOS predictor, which need downloads; the speaker hook is the port's
@@ -2946,7 +2959,7 @@ def evaluation(torch, dev, tmp, ckpt_path, filelist, per_call, smi):
 EXTRAS_SEED, EXTRAS_SECONDS, EXTRAS_CODES = 80, 4.0, 100
 EXTRAS_DECODER_STEPS = 1000  # the decoder at length (the gate never fires)
 EXTRAS_PROFILED_STEPS = 100  # decoder steps under torch.profiler
-EXTRAS_CMP_STEPS = 200  # card vs CPU: Tacotron2 steps, WaveGlow on their mel
+EXTRAS_CMP_STEPS = 100  # card vs CPU: Tacotron2 steps, WaveGlow on their mel
 EXTRAS_F0_UTTS = 4
 # card vs CPU in strict f32: relative L2 bounds (the F0 track: voicing equal,
 # f0 within EXTRAS_BOUNDS["f0"] relative)
@@ -3242,9 +3255,9 @@ def extras(torch, dev, tmp, smi):
 # the exact / speculative paths, a live refresh, the window A/B, STEP1 at
 # the config's batch, the SSL frontends and adapting a voice, then the two
 # host tools on the load's /stats snapshot
-OPS_CLIENTS, OPS_REQUESTS, OPS_MAX_BATCH = 8, 16, 8
+OPS_CLIENTS, OPS_REQUESTS, OPS_MAX_BATCH = 8, 16, 8  # two waves: a steady closed loop
 OPS_REFRESH_REQUESTS = 16  # before and after the refresh each
-OPS_FT_ITERS = 20
+OPS_FT_ITERS = 10
 # the kernels a served request launches on the serving default (K1-K4, K7,
 # K5 / K6), and the one a STEP1 step launches (M1)
 SERVED = frozenset(ESTIMATOR_KERNELS[:5] + VOCODER_KERNELS)
@@ -3265,7 +3278,7 @@ def operator_tools(torch, dev, tmp, ckpt_path, smi, argv=None):
     requests): the window swapped away from the stale one, no request
     failed. bucket_policy_ab: both windows served every request, a long one
     at >= LONG_FRAMES (K4's C = 1024 stage). bench_train: STEP1 at batch 32
-    (k1 1, k2 3), its loss finite. bench_ssl (the frontends phase's SSL
+    (k1 1, k2 2), its loss finite. bench_ssl (the frontends phase's SSL
     files, OPS_FT_ITERS iterations): the adapted request's mel finite. Then
     capacity_plan (utilization 1, at bench_server's most common dispatch
     size) and analyze_buckets on bench_server's /stats snapshot: the plan's
@@ -3296,12 +3309,12 @@ def operator_tools(torch, dev, tmp, ckpt_path, smi, argv=None):
         "bench_server": [*common, "--clients", str(OPS_CLIENTS), "--requests", str(OPS_REQUESTS),
                          "--max-batch", str(OPS_MAX_BATCH), "--ttfa-sentences", "2",
                          "--stats-out", stats_path, *out("bench_server")],
-        "bench_serving": [*common, "--reps", "3", *out("bench_serving")],
+        "bench_serving": [*common, "--reps", "2", *out("bench_serving")],
         "refresh_under_load": [*common, "--warmup-requests", str(OPS_REFRESH_REQUESTS),
                                "--tail-requests", str(OPS_REFRESH_REQUESTS),
                                *out("refresh_under_load")],
         "bucket_policy_ab": [*common, *out("bucket_policy_ab")],
-        "bench_train": ["--device", dev.type, "--batch", "32", "--k1", "1", "--k2", "3",
+        "bench_train": ["--device", dev.type, "--batch", "32", "--k1", "1", "--k2", "2",
                         *out("bench_train")],
         "bench_ssl": [*common, "--n-iters", str(OPS_FT_ITERS), "--speaker-embedder",
                       os.path.join(fe, "port_speaker-embedder.pt"), "--hubert",
@@ -3425,6 +3438,21 @@ SEQ_KERNELS = ("fused_resnet_block", "fused_final_block", "row_stats", "fused_re
 PAR_REL, PAR_MOVED = 1e-4, 1e-3
 
 
+# Tensor parallelism in the parallel phase (parallel/tp.py): the
+# decoder sharded over 'model' by shard_params_tp. At world 2, (data 1, seq
+# 1, model 2): each kernel's model form at n = 2 held to its plain version
+# (_tp_kernel_checks), then the seq part's forced request as TP2_RUNS says
+# (each mode and each sampler once); at world 4, (1, 2, 2), JAX's full-size
+# layout (sampler_tp_x_seq), TP4_RUNS, then one strict-f32 DP x TP
+# STEP1 step on (2, 1, 2) at a global batch of TP_BATCH against world 1's
+# (the DP step's bounds, PAR_REL and PAR_MOVED). Each mel within the TTS
+# bounds of world 1's seq-part mel; the launches a request world 1's; the
+# collectives a request exact.
+TP_BATCH = 4
+TP2_RUNS = (("int8", "ddpm"), ("bf16", "dpm2:cs2"))  # (mode, sampler)
+TP4_RUNS = (("int8", "ddpm"),)
+
+
 def seq_collectives_per_call(est, t) -> int:
     """The seq axis's collectives in one estimator call over T global frames
     (models/unet.py's sharded forms, each site's route taken at the global
@@ -3453,6 +3481,38 @@ def seq_collectives_per_call(est, t) -> int:
         total += 1 if (est.use_kernels and tokens >= PALLAS_MIN_TOKENS
                        and fused_attention.takes(c)) else 2
     return total + 2 * (n - 1) + 2
+
+
+def model_collectives_per_call(est, t) -> int:
+    """The model axis's collectives in one call of a model-sharded estimator
+    (parallel/tp.py) over T global frames, each site's route taken at the
+    global widths (models/unet.py): 2 the time MLP, 2 a K1 or flat block (h
+    and the output gathered; its FiLM bias stays the rank's columns), 3 a
+    plain-Blocks block (the FiLM bias and the two convs gathered) and 1
+    more with its 1x1 residual, 0 a K4 attention (whole on every rank), 2 a
+    plain attention (its two projections), 1 a Downsample or Upsample, 1
+    the final block (K2's partial dots summed, or the plain final conv's
+    input gathered). Every rank holds whole GroupNorm groups (a straddling
+    group adds one sum gather a flat statistics)."""
+    from unitspeech_tpu_torch.models.unet import PALLAS_MIN_TOKENS
+    from unitspeech_tpu_torch.ops import fused_attention
+
+    n = len(est.dims)
+    stages = [(f"down_{i}_{r}", i) for i in range(n) for r in ("res1", "res2")]
+    stages += [("mid_res1", n - 1), ("mid_res2", n - 1)]
+    stages += [(f"up_{i}_{r}", i + 1) for i in range(n - 1) for r in ("res1", "res2")]
+    total = 2
+    for name, level in stages:
+        blk = getattr(est, name)
+        route = blk.route(t >> level, -(-est.n_feats // 2 ** level), est.use_kernels,
+                          est.use_int8_deep)
+        total += 2 if route in ("k1", "flat") else 3 + (blk.res_conv is not None)
+    attn = [i for i in range(n)] + [n - 1] + [i + 1 for i in range(n - 1)]
+    for level, c in zip(attn, est.dims + [est.dims[-1]] + est.dims[:-1]):
+        tokens = (t >> level) * -(-est.n_feats // 2 ** level)
+        total += 0 if (est.use_kernels and tokens >= PALLAS_MIN_TOKENS
+                       and fused_attention.takes(c)) else 2
+    return total + 2 * (n - 1) + 1
 
 
 def _seq_kernel_checks(torch, dev, shard):
@@ -3619,6 +3679,226 @@ def _seq_rank(torch, dev, ckpt, world, rank, d, tag):
     return rec
 
 
+def _tp_kernel_checks(torch, dev, ms):
+    """At world 2, each estimator kernel's model form on this rank's columns
+    (model = 2) at its 344-frame sites against its plain version on the
+    whole input (every rank draws the same global tensors): K1's chain
+    (kernel A on the rank's Cout columns, gn_film on the slice's groups, h
+    gathered, kernel B, gn_finalize, kernel C with the residual's columns,
+    the output gathered), K2's (the ranks' partial final dots summed), K3's
+    fold on the slice's groups and the flat bf16 and int8 convs on a Cout
+    slice (K7's scale over the whole input) at the flat sites, K4 whole on
+    every rank from its gathered weights (design b). The bf16 outputs
+    within BF16_REL of max(|ref|, 1), the statistics and the flat convs
+    within F32_REL. Returns the errors by site."""
+    from unitspeech_tpu_torch.models.unet import RezeroAttention
+    from unitspeech_tpu_torch.ops import conv_matmul, fused_attention, fused_resnet, row_stats
+    from unitspeech_tpu_torch.parallel.tp import shard_params_tp
+    from unitspeech_tpu_torch.utils.precision import strict_f32
+
+    gen = torch.Generator(device=dev).manual_seed(PAR_SEED + 5)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def held(what, got, want, rel):
+        err = (got.float() - want.float()).abs().max().item()
+        tol = rel * max(want.float().abs().max().item(), 1.0)
+        if not (np.isfinite(err) and err <= tol):
+            raise AssertionError(f"model {what}: {err} exceeds {tol}")
+        out[what] = err
+
+    out = {}
+    bf16 = torch.bfloat16
+    with strict_f32():
+        for f, cin, cout in ((80, 2, 128), (80, 128, 128), (40, 128, 256)):
+            t = FRAMES if f == 80 else FRAMES // 2
+            mask = _lens_mask(torch, t, dev)
+            x = rand(3, t, f, cin).to(bf16)
+            p = dict(t_bias=rand(3, cout), w1=rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5),
+                     b1=rand(cout, scale=0.1), gn1_scale=1 + rand(cout, scale=0.1),
+                     gn1_bias=rand(cout, scale=0.1),
+                     w2=rand(3, 3, cout, cout, scale=(9 * cout) ** -0.5),
+                     b2=rand(cout, scale=0.1), gn2_scale=1 + rand(cout, scale=0.1),
+                     gn2_bias=rand(cout, scale=0.1))
+            if cin != cout:
+                p.update(wres=rand(1, 1, cin, cout, scale=cin ** -0.5),
+                         bres=rand(cout, scale=0.1))
+            args = fused_resnet.block_rows_args(
+                x, mask, p["t_bias"], p["w1"], p["b1"], p["gn1_scale"], p["gn1_bias"], p["w2"],
+                p["b2"], p["gn2_scale"], p["gn2_bias"], p.get("wres"), p.get("bres"))
+            want = fused_resnet.resnet_block_plain(*args, f=f, groups=8).reshape(3, t, f, cout)
+            cols = {k: ms.take(p[k]) for k in ("t_bias", "w1", "b1", "w2", "b2", "wres", "bres")
+                    if k in p}
+            packed = fused_resnet.pack_block_weights(cols["w1"], cols["w2"], cols.get("wres"))
+            got = fused_resnet.fused_resnet_block(x, mask, groups=8, packed=packed, model=ms,
+                                                  **{**p, **cols})
+            held(f"K1 chain F={f} T={t} {cin}->{cout}", got, want, BF16_REL)
+        t, f, c = FRAMES, 80, 128
+        x = rand(3, t, f, c).to(bf16)
+        mask = _lens_mask(torch, t, dev)
+        w1, b1 = rand(3, 3, c, c, scale=(9 * c) ** -0.5), rand(c, scale=0.1)
+        s1, be1 = 1 + rand(c, scale=0.1), rand(c, scale=0.1)
+        wo, bo = rand(1, 1, c, 1, scale=c ** -0.5), rand(1, scale=0.1)
+        want = fused_resnet.final_block_plain(
+            x.reshape(3, t * f, c), fused_resnet.lens_rows_from_mask(mask, f),
+            w1.reshape(9 * c, c), b1, s1, be1, wo.reshape(c), bo, f=f, groups=8)
+        got = fused_resnet.fused_final_block(
+            x, mask, ms.take(w1), ms.take(b1), s1, be1, wo, bo, groups=8, model=ms,
+            packed=fused_resnet.pack_conv_weight(ms.take(w1)))
+        held(f"K2 chain F={f} T={t} {c}->1", got, want.reshape(3, t, f), BF16_REL)
+        for level, f, c in ((2, 20, 512), (3, 10, 1024)):
+            t = FRAMES >> level
+            acc = rand(3, t * f, c)  # a deep conv's f32 accumulator
+            got = torch.stack(row_stats.group_mean_inv(ms.take(acc), 8, model=ms))
+            want = torch.stack([ms.take(v) for v in row_stats.group_mean_inv_plain(acc, 8)])
+            held(f"K3 fold (slice groups) F={f} C={c}", got, want, F32_REL)
+            xf = rand(3, t * f, c).to(bf16)
+            w = rand(3, 3, c, c, scale=(9 * c) ** -0.5)
+            held(f"flat bf16 conv F={f} C={c}", conv_matmul.conv3x3_rows(xf, ms.take(w), f),
+                 ms.take(conv_matmul.conv3x3_rows(xf.float(), w.to(bf16).float(), f)), F32_REL)
+            want = conv_matmul.conv3x3_int8(xf, w, f, absmax=row_stats.row_absmax_plain)
+            held(f"flat int8 conv (K7 scale) F={f} C={c}",
+                 conv_matmul.conv3x3_int8(xf, ms.take(w), f), ms.take(want), F32_REL)
+        for level, f, c in ((0, 80, 128), (2, 20, 512)):
+            t = FRAMES >> level
+            x = rand(3, t, f, c).to(bf16)
+            att = RezeroAttention(c).to(dev)
+            w_qkv, w_out = rand(c, 384, scale=c ** -0.5), rand(128, c, scale=128 ** -0.5)
+            b_out, gate = rand(c, scale=0.1), torch.tensor([0.7], device=dev)
+            with torch.no_grad():
+                for prm, v in ((att.fn.to_qkv.kernel, w_qkv), (att.fn.to_out.kernel, w_out),
+                               (att.fn.to_out.bias, b_out), (att.g, gate)):
+                    prm.copy_(v)
+            mask = _lens_mask(torch, t, dev)
+            want = fused_attention.rezero_attention_plain(
+                x.reshape(3, t * f, c), w_qkv, w_out, b_out, gate,
+                fused_resnet.lens_rows_from_mask(mask, f), 4, 32)
+            shard_params_tp(att, ms)
+            att.pack()  # the whole weights gathered once, then K4's pack
+            with torch.no_grad():
+                got = att(x, mask, bf16, True)
+            held(f"K4 whole N={t * f} C={c}", got, want.reshape(3, t, f, c), BF16_REL)
+    return out
+
+
+def _tp_requests(torch, dev, ckpt, mesh, spec, pairs, rank, d, tag):
+    """The seq part's forced FRAMES-frame request (SEQ_STEPS steps, the same
+    injected noise) on each (mode, sampler) of `pairs` through a
+    Synthesizer whose decoder shard_params_tp sharded over the mesh's
+    model axis, with sample_spec `spec`: once to warm up, then counted (the
+    estimator kernels' launches and the model and seq axes' collectives,
+    every counter set to 0 just before) and timed. Rank 0 writes each mel
+    to <tag>_tp_<mode>_<sampler>.npy."""
+    from unitspeech_tpu_torch.config import MainConfig
+    from unitspeech_tpu_torch.infer.tts import Synthesizer, TTSModels, forced_durations
+    from unitspeech_tpu_torch.ops import fused_attention, fused_resnet, row_stats
+    from unitspeech_tpu_torch.parallel import ModelShard, SeqShard, shard_params_tp
+    from unitspeech_tpu_torch.text import phonemes_to_sequence
+
+    wrappers = {"fused_resnet_block": fused_resnet.fused_resnet_block,
+                "fused_final_block": fused_resnet.fused_final_block,
+                "row_stats": row_stats.row_stats,
+                "fused_rezero_attention": fused_attention.fused_rezero_attention,
+                "row_absmax": row_stats.row_absmax}
+    cfg = MainConfig()
+    q = phonemes_to_sequence(FORCED_TEXT)
+    rng = np.random.default_rng(PAR_SEED + 2)  # the seq part's draws
+    shape = (1, FRAMES, cfg.data.n_feats)
+    noise = {"noise_z": torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev),
+             "noises": torch.from_numpy(rng.standard_normal(
+                 (SEQ_STEPS,) + shape).astype(np.float32)).to(dev)}
+    runs = {}
+    for mode in dict.fromkeys(m for m, _ in pairs):
+        models = TTSModels.from_checkpoint(ckpt, device=dev, **SEQ_MODES[mode])
+        t0 = time.perf_counter()
+        shard_params_tp(models.decoder, mesh)
+        shard_s = time.perf_counter() - t0
+        synth = Synthesizer(models, mesh=mesh if spec else None, sample_spec=spec)
+        est = models.decoder.estimator
+        want_model = SEQ_STEPS * model_collectives_per_call(est, FRAMES)
+        want_seq = SEQ_STEPS * seq_collectives_per_call(est, FRAMES) + 1 if spec else 0
+        for sampler in (sp for m, sp in pairs if m == mode):
+            kw = dict(diffusion_steps=SEQ_STEPS, text_gradient_scale=1.0, spk_gradient_scale=1.0,
+                      durations=forced_durations(len(q), FRAMES), sampler=sampler, **noise)
+            with torch.inference_mode():
+                synth.synthesize_mel(q, **kw)
+                for w in wrappers.values():
+                    w.launches = 0
+                ModelShard.collectives = SeqShard.collectives = 0
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                mel, y_len, _ = synth.synthesize_mel(q, **kw)
+                torch.cuda.synchronize(dev)
+                wall = (time.perf_counter() - t0) * 1e3
+                runs[f"{mode} {sampler}"] = {
+                    "wall_ms": wall, "y_length": y_len, "shard_s": shard_s,
+                    "launches": {k: w.launches for k, w in wrappers.items()},
+                    "model_collectives": ModelShard.collectives,
+                    "model_collectives_want": want_model,
+                    "seq_collectives": SeqShard.collectives, "seq_collectives_want": want_seq,
+                    "finite": bool(torch.isfinite(mel).all())}
+            if rank == 0:
+                np.save(os.path.join(d, f"{tag}_tp_{mode}_{sampler.replace(':', '_')}.npy"),
+                        mel[0].float().cpu().numpy())
+        del models, synth
+        torch.cuda.empty_cache()
+    return runs
+
+
+def _tp_step(torch, dev, ckpt, mesh):
+    """One strict-f32 STEP1 step at a global batch of TP_BATCH (PAR_TX
+    tokens, PAR_TY frames, the rows' lengths differ) on the checkpoint's
+    weights, the draws from PAR_SEED + 4: with `mesh` (data, 1, model)
+    every module sharded by shard_params_tp and the rank's rows of the
+    mesh's data axis; without it unsharded (world 1). Returns the metrics,
+    the step's ms (host clock) and the parameters after it, gathered and
+    flat."""
+    from unitspeech_tpu_torch.config import MainConfig
+    from unitspeech_tpu_torch.models.diffusion import UnitSpeech
+    from unitspeech_tpu_torch.models.duration import DurationPredictor
+    from unitspeech_tpu_torch.models.encoder import Encoder
+    from unitspeech_tpu_torch.parallel import (
+        DataShard,
+        gather_params_tp,
+        shard_batch,
+        shard_params_tp,
+    )
+    from unitspeech_tpu_torch.tools import bench_train
+    from unitspeech_tpu_torch.train.steps import make_step1_train_step
+    from unitspeech_tpu_torch.utils.precision import strict_f32
+
+    cfg = MainConfig()
+    with dev:
+        mods = [Encoder.from_config(cfg.text_encoder),
+                DurationPredictor.from_config(cfg.duration_predictor),
+                UnitSpeech.from_config(cfg.decoder)]
+    for k, m in zip(("text_encoder", "duration_predictor", "decoder"), mods):
+        m.load_state_dict(ckpt[k])
+        m.train().requires_grad_(True)
+    shard = None
+    batch = bench_train._batch(cfg, TP_BATCH, PAR_TX, PAR_TY, dev, False)
+    if mesh is not None:
+        for m in mods:
+            shard_params_tp(m, mesh)
+        shard = DataShard.of(mesh)
+        batch = shard_batch(batch, shard)
+    opt = torch.optim.Adam([p for m in mods for p in m.parameters()],
+                           lr=cfg.train.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    step = make_step1_train_step(*mods, opt, out_size=cfg.out_size,
+                                 spk_uncond=torch.zeros(cfg.decoder.spk_emb_dim, device=dev),
+                                 spk_dropout=cfg.train.spk_dropout, shard=shard)
+    gen = torch.Generator(device=dev).manual_seed(PAR_SEED + 4)
+    with strict_f32():
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        metrics = {k: v.item() for k, v in step(batch, gen).items()}
+        ms = (time.perf_counter() - t0) * 1e3
+        flat = torch.cat([v.detach().reshape(-1) for m in mods
+                          for v in gather_params_tp(m).values()])
+    return metrics, ms, flat
+
+
 def _parallel_rank(rank, world, d, backend, tag):
     """One rank of the parallel phase (spawned; imports only the port), on
     the checkpoint's weights. Writes <tag>_rank<r>.json (records); world 1
@@ -3765,6 +4045,24 @@ def _parallel_rank(rank, world, d, backend, tag):
     rec["seq"] = _seq_rank(torch, dev, ckpt, world, rank, d, tag)
     rec["seq"]["seconds"] = time.perf_counter() - t0
 
+    # tensor parallelism: world 1 the DP x TP step's reference; world 2 every
+    # rank on the model axis, the kernels' model forms, then the requests
+    t0 = time.perf_counter()
+    if world == 1:
+        metrics, ms, flat = _tp_step(torch, dev, ckpt, None)
+        torch.save(flat.cpu(), os.path.join(d, "w1_tp_params.pt"))
+        rec["tp"] = {"step_metrics": metrics, "step_ms": ms}
+        del flat
+    else:
+        from unitspeech_tpu_torch.parallel import ModelShard
+
+        tp_mesh = make_mesh(data=1, seq=1, model=world)
+        rec["tp"] = {"kernels": _tp_kernel_checks(torch, dev, ModelShard.of(tp_mesh)),
+                     "runs": _tp_requests(torch, dev, ckpt, tp_mesh, None, TP2_RUNS, rank, d,
+                                          tag)}
+    rec["tp"]["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
     # speaker-per-rank adaptation (world 1: the speakers one after another)
     t_y, t_x = FRAMES, FRAMES // 4
     frng = np.random.default_rng(PAR_SEED + 1)
@@ -3817,6 +4115,80 @@ def _parallel_rank(rank, world, d, backend, tag):
     dist.destroy_process_group()
 
 
+def _tp4_rank(rank, world, d, backend, tag):
+    """One rank of the parallel phase's four-rank group (spawned; imports
+    only the port), on the checkpoint's weights: the requests of TP4_RUNS
+    on a (1, 2, 2) mesh with sample_spec (None, "seq", None) (_tp_requests),
+    then the DP x TP STEP1 step on a (2, 1, 2) mesh (_tp_step; rank 0
+    holds its parameters to world 1's w1_tp_params.pt). Writes
+    <tag>_rank<r>.json; every failure raises."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from unitspeech_tpu_torch.ops import _cuda
+    from unitspeech_tpu_torch.parallel import make_mesh, maybe_initialize_distributed
+
+    with open(os.path.join(d, "phase.json")) as f:
+        job = json.load(f)
+    if not _cuda.library_path().exists():
+        raise RuntimeError("the kernel library is not built: the parent builds it first")
+    _cuda.lib()
+    t_start = time.perf_counter()
+    maybe_initialize_distributed(f"file://{d}/{tag}.init", world, rank, backend=backend)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rec = {"rank": rank, "world": world, "backend": dist.get_backend(), "device": str(dev),
+           "init_s": time.perf_counter() - t_start}
+    ckpt = torch.load(job["ckpt"], map_location="cpu", weights_only=True)
+    t0 = time.perf_counter()
+    rec["runs"] = _tp_requests(torch, dev, ckpt, make_mesh(data=1, seq=2, model=2),
+                               (None, "seq", None), TP4_RUNS, rank, d, tag)
+    rec["requests_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    metrics, ms, flat = _tp_step(torch, dev, ckpt, make_mesh(data=2, seq=1, model=2))
+    rec["step"] = {"metrics": metrics, "ms": ms, "seconds": time.perf_counter() - t0,
+                   "sha256": hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()}
+    if rank == 0:  # against world 1's step: entries beyond 2e-3 * lr, the largest
+        from unitspeech_tpu_torch.config import MainConfig
+
+        lr = MainConfig().train.learning_rate
+        diff = (flat - torch.load(os.path.join(d, "w1_tp_params.pt"),
+                                  weights_only=True).to(dev)).abs()
+        rec["step"]["params"] = {"n": flat.numel(), "max": float(diff.max()),
+                                 "far": int((diff > 2e-3 * lr).sum())}
+    rec["seconds"] = time.perf_counter() - t_start
+    rec["jax_free"] = not any(m.split(".")[0] in ("jax", "jaxlib", "flax", "unitspeech_tpu")
+                              for m in sys.modules)
+    with open(os.path.join(d, f"{tag}_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def _tp_held(what, runs, want, d, tag):
+    """Check the tensor-parallel runs of one group: every run's launches a
+    request `want` (by mode), its collectives those it computed, its
+    length FRAMES, its mel finite and within the TTS bounds of world 1's
+    seq-part mel (the unsharded program on the same request). Returns the
+    bounds by run."""
+    bounds = {}
+    for key in runs[0]:
+        mode = key.split()[0]
+        for r in runs:
+            got = {k: r[key]["launches"][k] for k in SEQ_KERNELS}
+            if got != want[mode] or r[key]["model_collectives"] != \
+                    r[key]["model_collectives_want"] or r[key]["seq_collectives"] != \
+                    r[key]["seq_collectives_want"] or r[key]["y_length"] != FRAMES or \
+                    not r[key]["finite"]:
+                raise AssertionError(f"{what} {key}: launches {got} (expected {want[mode]}), "
+                                     f"collectives {r[key]}")
+        tag_k = key.replace(" ", "_").replace(":", "_")
+        bounds[key] = _mel_bounds(f"{what} {key} vs world 1",
+                                  np.load(os.path.join(d, f"{tag}_tp_{tag_k}.npy")),
+                                  np.load(os.path.join(d, f"w1_seq_{tag_k}.npy")))
+    return bounds
+
+
 def parallel(torch, dev, tmp, ckpt_path, per_call, smi):
     """The multi-device paths on the card (_parallel_rank), world 1 over
     NCCL, then two ranks; each group must end within PAR_TIMEOUT with every
@@ -3852,19 +4224,21 @@ def parallel(torch, dev, tmp, ckpt_path, per_call, smi):
                    "kmeans": os.path.join(fe, "port_kmeans.npz")}, f)
     torch.cuda.empty_cache()
     cards = torch.cuda.device_count()
-    groups = [("w1", 1, "nccl"), ("w2", 2, "nccl" if cards >= 2 else "gloo")]
+    groups = [("w1", 1, "nccl", _parallel_rank), ("w2", 2, "nccl" if cards >= 2 else "gloo",
+                                                  _parallel_rank),
+              ("w4", 4, "nccl" if cards >= 4 else "gloo", _tp4_rank)]
     recs, walls = {}, {}
-    for tag, world, backend in groups:
+    for tag, world, backend, fn in groups:
         print(f"parallel: {world} rank(s) over {backend} "
-              f"({'one a card' if backend == 'nccl' else 'both on card 0'})", flush=True)
+              f"({'one a card' if backend == 'nccl' else 'all on card 0'})", flush=True)
         t0 = time.perf_counter()
-        run_group(_parallel_rank, world, (d, backend, tag), timeout=PAR_TIMEOUT)
+        run_group(fn, world, (d, backend, tag), timeout=PAR_TIMEOUT)
         walls[tag] = time.perf_counter() - t0
         recs[tag] = []
         for r in range(world):
             with open(os.path.join(d, f"{tag}_rank{r}.json")) as f:
                 recs[tag].append(json.load(f))
-    one, two = recs["w1"][0], recs["w2"]
+    one, two, four = recs["w1"][0], recs["w2"], recs["w4"]
     if not all(r["jax_free"] for rs in recs.values() for r in rs):
         raise AssertionError("a parallel rank imported jax or unitspeech_tpu")
 
@@ -3954,13 +4328,68 @@ def parallel(torch, dev, tmp, ckpt_path, per_call, smi):
               f"{[round(s['runs'][key]['wall_ms'], 1) for s in seq2]} ms a rank at world 2; "
               f"{smi}", flush=True)
 
+    # tensor parallelism
+    for name in two[0]["tp"]["kernels"]:
+        print(f"  model-sharded {name} vs its plain version: max_abs_err "
+              f"{max(r['tp']['kernels'][name] for r in two):.3e} (the larger of the ranks'); "
+              f"{smi}", flush=True)
+    want = {}
+    for mode in SEQ_MODES:
+        want[mode] = {k: SEQ_STEPS * per_call[mode][k] for k in SEQ_KERNELS}
+        want[mode]["fused_rezero_attention"] = SEQ_STEPS * _k4_per_call(cfg, FRAMES)
+    tp_bounds = {"model 2": _tp_held("TP (1, 1, 2)", [r["tp"]["runs"] for r in two], want,
+                                     d, "w2"),
+                 "seq 2 x model 2": _tp_held("TP (1, 2, 2)", [r["runs"] for r in four], want,
+                                             d, "w4")}
+    for layout, runs in (("model 2", [r["tp"]["runs"] for r in two]),
+                         ("seq 2 x model 2", [r["runs"] for r in four])):
+        for key, r in runs[0].items():
+            print(f"  TP {layout} {key}: {SEQ_STEPS} steps, launches a request "
+                  f"{want[key.split()[0]]} (world 1's); model collectives a request "
+                  f"{r['model_collectives']}, seq "
+                  f"{r['seq_collectives']} (= {SEQ_STEPS} x the per-call formulas"
+                  f"{' + 1 gather' if r['seq_collectives'] else ''}); wall "
+                  f"{[round(x[key]['wall_ms'], 1) for x in runs]} ms a rank; {smi}", flush=True)
+    step1, step4 = one["tp"], [r["step"] for r in four]
+    tp_rel = {k: max(abs(r["metrics"][k] - v) / max(abs(v), 1e-12) for r in step4)
+              for k, v in step1["step_metrics"].items()}
+    tp_far, tp_n, tp_most = (step4[0]["params"][k] for k in ("far", "n", "max"))
+    print(f"  DP x TP STEP1 step on (2, 1, 2), global batch {TP_BATCH}, strict f32, vs world 1: "
+          f"largest relative difference of each metric "
+          f"{ {k: f'{v:.2e}' for k, v in tp_rel.items()} } (bound {PAR_REL:.0e}); parameters "
+          f"gathered: {tp_far} of {tp_n} entries beyond 2e-3 * lr, largest {tp_most:.3e}; "
+          f"ranks' parameters equal: {len({r['sha256'] for r in step4}) == 1}; step ms "
+          f"{[round(r['ms'], 1) for r in step4]} a rank, world 1 {step1['step_ms']:.1f}",
+          flush=True)
+    if (max(tp_rel.values()) > PAR_REL or tp_far > PAR_MOVED * tp_n or tp_most > 2 * lr
+            or len({r["sha256"] for r in step4}) != 1):
+        raise AssertionError(f"parallel DP x TP step: {tp_rel}, {tp_far} / {tp_n}, {tp_most}")
+    tp_res = {"kernels": {k: max(r["tp"]["kernels"][k] for r in two)
+                          for k in two[0]["tp"]["kernels"]},
+              "mel": tp_bounds,
+              "wall_ms": {layout: {k: [x[k]["wall_ms"] for x in runs] for k in runs[0]}
+                          for layout, runs in (("model 2", [r["tp"]["runs"] for r in two]),
+                                               ("seq 2 x model 2", [r["runs"] for r in four]))},
+              "collectives": {layout: {k: [r["model_collectives"], r["seq_collectives"]]
+                                       for k, r in runs.items()}
+                              for layout, runs in (("model 2", two[0]["tp"]["runs"]),
+                                                   ("seq 2 x model 2", four[0]["runs"]))},
+              "shard_s": two[0]["tp"]["runs"][next(iter(two[0]["tp"]["runs"]))]["shard_s"],
+              "step": {"rel": tp_rel, "far": tp_far, "n": tp_n, "max": tp_most,
+                       "ms": [r["ms"] for r in step4], "world1_ms": step1["step_ms"]},
+              "seconds": {"w2": [r["tp"]["seconds"] for r in two],
+                          "w4": [r["seconds"] for r in four]}}
+    print(f"  TP seconds: world 2 {tp_res['seconds']['w2']}, world 4 {tp_res['seconds']['w4']}",
+          flush=True)
+
+    dp_recs = {t: recs[t] for t in ("w1", "w2")}  # the groups of _parallel_rank
     res = {"groups": {t: {"world": len(rs), "backend": rs[0]["backend"],
                           "wall_s": walls[t], "rank_s": [r["seconds"] for r in rs]}
                       for t, rs in recs.items()},
-           "dp_step_ms": {t: [r["dp_step_ms"] for r in rs] for t, rs in recs.items()},
-           "dp_profile": {t: [r["dp_profile"] for r in rs] for t, rs in recs.items()},
-           "batch_wall_ms": {t: [r["batch_wall_ms"] for r in rs] for t, rs in recs.items()},
-           "finetune_s": {t: [r["finetune_s"] for r in rs] for t, rs in recs.items()},
+           "dp_step_ms": {t: [r["dp_step_ms"] for r in rs] for t, rs in dp_recs.items()},
+           "dp_profile": {t: [r["dp_profile"] for r in rs] for t, rs in dp_recs.items()},
+           "batch_wall_ms": {t: [r["batch_wall_ms"] for r in rs] for t, rs in dp_recs.items()},
+           "finetune_s": {t: [r["finetune_s"] for r in rs] for t, rs in dp_recs.items()},
            "dp_rel": rel, "dp_params_far": far, "dp_params_max": most, "mel": bounds,
            "seq": {"split": seq2[0]["split"], "mel": seq_bounds,
                    "kernels": {k: max(s["kernels"][k] for s in seq2)
@@ -3971,7 +4400,7 @@ def parallel(torch, dev, tmp, ckpt_path, per_call, smi):
                    "collectives": {k: seq2[0]["runs"][k]["collectives"] for k in seq1["runs"]},
                    "seconds": {t: [s["seconds"] for s in ss]
                                for t, ss in (("w1", [seq1]), ("w2", seq2))}},
-           "launches_rank0": two[0]["batch_launches"], "card": smi,
+           "tp": tp_res, "launches_rank0": two[0]["batch_launches"], "card": smi,
            "phase_s": time.perf_counter() - t_phase}
     print(f"  DP step ms a rank: {res['dp_step_ms']}; all-reduce share of a profiled step: "
           f"{ {t: [round(p['share'], 4) for p in ps] for t, ps in res['dp_profile'].items()} }; "
@@ -4174,6 +4603,7 @@ def main(argv=None) -> int:
         "card": smi}}))
     print(json.dumps({"operator_tools": ops}))
     print(json.dumps({"parallel": {k: v for k, v in par.items() if k != "launches_rank0"}}))
+    print(json.dumps({"elapsed_s": stamps}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

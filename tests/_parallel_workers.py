@@ -1,5 +1,6 @@
-"""The ranks of tests/test_torch_port_parallel.py's and
-tests/test_torch_port_seq.py's multi-rank cases. Each
+"""The ranks of tests/test_torch_port_parallel.py's,
+tests/test_torch_port_seq.py's and tests/test_torch_port_tp.py's
+multi-rank cases. Each
 function runs in a spawned process (parallel.run_group) as one rank of a
 gloo process group on the CPU, joined through a file under the case's
 directory (no port to fight over between test workers), on one torch
@@ -14,14 +15,16 @@ import sys
 import torch
 
 
-def _join(rank, world, d, data=None):
+def _join(rank, world, d, data=None, model=1):
     """This process as rank `rank`; the mesh: every rank on data, or `data`
-    ranks on data and the rest of the world on seq."""
+    ranks on data, `model` on model and the rest of the world on seq."""
     torch.set_num_threads(1)
     from unitspeech_tpu_torch.parallel import make_mesh, maybe_initialize_distributed
 
     assert maybe_initialize_distributed(f"file://{d}/init", world, rank, cpu=True)
-    return make_mesh() if data is None else make_mesh(data=data, seq=world // data)
+    if data is None:
+        return make_mesh()
+    return make_mesh(data=data, seq=world // (data * model), model=model)
 
 
 def _done(rank, d, out):
@@ -159,7 +162,7 @@ def sampling(rank, world, d):
         try:
             call()
             refused.append(None)
-        except NotImplementedError as e:
+        except ValueError as e:
             refused.append(str(e))
     _done(rank, d, {"mel": mel, "batch_mel": batch_mel, "y_lengths": y_lengths,
                     "wavs": [w for w, _ in wavs], "refused": refused})
@@ -237,13 +240,13 @@ def seq_primitives(rank, world, d):
                     p["w2"].reshape(-1, p["w2"].shape[-1]), p["b2"], p["s2"], p["be2"],
                     p["wres"], p["bres"])
             want = fused_resnet.resnet_block_plain(xin, lens, *args, f=f, groups=4)
-            got = fused_resnet.resnet_block_seq(xl, ll, *args, f=f, groups=4, seq=fs)
+            got = fused_resnet.resnet_block_sharded(xl, ll, *args, f=f, groups=4, seq=fs)
             pairs[f"K1 chain {name}"] = (got, fs.take(want.reshape(b, t, f, -1)).reshape(
                 got.shape))
         p = x["final"]
         want = fused_resnet.final_block_plain(rows, lens, p["w1"].reshape(9 * c, -1), p["b1"],
                                               p["s1"], p["be1"], p["wo"], p["bo"], f=f, groups=4)
-        got = fused_resnet.final_block_seq(loc, ll, p["w1"].reshape(9 * c, -1), p["b1"],
+        got = fused_resnet.final_block_sharded(loc, ll, p["w1"].reshape(9 * c, -1), p["b1"],
                                            p["s1"], p["be1"], p["wo"], p["bo"], f=f, groups=4,
                                            seq=fs)
         pairs["K2 chain"] = (got, fs.take(want.reshape(b, t, f)).reshape(got.shape))
@@ -369,8 +372,8 @@ def seq_sampling(rank, world, d):
         try:
             call()
             refused.append(None)
-        except NotImplementedError as e:
-            refused.append(str(e))
+        except (NotImplementedError, ValueError) as e:
+            refused.append(f"{type(e).__name__}: {e}")
     _done(rank, d, {"mels": mels, "calls": calls, "score": score, "whole": whole,
                     "collectives": n_coll, "gate": gate, "refused": refused})
 
@@ -397,3 +400,251 @@ def transcribe(rank, world, d, argv):
     _join(rank, world, d)
     _done(rank, d, {"rc": distributed_transcribe.main(argv),
                     "topology": distributed_transcribe.process_topology()})
+
+
+def _tp_layer_pairs(ms, x):
+    """Each layer's model form (a copy sharded with parallel.tp) against
+    the layer itself: the forwards, and a Dense's input and kernel
+    gradients under autograd (the gather's and enter's backwards)."""
+    from unitspeech_tpu_torch.models.layers import (
+        Conv1d,
+        Conv2d,
+        ConvTranspose1d,
+        ConvTranspose2d,
+        Dense,
+    )
+    from unitspeech_tpu_torch.parallel.tp import shard_params_tp
+
+    g = torch.Generator().manual_seed(9)
+    layers = {"Dense": (Dense(6, 8), lambda m, v: m(v[:, :, 0, :6])),
+              "Conv1d": (Conv1d(6, 8, 3), lambda m, v: m(v[:, :, 0, :6])),
+              "Conv1d ncw": (Conv1d(6, 8, 5), lambda m, v: m.ncw(v[:, :, 0, :6].transpose(1, 2),
+                                                                 4, dilation=2)),
+              "Conv2d": (Conv2d(6, 8, 3), lambda m, v: m(v[..., :6])),
+              "Conv2d stride 2": (Conv2d(6, 8, 3), lambda m, v: m(v[..., :6], stride=2)),
+              "ConvTranspose2d": (ConvTranspose2d(6, 8, 4, 2, 2), lambda m, v: m(v[..., :6])),
+              "ConvTranspose1d": (ConvTranspose1d(6, 8, 4, 2, 2),
+                                  lambda m, v: m.ncw(v[:, :, 0, :6].transpose(1, 2)))}
+    pairs = {}
+    for name, (layer, call) in layers.items():
+        for p in layer.parameters():
+            p.data = torch.randn(p.shape, generator=g) * 0.3
+        sharded = shard_params_tp(copy.deepcopy(layer), ms)
+        with torch.no_grad():
+            pairs[f"layer {name}"] = (call(sharded, x), call(layer, x))
+    dense = layers["Dense"][0]
+    whole = copy.deepcopy(dense)
+    sharded = shard_params_tp(copy.deepcopy(dense), ms)
+    weight = torch.randn(x.shape[:2] + (8,), generator=g)
+    grads = []
+    for m in (whole, sharded):
+        xin = x[:, :, 0, :6].clone().requires_grad_(True)
+        (m(xin) * weight).sum().backward()
+        grads.append((xin.grad, m.kernel.grad, m.bias.grad))
+    pairs["Dense grad input"] = (grads[1][0], grads[0][0])
+    pairs["Dense grad kernel"] = (grads[1][1], ms.take(grads[0][1]))
+    pairs["Dense grad bias"] = (grads[1][2], ms.take(grads[0][2], 0))
+    return pairs
+
+
+def _tp_sites(mesh, x):
+    """On a (data 1, seq 1, model n) mesh, every site's model form against
+    the same site whole: the layers (and a Dense under autograd), K3's
+    statistics on the slice's groups (whole and straddling), the flat bf16
+    and int8 convs on a Cout slice, K1's chain (the 1x1 residual, the
+    identity, one group straddling the ranks), K2's chain, K4 whole on
+    every rank (design b) and the plain attention; the round trip of the
+    case's modules through shard_params_tp and gather_params_tp; one call
+    of the route estimator under the route stand-ins (the kernel sites'
+    CUDA branches against the stub library) with the model axis's
+    collectives counted. Returns (got, want) pairs by name and the rest."""
+    from unitspeech_tpu_torch.models.unet import GradLogPEstimator2d, ResnetBlock, RezeroAttention
+    from unitspeech_tpu_torch.ops import conv_matmul, fused_resnet, row_stats
+    from unitspeech_tpu_torch.parallel import ModelShard
+    from unitspeech_tpu_torch.parallel.tp import gather_params_tp, is_sharded, shard_params_tp
+
+    ms = ModelShard.of(mesh)
+    z = x["z"]  # (B, T, F, C)
+    b, t, f, c = z.shape
+    rows = z.reshape(b, t * f, c)
+    lens = x["lens"] * f
+    mask = x["mask"][:, :, None, None]
+    pairs = _tp_layer_pairs(ms, z)
+    ModelShard.collectives = 0
+    for groups in (4, 3):  # 2 whole groups a rank; groups of 4 over 6-channel slices
+        xs = rows[..., :12]
+        got = row_stats.group_mean_inv(ms.take(xs), groups, model=ms)
+        want = row_stats.group_mean_inv(xs, groups)
+        pairs[f"group_mean_inv groups {groups}"] = (torch.stack(got),
+                                                    torch.stack([ms.take(w) for w in want]))
+    w = x["w"]
+    pairs["conv3x3_rows bf16"] = (
+        conv_matmul.conv3x3_rows(rows.to(torch.bfloat16), ms.take(w), f),
+        ms.take(conv_matmul.conv3x3_rows(rows.to(torch.bfloat16), w, f)))
+    pairs["conv3x3_int8"] = (conv_matmul.conv3x3_int8(rows, ms.take(w), f),
+                             ms.take(conv_matmul.conv3x3_int8(rows, w, f)))
+    for name, p in x["blocks"].items():
+        cin = p["w1"].shape[2]
+        xin = z[..., :cin]
+        kw = {k: p[k] for k in ("t_bias", "w1", "b1", "gn1_scale", "gn1_bias", "w2", "b2",
+                                "gn2_scale", "gn2_bias", "wres", "bres")}
+        want = fused_resnet.fused_resnet_block(xin, mask, groups=p["groups"], **kw)
+        for k in ("t_bias", "w1", "b1", "w2", "b2", "wres", "bres"):
+            if kw[k] is not None:
+                kw[k] = ms.take(kw[k], -1)
+        got = fused_resnet.fused_resnet_block(xin, mask, groups=p["groups"], model=ms, **kw)
+        pairs[f"K1 chain {name}"] = (got, want)
+    p = x["final"]
+    args = (p["b1"], p["s1"], p["be1"], p["wo"], p["bo"])
+    want = fused_resnet.fused_final_block(z, mask, p["w1"], *args, groups=4)
+    got = fused_resnet.fused_final_block(z, mask, ms.take(p["w1"]), ms.take(p["b1"]), *args[1:],
+                                         groups=4, model=ms)
+    pairs["K2 chain"] = (got, want)
+    for kernel in (True, False):
+        att = RezeroAttention(128)
+        wq, wo, bo, gate = x["attn"]
+        att.fn.to_qkv.kernel.data, att.fn.to_out.kernel.data = wq.clone(), wo.clone()
+        att.fn.to_out.bias.data, att.g.data = bo.clone(), gate.clone()
+        att.pack()
+        xa = x["xa"]
+        ma = torch.ones(xa.shape[:2] + (1, 1))
+        with torch.no_grad():
+            want = att(xa, ma, torch.float32, kernel)
+            shard_params_tp(att, ms)
+            att.pack()
+            pairs[f"attention {'K4 whole' if kernel else 'plain'}"] = (
+                att(xa, ma, torch.float32, kernel), want)
+    n_coll = ModelShard.collectives
+    blk = ResnetBlock(512, 512, 8, 8)  # a flat (deep-stage) block, as training runs it
+    g = torch.Generator().manual_seed(11)
+    for name, prm in blk.named_parameters():
+        prm.data = (1.0 if name.endswith("scale") else 0.0) + torch.randn(
+            prm.shape, generator=g) * (0.1 if prm.dim() == 1 else prm.shape[-2] ** -0.5 / 3)
+    xb = torch.randn((2, 4, 2, 512), generator=g)
+    mb, tb = x["mask"][:2, :4, None, None], torch.randn((2, 8), generator=g)
+    weight = torch.randn((2, 4, 2, 512), generator=g)
+    got = []
+    for m in (blk, shard_params_tp(copy.deepcopy(blk), ms)):
+        xin = xb.clone().requires_grad_(True)
+        out = m(xin, mb, tb, torch.float32, False)
+        (out * weight).sum().backward()
+        got.append((out.detach(), xin.grad, m.block1.norm.scale.grad, m.block2.conv.kernel.grad,
+                    m.mlp.kernel.grad))
+    (o1, gx1, gs1, gk1, gm1), (o2, gx2, gs2, gk2, gm2) = got
+    pairs["flat block"] = (o2, o1)
+    pairs["flat block grad input"] = (gx2, gx1)
+    pairs["flat block grad GroupNorm scale"] = (gs2, gs1)
+    pairs["flat block grad conv2 kernel"] = (gk2, ms.take(gk1))
+    pairs["flat block grad FiLM kernel"] = (gm2, ms.take(gm1))
+    rt = {}
+    for name, (cls, kw, sd) in x["modules"].items():
+        m = cls(**kw)
+        m.load_state_dict(sd)
+        shard_params_tp(m, mesh)
+        back = gather_params_tp(m)
+        rt[name] = (sorted(back) == sorted(sd) and all(torch.equal(back[k], sd[k]) for k in sd),
+                    sum(int(is_sharded(q)) for q in m.parameters()))
+    est = GradLogPEstimator2d(**x["ROUTE_EST"], use_kernels=True, use_int8_deep=True)
+    est.load_state_dict(x["route_state"])
+    xs, emask, mu, tt, spk = x["route_args"]
+    with torch.no_grad():
+        whole = est(xs, emask, mu, tt, spk)
+    shard_params_tp(est, mesh)
+    calls = []
+    undo = _route_stand_ins(calls)
+    try:
+        with torch.no_grad():
+            ModelShard.collectives = 0
+            score = est(xs, emask, mu, tt, spk)
+            route_coll = ModelShard.collectives
+    finally:
+        undo()
+    routes = {name: est.get_submodule(name).route(xs.shape[1] >> lvl, 16 >> lvl, True, True)
+              for name, lvl in (("down_0_res1", 0), ("down_1_res1", 1), ("down_2_res1", 2),
+                                ("up_0_res1", 1))}
+    return {"pairs": pairs, "collectives": n_coll, "round_trip": rt, "calls": calls,
+            "score": score, "whole": whole, "route_collectives": route_coll, "routes": routes}
+
+
+def tp_case(rank, world, d):
+    """The case's (data, seq, model) layout: with "sites" in the inputs
+    first _tp_sites on it; with "world1" each path's samplers unsharded
+    first; then the decoder sharded by
+    shard_params_tp, reverse_diffusion (dual guidance, injected noise; the
+    guidance stride with JAX's fold_in draws) and reverse_diffusion_ode
+    (with and without the stride) on the plain and kernel paths, through
+    the mesh with the case's sample spec (None: no spec); the Synthesizer's
+    batch paths with the sharded decoder; at a second layout, when the
+    case has one, one DP x TP STEP1 step (the modules sharded, the rows of
+    the mesh's data axis) with JAX's draws, its parameters gathered; the
+    deep configuration on a model-sharded estimator must raise."""
+    from unitspeech_tpu_torch.infer.tts import Synthesizer, TTSModels
+    from unitspeech_tpu_torch.models.diffusion import (
+        UnitSpeech,
+        reverse_diffusion,
+        reverse_diffusion_ode,
+    )
+    from unitspeech_tpu_torch.parallel import DataShard, ModelShard, make_mesh, shard_batch
+    from unitspeech_tpu_torch.parallel.tp import gather_params_tp, shard_params_tp
+
+    x = _inputs(d)
+    data, seq, model = x["layout"]
+    mesh = _join(rank, world, d, data=data, model=model)
+    assert (mesh["seq"].size(), mesh["model"].size()) == (seq, model)
+    sites = _tp_sites(mesh, x["sites"]) if "sites" in x else None
+    args, kw = x["sampler_args"], x["sampler_kw"]
+    spec = x["spec"]
+    def run(dec, **common):
+        return {"ddpm": reverse_diffusion(dec, *args, noises=x["noises"], **common, **kw),
+                "ddpm:cs2": reverse_diffusion(dec, *args, noises=x["fold_in_noises"],
+                                              cfg_stride=2, **common, **kw),
+                "dpm2": reverse_diffusion_ode(dec, *args, **common, **kw),
+                "dpm2:cs2": reverse_diffusion_ode(dec, *args, cfg_stride=2, **common, **kw)}
+
+    mels, world1 = {}, {}
+    for path in ("plain", "kernels"):
+        dec = UnitSpeech(**x["DEC"], use_kernels=path == "kernels")
+        dec.load_state_dict(x["dec_state"])
+        dec.eval()
+        if x.get("world1"):  # the unsharded sampler, on these ranks' spare time
+            world1[path] = run(dec)
+        shard_params_tp(dec, mesh)
+        mels[path] = run(dec, mesh=mesh if spec else None, sample_spec=spec)
+    models = TTSModels.from_checkpoint(x["ckpt"], device="cpu", dtype=torch.float32,
+                                       use_kernels=True)
+    shard_params_tp(models.decoder, mesh)
+    synth = Synthesizer(models, mesh=mesh if spec else None, sample_spec=spec)
+    mel, y_lengths = synth.synthesize_mel_batch(x["seqs"], **x["synth_kw"])
+    refused = []
+    deep = UnitSpeech(**x["DEC"], use_kernels=True, use_deep=True)
+    deep.load_state_dict(x["dec_state"])
+    shard_params_tp(deep, mesh)
+    for call in (lambda: deep(*args[:3], torch.zeros(args[0].shape[0]), args[3]),
+                 lambda: Synthesizer(models, mesh=mesh, sample_spec=(None, None, "model"))):
+        try:
+            call()
+            refused.append(None)
+        except (NotImplementedError, ValueError) as e:
+            refused.append(f"{type(e).__name__}: {e}")
+    out = {"mels": mels, "mel": mel, "y_lengths": y_lengths, "refused": refused,
+           "model_rank": ModelShard.of(mesh).rank, "sites": sites, "world1": world1}
+    if "step1" in x:
+        from unitspeech_tpu_torch.models.duration import DurationPredictor
+        from unitspeech_tpu_torch.models.encoder import Encoder
+        from unitspeech_tpu_torch.train import steps
+
+        s = x["step1"]
+        mesh2 = make_mesh(data=s["layout"][0], seq=s["layout"][1], model=s["layout"][2])
+        shard, ms = DataShard.of(mesh2), ModelShard.of(mesh2)
+        mods = [Encoder(**s["TE"]), DurationPredictor(**s["DP"]), UnitSpeech(**s["DEC"])]
+        for m, sd in zip(mods, s["state"]):
+            m.load_state_dict(sd)
+            shard_params_tp(m, mesh2)
+        opt = torch.optim.Adam([p for m in mods for p in m.parameters()], lr=s["lr"],
+                               betas=(0.9, 0.999), eps=1e-8)
+        step = steps.make_step1_train_step(*mods, opt, s["seg"], s["spk_uncond"], shard=shard)
+        metrics = step(shard_batch(s["batch"], shard), draws=s["draws"])
+        out["step1"] = {"metrics": {k: v.item() for k, v in metrics.items()},
+                        "params": [gather_params_tp(m) for m in mods],
+                        "at": (shard.rank, ms.rank)}
+    _done(rank, d, out)

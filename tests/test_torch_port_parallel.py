@@ -617,8 +617,9 @@ def test_data_sharded_sampling_and_synthesize_batch_match_jax(slice_pair, tmp_pa
     encode + _align_and_sample on the data = 2 mesh + vocoder (JAX's
     synthesize_batch takes no noise): the lengths equal, the mel within
     the mel tolerance and each waveform within 5e-3; the port at world 1
-    gives the same rows. A spec naming 'model' raises NotImplementedError
-    (the seq axis has its own cases: tests/test_torch_port_seq.py)."""
+    gives the same rows. A spec naming 'model' raises ValueError (the model
+    axis shards the parameters: tests/test_torch_port_tp.py; the seq axis
+    has its own cases: tests/test_torch_port_seq.py)."""
     jsynth, ckpt = slice_pair
     rng = np.random.default_rng(3)
     b, t, f = 4, 16, N_FEATS
@@ -693,7 +694,7 @@ def test_data_sharded_sampling_and_synthesize_batch_match_jax(slice_pair, tmp_pa
             n = int(y_lengths[i]) * m.cfg.data.hop_length
             assert w.shape == (n,)
             np.testing.assert_allclose(w, want_wav[i, :n], rtol=0, atol=5e-3)
-        assert all(r is not None and "next module slice" in r for r in o["refused"])
+        assert all(r is not None and "shards the parameters" in r for r in o["refused"])
 
 
 # --- 7. distributed transcription ---------------------------------------------

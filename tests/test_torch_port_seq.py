@@ -48,7 +48,7 @@ from unitspeech_tpu_torch.models import diffusion as tdiff
 from unitspeech_tpu_torch.models.unet import GradLogPEstimator2d
 from unitspeech_tpu_torch.ops.masking import choose_bucket, fix_len_compatibility
 from unitspeech_tpu_torch.parallel import FrameSlice, Group, SeqShard, sample_shard
-from unitspeech_tpu_torch.parallel.mesh import QUEUED, QUEUED_DEEP
+from unitspeech_tpu_torch.parallel.mesh import QUEUED_DEEP
 from unitspeech_tpu_torch.utils.params import _random_leaf, params_from_jax
 
 # one intra-op thread: the suite's pytest workers share the CPU's cores
@@ -376,18 +376,20 @@ class _Axis:
 
 
 def test_seq_refusals(seq_runs, slice_pair):
-    """A spec naming 'model', and a seq slice on the fused deep
-    configuration, raise NotImplementedError naming the next slice, on
-    every rank and in one process (the Synthesizer at its construction);
-    a seq axis of one rank is the unsharded program."""
+    """A spec naming 'model' raises ValueError (the model axis shards the
+    parameters, not the sample), and a seq slice on the fused deep
+    configuration NotImplementedError naming the next slice, on every rank
+    and in one process (the Synthesizer at its construction); a seq axis
+    of one rank is the unsharded program."""
     for o in seq_runs["ranks"]:
-        assert o["refused"][0] is not None and "next module slice" in o["refused"][0]
+        assert o["refused"][0] is not None and o["refused"][0].startswith("ValueError") and \
+            "shards the parameters" in o["refused"][0]
         assert o["refused"][1] is not None and "next module slice" in o["refused"][1]
-    with pytest.raises(NotImplementedError, match="next module slice"):
+    with pytest.raises(ValueError, match="shards the parameters"):
         sample_shard(object(), ("data", "model", None))
     with pytest.raises(ValueError, match="frame axis only"):
         sample_shard(object(), ("seq", None, None))
-    assert "'model'" in QUEUED and "use_resample" in QUEUED_DEEP
+    assert "'model'" in QUEUED_DEEP and "use_resample" in QUEUED_DEEP
     est = GradLogPEstimator2d(**{k: v for k, v in ROUTE_EST.items() if k != "dtype"},
                               use_kernels=True, use_resample=True)
     fs = SeqShard(0, 2).at(T)

@@ -37,9 +37,14 @@ each rank of the data axis. A spec that puts 'seq' on the frame axis
 axis) splits every sampler call's frames over the mesh's seq axis, in
 every mode (parallel/mesh.py SeqShard; models/diffusion.py seq_sharded):
 the encoder, the duration predictor and the vocoder run whole on every
-rank, as JAX constrains only the sampler's state. A spec naming 'model',
-or 'seq' with the fused deep-stage configuration, raises
-NotImplementedError (the next slice).
+rank, as JAX constrains only the sampler's state. The decoder may be
+sharded over the mesh's model axis (parallel.shard_params_tp(models.decoder,
+mesh), as JAX's sampler paths shard the decoder's parameters alone): every
+sampler call then runs the tensor-parallel estimator, with or without a
+spec; the encoder, the duration predictor and the vocoder stay whole. A
+spec naming 'model' raises ValueError (the axis shards parameters, not the
+sample); 'seq', or a model-sharded decoder, with the fused deep-stage
+configuration raises NotImplementedError (the next slice).
 """
 
 from __future__ import annotations
@@ -202,8 +207,9 @@ class Synthesizer:
     def __post_init__(self):
         self._shard, self._seq = sample_shard(self.mesh, self.sample_spec)
         est = self.models.decoder.estimator
-        if self._seq is not None and (est.use_deep or est.use_i8pre_deep or est.use_resample):
-            raise NotImplementedError(f"sample_spec {tuple(self.sample_spec)}: {QUEUED_DEEP}")
+        if ((self._seq is not None or est.tp is not None)
+                and (est.use_deep or est.use_i8pre_deep or est.use_resample)):
+            raise NotImplementedError(f"sample_spec {self.sample_spec}: {QUEUED_DEEP}")
 
     def _scales(self, diffusion_steps, length_scale, text_gradient_scale, spk_gradient_scale):
         icfg = self.models.cfg.inference

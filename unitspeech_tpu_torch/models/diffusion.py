@@ -23,7 +23,10 @@ ranks of its seq axis (slices of whole 8-frame pieces; the estimator runs
 every site's sharded form on them, models/unet.py), or both, as JAX's
 P("data", "seq", None); each rank draws the global sample's noise and
 keeps its rows and frames, and the result is gathered on every rank.
-'model' raises NotImplementedError (the next slice).
+'model' in a spec raises ValueError: the axis shards the decoder's
+parameters (parallel.shard_params_tp), with which every sampler runs the
+tensor-parallel estimator, on any mesh or none; every model rank draws the
+same noise.
 """
 
 from __future__ import annotations

@@ -9,6 +9,13 @@ call, so a JAX parameter tree loads with no transposes
 
 `dtype` follows flax's `dtype=` knob: inputs and parameters are cast to it
 and the op runs in it.
+
+Tensor parallelism (parallel/tp.py shard_params_tp): a layer whose kernel
+holds this rank's output-channel columns, and its bias the same, has its
+ModelShard in `tp`; it computes its columns of the output from the whole
+input and gathers them over the model axis (Dense's `gather=False`: the
+columns alone, for a caller that gathers later). Under autograd its input passes
+ModelShard.enter, whose backward sums the input's gradient over the axis.
 """
 
 from __future__ import annotations
@@ -24,16 +31,25 @@ def _param(*shape):
     return nn.Parameter(torch.empty(*shape))
 
 
+def _tp_in(layer, x):
+    return x if layer.tp is None else layer.tp.enter(x)
+
+
+def _tp_out(layer, y, dim: int, gather: bool = True):
+    return y if layer.tp is None or not gather else layer.tp.gather(y, dim)
+
+
 class Dense(nn.Module):
     def __init__(self, din: int, dout: int, bias: bool = True):
         super().__init__()
         self.kernel = _param(din, dout)
         self.bias = _param(dout) if bias else None
+        self.tp = None  # the model axis's ModelShard when sharded
 
-    def forward(self, x, dtype=None):
+    def forward(self, x, dtype=None, gather: bool = True):
         dt = dtype or x.dtype
-        y = x.to(dt) @ self.kernel.to(dt)
-        return y if self.bias is None else y + self.bias.to(dt)
+        y = _tp_in(self, x).to(dt) @ self.kernel.to(dt)
+        return _tp_out(self, y if self.bias is None else y + self.bias.to(dt), -1, gather)
 
 
 class Conv1d(nn.Module):
@@ -43,13 +59,15 @@ class Conv1d(nn.Module):
         super().__init__()
         self.kernel = _param(k, din, dout)
         self.bias = _param(dout) if bias else None
+        self.tp = None
 
     def ncw(self, x, padding: int, dilation: int = 1, dtype=None):
         """Conv on a (B, C, T) tensor, returning (B, C, T)."""
         dt = dtype or x.dtype
         b = None if self.bias is None else self.bias.to(dt)
-        return F.conv1d(x.to(dt), self.kernel.to(dt).permute(2, 1, 0), b,
-                        padding=padding, dilation=dilation)
+        y = F.conv1d(_tp_in(self, x).to(dt), self.kernel.to(dt).permute(2, 1, 0), b,
+                     padding=padding, dilation=dilation)
+        return _tp_out(self, y, 1)
 
     def forward(self, x, dtype=None):
         """SAME conv (odd kernel) on (B, T, C)."""
@@ -64,6 +82,7 @@ class Conv2d(nn.Module):
         super().__init__()
         self.kernel = _param(k, k, din, dout)
         self.bias = _param(dout) if bias else None
+        self.tp = None
 
     def forward(self, x, stride: int = 1, dtype=None, padding=None):
         """padding: torch's (H, W) padding, SAME's k // 2 on both when None
@@ -71,9 +90,10 @@ class Conv2d(nn.Module):
         dt = dtype or x.dtype
         k = self.kernel.shape[0]
         b = None if self.bias is None else self.bias.to(dt)
-        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.kernel.to(dt).permute(3, 2, 0, 1), b,
+        y = F.conv2d(_tp_in(self, x).to(dt).permute(0, 3, 1, 2),
+                     self.kernel.to(dt).permute(3, 2, 0, 1), b,
                      stride=stride, padding=k // 2 if padding is None else padding)
-        return y.permute(0, 2, 3, 1)
+        return _tp_out(self, y.permute(0, 2, 3, 1), -1)
 
 
 def conv_transpose_weight(kernel: torch.Tensor) -> torch.Tensor:
@@ -93,13 +113,14 @@ class ConvTranspose2d(nn.Module):
         self.kernel = _param(k, k, din, dout)
         self.bias = _param(dout)
         self.stride, self.pad = stride, k - 1 - pad_flax
+        self.tp = None
 
     def forward(self, x, dtype=None):
         dt = dtype or x.dtype
-        y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2),
+        y = F.conv_transpose2d(_tp_in(self, x).to(dt).permute(0, 3, 1, 2),
                                conv_transpose_weight(self.kernel.to(dt)), self.bias.to(dt),
                                stride=self.stride, padding=self.pad)
-        return y.permute(0, 2, 3, 1)
+        return _tp_out(self, y.permute(0, 2, 3, 1), -1)
 
 
 class ConvTranspose1d(nn.Module):
@@ -111,11 +132,13 @@ class ConvTranspose1d(nn.Module):
         self.kernel = _param(k, din, dout)
         self.bias = _param(dout)
         self.stride, self.pad = stride, k - 1 - pad_flax
+        self.tp = None
 
     def ncw(self, x, dtype=None):
         dt = dtype or x.dtype
-        return F.conv_transpose1d(x.to(dt), conv_transpose_weight(self.kernel.to(dt)),
-                                  self.bias.to(dt), stride=self.stride, padding=self.pad)
+        y = F.conv_transpose1d(_tp_in(self, x).to(dt), conv_transpose_weight(self.kernel.to(dt)),
+                               self.bias.to(dt), stride=self.stride, padding=self.pad)
+        return _tp_out(self, y, 1)
 
 
 class Affine(nn.Module):

@@ -52,6 +52,25 @@ reads the global frames (`seq.t`), so all ranks and the unsharded
 program take the same routes; the masks and valid-row counts are the
 slice's. The fused deep-stage configuration refuses a seq slice
 (parallel.mesh.QUEUED_DEEP: the next slice).
+
+Tensor parallelism (parallel/tp.py shard_params_tp: every conv and dense
+kernel holds this rank's Cout columns of the mesh's model axis, `tp` its
+ModelShard): each plain layer gathers its output columns (models/layers.py),
+so the plain Blocks, the time MLP, the plain attention and the library
+resample convs compute the replicated program. The kernel sites keep their
+kernels on the slice: K1 and K2 run their chains on the rank's columns
+(ops/fused_resnet.py: K1 gathers h and its output, K2 sums the ranks'
+partial final dots), the flat blocks run their convs on the rank's
+columns with K3's statistics on the slice's groups and K7's scale over the
+whole input, gathering h before conv2 and the block's output, and the
+FiLM bias stays the rank's columns. K4 runs whole on every rank: its site
+gathers the two projections' columns once when it packs (GSPMD's treatment
+of a pallas_call's sharded operands). Routes are taken at the global
+widths; a kernel runs where its `takes` also accepts the rank's slice
+(K1 and K2: Cout / size in whole 64-column tiles and the groups split over
+the axis), else the site takes the route JAX's code takes when its gate
+fails (the plain Blocks). The fused deep-stage configuration refuses a
+model-sharded estimator (QUEUED_DEEP).
 """
 
 from __future__ import annotations
@@ -101,6 +120,7 @@ from unitspeech_tpu_torch.ops.row_stats import (
     row_absmax,
     row_absmax_plain,
     row_stats_plain,
+    slice_groups,
 )
 from unitspeech_tpu_torch.parallel.mesh import QUEUED_DEEP
 
@@ -124,6 +144,19 @@ def fused_kernel_shape(f: int) -> bool:
     """The F % 8 == 0 gate of the fused ResnetBlock (pallas_resnet.py
     supports_shape): F = 80, 40 in the estimator."""
     return f % 8 == 0
+
+
+def fused_takes(cout: int, groups: int, tp=None) -> bool:
+    """Whether K1 / K2 take a block of Cout (global) channels in `groups`
+    groups: fused_resnet.takes at the global width and, on a model axis
+    (tp, a parallel.ModelShard), at the rank's slice too (whole groups a
+    rank)."""
+    if not fused_resnet.takes(cout, groups):
+        return False
+    if tp is None:
+        return True
+    g = slice_groups(groups, tp)
+    return bool(g) and cout % tp.size == 0 and fused_resnet.takes(cout // tp.size, g)
 
 
 def _group_norm_lowmem(x, groups, scale, bias, stats, eps=1e-5, seq=None):
@@ -183,6 +216,16 @@ class ResnetBlock(nn.Module):
         # were packed for, set by pack
         self.packed = self.packed_for = None
 
+    @property
+    def tp(self):
+        """The model axis's ModelShard when the block's kernels are sharded."""
+        return self.block1.conv.tp
+
+    def widths(self):
+        """(Cin, Cout) of the block, the global widths on a model axis."""
+        cin, cout = self.block1.conv.kernel.shape[2:]
+        return cin, cout * (1 if self.tp is None else self.tp.size)
+
     def pack(self, f, use_kernels, use_int8=False, use_deep=False, use_i8pre=False):
         """Pack, once, the conv kernels that this block's route at F = f reads
         (inference weights are frozen, so every call reuses them): all three
@@ -216,9 +259,10 @@ class ResnetBlock(nn.Module):
         """The JAX ResnetBlock's routing (unet.py:321-401): "k1" (the fused
         kernel at F % 8 == 0 where it takes the widths), "k9" / "k8" (the
         whole-layer deep kernels), "flat" (deep-stage rows), or "blocks"
-        (plain Blocks)."""
-        cin, cout = self.block1.conv.kernel.shape[2:]
-        if use_kernels and fused_kernel_shape(f) and fused_resnet.takes(cout, self.groups):
+        (plain Blocks); on a model axis at the global widths, K1 where it
+        also takes the rank's slice (fused_takes)."""
+        cin, cout = self.widths()
+        if use_kernels and fused_kernel_shape(f) and fused_takes(cout, self.groups, self.tp):
             return "k1"
         if not self.flat:
             return "blocks"
@@ -234,18 +278,20 @@ class ResnetBlock(nn.Module):
         level), which K9 reads; seq: x is a frame slice (the route taken at
         the global frames, each route's sharded form)."""
         b, t, f, cin = x.shape
-        bias_t = self.mlp(mish(t_emb), dtype=dtype)
+        tp = self.tp
         stats = None if use_kernels else row_stats_plain
         route = self.route(t if seq is None else seq.t, f, use_kernels, use_int8, use_deep,
                            use_i8pre)
+        # the FiLM bias: the rank's columns where the route works on them
+        bias_t = self.mlp(mish(t_emb), dtype=dtype, gather=route not in ("k1", "flat"))
         if route == "flat":
             return self._flat(x, mask, bias_t, dtype, use_kernels, pre_masked, use_int8, seq)
-        if seq is not None and route not in ("k1", "blocks"):
-            raise NotImplementedError(f"ResnetBlock route {route!r} on a seq slice: "
+        if (seq is not None or tp is not None) and route not in ("k1", "blocks"):
+            raise NotImplementedError(f"ResnetBlock route {route!r} on a seq or model slice: "
                                       f"{QUEUED_DEEP}")
         if route in ("k1", "k8", "k9"):
             c1, c2 = self.block1.conv, self.block2.conv
-            fn, extra = fused_resnet_block, {"seq": seq}
+            fn, extra = fused_resnet_block, {"seq": seq, "model": tp}
             if route == "k8":
                 fn, extra = fused_resnet_block_deep, {}
             elif route == "k9":
@@ -277,8 +323,14 @@ class ResnetBlock(nn.Module):
         accumulators; in int8 mode they are rounded to `dtype` after the
         bias add, where JAX rounds them (unet.py:270-283). seq: x is a
         frame slice (halo'd convs, the int8 scale and the statistics over
-        the axis)."""
+        the axis). On a model axis the convs, GroupNorm and residual work on
+        the rank's output columns (bias_t is its columns), h is gathered
+        before conv2 and the output at the end; under autograd the whole
+        tensors that feed column-local work (x, the gathered h, the
+        GroupNorm vectors) pass ModelShard.enter, so that their gradients
+        sum every rank's share."""
         b, t, f, cin = x.shape
+        tp = self.tp
         stats = None if use_kernels else row_stats_plain
         absmax = row_absmax if use_kernels else row_absmax_plain
         n = t * f
@@ -286,12 +338,16 @@ class ResnetBlock(nn.Module):
         mask_rows = mask.expand(b, t, f, 1).reshape(b, n, 1)
         m32 = mask_rows.to(torch.float32)
         xf = x.to(dtype).reshape(b, n, cin)
+        if tp is not None:
+            xf = tp.enter(xf)
         if not pre_masked:
             xf = xf * mask_rows.to(dtype)
 
         def gn_mish(acc, norm):
             scale, shift = norm.params()
-            mean, inv = group_mean_inv(acc, self.groups, stats=stats, seq=seq)
+            if tp is not None:
+                scale, shift = tp.take(tp.enter(scale), 0), tp.take(tp.enter(shift), 0)
+            mean, inv = group_mean_inv(acc, self.groups, stats=stats, seq=seq, model=tp)
             h = (acc.to(torch.float32) - mean[:, None, :]) * inv[:, None, :]
             return mish_one_exp(h * scale + shift)
 
@@ -306,6 +362,8 @@ class ResnetBlock(nn.Module):
         c1 = conv(xf, 0)
         h = gn_mish(c1, self.block1.norm) * m32
         h = (h + bias_t[:, None, :].to(torch.float32)).to(dtype)
+        if tp is not None:
+            h = tp.enter(tp.gather(h))
         c2 = conv(h * mask_rows.to(dtype), 1)
         h2 = gn_mish(c2, self.block2.norm) * m32
         xv = xf * mask_rows.to(dtype)
@@ -313,8 +371,9 @@ class ResnetBlock(nn.Module):
             res = (matmul_f32(xv, self.res_conv.kernel.reshape(cin, dout))
                    + self.res_conv.bias) * m32
         else:
-            res = xv
-        return (h2 + res).to(dtype).reshape(b, t, f, dout)
+            res = xv if tp is None else tp.take(xv)
+        out = (h2 + res).to(dtype).reshape(b, t, f, dout)
+        return out if tp is None else tp.gather(out)
 
 
 def _pack_after_load(estimator, _incompatible_keys):
@@ -344,7 +403,7 @@ class LinearAttention(nn.Module):
         gets the whole sequence's context."""
         b, t, f, c = x.shape
         n, h, d = t * f, self.heads, self.dim_head
-        qkv = x.reshape(b, n, c).to(dtype) @ self.to_qkv.kernel.to(dtype)
+        qkv = self.to_qkv(x.reshape(b, n, c), dtype=dtype)
         q, k, v = (z.reshape(b, n, h, d) for z in qkv.chunk(3, dim=-1))
         k_max = k.amax(dim=1, keepdim=True)
         if seq is not None:
@@ -369,15 +428,30 @@ class RezeroAttention(nn.Module):
         self.g = nn.Parameter(torch.empty(1))
         self.fn = LinearAttention(c, heads, dim_head)
         self.packed = None  # the kernel's packed weights (K4), set by pack
+        # on a model axis: the whole (w_qkv, w_out, b_out) K4 reads, set by pack
+        self.whole = None
+
+    def weights(self):
+        """(w_qkv, w_out, b_out) whole, as K4 reads them."""
+        if self.whole is not None:
+            return self.whole
+        return self.fn.to_qkv.kernel, self.fn.to_out.kernel, self.fn.to_out.bias
 
     def pack(self):
         """Pack the projections once for the kernel, where it takes the
-        widths."""
+        widths; on a model axis first gather their columns (K4 runs whole
+        on every rank: C x 384 + 128 x C + C entries a site, f32, beside its
+        bf16 pack)."""
         c = self.fn.to_qkv.kernel.shape[0]
-        self.packed = None
-        if fused_attention.takes(c, self.fn.heads, self.fn.dim_head):
-            self.packed = fused_attention.pack_attention_weights(self.fn.to_qkv.kernel,
-                                                                 self.fn.to_out.kernel)
+        self.packed = self.whole = None
+        if not fused_attention.takes(c, self.fn.heads, self.fn.dim_head):
+            return
+        qkv, out = self.fn.to_qkv, self.fn.to_out
+        if qkv.tp is not None or out.tp is not None:
+            self.whole = tuple(p.detach() if layer.tp is None else layer.tp.gather(p.detach())
+                               for layer, p in ((qkv, qkv.kernel), (out, out.kernel),
+                                                (out, out.bias)))
+        self.packed = fused_attention.pack_attention_weights(*self.weights()[:2])
 
     def uses_kernel(self, x, use_kernels: bool, seq=None) -> bool:
         """The kernel's gate at the global tokens (seq: x is a frame slice,
@@ -393,8 +467,7 @@ class RezeroAttention(nn.Module):
         if self.uses_kernel(x, use_kernels, seq):
             b, t, f, c = x.shape
             y = fused_rezero_attention(
-                x.reshape(b, t * f, c).to(dtype), self.fn.to_qkv.kernel,
-                self.fn.to_out.kernel, self.fn.to_out.bias, self.g,
+                x.reshape(b, t * f, c).to(dtype), *self.weights(), self.g,
                 lens_rows=lens_rows_from_mask(mask, f),
                 heads=self.fn.heads, dim_head=self.fn.dim_head, packed=self.packed, seq=seq,
             )
@@ -466,9 +539,10 @@ class GradLogPEstimator2d(nn.Module):
         self.use_int8_deep = use_int8_deep
         self.use_deep, self.use_resample, self.use_i8pre_deep = (
             use_deep, use_resample, use_i8pre_deep)
-        if use_kernels or use_int8_deep or use_deep or use_i8pre_deep or use_resample:
+        if self.packs():
             self.register_load_state_dict_post_hook(_pack_after_load)
         self.final_packed = None  # the final block's packed conv (K2), set by pack
+        self.tp = None  # the model axis's ModelShard, set by parallel.shard_params_tp
         t_dim = dim + spk_emb_dim
         self.mlp_0 = Dense(dim, dim * 4)
         self.mlp_1 = Dense(dim * 4, dim)
@@ -494,6 +568,11 @@ class GradLogPEstimator2d(nn.Module):
         self.final_block = Block(dim, dim, groups)
         self.final_conv = Conv2d(dim, 1, 1)
 
+    def packs(self) -> bool:
+        """Whether a switch routes to weights that `pack` prepares."""
+        return bool(self.use_kernels or self.use_int8_deep or self.use_deep
+                    or self.use_i8pre_deep or self.use_resample)
+
     def pack(self):
         """Quantize the flat blocks' convs with use_int8_deep and pack the
         weights of the kernels this estimator routes to at F = n_feats,
@@ -515,7 +594,8 @@ class GradLogPEstimator2d(nn.Module):
             getattr(self, name).pack(-(-self.n_feats // 2 ** i), self.use_kernels,
                                      self.use_int8_deep, self.use_deep, self.use_i8pre_deep)
         fb = self.final_block.conv.kernel
-        if self.use_kernels and fused_resnet.takes(fb.shape[-1], self.groups):
+        self.final_packed = None
+        if self.use_kernels and fused_takes(self.dim, self.groups, self.final_block.conv.tp):
             self.final_packed = pack_conv_weight(fb)
 
     def packed_tensors(self) -> dict:
@@ -540,9 +620,12 @@ class GradLogPEstimator2d(nn.Module):
 
     def forward(self, x, mask, mu, t, spk_emb, seq=None):
         """seq: a parallel.FrameSlice; x, mask and mu hold this rank's frames
-        of the sample (the module docstring), the score too."""
-        if seq is not None and (self.use_deep or self.use_i8pre_deep or self.use_resample):
-            raise NotImplementedError(f"the estimator on a seq slice: {QUEUED_DEEP}")
+        of the sample (the module docstring), the score too. A model-sharded
+        estimator (shard_params_tp) takes every input and gives every
+        output whole."""
+        if ((seq is not None or self.tp is not None)
+                and (self.use_deep or self.use_i8pre_deep or self.use_resample)):
+            raise NotImplementedError(f"the estimator on a seq or model slice: {QUEUED_DEEP}")
         dt, uk = self.dtype, self.use_kernels
         seqs = [seq]  # the frame slice of every level
         for _ in self.dims[1:]:
@@ -633,10 +716,11 @@ class GradLogPEstimator2d(nn.Module):
 
         fb, fc = self.final_block, self.final_conv
         if (uk and fused_kernel_shape(h.shape[2])
-                and fused_resnet.takes(fb.conv.kernel.shape[-1], self.groups)):
+                and fused_takes(self.dim, self.groups, fb.conv.tp)):
             return fused_final_block(h.to(dt), m, fb.conv.kernel, fb.conv.bias,
                                      *fb.norm.params(), fc.kernel, fc.bias,
-                                     groups=self.groups, packed=self.final_packed, seq=seq)
+                                     groups=self.groups, packed=self.final_packed, seq=seq,
+                                     model=fb.conv.tp)
         h = self.final_block(h, m, dt, row_stats_plain, seq=seq)
         out = self.final_conv(h * m, dtype=dt)
         return (out * m)[..., 0].to(torch.float32)

@@ -36,16 +36,21 @@ once to the activation dtype; the statistics come from the f32
 accumulators and pool over every row of the padded bucket; GN math and
 mish run in f32.
 
-On a frame slice of the seq axis (`seq=`, a parallel.FrameSlice) K1 and K2
-run the same kernels one launch at a time with collectives between them
-(`resnet_block_seq`, `final_block_seq`): each conv reads a halo'd input
+On a frame slice of the seq axis (`seq=`, a parallel.FrameSlice) and / or
+a column slice of the model axis (`model=`, a parallel.ModelShard) K1 and
+K2 run the same kernels one launch at a time with collectives between
+them (`resnet_block_sharded`, `final_block_sharded`). On a frame slice
+each conv reads a halo'd input
 (the neighbours' edge frame on each side, masked by the sender, zeros at
 the global ends; us_resnet_conv3x3_halo) and writes and sums the slice's
 rows only, so every global frame enters the statistics once; the tile
 sums of every rank are gathered (parallel.FrameSlice.cat) and folded
 with the global row count (us_gn_film_rows, us_gn_finalize, us_final_tail).
-Each step has its plain twin, which a CPU tensor takes: the chain is the
-same code on both.
+On a column slice each conv writes the rank's output columns from the
+whole input and the statistics fold the slice's whole groups; K1 gathers
+h before its second conv and its output at the end, K2 sums the ranks'
+partial dots of the final conv. Each step has its plain twin, which a CPU
+tensor takes: the chain is the same code on both.
 """
 
 from __future__ import annotations
@@ -64,7 +69,7 @@ from unitspeech_tpu_torch.ops.conv_matmul import (
 )
 from unitspeech_tpu_torch.ops.masking import frames_from_mask
 from unitspeech_tpu_torch.ops.resample import KC, pad_chunks, swizzle128
-from unitspeech_tpu_torch.ops.row_stats import fold_stats, row_stats_plain
+from unitspeech_tpu_torch.ops.row_stats import fold_slice, row_stats_plain, slice_groups
 
 GN_EPS = 1e-5
 I8_KC = 128  # input channels per chunk of the int8 Hopper conv: one 128-byte row
@@ -206,7 +211,7 @@ def block_rows_args(x, mask, t_bias, w1, b1, s1, be1, w2, b2, s2, be2, wres, bre
     cout = w1.shape[-1]
     lens = lens_rows_from_mask(mask, f) if lens_rows is None else lens_rows
     return (x.reshape(bsz, t * f, cin), lens, t_bias,
-            w1.reshape(9 * cin, cout), b1, s1, be1, w2.reshape(9 * cout, cout), b2, s2, be2,
+            w1.reshape(9 * cin, cout), b1, s1, be1, w2.reshape(-1, cout), b2, s2, be2,
             None if wres is None else wres.reshape(cin, cout), bres)
 
 
@@ -401,25 +406,33 @@ def _packed_operand(packed, what, taps, cin, cout, dev):
     return _cuda.require(packed, what, dtype=torch.bfloat16, shape=shape, device=dev), bn
 
 
-def _conv_stats(lib, x, w, bn, bias, lens, f, groups):
-    """Launch kernel A (w from pack_conv_weight, BN its Cout tile), then
-    reduce its tile statistics. -> (c, mean, inv)."""
+def _conv_part(lib, x, w, bn, bias, lens, f):
+    """Launch kernel A (w from pack_conv_weight, BN its Cout tile; bias f32).
+    -> (c, its tile sums (B, tiles, 2, Cout))."""
     b, n, cin = x.shape
     cout = bias.shape[-1]
-    st = _cuda.stream(x)
-    nt = lib.us_conv_n_tiles(n, f, cin)
-    part = torch.empty((b, nt, 2, cout), dtype=torch.float32, device=x.device)
+    part = torch.empty((b, lib.us_conv_n_tiles(n, f, cin), 2, cout), dtype=torch.float32,
+                       device=x.device)
     out = torch.empty((b, n, cout), dtype=x.dtype, device=x.device)
+    _cuda.check(
+        lib.us_resnet_conv3x3(x.data_ptr(), w.data_ptr(), bn, bias.data_ptr(), lens.data_ptr(),
+                              out.data_ptr(), part.data_ptr(), b, n, f, cin, cout, 0,
+                              _cuda.stream(x)),
+        "resnet conv3x3",
+    )
+    return out, part
+
+
+def _conv_stats(lib, x, w, bn, bias, lens, f, groups):
+    """Launch kernel A, then reduce its tile statistics. -> (c, mean, inv)."""
+    b, n, _ = x.shape
+    cout = bias.shape[-1]
+    out, part = _conv_part(lib, x, w, bn, bias, lens, f)
     mean = torch.empty((b, cout), dtype=torch.float32, device=x.device)
     inv = torch.empty_like(mean)
     _cuda.check(
-        lib.us_resnet_conv3x3(x.data_ptr(), w.data_ptr(), bn, bias.data_ptr(), lens.data_ptr(),
-                              out.data_ptr(), part.data_ptr(), b, n, f, cin, cout, 0, st),
-        "resnet conv3x3",
-    )
-    _cuda.check(
-        lib.us_gn_finalize(part.data_ptr(), b, nt, cout, groups, n, GN_EPS,
-                           mean.data_ptr(), inv.data_ptr(), 0, st),
+        lib.us_gn_finalize(part.data_ptr(), b, part.shape[1], cout, groups, n, GN_EPS,
+                           mean.data_ptr(), inv.data_ptr(), 0, _cuda.stream(x)),
         "groupnorm statistics",
     )
     return out, mean, inv
@@ -638,7 +651,7 @@ fused_resnet_block_int8.launches = 0
 def fused_resnet_block(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
                        w2, b2, gn2_scale, gn2_bias, wres=None, bres=None,
                        groups: int = 8, int8: bool = False, frames_per_tile: int = 0,
-                       wq=None, packed=None, seq=None):
+                       wq=None, packed=None, seq=None, model=None):
     """One U-Net ResnetBlock (plain twin: models/unet.py ResnetBlock).
 
     x (B, T, F, Cin); mask (B, T, 1, 1) prefix mask; t_bias (B, Cout) the
@@ -649,11 +662,13 @@ def fused_resnet_block(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
     (widths: `takes`), CPU tensors take resnet_block_plain. int8=True is
     K10a (fused_resnet_block_int8, which takes frames_per_tile, wq, and
     packed from pack_block_weights_int8); in bf16 they change nothing.
-    seq: x is a frame slice of the seq axis (parallel.FrameSlice): the
-    sharded chain (resnet_block_seq), kernels on CUDA tensors, their plain
-    twins on CPU tensors."""
-    if seq is not None and int8:
-        raise NotImplementedError("fused_resnet_block(int8=True) on a frame slice: K10a has no "
+    seq: x is a frame slice of the seq axis (parallel.FrameSlice); model:
+    the kernels and biases are this rank's Cout columns of the model axis
+    (parallel.ModelShard; x every channel, the GroupNorm vectors whole):
+    the sharded chain (resnet_block_sharded), kernels on CUDA tensors,
+    their plain twins on CPU tensors; the output is every channel."""
+    if (seq is not None or model is not None) and int8:
+        raise NotImplementedError("fused_resnet_block(int8=True) on a slice: K10a has no "
                                   "model route and no sharded form")
     if int8:
         return fused_resnet_block_int8(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2,
@@ -662,8 +677,9 @@ def fused_resnet_block(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias,
     bsz, t, f, _ = x.shape
     args = block_rows_args(x, mask, t_bias, w1, b1, gn1_scale, gn1_bias, w2, b2, gn2_scale,
                            gn2_bias, wres, bres)
-    if seq is not None:
-        out = resnet_block_seq(*args, f=f, groups=groups, seq=seq, packed=packed)
+    if seq is not None or model is not None:
+        out = resnet_block_sharded(*args, f=f, groups=groups, seq=seq, model=model,
+                                   packed=packed)
         if x.is_cuda:
             fused_resnet_block.launches += 1
     elif _cuda.route(x, "fused_resnet_block"):
@@ -808,20 +824,23 @@ def _final_block_cuda(x, lens, w1, b1, s1, be1, wo, bo, f, groups, packed=None):
 
 
 def fused_final_block(x, mask, w1, b1, gn_scale, gn_bias, w_out, b_out, groups: int = 8,
-                      packed=None, seq=None):
+                      packed=None, seq=None, model=None):
     """conv3x3 + GN + mish + mask (the estimator's final_block) fused with
     the 1-channel final_conv: x (B, T, F, C) -> (B, T, F) f32 score.
     packed: pack_conv_weight(w1) when made at load. CUDA tensors launch the
     kernel (widths: `takes`), CPU tensors take final_block_plain. seq: x
-    is a frame slice of the seq axis: the sharded chain (final_block_seq)."""
+    is a frame slice of the seq axis; model: w1 and b1 are this rank's
+    columns of the model axis (w_out whole): the sharded chain
+    (final_block_sharded)."""
     bsz, t, f, cin = x.shape
     cout = w1.shape[-1]
     args = (
         x.reshape(bsz, t * f, cin), lens_rows_from_mask(mask, f),
-        w1.reshape(9 * cin, cout), b1, gn_scale, gn_bias, w_out.reshape(cout), b_out,
+        w1.reshape(9 * cin, cout), b1, gn_scale, gn_bias, w_out.reshape(-1), b_out,
     )
-    if seq is not None:
-        out = final_block_seq(*args, f=f, groups=groups, seq=seq, packed=packed)
+    if seq is not None or model is not None:
+        out = final_block_sharded(*args, f=f, groups=groups, seq=seq, model=model,
+                                  packed=packed)
         if x.is_cuda:
             fused_final_block.launches += 1
     elif _cuda.route(x, "fused_final_block"):
@@ -887,40 +906,102 @@ def resnet_conv3x3_halo(xh, lens_rows, w, bias, f: int, packed=None):
     return out, part
 
 
-def _mean_inv(part, groups, n_rows):
+def resnet_conv3x3_part_plain(x, lens_rows, w, bias, f: int):
+    """Kernel A's plain version with its sums: masked x (B, N, Cin) rows, w
+    (9*Cin, Cout) -> (c in x's dtype, the sums (B, 1, 2, Cout) f32 of the
+    f32 accumulator: one tile)."""
+    valid = _valid(lens_rows, x.shape[1])
+    acc = conv3x3_rows(x.to(torch.float32) * valid, w.to(x.dtype).to(torch.float32), f) + bias
+    return acc.to(x.dtype), row_stats_plain(acc)[:, None]
+
+
+def resnet_conv3x3_part(x, lens_rows, w, bias, f: int, packed=None):
+    """Kernel A alone with its tile sums (us_resnet_conv3x3; uncounted, a
+    step of the sharded chains): arguments as resnet_conv3x3_part_plain,
+    packed the conv's pack_conv_weight -> (c, tile sums (B, tiles, 2,
+    Cout)). CUDA tensors launch the kernel, CPU tensors take the plain
+    twin."""
+    if not _cuda.route(x, "resnet_conv3x3_part"):
+        return resnet_conv3x3_part_plain(x, lens_rows, w, bias, f)
+    b, n, cin = x.shape
+    cout = bias.shape[-1]
+    if packed is None:
+        packed = pack_conv_weight(w.reshape(3, 3, cin, cout))
+    wp, bn = _packed_operand(packed, "w", 9, cin, cout, x.device)
+    _cuda.require(x, "x", dtype=torch.bfloat16)
+    _cuda.require(lens_rows, "lens", dtype=torch.int32, shape=(b,), device=x.device)
+    return _conv_part(_cuda.lib(), x, wp, bn, _f32(bias), lens_rows, f)
+
+
+def _kernel_a_rows(x, lens, w, bias, f, packed, seq, mask_sent):
+    """Kernel A over this rank's rows -> (c, tile sums (B, tiles, 2, Cout)):
+    on a frame slice over its halo'd rows (the frames sent masked by
+    mask_sent's valid rows when given), every seq rank's sums gathered."""
+    if seq is None:
+        return resnet_conv3x3_part(x, lens, w, bias, f, packed)
+    c, part = resnet_conv3x3_halo(halo_rows(x, f, seq, mask_sent), lens, w, bias, f, packed)
+    return c, seq.cat(part, _tiles_each(seq, f, x.shape[-1], _cuda.route(x, "kernel A")))
+
+
+def _slice_stats(part, groups, n_rows, model):
     """Gathered tile sums (B, tiles, 2, C) of n_rows rows -> per-channel
-    (mean, inv), each (B, C)."""
-    return fold_stats(part.sum(dim=1), groups, n_rows, GN_EPS)
+    (mean, inv), each (B, 1, C); C a model rank's slice (fold_slice)."""
+    mean, inv = fold_slice(part.sum(dim=1), groups, n_rows, GN_EPS, model)
+    return mean[:, None], inv[:, None]
 
 
-def resnet_block_seq(x, lens, t_bias, w1, b1, s1, be1, w2, b2, s2, be2, wres, bres, f: int,
-                     groups: int, seq, packed=None):
-    """K1 on a frame slice of the seq axis, in the card's launch order: x
-    (B, N, Cin) this rank's rows, lens its valid rows, the rest as
-    resnet_block_plain. 1 halo of x; 2 kernel A over the interior; 3 every
-    rank's tile sums gathered; 4 gn_film with the global row count; 5 halo
-    of h; 6 kernel B; 7 the sums gathered; 8 gn_finalize with the global
-    count; 9 kernel C on the slice's rows. Four collectives. CUDA tensors
-    launch the kernels (one launch each, as us_resnet_block makes them),
-    CPU tensors run each step's plain twin."""
+def _slice_args(model, what, cout, groups, x, cuda, *vecs):
+    """A chain's per-channel vectors cut to this model rank's columns, and
+    the slice's groups (the whole groups when there is no model axis); the
+    kernels take whole groups only."""
+    g = slice_groups(groups, model)
+    if model is not None:
+        vecs = tuple(model.take(v.reshape(-1), 0) for v in vecs)
+    if cuda:
+        if not g:
+            raise ValueError(f"{what}: {groups} groups straddle the model axis's "
+                             f"{model.size} ranks")
+        _check_shapes(what, x, cout, g)
+    return g, vecs
+
+
+def resnet_block_sharded(x, lens, t_bias, w1, b1, s1, be1, w2, b2, s2, be2, wres, bres, f: int,
+                         groups: int, seq=None, model=None, packed=None):
+    """K1 on a frame slice of the seq axis and / or a column slice of the
+    model axis, in the card's launch order: x (B, N, Cin) this rank's rows
+    of every channel, lens its valid rows; w1 (9*Cin, Cout'), b1, t_bias (B,
+    Cout'), w2 (9*Cout, Cout'), wres (Cin, Cout') and bres the rank's Cout'
+    = Cout / size columns (all of Cout without a model axis), the GroupNorm
+    vectors whole. 1 kernel A (over x's halo'd rows on a frame slice);
+    2 the tile sums gathered over seq; 3 gn_film on the slice's groups
+    with the global row count; 4 h gathered over model (conv2 reads every
+    channel); 5 kernel B, its sums gathered over seq; 6 gn_finalize; 7
+    kernel C with the residual's columns (the 1x1 conv's, or x's own for
+    the identity); 8 the output gathered over model. Collectives: 4 over
+    seq (two halos, two sum gathers), 2 over model. CUDA tensors launch
+    the kernels, CPU tensors run each step's plain twin; a group that
+    straddles two model ranks is summed over the axis in the plain twin and
+    refused by the kernels."""
     b, n, cin = x.shape
     cout = b1.shape[-1]
+    c_all = w2.shape[0] // 9
     dt, dev = x.dtype, x.device
     cuda = _cuda.route(x, "fused_resnet_block")
-    n_glob = seq.rows(n)
+    n_glob = n if seq is None else seq.rows(n)
+    g, (s1, be1, s2, be2) = _slice_args(model, "fused_resnet_block", cout, groups, x, cuda,
+                                        s1, be1, s2, be2)
+    xres = x if wres is not None or model is None else model.take(x)
     p1 = p2 = pr = None
     if cuda:
-        _check_shapes("fused_resnet_block", x, cout, groups)
-        if wres is None and cin != cout:
+        if wres is None and xres.shape[-1] != cout:
             raise ValueError("fused_resnet_block: identity residual needs Cin == Cout")
         if packed is None:
             packed = pack_block_weights(w1.reshape(3, 3, cin, cout),
-                                        w2.reshape(3, 3, cout, cout),
+                                        w2.reshape(3, 3, c_all, cout),
                                         None if wres is None else wres.reshape(1, 1, cin, cout))
         p1, p2, pr = packed
         _cuda.require(lens, "lens", dtype=torch.int32, shape=(b,), device=dev)
-    c1, part = resnet_conv3x3_halo(halo_rows(x, f, seq, lens), lens, w1, b1, f, p1)
-    part = seq.cat(part, _tiles_each(seq, f, cin, cuda))
+    c1, part = _kernel_a_rows(x, lens, w1, b1, f, p1, seq, lens)
     if cuda:
         lib, st = _cuda.lib(), _cuda.stream(x)
         film = _cuda.require(t_bias.to(dt).contiguous(), "t_bias", shape=(b, cout), device=dev)
@@ -929,18 +1010,19 @@ def resnet_block_seq(x, lens, t_bias, w1, b1, s1, be1, w2, b2, s2, be2, wres, br
                                         lens.data_ptr(), _f32(s1).data_ptr(),
                                         _f32(be1).data_ptr(), film.data_ptr(),
                                         stats[0].data_ptr(), stats[1].data_ptr(), b, n, cout,
-                                        groups, n_glob, GN_EPS, st), "gn_film (rows)")
+                                        g, n_glob, GN_EPS, st), "gn_film (rows)")
         h = c1
     else:
-        mean1, inv1 = _mean_inv(part, groups, n_glob)
-        h = _film_masked(c1, mean1[:, None], inv1[:, None], s1, be1, t_bias, _valid(lens, n), dt)
-    c2, part = resnet_conv3x3_halo(halo_rows(h, f, seq), lens, w2, b2, f, p2)
-    part = seq.cat(part, _tiles_each(seq, f, cout, cuda))
+        h = _film_masked(c1, *_slice_stats(part, groups, n_glob, model), s1, be1, t_bias,
+                         _valid(lens, n), dt)
+    if model is not None:
+        h = model.gather(h)
+    c2, part = _kernel_a_rows(h, lens, w2, b2, f, p2, seq, None)
     if not cuda:
-        mean2, inv2 = _mean_inv(part, groups, n_glob)
-        return _kernel_c_plain(c2, x, mean2[:, None], inv2[:, None], s2, be2, _valid(lens, n),
-                               wres, bres)
-    _cuda.check(lib.us_gn_finalize(part.data_ptr(), b, part.shape[1], cout, groups, n_glob,
+        out = _kernel_c_plain(c2, xres, *_slice_stats(part, groups, n_glob, model), s2, be2,
+                              _valid(lens, n), wres, bres)
+        return out if model is None else model.gather(out)
+    _cuda.check(lib.us_gn_finalize(part.data_ptr(), b, part.shape[1], cout, g, n_glob,
                                    GN_EPS, stats[2].data_ptr(), stats[3].data_ptr(), 0, st),
                 "groupnorm statistics")
     wr, bn = None, 0
@@ -948,40 +1030,50 @@ def resnet_block_seq(x, lens, t_bias, w1, b1, s1, be1, w2, b2, s2, be2, wres, br
         wr, bn = _packed_operand(pr, "wres", 1, cin, cout, dev)
         bres = _f32(bres)
     out = torch.empty((b, n, cout), dtype=dt, device=dev)
-    _cuda.check(lib.us_resnet_out(c2.data_ptr(), x.data_ptr(), stats[2].data_ptr(),
+    _cuda.check(lib.us_resnet_out(c2.data_ptr(), xres.data_ptr(), stats[2].data_ptr(),
                                   stats[3].data_ptr(), _f32(s2).data_ptr(), _f32(be2).data_ptr(),
                                   _cuda.ptr(wr), bn, _cuda.ptr(bres), lens.data_ptr(),
-                                  out.data_ptr(), b, n, cin, cout, 0, st), "resnet_out")
-    return out
+                                  out.data_ptr(), b, n, xres.shape[-1], cout, 0, st),
+                "resnet_out")
+    return out if model is None else model.gather(out)
 
 
-def final_block_seq(x, lens, w1, b1, s1, be1, wo, bo, f: int, groups: int, seq, packed=None):
-    """K2 on a frame slice of the seq axis, in the card's launch order: a
-    halo of x, kernel A over the interior, every rank's tile sums gathered,
-    then the tail with the global row count (us_final_tail) on the slice's
-    rows. Arguments as final_block_plain. Two collectives. CUDA tensors
-    launch the kernels, CPU tensors run each step's plain twin."""
+def final_block_sharded(x, lens, w1, b1, s1, be1, wo, bo, f: int, groups: int, seq=None,
+                        model=None, packed=None):
+    """K2 on a frame slice of the seq axis and / or a column slice of the
+    model axis, in the card's launch order: kernel A (over x's halo'd rows
+    on a frame slice; w1 (9*Cin, Cout') and b1 the rank's columns), every
+    seq rank's tile sums gathered, then the tail (us_final_tail) with the
+    global row count on the slice's groups and the rank's columns of the
+    1-channel final conv (wo whole, replicated as JAX replicates its (C, 1)
+    kernel): the rank's partial dot, the bias on model rank 0 alone, summed
+    over model in f32 (one B x N all-reduce in place of gathering the
+    B x N x C activation). Arguments as final_block_plain. Collectives: 2
+    over seq (the halo, the sums), 1 over model. CUDA tensors launch the
+    kernels, CPU tensors run each step's plain twin."""
     b, n, cin = x.shape
     cout = w1.shape[-1]
     dt, dev = x.dtype, x.device
     cuda = _cuda.route(x, "fused_final_block")
-    n_glob = seq.rows(n)
+    n_glob = n if seq is None else seq.rows(n)
+    g, (s1, be1, wo) = _slice_args(model, "fused_final_block", cout, groups, x, cuda,
+                                   s1, be1, wo)
+    if model is not None and model.rank:
+        bo = torch.zeros_like(bo)
     if cuda:
-        _check_shapes("fused_final_block", x, cout, groups)
         _cuda.require(lens, "lens", dtype=torch.int32, shape=(b,), device=dev)
-    c1, part = resnet_conv3x3_halo(halo_rows(x, f, seq, lens), lens, w1, b1, f, packed)
-    part = seq.cat(part, _tiles_each(seq, f, cin, cuda))
+    c1, part = _kernel_a_rows(x, lens, w1, b1, f, packed, seq, lens)
     valid = _valid(lens, n)
     if not cuda:
-        mean, inv = _mean_inv(part, groups, n_glob)
-        h = (_gn_mish(c1, mean[:, None], inv[:, None], s1, be1) * valid).to(dt)
-        y = h.to(torch.float32) @ wo.to(dt).to(torch.float32) + bo
-        return y * valid[..., 0]
+        mean, inv = _slice_stats(part, groups, n_glob, model)
+        h = (_gn_mish(c1, mean, inv, s1, be1) * valid).to(dt)
+        y = (h.to(torch.float32) @ wo.to(dt).to(torch.float32) + bo) * valid[..., 0]
+        return y if model is None else model.all_sum(y)
     wo = _cuda.require(_f32(wo), "w_out", shape=(cout,), device=dev)
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
     _cuda.check(_cuda.lib().us_final_tail(c1.data_ptr(), part.data_ptr(), part.shape[1],
                                           _f32(s1).data_ptr(), _f32(be1).data_ptr(),
                                           wo.data_ptr(), _f32(bo).data_ptr(), lens.data_ptr(),
-                                          out.data_ptr(), b, n, n_glob, cout, groups, GN_EPS,
+                                          out.data_ptr(), b, n, n_glob, cout, g, GN_EPS,
                                           _cuda.stream(x)), "final tail")
-    return out
+    return out if model is None else model.all_sum(out)

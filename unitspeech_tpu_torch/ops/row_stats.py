@@ -152,7 +152,30 @@ def group_mean_inv_plain(x2: torch.Tensor, groups: int, eps: float = 1e-5,
     return fold_stats(stats(x2), groups, x2.shape[1], eps)
 
 
-def group_mean_inv(x2: torch.Tensor, groups: int, eps: float = 1e-5, stats=None, seq=None):
+def slice_groups(groups: int, model) -> int:
+    """The GroupNorm groups in one model rank's channel slice, 0 where a
+    group straddles two ranks (the axis's size does not divide the groups);
+    `groups` without a model axis."""
+    if model is None:
+        return groups
+    return groups // model.size if groups % model.size == 0 else 0
+
+
+def fold_slice(st: torch.Tensor, groups: int, n: int, eps: float = 1e-5, model=None):
+    """fold_stats of a model rank's channel slice: st (B, 2, C / size) its
+    channels' row sums over n rows -> (mean, inv) of those channels. Whole
+    groups fold alone; where a group straddles two ranks every rank's sums
+    are gathered over the axis first (one collective) and the rank keeps
+    its channels of the whole fold."""
+    g = slice_groups(groups, model)
+    if g:
+        return fold_stats(st, g, n, eps)
+    mean, inv = fold_stats(model.enter(model.gather(st, dim=-1)), groups, n, eps)
+    return model.take(mean), model.take(inv)
+
+
+def group_mean_inv(x2: torch.Tensor, groups: int, eps: float = 1e-5, stats=None, seq=None,
+                   model=None):
     """GroupNorm statistics of a row-flattened activation x2 (B, n, C):
     per-channel f32 (mean, inv_std), each (B, C), constant within a group,
     pooled over ALL rows, padding included (torch GroupNorm). A CUDA tensor
@@ -162,11 +185,19 @@ def group_mean_inv(x2: torch.Tensor, groups: int, eps: float = 1e-5, stats=None,
     none). seq: x2's rows are one frame slice of the seq axis (a
     parallel.FrameSlice): the sums (K3's sums form, or `stats`) are summed
     over the axis and folded with the global row count, so every rank gets
-    the unsharded statistics."""
+    the unsharded statistics. model: x2's channels are one rank's slice of
+    the model axis (a parallel.ModelShard) of a GroupNorm of `groups`
+    groups over them all: the statistics of the slice's whole groups (as
+    above, at groups / size), or, where a group straddles two ranks, the
+    sums gathered over the axis before the fold (fold_slice)."""
     c = x2.shape[-1]
-    if seq is not None:
-        st = seq.all_sum((row_stats if stats is None else stats)(x2))
-        return fold_stats(st, groups, seq.rows(x2.shape[1]), eps)
-    if stats is None and _cuda.route(x2, "group_mean_inv") and fold_takes(c, groups):
-        return _group_mean_inv_cuda(x2, groups, eps)
-    return group_mean_inv_plain(x2, groups, eps, row_stats if stats is None else stats)
+    g = slice_groups(groups, model)
+    if seq is not None or not g:
+        st = (row_stats if stats is None else stats)(x2)
+        n = x2.shape[1]
+        if seq is not None:
+            st, n = seq.all_sum(st), seq.rows(n)
+        return fold_slice(st, groups, n, eps, model)
+    if stats is None and _cuda.route(x2, "group_mean_inv") and fold_takes(c, g):
+        return _group_mean_inv_cuda(x2, g, eps)
+    return group_mean_inv_plain(x2, g, eps, row_stats if stats is None else stats)

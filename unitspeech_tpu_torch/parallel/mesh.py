@@ -22,12 +22,23 @@ neighbours' edge frames as a halo, sums, maxima, the slices gathered).
 The collectives are `all_reduce` and `broadcast` only, the two that gloo
 also runs on CUDA tensors (two ranks on one card run over gloo), so a
 gather or a halo is the sum of zero-filled buffers (exact: each element
-has one non-zero term). Every collective of the seq axis adds one to
-`SeqShard.collectives`, as a kernel wrapper counts its launches.
+has one non-zero term). Every axis gathers by one rule, `_sum_exact`: the
+sum runs on the buffer's bits as int32 where its bytes allow (exact for
+every dtype, -0.0 and NaNs kept), else in f32 (integers in int64). Every
+collective of the seq axis adds one to `SeqShard.collectives`, as a
+kernel wrapper counts its launches.
 
-The `model` axis exists so that specs naming it resolve; tensor
-parallelism is the next module slice (ROADMAP), and a spec naming it
-raises NotImplementedError.
+A `ModelShard` is one rank's place on `model`, the tensor-parallel axis
+(parallel/tp.py): a layer holds its rank's output-channel columns of every
+sharded kernel, computes its slice of the output from the whole input, and
+one gather over the axis restores the whole activation (the layout JAX's
+GSPMD gives a Cout-sharded kernel). The gather has an autograd form for
+training, whose backward
+takes the rank's columns of the gradient, and `enter` is the identity
+whose backward sums a layer input's gradient over the axis (the other
+ranks' columns' share). Every collective of the model axis adds one to
+`ModelShard.collectives`. The axis shards parameters, never a sample: a
+sample spec naming 'model' raises ValueError.
 """
 
 from __future__ import annotations
@@ -41,12 +52,10 @@ import torch.distributed as dist
 
 AXES = ("data", "seq", "model")
 SEQ_UNIT = 8  # frames: the seq slices' boundaries, 2 ** (len(dim_mults) - 1)
-QUEUED = ("sharding over 'model' (tensor parallelism: Cout split over the axis, an "
-          "all-gather at each layer boundary) is the next module slice of the port (ROADMAP), "
-          "not ported yet")
-QUEUED_DEEP = ("the fused deep-stage configuration under 'seq' (use_deep / use_i8pre_deep: "
-               "K8's and K9's chains; use_resample: K11's halos at 8-frame boundaries) is the "
-               "next module slice of the port (ROADMAP), not ported yet")
+QUEUED_DEEP = ("the fused deep-stage configuration under 'seq' and 'model' (use_deep / "
+               "use_i8pre_deep: K8's and K9's chains; use_resample: K11's halos at 8-frame "
+               "boundaries and its Cout slices) is the next module slice of the port (ROADMAP), "
+               "not ported yet")
 
 
 def make_mesh(data: Optional[int] = None, seq: int = 1, model: int = 1):
@@ -66,6 +75,42 @@ def make_mesh(data: Optional[int] = None, seq: int = 1, model: int = 1):
     assert data * seq * model == n, f"mesh {data}x{seq}x{model} != {n} devices"
     device_type = "cpu" if dist.get_backend() == "gloo" else "cuda"
     return init_device_mesh(device_type, (data, seq, model), mesh_dim_names=AXES)
+
+
+def _sum_exact(buf: torch.Tensor, group) -> torch.Tensor:
+    """The all_reduce SUM over `group` of zero-filled buffers in which every
+    element has at most one non-zero term (a gather): on the bits as int32
+    where the bytes allow (exact for every dtype, -0.0 and NaNs kept), else
+    in f32 (integers in int64). Returns the sum in buf's dtype."""
+    if buf.is_contiguous() and buf.numel() and buf.numel() * buf.element_size() % 4 == 0:
+        dist.all_reduce(buf.view(-1).view(torch.int32), group=group)
+        return buf
+    wide = buf.to(torch.float32 if buf.is_floating_point() else torch.int64)
+    dist.all_reduce(wide, group=group)
+    return wide.to(buf.dtype)
+
+
+def _reduced(t: torch.Tensor, group, op=None, dtype=None) -> torch.Tensor:
+    """t reduced over `group` (SUM unless op; in `dtype` when given), a new
+    tensor outside autograd, in t's dtype."""
+    out = t.detach().to(dtype or t.dtype).clone()
+    dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=group)
+    return out.to(t.dtype)
+
+
+def _flat_(tensors: Sequence[torch.Tensor], collective) -> int:
+    """Run `collective` (in place, on one tensor) once on one flat buffer
+    for each dtype and device among `tensors`, and copy the result back
+    into each. Returns the number of collectives."""
+    by_kind: dict = {}
+    for t in tensors:
+        by_kind.setdefault((t.dtype, t.device), []).append(t)
+    for ts in by_kind.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        collective(flat)
+        for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+            t.copy_(part.view_as(t))
+    return len(by_kind)
 
 
 @dataclass(frozen=True)
@@ -115,11 +160,7 @@ class DataShard:
         return self.take(torch.randn(full, generator=generator, device=device))
 
     def _reduce(self, t: torch.Tensor, op) -> torch.Tensor:
-        if self.group is None:
-            return t
-        out = t.detach().clone()
-        dist.all_reduce(out, op=op, group=self.group)
-        return out
+        return t if self.group is None else _reduced(t, self.group, op)
 
     def all_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of t over the axis (a new tensor, outside autograd)."""
@@ -132,38 +173,27 @@ class DataShard:
     def all_sum_(self, tensors: Sequence[torch.Tensor]) -> None:
         """Sum every tensor over the axis in place: one all_reduce of one
         flat buffer a dtype (the gradients of a data-parallel step)."""
-        if self.group is None:
-            return
-        by_dtype: dict = {}
-        for t in tensors:
-            by_dtype.setdefault(t.dtype, []).append(t)
-        for ts in by_dtype.values():
-            flat = torch.cat([t.reshape(-1) for t in ts])
-            dist.all_reduce(flat, group=self.group)
-            for t, part in zip(ts, flat.split([t.numel() for t in ts])):
-                t.copy_(part.view_as(t))
+        if self.group is not None:
+            _flat_(tensors, lambda flat: dist.all_reduce(flat, group=self.group))
 
     def gather(self, local: torch.Tensor, n: int, dim: int = 0) -> torch.Tensor:
         """The global tensor of `n` rows along `dim` from each rank's rows
         (`local` holds rows rank, rank + size, ... of it), on every rank: each
-        rank writes its rows into zeros and the buffers are summed (floats
-        summed in f32, exact next to zeros, then cast back)."""
+        rank writes its rows into zeros and the buffers are summed,
+        _sum_exact)."""
         if self.group is None:
             return local
-        dtype = torch.float32 if local.is_floating_point() else torch.int64
         shape = list(local.shape)
         shape[dim] = n
-        buf = torch.zeros(shape, dtype=dtype, device=local.device)
-        buf[(slice(None),) * dim + (slice(self.rank, None, self.size),)] = local.to(dtype)
-        dist.all_reduce(buf, group=self.group)
-        return buf.to(local.dtype)
+        buf = torch.zeros(shape, dtype=local.dtype, device=local.device)
+        buf[(slice(None),) * dim + (slice(self.rank, None, self.size),)] = local
+        return _sum_exact(buf, self.group)
 
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
-        """Overwrite every tensor with the axis's first rank's, in place."""
-        if self.group is None:
-            return
-        for t in tensors:
-            dist.broadcast(t, src=self.src, group=self.group)
+        """Overwrite every tensor with the axis's first rank's, in place: one
+        broadcast of one flat buffer a dtype."""
+        if self.group is not None:
+            _flat_(tensors, lambda flat: dist.broadcast(flat, src=self.src, group=self.group))
 
 
 @dataclass(frozen=True)
@@ -207,10 +237,8 @@ class SeqShard:
         autograd; counted."""
         if self.group is None:
             return t
-        out = t.detach().clone()
-        dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=self.group)
         SeqShard.collectives += 1
-        return out
+        return _reduced(t, self.group, op)
 
 
 @dataclass(frozen=True)
@@ -249,16 +277,16 @@ class FrameSlice:
     def cat(self, local: torch.Tensor, sizes, dim: int = 1) -> torch.Tensor:
         """Every rank's `local` concatenated along `dim` in rank order, on
         every rank; sizes[r] is rank r's extent along dim (each rank writes
-        its part into zeros, the buffers are summed: floats in f32, exact
-        next to zeros, then cast back). One collective."""
+        its part into zeros, the buffers are summed, _sum_exact). One
+        collective."""
         if self.shard.group is None:
             return local
-        dtype = torch.float32 if local.is_floating_point() else torch.int64
         shape = list(local.shape)
         shape[dim] = sum(sizes)
-        buf = torch.zeros(shape, dtype=dtype, device=local.device)
+        buf = torch.zeros(shape, dtype=local.dtype, device=local.device)
         buf.narrow(dim, sum(sizes[:self.shard.rank]), sizes[self.shard.rank]).copy_(local)
-        return self.all_sum(buf).to(local.dtype)
+        SeqShard.collectives += 1
+        return _sum_exact(buf, self.shard.group)
 
     def gather(self, local: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """The global frames along `dim` from every rank's slice."""
@@ -303,6 +331,111 @@ class FrameSlice:
         kept), when the rows are sharded too."""
         full = (shape[0], self.t) + tuple(shape[2:])
         return self.take((rows or SINGLE).randn(full, generator=generator, device=device))
+
+
+class _Gather(torch.autograd.Function):
+    """ModelShard.gather under autograd: the backward takes the rank's
+    columns of the gradient (every model rank computes the same values
+    downstream of the gather, so each holds the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, local, shard, dim):
+        ctx.shard, ctx.dim = shard, dim
+        return shard._gather(local, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shard.take(g, ctx.dim), None, None
+
+
+class _Enter(torch.autograd.Function):
+    """ModelShard.enter: the identity, whose backward sums the gradient over
+    the axis (each rank's columns contribute their share to the input's)."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shard.all_sum(g), None
+
+
+@dataclass(frozen=True)
+class ModelShard:
+    """Rank `rank` of `size` on the model axis, over `group` (None: this
+    process alone; every collective the identity). A sharded layer holds
+    columns `cols(C)` of its kernel's last dimension (parallel/tp.py)."""
+
+    rank: int = 0
+    size: int = 1
+    group: Any = None
+
+    # every collective over the axis (all_reduce calls), as SeqShard counts
+    # its own; set it to 0 before a run
+    collectives = 0
+
+    @classmethod
+    def of(cls, mesh, axis: str = "model") -> "ModelShard":
+        sub = mesh[axis]
+        return cls(sub.get_local_rank(), sub.size(), sub.get_group())
+
+    src = DataShard.src
+
+    def cols(self, c: int) -> slice:
+        """This rank's columns of C (C a multiple of the axis size)."""
+        if c % self.size:
+            raise ValueError(f"{c} channels do not split over the model axis ({self.size})")
+        w = c // self.size
+        return slice(self.rank * w, (self.rank + 1) * w)
+
+    def take(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's columns of x along `dim`, contiguous."""
+        c = self.cols(x.shape[dim])
+        return x.narrow(dim, c.start, c.stop - c.start).contiguous()
+
+    def _gather(self, local: torch.Tensor, dim: int) -> torch.Tensor:
+        if self.group is None:
+            return local
+        shape = list(local.shape)
+        w = shape[dim]
+        shape[dim] = w * self.size
+        buf = torch.zeros(shape, dtype=local.dtype, device=local.device)
+        buf.narrow(dim, self.rank * w, w).copy_(local)
+        ModelShard.collectives += 1
+        return _sum_exact(buf, self.group)
+
+    def gather(self, local: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Every rank's columns along `dim` concatenated in rank order, on
+        every rank (one collective; under autograd, _Gather)."""
+        if torch.is_grad_enabled() and local.requires_grad:
+            return _Gather.apply(local, self, dim)
+        return self._gather(local, dim)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """x, with its gradient summed over the axis in the backward (a
+        sharded layer's input under autograd; the identity otherwise)."""
+        if self.group is not None and torch.is_grad_enabled() and x.requires_grad:
+            return _Enter.apply(x, self)
+        return x
+
+    def all_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of t over the axis (in f32 for narrower floats), a new
+        tensor outside autograd; counted."""
+        if self.group is None:
+            return t
+        ModelShard.collectives += 1
+        return _reduced(t, self.group, dtype=torch.float32 if t.is_floating_point() else None)
+
+    def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Overwrite every tensor with the axis's first rank's, in place, as
+        DataShard.broadcast_ does (the replicated parameters' gradients of a
+        tensor-parallel step, which each rank computed alone and
+        nondeterministic kernels may round apart); counted."""
+        if self.group is not None:
+            ModelShard.collectives += _flat_(
+                tensors, lambda flat: dist.broadcast(flat, src=self.src, group=self.group))
 
 
 # a single process: every row, draws as drawn, every collective the identity
@@ -360,9 +493,9 @@ def sample_shard(mesh, sample_spec):
     None where the spec does not name its axis (both None without a mesh
     or a spec). 'data' may shard the batch axis: this rank's DataShard;
     'seq' the frame axis: its SeqShard, None where the mesh's seq axis has
-    one rank (the unsharded program). A spec naming 'model' raises
-    NotImplementedError (QUEUED): it never runs unsharded without saying
-    so; an axis anywhere else raises ValueError."""
+    one rank (the unsharded program). 'model' shards parameters
+    (parallel/tp.py shard_params_tp), never the sample: a spec naming it,
+    or an axis anywhere else, raises ValueError."""
     if mesh is None or sample_spec is None:
         return None, None
     spec = list(sample_spec) + [None] * (3 - len(sample_spec))
@@ -372,7 +505,8 @@ def sample_shard(mesh, sample_spec):
 
     named = [a for entry in spec for a in names(entry)]
     if "model" in named:
-        raise NotImplementedError(f"sample_spec {tuple(sample_spec)}: {QUEUED}")
+        raise ValueError(f"sample_spec {tuple(sample_spec)}: 'model' shards the parameters "
+                         f"(parallel.shard_params_tp), not the sample")
     if len(spec) != 3 or names(spec[0]) not in ([], ["data"]) or \
             names(spec[1]) not in ([], ["seq"]) or names(spec[2]):
         raise ValueError(f"sample_spec {tuple(sample_spec)}: 'data' shards the batch axis and "

@@ -33,6 +33,19 @@ metrics are summed over the ranks. Clipping runs on the summed gradients.
 Every draw is made for the global batch from the same seeded generator on
 every rank, which keeps its rows, and injected draws are the global
 batch's.
+
+Tensor parallelism (modules sharded by parallel/tp.py shard_params_tp,
+each sharded parameter carrying its model axis's ModelShard in `tp`)
+composes with it on a (data, 1, model) mesh, `shard` then the mesh's data
+axis: the ranks of one data index hold the same rows and draw the same
+masks, t, z and u, so every model rank computes the same values downstream
+of each gather (whose backward takes the rank's columns of the gradient).
+The data-axis sums run within the rank's model index; the replicated
+parameters' gradients, which every model rank computes alone (and a
+nondeterministic kernel, an embedding's backward, may round apart), are
+then the model axis's first rank's, so the replicas stay equal; each clip
+norm counts a sharded parameter's squares summed over the model axis and a
+replicated one's once.
 """
 
 from __future__ import annotations
@@ -47,6 +60,18 @@ from unitspeech_tpu_torch.models.layers import Dropout
 from unitspeech_tpu_torch.ops.mas import maximum_path
 from unitspeech_tpu_torch.ops.masking import generate_path, sequence_mask
 from unitspeech_tpu_torch.parallel.mesh import SINGLE
+from unitspeech_tpu_torch.parallel.tp import is_sharded
+
+
+def _sum_squares(grads):
+    return sum(torch.sum(g.to(torch.float32) ** 2) for g in grads)
+
+
+def _scale_to(grads, gnorm, max_norm: float) -> torch.Tensor:
+    scale = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
+    for g in grads:
+        g.mul_(scale.to(g.dtype))
+    return gnorm
 
 
 def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
@@ -55,11 +80,21 @@ def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
     min(1, max_norm / (norm + 1e-6)). Returns the norm before clipping, a
     device scalar (no host sync)."""
     grads = [g for g in grads if g is not None]
-    gnorm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in grads))
-    scale = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
-    for g in grads:
-        g.mul_(scale.to(g.dtype))
-    return gnorm
+    return _scale_to(grads, torch.sqrt(_sum_squares(grads)), max_norm)
+
+
+def clip_params_by_global_norm(params, max_norm: float) -> torch.Tensor:
+    """clip_by_global_norm of the parameters' gradients. A parameter that
+    parallel/tp.py shard_params_tp sharded holds its rank's columns (p.tp
+    its model axis): the norm sums its squares over the axis and counts a
+    replicated parameter's once, the unsharded program's norm."""
+    params = [p for p in params if p.grad is not None]
+    model = next((p.tp for p in params if is_sharded(p)), None)
+    if model is None:
+        return clip_by_global_norm([p.grad for p in params], max_norm)
+    sq = _sum_squares(p.grad for p in params if not is_sharded(p)) + model.all_sum(
+        _sum_squares(p.grad for p in params if is_sharded(p)))
+    return _scale_to([p.grad for p in params], torch.sqrt(sq), max_norm)
 
 
 def random_replace_rows(x, replacement, rate: float, generator=None, perm=None, shard=None):
@@ -210,9 +245,13 @@ def make_step1_train_step(text_encoder, duration_predictor, decoder, optimizer,
     on the device (nothing syncs the host). With `shard` (data
     parallelism) the step takes the rank's rows: the gradients are summed
     over the ranks before the clipping, and the metrics are the global
-    batch's."""
+    batch's. Modules that parallel/tp.py shard_params_tp sharded run the
+    tensor-parallel step (the module docstring; shard is then the mesh's
+    data axis): the model axis is the sharded parameters' own."""
     groups = [[p for p in m.parameters() if p.requires_grad]
               for m in (text_encoder, duration_predictor, decoder)]
+    model = next((p.tp for ps in groups for p in ps if is_sharded(p)), None)
+    replicated = [p for ps in groups for p in ps if not is_sharded(p)]
 
     def train_step(batch, generator=None, draws=None):
         optimizer.zero_grad(set_to_none=True)
@@ -222,8 +261,9 @@ def make_step1_train_step(text_encoder, duration_predictor, decoder, optimizer,
         total.backward()
         if shard is not None:
             shard.all_sum_([p.grad for ps in groups for p in ps if p.grad is not None])
-        norms = [clip_by_global_norm([p.grad for p in ps], c)
-                 for ps, c in zip(groups, clip_norms)]
+        if model is not None:
+            model.broadcast_([p.grad for p in replicated if p.grad is not None])
+        norms = [clip_params_by_global_norm(ps, c) for ps, c in zip(groups, clip_norms)]
         optimizer.step()
         return {**_reduced_metrics(parts, total, shard), "grad_norm_encoder": norms[0],
                 "grad_norm_duration": norms[1], "grad_norm_decoder": norms[2]}
