@@ -110,7 +110,8 @@ this process): bench_server (8 closed-loop clients in a child process, 16
 ~344-frame requests, ddpm@50, --max-batch 8, the TTFA probe), bench_serving
 (the exact and speculative paths), refresh_under_load (a stale window
 refreshed live under 16 + 16 requests), bucket_policy_ab (the quantile and
-cost windows on 27 short and 3 long requests, dpm2:cs2@16), bench_train
+cost windows on 9 short and 1 long request, OPS_AB_TRAFFIC, the tool's
+27 + 3 cut for the time limit; dpm2:cs2@16), bench_train
 (STEP1 at batch 32, 72 tokens, 688 frames), bench_ssl (WavLM-Large + ECAPA,
 mHuBERT + k-means, adapting a voice end to end, cold and warm, and the
 adapted voice served), then capacity_plan and analyze_buckets on
@@ -134,18 +135,24 @@ the frontends' mHuBERT + k-means (the merged file equal to one rank's);
 then the sequence-sharded sampler: a forced 344-frame request through the
 Synthesizer on a (data 1, seq = world) mesh, its frames split 176 + 168
 at world 2, on the serving default and the bf16 kernel path, ddpm with
-injected noise and dpm2:cs2 at SEQ_STEPS steps (world 1: equal bit for bit
+injected noise and dpm2:cs2 at SEQ_STEPS steps, and ddpm on the fused deep
+configuration (deep_i8: K8, K9 and K11 on their sharded forms; SEQ_RUNS)
+(world 1: equal bit for bit
 to the unsharded request; world 2: within the bounds against world 1, the
 launches a request those of the unsharded request, the seq axis's
 collectives exactly the per-site formula's), and at world 2 the halo'd
-kernel A, K1's and K2's sharded chains and the split K4 each held to its
-plain version on the slices of the 344-frame sites; then tensor
+kernel A, K1's and K2's sharded chains, the split K4, K8's and K9's
+sharded chains (K9's split quantize and halo'd int8 conv bit for bit) and
+K11a / K11b halo'd each held to its plain version on the slices of the
+344-frame sites; then tensor
 parallelism (parallel/tp.py, the decoder sharded over 'model'): at world
 2 on a (1, 1, 2) mesh the kernels' model forms (K1's and K2's chains on a
 Cout slice, K3 on the slice's groups, the flat bf16 and int8 convs with
-K7's scale over the whole input, K4 whole from its gathered weights) each
-held to its plain version, and the same request and draws on the int8
-default with ddpm and on the bf16 kernels with dpm2:cs2; a third group of four ranks (one a card where there are
+K7's scale over the whole input, K4 whole from its gathered weights, K8's
+and K9's chains and K11 on the rank's columns) each held to its plain
+version, and the same request and draws on the int8 default with ddpm,
+on the bf16 kernels with dpm2:cs2 and on deep_i8 with ddpm (TP2_RUNS); a
+third group of four ranks (one a card where there are
 four, else all on card 0 over gloo) on JAX's full-size (1, 2, 2) layout,
 the serving default with ddpm, then one strict-f32 DP x TP STEP1 step on
 (2, 1, 2) at a global batch of 4 against world 1's (the DP step's
@@ -1261,10 +1268,10 @@ def long_bucket(torch, dev, ckpt_path, per_call):
 # fine-tune steps at full width in bf16 on a synthetic 6 s reference, at the
 # reference's learning rate (2e-5; at 1e-3 the random-weight decoder
 # diverged to NaN within 10 steps, rezero gates of 0.001 moving by 0.001 a
-# step), about 140 ms a step on the card; 50 steps (200 until the eval
-# phase joined the script, 100 until the tensor-parallel groups did, to
-# keep its time)
-ADAPT_ITERS, ADAPT_SECONDS = 50, 6.0
+# step), about 140 ms a step on the card; 25 steps (200 until the eval
+# phase joined the script, 100 until the tensor-parallel groups did, 50
+# until the deep configuration's sharded checks did, to keep its time)
+ADAPT_ITERS, ADAPT_SECONDS = 25, 6.0
 # the served comparisons of the adapted decoder: the bf16 kernel path and
 # the int8 default against the plain paths, as compare_paths holds them
 ADAPT_RUNS = [r for r in RUNS if r[0] in ("kernels", "int8", "plain", "plain_f32")]
@@ -3258,6 +3265,9 @@ def extras(torch, dev, tmp, smi):
 OPS_CLIENTS, OPS_REQUESTS, OPS_MAX_BATCH = 8, 16, 8  # two waves: a steady closed loop
 OPS_REFRESH_REQUESTS = 16  # before and after the refresh each
 OPS_FT_ITERS = 10
+# the A/B's traffic, cut for the script's limit from the tool's 27 short + 3
+# long requests (the same 90 / 10 mix)
+OPS_AB_TRAFFIC = {"n_short": 9, "n_long": 1}
 # the kernels a served request launches on the serving default (K1-K4, K7,
 # K5 / K6), and the one a STEP1 step launches (M1)
 SERVED = frozenset(ESTIMATOR_KERNELS[:5] + VOCODER_KERNELS)
@@ -3309,7 +3319,7 @@ def operator_tools(torch, dev, tmp, ckpt_path, smi, argv=None):
         "bench_server": [*common, "--clients", str(OPS_CLIENTS), "--requests", str(OPS_REQUESTS),
                          "--max-batch", str(OPS_MAX_BATCH), "--ttfa-sentences", "2",
                          "--stats-out", stats_path, *out("bench_server")],
-        "bench_serving": [*common, "--reps", "2", *out("bench_serving")],
+        "bench_serving": [*common, "--reps", "1", *out("bench_serving")],
         "refresh_under_load": [*common, "--warmup-requests", str(OPS_REFRESH_REQUESTS),
                                "--tail-requests", str(OPS_REFRESH_REQUESTS),
                                *out("refresh_under_load")],
@@ -3336,8 +3346,14 @@ def operator_tools(torch, dev, tmp, ckpt_path, smi, argv=None):
         for w in wrappers.values():
             w.launches = 0
         t0 = time.perf_counter()
-        res[name] = importlib.import_module(f"unitspeech_tpu_torch.tools.{name}").main(
-            argv[name])
+        tool = importlib.import_module(f"unitspeech_tpu_torch.tools.{name}")
+        if name == "bucket_policy_ab":
+            full_traffic, tool.FULL = tool.FULL, {**tool.FULL, **OPS_AB_TRAFFIC}
+        try:
+            res[name] = tool.main(argv[name])
+        finally:
+            if name == "bucket_policy_ab":
+                tool.FULL = full_traffic
         walls[name] = time.perf_counter() - t0
         got = {k: w.launches for k, w in wrappers.items()}
         missing = sorted(k for k in own if got[k] == 0)
@@ -3424,12 +3440,19 @@ PAR_TIMEOUT = 300.0  # seconds a group may take, start to join
 # request (176 + 168 frames at world 2) on each mode and sampler spec,
 # SEQ_STEPS steps, noise injected (ddpm) from PAR_SEED
 SEQ_STEPS, SEQ_SAMPLERS = 4, ("ddpm", "dpm2:cs2")
-SEQ_MODES = {"int8": {"use_int8_deep": True}, "bf16": {}}
+SEQ_MODES = {"int8": {"use_int8_deep": True}, "bf16": {},
+             "deep_i8": {"use_int8_deep": True, "use_deep": True, "use_resample": True,
+                         "use_i8pre_deep": True}}
+# (mode, sampler) of the seq part's requests: both samplers on the int8 and
+# bf16 modes, ddpm on the fused deep configuration (--deep --i8pre
+# --resample: K8, K9, K11 on their sharded forms)
+SEQ_RUNS = tuple((m, s) for m in ("int8", "bf16") for s in SEQ_SAMPLERS) + (("deep_i8", "ddpm"),)
 # the seq-sharded kernels' launches a request, held to the unsharded path's;
 # each mode's mel at world 2 is held to world 1's within the TTS bounds
 # (MEL_L1_BOUND, MEL_MAX_BOUND; PERF.md §6)
 SEQ_KERNELS = ("fused_resnet_block", "fused_final_block", "row_stats", "fused_rezero_attention",
-               "row_absmax")
+               "row_absmax", "fused_resnet_block_deep", "fused_resnet_block_deep_i8",
+               "fused_downsample_conv", "fused_upsample_conv")
 # the DP step at world 2 against world 1 (strict f32: the shards' sums run
 # in another order): the losses and the pre-clip norms within PAR_REL; each
 # parameter moves lr * sign(g) in Adam's first step, so the two worlds
@@ -3449,19 +3472,22 @@ PAR_REL, PAR_MOVED = 1e-4, 1e-3
 # bounds of world 1's seq-part mel; the launches a request world 1's; the
 # collectives a request exact.
 TP_BATCH = 4
-TP2_RUNS = (("int8", "ddpm"), ("bf16", "dpm2:cs2"))  # (mode, sampler)
+TP2_RUNS = (("int8", "ddpm"), ("bf16", "dpm2:cs2"), ("deep_i8", "ddpm"))  # (mode, sampler)
 TP4_RUNS = (("int8", "ddpm"),)
 
 
 def seq_collectives_per_call(est, t) -> int:
     """The seq axis's collectives in one estimator call over T global frames
     (models/unet.py's sharded forms, each site's route taken at the global
-    frames): 4 a K1 block (halos of x and h, two tile-sum gathers), 4 a
-    plain-Blocks block (two halos, two statistics sums), 4 a flat block
+    frames): 4 a K1 or K8 block (halos of x and h, two tile-sum gathers), 4
+    a plain-Blocks block (two halos, two statistics sums), 4 a flat block
     (two halos, two statistics sums) and 2 more with int8 (K7's maxima of
-    its two convs), 1 a K4 attention (its partials), 2 a plain attention
-    (the key maxima, then the sums with the context), 1 a Downsample or
-    Upsample (its halo), 2 the final block (a halo and the tile sums)."""
+    its two convs), 6 a K9 block (its input's maxima, the halos of x8 and
+    h8, two tile-sum gathers, h's maxima; 5 where conv1 runs in bf16, Cin >
+    Cout: no input maxima), 1 a K4 attention (its partials), 2 a plain
+    attention (the key maxima, then the sums with the context), 1 a
+    Downsample or Upsample (its halo; K11's or the library conv's), 2 the
+    final block (a halo and the tile sums)."""
     from unitspeech_tpu_torch.models.unet import PALLAS_MIN_TOKENS
     from unitspeech_tpu_torch.ops import fused_attention
 
@@ -3469,12 +3495,15 @@ def seq_collectives_per_call(est, t) -> int:
     stages = [(f"down_{i}_{r}", i) for i in range(n) for r in ("res1", "res2")]
     stages += [("mid_res1", n - 1), ("mid_res2", n - 1)]
     stages += [(f"up_{i}_{r}", i + 1) for i in range(n - 1) for r in ("res1", "res2")]
-    per_route = {"k1": 4, "blocks": 4, "flat": 6 if est.use_int8_deep else 4}
+    per_route = {"k1": 4, "k8": 4, "blocks": 4, "flat": 6 if est.use_int8_deep else 4}
     total = 0
     for name, level in stages:
         f = -(-est.n_feats // 2 ** level)
-        total += per_route[getattr(est, name).route(t >> level, f, est.use_kernels,
-                                                     est.use_int8_deep)]
+        blk = getattr(est, name)
+        route = blk.route(t >> level, f, est.use_kernels, est.use_int8_deep, est.use_deep,
+                          est.use_i8pre_deep)
+        cin, cout = blk.widths()
+        total += (5 if cin > cout else 6) if route == "k9" else per_route[route]
     attn = [i for i in range(n)] + [n - 1] + [i + 1 for i in range(n - 1)]
     for level, c in zip(attn, est.dims + [est.dims[-1]] + est.dims[:-1]):
         tokens = (t >> level) * -(-est.n_feats // 2 ** level)
@@ -3486,14 +3515,16 @@ def seq_collectives_per_call(est, t) -> int:
 def model_collectives_per_call(est, t) -> int:
     """The model axis's collectives in one call of a model-sharded estimator
     (parallel/tp.py) over T global frames, each site's route taken at the
-    global widths (models/unet.py): 2 the time MLP, 2 a K1 or flat block (h
-    and the output gathered; its FiLM bias stays the rank's columns), 3 a
-    plain-Blocks block (the FiLM bias and the two convs gathered) and 1
-    more with its 1x1 residual, 0 a K4 attention (whole on every rank), 2 a
-    plain attention (its two projections), 1 a Downsample or Upsample, 1
-    the final block (K2's partial dots summed, or the plain final conv's
-    input gathered). Every rank holds whole GroupNorm groups (a straddling
-    group adds one sum gather a flat statistics)."""
+    global widths (models/unet.py): 2 the time MLP, 2 a K1, K8 or flat block
+    (h and the output gathered; its FiLM bias stays the rank's columns), 3
+    a K9 block (h's maxima, h8 and the output gathered), 3 a plain-Blocks
+    block (the FiLM bias and the two convs gathered) and 1 more with its
+    1x1 residual, 0 a K4 attention (whole on every rank), 2 a plain
+    attention (its two projections), 1 a Downsample or Upsample (K11's
+    columns or the library conv's gathered), 1 the final block (K2's
+    partial dots summed, or the plain final conv's input gathered). Every
+    rank holds whole GroupNorm groups (a straddling group adds one sum
+    gather a flat statistics)."""
     from unitspeech_tpu_torch.models.unet import PALLAS_MIN_TOKENS
     from unitspeech_tpu_torch.ops import fused_attention
 
@@ -3505,8 +3536,8 @@ def model_collectives_per_call(est, t) -> int:
     for name, level in stages:
         blk = getattr(est, name)
         route = blk.route(t >> level, -(-est.n_feats // 2 ** level), est.use_kernels,
-                          est.use_int8_deep)
-        total += 2 if route in ("k1", "flat") else 3 + (blk.res_conv is not None)
+                          est.use_int8_deep, est.use_deep, est.use_i8pre_deep)
+        total += {"k1": 2, "k8": 2, "flat": 2, "k9": 3}.get(route, 3 + (blk.res_conv is not None))
     attn = [i for i in range(n)] + [n - 1] + [i + 1 for i in range(n - 1)]
     for level, c in zip(attn, est.dims + [est.dims[-1]] + est.dims[:-1]):
         tokens = (t >> level) * -(-est.n_feats // 2 ** level)
@@ -3515,14 +3546,143 @@ def model_collectives_per_call(est, t) -> int:
     return total + 2 * (n - 1) + 1
 
 
+def _seq_wrappers():
+    """The estimator kernels' wrappers a sharded request is counted by
+    (SEQ_KERNELS)."""
+    from unitspeech_tpu_torch.ops import (
+        fused_attention,
+        fused_resnet,
+        fused_resnet_deep,
+        resample,
+        row_stats,
+    )
+
+    mods = (fused_resnet, row_stats, fused_attention, fused_resnet_deep, resample)
+    return {k: next(getattr(m, k) for m in mods if hasattr(m, k)) for k in SEQ_KERNELS}
+
+
+def _deep_block(rand, cin, cout):
+    """A deep ResnetBlock's random parameters at full width, as check_kernels
+    draws them (the FiLM bias in bf16, as the estimator's MLP gives it)."""
+    p = dict(t_bias=rand(3, cout), w1=rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5),
+             b1=rand(cout, scale=0.1), gn1_scale=1 + rand(cout, scale=0.1),
+             gn1_bias=rand(cout, scale=0.1), w2=rand(3, 3, cout, cout, scale=(9 * cout) ** -0.5),
+             b2=rand(cout, scale=0.1), gn2_scale=1 + rand(cout, scale=0.1),
+             gn2_bias=rand(cout, scale=0.1))
+    if cin != cout:
+        p.update(wres=rand(1, 1, cin, cout, scale=cin ** -0.5), bres=rand(cout, scale=0.1))
+    return p
+
+
+# the fused deep configuration's sites held in their sharded forms: K8 at
+# F = 20 and at F = 10 with Cin = 2 048 (level, F, Cin, Cout), K9 with an
+# int8 conv1 at F = 20 and with conv1 in bf16 (Cin = 2 048) at F = 10
+DEEP_SHARD_K8 = ((2, 20, 512, 512), (3, 10, 2048, 512))
+DEEP_SHARD_K9 = ((2, 20, 256, 512), (3, 10, 2048, 512))
+
+
+def _deep_sharded_checks(torch, dev, rand, held, seq=None, ms=None):
+    """The fused deep configuration's sharded forms at the 344-frame sites
+    (each rank draws the same global tensors): on a frame slice (seq, this
+    rank's frames kept) or a column slice (ms, the weights' columns) K8's
+    chain (DEEP_SHARD_K8) and K9's (DEEP_SHARD_K9) against their plain
+    versions on the whole input, K9's split quantize (us_i8_absmax, the
+    maxima reduced, us_i8_quantize_scaled) and its int8 conv (halo'd on a
+    frame slice) bit for bit against their plain twins on the same slice,
+    and K11a / K11b (halo'd, or the rank's Cout columns gathered) against
+    the plain versions on the whole input. held(what, got, want, rel)."""
+    from unitspeech_tpu_torch.ops import fused_resnet, fused_resnet_deep as frd, resample
+
+    bf16 = torch.bfloat16
+    top = None if seq is None else seq
+    cols = (lambda v: v) if ms is None else (lambda v: ms.take(v))
+
+    def level_of(level):
+        sl = top
+        for _ in range(level):
+            sl = sl.down()
+        return sl
+
+    def local(v, sl):
+        return v if sl is None else sl.take(v)
+
+    for kind, sites in (("K8", DEEP_SHARD_K8), ("K9", DEEP_SHARD_K9)):
+        for level, f, cin, cout in sites:
+            sl = None if top is None else level_of(level)
+            t = FRAMES >> level if sl is None else sl.t
+            mask = _lens_mask(torch, t, dev)
+            x = rand(3, t, f, cin).to(bf16)
+            p = _deep_block(rand, cin, cout)
+            if kind == "K9":
+                p["t_bias"] = p["t_bias"].to(bf16)
+            site = f"F={f} T={t} {cin}->{cout}"
+            a = fused_resnet.block_rows_args(
+                x, mask, p["t_bias"], p["w1"], p["b1"], p["gn1_scale"], p["gn1_bias"], p["w2"],
+                p["b2"], p["gn2_scale"], p["gn2_bias"], p.get("wres"), p.get("bres"))
+            pc = {k: cols(v) if k in ("t_bias", "w1", "b1", "w2", "b2", "wres", "bres") else v
+                  for k, v in p.items()}
+            if kind == "K8":
+                want = fused_resnet.resnet_block_plain(*a, f=f, groups=8)
+                packed = fused_resnet.pack_block_weights(pc["w1"], pc["w2"], pc.get("wres"))
+                got = frd.fused_resnet_block_deep(local(x, sl), local(mask, sl), groups=8,
+                                                  packed=packed, seq=sl, model=ms, **pc)
+                held(f"K8 chain {site}", got, local(want.reshape(3, t, f, cout), sl), BF16_REL)
+                continue
+            wq = (frd.quant_w(p["w1"]), frd.quant_w(p["w2"]))
+            want = frd.resnet_block_deep_i8_plain(*a[:4], wq[0], *a[4:7], wq[1], *a[8:], f=f,
+                                                  groups=8)
+            wqc = (frd.quant_w(pc["w1"]), frd.quant_w(pc["w2"]))
+            packed = frd.pack_block_weights_i8(pc["w1"], wqc, pc.get("wres"), cin > cout)
+            got = frd.fused_resnet_block_deep_i8(local(x, sl), local(mask, sl), groups=8, wq=wqc,
+                                                 packed=packed, seq=sl, model=ms, **pc)
+            held(f"K9 chain {site}", got, local(want.reshape(3, t, f, cout), sl), I8_REL)
+            if cin > cout:
+                continue
+            # the split quantize and the int8 conv (halo'd on a frame slice)
+            # against their plain twins on the same slice, bit for bit
+            n = x.shape[1] if sl is None else sl.length
+            xl = local(x, sl).reshape(3, n * f, cin)
+            ll = fused_resnet.lens_rows_from_mask(local(mask, sl), f)
+            x8, sx = frd._quantize_sharded(xl, ll, f, sl, True)
+            x8p, sxp = frd._quantize_sharded(xl, ll, f, sl, False)
+            held(f"K9 split quantize x8 {site}", x8.float(), x8p.float(), 0.0)
+            held(f"K9 split quantize scale {site}", sx, sxp, 0.0)
+            b1 = pc["b1"]
+            c, part = frd._conv_i8_rows(x8, sx, wqc[0], b1, ll, f, packed[0], sl, bf16, True)
+            c_ref, part_ref = frd._conv_i8_rows(x8, sx, wqc[0], b1, ll, f, None, sl, bf16, False)
+            form = "halo " if sl is not None else ""
+            held(f"K9 int8 conv ({form}slice) {site}", c, c_ref, 0.0)
+            held(f"K9 int8 conv ({form}slice) sums {site}", part.sum(dim=1), part_ref.sum(dim=1),
+                 F32_REL)
+    for (t, f, c), up in [(s, False) for s in K11_DOWN_SITES] + [(s, True) for s in K11_UP_SITES]:
+        sl = None if top is None else level_of(0 if t == FRAMES else 1)
+        x = rand(3, t, f, c).to(bf16)
+        mask = _lens_mask(torch, t, dev)
+        taps = 4 if up else 3
+        w, bias = rand(taps, taps, c, c, scale=(taps * taps * c) ** -0.5), rand(c, scale=0.1)
+        pack = resample.pack_upsample_weight if up else resample.pack_downsample_weight
+        plain = resample.upsample_conv_plain if up else resample.downsample_conv_plain
+        fn = resample.fused_upsample_conv if up else resample.fused_downsample_conv
+        want = plain(x, mask, w, bias)
+        if sl is not None:
+            want = want.narrow(1, 2 * sl.start, 2 * sl.length) if up else sl.down().take(want)
+        got = fn(local(x, sl), local(mask, sl), cols(w), cols(bias), packed=pack(cols(w)),
+                 seq=sl, model=ms)
+        held(f"K11{'b' if up else 'a'} ({'halo' if sl is not None else 'columns'}) T={t} F={f} "
+             f"C={c}", got, want, BF16_REL)
+
+
 def _seq_kernel_checks(torch, dev, shard):
     """At world 2, on this rank's slice of the 344-frame sites: the halo'd
     kernel A (us_resnet_conv3x3_halo) against its plain twin on the same
     halo'd input, K1's and K2's sharded chains and the split K4 against the
     unsharded plain versions on the whole input (every rank draws the same
-    global tensors), this rank's frames kept. The bf16 outputs within
-    BF16_REL of max(|ref|, 1), the tile sums within F32_REL. Returns the
-    errors by site."""
+    global tensors), this rank's frames kept; then the fused deep
+    configuration's sharded forms (_deep_sharded_checks: K8's and K9's
+    chains, K9's split quantize and halo'd int8 conv, K11a / K11b halo'd).
+    The bf16 outputs within BF16_REL of max(|ref|, 1), K9's chains within
+    I8_REL, the tile sums within F32_REL, the split quantize and the int8
+    conv bit for bit. Returns the errors by site."""
     from unitspeech_tpu_torch.ops import conv_matmul, fused_attention, fused_resnet
     from unitspeech_tpu_torch.utils.precision import strict_f32
 
@@ -3603,12 +3763,13 @@ def _seq_kernel_checks(torch, dev, shard):
                 packed=fused_attention.pack_attention_weights(w_qkv, w_out), seq=sl)
             held(f"K4 split N={t * f} C={c}", got,
                  sl.take(want.reshape(3, t, f, c)).reshape(3, sl.length * f, c), BF16_REL)
+        _deep_sharded_checks(torch, dev, rand, held, seq=top)
     return out
 
 
 def _seq_rank(torch, dev, ckpt, world, rank, d, tag):
     """The seq-sharded requests of one rank: a forced FRAMES-frame request on
-    each of SEQ_MODES x SEQ_SAMPLERS through a Synthesizer on a (data 1, seq
+    each (mode, sampler) of SEQ_RUNS through a Synthesizer on a (data 1, seq
     = world) mesh with sample_spec (None, "seq", None), once to warm up,
     then counted (the estimator kernels' launches and the seq axis's
     collectives, every counter set to 0 just before) and timed; at world 1
@@ -3617,15 +3778,10 @@ def _seq_rank(torch, dev, ckpt, world, rank, d, tag):
     the kernel checks (_seq_kernel_checks)."""
     from unitspeech_tpu_torch.config import MainConfig
     from unitspeech_tpu_torch.infer.tts import Synthesizer, TTSModels, forced_durations
-    from unitspeech_tpu_torch.ops import fused_attention, fused_resnet, row_stats
     from unitspeech_tpu_torch.parallel import SeqShard, make_mesh
     from unitspeech_tpu_torch.text import phonemes_to_sequence
 
-    wrappers = {"fused_resnet_block": fused_resnet.fused_resnet_block,
-                "fused_final_block": fused_resnet.fused_final_block,
-                "row_stats": row_stats.row_stats,
-                "fused_rezero_attention": fused_attention.fused_rezero_attention,
-                "row_absmax": row_stats.row_absmax}
+    wrappers = _seq_wrappers()
     mesh = make_mesh(data=1, seq=world)
     rec = {"split": [list(b) for b in SeqShard.of(mesh).split(FRAMES)] if world > 1 else None}
     if world > 1:
@@ -3638,11 +3794,11 @@ def _seq_rank(torch, dev, ckpt, world, rank, d, tag):
              "noises": torch.from_numpy(rng.standard_normal(
                  (SEQ_STEPS,) + shape).astype(np.float32)).to(dev)}
     runs = {}
-    for mode, routes in SEQ_MODES.items():
-        models = TTSModels.from_checkpoint(ckpt, device=dev, **routes)
+    for mode in dict.fromkeys(m for m, _ in SEQ_RUNS):
+        models = TTSModels.from_checkpoint(ckpt, device=dev, **SEQ_MODES[mode])
         synth = Synthesizer(models, mesh=mesh, sample_spec=(None, "seq", None))
         want = seq_collectives_per_call(models.decoder.estimator, FRAMES)
-        for sampler in SEQ_SAMPLERS:
+        for sampler in (sp for m, sp in SEQ_RUNS if m == mode):
             kw = dict(diffusion_steps=SEQ_STEPS, text_gradient_scale=1.0, spk_gradient_scale=1.0,
                       durations=forced_durations(len(q), FRAMES), sampler=sampler, **noise)
             with torch.inference_mode():
@@ -3688,9 +3844,13 @@ def _tp_kernel_checks(torch, dev, ms):
     the output gathered), K2's (the ranks' partial final dots summed), K3's
     fold on the slice's groups and the flat bf16 and int8 convs on a Cout
     slice (K7's scale over the whole input) at the flat sites, K4 whole on
-    every rank from its gathered weights (design b). The bf16 outputs
-    within BF16_REL of max(|ref|, 1), the statistics and the flat convs
-    within F32_REL. Returns the errors by site."""
+    every rank from its gathered weights (design b); then the fused deep
+    configuration's model forms (_deep_sharded_checks: K8's and K9's chains
+    on the rank's columns, K9's quantize and int8 conv, K11a / K11b on the
+    rank's Cout columns, gathered). The bf16 outputs within BF16_REL of
+    max(|ref|, 1), K9's chains within I8_REL, the statistics and the flat
+    convs within F32_REL, the quantize and the int8 conv bit for bit.
+    Returns the errors by site."""
     from unitspeech_tpu_torch.models.unet import RezeroAttention
     from unitspeech_tpu_torch.ops import conv_matmul, fused_attention, fused_resnet, row_stats
     from unitspeech_tpu_torch.parallel.tp import shard_params_tp
@@ -3779,6 +3939,7 @@ def _tp_kernel_checks(torch, dev, ms):
             with torch.no_grad():
                 got = att(x, mask, bf16, True)
             held(f"K4 whole N={t * f} C={c}", got, want.reshape(3, t, f, c), BF16_REL)
+        _deep_sharded_checks(torch, dev, rand, held, ms=ms)
     return out
 
 
@@ -3792,15 +3953,10 @@ def _tp_requests(torch, dev, ckpt, mesh, spec, pairs, rank, d, tag):
     to <tag>_tp_<mode>_<sampler>.npy."""
     from unitspeech_tpu_torch.config import MainConfig
     from unitspeech_tpu_torch.infer.tts import Synthesizer, TTSModels, forced_durations
-    from unitspeech_tpu_torch.ops import fused_attention, fused_resnet, row_stats
     from unitspeech_tpu_torch.parallel import ModelShard, SeqShard, shard_params_tp
     from unitspeech_tpu_torch.text import phonemes_to_sequence
 
-    wrappers = {"fused_resnet_block": fused_resnet.fused_resnet_block,
-                "fused_final_block": fused_resnet.fused_final_block,
-                "row_stats": row_stats.row_stats,
-                "fused_rezero_attention": fused_attention.fused_rezero_attention,
-                "row_absmax": row_stats.row_absmax}
+    wrappers = _seq_wrappers()
     cfg = MainConfig()
     q = phonemes_to_sequence(FORCED_TEXT)
     rng = np.random.default_rng(PAR_SEED + 2)  # the seq part's draws

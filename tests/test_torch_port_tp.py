@@ -13,7 +13,12 @@ with a model-sharded decoder at (data 1, seq 1, model 2) and (data 1, seq
 shard_params_tp on the matching meshes of the virtual devices; the
 Synthesizer with a sharded decoder on both layouts; one DP x TP STEP1 step
 at (data 2, seq 1, model 2) against the port at world 1 and JAX's step on
-(4, 1, 2) with JAX's draws; the refusals.
+(4, 1, 2) with JAX's draws; the fused deep configuration on a column
+slice: K8's, K9's and K11's model forms, the quantized weights equal to
+the whole's columns bit for bit, the route estimator's deep sites, ddpm
+and dpm2 on both deep paths at (1, 1, 2) against JAX's with
+shard_params_tp and the port at world 1, and ddpm on the int8 deep path at
+(1, 2, 2); the spec that still refuses.
 
 Each multi-rank case runs gloo ranks on the CPU in spawned processes
 (parallel.run_group; their code is tests/_parallel_workers.py, which
@@ -22,7 +27,8 @@ The sampler decoder is the seq tests' (dim 64, 4 stages, F = 16, T = 64,
 beta_max 2, f32). Tolerance: 1e-5 absolute plus 1e-4 of the largest
 magnitude (the seq tests'; f32 sums in another order: a column slice's products
 and the ranks' partial dots of K2), the layers and the gathered int8
-products bit for bit where the arithmetic is the same."""
+products bit for bit where the arithmetic is the same, the int8 deep path
+(K9) by the seq tests' int8 bounds (_int8_close, _int8_sampler_close)."""
 
 import dataclasses
 
@@ -36,7 +42,16 @@ from jax.sharding import PartitionSpec as P
 from tests import _parallel_workers as workers
 from tests._torch_port import randomize, scale_gates
 from tests.test_torch_port_parallel import _held_like_jax
-from tests.test_torch_port_seq import ROUTE_EST, _jax_noises, _mask, _route_case
+from tests.test_torch_port_seq import (
+    JAX_DEEP,
+    ROUTE_EST,
+    _deep_site_inputs,
+    _int8_close,
+    _int8_sampler_close,
+    _jax_noises,
+    _mask,
+    _route_case,
+)
 from tests.test_torch_port_train import DEC as TRAIN_DEC
 from tests.test_torch_port_train import DP as TRAIN_DP
 from tests.test_torch_port_train import LR, SEG, _masked
@@ -63,8 +78,9 @@ from unitspeech_tpu_torch.ops.masking import (
     default_frame_buckets,
     fix_len_compatibility,
 )
+from unitspeech_tpu_torch.ops import fused_resnet_deep as frd
+from unitspeech_tpu_torch.ops import resample
 from unitspeech_tpu_torch.parallel import Group, ModelShard, sample_shard, tp_spec, tp_spec_tree
-from unitspeech_tpu_torch.parallel.mesh import QUEUED_DEEP
 from unitspeech_tpu_torch.parallel.tp import is_sharded, shard_params_tp
 from unitspeech_tpu_torch.train import steps as tsteps
 from unitspeech_tpu_torch.utils.params import _random_state_dict, params_from_jax, random_params
@@ -78,6 +94,10 @@ DEC = dict(n_feats=16, dim=64, dim_mults=(1, 2, 4, 8), groups=8, spk_emb_dim=8, 
 B, T, STEPS_TP = 2, 64, 3
 SAMPLERS = ("ddpm", "ddpm:cs2", "dpm2", "dpm2:cs2")
 LAYOUTS = {"model 2": ((1, 1, 2), None), "seq 2 x model 2": ((1, 2, 2), (None, "seq", None))}
+# the fused deep paths' samplers each layout runs: every path and sampler on
+# model 2, one int8 case on seq 2 x model 2
+DEEP_RUNS = {"model 2": (("deep", "deep_i8"), ("ddpm", "dpm2")),
+             "seq 2 x model 2": (("deep_i8",), ("ddpm",))}
 # JAX's samplers by layout (its compiles are most of the file's time; the
 # port's world-1 samplers meet JAX's unsharded ones in the sampler and seq
 # tests)
@@ -195,7 +215,13 @@ def test_model_shard_columns_and_refusals():
     model = 4 the 128-wide stage's slice is 32 columns, short of K1's
     64-column tile, so that site takes the plain Blocks (JAX's route when
     its gate fails), while the 256-wide stage keeps K1 (64 a rank) and the
-    unsharded estimator takes K1 at both."""
+    unsharded estimator takes K1 at both. The fused deep configuration,
+    which a model-sharded estimator refused before it had sharded forms,
+    keeps its kernels at model = 4 at full width: K9 and K8 at the deep
+    sites of the unsharded routes (128 and 256 columns a rank, two groups),
+    K11a at the 256-wide F = 40 downsample (64 a rank), and the library
+    resample at the 128-wide F = 80 downsample and F = 40 upsample, whose
+    32-column slices K11 does not take."""
     ms = ModelShard(1, 4)
     assert ms.cols(16) == slice(4, 8)
     assert torch.equal(ms.take(torch.arange(16.0)), torch.arange(4.0, 8.0))
@@ -204,7 +230,6 @@ def test_model_shard_columns_and_refusals():
     for spec in (("data", "model", None), (None, "seq", "model"), ("model", None, None)):
         with pytest.raises(ValueError, match="shards the parameters"):
             sample_shard(object(), spec)
-    assert "'model'" in QUEUED_DEEP and "next module slice" in QUEUED_DEEP
     est = GradLogPEstimator2d(dim=128, dim_mults=(1, 2, 4, 8), groups=8, spk_emb_dim=8,
                               n_feats=80)
     whole = {name: est.get_submodule(name).route(344 >> lvl, 80 >> lvl, True)
@@ -216,6 +241,20 @@ def test_model_shard_columns_and_refusals():
               for name, lvl in (("down_0_res2", 0), ("down_1_res2", 1))}
     assert whole == {"down_0_res2": "k1", "down_1_res2": "k1"}
     assert sliced == {"down_0_res2": "blocks", "down_1_res2": "k1"}
+    deep = {name: (lvl, est.get_submodule(name)) for name, lvl in (
+        ("down_2_res1", 2), ("down_3_res1", 3), ("mid_res1", 3), ("up_2_res1", 3),
+        ("up_1_res1", 2))}
+    routes = {name: b.route(344 >> lvl, 80 >> lvl, True, True, True, True)
+              for name, (lvl, b) in deep.items()}
+    assert routes == {"down_2_res1": "k9", "down_3_res1": "k8", "mid_res1": "k8",
+                      "up_2_res1": "k9", "up_1_res1": "k9"}
+    est.use_resample = True
+    h = torch.zeros(1, 344, 80, 1)
+    assert [est.resamples(est.get_submodule(n), h[:, :344 >> lvl, :80 >> lvl], i, None, gate)
+            for n, i, lvl, gate in (("down_0_down", 0, 0, resample.supports_downsample),
+                                    ("down_1_down", 1, 1, resample.supports_downsample),
+                                    ("up_0_up", 0, 1, resample.supports_upsample))] == [
+        False, True, False]
 
 
 # --- the multi-rank cases --------------------------------------------------------
@@ -247,7 +286,7 @@ def _site_inputs():
         sd = {k: v.to(torch.float32) for k, v in _random_state_dict(rng, m).items()}
         mods[name] = (cls, kw, sd)
     route_sd, route_args = _route_case(np.random.default_rng(128))
-    return {"z": r(3, t, f, c), "mask": torch.from_numpy(_mask(t, lens)),
+    out = {"z": r(3, t, f, c), "mask": torch.from_numpy(_mask(t, lens)),
             "lens": torch.from_numpy(lens), "w": r(3, 3, c, 48, scale=(9 * c) ** -0.5),
             "blocks": {"Cin 2": block(2, c, 4), "Cin 32": block(c, c, 4),
                        "one group over both ranks": block(c, c, 1)},
@@ -258,6 +297,7 @@ def _site_inputs():
                      r(128, scale=0.1), torch.tensor([0.7])),
             "xa": r(2, 32, 32, 128), "modules": mods, "ROUTE_EST": ROUTE_EST,
             "route_state": route_sd, "route_args": route_args}
+    return {**out, **_deep_site_inputs(rng, t, f, c)}
 
 
 def _step1_case():
@@ -390,6 +430,7 @@ def tp_runs(tmp_path_factory):
         else:
             step1 = _step1_case()
             extra = {"step1": step1}
+        extra["deep"] = DEEP_RUNS[name]
         outs[name] = _start(tmp_path_factory.mktemp("tp"), int(np.prod(layout)),
                             {**common, **extra, "layout": layout, "spec": spec})
     jax_mels = {}
@@ -408,6 +449,17 @@ def tp_runs(tmp_path_factory):
                "dpm2": lambda: jdiff.reverse_diffusion_ode(jm.apply, tp_params, z, mask, cond,
                                                           spk, **jkw)}
         jax_mels[name] = {k: np.asarray(run[k]()) for k in JAX_SAMPLERS[name]}
+    # the fused deep paths, with JAX's TP placement on the model = 2 mesh
+    mesh = jmake_mesh(data=1, seq=1, model=2, devices=jax.devices()[:2])
+    tp_params = jshard_params_tp(params, mesh)
+    jkw = dict(kw, beta_max=DEC["beta_max"])
+    jax_mels["deep"] = {}
+    for path, flags in JAX_DEEP.items():
+        jd = jdiff.UnitSpeech(**{k: v for k, v in DEC.items() if k != "beta_max"}, **flags)
+        jax_mels["deep"][f"{path} ddpm"] = np.asarray(jdiff.reverse_diffusion(
+            jd.apply, tp_params, z, mask, cond, spk, key, noises=jnp.asarray(noises), **jkw))
+        jax_mels["deep"][f"{path} dpm2"] = np.asarray(jdiff.reverse_diffusion_ode(
+            jd.apply, tp_params, z, mask, cond, spk, **jkw))
     single = ttts.Synthesizer(ttts.TTSModels.from_checkpoint(ckpt, device="cpu",
                                                              dtype=torch.float32))
     synth_mel, synth_len = single.synthesize_mel_batch(SEQS, **synth_kw)
@@ -565,14 +617,150 @@ def test_tp_synthesizer_matches_world_1(tp_runs, layout):
 
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_tp_refusals(tp_runs, layout):
-    """On every rank: the deep configuration on a model-sharded estimator
-    raises NotImplementedError naming the next slice; a spec naming 'model'
-    raises ValueError."""
+    """On every rank: a spec naming 'model' raises ValueError. The bf16 deep
+    configuration (use_deep) on a model-sharded decoder, which raised
+    before the deep kernels had model forms, runs: the decoder's call takes
+    K8's model form at its six deep sites (down_3 res1/res2, mid res1/res2,
+    up_2_res1, up_1_res1: max(Cin, Cout) >= 512; 256, 128 or 64 columns a
+    rank, four groups)."""
     for o in tp_runs["ranks"][layout]:
         deep, spec = o["refused"]
-        assert deep is not None and deep.startswith("NotImplementedError") and \
-            "next module slice" in deep
+        assert deep is None  # the deep decoder's call ran
+        assert o["deep_calls"] == [(w, True) for w in (256, 512, 512, 512, 1024, 512)]
         assert spec is not None and spec.startswith("ValueError") and "parameters" in spec
+
+
+DEEP_SITES = ("K8 Cin 32", "K9 Cin 32", "K9 Cin 64, conv1 bf16", "K9 zero-length row, max 1e-3",
+              "K11a", "K11b")
+
+
+@pytest.mark.parametrize("site", DEEP_SITES)
+def test_tp_deep_site_matches_whole(tp_runs, site):
+    """The fused deep configuration's model forms on both ranks of (1, 1, 2)
+    (each rank's Cout columns of the weights, quant_w of its columns, the
+    output gathered) against the unsharded plain forms on the whole input:
+    K8 (K1's chain), K9's chain (Cin = Cout; Cin > Cout with conv1 in bf16;
+    a zero-length row with max|x| = 1e-3), K11a and K11b. The stated
+    tolerance, K9's chains the int8 bound (_int8_close). Model collectives
+    of the six: K8 2 (h, output), K9 3 each (h's maxima, h8, output), K11
+    1 each."""
+    for o in tp_runs["ranks"]["model 2"]:
+        got, want = o["sites"]["deep_pairs"][site]
+        assert got.shape == want.shape, site
+        if site.startswith("K9"):
+            _int8_close(got, want)
+        else:
+            _close(got.float(), want.float())
+        assert o["sites"]["deep_pairs_collectives"] == 2 + 3 * 3 + 2
+
+
+def test_tp_deep_estimator_routes_keep_their_kernels(tp_runs):
+    """One call of the dim-128 route estimator on the fused deep
+    configuration (kernels, int8, use_deep, use_resample, use_i8pre_deep,
+    bf16) sharded over model = 2, under the route stand-ins: K9's model
+    form at the five deep sites with Cout <= 512, K8's at the four 1
+    024-wide ones, K11a at F = 16 and 8 and K11b at F = 8 (64 or 128
+    columns a rank), K1 at its six sites, K2, K4; no flat block. The model
+    collectives are chip_smoke.model_collectives_per_call's plus each
+    stand-in's CUDA branch (2 a K1 or K8 call, 3 a K9 call, 1 a K11 call, 1
+    a K2); the score against the unsharded call within the route tests'
+    bf16 and int8 bound."""
+    import chip_smoke
+
+    est = GradLogPEstimator2d(**ROUTE_EST)
+    shard_params_tp(est, ModelShard(0, 2))  # the routes read the slice's widths alone
+    est.use_kernels = est.use_int8_deep = est.use_deep = est.use_resample = True
+    est.use_i8pre_deep = True
+    want = chip_smoke.model_collectives_per_call(est, T)
+    for o in tp_runs["ranks"]["model 2"]:
+        d = o["sites"]["deep_i8"]
+        widths = {n: [w for m, w, _ in d["calls"] if m == n] for n, _, _ in d["calls"]}
+        # every kernel call got the model shard but K4 (whole on every rank)
+        # and the plain Blocks' statistics (their conv gathered its columns)
+        assert all(sharded for n, _, sharded in d["calls"]
+                   if n not in ("fused_rezero_attention", "group_mean_inv"))
+        assert widths["fused_resnet_block_deep_i8"] == [256, 512, 2048, 512, 1024]
+        assert widths["fused_resnet_block_deep"] == [512, 1024, 1024, 1024]
+        assert widths["fused_downsample_conv"] == [128, 256]
+        assert widths["fused_upsample_conv"] == [128]
+        assert widths["fused_resnet_block"] == [2, 128, 128, 256, 512, 128]
+        assert "conv3x3_int8" not in widths
+        branch = 2 * 6 + 1 + 2 * 4 + 3 * 5 + 3
+        assert d["collectives"] == (0, want + branch)
+        score, whole = d["score"].float(), d["whole"].float()
+        err, top = (score - whole).abs(), whole.abs().max()
+        assert torch.isfinite(score).all() and score.shape == whole.shape
+        assert err.max() <= 2.0 ** -4 * top and err.mean() <= 2.0 ** -8 * top
+
+
+@pytest.mark.parametrize("layout,path,sampler", [
+    (layout, path, sampler) for layout, (paths, samplers) in DEEP_RUNS.items()
+    for path in paths for sampler in samplers])
+def test_tp_deep_sampler_matches_jax_and_world_1(tp_runs, layout, path, sampler):
+    """ddpm and dpm2 on the fused deep configuration with a model-sharded
+    decoder ((1, 1, 2) both paths; (1, 2, 2) with (None, "seq", None) the
+    int8 path's ddpm) against JAX's reverse_diffusion with use_pallas_deep,
+    use_pallas_resample (and use_int8_deep, use_i8pre_deep) and
+    shard_params_tp on its (1, 1, 2) mesh (its Pallas kernels in interpret
+    mode; for (1, 2, 2) the same JAX run: its TP sample is the replicated
+    program's) and against the port's unsharded sample (computed on the
+    (1, 1, 2) ranks): the bf16 route (K8, f32 here) within the stated
+    tolerance, the int8 one (K9) within _int8_sampler_close of the int8
+    sample, the deep bf16-route sample of the same side the f32 reference;
+    the padded frames zero."""
+    key = f"{path} {sampler}"
+    jax_want, jax_ref = (tp_runs["jax"]["deep"][f"{p} {sampler}"] for p in (path, "deep"))
+    w1 = tp_runs["world1"]["deep"]
+    assert np.isfinite(jax_want).all() and np.abs(jax_want).max() > 1.0
+    for o in tp_runs["ranks"][layout]:
+        got = o["mels"]["deep"][key]
+        if path == "deep":
+            _close(got, jax_want)
+            _close(got, w1[key])
+        else:
+            _int8_sampler_close(got, jax_want, jax_ref)
+            _int8_sampler_close(got, w1[key], w1[f"deep {sampler}"])
+        np.testing.assert_array_equal(got[1, 41:].numpy(), 0.0)
+
+
+def test_tp_int8_weights_are_the_whole_columns():
+    """quant_w's per-output-channel scales are column-local: after
+    shard_params_tp at model = 2 every K9 block's int8 weights and
+    reciprocal scales on each rank equal the whole block's columns bit for
+    bit, its packed tiles are pack_block_weights_i8 of those columns (conv1
+    in bf16 by the block's global widths), and K11's packed kernels are the
+    pack of the rank's columns, where K11 takes them (the 64-wide F = 16
+    stage's 32 columns it does not: None)."""
+    from tests.test_torch_port_deep import DIM64, PORT_FLAGS
+
+    rng = np.random.default_rng(25)
+    make = lambda: GradLogPEstimator2d(**DIM64, n_feats=16, **PORT_FLAGS["deep_i8"])  # noqa
+    sd = {k: torch.from_numpy(rng.standard_normal(tuple(v.shape)).astype(np.float32) * 0.1)
+          for k, v in make().state_dict().items()}
+    whole = make()
+    whole.load_state_dict(sd)
+    k9 = [n for n, m in whole.named_modules() if getattr(m, "packed_for", None) == "k9"]
+    assert len(k9) == 6
+    for rank in range(2):
+        ms = ModelShard(rank, 2)
+        est = make()
+        est.load_state_dict(sd)
+        shard_params_tp(est, ms)
+        for name in k9:
+            w, m = whole.get_submodule(name), est.get_submodule(name)
+            assert m.packed_for == "k9"
+            for (w8, rsw), (w8w, rsww) in zip(m.i8pre_weights, w.i8pre_weights):
+                assert torch.equal(w8, ms.take(w8w, 0)) and torch.equal(rsw, ms.take(rsww, 0))
+            cin, cout = w.widths()
+            want = frd.pack_block_weights_i8(m.block1.conv.kernel, m.i8pre_weights,
+                                             None if m.res_conv is None else m.res_conv.kernel,
+                                             cin > cout)
+            assert all(torch.equal(a, b) for a, b in zip(m.packed, want) if b is not None)
+        for name, pack in (("down_0_down", None), ("down_1_down", resample.pack_downsample_weight),
+                           ("up_0_up", None)):
+            m = est.get_submodule(name)
+            assert (m.packed is None) if pack is None else torch.equal(
+                m.packed, pack(m.conv.kernel))
 
 
 def test_tp_step1_matches_jax_and_world_1(tp_runs):

@@ -7,8 +7,11 @@
 // _upsample_kernel), ConvTranspose 4x4 stride 2 with flax padding (2, 2),
 // unflipped flax kernel. Input frames at/after the sequence length read as
 // zero (the estimator skips its `h * mask` pass); the bias lands on every
-// output row. Products are bf16, the f32 accumulator takes the f32 bias and
-// is rounded once to bf16.
+// output row. With hb / ha > 0 the input is a frame slice of the seq axis
+// with its neighbours' edge frames around it (the downsample reads the one
+// before, the upsample one a side), read as the sender masked them.
+// Products are bf16, the f32 accumulator takes the f32 bias and is rounded
+// once to bf16.
 //
 // Layout: x (B, T, F, Cin) channels last, bf16. The weights arrive packed
 // once at load (ops/resample.py pack_*_weight): for each Cout tile of BN
@@ -84,6 +87,10 @@ struct RsArgs {
   const int* lens;    // (B) valid input frames
   bf16* out;
   int T, F, Cout;
+  // a halo'd input (a frame slice of the seq axis): x holds hb frames before
+  // the slice's T and ha after it, read as they are (the sender masked
+  // them; zeros at the global ends); lens masks the T interior frames
+  int hb, ha;
   int tt, tf, lg_tf, tiles_f;  // the row tile
   int n_chunks, nb, stage_bytes, box_bytes;
 };
@@ -106,6 +113,13 @@ US_DEV void stage_acc(const float (&acc)[BN / 2], const float* bias, uint8_t* st
           __floats2bfloat162_rn(acc[j * 4 + 2 * h] + b0, acc[j * 4 + 2 * h + 1] + b1);
     }
   }
+}
+
+// Whether input frame ti (of the slice's T; -hb .. -1 and T .. T + ha - 1
+// the halo frames) holds data: a halo frame always, an interior one before
+// the length tlim.
+US_DEV bool frame_ok(int ti, int T, int tlim, int hb, int ha) {
+  return ti < 0 ? ti >= -hb : (ti < T ? ti < tlim : ti < T + ha);
 }
 
 // Shared memory of both kernels: the weight ring, the box slots, a zero
@@ -155,8 +169,8 @@ __global__ void __launch_bounds__(DOWN_THREADS, 1)
   if (warp == 4) {
     produce_ring(&xmap, sm.ring, sm.box, sm.w_full, sm.w_empty, sm.x_full, sm.x_empty, S, 9,
                  p.stage_bytes, p.stage_bytes, p.nb, p.box_bytes, (2 * p.tt + 1) * BF * KC * 2,
-                 p.n_chunks, p.w + (size_t)blockIdx.y * p.n_chunks * 9 * BN * KC, fi0, ti0,
-                 blockIdx.z);
+                 p.n_chunks, p.w + (size_t)blockIdx.y * p.n_chunks * 9 * BN * KC, fi0,
+                 ti0 + p.hb, blockIdx.z);
   } else {
     float acc[BN / 2];
 #pragma unroll
@@ -176,7 +190,7 @@ __global__ void __launch_bounds__(DOWN_THREADS, 1)
       for (int tap = 0; tap < 9; ++tap) {
         const int dt = tap / 3, df = tap % 3;  // constants once unrolled
         const int R = (2 * tt + dt) * BF + 2 * ff + df;
-        const bool ok = (unsigned)(ti0 + 2 * tt + dt) < (unsigned)tlim &&
+        const bool ok = frame_ok(ti0 + 2 * tt + dt, T, tlim, p.hb, p.ha) &&
                         (unsigned)(fi0 + 2 * ff + df) < (unsigned)F;
         const uint32_t row = ok ? box_addr + R * 128 : zero_addr, rx = ok ? R & 7 : 0;
         // each half's fragment set was last read two groups back, which
@@ -235,8 +249,8 @@ __global__ void __launch_bounds__(UP_THREADS, 1)
   if (warp == 8) {
     produce_ring(&xmap, sm.ring, sm.box, sm.w_full, sm.w_empty, sm.x_full, sm.x_empty, S, 4,
                  p.stage_bytes, p.stage_bytes, p.nb, p.box_bytes, (p.tt + 2) * BF * KC * 2,
-                 p.n_chunks, p.w + (size_t)blockIdx.y * p.n_chunks * 16 * BN * KC, fi0, ti0,
-                 blockIdx.z);
+                 p.n_chunks, p.w + (size_t)blockIdx.y * p.n_chunks * 16 * BN * KC, fi0,
+                 ti0 + p.hb, blockIdx.z);
   } else {
     const int pa = warp >> 2, wl = warp & 3;
     float acc0[BN / 2], acc1[BN / 2];
@@ -258,7 +272,7 @@ __global__ void __launch_bounds__(UP_THREADS, 1)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int bt = tt + (q >> 1) + pa, bf = ff + (q & 1);
-        const bool t_ok = (unsigned)(ti0 + bt) < (unsigned)tlim;
+        const bool t_ok = frame_ok(ti0 + bt, T, tlim, p.hb, p.ha);
         const int R = bt * BF + bf;  // phase b = 0; b = 1 reads R + 1
         const bool ok0 = t_ok && (unsigned)(fi0 + bf) < (unsigned)F;
         const bool ok1 = t_ok && (unsigned)(fi0 + bf + 1) < (unsigned)F;
@@ -368,7 +382,8 @@ template <class K>
 int launch(K kernel, const Plan& pl, const void* x, int B, int Cin, cudaStream_t stream) {
   if (pl.smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   CUtensorMap xmap;
-  int err = x_tensor_map(&xmap, x, B, pl.a.T, pl.a.F, Cin, pl.box_t, pl.box_f);
+  int err = x_tensor_map(&xmap, x, B, pl.a.T + pl.a.hb + pl.a.ha, pl.a.F, Cin, pl.box_t,
+                         pl.box_f);
   if (err) return err;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
@@ -377,25 +392,32 @@ int launch(K kernel, const Plan& pl, const void* x, int B, int Cin, cudaStream_t
   return (int)cudaGetLastError();
 }
 
-void fill_io(Plan& pl, const void* w, const float* bias, const int* lens, void* out) {
+void fill_io(Plan& pl, const void* w, const float* bias, const int* lens, void* out, int hb,
+             int ha) {
   pl.a.w = static_cast<const bf16*>(w);
   pl.a.bias = bias;
   pl.a.lens = lens;
   pl.a.out = static_cast<bf16*>(out);
+  pl.a.hb = hb;
+  pl.a.ha = ha;
 }
 
 }  // namespace
 
 extern "C" {
 
-// K11a: x (B, T*F, Cin) -> out (B, (T/2)*(F/2), Cout); T, F even, Cin % 8 == 0,
-// w packed by ops/resample.py pack_downsample_weight in Cout tiles of BN,
-// lens (B) valid input frames.
+// K11a: x (B, hb + T + ha, F, Cin) -> out (B, (T/2)*(F/2), Cout); T, F
+// even, Cin % 8 == 0, w packed by ops/resample.py pack_downsample_weight in
+// Cout tiles of BN, lens (B) valid input frames of the T. hb = ha = 0: the
+// whole sequence; on a frame slice of the seq axis (starting at an even
+// frame) hb = 1, ha = 0: the neighbour's frame before it (output frame j
+// reads input frames 2 j - 1 .. 2 j + 1), as the sender masked it.
 int us_downsample_conv(const void* x, const void* w, const float* bias, const int* lens,
-                       void* out, int B, int T, int F, int Cin, int Cout, int BN, void* stream) {
-  if (!bn_ok(false, BN, Cout)) return (int)cudaErrorInvalidValue;
+                       void* out, int B, int T, int F, int Cin, int Cout, int BN, int hb, int ha,
+                       void* stream) {
+  if (!bn_ok(false, BN, Cout) || hb < 0 || ha < 0) return (int)cudaErrorInvalidValue;
   Plan pl = make_plan(false, B, T, F, Cin, Cout, BN);
-  fill_io(pl, w, bias, lens, out);
+  fill_io(pl, w, bias, lens, out, hb, ha);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (pl.bn) {
     case 256: return launch(downsample_conv<256>, pl, x, B, Cin, s);
@@ -404,14 +426,18 @@ int us_downsample_conv(const void* x, const void* w, const float* bias, const in
   }
 }
 
-// K11b: x (B, T*F, Cin) -> out (B, 2T*2F, Cout); Cin % 8 == 0, w packed by
-// ops/resample.py pack_upsample_weight in Cout tiles of BN, lens (B) valid
-// frames.
+// K11b: x (B, hb + T + ha, F, Cin) -> out (B, 2T*2F, Cout); Cin % 8 == 0,
+// w packed by ops/resample.py pack_upsample_weight in Cout tiles of BN, lens
+// (B) valid frames of the T. hb = ha = 0: the whole sequence; on a frame
+// slice of the seq axis hb = ha = 1: one frame of each neighbour (output
+// frame o reads input frames (o - 2) / 2 .. (o + 1) / 2), as the sender
+// masked them.
 int us_upsample_conv(const void* x, const void* w, const float* bias, const int* lens,
-                     void* out, int B, int T, int F, int Cin, int Cout, int BN, void* stream) {
-  if (!bn_ok(true, BN, Cout)) return (int)cudaErrorInvalidValue;
+                     void* out, int B, int T, int F, int Cin, int Cout, int BN, int hb, int ha,
+                     void* stream) {
+  if (!bn_ok(true, BN, Cout) || hb < 0 || ha < 0) return (int)cudaErrorInvalidValue;
   Plan pl = make_plan(true, B, T, F, Cin, Cout, BN);
-  fill_io(pl, w, bias, lens, out);
+  fill_io(pl, w, bias, lens, out, hb, ha);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (pl.bn == 128) return launch(upsample_conv<128>, pl, x, B, Cin, s);
   return launch(upsample_conv<64>, pl, x, B, Cin, s);

@@ -896,6 +896,24 @@ int conv3x3_launch(const void* x, const void* w, int BN, const float* bias, cons
   return tc_launch(9, pl, x, B, Cin, st, false, pdl);
 }
 
+// K9's int8 conv3x3 (hin: a halo'd input, launched plainly; else a
+// programmatic dependent launch, K9's chain).
+int conv3x3_i8_launch(const void* x8, const void* w8, int BN, const float* sx, const float* rsw,
+                      const float* bias, const int* lens, void* out, float* part, int B, int N,
+                      int F, int Cin, int Cout, int hin, cudaStream_t st) {
+  if (!tc_bn_ok(BN, Cout) || Cin % 16) return (int)cudaErrorInvalidValue;
+  TcPlan pl = make_tc_plan(9, B, N / F, F, Cin, Cout, BN, 0, true);
+  pl.a.w = w8;
+  pl.a.sx = sx;
+  pl.a.rsw = rsw;
+  pl.a.bias = bias;
+  pl.a.lens = lens;
+  pl.a.out = static_cast<bf16*>(out);
+  pl.a.part = part;
+  pl.a.hin = hin;
+  return tc_launch(9, pl, x8, B, Cin, st, true, !hin);
+}
+
 }  // namespace
 
 extern "C" {
@@ -976,16 +994,22 @@ int us_resnet_conv3x3_halo(const void* x, const void* w, int BN, const float* bi
 int us_resnet_conv3x3_i8(const void* x8, const void* w8, int BN, const float* sx,
                          const float* rsw, const float* bias, const int* lens, void* out,
                          float* part, int B, int N, int F, int Cin, int Cout, void* stream) {
-  if (!tc_bn_ok(BN, Cout) || Cin % 16) return (int)cudaErrorInvalidValue;
-  TcPlan pl = make_tc_plan(9, B, N / F, F, Cin, Cout, BN, 0, true);
-  pl.a.w = w8;
-  pl.a.sx = sx;
-  pl.a.rsw = rsw;
-  pl.a.bias = bias;
-  pl.a.lens = lens;
-  pl.a.out = static_cast<bf16*>(out);
-  pl.a.part = part;
-  return tc_launch(9, pl, x8, B, Cin, static_cast<cudaStream_t>(stream), true, true);
+  return conv3x3_i8_launch(x8, w8, BN, sx, rsw, bias, lens, out, part, B, N, F, Cin, Cout, 0,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The same conv on a halo'd int8 input (K9's sharded chain on a frame slice
+// of the seq axis): x8 (B, N / F + 2, F, Cin), the slice's N rows with the
+// neighbours' edge frame on each side, quantized with the same scale sx
+// (zeros at the global ends and past their length); lens masks the
+// interior rows; out, part and the launch plan are the N interior rows'.
+// A plain launch (a collective runs before it).
+int us_resnet_conv3x3_i8_halo(const void* x8, const void* w8, int BN, const float* sx,
+                              const float* rsw, const float* bias, const int* lens, void* out,
+                              float* part, int B, int N, int F, int Cin, int Cout,
+                              void* stream) {
+  return conv3x3_i8_launch(x8, w8, BN, sx, rsw, bias, lens, out, part, B, N, F, Cin, Cout, 1,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // K10a's int8 conv3x3 over a per-TPU-tile copy: x8t (B, N / (F fpt), fpt +

@@ -56,6 +56,17 @@
 // (common.cuh launch_pdl). Rounding follows JAX: round half to even
 // (rintf), clip to +-127, and the dequantize as one f32 multiply and one f32
 // add (no fused multiply-add).
+//
+// On a frame slice of the seq axis or a column slice of the model axis
+// (ops/fused_resnet_deep.py resnet_block_deep_i8_sharded) the chain keeps
+// the global numbers of JAX's GSPMD, which runs the kernel on gathered
+// operands: the two maxima a scale needs are split from their use
+// (us_i8_absmax then us_i8_quantize_scaled; us_i8_glue_h then
+// us_i8_glue_q), the host all-reduces them (MAX) in between, GroupNorm 1
+// reads every rank's tile sums with the global row count, and the convs
+// read a halo'd int8 input (resnet_block.cu us_resnet_conv3x3_i8_halo).
+// These launches are plain (a collective runs between them); the
+// unsharded chain keeps its programmatic dependent launches.
 #include "common.cuh"
 
 namespace {
@@ -75,10 +86,10 @@ US_DEV float act_scale(const float* amax, int n, float* scratch, int k10b) {
 }
 
 // amax[b, chunk] = max |x| over the rows of the chunk before lens[b] (0
-// for a chunk past it). Grid (row chunks of Q_ROWS, B); 8 channels a
-// thread.
+// for a chunk past it), rows of amax ld apart. Grid (row chunks of Q_ROWS,
+// B); 8 channels a thread.
 __global__ void __launch_bounds__(256) i8_absmax(const bf16* x, const int* lens, float* amax,
-                                                 int N, int C) {
+                                                 int ld, int N, int C) {
   __shared__ float scratch[256];
   griddep_wait();
   griddep_launch();
@@ -93,7 +104,7 @@ __global__ void __launch_bounds__(256) i8_absmax(const bf16* x, const int* lens,
     for (int e = 0; e < 8; ++e) m = max_nan(m, fabsf(v[e]));
   }
   m = block_max(m, scratch);
-  if (threadIdx.x == 0) amax[(size_t)b * gridDim.x + blockIdx.x] = m;
+  if (threadIdx.x == 0) amax[(size_t)b * ld + blockIdx.x] = m;
 }
 
 // x8 = clip(rint(x * sx[b]), -127, 127) on rows < lens[b], 0 after, with sx
@@ -153,10 +164,12 @@ struct GlueArgs {
   const bf16* film;     // (B, C)
   const int* lens;      // (B)
   float* h;             // (B, N, C) pass 0 writes h, pass 1 reads it
-  float* amax;          // (B, blocks a batch element) maxima of |h|, one a pass-0 block
+  float* amax;          // (B, ld) maxima of |h|, one a pass-0 block
   float* sx;            // (B) pass 1 writes the scale
   int8_t* h8;           // pass 1: (B, N, C)
   int N, C, n_tiles, groups;
+  int n_rows;           // the rows GroupNorm 1 pools over (N, or a frame slice's global rows)
+  int ld;               // amax's row: the maxima pass 1 reduces a batch element
   float eps;
   int k10b;             // K10b's roundings: h to bf16, the scale 127 / (max + 1e-8)
 };
@@ -204,7 +217,7 @@ __global__ void __launch_bounds__(256) glue_h(GlueArgs p) {
         s1 += __shfl_xor_sync(0xffffffffu, s1, off);
         s2 += __shfl_xor_sync(0xffffffffu, s2, off);
       }
-      const float cnt = (float)N * (float)cg, mu = s1 / cnt;
+      const float cnt = (float)p.n_rows * (float)cg, mu = s1 / cnt;
       if (lane == 0) g_mu[gi] = mu, g_iv[gi] = 1.0f / sqrtf(s2 / cnt - mu * mu + p.eps);
     }
   }
@@ -244,11 +257,12 @@ __global__ void __launch_bounds__(256) glue_h(GlueArgs p) {
     }
   }
   mx = block_max(mx, red);
-  if (tid == 0) p.amax[((size_t)b * gridDim.y + chunk) * gridDim.x + blockIdx.x] = mx;
+  if (tid == 0) p.amax[(size_t)b * p.ld + chunk * gridDim.x + blockIdx.x] = mx;
 }
 
-// Pass 1: the batch element's scale from pass 0's maxima (every block the
-// same reduction; block 0 writes sx), then h8 = quantize(h). Grid as pass 0.
+// Pass 1: the batch element's scale from the maxima amax[b, 0 .. ld)
+// (pass 0's, or on a slice those reduced over the axis; every block the same
+// reduction; block 0 writes sx), then h8 = quantize(h). Grid as pass 0.
 __global__ void __launch_bounds__(256) glue_q(GlueArgs p) {
   __shared__ float red[256];
   griddep_wait();
@@ -256,7 +270,7 @@ __global__ void __launch_bounds__(256) glue_q(GlueArgs p) {
   const int tid = threadIdx.x, lane_r = tid >> 5;
   const int c0 = (blockIdx.x * 32 + (tid & 31)) * 8;
   const int chunk = blockIdx.y, b = blockIdx.z;
-  const int N = p.N, C = p.C, per_b = gridDim.x * gridDim.y;
+  const int N = p.N, C = p.C;
   const bool active = c0 < C;
   const int m_end = min(N, (chunk + 1) * GLUE_ROWS);
   float4 hv[GLUE_ROWS / 8][2];  // the thread's rows, loaded before the reduction
@@ -267,7 +281,7 @@ __global__ void __launch_bounds__(256) glue_q(GlueArgs p) {
     hv[k][0] = active && m < m_end ? __ldcg(src) : make_float4(0.f, 0.f, 0.f, 0.f);
     hv[k][1] = active && m < m_end ? __ldcg(src + 1) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  const float s = act_scale(p.amax + (size_t)b * per_b, per_b, red, p.k10b);
+  const float s = act_scale(p.amax + (size_t)b * p.ld, p.ld, red, p.k10b);
   if (blockIdx.x == 0 && chunk == 0 && tid == 0) p.sx[b] = s;
   if (!active) return;
 #pragma unroll
@@ -282,6 +296,36 @@ __global__ void __launch_bounds__(256) glue_q(GlueArgs p) {
     for (int e = 0; e < 8; ++e) qe[e] = quant_i8(h[e], s);
     *reinterpret_cast<uint2*>(p.h8 + ((size_t)b * N + m) * C + c0) = q;
   }
+}
+
+GlueArgs glue_args(const void* c1, const float* part, int n_tiles, int groups, float eps,
+                   const float* scale, const float* shift, const void* film, const int* lens,
+                   float* h, float* amax, void* h8, float* sx, int N, int C, int n_rows, int ld,
+                   int k10b) {
+  GlueArgs p;
+  p.c = static_cast<const bf16*>(c1);
+  p.part = part;
+  p.n_tiles = n_tiles;
+  p.groups = groups;
+  p.eps = eps;
+  p.scale = scale;
+  p.shift = shift;
+  p.film = static_cast<const bf16*>(film);
+  p.lens = lens;
+  p.h = h;
+  p.amax = amax;
+  p.sx = sx;
+  p.h8 = static_cast<int8_t*>(h8);
+  p.N = N;
+  p.C = C;
+  p.n_rows = n_rows;
+  p.ld = ld;
+  p.k10b = k10b;
+  return p;
+}
+
+bool glue_groups_ok(int C, int groups) {
+  return !(C % groups || (C / groups) % 8 || 256 / (C / groups) > 32);
 }
 
 }  // namespace
@@ -303,8 +347,8 @@ int us_i8_quantize_rows(const void* x, const int* lens, float* amax, void* x8, f
                         int N, int Cin, int k10b, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(us_ceil_div(N, Q_ROWS), B);
-  int err = launch_pdl(i8_absmax, grid, 256, 0, st, static_cast<const bf16*>(x), lens, amax, N,
-                       Cin);
+  int err = launch_pdl(i8_absmax, grid, 256, 0, st, static_cast<const bf16*>(x), lens, amax,
+                       (int)grid.x, N, Cin);
   if (err) return err;
   return launch_pdl(i8_quantize, grid, 256, 0, st, static_cast<const bf16*>(x), lens,
                     static_cast<const float*>(amax), (int)grid.x, sx, static_cast<int8_t*>(x8),
@@ -320,29 +364,70 @@ int us_i8_glue(const void* c1, const float* part, int n_tiles, int groups, float
                const float* scale, const float* shift, const void* film, const int* lens,
                float* h, float* amax, void* h8, float* sx, int B, int N, int C, int k10b,
                void* stream) {
-  if (C % groups || (C / groups) % 8 || 256 / (C / groups) > 32) return (int)cudaErrorInvalidValue;
+  if (!glue_groups_ok(C, groups)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  GlueArgs p;
-  p.c = static_cast<const bf16*>(c1);
-  p.part = part;
-  p.n_tiles = n_tiles;
-  p.groups = groups;
-  p.eps = eps;
-  p.scale = scale;
-  p.shift = shift;
-  p.film = static_cast<const bf16*>(film);
-  p.lens = lens;
-  p.h = h;
-  p.amax = amax;
-  p.sx = sx;
-  p.h8 = static_cast<int8_t*>(h8);
-  p.N = N;
-  p.C = C;
-  p.k10b = k10b;
+  GlueArgs p = glue_args(c1, part, n_tiles, groups, eps, scale, shift, film, lens, h, amax, h8,
+                         sx, N, C, N, us_i8_glue_blocks(N, C), k10b);
   dim3 grid(us_ceil_div(C, 256), us_ceil_div(N, GLUE_ROWS), B);
   int err = launch_pdl(glue_h, grid, 256, 0, st, p);
   if (err) return err;
   return launch_pdl(glue_q, grid, 256, 0, st, p);
+}
+
+// --- the sharded chain (a frame slice of the seq axis and / or a column
+// slice of the model axis): the two reductions of a batch element's scale
+// split at their maximum, so that the maxima are reduced over the axis
+// between the launches (one MAX all-reduce each). Plain launches: a
+// collective runs between them.
+
+// The input quantize's first half: amax (B, ld) the maxima of |x| over the
+// rows before the length, us_i8_quantize_chunks(N) of them a row (the rest
+// of a row untouched: the caller's zeros, which a maximum of |x| ignores).
+int us_i8_absmax(const void* x, const int* lens, float* amax, int ld, int B, int N, int Cin,
+                 void* stream) {
+  const dim3 grid(us_ceil_div(N, Q_ROWS), B);
+  if (ld < (int)grid.x) return (int)cudaErrorInvalidValue;
+  i8_absmax<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<const bf16*>(x),
+                                                                  lens, amax, ld, N, Cin);
+  return (int)cudaGetLastError();
+}
+
+// Its second half: the scale sx (B; K9's form) from amax (B, ld) and x8 =
+// quantize(x) (B, N, Cin), rows >= lens zero.
+int us_i8_quantize_scaled(const void* x, const int* lens, const float* amax, int ld, void* x8,
+                          float* sx, int B, int N, int Cin, void* stream) {
+  const dim3 grid(us_ceil_div(N, Q_ROWS), B);
+  i8_quantize<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), lens, amax, ld, sx, static_cast<int8_t*>(x8), N, Cin, 0);
+  return (int)cudaGetLastError();
+}
+
+// The glue's pass 0 alone: GroupNorm 1 over n_rows rows from part (B,
+// n_tiles, 2, C) (on a frame slice every rank's tile sums, gathered), h
+// (B, N, C) f32 and the maxima of |h| into amax (B, ld), the first
+// us_i8_glue_blocks(N, C) of a row. K9's roundings.
+int us_i8_glue_h(const void* c1, const float* part, int n_tiles, int groups, float eps,
+                 const float* scale, const float* shift, const void* film, const int* lens,
+                 float* h, float* amax, int ld, int B, int N, int C, int n_rows, void* stream) {
+  if (!glue_groups_ok(C, groups) || ld < us_i8_glue_blocks(N, C))
+    return (int)cudaErrorInvalidValue;
+  GlueArgs p = glue_args(c1, part, n_tiles, groups, eps, scale, shift, film, lens, h, amax,
+                         nullptr, nullptr, N, C, n_rows, ld, 0);
+  dim3 grid(us_ceil_div(C, 256), us_ceil_div(N, GLUE_ROWS), B);
+  glue_h<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The glue's pass 1 alone: sx (B) from amax (B, ld) (the maxima reduced
+// over the axis), and h8 = quantize(h) (B, N, C).
+int us_i8_glue_q(const float* h, const float* amax, int ld, void* h8, float* sx, int B, int N,
+                 int C, void* stream) {
+  GlueArgs p = glue_args(nullptr, nullptr, 0, 1, 0.f, nullptr, nullptr, nullptr, nullptr,
+                         const_cast<float*>(h), const_cast<float*>(amax), h8, sx, N, C, N, ld,
+                         0);
+  dim3 grid(us_ceil_div(C, 256), us_ceil_div(N, GLUE_ROWS), B);
+  glue_q<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

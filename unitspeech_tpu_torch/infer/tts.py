@@ -43,8 +43,9 @@ mesh), as JAX's sampler paths shard the decoder's parameters alone): every
 sampler call then runs the tensor-parallel estimator, with or without a
 spec; the encoder, the duration predictor and the vocoder stay whole. A
 spec naming 'model' raises ValueError (the axis shards parameters, not the
-sample); 'seq', or a model-sharded decoder, with the fused deep-stage
-configuration raises NotImplementedError (the next slice).
+sample). Every mode runs on these meshes, the fused deep-stage
+configuration (--deep --i8pre --resample) too: its kernels take their
+sharded forms (models/unet.py).
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ from unitspeech_tpu_torch.ops.masking import (
     sequence_mask,
 )
 from unitspeech_tpu_torch.ops.mel import denormalize_mel
-from unitspeech_tpu_torch.parallel.mesh import QUEUED_DEEP, SINGLE, sample_shard
+from unitspeech_tpu_torch.parallel.mesh import SINGLE, sample_shard
 from unitspeech_tpu_torch.utils.params import build_modules, config_from_dict
 
 
@@ -206,10 +207,6 @@ class Synthesizer:
 
     def __post_init__(self):
         self._shard, self._seq = sample_shard(self.mesh, self.sample_spec)
-        est = self.models.decoder.estimator
-        if ((self._seq is not None or est.tp is not None)
-                and (est.use_deep or est.use_i8pre_deep or est.use_resample)):
-            raise NotImplementedError(f"sample_spec {self.sample_spec}: {QUEUED_DEEP}")
 
     def _scales(self, diffusion_steps, length_scale, text_gradient_scale, spk_gradient_scale):
         icfg = self.models.cfg.inference

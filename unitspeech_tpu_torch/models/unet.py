@@ -50,8 +50,12 @@ global row count; K7's maxima and the attention's partials (K4's, or the
 plain one's max, sums and context) are reduced over it. Every route gate
 reads the global frames (`seq.t`), so all ranks and the unsharded
 program take the same routes; the masks and valid-row counts are the
-slice's. The fused deep-stage configuration refuses a seq slice
-(parallel.mesh.QUEUED_DEEP: the next slice).
+slice's. The fused deep-stage configuration takes its sharded forms too:
+K8 is K1's chain at F = 20/10, K9 its own chain with the one activation
+scale a batch element over the global rows (the maxima reduced over the
+axis) and its int8 convs over halo'd int8 rows, and K11 reads its halo'd
+frames (ops/fused_resnet_deep.py, ops/resample.py); the deep gate reads
+the global frames and K9 the slice's valid rows.
 
 Tensor parallelism (parallel/tp.py shard_params_tp: every conv and dense
 kernel holds this rank's Cout columns of the mesh's model axis, `tp` its
@@ -69,8 +73,14 @@ of a pallas_call's sharded operands). Routes are taken at the global
 widths; a kernel runs where its `takes` also accepts the rank's slice
 (K1 and K2: Cout / size in whole 64-column tiles and the groups split over
 the axis), else the site takes the route JAX's code takes when its gate
-fails (the plain Blocks). The fused deep-stage configuration refuses a
-model-sharded estimator (QUEUED_DEEP).
+fails (the plain Blocks). The fused deep-stage configuration keeps its
+kernels on the rank's columns: K8 runs K1's chain, K9 its chain with h's
+maxima reduced over the axis and h8 (int8) gathered before conv2, the FiLM
+bias the rank's columns, the weights quantized and packed from the rank's
+columns (per-output-channel scales are column-local: the whole's columns);
+K11 writes the rank's Cout columns and gathers them. A deep site whose
+slice K8 / K9 do not take (slice_takes) takes the flat route, a resample
+whose slice K11 does not take (kernel_takes) the library resample.
 """
 
 from __future__ import annotations
@@ -104,6 +114,7 @@ from unitspeech_tpu_torch.ops.fused_resnet_deep import (
     fused_resnet_block_deep,
     fused_resnet_block_deep_i8,
     pack_block_weights_i8,
+    slice_takes,
 )
 from unitspeech_tpu_torch.ops.masking import frames_from_mask
 from unitspeech_tpu_torch.ops.resample import (
@@ -120,9 +131,7 @@ from unitspeech_tpu_torch.ops.row_stats import (
     row_absmax,
     row_absmax_plain,
     row_stats_plain,
-    slice_groups,
 )
-from unitspeech_tpu_torch.parallel.mesh import QUEUED_DEEP
 
 PALLAS_MIN_TOKENS = 1024  # attention gate (unet.py RezeroAttention)
 
@@ -151,12 +160,7 @@ def fused_takes(cout: int, groups: int, tp=None) -> bool:
     groups: fused_resnet.takes at the global width and, on a model axis
     (tp, a parallel.ModelShard), at the rank's slice too (whole groups a
     rank)."""
-    if not fused_resnet.takes(cout, groups):
-        return False
-    if tp is None:
-        return True
-    g = slice_groups(groups, tp)
-    return bool(g) and cout % tp.size == 0 and fused_resnet.takes(cout // tp.size, g)
+    return fused_resnet.takes(cout, groups) and slice_takes(cout, groups, tp)
 
 
 def _group_norm_lowmem(x, groups, scale, bias, stats, eps=1e-5, seq=None):
@@ -245,7 +249,9 @@ class ResnetBlock(nn.Module):
         if route in ("k1", "k8"):
             self.packed = pack_block_weights(w1, w2, wres)
         elif route == "k9":
-            self.packed = pack_block_weights_i8(w1, self.i8pre_weights, wres)
+            # conv1 in bf16 where the block's global Cin > Cout (JAX's hybrid)
+            cin, cout = self.widths()
+            self.packed = pack_block_weights_i8(w1, self.i8pre_weights, wres, cin > cout)
 
     def quantize_int8(self):
         """Quantize both conv kernels once for the int8 routes: inference
@@ -259,14 +265,15 @@ class ResnetBlock(nn.Module):
         """The JAX ResnetBlock's routing (unet.py:321-401): "k1" (the fused
         kernel at F % 8 == 0 where it takes the widths), "k9" / "k8" (the
         whole-layer deep kernels), "flat" (deep-stage rows), or "blocks"
-        (plain Blocks); on a model axis at the global widths, K1 where it
-        also takes the rank's slice (fused_takes)."""
+        (plain Blocks); T the global frames; on a model axis at the global
+        widths, K1, K8 and K9 where they also take the rank's slice
+        (fused_takes, slice_takes)."""
         cin, cout = self.widths()
         if use_kernels and fused_kernel_shape(f) and fused_takes(cout, self.groups, self.tp):
             return "k1"
         if not self.flat:
             return "blocks"
-        deep = deep_route(t, f, cin, cout, use_int8, use_deep, use_i8pre, self.groups)
+        deep = deep_route(t, f, cin, cout, use_int8, use_deep, use_i8pre, self.groups, self.tp)
         return {"i8": "k9", "bf16": "k8", None: "flat"}[deep]
 
     def forward(self, x, mask, t_emb, dtype, use_kernels, pre_masked=False, use_int8=False,
@@ -283,21 +290,19 @@ class ResnetBlock(nn.Module):
         route = self.route(t if seq is None else seq.t, f, use_kernels, use_int8, use_deep,
                            use_i8pre)
         # the FiLM bias: the rank's columns where the route works on them
-        bias_t = self.mlp(mish(t_emb), dtype=dtype, gather=route not in ("k1", "flat"))
+        bias_t = self.mlp(mish(t_emb), dtype=dtype,
+                          gather=route not in ("k1", "k8", "k9", "flat"))
         if route == "flat":
             return self._flat(x, mask, bias_t, dtype, use_kernels, pre_masked, use_int8, seq)
-        if (seq is not None or tp is not None) and route not in ("k1", "blocks"):
-            raise NotImplementedError(f"ResnetBlock route {route!r} on a seq or model slice: "
-                                      f"{QUEUED_DEEP}")
         if route in ("k1", "k8", "k9"):
             c1, c2 = self.block1.conv, self.block2.conv
             fn, extra = fused_resnet_block, {"seq": seq, "model": tp}
             if route == "k8":
-                fn, extra = fused_resnet_block_deep, {}
+                fn = fused_resnet_block_deep
             elif route == "k9":
-                fn, extra = fused_resnet_block_deep_i8, {
-                    "wq": self.i8pre_weights,
-                    "lens_rows": None if lens_rows is None else lens_rows()}
+                fn = fused_resnet_block_deep_i8
+                extra.update(wq=self.i8pre_weights,
+                             lens_rows=None if lens_rows is None else lens_rows())
             # K1 and K8 read one packing, K9 its own: a call that routes
             # elsewhere (at another F than packed for) packs on the spot
             same = ("k9",) if route == "k9" else ("k1", "k8")
@@ -485,6 +490,8 @@ class Downsample(nn.Module):
         self.packed = None
 
     def pack(self):
+        """On a model axis the rank's columns, where K11a takes them."""
+        self.packed = None
         if kernel_takes(*self.conv.kernel.shape[2:]):
             self.packed = pack_downsample_weight(self.conv.kernel)
 
@@ -508,6 +515,8 @@ class Upsample(nn.Module):
         self.packed = None
 
     def pack(self):
+        """On a model axis the rank's columns, where K11b takes them."""
+        self.packed = None
         if kernel_takes(*self.conv.kernel.shape[2:]):
             self.packed = pack_upsample_weight(self.conv.kernel)
 
@@ -618,14 +627,22 @@ class GradLogPEstimator2d(nn.Module):
         walk("final_packed", self.final_packed)
         return out
 
+    def resamples(self, layer, h, i, seq, gate) -> bool:
+        """Whether the Downsample / Upsample `layer` of stage i (C =
+        dims[i]) on input h runs K11: use_resample, the JAX gate at the
+        global frames (seq: h is a frame slice) and the kernel's widths, on
+        a model axis at the rank's columns too; else the library resample."""
+        c = self.dims[i]
+        t = h.shape[1] if seq is None else seq.t
+        tp = layer.conv.tp
+        return bool(self.use_resample and gate(t, h.shape[2], c) and kernel_takes(c, c)
+                    and (tp is None or (c % tp.size == 0 and kernel_takes(c, c // tp.size))))
+
     def forward(self, x, mask, mu, t, spk_emb, seq=None):
         """seq: a parallel.FrameSlice; x, mask and mu hold this rank's frames
         of the sample (the module docstring), the score too. A model-sharded
         estimator (shard_params_tp) takes every input and gives every
         output whole."""
-        if ((seq is not None or self.tp is not None)
-                and (self.use_deep or self.use_i8pre_deep or self.use_resample)):
-            raise NotImplementedError(f"the estimator on a seq or model slice: {QUEUED_DEEP}")
         dt, uk = self.dtype, self.use_kernels
         seqs = [seq]  # the frame slice of every level
         for _ in self.dims[1:]:
@@ -672,12 +689,11 @@ class GradLogPEstimator2d(nn.Module):
             hiddens.append(h)
             if i < n_res - 1:
                 down = getattr(self, f"down_{i}_down")
-                if (self.use_resample and supports_downsample(h.shape[1], h.shape[2],
-                                                              self.dims[i])
-                        and kernel_takes(self.dims[i], self.dims[i])):
+                if self.resamples(down, h, i, sq, supports_downsample):
                     # the kernel masks its input rows: no h * mk pass
                     h = fused_downsample_conv(h.to(dt), mk, down.conv.kernel, down.conv.bias,
-                                              packed=down.packed, lens=frames(i, mk))
+                                              packed=down.packed, lens=frames(i, mk), seq=sq,
+                                              model=down.conv.tp)
                 else:
                     hin = h if attn.uses_kernel(h_in, uk, sq) else h * mk
                     h = down(hin, dt, sq)
@@ -704,12 +720,12 @@ class GradLogPEstimator2d(nn.Module):
             h_in = h
             h = attn(h, mk, dt, uk, sq)
             up = getattr(self, f"up_{i}_up")
-            if (self.use_resample and supports_upsample(h.shape[1], h.shape[2], self.dims[i])
-                    and kernel_takes(self.dims[i], self.dims[i])):
+            if self.resamples(up, h, i, sq, supports_upsample):
                 # up stage i's input is one level deeper than down stage i's:
                 # its mask is that of level i + 1
                 h = fused_upsample_conv(h.to(dt), mk, up.conv.kernel, up.conv.bias,
-                                        packed=up.packed, lens=frames(i + 1, mk))
+                                        packed=up.packed, lens=frames(i + 1, mk), seq=sq,
+                                        model=up.conv.tp)
             else:
                 hin = h if attn.uses_kernel(h_in, uk, sq) else h * mk
                 h = up(hin, dt, sq)

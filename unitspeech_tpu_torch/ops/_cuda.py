@@ -56,9 +56,14 @@ _SIGNATURES = {
     "us_i8_quantize_rows": ([_P] * 5 + [_I] * 4 + [_P], _I),
     "us_resnet_conv3x3_i8": ([_P, _P, _I] + [_P] * 6 + [_I] * 5 + [_P], _I),
     "us_i8_glue": ([_P, _P, _I, _I, _F] + [_P] * 8 + [_I] * 4 + [_P], _I),
-    "us_downsample_conv": ([_P] * 5 + [_I] * 6 + [_P], _I),
-    "us_upsample_conv": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    "us_downsample_conv": ([_P] * 5 + [_I] * 8 + [_P], _I),
+    "us_upsample_conv": ([_P] * 5 + [_I] * 8 + [_P], _I),
     "us_resample_plan": ([_I] * 7 + [_P], _I),
+    "us_i8_absmax": ([_P] * 3 + [_I] * 4 + [_P], _I),
+    "us_i8_quantize_scaled": ([_P] * 3 + [_I] + [_P] * 2 + [_I] * 3 + [_P], _I),
+    "us_i8_glue_h": ([_P, _P, _I, _I, _F] + [_P] * 6 + [_I] * 5 + [_P], _I),
+    "us_i8_glue_q": ([_P, _P, _I, _P, _P] + [_I] * 3 + [_P], _I),
+    "us_resnet_conv3x3_i8_halo": ([_P, _P, _I] + [_P] * 6 + [_I] * 5 + [_P], _I),
     "us_resnet_block_i8": ([_P] * 28 + [_I] * 7 + [_F, _I, _P], _I),
     "us_i8_tile_copy": ([_P] * 5 + [_I] * 5 + [_P], _I),
     "us_resnet_conv3x3_i8_tiles": ([_P, _P, _I] + [_P] * 5 + [_I] * 6 + [_P], _I),

@@ -17,6 +17,18 @@ rounded once to the activation dtype.
 The gates `supports_downsample` / `supports_upsample` are the JAX
 package's own (TPU tilings that fit VMEM with 8-aligned blocks); the port
 keeps them so that it routes the sites JAX routes.
+
+On a frame slice of the seq axis (`seq=`, a parallel.FrameSlice; slices
+start on 8-frame boundaries, so every stride-2 output is whole) each
+kernel reads a halo'd input: the downsample the one frame before the slice
+(output frame j reads input frames 2 j - 1 .. 2 j + 1), the upsample one
+frame a side; the frames arrive masked by the sender (zeros at the global
+ends), `lens` masks the slice's own (the kernels' hb / ha frames before and
+after the slice). On a column slice of the model axis (`model=`, a
+parallel.ModelShard) the kernel and bias are the rank's Cout columns,
+packed from them, and the output is gathered over the axis. The gates
+read the global frames and widths; `kernel_takes` and `tile_cols` apply
+to the rank's slice.
 """
 
 from __future__ import annotations
@@ -167,8 +179,14 @@ def pack_upsample_weight(kernel):
     return swizzle128(w).contiguous()
 
 
-def _resample_cuda(fn, what, up, x, bias, packed, lens, rows_out):
+HALO = {False: (1, 0), True: (1, 1)}  # (frames before, after) the slice a kernel reads
+
+
+def _resample_cuda(fn, what, up, x, bias, packed, lens, rows_out, halo=(0, 0)):
+    """Launch K11a / K11b (fn) on x (B, T, F, Cin); halo: (before, after),
+    the frames of a halo'd x around the slice's T."""
     b, t, f, cin = x.shape
+    t -= sum(halo)
     cout = bias.shape[0]
     if x.dtype != torch.bfloat16:
         raise ValueError(f"{what}: the kernel takes bf16 activations, got {x.dtype}")
@@ -193,19 +211,27 @@ def _resample_cuda(fn, what, up, x, bias, packed, lens, rows_out):
         raise ValueError(f"{what}: lens must be contiguous")
     out = torch.empty((b, rows_out, cout), dtype=x.dtype, device=dev)
     _cuda.check(fn(x.data_ptr(), packed.data_ptr(), bias.data_ptr(), lens.data_ptr(),
-                   out.data_ptr(), b, t, f, cin, cout, bn, _cuda.stream(x)), what)
+                   out.data_ptr(), b, t, f, cin, cout, bn, *halo, _cuda.stream(x)), what)
     return out
 
 
-def fused_downsample_conv(x, mask, kernel, bias, *, packed=None, lens=None):
+def fused_downsample_conv(x, mask, kernel, bias, *, packed=None, lens=None, seq=None,
+                          model=None):
     """Masked conv3x3 stride 2: x (B, T, F, Cin), T and F even, mask
     (B, T, 1, 1), kernel (3, 3, Cin, Cout) -> (B, T/2, F/2, Cout). packed:
     the kernel from pack_downsample_weight, lens: (B,) int32 valid frames of
     `mask`. The estimator makes both ahead (once at load, once per call);
     the kernel launch takes them, made here from `kernel` and `mask` when
     absent. CUDA tensors launch the kernel, CPU tensors take
-    downsample_conv_plain."""
+    downsample_conv_plain. seq: x is a frame slice of the seq axis (mask
+    and lens its frames'); model: kernel and bias are this rank's Cout
+    columns of the model axis, the output every channel (resample_sharded)."""
     b, t, f, _ = x.shape
+    if seq is not None or model is not None:
+        out = resample_sharded(False, x, mask, kernel, bias, packed, lens, seq, model)
+        if x.is_cuda:
+            fused_downsample_conv.launches += 1
+        return out
     if _cuda.route(x, "fused_downsample_conv"):
         out = _resample_cuda(
             _cuda.lib().us_downsample_conv, "fused_downsample_conv", False, x, bias,
@@ -219,12 +245,19 @@ def fused_downsample_conv(x, mask, kernel, bias, *, packed=None, lens=None):
 fused_downsample_conv.launches = 0
 
 
-def fused_upsample_conv(x, mask, kernel, bias, *, packed=None, lens=None):
+def fused_upsample_conv(x, mask, kernel, bias, *, packed=None, lens=None, seq=None,
+                        model=None):
     """Masked ConvTranspose 4x4 stride 2 (flax padding 2): x (B, T, F, Cin),
     mask (B, T, 1, 1), kernel (4, 4, Cin, Cout) unflipped -> (B, 2T, 2F,
-    Cout). packed (pack_upsample_weight) and lens as fused_downsample_conv's.
-    CUDA tensors launch the kernel, CPU tensors take upsample_conv_plain."""
+    Cout). packed (pack_upsample_weight), lens, seq and model as
+    fused_downsample_conv's. CUDA tensors launch the kernel, CPU tensors
+    take upsample_conv_plain."""
     b, t, f, _ = x.shape
+    if seq is not None or model is not None:
+        out = resample_sharded(True, x, mask, kernel, bias, packed, lens, seq, model)
+        if x.is_cuda:
+            fused_upsample_conv.launches += 1
+        return out
     if _cuda.route(x, "fused_upsample_conv"):
         out = _resample_cuda(
             _cuda.lib().us_upsample_conv, "fused_upsample_conv", True, x, bias,
@@ -236,6 +269,56 @@ def fused_upsample_conv(x, mask, kernel, bias, *, packed=None, lens=None):
 
 
 fused_upsample_conv.launches = 0
+
+
+def resample_halo_plain(up: bool, xh, lens, kernel, bias, halo):
+    """K11a / K11b on a halo'd input, plain: xh (B, before + T + after, F,
+    Cin) with halo = (before, after) frames of the neighbours around the
+    slice's T, read as they are; the slice's frames at/after lens (B,)
+    read zero -> the slice's (B, T/2, F/2, Cout) or (B, 2T, 2F, Cout) in
+    xh's dtype."""
+    before, after = halo
+    t = xh.shape[1] - before - after
+    inner = torch.arange(t, device=xh.device)[None, :] < lens[:, None]
+    one = torch.ones((xh.shape[0], before), dtype=torch.bool, device=xh.device)
+    valid = torch.cat([one, inner, one[:, :after]], dim=1)
+    xm = (xh * valid[:, :, None, None].to(xh.dtype)).to(torch.float32).permute(0, 3, 1, 2)
+    if up:
+        w = conv_transpose_weight(kernel.to(xh.dtype).to(torch.float32))
+        y = F.conv_transpose2d(xm, w, bias.to(torch.float32), stride=2, padding=1)
+        y = y[:, :, 2 * before:2 * before + 2 * t]
+    else:
+        w = kernel.to(xh.dtype).to(torch.float32).permute(3, 2, 0, 1)
+        y = F.conv2d(xm, w, bias.to(torch.float32), stride=2, padding=(0, 1))
+    return y.permute(0, 2, 3, 1).to(xh.dtype)
+
+
+def resample_sharded(up: bool, x, mask, kernel, bias, packed, lens, seq, model):
+    """K11a (up False) or K11b on a frame slice of the seq axis and / or a
+    column slice of the model axis: on a frame slice the kernel over x's
+    halo'd frames (HALO[up], sent masked by `mask`; one collective), on a
+    column slice the rank's Cout columns gathered (one collective). CUDA
+    tensors launch the kernel (with the halo's frames on a frame slice),
+    CPU tensors take the plain twins."""
+    what = "fused_upsample_conv" if up else "fused_downsample_conv"
+    b, t, f, _ = x.shape
+    if lens is None:
+        lens = frames_from_mask(mask)
+    halo = (0, 0) if seq is None else HALO[up]
+    xin = x if seq is None else seq.halo(x, *halo, mask=mask)
+    rows = 4 * t * f if up else (t // 2) * (f // 2)
+    if _cuda.route(x, what):
+        lib = _cuda.lib()
+        if packed is None:
+            packed = (pack_upsample_weight if up else pack_downsample_weight)(kernel)
+        out = _resample_cuda(lib.us_upsample_conv if up else lib.us_downsample_conv, what, up,
+                             xin, bias, packed, lens, rows, halo)
+        out = out.reshape(b, 2 * t if up else t // 2, 2 * f if up else f // 2, -1)
+    elif seq is None:
+        out = (upsample_conv_plain if up else downsample_conv_plain)(x, mask, kernel, bias)
+    else:
+        out = resample_halo_plain(up, xin, lens, kernel, bias, halo)
+    return out if model is None else model.gather(out)
 
 
 def resample_plan(up: bool, b: int, t: int, f: int, cin: int, cout: int) -> dict:

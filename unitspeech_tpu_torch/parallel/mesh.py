@@ -26,7 +26,9 @@ has one non-zero term). Every axis gathers by one rule, `_sum_exact`: the
 sum runs on the buffer's bits as int32 where its bytes allow (exact for
 every dtype, -0.0 and NaNs kept), else in f32 (integers in int64). Every
 collective of the seq axis adds one to `SeqShard.collectives`, as a
-kernel wrapper counts its launches.
+kernel wrapper counts its launches. A halo carries any dtype: its frames
+travel as f32, exact for bf16 and for int8 (K9's quantized activations,
+whose neighbours' frames arrive quantized with the one global scale).
 
 A `ModelShard` is one rank's place on `model`, the tensor-parallel axis
 (parallel/tp.py): a layer holds its rank's output-channel columns of every
@@ -52,10 +54,6 @@ import torch.distributed as dist
 
 AXES = ("data", "seq", "model")
 SEQ_UNIT = 8  # frames: the seq slices' boundaries, 2 ** (len(dim_mults) - 1)
-QUEUED_DEEP = ("the fused deep-stage configuration under 'seq' and 'model' (use_deep / "
-               "use_i8pre_deep: K8's and K9's chains; use_resample: K11's halos at 8-frame "
-               "boundaries and its Cout slices) is the next module slice of the port (ROADMAP), "
-               "not ported yet")
 
 
 def make_mesh(data: Optional[int] = None, seq: int = 1, model: int = 1):
@@ -427,6 +425,14 @@ class ModelShard:
             return t
         ModelShard.collectives += 1
         return _reduced(t, self.group, dtype=torch.float32 if t.is_floating_point() else None)
+
+    def all_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum of t over the axis (K9's activation maxima
+        of a column slice), a new tensor outside autograd; counted."""
+        if self.group is None:
+            return t
+        ModelShard.collectives += 1
+        return _reduced(t, self.group, dist.ReduceOp.MAX)
 
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
         """Overwrite every tensor with the axis's first rank's, in place, as
