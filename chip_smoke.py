@@ -23,6 +23,24 @@ kernel vocoder, each run with the exact kernel launches its path makes;
 then K4 at C = 1024 (its weights streamed through the ring) alone and in a
 forced 880-frame request, the first bucket whose F = 10 stage passes the
 attention gate, against the plain path with exact K4 launches.
+On the card every request at world 1 runs its sampler as CUDA graphs, one
+replay a step (infer/graphs.py), and the fine-tune as one replay an
+optimizer step. A replay calls no kernel wrapper, so the launch counts are
+counted at capture and multiplied by the replays: a capture takes the
+launches its wrappers counted back off the counters (it ran nothing) and
+every replay adds them again, so every exact-launch check below counts the
+launches that ran, eager or replayed; a replay hook counts the estimator's
+calls by rows as the forward pre-hook counts an eager call. Then the graphs
+phase: on the serving default and on the fused deep configuration, a batch
+forced to the 344-frame bucket at B = 1 and 8 with ddpm@50 and
+dpm2:cs2@25, graphed against the eager steps (Synthesizer(graphs=False)):
+the mels bit-equal, the launches exact on both, one estimator call a step
+by rows, two seeds apart; per request, eager and graphed, the host's
+launch calls (kernel and graph launches, copies, sets: torch.profiler's
+runtime records), device busy time and records, the median wall of 3 and
+the idle share; the captures' host seconds and the graphs' share of the
+card's reserved memory; then 25 full-width fine-tune steps graphed and
+eager, their losses and weights bit-equal, and each one's ms a step.
 Then the adapt path: `cli finetune` at full width on the card (a synthetic
 6 s reference with sidecar units and speaker embedding, no kernel launched:
 the fine-tune trains the plain estimator), the adapted decoder served
@@ -875,35 +893,12 @@ RUNS = [("kernels", "bf16", "bfloat16", True, {}),
 
 
 def _kernel_wrappers():
-    from unitspeech_tpu_torch.ops import (
-        aa_snake,
-        fused_attention,
-        fused_resnet,
-        fused_resnet_deep,
-        mas,
-        probes,
-        resample,
-        row_stats,
-    )
+    """The wrappers of KERNELS by name (ops.kernel_wrappers), each with its
+    launch counter."""
+    from unitspeech_tpu_torch.ops import kernel_wrappers
 
-    return {"fused_resnet_block": fused_resnet.fused_resnet_block,
-            "fused_final_block": fused_resnet.fused_final_block,
-            "row_stats": row_stats.row_stats,
-            "fused_rezero_attention": fused_attention.fused_rezero_attention,
-            "row_absmax": row_stats.row_absmax,
-            "fused_resnet_block_deep": fused_resnet_deep.fused_resnet_block_deep,
-            "fused_resnet_block_deep_i8": fused_resnet_deep.fused_resnet_block_deep_i8,
-            "fused_downsample_conv": resample.fused_downsample_conv,
-            "fused_upsample_conv": resample.fused_upsample_conv,
-            "fused_aa_snake_conv": aa_snake.fused_aa_snake_conv,
-            "fused_aa_snake": aa_snake.fused_aa_snake,
-            "fused_resnet_block_int8": fused_resnet.fused_resnet_block_int8,
-            "fused_resnet_block_deep_int8": fused_resnet_deep.fused_resnet_block_deep_int8,
-            "transcendental_chain": probes.transcendental_chain,
-            "row_select": probes.row_select, "selection_matmul": probes.selection_matmul,
-            "interleave_rows": probes.interleave_rows,
-            "resnet_conv3x3": fused_resnet.resnet_conv3x3, "resnet_out": fused_resnet.resnet_out,
-            "maximum_path": mas.maximum_path}
+    wrappers = kernel_wrappers()
+    return {name: wrappers[name] for name in KERNELS}
 
 
 def _counted(what, fn, want):
@@ -1565,21 +1560,27 @@ TTS_STRIDED = [("ddpm:cs2", 50), ("dpm2:cs2", 25)]
 @contextlib.contextmanager
 def _estimator_rows(torch):
     """Inside: every GradLogPEstimator2d call's batch rows appended to the
-    list it yields (a global forward pre-hook, which costs the host a little
-    on every module call: the walls it runs under are not the request's)."""
+    list it yields, in order: an eager call's by a global forward pre-hook
+    (which costs the host a little on every module call: the walls it runs
+    under are not the request's), a CUDA graph replay's by a replay hook
+    (infer/graphs.py)."""
+    from unitspeech_tpu_torch.infer.graphs import register_replay_hook
     from unitspeech_tpu_torch.models.unet import GradLogPEstimator2d
 
     rows = []
 
     def hook(mod, args):
-        if isinstance(mod, GradLogPEstimator2d):
+        # a capture records the call and runs nothing: its replays count
+        if isinstance(mod, GradLogPEstimator2d) and not torch.cuda.is_current_stream_capturing():
             rows.append(int(args[0].shape[0]))
 
-    handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+    handles = (torch.nn.modules.module.register_module_forward_pre_hook(hook),
+               register_replay_hook(rows.append))
     try:
         yield rows
     finally:
-        handle.remove()
+        for h in handles:
+            h.remove()
 
 
 def _spec_rows(sampler, steps):
@@ -2062,6 +2063,211 @@ def serving(torch, dev, tmp, ckpt_path, per_call, smi):
     torch.cuda.empty_cache()
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"serving phase: {res['phase_s']:.1f} s", flush=True)
+    return res
+
+
+# The graphs phase: the sampler as CUDA graph replays (infer/graphs.py)
+# against its eager steps (Synthesizer(graphs=False)) on the serving default
+# and the fused deep configuration, a batch forced to the 344-frame bucket
+# at B = 1 and 8 with each of GRAPH_SPECS, and the fine-tune's captured step
+# (train/finetune.py FinetuneLoop) against its eager steps at full width
+GRAPH_MODES = [("int8", {"use_int8_deep": True}),
+               ("deep_i8", {"use_int8_deep": True, "use_deep": True, "use_resample": True,
+                            "use_i8pre_deep": True})]
+GRAPH_SPECS = [("ddpm", STEPS), ("dpm2:cs2", 25)]
+GRAPH_BATCHES = (1, 8)
+GRAPH_FT_ITERS = 25
+GRAPH_SEED = 90
+
+
+def _graph_times(torch, dev, request, b):
+    """Per request of a batch of b: the median wall of 3 calls (each ends
+    with its waveforms on the host), then one call under torch.profiler:
+    device busy ms, device records, the host's calls that put work on the
+    card (kernel and graph launches, copies, sets) and its graph launches;
+    the idle share is 1 - busy / wall."""
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        request()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    act = kernel_breakdown.device_activity(request, 1, host=True, warmup=0)
+    wall = float(np.median(walls))
+    return {"wall_ms": wall / b, "device_ms": act["busy_ms"] / b,
+            "device_launches": act["launches"] / b, "host_calls": act["host_calls"] / b,
+            "graph_launches": act["graph_launches"] / b,
+            "idle_share": 1.0 - act["busy_ms"] / wall}
+
+
+def _graphs_finetune(torch, dev, cfg, base, smi):
+    """GRAPH_FT_ITERS fine-tune steps at full width (bf16, random inputs
+    at the 344-frame bucket, the parallel phase's shapes) eager and graphed
+    on one seed, under deterministic algorithms (cuDNN's nondeterministic
+    convs would part any two runs): the losses and adapted weights
+    bit-equal; each run's wall and its median ms a step from step 6 on
+    (CUDA events in the step hook)."""
+    from unitspeech_tpu_torch.ops.masking import generate_path, sequence_mask
+    from unitspeech_tpu_torch.train.finetune import finetune_decoder
+
+    n_feats = cfg.decoder.n_feats
+    t_y, t_x = FRAMES, FRAMES // 4
+    frng = np.random.default_rng(GRAPH_SEED)
+    cond_x = torch.from_numpy((0.1 * frng.standard_normal((1, t_x, n_feats)))
+                              .astype(np.float32)).to(dev)
+    y = torch.from_numpy(np.tanh(frng.standard_normal((1, t_y, n_feats)))
+                         .astype(np.float32)).to(dev)
+    y_len = torch.tensor([t_y - 20], device=dev)
+    spk = frng.standard_normal((1, cfg.decoder.spk_emb_dim)).astype(np.float32)
+    spk = torch.from_numpy(spk / np.linalg.norm(spk)).to(dev)
+    attn = generate_path(torch.full((1, t_x), 4.0, device=dev),
+                         sequence_mask(torch.tensor([t_x], device=dev), t_x)[:, :, None]
+                         * sequence_mask(y_len, t_y)[:, None, :])
+    flags = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs = {}
+    try:
+        for name, graphed in (("eager", False), ("graphed", True)):
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(GRAPH_FT_ITERS)]
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, losses = _counted(f"fine-tune {name}", lambda: finetune_decoder(
+                cfg.decoder, base, cond_x, y, y_len, attn, spk, segment_size=cfg.out_size,
+                n_iters=GRAPH_FT_ITERS, learning_rate=cfg.finetune.learning_rate,
+                grad_clip=cfg.finetune.grad_clip, graphs=graphed,
+                generator=torch.Generator(device=dev).manual_seed(GRAPH_SEED),
+                step_hook=lambda i: events[i].record()), {k: 0 for k in KERNELS})
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            steps = [events[i - 1].elapsed_time(events[i]) for i in range(6, GRAPH_FT_ITERS)]
+            runs[name] = (state, losses, {"wall_s": wall, "ms_per_step": float(np.median(steps))})
+    finally:
+        torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags[2:]
+    (se, le, te), (sg, lg, tg) = runs["eager"], runs["graphed"]
+    equal = bool(np.array_equal(le, lg)) and all(torch.equal(se[k], sg[k]) for k in se)
+    moved = float(max((sg[k] - base[k].to(dev)).abs().max() for k in base))
+    out = {"iters": GRAPH_FT_ITERS, "bit_equal": equal, "eager": te, "graphed": tg,
+           "losses": lg.tolist(), "max_moved": moved, "card": smi}
+    print(f"  fine-tune, {GRAPH_FT_ITERS} steps at full width (bf16, deterministic "
+          f"algorithms): graphed vs eager losses and weights bit-equal: {equal}; ms a step "
+          f"(median from step 6) eager {te['ms_per_step']:.2f}, graphed "
+          f"{tg['ms_per_step']:.2f}; wall {te['wall_s']:.2f} / {tg['wall_s']:.2f} s "
+          f"(the graphed run's includes its 3 eager steps and the capture); {smi}", flush=True)
+    if not equal or not np.isfinite(lg).all() or moved == 0.0:
+        raise AssertionError(f"fine-tune graphs: bit-equal {equal}, moved {moved}, losses {lg}")
+    return out
+
+
+def graphs(torch, dev, tmp, ckpt_path, per_call, smi):
+    """The sampler as CUDA graph replays on the card: for each mode of
+    GRAPH_MODES a Synthesizer (graphs on, its eager twin graphs=False on the
+    same modules); for each spec of GRAPH_SPECS and B of GRAPH_BATCHES a
+    batch forced to the 344-frame bucket: the eager mel and the graphed mel
+    (the first graphed request captures each step kind of its shape), each
+    with exactly steps x the path's per-call launches (the captures'
+    launches taken back, the replays' added) and the graphed one with one
+    estimator call a step by rows (3B full, B cheap; a replay hook), bit
+    for bit equal; a second seed's mel differs; then per request, eager and
+    graphed, with the vocoder: the host's launch calls, device busy time
+    and records, the median wall of 3 and the idle share (_graph_times);
+    the captures' host seconds and the graph pool's memory (the card's
+    reserved memory with the mode's graphs less without). Last the
+    fine-tune (_graphs_finetune). Returns the measurements."""
+    import gc
+
+    from unitspeech_tpu_torch.infer import graphs as tgraphs
+    from unitspeech_tpu_torch.infer.tts import Synthesizer, TTSModels, forced_durations
+    from unitspeech_tpu_torch.text import phonemes_to_sequence
+    from unitspeech_tpu_torch.utils import artifacts
+    from unitspeech_tpu_torch.utils.params import config_from_dict
+
+    t_phase = time.perf_counter()
+    ckpt = artifacts.read(ckpt_path)
+    cfg = config_from_dict(ckpt["config"])
+    ids = [phonemes_to_sequence(t) for t in _ipa_sentences(np.random.default_rng(GRAPH_SEED),
+                                                             max(GRAPH_BATCHES), 4, 12)]
+    dur = [forced_durations(len(i), FRAMES)[0] for i in ids]
+    res = {"card": smi, "modes": {}}
+    print(f"graphs: the sampler as CUDA graph replays against its eager steps, a batch forced "
+          f"to {FRAMES} frames, dual CFG 1.0/1.0; {smi}", flush=True)
+    for mode, routes in GRAPH_MODES:
+        synth = Synthesizer(TTSModels.from_checkpoint(ckpt, device=dev, **routes))
+        eager = dataclasses.replace(synth, graphs=False)
+        cache = tgraphs.graphs_for(synth.models.decoder, synth.models.spk_emb)
+        if cache is None:
+            raise AssertionError("graphs: the Synthesizer takes no CUDA graphs on the card")
+        out = res["modes"][mode] = {}
+        for spec, steps in GRAPH_SPECS:
+            for b in GRAPH_BATCHES:
+                what = f"{mode} {spec}@{steps} B = {b}"
+                kw = dict(durations=dur[:b], diffusion_steps=steps, text_gradient_scale=1.0,
+                          spk_gradient_scale=1.0, sampler=spec)
+                want = {k: steps * per_call[mode][k] if k in ESTIMATOR_KERNELS else 0
+                        for k in KERNELS}
+                want_rows = {r * b: n for r, n in _spec_rows(spec, steps).items()}
+
+                def mel(s, seed, b=b, kw=kw):
+                    return s.synthesize_mel_batch(
+                        ids[:b], torch.Generator(device=dev).manual_seed(seed), **kw)[0]
+
+                ref = _counted(f"{what} eager", lambda: mel(eager, GRAPH_SEED), want)
+                captures, capture_s = cache.captures, cache.capture_s
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                with _estimator_rows(torch) as rows:
+                    got = _counted(f"{what} graphed", lambda: mel(synth, GRAPH_SEED), want)
+                torch.cuda.synchronize(dev)
+                first_s = time.perf_counter() - t0
+                got_rows = {r: rows.count(r) for r in sorted(set(rows), reverse=True)}
+                if got_rows != want_rows:
+                    raise AssertionError(f"{what}: estimator calls by rows {got_rows}, expected "
+                                         f"{want_rows}")
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"{what}: the graphed mel differs from the eager one "
+                                         f"(max |diff| {(got - ref).abs().max().item()})")
+                if torch.equal(mel(synth, GRAPH_SEED + 1), ref):
+                    raise AssertionError(f"{what}: two seeds gave one mel")
+                rec = {"steps": steps, "batch": b, "bit_equal": True, "rows": want_rows,
+                       "launches": {k: v for k, v in want.items() if v},
+                       "captures": cache.captures - captures,
+                       "capture_s": cache.capture_s - capture_s, "first_request_s": first_s}
+                for name, s in (("eager", eager), ("graphed", synth)):
+                    rec[name] = _graph_times(torch, dev, lambda s=s, b=b, kw=kw: s.synthesize_batch(
+                        ids[:b], torch.Generator(device=dev).manual_seed(GRAPH_SEED), **kw), b)
+                out[f"{spec} B={b}"] = rec
+                e, g = rec["eager"], rec["graphed"]
+                print(f"  {what}: graphed mel bit-equal to eager, launches exact "
+                      f"({sum(want.values())}), {rec['captures']} captures in "
+                      f"{rec['capture_s']:.3f} s (first request {first_s:.2f} s); per request, "
+                      f"eager / graphed: host launch calls {e['host_calls']:.0f} / "
+                      f"{g['host_calls']:.0f} ({g['graph_launches']:.1f} graph launches), device "
+                      f"{e['device_ms']:.1f} / {g['device_ms']:.1f} ms ({e['device_launches']:.0f}"
+                      f" / {g['device_launches']:.0f} records), wall (median of 3) "
+                      f"{e['wall_ms']:.1f} / {g['wall_ms']:.1f} ms, idle "
+                      f"{e['idle_share']:.3f} / {g['idle_share']:.3f}; {smi}", flush=True)
+        del eager
+        gc.collect()
+        torch.cuda.empty_cache()
+        with_graphs = torch.cuda.memory_reserved(dev)
+        out["graphs"] = sum(len(e.graphs) for e in cache.entries.values())
+        out["captures"], out["capture_s"] = cache.captures, cache.capture_s
+        cache.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["pool_mib"] = (with_graphs - torch.cuda.memory_reserved(dev)) / 2 ** 20
+        print(f"  {mode}: {out['graphs']} graphs from {out['captures']} captures in "
+              f"{out['capture_s']:.2f} s; the graphs and their static state hold "
+              f"{out['pool_mib']:.1f} MiB of the card's reserved memory; {smi}", flush=True)
+        del synth, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["finetune"] = _graphs_finetune(torch, dev, cfg, ckpt["decoder"], smi)
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"graphs phase: {res['phase_s']:.1f} s", flush=True)
     return res
 
 
@@ -4693,6 +4899,8 @@ def main(argv=None) -> int:
         paths = compare_paths(torch, dev, ckpt, per_call)
         paths["long_bucket"] = long_bucket(torch, dev, ckpt, per_call)
         stamp("serve and paths")
+        graphed = graphs(torch, dev, tmp, ckpt, per_call, smi)
+        stamp("graphs")
         adapted, adapted_launches = adapt(torch, dev, tmp, ckpt, per_call, smi)
         front, launches["grapheme"] = frontends(torch, dev, tmp, ckpt, per_call, smi)
         stamp("adapt and frontends")
@@ -4727,6 +4935,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "records": records, "paths": paths, "adapt": adapted,
                        "frontends": front, "voice": voice, "serving": served,
+                       "graphs": graphed,
                        "train": trained, "train2": trained2, "vocoder_gan": gan,
                        "eval": evaluated, "extras": extra, "elapsed_s": stamps,
                        "operator_tools": {"summary": ops, "results": ops_res},
@@ -4738,6 +4947,7 @@ def main(argv=None) -> int:
     print(json.dumps({"adapt": {k: v for k, v in adapted.items() if k != "losses"}}))
     print(json.dumps({"frontends": {k: v for k, v in front.items() if k != "losses"}}))
     print(json.dumps({"voice": voice}))
+    print(json.dumps({"graphs": graphed}))
     print(json.dumps({"serving": served}))
     print(json.dumps({"train": {k: v for k, v in trained.items() if k != "runs"}}))
     print(json.dumps({"train2": {k: v for k, v in trained2.items() if k != "runs"}}))
@@ -4760,6 +4970,7 @@ def main(argv=None) -> int:
     print(json.dumps({"operator_tools": ops}))
     print(json.dumps({"parallel": {k: v for k, v in par.items() if k != "launches_rank0"}}))
     print(json.dumps({"elapsed_s": stamps}))
+    print(f"chip_smoke.py: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from unitspeech_tpu_torch.config import MainConfig
+from unitspeech_tpu_torch.infer.graphs import graphs_for
 from unitspeech_tpu_torch.models.diffusion import UnitSpeech, parse_sampler_spec, sample
 from unitspeech_tpu_torch.models.duration import DurationPredictor
 from unitspeech_tpu_torch.models.encoder import Encoder
@@ -204,6 +205,10 @@ class Synthesizer:
     # None), (None, "seq", None) or ("data", "seq", None)
     mesh: Any = None
     sample_spec: Any = None
+    # on the card at world 1 the sampler runs each step as one CUDA graph
+    # replay (infer/graphs.py, the decoder's graphs); False runs the steps
+    # eagerly (the tests' and chip_smoke.py's reference)
+    graphs: bool = True
 
     def __post_init__(self):
         self._shard, self._seq = sample_shard(self.mesh, self.sample_spec)
@@ -284,9 +289,10 @@ class Synthesizer:
             cond_y.shape, generator, cond_y.device)
         # `sampler` is a spec ("ddpm" / "dpm2", optionally ":cs<k>"), parsed
         # here, the one sampler dispatch point, as in the JAX package
+        graphs = graphs_for(m.decoder, cond_y, shard, self._seq) if self.graphs else None
         mel = sample(m.decoder, sampler, z, y_mask, cond_y, spk, steps,
                      text_gradient_scale=tg, spk_gradient_scale=sg, generator=generator,
-                     noises=noises, shard=shard, seq_shard=self._seq)
+                     noises=noises, shard=shard, seq_shard=self._seq, graphs=graphs)
         return denormalize_mel(mel, m.mel_min, m.mel_max), attn
 
     def _align_sample_vocode(self, mu_x, x_mask, w_ceil, y_pad, steps, tg, sg, generator,
@@ -409,10 +415,18 @@ class Synthesizer:
     def warmup(self, token_lengths=(64,), frame_lengths=(344,), generator=None, **synth_kwargs):
         """Run the (token length x frame length) grid once through __call__
         with forced durations before serving, so the kernel builds, the
-        weight packs and the allocator's blocks for those shapes are paid
-        before the first request."""
+        weight packs, the allocator's blocks and, on the card, the sampler's
+        CUDA graphs for those shapes are paid before the first request."""
         for n_tok, frames in itertools.product(token_lengths, frame_lengths):
             self([1] * n_tok, generator, forced_total_frames=int(frames), **synth_kwargs)
+
+    def reserve_steps(self, steps: int) -> None:
+        """Size the sampler graphs' step tables for requests of up to `steps`
+        steps (SamplerGraphs.reserve): a warm-up of fewer steps then captures
+        graphs that such requests replay."""
+        graphs = graphs_for(self.models.decoder, self.models.spk_emb) if self.graphs else None
+        if graphs is not None:
+            graphs.reserve(steps)
 
     @torch.no_grad()
     def vocode(self, mel: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from unitspeech_tpu_torch.infer.graphs import graphs_for
 from unitspeech_tpu_torch.models.diffusion import parse_sampler_spec, sample
 from unitspeech_tpu_torch.ops.masking import (
     choose_bucket,
@@ -50,7 +51,8 @@ def voice_conversion(encoder, decoder, content, mel_len: int, spk_emb, mel_min, 
     Returns the denormalized mel (B, pad_len, F) f32, its first mel_len
     frames valid. The prior z and the DDPM's per-step noise come from
     `generator` (z first), or are injected: noise_z (B, pad_len, F),
-    noises (n_timesteps, B, pad_len, F)."""
+    noises (n_timesteps, B, pad_len, F). On the card the sampler replays
+    the decoder's CUDA graphs, as the Synthesizer's (infer/graphs.py)."""
     parse_sampler_spec(sampler)
     pad_len = vc_frames(mel_len, num_downsamplings, frame_buckets)
     b, t_c = content.shape[:2]
@@ -62,5 +64,6 @@ def voice_conversion(encoder, decoder, content, mel_len: int, spk_emb, mel_min, 
                                                         device=dev)
     mel = sample(decoder, sampler, z, y_mask, cond, spk_emb, n_timesteps,
                  text_gradient_scale=text_gradient_scale,
-                 spk_gradient_scale=spk_gradient_scale, generator=generator, noises=noises)
+                 spk_gradient_scale=spk_gradient_scale, generator=generator, noises=noises,
+                 graphs=graphs_for(decoder, cond))
     return denormalize_mel(mel, mel_min, mel_max)

@@ -3,9 +3,12 @@ unitspeech_tpu/models/diffusion.py; reference unitspeech.py:220-492).
 
 Dual classifier-free guidance runs as ONE 3-row estimator call per step
 (rows: text-unconditional, speaker-unconditional, conditional), combined
-with the reference's algebra. The JAX `lax.scan` is a Python loop here.
-Two samplers, named by a spec (`parse_sampler_spec`, dispatched by
-`sample`): the reference's stochastic DDPM and the JAX package's
+with the reference's algebra. Where the JAX package runs the reverse
+loop as one compiled `lax.scan`, a step here (`sampler_step`) reads every
+per-step number from device tables at a device step counter, so that the
+same step runs eagerly in a Python loop or, on the card, as one CUDA graph
+replay a step (infer/graphs.py). Two samplers, named by a spec
+(`parse_sampler_spec`, dispatched by `sample`): the reference's stochastic DDPM and the JAX package's
 DPM-Solver++(2M) `dpm2`, each with an optional guidance stride `:cs<k>`
 (CFG delta caching: the 3-row call on every k-th step, 1-row calls
 between). The training losses (forward diffusion, the score-matching
@@ -30,6 +33,10 @@ same noise.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -141,42 +148,148 @@ def parse_sampler_spec(spec: str):
     return name, stride
 
 
-def _guided_score(model: UnitSpeech, mask, cond, spk_emb, text_gradient_scale: float,
-                  spk_gradient_scale: float, n_timesteps: int, cfg_stride: int, std_of,
-                  seq=None):
-    """score(xt, t, i): the guided score of sampler step i at time t.
-
-    With cfg_stride k > 1 and guidance on (CFG delta caching, the JAX
-    package's `_reverse_diffusion_strided`): the steps run in groups of k
-    (k clamped to n_timesteps); a group's first step makes the full
-    guidance call and caches its delta in eps space, delta * std_t; the
-    group's other steps run the estimator on the conditional rows alone
-    (B rows, not 3B) and add the cached delta back as delta / std_t. The
-    trailing n % k steps run full. std_of(i) is step i's std_t. The
-    estimator returns f32 on every route, so the combine and the cached
-    delta are f32, as the sampler state is. seq: the estimator's frame
-    slice (the rows are this rank's frames)."""
-    cond_c, spk_c, mask_c, n_rows, combine = build_cfg_rows(
-        model, mask, cond, spk_emb, text_gradient_scale, spk_gradient_scale)
-    b = mask.shape[0]
+def step_kinds(n_timesteps: int, cfg_stride: int, n_rows: int) -> list:
+    """Each step's kind, in order: "full" (the n_rows-row guidance call) or
+    "cheap". With cfg_stride k > 1 and guidance on (CFG delta caching, the
+    JAX package's `_reverse_diffusion_strided`) the steps run in groups of k
+    (k clamped to n_timesteps): a group's first step is full and caches its
+    delta in eps space, delta * std_t; the group's other steps are cheap:
+    the estimator on the conditional rows alone (B rows, not 3B), the
+    cached delta added back as delta / std_t. The trailing n % k steps run
+    full."""
     stride = min(cfg_stride, n_timesteps) if n_rows > 1 else 1
     n_grouped = (n_timesteps // stride) * stride
-    cache = {}
+    return ["cheap" if stride > 1 and i < n_grouped and i % stride else "full"
+            for i in range(n_timesteps)]
+
+
+def sampler_tables(name: str, n_timesteps: int, beta_min: float, beta_max: float,
+                   t_end: float = 0.01) -> torch.Tensor:
+    """Sampler `name`'s per-step coefficients as one (n, K) float32 table on
+    the host, which a step reads at the device step counter: DDPM (t, c_x,
+    c_score, c_noise, std_t) of ops/schedule.make_reverse_schedule; dpm2
+    (t_eval, a, b, c1, c2, inv_alpha, sigma2, std_t) of make_ode_schedule.
+    std_t is the guidance stride's (sqrt(sigma2) for dpm2)."""
+    if name == "ddpm":
+        s = make_reverse_schedule(n_timesteps, beta_min, beta_max)
+        cols = [torch.from_numpy(c) for c in (s.t_cont, s.c_x, s.c_score, s.c_noise)]
+        std = forward_diffusion_coefficients(cols[0], beta_min, beta_max)[1]
+        return torch.stack(cols + [std], dim=1)
+    co = torch.from_numpy(make_ode_schedule(n_timesteps, beta_min, beta_max,
+                                            t_end=float(t_end)).stacked())
+    return torch.cat([co, torch.sqrt(co[:, 6:7])], dim=1)
+
+
+@dataclass
+class SamplerState:
+    """What a sampler step reads and writes, all of it tensors on the
+    sample's device, so that the step runs eagerly and inside a CUDA graph
+    alike (infer/graphs.py: a graph's replays read the addresses its
+    capture saw). xt (B, T, F) f32 is the sample; mask (B, T), cond
+    (B, T, F), spk (B, S) and the guidance rows cond_c, spk_c, mask_c of
+    build_cfg_rows are the request's; tables (n, K) is sampler_tables';
+    step (1,) int64 the device step counter, which each step increments;
+    noises (n, B, T, F) DDPM's draws of the request (None for dpm2, or where
+    each step draws its own); delta (B, T, F) the cached guidance delta of
+    a stride > 1 (else None); x0_prev (B, T, F) dpm2's history (else None).
+    n_rows, combine and scales (text, speaker) are the guidance's."""
+
+    xt: torch.Tensor
+    mask: torch.Tensor
+    cond: torch.Tensor
+    spk: torch.Tensor
+    cond_c: torch.Tensor
+    spk_c: torch.Tensor
+    mask_c: torch.Tensor
+    tables: torch.Tensor
+    step: torch.Tensor
+    n_rows: int
+    combine: Callable
+    scales: tuple
+    noises: Optional[torch.Tensor] = None
+    delta: Optional[torch.Tensor] = None
+    x0_prev: Optional[torch.Tensor] = None
+
+    TENSORS = ("xt", "mask", "cond", "spk", "cond_c", "spk_c", "mask_c", "tables", "step",
+               "noises", "delta", "x0_prev")
+
+    @classmethod
+    def start(cls, model: UnitSpeech, name: str, z, mask, cond, spk_emb, n_timesteps: int,
+              text_gradient_scale: float, spk_gradient_scale: float, cfg_stride: int,
+              t_end: float = 0.01, noises=None) -> "SamplerState":
+        """A request's state before its first step: xt = z * mask, the
+        guidance rows, the tables on z's device, the counter at 0; noises
+        (n, B, T, F) as given."""
+        cond_c, spk_c, mask_c, n_rows, combine = build_cfg_rows(
+            model, mask, cond, spk_emb, text_gradient_scale, spk_gradient_scale)
+        xt = z * mask[:, :, None]
+        cached = "cheap" in step_kinds(n_timesteps, cfg_stride, n_rows)
+        return cls(xt=xt, mask=mask, cond=cond, spk=spk_emb, cond_c=cond_c, spk_c=spk_c,
+                   mask_c=mask_c,
+                   tables=sampler_tables(name, n_timesteps, model.beta_min, model.beta_max,
+                                         t_end).to(xt.device),
+                   step=torch.zeros(1, dtype=torch.int64, device=xt.device), n_rows=n_rows,
+                   combine=combine,
+                   scales=(float(text_gradient_scale), float(spk_gradient_scale)),
+                   noises=noises, delta=torch.zeros_like(xt) if cached else None,
+                   x0_prev=torch.zeros_like(xt) if name == "dpm2" else None)
+
+    def like(self, steps: int) -> "SamplerState":
+        """Buffers of this state's shapes, the tables and noises for up to
+        `steps` steps: a CUDA graph's static state (load copies into it)."""
+        def empty(name):
+            t = getattr(self, name)
+            if t is None:
+                return None
+            return t.new_empty((steps,) + t.shape[1:]) if name in ("tables", "noises") \
+                else torch.empty_like(t)
+
+        return dataclasses.replace(self, **{k: empty(k) for k in self.TENSORS})
+
+    def load(self, other: "SamplerState") -> None:
+        """Copy `other`'s tensors into this state's (its first rows of the
+        tables and noises)."""
+        for k in self.TENSORS:
+            src, dst = getattr(other, k), getattr(self, k)
+            if src is not None:
+                (dst[:src.shape[0]] if k in ("tables", "noises") else dst).copy_(src)
+
+
+def sampler_step(model: UnitSpeech, name: str, st: SamplerState, kind: str, noise=None,
+                 seq=None) -> None:
+    """One step of sampler `name` ("ddpm" / "dpm2") of kind `kind`
+    (step_kinds') on st, in place, at the step that st.step holds, which it
+    then increments. Every number it reads lies on the device, so a CUDA
+    graph of it replays every step of a request. noise: this step's DDPM
+    draw where the caller draws each step (the seq-sharded sampler), else
+    st.noises' row. seq: the estimator's frame slice (the rows are this
+    rank's frames). The estimator returns f32 on every route, so the
+    combine and the cached delta are f32, as the sample is."""
+    row = st.tables.index_select(0, st.step)[0]
+    std = row[-1]
+    b = st.xt.shape[0]
     sliced = {} if seq is None else {"seq": seq}  # a model called unsharded as before
-
-    def score(xt, t: float, i: int):
-        if stride > 1 and i < n_grouped and i % stride:
-            s = model(xt, mask, cond, torch.full((b,), t, device=xt.device), spk_emb, **sliced)
-            return s + cache["delta_eps"] / std_of(i)
-        xt_c = torch.cat([xt] * n_rows) if n_rows > 1 else xt
-        s_all = model(xt_c, mask_c, cond_c, torch.full((xt_c.shape[0],), t, device=xt.device),
-                      spk_c, **sliced)
-        guided = combine(s_all)
-        if stride > 1:
-            cache["delta_eps"] = (guided - s_all[-b:]) * std_of(i)
-        return guided
-
-    return score
+    if kind == "cheap":
+        s = model(st.xt, st.mask, st.cond, row[0].repeat(b), st.spk, **sliced)
+        score = s + st.delta / std
+    else:
+        xt_c = torch.cat([st.xt] * st.n_rows) if st.n_rows > 1 else st.xt
+        s_all = model(xt_c, st.mask_c, st.cond_c, row[0].repeat(xt_c.shape[0]), st.spk_c,
+                      **sliced)
+        score = st.combine(s_all)
+        if st.delta is not None:
+            st.delta.copy_((score - s_all[-b:]) * std)
+    mask3 = st.mask[:, :, None]
+    if name == "ddpm":
+        if noise is None:
+            noise = st.noises.index_select(0, st.step)[0]
+        xt = (row[1] * st.xt + row[2] * score + row[3] * noise) * mask3
+    else:
+        x0 = (st.xt + row[6] * score) * row[5]
+        xt = (row[1] * st.xt + row[2] * (row[3] * x0 + row[4] * st.x0_prev)) * mask3
+        st.x0_prev.copy_(x0)
+    st.xt.copy_(xt)
+    st.step.add_(1)
 
 
 def seq_sharded(run, seq_shard, z, mask, cond, spk_emb, noises=None):
@@ -209,99 +322,111 @@ def sharded(run, mesh, sample_spec, z, mask, cond, spk_emb, noises=None):
     return out if shard is None else shard.gather(out, b)
 
 
+def draw_noises(shape, n_timesteps: int, generator, device, shard=None) -> torch.Tensor:
+    """DDPM's per-step draws of a request, up front: (n, *shape), the same
+    n calls of randn(shape, generator) in the same order as a draw each
+    step (shard: the global batch's rows drawn, this rank's kept), so the
+    request's numbers do not depend on when they are drawn."""
+    return torch.stack([(shard or SINGLE).randn(shape, generator, device)
+                        for _ in range(n_timesteps)])
+
+
+def run_steps(model: UnitSpeech, name: str, st: SamplerState, kinds, graphs=None, seq=None,
+              draw=None):
+    """Run the steps `kinds` (step_kinds') of sampler `name` on st: each one
+    replay of a CUDA graph (graphs, an infer/graphs.SamplerGraphs, which
+    copies st into its static state) or eagerly. draw(): a step's DDPM
+    noise drawn each step (the seq-sharded sampler, eager). Returns the
+    masked sample, a tensor of its own."""
+    if graphs is not None:
+        xt = graphs.run(model, name, st, kinds)
+    else:
+        for kind in kinds:
+            sampler_step(model, name, st, kind, None if draw is None else draw(), seq)
+        xt = st.xt
+    return xt * st.mask[:, :, None]
+
+
 @torch.no_grad()
 def reverse_diffusion(model: UnitSpeech, z, mask, cond, spk_emb, n_timesteps: int = 50,
                       text_gradient_scale: float = 0.0, spk_gradient_scale: float = 0.0,
                       generator: torch.Generator | None = None, noises=None,
-                      cfg_stride: int = 1, mesh=None, sample_spec=None, shard=None, seq=None):
+                      cfg_stride: int = 1, mesh=None, sample_spec=None, shard=None, seq=None,
+                      graphs=None):
     """Reverse DDPM sampling (reference unitspeech.py:333-374). z/cond
-    (B, T, F); mask (B, T); spk_emb (B, S). `noises` (n_timesteps, B, T, F)
-    replaces the per-step draws (also with cfg_stride > 1, which the JAX
-    package refuses: a test hook for its fold_in draws). cfg_stride > 1:
-    CFG delta caching (_guided_score); stride 1 is the reference's algebra.
-    mesh, sample_spec: data- and sequence-sharded sampling (sharded);
-    shard: the inputs are already this rank's rows of a data-sharded
-    batch; seq: a parallel.FrameSlice, the inputs are its frames (each
-    step's noise is drawn for the global sample, the rank keeping its rows
-    and frames). Returns mel (B, T, F) f32."""
+    (B, T, F); mask (B, T); spk_emb (B, S). The per-step noise is drawn up
+    front from `generator` (draw_noises), or `noises` (n_timesteps, B, T, F)
+    replaces the draws (also with cfg_stride > 1, which the JAX package
+    refuses: a test hook for its fold_in draws). cfg_stride > 1: CFG delta
+    caching (step_kinds); stride 1 is the reference's algebra. mesh,
+    sample_spec: data- and sequence-sharded sampling (sharded); shard: the
+    inputs are already this rank's rows of a data-sharded batch; seq: a
+    parallel.FrameSlice, the inputs are its frames (each step's noise is
+    drawn for the global sample, the rank keeping its rows and frames, as
+    the step runs). graphs: each step one CUDA graph replay (run_steps).
+    Returns mel (B, T, F) f32."""
     if mesh is not None:
         return sharded(
             lambda *a: reverse_diffusion(model, *a[:4], n_timesteps, text_gradient_scale,
                                          spk_gradient_scale, generator, a[4], cfg_stride,
                                          shard=a[5], seq=a[6]),
             mesh, sample_spec, z, mask, cond, spk_emb, noises)
-    sched = make_reverse_schedule(n_timesteps, model.beta_min, model.beta_max)
-    stds = forward_diffusion_coefficients(torch.from_numpy(sched.t_cont), model.beta_min,
-                                          model.beta_max)[1].tolist()
-    mask3 = mask[:, :, None]
-    xt = z * mask3
-    score_fn = _guided_score(model, mask, cond, spk_emb, text_gradient_scale,
-                             spk_gradient_scale, n_timesteps, cfg_stride, stds.__getitem__, seq)
-    for i in range(n_timesteps):
-        if noises is None:
-            noise = ((shard or SINGLE).randn(xt.shape, generator, xt.device) if seq is None
-                     else seq.randn(xt.shape, generator, xt.device, shard))
-        else:
-            noise = noises[i]
-        score = score_fn(xt, float(sched.t_cont[i]), i)
-        xt = (float(sched.c_x[i]) * xt + float(sched.c_score[i]) * score
-              + float(sched.c_noise[i]) * noise) * mask3
-    return xt * mask3
+    draw = None
+    if noises is None and seq is not None:
+        draw = lambda: seq.randn(z.shape, generator, z.device, shard)  # noqa: E731
+    elif noises is None:
+        noises = draw_noises(z.shape, n_timesteps, generator, z.device, shard)
+    st = SamplerState.start(model, "ddpm", z, mask, cond, spk_emb, n_timesteps,
+                            text_gradient_scale, spk_gradient_scale, cfg_stride, noises=noises)
+    return run_steps(model, "ddpm", st, step_kinds(n_timesteps, cfg_stride, st.n_rows), graphs,
+                     seq, draw)
 
 
 @torch.no_grad()
 def reverse_diffusion_ode(model: UnitSpeech, z, mask, cond, spk_emb, n_timesteps: int = 25,
                           text_gradient_scale: float = 0.0, spk_gradient_scale: float = 0.0,
                           t_end: float = 0.01, cfg_stride: int = 1, mesh=None,
-                          sample_spec=None, seq=None):
+                          sample_spec=None, seq=None, graphs=None):
     """Deterministic probability-flow sampling with DPM-Solver++(2M)
     (ops/schedule.make_ode_schedule; the JAX package's `dpm2` sampler, which
     the reference does not have): x0 = (x + sigma^2 * score) / alpha, then
     x <- a * x + b * (c1 * x0 + c2 * x0_prev). cfg_stride as in
     reverse_diffusion, with std_t = sqrt(sigma^2); the 2M history x0_prev
-    runs through full and cheap steps alike. mesh, sample_spec, seq: as
-    reverse_diffusion's (it draws nothing). Returns mel (B, T, F) f32."""
+    runs through full and cheap steps alike. mesh, sample_spec, seq, graphs:
+    as reverse_diffusion's (it draws nothing). Returns mel (B, T, F) f32."""
     if mesh is not None:
         return sharded(
             lambda *a: reverse_diffusion_ode(model, *a[:4], n_timesteps, text_gradient_scale,
                                              spk_gradient_scale, t_end, cfg_stride, seq=a[6]),
             mesh, sample_spec, z, mask, cond, spk_emb)
-    co = make_ode_schedule(n_timesteps, model.beta_min, model.beta_max,
-                           t_end=float(t_end)).stacked()
-    stds = torch.sqrt(torch.from_numpy(co[:, 6])).tolist()
-    mask3 = mask[:, :, None]
-    xt = z * mask3
-    x0_prev = torch.zeros_like(xt)  # the first step's c2 is 0
-    score_fn = _guided_score(model, mask, cond, spk_emb, text_gradient_scale,
-                             spk_gradient_scale, n_timesteps, cfg_stride, stds.__getitem__, seq)
-    for i in range(n_timesteps):
-        t_eval, a, b, c1, c2, inv_alpha, sigma2 = (float(v) for v in co[i])
-        x0 = (xt + sigma2 * score_fn(xt, t_eval, i)) * inv_alpha
-        xt = (a * xt + b * (c1 * x0 + c2 * x0_prev)) * mask3
-        x0_prev = x0
-    return xt * mask3
+    st = SamplerState.start(model, "dpm2", z, mask, cond, spk_emb, n_timesteps,
+                            text_gradient_scale, spk_gradient_scale, cfg_stride, t_end)
+    return run_steps(model, "dpm2", st, step_kinds(n_timesteps, cfg_stride, st.n_rows), graphs,
+                     seq)
 
 
 def sample(model: UnitSpeech, sampler: str, z, mask, cond, spk_emb, n_timesteps: int,
            text_gradient_scale: float = 0.0, spk_gradient_scale: float = 0.0,
            generator: torch.Generator | None = None, noises=None, shard=None,
-           seq_shard=None):
+           seq_shard=None, graphs=None):
     """The sampler a spec names (parse_sampler_spec), the one dispatch
     point of the TTS and voice-conversion paths: "ddpm[:cs<k>]" is
     reverse_diffusion, "dpm2[:cs<k>]" reverse_diffusion_ode (deterministic:
     it draws nothing and ignores noises). shard: reverse_diffusion's;
     seq_shard: a parallel.SeqShard splitting the frames (seq_sharded: the
-    inputs are every frame, so is the result)."""
+    inputs are every frame, so is the result). graphs: the decoder's
+    infer/graphs.SamplerGraphs (graphs_for decides where), each step one
+    CUDA graph replay; None runs the steps eagerly."""
     name, stride = parse_sampler_spec(sampler)
 
     def run(z, mask, cond, spk_emb, noises, seq):
         if name == "dpm2":
             return reverse_diffusion_ode(model, z, mask, cond, spk_emb, n_timesteps,
                                          text_gradient_scale, spk_gradient_scale,
-                                         cfg_stride=stride, seq=seq)
+                                         cfg_stride=stride, seq=seq, graphs=graphs)
         return reverse_diffusion(model, z, mask, cond, spk_emb, n_timesteps, text_gradient_scale,
                                  spk_gradient_scale, generator=generator, noises=noises,
-                                 cfg_stride=stride, shard=shard, seq=seq)
+                                 cfg_stride=stride, shard=shard, seq=seq, graphs=graphs)
 
     return seq_sharded(run, seq_shard, z, mask, cond, spk_emb, noises)
 

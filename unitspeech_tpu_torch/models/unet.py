@@ -217,8 +217,10 @@ class ResnetBlock(nn.Module):
         # quant_w of them (K9), set by quantize_int8
         self.int8_weights = self.i8pre_weights = None
         # the kernels' packed conv weights (K1 / K8 / K9) and the route they
-        # were packed for, set by pack
+        # were packed for, set by pack; those of another route, packed at
+        # its first call (spot_pack) and dropped by pack
         self.packed = self.packed_for = None
+        self.spot_packs = {}
 
     @property
     def tp(self):
@@ -239,19 +241,40 @@ class ResnetBlock(nn.Module):
         packed from those weights, whose scales its epilogue reads, so the
         two always agree. The route is taken at one frame, a length every
         deep gate passes; a longer input takes the same kernel or the flat
-        route. A call at another F packs what it reads on the spot."""
-        w1, w2 = self.block1.conv.kernel, self.block2.conv.kernel
-        wres = None if self.res_conv is None else self.res_conv.kernel
+        route. A call at another F packs what it reads at its first call
+        (spot_pack)."""
         if use_int8 and self.flat:
             self.quantize_int8()
         route = self.route(1, f, use_kernels, use_int8, use_deep, use_i8pre)
-        self.packed, self.packed_for = None, route
+        self.packed, self.packed_for, self.spot_packs = self._pack_route(route), route, {}
+
+    def _pack_route(self, route):
+        """The packed conv weights that `route` reads (None for flat and
+        Blocks)."""
+        w1, w2 = self.block1.conv.kernel, self.block2.conv.kernel
+        wres = None if self.res_conv is None else self.res_conv.kernel
         if route in ("k1", "k8"):
-            self.packed = pack_block_weights(w1, w2, wres)
-        elif route == "k9":
+            return pack_block_weights(w1, w2, wres)
+        if route == "k9":
             # conv1 in bf16 where the block's global Cin > Cout (JAX's hybrid)
             cin, cout = self.widths()
-            self.packed = pack_block_weights_i8(w1, self.i8pre_weights, wres, cin > cout)
+            return pack_block_weights_i8(w1, self.i8pre_weights, wres, cin > cout)
+        return None
+
+    def spot_pack(self, route, x):
+        """The packed weights of a kernel route other than the one pack
+        chose (a call at another F), made at its first call on the card and
+        kept until the next pack; None on the CPU, whose plain versions read
+        the raw kernels. Never made inside a CUDA graph capture: the warm-up
+        step before each capture makes it (infer/graphs.py)."""
+        if not x.is_cuda:
+            return None
+        if route not in self.spot_packs:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"ResnetBlock: packing the {route} route's weights inside "
+                                   "a CUDA graph capture (the warm-up step packs them)")
+            self.spot_packs[route] = self._pack_route(route)
+        return self.spot_packs[route]
 
     def quantize_int8(self):
         """Quantize both conv kernels once for the int8 routes: inference
@@ -304,9 +327,9 @@ class ResnetBlock(nn.Module):
                 extra.update(wq=self.i8pre_weights,
                              lens_rows=None if lens_rows is None else lens_rows())
             # K1 and K8 read one packing, K9 its own: a call that routes
-            # elsewhere (at another F than packed for) packs on the spot
+            # elsewhere (at another F than packed for) reads its spot pack
             same = ("k9",) if route == "k9" else ("k1", "k8")
-            packed = self.packed if self.packed_for in same else None
+            packed = self.packed if self.packed_for in same else self.spot_pack(route, x)
             return fn(
                 x.to(dtype), mask, bias_t, c1.kernel, c1.bias, *self.block1.norm.params(),
                 c2.kernel, c2.bias, *self.block2.norm.params(),
@@ -382,13 +405,17 @@ class ResnetBlock(nn.Module):
 
 
 def _pack_after_load(estimator, _incompatible_keys):
-    """load_state_dict post-hook of an estimator with kernels or int8 convs:
-    quantize the flat blocks' conv kernels (the flat int8 route and K9) and
-    pack the kernels' weights (K1 / K2 / K8 / K9 convs, K4, K11's resample
-    convs) once the weights are in, so that no call casts or reshapes them.
+    """load_state_dict post-hook: with kernels or int8 convs, quantize the
+    flat blocks' conv kernels (the flat int8 route and K9) and pack the
+    kernels' weights (K1 / K2 / K8 / K9 convs, K4, K11's resample convs)
+    once the weights are in, so that no call casts or reshapes them.
     Weights changed in place afterwards need another load_state_dict (or
-    `pack`)."""
-    estimator.pack()
+    `pack`). Either way the pack generation moves on (CUDA graphs captured
+    before are dropped, infer/graphs.py)."""
+    if estimator.packs():
+        estimator.pack()
+    else:
+        estimator.pack_generation += 1
 
 
 class LinearAttention(nn.Module):
@@ -548,8 +575,10 @@ class GradLogPEstimator2d(nn.Module):
         self.use_int8_deep = use_int8_deep
         self.use_deep, self.use_resample, self.use_i8pre_deep = (
             use_deep, use_resample, use_i8pre_deep)
-        if self.packs():
-            self.register_load_state_dict_post_hook(_pack_after_load)
+        self.register_load_state_dict_post_hook(_pack_after_load)
+        # moves on at every pack and load: the sampler's CUDA graphs read
+        # the packed tensors, so a graph of an older generation is stale
+        self.pack_generation = 0
         self.final_packed = None  # the final block's packed conv (K2), set by pack
         self.tp = None  # the model axis's ModelShard, set by parallel.shard_params_tp
         t_dim = dim + spk_emb_dim
@@ -588,7 +617,9 @@ class GradLogPEstimator2d(nn.Module):
         where they take the widths: the ResnetBlocks' convs that their routes
         read (ResnetBlock.pack, at the F of their stage), the final block's
         (K2) and the attention projections (K4) with the kernels, the
-        resample convs (K11) with use_resample."""
+        resample convs (K11) with use_resample. Moves the pack generation on:
+        every tensor it makes is new."""
+        self.pack_generation += 1
         for m in self.modules():
             if isinstance(m, (Downsample, Upsample)) and self.use_resample:
                 m.pack()

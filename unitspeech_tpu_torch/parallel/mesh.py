@@ -522,6 +522,11 @@ def sample_shard(mesh, sample_spec):
     return data, seq
 
 
+def world_size() -> int:
+    """The default process group's world size, 1 without one."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
 def train_shard(batch_size: int) -> DataShard:
     """The data-parallel shard of a training run: DataShard() in a single
     process; in a process group, the whole world on 'data'. The width is

@@ -520,15 +520,19 @@ class DynamicBatcher:
         forced to fill each row to the window bucket (_single_dispatch):
         every bucket of the window runs, not only the one that a warm
         batch's predicted lengths would land in. Every step of a sampler
-        runs the same shapes, so a dispatch runs k + 1 steps (k the spec's
-        guidance stride: a full step, then a cheap one), not the default
-        count. Each dispatch takes the device lock in turn with the
-        dispatcher's batches, and nothing reaches the calibrator or
-        /stats."""
+        runs the same shapes, so a dispatch runs k steps (k the spec's
+        guidance stride: a full step, then k - 1 cheap ones), not the
+        default count: on the card each step kind's CUDA graph is captured
+        once a point, its tables sized for the default count
+        (Synthesizer.reserve_steps), as the JAX package compiles its grid
+        before the port opens. Each dispatch takes the device lock in turn
+        with the dispatcher's batches, and nothing reaches the calibrator
+        or /stats."""
         from unitspeech_tpu_torch.infer.tts import forced_durations
         from unitspeech_tpu_torch.models.diffusion import parse_sampler_spec
 
-        steps = min(self.default_steps, parse_sampler_spec(self.default_sampler)[1] + 1)
+        steps = min(self.default_steps, parse_sampler_spec(self.default_sampler)[1])
+        synth.reserve_steps(self.default_steps)
         for bsz in self.batch_ladder:
             for tb in token_buckets:
                 tokens = np.ones((bsz, tb), np.int64)

@@ -94,7 +94,19 @@ def short_name(name: str) -> str:
     return "".join(out)
 
 
+# the CUDA runtime and driver calls that put work on the card, as the
+# profiler records them on the host: kernel launches, graph launches (one
+# call whatever the graph holds), copies and sets
+HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch", "cudaMemcpy",
+                     "cuMemcpy", "cudaMemset", "cuMemset")
+
+
 def _device_events(fn, reps: int) -> list:
+    """The device activities of `reps` profiled calls of fn (_profiled)."""
+    return _profiled(fn, reps)[0]
+
+
+def _profiled(fn, reps: int, warmup: int = 3) -> tuple:
     """The device activities (kernels and copies) of `reps` profiled calls
     of fn, after 3 unprofiled ones. The calls run EDGE_S after the trace
     starts and end EDGE_S before it stops: a kernel right at either edge
@@ -102,13 +114,15 @@ def _device_events(fn, reps: int) -> list:
     which would show as a fraction of a launch per call. Each is read
     from the trace's raw records (name, time_range.start and device_time
     in us, as the profiler's events have them): building the profiler's
-    event tree takes seconds for a call of 60 000 launches."""
+    event tree takes seconds for a call of 60 000 launches. warmup: the
+    unprofiled calls before the window. Returns (the device activities, the
+    names of the host's calls of HOST_LAUNCH_CALLS in the window)."""
     from types import SimpleNamespace
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -117,9 +131,12 @@ def _device_events(fn, reps: int) -> list:
             fn()
         torch.cuda.synchronize()
         time.sleep(EDGE_S)
+    events = prof.profiler.kineto_results.events()
+    host = [e.name() for e in events if e.device_type() != DeviceType.CUDA
+            and e.name().startswith(HOST_LAUNCH_CALLS)]
     return [SimpleNamespace(name=e.name(), time_range=SimpleNamespace(start=e.start_ns() / 1e3),
                             device_time=e.duration_ns() / 1e3)
-            for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+            for e in events if e.device_type() == DeviceType.CUDA], host
 
 
 def _device_us(e) -> float:
@@ -145,13 +162,21 @@ def launch_times(fn, reps: int) -> list[dict]:
     return out
 
 
-def device_activity(fn, reps: int, names: bool = False) -> dict:
+def device_activity(fn, reps: int, names: bool = False, host: bool = False,
+                    warmup: int = 3) -> dict:
     """{sum_ms, busy_ms, launches} per call of fn over `reps` profiled calls
     (_device_events): the summed durations of its device activities, the
     time at least one of them ran (the union of their intervals, which is
     below the sum where activities overlap), and their count; with `names`
-    also by_name, their count per call by short_name."""
-    events = sorted(_device_events(fn, reps), key=lambda e: e.time_range.start)
+    also by_name, their count per call by short_name; with `host` (after
+    `warmup` unprofiled calls) also host_calls, the host's calls that put
+    work on the card (HOST_LAUNCH_CALLS), and graph_launches, those that
+    launch a CUDA graph, per call."""
+    if host:
+        events, calls = _profiled(fn, reps, warmup)
+    else:
+        events = _device_events(fn, reps)
+    events = sorted(events, key=lambda e: e.time_range.start)
     busy_us, end = 0.0, float("-inf")
     for e in events:
         a, b = e.time_range.start, e.time_range.start + _device_us(e)
@@ -159,6 +184,10 @@ def device_activity(fn, reps: int, names: bool = False) -> dict:
         end = max(end, b)
     out = {"sum_ms": sum(_device_us(e) for e in events) / 1e3 / reps,
            "busy_ms": busy_us / 1e3 / reps, "launches": len(events) / reps}
+    if host:
+        out["host_calls"] = len(calls) / reps
+        out["graph_launches"] = sum(c.startswith(("cudaGraphLaunch", "cuGraphLaunch"))
+                                    for c in calls) / reps
     if names:
         raw: dict[str, int] = {}
         for e in events:
